@@ -55,3 +55,8 @@ def pytest_configure(config):
         "slow: heaviest tests (minutes each on the 1-core host); deselect "
         "with -m 'not slow' for the fast iteration subset",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA kernels); skips "
+        "where there is none",
+    )
