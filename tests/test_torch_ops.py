@@ -121,8 +121,6 @@ class TestFlashBlockAttention:
     def test_unported_options_raise(self):
         z = torch.zeros(1, 4, 2, 8)
         lens = torch.zeros(1, dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="K1b"):
-            fa.flash_block_attention(z, z, z, lens, lens, True, q_preproc={})
         with pytest.raises(NotImplementedError, match="K1c"):
             fa.flash_block_attention(z, z, z, lens, lens, True, return_lse=True)
 

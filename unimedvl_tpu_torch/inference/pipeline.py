@@ -1,22 +1,30 @@
-"""Host-side inference orchestrator, understanding slice (port of
+"""Host-side inference orchestrator (port of
 unimedvl_tpu/inference/pipeline.py::InterleaveInferencer): context set-up,
-text and ViT image context updates, greedy or sampled answer decoding, and
-``chat``, the one-call VQA entry point.
+text, ViT and VAE image context updates, answer decoding and ``chat`` (the
+VQA entry point), and image generation: ``gen_image`` with the batched CFG
+flow loop, ``interleave_inference`` (text to image, image editing) and
+``__call__``.
 
 Contexts hold the KV cache, which the port updates in place. A context is a
 cursor into that cache, not a snapshot: after ``update_context_*`` on a
-context, use the returned one and drop the old. ``gen_text`` writes its decode
-kv past the context's ``lens`` and never advances them, so asking twice on one
-context gives the same answer.
+context, use the returned one and drop the old. ``fork`` gives a context
+storage of its own (a copy), so forks can be appended to independently, as
+the CFG recipes do. ``gen_text`` writes its decode kv past the context's
+``lens`` and never advances them, so asking twice on one context gives the
+same answer.
 
-Text-to-image, the VAE image context, multi-turn ``chat_turn``, streaming and
-speculative decoding are later slices of ROADMAP queue 1.
+Every random draw (the initial noise of the flow loop, the VAE posterior
+sample) comes from the inferencer's ``torch.Generator`` through ``_randn``.
+
+Multi-turn ``chat_turn``, streaming, speculative decoding, the
+vqa-reconstruction recipes and chunked generation jobs are later slices of
+ROADMAP queue 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +34,14 @@ from unimedvl_tpu.config import TransformConfig
 from unimedvl_tpu_torch.models import bagel
 from unimedvl_tpu_torch.models.bagel import Bagel
 from unimedvl_tpu_torch.models.qwen2_mot import KVCache
+
+# System prompts for think mode (inferencer.py:23-28).
+VLM_THINK_SYSTEM_PROMPT = """You should first think about the reasoning process in the mind and then provide the user with the answer.
+The reasoning process is enclosed within <think> </think> tags, i.e. <think> reasoning process here </think> answer here"""
+
+GEN_THINK_SYSTEM_PROMPT = """You should first think about the planning process in your mind, and then generate the image.
+The planning process is enclosed within <think> </think> tags; that is, <think> planning process here </think> image here.
+"""
 
 _CAPACITY_BUCKET = 512
 
@@ -43,6 +59,13 @@ class GenContext:
     kv_len: int = 0
     rope: int = 0
 
+    def fork(self) -> "GenContext":
+        """A context with the same contents in storage of its own: appending
+        to either leaves the other as it was."""
+        c = self.cache
+        cache = KVCache(k=c.k.clone(), v=c.v.clone(), lens=c.lens.clone())
+        return GenContext(cache=cache, kv_len=self.kv_len, rope=self.rope)
+
 
 class InterleaveInferencer:
     def __init__(
@@ -52,22 +75,31 @@ class InterleaveInferencer:
         new_token_ids: Dict[str, int],
         vit_transform=None,
         seed: int = 0,
+        vae_transform=None,
     ):
-        """``model``: a Bagel on its device; ``tokenizer``: anything with
+        """``model``: a Bagel on its device (built ``with_vae`` for image
+        generation and VAE image contexts); ``tokenizer``: anything with
         ``encode``/``decode`` whose special tokens went through
         ``unimedvl_tpu.data.tokenizer.add_special_tokens`` (which gave
-        ``new_token_ids``); ``vit_transform``: an
-        ``unimedvl_tpu.data.imaging.ImageTransform`` (default: the interactive
-        ViT geometry, built at the first image); ``seed``: seeds the sampling
-        generator."""
+        ``new_token_ids``); ``vit_transform`` / ``vae_transform``:
+        ``unimedvl_tpu.data.imaging.ImageTransform``s (defaults: the
+        interactive ViT and VAE geometries, built at the first image);
+        ``seed``: seeds the generator of every random draw."""
         self.model = model
         self.cfg = model.config
         self.tokenizer = tokenizer
         self.new_token_ids = new_token_ids
         self.vit_transform = vit_transform
+        self.vae_transform = vae_transform
         norm = model.language_model.model.norm.weight
         self.device, self.dtype = norm.device, norm.dtype
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _randn(self, shape) -> torch.Tensor:
+        """Standard normal fp32 noise on the device, from the inferencer's
+        generator: the only source of randomness of image generation."""
+        return torch.randn(shape, generator=self._generator, device=self.device,
+                           dtype=torch.float32)
 
     # -- context management --------------------------------------------------
     def init_gen_context(self, capacity: int = _CAPACITY_BUCKET) -> GenContext:
@@ -117,17 +149,23 @@ class InterleaveInferencer:
         return GenContext(cache=cache, kv_len=ctx.kv_len + T, rope=ctx.rope + T)
 
     # -- images --------------------------------------------------------------
-    def _vit_resized_u8(self, image) -> np.ndarray:
-        """A PIL image, or a uint8 [H, W, 3] array, resized by the ViT transform
+    @staticmethod
+    def _transform(transform, default: TransformConfig):
+        if transform is not None:
+            return transform
+        from unimedvl_tpu.data import imaging  # imports PIL
+
+        return imaging.ImageTransform(
+            default.max_size, default.min_size, default.stride, default.max_pixels
+        )
+
+    @staticmethod
+    def _resized_u8(image, transform) -> np.ndarray:
+        """A PIL image, or a uint8 [H, W, 3] array, resized by ``transform``
         (PIL bicubic). An array already at the target size is used as is."""
         from unimedvl_tpu.data import imaging  # imports PIL
 
-        if self.vit_transform is None:
-            t = TransformConfig.vit_interactive()
-            self.vit_transform = imaging.ImageTransform(
-                t.max_size, t.min_size, t.stride, t.max_pixels
-            )
-        rt = self.vit_transform.resize_transform
+        rt = transform.resize_transform
         if isinstance(image, np.ndarray):
             if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
                 raise ValueError(
@@ -142,27 +180,70 @@ class InterleaveInferencer:
             image = imaging.Image.fromarray(image)
         return np.asarray(rt(imaging.pil_img2rgb(image)), dtype=np.uint8)
 
-    def update_context_image(self, image, ctx: GenContext, vae: bool = True,
-                             vit: bool = True) -> GenContext:
-        """ViT image append through the und expert (inferencer.py:131-162).
-        ``vae=True`` (the gen-expert VAE context) is ROADMAP slice M7."""
-        if vae:
-            raise NotImplementedError(
-                "the VAE image context is ROADMAP slice M7; pass vae=False"
-            )
-        if not vit:
-            raise ValueError("update_context_image needs vit=True")
+    def _vit_resized_u8(self, image) -> np.ndarray:
+        self.vit_transform = self._transform(self.vit_transform, TransformConfig.vit_interactive())
+        return self._resized_u8(image, self.vit_transform)
+
+    def _vae_resized_u8(self, image) -> np.ndarray:
+        self.vae_transform = self._transform(self.vae_transform, TransformConfig.vae_interactive())
+        return self._resized_u8(image, self.vae_transform)
+
+    def _position_ids(self, H: int, W: int, patch: int, max_side: int) -> np.ndarray:
         from unimedvl_tpu.data import imaging
 
-        u8 = self._vit_resized_u8(image)
-        H, W = u8.shape[:2]
-        p = self.cfg.vit.patch_size
-        n = (H // p) * (W // p)
         position_ids = (
             imaging.position_ids_interpolate if self.cfg.interpolate_pos
             else imaging.position_ids_extrapolate
         )
-        pos_ids = position_ids(H, W, p, self.cfg.vit_max_num_patch_per_side)
+        return position_ids(H, W, patch, max_side)
+
+    def _start_end(self) -> torch.Tensor:
+        return torch.tensor(
+            [self.new_token_ids["start_of_image"], self.new_token_ids["end_of_image"]],
+            device=self.device,
+        )
+
+    def _update_context_vae(self, image, ctx: GenContext) -> GenContext:
+        """VAE image append through the gen expert (inferencer.py:131-162):
+        encode with a posterior sample, then the bucketed gen-mode prefill."""
+        if not hasattr(self.model, "vae_model"):
+            raise ValueError("a VAE image context needs a Bagel built with_vae (or load_ae)")
+        u8 = self._vae_resized_u8(image)
+        H, W = u8.shape[:2]
+        ld, vae = self.cfg.latent_downsample, self.cfg.vae
+        n = (H // ld) * (W // ld)
+        pos_ids = self._position_ids(H, W, ld, self.cfg.max_latent_size)
+        bucket = bagel.vit_token_bucket(n)
+        # the whole padded block is written before its padding is masked
+        ctx = self._ensure_capacity(ctx, bucket + 2)
+        image_t = bagel.preprocess_vae_image(torch.tensor(u8, device=self.device))
+        noise = self._randn((1, vae.z_channels, H // vae.downsample, W // vae.downsample))
+        tokens = bagel.encode_vae_latent_tokens(self.model, image_t, noise)
+        tokens = F.pad(tokens, (0, 0, 0, bucket - n))
+        padded_pos = np.zeros(bucket, np.int64)
+        padded_pos[:n] = pos_ids
+        cache = bagel.prefill_vae_bucketed(
+            self.model, ctx.cache, tokens, torch.from_numpy(padded_pos)[None].to(self.device),
+            n, self._start_end(), ctx.rope,
+        )
+        return GenContext(cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1)
+
+    def update_context_image(self, image, ctx: GenContext, vae: bool = True,
+                             vit: bool = True) -> GenContext:
+        """Image append (inferencer.py:131-162): the VAE latents through the
+        gen expert, then the ViT tokens through the und expert, as asked.
+        ``image``: a PIL image or a uint8 [H, W, 3] array."""
+        if not (vae or vit):
+            raise ValueError("update_context_image needs vae=True or vit=True")
+        if vae:
+            ctx = self._update_context_vae(image, ctx)
+        if not vit:
+            return ctx
+        u8 = self._vit_resized_u8(image)
+        H, W = u8.shape[:2]
+        p = self.cfg.vit.patch_size
+        n = (H // p) * (W // p)
+        pos_ids = self._position_ids(H, W, p, self.cfg.vit_max_num_patch_per_side)
         bucket = bagel.vit_token_bucket(n)
         # the whole padded block is written before its padding is masked
         ctx = self._ensure_capacity(ctx, bucket + 2)
@@ -172,13 +253,9 @@ class InterleaveInferencer:
         tokens = F.pad(tokens, (0, 0, 0, bucket - n))
         padded_pos = np.zeros(bucket, np.int64)
         padded_pos[:n] = pos_ids
-        start_end = torch.tensor(
-            [self.new_token_ids["start_of_image"], self.new_token_ids["end_of_image"]],
-            device=self.device,
-        )
         cache = bagel.prefill_vit_bucketed(
             self.model, ctx.cache, tokens,
-            torch.from_numpy(padded_pos)[None].to(self.device), n, start_end, ctx.rope,
+            torch.from_numpy(padded_pos)[None].to(self.device), n, self._start_end(), ctx.rope,
         )
         return GenContext(cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1)
 
@@ -216,3 +293,200 @@ class InterleaveInferencer:
         return self.gen_text(
             ctx, max_length=max_length, do_sample=do_sample, temperature=temperature
         )
+
+    # -- image generation ----------------------------------------------------
+    def _stack_contexts(self, contexts: List[GenContext]) -> Tuple[KVCache, torch.Tensor]:
+        """Stack 1-3 single-stream caches into one multi-stream cache, each
+        zero-padded to the largest capacity; returns it and each context's
+        rope position."""
+        cap = max(c.cache.capacity for c in contexts)
+
+        def padded(t: torch.Tensor) -> torch.Tensor:
+            return F.pad(t, (0, 0, 0, cap - t.shape[3]))
+
+        caches = [c.cache for c in contexts]
+        stacked = KVCache(
+            k=torch.cat([padded(c.k) for c in caches], dim=1),
+            v=torch.cat([padded(c.v) for c in caches], dim=1),
+            lens=torch.cat([c.lens for c in caches]),
+        )
+        positions = torch.tensor([c.rope for c in contexts], device=self.device)
+        return stacked, positions
+
+    def gen_image_latent(
+        self,
+        image_shape: Tuple[int, int],
+        gen_context: GenContext,
+        cfg_text_scale: float = 4.0,
+        cfg_img_scale: float = 1.5,
+        cfg_text_precontext: Optional[GenContext] = None,
+        cfg_img_precontext: Optional[GenContext] = None,
+        cfg_interval: Tuple[float, float] = (0.4, 1.0),
+        cfg_renorm_min: float = 0.0,
+        cfg_renorm_type: str = "global",
+        num_timesteps: int = 50,
+        timestep_shift: float = 3.0,
+    ) -> torch.Tensor:
+        """Denoise to the final latent tokens [h*w, p*p*z] fp32, without the
+        VAE decode. The main context and the CFG contexts in use run as the
+        streams of one batched forward per step."""
+        H, W = image_shape
+        ld = self.cfg.latent_downsample
+        h, w = H // ld, W // ld
+        use_text_cfg = cfg_text_scale > 1.0 and cfg_text_precontext is not None
+        use_img_cfg = cfg_img_scale > 1.0 and cfg_img_precontext is not None
+        contexts = [gen_context]
+        if use_text_cfg:
+            contexts.append(cfg_text_precontext)
+        if use_img_cfg:
+            contexts.append(cfg_img_precontext)
+        caches, positions = self._stack_contexts(contexts)
+        pos_ids = self._position_ids(H, W, ld, self.cfg.max_latent_size)
+        noise = self._randn((h * w, self.cfg.patch_latent_dim))
+        return bagel.generate_latents(
+            self.model, caches, positions, torch.from_numpy(pos_ids).to(self.device), noise,
+            self._start_end(),
+            num_timesteps=num_timesteps, timestep_shift=timestep_shift,
+            cfg_text_scale=cfg_text_scale, cfg_img_scale=cfg_img_scale,
+            cfg_interval=tuple(cfg_interval), cfg_renorm_min=cfg_renorm_min,
+            cfg_renorm_type=cfg_renorm_type, use_text_cfg=use_text_cfg,
+            use_img_cfg=use_img_cfg,
+        )
+
+    def decode_image(self, latent_tokens: torch.Tensor, image_shape: Tuple[int, int]):
+        """Latent tokens -> a PIL RGB image of ``image_shape`` (H, W)."""
+        from PIL import Image
+
+        H, W = image_shape
+        ld = self.cfg.latent_downsample
+        img = bagel.decode_latent_to_image(self.model, latent_tokens, H // ld, W // ld)
+        return Image.fromarray(img.cpu().numpy())
+
+    def gen_image(
+        self,
+        image_shape: Tuple[int, int],
+        gen_context: GenContext,
+        cfg_text_scale: float = 4.0,
+        cfg_img_scale: float = 1.5,
+        cfg_text_precontext: Optional[GenContext] = None,
+        cfg_img_precontext: Optional[GenContext] = None,
+        cfg_interval: Tuple[float, float] = (0.4, 1.0),
+        cfg_renorm_min: float = 0.0,
+        cfg_renorm_type: str = "global",
+        num_timesteps: int = 50,
+        timestep_shift: float = 3.0,
+    ):
+        """Text- and image-conditioned generation with dual CFG
+        (inferencer.py:165-232); returns a PIL image."""
+        latent = self.gen_image_latent(
+            image_shape, gen_context, cfg_text_scale=cfg_text_scale,
+            cfg_img_scale=cfg_img_scale, cfg_text_precontext=cfg_text_precontext,
+            cfg_img_precontext=cfg_img_precontext, cfg_interval=cfg_interval,
+            cfg_renorm_min=cfg_renorm_min, cfg_renorm_type=cfg_renorm_type,
+            num_timesteps=num_timesteps, timestep_shift=timestep_shift,
+        )
+        return self.decode_image(latent, image_shape)
+
+    # -- top-level recipes ---------------------------------------------------
+    def interleave_inference(
+        self,
+        input_lists: List[Any],
+        think: bool = False,
+        understanding_output: bool = False,
+        max_think_token_n: int = 1000,
+        do_sample: bool = False,
+        text_temperature: float = 0.3,
+        cfg_text_scale: float = 3.0,
+        cfg_img_scale: float = 1.5,
+        cfg_interval: Tuple[float, float] = (0.4, 1.0),
+        timestep_shift: float = 3.0,
+        num_timesteps: int = 50,
+        cfg_renorm_min: float = 0.0,
+        cfg_renorm_type: str = "global",
+        image_shapes: Tuple[int, int] = (1024, 1024),
+    ) -> List[Any]:
+        """The interleaved recipe (inferencer.py:552-638): strings and images
+        (PIL, or uint8 [H, W, 3] arrays) into the context, then an answer
+        (``understanding_output``) or an image. The cfg_text context is the
+        context before the latest text; the cfg_img context holds the texts
+        only."""
+        output_list: List[Any] = []
+        gen_context = self.init_gen_context()
+        cfg_img_context = gen_context.fork()
+        cfg_text_context = gen_context.fork()
+        if think:
+            sp = VLM_THINK_SYSTEM_PROMPT if understanding_output else GEN_THINK_SYSTEM_PROMPT
+            gen_context = self.update_context_text(sp, gen_context)
+            cfg_img_context = self.update_context_text(sp, cfg_img_context)
+        for term in input_lists:
+            if isinstance(term, str):
+                cfg_text_context = gen_context.fork()
+                gen_context = self.update_context_text(term, gen_context)
+                cfg_img_context = self.update_context_text(term, cfg_img_context)
+            else:
+                img = self._vae_resized_u8(term)
+                gen_context = self.update_context_image(
+                    img, gen_context, vae=not understanding_output, vit=True
+                )
+                cfg_text_context = gen_context.fork()
+        if understanding_output:
+            output_list.append(self.gen_text(
+                gen_context, max_length=max_think_token_n, do_sample=do_sample,
+                temperature=text_temperature,
+            ))
+            return output_list
+        if think:
+            text = self.gen_text(
+                gen_context, max_length=max_think_token_n, do_sample=do_sample,
+                temperature=text_temperature,
+            )
+            gen_context = self.update_context_text(text, gen_context)
+            output_list.append(text)
+        output_list.append(self.gen_image(
+            image_shapes, gen_context, cfg_text_precontext=cfg_text_context,
+            cfg_img_precontext=cfg_img_context, cfg_text_scale=cfg_text_scale,
+            cfg_img_scale=cfg_img_scale, cfg_interval=cfg_interval,
+            timestep_shift=timestep_shift, num_timesteps=num_timesteps,
+            cfg_renorm_min=cfg_renorm_min, cfg_renorm_type=cfg_renorm_type,
+        ))
+        return output_list
+
+    def _calculate_target_size_with_aspect_ratio(self, width: int, height: int):
+        """(H, W) keeping the aspect ratio under the VAE transform's
+        constraints (inferencer.py:42-71)."""
+        from unimedvl_tpu.data.imaging import compute_resize_shape
+
+        self.vae_transform = self._transform(self.vae_transform, TransformConfig.vae_interactive())
+        rt = self.vae_transform.resize_transform
+        new_w, new_h = compute_resize_shape(
+            width, height, rt.max_size, rt.min_size, rt.stride, rt.max_pixels
+        )
+        return new_h, new_w
+
+    def __call__(self, image=None, text: Optional[str] = None, inference_ver: int = 0,
+                 **kwargs) -> Dict[str, Any]:
+        """Main entry point (inferencer.py:640-680): ``{"image": ..., "text": ...}``.
+        ``inference_ver=0`` is ``interleave_inference``; the
+        vqa-reconstruction recipe (1) is a later slice."""
+        output: Dict[str, Any] = {"image": None, "text": None}
+        if image is None and text is None:
+            return output
+        if inference_ver != 0:
+            raise NotImplementedError(
+                f"inference_ver={inference_ver} (vqa-reconstruction) is a later slice "
+                "of ROADMAP queue 1 (M7)"
+            )
+        inputs: List[Any] = []
+        if image is not None:
+            inputs.extend(image if isinstance(image, list) else [image])
+        if text is not None:
+            inputs.append(text)
+        images = []
+        for item in self.interleave_inference(inputs, **kwargs):
+            if isinstance(item, str):
+                output["text"] = item
+            else:
+                images.append(item)
+        if images:
+            output["image"] = images[0] if len(images) == 1 else images
+        return output

@@ -1,21 +1,28 @@
-"""Bagel unified model, understanding programs (port of
-unimedvl_tpu/models/bagel.py): the ViT image prefill, the causal text prefill
-and the greedy / sampled decode loop.
+"""Bagel unified model (port of unimedvl_tpu/models/bagel.py): the
+understanding programs (the ViT image prefill, the causal text prefill, the
+greedy / sampled decode loop) and the generation programs (the VAE image
+prefill, the rectified-flow loop with batched CFG, the VAE decode).
 
 ``Bagel`` holds every released weight under its released name: the Qwen2 MoT
 LLM with both experts, the SigLIP ViT, the connector and the frozen ViT
-position table, and the gen-side projections (``vae2llm``, ``llm2vae``,
-``time_embedder``, ``latent_pos_embed``), which are loaded and held but not run
-here: text-to-image is ROADMAP slice M7.
+position table, the gen-side projections (``vae2llm``, ``llm2vae``,
+``time_embedder``, ``latent_pos_embed``) and, when built ``with_vae``, the
+FLUX VAE as ``vae_model`` (shipped apart, as ``ae.safetensors``).
 
 Packing contracts as in the JAX package: text blocks are [S, T] ids with
-trailing padding, causal; an image block is [<vision_start>, vit tokens...,
-<vision_end>] sharing one rope position, non-causal.
+trailing padding, causal; an image block is [<vision_start>, tokens...,
+<vision_end>] sharing one rope position, non-causal; ViT images run through
+the und expert, VAE latents through the gen expert.
 
-dtype note: the JAX package lets its fp32 patch tokens promote the ViT and the
-image prefill to fp32 whatever the weights' dtype; the port casts the patch
-tokens to the weights' dtype, so a bf16 model runs both in bf16 and its
-attention goes through the bf16 kernels.
+dtype notes. The JAX package lets its fp32 patch tokens and VAE latents
+promote the ViT and the image prefills to fp32 whatever the weights' dtype;
+the port casts them to the weights' dtype, so a bf16 model runs both in bf16
+and its attention goes through the bf16 kernels. The flow loop keeps the JAX
+package's mixed dtypes: the state x_t is fp32 throughout, ``vae2llm`` and the
+timestep embedding run in fp32 (their weights widened, not x_t rounded), the
+sum is rounded to the model dtype once, the velocity comes out of ``llm2vae``
+in the model dtype, and the CFG combination and the update are fp32. The VAE
+is held and runs in fp32.
 """
 
 from __future__ import annotations
@@ -23,7 +30,9 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from unimedvl_tpu.config import BagelConfig
@@ -31,8 +40,9 @@ from unimedvl_tpu_torch.models import qwen2_mot as mot
 from unimedvl_tpu_torch.models.layers import LayerNorm, PosEmbed, RMSNorm, linear
 from unimedvl_tpu_torch.models.qwen2_mot import KVCache, Qwen2MoTForCausalLM
 from unimedvl_tpu_torch.models.siglip import SiglipVisionModel
-from unimedvl_tpu_torch.ops.activations import ACT2FN
-from unimedvl_tpu_torch.ops.sincos import get_2d_sincos_pos_embed
+from unimedvl_tpu_torch.models.vae import AutoEncoder, GroupNorm
+from unimedvl_tpu_torch.ops.activations import ACT2FN, silu
+from unimedvl_tpu_torch.ops.sincos import get_2d_sincos_pos_embed, timestep_embedding
 
 
 class MLPConnector(nn.Module):
@@ -43,7 +53,7 @@ class MLPConnector(nn.Module):
 
 
 class TimestepEmbedder(nn.Module):
-    """Held for the gen slice; released names ``time_embedder.mlp.{0,2}``."""
+    """Released names ``time_embedder.mlp.{0,2}``; run by :func:`time_embed`."""
 
     def __init__(self, dim: int, freq_dim: int = 256, device=None, dtype=None):
         super().__init__()
@@ -57,10 +67,11 @@ class Bagel(nn.Module):
     """All released weights of the unified model, inference only.
 
     ``device="meta"`` builds the structure without memory; ``to_empty`` and
-    :func:`init_random_` (or a loader) then fill it.
+    :func:`init_random_` (or a loader) then fill it. ``with_vae`` adds the
+    FLUX VAE as ``vae_model``, in fp32 whatever ``dtype`` is.
     """
 
-    def __init__(self, cfg: BagelConfig, device=None, dtype=None):
+    def __init__(self, cfg: BagelConfig, device=None, dtype=None, with_vae: bool = False):
         super().__init__()
         self.config = cfg
         C = cfg.llm.hidden_size
@@ -75,30 +86,34 @@ class Bagel(nn.Module):
             self.llm2vae = linear(C, pd, True, device, dtype)
             self.time_embedder = TimestepEmbedder(C, device=device, dtype=dtype)
             self.latent_pos_embed = PosEmbed(cfg.max_latent_size**2, C, device, dtype)
+            if with_vae:
+                self.vae_model = AutoEncoder(cfg.vae, device)
         self.requires_grad_(False)
 
 
 @torch.no_grad()
-def init_random_(model: Bagel, generator: torch.Generator) -> Bagel:
+def init_random_(model: Bagel, generator: torch.Generator, llm2vae_zero: bool = True) -> Bagel:
     """Fill every weight from ``generator`` the way the JAX package's
-    ``init_params`` does: linears uniform in +-1/sqrt(fan_in) with zero bias,
-    embeddings and lm_head normal * 0.02, norm gains 1 and biases 0, the
-    position tables sin-cos, ``llm2vae`` zero."""
+    ``init_params`` does: linears and convolutions uniform in
+    +-1/sqrt(fan_in) with zero bias, embeddings and lm_head normal * 0.02,
+    norm gains 1 and biases 0, the position tables sin-cos, ``llm2vae`` zero
+    unless ``llm2vae_zero`` is False (then the velocity head is random too,
+    and the flow loop moves its state)."""
     cfg = model.config
     for name, mod in model.named_modules():
-        if isinstance(mod, nn.Linear):
+        if isinstance(mod, (nn.Linear, nn.Conv2d)):
             if name == "language_model.lm_head":
                 mod.weight.normal_(0.0, 0.02, generator=generator)
             else:
-                bound = 1.0 / math.sqrt(mod.in_features)
+                bound = 1.0 / math.sqrt(mod.weight[0].numel())  # fan_in
                 mod.weight.uniform_(-bound, bound, generator=generator)
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, 0.02, generator=generator)
-        elif isinstance(mod, (RMSNorm, LayerNorm)):
+        elif isinstance(mod, (RMSNorm, LayerNorm, GroupNorm)):
             mod.weight.fill_(1.0)
-            if isinstance(mod, LayerNorm):
+            if not isinstance(mod, RMSNorm):
                 mod.bias.zero_()
     C = cfg.llm.hidden_size
     if hasattr(model, "vit_pos_embed"):
@@ -109,8 +124,9 @@ def init_random_(model: Bagel, generator: torch.Generator) -> Bagel:
         model.latent_pos_embed.pos_embed.copy_(
             torch.from_numpy(get_2d_sincos_pos_embed(C, cfg.max_latent_size))
         )
-        model.llm2vae.weight.zero_()
-        model.llm2vae.bias.zero_()
+        if llm2vae_zero:  # bagel.py:156-159
+            model.llm2vae.weight.zero_()
+            model.llm2vae.bias.zero_()
     return model
 
 
@@ -250,3 +266,249 @@ def generate_text(
             break
     lengths = (out >= 0).sum(dim=1)
     return out, lengths
+
+
+# ---------------------------------------------------------------------------
+# generation
+# ---------------------------------------------------------------------------
+
+def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """A linear in x's dtype, the weights cast to it (the JAX package's
+    ``_linear``): fp32 inputs keep fp32, whatever the weights' dtype."""
+    bias = None if lin.bias is None else lin.bias.to(x.dtype)
+    return F.linear(x, lin.weight.to(x.dtype), bias)
+
+
+def time_embed(model: Bagel, t: torch.Tensor, freq_dim: int = 256) -> torch.Tensor:
+    """TimestepEmbedder (modeling_utils.py:73-109): t [N] -> [N, C] fp32."""
+    mlp = model.time_embedder.mlp
+    h = timestep_embedding(t, freq_dim)
+    return _linear(silu(_linear(h, mlp[0])), mlp[2])
+
+
+def preprocess_vae_image(image_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 [H, W, 3] -> normalized fp32 [1, 3, H, W] in [-1, 1] on the
+    image's device, the VAE encoder's input."""
+    x = image_u8.float() / 255.0
+    return ((x - 0.5) / 0.5).permute(2, 0, 1)[None]
+
+
+@torch.no_grad()
+def encode_vae_latent_tokens(
+    model: Bagel, image: torch.Tensor, noise: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """VAE-encode image [1, 3, H, W] and patchify the latent into
+    [1, h*w, p*p*z] tokens in (p, q, channel) order (bagel.py:757-776).
+    ``noise`` [1, z, H/8, W/8] draws the posterior sample; None takes the mean."""
+    z = model.vae_model.encode(image, noise).permute(0, 2, 3, 1)  # NHWC
+    p = model.config.latent_patch_size
+    n, h, w, c = z.shape
+    z = z.reshape(n, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return z.reshape(n, (h // p) * (w // p), p * p * c)
+
+
+def _vae_block(model: Bagel, latent_tokens, latent_pos_ids, start_end_ids, n_tokens, timestep):
+    """The gen block [1, Nb + 2, C]: <vision_start>, the latent tokens
+    (vae2llm + timestep embedding + position, in fp32, then rounded to the
+    model dtype), <vision_end> at row n_tokens + 1."""
+    lm = model.language_model
+    t = torch.full((1,), float(timestep), dtype=torch.float32, device=latent_tokens.device)
+    x_lat = _linear(latent_tokens.float(), model.vae2llm) + time_embed(model, t)[:, None]
+    x_lat = x_lat + model.latent_pos_embed.pos_embed[latent_pos_ids]
+    se = mot.embed_tokens(lm, start_end_ids)
+    x_lat = x_lat.to(se.dtype)
+    x = torch.zeros(1, x_lat.shape[1] + 2, x_lat.shape[-1], dtype=se.dtype,
+                    device=x_lat.device)
+    x[0, 0] = se[0]
+    x[0, 1:x_lat.shape[1] + 1] = x_lat[0]
+    x[0, n_tokens + 1] = se[1]
+    return x
+
+
+@torch.no_grad()
+def prefill_vae(
+    model: Bagel,
+    cache: KVCache,
+    latent_tokens: torch.Tensor,  # [1, n, p*p*z]
+    latent_pos_ids: torch.Tensor,  # [1, n]
+    start_end_ids: torch.Tensor,  # [2]
+    rope_pos: int,
+    timestep: float = 0.0,  # 0 for a clean conditioning image
+) -> KVCache:
+    """VAE image prefill through the gen expert (bagel.py:697-806), exact shape."""
+    n = latent_tokens.shape[1]
+    x = _vae_block(model, latent_tokens, latent_pos_ids, start_end_ids, n, timestep)
+    positions = torch.full((1, 1), rope_pos, dtype=torch.int64, device=x.device)
+    _, cache = model.language_model.model(x, positions, cache, causal=False, mode="gen")
+    return cache
+
+
+@torch.no_grad()
+def prefill_vae_bucketed(
+    model: Bagel,
+    cache: KVCache,
+    latent_tokens: torch.Tensor,  # [1, Nb, p*p*z] padded to a bucket
+    latent_pos_ids: torch.Tensor,  # [1, Nb]
+    n_tokens: int,  # actual latent count (<= Nb)
+    start_end_ids: torch.Tensor,  # [2]
+    rope_pos: int,
+    timestep: float = 0.0,
+) -> KVCache:
+    """VAE image prefill over a padded bucket: <vision_end> sits at row
+    n + 1, which the MoT routes to the und expert, and rows >= n + 2 are
+    masked (their cache columns are overwritten by the next append). The
+    caller provides capacity for the whole padded block."""
+    x = _vae_block(model, latent_tokens, latent_pos_ids, start_end_ids, n_tokens, timestep)
+    T = x.shape[1]
+    q_valid = (torch.arange(T, device=x.device) < n_tokens + 2)[None]
+    positions = torch.full((1, 1), rope_pos, dtype=torch.int64, device=x.device)
+    _, cache = model.language_model.model(
+        x, positions, cache, causal=False, q_valid=q_valid, mode="gen",
+        gen_end_row=n_tokens + 1,
+    )
+    return cache
+
+
+def _cfg_combine(
+    v: torch.Tensor,  # [n, d] main velocity
+    v_text: torch.Tensor,  # [n, d] text-dropped context velocity
+    v_img: torch.Tensor,  # [n, d] image-dropped context velocity
+    text_scale: float,  # 1.0 outside cfg_interval
+    img_scale: float,
+    renorm_min: float,
+    renorm_type: str,
+    use_text_cfg: bool,
+    use_img_cfg: bool,
+) -> torch.Tensor:
+    """CFG combination with renorm clamping (bagel.py:1173-1207), in fp32,
+    rounded back to v's dtype. With scales 1.0 every formula gives v."""
+    if not use_text_cfg:
+        return v
+    v32, vt32 = v.float(), v_text.float()
+    v_ = vt32 + text_scale * (v32 - vt32)
+    if renorm_type == "text_channel":
+        norm_v = torch.linalg.vector_norm(v32, dim=-1, keepdim=True)
+        norm_v_ = torch.linalg.vector_norm(v_, dim=-1, keepdim=True)
+        v_ = v_ * torch.clamp(norm_v / (norm_v_ + 1e-8), renorm_min, 1.0)
+        if use_img_cfg:
+            vi32 = v_img.float()
+            v_ = vi32 + img_scale * (v_ - vi32)
+        return v_.to(v.dtype)
+    if use_img_cfg:
+        vi32 = v_img.float()
+        v_ = vi32 + img_scale * (v_ - vi32)
+    if renorm_type == "global":
+        norm_v, norm_v_ = torch.linalg.vector_norm(v32), torch.linalg.vector_norm(v_)
+    elif renorm_type == "channel":
+        norm_v = torch.linalg.vector_norm(v32, dim=-1, keepdim=True)
+        norm_v_ = torch.linalg.vector_norm(v_, dim=-1, keepdim=True)
+    else:
+        raise NotImplementedError(renorm_type)
+    return (v_ * torch.clamp(norm_v / (norm_v_ + 1e-8), renorm_min, 1.0)).to(v.dtype)
+
+
+def flow_timesteps(num_timesteps: int, timestep_shift: float):
+    """(timesteps [T-1], dts [T-1]) fp32 numpy (bagel.py:937-940)."""
+    ts = np.linspace(1.0, 0.0, num_timesteps, dtype=np.float32)
+    ts = timestep_shift * ts / (1 + (timestep_shift - 1) * ts)
+    dts = ts[:-1] - ts[1:]
+    return ts[:-1], dts
+
+
+def _cfg_runs(in_interval: np.ndarray):
+    """Contiguous (start, end, cfg_on) runs of the static schedule."""
+    runs, start = [], 0
+    for i in range(1, len(in_interval) + 1):
+        if i == len(in_interval) or bool(in_interval[i]) != bool(in_interval[start]):
+            runs.append((start, i, bool(in_interval[start])))
+            start = i
+    return runs
+
+
+@torch.no_grad()
+def generate_latents(
+    model: Bagel,
+    caches: KVCache,  # stacked streams [L, S_cfg, Hk, M, D]: main, cfg_text?, cfg_img?
+    positions: torch.Tensor,  # [S_cfg] rope position of each context
+    latent_pos_ids: torch.Tensor,  # [n]
+    init_noise: torch.Tensor,  # [n, p*p*z] fp32
+    start_end_ids: torch.Tensor,  # [2]
+    num_timesteps: int = 50,
+    timestep_shift: float = 3.0,
+    cfg_text_scale: float = 1.0,
+    cfg_img_scale: float = 1.0,
+    cfg_interval: Tuple[float, float] = (0.0, 1.0),
+    cfg_renorm_min: float = 0.0,
+    cfg_renorm_type: str = "global",
+    use_text_cfg: bool = False,
+    use_img_cfg: bool = False,
+    step_range: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """The rectified-flow loop (bagel.py:901-1211) as a Python loop; returns
+    the final latent tokens [n, p*p*z] fp32.
+
+    Each step runs one gen-mode forward over all context streams at once,
+    attending to each stream's cache plus the latent block without writing
+    it. Steps outside ``cfg_interval`` run the main stream alone.
+    ``step_range=(lo, hi)`` runs steps [lo, hi) of the schedule with
+    ``init_noise`` as the state at step lo; split ranges compose to the
+    full run.
+    """
+    lm = model.language_model
+    S = caches.k.shape[1]
+    n = init_noise.shape[0]
+    device = init_noise.device
+    ts, dts = flow_timesteps(num_timesteps, timestep_shift)
+    lo, hi = cfg_interval
+    in_interval = (ts > lo) & (ts <= hi)
+    text_scales = np.where(in_interval, cfg_text_scale, 1.0).astype(np.float32)
+    img_scales = np.where(in_interval, cfg_img_scale, 1.0).astype(np.float32)
+    lo_s, hi_s = step_range if step_range is not None else (0, len(ts))
+
+    se = mot.embed_tokens(lm, start_end_ids)
+    pos_emb = model.latent_pos_embed.pos_embed[latent_pos_ids]  # [n, C]
+    # every step's timestep embedding in one call: no host-to-device copy per step
+    t_emb = time_embed(model, torch.from_numpy(ts).to(device))  # [steps, C] fp32
+    x_t = init_noise.float()
+    for run_start, run_end, cfg_on in _cfg_runs(in_interval):
+        run_start, run_end = max(run_start, lo_s), min(run_end, hi_s)
+        if run_start >= run_end:
+            continue
+        cfg_on = cfg_on and S > 1
+        n_streams = S if cfg_on else 1
+        step_caches = caches if n_streams == S else KVCache(
+            k=caches.k[:, :1], v=caches.v[:, :1], lens=caches.lens[:1]
+        )
+        block_positions = positions[:n_streams, None]
+        for i in range(run_start, run_end):
+            x_lat = (_linear(x_t, model.vae2llm) + t_emb[i] + pos_emb).to(se.dtype)
+            block = torch.cat([se[:1], x_lat, se[1:]], dim=0)  # [n + 2, C]
+            x = block[None].expand(n_streams, -1, -1)
+            h, _ = lm.model(x, block_positions, step_caches, causal=False, mode="gen",
+                            update_cache=False)
+            v_all = _linear(h[:, 1:n + 1], model.llm2vae)
+            v = v_all[0]
+            if cfg_on:
+                v_text = v_all[1] if use_text_cfg else v
+                v_img = v_all[1 + int(use_text_cfg)] if use_img_cfg else v
+                v = _cfg_combine(
+                    v, v_text, v_img, float(text_scales[i]), float(img_scales[i]),
+                    cfg_renorm_min, cfg_renorm_type, use_text_cfg, use_img_cfg,
+                )
+            x_t = x_t - v.float() * float(dts[i])
+    return x_t
+
+
+@torch.no_grad()
+def decode_latent_to_image(
+    model: Bagel, latent_tokens: torch.Tensor, latent_h: int, latent_w: int
+) -> torch.Tensor:
+    """Unpatchify, VAE decode, denormalize: latent tokens [n, p*p*z] ->
+    uint8 [H, W, 3] on their device (inferencer.py:234-256)."""
+    cfg = model.config
+    p, c = cfg.latent_patch_size, cfg.latent_channel
+    z = latent_tokens.float().reshape(latent_h, latent_w, p, p, c).permute(4, 0, 2, 1, 3)
+    z = z.reshape(1, c, latent_h * p, latent_w * p)
+    img = model.vae_model.decode(z)[0].permute(1, 2, 0)  # [H, W, 3] in [-1, 1]
+    img = torch.clamp(img.float() * 0.5 + 0.5, 0.0, 1.0) * 255.0
+    return img.to(torch.uint8)

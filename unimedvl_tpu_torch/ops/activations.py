@@ -14,6 +14,11 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """FLUX VAE swish (autoencoder.py:34): x * sigmoid(x), which is silu."""
+    return F.silu(x)
+
+
 ACT2FN = {
     "gelu_pytorch_tanh": gelu_tanh,
     "silu": silu,

@@ -1,5 +1,6 @@
 """Builds the package's CUDA sources (``unimedvl_tpu_torch/csrc/*.cu``) into one
-shared library with a plain C interface and loads it with ctypes.
+shared library with a plain C interface and loads it with ctypes. Each source
+compiles in its own ``nvcc`` process, all started together, then one link.
 
 The build runs at the first CUDA launch, never at import: ``import
 unimedvl_tpu_torch`` works on a machine with no ``nvcc`` and no GPU. The
@@ -23,7 +24,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR.parent.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -34,6 +35,10 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "unimedvl_flash_block_attention_bf16": (
         [_P] * 7 + [_I] * 6 + [_L] * 6 + [_I, ctypes.c_float, _P]
+    ),
+    "unimedvl_flash_block_attention_qpre_bf16": (
+        [_P] * 7 + [_I] * 6 + [_L] * 6 + [_I, ctypes.c_float] + [_P] * 4 + [_L] * 2
+        + [_P, ctypes.c_float, _P]
     ),
     "unimedvl_decode_attention_bf16": (
         [_P] * 7 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _P]
@@ -64,6 +69,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libunimedvl_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen); raise with the output of the first that
+    failed; return all output."""
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"{' '.join(cmd)}\n{out}")
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed (exit {proc.returncode}):\n{logs[-1]}"
+    if failed is not None:
+        raise RuntimeError(failed)
+    return "".join(logs)
+
+
 def build() -> Path:
     """Compile the sources unless a library for them exists; returns its path.
     The compiler's output (``-Xptxas=-v``: registers, shared memory, spills per
@@ -72,22 +91,29 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+    nvcc = _nvcc()
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+    tmp.mkdir(exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
+    try:
+        objs, procs = [], []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = tmp / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(str(obj))
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log = _run(procs)
+        lib = tmp / so.name
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(lib), *objs]
+        log += _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))])
+        so.with_suffix(".log").write_text(
+            f"build seconds: {time.perf_counter() - t0:.1f}\n{log}"
         )
-    so.with_suffix(".log").write_text(
-        f"{' '.join(cmd)}\nbuild seconds: {time.perf_counter() - t0:.1f}\n"
-        f"{proc.stdout}{proc.stderr}"
-    )
-    os.replace(tmp, so)
+        os.replace(lib, so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return so
 
 

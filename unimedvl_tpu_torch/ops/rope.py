@@ -43,3 +43,12 @@ def apply_rope(
     q_out = q * cos_q + _rotate_half(q) * sin_q
     k_out = k * cos_q.to(k.dtype) + _rotate_half(k) * sin_q.to(k.dtype)
     return q_out, k_out
+
+
+def apply_rope_one(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """:func:`apply_rope` for one tensor [..., T, H, D] (the k side, when the q
+    side is rotated inside the attention kernel). cos/sin [..., T, D], or
+    [..., 1, D] when every row shares one position."""
+    cos = cos.to(x.dtype)[..., :, None, :]
+    sin = sin.to(x.dtype)[..., :, None, :]
+    return x * cos + _rotate_half(x) * sin

@@ -1,5 +1,5 @@
 """Weights into a :class:`~unimedvl_tpu_torch.models.bagel.Bagel` (port of
-unimedvl_tpu/weights/bagel_loader.py).
+unimedvl_tpu/weights/bagel_loader.py and vae_loader.py).
 
 The port's parameter names are the released checkpoint's, and torch Linear
 weights are [out, in] as released, so ``load_bagel_checkpoint`` reads each
@@ -10,6 +10,10 @@ dropped (``ViTConfig.from_json_file`` already counts one layer fewer).
 
 ``from_jax_params`` builds the same model from the JAX package's parameter
 tree (numpy leaves), so both packages compute one function in the tests.
+
+The FLUX VAE ships apart as ``ae.safetensors``, whose names the port's
+``AutoEncoder`` keeps (OIHW convolutions, as released): ``load_ae`` reads it
+with no conversion, and the Bagel holds it as ``vae_model``, in fp32.
 """
 
 from __future__ import annotations
@@ -21,13 +25,20 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from unimedvl_tpu.config import BagelConfig
+from unimedvl_tpu.config import BagelConfig, VAEConfig
 from unimedvl_tpu_torch.models.bagel import Bagel
+from unimedvl_tpu_torch.models.vae import AutoEncoder
+
+_VAE = "vae_model."
 
 
 def _build(state: Dict[str, torch.Tensor], cfg: BagelConfig, device, dtype) -> Bagel:
-    model = Bagel(cfg, device="meta", dtype=dtype)
-    state = {k: v.to(device=device, dtype=dtype) for k, v in state.items()}
+    with_vae = any(k.startswith(_VAE) for k in state)
+    model = Bagel(cfg, device="meta", dtype=dtype, with_vae=with_vae)
+    state = {
+        k: v.to(device=device, dtype=torch.float32 if k.startswith(_VAE) else dtype)
+        for k, v in state.items()
+    }
     model.load_state_dict(state, strict=True, assign=True)  # keeps requires_grad=False
     return model
 
@@ -43,9 +54,52 @@ def _lin(sd, name, p, i=None):
         sd[name + ".bias"] = pick(np.asarray(p["bias"]))
 
 
+def _vae_state_dict(sd, vae: Dict, cfg: VAEConfig, prefix: str = "") -> None:
+    """The JAX VAE subtree (HWIO kernels) under the released ae.safetensors
+    names (OIHW), inverting vae_loader.convert_vae_state_dict."""
+
+    def conv(name, p):
+        sd[prefix + name + ".weight"] = np.ascontiguousarray(
+            np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
+        )
+        sd[prefix + name + ".bias"] = np.asarray(p["bias"])
+
+    def norm(name, p):
+        sd[prefix + name + ".weight"] = np.asarray(p["scale"])
+        sd[prefix + name + ".bias"] = np.asarray(p["bias"])
+
+    def resnet(name, p):
+        for key in ("norm1", "norm2"):
+            norm(f"{name}.{key}", p[key])
+        for key in ("conv1", "conv2", "nin_shortcut"):
+            if key in p:
+                conv(f"{name}.{key}", p[key])
+
+    def mid(name, p):
+        resnet(name + ".block_1", p["block_1"])
+        resnet(name + ".block_2", p["block_2"])
+        norm(name + ".attn_1.norm", p["attn_1"]["norm"])
+        for key in ("q", "k", "v", "proj_out"):
+            conv(f"{name}.attn_1.{key}", p["attn_1"][key])
+
+    for part, levels, resample in (("encoder", "down", "downsample"),
+                                   ("decoder", "up", "upsample")):
+        tree = vae[part]
+        conv(part + ".conv_in", tree["conv_in"])
+        for i, level in enumerate(tree[levels]):
+            for j, block in enumerate(level["block"]):
+                resnet(f"{part}.{levels}.{i}.block.{j}", block)
+            if resample in level:
+                conv(f"{part}.{levels}.{i}.{resample}.conv", level[resample]["conv"])
+        mid(part + ".mid", tree["mid"])
+        norm(part + ".norm_out", tree["norm_out"])
+        conv(part + ".conv_out", tree["conv_out"])
+
+
 def jax_tree_to_state_dict(tree: Dict, cfg: BagelConfig) -> Dict[str, np.ndarray]:
     """The JAX tree (``bagel.init_params`` or the JAX loader's output, leaves
-    as numpy) as a released-name state dict; the VAE subtree is not ported."""
+    as numpy) as a released-name state dict; its VAE, if it has one, under
+    ``vae_model.``."""
     sd: Dict[str, np.ndarray] = {}
     llm = tree["llm"]
     pre = "language_model.model."
@@ -100,6 +154,8 @@ def jax_tree_to_state_dict(tree: Dict, cfg: BagelConfig) -> Dict[str, np.ndarray
         _lin(sd, "time_embedder.mlp.0", tree["time_embedder"]["fc1"])
         _lin(sd, "time_embedder.mlp.2", tree["time_embedder"]["fc2"])
         sd["latent_pos_embed.pos_embed"] = np.asarray(tree["latent_pos_embed"])
+    if "vae" in tree:
+        _vae_state_dict(sd, tree["vae"], cfg.vae, _VAE)
     return sd
 
 
@@ -142,6 +198,23 @@ def _safetensors_files(ckpt_dir: str, prefer_ema: bool) -> Dict[str, str]:
     raise FileNotFoundError(f"no safetensors found in {ckpt_dir}")
 
 
+def _read_ae(path: str) -> Dict[str, torch.Tensor]:
+    """ae.safetensors as a state dict, without the ``module.`` prefix a DDP
+    save adds (autoencoder.py:356)."""
+    from safetensors.torch import load_file
+
+    return {k.replace("module.", ""): v for k, v in load_file(path).items()}
+
+
+def load_ae(path: str, cfg: Optional[VAEConfig] = None, device="cpu") -> AutoEncoder:
+    """Read a released ``ae.safetensors`` into an fp32 AutoEncoder on
+    ``device`` (the counterpart of unimedvl_tpu/weights/vae_loader.load_ae)."""
+    model = AutoEncoder(cfg or VAEConfig(), device="meta")
+    state = {k: v.to(device=device, dtype=torch.float32) for k, v in _read_ae(path).items()}
+    model.load_state_dict(state, strict=True, assign=True)
+    return model
+
+
 def load_bagel_checkpoint(
     ckpt_dir: str,
     cfg: Optional[BagelConfig] = None,
@@ -151,8 +224,9 @@ def load_bagel_checkpoint(
 ) -> Bagel:
     """Read a released checkpoint directory (``llm_config.json``,
     ``vit_config.json``, ``ema.safetensors`` or ``model.safetensors``, sharded
-    or not) into a Bagel on ``device``. The VAE (``ae.safetensors``) belongs to
-    the gen slice and is not read."""
+    or not) into a Bagel on ``device``. The VAE is read from
+    ``ae.safetensors`` when the directory has one and the config generates
+    images."""
     from safetensors import safe_open
 
     if cfg is None:
@@ -176,4 +250,7 @@ def load_bagel_checkpoint(
     finally:
         for h in handles.values():
             h.__exit__(None, None, None)
+    ae_path = os.path.join(ckpt_dir, "ae.safetensors")
+    if cfg.visual_gen and cfg.vae is not None and os.path.exists(ae_path):
+        state.update({_VAE + k: v for k, v in _read_ae(ae_path).items()})
     return _build(state, cfg, device, dtype)
