@@ -8,21 +8,29 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   edit through ``interleave_inference`` with the recipe's defaults (50
   timesteps, CFG text 3.0 and image 1.5 on the interval (0.4, 1.0], global
   renorm);
+- the quantized chat path, the LLM quantized on the card with an int8 KV
+  cache: full-int8 with fused projections (the three chat requests), w4a8
+  per channel and w4a8 with groups of 512 (one request each);
 
-and checks that every attention of each path went through the kernels, and
-that each path's output agrees with the same computation on the plain
-attention versions.
+and checks that every kernel call of each path went through the kernels, and
+that each path's output agrees with the same computation on the kernels'
+plain versions.
 
     python3 chip_smoke.py
 
 Needs a CUDA device; exits non-zero without one, or on any failed check. The
 last line of standard output is ``{"ok": true, "device": {...}}``; the line
 before it lists each kernel with its launches on the paths, its error
-against the plain version and both times.
+against the plain version, both times, the least time the card could take
+for the same work (``bound_ms``, from the bytes moved and the operations
+done at the peaks below) and, where one PyTorch call computes the same
+function, that call's time.
 """
 
 from __future__ import annotations
 
+import copy
+import itertools
 import json
 import statistics
 import subprocess
@@ -32,13 +40,16 @@ import time
 import numpy as np
 import torch
 
-from unimedvl_tpu.config import BagelConfig, LLMConfig, TransformConfig, VAEConfig, ViTConfig
-from unimedvl_tpu.data.tokenizer import add_special_tokens
+from unimedvl_tpu_torch.config import BagelConfig, LLMConfig, TransformConfig, VAEConfig, ViTConfig
+from unimedvl_tpu_torch.data.tokenizer import add_special_tokens
+from unimedvl_tpu_torch import quant
 from unimedvl_tpu_torch.inference import InterleaveInferencer
 from unimedvl_tpu_torch.models import bagel, qwen2_mot, siglip
+from unimedvl_tpu_torch.ops import act_quant as aq
 from unimedvl_tpu_torch.ops import cuda_build
 from unimedvl_tpu_torch.ops import decode_attention as dec
 from unimedvl_tpu_torch.ops import flash_attention as fa
+from unimedvl_tpu_torch.ops import w4_matmul as w4
 from unimedvl_tpu_torch.ops.rope import rope_cos_sin
 
 SEED = 0
@@ -60,6 +71,13 @@ REQUESTS = [  # (height, width, prompt): already at stride-14 sizes
 ]
 MAX_LENGTH = 32
 GEN_SIZE = (512, 512)
+W4_GROUP = 512
+# K3 against its plain version: scales relative, q in steps, share of q that may differ
+K3_SCALE_RTOL, K3_MAX_STEP, K3_MAX_SHARE = 1e-6, 1, 1e-3
+# Published peaks of one H100 SXM (dense): the card's bound for a kernel is the
+# larger of bytes / HBM rate and operations / the peak rate of their type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 GEN_PROMPT = "A chest radiograph with a small left pleural effusion."
 EDIT_PROMPT = "Make the opacity in the right lower lobe more visible."
 
@@ -88,19 +106,70 @@ class ByteTokenizer:
         return "".join(inv.get(i, chr(i) if i < 128 else f"<{i}>") for i in ids)
 
 
-def cuda_ms(fn, warmup: int = 2, iters: int = 7) -> float:
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
+def cuda_ms(fn, warmup: int = 2, iters: int = 7, reps: int = 1) -> float:
+    """Median milliseconds of one ``fn`` on the current stream (CUDA events
+    around ``reps`` calls in a row)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+BACK_TO_BACK = 20  # calls in a row for a one-row shape, as a decode loop makes them
+
+
+def back_to_back_ms(fn) -> float:
+    """Milliseconds per call in a run of BACK_TO_BACK calls: the device-side
+    figure for a one-row shape, whose single call is mostly the wrapper's
+    host time (the card waits for the launch)."""
+    return cuda_ms(fn, iters=5, reps=BACK_TO_BACK)
+
+
+def _b2b_text(ms) -> str:
+    return "" if ms is None else f"; {ms:.4f} ms per call in a run of {BACK_TO_BACK}"
+
+
+def bound(n_bytes: float, n_ops: float, op_type: str) -> dict:
+    """The least time the card could take: each input byte read once and each
+    output byte written once at the HBM rate, or the operations at the peak
+    rate of their type, whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / PEAK_OPS_S[op_type]
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bound(q_rows, keys, H, Hk, D, kv_bytes: int, op_type: str, scales=False) -> dict:
+    """Bound of an attention call from this run's data: ``q_rows`` and
+    ``keys`` are per-stream sequences of valid query rows and of the keys they
+    see (rows x keys visible pairs for a non-causal block). q and out are
+    bf16; k and v rows of ``kv_bytes`` per element, read once per kv head."""
+    n_bytes = n_ops = 0.0
+    for rows, kv in zip(q_rows, keys):
+        n_bytes += 2 * rows * H * D * 2 + 2 * kv * Hk * D * kv_bytes
+        if scales:
+            n_bytes += 2 * kv * Hk * 4
+        n_ops += 4.0 * H * D * rows * kv
+    return bound(n_bytes, n_ops, op_type)
+
+
+def sdpa_ms(q, k, v, mask) -> float:
+    """Time of one ``scaled_dot_product_attention`` call on the same inputs
+    and mask: q [S, T, H, D], k/v head-major [S, Hk, M, D] (the heads of a
+    group expanded beforehand, outside the timing), mask bool [S, T, M]."""
+    G = q.shape[2] // k.shape[1]
+    qh = q.transpose(1, 2)
+    kh, vh = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    m = mask[:, None]
+    return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=m), warmup=1, iters=5)
 
 
 def check_device() -> None:
@@ -128,22 +197,30 @@ def build_kernels() -> None:
                 print("  ptxas:", line.strip())
 
 
-def _compare(name, kernel_fn, plain_fn, rows):
-    """Kernel vs plain on the valid query rows [:, :rows]; both times."""
+def _compare(name, kernel_fn, plain_fn, rows, back_to_back=None, row_atol=False):
+    """Kernel vs plain on the valid query rows [:, :rows]; both times, and
+    the kernel's time per call in a run of calls (``back_to_back``; by default
+    for a one-row shape). ``row_atol``: the absolute part of the bound is
+    RTOL times the largest |plain| of the output row [..., D] instead of
+    ATOL, for outputs whose size the inputs' scales set."""
     got = kernel_fn()
     torch.cuda.synchronize()
     want = plain_fn()
     ref = want[:, :rows].float()
     diff = (got[:, :rows].float() - ref).abs()
     max_abs, mean_abs = diff.max().item(), diff.mean().item()
-    worst = (diff / (ATOL + RTOL * ref.abs())).max().item()
+    atol = RTOL * ref.abs().amax(dim=-1, keepdim=True) if row_atol else ATOL
+    worst = (diff / (atol + RTOL * ref.abs())).max().item()
     ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn, warmup=1, iters=3)
+    b2b = back_to_back_ms(kernel_fn) if (rows == 1 if back_to_back is None else back_to_back) \
+        else None
     print(f"  {name}: max_abs_err {max_abs:.3e} mean_abs_err {mean_abs:.3e} "
-          f"worst err/bound {worst:.3f} (|ref| max {ref.abs().max().item():.3f}); "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+          f"worst err/bound {worst:.3f} (|ref| max {ref.abs().max().item():.3f}, mean "
+          f"{ref.abs().mean().item():.4f}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+          f"{_b2b_text(b2b)}", flush=True)
     if not (worst <= 1.0 and mean_abs <= MEAN_ABS_TOL):
         raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "ms_back_to_back": b2b}
 
 
 def check_kernels() -> dict:
@@ -176,7 +253,11 @@ def check_kernels() -> dict:
     image = _compare(
         "K1a image prefill T=5122 M=5632 D=128 non-causal",
         lambda: fa.flash_block_attention(q, kc, vc, zero, zero, False, qvl, True),
-        lambda: fa.flash_block_attention_ref(q, kc, vc, zero, zero, False, qvl, True), 4902)
+        lambda: fa.flash_block_attention_ref(q, kc, vc, zero, zero, False, qvl, True), 4902,
+        back_to_back=True)
+    image.update(attention_bound([4902], [4902], 28, 4, 128, 2, "bf16"))
+    jk = torch.arange(M, device=dev)
+    image["library_ms"] = sdpa_ms(q, kc, vc, (jk < 4902)[None, None].expand(1, 5122, M))
     results["flash_block_attention"].append(image)
     # K1a, LLM text block: causal, 40 of 64 rows valid, after a 4902-token context
     q = randn(1, 64, 28, 128, scale=2.0)
@@ -201,6 +282,8 @@ def check_kernels() -> dict:
         "K2 decode S=1 M=5632 lens=4950 band [4950, 4960]",
         lambda: dec.decode_attention(qd, kc, vc, lens, (base, col)),
         lambda: dec.decode_attention_ref(qd, kc, vc, lens, (base, col)), 1)
+    step.update(attention_bound([1], [4961], 28, 4, 128, 2, "bf16"))
+    step["library_ms"] = sdpa_ms(qd, kc, vc, (jk < 4961)[None, None])
     results["decode_attention"].append(step)
     # K2: three streams with differing lens and the aligned band
     qd3 = randn(3, 1, 28, 128, scale=2.0)
@@ -211,17 +294,187 @@ def check_kernels() -> dict:
         lambda: dec.decode_attention(qd3, kc3, vc3, lens3, (base3, col3)),
         lambda: dec.decode_attention_ref(qd3, kc3, vc3, lens3, (base3, col3)), 1))
     denoise = check_q_preproc(randn, ints, results["q_preproc"])
-    return {
-        "flash_block_attention": dict(
-            max_abs_err=max(r["max_abs_err"] for r in results["flash_block_attention"]),
-            ms=image["ms"], plain_ms=image["plain_ms"]),
-        "flash_block_attention_q_preproc": dict(
-            max_abs_err=max(r["max_abs_err"] for r in results["q_preproc"]),
-            ms=denoise["ms"], plain_ms=denoise["plain_ms"]),
-        "decode_attention": dict(
-            max_abs_err=max(r["max_abs_err"] for r in results["decode_attention"]),
-            ms=step["ms"], plain_ms=step["plain_ms"]),
+    # the 512 px 3-stream denoise: 1026 rows over lens (37, 0, 37) + the block
+    denoise.update(attention_bound([1026] * 3, [37 + 1026, 1026, 37 + 1026], 28, 4, 128, 2, "bf16"))
+    denoise["library_ms"] = None  # no PyTorch call norms and rotates q inside attention
+
+    def summary(rows, shown):
+        out = dict(shown)
+        out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        return out
+
+    timings = {
+        "flash_block_attention": summary(results["flash_block_attention"], image),
+        "flash_block_attention_q_preproc": summary(results["q_preproc"], denoise),
+        "decode_attention": summary(results["decode_attention"], step),
     }
+    timings["decode_attention_int8"] = check_decode_int8(g, randn, ints)
+    timings["silu_mul_quant"] = check_silu_mul_quant(randn)
+    timings["w4_matmul"] = check_w4_matmul(g, randn)
+    return timings
+
+
+def _rand_int8(g, *shape, lo=-127, hi=128):
+    return torch.randint(lo, hi, shape, generator=g, device="cuda", dtype=torch.int8)
+
+
+def _line(name, err, ms, plain_ms, b, extra=""):
+    print(f"  {name}: {err}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']}{extra}", flush=True)
+
+
+def check_decode_int8(g, randn, ints) -> dict:
+    """K2-int8 against its plain version (the scales factored into logits and
+    softmax weights, fp32): the chat decode (S = 1, lens 4950), three streams
+    with differing lens, and a 48-stream batched decode at lens ~800 with band
+    (lens, lens). The scales set the outputs' size, so the absolute part of
+    the attention tolerance is taken from each output row: |err| <= 2^-7
+    (max|plain| of the row + |plain|), which a dropped or misplaced scale
+    cannot meet."""
+    print(f"K2-int8 (|err| <= {RTOL} (max|ref| of the output row + |ref|) per element, mean "
+          f"abs <= {MEAN_ABS_TOL}):", flush=True)
+    cases = [
+        ("S=1 M=5632 lens=4950 band [4950, 4960]", 5632, (4950,), (4950,), (4960,)),
+        ("S=3 lens (100, 2000, 4950) band [4950, 4955]", 5632, (100, 2000, 4950),
+         (4950,) * 3, (4955,) * 3),
+        ("S=48 lens ~800 band (lens, lens)", 1024, tuple(776 + (i % 7) * 8 for i in range(48)),
+         None, None),
+    ]
+    rows = []
+    for name, M, lens, base, col in cases:
+        S = len(lens)
+        q = randn(S, 1, 28, 128, scale=2.0)
+        k, v = _rand_int8(g, S, 4, M, 128), _rand_int8(g, S, 4, M, 128)
+        ks = torch.rand(S, 4, M, generator=g, device="cuda") * 0.02 + 0.002
+        vs = torch.rand(S, 4, M, generator=g, device="cuda") * 0.02 + 0.002
+        ln = ints(*lens)
+        band = (ln, ln) if base is None else (ints(*base), ints(*col))
+        r = _compare(
+            f"K2-int8 decode {name}",
+            lambda: dec.decode_attention(q, k, v, ln, band, k_scale=ks, v_scale=vs),
+            lambda: dec.decode_attention_ref(q, k, v, ln, band, ks, vs), 1, row_atol=True)
+        keys = [a + max(0, c - max(a, b) + 1)  # the context, and the band past it
+                for a, b, c in zip(lens, band[0].tolist(), band[1].tolist())]
+        r.update(attention_bound([1] * S, keys, 28, 4, 128, 1, "bf16", scales=True))
+        r["library_ms"] = None  # no PyTorch attention call reads an int8 cache with scales
+        print(f"    bound {r['bound_ms']:.4f} ms by {r['bound_by']}", flush=True)
+        rows.append(r)
+    out = dict(rows[0])
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return out
+
+
+def check_silu_mul_quant(randn) -> dict:
+    """K3 against its plain version at the MLP's width: a decode step (R = 1),
+    three streams, the 378 px image block and the 980 px image block."""
+    print(f"K3 silu_mul_quant, I = 18944 (scales within {K3_SCALE_RTOL} relative, q within "
+          f"{K3_MAX_STEP} step, at most {K3_MAX_SHARE} of q differing):", flush=True)
+    I, rows = 18944, []
+    for R in (1, 3, 731, 4902):
+        gu = randn(R, 2 * I, scale=2.0)  # the halves of a fused gate_up output
+        gate, up = gu.split(I, dim=-1)
+        q, sc = aq.silu_mul_quant(gate, up)
+        torch.cuda.synchronize()
+        q_ref, sc_ref = aq.silu_mul_quant_ref(gate, up)
+        step = (q.int() - q_ref.int()).abs()
+        share = (step > 0).float().mean().item()
+        rel = ((sc - sc_ref).abs() / sc_ref).max().item()
+        ms = cuda_ms(lambda: aq.silu_mul_quant(gate, up))
+        plain_ms = cuda_ms(lambda: aq.silu_mul_quant_ref(gate, up), warmup=1, iters=3)
+        b2b = back_to_back_ms(lambda: aq.silu_mul_quant(gate, up)) if R in (1, 4902) else None
+        b = bound(R * I * 5 + R * 4, R * I * 15, "fp32")
+        _line(f"K3 R={R}", f"max step {step.max().item()}, share differing {share:.2e}, scale "
+              f"rel err {rel:.2e}", ms, plain_ms, b, _b2b_text(b2b))
+        if rel > K3_SCALE_RTOL or step.max().item() > K3_MAX_STEP or share > K3_MAX_SHARE:
+            raise SystemExit(f"chip_smoke: K3 R={R} disagrees with its plain version")
+        rows.append(dict(max_abs_err=float(step.max().item()), ms=ms, plain_ms=plain_ms,
+                         ms_back_to_back=b2b, library_ms=None, **b))  # no one PyTorch call
+    out = dict(rows[-1])  # the 980 px image block; the decode step beside it
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    out["one_row_ms"], out["one_row_ms_back_to_back"] = rows[0]["ms"], rows[0]["ms_back_to_back"]
+    return out
+
+
+def check_w4_matmul(g, randn) -> dict:
+    """K4 against its plain version at the LLM's fused projection shapes: the
+    int8 branch (w4a8) per channel and with groups of 512 must be EQUAL (exact
+    integer sums, the same rounded fp32 scaling); the bf16 branch sums fp32 in
+    another order: |err| <= 2^-7 |plain| + 1e-3 sqrt(K) 8 max|x| max(w_scale) / 16."""
+    print("K4 w4_matmul (w4a8: equality; bf16 x: |err| <= 2^-7 |ref| + reordering bound):",
+          flush=True)
+    shapes = [(3584, 4608), (3584, 37888), (18944, 3584)]
+    rows, shown = [], None
+    for K, N in shapes:
+        wp = w4.pack_int4(_rand_int8(g, N, K, lo=-8, hi=8))
+        for G in (0, K // W4_GROUP):
+            ws = torch.rand((G, N) if G else (N,), generator=g, device="cuda") * 0.01 + 0.001
+            for m in (1, 3, 731, 4902):
+                x = _rand_int8(g, m, K)
+                xs = torch.rand(m, 1, generator=g, device="cuda") * 0.05 + 0.001
+                got = w4.w4_matmul(x, xs, wp, ws)
+                torch.cuda.synchronize()
+                want = w4.w4_matmul_ref(x, xs, wp, ws)
+                err = (got.float() - want.float()).abs().max().item()
+                ms = cuda_ms(lambda: w4.w4_matmul(x, xs, wp, ws))
+                plain_ms = cuda_ms(lambda: w4.w4_matmul_ref(x, xs, wp, ws), warmup=1, iters=3)
+                b2b = back_to_back_ms(lambda: w4.w4_matmul(x, xs, wp, ws)) if m == 1 else None
+                b = bound(m * K + m * 4 + N * K // 2 + ws.numel() * 4 + m * N * 2,
+                          2.0 * m * K * N, "int8")
+                _line(f"K4 w4a8 m={m} K={K} N={N} {'group 512' if G else 'per channel'}",
+                      f"equal {torch.equal(got, want)} (max abs err {err:.3e})", ms, plain_ms, b,
+                      _b2b_text(b2b))
+                if not torch.equal(got, want):
+                    raise SystemExit("chip_smoke: K4 (w4a8) differs from its plain version")
+                r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_back_to_back=b2b,
+                         library_ms=None, **b)
+                rows.append(r)  # no PyTorch call multiplies by packed int4 weights
+                if (m, K, N, G) == (1, 3584, 37888, 0):
+                    shown = r
+        ws = torch.rand(N, generator=g, device="cuda") * 0.01 + 0.001
+        for m in (1, 731):
+            x = randn(m, K)
+            got = w4.w4_matmul(x, None, wp, ws).float()
+            torch.cuda.synchronize()
+            want = w4.w4_matmul_ref(x, None, wp, ws).float()
+            tol = 2.0**-7 * want.abs() + 1e-3 * K**0.5 * 8 * x.float().abs().max() * ws.max() / 16
+            err, worst = (got - want).abs(), ((got - want).abs() / tol).max().item()
+            ms = cuda_ms(lambda: w4.w4_matmul(x, None, wp, ws))
+            plain_ms = cuda_ms(lambda: w4.w4_matmul_ref(x, None, wp, ws), warmup=1, iters=3)
+            b = bound(m * K * 2 + N * K // 2 + N * 4 + m * N * 2, 2.0 * m * K * N, "bf16")
+            _line(f"K4 w4 bf16-x m={m} K={K} N={N} per channel",
+                  f"max abs err {err.max().item():.3e}, worst err/bound {worst:.3f}", ms,
+                  plain_ms, b)
+            if worst > 1.0:
+                raise SystemExit("chip_smoke: K4 (bf16 x) disagrees with its plain version")
+            rows.append(dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                             library_ms=None, **b))
+    out = dict(shown)
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return out
+
+
+def time_int8_matmul_candidates(g) -> None:
+    """The s8 x s8 product of the full-int8 mode is a library call, as the JAX
+    package left it to XLA's dot: ``torch._int_mm`` (rows padded to 17 for a
+    decode step) against widening both operands to bf16 for ``torch.mm``,
+    at the gate_up shape. Also the weight-only int8 linear (its widened copy is
+    a real write and read per call) beside a bf16 linear of the same shape."""
+    K, N = 3584, 37888
+    w = _rand_int8(g, N, K)
+    wb = w.to(torch.bfloat16)
+    print(f"int8 matmul candidates at K={K} N={N} (not kernels of the port; timed to choose):",
+          flush=True)
+    for m in (1, 731, 4902):
+        xq = _rand_int8(g, m, K)
+        xb = xq.to(torch.bfloat16)
+        t_int = cuda_ms(lambda: quant.int_mm(xq, w))
+        t_wide = cuda_ms(lambda: torch.mm(xq.to(torch.bfloat16), w.to(torch.bfloat16).t(),
+                                          out_dtype=torch.float32), warmup=1, iters=5)
+        t_q = cuda_ms(lambda: quant.mm_f32(xb, w.to(torch.bfloat16)), warmup=1, iters=5)
+        t_bf = cuda_ms(lambda: torch.mm(xb, wb.t()), warmup=1, iters=5)
+        print(f"  m={m}: torch._int_mm {t_int:.4f} ms; int8 widened to bf16 then torch.mm "
+              f"{t_wide:.4f} ms | weight-only int8 linear (widen + mm) {t_q:.4f} ms; bf16 "
+              f"torch.mm of that shape {t_bf:.4f} ms", flush=True)
 
 
 def _row_ulp(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -270,7 +523,7 @@ def check_q_preproc(randn, ints, results) -> dict:
             lambda: fa.flash_block_attention(q, kc, vc, ln, bs, False, qv, True, q_preproc=qp),
             lambda: fa.flash_block_attention_ref(q, kc, vc, ln, bs, False, qv, True,
                                                  q_preproc=qp),
-            T if qvl is None else qvl)
+            T if qvl is None else qvl, back_to_back=first is None)
         results.append(r)
         if first is None:
             first = r, (q, kc, vc, ln, bs, qp)
@@ -296,7 +549,7 @@ def full_config() -> BagelConfig:
 
 
 def build_inferencer() -> InterleaveInferencer:
-    from unimedvl_tpu.data.imaging import ImageTransform
+    from unimedvl_tpu_torch.data.imaging import ImageTransform
 
     t0 = time.perf_counter()
     cfg = full_config()
@@ -322,9 +575,10 @@ def _images():
     return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w, _ in REQUESTS]
 
 
-def run_main_path(inf: InterleaveInferencer) -> dict:
-    """Three chat requests with the counters reset just before; returns the
-    launches each kernel counted."""
+def run_chat_requests(inf: InterleaveInferencer, requests, path: str, expected) -> dict:
+    """Chat requests (indices into REQUESTS) with the counters reset just
+    before; ``expected(forwards, decode_steps, image_blocks)`` gives the launch
+    counts the path must show. Returns the launches each kernel counted."""
     images = _images()
     # warm-up request (cuBLAS handles, first launches), not counted or timed
     inf.chat([images[2]], REQUESTS[2][2], max_length=2)
@@ -338,9 +592,9 @@ def run_main_path(inf: InterleaveInferencer) -> dict:
 
     hook = inf.model.language_model.model.embed_tokens.register_forward_hook(stamp)
     reset_counts()
-    total_steps, image_blocks = 0, 0
-    per_request = []
-    for (h, w, prompt), image in zip(REQUESTS, images):
+    total_steps, image_blocks, forwards = 0, 0, 0
+    for i in requests:
+        (h, w, prompt), image = REQUESTS[i], images[i]
         stamps.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -353,6 +607,7 @@ def run_main_path(inf: InterleaveInferencer) -> dict:
         n_img = (h // 14) * (w // 14)
         total_steps += steps
         image_blocks += 1
+        forwards += len(stamps)
         row = dict(
             image=f"{h}x{w}", image_tokens=n_img, s_per_image=stamps[1] - t0,
             text_prefill_s=stamps[2] - stamps[1],
@@ -361,21 +616,100 @@ def run_main_path(inf: InterleaveInferencer) -> dict:
             decode_steps=steps,
             decode_tok_s=(steps - 1) / (t_end - stamps[3]) if steps > 1 else None,
         )
-        per_request.append(row)
         print(f"  request {row['image']}: {json.dumps(row)} answer {answer[:60]!r}", flush=True)
     hook.remove()
+    return check_counts(path, expected(forwards, total_steps, image_blocks))
+
+
+def run_main_path(inf: InterleaveInferencer) -> dict:
+    """The bf16 chat path: three requests through K1a and K2."""
     n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
-    return check_counts("the chat path", {
-        "flash_block_attention": image_blocks * (n_vit + n_llm) + len(REQUESTS) * n_llm,
-        "flash_block_attention_q_preproc": 0,
-        "decode_attention": total_steps * n_llm,
+    return run_chat_requests(inf, range(len(REQUESTS)), "the chat path", lambda f, steps, imgs: {
+        "flash_block_attention": imgs * (n_vit + n_llm) + imgs * n_llm,
+        "decode_attention": steps * n_llm,
     })
+
+
+def quantized_inferencer(inf: InterleaveInferencer, **kw) -> InterleaveInferencer:
+    """An inferencer over a quantized copy of ``inf``'s LLM, its projections
+    fused as a server fuses them, with an int8 KV cache. The copy shares every tensor that stays as it is (embedding,
+    norms, biases; the ViT and the rest of the model) and quantizes each
+    projection from the bf16 weight on the card, one at a time."""
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    lm = inf.model.language_model
+    shared = {id(t): t for t in itertools.chain(lm.parameters(), lm.buffers())}
+    qlm = copy.deepcopy(lm, shared)  # new modules around the same tensors
+    quant.quantize_llm_params(qlm, **kw)
+    quant.fuse_serving_projections(qlm)
+    model = copy.copy(inf.model)
+    model._modules = dict(inf.model._modules, language_model=qlm)
+    torch.cuda.synchronize()
+    print(f"  quantized the LLM on the card ({kw}, fused): "
+          f"{(torch.cuda.memory_allocated() - before) / 2**30:.2f} GiB more, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return InterleaveInferencer(model, inf.tokenizer, inf.new_token_ids,
+                                vit_transform=inf.vit_transform, seed=SEED, kv_quantized=True)
+
+
+def run_quantized_chat(inf: InterleaveInferencer, logits_bf16: torch.Tensor) -> dict:
+    """The quantized serving modes at the full width, each on its own
+    quantized copy of the LLM (freed before the next) with an int8 KV cache:
+    (a) full-int8, fused projections: the three requests; (b) w4a8 per channel
+    and (c) w4a8 with groups of 512, fused: the 378x378 request. After each,
+    the first-step logits with the kernels against the same model on the plain
+    versions (asserted) and against the bf16 model (printed: these are
+    non-parity modes, and the weights are random). Returns the launches of
+    the three phases added up."""
+    n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
+    fused_per_layer = 4  # qkv, o, gate_up, down of the und expert
+    phases = [
+        ("full-int8 + fused + int8 KV", dict(bits=8, act_quant=True), range(len(REQUESTS)), 0),
+        ("w4a8 per channel + fused + int8 KV", dict(bits=4, act_quant=True), [2],
+         fused_per_layer),
+        (f"w4a8 group {W4_GROUP} + fused + int8 KV",
+         dict(bits=4, act_quant=True, group_size=W4_GROUP), [2], fused_per_layer),
+    ]
+    total = {name: 0 for name in COUNTERS}
+    h, w, prompt = REQUESTS[1]
+    image = _images()[1]
+    for name, kw, requests, k4_per_layer in phases:
+        print(f"quantized chat path, {name}: {len(requests)} request(s), greedy, max_length "
+              f"{MAX_LENGTH}", flush=True)
+        qinf = quantized_inferencer(inf, **kw)
+        launches = run_chat_requests(qinf, requests, f"the {name} path", lambda f, steps, imgs: {
+            "flash_block_attention": imgs * (n_vit + n_llm) + imgs * n_llm,
+            "decode_attention_int8": steps * n_llm,
+            "silu_mul_quant": f * n_llm,
+            "w4_matmul": f * n_llm * k4_per_layer,
+        })
+        for k, v in launches.items():
+            total[k] += v
+        got = _first_step_logits(qinf, image, prompt)
+        want = _with_plain_versions(lambda: _first_step_logits(qinf, image, prompt))
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=0).item()
+        cos_bf16 = torch.nn.functional.cosine_similarity(got, logits_bf16, dim=0).item()
+        finite = bool(torch.isfinite(got).all())
+        print(f"  end to end ({h}x{w}): first-step logits kernels vs plain versions: cosine "
+              f"{cos:.6f}, max abs {(got - want).abs().max().item():.4f} (logits std "
+              f"{want.std().item():.3f}), argmax {got.argmax().item()} vs "
+              f"{want.argmax().item()}, finite {finite}; against the bf16 model's logits "
+              f"(not a parity mode): cosine {cos_bf16:.4f}", flush=True)
+        if not finite or got.shape != (inf.cfg.llm.vocab_size,) or cos < LOGITS_COS_TOL:
+            raise SystemExit(f"chip_smoke: {name}: the kernel path's logits disagree with "
+                             "the plain versions'")
+        del qinf
+        torch.cuda.empty_cache()
+    return total
 
 
 COUNTERS = {  # kernel name -> its wrapper's counts
     "flash_block_attention": fa.counts,
     "flash_block_attention_q_preproc": fa.q_preproc_counts,
     "decode_attention": dec.counts,
+    "decode_attention_int8": dec.int8_counts,
+    "silu_mul_quant": aq.counts,
+    "w4_matmul": w4.counts,
 }
 
 
@@ -385,8 +719,9 @@ def reset_counts() -> None:
 
 
 def check_counts(path: str, want: dict) -> dict:
-    """The launches each kernel counted since reset_counts, against ``want``;
-    no plain version may have run."""
+    """The launches each kernel counted since reset_counts, against ``want``
+    (kernels it does not name: 0); no plain version may have run."""
+    want = {name: want.get(name, 0) for name in COUNTERS}
     launches = {name: c["kernel"] for name, c in COUNTERS.items()}
     plain = {name: c["plain"] for name, c in COUNTERS.items()}
     print(f"launches on {path}: {launches} (expected {want}); plain versions called "
@@ -411,13 +746,14 @@ def _first_step_logits(inf: InterleaveInferencer, image, prompt) -> torch.Tensor
     return qwen2_mot.lm_head(lm, h[:, 0])[0]
 
 
-def check_against_plain_path(inf: InterleaveInferencer) -> None:
+def check_against_plain_path(inf: InterleaveInferencer) -> torch.Tensor:
     """The second request's first-step logits with the kernels vs with every
-    attention call swapped for its plain version (fp32 softmax)."""
+    attention call swapped for its plain version (fp32 softmax); returns the
+    kernels' logits."""
     h, w, prompt = REQUESTS[1]
     image = _images()[1]
     got = _first_step_logits(inf, image, prompt)
-    want = _with_plain_attention(lambda: _first_step_logits(inf, image, prompt))
+    want = _with_plain_versions(lambda: _first_step_logits(inf, image, prompt))
     cos = torch.nn.functional.cosine_similarity(got, want, dim=0).item()
     max_abs = (got - want).abs().max().item()
     finite = bool(torch.isfinite(got).all())
@@ -426,6 +762,7 @@ def check_against_plain_path(inf: InterleaveInferencer) -> None:
           f"{got.argmax().item()} vs {want.argmax().item()}, finite {finite}", flush=True)
     if not finite or got.shape != (inf.cfg.llm.vocab_size,) or cos < LOGITS_COS_TOL:
         raise SystemExit("chip_smoke: the kernel path's logits disagree with the plain path's")
+    return got
 
 
 class StepTimer:
@@ -543,11 +880,13 @@ def _first_step_velocity(inf: InterleaveInferencer) -> torch.Tensor:
     return (noise - x1) / float(dts[0])
 
 
-def _with_plain_attention(fn):
-    """fn() with every attention call swapped for its plain version."""
+def _with_plain_versions(fn):
+    """fn() with every kernel call swapped for its plain version."""
     swapped = [(siglip, "flash_block_attention", fa.flash_block_attention_ref),
                (qwen2_mot, "flash_block_attention", fa.flash_block_attention_ref),
-               (qwen2_mot, "decode_attention", dec.decode_attention_ref)]
+               (qwen2_mot, "decode_attention", dec.decode_attention_ref),
+               (qwen2_mot, "silu_mul_quant", aq.silu_mul_quant_ref),
+               (quant, "w4_matmul", w4.w4_matmul_ref)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swapped]
     for mod, name, f in swapped:
         setattr(mod, name, f)
@@ -560,7 +899,7 @@ def _with_plain_attention(fn):
 
 def check_velocity_against_plain(inf: InterleaveInferencer) -> None:
     got = _first_step_velocity(inf)
-    want = _with_plain_attention(lambda: _first_step_velocity(inf))
+    want = _with_plain_versions(lambda: _first_step_velocity(inf))
     cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0).item()
     finite = bool(torch.isfinite(got).all())
     print(f"end to end (text-to-image {GEN_SIZE[0]}x{GEN_SIZE[1]}): first-step post-CFG "
@@ -575,30 +914,45 @@ def main() -> None:
     check_device()
     build_kernels()
     timings = check_kernels()
+    time_int8_matmul_candidates(torch.Generator(device="cuda").manual_seed(SEED + 4))
     torch.cuda.empty_cache()
     inf = build_inferencer()
     print("chat path: 3 chat requests, greedy, max_length "
           f"{MAX_LENGTH}, full 14B geometry, random weights (seed {SEED})", flush=True)
-    chat = run_main_path(inf)
-    check_against_plain_path(inf)
+    paths = [run_main_path(inf)]
+    logits_bf16 = check_against_plain_path(inf)
     print(f"generation path: text-to-image and an image edit at {GEN_SIZE[0]}x{GEN_SIZE[1]}, "
           "50 timesteps, CFG text 3.0 / image 1.5 on (0.4, 1.0], global renorm", flush=True)
-    gen = run_generation(inf)
+    paths.append(run_generation(inf))
     check_velocity_against_plain(inf)
+    paths.append(run_quantized_chat(inf, logits_bf16))
+    flash = "unimedvl_tpu_torch/csrc/flash_block_attention.cu"
+    decode = "unimedvl_tpu_torch/csrc/decode_attention.cu"
     sources = {
-        "flash_block_attention": ("unimedvl_tpu_torch/csrc/flash_block_attention.cu",
-                                  "unimedvl_tpu/ops/flash_attention.py:209"),
+        "flash_block_attention": (flash, "unimedvl_tpu/ops/flash_attention.py:209"),
         "flash_block_attention_q_preproc": (
-            "unimedvl_tpu_torch/csrc/flash_block_attention.cu",
-            "unimedvl_tpu/ops/flash_attention.py:209 (q_preproc, _fused_q_preproc :33)"),
-        "decode_attention": ("unimedvl_tpu_torch/csrc/decode_attention.cu",
-                             "unimedvl_tpu/ops/decode_attention.py:130"),
+            flash, "unimedvl_tpu/ops/flash_attention.py:209 (q_preproc, _fused_q_preproc :33)"),
+        "decode_attention": (decode, "unimedvl_tpu/ops/decode_attention.py:130"),
+        "decode_attention_int8": (
+            decode, "unimedvl_tpu/ops/decode_attention.py:130 (int8 k/v, k_scale, v_scale)"),
+        "silu_mul_quant": ("unimedvl_tpu_torch/csrc/silu_mul_quant.cu",
+                           "unimedvl_tpu/ops/act_quant.py:57"),
+        "w4_matmul": ("unimedvl_tpu_torch/csrc/w4_matmul.cu",
+                      "unimedvl_tpu/ops/w4_matmul.py:202"),
     }
+    # ms is one call between two events, host time of the wrapper included;
+    # ms_back_to_back is the time per call in a run of 20, which the card sets
+    keys = ("max_abs_err", "ms", "ms_back_to_back", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=chat[name] + gen[name], **timings[name])
+             launches=sum(p[name] for p in paths), **{k: timings[name][k] for k in keys},
+             **{k: v for k, v in timings[name].items() if k.startswith("one_row_")})
         for name, (src, rep) in sources.items()
     ]
+    unlaunched = [k["name"] for k in kernels if k["launches"] < 1]
+    if unlaunched:
+        raise SystemExit(f"chip_smoke: no path launched {unlaunched}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

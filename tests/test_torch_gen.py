@@ -39,9 +39,11 @@ from unimedvl_tpu_torch.ops import norms, rope, sincos
 from unimedvl_tpu_torch.weights import loader
 
 from tests.test_pipeline import TINY as CFG
+from tests.test_torch_config import port_config
 from tests.test_torch_model import released_ckpt  # noqa: F401 (fixture)
 from tests.test_vae import SMALL
 
+TCFG = port_config(CFG)  # the port's own config object, from the JAX one's fields
 OP_TOL = dict(rtol=1e-5, atol=1e-5)
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -50,7 +52,7 @@ MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 @pytest.fixture(scope="module")
 def pair():
     params = jbagel.init_params(jax.random.PRNGKey(2), CFG, llm2vae_zero=False)
-    model = loader.from_jax_params(jax.tree.map(np.asarray, params), CFG)
+    model = loader.from_jax_params(jax.tree.map(np.asarray, params), TCFG)
     return params, model
 
 
@@ -342,7 +344,7 @@ class TestVAE:
         sd = {k: 0.1 * _rand(rng, *v.shape) for k, v in names.items()}
         path = tmp_path / "ae.safetensors"
         save_file({prefix + k: v for k, v in sd.items()}, str(path))
-        ae = loader.load_ae(str(path), SMALL)
+        ae = loader.load_ae(str(path), SMALL, device="cpu")
         for k, v in ae.state_dict().items():
             assert v.dtype == torch.float32
             np.testing.assert_array_equal(v.numpy(), sd[k])
@@ -373,8 +375,10 @@ class TestVAE:
             str(ckpt), vae=vae_cfg, max_latent_size=4, vit_max_num_patch_per_side=4
         )
         jparams = jloader.load_bagel_checkpoint(str(ckpt), cfg, dtype=jnp.float32)
-        want = loader.from_jax_params(jax.tree.map(np.asarray, jparams), cfg).state_dict()
-        got = loader.load_bagel_checkpoint(str(ckpt), cfg, dtype=torch.float32).state_dict()
+        want = loader.from_jax_params(jax.tree.map(np.asarray, jparams),
+                                      port_config(cfg)).state_dict()
+        got = loader.load_bagel_checkpoint(str(ckpt), port_config(cfg), device="cpu",
+                                           dtype=torch.float32).state_dict()
         assert got.keys() == want.keys()
         assert len([k for k in got if k.startswith("vae_model.")]) == len(names)
         for key in want:
@@ -382,10 +386,11 @@ class TestVAE:
 
     def test_vae_stays_fp32_beside_bf16_weights(self, pair):
         params, _ = pair
-        sd = loader.jax_tree_to_state_dict(jax.tree.map(np.asarray, params), CFG)
+        sd = loader.jax_tree_to_state_dict(jax.tree.map(np.asarray, params), TCFG)
         vae_keys = [k for k in sd if k.startswith("vae_model.")]
         assert len(vae_keys) == len(AutoEncoder(SMALL, device="meta").state_dict())
-        model = loader.from_jax_params(jax.tree.map(np.asarray, params), CFG, dtype=torch.bfloat16)
+        model = loader.from_jax_params(jax.tree.map(np.asarray, params), TCFG,
+                                       dtype=torch.bfloat16)
         assert model.vae_model.decoder.conv_out.weight.dtype == torch.float32
         assert model.llm2vae.weight.dtype == torch.bfloat16
 
@@ -394,7 +399,7 @@ def test_init_random_fills_the_vae_and_velocity_head():
     cfg = BagelConfig(llm=CFG.llm, vit=CFG.vit, vae=CFG.vae, latent_patch_size=2,
                       max_latent_size=8, vit_max_num_patch_per_side=16)
     for zero in (True, False):
-        model = bagel.Bagel(cfg, device="meta", dtype=torch.bfloat16, with_vae=True)
+        model = bagel.Bagel(port_config(cfg), device="meta", dtype=torch.bfloat16, with_vae=True)
         model = model.to_empty(device="cpu")
         bagel.init_random_(model, torch.Generator().manual_seed(0), llm2vae_zero=zero)
         assert bool((model.llm2vae.weight == 0).all()) == zero

@@ -1,6 +1,7 @@
-"""The PyTorch port imports without jax and without a CUDA toolchain: it
-reuses only the JAX package's jax-free modules and builds its kernels at the
-first CUDA launch."""
+"""The PyTorch port imports without jax, without anything of the JAX package
+and without a CUDA toolchain: it keeps its own config, tokenizer set-up and
+image preprocessing, and builds its kernels at the first CUDA launch. The
+same holds for ``chip_smoke.py``'s imports."""
 
 import os
 import subprocess
@@ -10,14 +11,30 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CODE = """
 import sys
+
+def check(what):
+    jax = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+    assert not jax, (what, jax)
+    ref = sorted(m for m in sys.modules if m == "unimedvl_tpu" or m.startswith("unimedvl_tpu."))
+    assert not ref, (what, ref)
+
 import unimedvl_tpu_torch
+check("import unimedvl_tpu_torch")
+import unimedvl_tpu_torch.config
+import unimedvl_tpu_torch.data.tokenizer
+import unimedvl_tpu_torch.data.imaging
+import unimedvl_tpu_torch.quant
 import unimedvl_tpu_torch.ops.flash_attention
 import unimedvl_tpu_torch.ops.decode_attention
+import unimedvl_tpu_torch.ops.act_quant
+import unimedvl_tpu_torch.ops.w4_matmul
 import unimedvl_tpu_torch.models.bagel
 import unimedvl_tpu_torch.weights.loader
 import unimedvl_tpu_torch.inference
+check("the port's modules")
+import chip_smoke
+check("import chip_smoke")
 from unimedvl_tpu_torch.ops import cuda_build
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 assert cuda_build.load_library.cache_info().currsize == 0  # nothing built
 print("ok")
 """
@@ -31,3 +48,19 @@ def test_import_needs_no_jax_and_no_nvcc():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_no_source_line_imports_the_jax_package():
+    """No ``import`` line of the port or of chip_smoke.py names ``jax`` or
+    ``unimedvl_tpu``; comments and docstrings may."""
+    import re
+
+    pattern = re.compile(r"^\\s*(from|import)\\s+(jax|unimedvl_tpu)(\\.|\\s|$)")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "unimedvl_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            hits = [line for line in f if pattern.match(line)]
+        assert not hits, (path, hits)

@@ -11,13 +11,25 @@ round P and their output to bf16). Only valid query rows are compared. K1b
 (q pre-processing) against K1a on the plainly pre-processed q: within one
 bf16 ulp of each output row's largest |value|, since only the rounding of a
 few q elements may differ, which moves the whole row.
+
+The quantized kernels. K4 (packed-int4 matmul) with int8 x equals its plain
+version bit for bit, per channel and grouped (integer sums are exact and both
+apply the same rounded fp32 multiplies and adds in one order); with bf16 x the
+fp32 sums run in another order: |err| <= 2^-7 |plain| + 1e-3 * sqrt(K) * 8 *
+max|x| * max(w_scale) / 16 per element (a loose bound on the reordering error,
+well under one output rounding). K3 (silu * mul * quant): scales within 1e-6
+relative, q within one step, at most 1e-3 of the elements differing (expf
+against torch.sigmoid in the last place). K2-int8 takes the attention
+tolerance above.
 """
 
 import pytest
 import torch
 
+from unimedvl_tpu_torch.ops import act_quant as aq
 from unimedvl_tpu_torch.ops import decode_attention as dec
 from unimedvl_tpu_torch.ops import flash_attention as fa
+from unimedvl_tpu_torch.ops import w4_matmul as w4
 from unimedvl_tpu_torch.ops.rope import rope_cos_sin
 
 pytestmark = pytest.mark.cuda
@@ -183,3 +195,149 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                                  kv_head_major=True)
     with pytest.raises(ValueError, match="head dim"):
         dec.decode_attention(q[:, :1].contiguous(), kv, kv, lens, (0, 0))
+
+
+def _int8(gen, *shape, lo=-127, hi=128):
+    return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+
+DECODE_INT8 = DECODE + [
+    (1024, 28, 4, tuple([800] * 48), tuple([800] * 48), tuple([800] * 48)),  # (lens, lens)
+]
+
+
+@pytest.mark.parametrize("case", DECODE_INT8)
+def test_decode_attention_int8_matches_plain(gen, case):
+    M, H, Hk, lens, base, col = case
+    S = len(lens)
+    q = _randn(gen, S, 1, H, 128, scale=2.0)
+    k, v = _int8(gen, S, Hk, M, 128), _int8(gen, S, Hk, M, 128)
+    ks = torch.rand(S, Hk, M, generator=gen, device="cuda") * 0.02 + 0.005
+    vs = torch.rand(S, Hk, M, generator=gen, device="cuda") * 0.02 + 0.005
+    band = (_ints(*base), _ints(*col))
+    before = dict(dec.int8_counts), dict(dec.counts)
+    got = dec.decode_attention(q, k, v, _ints(*lens), band, k_scale=ks, v_scale=vs)
+    assert dec.int8_counts["kernel"] == before[0]["kernel"] + 1 and dec.counts == before[1]
+    _assert_close(got, dec.decode_attention_ref(q, k, v, _ints(*lens), band, ks, vs))
+
+
+def test_decode_attention_int8_reads_a_cache_layer(gen):
+    """k/v and scales as one layer's views of the stacked cache; a stream whose
+    keys are all masked gives zeros, not NaN, even over NaN scales."""
+    L, S, Hk, M = 2, 2, 4, 300
+    kc, vc = _int8(gen, L, S, Hk, M, 128), _int8(gen, L, S, Hk, M, 128)
+    ks = torch.rand(L, S, Hk, M, generator=gen, device="cuda") * 0.02
+    vs = torch.rand(L, S, Hk, M, generator=gen, device="cuda") * 0.02
+    q = _randn(gen, S, 1, 28, 128)
+    lens, band = _ints(200, 0), (_ints(250, 10), _ints(255, 5))  # stream 1: empty band
+    vs[1, 1] = float("nan")
+    got = dec.decode_attention(q, kc[1], vc[1], lens, band, k_scale=ks[1], v_scale=vs[1])
+    want = dec.decode_attention_ref(q[:1], kc[1, :1], vc[1, :1], lens[:1],
+                                    (band[0][:1], band[1][:1]), ks[1, :1], vs[1, :1])
+    _assert_close(got[:1], want)
+    assert (got[1] == 0).all()
+
+
+@pytest.mark.parametrize("R", [1, 3, 731])
+@pytest.mark.parametrize("I", [18944, 64])
+def test_silu_mul_quant_matches_plain(gen, R, I):
+    g, u = _randn(gen, R, I, scale=2.0), _randn(gen, R, I)
+    before = aq.counts["kernel"]
+    q, s = aq.silu_mul_quant(g, u)
+    assert aq.counts["kernel"] == before + 1
+    q_ref, s_ref = aq.silu_mul_quant_ref(g, u)
+    assert q.dtype == torch.int8 and q.shape == (R, I) and s.shape == (R, 1)
+    torch.testing.assert_close(s, s_ref, rtol=1e-6, atol=0)
+    diff = (q.int() - q_ref.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3
+
+
+def test_silu_mul_quant_zero_rows_and_fused_halves(gen):
+    """A row of zeros gives scale 1e-8 / 127 and q = 0; g and u may be the two
+    halves of one fused [.., 2 I] tensor (strided rows), with leading dims."""
+    I = 256
+    gu = _randn(gen, 2, 5, 2 * I)
+    gu[1, 2] = 0
+    g, u = gu.split(I, dim=-1)
+    q, s = aq.silu_mul_quant(g, u)
+    q_ref, s_ref = aq.silu_mul_quant_ref(g, u)
+    assert q.shape == (2, 5, I) and s.shape == (2, 5, 1)
+    assert (q[1, 2] == 0).all() and s[1, 2].item() == pytest.approx(1e-8 / 127, rel=1e-6)
+    torch.testing.assert_close(s, s_ref, rtol=1e-6, atol=0)
+    assert (q.int() - q_ref.int()).abs().max().item() <= 1
+
+
+def _w4_inputs(gen, m, K, N, G):
+    wq = _int8(gen, N, K, lo=-8, hi=8)
+    wp = w4.pack_int4(wq)
+    ws = torch.rand((G, N) if G else (N,), generator=gen, device="cuda") * 0.01 + 0.001
+    return wq, wp, ws
+
+
+W4_SHAPES = [
+    # (m, K, N, G)
+    (1, 3584, 4608, 0), (3, 3584, 4608, 7), (4, 18944, 3584, 37), (2, 1024, 512, 0),
+    (5, 3584, 512, 0), (731, 3584, 4608, 0), (731, 3584, 4608, 7), (200, 18944, 3584, 37),
+    (130, 1024, 136, 2), (64, 128, 8, 2), (3, 192, 24, 3),
+]
+
+
+@pytest.mark.parametrize("shape", W4_SHAPES)
+def test_w4a8_matmul_equals_plain(gen, shape):
+    m, K, N, G = shape
+    _, wp, ws = _w4_inputs(gen, m, K, N, G)
+    x = _int8(gen, m, K)
+    xs = torch.rand(m, 1, generator=gen, device="cuda") * 0.05 + 0.001
+    before = w4.counts["kernel"]
+    got = w4.w4_matmul(x, xs, wp, ws)
+    assert w4.counts["kernel"] == before + 1
+    want = w4.w4_matmul_ref(x, xs, wp, ws)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, N)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("shape", W4_SHAPES)
+def test_w4_matmul_bf16_x_matches_plain(gen, shape):
+    m, K, N, G = shape
+    _, wp, ws = _w4_inputs(gen, m, K, N, G)
+    x = _randn(gen, m, K)
+    got = w4.w4_matmul(x, None, wp, ws).float()
+    want = w4.w4_matmul_ref(x, None, wp, ws).float()
+    bound = 2.0**-7 * want.abs() + 1e-3 * K**0.5 * 8 * x.float().abs().max() * ws.max() / 16
+    assert ((got - want).abs() <= bound).all(), ((got - want).abs() / bound).max().item()
+
+
+def test_w4_matmul_leading_dims_and_unpack(gen):
+    wq, wp, ws = _w4_inputs(gen, 6, 128, 16, 0)
+    assert torch.equal(w4.unpack_int4(wp), wq)
+    x = _int8(gen, 2, 3, 128)
+    xs = torch.rand(2, 3, 1, generator=gen, device="cuda") * 0.05
+    got = w4.w4_matmul(x, xs, wp, ws)
+    assert got.shape == (2, 3, 16)
+    assert torch.equal(got, w4.w4_matmul_ref(x, xs, wp, ws))
+
+
+def test_quantized_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    _, wp, ws = _w4_inputs(gen, 1, 96, 16, 0)
+    x = _int8(gen, 2, 96)
+    xs = torch.ones(2, 1, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 64"):
+        w4.w4_matmul(x, xs, wp, ws)
+    _, wp, ws = _w4_inputs(gen, 1, 128, 16, 0)
+    with pytest.raises(TypeError, match="int8 .* or bfloat16"):
+        w4.w4_matmul(torch.zeros(2, 128, device="cuda"), None, wp, ws)
+    with pytest.raises(ValueError, match="x_scale"):
+        w4.w4_matmul(_int8(gen, 2, 128), None, wp, ws)
+    with pytest.raises(TypeError, match="bfloat16"):
+        aq.silu_mul_quant(torch.zeros(2, 64, device="cuda"), torch.zeros(2, 64, device="cuda"))
+    q = _randn(gen, 1, 1, 28, 128)
+    kv = _int8(gen, 1, 4, 32, 128)
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
+        dec.decode_attention(q, kv, kv, _ints(3), (3, 3))
+    sc = torch.ones(1, 4, 32, device="cuda")
+    with pytest.raises(ValueError, match=r"scales must be \[S, Hk, M\]"):
+        dec.decode_attention(q, kv, kv, _ints(3), (3, 3), k_scale=sc[:, :, ::2], v_scale=sc)
+    with pytest.raises(ValueError, match="k_scale must be .* contiguous|k_scale must be"):
+        dec.decode_attention(q, kv, kv, _ints(3), (3, 3),
+                             k_scale=torch.ones(1, 4, 64, device="cuda")[:, :, ::2], v_scale=sc)

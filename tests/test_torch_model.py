@@ -1,7 +1,8 @@
 """Models and weights of the PyTorch port against the JAX package, on the CPU.
 
 Both packages hold the same weights: the JAX tree from ``bagel.init_params``
-goes into the port through ``from_jax_params``. The same numpy inputs go
+goes into the port through ``from_jax_params``, with the port's own config
+object rebuilt from the JAX one's fields. The same numpy inputs go
 through both. Everything runs in fp32; outputs agree within atol 1e-4
 (sums over a few layers taken in another order), greedy tokens exactly.
 """
@@ -23,6 +24,7 @@ from unimedvl_tpu_torch.models import bagel, qwen2_mot
 from unimedvl_tpu_torch.models.qwen2_mot import KVCache
 from unimedvl_tpu_torch.weights import loader
 
+from tests.test_torch_config import port_config
 from tests.test_weights import CFG as CKPT_CFG, synthetic_state_dict
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -45,7 +47,7 @@ CFG = BagelConfig(
 @pytest.fixture(scope="module")
 def pair():
     params = jbagel.init_params(jax.random.PRNGKey(0), CFG)
-    model = loader.from_jax_params(jax.tree.map(np.asarray, params), CFG)
+    model = loader.from_jax_params(jax.tree.map(np.asarray, params), port_config(CFG))
     return params, model
 
 
@@ -170,9 +172,10 @@ class TestLoader:
         )
         assert cfg.vit.num_hidden_layers == CKPT_CFG.vit.num_hidden_layers
         jparams = jloader.load_bagel_checkpoint(str(released_ckpt), cfg, dtype=jnp.float32)
-        want = loader.from_jax_params(jax.tree.map(np.asarray, jparams), cfg).state_dict()
+        want = loader.from_jax_params(jax.tree.map(np.asarray, jparams),
+                                      port_config(cfg)).state_dict()
         got = loader.load_bagel_checkpoint(
-            str(released_ckpt), cfg, dtype=torch.float32
+            str(released_ckpt), port_config(cfg), device="cpu", dtype=torch.float32
         ).state_dict()
         assert got.keys() == want.keys()
         for key in want:

@@ -155,11 +155,19 @@ class TestDecodeAttention:
         _close(got, want)
 
     def test_int8_scales_raise(self):
+        """Scales and an int8 cache come together: a float cache with scales,
+        or an int8 cache without, raises (the int8 cache itself is served:
+        tests/test_torch_quant.py)."""
         z = torch.zeros(1, 1, 2, 8)
         kv = torch.zeros(1, 2, 4, 8)
-        with pytest.raises(NotImplementedError, match="M8"):
-            dec.decode_attention(z, kv, kv, torch.zeros(1, dtype=torch.int32), (0, 0),
-                                 k_scale=torch.ones(1, 2, 4))
+        lens = torch.zeros(1, dtype=torch.int32)
+        with pytest.raises(ValueError, match="come together"):
+            dec.decode_attention(z, kv, kv, lens, (0, 0), k_scale=torch.ones(1, 2, 4))
+        with pytest.raises(ValueError, match="float cache takes none"):
+            dec.decode_attention(z, kv, kv, lens, (0, 0), k_scale=torch.ones(1, 2, 4),
+                                 v_scale=torch.ones(1, 2, 4))
+        with pytest.raises(ValueError, match="int8 cache needs"):
+            dec.decode_attention(z, kv.to(torch.int8), kv.to(torch.int8), lens, (0, 0))
 
 
 class TestWrappers:
@@ -171,6 +179,34 @@ class TestWrappers:
         assert t.dtype == torch.int32 and t.is_contiguous() and t.tolist() == [1, 2]
         with pytest.raises(ValueError, match=r"\[3\]"):
             _launch.per_stream(torch.tensor([1, 2]), 3, dev)
+
+    def test_tensor_checks_name_the_tensor(self):
+        """The checks the kernels' raw pointers rest on run before any launch,
+        so they can be held on CPU tensors: each raises with the name."""
+        cpu = torch.device("cpu")
+        with pytest.raises(ValueError, match="k must be on"):
+            _launch.check_cuda(("k",), (torch.zeros(4, 16, dtype=torch.int8),), torch.int8)
+        with pytest.raises(ValueError, match="x_scale must be torch.float32"):
+            _launch.check_contiguous_cuda("x_scale", torch.zeros(3, dtype=torch.float64),
+                                          torch.float32, (3,), cpu)
+        with pytest.raises(ValueError, match=r"wp must be torch.int8 \(8, 16\)"):
+            _launch.check_contiguous_cuda("wp", torch.zeros(8, 8, dtype=torch.int8),
+                                          torch.int8, (8, 16), cpu)
+        with pytest.raises(ValueError, match="w_scale must be contiguous"):
+            _launch.check_contiguous_cuda("w_scale", torch.zeros(4, 8)[:, ::2],
+                                          torch.float32, (4, 4), cpu)
+        ok = torch.zeros(4, 16)
+        _launch.check_contiguous_cuda("ok", ok, torch.float32, (4, 16), cpu)
+
+    @pytest.mark.parametrize("dtype,per_load", [(torch.bfloat16, 8), (torch.int8, 16)])
+    def test_kv_strides_are_in_16_byte_loads(self, dtype, per_load):
+        """Strides come back in elements and must be whole 16-byte loads: 8
+        elements of bf16, 16 of int8."""
+        t = torch.zeros(2, 3, 5, 2 * per_load, dtype=dtype)
+        assert _launch.kv_strides("k", t) == (t.stride(0), t.stride(1), t.stride(2))
+        odd = torch.zeros(2, 3, 5, per_load + per_load // 2, dtype=dtype)
+        with pytest.raises(ValueError, match=f"k strides .* multiples of {per_load} elements"):
+            _launch.kv_strides("k", odd)
 
     def test_other_devices_raise(self):
         """Neither the kernel nor the plain version runs on a third device."""

@@ -7,6 +7,16 @@ the port's ``_randn`` replays the JAX inferencer's draws (a copy of its key,
 split in the same order), so both start from the same noise. Latents agree
 within 1e-4 (a few layers and flow steps in fp32, sums in another order);
 decoded images within 1 per uint8 pixel (the cast truncates).
+
+The quantized serving modes as a whole (``TestQuantizedChat``): both
+inferencers with ``kv_quantized=True`` over the same quantized trees
+(full-int8 with fused projections, and w4a8), the JAX ``_mlp`` held to the
+fused silu * mul * quant definition the port always takes
+(``_FORCE_SILU_QUANT``). Integer matmuls agree exactly; what can differ is an
+int8 rounding of an activation or of a cached k/v where torch's and XLA's fp32
+(norms, rope, softmax, sigmoid) differ in the last place. On these seeds no
+rounding flips: the first-step logits agree within 1e-6 (seen: 9e-8) and the
+greedy tokens and ``chat`` strings are identical.
 """
 
 import jax
@@ -16,15 +26,25 @@ import pytest
 import torch
 from PIL import Image
 
+from unimedvl_tpu import quant as jquant
 from unimedvl_tpu.config import BagelConfig, LLMConfig, ViTConfig
 from unimedvl_tpu.data.imaging import ImageTransform
 from unimedvl_tpu.data.tokenizer import add_special_tokens
 from unimedvl_tpu.inference import InterleaveInferencer as JaxInferencer
 from unimedvl_tpu.models import bagel as jbagel
+from unimedvl_tpu.models import qwen2_mot as jmot
+from unimedvl_tpu_torch import quant
+from unimedvl_tpu_torch.data import imaging as timaging
+from unimedvl_tpu_torch.data import tokenizer as ttokenizer
 from unimedvl_tpu_torch.inference import InterleaveInferencer
+from unimedvl_tpu_torch.models import qwen2_mot
+from unimedvl_tpu_torch.ops import act_quant as aq
+from unimedvl_tpu_torch.ops import decode_attention as dec
+from unimedvl_tpu_torch.ops import w4_matmul as w4
 from unimedvl_tpu_torch.weights.loader import from_jax_params
 
 from tests.test_pipeline import TINY as GEN_CFG
+from tests.test_torch_config import port_config
 
 # tests/test_pipeline.py's TINY without the gen side, which chat never runs
 CFG = BagelConfig(
@@ -72,8 +92,10 @@ def pair():
     tok, new_token_ids, _ = add_special_tokens(FakeTokenizer())
     transform = ImageTransform(32, 8, 2, 1024)
     jax_inf = JaxInferencer(params, CFG, tok, new_token_ids, vit_transform=transform)
-    model = from_jax_params(jax.tree.map(np.asarray, params), CFG)
-    torch_inf = InterleaveInferencer(model, tok, new_token_ids, vit_transform=transform)
+    model = from_jax_params(jax.tree.map(np.asarray, params), port_config(CFG))
+    ttok, tids, _ = ttokenizer.add_special_tokens(FakeTokenizer())
+    torch_inf = InterleaveInferencer(model, ttok, tids,
+                                     vit_transform=timaging.ImageTransform(32, 8, 2, 1024))
     return jax_inf, torch_inf
 
 
@@ -114,6 +136,133 @@ class TestChat:
         assert (ctx.cache.lens == lens).all()
 
 
+# hidden 64 / intermediate 128: wide enough for int8 activations to carry the signal
+QCFG = BagelConfig(
+    llm=LLMConfig(
+        vocab_size=300, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, rope_theta=10000.0,
+    ),
+    vit=CFG.vit, vae=None, visual_gen=False, vit_max_num_patch_per_side=16,
+)
+QUANT_MODES = {
+    "int8-act-fused": (dict(bits=8, act_quant=True), True),
+    "w4a8": (dict(bits=4, act_quant=True), False),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(QUANT_MODES))
+def quant_pair(request):
+    """Both inferencers over one quantized tree, int8 KV caches. The port's
+    model comes from its own transforms on the fp32 weights (which
+    tests/test_torch_quant.py shows equal to loading the JAX tree)."""
+    kw, fused = QUANT_MODES[request.param]
+    params = jbagel.init_params(jax.random.PRNGKey(3), QCFG)
+    llm = jquant.quantize_llm_params(params["llm"], via_host=True, **kw)
+    if fused:
+        llm = jquant.fuse_serving_projections(llm)
+    jparams = {**params, "llm": llm}
+    tok, new_token_ids, _ = add_special_tokens(FakeTokenizer())
+    jax_inf = JaxInferencer(jparams, QCFG, tok, new_token_ids,
+                            vit_transform=ImageTransform(32, 8, 2, 1024), kv_quantized=True)
+    model = from_jax_params(jax.tree.map(np.asarray, params), port_config(QCFG))
+    quant.quantize_llm_params(model.language_model, **kw)
+    if fused:
+        quant.fuse_serving_projections(model.language_model)
+    ttok, tids, _ = ttokenizer.add_special_tokens(FakeTokenizer())
+    torch_inf = InterleaveInferencer(
+        model, ttok, tids, vit_transform=timaging.ImageTransform(32, 8, 2, 1024),
+        kv_quantized=True)
+    with pytest.MonkeyPatch.context() as mp:  # the JAX _mlp takes K3's definition too
+        mp.setattr(jmot, "_FORCE_SILU_QUANT", True)
+        yield request.param, jax_inf, torch_inf
+
+
+def _first_step_logits_jax(inf, image, prompt):
+    ctx = inf.init_gen_context()
+    ctx = inf.update_context_image(image, ctx, vae=False)
+    ctx = inf.update_context_text(prompt, ctx)
+    ctx = inf._ensure_capacity(ctx, 1)
+    llm = inf.params["llm"]
+    base = jnp.max(ctx.cache.lens)
+    x = jmot.embed_tokens(llm, jnp.asarray([inf.new_token_ids["bos_token_id"]]))[:, None]
+    h, _ = jmot.forward(llm, inf.cfg.llm, x, jnp.asarray([[ctx.rope]]), ctx.cache,
+                        jmot.ForwardSpec("und", True, True), decode_cols=(base, base))
+    return np.asarray(jmot.lm_head(llm, h[:, 0]))[0]
+
+
+def _first_step_logits_torch(inf, image, prompt):
+    ctx = inf.init_gen_context()
+    ctx = inf.update_context_image(image, ctx, vae=False)
+    ctx = inf.update_context_text(prompt, ctx)
+    ctx = inf._ensure_capacity(ctx, 1)
+    lm = inf.model.language_model
+    base = ctx.cache.lens.max()
+    x = qwen2_mot.embed_tokens(lm, torch.tensor([inf.new_token_ids["bos_token_id"]]))[:, None]
+    with torch.no_grad():
+        h, _ = lm.model(x, torch.tensor([[ctx.rope]]), ctx.cache, causal=True,
+                        decode_cols=(base, base))
+    return qwen2_mot.lm_head(lm, h[:, 0])[0].numpy()
+
+
+class TestQuantizedChat:
+    def test_first_step_logits_match_jax(self, quant_pair):
+        _, jax_inf, torch_inf = quant_pair
+        image = _image(8, 24, 28)
+        want = _first_step_logits_jax(jax_inf, image, "what is this?")
+        got = _first_step_logits_torch(torch_inf, image, "what is this?")
+        assert got.shape == want.shape == (QCFG.llm.vocab_size,)
+        # seen on these seeds: 9e-8 on logits of std 0.16. The matmuls are exact
+        # integers; a flipped int8 step of an activation or of a cached k/v (where
+        # the two frameworks' fp32 differ in the last place) would show as ~1e-3
+        # and did not occur
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+        assert got.argmax() == want.argmax()
+
+    @pytest.mark.parametrize("n_images", [1, 2])
+    def test_chat_matches_jax(self, quant_pair, n_images):
+        mode, jax_inf, torch_inf = quant_pair
+        images = [_image(i, 24 + 4 * i, 28) for i in range(n_images)]
+        want = jax_inf.chat(images, "what is this?", max_length=8)
+        before = dict(aq.counts), dict(dec.int8_counts), dict(w4.counts), dict(dec.counts)
+        got = torch_inf.chat(images, "what is this?", max_length=8)
+        assert isinstance(got, str) and got == want
+        # the path went through the plain versions of K3 and K2-int8 (and of K4 in
+        # the w4a8 mode), never through the bf16 decode
+        assert aq.counts["plain"] > before[0]["plain"]
+        assert dec.int8_counts["plain"] > before[1]["plain"]
+        assert (w4.counts["plain"] > before[2]["plain"]) == (mode == "w4a8")
+        assert dec.counts == before[3]
+
+    def test_contexts_are_int8_and_forks_copy_the_scales(self, quant_pair):
+        _, _, torch_inf = quant_pair
+        ctx = torch_inf.update_context_text("shared", torch_inf.init_gen_context())
+        assert ctx.cache.quantized and ctx.cache.k.dtype == torch.int8
+        assert ctx.cache.k_scale[..., : ctx.kv_len].min() > 0
+        fork = ctx.fork()
+        kept = fork.cache.k_scale.clone()
+        ctx = torch_inf.update_context_text("the original goes on", ctx)
+        assert torch.equal(fork.cache.k_scale, kept)
+        assert not torch.equal(ctx.cache.k_scale[..., : ctx.kv_len], kept[..., : ctx.kv_len])
+        grown = torch_inf._ensure_capacity(ctx, 2000)
+        assert grown.cache.k_scale.shape[-1] == grown.cache.capacity >= ctx.kv_len + 2000
+        stacked, _ = torch_inf._stack_contexts([grown, fork])
+        assert stacked.k_scale.shape[1] == 2 and stacked.k.dtype == torch.int8
+
+    def test_gen_text_twice_on_one_int8_context(self, quant_pair):
+        _, _, torch_inf = quant_pair
+        ctx = torch_inf.update_context_text("describe", torch_inf.init_gen_context())
+        first = torch_inf.gen_text(ctx, max_length=6)
+        assert torch_inf.gen_text(ctx, max_length=6) == first
+
+
+def test_int4_kv_cache_raises_naming_the_roadmap():
+    model = from_jax_params(
+        jax.tree.map(np.asarray, jbagel.init_params(jax.random.PRNGKey(1), CFG)),
+        port_config(CFG))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        InterleaveInferencer(model, None, {}, kv_quantized=True, kv_bits=4)
+    assert not InterleaveInferencer(model, None, {}).init_gen_context().cache.quantized
+
 
 @pytest.fixture(scope="module")
 def gen_pair():
@@ -122,8 +271,11 @@ def gen_pair():
     kw = dict(vae_transform=ImageTransform(32, 8, 8, 1024),
               vit_transform=ImageTransform(32, 8, 2, 1024), seed=0)
     jax_inf = JaxInferencer(params, GEN_CFG, tok, new_token_ids, **kw)
-    model = from_jax_params(jax.tree.map(np.asarray, params), GEN_CFG)
-    return jax_inf, InterleaveInferencer(model, tok, new_token_ids, **kw)
+    model = from_jax_params(jax.tree.map(np.asarray, params), port_config(GEN_CFG))
+    ttok, tids, _ = ttokenizer.add_special_tokens(FakeTokenizer())
+    tkw = dict(vae_transform=timaging.ImageTransform(32, 8, 8, 1024),
+               vit_transform=timaging.ImageTransform(32, 8, 2, 1024), seed=0)
+    return jax_inf, InterleaveInferencer(model, ttok, tids, **tkw)
 
 
 def _replay_jax_noise(jax_inf, torch_inf, monkeypatch):
@@ -160,6 +312,48 @@ class TestGeneration:
         got = torch_inf.interleave_inference(inputs, **GEN_KW)[-1]
         assert got.shape == want.shape == (16, GEN_CFG.patch_latent_dim)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+    def test_first_velocity_int8_matches_jax(self, gen_pair, monkeypatch):
+        """Full-int8 weights with fused projections and int8 KV caches through
+        the text-to-image recipe for one flow step (2 timesteps: dt = 1, CFG
+        on, three streams): the final latent is the noise minus the first
+        post-CFG velocity. The JAX ``_mlp`` is held to the fused silu * mul *
+        quant definition. Integer matmuls agree exactly; the rest is fp32 in
+        another order: 1e-4, as the bf16-free generation tests."""
+        jax_base, torch_base = gen_pair
+        monkeypatch.setattr(jmot, "_FORCE_SILU_QUANT", True)
+        kw = dict(bits=8, act_quant=True)
+        llm = jquant.fuse_serving_projections(
+            jquant.quantize_llm_params(jax_base.params["llm"], via_host=True, **kw))
+        jax_inf = JaxInferencer(
+            {**jax_base.params, "llm": llm}, GEN_CFG, jax_base.tokenizer,
+            jax_base.new_token_ids, vae_transform=jax_base.vae_transform,
+            vit_transform=jax_base.vit_transform, seed=0, kv_quantized=True)
+        model = from_jax_params(jax.tree.map(np.asarray, jax_inf.params), port_config(GEN_CFG))
+        assert hasattr(model.language_model.model.layers[0].mlp_moe_gen, "gate_up_proj")
+        torch_inf = InterleaveInferencer(
+            model, torch_base.tokenizer, torch_base.new_token_ids,
+            vae_transform=torch_base.vae_transform, vit_transform=torch_base.vit_transform,
+            seed=0, kv_quantized=True)
+        _replay_jax_noise(jax_inf, torch_inf, monkeypatch)
+        noise = []
+        replay = torch_inf._randn
+
+        def recorded(shape):
+            noise.append(replay(shape))
+            return noise[-1]
+
+        monkeypatch.setattr(torch_inf, "_randn", recorded)
+        monkeypatch.setattr(jax_inf, "decode_image", lambda latent, shape: latent)
+        monkeypatch.setattr(torch_inf, "decode_image", lambda latent, shape: latent)
+        one_step = dict(image_shapes=(32, 32), num_timesteps=2)
+        before = dict(aq.counts)
+        want = np.asarray(jax_inf.interleave_inference(["a chest x-ray"], **one_step)[-1])
+        got = torch_inf.interleave_inference(["a chest x-ray"], **one_step)[-1]
+        assert aq.counts["plain"] > before["plain"]  # the gen expert's MLP took K3 too
+        velocity = noise[-1].numpy() - got.numpy()  # dt = 1
+        np.testing.assert_allclose(velocity, noise[-1].numpy() - want, rtol=1e-4, atol=1e-4)
+        assert np.abs(velocity).max() > 1e-2  # a random velocity head: the step moved
 
     def test_call_image_matches_jax(self, gen_pair, monkeypatch):
         jax_inf, torch_inf = gen_pair

@@ -1,0 +1,43 @@
+"""Tokenizer loading + special-token registration (the port's own copy of
+``unimedvl_tpu/data/tokenizer.py``).
+
+Mirrors data_utils.py:140-175: ensures <|im_start|> (bos), <|im_end|> (eos),
+<|vision_start|>, <|vision_end|> exist and returns their ids. Any HF tokenizer
+with ``encode/decode/add_tokens/convert_tokens_to_ids`` works (the released
+checkpoints ship a Qwen2 byte-level BPE).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+
+SPECIAL_TOKENS = ("<|im_start|>", "<|im_end|>", "<|vision_start|>", "<|vision_end|>")
+
+
+def add_special_tokens(tokenizer) -> Tuple[object, Dict[str, int], int]:
+    all_special = []
+    for v in getattr(tokenizer, "special_tokens_map", {}).values():
+        if isinstance(v, str):
+            all_special.append(v)
+        elif isinstance(v, list):
+            all_special += v
+
+    new_tokens = [t for t in SPECIAL_TOKENS if t not in all_special]
+    num_new = tokenizer.add_tokens(new_tokens) if new_tokens else 0
+
+    new_token_ids = dict(
+        bos_token_id=tokenizer.convert_tokens_to_ids("<|im_start|>"),
+        eos_token_id=tokenizer.convert_tokens_to_ids("<|im_end|>"),
+        start_of_image=tokenizer.convert_tokens_to_ids("<|vision_start|>"),
+        end_of_image=tokenizer.convert_tokens_to_ids("<|vision_end|>"),
+    )
+    return tokenizer, new_token_ids, num_new
+
+
+def load_tokenizer(path: str):
+    """Load the checkpoint tokenizer and register special tokens."""
+    from transformers import AutoTokenizer
+
+    tokenizer = AutoTokenizer.from_pretrained(path)
+    return add_special_tokens(tokenizer)

@@ -30,10 +30,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from unimedvl_tpu.config import TransformConfig
+from unimedvl_tpu_torch.config import TransformConfig
 from unimedvl_tpu_torch.models import bagel
 from unimedvl_tpu_torch.models.bagel import Bagel
-from unimedvl_tpu_torch.models.qwen2_mot import KVCache
+from unimedvl_tpu_torch.models.qwen2_mot import KVCache, check_kv_bits
 
 # System prompts for think mode (inferencer.py:23-28).
 VLM_THINK_SYSTEM_PROMPT = """You should first think about the reasoning process in the mind and then provide the user with the answer.
@@ -62,9 +62,7 @@ class GenContext:
     def fork(self) -> "GenContext":
         """A context with the same contents in storage of its own: appending
         to either leaves the other as it was."""
-        c = self.cache
-        cache = KVCache(k=c.k.clone(), v=c.v.clone(), lens=c.lens.clone())
-        return GenContext(cache=cache, kv_len=self.kv_len, rope=self.rope)
+        return GenContext(cache=self.cache.clone(), kv_len=self.kv_len, rope=self.rope)
 
 
 class InterleaveInferencer:
@@ -76,15 +74,24 @@ class InterleaveInferencer:
         vit_transform=None,
         seed: int = 0,
         vae_transform=None,
+        kv_quantized: bool = False,
+        kv_bits: int = 8,
     ):
         """``model``: a Bagel on its device (built ``with_vae`` for image
         generation and VAE image contexts); ``tokenizer``: anything with
         ``encode``/``decode`` whose special tokens went through
-        ``unimedvl_tpu.data.tokenizer.add_special_tokens`` (which gave
+        ``unimedvl_tpu_torch.data.tokenizer.add_special_tokens`` (which gave
         ``new_token_ids``); ``vit_transform`` / ``vae_transform``:
-        ``unimedvl_tpu.data.imaging.ImageTransform``s (defaults: the
+        ``unimedvl_tpu_torch.data.imaging.ImageTransform``s (defaults: the
         interactive ViT and VAE geometries, built at the first image);
-        ``seed``: seeds the generator of every random draw."""
+        ``seed``: seeds the generator of every random draw;
+        ``kv_quantized``: int8 KV caches with per-key scales for every
+        context (half the cache bytes of a decode step and of a long
+        context; a non-parity mode, like the quantized weights);
+        ``kv_bits``: 8; the int4 cache (4) is not ported."""
+        if kv_quantized:
+            check_kv_bits(kv_bits)
+        self.kv_quantized = kv_quantized
         self.model = model
         self.cfg = model.config
         self.tokenizer = tokenizer
@@ -107,6 +114,7 @@ class InterleaveInferencer:
         cache = KVCache.create(
             llm.num_hidden_layers, 1, capacity, llm.num_key_value_heads,
             llm.head_dim, dtype=self.dtype, device=self.device,
+            quantized=self.kv_quantized,
         )
         return GenContext(cache=cache)
 
@@ -118,11 +126,7 @@ class InterleaveInferencer:
         if needed <= cap:
             return ctx
         pad = _round_up(needed, _CAPACITY_BUCKET) - cap
-        c = ctx.cache
-        cache = KVCache(
-            k=F.pad(c.k, (0, 0, 0, pad)), v=F.pad(c.v, (0, 0, 0, pad)), lens=c.lens
-        )
-        return GenContext(cache=cache, kv_len=ctx.kv_len, rope=ctx.rope)
+        return GenContext(cache=ctx.cache.padded(pad), kv_len=ctx.kv_len, rope=ctx.rope)
 
     # -- text ----------------------------------------------------------------
     def _encode_prompt(self, text: str) -> List[int]:
@@ -153,7 +157,7 @@ class InterleaveInferencer:
     def _transform(transform, default: TransformConfig):
         if transform is not None:
             return transform
-        from unimedvl_tpu.data import imaging  # imports PIL
+        from unimedvl_tpu_torch.data import imaging  # imports PIL
 
         return imaging.ImageTransform(
             default.max_size, default.min_size, default.stride, default.max_pixels
@@ -163,7 +167,7 @@ class InterleaveInferencer:
     def _resized_u8(image, transform) -> np.ndarray:
         """A PIL image, or a uint8 [H, W, 3] array, resized by ``transform``
         (PIL bicubic). An array already at the target size is used as is."""
-        from unimedvl_tpu.data import imaging  # imports PIL
+        from unimedvl_tpu_torch.data import imaging  # imports PIL
 
         rt = transform.resize_transform
         if isinstance(image, np.ndarray):
@@ -189,7 +193,7 @@ class InterleaveInferencer:
         return self._resized_u8(image, self.vae_transform)
 
     def _position_ids(self, H: int, W: int, patch: int, max_side: int) -> np.ndarray:
-        from unimedvl_tpu.data import imaging
+        from unimedvl_tpu_torch.data import imaging
 
         position_ids = (
             imaging.position_ids_interpolate if self.cfg.interpolate_pos
@@ -300,16 +304,7 @@ class InterleaveInferencer:
         zero-padded to the largest capacity; returns it and each context's
         rope position."""
         cap = max(c.cache.capacity for c in contexts)
-
-        def padded(t: torch.Tensor) -> torch.Tensor:
-            return F.pad(t, (0, 0, 0, cap - t.shape[3]))
-
-        caches = [c.cache for c in contexts]
-        stacked = KVCache(
-            k=torch.cat([padded(c.k) for c in caches], dim=1),
-            v=torch.cat([padded(c.v) for c in caches], dim=1),
-            lens=torch.cat([c.lens for c in caches]),
-        )
+        stacked = KVCache.stack([c.cache.padded(cap - c.cache.capacity) for c in contexts])
         positions = torch.tensor([c.rope for c in contexts], device=self.device)
         return stacked, positions
 
@@ -454,7 +449,7 @@ class InterleaveInferencer:
     def _calculate_target_size_with_aspect_ratio(self, width: int, height: int):
         """(H, W) keeping the aspect ratio under the VAE transform's
         constraints (inferencer.py:42-71)."""
-        from unimedvl_tpu.data.imaging import compute_resize_shape
+        from unimedvl_tpu_torch.data.imaging import compute_resize_shape
 
         self.vae_transform = self._transform(self.vae_transform, TransformConfig.vae_interactive())
         rt = self.vae_transform.resize_transform

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from unimedvl_tpu.config import BagelConfig
+from unimedvl_tpu_torch.config import BagelConfig
 from unimedvl_tpu_torch.models import qwen2_mot as mot
 from unimedvl_tpu_torch.models.layers import LayerNorm, PosEmbed, RMSNorm, linear
 from unimedvl_tpu_torch.models.qwen2_mot import KVCache, Qwen2MoTForCausalLM
@@ -229,7 +229,9 @@ def generate_text(
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Autoregressive decode (bagel.py:1259-1314) as a Python loop with one
-    eos check per step.
+    eos check per step. Over an int8 cache every step quantizes its kv at the
+    write and attends through the int8 decode kernel; the scales keep the
+    cache's one layout [L, S, Hk, M].
 
     Step d writes its kv at column base + d with base = max(lens) for every
     stream (the JAX package's aligned-column decode); lens do not advance, so
@@ -476,9 +478,7 @@ def generate_latents(
             continue
         cfg_on = cfg_on and S > 1
         n_streams = S if cfg_on else 1
-        step_caches = caches if n_streams == S else KVCache(
-            k=caches.k[:, :1], v=caches.v[:, :1], lens=caches.lens[:1]
-        )
+        step_caches = caches if n_streams == S else caches.streams(1)
         block_positions = positions[:n_streams, None]
         for i in range(run_start, run_end):
             x_lat = (_linear(x_t, model.vae2llm) + t_emb[i] + pos_emb).to(se.dtype)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from unimedvl_tpu_torch import quant
 from unimedvl_tpu_torch.ops.norms import layer_norm, rms_norm
 
 
@@ -48,6 +49,66 @@ def linear(cin: int, cout: int, bias: bool, device=None, dtype=None) -> nn.Linea
     """An nn.Linear whose weights are left for the loader or init to fill."""
     lin = nn.Linear(cin, cout, bias=bias, device="meta", dtype=dtype)
     return lin.to_empty(device=device if device is not None else "cpu")
+
+
+def linear_from_tensors(weight: torch.Tensor, bias=None) -> nn.Linear:
+    """An nn.Linear around an existing [out, in] weight (and bias), frozen."""
+    lin = nn.Linear(weight.shape[1], weight.shape[0], bias=bias is not None, device="meta")
+    lin.weight = nn.Parameter(weight, requires_grad=False)
+    if bias is not None:
+        lin.bias = nn.Parameter(bias, requires_grad=False)
+    return lin
+
+
+QUANT_MODES = ("q", "qa", "p4", "p4a")
+
+
+class QuantLinear(nn.Module):
+    """A quantized linear beside :func:`linear`: the weight as an int8
+    buffer ``weight_q`` ([out, in], or [out, in/2] packed int4), its fp32
+    ``scale`` ([out], or [G, out] group-wise) as a buffer, the optional bias as
+    a parameter, and the mode the JAX leaf's name carries: ``q``
+    (``kernel_q``), ``qa`` (``kernel_qa``), ``p4`` (``kernel_p4``), ``p4a``
+    (``kernel_p4a``). The forward dispatches as the JAX package's ``_linear``
+    does: modes ending in ``a`` quantize x per token and multiply in
+    integers, the others keep x's dtype (unimedvl_tpu_torch/quant.py)."""
+
+    def __init__(self, mode: str, weight_q: torch.Tensor, scale: torch.Tensor, bias=None):
+        super().__init__()
+        if mode not in QUANT_MODES:
+            raise ValueError(f"mode must be one of {QUANT_MODES}, got {mode!r}")
+        self.mode = mode
+        self.out_features = weight_q.shape[0]
+        self.in_features = weight_q.shape[1] * (2 if self.packed else 1)
+        if weight_q.dtype != torch.int8 or scale.shape[-1] != self.out_features or (
+                scale.dim() == 2 and not self.packed):
+            raise ValueError(
+                f"mode {mode!r} takes int8 weights [out, in{'/2' if self.packed else ''}] and "
+                f"scales [out]{' or [G, out]' if self.packed else ''}, got {weight_q.dtype} "
+                f"{tuple(weight_q.shape)} and scales {tuple(scale.shape)}"
+            )
+        self.register_buffer("weight_q", weight_q)
+        self.register_buffer("scale", scale)
+        if bias is None:
+            self.register_parameter("bias", None)
+        else:
+            self.bias = nn.Parameter(bias.detach(), requires_grad=False)
+
+    @property
+    def packed(self) -> bool:
+        return self.mode.startswith("p4")
+
+    @property
+    def act_quant(self) -> bool:
+        return self.mode.endswith("a")
+
+    def extra_repr(self) -> str:
+        return f"mode={self.mode}, in={self.in_features}, out={self.out_features}"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.act_quant:
+            return quant.quantized_linear_act(x, self)
+        return quant.quantized_linear(x, self)
 
 
 def embedding(n: int, dim: int, device=None, dtype=None) -> nn.Embedding:

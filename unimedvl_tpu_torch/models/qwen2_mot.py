@@ -22,6 +22,18 @@ gen blocks through K1b, which norms and rotates the raw q inside the kernel;
 the k side gets the same fp32 island outside it, since its result is what
 the cache holds. With ``update_cache=False`` (the denoise steps) a gen block
 attends to ``concat(cache slice, block kv)`` and the cache is left untouched.
+
+Quantized serving modes (unimedvl_tpu_torch/quant.py). A projection may be a
+``QuantLinear`` (int8 or packed-int4 weights) and q/k/v and gate/up may be
+fused into ``qkv_proj`` and ``gate_up_proj``; the modules use what they hold.
+On a down projection that quantizes its input (modes ``qa``, ``p4a``) with a
+silu activation, the MLP forms ``silu(gate) * up`` and its per-token int8
+quantization in one pass (K3, ops/act_quant.py), always. The KV cache may be
+int8 (``KVCache.create(quantized=True)``): k, v int8 with fp32 per-key scales
+``k_scale``, ``v_scale`` [L, S, Hk, M], one layout for every path. A write
+quantizes the block and stores its scales at the same columns, in place;
+decode steps go through K2-int8 with the layer's scales; prefill and denoise
+blocks dequantize the layer's slice once and take K1a / K1b.
 """
 
 from __future__ import annotations
@@ -30,10 +42,13 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from unimedvl_tpu.config import LLMConfig
-from unimedvl_tpu_torch.models.layers import RMSNorm, embedding, linear
+from unimedvl_tpu_torch.config import LLMConfig
+from unimedvl_tpu_torch import quant
+from unimedvl_tpu_torch.models.layers import QuantLinear, RMSNorm, embedding, linear
+from unimedvl_tpu_torch.ops.act_quant import silu_mul_quant
 from unimedvl_tpu_torch.ops.activations import ACT2FN
 from unimedvl_tpu_torch.ops.decode_attention import decode_attention
 from unimedvl_tpu_torch.ops.flash_attention import flash_block_attention
@@ -42,32 +57,121 @@ from unimedvl_tpu_torch.ops.rope import apply_rope, apply_rope_one, rope_cos_sin
 
 @dataclasses.dataclass
 class KVCache:
-    """Append-only per-stream KV cache: k, v [L, S, Hk, M, D]; lens [S] int32."""
+    """Append-only per-stream KV cache: k, v [L, S, Hk, M, D]; lens [S] int32.
+    The int8 serving mode (``create(..., quantized=True)``) stores k, v as
+    int8 with fp32 per-(stream, head, position) absmax scales ``k_scale``,
+    ``v_scale`` [L, S, Hk, M]: half the cache bytes a decode step reads."""
 
     k: torch.Tensor
     v: torch.Tensor
     lens: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
     @classmethod
     def create(cls, num_layers, num_streams, capacity, num_kv_heads, head_dim,
-               dtype=torch.bfloat16, device=None) -> "KVCache":
+               dtype=torch.bfloat16, device=None, quantized: bool = False,
+               kv_bits: int = 8) -> "KVCache":
         shape = (num_layers, num_streams, num_kv_heads, capacity, head_dim)
+        lens = torch.zeros(num_streams, dtype=torch.int32, device=device)
+        if not quantized:
+            return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device), lens=lens)
+        check_kv_bits(kv_bits)
         return cls(
-            k=torch.zeros(shape, dtype=dtype, device=device),
-            v=torch.zeros(shape, dtype=dtype, device=device),
-            lens=torch.zeros(num_streams, dtype=torch.int32, device=device),
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device), lens=lens,
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        )
+
+    def _map(self, kv_fn, scale_fn, lens) -> "KVCache":
+        return KVCache(
+            k=kv_fn(self.k), v=kv_fn(self.v), lens=lens,
+            k_scale=None if self.k_scale is None else scale_fn(self.k_scale),
+            v_scale=None if self.v_scale is None else scale_fn(self.v_scale),
+        )
+
+    def clone(self) -> "KVCache":
+        """The same contents in storage of its own."""
+        return self._map(torch.clone, torch.clone, self.lens.clone())
+
+    def padded(self, pad: int) -> "KVCache":
+        """``pad`` more zeroed columns of capacity, in new tensors."""
+        if pad == 0:
+            return self
+        return self._map(lambda t: F.pad(t, (0, 0, 0, pad)), lambda t: F.pad(t, (0, pad)),
+                         self.lens)
+
+    def streams(self, n: int) -> "KVCache":
+        """A view of the first ``n`` streams."""
+        return self._map(lambda t: t[:, :n], lambda t: t[:, :n], self.lens[:n])
+
+    @classmethod
+    def stack(cls, caches) -> "KVCache":
+        """Caches of one capacity and one kind joined along the stream dim."""
+        if len({c.quantized for c in caches}) != 1:
+            raise ValueError("cannot stack a mix of int8 and float KV caches")
+        cat = lambda ts: torch.cat(ts, dim=1)  # noqa: E731
+        quantized = caches[0].quantized
+        return cls(
+            k=cat([c.k for c in caches]), v=cat([c.v for c in caches]),
+            lens=torch.cat([c.lens for c in caches]),
+            k_scale=cat([c.k_scale for c in caches]) if quantized else None,
+            v_scale=cat([c.v_scale for c in caches]) if quantized else None,
+        )
+
+    def layer(self, i: int):
+        """(k, v, k_scale, v_scale) views of layer ``i``; the scales None for
+        a float cache."""
+        if self.k_scale is None:
+            return self.k[i], self.v[i], None, None
+        return self.k[i], self.v[i], self.k_scale[i], self.v_scale[i]
+
+
+def check_kv_bits(kv_bits: int) -> None:
+    """The quantized cache is int8; int4 values have no torch dtype and the
+    decode kernel never served them."""
+    if kv_bits != 8:
+        raise NotImplementedError(
+            f"kv_bits={kv_bits}: the int4 KV cache is not ported; it is listed in ROADMAP "
+            "queue 1 (what remains of M8)"
         )
 
 
-def _write_kv(cache_l: torch.Tensor, block: torch.Tensor, cols: torch.Tensor) -> None:
-    """cache_l [S, Hk, M, D] <- block [S, T, Hk, D] at columns cols [S, T]."""
+def _quantize_kv_block(block: torch.Tensor):
+    """[..., D] -> (int8 values, fp32 per-row absmax scales over the last dim)."""
+    q, scale = quant.quantize_activations(block)
+    return q, scale[..., 0]
+
+
+def dequant_slice(vals: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int8 [..., D] x fp32 [...] -> ``dtype``: a cache slice as the prefill
+    and denoise kernels read it, materialised once per layer."""
+    return (vals.float() * scale[..., None]).to(dtype)
+
+
+def _write_kv(cache_l: torch.Tensor, block: torch.Tensor, cols: torch.Tensor,
+              scale_l: Optional[torch.Tensor] = None) -> None:
+    """cache_l [S, Hk, M, D] <- block [S, T, Hk, D] at columns cols [S, T], in
+    place. With ``scale_l`` [S, Hk, M] (an int8 cache) the block is quantized
+    per (token, head) and its scales land at the same columns."""
     S, T = cols.shape
     rows = torch.arange(S, device=cols.device)[:, None].expand(S, T)
-    cache_l[rows, :, cols] = block.to(cache_l.dtype)
+    if scale_l is None:
+        cache_l[rows, :, cols] = block.to(cache_l.dtype)
+        return
+    q, scale = _quantize_kv_block(block)
+    cache_l[rows, :, cols] = q
+    scale_l[rows, :, cols] = scale
 
 
 def _mot_rows(x, und_fn, gen_fn, gen: bool, end_row: Optional[int]) -> torch.Tensor:
@@ -104,23 +208,31 @@ class Qwen2MoTAttention(nn.Module):
         gen_fn = getattr(self, name + "_moe_gen") if gen else None
         return _mot_rows(x, getattr(self, name), gen_fn, gen, end_row)
 
-    def forward(self, x, cos, sin, k_cache, v_cache, lens, causal, q_valid_len, decode_cols,
+    def forward(self, x, cos, sin, kv_layer, lens, causal, q_valid_len, decode_cols,
                 gen=False, end_row=None, update_cache=True):
-        """x [S, T, C] normed input; k_cache/v_cache [S, Hk, M, D] this layer's
-        cache, written in place unless ``update_cache`` is False. ``gen``: the
-        MoT gen mode (see the module docstring). Returns the attention output
-        [S, T, C]."""
+        """x [S, T, C] normed input; ``kv_layer``: this layer's cache views
+        (k, v [S, Hk, M, D], and for an int8 cache k_scale, v_scale [S, Hk, M],
+        else None), written in place unless ``update_cache`` is False.
+        ``gen``: the MoT gen mode (see the module docstring). Returns the
+        attention output [S, T, C]."""
         cfg = self.cfg
         S, T, _ = x.shape
         H, Hk, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        q = self._proj("q_proj", x, gen, end_row).view(S, T, H, D)
-        k = self._proj("k_proj", x, gen, end_row).view(S, T, Hk, D)
-        v = self._proj("v_proj", x, gen, end_row).view(S, T, Hk, D)
+        k_cache, v_cache, k_scale, v_scale = kv_layer
+        if hasattr(self, "qkv_proj"):  # serving fusion: one projection, not three
+            qkv = self._proj("qkv_proj", x, gen, end_row)
+            q, k, v = qkv.split([H * D, Hk * D, Hk * D], dim=-1)
+            q, k, v = q.reshape(S, T, H, D), k.reshape(S, T, Hk, D), v.reshape(S, T, Hk, D)
+        else:
+            q = self._proj("q_proj", x, gen, end_row).view(S, T, H, D)
+            k = self._proj("k_proj", x, gen, end_row).view(S, T, Hk, D)
+            v = self._proj("v_proj", x, gen, end_row).view(S, T, Hk, D)
         q_preproc = None
         if gen and cfg.qk_norm:
             # fp32 island (qwen2_navit.py:568-583): the q side runs in K1b
             k = _mot_rows(k.float(), self.k_norm, self.k_norm_moe_gen, True, end_row)
             k = apply_rope_one(k, cos, sin).to(x.dtype)
+            q = q.contiguous()  # a view of the fused qkv output otherwise; K1b reads it raw
             q_preproc = dict(
                 w_und=self.q_norm.weight, w_gen=self.q_norm_moe_gen.weight, cos=cos,
                 sin=sin, end_row=end_row, eps=cfg.rms_norm_eps,
@@ -134,18 +246,25 @@ class Qwen2MoTAttention(nn.Module):
         if decode_cols is not None:
             base, col = decode_cols
             cols = col.reshape(1, 1).expand(S, 1)
-            _write_kv(k_cache, k, cols)
-            _write_kv(v_cache, v, cols)
-            o = decode_attention(q, k_cache, v_cache, lens, (base, col))
+            _write_kv(k_cache, k, cols, k_scale)
+            _write_kv(v_cache, v, cols, v_scale)
+            o = decode_attention(q, k_cache, v_cache, lens, (base, col),
+                                 k_scale=k_scale, v_scale=v_scale)
         elif update_cache:
             cols = lens[:, None] + torch.arange(T, device=x.device)
-            _write_kv(k_cache, k, cols)
-            _write_kv(v_cache, v, cols)
+            _write_kv(k_cache, k, cols, k_scale)
+            _write_kv(v_cache, v, cols, v_scale)
+            if k_scale is not None:
+                k_cache = dequant_slice(k_cache, k_scale, x.dtype)
+                v_cache = dequant_slice(v_cache, v_scale, x.dtype)
             o = flash_block_attention(
                 q, k_cache, v_cache, lens, lens, causal,
                 q_valid_len=q_valid_len, kv_head_major=True, q_preproc=q_preproc,
             )
         else:
+            if k_scale is not None:
+                k_cache = dequant_slice(k_cache, k_scale, x.dtype)
+                v_cache = dequant_slice(v_cache, v_scale, x.dtype)
             M0 = k_cache.shape[2]
             k_cat = torch.cat([k_cache, k.to(k_cache.dtype).transpose(1, 2)], dim=2)
             v_cat = torch.cat([v_cache, v.to(v_cache.dtype).transpose(1, 2)], dim=2)
@@ -164,9 +283,20 @@ class Qwen2MLP(nn.Module):
         self.up_proj = linear(C, I, False, device, dtype)
         self.down_proj = linear(I, C, False, device, dtype)
         self.act = ACT2FN[cfg.hidden_act]
+        self.act_is_silu = cfg.hidden_act == "silu"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(self.act(self.gate_proj(x)) * self.up_proj(x))
+        if hasattr(self, "gate_up_proj"):  # serving fusion
+            g, u = self.gate_up_proj(x).chunk(2, dim=-1)
+        else:
+            g, u = self.gate_proj(x), self.up_proj(x)
+        down = self.down_proj
+        if isinstance(down, QuantLinear) and down.act_quant and self.act_is_silu:
+            # full-int8 / w4a8 down projection: K3 forms silu(g) * u in fp32 and
+            # quantizes it per token in one pass
+            xq, xs = silu_mul_quant(g, u)
+            return quant.quantized_linear_preq(xq, xs, down, x.dtype)
+        return down(self.act(g) * u)
 
 
 class Qwen2MoTDecoderLayer(nn.Module):
@@ -187,7 +317,7 @@ class Qwen2MoTDecoderLayer(nn.Module):
         if cfg.use_moe:
             self.mlp_moe_gen = Qwen2MLP(cfg, device, dtype)
 
-    def forward(self, x, cos, sin, k_cache, v_cache, lens, causal, q_valid_len, decode_cols,
+    def forward(self, x, cos, sin, kv_layer, lens, causal, q_valid_len, decode_cols,
                 gen=False, end_row=None, update_cache=True):
         cfg = self.cfg
         gen_mot = gen and cfg.mot_attention
@@ -196,7 +326,7 @@ class Qwen2MoTDecoderLayer(nn.Module):
             x, self.input_layernorm, lambda t: self.input_layernorm_moe_gen(t), gen_mot, end_row
         )
         x = x + self.self_attn(
-            h, cos, sin, k_cache, v_cache, lens, causal, q_valid_len, decode_cols,
+            h, cos, sin, kv_layer, lens, causal, q_valid_len, decode_cols,
             gen_mot, end_row, update_cache,
         )
         if cfg.mot_attention:
@@ -261,7 +391,7 @@ class Qwen2MoTModel(nn.Module):
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
         q_valid_len = None if q_valid is None else q_valid.sum(dim=1, dtype=torch.int32)
         for i, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, cache.k[i], cache.v[i], cache.lens, causal,
+            x = layer(x, cos, sin, cache.layer(i), cache.lens, causal,
                       q_valid_len, decode_cols, gen, gen_end_row, update_cache)
         h = _mot_rows(
             x, self.norm, lambda t: self.norm_moe_gen(t), gen and cfg.use_moe, gen_end_row
@@ -274,7 +404,7 @@ class Qwen2MoTModel(nn.Module):
             lens = cache.lens + x.shape[1]
         else:
             lens = cache.lens + q_valid_len
-        return h, KVCache(k=cache.k, v=cache.v, lens=lens)
+        return h, dataclasses.replace(cache, lens=lens)
 
 
 class Qwen2MoTForCausalLM(nn.Module):
@@ -291,12 +421,23 @@ def embed_tokens(lm: Qwen2MoTForCausalLM, token_ids: torch.Tensor) -> torch.Tens
 def lm_head(lm: Qwen2MoTForCausalLM, hidden: torch.Tensor) -> torch.Tensor:
     """fp32 logits [..., V]. A bf16 hidden on the card multiplies the bf16
     weight with fp32 accumulation and output (``torch.mm`` with
-    ``out_dtype``), so the [V, C] weight is read once and never widened."""
-    w = lm.lm_head.weight
-    if hidden.dtype == torch.float32:
-        return hidden @ w.float().t()
-    if not hidden.is_cuda:
-        raise ValueError("low-precision lm_head runs on CUDA tensors only")
+    ``out_dtype``), so the [V, C] weight is read once and never widened. A
+    quantized head (always int8): mode ``qa`` quantizes the hidden per token
+    and multiplies in integers; mode ``q`` widens the int8 weight to the
+    hidden's dtype. Either keeps the logits fp32."""
+    head = lm.lm_head
     h2 = hidden.reshape(-1, hidden.shape[-1])
-    logits = torch.mm(h2, w.t(), out_dtype=torch.float32)
+    if isinstance(head, QuantLinear):
+        if head.packed:
+            raise ValueError("the lm_head is int8 in every quantized mode, not packed int4")
+        if head.act_quant:
+            hq, hs = quant.quantize_activations(h2)
+            logits = quant.int_mm(hq, head.weight_q).float() * (hs * head.scale)
+        else:
+            logits = quant.mm_f32(h2, head.weight_q.to(hidden.dtype)) * head.scale
+        return logits.reshape(*hidden.shape[:-1], head.out_features)
+    w = head.weight
+    if hidden.dtype != torch.float32 and not hidden.is_cuda:
+        raise ValueError("low-precision lm_head runs on CUDA tensors only")
+    logits = quant.mm_f32(h2, w.to(hidden.dtype))
     return logits.reshape(*hidden.shape[:-1], w.shape[0])

@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from unimedvl_tpu.config import ViTConfig
+from unimedvl_tpu_torch.config import ViTConfig
 from unimedvl_tpu_torch.models.layers import LayerNorm, embedding, linear
 from unimedvl_tpu_torch.ops.activations import ACT2FN
 from unimedvl_tpu_torch.ops.flash_attention import flash_block_attention

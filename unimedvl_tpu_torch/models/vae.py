@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from unimedvl_tpu.config import VAEConfig
+from unimedvl_tpu_torch.config import VAEConfig
 from unimedvl_tpu_torch.ops.activations import swish
 from unimedvl_tpu_torch.ops.norms import group_norm
 

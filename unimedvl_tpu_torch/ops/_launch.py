@@ -1,11 +1,14 @@
 """Argument checks shared by the kernel wrappers: the kernels read raw pointers,
-so everything they assume about a tensor is checked here and raises."""
+so everything they assume about a tensor is checked here and raises with the
+tensor's name."""
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
 import torch
+
+LOAD_BYTES = 16  # the kernels read rows with 16-byte loads
 
 
 def per_stream(x, S: int, device: torch.device) -> torch.Tensor:
@@ -22,23 +25,46 @@ def per_stream(x, S: int, device: torch.device) -> torch.Tensor:
     return t.contiguous()
 
 
-def check_bf16_cuda(names: Sequence[str], tensors: Sequence[torch.Tensor]) -> None:
+def check_cuda(names: Sequence[str], tensors: Sequence[torch.Tensor],
+               dtype: torch.dtype) -> None:
+    """Every tensor on the first one's CUDA device, of ``dtype``, with a
+    contiguous last dim that starts on a 16-byte boundary."""
     device = tensors[0].device
     for name, t in zip(names, tensors):
         if t.device != device or t.device.type != "cuda":
             raise ValueError(f"{name} must be on {device} (CUDA), got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16 for the kernel, got {t.dtype}")
-        if t.stride(-1) != 1 or t.data_ptr() % 16:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype} for the kernel, got {t.dtype}")
+        if t.stride(-1) != 1 or t.data_ptr() % LOAD_BYTES:
             raise ValueError(f"{name} needs a contiguous, 16-byte aligned last dim")
+
+
+def check_contiguous_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
+                          device: torch.device) -> None:
+    """A dense tensor the kernel indexes by shape alone (scales, int8
+    activations, packed weights): device, dtype, shape, contiguity and a
+    16-byte aligned start. Whether its rows are whole 16-byte loads follows
+    from the shape, which the caller checks."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{name} must be {dtype} {tuple(shape)} on {device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous() or t.data_ptr() % LOAD_BYTES:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
 def kv_strides(name: str, t: torch.Tensor) -> Tuple[int, int, int]:
     """(stream, head, key) strides of a [S, Hk, M, D] view, in elements; the
-    kernels read rows of D with 16-byte loads, so each stride is a multiple of 8."""
+    kernels read rows of D with 16-byte loads, so each stride is a multiple of
+    16 bytes: 8 elements of bf16, 16 of int8."""
+    per_load = LOAD_BYTES // t.element_size()
     strides = (t.stride(0), t.stride(1), t.stride(2))
-    if any(s % 8 for s in strides):
-        raise ValueError(f"{name} strides {t.stride()} are not multiples of 8 elements")
+    if any(s % per_load for s in strides):
+        raise ValueError(
+            f"{name} strides {t.stride()} are not multiples of {per_load} elements "
+            f"({LOAD_BYTES} bytes of {t.dtype})"
+        )
     return strides
 
 

@@ -1,0 +1,107 @@
+"""K3: fused silu·mul + dynamic per-row int8 activation quantization.
+
+Port of unimedvl_tpu/ops/act_quant.py::silu_mul_quant. The full-int8 MLP
+quantizes its down projection's input ``silu(gate) * up`` per token; done
+plainly that is the product written to device memory in bf16, read back for
+the row absmax and read again to quantize. The kernel (CUDA C++ for sm_90a,
+``csrc/silu_mul_quant.cu``) reads gate and up once, keeps the fp32 product of
+a row in registers, and writes the int8 row and one fp32 scale.
+
+The definition, which the kernel and ``silu_mul_quant_ref`` share, is the JAX
+kernel's: everything in fp32,
+
+    x     = (g * sigmoid(g)) * u          sigmoid(g) = 1 / (1 + exp(-g))
+    scale = max(absmax_row(x), 1e-8) / 127
+    q     = clip(round_half_even(x / scale), -127, 127)
+
+with a true division by ``scale``. The port always takes this definition on
+a quantized down projection; it has no gate between this and a bf16 product
+chain. On the card the kernel and the plain version can differ where
+``expf`` and ``torch.sigmoid`` differ in the last place: scales within 1e-6
+relative, q within one step on a small share of elements.
+
+``silu_mul_quant`` launches the kernel for CUDA tensors and runs the plain
+version for CPU tensors; there is no threshold and no fallback.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from unimedvl_tpu_torch.ops import _launch, cuda_build
+
+# launches of the kernel and calls of the plain version, for showing which ran
+counts = {"kernel": 0, "plain": 0}
+
+KERNEL_MAX_WIDTH = 8 * 1024 * 4  # 1024 threads x 4 chunks of 8 values in registers
+
+
+def silu_mul_quant_ref(g: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`silu_mul_quant` on whatever device the inputs
+    are on: (q int8 [..., I], scale fp32 [..., 1])."""
+    counts["plain"] += 1
+    g32, u32 = g.float(), u.float()
+    x = (g32 * torch.sigmoid(g32)) * u32
+    absmax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(absmax, 1e-8) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _launch_kernel(g, u):
+    I = g.shape[-1]
+    R = g.numel() // I
+    if I % 8 or I > KERNEL_MAX_WIDTH or R < 1:
+        raise ValueError(
+            f"the silu_mul_quant kernel takes rows of a multiple of 8 up to "
+            f"{KERNEL_MAX_WIDTH} values, got {R} rows of {I}"
+        )
+    if g.dim() < 2:
+        raise ValueError(f"g and u must be [..., I] with at least one leading dim, got {tuple(g.shape)}")
+    _launch.check_cuda(("g", "u"), (g, u), torch.bfloat16)
+    # rows may be strided (the halves of a fused gate_up output): one row
+    # stride for all leading dims, a multiple of 8 elements
+    g2, u2 = _rows(g, "g"), _rows(u, "u")
+    q = torch.empty(g.shape, dtype=torch.int8, device=g.device)
+    scale = torch.empty(*g.shape[:-1], 1, dtype=torch.float32, device=g.device)
+    lib = cuda_build.load_library()
+    with torch.cuda.device(g.device):
+        rc = lib.unimedvl_silu_mul_quant(
+            g2.data_ptr(), u2.data_ptr(), q.data_ptr(), scale.data_ptr(),
+            R, I, g2.stride(0), u2.stride(0),
+            torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    cuda_build.check(rc, "silu_mul_quant")
+    counts["kernel"] += 1
+    return q, scale
+
+
+def _rows(t: torch.Tensor, name: str) -> torch.Tensor:
+    """t [..., I] as a [R, I] view with one row stride (no copy), or raise."""
+    I = t.shape[-1]
+    try:
+        t2 = t.view(-1, I)
+    except RuntimeError:
+        raise ValueError(
+            f"{name} {tuple(t.shape)} with strides {t.stride()} has no single row stride"
+        ) from None
+    if t2.stride(0) % 8:
+        raise ValueError(f"{name}'s row stride {t2.stride(0)} is not a multiple of 8 elements")
+    return t2
+
+
+def silu_mul_quant(g: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quantize_activations(silu(g) * u)`` in one pass, by the module's
+    definition. g, u: [..., I] of one shape. Returns (q int8 [..., I], scale
+    fp32 [..., 1]), the input of ``quant.quantized_linear_preq``. CUDA tensors
+    go through the kernel (bf16, rows 16-byte aligned; anything else raises),
+    CPU tensors through :func:`silu_mul_quant_ref`."""
+    if g.shape != u.shape:
+        raise ValueError(f"g and u must have one shape, got {tuple(g.shape)} and {tuple(u.shape)}")
+    if g.device.type == "cuda":
+        return _launch_kernel(g, u)
+    if g.device.type == "cpu":
+        return silu_mul_quant_ref(g, u)
+    raise ValueError(f"silu_mul_quant runs on CUDA or CPU tensors, got {g.device}")

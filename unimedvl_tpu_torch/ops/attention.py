@@ -61,6 +61,32 @@ def gqa_attention_hm(
     return out.reshape(B, Tq, H, D)
 
 
+def gqa_attention_quant_hm(
+    q: torch.Tensor,
+    k_q: torch.Tensor,  # [B, Hk, Tk, D] int8 (head-major cache layout)
+    k_scale: torch.Tensor,  # [B, Hk, Tk] fp32
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`gqa_attention_hm` over an int8 cache without dequantizing it:
+    the per-key scales factor into the logits (``k_scale``) and into the
+    softmax weights (``v_scale``), which are rounded to q's dtype before the
+    P V contraction. The plain version of the int8 decode kernel."""
+    B, Tq, H, D = q.shape
+    Hk = k_q.shape[1]
+    scale = D**-0.5 if scale is None else scale
+    qg = q.reshape(B, Tq, Hk, H // Hk, D).float()
+    logits = torch.einsum("bqhgd,bhkd->bhgqk", qg, k_q.float())
+    logits = logits * (k_scale[:, :, None, None, :] * scale)
+    if mask is not None:
+        logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1) * v_scale[:, :, None, None, :]
+    out = torch.einsum("bhgqk,bhkd->bqhgd", probs.to(q.dtype).float(), v_q.float())
+    return out.to(q.dtype).reshape(B, Tq, H, D)
+
+
 def padding_mask(valid_q: torch.Tensor, valid_kv: torch.Tensor) -> torch.Tensor:
     """[B, Tq] x [B, Tk] -> [B, Tq, Tk] bool."""
     return valid_q[:, :, None] & valid_kv[:, None, :]

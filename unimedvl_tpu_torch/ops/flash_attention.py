@@ -138,7 +138,7 @@ def _launch_kernel(q, k, v, lens, block_start, causal, q_valid_len, kv_head_majo
         )
     if H % Hk:
         raise ValueError(f"query heads {H} are not a multiple of kv heads {Hk}")
-    _launch.check_bf16_cuda(("q", "k", "v"), (q, k, v))
+    _launch.check_cuda(("q", "k", "v"), (q, k, v), torch.bfloat16)
     if not q.is_contiguous():
         raise ValueError("q must be contiguous [S, T, H, D]")
     _launch.check_index(

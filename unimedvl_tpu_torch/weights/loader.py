@@ -9,7 +9,17 @@ loader: the ViT conv patch embedding [C, 3, p, p] becomes its linear form
 dropped (``ViTConfig.from_json_file`` already counts one layer fewer).
 
 ``from_jax_params`` builds the same model from the JAX package's parameter
-tree (numpy leaves), so both packages compute one function in the tests.
+tree (numpy leaves), so both packages compute one function in the tests. It
+takes the JAX package's quantized and fused trees too
+(``quant.quantize_llm_params``, ``quant.fuse_serving_projections``): every leaf
+form (``kernel_q``, ``kernel_qa``, ``kernel_p4``, ``kernel_p4a``; per-channel
+and [G, N] scales; fused ``qkv``, ``qkv_gen``, ``gate_up``) becomes the port's
+``QuantLinear`` with the same integers and scales. JAX leaves are [in, out],
+packed along in; the port's are [out, in], packed along in: one transposition
+here, of bytes, which leaves each byte's two nibbles as they were.
+
+``load_bagel_checkpoint(quantize_bits=...)`` quantizes each LLM projection as
+it is read, so the bf16 LLM is never whole on the device.
 
 The FLUX VAE ships apart as ``ae.safetensors``, whose names the port's
 ``AutoEncoder`` keeps (OIHW convolutions, as released): ``load_ae`` reads it
@@ -25,20 +35,37 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from unimedvl_tpu.config import BagelConfig, VAEConfig
+from unimedvl_tpu_torch import quant
+from unimedvl_tpu_torch.config import BagelConfig, VAEConfig
 from unimedvl_tpu_torch.models.bagel import Bagel
+from unimedvl_tpu_torch.models.layers import QuantLinear
 from unimedvl_tpu_torch.models.vae import AutoEncoder
 
 _VAE = "vae_model."
 
 
-def _build(state: Dict[str, torch.Tensor], cfg: BagelConfig, device, dtype) -> Bagel:
+_QUANT_SUFFIXES = (".weight_q", ".scale")  # QuantLinear buffers keep their own dtypes
+
+
+def _build(state: Dict[str, torch.Tensor], cfg: BagelConfig, device, dtype,
+           quant_modes: Optional[Dict[str, str]] = None, fused: bool = False) -> Bagel:
+    """A Bagel around ``state``. ``quant_modes``: module path -> mode of
+    every quantized linear in ``state`` (its ``weight_q`` and ``scale`` shape
+    the leaf); ``fused``: the LLM's q/k/v and gate/up are fused leaves."""
     with_vae = any(k.startswith(_VAE) for k in state)
     model = Bagel(cfg, device="meta", dtype=dtype, with_vae=with_vae)
-    state = {
-        k: v.to(device=device, dtype=torch.float32 if k.startswith(_VAE) else dtype)
-        for k, v in state.items()
-    }
+    if fused:
+        quant.fuse_serving_projections(model.language_model)
+    for path, mode in (quant_modes or {}).items():
+        model.set_submodule(path, QuantLinear(
+            mode, state[path + ".weight_q"], state[path + ".scale"], state.get(path + ".bias")))
+
+    def placed(k, v):
+        if k.endswith(_QUANT_SUFFIXES):
+            return v.to(device=device)
+        return v.to(device=device, dtype=torch.float32 if k.startswith(_VAE) else dtype)
+
+    state = {k: placed(k, v) for k, v in state.items()}
     model.load_state_dict(state, strict=True, assign=True)  # keeps requires_grad=False
     return model
 
@@ -47,9 +74,26 @@ def _build(state: Dict[str, torch.Tensor], cfg: BagelConfig, device, dtype) -> B
 # JAX parameter tree -> released names
 # ---------------------------------------------------------------------------
 
-def _lin(sd, name, p, i=None):
+_JAX_QUANT_LEAVES = {"kernel_q": "q", "kernel_qa": "qa", "kernel_p4": "p4", "kernel_p4a": "p4a"}
+
+
+def _lin(sd, name, p, i=None, quant_modes=None):
+    """One JAX linear leaf (layer ``i`` of a stacked one) under the released
+    name: ``.weight`` [out, in], or for a quantized leaf ``.weight_q`` (the
+    [in(/2), out] integers transposed) and ``.scale`` ([out] or [G, out], as
+    it is), with its mode noted in ``quant_modes``."""
     pick = (lambda a: a[i]) if i is not None else (lambda a: a)
-    sd[name + ".weight"] = np.ascontiguousarray(pick(np.asarray(p["kernel"])).T)
+    if isinstance(p, dict) and "kernel" in p:
+        sd[name + ".weight"] = np.ascontiguousarray(pick(np.asarray(p["kernel"])).T)
+    else:
+        key = next((k for k in _JAX_QUANT_LEAVES if k in p), None)
+        if key is None:
+            raise KeyError(f"{name}: no kernel leaf in {sorted(p)}")
+        if "lora_a" in p:
+            raise NotImplementedError(f"{name}: LoRA over a quantized base is ROADMAP slice M12")
+        sd[name + ".weight_q"] = np.ascontiguousarray(pick(np.asarray(p[key])).T)
+        sd[name + ".scale"] = np.ascontiguousarray(pick(np.asarray(p["scale"])))
+        quant_modes[name] = _JAX_QUANT_LEAVES[key]
     if "bias" in p:
         sd[name + ".bias"] = pick(np.asarray(p["bias"]))
 
@@ -96,22 +140,33 @@ def _vae_state_dict(sd, vae: Dict, cfg: VAEConfig, prefix: str = "") -> None:
         conv(part + ".conv_out", tree["conv_out"])
 
 
-def jax_tree_to_state_dict(tree: Dict, cfg: BagelConfig) -> Dict[str, np.ndarray]:
+def jax_tree_to_state_dict(tree: Dict, cfg: BagelConfig, quant_modes: Optional[Dict] = None
+                           ) -> Dict[str, np.ndarray]:
     """The JAX tree (``bagel.init_params`` or the JAX loader's output, leaves
     as numpy) as a released-name state dict; its VAE, if it has one, under
-    ``vae_model.``."""
+    ``vae_model.``. Quantized leaves come as ``.weight_q`` and ``.scale`` with
+    their modes in ``quant_modes`` (path -> mode), fused leaves as
+    ``qkv_proj``, ``qkv_proj_moe_gen`` and ``gate_up_proj``."""
     sd: Dict[str, np.ndarray] = {}
+    quant_modes = {} if quant_modes is None else quant_modes
     llm = tree["llm"]
     pre = "language_model.model."
     sd[pre + "embed_tokens.weight"] = np.asarray(llm["embed_tokens"])
     layers = llm["layers"]
-    attn_names = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "o": "o_proj"}
+    attn_names = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "o": "o_proj", "qkv": "qkv_proj"}
+    for tree_ in (layers["attn"], layers.get("mlp", {}), layers.get("mlp_moe_gen", {})):
+        for key in tree_:
+            if "_tp" in key:
+                raise NotImplementedError(
+                    f"fused leaf {key!r}: tensor-parallel fused leaves (_tp{{N}}) are ROADMAP "
+                    "slice M13"
+                )
     for i in range(cfg.llm.num_hidden_layers):
         lp = f"{pre}layers.{i}."
         for key, leaf in layers["attn"].items():
             base, gen = (key[:-4], "_moe_gen") if key.endswith("_gen") else (key, "")
             if base in attn_names:
-                _lin(sd, f"{lp}self_attn.{attn_names[base]}{gen}", leaf, i)
+                _lin(sd, f"{lp}self_attn.{attn_names[base]}{gen}", leaf, i, quant_modes)
             else:  # q_norm / k_norm
                 sd[f"{lp}self_attn.{base}{gen}.weight"] = np.asarray(leaf["scale"])[i]
         for key in ("input_layernorm", "post_attention_layernorm",
@@ -120,12 +175,14 @@ def jax_tree_to_state_dict(tree: Dict, cfg: BagelConfig) -> Dict[str, np.ndarray
                 sd[f"{lp}{key}.weight"] = np.asarray(layers[key]["scale"])[i]
         for mlp in ("mlp", "mlp_moe_gen"):
             if mlp in layers:
-                for part in ("gate", "up", "down"):
-                    _lin(sd, f"{lp}{mlp}.{part}_proj", layers[mlp][part], i)
+                for part, leaf in layers[mlp].items():
+                    _lin(sd, f"{lp}{mlp}.{part}_proj", leaf, i, quant_modes)
     sd[pre + "norm.weight"] = np.asarray(llm["norm"]["scale"])
     if "norm_moe_gen" in llm:
         sd[pre + "norm_moe_gen.weight"] = np.asarray(llm["norm_moe_gen"]["scale"])
-    sd["language_model.lm_head.weight"] = np.ascontiguousarray(np.asarray(llm["lm_head"]).T)
+    head = llm["lm_head"]  # a bare [C, V] kernel, or a quantized leaf
+    _lin(sd, "language_model.lm_head", head if isinstance(head, dict) else {"kernel": head},
+         None, quant_modes)
 
     if "vit" in tree:
         vit = tree["vit"]
@@ -169,9 +226,13 @@ def _to_torch(a: np.ndarray) -> torch.Tensor:
 def from_jax_params(tree: Dict, cfg: BagelConfig, device="cpu",
                     dtype: torch.dtype = torch.float32) -> Bagel:
     """A Bagel holding the JAX tree's weights (numpy leaves, e.g.
-    ``jax.tree.map(np.asarray, bagel.init_params(...))``)."""
-    sd = jax_tree_to_state_dict(tree, cfg)
-    return _build({k: _to_torch(v) for k, v in sd.items()}, cfg, device, dtype)
+    ``jax.tree.map(np.asarray, bagel.init_params(...))``), bf16 or quantized,
+    fused or not, as the tree is."""
+    quant_modes: Dict[str, str] = {}
+    sd = jax_tree_to_state_dict(tree, cfg, quant_modes)
+    fused = any(".qkv_proj." in k for k in sd)
+    return _build({k: _to_torch(v) for k, v in sd.items()}, cfg, device, dtype,
+                  quant_modes, fused)
 
 
 # ---------------------------------------------------------------------------
@@ -206,9 +267,24 @@ def _read_ae(path: str) -> Dict[str, torch.Tensor]:
     return {k.replace("module.", ""): v for k, v in load_file(path).items()}
 
 
-def load_ae(path: str, cfg: Optional[VAEConfig] = None, device="cpu") -> AutoEncoder:
+def _target_device(device) -> torch.device:
+    """``device`` as a torch.device. The loaders place a model on the card
+    unless the caller names another device; without a card that default
+    raises, it does not fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r}: no CUDA device is available; pass device=\"cpu\" to "
+            "load on the host (every kernel wrapper then takes its plain version)"
+        )
+    return device
+
+
+def load_ae(path: str, cfg: Optional[VAEConfig] = None, device="cuda") -> AutoEncoder:
     """Read a released ``ae.safetensors`` into an fp32 AutoEncoder on
-    ``device`` (the counterpart of unimedvl_tpu/weights/vae_loader.load_ae)."""
+    ``device``: the card unless the caller names another (the counterpart of
+    unimedvl_tpu/weights/vae_loader.load_ae)."""
+    device = _target_device(device)
     model = AutoEncoder(cfg or VAEConfig(), device="meta")
     state = {k: v.to(device=device, dtype=torch.float32) for k, v in _read_ae(path).items()}
     model.load_state_dict(state, strict=True, assign=True)
@@ -218,25 +294,40 @@ def load_ae(path: str, cfg: Optional[VAEConfig] = None, device="cpu") -> AutoEnc
 def load_bagel_checkpoint(
     ckpt_dir: str,
     cfg: Optional[BagelConfig] = None,
-    device="cpu",
+    device="cuda",
     dtype: torch.dtype = torch.bfloat16,
     prefer_ema: bool = True,
+    quantize_bits: Optional[int] = None,
+    act_quant: bool = False,
+    quantize_group: int = 0,
 ) -> Bagel:
     """Read a released checkpoint directory (``llm_config.json``,
     ``vit_config.json``, ``ema.safetensors`` or ``model.safetensors``, sharded
-    or not) into a Bagel on ``device``. The VAE is read from
+    or not) into a Bagel on ``device``: the card unless the caller names
+    another, and an error when there is none. The VAE is read from
     ``ae.safetensors`` when the directory has one and the config generates
-    images."""
+    images.
+
+    ``quantize_bits`` (8 or 4): quantize the LLM's projections and lm_head as
+    ``quant.quantize_llm_params`` does, each weight as it is read and placed
+    on ``device``, so the bf16 LLM is never whole there; ``act_quant`` marks
+    the leaves for integer matmuls; ``quantize_group``: group-wise w4 scales.
+    The result equals quantizing after a plain load. Fuse afterwards with
+    ``quant.fuse_serving_projections(model.language_model)``."""
     from safetensors import safe_open
 
+    device = _target_device(device)
     if cfg is None:
         cfg = BagelConfig.from_checkpoint_dir(ckpt_dir)
+    if quantize_bits is None and (act_quant or quantize_group):
+        raise ValueError("act_quant and quantize_group need quantize_bits")
     files = _safetensors_files(ckpt_dir, prefer_ema)
     wanted = Bagel(cfg, device="meta").state_dict().keys()
     missing = [k for k in wanted if k not in files]
     if missing:
         raise KeyError(f"checkpoint {ckpt_dir} lacks {len(missing)} weights, e.g. {missing[:3]}")
     state: Dict[str, torch.Tensor] = {}
+    quant_modes: Dict[str, str] = {}
     handles = {}
     try:
         for key in wanted:
@@ -246,11 +337,31 @@ def load_bagel_checkpoint(
             t = handles[path].get_tensor(key)
             if key.endswith("patch_embedding.weight") and t.dim() == 4:
                 t = t.permute(0, 2, 3, 1).reshape(t.shape[0], -1)
-            state[key] = t
+            module = key[: -len(".weight")]
+            if quantize_bits is not None and _is_quantized_weight(key):
+                head = module == "language_model.lm_head"  # int8 whatever the bits
+                bits, group = (8, 0) if head else (quantize_bits, quantize_group)
+                q, scale = quant.quantize_weight(t.to(device=device, dtype=dtype), bits, group)
+                state[module + ".weight_q"], state[module + ".scale"] = q, scale
+                quant_modes[module] = quant.mode_name(bits, act_quant)
+            else:
+                state[key] = t
     finally:
         for h in handles.values():
             h.__exit__(None, None, None)
     ae_path = os.path.join(ckpt_dir, "ae.safetensors")
     if cfg.visual_gen and cfg.vae is not None and os.path.exists(ae_path):
         state.update({_VAE + k: v for k, v in _read_ae(ae_path).items()})
-    return _build(state, cfg, device, dtype)
+    return _build(state, cfg, device, dtype, quant_modes)
+
+
+def _is_quantized_weight(key: str) -> bool:
+    """Whether ``quant.quantize_llm_params`` quantizes this released weight:
+    the decoder layers' attention and MLP projections of both experts, and
+    the lm_head."""
+    if key == "language_model.lm_head.weight":
+        return True
+    if not key.startswith("language_model.model.layers.") or not key.endswith(".weight"):
+        return False
+    leaf = key.split(".")[-2]
+    return any(leaf == k + sfx for k in quant.QUANT_KEYS for sfx in quant.EXPERTS)
