@@ -11,6 +11,13 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
 - the quantized chat path, the LLM quantized on the card with an int8 KV
   cache: full-int8 with fused projections (the three chat requests), w4a8
   per channel and w4a8 with groups of 512 (one request each);
+- the training path: LoRA steps (rank 16, every projection of both experts)
+  over the frozen 28-layer model, on packed batches of synthetic VQA,
+  text-to-image and editing examples (980 px and 378 px understanding
+  images, 512 px generation images) from ``PackedBatchIterator`` through
+  ``Prefetcher``; then full fine-tune steps (gradient accumulation 2, EMA)
+  at the full width with the depth cut to what one card holds, and once more
+  with the understanding expert frozen;
 
 and checks that every kernel call of each path went through the kernels, and
 that each path's output agrees with the same computation on the kernels'
@@ -30,6 +37,7 @@ function, that call's time.
 from __future__ import annotations
 
 import copy
+import gc
 import itertools
 import json
 import statistics
@@ -49,8 +57,11 @@ from unimedvl_tpu_torch.ops import act_quant as aq
 from unimedvl_tpu_torch.ops import cuda_build
 from unimedvl_tpu_torch.ops import decode_attention as dec
 from unimedvl_tpu_torch.ops import flash_attention as fa
+from unimedvl_tpu_torch.ops import flash_attention_train as fat
 from unimedvl_tpu_torch.ops import w4_matmul as w4
+from unimedvl_tpu_torch.ops.blockmask import dense_packed_mask, packed_segment_ids
 from unimedvl_tpu_torch.ops.rope import rope_cos_sin
+from unimedvl_tpu_torch.training import dataset, lora, trainer
 
 SEED = 0
 # kernel vs plain version (fp32 softmax over the same bf16 inputs): the kernel
@@ -703,27 +714,30 @@ def run_quantized_chat(inf: InterleaveInferencer, logits_bf16: torch.Tensor) -> 
     return total
 
 
-COUNTERS = {  # kernel name -> its wrapper's counts
-    "flash_block_attention": fa.counts,
-    "flash_block_attention_q_preproc": fa.q_preproc_counts,
-    "decode_attention": dec.counts,
-    "decode_attention_int8": dec.int8_counts,
-    "silu_mul_quant": aq.counts,
-    "w4_matmul": w4.counts,
+COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches there)
+    "flash_block_attention": (fa.counts, "kernel"),
+    "flash_block_attention_q_preproc": (fa.q_preproc_counts, "kernel"),
+    "decode_attention": (dec.counts, "kernel"),
+    "decode_attention_int8": (dec.int8_counts, "kernel"),
+    "silu_mul_quant": (aq.counts, "kernel"),
+    "w4_matmul": (w4.counts, "kernel"),
+    "packed_train_attention_fwd": (fat.counts, "fwd"),
+    "packed_train_attention_bwd_dq": (fat.counts, "bwd_dq"),
+    "packed_train_attention_bwd_dkv": (fat.counts, "bwd_dkv"),
 }
 
 
 def reset_counts() -> None:
-    for c in COUNTERS.values():
-        c.update(kernel=0, plain=0)
+    for c, key in COUNTERS.values():
+        c[key] = c["plain"] = 0
 
 
 def check_counts(path: str, want: dict) -> dict:
     """The launches each kernel counted since reset_counts, against ``want``
     (kernels it does not name: 0); no plain version may have run."""
     want = {name: want.get(name, 0) for name in COUNTERS}
-    launches = {name: c["kernel"] for name, c in COUNTERS.items()}
-    plain = {name: c["plain"] for name, c in COUNTERS.items()}
+    launches = {name: c[key] for name, (c, key) in COUNTERS.items()}
+    plain = {name: c["plain"] for name, (c, _) in COUNTERS.items()}
     print(f"launches on {path}: {launches} (expected {want}); plain versions called "
           f"{plain}", flush=True)
     if launches != want or any(plain.values()):
@@ -886,6 +900,7 @@ def _with_plain_versions(fn):
                (qwen2_mot, "flash_block_attention", fa.flash_block_attention_ref),
                (qwen2_mot, "decode_attention", dec.decode_attention_ref),
                (qwen2_mot, "silu_mul_quant", aq.silu_mul_quant_ref),
+               (qwen2_mot, "packed_train_attention", fat.packed_train_attention_ref),
                (quant, "w4_matmul", w4.w4_matmul_ref)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swapped]
     for mod, name, f in swapped:
@@ -910,6 +925,428 @@ def check_velocity_against_plain(inf: InterleaveInferencer) -> None:
         raise SystemExit("chip_smoke: the kernel path's velocity disagrees with the plain path's")
 
 
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+LORA_SEQ_LEN = 6144  # room for the 980 px VQA example (4900 patches) beside another
+LORA_RANK = 16
+FT_SEQ_LEN = 4096
+# full fine-tune: bf16 parameter + gradient + two moments + fp32 EMA are 12
+# bytes per trained parameter; both experts are 466 M parameters per layer,
+# embedding + head 1.09 B, the ViT 0.4 B, so the depth one 80 GB card holds
+# beside the activations is cut to:
+FT_LAYERS = 4
+FT_ACCUM, FT_EMA_DECAY = 2, 0.999
+TRAIN_STEPS = 3
+# the LoRA step with the kernels against the same step with plain attention
+LOSS_REL_TOL = 1e-2
+GRAD_COS_TOL = 0.999
+# K5's gradients against the plain version's, per element:
+# |err| <= K5_GRAD_RTOL (m + |plain|) + floor, m the largest |plain| of the
+# element's row [..., D]: the kernels round p and ds to bf16 for their second
+# product. The floor covers what does not shrink with the row's own gradient.
+# dk, dv: K5_GRAD_FLOOR M, M the mean of m over the tensor (sums over many
+# query rows and the heads of a group). dq: the kernels take dsum = do . out
+# from the bf16 output, autograd's softmax backward from unrounded values; the
+# difference, about 2^-9 sqrt(sum_d (do_d out_d)^2), reaches dq as
+# scale * p * k, so the floor is K5_DSUM_SIGMAS times that with max|k|. It
+# matters for rows that see a few keys (out is large, dq nearly zero).
+K5_GRAD_RTOL, K5_GRAD_FLOOR, K5_DSUM_SIGMAS = 2.0**-7, 2.0**-4, 6.0
+K5_TILE = 64
+K5_LONG_T = 4096
+DEVICE = "cuda"
+
+
+def _pil(seed: int, h: int, w: int):
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    return Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+
+
+def train_examples(with_980: bool):
+    """Synthetic examples of the three tasks at real sizes: VQA at 980 px
+    (``with_980``) and 378 px, text-to-image at 512 px, an edit of a 512 px
+    image (its source also goes through the ViT, at 504 px)."""
+    ex = dataset.Example
+    out = [
+        ex("vlm_sft", REQUESTS[2][2], image=_pil(11, 378, 378),
+           answer="No effusion is seen; both costophrenic angles are sharp."),
+        ex("t2i_pretrain", GEN_PROMPT, image=_pil(12, *GEN_SIZE)),
+        ex("unified_edit", EDIT_PROMPT, image=_pil(13, *GEN_SIZE), target_image=_pil(14, *GEN_SIZE)),
+    ]
+    if with_980:
+        out.insert(0, ex("vlm_sft", REQUESTS[0][2], image=_pil(10, 980, 980),
+                         answer="A rounded opacity projects over the right lower zone."))
+    return out
+
+
+def train_batches(model, tok, new_token_ids, examples, seq_len: int) -> dataset.Prefetcher:
+    """Packed batches of one sequence each, prepared and copied to the card by
+    the prefetcher's worker thread; the latents come from the model's VAE."""
+    from unimedvl_tpu_torch.data.imaging import ImageTransform
+
+    vit, vae = TransformConfig.vit_vqa(), TransformConfig.vae_interactive()
+    it = dataset.PackedBatchIterator(
+        examples, tok, new_token_ids, model.config,
+        ImageTransform(vit.max_size, vit.min_size, vit.stride, vit.max_pixels),
+        ImageTransform(vae.max_size, vae.min_size, vae.stride, vae.max_pixels),
+        latent_fn=dataset.make_latent_fn(model), batch_size=1, seq_len=seq_len, seed=SEED)
+    return dataset.Prefetcher(it, depth=2, place_fn=dataset.make_place_fn(DEVICE))
+
+
+def _segments(seq) -> tuple:
+    return seq["mask_document_id"], seq["mask_fn_id"], seq["mask_noise_id"]
+
+
+def _describe(seq) -> str:
+    doc = seq["mask_document_id"]
+    return (f"T {doc.shape[0]} ({int((doc > 0).sum())} real tokens in {int(doc.max())} "
+            f"documents; und {seq['und_idx'].numel()}, gen {seq['gen_idx'].numel()})")
+
+
+def _grad_error(got: torch.Tensor, want: torch.Tensor, floor=None):
+    got, want = got.float(), want.float()
+    m = want.abs().amax(dim=-1, keepdim=True)
+    tol = K5_GRAD_RTOL * (m + want.abs()) + (K5_GRAD_FLOOR * m.mean() if floor is None else floor)
+    diff = (got - want).abs()
+    return (diff / tol).max().item(), diff.max().item()
+
+
+def _k5_case(name, ids, g, timed: bool):
+    """K5 (forward and the three gradients) against its plain version on one
+    set of segment ids, at the LLM's heads; with ``timed``, also the three
+    kernels' times, the plain version's, SDPA's and the card's bounds."""
+    H, Hk, D = 28, 4, 128
+    T = ids[0].shape[0]
+
+    def randn(h):
+        return torch.randn(T, h, D, generator=g, device=DEVICE).to(torch.bfloat16)
+
+    q, k, v = (randn(h).requires_grad_(True) for h in (H, Hk, Hk))
+    cot = randn(H)
+
+    def run(fn):
+        out = fn(q, k, v, *ids)
+        grads = torch.autograd.grad(out, (q, k, v), cot)
+        return out.detach(), grads
+
+    out, (dq, dk, dv) = run(fat.packed_train_attention)
+    torch.cuda.synchronize()
+    ref, (rq, rk, rv) = run(fat.packed_train_attention_ref)
+    diff = (out.float() - ref.float()).abs()
+    worst = (diff / (ATOL + RTOL * ref.float().abs())).max().item()
+    dsum_spread = (cot.float() * ref.float()).square().sum(dim=-1, keepdim=True).sqrt()
+    dq_floor = K5_DSUM_SIGMAS * D**-0.5 * 2.0**-9 * dsum_spread * k.detach().abs().max().float()
+    errs = {"out": (worst, diff.max().item()), "dq": _grad_error(dq, rq, dq_floor),
+            "dk": _grad_error(dk, rk), "dv": _grad_error(dv, rv)}
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv))
+    mask = dense_packed_mask(*ids)
+    n = -(-T // K5_TILE)
+    tiles = torch.zeros((n * K5_TILE, n * K5_TILE), dtype=torch.bool, device=DEVICE)
+    tiles[:T, :T] = mask
+    live = tiles.view(n, K5_TILE, n, K5_TILE).any(dim=3).any(dim=1).float().mean().item()
+    pairs = int(mask.sum())
+    print(f"  K5 {name}: T {T}, {pairs} allowed pairs ({pairs / T**2:.3f} of T^2), "
+          f"{1 - live:.3f} of the {K5_TILE}x{K5_TILE} tile pairs skipped; worst err/bound "
+          + ", ".join(f"{key} {w:.3f} (max abs {a:.3e})" for key, (w, a) in errs.items())
+          + f", finite {finite}", flush=True)
+    if not finite or any(w > 1.0 for w, _ in errs.values()) or diff.mean().item() > MEAN_ABS_TOL:
+        raise SystemExit(f"chip_smoke: K5 {name} disagrees with its plain version")
+    rows = {"fwd": dict(max_abs_err=errs["out"][1]), "bwd_dq": dict(max_abs_err=errs["dq"][1]),
+            "bwd_dkv": dict(max_abs_err=max(errs["dk"][1], errs["dv"][1]))}
+    if not timed:
+        return rows
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    o, lse = fat._launch_fwd(qd, kd, vd, *ids)
+    calls = {
+        "fwd": lambda: fat._launch_fwd(qd, kd, vd, *ids),
+        # each backward call includes the fp32 row sums of do * out (dsum), taken in torch
+        "bwd_dq": lambda: fat._launch_bwd(qd, kd, vd, o, lse, *ids, cot, True, False),
+        "bwd_dkv": lambda: fat._launch_bwd(qd, kd, vd, o, lse, *ids, cot, False, True),
+    }
+    # plain version: the forward, and one backward pass that yields all three gradients
+    plain_fwd = cuda_ms(lambda: fat.packed_train_attention_ref(qd, kd, vd, *ids), 1, 3)
+    pref = fat.packed_train_attention_ref(q, k, v, *ids)
+    plain_bwd = cuda_ms(lambda: torch.autograd.grad(pref, (q, k, v), cot, retain_graph=True), 1, 3)
+    del pref
+    # one library call: SDPA with the dense bool mask, K/V expanded to the query heads
+    G = H // Hk
+    qh, kh, vh = (t.detach().repeat_interleave(rep, dim=1).transpose(0, 1)[None]
+                  .contiguous().requires_grad_(True) for t, rep in ((q, 1), (k, G), (v, G)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = cuda_ms(lambda: sdpa(qh.detach(), kh.detach(), vh.detach(),
+                                   attn_mask=mask[None, None]), 1, 5)
+    lout = sdpa(qh, kh, vh, attn_mask=mask[None, None])
+    lcot = cot.transpose(0, 1)[None].contiguous()
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(lout, (qh, kh, vh), lcot, retain_graph=True),
+                      1, 5)
+    del lout
+    qb, kb, stat, idb = T * H * D * 2, T * Hk * D * 2, H * T * 4, 3 * T * 4
+    work = {  # bytes for the operands once; products over the allowed pairs only
+        "fwd": (2 * qb + 2 * kb + stat + idb, 4.0 * D * pairs * H),          # S, P V
+        "bwd_dq": (3 * qb + 2 * kb + 2 * stat + idb, 6.0 * D * pairs * H),   # S, dP, dS K
+        "bwd_dkv": (2 * qb + 4 * kb + 2 * stat + idb, 8.0 * D * pairs * H),  # S, dP, P^T dO, dS^T Q
+    }
+    for key, fn in calls.items():
+        rows[key].update(ms=cuda_ms(fn), ms_back_to_back=back_to_back_ms(fn),
+                         plain_ms=plain_fwd if key == "fwd" else plain_bwd,
+                         library_ms=lib_fwd if key == "fwd" else lib_bwd,
+                         tiles_skipped=1 - live, **bound(*work[key], "bf16"))
+        r = rows[key]
+        print(f"    {key}: kernel {r['ms']:.3f} ms ({r['ms_back_to_back']:.3f} ms per call in a "
+              f"run of {BACK_TO_BACK}), plain {r['plain_ms']:.3f} ms, SDPA (dense bool mask) "
+              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
+              + ("" if key == "fwd" else " [plain and SDPA: one backward pass, all three "
+                 "gradients]"), flush=True)
+    return rows
+
+
+def check_packed_train_attention(ft_seq, lora_seq) -> dict:
+    """K5 against its plain version at the LLM's heads (H 28, Hk 4, D 128), on
+    the segment ids of the batches the training phases run and on layouts
+    chosen to be awkward. The timings kept for the ``kernels`` line are those
+    of the full fine-tune's first sequence (T 4096)."""
+    print(f"K5 packed training attention (forward as the attention tolerance above; gradients "
+          f"|err| <= {K5_GRAD_RTOL} (m + |ref|) + floor per element, m the largest |ref| of the "
+          f"row; floor {K5_GRAD_FLOOR} mean(m) for dk, dv and {K5_DSUM_SIGMAS} / sqrt(D) 2^-9 "
+          f"|do * out| max|k| for dq):", flush=True)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+
+    def layout(sample_lens, split_lens, modes):
+        return tuple(torch.from_numpy(a).to(DEVICE) for a in
+                     packed_segment_ids(sample_lens, split_lens, modes))
+
+    shown = _k5_case(f"the full fine-tune's first sequence, {_describe(ft_seq)}",
+                     _segments(ft_seq), g, timed=True)
+    rows = [shown, _k5_case(f"the LoRA phase's first sequence, {_describe(lora_seq)}",
+                            _segments(lora_seq), g, timed=True)]
+    rows.append(_k5_case(
+        "causal, full and noise spans in two documents, span edges inside tiles",
+        layout([384, 384], [128, 128, 128, 64, 192, 128],
+               ["causal", "full", "noise", "causal", "noise", "full"]), g, False))
+    rows.append(_k5_case("T not a multiple of the tile",
+                         layout([150, 111], [60, 90, 111], ["causal", "noise", "causal"]), g,
+                         False))
+    rows.append(_k5_case("one long causal document", layout([K5_LONG_T], [K5_LONG_T], ["causal"]), g, False))
+    out = {}
+    for key in ("fwd", "bwd_dq", "bwd_dkv"):
+        out["packed_train_attention_" + key] = dict(
+            shown[key], max_abs_err=max(r[key]["max_abs_err"] for r in rows))
+    return out
+
+
+def _checksums(named) -> dict:
+    """An exact, order-free checksum of every tensor's bits (the int64 sum of
+    its 16- or 32-bit words): any update of a tensor changes it."""
+    words = {2: torch.int16, 4: torch.int32}
+    return {n: int(torch.sum(p.detach().view(words[p.element_size()]), dtype=torch.int64))
+            for n, p in named}
+
+
+def _draw_noises(seqs, g):
+    return [torch.randn(s["vae_clean_tokens"].shape, generator=g, device=DEVICE)
+            if "vae_clean_tokens" in s else None for s in seqs]
+
+
+def _loss_and_grads(model, seqs, noises):
+    loss = trainer.loss_fn(model, seqs, noises, backward_scale=1.0)
+    grads = {n: p.grad.float() for n, p in model.named_parameters() if p.grad is not None}
+    for p in model.parameters():
+        p.grad = None
+    return float(loss), grads
+
+
+def _run_steps(step, state, batches, it, g, per_step: int, n_llm: int, n_vit: int, path: str,
+               frozen_vit: bool):
+    """TRAIN_STEPS steps with the counters reset just before: each takes
+    ``per_step`` batches (the given ones first, then the prefetcher's).
+    Prints the losses and times and checks the launch counts: with per-layer
+    recomputation the forward kernel runs twice per layer and sequence, each
+    backward kernel once; a frozen ViT goes through K1a, a trained one through
+    plain attention. Returns (state, launches)."""
+    batches = list(batches)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    n_seq = n_vit_seq = 0
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while len(batches) < per_step:
+            batches.append(next(it))
+        taken, batches = batches[:per_step], batches[per_step:]
+        t1 = time.perf_counter()
+        state, loss = step(state, taken if per_step > 1 else taken[0], generator=g)
+        loss = float(loss)
+        t2 = time.perf_counter()  # float() waited for the card
+        seqs = [s for b in taken for s in b]
+        n_seq += len(seqs)
+        n_vit_seq += sum("vit_patch_tokens" in s for s in seqs)
+        tokens = sum(s["mask_document_id"].shape[0] for s in seqs)
+        real = sum(int((s["mask_document_id"] > 0).sum()) for s in seqs)
+        print(f"  step {i}: loss {loss:.4f}; {len(seqs)} sequence(s), {tokens} packed tokens "
+              f"({real} real); waited {t1 - t0:.3f} s for the batch, step {t2 - t1:.3f} s, "
+              f"{tokens / (t2 - t1):.0f} packed tokens/s", flush=True)
+        if not np.isfinite(loss):
+            raise SystemExit(f"chip_smoke: {path}: the loss is not finite")
+    print(f"  peak memory over the steps: {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
+          flush=True)
+    launches = check_counts(path, {
+        "packed_train_attention_fwd": 2 * n_llm * n_seq,
+        "packed_train_attention_bwd_dq": n_llm * n_seq,
+        "packed_train_attention_bwd_dkv": n_llm * n_seq,
+        "flash_block_attention": n_vit * n_vit_seq if frozen_vit else 0,
+    })
+    return state, launches
+
+
+def run_lora(inf: InterleaveInferencer, it, first) -> dict:
+    """The slice's full-depth path: adapters of rank 16 on every projection
+    of both experts of the 28-layer bf16 model, ``make_lora_train_step``."""
+    model, cfg = inf.model, inf.model.config
+    n_llm, n_vit = cfg.llm.num_hidden_layers, cfg.vit.num_hidden_layers
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    base = [(n, p) for n, p in model.named_parameters()]
+    before = _checksums(base)
+    lora.add_lora(model, g, rank=LORA_RANK)
+    step, state = lora.make_lora_train_step(cfg, model)
+    adapters = [m for m in model.modules() if isinstance(m, lora.LoRALinear)]
+    print(f"LoRA: {len(adapters)} adapted projections, rank {LORA_RANK}, "
+          f"{lora.count_lora_params(model) / 1e6:.1f} M adapter parameters (bf16) over "
+          f"{sum(p.numel() for _, p in base) / 1e9:.2f} B frozen; remat {cfg.llm.remat}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB held", flush=True)
+    # the first step's loss and adapter gradients, kernels against plain attention
+    noises = _draw_noises(first, g)
+    loss_k, grads_k = _loss_and_grads(model, first, noises)
+    loss_p, grads_p = _with_plain_versions(lambda: _loss_and_grads(model, first, noises))
+    flat_k = torch.cat([grads_k[n].flatten() for n in sorted(grads_k)])
+    flat_p = torch.cat([grads_p[n].flatten() for n in sorted(grads_k)])
+    cos = torch.nn.functional.cosine_similarity(flat_k, flat_p, dim=0).item()
+    per = {n: torch.nn.functional.cosine_similarity(
+        grads_k[n].flatten(), grads_p[n].flatten(), dim=0).item()
+        for n in grads_k if n.endswith("lora_b")}
+    worst = min(per, key=per.get)
+    print(f"  first step, kernels vs plain attention ({_describe(first[0])}): loss {loss_k:.5f} "
+          f"vs {loss_p:.5f}; adapter gradients: cosine {cos:.6f} over {flat_k.numel()} values "
+          f"(norm {flat_k.norm().item():.4f}), worst tensor {per[worst]:.6f} ({worst})",
+          flush=True)
+    if not (abs(loss_k - loss_p) <= LOSS_REL_TOL * abs(loss_p) and cos >= GRAD_COS_TOL
+            and bool(torch.isfinite(flat_k).all())):
+        raise SystemExit("chip_smoke: the LoRA step with the kernels disagrees with the same "
+                         "step with plain attention")
+    del grads_k, grads_p, flat_k, flat_p
+    state, launches = _run_steps(step, state, [first], it, g, 1, n_llm, n_vit,
+                                 "the LoRA training path", frozen_vit=True)
+    still = [n for n, c in _checksums(base).items() if c != before[n]]
+    unmoved = [i for i, m in enumerate(adapters) if not bool((m.lora_b != 0).any())]
+    print(f"  after {state.step} steps: {len(adapters) - len(unmoved)} of {len(adapters)} lora_b "
+          f"moved from zero; base tensors whose bits changed: {len(still)} of {len(base)}",
+          flush=True)
+    if still or unmoved or any(p.grad is not None or p.requires_grad for _, p in base):
+        raise SystemExit("chip_smoke: LoRA moved the base, or left an adapter where it was")
+    return launches
+
+
+def build_trainable(n_layers: int, freeze_und: bool) -> bagel.Bagel:
+    """The full width at ``n_layers`` LLM layers (the ViT at its full depth),
+    random bf16 weights and an fp32 VAE from the seed."""
+    import dataclasses
+
+    cfg = full_config()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_hidden_layers=n_layers, freeze_und=freeze_und))
+    model = bagel.Bagel(cfg, device="meta", dtype=torch.bfloat16, with_vae=True)
+    model = model.to_empty(device=DEVICE)
+    bagel.init_random_(model, torch.Generator(device=DEVICE).manual_seed(SEED),
+                       llm2vae_zero=False)
+    return model
+
+
+def run_full_finetune(tok, new_token_ids) -> list:
+    """``make_train_step`` with accumulation and an EMA shadow at the full
+    width, then once more with the understanding expert frozen (no EMA).
+    Returns the launches of both runs."""
+    paths = []
+    for freeze_und in (False, True):
+        model = build_trainable(FT_LAYERS, freeze_und)
+        it = train_batches(model, tok, new_token_ids, train_examples(False), FT_SEQ_LEN)
+        try:
+            paths.append(_finetune(model, it, freeze_und))
+        finally:  # a worker left running would abort the interpreter's exit
+            it.close(wait=True)
+        del model, it
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
+def _finetune(model, it, freeze_und: bool) -> dict:
+    cfg = model.config
+    step, init_state = trainer.make_train_step(
+        cfg, model, accum_steps=FT_ACCUM, ema_decay=None if freeze_und else FT_EMA_DECAY)
+    state = init_state()
+    torch.cuda.synchronize()
+    params = dict(model.named_parameters())
+    n_trained = sum(p.numel() for p in params.values() if p.requires_grad)
+    name = "full fine-tune" + (", understanding expert frozen" if freeze_und else "")
+    print(f"{name}: {FT_LAYERS} of 28 LLM layers at the full width, {n_trained / 1e9:.2f} B "
+          f"trained parameters (bf16; AdamW moments bf16{'' if freeze_und else ', EMA fp32'}), "
+          f"accumulation {FT_ACCUM}, {torch.cuda.memory_allocated() / 2**30:.1f} GiB held before "
+          f"the first step", flush=True)
+    watch = {
+        "und expert": "language_model.model.layers.0.mlp.gate_proj.weight",
+        "gen expert": "language_model.model.layers.0.mlp_moe_gen.gate_proj.weight",
+        "ViT": "vit_model.vision_model.encoder.layers.0.mlp.fc1.weight",
+    }
+    before = {k: params[n].detach().clone() for k, n in watch.items()}
+    frozen = {n: params[n].detach().clone()
+              for n, lab in trainer._freeze_und_labels(model).items()
+              if freeze_und and lab == "freeze"}
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    if not freeze_und:  # one step alone, to hold the EMA to its recurrence
+        ema_before = {n: state.ema_params[n].clone() for n in watch.values()}
+        state, _ = step(state, [next(it) for _ in range(FT_ACCUM)], generator=g)
+        for n, prev in ema_before.items():
+            want = FT_EMA_DECAY * prev + (1 - FT_EMA_DECAY) * params[n].detach().float()
+            torch.testing.assert_close(state.ema_params[n], want, rtol=1e-6, atol=1e-9)
+        print(f"  the EMA shadow obeys ema = {FT_EMA_DECAY} ema + {1 - FT_EMA_DECAY:.3f} param "
+              f"after the first update ({len(ema_before)} tensors, fp32)", flush=True)
+    state, launches = _run_steps(step, state, [], it, g, FT_ACCUM, cfg.llm.num_hidden_layers,
+                                 cfg.vit.num_hidden_layers, f"the {name} path",
+                                 frozen_vit=False)
+    moved = {k: (params[n] != before[k]).float().mean().item() for k, n in watch.items()}
+    print(f"  share of entries that moved after {state.step} updates (bf16 weights, lr 1e-5): "
+          f"{moved}", flush=True)
+    if freeze_und:
+        changed = [n for n, t in frozen.items() if not torch.equal(params[n], t)]
+        print(f"  frozen understanding tensors whose bits changed: {len(changed)} of "
+              f"{len(frozen)}", flush=True)
+        if changed or not frozen or not moved["gen expert"] > 0:
+            raise SystemExit("chip_smoke: freeze_und moved the understanding expert, or left "
+                             "the generation expert where it was")
+    elif not all(m > 0 for m in moved.values()):
+        raise SystemExit("chip_smoke: the full fine-tune left an expert or the ViT unmoved")
+    return launches
+
+
+def run_training(inf: InterleaveInferencer):
+    """The training phases; returns (K5's timings, the launches of each path)."""
+    tok, ids = inf.tokenizer, inf.new_token_ids
+    lora_it = train_batches(inf.model, tok, ids, train_examples(True), LORA_SEQ_LEN)
+    ft_it = train_batches(inf.model, tok, ids, train_examples(False), FT_SEQ_LEN)
+    try:
+        first, ft_first = next(lora_it), next(ft_it)
+        ft_it.close(wait=True)
+        timings = check_packed_train_attention(ft_first[0], first[0])
+        print(f"LoRA training path: {TRAIN_STEPS} steps over the full-depth model, one packed "
+              f"sequence of {LORA_SEQ_LEN} tokens per step", flush=True)
+        return timings, [run_lora(inf, lora_it, first)]
+    finally:  # a worker left running would abort the interpreter's exit
+        ft_it.close(wait=True)
+        lora_it.close(wait=True)
+
+
 def main() -> None:
     check_device()
     build_kernels()
@@ -926,8 +1363,17 @@ def main() -> None:
     paths.append(run_generation(inf))
     check_velocity_against_plain(inf)
     paths.append(run_quantized_chat(inf, logits_bf16))
+    train_timings, train_paths = run_training(inf)
+    timings.update(train_timings)
+    paths += train_paths
+    tok, new_token_ids = inf.tokenizer, inf.new_token_ids
+    del inf  # the 28-layer model makes room for the full fine-tune's state
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths += run_full_finetune(tok, new_token_ids)
     flash = "unimedvl_tpu_torch/csrc/flash_block_attention.cu"
     decode = "unimedvl_tpu_torch/csrc/decode_attention.cu"
+    train = "unimedvl_tpu_torch/csrc/packed_train_attention.cu"
     sources = {
         "flash_block_attention": (flash, "unimedvl_tpu/ops/flash_attention.py:209"),
         "flash_block_attention_q_preproc": (
@@ -939,6 +1385,12 @@ def main() -> None:
                            "unimedvl_tpu/ops/act_quant.py:57"),
         "w4_matmul": ("unimedvl_tpu_torch/csrc/w4_matmul.cu",
                       "unimedvl_tpu/ops/w4_matmul.py:202"),
+        "packed_train_attention_fwd": (
+            train, "unimedvl_tpu/ops/flash_attention_train.py:263 (_fwd :111, _fwd_kernel :60)"),
+        "packed_train_attention_bwd_dq": (
+            train, "unimedvl_tpu/ops/flash_attention_train.py:263 (_bwd_dq_kernel :167)"),
+        "packed_train_attention_bwd_dkv": (
+            train, "unimedvl_tpu/ops/flash_attention_train.py:263 (_bwd_dkv_kernel :211)"),
     }
     # ms is one call between two events, host time of the wrapper included;
     # ms_back_to_back is the time per call in a run of 20, which the card sets
@@ -947,7 +1399,8 @@ def main() -> None:
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=sum(p[name] for p in paths), **{k: timings[name][k] for k in keys},
-             **{k: v for k, v in timings[name].items() if k.startswith("one_row_")})
+             **{k: v for k, v in timings[name].items()
+                if k.startswith("one_row_") or k == "tiles_skipped"})
         for name, (src, rep) in sources.items()
     ]
     unlaunched = [k["name"] for k in kernels if k["launches"] < 1]

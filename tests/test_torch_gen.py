@@ -52,7 +52,7 @@ MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 @pytest.fixture(scope="module")
 def pair():
     params = jbagel.init_params(jax.random.PRNGKey(2), CFG, llm2vae_zero=False)
-    model = loader.from_jax_params(jax.tree.map(np.asarray, params), TCFG)
+    model = loader.from_jax_params(jax.tree.map(np.asarray, params), TCFG, device="cpu")
     return params, model
 
 
@@ -376,7 +376,7 @@ class TestVAE:
         )
         jparams = jloader.load_bagel_checkpoint(str(ckpt), cfg, dtype=jnp.float32)
         want = loader.from_jax_params(jax.tree.map(np.asarray, jparams),
-                                      port_config(cfg)).state_dict()
+                                      port_config(cfg), device="cpu").state_dict()
         got = loader.load_bagel_checkpoint(str(ckpt), port_config(cfg), device="cpu",
                                            dtype=torch.float32).state_dict()
         assert got.keys() == want.keys()
@@ -390,7 +390,7 @@ class TestVAE:
         vae_keys = [k for k in sd if k.startswith("vae_model.")]
         assert len(vae_keys) == len(AutoEncoder(SMALL, device="meta").state_dict())
         model = loader.from_jax_params(jax.tree.map(np.asarray, params), TCFG,
-                                       dtype=torch.bfloat16)
+                                       dtype=torch.bfloat16, device="cpu")
         assert model.vae_model.decoder.conv_out.weight.dtype == torch.float32
         assert model.llm2vae.weight.dtype == torch.bfloat16
 

@@ -28,6 +28,12 @@ import unimedvl_tpu_torch.ops.flash_attention
 import unimedvl_tpu_torch.ops.decode_attention
 import unimedvl_tpu_torch.ops.act_quant
 import unimedvl_tpu_torch.ops.w4_matmul
+import unimedvl_tpu_torch.ops.blockmask
+import unimedvl_tpu_torch.ops.flash_attention_train
+import unimedvl_tpu_torch.data.packing
+import unimedvl_tpu_torch.training.trainer
+import unimedvl_tpu_torch.training.lora
+import unimedvl_tpu_torch.training.dataset
 import unimedvl_tpu_torch.models.bagel
 import unimedvl_tpu_torch.weights.loader
 import unimedvl_tpu_torch.inference

@@ -21,6 +21,19 @@ well under one output rounding). K3 (silu * mul * quant): scales within 1e-6
 relative, q within one step, at most 1e-3 of the elements differing (expf
 against torch.sigmoid in the last place). K2-int8 takes the attention
 tolerance above.
+
+K5 (packed training attention). Its forward takes the attention tolerance.
+Each gradient is held, per element, to |err| <= 2^-7 (m + |plain|) + floor,
+with m the largest |plain| of the element's row [..., D]: the kernels round p
+and ds to bf16 for their second product (2^-9 of a row's scale per term). The
+floor covers what does not shrink with the row's own gradient. For dk and dv
+it is 2^-4 M, M the mean of m over the tensor. For dq: the kernels take
+dsum = do . out from the bf16 output where autograd's softmax backward uses
+unrounded values, a difference of about 2^-9 sqrt(sum_d (do_d out_d)^2) that
+reaches dq as scale * p * k, so the floor is 6 times that with max|k| (it
+matters for rows that see a few keys: out is large and dq nearly zero). The
+cotangent is bf16-representable, as it is on the model's path. dk and dv are
+summed in registers by one CTA in a fixed order: repeats are bit-equal.
 """
 
 import pytest
@@ -29,6 +42,8 @@ import torch
 from unimedvl_tpu_torch.ops import act_quant as aq
 from unimedvl_tpu_torch.ops import decode_attention as dec
 from unimedvl_tpu_torch.ops import flash_attention as fa
+from unimedvl_tpu_torch.ops import flash_attention_train as fat
+from unimedvl_tpu_torch.ops.blockmask import packed_segment_ids
 from unimedvl_tpu_torch.ops import w4_matmul as w4
 from unimedvl_tpu_torch.ops.rope import rope_cos_sin
 
@@ -341,3 +356,135 @@ def test_quantized_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="k_scale must be .* contiguous|k_scale must be"):
         dec.decode_attention(q, kv, kv, _ints(3), (3, 3),
                              k_scale=torch.ones(1, 4, 64, device="cuda")[:, :, ::2], v_scale=sc)
+
+
+# ---------------------------------------------------------------------------
+# K5: packed training attention (forward, dq, dk/dv)
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYOUTS = [
+    # (sample_lens, split_lens, modes, trailing pad tokens): span edges fall inside 64-row tiles
+    ([384, 384], [128, 128, 128, 64, 192, 128],
+     ["causal", "full", "noise", "causal", "noise", "full"], 0),
+    ([150, 111], [60, 90, 111], ["causal", "noise", "causal"], 0),  # T = 261, not a tile multiple
+    ([1024], [1024], ["causal"], 0),
+    ([500, 300], [100, 400, 50, 250], ["causal", "noise", "causal", "full"], 200),
+    ([70], [30, 40], ["causal", "full"], 0),
+]
+
+
+def _train_case(gen, layout, H=28, Hk=4):
+    import numpy as np
+
+    sample_lens, split_lens, modes, pad = layout
+    doc, fn, nz = packed_segment_ids(sample_lens, split_lens, modes)
+    doc = np.concatenate([doc, np.zeros(pad, np.int32)])  # pad tokens: document 0, causal
+    fn, nz = (np.concatenate([a, np.full(pad, -1, np.int32)]) for a in (fn, nz))
+    T = len(doc)
+    q, k, v = (_randn(gen, T, h, 128).requires_grad_(True) for h in (H, Hk, Hk))
+    cot = _randn(gen, T, H, 128).float()
+    return (q, k, v), [torch.from_numpy(a).cuda() for a in (doc, fn, nz)], cot
+
+
+def _run(fn, qkv, ids, cot):
+    for t in qkv:
+        t.grad = None
+    out = fn(*qkv, *ids)
+    out.backward(cot)
+    return [out.detach()] + [t.grad.clone() for t in qkv]
+
+
+def _assert_grad_close(got, want, name, floor=None):
+    got, want = got.float(), want.float()
+    m = want.abs().amax(dim=-1, keepdim=True)
+    tol = 2.0**-7 * (m + want.abs()) + (2.0**-4 * m.mean() if floor is None else floor)
+    worst = ((got - want).abs() / tol).max().item()
+    assert worst <= 1.0, (name, worst)
+
+
+@pytest.mark.parametrize("layout", TRAIN_LAYOUTS)
+@pytest.mark.parametrize("heads", [(28, 4), (4, 4)])
+def test_packed_train_attention_matches_plain(gen, layout, heads):
+    qkv, ids, cot = _train_case(gen, layout, *heads)
+    before = dict(fat.counts)
+    got = _run(fat.packed_train_attention, qkv, ids, cot)
+    assert [fat.counts[k] - before[k] for k in ("fwd", "bwd_dq", "bwd_dkv", "plain")] == \
+        [1, 1, 1, 0]
+    want = _run(fat.packed_train_attention_ref, qkv, ids, cot)
+    assert all(torch.isfinite(t).all() for t in got)
+    _assert_close(got[0], want[0])
+    spread = (cot * want[0].float()).square().sum(dim=-1, keepdim=True).sqrt()
+    dq_floor = 6.0 * 128**-0.5 * 2.0**-9 * spread * qkv[1].detach().abs().max().float()
+    for g, w, name, floor in zip(got[1:], want[1:], ("dq", "dk", "dv"), (dq_floor, None, None)):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        _assert_grad_close(g, w, name, floor)
+
+
+def test_packed_train_attention_repeats_are_bit_equal(gen):
+    qkv, ids, cot = _train_case(gen, TRAIN_LAYOUTS[3])
+    a = _run(fat.packed_train_attention, qkv, ids, cot)
+    b = _run(fat.packed_train_attention, qkv, ids, cot)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_packed_train_attention_layouts_and_partial_grads(gen):
+    """q, k, v as column slices of one fused projection (read through the row
+    stride), a non-contiguous cotangent, and gradients asked of q alone."""
+    (q, k, v), ids, cot = _train_case(gen, TRAIN_LAYOUTS[1])
+    T = q.shape[0]
+    fused = torch.cat([q.detach().reshape(T, -1), k.detach().reshape(T, -1),
+                       v.detach().reshape(T, -1)], dim=1)
+    qs, ks, vs = (t.reshape(T, -1, 128) for t in fused.split([28 * 128, 4 * 128, 4 * 128], dim=1))
+    assert not qs.is_contiguous()
+    want = fat.packed_train_attention(q.detach(), k.detach(), v.detach(), *ids)
+    assert torch.equal(fat.packed_train_attention(qs, ks, vs, *ids), want)
+    ref = _run(fat.packed_train_attention, (q, k, v), ids, cot)
+    cot_t = cot.transpose(0, 1).contiguous().transpose(0, 1)  # same values, other strides
+    assert torch.equal(_run(fat.packed_train_attention, (q, k, v), ids, cot_t)[1], ref[1])
+    before = dict(fat.counts)
+    q2 = q.detach().requires_grad_(True)
+    fat.packed_train_attention(q2, k.detach(), v.detach(), *ids).backward(cot)
+    assert torch.equal(q2.grad, ref[1])
+    assert fat.counts["bwd_dq"] == before["bwd_dq"] + 1
+    assert fat.counts["bwd_dkv"] == before["bwd_dkv"]
+
+
+def test_packed_train_attention_under_checkpoint(gen):
+    """Non-reentrant checkpointing runs the forward kernel twice and gives
+    the same gradients."""
+    from torch.utils.checkpoint import checkpoint
+
+    qkv, ids, cot = _train_case(gen, TRAIN_LAYOUTS[0])
+    ref = _run(fat.packed_train_attention, qkv, ids, cot)
+    before = dict(fat.counts)
+    got = _run(lambda *a: checkpoint(fat.packed_train_attention, *a, use_reentrant=False),
+               qkv, ids, cot)
+    assert fat.counts["fwd"] == before["fwd"] + 2 and fat.counts["bwd_dq"] == before["bwd_dq"] + 1
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+
+
+def test_packed_train_attention_refuses_what_the_kernels_do_not_take(gen):
+    (q, k, v), ids, _ = _train_case(gen, TRAIN_LAYOUTS[4])
+    with pytest.raises(TypeError, match="bfloat16"):
+        fat.packed_train_attention(q.float(), k.float(), v.float(), *ids)
+    with pytest.raises(ValueError, match="head dim"):
+        fat.packed_train_attention(q[..., :64], k[..., :64], v[..., :64], *ids)
+    with pytest.raises(ValueError, match="doc_id"):
+        fat.packed_train_attention(q, k, v, ids[0][:-1], ids[1], ids[2])
+    with pytest.raises(ValueError, match="multiple"):
+        fat.packed_train_attention(q[:, :27], k, v, *ids)
+
+
+def test_kernels_without_a_backward_refuse_inputs_that_require_grad(gen):
+    q = _randn(gen, 1, 64, 4, 128).requires_grad_(True)
+    kc, vc = _randn(gen, 1, 4, 128, 128), _randn(gen, 1, 4, 128, 128)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        fa.flash_block_attention(q, kc, vc, _ints(0), _ints(0), True, kv_head_major=True)
+    with torch.no_grad():
+        fa.flash_block_attention(q, kc, vc, _ints(0), _ints(0), True, kv_head_major=True)
+    qd = _randn(gen, 1, 1, 4, 128).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        dec.decode_attention(qd, kc, vc, _ints(10), (_ints(10), _ints(12)))
+    dec.decode_attention(qd.detach(), kc, vc, _ints(10), (_ints(10), _ints(12)))

@@ -47,7 +47,7 @@ CFG = BagelConfig(
 @pytest.fixture(scope="module")
 def pair():
     params = jbagel.init_params(jax.random.PRNGKey(0), CFG)
-    model = loader.from_jax_params(jax.tree.map(np.asarray, params), port_config(CFG))
+    model = loader.from_jax_params(jax.tree.map(np.asarray, params), port_config(CFG), device="cpu")
     return params, model
 
 
@@ -173,7 +173,7 @@ class TestLoader:
         assert cfg.vit.num_hidden_layers == CKPT_CFG.vit.num_hidden_layers
         jparams = jloader.load_bagel_checkpoint(str(released_ckpt), cfg, dtype=jnp.float32)
         want = loader.from_jax_params(jax.tree.map(np.asarray, jparams),
-                                      port_config(cfg)).state_dict()
+                                      port_config(cfg), device="cpu").state_dict()
         got = loader.load_bagel_checkpoint(
             str(released_ckpt), port_config(cfg), device="cpu", dtype=torch.float32
         ).state_dict()

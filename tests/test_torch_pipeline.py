@@ -92,7 +92,7 @@ def pair():
     tok, new_token_ids, _ = add_special_tokens(FakeTokenizer())
     transform = ImageTransform(32, 8, 2, 1024)
     jax_inf = JaxInferencer(params, CFG, tok, new_token_ids, vit_transform=transform)
-    model = from_jax_params(jax.tree.map(np.asarray, params), port_config(CFG))
+    model = from_jax_params(jax.tree.map(np.asarray, params), port_config(CFG), device="cpu")
     ttok, tids, _ = ttokenizer.add_special_tokens(FakeTokenizer())
     torch_inf = InterleaveInferencer(model, ttok, tids,
                                      vit_transform=timaging.ImageTransform(32, 8, 2, 1024))
@@ -164,7 +164,7 @@ def quant_pair(request):
     tok, new_token_ids, _ = add_special_tokens(FakeTokenizer())
     jax_inf = JaxInferencer(jparams, QCFG, tok, new_token_ids,
                             vit_transform=ImageTransform(32, 8, 2, 1024), kv_quantized=True)
-    model = from_jax_params(jax.tree.map(np.asarray, params), port_config(QCFG))
+    model = from_jax_params(jax.tree.map(np.asarray, params), port_config(QCFG), device="cpu")
     quant.quantize_llm_params(model.language_model, **kw)
     if fused:
         quant.fuse_serving_projections(model.language_model)
@@ -258,7 +258,7 @@ class TestQuantizedChat:
 def test_int4_kv_cache_raises_naming_the_roadmap():
     model = from_jax_params(
         jax.tree.map(np.asarray, jbagel.init_params(jax.random.PRNGKey(1), CFG)),
-        port_config(CFG))
+        port_config(CFG), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         InterleaveInferencer(model, None, {}, kv_quantized=True, kv_bits=4)
     assert not InterleaveInferencer(model, None, {}).init_gen_context().cache.quantized
@@ -271,7 +271,7 @@ def gen_pair():
     kw = dict(vae_transform=ImageTransform(32, 8, 8, 1024),
               vit_transform=ImageTransform(32, 8, 2, 1024), seed=0)
     jax_inf = JaxInferencer(params, GEN_CFG, tok, new_token_ids, **kw)
-    model = from_jax_params(jax.tree.map(np.asarray, params), port_config(GEN_CFG))
+    model = from_jax_params(jax.tree.map(np.asarray, params), port_config(GEN_CFG), device="cpu")
     ttok, tids, _ = ttokenizer.add_special_tokens(FakeTokenizer())
     tkw = dict(vae_transform=timaging.ImageTransform(32, 8, 8, 1024),
                vit_transform=timaging.ImageTransform(32, 8, 2, 1024), seed=0)
@@ -329,7 +329,8 @@ class TestGeneration:
             {**jax_base.params, "llm": llm}, GEN_CFG, jax_base.tokenizer,
             jax_base.new_token_ids, vae_transform=jax_base.vae_transform,
             vit_transform=jax_base.vit_transform, seed=0, kv_quantized=True)
-        model = from_jax_params(jax.tree.map(np.asarray, jax_inf.params), port_config(GEN_CFG))
+        model = from_jax_params(jax.tree.map(np.asarray, jax_inf.params), port_config(GEN_CFG),
+                                device="cpu")
         assert hasattr(model.language_model.model.layers[0].mlp_moe_gen, "gate_up_proj")
         torch_inf = InterleaveInferencer(
             model, torch_base.tokenizer, torch_base.new_token_ids,

@@ -425,7 +425,7 @@ def _jax_quantized(params, kw, fused):
 
 
 def _port_quantized(np_params, kw, fused):
-    model = loader.from_jax_params(np_params, TCFG)
+    model = loader.from_jax_params(np_params, TCFG, device="cpu")
     quant.quantize_llm_params(model.language_model, **kw)
     if fused:
         quant.fuse_serving_projections(model.language_model)
@@ -450,7 +450,7 @@ class TestLoaderOnQuantizedTrees:
         buffers, bit for bit, and the same modes."""
         params, np_params = base
         jtree = jax.tree.map(np.asarray, _jax_quantized(params, kw, fused))
-        got = loader.from_jax_params(jtree, TCFG)
+        got = loader.from_jax_params(jtree, TCFG, device="cpu")
         want = _port_quantized(np_params, kw, fused)
         _assert_same_state(got, want)
         modes = {n: m.mode for n, m in got.named_modules() if isinstance(m, QuantLinear)}
@@ -468,8 +468,8 @@ class TestLoaderOnQuantizedTrees:
         """Fusion without quantization: concatenated nn.Linear weights."""
         params, np_params = base
         jtree = {**params, "llm": jquant.fuse_serving_projections(params["llm"])}
-        got = loader.from_jax_params(jax.tree.map(np.asarray, jtree), TCFG)
-        want = loader.from_jax_params(np_params, TCFG)
+        got = loader.from_jax_params(jax.tree.map(np.asarray, jtree), TCFG, device="cpu")
+        want = loader.from_jax_params(np_params, TCFG, device="cpu")
         quant.fuse_serving_projections(want.language_model)
         _assert_same_state(got, want)
         attn = got.language_model.model.layers[0].self_attn
@@ -480,13 +480,13 @@ class TestLoaderOnQuantizedTrees:
         params, _ = base
         jtree = {**params, "llm": jquant.fuse_serving_projections(params["llm"], tp=2)}
         with pytest.raises(NotImplementedError, match="M13"):
-            loader.from_jax_params(jax.tree.map(np.asarray, jtree), TCFG)
-        model = loader.from_jax_params(base[1], TCFG)
+            loader.from_jax_params(jax.tree.map(np.asarray, jtree), TCFG, device="cpu")
+        model = loader.from_jax_params(base[1], TCFG, device="cpu")
         with pytest.raises(NotImplementedError, match="M13"):
             quant.fuse_serving_projections(model.language_model, tp=2)
 
     def test_fusing_mixed_modes_raises(self, base):
-        model = loader.from_jax_params(base[1], TCFG)
+        model = loader.from_jax_params(base[1], TCFG, device="cpu")
         attn = model.language_model.model.layers[0].self_attn
         attn.q_proj = quant._quantize_module(attn.q_proj, 8, False, 0)
         with pytest.raises(ValueError, match="different quantized modes"):
@@ -642,7 +642,7 @@ class TestInt8Cache:
         this size), cache integers within one step on at most 1e-3 of the
         elements, scales within 1e-6 relative."""
         params, np_params = base
-        model = loader.from_jax_params(np_params, TCFG)
+        model = loader.from_jax_params(np_params, TCFG, device="cpu")
         L, S = CFG.llm.num_hidden_layers, 1
         rng = np.random.default_rng(18)
         if scales_cm:  # as generate_text does: transpose once, before the decode steps

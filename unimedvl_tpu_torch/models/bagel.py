@@ -17,7 +17,8 @@ the und expert, VAE latents through the gen expert.
 dtype notes. The JAX package lets its fp32 patch tokens and VAE latents
 promote the ViT and the image prefills to fp32 whatever the weights' dtype;
 the port casts them to the weights' dtype, so a bf16 model runs both in bf16
-and its attention goes through the bf16 kernels. The flow loop keeps the JAX
+and its attention goes through the bf16 kernels (the training forward's ViT
+too). The flow loop keeps the JAX
 package's mixed dtypes: the state x_t is fp32 throughout, ``vae2llm`` and the
 timestep embedding run in fp32 (their weights widened, not x_t rounded), the
 sum is rounded to the model dtype once, the velocity comes out of ``llm2vae``
@@ -28,7 +29,7 @@ is held and runs in fp32.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unimedvl_tpu_torch.config import BagelConfig
+from unimedvl_tpu_torch.data.packing import strip_padding
 from unimedvl_tpu_torch.models import qwen2_mot as mot
 from unimedvl_tpu_torch.models.layers import LayerNorm, PosEmbed, RMSNorm, linear
 from unimedvl_tpu_torch.models.qwen2_mot import KVCache, Qwen2MoTForCausalLM
@@ -64,7 +66,9 @@ class TimestepEmbedder(nn.Module):
 
 
 class Bagel(nn.Module):
-    """All released weights of the unified model, inference only.
+    """All released weights of the unified model. Every parameter is created
+    with ``requires_grad=False``; ``training.trainer`` and ``training.lora``
+    switch on the ones they train.
 
     ``device="meta"`` builds the structure without memory; ``to_empty`` and
     :func:`init_random_` (or a loader) then fill it. ``with_vae`` adds the
@@ -136,6 +140,14 @@ def connector(model: Bagel, x: torch.Tensor) -> torch.Tensor:
     return c.fc2(ACT2FN[model.config.connector_act](c.fc1(x)))
 
 
+def _encode_vit_tokens(model, patch_tokens, vit_pos_ids, valid, dense_attention: bool):
+    w = model.vit_model.vision_model.embeddings.patch_embedding.weight
+    h = model.vit_model(patch_tokens.to(w.dtype), vit_pos_ids, valid,
+                        dense_attention=dense_attention)
+    h = connector(model, h)
+    return h + model.vit_pos_embed.pos_embed.to(h.dtype)[vit_pos_ids]
+
+
 @torch.no_grad()
 def encode_vit_tokens(
     model: Bagel,
@@ -143,12 +155,10 @@ def encode_vit_tokens(
     vit_pos_ids: torch.Tensor,  # [N, Tv]
     valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """ViT encode + connector + frozen 2D position add; [N, Tv, C]. The patch
-    tokens are cast to the weights' dtype (see the module's dtype note)."""
-    w = model.vit_model.vision_model.embeddings.patch_embedding.weight
-    h = model.vit_model(patch_tokens.to(w.dtype), vit_pos_ids, valid)
-    h = connector(model, h)
-    return h + model.vit_pos_embed.pos_embed.to(h.dtype)[vit_pos_ids]
+    """ViT encode + connector + 2D position add, without gradients;
+    [N, Tv, C]. The patch tokens are cast to the weights' dtype (see the
+    module's dtype note)."""
+    return _encode_vit_tokens(model, patch_tokens, vit_pos_ids, valid, dense_attention=False)
 
 
 def preprocess_vit_image(cfg: BagelConfig, image_u8: torch.Tensor) -> torch.Tensor:
@@ -512,3 +522,173 @@ def decode_latent_to_image(
     img = model.vae_model.decode(z)[0].permute(1, 2, 0)  # [H, W, 3] in [-1, 1]
     img = torch.clamp(img.float() * 0.5 + 0.5, 0.0, 1.0) * 255.0
     return img.to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# training forward (reference Bagel.forward, bagel.py:202-374)
+# ---------------------------------------------------------------------------
+
+_INDEX_KEYS = ("packed_text_indexes", "und_idx", "gen_idx", "ce_idx", "ce_labels",
+               "vit_scatter_idx", "vit_token_idx", "vae_scatter_idx", "vit_pos_ids",
+               "vae_latent_pos_ids", "packed_position_ids")
+
+
+def prepare_sequence(batch: Dict[str, np.ndarray], device, pin: bool = False
+                     ) -> Dict[str, torch.Tensor]:
+    """One packed sequence of ``data.packing.pack_training_batch`` (numpy, or
+    one row of a ``stack_packed`` batch) as the tensors :func:`train_forward`
+    takes, on ``device``.
+
+    The packed arrays pad their index lists with T and rely on out-of-range
+    gathers that fill and scatters that drop. Torch index ops raise on such
+    an index, so the padding slots are dropped here, on the host
+    (``strip_padding``): they carry zero loss weight and reach no token, so
+    every loss equals the padded computation's. Index arrays become int64,
+    segment ids stay int32. ``pin`` stages the arrays in pinned host memory
+    and copies without blocking (for a worker thread feeding the card)."""
+    out = {}
+    for key, a in strip_padding(batch).items():
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if key in _INDEX_KEYS:
+            t = t.to(torch.int64)
+        if pin and t.numel():
+            t = t.pin_memory()
+        out[key] = t.to(device, non_blocking=pin)
+    return out
+
+
+def _no_e2e(cfg: BagelConfig, batch, bn_state) -> None:
+    if cfg.e2e is not None or bn_state is not None or "repa_teacher_features" in batch:
+        raise NotImplementedError(
+            "the e2e-VAE training extras (latent batch-norm, REPA alignment; "
+            "training/e2e_vae.py) are not ported: ROADMAP, what remains of M12"
+        )
+
+
+def train_forward(
+    model: Bagel,
+    batch: Dict[str, torch.Tensor],
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    diffusion_feature_layer: Optional[int] = None,
+    bn_state=None,
+) -> Dict[str, torch.Tensor]:
+    """Packed multimodal training forward with the CE and rectified-flow MSE
+    losses.
+
+    ``batch`` is one packed sequence as :func:`prepare_sequence` returns it
+    (a numpy batch of ``pack_training_batch`` is prepared here, onto the
+    model's device): packed_text_ids / indexes, packed_position_ids [T], the
+    mask segment arrays (document / fn / noise ids [T]), und_idx / gen_idx,
+    vit_* (batched padded images, and which of their rows go where), vae_*
+    (clean latent tokens, raw timesteps, scatter indexes), ce_idx / ce_labels
+    / ce_weight, mse_weight. ``noise`` [Nv, 64] is the flow noise; when None
+    it is drawn from ``generator``. Returns dict(ce=..., mse=..., loss=...)
+    of fp32 scalars (weighted means); with ``diffusion_feature_layer``, also
+    ``diffusion_features``.
+
+    Attention takes the segment arrays (K5 on the card). The dense [T, T]
+    mask is built only for CPU tensors, whose plain attention needs it."""
+    cfg = model.config
+    _no_e2e(cfg, batch, bn_state)
+    if isinstance(batch["packed_position_ids"], np.ndarray):
+        batch = prepare_sequence(batch, model.language_model.lm_head.weight.device)
+    x, stash = train_embed(model, batch, noise, generator)
+    segments = (batch["mask_document_id"], batch["mask_fn_id"], batch["mask_noise_id"])
+    result = mot.forward_train(
+        model.language_model.model, x, batch["packed_position_ids"], None,
+        batch["und_idx"], batch["gen_idx"], segments=segments,
+        feature_layer=diffusion_feature_layer,
+    )
+    h, features = result if diffusion_feature_layer is not None else (result, None)
+    return train_losses(model, batch, h, stash, features=features)
+
+
+def train_embed(
+    model: Bagel,
+    batch: Dict[str, torch.Tensor],
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Prologue of :func:`train_forward`: the packed [T, C] input embedding
+    (text, ViT and noised VAE-latent rows, reference bagel.py:229-287).
+    Returns (x, stash); the stash carries what the losses need (noise, clean,
+    t_shifted).
+
+    A ViT with trainable parameters runs with plain differentiable attention;
+    a frozen one runs under ``torch.no_grad()`` through K1a."""
+    cfg = model.config
+    lm = model.language_model
+    T = batch["packed_position_ids"].shape[0]
+    text_embed = mot.embed_tokens(lm, batch["packed_text_ids"])
+    x = torch.zeros((T, cfg.llm.hidden_size), dtype=text_embed.dtype, device=text_embed.device)
+    x.index_copy_(0, batch["packed_text_indexes"], text_embed)
+
+    if "vit_patch_tokens" in batch:  # visual understanding branch (bagel.py:248-261)
+        args = (model, batch["vit_patch_tokens"], batch["vit_pos_ids"], batch.get("vit_valid"))
+        if any(p.requires_grad for p in model.vit_model.parameters()):
+            vit_embed = _encode_vit_tokens(*args, dense_attention=True)
+        else:
+            with torch.no_grad():
+                vit_embed = _encode_vit_tokens(*args, dense_attention=False)
+        flat = vit_embed.reshape(-1, vit_embed.shape[-1]).index_select(0, batch["vit_token_idx"])
+        x.index_copy_(0, batch["vit_scatter_idx"], flat.to(x.dtype))
+
+    clean = t_shifted = None
+    if "vae_clean_tokens" in batch:  # visual generation branch (bagel.py:263-287)
+        clean = batch["vae_clean_tokens"]  # [Nv, 64]
+        t = torch.sigmoid(batch["vae_timesteps_raw"])
+        t_shifted = cfg.timestep_shift * t / (1 + (cfg.timestep_shift - 1) * t)
+        if noise is None:
+            if generator is None:
+                raise ValueError("the flow noise is an input: pass noise=, or a torch.Generator "
+                                 "to draw it from")
+            noise = torch.randn(clean.shape, generator=generator, dtype=torch.float32,
+                                device=generator.device).to(clean.device)
+        if noise.shape != clean.shape:
+            raise ValueError(f"noise must be {tuple(clean.shape)} (one row per latent token, "
+                             f"padding rows dropped), got {tuple(noise.shape)}")
+        noise = noise.to(clean.dtype)
+        x_t = (1 - t_shifted[:, None]) * clean + t_shifted[:, None] * noise
+        lat = _linear(x_t, model.vae2llm) + time_embed(model, t_shifted)
+        lat = lat + model.latent_pos_embed.pos_embed[batch["vae_latent_pos_ids"]]
+        x.index_copy_(0, batch["vae_scatter_idx"], lat.to(x.dtype))
+
+    return x, {"noise": noise, "t_shifted": t_shifted, "clean": clean}
+
+
+def train_losses(
+    model: Bagel,
+    batch: Dict[str, torch.Tensor],
+    h: torch.Tensor,  # [T, C] post-final-norm hidden from forward_train
+    stash: Dict,
+    features: Optional[torch.Tensor] = None,  # diffusion_feature_layer tap [T, C]
+) -> Dict[str, torch.Tensor]:
+    """Epilogue of :func:`train_forward`: the CE and rectified-flow MSE
+    losses (reference bagel.py:309-374)."""
+    out: Dict[str, torch.Tensor] = {}
+    if features is not None and "vae_scatter_idx" in batch:
+        out["diffusion_features"] = features.index_select(0, batch["vae_scatter_idx"])
+    loss = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    if "vae_clean_tokens" in batch:
+        h_vae = h.index_select(0, batch["vae_scatter_idx"])
+        pred = _linear(h_vae, model.llm2vae).float()
+        target = (stash["noise"] - stash["clean"]).float()
+        per_tok = torch.mean(torch.square(pred - target), dim=-1)
+        # conditioning latents (t_raw -inf or very negative) have t_shifted == 0: no flow loss
+        w = batch["mse_weight"].float() * (stash["t_shifted"] > 0)
+        out["mse"] = torch.sum(per_tok * w) / torch.clamp(torch.sum(w), min=1.0)
+        loss = loss + out["mse"]
+
+    if "ce_idx" in batch:
+        h_ce = h.index_select(0, batch["ce_idx"])
+        logits = mot.lm_head(model.language_model, h_ce)  # fp32 [Nc, V]
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(1, batch["ce_labels"][:, None])[:, 0]
+        w = batch["ce_weight"].float()
+        out["ce"] = torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+        loss = loss + out["ce"]
+
+    out["loss"] = loss
+    return out

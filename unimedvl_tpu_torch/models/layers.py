@@ -8,6 +8,7 @@ weights come from a checkpoint, from the JAX tree (weights/loader.py) or from
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from unimedvl_tpu_torch import quant
@@ -58,6 +59,48 @@ def linear_from_tensors(weight: torch.Tensor, bias=None) -> nn.Linear:
     if bias is not None:
         lin.bias = nn.Parameter(bias, requires_grad=False)
     return lin
+
+
+class LoRALinear(nn.Module):
+    """A bf16 or fp32 linear with a low-rank adapter (the ``lora_a`` branch
+    of the JAX package's ``_linear``): ``y = x W^T + b + ((x A^T) B^T) * s``.
+
+    ``weight`` [out, in] and ``bias`` are the base linear's own parameters,
+    shared, not copied; ``lora_a`` [r, in] and ``lora_b`` [out, r] are the
+    adapter (the JAX leaves [in, r] and [r, out], transposed to this package's
+    [out, in] convention); ``lora_s`` (alpha / rank) is a buffer: it takes no
+    gradient and no optimizer update. Every path that calls the module sees
+    the adapter: the training forward and unfused inference."""
+
+    def __init__(self, base: nn.Linear, lora_a: torch.Tensor, lora_b: torch.Tensor,
+                 lora_s: float):
+        super().__init__()
+        if not isinstance(base, nn.Linear):
+            raise TypeError(f"LoRA adapts a plain nn.Linear, got {type(base).__name__}")
+        out_f, in_f = base.weight.shape
+        if lora_a.shape[1] != in_f or lora_b.shape != (out_f, lora_a.shape[0]):
+            raise ValueError(
+                f"adapter shapes {tuple(lora_a.shape)}, {tuple(lora_b.shape)} do not fit a "
+                f"[{out_f}, {in_f}] weight")
+        self.in_features, self.out_features = in_f, out_f
+        self.weight = base.weight
+        self.bias = base.bias
+        self.lora_a = nn.Parameter(lora_a)
+        self.lora_b = nn.Parameter(lora_b)
+        self.register_buffer("lora_s", torch.tensor(float(lora_s), dtype=torch.float32,
+                                                    device=lora_a.device))
+
+    @property
+    def rank(self) -> int:
+        return self.lora_a.shape[0]
+
+    def extra_repr(self) -> str:
+        return f"in={self.in_features}, out={self.out_features}, rank={self.rank}"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, self.weight, self.bias)
+        low = F.linear(F.linear(x, self.lora_a.to(x.dtype)), self.lora_b.to(x.dtype))
+        return y + low * self.lora_s.to(y.dtype)
 
 
 QUANT_MODES = ("q", "qa", "p4", "p4a")

@@ -34,6 +34,16 @@ int8 (``KVCache.create(quantized=True)``): k, v int8 with fp32 per-key scales
 quantizes the block and stores its scales at the same columns, in place;
 decode steps go through K2-int8 with the layer's scales; prefill and denoise
 blocks dequantize the layer's slice once and take K1a / K1b.
+
+Training (``forward_train``): one packed flat sequence [T, C] with no cache.
+Each token belongs to one expert by index (``und_idx``, ``gen_idx``); every
+projection, norm and MLP is applied per expert and written back to packed
+order (``_route``). With ``segments`` (document, full-span and noise-span ids)
+attention goes through K5 (ops/flash_attention_train.py), which evaluates the
+mask in the kernel and has backward kernels; without, through the dense
+[T, T] mask. The index arrays hold real tokens only: the host drops the
+padding slots of ``data.packing.pack_training_batch`` before they reach the
+device (``training.dataset.prepare_sequence``).
 """
 
 from __future__ import annotations
@@ -44,14 +54,17 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unimedvl_tpu_torch.config import LLMConfig
 from unimedvl_tpu_torch import quant
 from unimedvl_tpu_torch.models.layers import QuantLinear, RMSNorm, embedding, linear
 from unimedvl_tpu_torch.ops.act_quant import silu_mul_quant
 from unimedvl_tpu_torch.ops.activations import ACT2FN
+from unimedvl_tpu_torch.ops.attention import gqa_attention
 from unimedvl_tpu_torch.ops.decode_attention import decode_attention
 from unimedvl_tpu_torch.ops.flash_attention import flash_block_attention
+from unimedvl_tpu_torch.ops.flash_attention_train import packed_train_attention
 from unimedvl_tpu_torch.ops.rope import apply_rope, apply_rope_one, rope_cos_sin
 
 
@@ -424,7 +437,8 @@ def lm_head(lm: Qwen2MoTForCausalLM, hidden: torch.Tensor) -> torch.Tensor:
     ``out_dtype``), so the [V, C] weight is read once and never widened. A
     quantized head (always int8): mode ``qa`` quantizes the hidden per token
     and multiplies in integers; mode ``q`` widens the int8 weight to the
-    hidden's dtype. Either keeps the logits fp32."""
+    hidden's dtype. Either keeps the logits fp32. The unquantized head is
+    differentiable (the training loss goes through it)."""
     head = lm.lm_head
     h2 = hidden.reshape(-1, hidden.shape[-1])
     if isinstance(head, QuantLinear):
@@ -439,5 +453,174 @@ def lm_head(lm: Qwen2MoTForCausalLM, hidden: torch.Tensor) -> torch.Tensor:
     w = head.weight
     if hidden.dtype != torch.float32 and not hidden.is_cuda:
         raise ValueError("low-precision lm_head runs on CUDA tensors only")
-    logits = quant.mm_f32(h2, w.to(hidden.dtype))
+    logits = _MatmulF32Out.apply(h2, w.to(hidden.dtype))
     return logits.reshape(*hidden.shape[:-1], w.shape[0])
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """``quant.mm_f32`` (x [m, K] @ w [N, K]^T, fp32 sums and output) under
+    autograd, for the training loss: the cotangent is fp32 [m, N] and is
+    rounded to the operands' dtype for the two backward products, as a
+    low-precision linear's backward rounds it."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return quant.mm_f32(x2, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x2, w = ctx.saved_tensors
+        g = grad.to(x2.dtype)
+        dx = g @ w if ctx.needs_input_grad[0] else None
+        dw = g.t() @ x2 if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+# ---------------------------------------------------------------------------
+# training forward (packed flat sequence, index-routed MoT)
+# ---------------------------------------------------------------------------
+
+def _route(
+    x: torch.Tensor,
+    und_idx: torch.Tensor,
+    gen_idx: torch.Tensor,
+    und_fn,
+    gen_fn,
+    out_shape_tail: Tuple[int, ...],
+    freeze_und: bool = False,
+) -> torch.Tensor:
+    """Index-routed dual-expert application over a packed [T, ...] sequence
+    (the reference's boolean-index writes, qwen2_navit.py:435-446, 820-835):
+    ``und_fn`` on the rows ``und_idx``, ``gen_fn`` on the rows ``gen_idx``,
+    written back to packed order; rows in neither set (trailing padding) are
+    zero. The index arrays are int64 and hold no padding slot. With
+    ``freeze_und`` the understanding rows carry no gradient."""
+    yu = und_fn(x.index_select(0, und_idx))
+    if freeze_und:
+        yu = yu.detach()
+    yg = gen_fn(x.index_select(0, gen_idx))
+    out = torch.zeros((x.shape[0], *out_shape_tail), dtype=yg.dtype, device=x.device)
+    out.index_copy_(0, und_idx, yu.to(yg.dtype))
+    out.index_copy_(0, gen_idx, yg)
+    return out
+
+
+def make_train_layer_body(
+    cfg: LLMConfig,
+    position_ids: torch.Tensor,  # [T]
+    mask: Optional[torch.Tensor],  # [T, T] bool; unused when ``segments`` is given
+    und_idx: torch.Tensor,
+    gen_idx: torch.Tensor,
+    segments=None,
+):
+    """The per-layer training body ``body(x, layer) -> x`` closed over one
+    packed sequence's routing and mask state; ``layer`` is a
+    ``Qwen2MoTDecoderLayer``."""
+    T = position_ids.shape[0]
+    C = cfg.hidden_size
+    H, Hk, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    fz = cfg.freeze_und
+    cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
+    if segments is None and mask is None:
+        raise ValueError("the training forward needs the segment ids or a dense mask")
+
+    def route(x, und_fn, gen_fn, tail, freeze=False):
+        return _route(x, und_idx, gen_idx, und_fn, gen_fn, tail, freeze)
+
+    def body(x, layer):
+        ap = layer.self_attn
+        residual = x
+        if cfg.mot_attention:
+            h = route(x, layer.input_layernorm, layer.input_layernorm_moe_gen, (C,))
+            q = route(h, ap.q_proj, ap.q_proj_moe_gen, (H * D,))
+            k = route(h, ap.k_proj, ap.k_proj_moe_gen, (Hk * D,))
+            v = route(h, ap.v_proj, ap.v_proj_moe_gen, (Hk * D,), freeze=fz)
+        else:
+            h = layer.input_layernorm(x)
+            q, k, v = ap.q_proj(h), ap.k_proj(h), ap.v_proj(h)
+        q = q.reshape(T, H, D)
+        k = k.reshape(T, Hk, D)
+        v = v.reshape(T, Hk, D)
+        if cfg.qk_norm:
+            if cfg.mot_attention:
+                q = route(q, ap.q_norm, ap.q_norm_moe_gen, (H, D), freeze=fz)
+                k = route(k, ap.k_norm, ap.k_norm_moe_gen, (Hk, D), freeze=fz)
+            else:
+                q, k = ap.q_norm(q), ap.k_norm(k)
+        q, k = apply_rope(q, k, cos, sin)
+        if segments is not None:
+            o = packed_train_attention(q, k, v, *segments).reshape(T, H * D)
+        else:
+            o = gqa_attention(q[None], k[None], v[None], mask[None])[0].reshape(T, H * D)
+        if cfg.mot_attention:
+            o = route(o, ap.o_proj, ap.o_proj_moe_gen, (C,), freeze=fz)
+        else:
+            o = ap.o_proj(o)
+        x = residual + o
+
+        residual = x
+        if cfg.mot_attention:
+            h = route(
+                x, lambda t: layer.mlp(layer.post_attention_layernorm(t)),
+                lambda t: layer.mlp_moe_gen(layer.post_attention_layernorm_moe_gen(t)),
+                (C,), freeze=fz,
+            )
+        elif cfg.use_moe:  # one post norm, routed MLP (qwen2_navit.py:946-955)
+            h = route(layer.post_attention_layernorm(x), layer.mlp, layer.mlp_moe_gen, (C,),
+                      freeze=fz)
+        else:
+            h = layer.mlp(layer.post_attention_layernorm(x))
+        return residual + h
+
+    return body
+
+
+def forward_train(
+    model: Qwen2MoTModel,
+    packed_x: torch.Tensor,  # [T, C] embedded packed sequence
+    position_ids: torch.Tensor,  # [T]
+    mask: Optional[torch.Tensor],  # [T, T] bool (ops.blockmask.dense_packed_mask) or None
+    und_idx: torch.Tensor,  # [Nu] int64, real tokens only
+    gen_idx: torch.Tensor,  # [Ng] int64, real tokens only
+    segments=None,  # (doc_id, fn_id, noise_id) [T] int tensors
+    feature_layer: Optional[int] = None,
+):
+    """Packed training forward (reference Qwen2Model.forward_train,
+    qwen2_navit.py:1051-1113). Returns the final dual-normed hidden [T, C];
+    with ``feature_layer`` set, (hidden, the hidden after that layer): the
+    diffusion_feature_layer tap (qwen2_navit.py:1083-1097).
+
+    With ``segments`` every layer's attention goes through
+    ``packed_train_attention`` (the kernels on the card, the dense plain
+    version on the CPU) and ``mask`` may be None; without, through the dense
+    ``mask``. ``cfg.remat`` recomputes each layer in the backward pass
+    (non-reentrant checkpointing), so one layer's activations are live at a
+    time and the layer's forward, its attention kernel included, runs twice."""
+    cfg = model.cfg
+    body = make_train_layer_body(cfg, position_ids, mask, und_idx, gen_idx, segments=segments)
+    if cfg.freeze_und:
+        packed_x = packed_x.index_copy(0, und_idx, packed_x.index_select(0, und_idx).detach())
+    remat = cfg.remat and torch.is_grad_enabled()
+    h, features = packed_x, None
+    for i, layer in enumerate(model.layers):
+        if remat:
+            h = checkpoint(body, h, layer, use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = body(h, layer)
+        if feature_layer is not None and i == feature_layer % len(model.layers):
+            features = h
+    h = final_norm(model, h, und_idx, gen_idx)
+    if feature_layer is not None:
+        return h, features
+    return h
+
+
+def final_norm(model: Qwen2MoTModel, h: torch.Tensor, und_idx, gen_idx) -> torch.Tensor:
+    """Final RMS norm after the layer stack, per expert under ``use_moe``
+    (reference qwen2_navit.py:1106-1113)."""
+    cfg = model.cfg
+    if cfg.use_moe:
+        return _route(h, und_idx, gen_idx, model.norm, model.norm_moe_gen, (h.shape[-1],),
+                      freeze_und=cfg.freeze_und)
+    return model.norm(h)

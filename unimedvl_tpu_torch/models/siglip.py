@@ -8,7 +8,10 @@ is held in its converted linear form [C, p*p*3].
 Attention goes through K1a (ops/flash_attention.py) at every token count: the
 padding is trailing, so the mask is ``key < valid_len`` with the block region
 disabled by ``block_start = T``. Padded rows of the output are garbage;
-callers mask them.
+callers mask them. K1a has no backward kernel, so a caller that trains the
+ViT asks for ``dense_attention=True``: plain masked attention
+(``ops.attention.gqa_attention`` with the padding mask, as the JAX package
+differentiates its ViT), which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from torch import nn
 from unimedvl_tpu_torch.config import ViTConfig
 from unimedvl_tpu_torch.models.layers import LayerNorm, embedding, linear
 from unimedvl_tpu_torch.ops.activations import ACT2FN
+from unimedvl_tpu_torch.ops.attention import gqa_attention, padding_mask
 from unimedvl_tpu_torch.ops.flash_attention import flash_block_attention
 
 
@@ -53,8 +57,11 @@ class SiglipEncoderLayer(nn.Module):
         self.layer_norm2 = LayerNorm(C, eps, device, dtype)
         self.mlp = SiglipMLP(cfg, device, dtype)
 
-    def forward(self, x: torch.Tensor, valid_lens: torch.Tensor) -> torch.Tensor:
-        """x: [N, T, C]; valid_lens: [N] count of leading valid tokens."""
+    def forward(self, x: torch.Tensor, valid_lens: torch.Tensor,
+                dense_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: [N, T, C]; valid_lens: [N] count of leading valid tokens;
+        ``dense_mask``: bool [N, T, T], given when the caller wants plain
+        differentiable attention instead of K1a."""
         N, T, C = x.shape
         H, D = self.cfg.num_attention_heads, self.cfg.head_dim
         attn = self.self_attn
@@ -62,7 +69,10 @@ class SiglipEncoderLayer(nn.Module):
         q = attn.q_proj(h).view(N, T, H, D)
         k = attn.k_proj(h).view(N, T, H, D)
         v = attn.v_proj(h).view(N, T, H, D)
-        o = flash_block_attention(q, k, v, valid_lens, T, causal=False)
+        if dense_mask is None:
+            o = flash_block_attention(q, k, v, valid_lens, T, causal=False)
+        else:
+            o = gqa_attention(q, k, v, dense_mask)
         x = x + attn.out_proj(o.reshape(N, T, C))
         h = self.mlp.fc2(ACT2FN[self.cfg.hidden_act](self.mlp.fc1(self.layer_norm2(x))))
         return x + h
@@ -103,9 +113,12 @@ class SiglipVisionTransformer(nn.Module):
         patch_tokens: torch.Tensor,
         position_ids: torch.Tensor,
         valid: Optional[torch.Tensor] = None,
+        dense_attention: bool = False,
     ) -> torch.Tensor:
         """patch_tokens [N, T, p*p*3], position_ids [N, T] flattened raster ids,
-        valid bool [N, T] (None = all valid). Returns [N, T, hidden]."""
+        valid bool [N, T] (None = all valid). Returns [N, T, hidden].
+        ``dense_attention``: plain masked attention that autograd
+        differentiates (a trainable ViT) instead of K1a."""
         N, T, _ = patch_tokens.shape
         x = self.embeddings.patch_embedding(patch_tokens)
         x = x + self.embeddings.position_embedding(position_ids).to(x.dtype)
@@ -113,8 +126,13 @@ class SiglipVisionTransformer(nn.Module):
             valid_lens = torch.full((N,), T, dtype=torch.int32, device=x.device)
         else:  # trailing-padding contract: the valid count is the prefix length
             valid_lens = valid.sum(dim=1, dtype=torch.int32)
+        dense_mask = None
+        if dense_attention:
+            if valid is None:
+                valid = torch.ones((N, T), dtype=torch.bool, device=x.device)
+            dense_mask = padding_mask(valid, valid)
         for layer in self.encoder.layers:
-            x = layer(x, valid_lens)
+            x = layer(x, valid_lens, dense_mask)
         return self.post_layernorm(x)
 
 

@@ -25,6 +25,21 @@ def per_stream(x, S: int, device: torch.device) -> torch.Tensor:
     return t.contiguous()
 
 
+def check_no_grad(kernel: str, names: Sequence[str], tensors: Sequence[torch.Tensor]) -> None:
+    """A kernel without a backward must not sit in an autograd graph: its
+    output has no ``grad_fn``, so the inputs' gradients would silently come out
+    as zero. Raises when grad mode is on and an input requires grad."""
+    if not torch.is_grad_enabled():
+        return
+    wanting = [n for n, t in zip(names, tensors) if t.requires_grad]
+    if wanting:
+        raise RuntimeError(
+            f"{kernel} has no backward kernel, but {', '.join(wanting)} require grad: call it "
+            "under torch.no_grad(), or take a differentiable route (training attention: "
+            "ops.flash_attention_train.packed_train_attention; the ViT: dense_attention=True)"
+        )
+
+
 def check_cuda(names: Sequence[str], tensors: Sequence[torch.Tensor],
                dtype: torch.dtype) -> None:
     """Every tensor on the first one's CUDA device, of ``dtype``, with a

@@ -48,6 +48,15 @@ _SIGNATURES = {
     ),
     "unimedvl_silu_mul_quant": [_P] * 4 + [_I] * 2 + [_L] * 2 + [_P],
     "unimedvl_w4_matmul": [_P] * 5 + [_I] * 5 + [_P],
+    "unimedvl_packed_train_attention_fwd": (
+        [_P] * 8 + [_I] * 4 + [_L] * 3 + [ctypes.c_float, _P]
+    ),
+    "unimedvl_packed_train_attention_bwd_dq": (
+        [_P] * 10 + [_I] * 4 + [_L] * 4 + [ctypes.c_float, _P]
+    ),
+    "unimedvl_packed_train_attention_bwd_dkv": (
+        [_P] * 11 + [_I] * 4 + [_L] * 4 + [ctypes.c_float, _P]
+    ),
 }
 
 

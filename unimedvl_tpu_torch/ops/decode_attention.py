@@ -138,12 +138,15 @@ def decode_attention(
     may be scalars or [S]. An int8 cache comes with ``k_scale`` and
     ``v_scale`` [S, Hk, M] fp32. CUDA tensors go through the kernel (bf16 q;
     a bf16 or int8 cache; head dim 128, at most 8 query heads per kv head;
-    anything else raises), CPU tensors through :func:`decode_attention_ref`."""
+    anything else raises), CPU tensors through :func:`decode_attention_ref`.
+    The kernel has no backward: CUDA inputs that require grad, with grad mode
+    on, raise."""
     _check_scales(k, v, k_scale, v_scale)
     S, T = q.shape[:2]
     if T != 1:
         raise ValueError(f"decode_attention takes one query token per stream, got {T}")
     if q.device.type == "cuda":
+        _launch.check_no_grad("decode_attention", ("q", "k", "v"), (q, k, v))
         return _launch_kernel(
             q, k, v,
             _launch.per_stream(lens, S, q.device),

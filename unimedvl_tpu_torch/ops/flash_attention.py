@@ -14,6 +14,8 @@ Visibility, per stream s: key j is visible iff ``j < lens[s]`` or
 
 ``flash_block_attention`` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; there is no size threshold and no fallback.
+The kernel has no backward: on CUDA tensors that require grad, with grad mode
+on, the call raises instead of returning an output cut off from the graph.
 """
 
 from __future__ import annotations
@@ -193,6 +195,7 @@ def flash_block_attention(
             "return_lse is kernel K1c (sequence-parallel denoise, ROADMAP slice M13)"
         )
     if q.device.type == "cuda":
+        _launch.check_no_grad("flash_block_attention", ("q", "k", "v"), (q, k, v))
         S, T = q.shape[:2]
         return _launch_kernel(
             q, k, v, _launch.per_stream(lens, S, q.device),

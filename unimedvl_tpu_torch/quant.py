@@ -196,6 +196,11 @@ def quantize_llm_params(lm, act_quant: bool = False, bits: int = 8, group_size: 
             for key in QUANT_KEYS:
                 for sfx in EXPERTS:
                     lin = getattr(parent, key + sfx, None)
+                    if hasattr(lin, "lora_a"):
+                        raise NotImplementedError(
+                            f"{key + sfx} carries a LoRA adapter: adapters over a quantized "
+                            "base (QLoRA) are not ported (ROADMAP, what remains of M8); "
+                            "training.lora.merge_lora first")
                     if isinstance(lin, nn.Linear):
                         setattr(parent, key + sfx,
                                 _quantize_module(lin, bits, act_quant, group_size))
@@ -209,6 +214,9 @@ def _concat_linears(parts):
     from unimedvl_tpu_torch.models.layers import QuantLinear, linear_from_tensors
 
     first = parts[0]
+    if any(hasattr(p, "lora_a") for p in parts):
+        raise ValueError("cannot fuse projections that carry LoRA adapters: "
+                         "training.lora.merge_lora first")
     biases = None
     if any(p.bias is not None for p in parts):
         ref = next(p.bias for p in parts if p.bias is not None)

@@ -14,7 +14,9 @@ takes the JAX package's quantized and fused trees too
 (``quant.quantize_llm_params``, ``quant.fuse_serving_projections``): every leaf
 form (``kernel_q``, ``kernel_qa``, ``kernel_p4``, ``kernel_p4a``; per-channel
 and [G, N] scales; fused ``qkv``, ``qkv_gen``, ``gate_up``) becomes the port's
-``QuantLinear`` with the same integers and scales. JAX leaves are [in, out],
+``QuantLinear`` with the same integers and scales, and its LoRA adapter leaves
+(``lora_a`` [L, in, r], ``lora_b`` [L, r, out], ``lora_s`` [L]) become
+``LoRALinear``s per layer. JAX leaves are [in, out],
 packed along in; the port's are [out, in], packed along in: one transposition
 here, of bytes, which leaves each byte's two nibbles as they were.
 
@@ -38,13 +40,14 @@ import torch
 from unimedvl_tpu_torch import quant
 from unimedvl_tpu_torch.config import BagelConfig, VAEConfig
 from unimedvl_tpu_torch.models.bagel import Bagel
-from unimedvl_tpu_torch.models.layers import QuantLinear
+from unimedvl_tpu_torch.models.layers import LoRALinear, QuantLinear
 from unimedvl_tpu_torch.models.vae import AutoEncoder
 
 _VAE = "vae_model."
 
 
-_QUANT_SUFFIXES = (".weight_q", ".scale")  # QuantLinear buffers keep their own dtypes
+# QuantLinear buffers and the adapters' fp32 scale keep their own dtypes
+_KEEP_DTYPE_SUFFIXES = (".weight_q", ".scale", ".lora_s")
 
 
 def _build(state: Dict[str, torch.Tensor], cfg: BagelConfig, device, dtype,
@@ -59,9 +62,14 @@ def _build(state: Dict[str, torch.Tensor], cfg: BagelConfig, device, dtype,
     for path, mode in (quant_modes or {}).items():
         model.set_submodule(path, QuantLinear(
             mode, state[path + ".weight_q"], state[path + ".scale"], state.get(path + ".bias")))
+    for key in [k for k in state if k.endswith(".lora_a")]:
+        path = key[: -len(".lora_a")]
+        model.set_submodule(path, LoRALinear(
+            model.get_submodule(path), state[key], state[path + ".lora_b"],
+            float(state[path + ".lora_s"])))
 
     def placed(k, v):
-        if k.endswith(_QUANT_SUFFIXES):
+        if k.endswith(_KEEP_DTYPE_SUFFIXES):
             return v.to(device=device)
         return v.to(device=device, dtype=torch.float32 if k.startswith(_VAE) else dtype)
 
@@ -90,12 +98,18 @@ def _lin(sd, name, p, i=None, quant_modes=None):
         if key is None:
             raise KeyError(f"{name}: no kernel leaf in {sorted(p)}")
         if "lora_a" in p:
-            raise NotImplementedError(f"{name}: LoRA over a quantized base is ROADMAP slice M12")
+            raise NotImplementedError(
+                f"{name}: LoRA over a quantized base (QLoRA) is not ported: ROADMAP, what "
+                "remains of M8")
         sd[name + ".weight_q"] = np.ascontiguousarray(pick(np.asarray(p[key])).T)
         sd[name + ".scale"] = np.ascontiguousarray(pick(np.asarray(p["scale"])))
         quant_modes[name] = _JAX_QUANT_LEAVES[key]
     if "bias" in p:
         sd[name + ".bias"] = pick(np.asarray(p["bias"]))
+    if "lora_a" in p:  # adapter leaves [in, r], [r, out] -> [r, in], [out, r]; lora_s per layer
+        sd[name + ".lora_a"] = np.ascontiguousarray(pick(np.asarray(p["lora_a"])).T)
+        sd[name + ".lora_b"] = np.ascontiguousarray(pick(np.asarray(p["lora_b"])).T)
+        sd[name + ".lora_s"] = np.asarray(pick(np.asarray(p["lora_s"])), np.float32)
 
 
 def _vae_state_dict(sd, vae: Dict, cfg: VAEConfig, prefix: str = "") -> None:
@@ -223,11 +237,14 @@ def _to_torch(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy
 
 
-def from_jax_params(tree: Dict, cfg: BagelConfig, device="cpu",
+def from_jax_params(tree: Dict, cfg: BagelConfig, device="cuda",
                     dtype: torch.dtype = torch.float32) -> Bagel:
     """A Bagel holding the JAX tree's weights (numpy leaves, e.g.
     ``jax.tree.map(np.asarray, bagel.init_params(...))``), bf16 or quantized,
-    fused or not, as the tree is."""
+    fused or not, with or without LoRA adapters, as the tree is. Like the
+    other loaders it places the model on the card unless the caller names
+    another device, and raises when there is none."""
+    device = _target_device(device)
     quant_modes: Dict[str, str] = {}
     sd = jax_tree_to_state_dict(tree, cfg, quant_modes)
     fused = any(".qkv_proj." in k for k in sd)
