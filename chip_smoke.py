@@ -18,6 +18,11 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   ``Prefetcher``; then full fine-tune steps (gradient accumulation 2, EMA)
   at the full width with the depth cut to what one card holds, and once more
   with the understanding expert frozen;
+- the sequence-parallel denoise path: the same two generation requests
+  through an inferencer with ``sp_mesh``, a ("model", "seq") mesh of 1 x 1
+  (one card holds one rank; on a one-rank NCCL group where NCCL starts, so
+  that the collective calls really run), every layer's attention as a cache
+  partial and a block partial (K1c twice) merged by their log-sum-exps;
 
 and checks that every kernel call of each path went through the kernels, and
 that each path's output agrees with the same computation on the kernels'
@@ -37,19 +42,21 @@ function, that call's time.
 from __future__ import annotations
 
 import copy
+import datetime
 import gc
 import itertools
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from unimedvl_tpu_torch.config import BagelConfig, LLMConfig, TransformConfig, VAEConfig, ViTConfig
-from unimedvl_tpu_torch.data.tokenizer import add_special_tokens
+from unimedvl_tpu_torch.data.tokenizer import ByteTokenizer, add_special_tokens
 from unimedvl_tpu_torch import quant
 from unimedvl_tpu_torch.inference import InterleaveInferencer
 from unimedvl_tpu_torch.models import bagel, qwen2_mot, siglip
@@ -59,8 +66,11 @@ from unimedvl_tpu_torch.ops import decode_attention as dec
 from unimedvl_tpu_torch.ops import flash_attention as fa
 from unimedvl_tpu_torch.ops import flash_attention_train as fat
 from unimedvl_tpu_torch.ops import w4_matmul as w4
+from unimedvl_tpu_torch.ops.attention import combine_attention_partials
 from unimedvl_tpu_torch.ops.blockmask import dense_packed_mask, packed_segment_ids
 from unimedvl_tpu_torch.ops.rope import rope_cos_sin
+from unimedvl_tpu_torch.parallel import mesh as pmesh
+from unimedvl_tpu_torch.parallel import sp_denoise
 from unimedvl_tpu_torch.training import dataset, lora, trainer
 
 SEED = 0
@@ -75,6 +85,10 @@ MEAN_ABS_TOL = 2e-3
 # a chat request, first-step post-CFG velocity of a generation request
 LOGITS_COS_TOL = 0.999
 VELOCITY_COS_TOL = 0.999
+# K1c's log-sum-exp against the plain version's: absolute, where that is finite;
+# where it is float32 min (a row that sees nothing) the kernel's must equal it
+LSE_ATOL = 1e-3
+NEG_INF = float(torch.finfo(torch.float32).min)
 REQUESTS = [  # (height, width, prompt): already at stride-14 sizes
     (980, 980, "What abnormality is visible in this chest radiograph?"),
     (378, 532, "Which organ is shown, and is the finding benign?"),
@@ -91,30 +105,6 @@ HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 GEN_PROMPT = "A chest radiograph with a small left pleural effusion."
 EDIT_PROMPT = "Make the opacity in the right lower lobe more visible."
-
-
-class ByteTokenizer:
-    """Byte-level tokenizer: ids 0-255 are bytes, special tokens from 256 up.
-    Other ids decode as ``<id>``."""
-
-    def __init__(self):
-        self.specials = {}
-        self.special_tokens_map = {}
-
-    def add_tokens(self, tokens):
-        for t in tokens:
-            self.specials.setdefault(t, 256 + len(self.specials))
-        return len(tokens)
-
-    def convert_tokens_to_ids(self, tok):
-        return self.specials[tok]
-
-    def encode(self, text):
-        return list(text.encode("utf-8"))
-
-    def decode(self, ids):
-        inv = {v: k for k, v in self.specials.items()}
-        return "".join(inv.get(i, chr(i) if i < 128 else f"<{i}>") for i in ids)
 
 
 def cuda_ms(fn, warmup: int = 2, iters: int = 7, reps: int = 1) -> float:
@@ -157,17 +147,21 @@ def bound(n_bytes: float, n_ops: float, op_type: str) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_bound(q_rows, keys, H, Hk, D, kv_bytes: int, op_type: str, scales=False) -> dict:
+def attention_bound(q_rows, keys, H, Hk, D, kv_bytes: int, op_type: str, scales=False,
+                    pairs=None, extra_bytes: float = 0.0) -> dict:
     """Bound of an attention call from this run's data: ``q_rows`` and
     ``keys`` are per-stream sequences of valid query rows and of the keys they
-    see (rows x keys visible pairs for a non-causal block). q and out are
-    bf16; k and v rows of ``kv_bytes`` per element, read once per kv head."""
-    n_bytes = n_ops = 0.0
-    for rows, kv in zip(q_rows, keys):
+    see; ``pairs`` the visible (row, key) pairs per stream (rows x keys unless
+    given: a causal block sees fewer). q and out are bf16; k and v rows of
+    ``kv_bytes`` per element, read once per kv head; ``extra_bytes`` for a
+    further output (the log-sum-exp)."""
+    n_bytes, n_ops = float(extra_bytes), 0.0
+    pairs = [r * kv for r, kv in zip(q_rows, keys)] if pairs is None else pairs
+    for rows, kv, n_pairs in zip(q_rows, keys, pairs):
         n_bytes += 2 * rows * H * D * 2 + 2 * kv * Hk * D * kv_bytes
         if scales:
             n_bytes += 2 * kv * Hk * 4
-        n_ops += 4.0 * H * D * rows * kv
+        n_ops += 4.0 * H * D * n_pairs
     return bound(n_bytes, n_ops, op_type)
 
 
@@ -319,6 +313,8 @@ def check_kernels() -> dict:
         "flash_block_attention_q_preproc": summary(results["q_preproc"], denoise),
         "decode_attention": summary(results["decode_attention"], step),
     }
+    timings["flash_block_attention_lse"] = check_return_lse(randn, ints)
+    timings["flash_cache_block_attention"] = check_cache_block(randn, ints)
     timings["decode_attention_int8"] = check_decode_int8(g, randn, ints)
     timings["silu_mul_quant"] = check_silu_mul_quant(randn)
     timings["w4_matmul"] = check_w4_matmul(g, randn)
@@ -332,6 +328,221 @@ def _rand_int8(g, *shape, lo=-127, hi=128):
 def _line(name, err, ms, plain_ms, b, extra=""):
     print(f"  {name}: {err}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{b['bound_ms']:.4f} ms by {b['bound_by']}{extra}", flush=True)
+
+
+def _island(g, S, rows=1, end_row=None, position=41) -> dict:
+    """Options of one qk-norm + RoPE island: random norm weights, tables of
+    ``rows`` rows per stream (1: the whole block at one rope position)."""
+    pos = torch.full((S, rows), position, device="cuda")
+    if rows > 1:
+        pos = pos + torch.arange(rows, device="cuda")
+    cos, sin = rope_cos_sin(pos, 128, 1e6)
+    w = [(1 + 0.1 * torch.randn(128, generator=g, device="cuda")).to(torch.bfloat16)
+         for _ in range(2)]
+    return dict(w_und=w[0], w_gen=w[1], cos=cos, sin=sin, end_row=end_row, eps=1e-6)
+
+
+def check_return_lse(randn, ints) -> dict:
+    """K1c at the sequence-parallel denoise's shapes, with ``q_preproc`` and
+    one rope row per block: the cache partial (``block_start = lens``, no
+    block keys) over the text-to-image and the edit caches, the block partial
+    (``lens = block_start = Tblk`` over exactly Tblk keys, read through the
+    strides of a [S, Tblk, Hk, D] block), on the 1 x 1 mesh (H 28 / Hk 4,
+    T 1026) and at the local shapes of a TP2 x SP4 rank (H 14 / Hk 2, T 258,
+    1026 gathered keys). Then the two kernel partials, merged, against K1b's
+    plain version over the concatenation. SDPA, the library call beside it,
+    returns no log-sum-exp and is given the pre-processed q."""
+    print(f"K1c return_lse (output as the attention tolerance; lse within {LSE_ATOL} of the "
+          "plain version's where that is finite, equal to it where it is float32 min):",
+          flush=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    Tblk = 1026
+    cases = [
+        # (name, S, T, H, Hk, cache capacity or None (block partial), lens)
+        ("cache partial, text-to-image, lens (56, 0, 56)", 3, 1026, 28, 4, 512, (56, 0, 56)),
+        ("cache partial, text-to-image, 1 stream", 1, 1026, 28, 4, 512, (56,)),
+        ("cache partial, edit, lens (2453, 2397, 56)", 3, 1026, 28, 4, 2560, (2453, 2397, 56)),
+        ("cache partial, edit, 1 stream", 1, 1026, 28, 4, 2560, (2453,)),
+        ("block partial, 3 streams over 1026 keys", 3, 1026, 28, 4, None, None),
+        ("block partial, 1 stream", 1, 1026, 28, 4, None, None),
+        ("TP2 x SP4 rank, cache partial, lens (56, 0, 56)", 3, 258, 14, 2, 512, (56, 0, 56)),
+        ("TP2 x SP4 rank, block partial over 1026 gathered keys", 3, 258, 14, 2, None, None),
+    ]
+    rows, kept = [], {}
+    for name, S, T, H, Hk, cap, lens in cases:
+        q = randn(S, T, H, 128, scale=2.0)
+        qp = _island(g, S)
+        if cap is None:  # the gathered block, as the path hands it over: a transposed view
+            k, v = randn(S, Tblk, Hk, 128).transpose(1, 2), randn(S, Tblk, Hk, 128).transpose(1, 2)
+            ln, keys = Tblk, [Tblk] * S
+        else:
+            k, v = randn(S, Hk, cap, 128), randn(S, Hk, cap, 128)
+            ln, keys = ints(*lens), list(lens)
+        kw = dict(q_valid_len=0, kv_head_major=True, q_preproc=qp, return_lse=True)
+
+        def kernel():
+            return fa.flash_block_attention(q, k, v, ln, ln, False, **kw)
+
+        def plain():
+            return fa.flash_block_attention_ref(q, k, v, ln, ln, False, **kw)
+
+        r = _compare(f"K1c {name}: S={S} T={T} H={H} M={k.shape[2]}", lambda: kernel()[0],
+                     lambda: plain()[0], T, back_to_back=False)
+        got, want = kernel()[1], plain()[1]
+        empty = want == NEG_INF
+        lse_err = (got - want).abs()[~empty].max().item() if (~empty).any() else 0.0
+        ok = (torch.equal(got[empty], want[empty]) and bool(torch.isfinite(got).all())
+              and lse_err <= LSE_ATOL)
+        print(f"    lse: max abs err {lse_err:.3e} over the rows that see keys; "
+              f"{int(empty.sum())} of {empty.numel()} rows see none and hold float32 min in "
+              f"both: {torch.equal(got[empty], want[empty])}", flush=True)
+        if not ok or got.shape != (S, T, H) or got.dtype != torch.float32:
+            raise SystemExit(f"chip_smoke: K1c {name}: the log-sum-exp disagrees")
+        r["max_abs_err_lse"] = lse_err
+        r.update(attention_bound([T] * S, keys, H, Hk, 128, 2, "bf16",
+                                 extra_bytes=S * T * H * 4))
+        r["library_ms"] = None
+        if S == 3 and H == 28:  # SDPA on the same mask, q pre-processed beforehand
+            M = k.shape[2]
+            mask = (torch.arange(M, device="cuda")[None, None]
+                    < (ints(*keys))[:, None, None]).expand(S, T, M)
+            r["library_ms"] = sdpa_ms(fa.preprocess_q(q, qp), k, v, mask)
+        print(f"    bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
+              + ("" if r["library_ms"] is None else
+                 f"; SDPA on the same mask (no lse; q pre-processed outside) "
+                 f"{r['library_ms']:.3f} ms"), flush=True)
+        rows.append(r)
+        kept[name] = (q, k, v, ln, qp, r)
+    # merge of the two kernel partials against K1b's plain version over the concatenation
+    q, kc, vc, ln, qp, _ = kept[cases[0][0]]
+    _, kb, vb, _, _, _ = kept[cases[4][0]]
+    kw = dict(q_valid_len=0, kv_head_major=True, q_preproc=qp, return_lse=True)
+
+    def merged():
+        part_c = fa.flash_block_attention(q, kc, vc, ln, ln, False, **kw)
+        part_b = fa.flash_block_attention(q, kb, vb, Tblk, Tblk, False, **kw)
+        return combine_attention_partials([part_c, part_b])
+
+    k_cat, v_cat = torch.cat([kc, kb], dim=2), torch.cat([vc, vb], dim=2)
+    M0 = kc.shape[2]
+    _compare("K1c cache + block partials merged vs K1b's plain version over the concatenation",
+             merged, lambda: fa.flash_block_attention_ref(
+                 q, k_cat, v_cat, ln, M0, False, None, True, q_preproc=qp), 1026,
+             back_to_back=False)
+    k1b = cuda_ms(lambda: fa.flash_block_attention(q, k_cat, v_cat, ln, M0, False, None, True,
+                                                   q_preproc=qp))
+    print(f"    beside it: one K1b call over the ready concatenation {k1b:.3f} ms", flush=True)
+    # the line's row: the block partial of the 3-stream step; the cache partials beside it
+    out = dict(kept[cases[4][0]][5])
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    out["max_abs_err_lse"] = max(r["max_abs_err_lse"] for r in rows)
+    out["cache_partial_t2i_ms"] = kept[cases[0][0]][5]["ms"]
+    out["cache_partial_edit_ms"] = kept[cases[2][0]][5]["ms"]
+    out["library_note"] = "SDPA on the same mask with q pre-processed outside; it returns no lse"
+    return out
+
+
+def check_cache_block(randn, ints) -> dict:
+    """K6 against its plain version: (a) the denoise step that leaves the
+    cache as it is (S 3, T = Tb = 1026 over the edit's cache, q and k islands
+    fused, one rope row per block), timed beside what the port runs there: the
+    k island in torch, the copy of cache and block into one array, one K1b
+    call; (b) a TP2 x SP4 rank's local queries over gathered raw keys
+    (``block_len``, the k island's own end row); (c) a causal text block over a
+    cache of 800, no island; (d) a k island with one table row per block row."""
+    print("K6 flash_cache_block_attention (the attention tolerance):", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    cases = [
+        # (name, S, T, Tb, H, Hk, M, lens, causal, q island, k island rows (0: none), k end row,
+        #  block_len)
+        ("(a) denoise without cache update, edit cache", 3, 1026, 1026, 28, 4, 2560,
+         (2453, 2397, 56), False, True, 1, None, None),
+        ("(b) TP2 x SP4 rank, gathered raw keys", 3, 258, 1026, 14, 2, 512, (56, 0, 56), False,
+         True, 1, 1025, 1026),
+        ("(c) causal text block over a cache of 800", 1, 64, 64, 28, 4, 1024, (800,), True,
+         False, 0, None, None),
+        ("(d) k tables with a row per block row", 2, 130, 130, 28, 4, 512, (100, 37), False,
+         True, 130, None, None),
+    ]
+    rows = []
+    for name, S, T, Tb, H, Hk, M, lens, causal, q_pre, k_rows, k_end, block_len in cases:
+        q = randn(S, T, H, 128, scale=2.0)
+        kc, vc = randn(S, Hk, M, 128), randn(S, Hk, M, 128)
+        kb, vb = randn(S, Tb, Hk, 128, scale=2.0 if k_rows else 1.0), randn(S, Tb, Hk, 128)
+        ln = ints(*lens)
+        qp = _island(g, S) if q_pre else None
+        kvp = None
+        if k_rows:
+            kvp = _island(g, S, k_rows, k_end)
+            if k_rows == 1:  # the defaults: q's tables
+                del kvp["cos"], kvp["sin"]
+            if k_end is None:
+                del kvp["end_row"]
+        kw = dict(q_preproc=qp, kv_preproc=kvp, block_len=block_len, cache_head_major=True)
+        r = _compare(
+            f"K6 {name}: S={S} T={T} Tb={Tb} H={H} M={M}",
+            lambda: fa.flash_cache_block_attention(q, kc, vc, kb, vb, ln, causal, **kw),
+            lambda: fa.flash_cache_block_attention_ref(q, kc, vc, kb, vb, ln, causal, **kw), T,
+            back_to_back=False)
+        blk = Tb if block_len is None else block_len
+        # q and out once, the visible cache keys and the block once per kv head; a causal
+        # block shows row i its first i + 1 keys
+        pairs = [T * n + (T * (T + 1) // 2 if causal else T * blk) for n in lens]
+        r.update(attention_bound([T] * S, [n + blk for n in lens], H, Hk, 128, 2, "bf16",
+                                 pairs=pairs))
+        r["library_ms"] = None
+        print(f"    bound {r['bound_ms']:.4f} ms by {r['bound_by']}", flush=True)
+        if name.startswith("(a)"):
+            full = dict(qp, **kvp)
+
+            def k_island():
+                return fa.preprocess_q(kb, full)
+
+            def concat(kp):
+                return (torch.cat([kc, kp.transpose(1, 2)], dim=2),
+                        torch.cat([vc, vb.transpose(1, 2)], dim=2))
+
+            kp = k_island()
+            k_cat, v_cat = concat(kp)
+
+            def k1b():
+                return fa.flash_block_attention(q, k_cat, v_cat, ln, M, False, None, True,
+                                                q_preproc=qp)
+
+            def today():
+                kc2, vc2 = concat(k_island())
+                return fa.flash_block_attention(q, kc2, vc2, ln, M, False, None, True,
+                                                q_preproc=qp)
+
+            def k6_q_only():
+                return fa.flash_cache_block_attention(q, kc, vc, kp, vb, ln, False, q_preproc=qp,
+                                                      cache_head_major=True)
+
+            t = dict(k_island=cuda_ms(k_island), concat=cuda_ms(lambda: concat(kp)),
+                     k1b=cuda_ms(k1b), today=cuda_ms(today), k6_q_only=cuda_ms(k6_q_only))
+            diff = (fa.flash_cache_block_attention(q, kc, vc, kb, vb, ln, False, **kw).float()
+                    - today().float()).abs().max().item()
+            print(f"    beside it, what the no-update denoise runs today: k island in torch "
+                  f"{t['k_island']:.3f} ms + concat copy {t['concat']:.3f} ms + K1b "
+                  f"{t['k1b']:.3f} ms = {t['today']:.3f} ms in one go; K6 with both islands "
+                  f"{r['ms']:.3f} ms; K6 with the q island only (k processed outside, "
+                  f"{t['k_island']:.3f} ms more) {t['k6_q_only']:.3f} ms; max abs difference "
+                  f"K6 vs today's {diff:.3e}", flush=True)
+            mask = (torch.arange(M + Tb, device="cuda")[None, None]
+                    < ln[:, None, None]) | (torch.arange(M + Tb, device="cuda") >= M)
+            r["library_ms"] = sdpa_ms(fa.preprocess_q(q, qp), k_cat, v_cat,
+                                      mask.expand(S, T, M + Tb))
+            r.update(concat_k1b_ms=t["today"], k_island_ms=t["k_island"],
+                     concat_copy_ms=t["concat"], k1b_on_concat_ms=t["k1b"],
+                     q_island_only_ms=t["k6_q_only"],
+                     library_note="SDPA over the ready concatenation, q and k pre-processed "
+                                  "outside")
+            print(f"    SDPA over the ready concatenation (islands and copy outside) "
+                  f"{r['library_ms']:.3f} ms", flush=True)
+        rows.append(r)
+    out = dict(rows[0])
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return out
 
 
 def check_decode_int8(g, randn, ints) -> dict:
@@ -714,9 +925,18 @@ def run_quantized_chat(inf: InterleaveInferencer, logits_bf16: torch.Tensor) -> 
     return total
 
 
+# further numbers a kernel's row of the ``kernels`` line carries, where it has them
+EXTRA_KEYS = (
+    "one_row_ms", "one_row_ms_back_to_back", "tiles_skipped", "max_abs_err_lse",
+    "cache_partial_t2i_ms", "cache_partial_edit_ms", "library_note", "concat_k1b_ms",
+    "k_island_ms", "concat_copy_ms", "k1b_on_concat_ms", "q_island_only_ms", "launches_from",
+)
+
 COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches there)
     "flash_block_attention": (fa.counts, "kernel"),
     "flash_block_attention_q_preproc": (fa.q_preproc_counts, "kernel"),
+    "flash_block_attention_lse": (fa.lse_counts, "kernel"),
+    "flash_cache_block_attention": (fa.cache_block_counts, "kernel"),
     "decode_attention": (dec.counts, "kernel"),
     "decode_attention_int8": (dec.int8_counts, "kernel"),
     "silu_mul_quant": (aq.counts, "kernel"),
@@ -807,9 +1027,36 @@ class StepTimer:
             h.remove()
 
 
+class SPStepTimer:
+    """StepTimer's counterpart for the sequence-parallel denoise, which runs
+    the decoder layers itself: stamps (synchronised) before a step's first
+    layer and after its last."""
+
+    def __init__(self, lm_model):
+        self.steps = []  # (start, end, streams)
+        self._start = None
+        self._last = len(lm_model.layers) - 1
+        self._layer = sp_denoise._sp_decoder_layer
+        sp_denoise._sp_decoder_layer = self._timed
+
+    def _timed(self, x, *args, layer_idx=None, **kw):
+        if layer_idx == 0:
+            torch.cuda.synchronize()
+            self._start = time.perf_counter()
+        out = self._layer(x, *args, layer_idx=layer_idx, **kw)
+        if layer_idx == self._last:
+            torch.cuda.synchronize()
+            self.steps.append((self._start, time.perf_counter(), x.shape[0]))
+        return out
+
+    def remove(self):
+        sp_denoise._sp_decoder_layer = self._layer
+
+
 def _gen_request(inf: InterleaveInferencer, inputs, **kw):
     """One interleave_inference request; returns (image, row of timings)."""
-    timer = StepTimer(inf.model.language_model.model)
+    timer_cls = StepTimer if inf.sp_mesh is None else SPStepTimer
+    timer = timer_cls(inf.model.language_model.model)
     decoded = []
     hook = inf.model.vae_model.decoder.register_forward_hook(
         lambda m, a, out: decoded.append((a[0].detach(), out.detach())))
@@ -850,46 +1097,79 @@ def _edit_image() -> np.ndarray:
     return rng.integers(0, 256, (*GEN_SIZE, 3), dtype=np.uint8)
 
 
-def run_generation(inf: InterleaveInferencer) -> dict:
+def run_generation(inf: InterleaveInferencer):
     """A text-to-image request and an image edit at 512x512 with the
-    recipe's defaults, counters reset just before; returns the launches."""
+    recipe's defaults, counters reset just before. With ``inf.sp_mesh`` the
+    denoise is the sequence-parallel program: two K1c launches per layer and
+    step in place of one K1b. Returns (the launches, each request's timings)."""
+    sp = inf.sp_mesh is not None
     # warm-up edit request (first uses of the shapes, cuDNN set-up), few steps, not counted
     inf.interleave_inference([_edit_image(), EDIT_PROMPT], image_shapes=GEN_SIZE,
                              num_timesteps=3)
     reset_counts()
     requests = [("text-to-image", [GEN_PROMPT]), ("edit", [_edit_image(), EDIT_PROMPT])]
+    rows = {}
     for name, inputs in requests:
-        _, row = _gen_request(inf, inputs)
-        print(f"  request {name} {GEN_SIZE[0]}x{GEN_SIZE[1]}: {json.dumps(row)}", flush=True)
+        _, rows[name] = _gen_request(inf, inputs)
+        print(f"  request {name} {GEN_SIZE[0]}x{GEN_SIZE[1]}: {json.dumps(rows[name])}",
+              flush=True)
     n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
     steps = 49  # num_timesteps 50
-    return check_counts("the generation path", {
-        # text prefills: main and cfg_img context in each request; the edit's ViT image
-        "flash_block_attention": 2 * 2 * n_llm + (n_vit + n_llm),
-        # every denoise step of both requests, and the edit's VAE prefill
-        "flash_block_attention_q_preproc": 2 * steps * n_llm + n_llm,
-        "decode_attention": 0,
-    })
+    denoise = 2 * steps * n_llm  # every denoise step of both requests
+    launches = check_counts(
+        "the sequence-parallel denoise path" if sp else "the generation path", {
+            # text prefills: main and cfg_img context in each request; the edit's ViT image
+            "flash_block_attention": 2 * 2 * n_llm + (n_vit + n_llm),
+            # the edit's VAE prefill, and without sp_mesh every denoise step
+            "flash_block_attention_q_preproc": n_llm + (0 if sp else denoise),
+            # with sp_mesh: a cache partial and a block partial per layer and step
+            "flash_block_attention_lse": 2 * denoise if sp else 0,
+            "decode_attention": 0,
+        })
+    return launches, rows
 
 
-def _first_step_velocity(inf: InterleaveInferencer) -> torch.Tensor:
-    """Post-CFG velocity of the first flow step of the text-to-image request
-    (contexts built as interleave_inference builds them)."""
+def _denoise_inputs(inf: InterleaveInferencer, edit: bool = False):
+    """(caches, positions, latent position ids, noise) of a 512x512 request's
+    denoise, the contexts built as interleave_inference builds them: the
+    text-to-image request, or with ``edit`` the image edit."""
+    inf._generator.manual_seed(SEED + 10)  # the same VAE posterior sample at every call
     ctx = inf.init_gen_context()
     cfg_img, cfg_text = ctx.fork(), ctx.fork()
-    ctx = inf.update_context_text(GEN_PROMPT, ctx)
-    cfg_img = inf.update_context_text(GEN_PROMPT, cfg_img)
+    prompt = EDIT_PROMPT if edit else GEN_PROMPT
+    if edit:
+        ctx = inf.update_context_image(inf._vae_resized_u8(_edit_image()), ctx, vae=True,
+                                       vit=True)
+        cfg_text = ctx.fork()
+    ctx = inf.update_context_text(prompt, ctx)
+    cfg_img = inf.update_context_text(prompt, cfg_img)
     caches, positions = inf._stack_contexts([ctx, cfg_text, cfg_img])
     ld = inf.cfg.latent_downsample
     h, w = GEN_SIZE[0] // ld, GEN_SIZE[1] // ld
     pos_ids = torch.from_numpy(inf._position_ids(*GEN_SIZE, ld, inf.cfg.max_latent_size))
     g = torch.Generator(device=inf.device).manual_seed(SEED + 3)
     noise = torch.randn(h * w, inf.cfg.patch_latent_dim, generator=g, device=inf.device)
+    return caches, positions, pos_ids.to(inf.device), noise
+
+
+RECIPE = dict(timestep_shift=3.0, cfg_text_scale=3.0, cfg_img_scale=1.5, cfg_interval=(0.4, 1.0),
+              use_text_cfg=True, use_img_cfg=True)
+
+
+def _first_step_velocity(inf: InterleaveInferencer, mesh=None, edit: bool = False
+                         ) -> torch.Tensor:
+    """Post-CFG velocity of the first flow step (t = 1) of the text-to-image
+    request, or of the edit. With ``mesh``, through the sequence-parallel
+    program: a schedule of two timesteps is that one step with dt = 1."""
+    caches, positions, pos_ids, noise = _denoise_inputs(inf, edit)
+    if mesh is not None:
+        x1 = sp_denoise.generate_latents_tp_sp(
+            inf.model, caches, positions, pos_ids, noise, inf._start_end(), mesh,
+            num_timesteps=2, **RECIPE)
+        return noise - x1
     x1 = bagel.generate_latents(
-        inf.model, caches, positions, pos_ids.to(inf.device), noise, inf._start_end(),
-        num_timesteps=50, timestep_shift=3.0, cfg_text_scale=3.0, cfg_img_scale=1.5,
-        cfg_interval=(0.4, 1.0), use_text_cfg=True, use_img_cfg=True, step_range=(0, 1),
-    )
+        inf.model, caches, positions, pos_ids, noise, inf._start_end(), num_timesteps=50,
+        step_range=(0, 1), **RECIPE)
     _, dts = bagel.flow_timesteps(50, 3.0)
     return (noise - x1) / float(dts[0])
 
@@ -901,6 +1181,7 @@ def _with_plain_versions(fn):
                (qwen2_mot, "decode_attention", dec.decode_attention_ref),
                (qwen2_mot, "silu_mul_quant", aq.silu_mul_quant_ref),
                (qwen2_mot, "packed_train_attention", fat.packed_train_attention_ref),
+               (sp_denoise, "flash_block_attention", fa.flash_block_attention_ref),
                (quant, "w4_matmul", w4.w4_matmul_ref)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swapped]
     for mod, name, f in swapped:
@@ -923,6 +1204,154 @@ def check_velocity_against_plain(inf: InterleaveInferencer) -> None:
           f"finite {finite}", flush=True)
     if not finite or got.shape != want.shape or cos < VELOCITY_COS_TOL:
         raise SystemExit("chip_smoke: the kernel path's velocity disagrees with the plain path's")
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+
+
+def run_cache_block_step(inf: InterleaveInferencer) -> dict:
+    """K6 inside the model. No entry point routes through it (nor does the
+    JAX package's): here the attention of the denoise step that leaves the
+    cache as it is is swapped for K6 (the q island in the kernel; the k island
+    stays outside, as the layer computes it), the first flow step of the
+    text-to-image request and of the edit runs at the full depth, and its
+    post-CFG velocity is held against the same step through concat + K1b.
+    Returns the launches of the swapped steps: K6's count in the kernels
+    line, which no unswapped path would give it."""
+    def attend(q, k, v, k_cache, v_cache, lens, causal, q_valid_len, q_preproc):
+        if q_valid_len is not None:
+            raise SystemExit("chip_smoke: the denoise block is not trailing-padded")
+        return fa.flash_cache_block_attention(q, k_cache, v_cache, k, v, lens, causal,
+                                              q_preproc=q_preproc, cache_head_major=True)
+
+    def swapped(fn):
+        saved = qwen2_mot._attend_cache_and_block
+        qwen2_mot._attend_cache_and_block = attend
+        try:
+            return fn()
+        finally:
+            qwen2_mot._attend_cache_and_block = saved
+
+    n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
+    want = {False: _first_step_velocity(inf), True: _first_step_velocity(inf, edit=True)}
+    reset_counts()
+    got = {edit: swapped(lambda: _first_step_velocity(inf, edit=edit)) for edit in (False, True)}
+    launches = check_counts("one denoise step of each request with K6 swapped in", {
+        "flash_block_attention": 2 * 2 * n_llm + (n_vit + n_llm),  # the context builds
+        "flash_block_attention_q_preproc": n_llm,  # the edit's VAE prefill
+        "flash_cache_block_attention": 2 * n_llm,
+    })
+    for edit, name in ((False, "text-to-image"), (True, "edit")):
+        cos, finite = _cosine(got[edit], want[edit]), bool(torch.isfinite(got[edit]).all())
+        caches, positions, pos_ids, noise = _denoise_inputs(inf, edit)
+        step = lambda: bagel.generate_latents(  # noqa: E731
+            inf.model, caches, positions, pos_ids, noise, inf._start_end(), num_timesteps=50,
+            step_range=(0, 1), **RECIPE)
+        ms_today, ms_k6 = cuda_ms(step, iters=5), cuda_ms(lambda: swapped(step), iters=5)
+        print(f"  {name} {GEN_SIZE[0]}x{GEN_SIZE[1]}, first step (3 streams, lens "
+              f"{caches.lens.tolist()}, capacity {caches.capacity}): post-CFG velocity K6 vs "
+              f"concat + K1b: cosine {cos:.6f}, max abs "
+              f"{(got[edit] - want[edit]).abs().max().item():.4f}, finite {finite}; the step "
+              f"takes {ms_k6:.2f} ms with K6, {ms_today:.2f} ms with concat + K1b", flush=True)
+        if not finite or cos < VELOCITY_COS_TOL:
+            raise SystemExit("chip_smoke: the denoise step through K6 disagrees with the step "
+                             "through concat + K1b")
+    return launches
+
+
+NCCL_PROBE = """
+import datetime, tempfile, torch, torch.distributed as dist
+d = tempfile.mkdtemp()
+dist.init_process_group("nccl", init_method="file://" + d + "/rendezvous", world_size=1, rank=0,
+                        timeout=datetime.timedelta(seconds=60))
+t = torch.ones(4, device="cuda")
+dist.all_reduce(t)
+parts = [torch.empty_like(t)]
+dist.all_gather(parts, t)
+torch.cuda.synchronize()
+assert parts[0].sum().item() == 4.0
+dist.destroy_process_group()
+print("ok")
+"""
+
+
+def make_sp_mesh(rendezvous_dir: str):
+    """The ("model", "seq") mesh of one rank. Where NCCL is built in and a
+    one-rank group starts (tried in a child process first, under a time limit:
+    a communicator that cannot start must not take this run with it), the mesh
+    sits on a real NCCL group with a one-rank group per axis, so the path's
+    all-reduces and all-gathers really run; otherwise it has no group and every
+    collective is the identity. Prints which."""
+    axes, sizes = ("model", "seq"), (1, 1)
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_nccl_available()):
+        print("sequence-parallel mesh 1 x 1: NCCL is not built into this torch; no process "
+              "group, collectives are the identity", flush=True)
+        return pmesh.make_mesh(axes, sizes)
+    try:
+        probe = subprocess.run([sys.executable, "-c", NCCL_PROBE], capture_output=True,
+                               text=True, timeout=120)
+        failed = None if probe.returncode == 0 else probe.stderr.strip().splitlines()[-1:]
+    except subprocess.TimeoutExpired:
+        failed = ["no answer within 120 s"]
+    if failed is not None:
+        print(f"sequence-parallel mesh 1 x 1: a one-rank NCCL group did not start ({failed}); "
+              "no process group, collectives are the identity", flush=True)
+        return pmesh.make_mesh(axes, sizes)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{rendezvous_dir}/rendezvous", world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=120))
+    mesh = pmesh.make_mesh(axes, sizes, singleton_groups=True)
+    print("sequence-parallel mesh 1 x 1 on a one-rank NCCL group (file:// rendezvous): the "
+          "path's all-reduces and all-gathers really run", flush=True)
+    return mesh
+
+
+def run_sp_generation(inf: InterleaveInferencer, mesh, plain_rows: dict) -> dict:
+    """The sequence-parallel denoise path on the 1 x 1 mesh: the text-to-image
+    request and the edit through an inferencer with ``sp_mesh``, timed beside
+    ``plain_rows`` (the same requests without it, earlier in this run); then
+    the path against the single-device one on the same noise: the final latent
+    of the text-to-image denoise (all 49 steps) and the first post-CFG
+    velocity, the latter also against the plain versions."""
+    sp_inf = InterleaveInferencer(inf.model, inf.tokenizer, inf.new_token_ids,
+                                  vit_transform=inf.vit_transform, seed=SEED, sp_mesh=mesh)
+    launches, rows = run_generation(sp_inf)
+    for name, row in rows.items():
+        base = plain_rows[name]
+        print(f"  {name}: " + "; ".join(
+            f"{key} {row[key]:.3f} with sp_mesh, {base[key]:.3f} without"
+            for key in ("s_per_image", "denoise_s", "ms_per_3_stream_step",
+                        "ms_per_1_stream_step")), flush=True)
+    caches, positions, pos_ids, noise = _denoise_inputs(inf)
+    args = (inf.model, caches, positions, pos_ids, noise, inf._start_end())
+    x_sp = sp_denoise.generate_latents_tp_sp(*args, mesh, num_timesteps=50, **RECIPE)
+    x_one = bagel.generate_latents(*args, num_timesteps=50, **RECIPE)
+    cos, finite = _cosine(x_sp, x_one), bool(torch.isfinite(x_sp).all())
+    moved = (x_one - noise).std().item()
+    print(f"end to end (text-to-image {GEN_SIZE[0]}x{GEN_SIZE[1]}, 49 steps, the same noise): "
+          f"final latent [n, 64] of generate_latents_tp_sp vs generate_latents: cosine "
+          f"{cos:.6f}, max abs {(x_sp - x_one).abs().max().item():.4f} (latent std "
+          f"{x_one.std().item():.3f}, of which the denoise moved {moved:.3f}), cosine of the "
+          f"two displacements from the noise {_cosine(x_sp - noise, x_one - noise):.6f}, "
+          f"finite {finite}", flush=True)
+    if not finite or x_sp.shape != noise.shape or cos < VELOCITY_COS_TOL:
+        raise SystemExit("chip_smoke: the sequence-parallel denoise's latent disagrees with "
+                         "the single-device denoise's")
+    got = _first_step_velocity(inf, mesh)
+    want = _with_plain_versions(lambda: _first_step_velocity(inf, mesh))
+    cos = _cosine(got, want)
+    # the single-device path's velocity is printed beside it and not asserted: two kernel
+    # paths that each sit at about 0.999 from the plain versions sit further from each other
+    print(f"end to end: first-step post-CFG velocity of the sequence-parallel path, kernels vs "
+          f"plain versions: cosine {cos:.6f}, max abs {(got - want).abs().max().item():.4f} "
+          f"(velocity std {want.std().item():.3f}); vs the single-device kernel path's: cosine "
+          f"{_cosine(got, _first_step_velocity(inf)):.6f}", flush=True)
+    if not bool(torch.isfinite(got).all()) or got.shape != want.shape or cos < VELOCITY_COS_TOL:
+        raise SystemExit("chip_smoke: the sequence-parallel path's velocity disagrees with the "
+                         "plain versions'")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1349,6 +1778,15 @@ def run_training(inf: InterleaveInferencer):
 
 def main() -> None:
     check_device()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            run(tmp)
+        finally:
+            if torch.distributed.is_available() and torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+
+
+def run(tmp: str) -> None:
     build_kernels()
     timings = check_kernels()
     time_int8_matmul_candidates(torch.Generator(device="cuda").manual_seed(SEED + 4))
@@ -1360,8 +1798,15 @@ def main() -> None:
     logits_bf16 = check_against_plain_path(inf)
     print(f"generation path: text-to-image and an image edit at {GEN_SIZE[0]}x{GEN_SIZE[1]}, "
           "50 timesteps, CFG text 3.0 / image 1.5 on (0.4, 1.0], global renorm", flush=True)
-    paths.append(run_generation(inf))
+    launches, plain_rows = run_generation(inf)
+    paths.append(launches)
     check_velocity_against_plain(inf)
+    print("K6 inside the model: the first denoise step of each request, its attention swapped "
+          "for K6", flush=True)
+    paths.append(run_cache_block_step(inf))
+    print("sequence-parallel denoise path: the same two requests through "
+          "InterleaveInferencer(sp_mesh=...), full depth", flush=True)
+    paths.append(run_sp_generation(inf, make_sp_mesh(tmp), plain_rows))
     paths.append(run_quantized_chat(inf, logits_bf16))
     train_timings, train_paths = run_training(inf)
     timings.update(train_timings)
@@ -1378,6 +1823,11 @@ def main() -> None:
         "flash_block_attention": (flash, "unimedvl_tpu/ops/flash_attention.py:209"),
         "flash_block_attention_q_preproc": (
             flash, "unimedvl_tpu/ops/flash_attention.py:209 (q_preproc, _fused_q_preproc :33)"),
+        "flash_block_attention_lse": (
+            flash, "unimedvl_tpu/ops/flash_attention.py:209 (return_lse, _kernel :149-153)"),
+        "flash_cache_block_attention": (
+            "unimedvl_tpu_torch/csrc/flash_cache_block_attention.cu",
+            "unimedvl_tpu/ops/flash_attention.py:502 (_kernel2 :389, _proc_k_chunk :438)"),
         "decode_attention": (decode, "unimedvl_tpu/ops/decode_attention.py:130"),
         "decode_attention_int8": (
             decode, "unimedvl_tpu/ops/decode_attention.py:130 (int8 k/v, k_scale, v_scale)"),
@@ -1396,11 +1846,14 @@ def main() -> None:
     # ms_back_to_back is the time per call in a run of 20, which the card sets
     keys = ("max_abs_err", "ms", "ms_back_to_back", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    # K6 is on no entry point's path: its launches are those of the phase that swaps it into
+    # the denoise step (run_cache_block_step), and the line says so
+    timings["flash_cache_block_attention"]["launches_from"] = (
+        "a denoise step with K6 swapped in; no entry point routes through it")
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=sum(p[name] for p in paths), **{k: timings[name][k] for k in keys},
-             **{k: v for k, v in timings[name].items()
-                if k.startswith("one_row_") or k == "tiles_skipped"})
+             **{k: v for k, v in timings[name].items() if k in EXTRA_KEYS})
         for name, (src, rep) in sources.items()
     ]
     unlaunched = [k["name"] for k in kernels if k["launches"] < 1]

@@ -1,7 +1,9 @@
 """The PyTorch port imports without jax, without anything of the JAX package
 and without a CUDA toolchain: it keeps its own config, tokenizer set-up and
 image preprocessing, and builds its kernels at the first CUDA launch. The
-same holds for ``chip_smoke.py``'s imports."""
+multi-rank modules (``parallel/``, ``tools/dryrun_sp.py``) start no process
+group and no process when imported. The same holds for ``chip_smoke.py``'s
+imports."""
 
 import os
 import subprocess
@@ -37,7 +39,15 @@ import unimedvl_tpu_torch.training.dataset
 import unimedvl_tpu_torch.models.bagel
 import unimedvl_tpu_torch.weights.loader
 import unimedvl_tpu_torch.inference
+import unimedvl_tpu_torch.parallel
+import unimedvl_tpu_torch.parallel.mesh
+import unimedvl_tpu_torch.parallel.sp_denoise
+import unimedvl_tpu_torch.tools.dryrun_sp
 check("the port's modules")
+import torch.distributed
+assert not torch.distributed.is_initialized()  # importing starts no process group
+import multiprocessing
+assert not multiprocessing.active_children()  # and no rank
 import chip_smoke
 check("import chip_smoke")
 from unimedvl_tpu_torch.ops import cuda_build

@@ -10,7 +10,9 @@ Tolerance per element: |kernel - plain| <= 1e-2 + 2^-7 |plain| (the kernels
 round P and their output to bf16). Only valid query rows are compared. K1b
 (q pre-processing) against K1a on the plainly pre-processed q: within one
 bf16 ulp of each output row's largest |value|, since only the rounding of a
-few q elements may differ, which moves the whole row.
+few q elements may differ, which moves the whole row. K1c's lse: within 1e-3
+absolute of the plain version's, and equal to it where that is float32 min
+(rows that see nothing). K6 takes the attention tolerance.
 
 The quantized kernels. K4 (packed-int4 matmul) with int8 x equals its plain
 version bit for bit, per channel and grouped (integer sums are exact and both
@@ -175,6 +177,150 @@ def test_flash_q_preproc_takes_head_dim_128_only(gen):
     with pytest.raises(ValueError, match="K1b"):
         fa.flash_block_attention(q, kv, kv, _ints(0), _ints(0), False, kv_head_major=True,
                                  q_preproc=qp)
+
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+LSE_ATOL = 1e-3  # fp32 online sums against one fp32 softmax over the same bf16 logits
+
+
+def _assert_lse_close(got, want):
+    """Within LSE_ATOL where the plain lse is finite, equal where it is the
+    float32 min (a row that sees nothing)."""
+    empty = want == NEG_INF
+    assert torch.equal(got[empty], want[empty])
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs()[~empty] <= LSE_ATOL).all(), (got - want).abs()[~empty].max().item()
+
+
+LSE = [
+    # (S, T, H, Hk, D, M, lens, bstart, q_valid_len, causal, q_preproc)
+    (3, 1026, 28, 4, 128, 512, (56, 0, 56), (56, 0, 56), (0, 0, 0), False, True),  # cache partial
+    (3, 1026, 28, 4, 128, 1026, (1026,) * 3, (1026,) * 3, (0, 0, 0), False, True),  # block partial
+    (1, 258, 14, 2, 128, 1026, (1026,), (1026,), (0,), False, True),  # TP2 x SP4 local shapes
+    (2, 77, 8, 2, 128, 300, (100, 0), (100, 0), (77, 50), True, False),  # K1a shapes, causal
+    (2, 130, 16, 16, 72, 130, (130, 61), (130, 130), None, False, False),  # D 72
+]
+
+
+@pytest.mark.parametrize("case", LSE)
+def test_flash_return_lse_matches_plain(gen, case):
+    S, T, H, Hk, D, M, lens, bstart, qvl, causal, pre = case
+    q = _randn(gen, S, T, H, D, scale=2.0)
+    k, v = _randn(gen, S, Hk, M, D), _randn(gen, S, Hk, M, D)
+    qv = None if qvl is None else _ints(*qvl)
+    qp = _q_preproc(gen, S, T, True, None) if pre else None
+    args = (q, k, v, _ints(*lens), _ints(*bstart), causal)
+    kw = dict(q_valid_len=qv, kv_head_major=True, q_preproc=qp, return_lse=True)
+    before = dict(fa.lse_counts), dict(fa.counts), dict(fa.q_preproc_counts)
+    got, got_lse = fa.flash_block_attention(*args, **kw)
+    assert fa.lse_counts["kernel"] == before[0]["kernel"] + 1
+    assert (fa.counts, fa.q_preproc_counts) == before[1:]
+    want, want_lse = fa.flash_block_attention_ref(*args, **kw)
+    assert got_lse.shape == (S, T, H) and got_lse.dtype == torch.float32
+    # q_valid_len 0 (the partials) means no block keys, not no valid rows
+    rows = [T if qvl is None or qvl[s] == 0 else qvl[s] for s in range(S)]
+    for s in range(S):
+        _assert_close(got[s, :rows[s]], want[s, :rows[s]])
+        _assert_lse_close(got_lse[s, :rows[s]], want_lse[s, :rows[s]])
+
+
+def test_flash_partials_combine_to_k1b(gen):
+    """The cache partial and the block partial of the sequence-parallel
+    denoise, merged, against K1b over the concatenation; the text-CFG stream's
+    cache partial is empty."""
+    from unimedvl_tpu_torch.ops.attention import combine_attention_partials
+
+    S, T, H, Hk, D, M0 = 3, 1026, 28, 4, 128, 512
+    q = _randn(gen, S, T, H, D, scale=2.0)
+    kc, vc = _randn(gen, S, Hk, M0, D), _randn(gen, S, Hk, M0, D)
+    kb, vb = _randn(gen, S, T, Hk, D), _randn(gen, S, T, Hk, D)
+    lens = _ints(56, 0, 56)
+    qp = _q_preproc(gen, S, T, True, None)
+    kw = dict(q_valid_len=0, kv_head_major=True, q_preproc=qp, return_lse=True)
+    part_c = fa.flash_block_attention(q, kc, vc, lens, lens, False, **kw)
+    part_b = fa.flash_block_attention(q, kb.transpose(1, 2), vb.transpose(1, 2), T, T, False, **kw)
+    assert (part_c[1][1] == NEG_INF).all() and (part_c[0][1] == 0).all()
+    got = combine_attention_partials([part_c, part_b])
+    k_cat = torch.cat([kc, kb.transpose(1, 2)], dim=2)
+    v_cat = torch.cat([vc, vb.transpose(1, 2)], dim=2)
+    want = fa.flash_block_attention_ref(q, k_cat, v_cat, lens, M0, False, kv_head_major=True,
+                                        q_preproc=qp)
+    assert torch.isfinite(got.float()).all()
+    _assert_close(got, want)
+
+
+K6 = [
+    # (S, T, Tb, H, Hk, M, lens, causal, q_pre, kv_pre: None | "compact" | "full", k_end_row,
+    #  block_len, cache_head_major)
+    (3, 1026, 1026, 28, 4, 3072, (2453, 2397, 56), False, True, "compact", None, None, True),
+    (1, 258, 1026, 14, 2, 512, (56,), False, True, "compact", 1025, 1026, True),  # SP gathered keys
+    (2, 64, 64, 28, 4, 1024, (800, 37), True, False, None, None, None, True),  # causal text block
+    (2, 70, 70, 8, 2, 200, (33, 0), False, True, "full", None, None, False),  # full k tables
+    (2, 70, 96, 8, 2, 200, (33, 200), False, True, None, None, 81, False),  # padded key block
+    (1, 130, 130, 4, 4, 64, (64,), True, True, None, None, None, True),  # causal with q island
+]
+
+
+@pytest.mark.parametrize("case", K6)
+def test_flash_cache_block_attention_matches_plain(gen, case):
+    S, T, Tb, H, Hk, M, lens, causal, q_pre, kv_pre, k_end, block_len, hm = case
+    D = 128
+    q = _randn(gen, S, T, H, D, scale=2.0)
+    cshape = (S, Hk, M, D) if hm else (S, M, Hk, D)
+    kc, vc = _randn(gen, *cshape), _randn(gen, *cshape)
+    kb, vb = _randn(gen, S, Tb, Hk, D, scale=2.0 if kv_pre else 1.0), _randn(gen, S, Tb, Hk, D)
+    qp = _q_preproc(gen, S, T, True, None) if q_pre else None
+    kvp = None
+    if kv_pre is not None:
+        kvp = _q_preproc(gen, S, Tb, kv_pre == "compact", k_end)
+        if kv_pre == "compact":  # the defaults: q's tables
+            del kvp["cos"], kvp["sin"]
+        if k_end is None:
+            del kvp["end_row"]
+    kw = dict(q_preproc=qp, kv_preproc=kvp, block_len=block_len, cache_head_major=hm)
+    before = fa.cache_block_counts["kernel"]
+    got = fa.flash_cache_block_attention(q, kc, vc, kb, vb, _ints(*lens), causal, **kw)
+    assert fa.cache_block_counts["kernel"] == before + 1
+    want = fa.flash_cache_block_attention_ref(q, kc, vc, kb, vb, _ints(*lens), causal, **kw)
+    assert torch.isfinite(got.float()).all()
+    _assert_close(got, want)
+
+
+def test_flash_cache_block_equals_concat_k1b(gen):
+    """K6 against K1b over the concatenation it avoids (kernel against
+    kernel), within the attention tolerance."""
+    S, T, H, Hk, D, M = 2, 130, 8, 2, 128, 256
+    q = _randn(gen, S, T, H, D, scale=2.0)
+    kc, vc = _randn(gen, S, Hk, M, D), _randn(gen, S, Hk, M, D)
+    kb, vb = _randn(gen, S, T, Hk, D), _randn(gen, S, T, Hk, D)
+    qp = _q_preproc(gen, S, T, True, None)
+    lens = _ints(128, 77)
+    got = fa.flash_cache_block_attention(q, kc, vc, kb, vb, lens, False, q_preproc=qp,
+                                         cache_head_major=True)
+    k_cat = torch.cat([kc, kb.transpose(1, 2)], dim=2)
+    v_cat = torch.cat([vc, vb.transpose(1, 2)], dim=2)
+    want = fa.flash_block_attention(q, k_cat, v_cat, lens, M, False, kv_head_major=True,
+                                    q_preproc=qp)
+    _assert_close(got, want)
+
+
+def test_flash_cache_block_raises(gen):
+    q, kv = _randn(gen, 1, 8, 4, 128), _randn(gen, 1, 4, 16, 128)
+    kb = _randn(gen, 1, 12, 4, 128)
+    qp = _q_preproc(gen, 1, 8, True, None)
+    lens = _ints(3)
+    with pytest.raises(ValueError, match="requires block_len"):
+        fa.flash_cache_block_attention(q, kv, kv, kb, kb, lens, False, cache_head_major=True)
+    with pytest.raises(ValueError, match="non-causal only"):
+        fa.flash_cache_block_attention(q, kv, kv, kb, kb, lens, True, block_len=12,
+                                       cache_head_major=True)
+    with pytest.raises(ValueError, match="requires q_preproc"):
+        fa.flash_cache_block_attention(q, kv, kv, kb[:, :8], kb[:, :8], lens, False,
+                                       kv_preproc=qp, cache_head_major=True)
+    q72, kv72 = _randn(gen, 1, 8, 4, 72), _randn(gen, 1, 4, 16, 72)
+    with pytest.raises(ValueError, match="K6"):
+        fa.flash_cache_block_attention(q72, kv72, kv72, q72, q72, lens, False,
+                                       cache_head_major=True)
 
 
 DECODE = [

@@ -19,6 +19,7 @@ from unimedvl_tpu.ops import rope as jrope
 from unimedvl_tpu.ops import sincos as jsincos
 from unimedvl_tpu.ops.decode_attention import decode_attention as j_decode
 from unimedvl_tpu.ops.flash_attention import flash_block_attention as j_flash
+from unimedvl_tpu.ops.flash_attention import flash_cache_block_attention as j_flash2
 from unimedvl_tpu_torch.ops import _launch, activations, attention, cuda_build, norms, rope, sincos
 from unimedvl_tpu_torch.ops import decode_attention as dec
 from unimedvl_tpu_torch.ops import flash_attention as fa
@@ -119,10 +120,240 @@ class TestFlashBlockAttention:
             _close(got[s, : valid[s]], np.asarray(want)[s, : valid[s]])
 
     def test_unported_options_raise(self):
+        """``return_lse`` (K1c) is ported: it returns (out, lse) and raises
+        nothing. What still raises is an option the kernels do not take:
+        ``kv_preproc`` without ``q_preproc``, and a key block of another
+        length than the query block without ``block_len``."""
         z = torch.zeros(1, 4, 2, 8)
         lens = torch.zeros(1, dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="K1c"):
-            fa.flash_block_attention(z, z, z, lens, lens, True, return_lse=True)
+        out, lse = fa.flash_block_attention(z, z, z, lens, lens, True, return_lse=True)
+        assert out.shape == z.shape and lse.shape == (1, 4, 2) and lse.dtype == torch.float32
+        with pytest.raises(ValueError, match="requires q_preproc"):
+            fa.flash_cache_block_attention(z, z, z, z, z, lens, False,
+                                           kv_preproc=dict(w_und=None, w_gen=None))
+        with pytest.raises(ValueError, match="requires block_len"):
+            fa.flash_cache_block_attention(z, z, z, z[:, :3], z[:, :3], lens, False)
+
+
+NEG_INF = float(np.finfo(np.float32).min)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+class TestPartialAttention:
+    """``gqa_attention_hm_lse`` and ``combine_attention_partials`` against the
+    JAX functions, fp32: rtol 1e-5, atol 1e-6."""
+
+    TOL = dict(rtol=1e-5, atol=1e-6)
+
+    def _case(self):
+        rng = np.random.default_rng(11)
+        q, k, v = _rand(rng, 3, 5, 6, 8), _rand(rng, 3, 3, 9, 8), _rand(rng, 3, 3, 9, 8)
+        visible = np.asarray([9, 0, 4])  # the second stream sees nothing
+        mask = np.broadcast_to(np.arange(9)[None, None] < visible[:, None, None], (3, 5, 9))
+        return q, k, v, mask
+
+    def test_lse_matches_jax(self):
+        q, k, v, mask = self._case()
+        out, lse = attention.gqa_attention_hm_lse(*map(_t, (q, k, v, mask)))
+        jout, jlse = jatt.gqa_attention_hm_lse(*map(jnp.asarray, (q, k, v, mask)))
+        np.testing.assert_allclose(out, np.asarray(jout), **self.TOL)
+        np.testing.assert_allclose(lse, np.asarray(jlse), **self.TOL)
+        assert lse.shape == (3, 5, 6) and lse.dtype == torch.float32
+        assert (lse[1] == NEG_INF).all() and (out[1] == 0).all()  # finite, and a zero output
+        assert torch.isfinite(lse).all()
+
+    def test_lse_without_mask_matches_softmax(self):
+        q, k, v, _ = self._case()
+        out, lse = attention.gqa_attention_hm_lse(*map(_t, (q, k, v)), None)
+        _close(out, attention.gqa_attention_hm(*map(_t, (q, k, v)), None))
+        jout, jlse = jatt.gqa_attention_hm_lse(*map(jnp.asarray, (q, k, v)), None)
+        np.testing.assert_allclose(lse, np.asarray(jlse), **self.TOL)
+
+    def test_combine_matches_jax_and_the_full_attention(self):
+        """Two partials over disjoint keys, one of them empty for a stream,
+        merge to the attention over all keys."""
+        q, k, v, mask = self._case()
+        k2, v2 = _rand(np.random.default_rng(12), 3, 3, 7, 8), _rand(
+            np.random.default_rng(13), 3, 3, 7, 8)
+        parts = [attention.gqa_attention_hm_lse(*map(_t, (q, k, v, mask))),
+                 attention.gqa_attention_hm_lse(*map(_t, (q, k2, v2)), None)]
+        got = attention.combine_attention_partials(parts)
+        jparts = [jatt.gqa_attention_hm_lse(*map(jnp.asarray, (q, k, v, mask))),
+                  jatt.gqa_attention_hm_lse(*map(jnp.asarray, (q, k2, v2)), None)]
+        np.testing.assert_allclose(
+            got, np.asarray(jatt.combine_attention_partials(jparts)), **self.TOL)
+        full_mask = np.concatenate([mask, np.ones((3, 5, 7), bool)], axis=2)
+        want = attention.gqa_attention_hm(
+            _t(q), _t(np.concatenate([k, k2], 2)), _t(np.concatenate([v, v2], 2)), _t(full_mask))
+        _close(got, want)
+
+    def test_two_empty_partials_give_zero_not_nan(self):
+        q, k, v, _ = self._case()
+        none = np.zeros((3, 5, 9), bool)
+        part = attention.gqa_attention_hm_lse(*map(_t, (q, k, v, none)))
+        got = attention.combine_attention_partials([part, part])
+        jpart = jatt.gqa_attention_hm_lse(*map(jnp.asarray, (q, k, v, none)))
+        assert torch.isfinite(got).all() and (got == 0).all()
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jatt.combine_attention_partials([jpart, jpart])))
+
+
+def _preproc(rng, S, T, D, compact, end_row=None):
+    """(numpy dict, jax dict, torch dict) of one island's options."""
+    pos = rng.integers(0, 500, (S, 1 if compact else T))
+    cos, sin = (np.asarray(a) for a in jrope.rope_cos_sin(jnp.asarray(pos), D, 1e6))
+    w_und, w_gen = 1 + 0.1 * _rand(rng, D), 1 + 0.1 * _rand(rng, D)
+    er = None if end_row is None else np.full(S, end_row, np.int32)
+    jd = dict(w_und=jnp.asarray(w_und), w_gen=jnp.asarray(w_gen), cos=jnp.asarray(cos),
+              sin=jnp.asarray(sin), end_row=None if er is None else jnp.asarray(er), eps=1e-6)
+    td = dict(w_und=_t(w_und), w_gen=_t(w_gen), cos=_t(cos), sin=_t(sin), end_row=end_row,
+              eps=1e-6)
+    return jd, td
+
+
+LSE_CASES = [
+    # (name, S, T, M, lens, block_start, q_valid_len, causal, D, q_preproc)
+    ("cache partial, one stream empty", 3, 66, 128, [40, 0, 17], [40, 0, 17], [0, 0, 0], False,
+     128, True),
+    ("block partial, M not a tile multiple", 2, 34, 70, [70, 70], [70, 70], [0, 0], False, 128,
+     True),
+    ("causal block after context, no q island", 2, 20, 64, [30, 11], [30, 11], [14, 20], True,
+     24, False),
+]
+
+
+class TestFlashReturnLse:
+    @pytest.mark.parametrize("case", LSE_CASES, ids=[c[0] for c in LSE_CASES])
+    def test_plain_matches_jax_kernel(self, case):
+        """K1c's plain version against the Pallas kernel in interpret mode:
+        output atol 2e-5 (online softmax in tiles against one softmax), lse
+        atol 1e-4, and the float32-min rows equal."""
+        _, S, T, M, lens, bstart, qvl, causal, D, pre = case
+        H, Hk = 4, 2
+        rng = np.random.default_rng(21)
+        q, k, v = _rand(rng, S, T, H, D), _rand(rng, S, Hk, M, D), _rand(rng, S, Hk, M, D)
+        jd, td = _preproc(rng, S, T, D, True) if pre else (None, None)
+        ints = [np.asarray(a, np.int32) for a in (lens, bstart, qvl)]
+        want, want_lse = j_flash(
+            *map(jnp.asarray, (q, k, v, ints[0], ints[1])), causal, block_q=32, block_k=32,
+            interpret=True, q_valid_len=jnp.asarray(ints[2]), q_preproc=jd, kv_head_major=True,
+            return_lse=True)
+        before = dict(fa.lse_counts), dict(fa.counts), dict(fa.q_preproc_counts)
+        got, got_lse = fa.flash_block_attention(
+            *map(_t, (q, k, v, ints[0], ints[1])), causal, q_valid_len=_t(ints[2]),
+            kv_head_major=True, q_preproc=td, return_lse=True)
+        assert fa.lse_counts["plain"] == before[0]["plain"] + 1
+        assert (fa.counts, fa.q_preproc_counts) == before[1:]  # K1c has counters of its own
+        want, want_lse = np.asarray(want), np.asarray(want_lse)
+        # q_valid_len 0: a partial without block keys, every query row valid
+        rows = [T if n == 0 else n for n in qvl]
+        for s in range(S):
+            np.testing.assert_allclose(got[s, :rows[s]], want[s, :rows[s]], rtol=1e-5, atol=2e-5)
+            empty = want_lse[s, :rows[s]] == NEG_INF
+            np.testing.assert_array_equal(got_lse[s, :rows[s]].numpy() == NEG_INF, empty)
+            np.testing.assert_allclose(got_lse[s, :rows[s]].numpy()[~empty],
+                                       want_lse[s, :rows[s]][~empty], rtol=1e-5, atol=1e-4)
+        assert torch.isfinite(got_lse).all()
+        if lens[1] == 0 and qvl[1] == 0:  # the empty partial: zeros and the finite float32 min
+            assert (got_lse[1] == NEG_INF).all() and (got[1] == 0).all()
+
+
+K6_CASES = [
+    # (name, S, T, Tb, M, lens, causal, q island, k island: None|"compact"|"full"|"own",
+    #  block_len, cache_head_major)
+    ("plain, non-causal", 2, 40, 40, 64, [37, 0], False, False, None, None, False),
+    ("causal", 2, 40, 40, 64, [37, 5], True, False, None, None, False),
+    ("q island", 2, 40, 40, 96, [50, 3], False, True, None, None, True),
+    ("q and k islands, compact tables", 2, 40, 40, 96, [50, 0], False, True, "compact", None, True),
+    ("q and k islands, causal, unaligned", 1, 37, 37, 50, [21], True, True, "compact", None, False),
+    ("k island with full tables", 2, 24, 24, 64, [9, 30], False, True, "full", None, True),
+    ("gathered keys: block_len, own k tables and end row", 1, 18, 66, 64, [20], False, True,
+     "own", 66, True),
+    ("padded key block: block_len below Tb", 2, 24, 40, 64, [9, 64], False, False, None, 31, True),
+]
+
+
+class TestFlashCacheBlockAttention:
+    @pytest.mark.parametrize("case", K6_CASES, ids=[c[0] for c in K6_CASES])
+    def test_plain_matches_jax_kernel(self, case):
+        """K6's plain version against the Pallas kernel in interpret mode over
+        its options (fp32, D = 128 where an island runs): atol 2e-5."""
+        _, S, T, Tb, M, lens, causal, q_pre, k_pre, block_len, hm = case
+        H, Hk, D = 4, 2, 128 if q_pre else 24
+        rng = np.random.default_rng(31)
+        q = _rand(rng, S, T, H, D)
+        cshape = (S, Hk, M, D) if hm else (S, M, Hk, D)
+        kc, vc = _rand(rng, *cshape), _rand(rng, *cshape)
+        kb, vb = _rand(rng, S, Tb, Hk, D), _rand(rng, S, Tb, Hk, D)
+        jq, tq = _preproc(rng, S, T, D, True) if q_pre else (None, None)
+        jk = tk = None
+        if k_pre is not None:
+            jk, tk = _preproc(rng, S, Tb, D, k_pre != "full", Tb - 1 if k_pre == "own" else None)
+            if k_pre == "compact":  # weights only: tables and end row default to q's
+                jk = {n: jk[n] for n in ("w_und", "w_gen")}
+                tk = {n: tk[n] for n in ("w_und", "w_gen")}
+            elif k_pre == "full":  # own tables, q's end row
+                del jk["end_row"], tk["end_row"]
+        ln = np.asarray(lens, np.int32)
+        want = j_flash2(
+            *map(jnp.asarray, (q, kc, vc, kb, vb, ln)), causal, block_q=32, block_k=32,
+            interpret=True, q_preproc=jq, kv_preproc=jk, block_len=block_len,
+            cache_head_major=hm)
+        before = dict(fa.cache_block_counts)
+        got = fa.flash_cache_block_attention(
+            *map(_t, (q, kc, vc, kb, vb, ln)), causal, q_preproc=tq, kv_preproc=tk,
+            block_len=block_len, cache_head_major=hm)
+        assert fa.cache_block_counts["plain"] == before["plain"] + 1
+        assert fa.cache_block_counts["kernel"] == before["kernel"]
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=2e-5)
+
+    def test_equals_the_concatenation(self):
+        """K6 over (cache, block) is K1b over their concatenation with the k
+        island applied outside."""
+        S, T, H, Hk, D, M = 2, 20, 4, 2, 128, 32
+        rng = np.random.default_rng(32)
+        q, kc, vc = _rand(rng, S, T, H, D), _rand(rng, S, Hk, M, D), _rand(rng, S, Hk, M, D)
+        kb, vb = _rand(rng, S, T, Hk, D), _rand(rng, S, T, Hk, D)
+        _, tq = _preproc(rng, S, T, D, True)
+        _, tk = _preproc(rng, S, T, D, True)
+        tk = {n: tk[n] for n in ("w_und", "w_gen")}
+        lens = _t(np.asarray([7, 32], np.int32))
+        got = fa.flash_cache_block_attention(*map(_t, (q, kc, vc, kb, vb)), lens, False,
+                                             q_preproc=tq, kv_preproc=tk, cache_head_major=True)
+        kp = fa.preprocess_q(_t(kb), dict(tq, **tk))
+        k_cat = torch.cat([_t(kc), kp.transpose(1, 2)], dim=2)
+        v_cat = torch.cat([_t(vc), _t(vb).transpose(1, 2)], dim=2)
+        want = fa.flash_block_attention(_t(q), k_cat, v_cat, lens, M, False, kv_head_major=True,
+                                        q_preproc=tq)
+        _close(got, want)
+
+    def test_value_errors(self):
+        """The JAX function's three refusals, with its words."""
+        z = torch.zeros(1, 4, 2, 8)
+        lens = torch.zeros(1, dtype=torch.int32)
+        jz, jl = jnp.zeros((1, 4, 2, 8)), jnp.zeros((1,), jnp.int32)
+        qp = dict(w_und=torch.ones(8), w_gen=torch.ones(8), cos=torch.ones(1, 1, 8),
+                  sin=torch.zeros(1, 1, 8))
+        cases = [
+            ("k_block length != q length requires block_len",
+             dict(k_block=z[:, :3], v_block=z[:, :3]), {}),
+            ("non-causal only", dict(k_block=z[:, :3], v_block=z[:, :3]),
+             dict(causal=True, block_len=3)),
+            ("kv_preproc requires q_preproc", dict(k_block=z, v_block=z), dict(kv_preproc=qp)),
+        ]
+        for match, blocks, kw in cases:
+            causal = kw.pop("causal", False)
+            with pytest.raises(ValueError, match=match):
+                fa.flash_cache_block_attention(z, z, z, blocks["k_block"], blocks["v_block"],
+                                               lens, causal, **kw)
+            jkw = {k: ({n: jnp.asarray(t.numpy()) for n, t in v.items()} if k == "kv_preproc"
+                       else v) for k, v in kw.items()}
+            n = blocks["k_block"].shape[1]
+            with pytest.raises(ValueError, match=match):
+                j_flash2(jz, jz, jz, jz[:, :n], jz[:, :n], jl, causal, interpret=True, **jkw)
 
 
 class TestDecodeAttention:

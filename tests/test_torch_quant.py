@@ -477,13 +477,76 @@ class TestLoaderOnQuantizedTrees:
         assert attn.qkv_proj.bias is not None and attn.qkv_proj_moe_gen.bias is not None
 
     def test_tp_fused_leaves_raise(self, base):
-        params, _ = base
-        jtree = {**params, "llm": jquant.fuse_serving_projections(params["llm"], tp=2)}
-        with pytest.raises(NotImplementedError, match="M13"):
-            loader.from_jax_params(jax.tree.map(np.asarray, jtree), TCFG, device="cpu")
-        model = loader.from_jax_params(base[1], TCFG, device="cpu")
-        with pytest.raises(NotImplementedError, match="M13"):
-            quant.fuse_serving_projections(model.language_model, tp=2)
+        """The shard-interleaved fused leaves are ported; what raises now is
+        a use they do not serve: a split whose degree is not the tree's, a
+        packed-int4 projection under tensor parallelism (a later slice), a
+        width that does not divide."""
+        from unimedvl_tpu_torch.parallel import mesh as pmesh
+
+        params, np_params = base
+        model = loader.from_jax_params(np_params, TCFG, device="cpu")
+        quant.fuse_serving_projections(model.language_model, tp=2)
+        layer = model.language_model.model.layers[0]
+        assert hasattr(layer.self_attn, "qkv_proj_tp2") and hasattr(layer.mlp, "gate_up_proj_tp2")
+        with pytest.raises(ValueError, match="tp=2 != mesh model axis 1"):
+            pmesh.tp_layer_view(layer, 0, 1)
+        p4 = _port_quantized(np_params, dict(bits=4), False)
+        with pytest.raises(NotImplementedError, match="packed-int4 .* later slice"):
+            pmesh.tp_layer_view(p4.language_model.model.layers[0], 0, 2)
+        plain = loader.from_jax_params(np_params, TCFG, device="cpu")
+        with pytest.raises(ValueError, match="does not split over tp=3"):
+            quant.fuse_serving_projections(plain.language_model, tp=3)
+
+    @pytest.mark.parametrize("name,kw", [("bf16", None)] + MODES[:2],
+                             ids=["bf16", "int8", "int8-act"])
+    def test_tp_fused_tree_equals_port_transform(self, base, name, kw):
+        """``fuse_serving_projections(tp=2)`` on the port's model against
+        ``from_jax_params`` of the JAX package's ``_tp2`` tree: the same
+        shard-interleaved buffers, bit for bit, under the ``_tp2`` names."""
+        params, np_params = base
+        llm = params["llm"] if kw is None else jquant.quantize_llm_params(
+            params["llm"], via_host=True, **kw)
+        jtree = {**params, "llm": jquant.fuse_serving_projections(llm, tp=2)}
+        got = loader.from_jax_params(jax.tree.map(np.asarray, jtree), TCFG, device="cpu")
+        want = loader.from_jax_params(np_params, TCFG, device="cpu")
+        if kw is not None:
+            quant.quantize_llm_params(want.language_model, **kw)
+        quant.fuse_serving_projections(want.language_model, tp=2)
+        _assert_same_state(got, want)
+        names = set(dict(got.language_model.model.layers[0].named_children())["self_attn"]
+                    ._modules)
+        assert {"qkv_proj_tp2", "qkv_proj_tp2_moe_gen"} <= names and "q_proj" not in names
+        # not the plain concatenation: block 0 is [q_0 | k_0 | v_0]
+        plain = loader.from_jax_params(np_params, TCFG, device="cpu")
+        if kw is not None:
+            quant.quantize_llm_params(plain.language_model, **kw)
+        attn = plain.language_model.model.layers[0].self_attn
+        w = "weight" if kw is None else "weight_q"
+        fused = getattr(got.language_model.model.layers[0].self_attn.qkv_proj_tp2, w)
+        parts = [getattr(getattr(attn, n), w) for n in ("q_proj", "k_proj", "v_proj")]
+        block0 = torch.cat([p[: p.shape[0] // 2] for p in parts])
+        assert torch.equal(fused[: fused.shape[0] // 2], block0)
+
+    @pytest.mark.parametrize("mode", ["und", "gen"])
+    def test_tp_fused_forward_equals_unfused(self, base, mode):
+        """The single-device forward de-interleaves a ``_tp2`` tree: the same
+        hidden states as the unfused model (fp32: the products are the same
+        dot products, taken in one fused matmul)."""
+        _, np_params = base
+        plain = loader.from_jax_params(np_params, TCFG, device="cpu")
+        fused = loader.from_jax_params(np_params, TCFG, device="cpu")
+        quant.fuse_serving_projections(fused.language_model, tp=2)
+        rng = np.random.default_rng(41)
+        L, Hk, D = CFG.llm.num_hidden_layers, CFG.llm.num_key_value_heads, CFG.llm.head_dim
+        x = torch.from_numpy(_rand(rng, 2, 10, CFG.llm.hidden_size))
+        pos = torch.from_numpy(rng.integers(0, 40, (2, 1 if mode == "gen" else 10)))
+        outs = []
+        for model in (plain, fused):
+            cache = KVCache.create(L, 2, 32, Hk, D, torch.float32)
+            h, cache = model.language_model.model(x, pos, cache, causal=mode == "und", mode=mode)
+            outs.append((h, cache.k))
+        torch.testing.assert_close(outs[1][0], outs[0][0], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(outs[1][1], outs[0][1], rtol=1e-5, atol=1e-5)
 
     def test_fusing_mixed_modes_raises(self, base):
         model = loader.from_jax_params(base[1], TCFG, device="cpu")

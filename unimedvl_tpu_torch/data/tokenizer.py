@@ -35,6 +35,31 @@ def add_special_tokens(tokenizer) -> Tuple[object, Dict[str, int], int]:
     return tokenizer, new_token_ids, num_new
 
 
+class ByteTokenizer:
+    """A byte-level stand-in for runs with random weights (the smoke run, the
+    dry-run tools): ids 0-255 are the text's UTF-8 bytes, special tokens get
+    ids from 256 up. Other ids decode as ``<id>``."""
+
+    def __init__(self):
+        self.specials = {}
+        self.special_tokens_map = {}
+
+    def add_tokens(self, tokens):
+        for t in tokens:
+            self.specials.setdefault(t, 256 + len(self.specials))
+        return len(tokens)
+
+    def convert_tokens_to_ids(self, tok):
+        return self.specials[tok]
+
+    def encode(self, text):
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids):
+        inv = {v: k for k, v in self.specials.items()}
+        return "".join(inv.get(i, chr(i) if i < 128 else f"<{i}>") for i in ids)
+
+
 def load_tokenizer(path: str):
     """Load the checkpoint tokenizer and register special tokens."""
     from transformers import AutoTokenizer

@@ -16,6 +16,9 @@ same answer.
 Every random draw (the initial noise of the flow loop, the VAE posterior
 sample) comes from the inferencer's ``torch.Generator`` through ``_randn``.
 
+With ``sp_mesh`` the flow loop runs as the sequence-parallel program of
+``parallel/sp_denoise.py`` over that mesh's ranks.
+
 Multi-turn ``chat_turn``, streaming, speculative decoding, the
 vqa-reconstruction recipes and chunked generation jobs are later slices of
 ROADMAP queue 1.
@@ -76,6 +79,7 @@ class InterleaveInferencer:
         vae_transform=None,
         kv_quantized: bool = False,
         kv_bits: int = 8,
+        sp_mesh=None,
     ):
         """``model``: a Bagel on its device (built ``with_vae`` for image
         generation and VAE image contexts); ``tokenizer``: anything with
@@ -88,9 +92,23 @@ class InterleaveInferencer:
         ``kv_quantized``: int8 KV caches with per-key scales for every
         context (half the cache bytes of a decode step and of a long
         context; a non-parity mode, like the quantized weights);
-        ``kv_bits``: 8; the int4 cache (4) is not ported."""
+        ``kv_bits``: 8; the int4 cache (4) is not ported.
+        ``sp_mesh``: a ``parallel.mesh.Mesh`` with the axes ("model", "seq").
+        The denoise loop then goes through
+        ``parallel.sp_denoise.generate_latents_tp_sp`` (latents sharded over
+        "seq", heads over "model") whenever the latent count divides the
+        "seq" axis and the kv heads the "model" axis; every rank of the mesh
+        runs the same inferencer with the same seed. Context builds and text
+        decoding stay single-device. Not with ``kv_quantized``: that path
+        reads the context cache in the model's dtype."""
         if kv_quantized:
             check_kv_bits(kv_bits)
+        if kv_quantized and sp_mesh is not None:
+            raise ValueError(
+                "kv_quantized=True is not supported with sp_mesh "
+                "(parallel/sp_denoise.py reads the context cache in the model's dtype)"
+            )
+        self.sp_mesh = sp_mesh
         self.kv_quantized = kv_quantized
         self.model = model
         self.cfg = model.config
@@ -338,15 +356,29 @@ class InterleaveInferencer:
         caches, positions = self._stack_contexts(contexts)
         pos_ids = self._position_ids(H, W, ld, self.cfg.max_latent_size)
         noise = self._randn((h * w, self.cfg.patch_latent_dim))
-        return bagel.generate_latents(
-            self.model, caches, positions, torch.from_numpy(pos_ids).to(self.device), noise,
-            self._start_end(),
+        kw = dict(
             num_timesteps=num_timesteps, timestep_shift=timestep_shift,
             cfg_text_scale=cfg_text_scale, cfg_img_scale=cfg_img_scale,
             cfg_interval=tuple(cfg_interval), cfg_renorm_min=cfg_renorm_min,
             cfg_renorm_type=cfg_renorm_type, use_text_cfg=use_text_cfg,
             use_img_cfg=use_img_cfg,
         )
+        pos_ids = torch.from_numpy(pos_ids).to(self.device)
+        mesh = self.sp_mesh
+        if (
+            mesh is not None
+            and (h * w) % mesh.shape["seq"] == 0
+            and self.cfg.llm.num_key_value_heads % mesh.shape["model"] == 0
+            # the sequence-parallel attention routes through the MoT gen twins;
+            # other configs take the single-device denoise
+            and self.cfg.llm.mot_attention
+        ):
+            from unimedvl_tpu_torch.parallel.sp_denoise import generate_latents_tp_sp
+
+            return generate_latents_tp_sp(
+                self.model, caches, positions, pos_ids, noise, self._start_end(), mesh, **kw)
+        return bagel.generate_latents(
+            self.model, caches, positions, pos_ids, noise, self._start_end(), **kw)
 
     def decode_image(self, latent_tokens: torch.Tensor, image_shape: Tuple[int, int]):
         """Latent tokens -> a PIL RGB image of ``image_shape`` (H, W)."""

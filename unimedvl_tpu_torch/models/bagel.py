@@ -391,9 +391,15 @@ def _cfg_combine(
     renorm_type: str,
     use_text_cfg: bool,
     use_img_cfg: bool,
+    seq_group=None,
 ) -> torch.Tensor:
     """CFG combination with renorm clamping (bagel.py:1173-1207), in fp32,
-    rounded back to v's dtype. With scales 1.0 every formula gives v."""
+    rounded back to v's dtype. With scales 1.0 every formula gives v.
+
+    ``seq_group``: the process group over which the token dim is sharded
+    (parallel/sp_denoise.py). The "global" renorm's two sums of squares are
+    then all-reduced over it; the channel renorms are per token and need no
+    communication."""
     if not use_text_cfg:
         return v
     v32, vt32 = v.float(), v_text.float()
@@ -409,7 +415,11 @@ def _cfg_combine(
     if use_img_cfg:
         vi32 = v_img.float()
         v_ = vi32 + img_scale * (v_ - vi32)
-    if renorm_type == "global":
+    if renorm_type == "global" and seq_group is not None:
+        sums = torch.stack([torch.sum(v32 * v32), torch.sum(v_ * v_)])
+        torch.distributed.all_reduce(sums, group=seq_group)
+        norm_v, norm_v_ = torch.sqrt(sums[0]), torch.sqrt(sums[1])
+    elif renorm_type == "global":
         norm_v, norm_v_ = torch.linalg.vector_norm(v32), torch.linalg.vector_norm(v_)
     elif renorm_type == "channel":
         norm_v = torch.linalg.vector_norm(v32, dim=-1, keepdim=True)

@@ -25,7 +25,8 @@ attends to ``concat(cache slice, block kv)`` and the cache is left untouched.
 
 Quantized serving modes (unimedvl_tpu_torch/quant.py). A projection may be a
 ``QuantLinear`` (int8 or packed-int4 weights) and q/k/v and gate/up may be
-fused into ``qkv_proj`` and ``gate_up_proj``; the modules use what they hold.
+fused into ``qkv_proj`` and ``gate_up_proj`` (or their shard-interleaved
+``_tp{N}`` variants, de-interleaved here); the modules use what they hold.
 On a down projection that quantizes its input (modes ``qa``, ``p4a``) with a
 silu activation, the MLP forms ``silu(gate) * up`` and its per-token int8
 quantization in one pass (K3, ops/act_quant.py), always. The KV cache may be
@@ -202,6 +203,22 @@ def _mot_rows(x, und_fn, gen_fn, gen: bool, end_row: Optional[int]) -> torch.Ten
     return y
 
 
+def _attend_cache_and_block(q, k, v, k_cache, v_cache, lens, causal, q_valid_len, q_preproc):
+    """Attention of a block that is not written to the cache (the denoise
+    steps): the block's k, v [S, T, Hk, D] are copied behind the cache slice
+    [S, Hk, M, D] and the whole goes through K1a / K1b with the block at
+    column M. (K6, ``ops.flash_attention.flash_cache_block_attention``, computes
+    the same without the copy; the JAX package does not route this call
+    through it, and neither does the port.)"""
+    M0 = k_cache.shape[2]
+    k_cat = torch.cat([k_cache, k.to(k_cache.dtype).transpose(1, 2)], dim=2)
+    v_cat = torch.cat([v_cache, v.to(v_cache.dtype).transpose(1, 2)], dim=2)
+    return flash_block_attention(
+        q, k_cat, v_cat, lens, M0, causal,
+        q_valid_len=q_valid_len, kv_head_major=True, q_preproc=q_preproc,
+    )
+
+
 class Qwen2MoTAttention(nn.Module):
     def __init__(self, cfg: LLMConfig, device=None, dtype=None):
         super().__init__()
@@ -232,9 +249,10 @@ class Qwen2MoTAttention(nn.Module):
         S, T, _ = x.shape
         H, Hk, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         k_cache, v_cache, k_scale, v_scale = kv_layer
-        if hasattr(self, "qkv_proj"):  # serving fusion: one projection, not three
-            qkv = self._proj("qkv_proj", x, gen, end_row)
-            q, k, v = qkv.split([H * D, Hk * D, Hk * D], dim=-1)
+        fused, ftp = quant.fused_key(self, "qkv_proj")
+        if fused is not None:  # serving fusion: one projection, not three
+            qkv = self._proj(fused, x, gen, end_row)
+            q, k, v = quant.deinterleave(qkv, ftp, (H * D, Hk * D, Hk * D))
             q, k, v = q.reshape(S, T, H, D), k.reshape(S, T, Hk, D), v.reshape(S, T, Hk, D)
         else:
             q = self._proj("q_proj", x, gen, end_row).view(S, T, H, D)
@@ -278,13 +296,8 @@ class Qwen2MoTAttention(nn.Module):
             if k_scale is not None:
                 k_cache = dequant_slice(k_cache, k_scale, x.dtype)
                 v_cache = dequant_slice(v_cache, v_scale, x.dtype)
-            M0 = k_cache.shape[2]
-            k_cat = torch.cat([k_cache, k.to(k_cache.dtype).transpose(1, 2)], dim=2)
-            v_cat = torch.cat([v_cache, v.to(v_cache.dtype).transpose(1, 2)], dim=2)
-            o = flash_block_attention(
-                q, k_cat, v_cat, lens, M0, causal,
-                q_valid_len=q_valid_len, kv_head_major=True, q_preproc=q_preproc,
-            )
+            o = _attend_cache_and_block(q, k, v, k_cache, v_cache, lens, causal, q_valid_len,
+                                        q_preproc)
         return self._proj("o_proj", o.reshape(S, T, H * D), gen, end_row)
 
 
@@ -299,8 +312,10 @@ class Qwen2MLP(nn.Module):
         self.act_is_silu = cfg.hidden_act == "silu"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if hasattr(self, "gate_up_proj"):  # serving fusion
-            g, u = self.gate_up_proj(x).chunk(2, dim=-1)
+        fused, ftp = quant.fused_key(self, "gate_up_proj")
+        if fused is not None:  # serving fusion
+            gu = getattr(self, fused)(x)
+            g, u = quant.deinterleave(gu, ftp, (gu.shape[-1] // 2,) * 2)
         else:
             g, u = self.gate_proj(x), self.up_proj(x)
         down = self.down_proj

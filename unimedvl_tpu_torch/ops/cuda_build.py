@@ -1,6 +1,7 @@
-"""Builds the package's CUDA sources (``unimedvl_tpu_torch/csrc/*.cu``) into one
-shared library with a plain C interface and loads it with ctypes. Each source
-compiles in its own ``nvcc`` process, all started together, then one link.
+"""Builds the package's CUDA sources (``unimedvl_tpu_torch/csrc/*.cu``; shared
+device code in ``*.cuh`` beside them) into one shared library with a plain C
+interface and loads it with ctypes. Each source compiles in its own ``nvcc``
+process, all started together, then one link.
 
 The build runs at the first CUDA launch, never at import: ``import
 unimedvl_tpu_torch`` works on a machine with no ``nvcc`` and no GPU. The
@@ -34,11 +35,15 @@ _L = ctypes.c_longlong
 # ctypes would pass them as 32-bit ints and cut them
 _SIGNATURES = {
     "unimedvl_flash_block_attention_bf16": (
-        [_P] * 7 + [_I] * 6 + [_L] * 6 + [_I, ctypes.c_float, _P]
+        [_P] * 8 + [_I] * 6 + [_L] * 6 + [_I, ctypes.c_float, _P]
     ),
     "unimedvl_flash_block_attention_qpre_bf16": (
-        [_P] * 7 + [_I] * 6 + [_L] * 6 + [_I, ctypes.c_float] + [_P] * 4 + [_L] * 2
+        [_P] * 8 + [_I] * 6 + [_L] * 6 + [_I, ctypes.c_float] + [_P] * 4 + [_L] * 2
         + [_P, ctypes.c_float, _P]
+    ),
+    "unimedvl_flash_cache_block_attention_bf16": (
+        [_P] * 7 + [_I] * 8 + [_L] * 12 + [_I, ctypes.c_float]
+        + 2 * ([_I] + [_P] * 4 + [_L] * 2 + [_P]) + [ctypes.c_float, _P]
     ),
     "unimedvl_decode_attention_bf16": (
         [_P] * 7 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _P]
@@ -77,7 +82,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    for src in sorted(CSRC_DIR.glob("*.cu*")):  # the sources and the headers they share
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libunimedvl_kernels_{h.hexdigest()[:16]}.so"

@@ -208,9 +208,55 @@ def quantize_llm_params(lm, act_quant: bool = False, bits: int = 8, group_size: 
     return lm
 
 
-def _concat_linears(parts):
+def fused_key(module: nn.Module, base: str):
+    """The fused leaf ``base`` (``qkv_proj``, ``gate_up_proj``) of a module, or
+    its shard-interleaved variant ``{base}_tp{N}``
+    (``fuse_serving_projections(tp=N)``): (name, N), or (None, 1). The gen
+    expert's twin is ``name + "_moe_gen"``."""
+    if base in module._modules:
+        return base, 1
+    pre = base + "_tp"
+    for name in module._modules:
+        if name.startswith(pre) and not name.endswith("_moe_gen"):
+            return name, int(name[len(pre):])
+    return None, 1
+
+
+def deinterleave(y: torch.Tensor, tp: int, widths):
+    """The plain parts of a shard-interleaved fused output [..., sum(widths)]:
+    block s of the last dim holds every part's s-th column shard in order, so
+    a reshape, a slice per part and a flatten give each part's original
+    column order. With ``tp == 1`` a plain split."""
+    if tp == 1:
+        return y.split(list(widths), dim=-1)
+    r = y.unflatten(-1, (tp, y.shape[-1] // tp))
+    parts, off = [], 0
+    for w in widths:
+        parts.append(r[..., off:off + w // tp].reshape(*y.shape[:-1], w))
+        off += w // tp
+    return parts
+
+
+def _cat(tensors, tp: int, dim: int) -> torch.Tensor:
+    """Join along the output dim ``dim``. With ``tp > 1`` the result is ``tp``
+    contiguous shard blocks, each the join of every part's s-th shard
+    (``[q_0|k_0|v_0|q_1|k_1|v_1|...]``): an even split over ``tp`` ranks hands
+    rank s its Megatron column shard of every part."""
+    if tp == 1:
+        return torch.cat(list(tensors), dim=dim)
+    dim = dim % tensors[0].dim()
+    blocks = []
+    for t in tensors:
+        if t.shape[dim] % tp:
+            raise ValueError(f"output dim {t.shape[dim]} does not split over tp={tp}")
+        blocks.append(t.unflatten(dim, (tp, t.shape[dim] // tp)))
+    return torch.cat(blocks, dim=dim + 1).flatten(dim, dim + 1)
+
+
+def _concat_linears(parts, tp: int = 1):
     """Linear leaves joined along the output dim: bf16 ``nn.Linear``s or
-    quantized leaves of one mode. A part without a bias contributes zeros."""
+    quantized leaves of one mode. A part without a bias contributes zeros.
+    ``tp``: the shard-interleaved block layout of :func:`_cat`."""
     from unimedvl_tpu_torch.models.layers import QuantLinear, linear_from_tensors
 
     first = parts[0]
@@ -220,18 +266,18 @@ def _concat_linears(parts):
     biases = None
     if any(p.bias is not None for p in parts):
         ref = next(p.bias for p in parts if p.bias is not None)
-        biases = torch.cat([
+        biases = _cat([
             p.bias if p.bias is not None
             else torch.zeros(p.out_features, dtype=ref.dtype, device=ref.device)
             for p in parts
-        ])
+        ], tp, 0)
     if isinstance(first, QuantLinear):
         if any(not isinstance(p, QuantLinear) or p.mode != first.mode for p in parts):
             raise ValueError("cannot fuse projections of different quantized modes")
-        weight_q = torch.cat([p.weight_q for p in parts], dim=0)
-        scale = torch.cat([p.scale for p in parts], dim=-1)
+        weight_q = _cat([p.weight_q for p in parts], tp, 0)
+        scale = _cat([p.scale for p in parts], tp, -1)
         return QuantLinear(first.mode, weight_q, scale, biases)
-    return linear_from_tensors(torch.cat([p.weight for p in parts], dim=0), biases)
+    return linear_from_tensors(_cat([p.weight for p in parts], tp, 0), biases)
 
 
 @torch.no_grad()
@@ -244,24 +290,28 @@ def fuse_serving_projections(lm, tp: int = 1):
     :func:`quantize_llm_params`). Works on meta tensors too, which is how the
     loader shapes a model for an already fused tree.
 
-    ``tp > 1`` (the JAX package's shard-interleaved ``_tp{N}`` leaves)
-    belongs to the multi-chip slice."""
-    if tp != 1:
-        raise NotImplementedError(
-            f"fuse_serving_projections(tp={tp}): tensor-parallel fused leaves (_tp{tp}) are "
-            "ROADMAP slice M13"
-        )
+    ``tp > 1`` lays the fused output dim out as ``tp`` contiguous shard blocks
+    (each ``[q_s|k_s|v_s]`` / ``[gate_s|up_s]``) and names the leaves
+    ``qkv_proj_tp{N}``, ``qkv_proj_tp{N}_moe_gen``, ``gate_up_proj_tp{N}`` (the
+    JAX package's ``qkv_tp{N}``, ``qkv_gen_tp{N}``, ``gate_up_tp{N}``). An even
+    split of the fused dim then gives every "model" rank its column shard
+    (parallel/sp_denoise.py splits it by local widths), and the single-device
+    forward recovers the plain q/k/v and gate/up with :func:`deinterleave`, so
+    one such tree serves prefill, decode and the manual-TP denoise. ``tp``
+    must equal the mesh's "model" axis."""
+    tag = f"_tp{tp}" if tp > 1 else ""
     for layer in lm.model.layers:
         attn = layer.self_attn
         for sfx in EXPERTS:
             if hasattr(attn, "q_proj" + sfx):
                 names = [n + sfx for n in ("q_proj", "k_proj", "v_proj")]
-                setattr(attn, "qkv_proj" + sfx,
-                        _concat_linears([getattr(attn, n) for n in names]))
+                setattr(attn, "qkv_proj" + tag + sfx,
+                        _concat_linears([getattr(attn, n) for n in names], tp))
                 for n in names:
                     delattr(attn, n)
         for mlp in (layer.mlp, getattr(layer, "mlp_moe_gen", None)):
             if mlp is not None and hasattr(mlp, "gate_proj"):
-                mlp.gate_up_proj = _concat_linears([mlp.gate_proj, mlp.up_proj])
+                setattr(mlp, "gate_up_proj" + tag,
+                        _concat_linears([mlp.gate_proj, mlp.up_proj], tp))
                 del mlp.gate_proj, mlp.up_proj
     return lm

@@ -13,7 +13,8 @@ tree (numpy leaves), so both packages compute one function in the tests. It
 takes the JAX package's quantized and fused trees too
 (``quant.quantize_llm_params``, ``quant.fuse_serving_projections``): every leaf
 form (``kernel_q``, ``kernel_qa``, ``kernel_p4``, ``kernel_p4a``; per-channel
-and [G, N] scales; fused ``qkv``, ``qkv_gen``, ``gate_up``) becomes the port's
+and [G, N] scales; fused ``qkv``, ``qkv_gen``, ``gate_up`` and their
+shard-interleaved ``_tp{N}`` variants, whose column order is kept) becomes the port's
 ``QuantLinear`` with the same integers and scales, and its LoRA adapter leaves
 (``lora_a`` [L, in, r], ``lora_b`` [L, r, out], ``lora_s`` [L]) become
 ``LoRALinear``s per layer. JAX leaves are [in, out],
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Dict, Optional
 
 import numpy as np
@@ -51,14 +53,15 @@ _KEEP_DTYPE_SUFFIXES = (".weight_q", ".scale", ".lora_s")
 
 
 def _build(state: Dict[str, torch.Tensor], cfg: BagelConfig, device, dtype,
-           quant_modes: Optional[Dict[str, str]] = None, fused: bool = False) -> Bagel:
+           quant_modes: Optional[Dict[str, str]] = None, fused_tp: int = 0) -> Bagel:
     """A Bagel around ``state``. ``quant_modes``: module path -> mode of
     every quantized linear in ``state`` (its ``weight_q`` and ``scale`` shape
-    the leaf); ``fused``: the LLM's q/k/v and gate/up are fused leaves."""
+    the leaf); ``fused_tp``: the LLM's q/k/v and gate/up are fused leaves of
+    that shard degree (1: plain; 0: not fused)."""
     with_vae = any(k.startswith(_VAE) for k in state)
     model = Bagel(cfg, device="meta", dtype=dtype, with_vae=with_vae)
-    if fused:
-        quant.fuse_serving_projections(model.language_model)
+    if fused_tp:
+        quant.fuse_serving_projections(model.language_model, tp=fused_tp)
     for path, mode in (quant_modes or {}).items():
         model.set_submodule(path, QuantLinear(
             mode, state[path + ".weight_q"], state[path + ".scale"], state.get(path + ".bias")))
@@ -83,6 +86,14 @@ def _build(state: Dict[str, torch.Tensor], cfg: BagelConfig, device, dtype,
 # ---------------------------------------------------------------------------
 
 _JAX_QUANT_LEAVES = {"kernel_q": "q", "kernel_qa": "qa", "kernel_p4": "p4", "kernel_p4a": "p4a"}
+_TP_SUFFIX = re.compile(r"^(.*)_tp(\d+)$")
+
+
+def _split_tp(key: str):
+    """A JAX leaf name without its shard-degree marker: ``qkv_gen_tp2`` ->
+    (``qkv_gen``, ``_tp2``); other names -> (name, "")."""
+    m = _TP_SUFFIX.match(key)
+    return (m.group(1), f"_tp{m.group(2)}") if m else (key, "")
 
 
 def _lin(sd, name, p, i=None, quant_modes=None):
@@ -160,7 +171,8 @@ def jax_tree_to_state_dict(tree: Dict, cfg: BagelConfig, quant_modes: Optional[D
     as numpy) as a released-name state dict; its VAE, if it has one, under
     ``vae_model.``. Quantized leaves come as ``.weight_q`` and ``.scale`` with
     their modes in ``quant_modes`` (path -> mode), fused leaves as
-    ``qkv_proj``, ``qkv_proj_moe_gen`` and ``gate_up_proj``."""
+    ``qkv_proj``, ``qkv_proj_moe_gen`` and ``gate_up_proj``, with ``_tp{N}``
+    after ``_proj`` for the shard-interleaved ones."""
     sd: Dict[str, np.ndarray] = {}
     quant_modes = {} if quant_modes is None else quant_modes
     llm = tree["llm"]
@@ -168,19 +180,13 @@ def jax_tree_to_state_dict(tree: Dict, cfg: BagelConfig, quant_modes: Optional[D
     sd[pre + "embed_tokens.weight"] = np.asarray(llm["embed_tokens"])
     layers = llm["layers"]
     attn_names = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "o": "o_proj", "qkv": "qkv_proj"}
-    for tree_ in (layers["attn"], layers.get("mlp", {}), layers.get("mlp_moe_gen", {})):
-        for key in tree_:
-            if "_tp" in key:
-                raise NotImplementedError(
-                    f"fused leaf {key!r}: tensor-parallel fused leaves (_tp{{N}}) are ROADMAP "
-                    "slice M13"
-                )
     for i in range(cfg.llm.num_hidden_layers):
         lp = f"{pre}layers.{i}."
         for key, leaf in layers["attn"].items():
+            key, tp_tag = _split_tp(key)  # qkv_gen_tp2 -> qkv_proj_tp2_moe_gen
             base, gen = (key[:-4], "_moe_gen") if key.endswith("_gen") else (key, "")
             if base in attn_names:
-                _lin(sd, f"{lp}self_attn.{attn_names[base]}{gen}", leaf, i, quant_modes)
+                _lin(sd, f"{lp}self_attn.{attn_names[base]}{tp_tag}{gen}", leaf, i, quant_modes)
             else:  # q_norm / k_norm
                 sd[f"{lp}self_attn.{base}{gen}.weight"] = np.asarray(leaf["scale"])[i]
         for key in ("input_layernorm", "post_attention_layernorm",
@@ -190,7 +196,8 @@ def jax_tree_to_state_dict(tree: Dict, cfg: BagelConfig, quant_modes: Optional[D
         for mlp in ("mlp", "mlp_moe_gen"):
             if mlp in layers:
                 for part, leaf in layers[mlp].items():
-                    _lin(sd, f"{lp}{mlp}.{part}_proj", leaf, i, quant_modes)
+                    part, tp_tag = _split_tp(part)  # gate_up_tp2 -> gate_up_proj_tp2
+                    _lin(sd, f"{lp}{mlp}.{part}_proj{tp_tag}", leaf, i, quant_modes)
     sd[pre + "norm.weight"] = np.asarray(llm["norm"]["scale"])
     if "norm_moe_gen" in llm:
         sd[pre + "norm_moe_gen.weight"] = np.asarray(llm["norm_moe_gen"]["scale"])
@@ -247,9 +254,10 @@ def from_jax_params(tree: Dict, cfg: BagelConfig, device="cuda",
     device = _target_device(device)
     quant_modes: Dict[str, str] = {}
     sd = jax_tree_to_state_dict(tree, cfg, quant_modes)
-    fused = any(".qkv_proj." in k for k in sd)
+    fused = re.search(r"\.qkv_proj(_tp(\d+))?\.", " ".join(sd))
+    fused_tp = 0 if fused is None else int(fused.group(2) or 1)
     return _build({k: _to_torch(v) for k, v in sd.items()}, cfg, device, dtype,
-                  quant_modes, fused)
+                  quant_modes, fused_tp)
 
 
 # ---------------------------------------------------------------------------
