@@ -283,10 +283,11 @@ def check_kernels() -> dict:
     # K2: chat decode, one stream, band [4950, 4960]
     qd = randn(1, 1, 28, 128, scale=2.0)
     lens, base, col = ints(4950), ints(4950), ints(4960)
-    step = _compare(
-        "K2 decode S=1 M=5632 lens=4950 band [4950, 4960]",
-        lambda: dec.decode_attention(qd, kc, vc, lens, (base, col)),
-        lambda: dec.decode_attention_ref(qd, kc, vc, lens, (base, col)), 1)
+    name = "K2 decode S=1 M=5632 lens=4950 band [4950, 4960]"
+    kernel = lambda: dec.decode_attention(qd, kc, vc, lens, (base, col))  # noqa: E731
+    step = _with_splits(name, 1, M, _compare(
+        name, kernel, lambda: dec.decode_attention_ref(qd, kc, vc, lens, (base, col)), 1),
+        kernel)
     step.update(attention_bound([1], [4961], 28, 4, 128, 2, "bf16"))
     step["library_ms"] = sdpa_ms(qd, kc, vc, (jk < 4961)[None, None])
     results["decode_attention"].append(step)
@@ -294,10 +295,11 @@ def check_kernels() -> dict:
     qd3 = randn(3, 1, 28, 128, scale=2.0)
     kc3, vc3 = randn(3, 4, M, 128), randn(3, 4, M, 128)
     lens3, base3, col3 = ints(100, 2000, 4950), ints(4950, 4950, 4950), ints(4955, 4955, 4955)
-    results["decode_attention"].append(_compare(
-        "K2 decode S=3 lens (100, 2000, 4950) band [4950, 4955]",
-        lambda: dec.decode_attention(qd3, kc3, vc3, lens3, (base3, col3)),
-        lambda: dec.decode_attention_ref(qd3, kc3, vc3, lens3, (base3, col3)), 1))
+    name = "K2 decode S=3 lens (100, 2000, 4950) band [4950, 4955]"
+    kernel = lambda: dec.decode_attention(qd3, kc3, vc3, lens3, (base3, col3))  # noqa: E731
+    results["decode_attention"].append(_with_splits(name, 3, M, _compare(
+        name, kernel, lambda: dec.decode_attention_ref(qd3, kc3, vc3, lens3, (base3, col3)), 1),
+        kernel))
     denoise = check_q_preproc(randn, ints, results["q_preproc"])
     # the 512 px 3-stream denoise: 1026 rows over lens (37, 0, 37) + the block
     denoise.update(attention_bound([1026] * 3, [37 + 1026, 1026, 37 + 1026], 28, 4, 128, 2, "bf16"))
@@ -311,7 +313,8 @@ def check_kernels() -> dict:
     timings = {
         "flash_block_attention": summary(results["flash_block_attention"], image),
         "flash_block_attention_q_preproc": summary(results["q_preproc"], denoise),
-        "decode_attention": summary(results["decode_attention"], step),
+        "decode_attention": dict(summary(results["decode_attention"], step),
+                                 cases=[r["case"] for r in results["decode_attention"]]),
     }
     timings["flash_block_attention_lse"] = check_return_lse(randn, ints)
     timings["flash_cache_block_attention"] = check_cache_block(randn, ints)
@@ -319,6 +322,38 @@ def check_kernels() -> dict:
     timings["silu_mul_quant"] = check_silu_mul_quant(randn)
     timings["w4_matmul"] = check_w4_matmul(g, randn)
     return timings
+
+
+def graph_ms(fn) -> float:
+    """Milliseconds per call in a CUDA graph of BACK_TO_BACK calls: the
+    card's time alone, where a run of calls reads the wrapper's host time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(BACK_TO_BACK):
+            fn()
+    return cuda_ms(graph.replay, iters=5) / BACK_TO_BACK
+
+
+def _with_splits(name, S, M, row, kernel_fn) -> dict:
+    """The split plan the decode kernels launched with at this shape (28/4
+    heads), printed, and kept in the row beside its time per call in a run
+    and in a CUDA graph (the decode kernels take less time than their
+    wrapper's host work, so only the graph shows the card's time)."""
+    n_split, split_len = dec.plan_splits(S, 4, M)
+    row["ms_in_graph"] = graph_ms(kernel_fn)
+    print(f"    {n_split} split(s) of {split_len} keys: grid ({n_split}, 4, {S})"
+          f"{', and a combine launch' if n_split > 1 else ''}; {row['ms_in_graph']:.4f} ms per "
+          f"call in a CUDA graph of {BACK_TO_BACK}", flush=True)
+    row.update(n_split=n_split, split_len=split_len)
+    row["case"] = dict(case=name, n_split=n_split, ms_back_to_back=row["ms_back_to_back"],
+                       ms_in_graph=row["ms_in_graph"])
+    return row
 
 
 def _rand_int8(g, *shape, lo=-127, hi=128):
@@ -571,10 +606,11 @@ def check_decode_int8(g, randn, ints) -> dict:
         vs = torch.rand(S, 4, M, generator=g, device="cuda") * 0.02 + 0.002
         ln = ints(*lens)
         band = (ln, ln) if base is None else (ints(*base), ints(*col))
-        r = _compare(
-            f"K2-int8 decode {name}",
-            lambda: dec.decode_attention(q, k, v, ln, band, k_scale=ks, v_scale=vs),
-            lambda: dec.decode_attention_ref(q, k, v, ln, band, ks, vs), 1, row_atol=True)
+        kernel = lambda: dec.decode_attention(q, k, v, ln, band, k_scale=ks, v_scale=vs)  # noqa: E731
+        r = _with_splits(f"K2-int8 decode {name}", S, M, _compare(
+            f"K2-int8 decode {name}", kernel,
+            lambda: dec.decode_attention_ref(q, k, v, ln, band, ks, vs), 1, row_atol=True),
+            kernel)
         keys = [a + max(0, c - max(a, b) + 1)  # the context, and the band past it
                 for a, b, c in zip(lens, band[0].tolist(), band[1].tolist())]
         r.update(attention_bound([1] * S, keys, 28, 4, 128, 1, "bf16", scales=True))
@@ -583,6 +619,7 @@ def check_decode_int8(g, randn, ints) -> dict:
         rows.append(r)
     out = dict(rows[0])
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    out["cases"] = [r["case"] for r in rows]
     return out
 
 
@@ -930,6 +967,7 @@ EXTRA_KEYS = (
     "one_row_ms", "one_row_ms_back_to_back", "tiles_skipped", "max_abs_err_lse",
     "cache_partial_t2i_ms", "cache_partial_edit_ms", "library_note", "concat_k1b_ms",
     "k_island_ms", "concat_copy_ms", "k1b_on_concat_ms", "q_island_only_ms", "launches_from",
+    "n_split", "split_len", "cases", "ms_in_graph",
 )
 
 COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches there)

@@ -324,10 +324,17 @@ def test_flash_cache_block_raises(gen):
 
 
 DECODE = [
-    # (M, H, Hk, lens, base, col)
-    (5632, 28, 4, (4950,), (4950,), (4960,)),
+    # (M, H, Hk, lens, base, col); the kernel's splits (ops.decode_attention.plan_splits)
+    # are noted where the case is about them
+    (5632, 28, 4, (4950,), (4950,), (4960,)),  # 44 splits of 128
     (700, 28, 4, (10, 300, 650), (650, 650, 650), (699, 699, 699)),
     (257, 16, 2, (256, 0), (256, 0), (256, 0)),
+    (3000, 28, 4, (1234,), (1234,), (1234,)),  # lens not a multiple of the split (64)
+    # 30 splits of 192: stream 0's gap [100, 4950) spans 25 whole splits
+    (5632, 28, 4, (100, 4000), (4950, 4950), (4955, 4955)),
+    (1024, 28, 4, tuple(776 + (i % 7) * 8 for i in range(48)),  # batched decode, 2 splits
+     tuple(776 + (i % 7) * 8 for i in range(48)), tuple(776 + (i % 7) * 8 for i in range(48))),
+    (40, 28, 4, (30, 3), (30, 20), (35, 19)),  # below one tile; stream 1 band empty
 ]
 
 
@@ -342,6 +349,47 @@ def test_decode_attention_matches_plain(gen, case):
     got = dec.decode_attention(q, k, v, _ints(*lens), band)
     assert dec.counts["kernel"] == before + 1
     _assert_close(got, dec.decode_attention_ref(q, k, v, _ints(*lens), band))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_attention_reads_a_scalar_band_tensor(gen, quantized):
+    """The decode loop's band: 0-dim int32 tensors on the card, one value for
+    every stream, read as they are (no copy kernel)."""
+    S, M = 3, 1500
+    q = _randn(gen, S, 1, 28, 128, scale=2.0)
+    if quantized:
+        k, v = _int8(gen, S, 4, M, 128), _int8(gen, S, 4, M, 128)
+        scales = [torch.rand(S, 4, M, generator=gen, device="cuda") * 0.02 + 0.005
+                  for _ in range(2)]
+    else:
+        k, v, scales = _randn(gen, S, 4, M, 128), _randn(gen, S, 4, M, 128), [None, None]
+    lens = _ints(10, 700, 1200)
+    base = lens.max()
+    band = (base, base + 7)
+    assert band[0].dim() == 0 and band[1].dtype == torch.int32
+    got = dec.decode_attention(q, k, v, lens, band, *scales)
+    want = dec.decode_attention_ref(q, k, v, lens, (_ints(1200, 1200, 1200), _ints(1207, 1207, 1207)),
+                                    *scales)
+    _assert_close(got, want)
+
+
+@pytest.mark.parametrize("M", [300, 5632])
+def test_decode_attention_masked_rows_never_reach_the_output(gen, M):
+    """NaN in every cache row that no stream sees (the gap [lens, base), past
+    the band, past the longest stream): the kernel zero-fills those rows
+    instead of reading them, and weighs them 0 by selection."""
+    S, H, Hk = 2, 28, 4
+    q = _randn(gen, S, 1, H, 128, scale=2.0)
+    k, v = _randn(gen, S, Hk, M, 128), _randn(gen, S, Hk, M, 128)
+    lens, base, col = _ints(M // 10, 7), _ints(M // 2, M // 2), _ints(M // 2 + 5, M // 2 + 5)
+    want = dec.decode_attention_ref(q, k, v, lens, (base, col))
+    j = torch.arange(M, device="cuda")
+    masked = ~((j[None] < lens[:, None]) | ((j[None] >= base[:, None]) & (j[None] <= col[:, None])))
+    k[masked[:, None].expand(S, Hk, M)] = float("nan")
+    v[masked[:, None].expand(S, Hk, M)] = float("nan")
+    got = dec.decode_attention(q, k, v, lens, (base, col))
+    assert torch.isfinite(got).all()
+    _assert_close(got, want)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):

@@ -385,6 +385,90 @@ class TestDecodeAttention:
         want = jatt.gqa_attention_hm(*map(jnp.asarray, (q, k, v)), jnp.asarray(mask))
         _close(got, want)
 
+    # (plan, lens, base, col): plans of 1, 2 and 7 splits and the planner's own
+    # (11 splits of one tile); the band past a gap [lens, base) of several
+    # whole splits, splits past max(lens, col + 1), lens not a split multiple
+    SPLIT_CASES = [
+        ((1, 704), (7, 45, 100), (650,) * 3, (660,) * 3),
+        ((2, 384), (7, 45, 400), (650,) * 3, (660,) * 3),
+        ((7, 128), (7, 300, 130), (650,) * 3, (660,) * 3),
+        (None, (0, 45, 699), (64, 650, 699), (127, 660, 699)),
+    ]
+
+    @pytest.mark.parametrize("case", SPLIT_CASES, ids=["1", "2", "7", "planner"])
+    def test_split_ref_matches_plain_and_jax_kernel(self, case):
+        """The kernel's partition and combine (``decode_attention_split_ref``)
+        against the one-pass plain version and the Pallas kernel in interpret
+        mode, fp32, atol 1e-5 (sums in another order)."""
+        plan, lens, base, col = case
+        S, H, Hk, D, M = 3, 8, 2, 16, 700
+        rng = np.random.default_rng(11)
+        q, k, v = _rand(rng, S, 1, H, D), _rand(rng, S, Hk, M, D), _rand(rng, S, Hk, M, D)
+        lens, base, col = (np.asarray(a, np.int32) for a in (lens, base, col))
+        t = [torch.from_numpy(a) for a in (q, k, v, lens, base, col)]
+        got = dec.decode_attention_split_ref(*t[:4], (t[4], t[5]), plan=plan)
+        if plan is None:
+            assert dec.plan_splits(S, Hk, M) == (11, 64)
+        _close(got, dec.decode_attention_ref(*t[:4], (t[4], t[5])))
+        want = j_decode(*map(jnp.asarray, (q, k, v, lens)), (jnp.asarray(base), jnp.asarray(col)),
+                        interpret=True)
+        _close(got, want)
+
+    @pytest.mark.parametrize("plan", [(1, 192), (3, 64), None])
+    def test_split_ref_stream_that_sees_nothing_gives_zero(self, plan):
+        """lens 0 and an empty band: every split weighs 0 and the stream gives
+        0, as the Pallas kernel gives where its sweep is empty (band (0, -1));
+        an inverted band (10, 5) gives 0 too. The other stream is unaffected."""
+        S, H, Hk, D, M = 3, 4, 2, 8, 150
+        rng = np.random.default_rng(12)
+        q, k, v = _rand(rng, S, 1, H, D), _rand(rng, S, Hk, M, D), _rand(rng, S, Hk, M, D)
+        lens, base, col = (np.asarray(a, np.int32) for a in ((90, 0, 0), (95, 0, 10), (99, -1, 5)))
+        t = [torch.from_numpy(a) for a in (q, k, v, lens, base, col)]
+        got = dec.decode_attention_split_ref(*t[:4], (t[4], t[5]), plan=plan)
+        assert (got[1:] == 0).all()
+        _close(got[:1], dec.decode_attention_ref(t[0][:1], t[1][:1], t[2][:1], t[3][:1],
+                                                 (t[4][:1], t[5][:1])))
+        want = np.asarray(j_decode(*map(jnp.asarray, (q[:2], k[:2], v[:2], lens[:2])),
+                                   (jnp.asarray(base[:2]), jnp.asarray(col[:2])), interpret=True))
+        _close(got[:2], want)
+
+    @pytest.mark.parametrize("shape,want", [
+        ((1, 4, 5632), (44, 128)),  # chat decode at the 980 px request's cache
+        ((3, 4, 5632), (22, 256)),
+        ((48, 4, 1024), (2, 512)),  # batched decode
+        ((1, 4, 257), (5, 64)),
+        ((1, 4, 40), (1, 64)),  # below one tile: the kernel writes the output itself
+    ])
+    def test_plan_splits_at_the_paths_shapes(self, shape, want):
+        S, Hk, M = shape
+        n_split, split_len = dec.plan_splits(S, Hk, M)
+        assert (n_split, split_len) == want
+        assert split_len % dec.SPLIT_TILE == 0
+        assert (n_split - 1) * split_len < M <= n_split * split_len  # no split wholly past M
+        assert n_split == 1 or n_split * S * Hk <= 2 * dec.TARGET_CTAS
+
+    def test_index_reads_a_scalar_band_in_place(self):
+        """A 0-dim int32 tensor on the device is passed to the kernel as it is,
+        flagged as one value for every stream; anything else becomes int32 [S]."""
+        dev = torch.device("cpu")
+        base = torch.tensor(9, dtype=torch.int32)
+        assert dec._index(base, 3, dev) == (base, 1)
+        t, bcast = dec._index(torch.tensor(9), 3, dev)  # int64: converted and expanded
+        assert bcast == 0 and t.dtype == torch.int32 and t.tolist() == [9, 9, 9]
+        lens = torch.tensor([1, 2, 3], dtype=torch.int32)
+        assert dec._index(lens, 3, dev) == (lens, 0)
+        t, bcast = dec._index(4, 3, dev)
+        assert bcast == 0 and t.tolist() == [4, 4, 4]
+
+    def test_plan_splits_reads_no_tensor(self):
+        """The planner takes shapes as Python ints only: a tensor (which could
+        be a device tensor, whose read would synchronise the host) raises."""
+        for bad in (torch.tensor(5632), torch.tensor([1]), 5632.0, True, np.int64(5632)):
+            with pytest.raises(TypeError, match="positive Python ints"):
+                dec.plan_splits(1, 4, bad)
+        with pytest.raises(TypeError):
+            dec.plan_splits(0, 4, 64)
+
     def test_int8_scales_raise(self):
         """Scales and an int8 cache come together: a float cache with scales,
         or an int8 cache without, raises (the int8 cache itself is served:
@@ -408,6 +492,7 @@ class TestWrappers:
         assert _launch.per_stream(torch.tensor(5, dtype=torch.int64), 2, dev).tolist() == [5, 5]
         t = _launch.per_stream(torch.tensor([1, 2]), 2, dev)
         assert t.dtype == torch.int32 and t.is_contiguous() and t.tolist() == [1, 2]
+        assert _launch.per_stream(t, 2, dev) is t  # already int32 [S] on the device
         with pytest.raises(ValueError, match=r"\[3\]"):
             _launch.per_stream(torch.tensor([1, 2]), 3, dev)
 

@@ -264,6 +264,31 @@ def test_int4_kv_cache_raises_naming_the_roadmap():
     assert not InterleaveInferencer(model, None, {}).init_gen_context().cache.quantized
 
 
+def test_positional_parameters_follow_the_jax_inferencer():
+    """The parameters both inferencers take come in the same relative order,
+    and the port's tail is keyword-only, so a positional caller of either
+    binds each transform where the other does."""
+    import inspect
+
+    jax_params = list(inspect.signature(JaxInferencer.__init__).parameters)
+    port = inspect.signature(InterleaveInferencer.__init__).parameters
+    shared = [n for n in port if n in jax_params]
+    assert shared == sorted(shared, key=jax_params.index)
+    assert shared[:6] == ["self", "tokenizer", "new_token_ids", "vae_transform", "vit_transform", "seed"]
+    positional = [n for n, p in port.items() if p.kind == p.POSITIONAL_OR_KEYWORD]
+    assert positional == ["self", "model", "tokenizer", "new_token_ids", "vae_transform",
+                          "vit_transform", "seed"]
+
+    model = from_jax_params(
+        jax.tree.map(np.asarray, jbagel.init_params(jax.random.PRNGKey(1), CFG)),
+        port_config(CFG), device="cpu")
+    vae_t, vit_t = timaging.ImageTransform(32, 8, 8, 1024), timaging.ImageTransform(32, 8, 2, 1024)
+    inf = InterleaveInferencer(model, None, {}, vae_t, vit_t, 3)
+    assert inf.vae_transform is vae_t and inf.vit_transform is vit_t
+    with pytest.raises(TypeError):
+        InterleaveInferencer(model, None, {}, vae_t, vit_t, 3, None)
+
+
 @pytest.fixture(scope="module")
 def gen_pair():
     params = jbagel.init_params(jax.random.PRNGKey(0), GEN_CFG, llm2vae_zero=False)

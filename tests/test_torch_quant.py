@@ -393,6 +393,46 @@ class TestDecodeInt8:
                                    k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
         assert torch.isfinite(got).all()
 
+    @pytest.mark.parametrize("plan", [(1, 320), (2, 192), (7, 64), None],
+                             ids=["1", "2", "7", "planner"])
+    def test_split_ref_matches_plain_and_jax_kernel(self, plan):
+        """The kernel's partition and combine over an int8 cache
+        (``decode_attention_split_ref``): splits wholly in the gap [lens, base)
+        and past max(lens, col + 1), against the one-pass plain version and
+        the Pallas kernel in interpret mode, fp32, atol 1e-5."""
+        q, k, v, ks, vs = self._inputs(16)
+        lens = np.asarray([7, 45, 100], np.int32)
+        base, col = np.full(3, 200, np.int32), np.full(3, 215, np.int32)
+        t = [torch.from_numpy(a) for a in (q, k, v, lens, base, col, ks, vs)]
+        got = dec.decode_attention_split_ref(*t[:4], (t[4], t[5]), t[6], t[7], plan=plan)
+        want = dec.decode_attention_ref(*t[:4], (t[4], t[5]), t[6], t[7])
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+        jwant = j_decode(*map(jnp.asarray, (q, k, v, lens)), (jnp.asarray(base), jnp.asarray(col)),
+                         k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs), interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jwant), rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("plan", [(1, 320), (5, 64)])
+    def test_split_ref_nan_scales_on_masked_keys(self, plan):
+        """NaN k and v scales on every masked key (the gap, past the band, the
+        whole of a stream that sees nothing) never reach the output: the same
+        as with finite scales there, and zeros for the empty stream."""
+        q, k, v, ks, vs = self._inputs(17)
+        lens, base, col = (np.asarray(a, np.int32) for a in ((30, 0, 80), (150, 0, 150),
+                                                             (160, -1, 150)))
+        j = np.arange(300)
+        masked = ~((j[None] < lens[:, None]) | ((j[None] >= base[:, None]) & (j[None] <= col[:, None])))
+        nks, nvs = ks.copy(), vs.copy()
+        nks[np.broadcast_to(masked[:, None], ks.shape)] = np.nan
+        nvs[np.broadcast_to(masked[:, None], vs.shape)] = np.nan
+        t = [torch.from_numpy(a) for a in (q, k, v, lens, base, col)]
+        got = dec.decode_attention_split_ref(*t[:4], (t[4], t[5]), torch.from_numpy(nks),
+                                             torch.from_numpy(nvs), plan=plan)
+        assert torch.isfinite(got).all() and (got[1] == 0).all()
+        keep = [0, 2]
+        want = dec.decode_attention_ref(*(x[keep] for x in t[:4]), (t[4][keep], t[5][keep]),
+                                        torch.from_numpy(ks[keep]), torch.from_numpy(vs[keep]))
+        np.testing.assert_allclose(got[keep].numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
     def test_scale_and_dtype_mismatches_raise(self):
         q, k, v, ks, vs = map(torch.from_numpy, self._inputs(15, S=1, M=8))
         lens = torch.zeros(1, dtype=torch.int32)

@@ -74,14 +74,19 @@ class InterleaveInferencer:
         model: Bagel,
         tokenizer,
         new_token_ids: Dict[str, int],
+        vae_transform=None,
         vit_transform=None,
         seed: int = 0,
-        vae_transform=None,
+        *,
+        sp_mesh=None,
         kv_quantized: bool = False,
         kv_bits: int = 8,
-        sp_mesh=None,
     ):
-        """``model``: a Bagel on its device (built ``with_vae`` for image
+        """The positional parameters come in the JAX inferencer's order, with
+        ``model`` in the place of its ``params, cfg``; the rest are keyword-only
+        (the port has no ``mesh``, so a positional tail could not line up).
+
+        ``model``: a Bagel on its device (built ``with_vae`` for image
         generation and VAE image contexts); ``tokenizer``: anything with
         ``encode``/``decode`` whose special tokens went through
         ``unimedvl_tpu_torch.data.tokenizer.add_special_tokens`` (which gave

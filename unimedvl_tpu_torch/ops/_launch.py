@@ -4,6 +4,7 @@ tensor's name."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence, Tuple
 
 import torch
@@ -14,7 +15,11 @@ LOAD_BYTES = 16  # the kernels read rows with 16-byte loads
 def per_stream(x, S: int, device: torch.device) -> torch.Tensor:
     """A Python int, or a scalar or [S] integer tensor, as a contiguous int32
     [S] tensor on ``device``. An int is filled on the device: a host-to-device
-    copy would synchronise the stream."""
+    copy would synchronise the stream. A tensor that already is one comes back
+    as it is, after the fewest checks (the decode loop passes them so)."""
+    if type(x) is torch.Tensor and x.dtype == torch.int32 and x.shape == (S,) \
+            and x.device == device and x.is_contiguous():
+        return x
     if isinstance(x, int):
         return torch.full((S,), x, dtype=torch.int32, device=device)
     t = torch.as_tensor(x, device=device).to(torch.int32).reshape(-1)
@@ -23,6 +28,15 @@ def per_stream(x, S: int, device: torch.device) -> torch.Tensor:
     if t.shape != (S,):
         raise ValueError(f"expected a scalar or [{S}] per-stream value, got {tuple(t.shape)}")
     return t.contiguous()
+
+
+def on_device(index: int):
+    """A guard that makes CUDA device ``index`` current for a launch, or,
+    when it already is (the common case), one that does nothing: the device
+    switch costs several microseconds of host time per launch."""
+    if torch.cuda.current_device() == index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
 
 
 def check_no_grad(kernel: str, names: Sequence[str], tensors: Sequence[torch.Tensor]) -> None:
@@ -40,16 +54,17 @@ def check_no_grad(kernel: str, names: Sequence[str], tensors: Sequence[torch.Ten
         )
 
 
-def check_cuda(names: Sequence[str], tensors: Sequence[torch.Tensor],
-               dtype: torch.dtype) -> None:
-    """Every tensor on the first one's CUDA device, of ``dtype``, with a
-    contiguous last dim that starts on a 16-byte boundary."""
+def check_cuda(names: Sequence[str], tensors: Sequence[torch.Tensor], dtype) -> None:
+    """Every tensor on the first one's CUDA device, of ``dtype`` (one for all,
+    or a sequence with one per tensor), with a contiguous last dim that starts
+    on a 16-byte boundary."""
     device = tensors[0].device
-    for name, t in zip(names, tensors):
-        if t.device != device or t.device.type != "cuda":
+    dtypes = dtype if isinstance(dtype, (tuple, list)) else (dtype,) * len(tensors)
+    for name, t, want in zip(names, tensors, dtypes):
+        if t.device != device or device.type != "cuda":
             raise ValueError(f"{name} must be on {device} (CUDA), got {t.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype} for the kernel, got {t.dtype}")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want} for the kernel, got {t.dtype}")
         if t.stride(-1) != 1 or t.data_ptr() % LOAD_BYTES:
             raise ValueError(f"{name} needs a contiguous, 16-byte aligned last dim")
 
@@ -74,7 +89,7 @@ def kv_strides(name: str, t: torch.Tensor) -> Tuple[int, int, int]:
     kernels read rows of D with 16-byte loads, so each stride is a multiple of
     16 bytes: 8 elements of bf16, 16 of int8."""
     per_load = LOAD_BYTES // t.element_size()
-    strides = (t.stride(0), t.stride(1), t.stride(2))
+    strides = t.stride()[:3]
     if any(s % per_load for s in strides):
         raise ValueError(
             f"{name} strides {t.stride()} are not multiples of {per_load} elements "

@@ -46,10 +46,10 @@ _SIGNATURES = {
         + 2 * ([_I] + [_P] * 4 + [_L] * 2 + [_P]) + [ctypes.c_float, _P]
     ),
     "unimedvl_decode_attention_bf16": (
-        [_P] * 7 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _P]
+        [_P] * 8 + [_I] * 8 + [_L] * 6 + [ctypes.c_float, _P]
     ),
     "unimedvl_decode_attention_int8": (
-        [_P] * 9 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _P]
+        [_P] * 10 + [_I] * 8 + [_L] * 6 + [ctypes.c_float, _P]
     ),
     "unimedvl_silu_mul_quant": [_P] * 4 + [_I] * 2 + [_L] * 2 + [_P],
     "unimedvl_w4_matmul": [_P] * 5 + [_I] * 5 + [_P],
