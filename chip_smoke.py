@@ -84,7 +84,17 @@ MEAN_ABS_TOL = 2e-3
 # the whole path with kernels vs with the plain versions: first-step logits of
 # a chat request, first-step post-CFG velocity of a generation request
 LOGITS_COS_TOL = 0.999
-VELOCITY_COS_TOL = 0.999
+# The velocity's bound comes from its noise floor, measured on an H100 80GB
+# HBM3 (PERF.md): the plain versions in bf16 (p and q's island rounded to
+# bf16, as the kernels round them) against the plain versions with fp32
+# attention read cosine 0.999104 on one device and 0.999093 on the
+# sequence-parallel path, 1 - cos = 9.1e-4: bf16 rounding inside attention,
+# amplified by CFG (text 3.0, image 1.5, renorm). The kernels read 0.999092 and
+# 0.999062 against fp32 attention, on the floor; the sequence-parallel program
+# reads 0.998981-0.998999 against the single-device one in every variant, fp32
+# attention included (its sums run in another order). The bound allows twice
+# the floor, 1 - 2 * 9.07e-4; it also holds the SP path to the single device.
+VELOCITY_COS_TOL = 1 - 2 * (1 - 0.999093)
 # K1c's log-sum-exp against the plain version's: absolute, where that is finite;
 # where it is float32 min (a row that sees nothing) the kernel's must equal it
 LSE_ATOL = 1e-3
@@ -246,10 +256,17 @@ def check_kernels() -> dict:
     T = 5120
     q, k, v = randn(1, T, 16, 72, scale=2.0), randn(1, T, 16, 72), randn(1, T, 16, 72)
     lens, bstart = ints(4900), ints(T)
-    results["flash_block_attention"].append(_compare(
+    vit = _compare(
         "K1a ViT T=5120 D=72 non-causal, 4900 valid",
         lambda: fa.flash_block_attention(q, k, v, lens, bstart, False),
-        lambda: fa.flash_block_attention_ref(q, k, v, lens, bstart, False), 4900))
+        lambda: fa.flash_block_attention_ref(q, k, v, lens, bstart, False), 4900)
+    vit.update(attention_bound([4900], [4900], 16, 16, 72, 2, "bf16"))
+    jv = torch.arange(T, device=dev)
+    vit["library_ms"] = sdpa_ms(q, k.transpose(1, 2), v.transpose(1, 2),
+                                (jv < 4900)[None, None].expand(1, T, T))
+    print(f"    bound {vit['bound_ms']:.4f} ms by {vit['bound_by']}; SDPA, same mask "
+          f"{vit['library_ms']:.3f} ms", flush=True)
+    results["flash_block_attention"].append(vit)
     # K1a, LLM image block: T = 5122 over a 5632-column head-major cache, 4902 valid
     M = 5632
     q = randn(1, 5122, 28, 128, scale=2.0)
@@ -311,7 +328,9 @@ def check_kernels() -> dict:
         return out
 
     timings = {
-        "flash_block_attention": summary(results["flash_block_attention"], image),
+        "flash_block_attention": dict(summary(results["flash_block_attention"], image),
+                                      vit={key: vit[key] for key in (
+                                          "ms", "ms_back_to_back", "bound_ms", "library_ms")}),
         "flash_block_attention_q_preproc": summary(results["q_preproc"], denoise),
         "decode_attention": dict(summary(results["decode_attention"], step),
                                  cases=[r["case"] for r in results["decode_attention"]]),
@@ -967,7 +986,7 @@ EXTRA_KEYS = (
     "one_row_ms", "one_row_ms_back_to_back", "tiles_skipped", "max_abs_err_lse",
     "cache_partial_t2i_ms", "cache_partial_edit_ms", "library_note", "concat_k1b_ms",
     "k_island_ms", "concat_copy_ms", "k1b_on_concat_ms", "q_island_only_ms", "launches_from",
-    "n_split", "split_len", "cases", "ms_in_graph",
+    "n_split", "split_len", "cases", "ms_in_graph", "vit",
 )
 
 COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches there)
@@ -1212,14 +1231,33 @@ def _first_step_velocity(inf: InterleaveInferencer, mesh=None, edit: bool = Fals
     return (noise - x1) / float(dts[0])
 
 
-def _with_plain_versions(fn):
-    """fn() with every kernel call swapped for its plain version."""
-    swapped = [(siglip, "flash_block_attention", fa.flash_block_attention_ref),
-               (qwen2_mot, "flash_block_attention", fa.flash_block_attention_ref),
-               (qwen2_mot, "decode_attention", dec.decode_attention_ref),
+def _upcast(ref):
+    """An attention plain version with its float tensor inputs upcast to fp32,
+    so that q's island and p are not rounded to bf16 inside it; its output is
+    rounded back to q's dtype once, as the model's next projection needs."""
+    def up(x):
+        return x.float() if torch.is_tensor(x) and x.is_floating_point() else x
+
+    def call(q, *args, **kw):
+        out = ref(q.float(), *map(up, args), **{key: up(val) for key, val in kw.items()})
+        if isinstance(out, tuple):  # (out, lse)
+            return out[0].to(q.dtype), out[1]
+        return out.to(q.dtype)
+    return call
+
+
+def _with_plain_versions(fn, fp32_attention: bool = False):
+    """fn() with every kernel call swapped for its plain version; with
+    ``fp32_attention`` the attention ones run in fp32 (``_upcast``)."""
+    flash = _upcast(fa.flash_block_attention_ref) if fp32_attention else \
+        fa.flash_block_attention_ref
+    decode = _upcast(dec.decode_attention_ref) if fp32_attention else dec.decode_attention_ref
+    swapped = [(siglip, "flash_block_attention", flash),
+               (qwen2_mot, "flash_block_attention", flash),
+               (qwen2_mot, "decode_attention", decode),
                (qwen2_mot, "silu_mul_quant", aq.silu_mul_quant_ref),
                (qwen2_mot, "packed_train_attention", fat.packed_train_attention_ref),
-               (sp_denoise, "flash_block_attention", fa.flash_block_attention_ref),
+               (sp_denoise, "flash_block_attention", flash),
                (quant, "w4_matmul", w4.w4_matmul_ref)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swapped]
     for mod, name, f in swapped:
@@ -1231,17 +1269,29 @@ def _with_plain_versions(fn):
             setattr(mod, name, f)
 
 
-def check_velocity_against_plain(inf: InterleaveInferencer) -> None:
-    got = _first_step_velocity(inf)
-    want = _with_plain_versions(lambda: _first_step_velocity(inf))
-    cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0).item()
-    finite = bool(torch.isfinite(got).all())
-    print(f"end to end (text-to-image {GEN_SIZE[0]}x{GEN_SIZE[1]}): first-step post-CFG "
-          f"velocity, kernels vs plain: cosine {cos:.6f}, max abs "
-          f"{(got - want).abs().max().item():.4f} (velocity std {want.std().item():.3f}), "
-          f"finite {finite}", flush=True)
-    if not finite or got.shape != want.shape or cos < VELOCITY_COS_TOL:
-        raise SystemExit("chip_smoke: the kernel path's velocity disagrees with the plain path's")
+def check_velocity_against_plain(inf: InterleaveInferencer, mesh=None) -> dict:
+    """The first post-CFG velocity on the same inputs through the kernels,
+    the plain versions (bf16 in and out, p rounded to bf16 before P V, as the
+    kernels round it) and the plain versions with the attention in fp32;
+    asserts kernels vs plain and kernels vs fp32 at VELOCITY_COS_TOL and
+    prints the noise floor, plain bf16 vs fp32. Returns the three velocities."""
+    v = {"kernels": _first_step_velocity(inf, mesh),
+         "plain": _with_plain_versions(lambda: _first_step_velocity(inf, mesh)),
+         "fp32": _with_plain_versions(lambda: _first_step_velocity(inf, mesh), True)}
+    cos = {pair: _cosine(v[pair[0]], v[pair[1]])
+           for pair in (("kernels", "plain"), ("kernels", "fp32"), ("plain", "fp32"))}
+    path = "the sequence-parallel path" if mesh is not None else \
+        f"text-to-image {GEN_SIZE[0]}x{GEN_SIZE[1]}"
+    print(f"end to end ({path}): first-step post-CFG velocity (std "
+          f"{v['fp32'].std().item():.3f}), cosine kernels vs plain "
+          f"{cos['kernels', 'plain']:.6f}, kernels vs fp32 attention "
+          f"{cos['kernels', 'fp32']:.6f}; the noise floor, plain bf16 vs fp32 attention "
+          f"{cos['plain', 'fp32']:.6f}; max abs kernels vs fp32 "
+          f"{(v['kernels'] - v['fp32']).abs().max().item():.4f}", flush=True)
+    if (not bool(torch.isfinite(v["kernels"]).all()) or v["kernels"].shape != v["fp32"].shape
+            or min(cos[("kernels", "plain")], cos[("kernels", "fp32")]) < VELOCITY_COS_TOL):
+        raise SystemExit(f"chip_smoke: the velocity of {path} disagrees with the plain versions'")
+    return v
 
 
 def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1377,18 +1427,12 @@ def run_sp_generation(inf: InterleaveInferencer, mesh, plain_rows: dict) -> dict
     if not finite or x_sp.shape != noise.shape or cos < VELOCITY_COS_TOL:
         raise SystemExit("chip_smoke: the sequence-parallel denoise's latent disagrees with "
                          "the single-device denoise's")
-    got = _first_step_velocity(inf, mesh)
-    want = _with_plain_versions(lambda: _first_step_velocity(inf, mesh))
-    cos = _cosine(got, want)
-    # the single-device path's velocity is printed beside it and not asserted: two kernel
-    # paths that each sit at about 0.999 from the plain versions sit further from each other
-    print(f"end to end: first-step post-CFG velocity of the sequence-parallel path, kernels vs "
-          f"plain versions: cosine {cos:.6f}, max abs {(got - want).abs().max().item():.4f} "
-          f"(velocity std {want.std().item():.3f}); vs the single-device kernel path's: cosine "
-          f"{_cosine(got, _first_step_velocity(inf)):.6f}", flush=True)
-    if not bool(torch.isfinite(got).all()) or got.shape != want.shape or cos < VELOCITY_COS_TOL:
+    got = check_velocity_against_plain(inf, mesh)["kernels"]
+    cos = _cosine(got, _first_step_velocity(inf))
+    print(f"    vs the single-device kernel path's velocity: cosine {cos:.6f}", flush=True)
+    if cos < VELOCITY_COS_TOL:
         raise SystemExit("chip_smoke: the sequence-parallel path's velocity disagrees with the "
-                         "plain versions'")
+                         "single-device path's")
     return launches
 
 

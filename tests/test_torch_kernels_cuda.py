@@ -323,6 +323,132 @@ def test_flash_cache_block_raises(gen):
                                        cache_head_major=True)
 
 
+# The sweep visits only the key tiles with a visible key for some row of a CTA
+# (ops.flash_attention.sweep_plan): 64 keys a tile, 128 query rows a CTA (two
+# warpgroups on wgmma) at D 72 and 128.
+SWEEP = [
+    # (S, T, M, H, Hk, D, lens, bstart, q_valid_len, causal)
+    (3, 1026, 1538, 28, 4, 128, (37, 0, 37), (512, 512, 512), None, False),  # K1b's gap
+    (2, 200, 700, 8, 2, 128, (37, 100), (333, 301), (200, 150), True),  # causal, off the grid
+    (2, 200, 700, 8, 2, 128, (37, 100), (333, 301), (200, 150), False),
+    (2, 130, 500, 16, 16, 72, (61, 0), (300, 77), (130, 100), False),  # D 72 with a block
+    (1, 1, 70, 28, 4, 128, (33,), (33,), (1,), True),  # T 1
+    (1, 1, 70, 16, 16, 72, (33,), (33,), (1,), False),
+    (2, 129, 400, 8, 2, 128, (129, 0), (129, 0), (129, 129), True),  # T = 128 + 1
+    (2, 65, 300, 8, 8, 72, (0, 200), (0, 200), (65, 65), True),  # one warpgroup + 1 row
+]
+
+
+@pytest.mark.parametrize("case", SWEEP)
+def test_flash_sweep_skips_dead_tiles_and_selects_in_straddling_ones(gen, case):
+    """NaN in every key row that no query row sees (the gap between lens and
+    the block, the tail past the block, the rows past a causal row's reach are
+    kept: other rows see them): skipped tiles never reach the output, and the
+    tiles that straddle a boundary zero-fill and select their dead rows."""
+    S, T, M, H, Hk, D, lens, bstart, qvl, causal = case
+    q = _randn(gen, S, T, H, D, scale=2.0)
+    k, v = _randn(gen, S, Hk, M, D), _randn(gen, S, Hk, M, D)
+    qv = _ints(*(qvl or (T,) * S))
+    args = (_ints(*lens), _ints(*bstart), causal)
+    want = fa.flash_block_attention_ref(q, k, v, *args, q_valid_len=qv, kv_head_major=True)
+    j = torch.arange(M, device="cuda")
+    ln, bs = _ints(*lens)[:, None], _ints(*bstart)[:, None]
+    dead = ~((j < ln) | ((j >= bs) & (j < bs + qv[:, None])))  # [S, M]
+    k[dead[:, None].expand(S, Hk, M)] = float("nan")
+    v[dead[:, None].expand(S, Hk, M)] = float("nan")
+    got = fa.flash_block_attention(q, k, v, *args, q_valid_len=qv, kv_head_major=True)
+    for s in range(S):
+        n = (qvl or (T,) * S)[s]
+        assert torch.isfinite(got[s, :n].float()).all()
+        _assert_close(got[s, :n], want[s, :n])
+
+
+@pytest.mark.parametrize("D,pre", [(128, True), (128, False), (72, False)])
+def test_flash_stream_without_keys_never_reads_q(gen, D, pre):
+    """A stream with lens 0 and no block keys (the text-CFG stream's cache
+    partial): its CTAs write zeros and the lse minimum before any load, so
+    NaN in its q (and in its whole k/v) never shows; the other streams agree
+    with the plain version."""
+    S, T, M, H, Hk = 3, 300, 256, 8, 2
+    q = _randn(gen, S, T, H, D, scale=2.0)
+    k, v = _randn(gen, S, Hk, M, D), _randn(gen, S, Hk, M, D)
+    lens = _ints(56, 0, 200)
+    qp = _q_preproc(gen, S, T, True, None) if pre else None
+    kw = dict(q_valid_len=0, kv_head_major=True, q_preproc=qp, return_lse=True)
+    want, want_lse = fa.flash_block_attention_ref(q, k, v, lens, lens, False, **kw)
+    q[1], k[1], v[1] = float("nan"), float("nan"), float("nan")
+    got, got_lse = fa.flash_block_attention(q, k, v, lens, lens, False, **kw)
+    assert (got[1] == 0).all() and (got_lse[1] == NEG_INF).all()
+    assert torch.isfinite(got.float()).all() and torch.isfinite(got_lse).all()
+    _assert_close(got, want)
+    _assert_lse_close(got_lse, want_lse)
+
+
+@pytest.mark.parametrize("D", [72, 128])
+def test_flash_reads_strided_kv_at_both_head_dims(gen, D):
+    """k/v as non-contiguous views: heads and keys strided in a wider
+    buffer ([S, M, Hk, D + 8], not head-major), and every other key of a
+    head-major buffer."""
+    S, T, M, H, Hk = 2, 150, 300, 8, 2
+    q = _randn(gen, S, T, H, D, scale=2.0)
+    lens = _ints(120, 37)
+    wide = _randn(gen, 2, S, M, Hk, D + 8)[..., :D]
+    assert not wide[0].is_contiguous()
+    got = fa.flash_block_attention(q, wide[0], wide[1], lens, lens, True)
+    _assert_close(got, fa.flash_block_attention_ref(q, wide[0], wide[1], lens, lens, True))
+    every_other = _randn(gen, 2, S, Hk, 2 * M, D)[:, :, :, ::2]
+    got = fa.flash_block_attention(q, every_other[0], every_other[1], lens, lens, True,
+                                   kv_head_major=True)
+    _assert_close(got, fa.flash_block_attention_ref(q, every_other[0], every_other[1], lens, lens,
+                                                    True, kv_head_major=True))
+
+
+def test_flash_repeats_are_bit_equal(gen):
+    """K1a (D 72 and 128), K1b with lse and K6 with both islands, twice each
+    on the same inputs: every sum runs in one fixed order, so the outputs are
+    bit-equal."""
+    S, T, M, H, Hk = 3, 300, 700, 8, 2
+    lens = _ints(37, 0, 500)
+    calls = []
+    for D in (72, 128):
+        q, k, v = _randn(gen, S, T, H, D), _randn(gen, S, Hk, M, D), _randn(gen, S, Hk, M, D)
+        calls.append(lambda q=q, k=k, v=v: fa.flash_block_attention(
+            q, k, v, lens, _ints(512, 512, 512), False, kv_head_major=True))
+    qp = _q_preproc(gen, S, T, True, None)
+    calls.append(lambda: fa.flash_block_attention(q, k, v, lens, lens, False, q_valid_len=0,
+                                                  kv_head_major=True, q_preproc=qp,
+                                                  return_lse=True))
+    kb, vb = _randn(gen, S, T, Hk, 128), _randn(gen, S, T, Hk, 128)
+    kvp = {n: _q_preproc(gen, S, T, True, None)[n] for n in ("w_und", "w_gen")}
+    calls.append(lambda: fa.flash_cache_block_attention(q, k, v, kb, vb, lens, False,
+                                                        q_preproc=qp, kv_preproc=kvp,
+                                                        cache_head_major=True))
+    for call in calls:
+        a, b = call(), call()
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)
+
+
+def test_flash_cache_block_skips_the_cache_gap(gen):
+    """K6 reads the cache only below lens: NaN in the cache columns from lens
+    to the capacity, and in the block rows past block_len, never show."""
+    S, T, Tb, H, Hk, M = 3, 258, 1026, 14, 2, 512
+    q = _randn(gen, S, T, H, 128, scale=2.0)
+    kc, vc = _randn(gen, S, Hk, M, 128), _randn(gen, S, Hk, M, 128)
+    kb, vb = _randn(gen, S, Tb, Hk, 128), _randn(gen, S, Tb, Hk, 128)
+    lens, blk = _ints(56, 0, 300), 1000
+    qp = _q_preproc(gen, S, T, True, None)
+    kw = dict(q_preproc=qp, block_len=blk, cache_head_major=True)
+    want = fa.flash_cache_block_attention_ref(q, kc, vc, kb, vb, lens, False, **kw)
+    gap = torch.arange(M, device="cuda")[None] >= lens[:, None]
+    kc[gap[:, None].expand(S, Hk, M)] = float("nan")
+    vc[gap[:, None].expand(S, Hk, M)] = float("nan")
+    kb[:, blk:], vb[:, blk:] = float("nan"), float("nan")
+    got = fa.flash_cache_block_attention(q, kc, vc, kb, vb, lens, False, **kw)
+    assert torch.isfinite(got.float()).all()
+    _assert_close(got, want)
+
+
 DECODE = [
     # (M, H, Hk, lens, base, col); the kernel's splits (ops.decode_attention.plan_splits)
     # are noted where the case is about them

@@ -356,6 +356,143 @@ class TestFlashCacheBlockAttention:
                 j_flash2(jz, jz, jz, jz[:, :n], jz[:, :n], jl, causal, interpret=True, **jkw)
 
 
+# Cases of the kernels' partition of the sweep (the tiles each CTA visits);
+# block regions stay inside M rounded down to the JAX kernel's key block of 32.
+TILED_CASES = [
+    # (name, S, T, M, lens, block_start, q_valid_len, causal, D, q_preproc, return_lse)
+    ("gap of six dead tiles", 2, 130, 600, [40, 100], [450, 450], [130, 130], False, 128, True,
+     False),
+    ("lens 0 streams: empty partials", 3, 150, 256, [0, 77, 0], [0, 77, 0], [0, 0, 0], False,
+     128, True, True),
+    ("causal blocks off the tile grid", 2, 200, 330, [37, 0], [100, 5], [200, 180], True, 128,
+     False, False),
+    ("D 72, padded tail", 2, 160, 160, [160, 61], [160, 160], None, False, 72, False, False),
+    ("D 72, causal, lse", 1, 70, 200, [60], [60], [70], True, 72, False, True),
+]
+
+TILED_K6_CASES = [
+    # (name, S, T, Tb, M, lens, causal, q island, k island: None|"compact"|"own", block_len,
+    #  cache_head_major)
+    ("cache gap, both islands", 2, 70, 70, 300, [37, 0], False, True, "compact", None, True),
+    ("causal block off the grid after a full cache", 1, 100, 100, 130, [129], True, True, None,
+     None, False),
+    ("gathered keys, own k tables", 2, 40, 150, 64, [20, 64], False, True, "own", 131, True),
+]
+
+
+class TestSweepPartition:
+    """The kernels' partition of the sweep in plain torch
+    (``flash_block_attention_tiled_ref``, ``flash_cache_block_attention_tiled_ref``:
+    only the tiles each CTA visits, an online softmax, the early exit of a CTA
+    that sees nothing) against the one-pass plain versions and the Pallas
+    kernels in interpret mode, fp32: rtol 1e-5, atol 2e-5 (sums in another
+    order), lse atol 1e-4, float32-min rows equal."""
+
+    @pytest.mark.parametrize("args,want", [
+        ((1538, 37, 512, 1026, False, 127), 18),  # 512 px denoise: 7 of 25 tiles in the gap
+        ((5632, 0, 0, 4902, False, 127), 77),  # image prefill over the 5632-column cache
+        ((5120, 4900, 5120, 5120, False, 63), 77),  # ViT: the padded tail is not swept
+        ((512, 0, 0, 0, False, 127), 0),  # the text-CFG stream's cache partial: no tile
+        ((5632, 4902, 4902, 40, True, 63), 78),  # causal text block after the image
+        ((600, 40, 450, 130, True, 127), 4),  # causal: rows 0-127 reach keys < 578
+        ((600, 40, 450, 130, True, 63), 3),  # rows 0-63 reach keys < 514
+    ])
+    def test_sweep_plan(self, args, want):
+        plan = fa.sweep_plan(*args)
+        assert len(plan) == want
+        assert plan == sorted(set(plan)) and all(j % fa.TILE_KEYS == 0 for j in plan)
+
+    @pytest.mark.parametrize("case", TILED_CASES, ids=[c[0] for c in TILED_CASES])
+    def test_tiled_ref_matches_plain_and_jax_kernel(self, case):
+        _, S, T, M, lens, bstart, qvl, causal, D, pre, ret_lse = case
+        H, Hk = 4, 2
+        rng = np.random.default_rng(41)
+        q, k, v = _rand(rng, S, T, H, D), _rand(rng, S, Hk, M, D), _rand(rng, S, Hk, M, D)
+        jd, td = _preproc(rng, S, T, D, True) if pre else (None, None)
+        ints = [np.asarray(a, np.int32) for a in (lens, bstart)]
+        qv = None if qvl is None else np.asarray(qvl, np.int32)
+        kw = dict(q_valid_len=None if qv is None else _t(qv), kv_head_major=True, q_preproc=td,
+                  return_lse=ret_lse)
+        before = dict(fa.counts), dict(fa.q_preproc_counts), dict(fa.lse_counts)
+        got = fa.flash_block_attention_tiled_ref(*map(_t, (q, k, v, *ints)), causal, **kw)
+        assert (dict(fa.counts), dict(fa.q_preproc_counts), dict(fa.lse_counts)) == before
+        plain = fa.flash_block_attention_ref(*map(_t, (q, k, v, *ints)), causal, **kw)
+        jax_out = j_flash(*map(jnp.asarray, (q, k, v, *ints)), causal, block_q=32, block_k=32,
+                          interpret=True, q_valid_len=None if qv is None else jnp.asarray(qv),
+                          q_preproc=jd, kv_head_major=True, return_lse=ret_lse)
+        got_out, got_lse = got if ret_lse else (got, None)
+        pairs = [plain, jax_out] if ret_lse else [(plain, None), (jax_out, None)]
+        # q_valid_len 0: a partial without block keys, every query row valid
+        rows = [T if qvl is None or qvl[s] == 0 else qvl[s] for s in range(S)]
+        for want, want_lse in pairs:
+            for s in range(S):
+                np.testing.assert_allclose(got_out[s, :rows[s]], np.asarray(want)[s, :rows[s]],
+                                           rtol=1e-5, atol=2e-5)
+                if ret_lse:
+                    wl = np.asarray(want_lse)[s, :rows[s]]
+                    empty = wl == NEG_INF
+                    gl = got_lse[s, :rows[s]].numpy()
+                    np.testing.assert_array_equal(gl == NEG_INF, empty)
+                    np.testing.assert_allclose(gl[~empty], wl[~empty], rtol=1e-5, atol=1e-4)
+        for s in range(S):
+            if ret_lse and lens[s] == 0 and qvl[s] == 0:  # no tile: zeros, the float32 min
+                assert (got_out[s] == 0).all() and (got_lse[s] == NEG_INF).all()
+
+    @pytest.mark.parametrize("case", TILED_K6_CASES, ids=[c[0] for c in TILED_K6_CASES])
+    def test_cache_block_tiled_ref_matches_plain_and_jax_kernel(self, case):
+        _, S, T, Tb, M, lens, causal, q_pre, k_pre, block_len, hm = case
+        H, Hk, D = 4, 2, 128
+        rng = np.random.default_rng(42)
+        q = _rand(rng, S, T, H, D)
+        cshape = (S, Hk, M, D) if hm else (S, M, Hk, D)
+        kc, vc = _rand(rng, *cshape), _rand(rng, *cshape)
+        kb, vb = _rand(rng, S, Tb, Hk, D), _rand(rng, S, Tb, Hk, D)
+        jq, tq = _preproc(rng, S, T, D, True) if q_pre else (None, None)
+        jk = tk = None
+        if k_pre is not None:
+            jk, tk = _preproc(rng, S, Tb, D, True, Tb - 1 if k_pre == "own" else None)
+            if k_pre == "compact":  # weights only: tables and end row default to q's
+                jk = {n: jk[n] for n in ("w_und", "w_gen")}
+                tk = {n: tk[n] for n in ("w_und", "w_gen")}
+        ln = np.asarray(lens, np.int32)
+        kw = dict(q_preproc=tq, kv_preproc=tk, block_len=block_len, cache_head_major=hm)
+        before = dict(fa.cache_block_counts)
+        got = fa.flash_cache_block_attention_tiled_ref(*map(_t, (q, kc, vc, kb, vb, ln)), causal,
+                                                       **kw)
+        assert fa.cache_block_counts == before
+        _close(got, fa.flash_cache_block_attention_ref(*map(_t, (q, kc, vc, kb, vb, ln)), causal,
+                                                       **kw), atol=2e-5)
+        want = j_flash2(*map(jnp.asarray, (q, kc, vc, kb, vb, ln)), causal, block_q=32,
+                        block_k=32, interpret=True, q_preproc=jq, kv_preproc=jk,
+                        block_len=block_len, cache_head_major=hm)
+        _close(got, want, atol=2e-5)
+
+    @pytest.mark.parametrize("D", [72, 128])
+    def test_skipped_and_unreachable_keys_are_never_read(self, D):
+        """NaN in every key row that no query row of a CTA reaches (the gap,
+        the tail, the cache of a stream whose cache partial is empty) and in
+        the q of a stream that sees nothing: the partition skips the dead
+        tiles, zero-fills unreachable rows of the tiles it sweeps, and never
+        reads that q, so the output equals the plain version's on clean data."""
+        S, T, H, Hk, M = 3, 70, 4, 2, 400
+        rng = np.random.default_rng(43)
+        q, k, v = _rand(rng, S, T, H, D), _rand(rng, S, Hk, M, D), _rand(rng, S, Hk, M, D)
+        lens, bstart, qvl = [37, 0, 0], [300, 300, 0], [70, 70, 0]
+        args = (_t(np.asarray(lens, np.int32)), _t(np.asarray(bstart, np.int32)), False)
+        kw = dict(q_valid_len=_t(np.asarray(qvl, np.int32)), kv_head_major=True, return_lse=True)
+        want, want_lse = fa.flash_block_attention_ref(_t(q), _t(k), _t(v), *args, **kw)
+        j = np.arange(M)
+        for s in range(S):
+            dead = ~((j < lens[s]) | ((j >= bstart[s]) & (j < bstart[s] + qvl[s])))
+            k[s][:, dead], v[s][:, dead] = np.nan, np.nan
+        q[2] = np.nan
+        got, got_lse = fa.flash_block_attention_tiled_ref(_t(q), _t(k), _t(v), *args, **kw)
+        assert torch.isfinite(got).all() and torch.isfinite(got_lse).all()
+        _close(got, want, atol=2e-5)
+        _close(got_lse, want_lse, atol=1e-4)
+        assert (got[2] == 0).all() and (got_lse[2] == NEG_INF).all()
+
+
 class TestDecodeAttention:
     @pytest.mark.parametrize("M", [130, 300])
     def test_plain_matches_jax_kernel(self, M):

@@ -17,68 +17,55 @@
 //     block rows, and is rounded to bf16 before the product, so it equals the k a caller would
 //     have processed outside and written out; the processed k never reaches device memory.
 //
-// What bounds it on the H100: as K1 (flash_block_attention.cu), about 64 flops per byte of K/V
+// What bounds it on the H100: as K1 (flash_block_attention.cu), 64-128 flops per byte of K/V
 // staged, so the tensor cores' rate, not HBM's. What K6 saves is outside the kernel: the
 // caller's copy of the whole cache slice beside the block (2 * (lens + Tb) * Hk * D bf16 written
 // and read again per layer) and, with k pre-processing, the fp32 k island's passes over the block.
-// What the design does about it: the CTA, tiles and sweep are K1's (flash_common.cuh); the sweep
-// runs twice on one running softmax state, first over the cache up to lens[s], then over the
-// block, each array read in place through its own strides. The k island runs on the K tile in
-// shared memory after its load, once per CTA and tile: every query tile and head of a group
-// repeats it (T / 64 * G times per block row), which is the price of keeping it out of device
-// memory in this simple form. Later work: as K1, and processing each block-K tile once per KV
-// head for all query tiles (a cluster sharing the tile, or a small pre-pass).
+// What the design does about it: K1's CTA and sweep at D = 128 (WgmmaCta in flash_common.cuh:
+// two warpgroups x 64 query rows on wgmma, a TMA-fed ring kept full by a producer warp, only
+// visible tiles swept; one tensor map per array, encoded on the host per launch). The sweep
+// runs twice on one running softmax state, first over the cache tiles below lens[s] (never the
+// dead columns up to the capacity), then over the block, each array read in place through its
+// own strides; a CTA that sees neither writes zeros without loading Q. The producer warp runs
+// on into the block's tiles while the consumers finish the cache's. The k island runs on each
+// block-K tile in shared memory after it lands, once per CTA and tile, by all eight consumer
+// warps (its rows unrolled, a shared rope row read once): every query tile of 128 rows and every
+// head of a group repeats it (T / 128 * G times per block row), the price of keeping the
+// processed k out of device memory without a pre-pass.
 
 #include "flash_common.cuh"
 
 namespace {
 
 using namespace flash;
-
-constexpr int D = 128;
-constexpr int DP = D + 8;
+using Cta = WgmmaCta<128>;
 
 template <bool kQPre, bool kKPre>
-__global__ void __launch_bounds__(kThreads) flash_cache_block_attention_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
-    const __nv_bfloat16* __restrict__ vc, const __nv_bfloat16* __restrict__ kb,
-    const __nv_bfloat16* __restrict__ vb, __nv_bfloat16* __restrict__ out,
-    const int* __restrict__ lens, int T, int H, int Hk, int M, int Tb, int block_len,
-    long long kc_ss, long long kc_sh, long long kc_sm, long long vc_ss, long long vc_sh,
-    long long vc_sm, long long kb_ss, long long kb_sh, long long kb_sm, long long vb_ss,
-    long long vb_sh, long long vb_sm, int causal, float scale, Preproc qpre, Preproc kpre) {
-  __shared__ __align__(16) __nv_bfloat16 s_qk[kBM * DP];  // the Q tile, then each K tile
-  __shared__ __align__(16) __nv_bfloat16 s_v[kBN * DP];
-
-  const int s = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBM;
+__global__ void __launch_bounds__(Cta::kThreads, Cta::kMinBlocks)
+    flash_cache_block_attention_kernel(
+        const bf16* __restrict__ q, const __grid_constant__ CUtensorMap kc,
+        const __grid_constant__ CUtensorMap vc, const __grid_constant__ CUtensorMap kb,
+        const __grid_constant__ CUtensorMap vb, bf16* __restrict__ out,
+        const int* __restrict__ lens, int T, int H, int Hk, int M, int Tb, int block_len,
+        int causal, float scale, Preproc qpre, Preproc kpre) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int s = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * Cta::kRows;
   const int hk = h / (H / Hk);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  load_tile<D, D, DP>(s_qk, q + ((long long)s * T * H + h) * D, (long long)H * D, q0, T);
-  __syncthreads();
-  if constexpr (kQPre) {
-    preprocess_tile<DP>(s_qk, qpre, s, q0, T);
-    __syncthreads();
+  const int last_row = min(q0 + Cta::kRows, T) - 1;
+  // the cache: keys below lens[s], nothing else; the block: keys below block_len, causal within
+  // the block when asked
+  const Visibility cache{M, min(lens[s], M), 0, 0, 0};
+  const Visibility block{Tb, 0, 0, min(block_len, Tb), causal};
+  if (plan_tiles(cache, last_row).n == 0 && plan_tiles(block, last_row).n == 0) {
+    store_empty<Cta::D>(out, nullptr, s, T, H, h, q0, Cta::kRows, Cta::kThreads);
+    return;
   }
-  uint32_t qf[D / 16][4];
-  load_q_fragments<D, DP>(qf, s_qk);
-  __syncthreads();
-
-  const int row_a = q0 + warp * 16 + (lane >> 2), row_b = row_a + 8;
-  RowState<D> st;
-  st.init();
-  // the cache: keys below lens[s], nothing else
-  const int ln = min(lens[s], M);
-  sweep_keys<D, D, DP, false>(st, qf, s_qk, s_v, kc + s * kc_ss + hk * kc_sh, kc_sm,
-                              vc + s * vc_ss + hk * vc_sh, vc_sm, M, ln, ln, 0, 0, 0, scale,
-                              row_a, row_b, kpre, s);
-  // the block: keys below block_len, causal within the block when asked
-  const int blk = min(block_len, Tb);
-  const int blk_hi = causal ? min(blk, q0 + kBM) : blk;
-  sweep_keys<D, D, DP, kKPre>(st, qf, s_qk, s_v, kb + s * kb_ss + hk * kb_sh, kb_sm,
-                              vb + s * vb_ss + hk * vb_sh, vb_sm, Tb, blk_hi, 0, 0, blk, causal,
-                              scale, row_a, row_b, kpre, s);
-  store_rows<D>(st, out, nullptr, s, T, H, h, row_a, row_b);
+  const float sl2 = scale * kLog2e;
+  Cta cta(smem, q0, T);
+  cta.load_q(q + ((long long)s * T * H + h) * Cta::D, (long long)H * Cta::D);
+  cta.sweep<kQPre, false>(cache, last_row, &kc, &vc, hk, qpre, kpre, s, sl2);
+  cta.sweep<kQPre, kKPre>(block, last_row, &kb, &vb, hk, qpre, kpre, s, sl2);
+  cta.store(out, nullptr, s, H, h);
 }
 
 struct Strides {
@@ -86,15 +73,24 @@ struct Strides {
 };
 
 template <bool kQPre, bool kKPre>
-void launch(dim3 grid, cudaStream_t stream, const void* q, const void* kc, const void* vc,
-            const void* kb, const void* vb, void* out, const void* lens, int T, int H, int Hk,
-            int M, int Tb, int block_len, Strides a, Strides b, Strides c, Strides d, int causal,
-            float scale, const Preproc& qpre, const Preproc& kpre) {
-  auto bf = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
-  flash_cache_block_attention_kernel<kQPre, kKPre><<<grid, kThreads, 0, stream>>>(
-      bf(q), bf(kc), bf(vc), bf(kb), bf(vb), static_cast<__nv_bfloat16*>(out),
-      static_cast<const int*>(lens), T, H, Hk, M, Tb, block_len, a.ss, a.sh, a.sm, b.ss, b.sh,
-      b.sm, c.ss, c.sh, c.sm, d.ss, d.sh, d.sm, causal, scale, qpre, kpre);
+int launch(dim3 grid, cudaStream_t stream, const void* q, const void* kc, const void* vc,
+           const void* kb, const void* vb, void* out, const void* lens, int S, int T, int H,
+           int Hk, int M, int Tb, int block_len, Strides a, Strides b, Strides c, Strides d,
+           int causal, float scale, const Preproc& qpre, const Preproc& kpre) {
+  static bool smem_set[64] = {};
+  auto* kernel = flash_cache_block_attention_kernel<kQPre, kKPre>;
+  const cudaError_t err = allow_smem(kernel, Cta::kSmemBytes, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap maps[4];
+  if (!encode_kv_map(&maps[0], kc, S, Hk, M, Cta::D, a.ss, a.sh, a.sm) ||
+      !encode_kv_map(&maps[1], vc, S, Hk, M, Cta::D, b.ss, b.sh, b.sm) ||
+      !encode_kv_map(&maps[2], kb, S, Hk, Tb, Cta::D, c.ss, c.sh, c.sm) ||
+      !encode_kv_map(&maps[3], vb, S, Hk, Tb, Cta::D, d.ss, d.sh, d.sm))
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<grid, Cta::kThreads, Cta::kSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), maps[0], maps[1], maps[2], maps[3], static_cast<bf16*>(out),
+      static_cast<const int*>(lens), T, H, Hk, M, Tb, block_len, causal, scale, qpre, kpre);
+  return static_cast<int>(cudaGetLastError());
 }
 
 Preproc make_preproc(const void* w_und, const void* w_gen, const void* cos, const void* sin,
@@ -123,22 +119,20 @@ extern "C" int unimedvl_flash_cache_block_attention_bf16(
     const void* k_w_und, const void* k_w_gen, const void* k_cos, const void* k_sin,
     long long k_tab_ss, long long k_tab_rs, const void* k_end_row, float eps, void* stream) {
   if (S <= 0 || T <= 0 || M <= 0 || Tb <= 0 || Hk <= 0 || H % Hk != 0 || S > 65535 ||
-      H > 65535 || D_ != D || block_len < 0 || (k_pre && !q_pre))
+      H > 65535 || D_ != Cta::D || block_len < 0 || (k_pre && !q_pre))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((T + kBM - 1) / kBM, H, S);
+  const dim3 grid((T + Cta::kRows - 1) / Cta::kRows, H, S);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Preproc qp = make_preproc(q_w_und, q_w_gen, q_cos, q_sin, q_tab_ss, q_tab_rs, q_end_row, eps);
   const Preproc kp = make_preproc(k_w_und, k_w_gen, k_cos, k_sin, k_tab_ss, k_tab_rs, k_end_row, eps);
   const Strides a{kc_ss, kc_sh, kc_sm}, b{vc_ss, vc_sh, vc_sm}, c{kb_ss, kb_sh, kb_sm},
       d{vb_ss, vb_sh, vb_sm};
   if (k_pre)
-    launch<true, true>(grid, st, q, k_cache, v_cache, k_block, v_block, out, lens, T, H, Hk, M, Tb,
-                       block_len, a, b, c, d, causal, scale, qp, kp);
-  else if (q_pre)
-    launch<true, false>(grid, st, q, k_cache, v_cache, k_block, v_block, out, lens, T, H, Hk, M,
-                        Tb, block_len, a, b, c, d, causal, scale, qp, kp);
-  else
-    launch<false, false>(grid, st, q, k_cache, v_cache, k_block, v_block, out, lens, T, H, Hk, M,
-                         Tb, block_len, a, b, c, d, causal, scale, qp, kp);
-  return static_cast<int>(cudaGetLastError());
+    return launch<true, true>(grid, st, q, k_cache, v_cache, k_block, v_block, out, lens, S, T, H,
+                              Hk, M, Tb, block_len, a, b, c, d, causal, scale, qp, kp);
+  if (q_pre)
+    return launch<true, false>(grid, st, q, k_cache, v_cache, k_block, v_block, out, lens, S, T, H,
+                               Hk, M, Tb, block_len, a, b, c, d, causal, scale, qp, kp);
+  return launch<false, false>(grid, st, q, k_cache, v_cache, k_block, v_block, out, lens, S, T, H,
+                              Hk, M, Tb, block_len, a, b, c, d, causal, scale, qp, kp);
 }

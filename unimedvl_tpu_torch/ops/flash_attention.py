@@ -39,7 +39,7 @@ from typing import Optional
 import torch
 
 from unimedvl_tpu_torch.ops import _launch, cuda_build
-from unimedvl_tpu_torch.ops.attention import gqa_attention_hm, gqa_attention_hm_lse
+from unimedvl_tpu_torch.ops.attention import NEG_INF, gqa_attention_hm, gqa_attention_hm_lse
 from unimedvl_tpu_torch.ops.rope import apply_rope_one
 
 # launches of the kernel and calls of the plain version, for showing which
@@ -131,6 +131,148 @@ def flash_block_attention_ref(
         out, lse = gqa_attention_hm_lse(q.float(), k.float(), v.float(), mask)
         return out.to(q.dtype), lse
     return gqa_attention_hm(q.float(), k.float(), v.float(), mask).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' partition of the sweep, in plain torch
+# ---------------------------------------------------------------------------
+
+TILE_KEYS = 64  # keys per tile of the kernels' sweep (csrc/flash_common.cuh, kBN)
+CTA_ROWS = 128  # query rows per CTA: two warpgroups of 64 (WgmmaCta)
+
+
+def sweep_plan(n_keys: int, ln: int, bs: int, qv: int, causal: bool, last_row: int) -> list:
+    """Start keys of the tiles that a CTA whose last query row is
+    ``last_row`` sweeps over one key array (``csrc/flash_common.cuh::
+    plan_tiles``): the tiles of the context [0, ln), then those of the block
+    up to what its rows reach; every tile wholly inside the gap between them
+    or past that end is skipped. Python ints."""
+    ln = min(ln, n_keys)
+    n_ctx = -(-ln // TILE_KEYS) if ln > 0 else 0
+    lo = max(bs, 0)
+    hi = min(bs + (min(qv, last_row + 1) if causal else qv), n_keys)
+    b_lo = max(lo // TILE_KEYS, n_ctx)
+    b_hi = -(-hi // TILE_KEYS) if hi > lo else 0
+    return [t * TILE_KEYS for t in [*range(n_ctx), *range(b_lo, b_hi)]]
+
+
+def _tiled_sweeps(q, arrays, return_lse):
+    """The kernels' arithmetic in fp32: per stream and CTA of query rows, the
+    tiles of ``sweep_plan`` of each key array in turn on one online-softmax
+    state; key rows that no row of the CTA reaches are zero-filled, masked
+    keys weigh 0 by selection, p is rounded to v's dtype before P V. A CTA
+    whose plans are all empty gives zero rows and lse ``NEG_INF`` without
+    touching q. ``arrays``: (k, v, rule) with k/v head-major [S, Hk, N, D] and
+    rule[s] = (n_keys, ln, bs, qv, causal) in Python ints."""
+    S, T, H, D = q.shape
+    Hk = arrays[0][0].shape[1]
+    G, R = H // Hk, CTA_ROWS
+    out = torch.zeros(S, T, H, D, dtype=torch.float32, device=q.device)
+    lse = torch.full((S, T, H), NEG_INF, dtype=torch.float32, device=q.device)
+    for s in range(S):
+        for q0 in range(0, T, R):
+            rows = torch.arange(q0, min(q0 + R, T), device=q.device)
+            n, last = len(rows), q0 + len(rows) - 1
+            plans = [sweep_plan(*rule[s], last) for _, _, rule in arrays]
+            if not any(plans):
+                continue  # the kernel writes zeros without loading Q
+            qt = q[s, q0:q0 + n].float().reshape(n, Hk, G, D)
+            m = torch.full((Hk, G, n), NEG_INF, device=q.device)
+            l = torch.zeros(Hk, G, n, device=q.device)
+            acc = torch.zeros(Hk, G, n, D, device=q.device)
+            for (k, v, rule), plan in zip(arrays, plans):
+                n_keys, ln, bs, qv, causal = rule[s]
+                end = bs + (min(qv, last + 1) if causal else qv)
+                for j0 in plan:
+                    j = torch.arange(j0, min(j0 + TILE_KEYS, n_keys), device=q.device)
+                    reach = (j < ln) | ((j >= bs) & (j < end))
+                    kt = torch.where(reach[:, None], k[s, :, j0:j0 + len(j)].float(), 0.0)
+                    vt = torch.where(reach[:, None], v[s, :, j0:j0 + len(j)].float(), 0.0)
+                    off = j[None] - bs
+                    vis = (j[None] < ln) | ((off >= 0) & (off < qv)
+                                            & ((off <= rows[:, None]) if causal else True))
+                    x = torch.einsum("nhgd,hjd->hgnj", qt, kt) * D**-0.5
+                    x = torch.where(vis, x, NEG_INF)
+                    mx = torch.maximum(m, x.amax(dim=-1))
+                    alpha = torch.exp(m - mx)
+                    p = torch.where(vis, torch.exp(x - mx[..., None]), 0.0)
+                    l = l * alpha + p.sum(dim=-1)
+                    pv = torch.einsum("hgnj,hjd->hgnd", p.to(v.dtype).float(), vt)
+                    acc = acc * alpha[..., None] + pv
+                    m = mx
+            o = acc / l.clamp_min(1e-30)[..., None]
+            out[s, q0:q0 + n] = o.permute(2, 0, 1, 3).reshape(n, H, D)
+            row_lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), NEG_INF)
+            lse[s, q0:q0 + n] = row_lse.permute(2, 0, 1).reshape(n, H)
+    out = out.to(q.dtype)
+    return (out, lse) if return_lse else out
+
+
+def _ints(x, S: int, device) -> list:
+    return _launch.per_stream(x, S, device).tolist()
+
+
+def flash_block_attention_tiled_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lens: torch.Tensor,
+    block_start: torch.Tensor,
+    causal: bool,
+    q_valid_len: Optional[torch.Tensor] = None,
+    kv_head_major: bool = False,
+    q_preproc: Optional[dict] = None,
+    return_lse: bool = False,
+):
+    """:func:`flash_block_attention` as the kernels partition it: the same
+    function as :func:`flash_block_attention_ref`, computed over the tiles
+    that the kernel's CTAs visit and no others (``sweep_plan``), with its
+    online softmax and its early exit. For the CPU tests of the partition; it
+    counts in no counter."""
+    if q_preproc is not None:
+        q = preprocess_q(q, q_preproc)
+    S, T = q.shape[:2]
+    if not kv_head_major:
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    M = k.shape[2]
+    ln, bs = _ints(lens, S, q.device), _ints(block_start, S, q.device)
+    qv = _ints(T if q_valid_len is None else q_valid_len, S, q.device)
+    rule = [(M, ln[s], bs[s], qv[s], causal) for s in range(S)]
+    return _tiled_sweeps(q, [(k, v, rule)], return_lse)
+
+
+def flash_cache_block_attention_tiled_ref(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    k_block: torch.Tensor,
+    v_block: torch.Tensor,
+    lens: torch.Tensor,
+    causal: bool,
+    q_preproc: Optional[dict] = None,
+    kv_preproc: Optional[dict] = None,
+    block_len: Optional[int] = None,
+    cache_head_major: bool = False,
+) -> torch.Tensor:
+    """:func:`flash_cache_block_attention` as the kernel partitions it: the
+    cache's tiles below ``lens``, then the block's (causally reachable)
+    tiles, on one online-softmax state (``sweep_plan`` for each array). For
+    the CPU tests of the partition; it counts in no counter."""
+    blk_valid, kvp = _block_options(q, k_block, causal, q_preproc, kv_preproc, block_len)
+    if q_preproc is not None:
+        q = preprocess_q(q, q_preproc)
+    if kvp is not None:
+        k_block = preprocess_q(k_block.to(k_cache.dtype), kvp)
+    if not cache_head_major:
+        k_cache, v_cache = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
+    S = q.shape[0]
+    M, Tb = k_cache.shape[2], k_block.shape[1]
+    ln = _ints(lens, S, q.device)
+    cache = [(M, min(ln[s], M), 0, 0, False) for s in range(S)]
+    block = [(Tb, 0, 0, min(blk_valid, Tb), causal)] * S
+    kb = k_block.to(k_cache.dtype).transpose(1, 2)
+    vb = v_block.to(v_cache.dtype).transpose(1, 2)
+    return _tiled_sweeps(q, [(k_cache, v_cache, cache), (kb, vb, block)], False)
 
 
 def _preproc_args(preproc: Optional[dict], S: int, T: int, device: torch.device):

@@ -39,20 +39,24 @@ KINDS = [  # first match wins
 ]
 
 
-def _kind(name: str) -> str:
+def _kind(name: str, kinds) -> str:
     low = name.lower()
-    for kind, keys in KINDS:
+    for kind, keys in kinds:
         if any(k in low for k in keys):
             return kind
     return "elementwise"
 
 
-def _summarise(trace_path: Path, steps: int, wall_ms: float) -> dict:
+def _summarise(trace_path: Path, steps: int, wall_ms: float, kinds=KINDS) -> dict:
+    """Per step, from a trace's kernel events: busy time (the union of kernel
+    intervals), idle shares, launches and busy time by kind (``kinds``: first
+    match of (kind, name fragments) wins; the rest is "elementwise")."""
     events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
               if e.get("cat") == "kernel"]
     by_kind: dict = {}
     for e in events:
-        by_kind[_kind(e["name"])] = by_kind.get(_kind(e["name"]), 0.0) + e["dur"] / 1e3
+        kind = _kind(e["name"], kinds)
+        by_kind[kind] = by_kind.get(kind, 0.0) + e["dur"] / 1e3
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
     busy, end = 0.0, spans[0][0]
     for a, b in spans:

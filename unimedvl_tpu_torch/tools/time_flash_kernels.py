@@ -8,11 +8,17 @@ the device code it shares) can be compared:
 Each checkout is timed in a process of its own (it imports that checkout's
 package and builds its kernels there), at path shapes of ``chip_smoke.py``,
 28/4 heads: K1a image prefill (T 5122 over M 5632, D 128) and ViT (T 5120, D
-72); K1b 3-stream denoise steps (T 1026; lens (37, 0, 37) over M 1538 and
-(2440, 2403, 37) over M 4098); K1c's block partial and K6 over the edit cache.
+72, 16 heads); K1b 3-stream denoise steps (T 1026; lens (37, 0, 37) over M
+1538 and (2440, 2403, 37) over M 4098); K1c's block partial and its cache
+partials (lens (56, 0, 56) over M 512, (2453, 2397, 56) over M 2560); K6 over
+the edit cache with the q island and with both islands, beside the route the
+port runs there (the k island in torch, the copy into one array, one K1b).
 Per shape it prints three medians of 7 single calls (CUDA events) and three
-times per call in a run of 20, as one JSON line per checkout after the card's
-name and power limit."""
+times per call in a run of 20, the same for one
+``scaled_dot_product_attention`` call on the same mask (q pre-processed
+outside, K/V expanded to the query heads beforehand), and the shape's bound
+(the larger of its bytes over 3.35 TB/s and its flops over 989 TFLOP/s), as
+one JSON line per checkout after the card's name and power limit."""
 
 from __future__ import annotations
 
@@ -22,6 +28,16 @@ import subprocess
 import sys
 
 RUN = 20
+HBM_BYTES_S, BF16_FLOPS_S = 3.35e12, 989e12
+
+
+def bound_ms(q_rows, keys, H, Hk, D) -> float:
+    """Least time for an attention call in which each of a stream's rows
+    sees all its keys: q and out once, K and V once per KV head, at the HBM
+    rate, or 4 H D flops per (row, key) pair at the bf16 peak."""
+    n_bytes = sum(4 * r * H * D + 4 * k * Hk * D for r, k in zip(q_rows, keys))
+    flops = sum(4.0 * H * D * r * k for r, k in zip(q_rows, keys))
+    return 1e3 * max(n_bytes / HBM_BYTES_S, flops / BF16_FLOPS_S)
 
 
 def _worker(checkout: str) -> None:
@@ -49,6 +65,14 @@ def _worker(checkout: str) -> None:
         return {"single_ms": [round(ms(fn), 4) for _ in range(3)],
                 "run_ms": [round(ms(fn, RUN), 4) for _ in range(3)]}
 
+    def sdpa(q, k, v, mask):
+        """SDPA on q [S, T, H, D] over head-major k/v [S, Hk, M, D] with mask [S, T, M]."""
+        G = q.shape[2] // k.shape[1]
+        qh, kh, vh = q.transpose(1, 2), k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+        m = mask[:, None]
+        return both(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=m))
+
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, scale=1.0):
@@ -57,34 +81,83 @@ def _worker(checkout: str) -> None:
     def ints(*vals):
         return torch.tensor(vals, dtype=torch.int32, device="cuda")
 
+    def cols(M):
+        return torch.arange(M, device="cuda")[None, None]
+
     out = {"checkout": checkout}
     q, kv = randn(1, 5122, 28, 128, scale=2.0), randn(2, 1, 4, 5632, 128)
     zero, qvl = ints(0), ints(4902)
-    out["K1a image prefill"] = both(
-        lambda: fa.flash_block_attention(q, kv[0], kv[1], zero, zero, False, qvl, True))
+    out["K1a image prefill"] = dict(
+        both(lambda: fa.flash_block_attention(q, kv[0], kv[1], zero, zero, False, qvl, True)),
+        sdpa=sdpa(q, kv[0], kv[1], (cols(5632) < 4902).expand(1, 5122, 5632)),
+        bound_ms=bound_ms([4902], [4902], 28, 4, 128))
     qv, kvv = randn(1, 5120, 16, 72, scale=2.0), randn(2, 1, 5120, 16, 72)
     lens, bstart = ints(4900), ints(5120)
-    out["K1a ViT"] = both(
-        lambda: fa.flash_block_attention(qv, kvv[0], kvv[1], lens, bstart, False))
+    out["K1a ViT"] = dict(
+        both(lambda: fa.flash_block_attention(qv, kvv[0], kvv[1], lens, bstart, False)),
+        sdpa=sdpa(qv, kvv[0].transpose(1, 2), kvv[1].transpose(1, 2),
+                  (cols(5120) < 4900).expand(1, 5120, 5120)),
+        bound_ms=bound_ms([4900], [4900], 16, 16, 72))
     cos, sin = rope_cos_sin(torch.full((3, 1), 41, device="cuda"), 128, 1e6)
     w = [(1 + 0.1 * torch.randn(128, generator=g, device="cuda")).to(torch.bfloat16)
-         for _ in range(2)]
+         for _ in range(4)]
     qp = dict(w_und=w[0], w_gen=w[1], cos=cos, sin=sin, end_row=None, eps=1e-6)
     qd = randn(3, 1026, 28, 128, scale=2.0)
+    qd_pre = fa.preprocess_q(qd, qp)
     for name, cap, ln in (("text to image", 512, (37, 0, 37)), ("edit", 3072, (2440, 2403, 37))):
         kc = randn(2, 3, 4, cap + 1026, 128)
         args = (qd, kc[0], kc[1], ints(*ln), ints(cap, cap, cap), False, None, True)
-        out[f"K1b denoise, {name}"] = both(
-            lambda: fa.flash_block_attention(*args, q_preproc=qp))
-    if hasattr(fa, "lse_counts"):  # a checkout with K1c and K6
-        kb = randn(2, 3, 1026, 4, 128)
-        out["K1c block partial"] = both(lambda: fa.flash_block_attention(
-            qd, kb[0].transpose(1, 2), kb[1].transpose(1, 2), 1026, 1026, False,
-            q_valid_len=0, kv_head_major=True, q_preproc=qp, return_lse=True))
-        kc = randn(2, 3, 4, 2560, 128)
-        ln = ints(2453, 2397, 56)
-        out["K6 edit cache, q island"] = both(lambda: fa.flash_cache_block_attention(
-            qd, kc[0], kc[1], kb[0], kb[1], ln, False, q_preproc=qp, cache_head_major=True))
+        mask = (cols(cap + 1026) < ints(*ln)[:, None, None]) | (cols(cap + 1026) >= cap)
+        out[f"K1b denoise, {name}"] = dict(
+            both(lambda: fa.flash_block_attention(*args, q_preproc=qp)),
+            sdpa=sdpa(qd_pre, kc[0], kc[1], mask.expand(3, 1026, cap + 1026)),
+            bound_ms=bound_ms([1026] * 3, [n + 1026 for n in ln], 28, 4, 128))
+    if not hasattr(fa, "lse_counts"):  # a checkout without K1c and K6
+        print(json.dumps(out), flush=True)
+        return
+    kb, vb = randn(3, 1026, 4, 128), randn(3, 1026, 4, 128)
+    kw = dict(q_valid_len=0, kv_head_major=True, q_preproc=qp, return_lse=True)
+    out["K1c block partial"] = dict(
+        both(lambda: fa.flash_block_attention(
+            qd, kb.transpose(1, 2), vb.transpose(1, 2), 1026, 1026, False, **kw)),
+        sdpa=sdpa(qd_pre, kb.transpose(1, 2), vb.transpose(1, 2),
+                  (cols(1026) < 1026).expand(3, 1026, 1026)),
+        bound_ms=bound_ms([1026] * 3, [1026] * 3, 28, 4, 128))
+    for name, cap, ln in (("text to image", 512, (56, 0, 56)), ("edit", 2560, (2453, 2397, 56))):
+        kc = randn(2, 3, 4, cap, 128)
+        lens = ints(*ln)
+        out[f"K1c cache partial, {name}"] = dict(
+            both(lambda: fa.flash_block_attention(qd, kc[0], kc[1], lens, lens, False, **kw)),
+            sdpa=sdpa(qd_pre, kc[0], kc[1], (cols(cap) < lens[:, None, None]).expand(3, 1026, cap)),
+            bound_ms=bound_ms([1026] * 3, list(ln), 28, 4, 128))
+    # K6 (a): the no-update denoise step over the edit cache
+    kc = randn(2, 3, 4, 2560, 128)
+    ln = ints(2453, 2397, 56)
+    kvp = dict(w_und=w[2], w_gen=w[3])
+    full = dict(qp, **kvp)
+    kb_raw = randn(3, 1026, 4, 128, scale=2.0)
+    kb_pre = fa.preprocess_q(kb_raw, full)
+
+    def island_concat_k1b():
+        kp = fa.preprocess_q(kb_raw, full)
+        k_cat = torch.cat([kc[0], kp.transpose(1, 2)], dim=2)
+        v_cat = torch.cat([kc[1], vb.transpose(1, 2)], dim=2)
+        return fa.flash_block_attention(qd, k_cat, v_cat, ln, 2560, False, None, True,
+                                        q_preproc=qp)
+
+    cat_mask = (cols(3586) < ln[:, None, None]) | (cols(3586) >= 2560)
+    k6_sdpa = sdpa(qd_pre, torch.cat([kc[0], kb_pre.transpose(1, 2)], dim=2),
+                   torch.cat([kc[1], vb.transpose(1, 2)], dim=2), cat_mask.expand(3, 1026, 3586))
+    k6_bound = bound_ms([1026] * 3, [n + 1026 for n in (2453, 2397, 56)], 28, 4, 128)
+    out["K6 edit cache, q island"] = dict(
+        both(lambda: fa.flash_cache_block_attention(
+            qd, kc[0], kc[1], kb_pre, vb, ln, False, q_preproc=qp, cache_head_major=True)),
+        sdpa=k6_sdpa, bound_ms=k6_bound)
+    out["K6 edit cache, both islands"] = dict(
+        both(lambda: fa.flash_cache_block_attention(
+            qd, kc[0], kc[1], kb_raw, vb, ln, False, q_preproc=qp, kv_preproc=kvp,
+            cache_head_major=True)),
+        sdpa=k6_sdpa, bound_ms=k6_bound, island_concat_k1b=both(island_concat_k1b))
     print(json.dumps(out), flush=True)
 
 
