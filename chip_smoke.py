@@ -1573,7 +1573,7 @@ def _k5_case(name, ids, g, timed: bool):
     o, lse = fat._launch_fwd(qd, kd, vd, *ids)
     calls = {
         "fwd": lambda: fat._launch_fwd(qd, kd, vd, *ids),
-        # each backward call includes the fp32 row sums of do * out (dsum), taken in torch
+        # each backward call includes the plan launch (tile classes, lists, dsum = do . out)
         "bwd_dq": lambda: fat._launch_bwd(qd, kd, vd, o, lse, *ids, cot, True, False),
         "bwd_dkv": lambda: fat._launch_bwd(qd, kd, vd, o, lse, *ids, cot, False, True),
     }

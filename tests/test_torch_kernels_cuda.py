@@ -35,7 +35,10 @@ unrounded values, a difference of about 2^-9 sqrt(sum_d (do_d out_d)^2) that
 reaches dq as scale * p * k, so the floor is 6 times that with max|k| (it
 matters for rows that see a few keys: out is large and dq nearly zero). The
 cotangent is bf16-representable, as it is on the model's path. dk and dv are
-summed in registers by one CTA in a fixed order: repeats are bit-equal.
+summed per query head in registers, then over the heads of a group in head
+order by the combine launch (no atomics): repeats are bit-equal. The
+backward's plan launch is held to its Python twin (``backward_plan``), list
+for list.
 """
 
 import pytest
@@ -795,6 +798,148 @@ def test_packed_train_attention_refuses_what_the_kernels_do_not_take(gen):
         fat.packed_train_attention(q, k, v, ids[0][:-1], ids[1], ids[2])
     with pytest.raises(ValueError, match="multiple"):
         fat.packed_train_attention(q[:, :27], k, v, *ids)
+
+
+# The backward's plan, off-grid lengths, head layouts, strides and NaN past T
+
+def _ids_of(layout, T=None):
+    """Segment ids on the card: a packed layout, padded with causal document-0
+    tokens to T."""
+    import numpy as np
+
+    doc, fn, nz = packed_segment_ids(*layout)
+    pad = 0 if T is None else T - len(doc)
+    doc = np.concatenate([doc, np.zeros(pad, np.int32)])
+    fn, nz = (np.concatenate([a, np.full(pad, -1, np.int32)]) for a in (fn, nz))
+    return [torch.from_numpy(a).cuda() for a in (doc, fn, nz)]
+
+
+def _every_pair_partial(T):
+    """Tokens alternate between two documents that are each one full span:
+    every (64, 64) tile pair holds allowed and forbidden pairs."""
+    par = torch.arange(T, dtype=torch.int32, device="cuda") % 2
+    return [par, par.clone(), torch.full_like(par, -1)]
+
+
+PLAN_CASES = {
+    "T 1": lambda: _ids_of(([1], [1], ["causal"])),
+    "T 63": lambda: _ids_of(([63], [20, 43], ["causal", "noise"])),
+    "T 65": lambda: _ids_of(([65], [65], ["causal"])),
+    "T 127": lambda: _ids_of(([100], [40, 60], ["causal", "full"]), 127),
+    "T 129": lambda: _ids_of(([129], [70, 59], ["causal", "noise"])),
+    "T 4097": lambda: _ids_of(([3000, 1000], [56, 1296, 1024, 624, 1000],
+                               ["causal", "full", "noise", "causal", "full"]), 4097),
+    "every pair partial": lambda: _every_pair_partial(300),
+}
+
+
+def _held_to_plain(got, want, qkv, cot):
+    """The tolerances above; dk's floor also covers the dsum term as dq's does
+    (it reaches dk as scale * ds^T q): where every pair of a key is a
+    one-key softmax (T 1) the plain dk is exactly 0, the kernels' is that term."""
+    assert all(torch.isfinite(t).all() for t in got)
+    _assert_close(got[0], want[0])
+    spread = (cot.float() * want[0].float()).square().sum(dim=-1, keepdim=True).sqrt()
+    dsum_term = 6.0 * 128**-0.5 * 2.0**-9 * spread
+    dq_floor = dsum_term * qkv[1].detach().abs().max().float()
+    m = want[2].float().abs().amax(dim=-1, keepdim=True)
+    dk_floor = 2.0**-4 * m.mean() + dsum_term.max() * qkv[0].detach().abs().max().float()
+    for g, w, name, floor in zip(got[1:], want[1:], ("dq", "dk", "dv"),
+                                 (dq_floor, dk_floor, None)):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        _assert_grad_close(g, w, name, floor)
+
+
+def _qkv(gen, T, H, Hk):
+    q, k, v = (_randn(gen, T, h, 128).requires_grad_(True) for h in (H, Hk, Hk))
+    return (q, k, v), _randn(gen, T, H, 128).float()
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_packed_train_attention_plan_matches_its_twin(gen, case):
+    ids = PLAN_CASES[case]()
+    T, H = ids[0].shape[0], 28
+    do, out = _randn(gen, T, H, 128), _randn(gen, T, H, 128)
+    lse = torch.randn(H, T, generator=gen, device="cuda")
+    lse[0, 0] = -3.402823466e38  # a row that saw nothing: +inf in log2 units
+    plan = fat._launch_plan(do, out, lse, *ids)
+    want = fat.backward_plan(*ids)
+    for got_list, got_count, want_list, want_count in (
+            (plan.dq_list, plan.dq_count, want[0], want[1]),
+            (plan.dkv_list, plan.dkv_count, want[2], want[3])):
+        assert torch.equal(got_count, want_count)
+        for x in range(got_count.shape[0]):
+            n = int(want_count[x])
+            assert torch.equal(got_list[x, :n], want_list[x, :n]), (case, x)
+    t_pad = plan.ids4.shape[0]
+    assert t_pad == want[1].shape[0] * 128
+    assert torch.equal(plan.ids4[:T, :3], torch.stack(ids, dim=1))
+    assert (plan.ids4[T:] == 0).all() and (plan.ids4[:, 3] == 0).all()
+    want_dsum = (do.float() * out.float()).sum(dim=-1).t()
+    torch.testing.assert_close(plan.dsum[:, :T], want_dsum, rtol=1e-5, atol=1e-4)
+    want_lse2 = lse * 1.4426950408889634
+    want_lse2[0, 0] = torch.inf
+    torch.testing.assert_close(plan.lse2[:, :T], want_lse2, rtol=1e-6, atol=1e-6)
+    assert (plan.dsum[:, T:] == 0).all() and (plan.lse2[:, T:] == 0).all()
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_packed_train_attention_backward_on_awkward_layouts(gen, case):
+    ids = PLAN_CASES[case]()
+    qkv, cot = _qkv(gen, ids[0].shape[0], 28, 4)
+    before = dict(fat.counts)
+    got = _run(fat.packed_train_attention, qkv, ids, cot)
+    assert [fat.counts[k] - before[k] for k in ("fwd", "bwd_dq", "bwd_dkv", "plain")] == \
+        [1, 1, 1, 0]
+    _held_to_plain(got, _run(fat.packed_train_attention_ref, qkv, ids, cot), qkv, cot)
+
+
+@pytest.mark.parametrize("heads", [(28, 28), (28, 1)])
+def test_packed_train_attention_backward_head_layouts(gen, heads):
+    """H = Hk (one head per split) and one KV head for 28 query heads (28
+    partials per key in the combine)."""
+    ids = _ids_of(TRAIN_LAYOUTS[3][:3], 1000)
+    qkv, cot = _qkv(gen, 1000, *heads)
+    got = _run(fat.packed_train_attention, qkv, ids, cot)
+    _held_to_plain(got, _run(fat.packed_train_attention_ref, qkv, ids, cot), qkv, cot)
+
+
+def test_packed_train_attention_backward_reads_strided_views_and_ignores_rows_past_t(gen):
+    """q, k, v as column slices of one fused projection, and q, k, v and the
+    cotangent as the first T rows of parents whose further rows are NaN: the
+    backward reads them in place through its tensor maps and gives the bits of
+    the contiguous case."""
+    (q, k, v), ids, cot = _train_case(gen, TRAIN_LAYOUTS[3])
+    T = q.shape[0]
+    ref = _run(fat.packed_train_attention, (q, k, v), ids, cot)
+    fused = torch.cat([q.detach().reshape(T, -1), k.detach().reshape(T, -1),
+                       v.detach().reshape(T, -1)], dim=1)
+    views = [t.reshape(T, -1, 128).requires_grad_(True)
+             for t in fused.split([28 * 128, 4 * 128, 4 * 128], dim=1)]
+    got = _run(fat.packed_train_attention, views, ids, cot)
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    parents = [torch.full((T + 70, h, 128), float("nan"), dtype=torch.bfloat16, device="cuda")
+               for h in (28, 4, 4, 28)]
+    for p, t in zip(parents, (q, k, v, cot)):
+        p[:T] = t.detach()
+    leaves = [p[:T].requires_grad_(True) for p in parents[:3]]
+    got = _run(fat.packed_train_attention, leaves, ids, parents[3][:T])
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+
+
+def test_packed_train_attention_dkv_alone(gen):
+    """Gradients asked of k and v alone: one dk/dv launch, no dq launch, the
+    bits of the full backward."""
+    (q, k, v), ids, cot = _train_case(gen, TRAIN_LAYOUTS[1])
+    ref = _run(fat.packed_train_attention, (q, k, v), ids, cot)
+    k2, v2 = k.detach().requires_grad_(True), v.detach().requires_grad_(True)
+    before = dict(fat.counts)
+    fat.packed_train_attention(q.detach(), k2, v2, *ids).backward(cot)
+    assert fat.counts["bwd_dkv"] == before["bwd_dkv"] + 1
+    assert fat.counts["bwd_dq"] == before["bwd_dq"]
+    assert torch.equal(k2.grad, ref[2]) and torch.equal(v2.grad, ref[3])
 
 
 def test_kernels_without_a_backward_refuse_inputs_that_require_grad(gen):

@@ -56,11 +56,12 @@ _SIGNATURES = {
     "unimedvl_packed_train_attention_fwd": (
         [_P] * 8 + [_I] * 4 + [_L] * 3 + [ctypes.c_float, _P]
     ),
+    "unimedvl_packed_train_attention_bwd_plan": [_P] * 14 + [_I] * 3 + [_L] * 2 + [_P],
     "unimedvl_packed_train_attention_bwd_dq": (
-        [_P] * 10 + [_I] * 4 + [_L] * 4 + [ctypes.c_float, _P]
+        [_P] * 10 + [_I] * 4 + [_L] * 8 + [ctypes.c_float, _P]
     ),
     "unimedvl_packed_train_attention_bwd_dkv": (
-        [_P] * 11 + [_I] * 4 + [_L] * 4 + [ctypes.c_float, _P]
+        [_P] * 12 + [_I] * 4 + [_L] * 8 + [ctypes.c_float, _P]
     ),
 }
 

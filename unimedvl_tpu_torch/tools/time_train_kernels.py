@@ -10,21 +10,45 @@ package and builds its kernels there), at two packed layouts like those
 4096 tokens (text 56, ViT 1296 full, clean latents 1024 full, noised latents
 1024, pads) and a 980 px VQA example with a text-to-image example in 6144
 (text 60, ViT 4900 full, text 60; text 57, noised latents 1024; pads). Per
-layout and kernel it prints three medians of 7 calls (CUDA events, ms), as
-one JSON line per checkout after the card's name and power limit."""
+layout it prints, as three readings of the time per call in a run of 20 (CUDA
+events, ms): the forward, the backward for dq alone, for dk/dv alone and for
+all three gradients (what a training step runs: one plan for both kernels);
+beside them, in the same process, one ``scaled_dot_product_attention`` on the
+same dense bool mask (K/V expanded to the query heads) forward and backward
+(all three gradients), and each kernel's bound: the larger of its bytes (each
+operand read once, each output written once) over 3.35 TB/s and its flops over
+the allowed pairs (4, 6 and 8 D per pair and head for forward, dq and dk/dv)
+over 989 TFLOP/s. One JSON line per checkout, after the card's name and power
+limit."""
 
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 
+RUN = 20
+H, HK, D = 28, 4, 128
+HBM_BYTES_S, BF16_FLOPS_S = 3.35e12, 989e12
 LAYOUTS = {  # name -> (T, sample_lens, split_lens, modes)
     "edit_4096": (4096, [3400], [56, 1296, 1024, 1024], ["causal", "full", "full", "noise"]),
     "vqa980_t2i_6144": (6144, [5020, 1081], [60, 4900, 60, 57, 1024],
                         ["causal", "full", "causal", "causal", "noise"]),
 }
+
+
+def bounds_ms(T: int, pairs: int) -> dict:
+    """The bound of each kernel (as ``chip_smoke.py`` counts it) and of the
+    two backward kernels together, for T tokens of which ``pairs`` (query,
+    key) pairs are allowed."""
+    qb, kb, stat, idb = T * H * D * 2, T * HK * D * 2, H * T * 4, 3 * T * 4
+    work = {
+        "fwd": (2 * qb + 2 * kb + stat + idb, 4.0 * D * pairs * H),
+        "bwd_dq": (3 * qb + 2 * kb + 2 * stat + idb, 6.0 * D * pairs * H),
+        "bwd_dkv": (2 * qb + 4 * kb + 2 * stat + idb, 8.0 * D * pairs * H),
+        "bwd": (3 * qb + 4 * kb + 2 * stat + idb, 14.0 * D * pairs * H),
+    }
+    return {k: 1e3 * max(b / HBM_BYTES_S, f / BF16_FLOPS_S) for k, (b, f) in work.items()}
 
 
 def _worker(checkout: str) -> None:
@@ -33,20 +57,22 @@ def _worker(checkout: str) -> None:
     import torch
 
     from unimedvl_tpu_torch.ops import flash_attention_train as fat
-    from unimedvl_tpu_torch.ops.blockmask import packed_segment_ids
+    from unimedvl_tpu_torch.ops.blockmask import dense_packed_mask, packed_segment_ids
 
-    def ms(fn):
-        for _ in range(2):
+    def run_ms(fn):
+        """Three readings of the time per call in a run of RUN, after warm-up."""
+        for _ in range(3):
             fn()
-        times = []
-        for _ in range(7):
+        readings = []
+        for _ in range(3):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            fn()
+            for _ in range(RUN):
+                fn()
             end.record()
             torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
+            readings.append(round(start.elapsed_time(end) / RUN, 4))
+        return readings
 
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {"checkout": checkout}
@@ -55,15 +81,29 @@ def _worker(checkout: str) -> None:
         for a, fill in zip(packed_segment_ids(sample_lens, split_lens, modes), (0, -1, -1)):
             ids.append(torch.from_numpy(
                 np.concatenate([a, np.full(T - len(a), fill, np.int32)])).cuda())
-        q, k, v, cot = (torch.randn(T, h, 128, generator=g, device="cuda").to(torch.bfloat16)
-                        for h in (28, 4, 4, 28))
+        q, k, v, cot = (torch.randn(T, h, D, generator=g, device="cuda").to(torch.bfloat16)
+                        for h in (H, HK, HK, H))
         o, lse = fat._launch_fwd(q, k, v, *ids)
-        calls = {
+        row = {key: run_ms(fn) for key, fn in {
             "fwd": lambda: fat._launch_fwd(q, k, v, *ids),
             "bwd_dq": lambda: fat._launch_bwd(q, k, v, o, lse, *ids, cot, True, False),
             "bwd_dkv": lambda: fat._launch_bwd(q, k, v, o, lse, *ids, cot, False, True),
-        }
-        out[name] = {key: [round(ms(fn), 4) for _ in range(3)] for key, fn in calls.items()}
+            "bwd": lambda: fat._launch_bwd(q, k, v, o, lse, *ids, cot, True, True),
+        }.items()}
+        mask = dense_packed_mask(*ids)
+        qh, kh, vh = (t.repeat_interleave(r, dim=1).transpose(0, 1)[None].contiguous()
+                      .requires_grad_(True) for t, r in ((q, 1), (k, H // HK), (v, H // HK)))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lout = sdpa(qh, kh, vh, attn_mask=mask[None, None])
+        lcot = cot.transpose(0, 1)[None].contiguous()
+        row["sdpa_fwd"] = run_ms(lambda: sdpa(qh.detach(), kh.detach(), vh.detach(),
+                                              attn_mask=mask[None, None]))
+        row["sdpa_bwd"] = run_ms(
+            lambda: torch.autograd.grad(lout, (qh, kh, vh), lcot, retain_graph=True))
+        del lout
+        row["bound_ms"] = {k: round(b, 4) for k, b in
+                           bounds_ms(T, int(mask.sum())).items()}
+        out[name] = row
     print(json.dumps(out), flush=True)
 
 
