@@ -674,14 +674,17 @@ def check_silu_mul_quant(randn) -> dict:
 
 
 def check_w4_matmul(g, randn) -> dict:
-    """K4 against its plain version at the LLM's fused projection shapes: the
-    int8 branch (w4a8) per channel and with groups of 512 must be EQUAL (exact
-    integer sums, the same rounded fp32 scaling); the bf16 branch sums fp32 in
-    another order: |err| <= 2^-7 |plain| + 1e-3 sqrt(K) 8 max|x| max(w_scale) / 16."""
+    """K4 against its plain version at the LLM's four projection shapes (qkv
+    and gate_up fused, o, down): the int8 branch (w4a8) per channel and with
+    groups of 512 must be EQUAL (exact integer sums, the same rounded fp32
+    scaling), on the GEMV (m 1, 3) and the GEMM (m 731, 4902); the bf16 branch
+    sums fp32 in another order: |err| <= 2^-7 |plain| + 1e-3 sqrt(K) 8 max|x|
+    max(w_scale) / 16. The ``kernels`` line's row is the decode step's GEMV at
+    gate_up, with the prefill's GEMM at gate_up under ``gemm``."""
     print("K4 w4_matmul (w4a8: equality; bf16 x: |err| <= 2^-7 |ref| + reordering bound):",
           flush=True)
-    shapes = [(3584, 4608), (3584, 37888), (18944, 3584)]
-    rows, shown = [], None
+    shapes = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584)]
+    rows, shown, gemm = [], None, None
     for K, N in shapes:
         wp = w4.pack_int4(_rand_int8(g, N, K, lo=-8, hi=8))
         for G in (0, K // W4_GROUP):
@@ -708,6 +711,8 @@ def check_w4_matmul(g, randn) -> dict:
                 rows.append(r)  # no PyTorch call multiplies by packed int4 weights
                 if (m, K, N, G) == (1, 3584, 37888, 0):
                     shown = r
+                if (m, K, N, G) == (4902, 3584, 37888, 0):  # the GEMM path at gate_up
+                    gemm = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
         ws = torch.rand(N, generator=g, device="cuda") * 0.01 + 0.001
         for m in (1, 731):
             x = randn(m, K)
@@ -726,7 +731,7 @@ def check_w4_matmul(g, randn) -> dict:
                 raise SystemExit("chip_smoke: K4 (bf16 x) disagrees with its plain version")
             rows.append(dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
                              library_ms=None, **b))
-    out = dict(shown)
+    out = dict(shown, gemm=dict(gemm, case="w4a8 m=4902 K=3584 N=37888 per channel"))
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     return out
 
@@ -986,7 +991,7 @@ EXTRA_KEYS = (
     "one_row_ms", "one_row_ms_back_to_back", "tiles_skipped", "max_abs_err_lse",
     "cache_partial_t2i_ms", "cache_partial_edit_ms", "library_note", "concat_k1b_ms",
     "k_island_ms", "concat_copy_ms", "k1b_on_concat_ms", "q_island_only_ms", "launches_from",
-    "n_split", "split_len", "cases", "ms_in_graph", "vit",
+    "n_split", "split_len", "cases", "ms_in_graph", "vit", "gemm",
 )
 
 COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches there)
@@ -1570,12 +1575,13 @@ def _k5_case(name, ids, g, timed: bool):
     if not timed:
         return rows
     qd, kd, vd = q.detach(), k.detach(), v.detach()
-    o, lse = fat._launch_fwd(qd, kd, vd, *ids)
+    o, lse, plan = fat._launch_fwd(qd, kd, vd, *ids)
     calls = {
+        # the forward call includes the plan launch (tile classes, lists, order)
         "fwd": lambda: fat._launch_fwd(qd, kd, vd, *ids),
-        # each backward call includes the plan launch (tile classes, lists, dsum = do . out)
-        "bwd_dq": lambda: fat._launch_bwd(qd, kd, vd, o, lse, *ids, cot, True, False),
-        "bwd_dkv": lambda: fat._launch_bwd(qd, kd, vd, o, lse, *ids, cot, False, True),
+        # each backward call includes the row launch (lse2, dsum = do . out)
+        "bwd_dq": lambda: fat._launch_bwd(qd, kd, vd, o, lse, plan, cot, True, False),
+        "bwd_dkv": lambda: fat._launch_bwd(qd, kd, vd, o, lse, plan, cot, False, True),
     }
     # plain version: the forward, and one backward pass that yields all three gradients
     plain_fwd = cuda_ms(lambda: fat.packed_train_attention_ref(qd, kd, vd, *ids), 1, 3)

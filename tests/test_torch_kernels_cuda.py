@@ -36,9 +36,11 @@ reaches dq as scale * p * k, so the floor is 6 times that with max|k| (it
 matters for rows that see a few keys: out is large and dq nearly zero). The
 cotangent is bf16-representable, as it is on the model's path. dk and dv are
 summed per query head in registers, then over the heads of a group in head
-order by the combine launch (no atomics): repeats are bit-equal. The
-backward's plan launch is held to its Python twin (``backward_plan``), list
-for list.
+order by the combine launch (no atomics): repeats are bit-equal. The plan
+launch, which the forward runs and the backward reuses, is held to its Python
+twin (``tile_plan``, ``query_tile_order``), list for list; the forward's lse to
+its tiled twin's within 1e-3 (``packed_train_attention_fwd_tiled_ref``, the
+kernel's partition and log2-unit softmax on the same bf16 inputs).
 """
 
 import pytest
@@ -617,8 +619,10 @@ W4_SHAPES = [
     # (m, K, N, G)
     (1, 3584, 4608, 0), (3, 3584, 4608, 7), (4, 18944, 3584, 37), (2, 1024, 512, 0),
     (5, 3584, 512, 0), (731, 3584, 4608, 0), (731, 3584, 4608, 7), (200, 18944, 3584, 37),
-    (130, 1024, 136, 2), (64, 128, 8, 2), (3, 192, 24, 3),
+    (130, 1024, 136, 2), (64, 128, 8, 2), (3, 192, 24, 3), (70, 192, 136, 3), (131, 320, 264, 0),
 ]
+# (K, N) of the LLM's four quantized projections: qkv fused, o, gate_up fused, down
+W4_PROJECTIONS = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584)]
 
 
 @pytest.mark.parametrize("shape", W4_SHAPES)
@@ -632,6 +636,21 @@ def test_w4a8_matmul_equals_plain(gen, shape):
     assert w4.counts["kernel"] == before + 1
     want = w4.w4_matmul_ref(x, xs, wp, ws)
     assert got.dtype == torch.bfloat16 and got.shape == (m, N)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("group", [0, 512])
+@pytest.mark.parametrize("kn", W4_PROJECTIONS)
+@pytest.mark.parametrize("m", [5, 64, 65, 731, 4902])
+def test_w4a8_gemm_equals_plain_at_the_projection_shapes(gen, m, kn, group):
+    """The int8-x GEMM (m > 4) at the prefill's shapes, per channel and with
+    groups of 512 in-rows: equal to the plain version bit for bit."""
+    K, N = kn
+    _, wp, ws = _w4_inputs(gen, m, K, N, K // group if group else 0)
+    x = _int8(gen, m, K)
+    xs = torch.rand(m, 1, generator=gen, device="cuda") * 0.05 + 0.001
+    got = w4.w4_matmul(x, xs, wp, ws)
+    want = w4.w4_matmul_ref(x, xs, wp, ws)
     assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
 
 
@@ -862,8 +881,9 @@ def test_packed_train_attention_plan_matches_its_twin(gen, case):
     do, out = _randn(gen, T, H, 128), _randn(gen, T, H, 128)
     lse = torch.randn(H, T, generator=gen, device="cuda")
     lse[0, 0] = -3.402823466e38  # a row that saw nothing: +inf in log2 units
-    plan = fat._launch_plan(do, out, lse, *ids)
-    want = fat.backward_plan(*ids)
+    plan = fat._launch_plan(*ids)
+    want = fat.tile_plan(*ids)
+    assert torch.equal(plan.dq_order, fat.query_tile_order(want[1]))
     for got_list, got_count, want_list, want_count in (
             (plan.dq_list, plan.dq_count, want[0], want[1]),
             (plan.dkv_list, plan.dkv_count, want[2], want[3])):
@@ -875,12 +895,58 @@ def test_packed_train_attention_plan_matches_its_twin(gen, case):
     assert t_pad == want[1].shape[0] * 128
     assert torch.equal(plan.ids4[:T, :3], torch.stack(ids, dim=1))
     assert (plan.ids4[T:] == 0).all() and (plan.ids4[:, 3] == 0).all()
+    lse2, dsum = fat._launch_rows(do, out, lse)
+    assert lse2.shape == dsum.shape == (H, t_pad)
     want_dsum = (do.float() * out.float()).sum(dim=-1).t()
-    torch.testing.assert_close(plan.dsum[:, :T], want_dsum, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dsum[:, :T], want_dsum, rtol=1e-5, atol=1e-4)
     want_lse2 = lse * 1.4426950408889634
     want_lse2[0, 0] = torch.inf
-    torch.testing.assert_close(plan.lse2[:, :T], want_lse2, rtol=1e-6, atol=1e-6)
-    assert (plan.dsum[:, T:] == 0).all() and (plan.lse2[:, T:] == 0).all()
+    torch.testing.assert_close(lse2[:, :T], want_lse2, rtol=1e-6, atol=1e-6)
+    assert (dsum[:, T:] == 0).all() and (lse2[:, T:] == 0).all()
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_packed_train_attention_forward_matches_plain_and_its_twin(gen, case):
+    """The forward alone at T 1, 63, 65, 127, 129, 4097 and with every pair
+    partial: out within the attention tolerance of the plain version, lse
+    within 1e-3 of the tiled twin's, and the plan it saves for the backward
+    equal to the twin's lists."""
+    ids = PLAN_CASES[case]()
+    (q, k, v), _ = _qkv(gen, ids[0].shape[0], 28, 4)
+    q, k, v = q.detach(), k.detach(), v.detach()
+    before = dict(fat.counts)
+    out, lse, plan = fat._launch_fwd(q, k, v, *ids)
+    assert fat.counts["fwd"] == before["fwd"] + 1
+    _assert_close(out, fat.packed_train_attention_ref(q, k, v, *ids))
+    twin_out, twin_lse = fat.packed_train_attention_fwd_tiled_ref(q, k, v, *ids)
+    _assert_close(out, twin_out)
+    assert (lse - twin_lse).abs().max().item() <= 1e-3
+    want = fat.tile_plan(*ids)
+    for x in range(want[1].shape[0]):
+        n = int(want[1][x])
+        assert torch.equal(plan.dq_list[x, :n], want[0][x, :n]), (case, x)
+    assert torch.equal(plan.dq_count, want[1])
+
+
+def test_packed_train_attention_backward_reads_the_forwards_plan(gen):
+    """The autograd function saves the forward's plan; the backward over it
+    gives the bits of a backward over a plan built anew, and the saved lists
+    are the twin's."""
+    (q, k, v), ids, cot = _train_case(gen, TRAIN_LAYOUTS[0])
+    out = fat.packed_train_attention(q, k, v, *ids)
+    saved = fat.Plan(*out.grad_fn.saved_tensors[5:])
+    want = fat.tile_plan(*ids)
+    assert torch.equal(saved.dq_count, want[1]) and torch.equal(saved.dkv_count, want[3])
+    for x in range(want[1].shape[0]):
+        assert torch.equal(saved.dq_list[x, :int(want[1][x])], want[0][x, :int(want[1][x])])
+        assert torch.equal(saved.dkv_list[x, :int(want[3][x])], want[2][x, :int(want[3][x])])
+    grads = torch.autograd.grad(out, (q, k, v), cot)
+    o, lse, _ = fat._launch_fwd(q.detach(), k.detach(), v.detach(), *ids)
+    assert torch.equal(o, out.detach())
+    fresh = fat._launch_bwd(q.detach(), k.detach(), v.detach(), o, lse, fat._launch_plan(*ids),
+                            cot, True, True)
+    for x, y in zip(fresh, grads):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("case", list(PLAN_CASES))

@@ -301,6 +301,44 @@ class TestW4Matmul:
              ).astype(np.float32) * ws[i] for i in range(groups)) * xs
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-5)
 
+    @pytest.mark.parametrize("m,K,N,groups", [
+        (5, 1024, 512, 0), (300, 1024, 512, 0), (37, 1024, 512, 2), (261, 1024, 512, 1),
+        (70, 192, 136, 3), (131, 320, 264, 0),
+    ])
+    def test_w4a8_gemm_partition_equals_plain(self, m, K, N, groups):
+        """The int8-x GEMM's partition (``w4a8_gemm_tiled_ref``: 128 weight rows
+        by 256 x rows, or 128 with group scales; k32 products; group flushes;
+        the epilogue's order of multiplies) equals the plain version bit for
+        bit, in fp32 and after the bf16 rounding, with m no multiple of 64, K
+        no multiple of the 128-row stage (192, 320), groups of 64 and N no
+        multiple of the 128-row tile; at K 1024, N 512 also the JAX kernel
+        (interpret mode, ``force_kernel=True``): equal per channel, within the
+        grouped test's rtol 1e-6, atol 1e-5 with group scales (it may fuse
+        the multiply-add)."""
+        rng = np.random.default_rng(m + K + groups)
+        xq = rng.integers(-127, 128, (m, K)).astype(np.int8)
+        xs = rng.uniform(0.01, 0.1, (m, 1)).astype(np.float32)
+        q = rng.integers(-8, 8, (K, N)).astype(np.int8)
+        ws = rng.uniform(0.01, 0.1, (groups, N) if groups else (N,)).astype(np.float32)
+        args = (torch.from_numpy(xq), torch.from_numpy(xs),
+                w4.pack_int4(torch.from_numpy(q.T.copy())), torch.from_numpy(ws))
+        for dt in (torch.float32, torch.bfloat16):
+            before = dict(w4.counts)
+            got = w4.w4a8_gemm_tiled_ref(*args, out_dtype=dt)
+            assert w4.counts == before
+            want = w4.w4_matmul_ref(*args, out_dtype=dt)
+            assert got.dtype == dt and torch.equal(got, want)
+        if (K, N) != (self.K, self.N):
+            return
+        jwant = np.asarray(jw4.w4_matmul(
+            jnp.asarray(xq), jnp.asarray(xs), jnp.asarray(jw4.pack_int4(q)), jnp.asarray(ws),
+            out_dtype=jnp.float32, interpret=True, force_kernel=True))
+        plain = w4.w4_matmul_ref(*args, out_dtype=torch.float32).numpy()
+        if groups:
+            np.testing.assert_allclose(plain, jwant, rtol=1e-6, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(plain, jwant)
+
     @pytest.mark.parametrize("groups", [0, 2])
     def test_bf16_x_branch(self, groups):
         """Weight-only w4: bf16 x, nibbles exact in bf16, fp32 sums in another

@@ -1,5 +1,7 @@
-// Device code shared by the flash attention kernels of the inference paths, bf16, for sm_90a:
-// flash_block_attention.cu (K1a, K1b, K1c) and flash_cache_block_attention.cu (K6).
+// Device code shared by the flash attention kernels, bf16, for sm_90a: those of the inference
+// paths, flash_block_attention.cu (K1a, K1b, K1c) and flash_cache_block_attention.cu (K6), and
+// the training attention's, packed_train_attention.cu (K5: primitives and the online softmax).
+// w4_matmul.cu (K4) takes its primitives (mbarriers, wgmma fences, tensor maps) too.
 //
 // A kernel runs one CTA per (tile of query rows, query head, stream) and sweeps the key tiles
 // of one key array (K1) or of two arrays in turn on one running softmax state (K6: the cache,
@@ -389,20 +391,10 @@ struct RowStats {
 // logits and scaled once), masked keys selected to 0; updates the maxima and sums; returns the
 // factors (al_a, al_b) by which the output accumulator must be scaled: exactly 1 where the row
 // maximum did not move. `full` (tile-uniform) skips the mask; inside it, the visibility test and
-// the selections are branch-free.
-__device__ __forceinline__ float2 softmax_tile(float (&sc)[kBN / 2], RowStats& st,
-                                               const Visibility& vis, bool full, int j0,
-                                               int row_a, int row_b, float sl2) {
-  const int t = threadIdx.x & 3;
-  if (!full) {
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sc[4 * nt + e] = vis.visible(j0 + nt * 8 + 2 * t + (e & 1), e < 2 ? row_a : row_b)
-                             ? sc[4 * nt + e]
-                             : kNegInf;
-  }
+// the selections are branch-free. `softmax_update` is the part after the mask, for a caller that
+// has set every masked logit to kNegInf itself (`full` false) or has none (`full` true).
+__device__ __forceinline__ float2 softmax_update(float (&sc)[kBN / 2], RowStats& st, bool full,
+                                                 float sl2) {
   float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
   for (int nt = 0; nt < kBN / 8; ++nt) {
@@ -439,6 +431,22 @@ __device__ __forceinline__ float2 softmax_tile(float (&sc)[kBN / 2], RowStats& s
   st.l_a = st.l_a * al.x + sum_a;
   st.l_b = st.l_b * al.y + sum_b;
   return al;
+}
+
+__device__ __forceinline__ float2 softmax_tile(float (&sc)[kBN / 2], RowStats& st,
+                                               const Visibility& vis, bool full, int j0,
+                                               int row_a, int row_b, float sl2) {
+  const int t = threadIdx.x & 3;
+  if (!full) {
+#pragma unroll
+    for (int nt = 0; nt < kBN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[4 * nt + e] = vis.visible(j0 + nt * 8 + 2 * t + (e & 1), e < 2 ? row_a : row_b)
+                             ? sc[4 * nt + e]
+                             : kNegInf;
+  }
+  return softmax_update(sc, st, full, sl2);
 }
 
 // out[s, row, h, 2t + 8 * dt ...] = o / max(l, 1e-30) for the rows below T (trailing rows are

@@ -16,27 +16,50 @@
 //
 // Unpacking happens in registers and never widens to 16 or 32 bits per nibble. A 32-bit word of
 // wp is 8 in-rows: (w << 4) & 0xF0F0F0F0 holds the four even in-rows as signed bytes, each 16
-// times its nibble, and w & 0xF0F0F0F0 the four odd ones. Those bytes feed the integer dot
-// products as they are, against the even and odd bytes of x (one byte permute each), and the
-// int32 sum, a multiple of 16 below 2^31 for K up to 130,000, is shifted right by 4 at the end.
+// times its nibble, and w & 0xF0F0F0F0 the four odd ones. Those bytes feed the integer products
+// as they are, and the int32 sum, a multiple of 16 below 2^31 for K up to 130,000, is shifted
+// right by 4 at the end.
 //
 // What bounds it on the H100: at decode (m of 1 to a few rows) each weight byte is used for 2 m
 // multiply-adds: HBM bandwidth, at half a byte per weight. At prefill (m in the thousands) the
-// integer tensor cores.
-// What the design does about it, two paths chosen by m:
+// integer tensor cores (1979 TOP/s dense int8).
+// What the design does about it, by m and x's type:
 //  - m <= 4: a weight-streaming GEMV. Half a warp owns an output column and walks its packed row
 //    with 16-byte loads (32 in-rows each, 256 contiguous bytes per half-warp), every weight byte
 //    read once; x is read through L1 and each product is a __dp4a (int8 x) or an fp32
 //    multiply-add (bf16 x); the 16 lanes reduce with shuffles.
-//  - m > 4: a tiled GEMM on mma.sync: m16n8k32 s8 x s8 -> s32, or m16n8k16 bf16 -> fp32. A CTA
-//    of 8 warps computes a 128 x 128 tile in k-steps of 64 in-rows through shared memory (x tile
-//    and packed w tile, rows padded against bank conflicts); each warp holds a 32 x 64 part of it.
-// Known limits: the GEMM loads a tile, synchronises, computes, synchronises: no cp.async or TMA
-// pipeline, and mma.sync, not wgmma. Those are the next steps.
+//  - m > 4, int8 x: a GEMM on wgmma m64nBk32 s8 x s8 -> s32 that computes y^T = W x^T: the
+//    weights are the A operand, from registers, and x the B operand, from shared memory (for
+//    8-bit types both must be K-major, and both already are). A CTA owns 128 weight rows (two
+//    consumer warpgroups of 64) by B = 256 x rows (per channel; 128 with group scales, whose
+//    fp32 sums double the accumulator registers), over k-steps of 128 in-rows. One producer
+//    warp keeps a ring of stages full with TMA loads: the x tile (B rows x 128 bytes, 128-byte
+//    swizzle, what wgmma reads) and the packed W tile (128 rows x 64 bytes, 64-byte swizzle, so
+//    that the consumers' 4-byte reads hit 32 distinct banks), with per-stage `full` / `empty`
+//    mbarriers. Each consumer thread reads the packed bytes of its A fragment (rows g and
+//    g + 8 of its warp's 16, in-rows 4t .. 4t + 3 and 16 + 4t .. of each k32 step: half a
+//    32-bit word each) and spreads them in registers into signed bytes, 16 times the nibble,
+//    in natural order (two masks and one byte permute per register): nothing unpacked goes
+//    through shared memory, so no proxy fence is needed. A stage's A registers are written
+//    while the previous stage's products run (two register sets), and are complete before the
+//    stage's first product starts (ptxas serialises the products otherwise). With group
+//    scales the s32 accumulator is flushed into an fp32 one at each group's end (rounded
+//    multiply by the group's scale, rounded add), and the group's first product overwrites it;
+//    a stage's four products are two commit groups of 64 in-rows, and a flush comes only
+//    between them (a branch between two products of one group made ptxas serialise every
+//    product: 3.4 ms against 1.15 per channel at gate_up, m 4902, on an NVIDIA H100 80GB HBM3
+//    at 700 W). The epilogue scales, rounds to bf16, transposes through shared memory (the
+//    ring, now free) and writes 16-byte chunks of y rows.
+//    The grid's x is the x-row tile, so the CTAs that share a W tile run side by side: the
+//    packed W (68 MB for gate_up, more than L2) comes from HBM about once, x (17.5 MB at 4902
+//    rows) stays in L2.
+//  - m > 4, bf16 x: a tiled GEMM on mma.sync m16n8k16 bf16 -> fp32. A CTA of 8 warps computes a
+//    128 x 128 tile in k-steps of 64 in-rows through shared memory (x tile and packed w tile,
+//    rows padded against bank conflicts); each warp holds a 32 x 64 part of it. It loads a
+//    tile, synchronises, computes, synchronises: no pipeline (weight-only w4 is on no path the
+//    smoke drives at prefill size).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
@@ -169,21 +192,14 @@ __global__ void __launch_bounds__(kGemvThreads)
   }
 }
 
+
 // ---------------------------------------------------------------------------------------------
-// m > kGemvRows: tiled GEMM on mma.sync
+// m > kGemvRows, bf16 x: tiled GEMM on mma.sync
 // ---------------------------------------------------------------------------------------------
 
 constexpr int kBM = 128, kBN = 128, kBK = 64;  // CTA tile; k-step in in-rows
 constexpr int kMmaThreads = 256;               // 8 warps as 4 (rows) x 2 (columns): 32 x 64 each
 constexpr int kWStride = kBK / 2 + 16;         // bytes per packed w row in shared memory
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -202,14 +218,13 @@ __device__ __forceinline__ uint32_t nibbles_bf16x2(uint8_t byte) {
 }
 
 // gsize: in-rows per scale group (a multiple of kBK), K when per channel.
-template <bool INT8X, bool GROUPED>
+template <bool GROUPED>
 __global__ void __launch_bounds__(kMmaThreads)
-    w4_mma_kernel(const void* __restrict__ x_, const float* __restrict__ xs,
-                  const uint8_t* __restrict__ wp, const float* __restrict__ ws,
-                  bf16* __restrict__ out, int m, int K, int N, int gsize) {
-  constexpr int kXBytes = INT8X ? 1 : 2;              // bytes per x element
-  constexpr int kXStride = kBK * kXBytes + 16;        // bytes per x row in shared memory
-  constexpr int kXLoads = kBK * kXBytes / 16;         // 16-byte loads per x row and k-step
+    w4_mma_bf16_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ wp,
+                       const float* __restrict__ ws, bf16* __restrict__ out, int m, int K, int N,
+                       int gsize) {
+  constexpr int kXStride = kBK * 2 + 16;  // bytes per x row in shared memory
+  constexpr int kXLoads = kBK * 2 / 16;   // 16-byte loads per x row and k-step
   __shared__ __align__(16) uint8_t s_x[kBM * kXStride];
   __shared__ __align__(16) uint8_t s_w[kBN * kWStride];
 
@@ -217,21 +232,16 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int g = lane >> 2, tig = lane & 3;
   const int wm = warp >> 1, wn = warp & 1;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const uint8_t* xb = static_cast<const uint8_t*>(x_);
+  const uint8_t* xb = reinterpret_cast<const uint8_t*>(x);
 
-  int iacc[2][8][4];    // int8 x: this group's (or the whole K's) integer sums, times 16
-  float cacc[2][8][4];  // bf16 x: the same in fp32
+  float cacc[2][8][4];  // this group's (or the whole K's) sums
   float facc[2][8][4];  // grouped: the scaled groups added so far
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        iacc[mi][ni][e] = 0;
-        cacc[mi][ni][e] = 0.f;
-        facc[mi][ni][e] = 0.f;
-      }
+      for (int e = 0; e < 4; ++e) cacc[mi][ni][e] = facc[mi][ni][e] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += kBK) {
     // x tile [kBM, kBK] and packed w tile [kBN, kBK / 2] into shared memory; rows past the edge 0
@@ -241,8 +251,8 @@ __global__ void __launch_bounds__(kMmaThreads)
       const int row = idx / kXLoads, c = idx % kXLoads;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (m0 + row < m)
-        v = *reinterpret_cast<const uint4*>(
-            xb + (static_cast<long long>(m0 + row) * K + k0) * kXBytes + c * 16);
+        v = *reinterpret_cast<const uint4*>(xb + (static_cast<long long>(m0 + row) * K + k0) * 2 +
+                                            c * 16);
       *reinterpret_cast<uint4*>(s_x + row * kXStride + c * 16) = v;
     }
     {
@@ -255,55 +265,25 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
     __syncthreads();
 
-    if constexpr (INT8X) {
-      // two k32 steps. A k32 step holds 32 in-rows; this thread's 8 are 8 tig .. 8 tig + 7: the
-      // even ones fill the MMA's k slots 4 tig .. 4 tig + 3, the odd ones 16 + 4 tig ..,
-      // in x and in w alike, so the sum over k is the same.
+    // four k16 steps; byte r of a packed row is the bf16 pair (2r, 2r + 1) the MMA wants
 #pragma unroll
-      for (int kc = 0; kc < 2; ++kc) {
-        uint32_t a[2][4];
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[2][4];
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int row = wm * 32 + mi * 16 + g;
-          const uint2 r0 = *reinterpret_cast<const uint2*>(s_x + row * kXStride + kc * 32 + tig * 8);
-          const uint2 r8 =
-              *reinterpret_cast<const uint2*>(s_x + (row + 8) * kXStride + kc * 32 + tig * 8);
-          a[mi][0] = evens(r0.x, r0.y);
-          a[mi][1] = evens(r8.x, r8.y);
-          a[mi][2] = odds(r0.x, r0.y);
-          a[mi][3] = odds(r8.x, r8.y);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const int col = wn * 64 + ni * 8 + g;
-          const uint32_t p =
-              *reinterpret_cast<const uint32_t*>(s_w + col * kWStride + kc * 16 + tig * 4);
-          const uint32_t b0 = lo16(p), b1 = hi16(p);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) mma_s8(iacc[mi][ni], a[mi], b0, b1);
-        }
+      for (int mi = 0; mi < 2; ++mi) {
+        const uint8_t* r0 = s_x + (wm * 32 + mi * 16 + g) * kXStride + kk * 32 + tig * 4;
+        const uint8_t* r8 = r0 + 8 * kXStride;
+        a[mi][0] = *reinterpret_cast<const uint32_t*>(r0);
+        a[mi][1] = *reinterpret_cast<const uint32_t*>(r8);
+        a[mi][2] = *reinterpret_cast<const uint32_t*>(r0 + 16);
+        a[mi][3] = *reinterpret_cast<const uint32_t*>(r8 + 16);
       }
-    } else {
-      // four k16 steps; byte r of a packed row is the bf16 pair (2r, 2r + 1) the MMA wants
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t a[2][4];
+      for (int ni = 0; ni < 8; ++ni) {
+        const uint8_t* wrow = s_w + (wn * 64 + ni * 8 + g) * kWStride + kk * 8 + tig;
+        const uint32_t b0 = nibbles_bf16x2(wrow[0]), b1 = nibbles_bf16x2(wrow[4]);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const uint8_t* r0 = s_x + (wm * 32 + mi * 16 + g) * kXStride + kk * 32 + tig * 4;
-          const uint8_t* r8 = r0 + 8 * kXStride;
-          a[mi][0] = *reinterpret_cast<const uint32_t*>(r0);
-          a[mi][1] = *reinterpret_cast<const uint32_t*>(r8);
-          a[mi][2] = *reinterpret_cast<const uint32_t*>(r0 + 16);
-          a[mi][3] = *reinterpret_cast<const uint32_t*>(r8 + 16);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const uint8_t* wrow = s_w + (wn * 64 + ni * 8 + g) * kWStride + kk * 8 + tig;
-          const uint32_t b0 = nibbles_bf16x2(wrow[0]), b1 = nibbles_bf16x2(wrow[4]);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) mma_bf16(cacc[mi][ni], a[mi], b0, b1);
-        }
+        for (int mi = 0; mi < 2; ++mi) mma_bf16(cacc[mi][ni], a[mi], b0, b1);
       }
     }
     __syncthreads();
@@ -319,15 +299,9 @@ __global__ void __launch_bounds__(kMmaThreads)
           for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              float v;
-              if constexpr (INT8X) {
-                v = static_cast<float>(iacc[mi][ni][e] >> 4);
-                iacc[mi][ni][e] = 0;
-              } else {
-                v = cacc[mi][ni][e];
-                cacc[mi][ni][e] = 0.f;
-              }
-              facc[mi][ni][e] = __fadd_rn(facc[mi][ni][e], __fmul_rn(v, (e & 1) ? w1 : w0));
+              facc[mi][ni][e] =
+                  __fadd_rn(facc[mi][ni][e], __fmul_rn(cacc[mi][ni][e], (e & 1) ? w1 : w0));
+              cacc[mi][ni][e] = 0.f;
             }
         }
       }
@@ -340,24 +314,327 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int e = 0; e < 4; ++e) {
       const int row = m0 + wm * 32 + mi * 16 + g + (e >> 1) * 8;
       if (row >= m) continue;
-      const float xsr = INT8X ? xs[row] : 1.f;
 #pragma unroll
       for (int ni = 0; ni < 8; ++ni) {
         const int col = n0 + wn * 64 + ni * 8 + tig * 2 + (e & 1);
         if (col >= N) continue;
-        float y;
-        if constexpr (GROUPED) {
-          y = facc[mi][ni][e];
-        } else if constexpr (INT8X) {
-          y = static_cast<float>(iacc[mi][ni][e] >> 4);
-        } else {
-          y = cacc[mi][ni][e];
-        }
-        if constexpr (INT8X) y = __fmul_rn(y, xsr);
-        if constexpr (!GROUPED) y = __fmul_rn(y, ws[col]);
+        const float y = GROUPED ? facc[mi][ni][e] : __fmul_rn(cacc[mi][ni][e], ws[col]);
         out[static_cast<long long>(row) * N + col] = __float2bfloat16(y);
       }
     }
+}
+
+// ---------------------------------------------------------------------------------------------
+// m > kGemvRows, int8 x: y^T = W x^T on wgmma s8 x s8 -> s32, fed by a TMA ring
+// ---------------------------------------------------------------------------------------------
+
+using flash::mbar_arrive;
+using flash::mbar_expect_tx;
+using flash::mbar_init;
+using flash::mbar_wait;
+using flash::smem_u32;
+using flash::wgmma_commit;
+using flash::wgmma_desc;
+using flash::wgmma_fence;
+using flash::wgmma_wait;
+
+constexpr int kWRows = 128;            // weight rows of a CTA: two consumer warpgroups of 64
+constexpr int kKStep = 128;            // in-rows of a stage: four k32 products
+constexpr int kWTileBytes = kWRows * kKStep / 2;
+constexpr int kQConsumers = 256;
+constexpr int kQThreads = kQConsumers + 32;
+constexpr int kOutStride = kWRows + 8;  // bf16 per row of the output tile in shared memory
+
+// Per x-row tile B: per channel 256 x rows and 4 stages; with group scales 128 and 6.
+template <bool GROUPED>
+struct W4a8Tile {
+  static constexpr int kB = GROUPED ? 128 : 256;
+  static constexpr int kStages = GROUPED ? 6 : 4;
+  static constexpr int kXTileBytes = kB * kKStep;
+  static constexpr int kStageBytes = kXTileBytes + kWTileBytes;
+  static constexpr int kAcc = kB / 2;  // s32 accumulators per thread: 64 rows x kB / 128
+  // the ring, its mbarriers, slack to align the tiles to 1024 bytes
+  static constexpr int kSmem = kStages * kStageBytes + 16 * kStages + 1024;
+  static_assert(kB * kOutStride * 2 <= kStages * kStageBytes, "the output tile fits the ring");
+};
+
+#define K4_R4(a, i) "+r"(a[i]), "+r"(a[i + 1]), "+r"(a[i + 2]), "+r"(a[i + 3])
+#define K4_R16(a, i) K4_R4(a, i), K4_R4(a, i + 4), K4_R4(a, i + 8), K4_R4(a, i + 12)
+#define K4_R64(a, i) K4_R16(a, i), K4_R16(a, i + 16), K4_R16(a, i + 32), K4_R16(a, i + 48)
+
+// d[64 x 128] = A[64 x 32] B[32 x 128] (+ d where `accumulate`), s8 x s8 -> s32; A in registers
+// (the m16n8k32 A fragment of each warp's 16 rows), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : K4_R64(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 256] = A[64 x 32] B[32 x 256] (+ d where `accumulate`), as above.
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], const uint32_t (&a)[4], uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      "%126, %127}, "
+      "{%128, %129, %130, %131}, %132, p;\n}\n"
+      : K4_R64(d, 0), K4_R64(d, 64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+#undef K4_R64
+#undef K4_R16
+#undef K4_R4
+
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 128)
+    wgmma_s8_n256(d, a, db, accumulate);
+  else
+    wgmma_s8_n128(d, a, db, accumulate);
+}
+
+// Keeps the compiler from moving reads or writes of these registers across a wgmma fence,
+// commit or wait (accumulators), or from computing them after the fence (A fragments).
+template <int N, typename T>
+__device__ __forceinline__ void fence_iregs(T (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// One box of a 2-d tensor map (coordinates innermost first) -> shared memory, by the TMA unit.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, "
+      "%3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Half (t & 1) of a packed word, in-rows 4 nibbles -> 4 signed bytes, 16 times each nibble, in
+// order: [16 n0, 16 n1, 16 n2, 16 n3] of the half's two bytes (n0 the first byte's low nibble).
+__device__ __forceinline__ uint32_t spread(uint32_t w, uint32_t sel) {
+  return __byte_perm((w << 4) & 0xF0F0F0F0u, w & 0xF0F0F0F0u, sel);
+}
+
+// The four A registers of k32 step s for this thread's rows (packed rows ra and ra + 8 of the W
+// tile, 64 bytes each, 16-byte chunk c of row r at chunk c ^ ((r >> 1) & 3)): in-rows 4t .. 4t + 3
+// of the step are bytes 2t, 2t + 1 of its chunk, in-rows 16 + 4t .. bytes 8 + 2t, 9 + 2t.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint8_t* wt, int ra, int s, int t,
+                                       uint32_t sel) {
+  const uint8_t* p0 = wt + ra * 64 + ((s ^ ((ra >> 1) & 3)) << 4) + 4 * (t >> 1);
+  const uint8_t* p8 = wt + (ra + 8) * 64 + ((s ^ (((ra + 8) >> 1) & 3)) << 4) + 4 * (t >> 1);
+  const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p0);
+  const uint32_t w8 = *reinterpret_cast<const uint32_t*>(p8);
+  const uint32_t v0 = *reinterpret_cast<const uint32_t*>(p0 + 8);
+  const uint32_t v8 = *reinterpret_cast<const uint32_t*>(p8 + 8);
+  a[0] = spread(w0, sel);
+  a[1] = spread(w8, sel);
+  a[2] = spread(v0, sel);
+  a[3] = spread(v8, sel);
+}
+
+template <bool GROUPED>
+struct W4a8Consumer {
+  using Tile = W4a8Tile<GROUPED>;
+  int acc[Tile::kAcc];                  // s32 sums of this group (or of all K), times 16
+  float facc[GROUPED ? Tile::kAcc : 1];  // with group scales: the scaled groups added so far
+  uint32_t a[2][4][4];                  // A registers of two stages: [set][k32 step][register]
+
+  // Stage kt of the ring: A registers of set S from its W tile, then its four products in two
+  // commit groups of two (64 in-rows each). With group scales, a group's first product
+  // overwrites the accumulator instead of adding to it, and where a group ends after a half the
+  // warpgroup waits for its products and adds the scaled sum to the fp32 one: only at a half's
+  // end, so no branch separates two products of one commit group. Then the release of stage
+  // kt - 1, whose products are done.
+  template <int S>
+  __device__ __forceinline__ void stage(const uint8_t* ring, uint64_t* full, uint64_t* empty,
+                                        int kt, int ra, int t, uint32_t sel, int K, int gsize,
+                                        const float* ws, int na, int nb, int N, int lane) {
+    const int st = kt % Tile::kStages;
+    mbar_wait(full + st, (kt / Tile::kStages) & 1);
+    const uint8_t* xt = ring + st * Tile::kStageBytes;
+    const uint8_t* wt = xt + Tile::kXTileBytes;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      load_a(a[S][s], wt, ra, s, t, sel);
+      fence_iregs(a[S][s]);
+    }
+    const uint64_t d_x = wgmma_desc(xt, 16, 1024);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      fence_iregs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 2 * half; s < 2 * half + 2; ++s) {
+        // 32 bytes of each 128-byte x row a step
+        const int k0 = kt * kKStep + 32 * s;
+        wgmma_s8(acc, a[S][s], d_x + ((s * 32) >> 4), GROUPED ? k0 % gsize != 0 : 1);
+      }
+      wgmma_commit();
+      if constexpr (GROUPED) {
+        const int k_end = kt * kKStep + 64 * (half + 1);
+        if (k_end <= K && k_end % gsize == 0) {  // a group ends: scale its sum and add it
+          wgmma_wait<0>();
+          fence_iregs(acc);
+          const float* wsg = ws + static_cast<long long>(k_end / gsize - 1) * N;
+          const float wa = na < N ? wsg[na] : 0.f, wb = nb < N ? wsg[nb] : 0.f;
+#pragma unroll
+          for (int i = 0; i < Tile::kAcc; ++i)
+            facc[i] = __fadd_rn(facc[i],
+                                __fmul_rn(static_cast<float>(acc[i] >> 4), (i & 2) ? wb : wa));
+        }
+      }
+    }
+    wgmma_wait<2>();  // stage kt - 1's products are done: its tiles may be refilled
+    fence_iregs(acc);
+    if (kt > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + (kt - 1) % Tile::kStages);
+    }
+  }
+};
+
+// One CTA per (x-row tile of kB rows, 128 weight rows), grid (ceil(m / kB), ceil(N / 128)).
+template <bool GROUPED>
+__global__ void __launch_bounds__(kQThreads, 1)
+    w4a8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap, const float* __restrict__ xs,
+                      const float* __restrict__ ws, bf16* __restrict__ out, int m, int K, int N,
+                      int gsize) {
+  using Tile = W4a8Tile<GROUPED>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  uint8_t* ring = smem_raw + (((base + 1023u) & ~1023u) - base);  // [kStages][x tile, W tile]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Tile::kStages * Tile::kStageBytes);
+  uint64_t* empty = full + Tile::kStages;
+
+  const int m0 = blockIdx.x * Tile::kB, n0 = blockIdx.y * kWRows;
+  const int nk = (K + kKStep - 1) / kKStep;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < Tile::kStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kQConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kQConsumers) {  // the producer warp
+    if (threadIdx.x != kQConsumers) return;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % Tile::kStages;
+      if (kt >= Tile::kStages) mbar_wait(empty + st, ((kt / Tile::kStages) - 1) & 1);
+      uint8_t* xt = ring + st * Tile::kStageBytes;
+      mbar_expect_tx(full + st, Tile::kStageBytes);
+      tma_load_2d(xt, &xmap, full + st, kt * kKStep, m0);
+      tma_load_2d(xt + Tile::kXTileBytes, &wmap, full + st, kt * kKStep / 2, n0);
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = wg * 64 + warp * 16 + g;  // this thread's weight rows in the tile: ra, ra + 8
+  const int na = n0 + ra, nb = na + 8;
+  const uint32_t sel = (t & 1) ? 0x7362u : 0x5140u;
+  W4a8Consumer<GROUPED> c;
+#pragma unroll
+  for (int i = 0; i < Tile::kAcc; ++i) c.acc[i] = 0;
+  if constexpr (GROUPED) {
+#pragma unroll
+    for (int i = 0; i < Tile::kAcc; ++i) c.facc[i] = 0.f;
+  }
+  for (int kt = 0; kt < nk; kt += 2) {
+    c.template stage<0>(ring, full, empty, kt, ra, t, sel, K, gsize, ws, na, nb, N, lane);
+    if (kt + 1 < nk)
+      c.template stage<1>(ring, full, empty, kt + 1, ra, t, sel, K, gsize, ws, na, nb, N, lane);
+  }
+  wgmma_wait<0>();
+  fence_iregs(c.acc);
+
+  // y[m0 + j, n0 + r] for r in this thread's rows and j in its columns 8 i + 2t (+1): scaled,
+  // rounded to bf16, transposed into the output tile [kB][kOutStride] in the ring (every
+  // consumer's products are done before any writes it), then written as 16-byte row chunks
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kQConsumers) : "memory");
+  bf16* s_out = reinterpret_cast<bf16*>(ring);
+  const float wca = !GROUPED && na < N ? ws[na] : 0.f, wcb = !GROUPED && nb < N ? ws[nb] : 0.f;
+#pragma unroll
+  for (int j = 0; j < Tile::kB / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float x0 = m0 + col < m ? xs[m0 + col] : 0.f;
+    const float x1 = m0 + col + 1 < m ? xs[m0 + col + 1] : 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const float xsc = (e & 1) ? x1 : x0;
+      float y;
+      if constexpr (GROUPED)
+        y = __fmul_rn(c.facc[i], xsc);
+      else
+        y = __fmul_rn(__fmul_rn(static_cast<float>(c.acc[i] >> 4), xsc), (e & 2) ? wcb : wca);
+      s_out[(col + (e & 1)) * kOutStride + ra + ((e & 2) ? 8 : 0)] = __float2bfloat16(y);
+    }
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kQConsumers) : "memory");
+  constexpr int kChunks = kWRows / 8;  // 16-byte chunks of an output row
+  for (int idx = threadIdx.x; idx < Tile::kB * kChunks; idx += kQConsumers) {
+    const int r = idx / kChunks, ch = idx - r * kChunks;
+    const int row = m0 + r, col = n0 + 8 * ch;
+    if (row < m && col < N)
+      *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * N + col) =
+          *reinterpret_cast<const uint4*>(s_out + r * kOutStride + 8 * ch);
+  }
+}
+
+// The tensor map of a row-major uint8 array [rows, cols] (cols a multiple of 16) in boxes of
+// box_rows x box_cols bytes with the given swizzle; out-of-range bytes arrive as zeros.
+bool encode_bytes(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
+                  int box_cols, CUtensorMapSwizzle swizzle) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = flash::tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols)};
+  const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)}, unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <bool GROUPED>
+cudaError_t launch_w4a8(const int8_t* x, const float* xs, const uint8_t* wp, const float* ws,
+                        bf16* out, int m, int K, int N, int gsize, cudaStream_t stream) {
+  using Tile = W4a8Tile<GROUPED>;
+  static bool smem_set[64] = {};
+  cudaError_t err = flash::allow_smem(w4a8_wgmma_kernel<GROUPED>, Tile::kSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap xmap, wmap;
+  if (!encode_bytes(&xmap, x, m, K, Tile::kB, kKStep, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_bytes(&wmap, wp, N, K / 2, kWRows, kKStep / 2, CU_TENSOR_MAP_SWIZZLE_64B))
+    return cudaErrorInvalidValue;
+  const dim3 grid((m + Tile::kB - 1) / Tile::kB, (N + kWRows - 1) / kWRows);
+  w4a8_wgmma_kernel<GROUPED><<<grid, kQThreads, Tile::kSmem, stream>>>(xmap, wmap, xs, ws, out,
+                                                                       m, K, N, gsize);
+  return cudaGetLastError();
 }
 
 template <bool INT8X>
@@ -367,16 +644,22 @@ cudaError_t launch(const void* x, const float* xs, const uint8_t* wp, const floa
     const int cols_per_block = (kGemvThreads / 32) * 2;
     w4_gemv_kernel<INT8X><<<(N + cols_per_block - 1) / cols_per_block, kGemvThreads, 0, stream>>>(
         x, xs, wp, ws, out, m, K, N, G);
+    return cudaGetLastError();
+  }
+  const int gsize = G ? K / G : K;
+  if constexpr (INT8X) {
+    const int8_t* xi = static_cast<const int8_t*>(x);
+    return G ? launch_w4a8<true>(xi, xs, wp, ws, out, m, K, N, gsize, stream)
+             : launch_w4a8<false>(xi, xs, wp, ws, out, m, K, N, gsize, stream);
   } else {
     const dim3 grid((N + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+    const bf16* xb = static_cast<const bf16*>(x);
     if (G)
-      w4_mma_kernel<INT8X, true><<<grid, kMmaThreads, 0, stream>>>(x, xs, wp, ws, out, m, K, N,
-                                                                  K / G);
+      w4_mma_bf16_kernel<true><<<grid, kMmaThreads, 0, stream>>>(xb, wp, ws, out, m, K, N, gsize);
     else
-      w4_mma_kernel<INT8X, false><<<grid, kMmaThreads, 0, stream>>>(x, xs, wp, ws, out, m, K, N,
-                                                                   K);
+      w4_mma_bf16_kernel<false><<<grid, kMmaThreads, 0, stream>>>(xb, wp, ws, out, m, K, N, gsize);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -389,7 +672,7 @@ extern "C" int unimedvl_w4_matmul(const void* x, const void* xs, const void* wp,
                                   void* out, int m, int K, int N, int G, int int8x, void* stream) {
   if (m <= 0 || K <= 0 || N <= 0 || K % kBK != 0 || N % 8 != 0 || G < 0 ||
       (G > 0 && (K % G != 0 || (K / G) % kBK != 0)) || (int8x && xs == nullptr) ||
-      (m + kBM - 1) / kBM > 65535)
+      (!int8x && (m + kBM - 1) / kBM > 65535) || (N + kWRows - 1) / kWRows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t rc =

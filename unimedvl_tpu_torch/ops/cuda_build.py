@@ -53,10 +53,11 @@ _SIGNATURES = {
     ),
     "unimedvl_silu_mul_quant": [_P] * 4 + [_I] * 2 + [_L] * 2 + [_P],
     "unimedvl_w4_matmul": [_P] * 5 + [_I] * 5 + [_P],
+    "unimedvl_packed_train_attention_plan": [_P] * 10 + [_I, _P],
     "unimedvl_packed_train_attention_fwd": (
-        [_P] * 8 + [_I] * 4 + [_L] * 3 + [ctypes.c_float, _P]
+        [_P] * 9 + [_I] * 4 + [_L] * 6 + [ctypes.c_float, _P]
     ),
-    "unimedvl_packed_train_attention_bwd_plan": [_P] * 14 + [_I] * 3 + [_L] * 2 + [_P],
+    "unimedvl_packed_train_attention_bwd_rows": [_P] * 5 + [_I] * 3 + [_L] * 2 + [_P],
     "unimedvl_packed_train_attention_bwd_dq": (
         [_P] * 10 + [_I] * 4 + [_L] * 8 + [ctypes.c_float, _P]
     ),

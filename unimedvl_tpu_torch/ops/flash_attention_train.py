@@ -23,18 +23,23 @@ largest entry. A query row that may attend to nothing (which no packed batch
 produces: every token sees itself) comes out as zero from the kernels and as
 the mean of v from the plain version.
 
-The backward, per call: a plan launch classifies every (64, 64) tile pair as
-dead, full or partial and lists, per 128 query rows, the key tiles they see
-(for dq) and, per 128 keys, the query tiles that see them (for dk/dv), each
-entry with the classes of its two 64-row halves (``backward_plan`` is its
-Python twin); the same launch takes ``dsum = sum_d do * out`` in fp32 from the
-cotangent rounded to bf16. The dq kernel sweeps only the listed key tiles; the
-dk/dv kernel is split by query head (one CTA per 64 keys and head, over the
-list of the 128 keys around them), writes fp32 partials to a workspace of
-``H * T_pad * D * 8`` bytes, and a combine
-launch adds the G partials of each KV head in head order: no atomics, the same
-bits on every run. ``packed_train_attention_bwd_tiled_ref`` is that partition
-and order in plain torch.
+The plan, once per forward call (three small launches on the card, no host
+synchronisation): every (64, 64) tile pair is classified dead, full or partial,
+and listed per 128 query rows (the key tiles they see: the forward's and dq's
+sweep) and per 128 keys (the query tiles that see them: dk/dv's), each entry
+with the classes of its two 64-row halves, beside the ids as int4 rows and the
+order in which the forward takes the query tiles (longest list first);
+``tile_plan`` is its Python twin. The forward sweeps only the listed key tiles
+(``packed_train_attention_fwd_tiled_ref`` is its partition and online softmax
+in plain torch) and the autograd function saves the plan for the backward,
+whose own launch takes only ``dsum = sum_d do * out`` in fp32 from the
+cotangent rounded to bf16 and the lse in log2 units. The dq kernel sweeps the
+forward's lists; the dk/dv kernel is split by query head (one CTA per 64 keys
+and head, over the list of the 128 keys around them), writes fp32 partials to
+a workspace of ``H * T_pad * D * 8`` bytes, and a combine launch adds the G
+partials of each KV head in head order: no atomics, the same bits on every
+run. ``packed_train_attention_bwd_tiled_ref`` is that partition and order in
+plain torch.
 """
 
 from __future__ import annotations
@@ -52,8 +57,8 @@ from unimedvl_tpu_torch.ops.blockmask import dense_packed_mask
 counts = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0, "plain": 0}
 
 KERNEL_HEAD_DIM = 128
-TILE = 64  # rows of a tile of the backward's plan
-CTA_ROWS = 128  # rows a backward CTA owns: query rows (dq) or keys (dk/dv)
+TILE = 64  # rows of a tile of the plan
+CTA_ROWS = 128  # rows a CTA owns: query rows (forward, dq) or keys (dk/dv)
 DEAD, PARTIAL, FULL = 0, 1, 2  # classes of a (TILE, TILE) pair
 ENTRY_SHIFT = 16  # a list entry: tile | (class of the first half | class of the second << 2) << 16
 
@@ -104,12 +109,13 @@ def tile_classes(doc_id: torch.Tensor, fn_id: torch.Tensor, noise_id: torch.Tens
     return torch.where(full, FULL, torch.where(live, PARTIAL, DEAD)).to(torch.int32)
 
 
-def backward_plan(doc_id: torch.Tensor, fn_id: torch.Tensor, noise_id: torch.Tensor):
-    """Python twin of the backward's plan launch: (dq_list, dq_count,
+def tile_plan(doc_id: torch.Tensor, fn_id: torch.Tensor, noise_id: torch.Tensor):
+    """Python twin of the plan launch's lists: (dq_list, dq_count,
     dkv_list, dkv_count), int32 on the ids' device, depending on the ids and T
     alone. Row x of dq_list [n128, n64] lists the key tiles (of TILE rows) that
-    query rows [128 x, 128 x + 128) see, in order, as tile | (class of rows
-    0-63 | class of rows 64-127 << 2) << ENTRY_SHIFT; row x of dkv_list lists
+    query rows [128 x, 128 x + 128) see (the forward's and dq's sweep), in
+    order, as tile | (class of rows 0-63 | class of rows 64-127 << 2) <<
+    ENTRY_SHIFT; row x of dkv_list lists
     the query tiles that see keys [128 x, 128 x + 128), with the classes of the
     two 64-key halves. Entries past a row's count are -1 here (the launch
     leaves them unwritten)."""
@@ -129,10 +135,71 @@ def backward_plan(doc_id: torch.Tensor, fn_id: torch.Tensor, noise_id: torch.Ten
     return (*compact(dq_codes), *compact(dkv_codes))
 
 
+def query_tile_order(dq_count: torch.Tensor) -> torch.Tensor:
+    """The order in which the forward's grid takes the query tiles: longest
+    dq list first, ties by index (the plan launch's ``dq_order``)."""
+    return torch.argsort(-dq_count.long(), stable=True).to(torch.int32)
+
+
+def packed_train_attention_fwd_tiled_ref(q, k, v, doc_id, fn_id, noise_id):
+    """The forward kernel's partition and arithmetic in plain torch, fp32:
+    per 128 query rows, each 64-row half sweeps the key tiles of the dq list
+    of :func:`tile_plan` in order, skips a dead half and masks a partial one
+    (a masked logit becomes the float32 minimum and weighs 0), and keeps an
+    online softmax in log2 units (logits times scale * log2 e; a row maximum
+    that moves rescales the sums by 2^(m_old - m_new)); p is rounded to q's
+    dtype for P V, as the kernel does. Returns out [T, H, D] and lse [H, T]
+    in natural log (fp32); a row that sees nothing gives 0 and the float32
+    minimum."""
+    T, H, D = q.shape
+    G = H // k.shape[1]
+    sl2 = D**-0.5 * 1.4426950408889634
+    neg = torch.finfo(torch.float32).min
+    dq_list, dq_count, _, _ = tile_plan(doc_id, fn_id, noise_id)
+    t_pad = dq_count.shape[0] * CTA_ROWS
+    ids = _padded_ids(doc_id, fn_id, noise_id, t_pad)
+
+    def pad(x, heads_rep):
+        x = x.float().repeat_interleave(heads_rep, dim=1)
+        return torch.cat([x, x.new_zeros((t_pad - T, *x.shape[1:]))])
+
+    qf, kf, vf = pad(q, 1), pad(k, G), pad(v, G)
+    idx = torch.arange(t_pad, device=q.device)
+    out = torch.zeros(t_pad, H, D, device=q.device)
+    lse = torch.zeros(H, t_pad, device=q.device)
+    for x in range(dq_count.shape[0]):
+        for half in range(2):
+            rows = idx[x * CTA_ROWS + half * TILE:][:TILE]
+            m = torch.full((H, TILE), neg, device=q.device)
+            l = torch.zeros(H, TILE, device=q.device)
+            o = torch.zeros(H, TILE, D, device=q.device)
+            for e in dq_list[x, :int(dq_count[x])].tolist():
+                cls = (e >> (ENTRY_SHIFT + 2 * half)) & 3
+                if cls == DEAD:
+                    continue
+                keys = idx[(e & 0xFFFF) * TILE:][:TILE]
+                s = torch.einsum("ihd,jhd->hij", qf[rows], kf[keys])
+                if cls == PARTIAL:
+                    s = torch.where(_allowed(rows[:, None], keys[None, :], ids, T), s, neg)
+                mx = s.amax(dim=-1)
+                mn = torch.where(mx > neg, torch.maximum(m, mx * sl2), m)
+                al = torch.where(mn != m, torch.exp2(m - mn), 1.0)
+                p = torch.exp2(s * sl2 - mn[..., None])
+                if cls == PARTIAL:
+                    p = torch.where(s > neg, p, 0.0)
+                l = l * al + p.sum(dim=-1)
+                o = o * al[..., None] + torch.einsum("hij,jhd->hid", p.to(q.dtype).float(),
+                                                     vf[keys])
+                m = mn
+            out[rows] = (o / l.clamp_min(1e-30)[..., None]).transpose(0, 1)
+            lse[:, rows] = torch.where(l > 0, (m + torch.log2(l)) * 0.6931471805599453, neg)
+    return out[:T], lse[:, :T]
+
+
 def packed_train_attention_bwd_tiled_ref(q, k, v, doc_id, fn_id, noise_id, grad_out):
     """The backward kernels' partition and order in plain torch, fp32 sums:
     the forward's out and lse from the dense mask, dsum from the cotangent,
-    then dq per 128 query rows over the key tiles of :func:`backward_plan`,
+    then dq per 128 query rows over the key tiles of :func:`tile_plan`,
     and dk/dv per 64 keys split by query head over the query tiles listed for
     them, the splits' partials added in head order. A dead half is skipped, the mask
     is applied on partial halves only, and p and ds are rounded to q's dtype
@@ -141,7 +208,7 @@ def packed_train_attention_bwd_tiled_ref(q, k, v, doc_id, fn_id, noise_id, grad_
     T, H, D = q.shape
     Hk = k.shape[1]
     G, scale = H // Hk, D**-0.5
-    dq_list, dq_count, dkv_list, dkv_count = backward_plan(doc_id, fn_id, noise_id)
+    dq_list, dq_count, dkv_list, dkv_count = tile_plan(doc_id, fn_id, noise_id)
     t_pad = dq_count.shape[0] * CTA_ROWS
     ids = _padded_ids(doc_id, fn_id, noise_id, t_pad)
 
@@ -210,21 +277,10 @@ def packed_train_attention_bwd_tiled_ref(q, k, v, doc_id, fn_id, noise_id, grad_
     return dq[:T] * scale, dk[:T] * scale, dv[:T]
 
 
-def _rows(t: torch.Tensor) -> torch.Tensor:
-    """``t`` [T, heads, D] as the forward kernel reads it: D contiguous, a head
-    stride of D, rows on 16-byte boundaries; copied only when its layout differs."""
-    D = t.shape[-1]
-    per_load = _launch.LOAD_BYTES // t.element_size()
-    if (t.stride(2) == 1 and t.stride(1) == D and t.stride(0) % per_load == 0
-            and t.data_ptr() % _launch.LOAD_BYTES == 0):
-        return t
-    return t.contiguous()
-
-
 def _mapped(t: torch.Tensor) -> torch.Tensor:
-    """``t`` [T, heads, D] as the backward kernels' tensor maps read it: D
-    contiguous, row and head strides positive multiples of 16 bytes, a 16-byte
-    aligned start; copied only when it is not so."""
+    """``t`` [T, heads, D] as the kernels' tensor maps read it: D contiguous,
+    row and head strides positive multiples of 16 bytes, a 16-byte aligned
+    start; copied only when it is not so."""
     per_load = _launch.LOAD_BYTES // t.element_size()
     if (t.stride(2) == 1 and all(s > 0 and s % per_load == 0 for s in t.stride()[:2])
             and t.data_ptr() % _launch.LOAD_BYTES == 0):
@@ -255,79 +311,96 @@ def _check(q, k, v) -> Tuple[int, int, int, int]:
     return T, H, Hk, D
 
 
+class Plan(NamedTuple):
+    """What the plan launch writes for one sequence (T_pad = 128 n128): ids4
+    int32 [T_pad, 4] (doc, fn, noise, 0; zeros past T), the lists of
+    :func:`tile_plan` (entries past each count are not written) and dq_order
+    int32 [n128] (:func:`query_tile_order`)."""
+    ids4: torch.Tensor
+    dq_list: torch.Tensor
+    dq_count: torch.Tensor
+    dkv_list: torch.Tensor
+    dkv_count: torch.Tensor
+    dq_order: torch.Tensor
+
+
+def _launch_plan(doc, fn, nz) -> Plan:
+    """The plan launch (three kernels, no host synchronisation) from the ids
+    (contiguous int32 [T] on the card)."""
+    T, dev = doc.shape[0], doc.device
+    n128 = -(-T // CTA_ROWS)
+    n64 = 2 * n128
+    ids4 = torch.empty((n64 * TILE, 4), dtype=torch.int32, device=dev)
+    states = torch.empty((n64, n64), dtype=torch.uint8, device=dev)
+    lists = torch.empty((2, n128, n64), dtype=torch.int32, device=dev)
+    counts = torch.empty((3, n128), dtype=torch.int32, device=dev)  # dq, dk/dv, dq order
+    lib = cuda_build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.unimedvl_packed_train_attention_plan(
+            doc.data_ptr(), fn.data_ptr(), nz.data_ptr(), ids4.data_ptr(), states.data_ptr(),
+            lists[0].data_ptr(), counts[0].data_ptr(), lists[1].data_ptr(),
+            counts[1].data_ptr(), counts[2].data_ptr(), T,
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "packed_train_attention (plan)")
+    return Plan(ids4, lists[0], counts[0], lists[1], counts[1], counts[2])
+
+
 def _launch_fwd(q, k, v, doc, fn, nz):
-    """The forward kernel: (out [T, H, D] bf16, lse [H, T] fp32)."""
+    """The plan launch, then the forward kernel over the plan's dq lists:
+    (out [T, H, D] bf16, lse [H, T] fp32, the plan). q, k, v in any strides
+    :func:`_mapped` passes."""
     T, H, Hk, D = _check(q, k, v)
+    plan = _launch_plan(doc, fn, nz)
     out = torch.empty((T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((H, T), dtype=torch.float32, device=q.device)
     lib = cuda_build.load_library()
     with torch.cuda.device(q.device):
         rc = lib.unimedvl_packed_train_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            doc.data_ptr(), fn.data_ptr(), nz.data_ptr(), T, H, Hk, D,
-            q.stride(0), k.stride(0), v.stride(0), float(D**-0.5),
+            plan.ids4.data_ptr(), plan.dq_list.data_ptr(), plan.dq_count.data_ptr(),
+            plan.dq_order.data_ptr(), T, H, Hk, D, q.stride(0), q.stride(1), k.stride(0),
+            k.stride(1), v.stride(0), v.stride(1), float(D**-0.5),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     cuda_build.check(rc, "packed_train_attention (forward)")
     counts["fwd"] += 1
-    return out, lse
+    return out, lse, plan
 
 
-class Plan(NamedTuple):
-    """What the plan launch writes for one backward call (T_pad = 128 n128):
-    ids4 int32 [T_pad, 4] (doc, fn, noise, 0; zeros past T), lse2 fp32 [H, T_pad]
-    (lse in log2 units, +inf where lse is the float32 min, 0 past T), dsum fp32
-    [H, T_pad] (0 past T), and the lists of :func:`backward_plan` (entries past
-    each count are not written)."""
-    ids4: torch.Tensor
-    lse2: torch.Tensor
-    dsum: torch.Tensor
-    dq_list: torch.Tensor
-    dq_count: torch.Tensor
-    dkv_list: torch.Tensor
-    dkv_count: torch.Tensor
-
-
-def _launch_plan(do, out, lse, doc, fn, nz) -> Plan:
-    """The plan launch (two kernels, no host synchronisation) from the bf16
-    cotangent ``do`` (any strides :func:`_mapped` passes), ``out`` [T, H, D]
-    contiguous, ``lse`` [H, T] and the ids."""
+def _launch_rows(do, out, lse):
+    """The backward's row data: (lse2, dsum), fp32 [H, T_pad]: lse in log2
+    units (+inf where lse is the float32 minimum, 0 past T) and dsum =
+    sum_d do * out (0 past T), from the bf16 cotangent ``do`` (any strides
+    :func:`_mapped` passes), ``out`` [T, H, D] contiguous and ``lse`` [H, T]."""
     T, H, D = out.shape
-    n128 = -(-T // CTA_ROWS)
-    n64, dev = 2 * n128, out.device
-    t_pad = n64 * TILE
-    ids4 = torch.empty((t_pad, 4), dtype=torch.int32, device=dev)
-    lse2, dsum = (torch.empty((H, t_pad), dtype=torch.float32, device=dev) for _ in range(2))
-    states = torch.empty((n64, n64), dtype=torch.uint8, device=dev)
-    lists = torch.empty((2, n128, n64), dtype=torch.int32, device=dev)
-    list_counts = torch.empty((2, n128), dtype=torch.int32, device=dev)
+    t_pad = -(-T // CTA_ROWS) * CTA_ROWS
+    lse2, dsum = (torch.empty((H, t_pad), dtype=torch.float32, device=out.device)
+                  for _ in range(2))
     lib = cuda_build.load_library()
-    with torch.cuda.device(dev):
-        rc = lib.unimedvl_packed_train_attention_bwd_plan(
-            do.data_ptr(), out.data_ptr(), lse.data_ptr(), doc.data_ptr(), fn.data_ptr(),
-            nz.data_ptr(), ids4.data_ptr(), lse2.data_ptr(), dsum.data_ptr(), states.data_ptr(),
-            lists[0].data_ptr(), list_counts[0].data_ptr(), lists[1].data_ptr(),
-            list_counts[1].data_ptr(), T, H, D, do.stride(0), do.stride(1),
-            torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(rc, "packed_train_attention (backward plan)")
-    return Plan(ids4, lse2, dsum, lists[0], list_counts[0], lists[1], list_counts[1])
+    with torch.cuda.device(out.device):
+        rc = lib.unimedvl_packed_train_attention_bwd_rows(
+            do.data_ptr(), out.data_ptr(), lse.data_ptr(), lse2.data_ptr(), dsum.data_ptr(),
+            T, H, D, do.stride(0), do.stride(1), torch.cuda.current_stream(out.device).cuda_stream)
+    cuda_build.check(rc, "packed_train_attention (backward rows)")
+    return lse2, dsum
 
 
-def _launch_bwd(q, k, v, out, lse, doc, fn, nz, grad_out, need_dq: bool, need_dkv: bool):
-    """The backward kernels: (dq or None, dk or None, dv or None). The plan
-    launch runs first; the kernels read the cotangent rounded to q's dtype, as
-    the TPU kernels do, and ``dsum`` is taken from it."""
+def _launch_bwd(q, k, v, out, lse, plan: Plan, grad_out, need_dq: bool, need_dkv: bool):
+    """The backward kernels over the forward's plan: (dq or None, dk or None,
+    dv or None). The row launch runs first; the kernels read the cotangent
+    rounded to q's dtype, as the TPU kernels do, and ``dsum`` is taken from
+    it."""
     T, H, Hk, D = _check(q, k, v)
     do = _mapped(grad_out.to(q.dtype))
     _launch.check_cuda(("grad_out", "out"), (do, out), torch.bfloat16)
     if not out.is_contiguous() or out.shape != q.shape:
         raise ValueError("out must be the forward's contiguous [T, H, D] output")
-    plan = _launch_plan(do, out, lse, doc, fn, nz)
+    lse2, dsum = _launch_rows(do, out, lse)
     lib = cuda_build.load_library()
     common = (T, H, Hk, D, q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
               v.stride(1), do.stride(0), do.stride(1), float(D**-0.5))
-    rows = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), plan.lse2.data_ptr(),
-            plan.dsum.data_ptr(), plan.ids4.data_ptr())
+    rows = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
+            dsum.data_ptr(), plan.ids4.data_ptr())
     dq = dk = dv = None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -352,22 +425,22 @@ def _launch_bwd(q, k, v, out, lse, doc, fn, nz, grad_out, need_dq: bool, need_dk
 
 
 class _PackedTrainAttention(torch.autograd.Function):
-    """The three kernels under autograd: the forward saves q, k, v, out, lse
-    and the ids; the backward is not itself differentiable."""
+    """The kernels under autograd: the forward saves q, k, v, out, lse and
+    the plan it swept; the backward is not itself differentiable."""
 
     @staticmethod
     def forward(ctx, q, k, v, doc, fn, nz):
-        q, k, v = _rows(q), _rows(k), _rows(v)
-        out, lse = _launch_fwd(q, k, v, doc, fn, nz)
-        ctx.save_for_backward(q, k, v, out, lse, doc, fn, nz)
+        q, k, v = _mapped(q), _mapped(k), _mapped(v)
+        out, lse, plan = _launch_fwd(q, k, v, doc, fn, nz)
+        ctx.save_for_backward(q, k, v, out, lse, *plan)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
-        q, k, v, out, lse, doc, fn, nz = ctx.saved_tensors
+        q, k, v, out, lse, *plan = ctx.saved_tensors
         need = ctx.needs_input_grad
-        dq, dk, dv = _launch_bwd(q, k, v, out, lse, doc, fn, nz, grad_out,
+        dq, dk, dv = _launch_bwd(q, k, v, out, lse, Plan(*plan), grad_out,
                                  need[0], need[1] or need[2])
         return dq, dk if need[1] else None, dv if need[2] else None, None, None, None
 

@@ -26,8 +26,10 @@ Arithmetic, which the plain version and the kernel share:
   between kernel and plain version.
 
 ``w4_matmul`` launches the kernel for CUDA tensors and runs the plain version
-for CPU tensors. A shape the kernel does not take raises: there is no
-threshold and no fallback.
+for CPU tensors. On the card, m <= 4 rows take a weight-streaming GEMV and
+more rows a GEMM: with int8 x on ``wgmma`` (``w4a8_gemm_tiled_ref`` is its
+partition in plain torch), with bf16 x on ``mma.sync``. A shape the kernel
+does not take raises: there is no threshold and no fallback.
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ counts = {"kernel": 0, "plain": 0}
 
 KERNEL_K_MULTIPLE = 64  # one k-step of the kernel: 32 packed bytes of a weight row
 KERNEL_N_MULTIPLE = 8
+# the int8-x GEMM's partition: a CTA's weight rows, its x rows per channel and with group
+# scales, and the in-rows of one product (a stage holds four)
+GEMM_W_ROWS, GEMM_X_ROWS, GEMM_X_ROWS_GROUPED, GEMM_K_STEP = 128, 256, 128, 32
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -114,6 +119,47 @@ def w4_matmul_ref(
             y = y * x_scale.reshape(m, 1).float()
         y = y * ws32[0]
     return y.to(out_dtype).reshape(*x.shape[:-1], N)
+
+
+def w4a8_gemm_tiled_ref(x, x_scale, wp, w_scale, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The int8-x GEMM's partition (m > 4) in plain torch on the CPU:
+    y^T = W x^T per tile of GEMM_W_ROWS weight rows by GEMM_X_ROWS x rows
+    (GEMM_X_ROWS_GROUPED with group scales), the weights as the kernel's
+    registers hold them (signed bytes, 16 times each nibble), int32 sums over
+    products of GEMM_K_STEP in-rows in k order, shifted right by 4; with group
+    scales each group's sum is flushed at its end into an fp32 sum (rounded
+    multiply by the group's scale, rounded add); then the epilogue's order:
+    float(acc) * x_scale * w_scale per channel, fp32 sum * x_scale grouped.
+    Equal to :func:`w4_matmul_ref` bit for bit. Counts as no call of either
+    version."""
+    N, K = wp.shape[0], 2 * wp.shape[1]
+    m = x.numel() // K
+    G = _n_groups(w_scale, N, K)
+    gsize = K // G if G else K
+    rows = GEMM_X_ROWS_GROUPED if G else GEMM_X_ROWS
+    x2 = x.reshape(m, K).to(torch.int32)
+    xs = x_scale.reshape(m).float()
+    w16 = unpack_int4(wp).to(torch.int32) * 16
+    ws = w_scale.float().reshape(max(G, 1), N)
+    y = torch.empty(m, N, dtype=out_dtype)
+    for m0 in range(0, m, rows):
+        xt = x2[m0:m0 + rows]
+        for n0 in range(0, N, GEMM_W_ROWS):
+            wt = w16[n0:n0 + GEMM_W_ROWS]
+            acc = torch.zeros(wt.shape[0], xt.shape[0], dtype=torch.int32)
+            facc = torch.zeros(acc.shape)
+            for k in range(0, K, GEMM_K_STEP):
+                acc += wt[:, k:k + GEMM_K_STEP] @ xt[:, k:k + GEMM_K_STEP].t()
+                if G and (k + GEMM_K_STEP) % gsize == 0:
+                    scale = ws[(k + GEMM_K_STEP) // gsize - 1, n0:n0 + GEMM_W_ROWS, None]
+                    facc = facc + (acc >> 4).float() * scale
+                    acc.zero_()
+            if G:
+                yt = facc * xs[None, m0:m0 + rows]
+            else:
+                yt = (acc >> 4).float() * xs[None, m0:m0 + rows] * ws[0, n0:n0 + GEMM_W_ROWS, None]
+            y[m0:m0 + rows, n0:n0 + GEMM_W_ROWS] = yt.t().to(out_dtype)
+    return y.reshape(*x.shape[:-1], N)
 
 
 def _launch_kernel(x, x_scale, wp, w_scale, out_dtype):

@@ -9,7 +9,7 @@ Per phase it prints one JSON line: the step's wall time without the profiler
 (median of 3), and from the trace's kernel events the card's busy time (the
 union of kernel intervals), the idle share of the traced step, the number of
 kernel launches, and the busy time split by kind: the K5 kernels by name
-(forward, dq, dk/dv, the backward's plan launch and its dk/dv combine), K1a,
+(forward, dq, dk/dv, the plan launches and the dk/dv combine), K1a,
 GEMMs (cuBLAS / CUTLASS names), the optimizer's multi-tensor kernels and the
 EMA update, and the rest (element-wise, reductions, copies, the MoT row
 routing). The traces are written to OUT_DIR (default ``build/profile``)."""
@@ -29,10 +29,10 @@ import chip_smoke as cs
 from unimedvl_tpu_torch.training import lora, trainer
 
 KINDS = [  # first match wins
-    ("k5_fwd", ("packed_train_fwd",)),
+    ("k5_fwd", ("packed_train_fwd", "fwd_sweep_kernel")),
     ("k5_dq", ("packed_train_bwd_dq", "bwd_dq_kernel")),
     ("k5_dkv", ("packed_train_bwd_dkv", "bwd_dkv_kernel")),
-    ("k5_plan", ("bwd_prep_kernel", "bwd_lists_kernel")),
+    ("k5_plan", ("bwd_prep_kernel", "bwd_lists_kernel", "plan_", "bwd_rows_kernel")),
     ("k5_combine", ("bwd_dkv_combine",)),
     ("k1a", ("flash_block",)),
     ("gemm", ("gemm", "cutlass", "nvjet", "xmma", "cublas", "gemv")),

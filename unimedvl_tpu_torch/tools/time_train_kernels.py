@@ -12,10 +12,12 @@ package and builds its kernels there), at two packed layouts like those
 (text 60, ViT 4900 full, text 60; text 57, noised latents 1024; pads). Per
 layout it prints, as three readings of the time per call in a run of 20 (CUDA
 events, ms): the forward, the backward for dq alone, for dk/dv alone and for
-all three gradients (what a training step runs: one plan for both kernels);
-beside them, in the same process, one ``scaled_dot_product_attention`` on the
-same dense bool mask (K/V expanded to the query heads) forward and backward
-(all three gradients), and each kernel's bound: the larger of its bytes (each
+all three gradients (what a training step runs: one plan for both kernels;
+the forward includes the plan launch where the checkout's forward builds the
+plan, each backward the launch of its row data); beside them, in the same
+process, one ``scaled_dot_product_attention`` on the same dense bool mask (K/V
+expanded to the query heads) forward and backward (all three gradients), and
+each kernel's bound: the larger of its bytes (each
 operand read once, each output written once) over 3.35 TB/s and its flops over
 the allowed pairs (4, 6 and 8 D per pair and head for forward, dq and dk/dv)
 over 989 TFLOP/s. One JSON line per checkout, after the card's name and power
@@ -83,12 +85,15 @@ def _worker(checkout: str) -> None:
                 np.concatenate([a, np.full(T - len(a), fill, np.int32)])).cuda())
         q, k, v, cot = (torch.randn(T, h, D, generator=g, device="cuda").to(torch.bfloat16)
                         for h in (H, HK, HK, H))
-        o, lse = fat._launch_fwd(q, k, v, *ids)
+        o, lse, *plan = fat._launch_fwd(q, k, v, *ids)
+        # a checkout whose forward returns its plan passes it to the backward in the ids'
+        # place; an older one's backward takes the ids and builds its plan itself
+        between = tuple(plan) or tuple(ids)
         row = {key: run_ms(fn) for key, fn in {
             "fwd": lambda: fat._launch_fwd(q, k, v, *ids),
-            "bwd_dq": lambda: fat._launch_bwd(q, k, v, o, lse, *ids, cot, True, False),
-            "bwd_dkv": lambda: fat._launch_bwd(q, k, v, o, lse, *ids, cot, False, True),
-            "bwd": lambda: fat._launch_bwd(q, k, v, o, lse, *ids, cot, True, True),
+            "bwd_dq": lambda: fat._launch_bwd(q, k, v, o, lse, *between, cot, True, False),
+            "bwd_dkv": lambda: fat._launch_bwd(q, k, v, o, lse, *between, cot, False, True),
+            "bwd": lambda: fat._launch_bwd(q, k, v, o, lse, *between, cot, True, True),
         }.items()}
         mask = dense_packed_mask(*ids)
         qh, kh, vh = (t.repeat_interleave(r, dim=1).transpose(0, 1)[None].contiguous()
