@@ -9,8 +9,9 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   timesteps, CFG text 3.0 and image 1.5 on the interval (0.4, 1.0], global
   renorm);
 - the quantized chat path, the LLM quantized on the card with an int8 KV
-  cache: full-int8 with fused projections (the three chat requests), w4a8
-  per channel and w4a8 with groups of 512 (one request each);
+  cache and fused projections: full-int8 (the three chat requests), w4a8
+  per channel and w4a8 with groups of 512 (one request each), weight-only w4
+  per channel (the 980x980 and 378x378 requests);
 - the training path: LoRA steps (rank 16, every projection of both experts)
   over the frozen 28-layer model, on packed batches of synthetic VQA,
   text-to-image and editing examples (980 px and 378 px understanding
@@ -644,47 +645,74 @@ def check_decode_int8(g, randn, ints) -> dict:
 
 def check_silu_mul_quant(randn) -> dict:
     """K3 against its plain version at the MLP's width: a decode step (R = 1),
-    three streams, the 378 px image block and the 980 px image block."""
+    three streams, the 378 px image block and the 980 px image block, each
+    on the launch shape the wrapper picks and on the other one (rows over a
+    cluster up to CLUSTER_MAX_ROWS rows, persistent CTAs past that); the
+    decode step also in a CUDA graph (the card's time alone)."""
     print(f"K3 silu_mul_quant, I = 18944 (scales within {K3_SCALE_RTOL} relative, q within "
           f"{K3_MAX_STEP} step, at most {K3_MAX_SHARE} of q differing):", flush=True)
     I, rows = 18944, []
     for R in (1, 3, 731, 4902):
         gu = randn(R, 2 * I, scale=2.0)  # the halves of a fused gate_up output
         gate, up = gu.split(I, dim=-1)
-        q, sc = aq.silu_mul_quant(gate, up)
-        torch.cuda.synchronize()
         q_ref, sc_ref = aq.silu_mul_quant_ref(gate, up)
-        step = (q.int() - q_ref.int()).abs()
-        share = (step > 0).float().mean().item()
-        rel = ((sc - sc_ref).abs() / sc_ref).max().item()
-        ms = cuda_ms(lambda: aq.silu_mul_quant(gate, up))
-        plain_ms = cuda_ms(lambda: aq.silu_mul_quant_ref(gate, up), warmup=1, iters=3)
-        b2b = back_to_back_ms(lambda: aq.silu_mul_quant(gate, up)) if R in (1, 4902) else None
-        b = bound(R * I * 5 + R * 4, R * I * 15, "fp32")
-        _line(f"K3 R={R}", f"max step {step.max().item()}, share differing {share:.2e}, scale "
-              f"rel err {rel:.2e}", ms, plain_ms, b, _b2b_text(b2b))
-        if rel > K3_SCALE_RTOL or step.max().item() > K3_MAX_STEP or share > K3_MAX_SHARE:
-            raise SystemExit(f"chip_smoke: K3 R={R} disagrees with its plain version")
-        rows.append(dict(max_abs_err=float(step.max().item()), ms=ms, plain_ms=plain_ms,
-                         ms_back_to_back=b2b, library_ms=None, **b))  # no one PyTorch call
+        default = R <= aq.CLUSTER_MAX_ROWS  # the wrapper spreads the row over a cluster
+        for on_cluster in (default, not default):
+            limit = aq.CLUSTER_MAX_ROWS
+            aq.CLUSTER_MAX_ROWS = R if on_cluster else 0  # the launch shape to check
+            try:
+                q, sc = aq.silu_mul_quant(gate, up)
+            finally:
+                aq.CLUSTER_MAX_ROWS = limit
+            torch.cuda.synchronize()
+            step = (q.int() - q_ref.int()).abs()
+            share = (step > 0).float().mean().item()
+            rel = ((sc - sc_ref).abs() / sc_ref).max().item()
+            how = f"cluster of {aq.CLUSTER_SIZE}" if on_cluster else "many-row"
+            if on_cluster != default:
+                print(f"  K3 R={R} on the other launch shape ({how}): max step "
+                      f"{step.max().item()}, share differing {share:.2e}, scale rel err "
+                      f"{rel:.2e}", flush=True)
+            if rel > K3_SCALE_RTOL or step.max().item() > K3_MAX_STEP or share > K3_MAX_SHARE:
+                raise SystemExit(f"chip_smoke: K3 R={R} ({how}) disagrees with its plain version")
+            if on_cluster != default:
+                continue
+            ms = cuda_ms(lambda: aq.silu_mul_quant(gate, up))
+            plain_ms = cuda_ms(lambda: aq.silu_mul_quant_ref(gate, up), warmup=1, iters=3)
+            b2b = back_to_back_ms(lambda: aq.silu_mul_quant(gate, up)) if R in (1, 4902) else None
+            in_graph = graph_ms(lambda: aq.silu_mul_quant(gate, up)) if R == 1 else None
+            b = bound(R * I * 5 + R * 4, R * I * 15, "fp32")
+            _line(f"K3 R={R} ({how})", f"max step {step.max().item()}, share differing "
+                  f"{share:.2e}, scale rel err {rel:.2e}", ms, plain_ms, b,
+                  _b2b_text(b2b) + ("" if in_graph is None else
+                                    f"; {in_graph:.4f} ms per call in a CUDA graph of "
+                                    f"{BACK_TO_BACK}"))
+            rows.append(dict(max_abs_err=float(step.max().item()), ms=ms, plain_ms=plain_ms,
+                             ms_back_to_back=b2b, ms_in_graph=in_graph, library_ms=None,
+                             **b))  # no one PyTorch call
     out = dict(rows[-1])  # the 980 px image block; the decode step beside it
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     out["one_row_ms"], out["one_row_ms_back_to_back"] = rows[0]["ms"], rows[0]["ms_back_to_back"]
+    out["one_row_ms_in_graph"] = rows[0]["ms_in_graph"]
+    del out["ms_in_graph"]
     return out
 
 
 def check_w4_matmul(g, randn) -> dict:
     """K4 against its plain version at the LLM's four projection shapes (qkv
-    and gate_up fused, o, down): the int8 branch (w4a8) per channel and with
-    groups of 512 must be EQUAL (exact integer sums, the same rounded fp32
+    and gate_up fused, o, down), per channel and with groups of 512: the int8
+    branch (w4a8) must be EQUAL (exact integer sums, the same rounded fp32
     scaling), on the GEMV (m 1, 3) and the GEMM (m 731, 4902); the bf16 branch
-    sums fp32 in another order: |err| <= 2^-7 |plain| + 1e-3 sqrt(K) 8 max|x|
-    max(w_scale) / 16. The ``kernels`` line's row is the decode step's GEMV at
-    gate_up, with the prefill's GEMM at gate_up under ``gemm``."""
+    (weight-only w4; GEMV at m 1 and 3, GEMM at a text prefill's 17 rows and
+    at m 731, 4902) sums fp32 in another order: |err| <= 2^-7 |plain| + 1e-3
+    sqrt(K) 8 max|x| max(w_scale) / 16. The ``kernels`` line's row is the
+    decode step's GEMV at gate_up, with the prefill's GEMMs at gate_up, m 4902,
+    per channel under ``gemm`` (int8 x) and ``bf16_gemm`` (bf16 x, with the
+    ``torch.mm`` yardstick)."""
     print("K4 w4_matmul (w4a8: equality; bf16 x: |err| <= 2^-7 |ref| + reordering bound):",
           flush=True)
     shapes = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584)]
-    rows, shown, gemm = [], None, None
+    rows, shown, gemm, bf16_gemm = [], None, None, None
     for K, N in shapes:
         wp = w4.pack_int4(_rand_int8(g, N, K, lo=-8, hi=8))
         for G in (0, K // W4_GROUP):
@@ -713,25 +741,44 @@ def check_w4_matmul(g, randn) -> dict:
                     shown = r
                 if (m, K, N, G) == (4902, 3584, 37888, 0):  # the GEMM path at gate_up
                     gemm = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
-        ws = torch.rand(N, generator=g, device="cuda") * 0.01 + 0.001
-        for m in (1, 731):
-            x = randn(m, K)
-            got = w4.w4_matmul(x, None, wp, ws).float()
-            torch.cuda.synchronize()
-            want = w4.w4_matmul_ref(x, None, wp, ws).float()
-            tol = 2.0**-7 * want.abs() + 1e-3 * K**0.5 * 8 * x.float().abs().max() * ws.max() / 16
-            err, worst = (got - want).abs(), ((got - want).abs() / tol).max().item()
-            ms = cuda_ms(lambda: w4.w4_matmul(x, None, wp, ws))
-            plain_ms = cuda_ms(lambda: w4.w4_matmul_ref(x, None, wp, ws), warmup=1, iters=3)
-            b = bound(m * K * 2 + N * K // 2 + N * 4 + m * N * 2, 2.0 * m * K * N, "bf16")
-            _line(f"K4 w4 bf16-x m={m} K={K} N={N} per channel",
-                  f"max abs err {err.max().item():.3e}, worst err/bound {worst:.3f}", ms,
-                  plain_ms, b)
-            if worst > 1.0:
-                raise SystemExit("chip_smoke: K4 (bf16 x) disagrees with its plain version")
-            rows.append(dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
-                             library_ms=None, **b))
-    out = dict(shown, gemm=dict(gemm, case="w4a8 m=4902 K=3584 N=37888 per channel"))
+        for G in (0, K // W4_GROUP):
+            ws = torch.rand((G, N) if G else (N,), generator=g, device="cuda") * 0.01 + 0.001
+            for m in (1, 3, 17, 731, 4902):
+                x = randn(m, K)
+                got = w4.w4_matmul(x, None, wp, ws).float()
+                torch.cuda.synchronize()
+                want = w4.w4_matmul_ref(x, None, wp, ws).float()
+                tol = (2.0**-7 * want.abs()
+                       + 1e-3 * K**0.5 * 8 * x.float().abs().max() * ws.max() / 16)
+                err, worst = (got - want).abs(), ((got - want).abs() / tol).max().item()
+                kind = f"{'group 512' if G else 'per channel'}"
+                b = bound(m * K * 2 + N * K // 2 + ws.numel() * 4 + m * N * 2,
+                          2.0 * m * K * N, "bf16")
+                r = dict(max_abs_err=err.max().item(), library_ms=None, **b)
+                text = f"max abs err {err.max().item():.3e}, worst err/bound {worst:.3f}"
+                if m >= 731:  # the prefills: timed
+                    r["ms"] = cuda_ms(lambda: w4.w4_matmul(x, None, wp, ws))
+                    r["plain_ms"] = cuda_ms(lambda: w4.w4_matmul_ref(x, None, wp, ws),
+                                            warmup=1, iters=3)
+                    _line(f"K4 w4 bf16-x m={m} K={K} N={N} {kind}", text, r["ms"],
+                          r["plain_ms"], b)
+                else:
+                    print(f"  K4 w4 bf16-x m={m} K={K} N={N} {kind}: {text}", flush=True)
+                if worst > 1.0:
+                    raise SystemExit("chip_smoke: K4 (bf16 x) disagrees with its plain version")
+                rows.append(r)
+                if (m, K, N, G) == (4902, 3584, 37888, 0):  # the weight-only prefill's GEMM
+                    # yardstick: x by the weight unpacked, scaled and cast to bf16 (another
+                    # function: no PyTorch call multiplies by packed int4)
+                    wb = (w4.unpack_int4(wp).float() * ws[:, None]).to(torch.bfloat16)
+                    mm_ms = cuda_ms(lambda: torch.mm(x, wb.t()))
+                    del wb
+                    print(f"    yardstick torch.mm on the unpacked bf16 weight: {mm_ms:.4f} ms",
+                          flush=True)
+                    bf16_gemm = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                    bf16_gemm["yardstick_mm_ms"] = mm_ms
+    out = dict(shown, gemm=dict(gemm, case="w4a8 m=4902 K=3584 N=37888 per channel"),
+               bf16_gemm=dict(bf16_gemm, case="bf16 x m=4902 K=3584 N=37888 per channel"))
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     return out
 
@@ -858,10 +905,12 @@ def _images():
     return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w, _ in REQUESTS]
 
 
-def run_chat_requests(inf: InterleaveInferencer, requests, path: str, expected) -> dict:
+def run_chat_requests(inf: InterleaveInferencer, requests, path: str, expected,
+                      rows_out=None) -> dict:
     """Chat requests (indices into REQUESTS) with the counters reset just
     before; ``expected(forwards, decode_steps, image_blocks)`` gives the launch
-    counts the path must show. Returns the launches each kernel counted."""
+    counts the path must show. Returns the launches each kernel counted; each
+    request's row of times goes to ``rows_out`` where given."""
     images = _images()
     # warm-up request (cuBLAS handles, first launches), not counted or timed
     inf.chat([images[2]], REQUESTS[2][2], max_length=2)
@@ -900,6 +949,8 @@ def run_chat_requests(inf: InterleaveInferencer, requests, path: str, expected) 
             decode_tok_s=(steps - 1) / (t_end - stamps[3]) if steps > 1 else None,
         )
         print(f"  request {row['image']}: {json.dumps(row)} answer {answer[:60]!r}", flush=True)
+        if rows_out is not None:
+            rows_out.append(row)
     hook.remove()
     return check_counts(path, expected(forwards, total_steps, image_blocks))
 
@@ -939,33 +990,40 @@ def run_quantized_chat(inf: InterleaveInferencer, logits_bf16: torch.Tensor) -> 
     """The quantized serving modes at the full width, each on its own
     quantized copy of the LLM (freed before the next) with an int8 KV cache:
     (a) full-int8, fused projections: the three requests; (b) w4a8 per channel
-    and (c) w4a8 with groups of 512, fused: the 378x378 request. After each,
-    the first-step logits with the kernels against the same model on the plain
-    versions (asserted) and against the bf16 model (printed: these are
-    non-parity modes, and the weights are random). Returns the launches of
-    the three phases added up."""
+    and (c) w4a8 with groups of 512, fused: the 378x378 request; (d)
+    weight-only w4 per channel, fused: the 980x980 request (a 4902-row
+    prefill through K4's bf16-x GEMM) and the 378x378 one, with x never
+    quantized, so K3 runs in no layer. After each, the first-step logits with
+    the kernels against the same model on the plain versions (asserted) and
+    against the bf16 model (printed: these are non-parity modes, and the
+    weights are random). Returns the launches of the phases added up."""
     n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
     fused_per_layer = 4  # qkv, o, gate_up, down of the und expert
-    phases = [
-        ("full-int8 + fused + int8 KV", dict(bits=8, act_quant=True), range(len(REQUESTS)), 0),
+    phases = [  # name, options, requests, K4 launches per layer, K3 launches per layer
+        ("full-int8 + fused + int8 KV", dict(bits=8, act_quant=True), range(len(REQUESTS)), 0, 1),
         ("w4a8 per channel + fused + int8 KV", dict(bits=4, act_quant=True), [2],
-         fused_per_layer),
+         fused_per_layer, 1),
         (f"w4a8 group {W4_GROUP} + fused + int8 KV",
-         dict(bits=4, act_quant=True, group_size=W4_GROUP), [2], fused_per_layer),
+         dict(bits=4, act_quant=True, group_size=W4_GROUP), [2], fused_per_layer, 1),
+        ("weight-only w4 per channel + fused + int8 KV", dict(bits=4), [0, 2],
+         fused_per_layer, 0),
     ]
     total = {name: 0 for name in COUNTERS}
     h, w, prompt = REQUESTS[1]
     image = _images()[1]
-    for name, kw, requests, k4_per_layer in phases:
+    s_per_image = {}
+    for name, kw, requests, k4_per_layer, k3_per_layer in phases:
         print(f"quantized chat path, {name}: {len(requests)} request(s), greedy, max_length "
               f"{MAX_LENGTH}", flush=True)
         qinf = quantized_inferencer(inf, **kw)
+        rows = []
         launches = run_chat_requests(qinf, requests, f"the {name} path", lambda f, steps, imgs: {
             "flash_block_attention": imgs * (n_vit + n_llm) + imgs * n_llm,
             "decode_attention_int8": steps * n_llm,
-            "silu_mul_quant": f * n_llm,
+            "silu_mul_quant": f * n_llm * k3_per_layer,
             "w4_matmul": f * n_llm * k4_per_layer,
-        })
+        }, rows)
+        s_per_image[name] = {row["image"]: row["s_per_image"] for row in rows}
         for k, v in launches.items():
             total[k] += v
         got = _first_step_logits(qinf, image, prompt)
@@ -983,6 +1041,7 @@ def run_quantized_chat(inf: InterleaveInferencer, logits_bf16: torch.Tensor) -> 
                              "the plain versions'")
         del qinf
         torch.cuda.empty_cache()
+    print(f"s/image by quantized mode (one request each): {json.dumps(s_per_image)}", flush=True)
     return total
 
 
@@ -991,7 +1050,8 @@ EXTRA_KEYS = (
     "one_row_ms", "one_row_ms_back_to_back", "tiles_skipped", "max_abs_err_lse",
     "cache_partial_t2i_ms", "cache_partial_edit_ms", "library_note", "concat_k1b_ms",
     "k_island_ms", "concat_copy_ms", "k1b_on_concat_ms", "q_island_only_ms", "launches_from",
-    "n_split", "split_len", "cases", "ms_in_graph", "vit", "gemm",
+    "n_split", "split_len", "cases", "ms_in_graph", "vit", "gemm", "bf16_gemm",
+    "one_row_ms_in_graph",
 )
 
 COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches there)

@@ -608,6 +608,43 @@ def test_silu_mul_quant_zero_rows_and_fused_halves(gen):
     assert (q.int() - q_ref.int()).abs().max().item() <= 1
 
 
+@pytest.mark.parametrize("cluster", [0, 16])
+@pytest.mark.parametrize("R", [1, 2, 131, 133, 4902])
+def test_silu_mul_quant_both_launch_shapes(gen, R, cluster, monkeypatch):
+    """The many-row path (persistent CTAs, the next row in flight) and the
+    cluster path (a row over 16 CTAs) at the MLP's width, each at every row
+    count, on the two halves of one fused gate_up output (row stride 2 I)
+    with two leading dims."""
+    monkeypatch.setattr(aq, "CLUSTER_MAX_ROWS", 10**6 if cluster else 0)
+    monkeypatch.setattr(aq, "CLUSTER_SIZE", cluster or aq.CLUSTER_SIZE)
+    I = 18944
+    lead = (2, R // 2) if R % 2 == 0 else (1, R)
+    gu = _randn(gen, *lead, 2 * I, scale=2.0)
+    g, u = gu.split(I, dim=-1)
+    q, s = aq.silu_mul_quant(g, u)
+    q_ref, s_ref = aq.silu_mul_quant_ref(g, u)
+    assert q.shape == (*lead, I) and s.shape == (*lead, 1)
+    torch.testing.assert_close(s, s_ref, rtol=1e-6, atol=0)
+    diff = (q.int() - q_ref.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+@pytest.mark.parametrize("R", [1, 3])
+def test_silu_mul_quant_cluster_sizes(gen, R, cluster, monkeypatch):
+    """Every cluster size the kernel takes gives the same q and scales as the
+    many-row path (the row's slices differ, the arithmetic does not)."""
+    I = 18944
+    gu = _randn(gen, R, 2 * I, scale=2.0)
+    g, u = gu.split(I, dim=-1)
+    monkeypatch.setattr(aq, "CLUSTER_SIZE", cluster)
+    q, s = aq.silu_mul_quant(g, u)
+    monkeypatch.setattr(aq, "CLUSTER_MAX_ROWS", 0)
+    q0, s0 = aq.silu_mul_quant(g, u)
+    assert torch.equal(q, q0) and torch.equal(s, s0)
+
+
 def _w4_inputs(gen, m, K, N, G):
     wq = _int8(gen, N, K, lo=-8, hi=8)
     wp = w4.pack_int4(wq)
@@ -660,6 +697,24 @@ def test_w4_matmul_bf16_x_matches_plain(gen, shape):
     _, wp, ws = _w4_inputs(gen, m, K, N, G)
     x = _randn(gen, m, K)
     got = w4.w4_matmul(x, None, wp, ws).float()
+    want = w4.w4_matmul_ref(x, None, wp, ws).float()
+    bound = 2.0**-7 * want.abs() + 1e-3 * K**0.5 * 8 * x.float().abs().max() * ws.max() / 16
+    assert ((got - want).abs() <= bound).all(), ((got - want).abs() / bound).max().item()
+
+
+@pytest.mark.parametrize("group", [0, 512])
+@pytest.mark.parametrize("kn", W4_PROJECTIONS)
+@pytest.mark.parametrize("m", [5, 17, 255, 257, 731, 4902])
+def test_w4_bf16_gemm_matches_plain_at_the_projection_shapes(gen, m, kn, group):
+    """The bf16-x GEMM (weight-only w4, m > 4) at the prefill's shapes, per
+    channel and with groups of 512 in-rows: x tiles of 64, 128 and 256 rows,
+    cut at the edge (255, 257, 731, 4902) and a text prefill's few rows."""
+    K, N = kn
+    _, wp, ws = _w4_inputs(gen, m, K, N, K // group if group else 0)
+    x = _randn(gen, m, K)
+    before = w4.counts["kernel"]
+    got = w4.w4_matmul(x, None, wp, ws).float()
+    assert w4.counts["kernel"] == before + 1
     want = w4.w4_matmul_ref(x, None, wp, ws).float()
     bound = 2.0**-7 * want.abs() + 1e-3 * K**0.5 * 8 * x.float().abs().max() * ws.max() / 16
     assert ((got - want).abs() <= bound).all(), ((got - want).abs() / bound).max().item()

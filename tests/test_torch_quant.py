@@ -18,6 +18,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from unimedvl_tpu import quant as jquant
 from unimedvl_tpu.config import BagelConfig, LLMConfig, ViTConfig
@@ -179,6 +181,9 @@ class TestQuantLinear:
         assert [n for n, _ in m.named_parameters()] == ["bias"]
 
 
+_F32_BIG = float(np.float32(1e30))
+
+
 class TestSiluMulQuant:
     """K3's plain version. Against the Pallas kernel in interpret mode:
     scales within 1e-6 relative, q within one step and differing on at most
@@ -230,6 +235,36 @@ class TestSiluMulQuant:
         _eq(q[:1], want_q)
         np.testing.assert_allclose(s[:1].numpy(), np.asarray(want_s), rtol=1e-6, atol=0)
 
+    @staticmethod
+    def _division(x, scale):
+        return torch.clamp(torch.round(x / scale), -127, 127)
+
+    def test_fast_quantize_twin_equals_the_division_at_every_tie(self):
+        """The kernel's rule (``x * (1 / scale)``, the division redone near a
+        half-integer) against the true division at the points where they
+        could part: x = (k + 1/2) * scale and one ulp either side, for every
+        k with |k + 1/2| < 128, at scales from the 1e-8 floor up."""
+        k = torch.arange(-128, 128, dtype=torch.float32) + 0.5
+        for absmax in (1e-8, 3.3e-5, 0.7, 1.0, 2.3, 47.11, 1234.5678, 3.0e7):
+            scale = torch.tensor(max(absmax, 1e-8), dtype=torch.float32) / 127.0
+            tie = k * scale
+            xs = torch.cat([tie, torch.nextafter(tie, tie + 1), torch.nextafter(tie, tie - 1),
+                            torch.nextafter(torch.nextafter(tie, tie + 1), tie + 1)])
+            xs = xs[(xs / scale).abs() < 128]
+            got = aq.quantize_fast_twin(xs, scale)
+            assert torch.equal(got, self._division(xs, scale)), absmax
+
+    @settings(max_examples=300, deadline=None, derandomize=True)
+    @given(st.lists(st.floats(-_F32_BIG, _F32_BIG, width=32, allow_subnormal=True),
+                    min_size=1, max_size=64),
+           st.floats(0.0, 1.0, width=32))
+    def test_fast_quantize_twin_equals_the_division(self, values, shrink):
+        """On rows of any fp32 values (tiny, huge, subnormal, zero), with the
+        row's own scale and with the 1e-8 floor (shrink scales the row)."""
+        x = torch.tensor(values, dtype=torch.float32) * shrink
+        scale = torch.clamp_min(x.abs().amax(), 1e-8) / 127.0
+        assert torch.equal(aq.quantize_fast_twin(x, scale), self._division(x, scale))
+
     def test_shape_mismatch_and_other_devices_raise(self):
         with pytest.raises(ValueError, match="one shape"):
             aq.silu_mul_quant(torch.zeros(2, 8), torch.zeros(2, 16))
@@ -259,6 +294,21 @@ class TestW4Matmul:
         ws = rng.uniform(0.01, 0.1, shape).astype(np.float32)
         wp_t = w4.pack_int4(torch.from_numpy(q.T.copy()))  # the port's [N, K/2]
         return xq, xs, q, ws, wp_t
+
+    def test_widen_twin_equals_unpack_for_every_byte(self):
+        """The bf16-x GEMM widens nibbles through the mantissa of 128.0; its
+        twin equals ``unpack_int4`` (and the JAX package's unpacking) for all
+        256 byte values, each at all four places of a 32-bit word."""
+        b = torch.arange(256)
+        wp = ((b[:, None] + torch.arange(4)[None]) % 256).to(torch.uint8).view(torch.int8)
+        wp = wp.reshape(256, 4)
+        got = w4.widen_nibbles_twin(wp)
+        assert got.dtype == torch.bfloat16 and got.shape == (256, 8)
+        want = w4.unpack_int4(wp)
+        assert torch.equal(got.float(), want.float())
+        assert set(got.float().unique().tolist()) == set(range(-8, 8))
+        jax_unpacked = np.asarray(jw4.unpack_int4(jnp.asarray(wp.numpy().T))).T
+        np.testing.assert_array_equal(got.float().numpy(), jax_unpacked.astype(np.float32))
 
     @pytest.mark.parametrize("m", [1, 16, 37, 300])
     def test_w4a8_per_channel_is_bit_exact(self, m):

@@ -14,15 +14,15 @@
 //   added in fp32 in group order (rounded multiply, rounded add: no fused multiply-add), and
 //   x_scale multiplies last.
 //
-// Unpacking happens in registers and never widens to 16 or 32 bits per nibble. A 32-bit word of
-// wp is 8 in-rows: (w << 4) & 0xF0F0F0F0 holds the four even in-rows as signed bytes, each 16
-// times its nibble, and w & 0xF0F0F0F0 the four odd ones. Those bytes feed the integer products
-// as they are, and the int32 sum, a multiple of 16 below 2^31 for K up to 130,000, is shifted
-// right by 4 at the end.
+// With int8 x, unpacking happens in registers and never widens to 16 or 32 bits per nibble. A
+// 32-bit word of wp is 8 in-rows: (w << 4) & 0xF0F0F0F0 holds the four even in-rows as signed
+// bytes, each 16 times its nibble, and w & 0xF0F0F0F0 the four odd ones. Those bytes feed the
+// integer products as they are, and the int32 sum, a multiple of 16 below 2^31 for K up to
+// 130,000, is shifted right by 4 at the end.
 //
 // What bounds it on the H100: at decode (m of 1 to a few rows) each weight byte is used for 2 m
 // multiply-adds: HBM bandwidth, at half a byte per weight. At prefill (m in the thousands) the
-// integer tensor cores (1979 TOP/s dense int8).
+// tensor cores: 1979 TOP/s dense int8 (int8 x), 989 TFLOP/s dense bf16 (bf16 x).
 // What the design does about it, by m and x's type:
 //  - m <= 4: a weight-streaming GEMV. Half a warp owns an output column and walks its packed row
 //    with 16-byte loads (32 in-rows each, 256 contiguous bytes per half-warp), every weight byte
@@ -53,11 +53,21 @@
 //    The grid's x is the x-row tile, so the CTAs that share a W tile run side by side: the
 //    packed W (68 MB for gate_up, more than L2) comes from HBM about once, x (17.5 MB at 4902
 //    rows) stays in L2.
-//  - m > 4, bf16 x: a tiled GEMM on mma.sync m16n8k16 bf16 -> fp32. A CTA of 8 warps computes a
-//    128 x 128 tile in k-steps of 64 in-rows through shared memory (x tile and packed w tile,
-//    rows padded against bank conflicts); each warp holds a 32 x 64 part of it. It loads a
-//    tile, synchronises, computes, synchronises: no pipeline (weight-only w4 is on no path the
-//    smoke drives at prefill size).
+//  - m > 4, bf16 x (weight-only w4): the same y^T = W x^T on wgmma m64nBk16 bf16 x bf16 -> f32,
+//    both operands in shared memory. A CTA owns 128 weight rows (two consumer warpgroups of
+//    64) by B x rows, B the smallest of 64, 128, 256 that holds m (at most 128 with group
+//    scales), over stages of 64 in-rows (four k16 products, one commit group). The producer
+//    warp keeps a ring of stages full with TMA loads: the x tile (B rows x 128 bytes, 128-byte
+//    swizzle) and the packed W tile (128 rows x 32 bytes). Each consumer warpgroup widens its
+//    own 64 packed rows of a stage into a bf16 tile in wgmma's swizzled layout (16 bytes a
+//    thread, each nibble exact through the mantissa of 128.0, no I2F: `widen8`), fences the
+//    generic proxy against the async one, meets its four warps on a named barrier and issues
+//    the stage's products. The widening of stage kt + 1 runs while stage kt's products are in
+//    flight (two widened tiles), so the product chain never waits on register writes, and each
+//    nibble is widened once per CTA rather than once per warp that reads it. With group scales
+//    the accumulator is flushed into an fp32 one (rounded multiply by the group's scale,
+//    rounded add) after the group's last commit group, and the next group's first product
+//    overwrites it. Epilogue and grid order as for int8 x.
 
 #include "flash_common.cuh"
 
@@ -192,137 +202,6 @@ __global__ void __launch_bounds__(kGemvThreads)
   }
 }
 
-
-// ---------------------------------------------------------------------------------------------
-// m > kGemvRows, bf16 x: tiled GEMM on mma.sync
-// ---------------------------------------------------------------------------------------------
-
-constexpr int kBM = 128, kBN = 128, kBK = 64;  // CTA tile; k-step in in-rows
-constexpr int kMmaThreads = 256;               // 8 warps as 4 (rows) x 2 (columns): 32 x 64 each
-constexpr int kWStride = kBK / 2 + 16;         // bytes per packed w row in shared memory
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The two nibbles of a packed byte as a bf16 pair (in-row 2r low, 2r + 1 high).
-__device__ __forceinline__ uint32_t nibbles_bf16x2(uint8_t byte) {
-  const int b = static_cast<int8_t>(byte);
-  const int lo = static_cast<int>(static_cast<uint32_t>(b) << 28) >> 28;
-  const __nv_bfloat162 v = __floats2bfloat162_rn(static_cast<float>(lo), static_cast<float>(b >> 4));
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// gsize: in-rows per scale group (a multiple of kBK), K when per channel.
-template <bool GROUPED>
-__global__ void __launch_bounds__(kMmaThreads)
-    w4_mma_bf16_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ wp,
-                       const float* __restrict__ ws, bf16* __restrict__ out, int m, int K, int N,
-                       int gsize) {
-  constexpr int kXStride = kBK * 2 + 16;  // bytes per x row in shared memory
-  constexpr int kXLoads = kBK * 2 / 16;   // 16-byte loads per x row and k-step
-  __shared__ __align__(16) uint8_t s_x[kBM * kXStride];
-  __shared__ __align__(16) uint8_t s_w[kBN * kWStride];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const uint8_t* xb = reinterpret_cast<const uint8_t*>(x);
-
-  float cacc[2][8][4];  // this group's (or the whole K's) sums
-  float facc[2][8][4];  // grouped: the scaled groups added so far
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) cacc[mi][ni][e] = facc[mi][ni][e] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // x tile [kBM, kBK] and packed w tile [kBN, kBK / 2] into shared memory; rows past the edge 0
-#pragma unroll
-    for (int i = 0; i < kBM * kXLoads / kMmaThreads; ++i) {
-      const int idx = tid + i * kMmaThreads;
-      const int row = idx / kXLoads, c = idx % kXLoads;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + row < m)
-        v = *reinterpret_cast<const uint4*>(xb + (static_cast<long long>(m0 + row) * K + k0) * 2 +
-                                            c * 16);
-      *reinterpret_cast<uint4*>(s_x + row * kXStride + c * 16) = v;
-    }
-    {
-      const int row = tid >> 1, c = tid & 1;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + row < N)
-        v = *reinterpret_cast<const uint4*>(
-            wp + static_cast<long long>(n0 + row) * (K / 2) + k0 / 2 + c * 16);
-      *reinterpret_cast<uint4*>(s_w + row * kWStride + c * 16) = v;
-    }
-    __syncthreads();
-
-    // four k16 steps; byte r of a packed row is the bf16 pair (2r, 2r + 1) the MMA wants
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const uint8_t* r0 = s_x + (wm * 32 + mi * 16 + g) * kXStride + kk * 32 + tig * 4;
-        const uint8_t* r8 = r0 + 8 * kXStride;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(r0);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(r8);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(r0 + 16);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(r8 + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const uint8_t* wrow = s_w + (wn * 64 + ni * 8 + g) * kWStride + kk * 8 + tig;
-        const uint32_t b0 = nibbles_bf16x2(wrow[0]), b1 = nibbles_bf16x2(wrow[4]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_bf16(cacc[mi][ni], a[mi], b0, b1);
-      }
-    }
-    __syncthreads();
-
-    if constexpr (GROUPED) {
-      if ((k0 + kBK) % gsize == 0) {  // a group ends: scale it, add it, start the next
-        const float* wsg = ws + static_cast<long long>(k0 / gsize) * N;
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const int col = n0 + wn * 64 + ni * 8 + tig * 2;
-          const float w0 = col < N ? wsg[col] : 0.f, w1 = col + 1 < N ? wsg[col + 1] : 0.f;
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              facc[mi][ni][e] =
-                  __fadd_rn(facc[mi][ni][e], __fmul_rn(cacc[mi][ni][e], (e & 1) ? w1 : w0));
-              cacc[mi][ni][e] = 0.f;
-            }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = m0 + wm * 32 + mi * 16 + g + (e >> 1) * 8;
-      if (row >= m) continue;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int col = n0 + wn * 64 + ni * 8 + tig * 2 + (e & 1);
-        if (col >= N) continue;
-        const float y = GROUPED ? facc[mi][ni][e] : __fmul_rn(cacc[mi][ni][e], ws[col]);
-        out[static_cast<long long>(row) * N + col] = __float2bfloat16(y);
-      }
-    }
-}
 
 // ---------------------------------------------------------------------------------------------
 // m > kGemvRows, int8 x: y^T = W x^T on wgmma s8 x s8 -> s32, fed by a TMA ring
@@ -637,6 +516,278 @@ cudaError_t launch_w4a8(const int8_t* x, const float* xs, const uint8_t* wp, con
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------------------------
+// m > kGemvRows, bf16 x: y^T = W x^T on wgmma bf16 x bf16 -> f32, both operands in shared memory
+// ---------------------------------------------------------------------------------------------
+
+constexpr int kBKStep = 64;                           // in-rows of a stage: four k16 products
+constexpr int kBPackedBytes = kWRows * kBKStep / 2;   // the packed W tile of a stage
+constexpr int kBWideBytes = kWRows * kBKStep * 2;     // the same tile widened to bf16
+constexpr int kBConsumers = 256;
+constexpr int kBThreads = kBConsumers + 32;
+
+// Per x-row tile B (64, 128 or 256 rows, the wgmma's n): 5 stages at B 256, else 8.
+template <int B>
+struct W4Bf16Tile {
+  static constexpr int kStages = B == 256 ? 5 : 8;
+  static constexpr int kXTileBytes = B * kBKStep * 2;  // B rows of 128 bytes
+  static constexpr int kStageBytes = kXTileBytes + kBPackedBytes;
+  static constexpr int kAcc = B / 2;  // fp32 accumulators per thread: 64 rows x B / 128
+  // the ring, two widened W tiles, the mbarriers, slack to align the tiles to 1024 bytes
+  static constexpr int kSmem = kStages * kStageBytes + 2 * kBWideBytes + 16 * kStages + 1024;
+  static_assert(kStageBytes % 1024 == 0, "every tile starts on a 1024-byte boundary");
+  static_assert(B * kOutStride * 2 <= kStages * kStageBytes, "the output tile fits the ring");
+  static_assert(kSmem <= 232448, "the CTA fits one SM's shared memory");
+};
+
+#define K4_F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
+#define K4_F16(a, i) K4_F4(a, i), K4_F4(a, i + 4), K4_F4(a, i + 8), K4_F4(a, i + 12)
+
+// d[64 x 64] = A[64 x 16] B[16 x 64] (+ d where `accumulate`), bf16 x bf16 -> f32; A and B
+// K-major in shared memory (128-byte swizzle).
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : K4_F16(d, 0), K4_F16(d, 16)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 128] = A[64 x 16] B[16 x 128] (+ d where `accumulate`), bf16 x bf16 -> f32; A and B
+// K-major in shared memory (128-byte swizzle).
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : K4_F16(d, 0), K4_F16(d, 16), K4_F16(d, 32), K4_F16(d, 48)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 256] = A[64 x 16] B[16 x 256] (+ d where `accumulate`), bf16 x bf16 -> f32; A and B
+// K-major in shared memory (128-byte swizzle).
+__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : K4_F16(d, 0), K4_F16(d, 16), K4_F16(d, 32), K4_F16(d, 48), K4_F16(d, 64), K4_F16(d, 80), K4_F16(d, 96), K4_F16(d, 112)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef K4_F16
+#undef K4_F4
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  if constexpr (N == 128)
+    wgmma_bf16_n256(d, da, db, accumulate);
+  else if constexpr (N == 64)
+    wgmma_bf16_n128(d, da, db, accumulate);
+  else
+    wgmma_bf16_n64(d, da, db, accumulate);
+}
+
+// The 8 in-rows of a packed word as four bf16x2 registers (register b: in-rows 2b low, 2b + 1
+// high), exactly and without I2F: the signed nibble n becomes n ^ 8 = n + 8 in [0, 15], which OR'd
+// into the low mantissa bits of 128.0 (bf16 0x4300) makes the bf16 128 + n + 8; subtracting 136
+// (0x4308) as bf16x2 leaves n, exact since every integer up to 256 is a bf16. One byte permute
+// puts byte b of the biased word (low nibble: in-row 2b) and of the word shifted right by 4 (its
+// low nibble: in-row 2b + 1) into the two halves; one AND-OR (lop3) keeps the nibbles and sets
+// the exponent. ops/w4_matmul.py::widen_nibbles_twin is its plain-torch twin.
+__device__ __forceinline__ uint4 widen8(uint32_t w) {
+  const uint32_t x = w ^ 0x88888888u, sh = x >> 4;
+  const __nv_bfloat162 bias = __halves2bfloat162(__ushort_as_bfloat16(0x4308),
+                                                 __ushort_as_bfloat16(0x4308));
+  uint32_t r[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const uint32_t v = (__byte_perm(x, sh, 0x4400u + 0x1111u * b) & 0x000F000Fu) | 0x43004300u;
+    const __nv_bfloat162 y = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), bias);
+    r[b] = *reinterpret_cast<const uint32_t*>(&y);
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// One CTA per (x-row tile of B rows, 128 weight rows), grid (ceil(m / B), ceil(N / 128)).
+template <bool GROUPED, int B>
+__global__ void __launch_bounds__(kBThreads, 1)
+    w4_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap wmap, const float* __restrict__ ws,
+                         bf16* __restrict__ out, int m, int K, int N, int gsize) {
+  using Tile = W4Bf16Tile<B>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  uint8_t* ring = smem_raw + (((base + 1023u) & ~1023u) - base);  // [kStages][x tile, W tile]
+  uint8_t* wide = ring + Tile::kStages * Tile::kStageBytes;       // [2][128 rows][128 bytes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(wide + 2 * kBWideBytes);
+  uint64_t* empty = full + Tile::kStages;
+
+  const int m0 = blockIdx.x * B, n0 = blockIdx.y * kWRows;
+  const int nk = K / kBKStep;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < Tile::kStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kBConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kBConsumers) {  // the producer warp
+    if (threadIdx.x != kBConsumers) return;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % Tile::kStages;
+      if (kt >= Tile::kStages) mbar_wait(empty + st, ((kt / Tile::kStages) - 1) & 1);
+      uint8_t* xt = ring + st * Tile::kStageBytes;
+      mbar_expect_tx(full + st, Tile::kStageBytes);
+      tma_load_2d(xt, &xmap, full + st, kt * kBKStep * 2, m0);
+      tma_load_2d(xt + Tile::kXTileBytes, &wmap, full + st, kt * kBKStep / 2, n0);
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = wg * 64 + warp * 16 + g;  // this thread's weight rows in the tile: ra, ra + 8
+  const int na = n0 + ra, nb = na + 8;
+  // what this thread widens: packed row wr of its warpgroup's 64, in-rows 32 h .. 32 h + 31
+  const int wr = (threadIdx.x & 127) >> 1, h = threadIdx.x & 1;
+  float acc[Tile::kAcc];                  // fp32 sums of this group (or of all K)
+  float facc[GROUPED ? Tile::kAcc : 1];  // with group scales: the scaled groups added so far
+#pragma unroll
+  for (int i = 0; i < Tile::kAcc; ++i) acc[i] = 0.f;
+  if constexpr (GROUPED) {
+#pragma unroll
+    for (int i = 0; i < Tile::kAcc; ++i) facc[i] = 0.f;
+  }
+
+  // groups of gsize / 64 stages (per channel one group of all K); a group's first product
+  // overwrites the sum, and after its last stage's products the sum is flushed: the loops have
+  // no branch between a product and the flush, so nothing but wgmma defines the accumulators
+  const int per_group = gsize / kBKStep;
+  for (int kg = 0; kg < nk; kg += per_group) {
+    for (int kt = kg; kt < kg + per_group; ++kt) {
+      const int st = kt % Tile::kStages;
+      mbar_wait(full + st, (kt / Tile::kStages) & 1);
+      const uint8_t* xt = ring + st * Tile::kStageBytes;
+      // widen this warpgroup's 64 packed rows into its half of widened tile kt & 1 (the
+      // products that read it last, stage kt - 2's, are done), in wgmma's layout: 16-byte chunk
+      // c (in-rows 8c .. 8c + 7) of row r at chunk c ^ (r % 8)
+      uint8_t* wt = wide + (kt & 1) * kBWideBytes + wg * (kBWideBytes / 2);
+      {
+        const uint4 p = *reinterpret_cast<const uint4*>(xt + Tile::kXTileBytes +
+                                                        (wg * 64 + wr) * 32 + h * 16);
+        const uint32_t words[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<uint4*>(wt + wr * 128 + (((4 * h + j) ^ (wr & 7)) << 4)) =
+              widen8(words[j]);
+      }
+      flash::fence_proxy_async();  // the widened tile is read by wgmma (async proxy)
+      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+      // the stage's four products, one commit group
+      const uint64_t d_x = wgmma_desc(xt, 16, 1024), d_w = wgmma_desc(wt, 16, 1024);
+      flash::fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s)  // 32 bytes of each 128-byte row a step
+        wgmma_bf16(acc, d_w + ((s * 32) >> 4), d_x + ((s * 32) >> 4),
+                   (kt == kg && s == 0) ? 0 : 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // stage kt - 1's products are done: its tiles may be refilled
+      flash::fence_regs(acc);
+      if (kt > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + (kt - 1) % Tile::kStages);
+      }
+    }
+    if constexpr (GROUPED) {  // the group's sum, scaled (rounded multiply) and added (rounded add)
+      wgmma_wait<0>();
+      flash::fence_regs(acc);
+      const float* wsg = ws + static_cast<long long>(kg / per_group) * N;
+      const float wa = na < N ? wsg[na] : 0.f, wb = nb < N ? wsg[nb] : 0.f;
+#pragma unroll
+      for (int i = 0; i < Tile::kAcc; ++i)
+        facc[i] = __fadd_rn(facc[i], __fmul_rn(acc[i], (i & 2) ? wb : wa));
+    }
+  }
+  wgmma_wait<0>();
+  flash::fence_regs(acc);
+
+  // y[m0 + j, n0 + r] for r in this thread's rows and j in its columns 8 i + 2t (+1): scaled,
+  // rounded to bf16, transposed into the output tile [B][kOutStride] in the ring (every
+  // consumer's products are done before any writes it), then written as 16-byte row chunks
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kBConsumers) : "memory");
+  bf16* s_out = reinterpret_cast<bf16*>(ring);
+  const float wca = !GROUPED && na < N ? ws[na] : 0.f, wcb = !GROUPED && nb < N ? ws[nb] : 0.f;
+#pragma unroll
+  for (int i = 0; i < Tile::kAcc; ++i) {
+    const int col = 8 * (i >> 2) + 2 * t + (i & 1);
+    const float y = GROUPED ? facc[i] : __fmul_rn(acc[i], (i & 2) ? wcb : wca);
+    s_out[col * kOutStride + ra + ((i & 2) ? 8 : 0)] = __float2bfloat16(y);
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kBConsumers) : "memory");
+  constexpr int kChunks = kWRows / 8;  // 16-byte chunks of an output row
+  for (int idx = threadIdx.x; idx < B * kChunks; idx += kBConsumers) {
+    const int r = idx / kChunks, ch = idx - r * kChunks;
+    const int row = m0 + r, col = n0 + 8 * ch;
+    if (row < m && col < N)
+      *reinterpret_cast<uint4*>(out + static_cast<long long>(row) * N + col) =
+          *reinterpret_cast<const uint4*>(s_out + r * kOutStride + 8 * ch);
+  }
+}
+
+template <bool GROUPED, int B>
+cudaError_t launch_w4_bf16_tile(const bf16* x, const uint8_t* wp, const float* ws, bf16* out, int m,
+                           int K, int N, int gsize, cudaStream_t stream) {
+  using Tile = W4Bf16Tile<B>;
+  static bool smem_set[64] = {};
+  cudaError_t err = flash::allow_smem(w4_bf16_wgmma_kernel<GROUPED, B>, Tile::kSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap xmap, wmap;  // x as bytes: 128-byte boxes of 64 bf16
+  if (!encode_bytes(&xmap, x, m, 2 * K, B, 2 * kBKStep, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_bytes(&wmap, wp, N, K / 2, kWRows, kBKStep / 2, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const dim3 grid((m + B - 1) / B, (N + kWRows - 1) / kWRows);
+  w4_bf16_wgmma_kernel<GROUPED, B><<<grid, kBThreads, Tile::kSmem, stream>>>(xmap, wmap, ws, out,
+                                                                            m, K, N, gsize);
+  return cudaGetLastError();
+}
+
+// The x-row tile: the smallest of 64, 128, 256 that holds m, at most 128 with group scales
+// (whose fp32 sums double the accumulator registers).
+template <bool GROUPED>
+cudaError_t launch_w4_bf16(const bf16* x, const uint8_t* wp, const float* ws, bf16* out, int m,
+                           int K, int N, int gsize, cudaStream_t stream) {
+  if (m <= 64) return launch_w4_bf16_tile<GROUPED, 64>(x, wp, ws, out, m, K, N, gsize, stream);
+  if constexpr (GROUPED) {
+    return launch_w4_bf16_tile<true, 128>(x, wp, ws, out, m, K, N, gsize, stream);
+  } else {
+    if (m <= 128) return launch_w4_bf16_tile<false, 128>(x, wp, ws, out, m, K, N, gsize, stream);
+    return launch_w4_bf16_tile<false, 256>(x, wp, ws, out, m, K, N, gsize, stream);
+  }
+}
+
 template <bool INT8X>
 cudaError_t launch(const void* x, const float* xs, const uint8_t* wp, const float* ws, bf16* out,
                    int m, int K, int N, int G, cudaStream_t stream) {
@@ -652,13 +803,9 @@ cudaError_t launch(const void* x, const float* xs, const uint8_t* wp, const floa
     return G ? launch_w4a8<true>(xi, xs, wp, ws, out, m, K, N, gsize, stream)
              : launch_w4a8<false>(xi, xs, wp, ws, out, m, K, N, gsize, stream);
   } else {
-    const dim3 grid((N + kBN - 1) / kBN, (m + kBM - 1) / kBM);
     const bf16* xb = static_cast<const bf16*>(x);
-    if (G)
-      w4_mma_bf16_kernel<true><<<grid, kMmaThreads, 0, stream>>>(xb, wp, ws, out, m, K, N, gsize);
-    else
-      w4_mma_bf16_kernel<false><<<grid, kMmaThreads, 0, stream>>>(xb, wp, ws, out, m, K, N, gsize);
-    return cudaGetLastError();
+    return G ? launch_w4_bf16<true>(xb, wp, ws, out, m, K, N, gsize, stream)
+             : launch_w4_bf16<false>(xb, wp, ws, out, m, K, N, gsize, stream);
   }
 }
 
@@ -670,9 +817,9 @@ cudaError_t launch(const void* x, const float* xs, const uint8_t* wp, const floa
 // Returns a cudaError_t.
 extern "C" int unimedvl_w4_matmul(const void* x, const void* xs, const void* wp, const void* ws,
                                   void* out, int m, int K, int N, int G, int int8x, void* stream) {
-  if (m <= 0 || K <= 0 || N <= 0 || K % kBK != 0 || N % 8 != 0 || G < 0 ||
-      (G > 0 && (K % G != 0 || (K / G) % kBK != 0)) || (int8x && xs == nullptr) ||
-      (!int8x && (m + kBM - 1) / kBM > 65535) || (N + kWRows - 1) / kWRows > 65535)
+  if (m <= 0 || K <= 0 || N <= 0 || K % kBKStep != 0 || N % 8 != 0 || G < 0 ||
+      (G > 0 && (K % G != 0 || (K / G) % kBKStep != 0)) || (int8x && xs == nullptr) ||
+      (N + kWRows - 1) / kWRows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t rc =

@@ -5,7 +5,11 @@ quantizes its down projection's input ``silu(gate) * up`` per token; done
 plainly that is the product written to device memory in bf16, read back for
 the row absmax and read again to quantize. The kernel (CUDA C++ for sm_90a,
 ``csrc/silu_mul_quant.cu``) reads gate and up once, keeps the fp32 product of
-a row in registers, and writes the int8 row and one fp32 scale.
+a row in registers, and writes the int8 row and one fp32 scale. It has two
+launch shapes: up to ``CLUSTER_MAX_ROWS`` rows (a decode step, a few
+streams) each row is spread over a cluster of ``CLUSTER_SIZE`` CTAs that
+exchange their absmax through distributed shared memory; more rows go to
+persistent CTAs, one per SM, that keep the next row in flight.
 
 The definition, which the kernel and ``silu_mul_quant_ref`` share, is the JAX
 kernel's: everything in fp32,
@@ -14,9 +18,12 @@ kernel's: everything in fp32,
     scale = max(absmax_row(x), 1e-8) / 127
     q     = clip(round_half_even(x / scale), -127, 127)
 
-with a true division by ``scale``. The port always takes this definition on
-a quantized down projection; it has no gate between this and a bf16 product
-chain. On the card the kernel and the plain version can differ where
+with a true division by ``scale``. The kernel takes ``x * (1 / scale)`` and
+redoes the true division only where that product lies within 2^-12 of a
+half-integer, which gives the same q (``quantize_fast_twin`` is that rule in
+plain torch, held to the division in the CPU tests). The port always takes
+this definition on a quantized down projection; it has no gate between this
+and a bf16 product chain. On the card the kernel and the plain version can differ where
 ``expf`` and ``torch.sigmoid`` differ in the last place: scales within 1e-6
 relative, q within one step on a small share of elements.
 
@@ -35,7 +42,12 @@ from unimedvl_tpu_torch.ops import _launch, cuda_build
 # launches of the kernel and calls of the plain version, for showing which ran
 counts = {"kernel": 0, "plain": 0}
 
-KERNEL_MAX_WIDTH = 8 * 1024 * 4  # 1024 threads x 4 chunks of 8 values in registers
+KERNEL_MAX_WIDTH = 1024 * 3 * 8  # 1024 threads x 3 chunks of 8 values in registers
+# rows spread over a cluster of CTAs up to this many rows (a CTA per SM at most), and the
+# cluster's size (2, 4, 8 or 16; 16 read fastest at R 1 and 3 on an H100, PERF.md); the
+# card tests and tools/time_quant_kernels.py set them to reach either launch shape
+CLUSTER_MAX_ROWS, CLUSTER_SIZE = 8, 16
+NEAR_TIE = 0.5 - 2.0**-12  # |x / scale - its rint| from which the kernel redoes the division
 
 
 def silu_mul_quant_ref(g: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -48,6 +60,19 @@ def silu_mul_quant_ref(g: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, 
     scale = torch.clamp_min(absmax, 1e-8) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
+
+
+def quantize_fast_twin(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The kernel's rule for ``clip(round_half_even(x / scale), -127, 127)``
+    in plain torch, fp32: ``x * (1 / scale)`` rounded, with the true division
+    redone where that product lies within 2^-12 of a half-integer. Equal to
+    the division bit for bit wherever ``|x / scale| < 128`` (x at most the
+    row's absmax); used by nothing on the main path."""
+    x, scale = x.float(), scale.float()
+    p = x * (1.0 / scale)
+    r = torch.round(p)
+    r = torch.where((p - r).abs() >= NEAR_TIE, torch.round(x / scale), r)
+    return torch.clamp(r, -127, 127)
 
 
 def _launch_kernel(g, u):
@@ -66,11 +91,14 @@ def _launch_kernel(g, u):
     g2, u2 = _rows(g, "g"), _rows(u, "u")
     q = torch.empty(g.shape, dtype=torch.int8, device=g.device)
     scale = torch.empty(*g.shape[:-1], 1, dtype=torch.float32, device=g.device)
+    cluster = CLUSTER_SIZE if R <= CLUSTER_MAX_ROWS else 0  # 0: the many-row path
+    if cluster not in (0, 2, 4, 8, 16):
+        raise ValueError(f"CLUSTER_SIZE must be 2, 4, 8 or 16, got {CLUSTER_SIZE}")
     lib = cuda_build.load_library()
     with torch.cuda.device(g.device):
         rc = lib.unimedvl_silu_mul_quant(
             g2.data_ptr(), u2.data_ptr(), q.data_ptr(), scale.data_ptr(),
-            R, I, g2.stride(0), u2.stride(0),
+            R, I, g2.stride(0), u2.stride(0), cluster,
             torch.cuda.current_stream(g.device).cuda_stream,
         )
     cuda_build.check(rc, "silu_mul_quant")

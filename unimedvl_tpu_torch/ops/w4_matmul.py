@@ -23,13 +23,18 @@ Arithmetic, which the plain version and the kernel share:
   in group order; ``x_scale`` multiplies last.
 - bf16 x (weight-only w4, ``x_scale=None``): the nibbles widen to bf16
   exactly and the products accumulate in fp32; the order of that sum differs
-  between kernel and plain version.
+  between kernel and plain version. Per channel the sum is scaled once;
+  grouped, each group's sum is scaled (rounded multiply) and added (rounded
+  add) in group order.
 
 ``w4_matmul`` launches the kernel for CUDA tensors and runs the plain version
 for CPU tensors. On the card, m <= 4 rows take a weight-streaming GEMV and
-more rows a GEMM: with int8 x on ``wgmma`` (``w4a8_gemm_tiled_ref`` is its
-partition in plain torch), with bf16 x on ``mma.sync``. A shape the kernel
-does not take raises: there is no threshold and no fallback.
+more rows a GEMM on ``wgmma`` fed by a TMA ring: with int8 x the weights are
+spread from packed bytes into the register operand (``w4a8_gemm_tiled_ref``
+is that partition in plain torch); with bf16 x they are widened into a bf16
+tile in shared memory, each nibble through the mantissa of 128.0
+(``widen_nibbles_twin``). A shape the kernel does not take raises: there is
+no threshold and no fallback.
 """
 
 from __future__ import annotations
@@ -66,6 +71,32 @@ def unpack_int4(wp: torch.Tensor) -> torch.Tensor:
     lo = (wp << 4) >> 4
     hi = wp >> 4
     return torch.stack([lo, hi], dim=-1).reshape(*wp.shape[:-1], 2 * wp.shape[-1])
+
+
+def widen_nibbles_twin(wp: torch.Tensor) -> torch.Tensor:
+    """The bf16-x GEMM's widening of packed weights, bit for bit in plain
+    torch: [.., N, K/2] int8 -> [.., N, K] bf16, equal to ``unpack_int4``.
+    Per 32-bit word w of a packed row (bytes in memory order), x = w ^
+    0x88888888 biases each signed nibble n to n + 8; for byte b, byte b of x
+    (low nibble: in-row 2b) and of x >> 4 (low nibble: in-row 2b + 1) land in
+    the two 16-bit halves, are masked to their low nibble and OR'd into the
+    mantissa of bf16 128.0 (0x4300), and 136 (0x4308) is subtracted in bf16.
+    Used by nothing on the main path."""
+    if wp.dtype != torch.int8 or wp.shape[-1] % 4:
+        raise ValueError(f"widen_nibbles_twin takes int8 rows of whole words, got {wp.dtype} "
+                         f"{tuple(wp.shape)}")
+    b = wp.to(torch.int64) & 0xFF
+    words = b.reshape(*wp.shape[:-1], -1, 4)
+    w = words[..., 0] | (words[..., 1] << 8) | (words[..., 2] << 16) | (words[..., 3] << 24)
+    x = w ^ 0x88888888
+    sh = x >> 4
+    halves = []
+    for byte in range(4):
+        v = ((x >> (8 * byte)) & 0xF) | (((sh >> (8 * byte)) & 0xF) << 16) | 0x43004300
+        halves += [v & 0xFFFF, v >> 16]  # in-row 2b, in-row 2b + 1
+    bits = torch.stack(halves, dim=-1).reshape(*wp.shape[:-1], 2 * wp.shape[-1])
+    as_bf16 = bits.to(torch.int16).view(torch.bfloat16)  # 0x43xx: below 2^15, no wrap
+    return as_bf16 - torch.tensor(136.0, dtype=torch.bfloat16)
 
 
 def _n_groups(w_scale: torch.Tensor, N: int, K: int) -> int:
