@@ -72,6 +72,7 @@ from unimedvl_tpu_torch.ops.blockmask import dense_packed_mask, packed_segment_i
 from unimedvl_tpu_torch.ops.rope import rope_cos_sin
 from unimedvl_tpu_torch.parallel import mesh as pmesh
 from unimedvl_tpu_torch.parallel import sp_denoise
+from unimedvl_tpu_torch.tools import time_quant_kernels as tqk
 from unimedvl_tpu_torch.training import dataset, lora, trainer
 
 SEED = 0
@@ -702,13 +703,15 @@ def check_w4_matmul(g, randn) -> dict:
     """K4 against its plain version at the LLM's four projection shapes (qkv
     and gate_up fused, o, down), per channel and with groups of 512: the int8
     branch (w4a8) must be EQUAL (exact integer sums, the same rounded fp32
-    scaling), on the GEMV (m 1, 3) and the GEMM (m 731, 4902); the bf16 branch
-    (weight-only w4; GEMV at m 1 and 3, GEMM at a text prefill's 17 rows and
+    scaling), on the GEMV (m 1 to 4) and the GEMM (m 731, 4902); the bf16 branch
+    (weight-only w4; GEMV at m 1 to 4, GEMM at a text prefill's 17 rows and
     at m 731, 4902) sums fp32 in another order: |err| <= 2^-7 |plain| + 1e-3
-    sqrt(K) 8 max|x| max(w_scale) / 16. The ``kernels`` line's row is the
-    decode step's GEMV at gate_up, with the prefill's GEMMs at gate_up, m 4902,
-    per channel under ``gemm`` (int8 x) and ``bf16_gemm`` (bf16 x, with the
-    ``torch.mm`` yardstick)."""
+    sqrt(K) 8 max|x| max(w_scale) / 16. The GEMV captured in a CUDA graph
+    must replay equal to an eager call on new x. The ``kernels`` line's row
+    is the decode step's GEMV at gate_up, with the prefill's GEMMs at gate_up,
+    m 4902, per channel under ``gemm`` (int8 x) and ``bf16_gemm`` (bf16 x,
+    with the ``torch.mm`` yardstick), and the GEMV cold at each projection
+    under ``gemv_cases`` (``gemv_cold_cases``)."""
     print("K4 w4_matmul (w4a8: equality; bf16 x: |err| <= 2^-7 |ref| + reordering bound):",
           flush=True)
     shapes = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584)]
@@ -717,7 +720,7 @@ def check_w4_matmul(g, randn) -> dict:
         wp = w4.pack_int4(_rand_int8(g, N, K, lo=-8, hi=8))
         for G in (0, K // W4_GROUP):
             ws = torch.rand((G, N) if G else (N,), generator=g, device="cuda") * 0.01 + 0.001
-            for m in (1, 3, 731, 4902):
+            for m in (1, 2, 3, 4, 731, 4902):
                 x = _rand_int8(g, m, K)
                 xs = torch.rand(m, 1, generator=g, device="cuda") * 0.05 + 0.001
                 got = w4.w4_matmul(x, xs, wp, ws)
@@ -743,7 +746,7 @@ def check_w4_matmul(g, randn) -> dict:
                     gemm = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
         for G in (0, K // W4_GROUP):
             ws = torch.rand((G, N) if G else (N,), generator=g, device="cuda") * 0.01 + 0.001
-            for m in (1, 3, 17, 731, 4902):
+            for m in (1, 2, 3, 4, 17, 731, 4902):
                 x = randn(m, K)
                 got = w4.w4_matmul(x, None, wp, ws).float()
                 torch.cuda.synchronize()
@@ -777,10 +780,80 @@ def check_w4_matmul(g, randn) -> dict:
                           flush=True)
                     bf16_gemm = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
                     bf16_gemm["yardstick_mm_ms"] = mm_ms
+    check_gemv_graph_replay(g, randn)
     out = dict(shown, gemm=dict(gemm, case="w4a8 m=4902 K=3584 N=37888 per channel"),
-               bf16_gemm=dict(bf16_gemm, case="bf16 x m=4902 K=3584 N=37888 per channel"))
+               bf16_gemm=dict(bf16_gemm, case="bf16 x m=4902 K=3584 N=37888 per channel"),
+               gemv_cases=gemv_cold_cases(g, randn))
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     return out
+
+
+def check_gemv_graph_replay(g, randn) -> None:
+    """K4's GEMV captured in a CUDA graph at down, m 4, groups of 512 (the
+    most slices, so the most arrivals per tile), with int8 and bf16 x:
+    three replays, each on new x copied in, equal to an eager call on that
+    x (the arrival counters are back at zero after every launch)."""
+    K, N, G, m = 18944, 3584, 18944 // W4_GROUP, 4
+    wp = w4.pack_int4(_rand_int8(g, N, K, lo=-8, hi=8))
+    ws = torch.rand(G, N, generator=g, device="cuda") * 0.01 + 0.001
+    for int8x in (True, False):
+        def new_x():
+            if int8x:
+                return _rand_int8(g, m, K), torch.rand(m, 1, generator=g, device="cuda") * 0.05
+            return randn(m, K), None
+        x, xs = new_x()
+        w4.w4_matmul(x, xs, wp, ws)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = w4.w4_matmul(x, xs, wp, ws)
+        for _ in range(3):
+            nx, nxs = new_x()
+            x.copy_(nx)
+            if int8x:
+                xs.copy_(nxs)
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(y, w4.w4_matmul(nx, nxs, wp, ws)):
+                raise SystemExit("chip_smoke: K4's GEMV replayed in a CUDA graph differs from "
+                                 "an eager call")
+    print(f"  K4 GEMV in a CUDA graph (K={K} N={N} group 512 m={m}, int8 and bf16 x): three "
+          "replays on new x equal to eager calls", flush=True)
+
+
+def gemv_cold_cases(g, randn) -> list:
+    """K4's GEMV at m 1 at each projection, per channel, int8 and bf16 x, as
+    a decode step meets it: per call in a CUDA graph of 20 that rotate over
+    copies of the weight exceeding twice the L2 (``tqk.cold_copies``), with
+    the bound and the yardstick on the same kind of rotation (``torch._int_mm``
+    on the unpacked int8 weight, rows padded to 17; ``torch.mm`` on the
+    weight unpacked, scaled and cast to bf16): other functions, timed only."""
+    cases = []
+    for name, (K, N) in tqk.PROJECTIONS.items():
+        wq = _rand_int8(g, N, K, lo=-8, hi=8)
+        ws = torch.rand(N, generator=g, device="cuda") * 0.01 + 0.001
+        wp = w4.pack_int4(wq)
+        copies = [(wp, ws)] + [(wp.clone(), ws.clone())
+                               for _ in range(tqk.cold_copies(wp.numel()) - 1)]
+        wqs = [wq] + [wq.clone() for _ in range(tqk.cold_copies(wq.numel()) - 1)]
+        wb = (wq.float() * ws[:, None]).to(torch.bfloat16)
+        wbs = [wb] + [wb.clone() for _ in range(tqk.cold_copies(2 * wb.numel()) - 1)]
+        xi, xs = _rand_int8(g, 1, K), torch.rand(1, 1, generator=g, device="cuda") * 0.05 + 0.001
+        xb = randn(1, K)
+        for xname, x, x_scale, yard in (
+                ("int8 x", xi, xs, [(lambda w=w: quant.int_mm(xi, w)) for w in wqs]),
+                ("bf16 x", xb, None, [(lambda w=w: torch.mm(xb, w.t())) for w in wbs])):
+            ms = statistics.median(tqk.rotating_graph_readings(
+                [(lambda c=c: w4.w4_matmul(x, x_scale, *c)) for c in copies]))
+            yard_ms = statistics.median(tqk.rotating_graph_readings(yard))
+            b = tqk.k4_bound_ms(1, K, N, 0, bf16_x=xname == "bf16 x")
+            print(f"  K4 GEMV cold, {name} (K={K} N={N}) m=1 {xname} per channel: {ms:.5f} ms "
+                  f"per call in a CUDA graph of {tqk.RUN} over {len(copies)} weight copies; "
+                  f"bound {b:.5f} ms by bytes; yardstick {yard_ms:.5f} ms", flush=True)
+            cases.append(dict(case=f"{name} K={K} N={N} m=1 {xname} per channel", ms_cold=ms,
+                              bound_ms=b, yardstick_ms=yard_ms, weight_copies=len(copies)))
+        del copies, wqs, wbs, wb
+    return cases
 
 
 def time_int8_matmul_candidates(g) -> None:
@@ -1051,7 +1124,7 @@ EXTRA_KEYS = (
     "cache_partial_t2i_ms", "cache_partial_edit_ms", "library_note", "concat_k1b_ms",
     "k_island_ms", "concat_copy_ms", "k1b_on_concat_ms", "q_island_only_ms", "launches_from",
     "n_split", "split_len", "cases", "ms_in_graph", "vit", "gemm", "bf16_gemm",
-    "one_row_ms_in_graph",
+    "one_row_ms_in_graph", "gemv_cases",
 )
 
 COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches there)

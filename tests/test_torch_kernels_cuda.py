@@ -19,7 +19,9 @@ version bit for bit, per channel and grouped (integer sums are exact and both
 apply the same rounded fp32 multiplies and adds in one order); with bf16 x the
 fp32 sums run in another order: |err| <= 2^-7 |plain| + 1e-3 * sqrt(K) * 8 *
 max|x| * max(w_scale) / 16 per element (a loose bound on the reordering error,
-well under one output rounding). K3 (silu * mul * quant): scales within 1e-6
+well under one output rounding). K4's GEMV (m <= 4) combines its slice sums
+in a fixed order: repeats, and replays of a CUDA graph that captured it, are
+bit-equal to eager calls. K3 (silu * mul * quant): scales within 1e-6
 relative, q within one step, at most 1e-3 of the elements differing (expf
 against torch.sigmoid in the last place). K2-int8 takes the attention
 tolerance above.
@@ -718,6 +720,66 @@ def test_w4_bf16_gemm_matches_plain_at_the_projection_shapes(gen, m, kn, group):
     want = w4.w4_matmul_ref(x, None, wp, ws).float()
     bound = 2.0**-7 * want.abs() + 1e-3 * K**0.5 * 8 * x.float().abs().max() * ws.max() / 16
     assert ((got - want).abs() <= bound).all(), ((got - want).abs() / bound).max().item()
+
+
+def _w4_gemv_x(gen, m, K, int8x):
+    if int8x:
+        return _int8(gen, m, K), torch.rand(m, 1, generator=gen, device="cuda") * 0.05 + 0.001
+    return _randn(gen, m, K), None
+
+
+def _assert_w4_matches_plain(got, want, x, xs, ws, K):
+    if xs is not None:  # int8 x: bit for bit
+        assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+        return
+    got, want = got.float(), want.float()
+    bound = 2.0**-7 * want.abs() + 1e-3 * K**0.5 * 8 * x.float().abs().max() * ws.max() / 16
+    assert ((got - want).abs() <= bound).all(), ((got - want).abs() / bound).max().item()
+
+
+@pytest.mark.parametrize("int8x", [True, False], ids=["int8_x", "bf16_x"])
+@pytest.mark.parametrize("group", [0, 512])
+@pytest.mark.parametrize("kn", W4_PROJECTIONS)
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_w4_gemv_matches_plain_at_the_projection_shapes(gen, m, kn, group, int8x):
+    """The GEMV (m <= 4) at the decode step's shapes, per channel and with
+    groups of 512 in-rows: int8 x equal to the plain version, bf16 x within
+    the reordering bound; three calls bit-equal, each counted once."""
+    K, N = kn
+    _, wp, ws = _w4_inputs(gen, m, K, N, K // group if group else 0)
+    x, xs = _w4_gemv_x(gen, m, K, int8x)
+    before = w4.counts["kernel"]
+    outs = [w4.w4_matmul(x, xs, wp, ws) for _ in range(3)]
+    assert w4.counts["kernel"] == before + 3
+    assert outs[0].dtype == torch.bfloat16 and outs[0].shape == (m, N)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    _assert_w4_matches_plain(outs[0], w4.w4_matmul_ref(x, xs, wp, ws), x, xs, ws, K)
+
+
+@pytest.mark.parametrize("int8x", [True, False], ids=["int8_x", "bf16_x"])
+@pytest.mark.parametrize("shape", [(1, 3584, 37888, 0), (4, 18944, 3584, 37), (3, 3584, 4608, 7)])
+def test_w4_gemv_replays_in_a_cuda_graph(gen, shape, int8x):
+    """Captured in a CUDA graph, the GEMV replays bit-equal to eager calls on
+    the x copied in before each of three replays: its arrival counters are
+    back at zero after every launch, and its workspace is the graph's."""
+    m, K, N, G = shape
+    _, wp, ws = _w4_inputs(gen, m, K, N, G)
+    x, xs = _w4_gemv_x(gen, m, K, int8x)
+    w4.w4_matmul(x, xs, wp, ws)  # the counters exist before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = w4.w4_matmul(x, xs, wp, ws)
+    for _ in range(3):
+        new_x, new_xs = _w4_gemv_x(gen, m, K, int8x)
+        x.copy_(new_x)
+        if xs is not None:
+            xs.copy_(new_xs)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = w4.w4_matmul(new_x, new_xs, wp, ws)
+        assert torch.equal(y, want)
+        _assert_w4_matches_plain(y, w4.w4_matmul_ref(new_x, new_xs, wp, ws), new_x, new_xs, ws, K)
 
 
 def test_w4_matmul_leading_dims_and_unpack(gen):

@@ -24,10 +24,37 @@
 // multiply-adds: HBM bandwidth, at half a byte per weight. At prefill (m in the thousands) the
 // tensor cores: 1979 TOP/s dense int8 (int8 x), 989 TFLOP/s dense bf16 (bf16 x).
 // What the design does about it, by m and x's type:
-//  - m <= 4: a weight-streaming GEMV. Half a warp owns an output column and walks its packed row
-//    with 16-byte loads (32 in-rows each, 256 contiguous bytes per half-warp), every weight byte
-//    read once; x is read through L1 and each product is a __dp4a (int8 x) or an fp32
-//    multiply-add (bf16 x); the 16 lanes reduce with shuffles.
+//  - m <= 4: a weight stream on mma.sync, split evenly over the warps of all SMs. The packed
+//    weights are cut into units of 32 weight rows by one slice of in-rows (512, or the largest
+//    of 256, 128, 64 that divides the group: a slice never straddles two groups), numbered tile
+//    by tile with the slice fastest; warp w of n_workers (16 an SM) takes units
+//    [w U / n, (w + 1) U / n), so every SM streams the same number of units to within one a warp
+//    (ops/w4_matmul.py::gemv_plan). A warp issues a unit's 16 loads of 16 bytes at once (each
+//    lane 2 x 2 weight rows x 64 bytes, read once: no L1 allocation, the L2 fetching whole
+//    lines) and multiplies it in registers: the weights are the A operand of two 16-row tiles,
+//    x the B operand (8 columns, m of them real), its fragment loaded one 128-in-row group ahead
+//    and used for both tiles. The in-rows are permuted inside a step so that a lane's A
+//    registers come from one packed word per weight row and its B registers from 8 consecutive
+//    x values: with int8 x the word is spread into signed bytes, 16 times each nibble (`lo16` /
+//    `hi16`), for one m16n8k32 s8 product; with bf16 x it is widened exactly (`widen8`, no I2F)
+//    for two m16n8k16 bf16 products. Each weight is widened once, whatever m is; the even and
+//    the odd steps sum apart (two dependent chains of products instead of one).
+//    The slice sums meet in one of two ways, both adding a tile's slices in slice order and
+//    then applying the scales as the plain version does (int32 sums are exact; with group
+//    scales each group's sum is scaled and added in group order), one launch per call,
+//    repeats bit-equal:
+//    (a) through a workspace [N, m, slices] (int32, or fp32 bits; slices contiguous, so the
+//        combine loads them as vectors): a warp that ends a run of units of a tile counts them
+//        on the tile's arrival counter (acquire-release), and the warp that brings the last
+//        slice combines the tile and resets the counter to 0, so a CUDA graph replays right;
+//    (b) where every unit has a warp and a tile has at most 8 slices (qkv and o at K 3584: the
+//        small projections, where (a)'s three dependent round trips to L2 would be the tail),
+//        one CTA per tile, warp s its slice s, the sums through shared memory to warp 0.
+//    What the card showed on the way (PERF.md, §6): the access pattern of the loads does not
+//    matter (a load-only kernel streams gate_up at 2.8 TB/s in each of four patterns); 16-byte
+//    cp.async into a CTA-wide ring with a barrier per unit reached 1.3 TB/s, bulk copies of 256
+//    bytes per row less; issuing a unit's loads before the previous unit's stores and counts
+//    was slower than after them.
 //  - m > 4, int8 x: a GEMM on wgmma m64nBk32 s8 x s8 -> s32 that computes y^T = W x^T: the
 //    weights are the A operand, from registers, and x the B operand, from shared memory (for
 //    8-bit types both must be K-major, and both already are). A CTA owns 128 weight rows (two
@@ -69,6 +96,8 @@
 //    rounded add) after the group's last commit group, and the next group's first product
 //    overwrites it. Epilogue and grid order as for int8 x.
 
+#include <type_traits>
+
 #include "flash_common.cuh"
 
 namespace {
@@ -85,126 +114,8 @@ __device__ __forceinline__ int evens(uint32_t w0, uint32_t w1) {
 __device__ __forceinline__ int odds(uint32_t w0, uint32_t w1) {
   return static_cast<int>(__byte_perm(w0, w1, 0x7531));
 }
-// Signed nibbles of byte b of a packed word: in-rows 2b and 2b + 1.
-__device__ __forceinline__ int nib_lo(uint32_t p, int b) {
-  return static_cast<int>(p << (28 - 8 * b)) >> 28;
-}
-__device__ __forceinline__ int nib_hi(uint32_t p, int b) {
-  return static_cast<int>(p << (24 - 8 * b)) >> 28;
-}
-
-// acc += 16 * (8 in-rows of x . the packed word's 8 nibbles)
-__device__ __forceinline__ int dot8(uint32_t p, uint32_t x0, uint32_t x1, int acc) {
-  acc = __dp4a(lo16(p), evens(x0, x1), acc);
-  return __dp4a(hi16(p), odds(x0, x1), acc);
-}
-
-// acc += 8 bf16 in-rows of x (one 16-byte load) . the packed word's 8 nibbles
-__device__ __forceinline__ float dot8(uint32_t p, const uint4& xv, float acc) {
-  const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xv);
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const float2 xf = __bfloat1622float2(xp[b]);
-    acc = fmaf(xf.x, static_cast<float>(nib_lo(p, b)), acc);
-    acc = fmaf(xf.y, static_cast<float>(nib_hi(p, b)), acc);
-  }
-  return acc;
-}
-
 // ---------------------------------------------------------------------------------------------
-// m <= kGemvRows: weight-streaming GEMV
-// ---------------------------------------------------------------------------------------------
-
-constexpr int kGemvRows = 4;
-constexpr int kGemvThreads = 256;  // 8 warps, two output columns per warp
-
-template <bool INT8X>
-__global__ void __launch_bounds__(kGemvThreads)
-    w4_gemv_kernel(const void* __restrict__ x_, const float* __restrict__ xs,
-                   const uint8_t* __restrict__ wp, const float* __restrict__ ws,
-                   bf16* __restrict__ out, int m, int K, int N, int G) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int hl = lane & 15;  // lane within the half-warp that owns column n
-  const int n = (blockIdx.x * (kGemvThreads / 32) + warp) * 2 + (lane >> 4);
-  if (n >= N) return;  // whole warps only: N is even
-  const int chunks = K / 32;                      // 16-byte loads in a packed row
-  const int cpg = G ? (K / G) / 32 : chunks;      // loads per scale group
-  const uint4* wr = reinterpret_cast<const uint4*>(wp + static_cast<long long>(n) * (K / 2));
-
-  float facc[kGemvRows];
-#pragma unroll
-  for (int r = 0; r < kGemvRows; ++r) facc[r] = 0.f;
-
-  for (int g0 = 0, gi = 0; g0 < chunks; g0 += cpg, ++gi) {
-    int iacc[kGemvRows];
-    float cacc[kGemvRows];
-#pragma unroll
-    for (int r = 0; r < kGemvRows; ++r) {
-      iacc[r] = 0;
-      cacc[r] = 0.f;
-    }
-#pragma unroll 4
-    for (int c = g0 + hl; c < g0 + cpg; c += 16) {
-      const uint4 w = __ldg(wr + c);
-#pragma unroll
-      for (int r = 0; r < kGemvRows; ++r) {
-        if (r < m) {
-          if constexpr (INT8X) {
-            const uint4* xr = reinterpret_cast<const uint4*>(
-                static_cast<const int8_t*>(x_) + static_cast<long long>(r) * K);
-            const uint4 x0 = __ldg(xr + 2 * c), x1 = __ldg(xr + 2 * c + 1);
-            int a = iacc[r];
-            a = dot8(w.x, x0.x, x0.y, a);
-            a = dot8(w.y, x0.z, x0.w, a);
-            a = dot8(w.z, x1.x, x1.y, a);
-            a = dot8(w.w, x1.z, x1.w, a);
-            iacc[r] = a;
-          } else {
-            const uint4* xr = reinterpret_cast<const uint4*>(
-                static_cast<const bf16*>(x_) + static_cast<long long>(r) * K);
-            float a = cacc[r];
-            a = dot8(w.x, __ldg(xr + 4 * c), a);
-            a = dot8(w.y, __ldg(xr + 4 * c + 1), a);
-            a = dot8(w.z, __ldg(xr + 4 * c + 2), a);
-            a = dot8(w.w, __ldg(xr + 4 * c + 3), a);
-            cacc[r] = a;
-          }
-        }
-      }
-    }
-    const float wsg = G ? ws[static_cast<long long>(gi) * N + n] : 0.f;
-#pragma unroll
-    for (int r = 0; r < kGemvRows; ++r) {
-      float v;
-      if constexpr (INT8X) {
-        int a = iacc[r];
-#pragma unroll
-        for (int s = 8; s > 0; s >>= 1) a += __shfl_xor_sync(0xffffffffu, a, s);
-        v = static_cast<float>(a >> 4);
-      } else {
-        v = cacc[r];
-#pragma unroll
-        for (int s = 8; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
-      }
-      facc[r] = G ? __fadd_rn(facc[r], __fmul_rn(v, wsg)) : v;
-    }
-  }
-  if (hl == 0) {
-#pragma unroll
-    for (int r = 0; r < kGemvRows; ++r) {
-      if (r < m) {
-        float y = facc[r];
-        if constexpr (INT8X) y = __fmul_rn(y, xs[r]);
-        if (!G) y = __fmul_rn(y, ws[n]);
-        out[static_cast<long long>(r) * N + n] = __float2bfloat16(y);
-      }
-    }
-  }
-}
-
-
-// ---------------------------------------------------------------------------------------------
-// m > kGemvRows, int8 x: y^T = W x^T on wgmma s8 x s8 -> s32, fed by a TMA ring
+// m > 4, int8 x: y^T = W x^T on wgmma s8 x s8 -> s32, fed by a TMA ring
 // ---------------------------------------------------------------------------------------------
 
 using flash::mbar_arrive;
@@ -517,7 +428,7 @@ cudaError_t launch_w4a8(const int8_t* x, const float* xs, const uint8_t* wp, con
 }
 
 // ---------------------------------------------------------------------------------------------
-// m > kGemvRows, bf16 x: y^T = W x^T on wgmma bf16 x bf16 -> f32, both operands in shared memory
+// m > 4, bf16 x: y^T = W x^T on wgmma bf16 x bf16 -> f32, both operands in shared memory
 // ---------------------------------------------------------------------------------------------
 
 constexpr int kBKStep = 64;                           // in-rows of a stage: four k16 products
@@ -788,15 +699,322 @@ cudaError_t launch_w4_bf16(const bf16* x, const uint8_t* wp, const float* ws, bf
   }
 }
 
+// ---------------------------------------------------------------------------------------------
+// m <= kGemvRows: the weight stream on mma.sync, (32 weight rows x one slice) units over the warps
+// ---------------------------------------------------------------------------------------------
+
+constexpr int kGemvRows = 4;         // x rows of the GEMV: the B operand's 8 columns hold them
+constexpr int kGemvCols = 32;        // weight rows of a unit: two m16 tiles
+constexpr int kGemvMaxSlice = 512;   // in-rows of a unit: 256 bytes of each packed row
+constexpr int kGemvWarps = 8;        // warps of a CTA, each a worker of its own
+constexpr int kGemvBatch = 8;        // slice sums of each x row the combine loads at once
+
+// 16 bytes of packed weights, read once: not kept in L1, the L2 asked to fetch the whole 128-byte
+// line (the warp's next load reads its other half).
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::128B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// Word q of a 16-byte vector (q known at compile time once unrolled: no local memory).
+__device__ __forceinline__ uint32_t word(const uint4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// d += A[16 x 32] B[32 x 8], s8 x s8 -> s32 (A row-major: a0, a2 row g, a1, a3 row g + 8;
+// B column g)
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += A[16 x 16] B[16 x 8], bf16 x bf16 -> f32, the same fragment rows
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// *p += v at device scope, returning the old value: a release of this warp's writes (those of its
+// other lanes come before it through a warp barrier) and an acquire of the writes released by
+// the arrivals before it.
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+// TILE_CTA's epilogue: warp s's sums of the tile (two per (tile j, register e), added in that
+// order) go to shared memory, and after a CTA barrier warp 0 adds the slices in order and
+// scales, as the global combine does (lane l: column n0 + l).
+template <bool INT8X, typename Acc>
+__device__ __forceinline__ void tile_combine(const Acc (&acc)[2][2][4], const float* xs,
+                                             const float* ws, bf16* out, int m, int N, int G,
+                                             int slices, int n0, int s, int lane, int g, int t) {
+  __shared__ Acc sums[kGemvWarps][kGemvRows][kGemvCols];
+  if (t < 2) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sums[s][2 * t + (e & 1)][16 * j + g + 8 * (e >> 1)] = acc[0][j][e] + acc[1][j][e];
+  }
+  __syncthreads();
+  const int n = n0 + lane;
+  if (s != 0 || n >= N) return;
+  const int per_group = G ? slices / G : slices;
+  float wg[kGemvWarps];  // the scale of the group each slice ends (slices <= kGemvWarps)
+#pragma unroll
+  for (int i = 0; i < kGemvWarps; ++i)
+    wg[i] = G && i < slices && (i + 1) % per_group == 0
+                ? ws[static_cast<long long>((i + 1) / per_group - 1) * N + n]
+                : 0.f;
+  const float wc = G ? 0.f : ws[n];
+  for (int r = 0; r < m; ++r) {
+    float y = 0.f;
+    Acc sum = 0;
+#pragma unroll
+    for (int i = 0; i < kGemvWarps; ++i) {
+      if (i >= slices) break;
+      sum += sums[i][r][lane];
+      if ((i + 1) % per_group != 0) continue;
+      float v;  // the group's sum
+      if constexpr (INT8X)
+        v = static_cast<float>(sum >> 4);
+      else
+        v = sum;
+      y = G ? __fadd_rn(y, __fmul_rn(v, wg[i])) : v;
+      sum = 0;
+    }
+    if constexpr (INT8X) y = __fmul_rn(y, xs[r]);
+    if (!G) y = __fmul_rn(y, wc);
+    out[static_cast<long long>(r) * N + n] = __float2bfloat16(y);
+  }
+}
+
+// Warp w of the grid (of n_workers) takes units [w U / n_workers, (w + 1) U / n_workers) of the
+// U = tiles x slices units, unit u = (tile u / slices, slice u % slices). `work` [N, m, spad]
+// holds the slice sums (int32, or fp32 bits; spad = slices rounded up to 4), `arrivals` [tiles]
+// the slices done per tile (0 between calls).
+// TILE_CTA: one CTA per tile, warp s its slice s (n_workers = U, at most kGemvWarps slices): the
+// slice sums meet in shared memory and warp 0 combines them, with no workspace, counter or
+// device-scope ordering (the small projections, where those round trips would be the tail).
+template <bool INT8X, bool TILE_CTA>
+__global__ void __launch_bounds__(32 * kGemvWarps, 2)
+    w4_gemv_kernel(const uint8_t* __restrict__ x, const float* __restrict__ xs,
+                   const uint8_t* __restrict__ wp, const float* __restrict__ ws,
+                   bf16* __restrict__ out, int* __restrict__ work, int* __restrict__ arrivals,
+                   int m, int K, int N, int G, int slice, int n_workers) {
+  const int slices = K / slice, tiles = (N + kGemvCols - 1) / kGemvCols;
+  const int worker = TILE_CTA ? blockIdx.x * slices + (threadIdx.x >> 5)
+                              : blockIdx.x * kGemvWarps + (threadIdx.x >> 5);
+  if (worker >= n_workers) return;  // whole warps
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long units = static_cast<long long>(tiles) * slices;
+  const int u0 = static_cast<int>(units * worker / n_workers);
+  const int u1 = static_cast<int>(units * (worker + 1) / n_workers);
+  const int half = slice / 2;  // bytes of a packed row's slice
+  const int spad = (slices + 3) & ~3;  // a (column, x row)'s slice sums: whole 16-byte vectors
+  const long long row_bytes = K / 2;
+  // the x row this lane's B registers hold (rows past m stay zero)
+  const uint8_t* xg = x + static_cast<long long>(g < m ? g : 0) * (INT8X ? K : 2LL * K);
+  using Acc = typename std::conditional<INT8X, int, float>::type;
+  // The packed bytes of a unit in registers, its 16 loads issued at once: for tile j, weight rows
+  // g and g + 8 (h), 64-byte group q4 of the slice, bytes 16 t .. 16 t + 15 of it (zero past the
+  // slice or past N). (Issuing the next unit's loads before this one's stores, counts and
+  // combine read slower on the card: more loads in flight did not raise the rate.)
+  uint4 wv[2][2][4];
+  auto load_unit = [&](int u) {
+    const int tile = u / slices, s = u - tile * slices;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = tile * kGemvCols + 16 * j + 8 * h + g;
+        const uint8_t* row = wp + static_cast<long long>(n < N ? n : 0) * row_bytes + s * half;
+#pragma unroll
+        for (int q4 = 0; q4 < 4; ++q4) {
+          const int off = 64 * q4 + 16 * t;
+          wv[j][h][q4] = n < N && off < half
+                             ? ld_stream(row + off)
+                             : make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+  };
+  int run = 0;  // units of the current tile whose slice sums are written but not yet counted
+  for (int u = u0; u < u1; ++u) {
+    load_unit(u);
+    const int tile = u / slices, s = u - tile * slices, n0 = tile * kGemvCols;
+    // x row g's values of group q4 (in-rows 128 q4 + 32 t .. + 31 of the slice): two 16-byte
+    // vectors with int8 x, four with bf16 x (one a step), loaded one group ahead of their use
+    const uint8_t* xs0 = xg + (static_cast<long long>(s) * slice + 32 * t) * (INT8X ? 1 : 2);
+    auto load_x = [&](uint4 (&xv)[INT8X ? 2 : 4], int q4) {
+      const bool live = g < m && 64 * q4 + 16 * t < half;
+#pragma unroll
+      for (int i = 0; i < (INT8X ? 2 : 4); ++i)
+        xv[i] = live ? __ldg(reinterpret_cast<const uint4*>(xs0 + (INT8X ? 128 : 256) * q4) + i)
+                     : make_uint4(0u, 0u, 0u, 0u);
+    };
+    uint4 xv[2][INT8X ? 2 : 4];
+    load_x(xv[0], 0);
+    // Step (q4, q): word q of each lane's 16 bytes, in-rows 128 q4 + 32 t + 8 q .. + 7 of the
+    // slice, against x row g's same in-rows (the products pair them in that order).
+    // two sums per tile, of the even and the odd steps, halve the products' dependent chains
+    Acc acc[2][2][4];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c][j][e] = 0;
+#pragma unroll
+    for (int q4 = 0; q4 < 4; ++q4) {
+      if (64 * q4 >= half) break;
+      if (q4 + 1 < 4) load_x(xv[(q4 + 1) & 1], q4 + 1);
+      const uint4* xq = xv[q4 & 1];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint32_t w0 = word(wv[j][0][q4], q), w8 = word(wv[j][1][q4], q);
+          if constexpr (INT8X) {  // x in-rows 8 q .. 8 q + 7: half of vector q / 2
+            const uint32_t x0 = word(xq[q / 2], 2 * (q % 2)), x1 = word(xq[q / 2], 2 * (q % 2) + 1);
+            mma_s8(acc[q & 1][j], lo16(w0), lo16(w8), hi16(w0), hi16(w8), evens(x0, x1),
+                   odds(x0, x1));
+          } else {  // x in-rows 8 q .. 8 q + 7: vector q
+            const uint4 a0 = widen8(w0), a8 = widen8(w8);
+            mma_bf16(acc[q & 1][j], a0.x, a8.x, a0.y, a8.y, xq[q].x, xq[q].y);
+            mma_bf16(acc[q & 1][j], a0.z, a8.z, a0.w, a8.w, xq[q].z, xq[q].w);
+          }
+        }
+      }
+    }
+    if constexpr (TILE_CTA) {
+      tile_combine<INT8X>(acc, xs, ws, out, m, N, G, slices, n0, s, lane, g, t);
+      return;
+    }
+    // the slice sums: d[e] is (weight row g + 8 (e >> 1), x row 2 t + (e & 1))
+    if (t < 2) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 2 * t + (e & 1), n = n0 + 16 * j + g + 8 * (e >> 1);
+          if (row < m && n < N) {
+            Acc v = acc[0][j][e] + acc[1][j][e];
+            __stcg(work + (static_cast<long long>(n) * m + row) * spad + s,
+                   *reinterpret_cast<int*>(&v));
+          }
+        }
+    }
+    // the arrivals are counted once per run of units of one tile: the warp barrier puts every
+    // lane's slice sums before lane 0's release
+    ++run;
+    if (u + 1 < u1 && (u + 1) / slices == tile) continue;
+    __syncwarp();
+    int last = 0;
+    if (lane == 0) last = atom_add_acq_rel(arrivals + tile, run) + run == slices;
+    __syncwarp();
+    run = 0;
+    if (!__shfl_sync(0xffffffffu, last, 0)) continue;
+    // the tile's last slice: add its slices in order and scale, as the plain version does. Lane
+    // l takes column n0 + l; every x row's slice sums of a batch (and the group scales the
+    // batch's slices end) are loaded at once, as 16-byte vectors.
+    const int n = n0 + lane;
+    if (n < N) {
+      const int per_group = G ? slices / G : slices;
+      const int4* col = reinterpret_cast<const int4*>(work + static_cast<long long>(n) * m * spad);
+      float y[kGemvRows];
+      Acc sum[kGemvRows];  // of the current group (per channel: of all K)
+#pragma unroll
+      for (int r = 0; r < kGemvRows; ++r) y[r] = 0.f, sum[r] = 0;
+      for (int s0 = 0; s0 < slices; s0 += kGemvBatch) {
+        int4 v[kGemvRows][kGemvBatch / 4];
+        float wg[kGemvBatch];
+#pragma unroll
+        for (int r = 0; r < kGemvRows; ++r)
+#pragma unroll
+          for (int i = 0; i < kGemvBatch / 4; ++i)
+            v[r][i] = r < m && s0 + 4 * i < slices ? __ldcg(col + (r * spad + s0) / 4 + i)
+                                                   : make_int4(0, 0, 0, 0);
+#pragma unroll
+        for (int i = 0; i < kGemvBatch; ++i) {
+          const int si = s0 + i;
+          wg[i] = G && si < slices && (si + 1) % per_group == 0
+                      ? ws[static_cast<long long>((si + 1) / per_group - 1) * N + n]
+                      : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < kGemvBatch; ++i) {
+          const int si = s0 + i;
+          if (si >= slices) break;
+          const bool ends = (si + 1) % per_group == 0;  // the slice ends a group
+#pragma unroll
+          for (int r = 0; r < kGemvRows; ++r) {
+            const int4 q = v[r][i / 4];
+            const int bits = i % 4 == 0 ? q.x : i % 4 == 1 ? q.y : i % 4 == 2 ? q.z : q.w;
+            sum[r] += *reinterpret_cast<const Acc*>(&bits);
+            if (!ends) continue;
+            float gsum;  // the group's sum
+            if constexpr (INT8X)
+              gsum = static_cast<float>(sum[r] >> 4);
+            else
+              gsum = sum[r];
+            y[r] = G ? __fadd_rn(y[r], __fmul_rn(gsum, wg[i])) : gsum;
+            sum[r] = 0;
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kGemvRows; ++r) {
+        if (r >= m) break;
+        float o = y[r];
+        if constexpr (INT8X) o = __fmul_rn(o, xs[r]);
+        if (!G) o = __fmul_rn(o, ws[n]);
+        out[static_cast<long long>(r) * N + n] = __float2bfloat16(o);
+      }
+    }
+    if (lane == 0) arrivals[tile] = 0;  // every slice of the tile is in: ready for the next call
+  }
+}
+
+template <bool INT8X>
+cudaError_t launch_gemv(const void* x, const float* xs, const uint8_t* wp, const float* ws,
+                        bf16* out, int* work, int* arrivals, int m, int K, int N, int G,
+                        int slice, int n_workers, int tile_ctas, cudaStream_t stream) {
+  const uint8_t* xb = static_cast<const uint8_t*>(x);
+  if (tile_ctas) {
+    const int slices = K / slice;
+    w4_gemv_kernel<INT8X, true><<<n_workers / slices, 32 * slices, 0, stream>>>(
+        xb, xs, wp, ws, out, work, arrivals, m, K, N, G, slice, n_workers);
+  } else {
+    w4_gemv_kernel<INT8X, false><<<(n_workers + kGemvWarps - 1) / kGemvWarps, 32 * kGemvWarps,
+                                   0, stream>>>(xb, xs, wp, ws, out, work, arrivals, m, K, N, G,
+                                                slice, n_workers);
+  }
+  return cudaGetLastError();
+}
+
 template <bool INT8X>
 cudaError_t launch(const void* x, const float* xs, const uint8_t* wp, const float* ws, bf16* out,
-                   int m, int K, int N, int G, cudaStream_t stream) {
-  if (m <= kGemvRows) {
-    const int cols_per_block = (kGemvThreads / 32) * 2;
-    w4_gemv_kernel<INT8X><<<(N + cols_per_block - 1) / cols_per_block, kGemvThreads, 0, stream>>>(
-        x, xs, wp, ws, out, m, K, N, G);
-    return cudaGetLastError();
-  }
+                   int* work, int* arrivals, int m, int K, int N, int G, int slice,
+                   int n_workers, int tile_ctas, cudaStream_t stream) {
+  if (m <= kGemvRows)
+    return launch_gemv<INT8X>(x, xs, wp, ws, out, work, arrivals, m, K, N, G, slice, n_workers,
+                              tile_ctas, stream);
   const int gsize = G ? K / G : K;
   if constexpr (INT8X) {
     const int8_t* xi = static_cast<const int8_t*>(x);
@@ -814,18 +1032,38 @@ cudaError_t launch(const void* x, const float* xs, const uint8_t* wp, const floa
 // x: contiguous [m, K] int8 (int8x != 0, with xs fp32 [m]) or bf16 (xs ignored); wp: contiguous
 // [N, K / 2] packed int4; ws: fp32 [N] (G == 0) or [G, N]; out: contiguous [m, N] bf16.
 // K a multiple of 64, K / G a multiple of 64, N a multiple of 8; every pointer 16-byte aligned.
-// Returns a cudaError_t.
+// m <= 4 takes the GEMV, partitioned by ops/w4_matmul.py::gemv_plan: `slice` in-rows per unit
+// (64, 128, 256 or 512, dividing K / G), `n_workers` warps (at most the units), `tile_ctas` for
+// one CTA per tile (every unit a warp, at most 8 slices), else `work` int32 [N, m, K / slice
+// rounded up to 4] and `arrivals` int32 [ceil(N / 32)], zero before the first call and left
+// zero by every call; larger m ignores those five. Returns a cudaError_t.
 extern "C" int unimedvl_w4_matmul(const void* x, const void* xs, const void* wp, const void* ws,
-                                  void* out, int m, int K, int N, int G, int int8x, void* stream) {
+                                  void* out, void* work, void* arrivals, int m, int K, int N,
+                                  int G, int int8x, int slice, int n_workers, int tile_ctas,
+                                  void* stream) {
   if (m <= 0 || K <= 0 || N <= 0 || K % kBKStep != 0 || N % 8 != 0 || G < 0 ||
       (G > 0 && (K % G != 0 || (K / G) % kBKStep != 0)) || (int8x && xs == nullptr) ||
       (N + kWRows - 1) / kWRows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (m <= kGemvRows) {
+    const long long units = static_cast<long long>((N + kGemvCols - 1) / kGemvCols) * (K / slice);
+    if ((!tile_ctas && (work == nullptr || arrivals == nullptr)) || n_workers < 1 ||
+        n_workers > units || (tile_ctas && (n_workers != units || K / slice > kGemvWarps)) ||
+        (slice != 64 && slice != 128 && slice != 256 && slice != kGemvMaxSlice) ||
+        (G ? K / G : K) % slice != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xsf = static_cast<const float*>(xs);
+  const uint8_t* wpb = static_cast<const uint8_t*>(wp);
+  const float* wsf = static_cast<const float*>(ws);
+  bf16* o = static_cast<bf16*>(out);
+  int* wk = static_cast<int*>(work);
+  int* ar = static_cast<int*>(arrivals);
   const cudaError_t rc =
-      int8x ? launch<true>(x, static_cast<const float*>(xs), static_cast<const uint8_t*>(wp),
-                           static_cast<const float*>(ws), static_cast<bf16*>(out), m, K, N, G, st)
-            : launch<false>(x, static_cast<const float*>(xs), static_cast<const uint8_t*>(wp),
-                            static_cast<const float*>(ws), static_cast<bf16*>(out), m, K, N, G, st);
+      int8x ? launch<true>(x, xsf, wpb, wsf, o, wk, ar, m, K, N, G, slice, n_workers, tile_ctas,
+                           st)
+            : launch<false>(x, xsf, wpb, wsf, o, wk, ar, m, K, N, G, slice, n_workers, tile_ctas,
+                            st);
   return static_cast<int>(rc);
 }

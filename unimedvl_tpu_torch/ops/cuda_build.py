@@ -52,7 +52,7 @@ _SIGNATURES = {
         [_P] * 10 + [_I] * 8 + [_L] * 6 + [ctypes.c_float, _P]
     ),
     "unimedvl_silu_mul_quant": [_P] * 4 + [_I] * 2 + [_L] * 2 + [_I, _P],
-    "unimedvl_w4_matmul": [_P] * 5 + [_I] * 5 + [_P],
+    "unimedvl_w4_matmul": [_P] * 7 + [_I] * 8 + [_P],
     "unimedvl_packed_train_attention_plan": [_P] * 10 + [_I, _P],
     "unimedvl_packed_train_attention_fwd": (
         [_P] * 9 + [_I] * 4 + [_L] * 6 + [ctypes.c_float, _P]

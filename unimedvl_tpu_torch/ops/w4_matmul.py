@@ -28,18 +28,25 @@ Arithmetic, which the plain version and the kernel share:
   add) in group order.
 
 ``w4_matmul`` launches the kernel for CUDA tensors and runs the plain version
-for CPU tensors. On the card, m <= 4 rows take a weight-streaming GEMV and
-more rows a GEMM on ``wgmma`` fed by a TMA ring: with int8 x the weights are
-spread from packed bytes into the register operand (``w4a8_gemm_tiled_ref``
-is that partition in plain torch); with bf16 x they are widened into a bf16
-tile in shared memory, each nibble through the mantissa of 128.0
-(``widen_nibbles_twin``). A shape the kernel does not take raises: there is
-no threshold and no fallback.
+for CPU tensors. On the card, m <= 4 rows take a weight stream on ``mma.sync``
+split evenly over the SMs: units of 32 weight rows by one slice of in-rows,
+a contiguous share of them per warp (``gemv_plan``), slice sums in a
+workspace, and the warp that brings a tile's last slice adding the slices in
+order, or for the small projections one CTA per tile adding them in shared
+memory (``w4_gemv_tiled_ref`` is that partition and combine in plain torch).
+More rows take a GEMM on ``wgmma`` fed by a TMA ring: with int8 x the weights
+are spread from packed bytes into the register operand
+(``w4a8_gemm_tiled_ref`` is that partition in plain torch); with bf16 x they
+are widened into a bf16 tile in shared memory, each nibble through the
+mantissa of 128.0 (``widen_nibbles_twin``; the GEMV widens the same way in
+registers). A shape the kernel does not take raises: there is no threshold
+and no fallback.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -53,6 +60,12 @@ KERNEL_N_MULTIPLE = 8
 # the int8-x GEMM's partition: a CTA's weight rows, its x rows per channel and with group
 # scales, and the in-rows of one product (a stage holds four)
 GEMM_W_ROWS, GEMM_X_ROWS, GEMM_X_ROWS_GROUPED, GEMM_K_STEP = 128, 256, 128, 32
+# the GEMV: the most x rows it takes, the weight rows of a unit, the in-rows of a unit's slice
+# (the first that divides the group, or K per channel), its workers (warps) per SM, the most
+# slices of a tile combined in one CTA, and the arrival counters kept per card (one a tile:
+# N < 65536 x 128, which the kernel's argument checks hold, makes at most 2^18 tiles)
+GEMV_MAX_ROWS, GEMV_COLS, GEMV_SLICES = 4, 32, (512, 256, 128, 64)
+GEMV_WARPS_PER_SM, GEMV_TILE_CTA_SLICES, GEMV_MAX_TILES = 16, 8, 1 << 18
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -193,6 +206,119 @@ def w4a8_gemm_tiled_ref(x, x_scale, wp, w_scale, out_dtype=torch.bfloat16) -> to
     return y.reshape(*x.shape[:-1], N)
 
 
+class GemvPlan(NamedTuple):
+    """The GEMV's partition: unit u is (weight-row tile u // n_slices, slice
+    u % n_slices), GEMV_COLS weight rows by ``slice_k`` in-rows; worker (a
+    warp of the grid) w takes the units ``units(w)``."""
+    slice_k: int
+    n_slices: int
+    n_tiles: int
+    n_units: int
+    n_workers: int
+    tile_ctas: bool  # one CTA per tile, a warp per slice, combined in shared memory
+
+    def units(self, worker: int) -> range:
+        return range(self.n_units * worker // self.n_workers,
+                     self.n_units * (worker + 1) // self.n_workers)
+
+
+@functools.lru_cache(maxsize=None, typed=True)
+def gemv_plan(m: int, K: int, N: int, G: int, n_sms: int, bf16_x: bool = False) -> GemvPlan:
+    """The partition of the GEMV (m <= GEMV_MAX_ROWS rows) over the warps of
+    ``n_sms`` SMs, from Python ints alone: slices of the largest of
+    GEMV_SLICES in-rows that divides the group (K / G, or K per channel), so
+    no slice straddles two groups; GEMV_WARPS_PER_SM workers per SM, or one
+    per unit where there are fewer; each worker a contiguous run of units,
+    the runs differing by at most one unit (so every SM streams the same
+    bytes to within GEMV_WARPS_PER_SM units). Where every unit has a worker
+    and a tile has at most GEMV_TILE_CTA_SLICES slices (qkv and o at K 3584),
+    each tile is one CTA (``tile_ctas``) whose warps combine in shared
+    memory: the same units and combine order, without the workspace's round
+    trips. With bf16 x only where no SM gets two such CTAs (o, not qkv): the
+    widening makes an SM with two the tail (measured on the H100; PERF.md)."""
+    for name, v in (("m", m), ("K", K), ("N", N), ("G", G), ("n_sms", n_sms)):
+        if type(v) is not int or v < (0 if name == "G" else 1):
+            raise TypeError(f"gemv_plan takes Python ints, got {name}={v!r}")
+    gsize = K // G if G else K
+    if m > GEMV_MAX_ROWS or K % KERNEL_K_MULTIPLE or (G and K % G) or gsize % KERNEL_K_MULTIPLE:
+        raise ValueError(f"no GEMV plan for m = {m}, K = {K}, G = {G}")
+    slice_k = next(s for s in GEMV_SLICES if gsize % s == 0)
+    n_slices, n_tiles = K // slice_k, -(-N // GEMV_COLS)
+    n_units = n_slices * n_tiles
+    n_workers = min(n_sms * GEMV_WARPS_PER_SM, n_units)
+    tile_ctas = (n_workers == n_units and n_slices <= GEMV_TILE_CTA_SLICES
+                 and (not bf16_x or n_tiles <= n_sms))
+    return GemvPlan(slice_k, n_slices, n_tiles, n_units, n_workers, tile_ctas)
+
+
+def w4_gemv_tiled_ref(x, x_scale, wp, w_scale, n_sms: int, out_dtype=torch.bfloat16):
+    """The GEMV's partition and combine in plain torch on the CPU, as
+    ``gemv_plan`` lays them out for ``n_sms`` SMs: each worker's units in turn,
+    every unit's slice sums into a workspace (int32 sums of 16 times each
+    nibble for int8 x, fp32 for bf16 x), and when a tile's last slice has
+    arrived its combine: the slices added in order (shifted right by 4 for
+    int8 x), per channel ``float(acc) * x_scale * w_scale``, with group
+    scales each group's sum scaled and added in group order, then x_scale.
+    Equal to :func:`w4_matmul_ref` bit for bit for int8 x. Counts as no call
+    of either version."""
+    N, K = wp.shape[0], 2 * wp.shape[1]
+    m = x.numel() // K
+    G = _n_groups(w_scale, N, K)
+    int_x = x.dtype == torch.int8
+    plan = gemv_plan(m, K, N, G, n_sms, bf16_x=not int_x)
+    x2 = x.reshape(m, K).to(torch.int32 if int_x else torch.float32)
+    w = unpack_int4(wp).to(torch.int32) * 16 if int_x else unpack_int4(wp).float()
+    ws = w_scale.float().reshape(max(G, 1), N)
+    work = torch.empty(plan.n_slices, m, N, dtype=torch.int32 if int_x else torch.float32)
+    arrived = [0] * plan.n_tiles
+    y = torch.empty(m, N, dtype=out_dtype)
+    per_group = plan.n_slices // max(G, 1)
+    S = plan.slice_k
+    for worker in range(plan.n_workers):
+        for u in plan.units(worker):
+            tile, s = divmod(u, plan.n_slices)
+            cols = slice(tile * GEMV_COLS, (tile + 1) * GEMV_COLS)
+            work[s, :, cols] = x2[:, s * S:(s + 1) * S] @ w[cols, s * S:(s + 1) * S].t()
+            arrived[tile] += 1
+            if arrived[tile] < plan.n_slices:
+                continue
+            acc = None
+            for gi in range(max(G, 1)):
+                part = work[gi * per_group, :, cols]
+                for s2 in range(gi * per_group + 1, (gi + 1) * per_group):
+                    part = part + work[s2, :, cols]
+                v = (part >> 4).float() if int_x else part
+                acc = v if not G else (v * ws[gi, cols] if acc is None else acc + v * ws[gi, cols])
+            if int_x:
+                acc = acc * x_scale.reshape(m, 1).float()
+            if not G:
+                acc = acc * ws[0, cols]
+            y[:, cols] = acc.to(out_dtype)
+    return y.reshape(*x.shape[:-1], N)
+
+
+_SMS: dict = {}
+_ARRIVALS: dict = {}
+
+
+def _n_sms(dev: torch.device) -> int:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
+
+
+def _arrivals(dev: torch.device) -> torch.Tensor:
+    """The GEMV's arrival counter per tile on this card: zeroed once, and
+    left at zero by every launch (the combining warp resets its tile's), so
+    a CUDA graph that captured a call replays right. Launches on one card
+    share it: they must not run at once on two streams."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _ARRIVALS:
+        _ARRIVALS[index] = torch.zeros(GEMV_MAX_TILES, dtype=torch.int32, device=dev)
+    return _ARRIVALS[index]
+
+
 def _launch_kernel(x, x_scale, wp, w_scale, out_dtype):
     N, K = wp.shape[0], 2 * wp.shape[1]
     m = x.numel() // K
@@ -225,11 +351,22 @@ def _launch_kernel(x, x_scale, wp, w_scale, out_dtype):
         _launch.check_contiguous_cuda("x_scale", xs, torch.float32, (m,), dev)
         xs_ptr = xs.data_ptr()
     out = torch.empty(m, N, dtype=torch.bfloat16, device=dev)
+    work = arrivals = None  # held until the launch is enqueued
+    slice_k = n_workers = tile_ctas = 0
+    if m <= GEMV_MAX_ROWS:
+        plan = gemv_plan(m, K, N, G, _n_sms(dev), bf16_x=not int_x)
+        if not plan.tile_ctas:
+            arrivals = _arrivals(dev)
+            work = torch.empty(N * m * (-(-plan.n_slices // 4) * 4), dtype=torch.int32,
+                               device=dev)
+        slice_k, n_workers, tile_ctas = plan.slice_k, plan.n_workers, int(plan.tile_ctas)
     lib = cuda_build.load_library()
     with torch.cuda.device(dev):
         rc = lib.unimedvl_w4_matmul(
             x2.data_ptr(), xs_ptr, wp.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            m, K, N, G, int(int_x), torch.cuda.current_stream(dev).cuda_stream,
+            0 if work is None else work.data_ptr(), 0 if arrivals is None else arrivals.data_ptr(),
+            m, K, N, G, int(int_x), slice_k, n_workers, tile_ctas,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     cuda_build.check(rc, "w4_matmul")
     counts["kernel"] += 1
