@@ -12,6 +12,15 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   cache and fused projections: full-int8 (the three chat requests), w4a8
   per channel and w4a8 with groups of 512 (one request each), weight-only w4
   per channel (the 980x980 and 378x378 requests);
+- the batched serving path: ``ContinuousBatcher`` (a pool of 16 streams x
+  6144 columns, chunks of 16, the pool ladder) serving 24 requests (980x980,
+  378x532 and 378x378 images, text prompts, four on a registered preamble)
+  in two waves with bf16 weights and a bf16 pool (run A) and an int8 pool
+  (run B), and 12 378x378 requests with w4a8 weights and an int8 pool (run
+  C); each run's first-step logits (images admitted in groups of one
+  bucket, text, text after the preamble) held to chat's, and its answers to
+  chat's up to near-ties; A's and B's pools also near capacity, where the
+  batcher falls back to the scatter chunk;
 - the training path: LoRA steps (rank 16, every projection of both experts)
   over the frozen 28-layer model, on packed batches of synthetic VQA,
   text-to-image and editing examples (980 px and 378 px understanding
@@ -47,6 +56,7 @@ import datetime
 import gc
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -59,7 +69,7 @@ import torch
 from unimedvl_tpu_torch.config import BagelConfig, LLMConfig, TransformConfig, VAEConfig, ViTConfig
 from unimedvl_tpu_torch.data.tokenizer import ByteTokenizer, add_special_tokens
 from unimedvl_tpu_torch import quant
-from unimedvl_tpu_torch.inference import InterleaveInferencer
+from unimedvl_tpu_torch.inference import ContinuousBatcher, InterleaveInferencer, Request, serving
 from unimedvl_tpu_torch.models import bagel, qwen2_mot, siglip
 from unimedvl_tpu_torch.ops import act_quant as aq
 from unimedvl_tpu_torch.ops import cuda_build
@@ -189,6 +199,9 @@ def sdpa_ms(q, k, v, mask) -> float:
         qh, kh, vh, attn_mask=m), warmup=1, iters=5)
 
 
+CARD = None  # the card's name and power limit, as nvidia-smi gives them
+
+
 def check_device() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -198,6 +211,8 @@ def check_device() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    global CARD
+    CARD = smi
     print(smi)
     print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -214,17 +229,19 @@ def build_kernels() -> None:
                 print("  ptxas:", line.strip())
 
 
-def _compare(name, kernel_fn, plain_fn, rows, back_to_back=None, row_atol=False):
-    """Kernel vs plain on the valid query rows [:, :rows]; both times, and
-    the kernel's time per call in a run of calls (``back_to_back``; by default
-    for a one-row shape). ``row_atol``: the absolute part of the bound is
-    RTOL times the largest |plain| of the output row [..., D] instead of
-    ATOL, for outputs whose size the inputs' scales set."""
+def _compare(name, kernel_fn, plain_fn, rows, back_to_back=None, row_atol=False, valid=None):
+    """Kernel vs plain on the valid query rows [:, :rows], or on the rows
+    that ``valid`` (bool [S, T]) marks; both times, and the kernel's time per
+    call in a run of calls (``back_to_back``; by default for a one-row
+    shape). ``row_atol``: the absolute part of the bound is RTOL times the
+    largest |plain| of the output row [..., D] instead of ATOL, for outputs
+    whose size the inputs' scales set."""
     got = kernel_fn()
     torch.cuda.synchronize()
     want = plain_fn()
-    ref = want[:, :rows].float()
-    diff = (got[:, :rows].float() - ref).abs()
+    pick = (lambda t: t[:, :rows]) if valid is None else (lambda t: t[valid])
+    ref = pick(want).float()
+    diff = (pick(got).float() - ref).abs()
     max_abs, mean_abs = diff.max().item(), diff.mean().item()
     atol = RTOL * ref.abs().amax(dim=-1, keepdim=True) if row_atol else ATOL
     worst = (diff / (atol + RTOL * ref.abs())).max().item()
@@ -342,6 +359,8 @@ def check_kernels() -> dict:
     timings["decode_attention_int8"] = check_decode_int8(g, randn, ints)
     timings["silu_mul_quant"] = check_silu_mul_quant(randn)
     timings["w4_matmul"] = check_w4_matmul(g, randn)
+    for name, rows in check_serving_shapes(g, randn, ints).items():
+        timings[name]["serving_cases"] = rows
     return timings
 
 
@@ -1118,13 +1137,575 @@ def run_quantized_chat(inf: InterleaveInferencer, logits_bf16: torch.Tensor) -> 
     return total
 
 
+# -- batched serving (ContinuousBatcher) ------------------------------------------------------
+SERVE_SLOTS, SERVE_CAPACITY, SERVE_CHUNK, SERVE_MAX_NEW = 16, 6144, 16, 32
+SERVE_PREAMBLE = "You are a radiology assistant. Answer in one short sentence. "
+SERVE_TEXT = [
+    "Summarise the findings of a normal chest radiograph.",
+    "List three causes of a pleural effusion.",
+    "What does a silhouette sign indicate?",
+    "Define atelectasis in one line.",
+    "Is cardiomegaly visible on a lateral view?",
+    "Name the lobes of the right lung.",
+    "What is a Kerley B line?",
+    "Describe a pneumothorax on an upright film.",
+]
+# the pool's lens in run A's mix, for the kernel shapes: 980 px streams near 5150
+# columns, 378x532 near 1070, 378 px near 750
+SERVE_LENS = tuple([5141 + 3 * i for i in range(4)] + [1063 + 5 * i for i in range(4)]
+                   + [746 + 4 * i for i in range(8)])
+
+
+def _k1a_case(name, q, k, v, lens, bstart, causal, qvl=None) -> dict:
+    """K1a at one admission shape against its plain version on each
+    stream's valid query rows: rows < ``qvl[s]`` over a head-major cache, or,
+    without ``qvl``, the ViT's rows < ``lens[s]`` over token-major k/v. Adds
+    the bound from the visible (row, key) pairs and SDPA's time on the same
+    mask. Returns the case's row of the ``kernels`` line."""
+    vit = qvl is None
+    S, T, H, D = q.shape
+    kh, vh = (k.transpose(1, 2), v.transpose(1, 2)) if vit else (k, v)
+    Hk, M = kh.shape[1], kh.shape[2]
+    args = (lens, bstart, causal) if vit else (lens, bstart, causal, qvl, True)
+    per = fa._launch.per_stream
+    mask = fa._visibility_mask(T, M, lens, per(bstart, S, q.device),
+                               per(T if vit else qvl, S, q.device), causal, q.device)
+    valid = torch.arange(T, device=q.device)[None] < (lens if vit else qvl)[:, None]
+    r = _compare(name, lambda: fa.flash_block_attention(q, k, v, *args),
+                 lambda: fa.flash_block_attention_ref(q, k, v, *args), None,
+                 back_to_back=False, valid=valid)
+    seen = mask & valid[:, :, None]
+    r.update(attention_bound(valid.sum(1).tolist(), seen.any(1).sum(-1).tolist(), H, Hk, D, 2,
+                             "bf16", pairs=seen.sum((1, 2)).tolist()))
+    r["library_ms"] = sdpa_ms(q, kh, vh, mask)
+    print(f"    bound {r['bound_ms']:.4f} ms by {r['bound_by']}; SDPA, same mask "
+          f"{r['library_ms']:.3f} ms", flush=True)
+    r.pop("ms_back_to_back")
+    return dict(case=name, **r)
+
+
+def check_serving_k1a(randn, ints) -> list:
+    """K1a at the batcher's admission shapes, with mixed valid lengths: the
+    grouped ViT (D 72) at P 8 over the 1024 bucket (378 px images are 729
+    patches) and P 4 over the 5120 bucket (980 px: 4900); the image+text
+    block at P 8 (the image rows non-causal into a block of bucket + 2 +
+    T_max columns, then each row's text causal after its image); the text
+    block at P 32 (8 requests, 24 padding rows with no valid row) and a
+    prefixed one (every row's lens the preamble's 62)."""
+    cases = []
+    for P, Tb, ns in ((8, 1024, (729, 513, 1024, 600, 729, 900, 800, 700)),
+                      (4, 5120, (4900, 4608, 5120, 4700))):
+        q, k, v = randn(P, Tb, 16, 72, scale=2.0), randn(P, Tb, 16, 72), randn(P, Tb, 16, 72)
+        cases.append(_k1a_case(f"K1a ViT P={P} bucket {Tb} D=72 valid {min(ns)}-{max(ns)}",
+                               q, k, v, ints(*ns), Tb, False))
+    ns = torch.tensor((729, 513, 1024, 600, 729, 900, 800, 700), device="cuda")
+    texts = ints(54, 41, 64, 38, 45, 60, 33, 50)
+    M = 1024 + 2 + 64
+    kc, vc = randn(8, 4, M, 128), randn(8, 4, M, 128)
+    zero = ints(*[0] * 8)
+    cases.append(_k1a_case(f"K1a image block P=8 T=1026 M={M} non-causal", randn(
+        8, 1026, 28, 128, scale=2.0), kc, vc, zero, zero, False, (ns + 2).int()))
+    lens = (ns + 2).int()
+    cases.append(_k1a_case(f"K1a text after image P=8 T=64 M={M} causal", randn(
+        8, 64, 28, 128, scale=2.0), kc, vc, lens, lens, True, texts))
+    for M, pre, qvl in ((64, 0, (54, 41, 64, 38, 45, 60, 33, 50)), (128, 62, (54, 41, 38, 45))):
+        kc, vc = randn(32, 4, M, 128), randn(32, 4, M, 128)
+        lens = ints(*[pre] * 32)
+        cases.append(_k1a_case(
+            f"K1a text block P=32 T=64 M={M} causal, lens {pre}, {len(qvl)} requests",
+            randn(32, 64, 28, 128, scale=2.0), kc, vc, lens, lens, True,
+            ints(*qvl, *[0] * (32 - len(qvl)))))
+    return cases
+
+
+def check_serving_shapes(g, randn, ints) -> dict:
+    """The kernels at the batched-serving shapes: K1a at the admission
+    shapes (:func:`check_serving_k1a`); K2 and K2-int8 over a pool
+    of 16 streams x 6144 columns with run A's mixed lens, under the aligned
+    band (base the largest lens, col base + 7: step 8 of a chunk) and under
+    (lens, lens) (the scatter chunk); K3 at R 16 (many-row kernel) and R 8
+    (cluster kernel); K4 w4a8 per channel at m 16 and 8 (the int8 GEMM) for
+    the four projections. Each row: the kernel per call (one call, and in a
+    CUDA graph of 20), the plain version, the bound and, for K2, SDPA with the
+    same mask. Returns {kernel name: [rows]}."""
+    print("kernels at the serving shapes (pool of 16 x 6144 columns):", flush=True)
+    rows = {"flash_block_attention": check_serving_k1a(randn, ints), "decode_attention": [],
+            "decode_attention_int8": [], "silu_mul_quant": [], "w4_matmul": []}
+    S, M = SERVE_SLOTS, SERVE_CAPACITY
+    ln = ints(*SERVE_LENS)
+    top = max(SERVE_LENS)
+    bands = {f"aligned band [{top}, {top + 7}]": (ints(*[top] * S), ints(*[top + 7] * S)),
+             "band (lens, lens)": (ln, ln)}
+    q = randn(S, 1, 28, 128, scale=2.0)
+    kc, vc = randn(S, 4, M, 128), randn(S, 4, M, 128)
+    k8, v8 = _rand_int8(g, S, 4, M, 128), _rand_int8(g, S, 4, M, 128)
+    ks = torch.rand(S, 4, M, generator=g, device="cuda") * 0.02 + 0.002
+    vs = torch.rand(S, 4, M, generator=g, device="cuda") * 0.02 + 0.002
+    j = torch.arange(M, device="cuda")
+    for band_name, (base, col) in bands.items():
+        keys = [a + max(0, c - max(a, b) + 1)
+                for a, b, c in zip(SERVE_LENS, base.tolist(), col.tolist())]
+        mask = (j[None] < ln[:, None]) | ((j[None] >= base[:, None]) & (j[None] <= col[:, None]))
+        for int8 in (False, True):
+            name = (f"K2{'-int8' if int8 else ''} decode S=16 M=6144 lens 746-5150, "
+                    f"{band_name}")
+            k, v = (k8, v8) if int8 else (kc, vc)
+            sc = dict(k_scale=ks, v_scale=vs) if int8 else {}
+            kernel = lambda: dec.decode_attention(q, k, v, ln, (base, col), **sc)  # noqa: E731
+            r = _with_splits(name, S, M, _compare(
+                name, kernel, lambda: dec.decode_attention_ref(q, k, v, ln, (base, col), **sc),
+                1, row_atol=int8), kernel)
+            r.update(attention_bound([1] * S, keys, 28, 4, 128, 1 if int8 else 2, "bf16",
+                                     scales=int8))
+            r["library_ms"] = None if int8 else sdpa_ms(q, kc, vc, mask[:, None])
+            print(f"    bound {r['bound_ms']:.4f} ms by {r['bound_by']}; SDPA, same mask "
+                  f"{r['library_ms']}", flush=True)
+            r["case"] = dict(r["case"], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                             plain_ms=r["plain_ms"],
+                             bound_ms=r["bound_ms"], library_ms=r["library_ms"])
+            rows["decode_attention_int8" if int8 else "decode_attention"].append(r["case"])
+    I = 18944
+    for R in (16, 8):
+        gate, up = randn(R, 2 * I, scale=2.0).split(I, dim=-1)
+        q_ref, sc_ref = aq.silu_mul_quant_ref(gate, up)
+        qq, sc = aq.silu_mul_quant(gate, up)
+        torch.cuda.synchronize()
+        step = (qq.int() - q_ref.int()).abs()
+        share = (step > 0).float().mean().item()
+        rel = ((sc - sc_ref).abs() / sc_ref).max().item()
+        how = f"cluster of {aq.CLUSTER_SIZE}" if R <= aq.CLUSTER_MAX_ROWS else "many-row"
+        if rel > K3_SCALE_RTOL or step.max().item() > K3_MAX_STEP or share > K3_MAX_SHARE:
+            raise SystemExit(f"chip_smoke: K3 R={R} ({how}) disagrees with its plain version")
+        fn = lambda: aq.silu_mul_quant(gate, up)  # noqa: E731
+        ms, plain_ms = cuda_ms(fn), cuda_ms(lambda: aq.silu_mul_quant_ref(gate, up), warmup=1,
+                                            iters=3)
+        in_graph = graph_ms(fn)
+        b = bound(R * I * 5 + R * 4, R * I * 15, "fp32")
+        _line(f"K3 R={R} ({how})", f"max step {step.max().item()}, share differing "
+              f"{share:.2e}, scale rel err {rel:.2e}", ms, plain_ms, b,
+              f"; {in_graph:.4f} ms per call in a CUDA graph of {BACK_TO_BACK}")
+        rows["silu_mul_quant"].append(dict(case=f"R={R} ({how})", max_abs_err=float(
+            step.max().item()), ms=ms, ms_in_graph=in_graph, plain_ms=plain_ms,
+            library_ms=None, **b))
+    for proj, (K, N) in zip(("qkv", "o", "gate_up", "down"),
+                            [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584)]):
+        wp = w4.pack_int4(_rand_int8(g, N, K, lo=-8, hi=8))
+        ws = torch.rand(N, generator=g, device="cuda") * 0.01 + 0.001
+        for m in (16, 8):
+            x = _rand_int8(g, m, K)
+            xs = torch.rand(m, 1, generator=g, device="cuda") * 0.05 + 0.001
+            got, want = w4.w4_matmul(x, xs, wp, ws), w4.w4_matmul_ref(x, xs, wp, ws)
+            fn = lambda: w4.w4_matmul(x, xs, wp, ws)  # noqa: E731
+            ms = cuda_ms(fn)
+            plain_ms = cuda_ms(lambda: w4.w4_matmul_ref(x, xs, wp, ws), warmup=1, iters=3)
+            in_graph = graph_ms(fn)
+            b = bound(m * K + m * 4 + N * K // 2 + N * 4 + m * N * 2, 2.0 * m * K * N, "int8")
+            equal = torch.equal(got, want)
+            _line(f"K4 w4a8 {proj} m={m} K={K} N={N} per channel", f"equal {equal}", ms,
+                  plain_ms, b, f"; {in_graph:.4f} ms per call in a CUDA graph of {BACK_TO_BACK}")
+            if not equal:
+                raise SystemExit("chip_smoke: K4 (w4a8) differs from its plain version")
+            rows["w4_matmul"].append(dict(
+                case=f"w4a8 {proj} m={m} per channel", max_abs_err=0.0, ms=ms,
+                ms_in_graph=in_graph, plain_ms=plain_ms, library_ms=None, **b))
+    return rows
+
+
+def _pil_image(arr: np.ndarray):
+    from PIL import Image
+
+    return Image.fromarray(arr)
+
+
+def _image_group(rng, i: int, n: int):
+    """REQUESTS[i] and ``n`` more random images of its size, as (image array,
+    prompt, prefixed) requests: one bucket, so one grouped prefill."""
+    h, w, prompt = REQUESTS[i]
+    return [(_images()[i], prompt, False)] + [
+        (rng.integers(0, 256, (h, w, 3), dtype=np.uint8), f"{prompt} (view {k})", False)
+        for k in range(1, n + 1)]
+
+
+def serving_workload(run: str):
+    """Run A and B's 24 requests, or run C's 12, as two waves of arrivals
+    (the second submitted after the first round, as a server receives them):
+    (wave 1, wave 2), each a list of (image array or None, prompt, prefixed).
+    A/B: wave 1 the three REQUESTS and three more of each of their sizes
+    (980x980, 378x532, 378x378); wave 2 four more 378x378 and the eight text
+    prompts, the first four on the registered preamble. C: eight 378x378
+    (REQUESTS[2] first), then four more."""
+    rng = np.random.default_rng(SEED + 7)
+    if run == "C":
+        return _image_group(rng, 2, 7), _image_group(rng, 2, 4)[1:]
+    first = _image_group(rng, 0, 3) + _image_group(rng, 1, 3) + _image_group(rng, 2, 3)
+    text = [(None, p, k < 4) for k, p in enumerate(SERVE_TEXT)]
+    return first, _image_group(rng, 2, 4)[1:] + text
+
+
+def logits_workload(run: str):
+    """The first-step logits check's requests, admitted in one round: images
+    in groups of more than one per bucket (A, B: REQUESTS[0], [1] and [2]
+    with 1, 1 and 3 more of their sizes; C: REQUESTS[2] with 7 more), two
+    plain text prompts (rows 0 and 1 of their block) and two on the
+    preamble."""
+    rng = np.random.default_rng(SEED + 11)
+    images = (_image_group(rng, 2, 7) if run == "C" else
+              _image_group(rng, 0, 1) + _image_group(rng, 1, 1) + _image_group(rng, 2, 3))
+    return images + [(None, SERVE_TEXT[4], False), (None, SERVE_TEXT[5], False),
+                     (None, SERVE_TEXT[0], True), (None, SERVE_TEXT[1], True)]
+
+
+class ForwardCounter:
+    """Forwards of the LLM split into decode steps (one row per stream) and
+    prefills, and forwards of the ViT: the launches a serving run must show
+    follow from them."""
+
+    def __init__(self, model):
+        self.decode = self.prefill = self.vit = 0
+        self.vit_rows = []  # the images of each ViT forward
+        lm = model.language_model.model
+        self.hooks = [
+            lm.register_forward_pre_hook(self._llm),
+            model.vit_model.register_forward_pre_hook(self._vit),
+        ]
+
+    def _llm(self, module, args):
+        if args[0].shape[1] == 1:
+            self.decode += 1
+        else:
+            self.prefill += 1
+
+    def _vit(self, module, args):
+        self.vit += 1
+        self.vit_rows.append(args[0].shape[0])
+
+    def remove(self):
+        for h in self.hooks:
+            h.remove()
+
+
+# an answer that parts from chat's passes only at a near-tie: the engine took
+# chat's second choice, whose logit is within this many times the largest
+# first-step logit difference between the pool and chat measured in the run
+NEAR_TIE_FACTOR = 2.0
+SERVE_TIGHT = 96  # the near-capacity run's pool capacity (columns)
+
+
+def _chat_steps(inf: InterleaveInferencer, image, prompt: str, max_length: int):
+    """``inf.chat`` on one request, with ``qwen2_mot.lm_head`` wrapped while
+    it runs to keep chat's two largest logits of every decode step. Returns
+    (ids: [bos] and the greedy tokens, eos last where the answer ended on it,
+    at most max_length; steps: [(top-2 values, top-2 ids)] per step)."""
+    steps = []
+    lm_head = qwen2_mot.lm_head
+
+    def record(lm, h):
+        logits = lm_head(lm, h)
+        steps.append(torch.topk(logits[0], 2))
+        return logits
+
+    qwen2_mot.lm_head = record
+    try:
+        inf.chat([] if image is None else [image], prompt, max_length=max_length)
+    finally:
+        qwen2_mot.lm_head = lm_head
+    steps = [(t.values.tolist(), t.indices.tolist()) for t in steps]
+    ids = ([inf.new_token_ids["bos_token_id"]] + [i[0] for _v, i in steps])[:max_length]
+    eos = inf.new_token_ids["eos_token_id"]
+    return (ids[: ids.index(eos) + 1] if eos in ids else ids), steps
+
+
+def check_answers(run: str, ref: InterleaveInferencer, requests, got_ids: dict, max_new,
+                  gap_limit: float) -> list:
+    """Each request's answer ids (``got_ids``: rid -> the slot's out_ids)
+    against ``ref.chat``'s on the same request: equal, or parting at a
+    near-tie, where the engine took chat's second choice and chat's top-2
+    logits lie within ``gap_limit``. ``requests``: [(rid, image, prompt)];
+    ``max_new``: one budget, or one per request. Prints each request's
+    agreeing tokens and, where it parts, the step, chat's top-2 gap there and
+    whether the engine took chat's runner-up. Returns the splits as (step,
+    gap) pairs; fails on one that is no near-tie."""
+    eos = ref.new_token_ids["eos_token_id"]
+    budgets = max_new if isinstance(max_new, list) else [max_new] * len(requests)
+    shown, splits, bad = [], [], []
+    for (rid, image, prompt), budget in zip(requests, budgets):
+        want, steps = _chat_steps(ref, image, prompt, budget)
+        got = got_ids[rid] + ([eos] if len(got_ids[rid]) < budget else [])
+        n = 0
+        while n < min(len(got), len(want)) and got[n] == want[n]:
+            n += 1
+        if n == len(got) == len(want):
+            shown.append(f"{n - 1}/{n - 1}")
+            continue
+        (v1, v2), (_i1, i2) = steps[n - 1]
+        runner_up = n < len(got) and got[n] == i2
+        splits.append((n, v1 - v2))
+        shown.append(f"{n - 1}/{len(want) - 1} (parts at token {n}: chat's top-2 gap "
+                     f"{v1 - v2:.4f}, engine took chat's runner-up: {runner_up})")
+        if not (runner_up and v1 - v2 <= gap_limit):
+            bad.append(rid)
+    print(f"  run {run}: answer tokens agreeing with chat's, per request (agree/len; a split "
+          f"passes as a near-tie with a top-2 gap <= {gap_limit:.4f}): {' '.join(shown)}",
+          flush=True)
+    if bad:
+        raise SystemExit(f"chip_smoke: serving run {run}: requests {bad} part from chat's "
+                         "answer at no near-tie")
+    return splits
+
+
+def _recording_ids(b: ContinuousBatcher) -> dict:
+    """rid -> the slot's out_ids ([start token] + the emitted tokens, no eos),
+    kept as the batcher finishes each request."""
+    ids = {}
+    finish = b._finish
+
+    def record(slot):
+        ids[slot.request_id] = list(slot.out_ids)
+        finish(slot)
+
+    b._finish = record
+    return ids
+
+
+def _engine_first_step_logits(b: ContinuousBatcher, scatter: bool) -> torch.Tensor:
+    """After admission: the first decode step of every slot over a clone of
+    the pool, through the engine's own step (``serving._step_logits``) with
+    the options that the aligned chunk gives its step 0 or, with
+    ``scatter``, the scatter chunk's. Returns the logits [pool, V]."""
+    cache = b.cache.clone()
+    slots = b.slots[: b.pool]
+    live = [s.request_id is not None for s in slots]
+    active = torch.tensor(live, device=b.device)
+    cur = torch.tensor([s.cur_token if a else 0 for s, a in zip(slots, live)],
+                       dtype=torch.int32, device=b.device)
+    pos = torch.tensor([s.position for s in slots], dtype=torch.int64, device=b.device)
+    step_kw = serving._scatter_kw(active) if scatter else serving._aligned_kw(cache, active)[1]
+    with torch.no_grad():
+        logits, _ = serving._step_logits(b.model, cache, cur, pos, **step_kw(0))
+    return logits
+
+
+def _prompt(prompt: str, prefixed: bool) -> str:
+    return (SERVE_PREAMBLE if prefixed else "") + prompt
+
+
+def check_serving_logits(run: str, ref: InterleaveInferencer, engine) -> float:
+    """The first-step logits of :func:`logits_workload`'s requests, admitted
+    in one round (every ViT group of more than one image; the text rows in a
+    P = 32 block, two of them after the preamble), the step run as the
+    aligned chunk and as the scatter chunk run it, against chat's on the same
+    request at LOGITS_COS_TOL. Returns the largest |logit difference|."""
+    b = engine()
+    pid = b.register_prefix(SERVE_PREAMBLE)
+    reqs = logits_workload(run)
+    rids = [b.submit(Request(prompt=p, image=None if a is None else _pil_image(a),
+                             max_new_tokens=SERVE_MAX_NEW, prefix_id=pid if pre else None))
+            for a, p, pre in reqs]
+    counter = ForwardCounter(ref.model)
+    b._admit()
+    counter.remove()
+    if b.errors or min(counter.vit_rows) < 2:
+        raise SystemExit(f"chip_smoke: serving run {run}: the logits check's admission gave "
+                         f"errors {b.errors}, ViT groups {counter.vit_rows}")
+    logits = {flavour: _engine_first_step_logits(b, flavour == "scatter")
+              for flavour in ("aligned", "scatter")}
+    slot_of = {s.request_id: i for i, s in enumerate(b.slots[: b.pool])}
+    worst = 0.0
+    for rid, (arr, prompt, pre) in zip(rids, reqs):
+        what = "text" if arr is None else "x".join(map(str, arr.shape[:2]))
+        what += " after the preamble" if pre else ""
+        want = _first_step_logits(ref, arr, _prompt(prompt, pre))
+        for flavour, rows in logits.items():
+            got = rows[slot_of[rid]]
+            cos = torch.nn.functional.cosine_similarity(got, want, dim=0).item()
+            diff = (got - want).abs().max().item()
+            finite = bool(torch.isfinite(got).all())
+            worst = max(worst, diff)
+            print(f"  run {run} {what}: first-step logits in the pool ({flavour} step) vs "
+                  f"chat's: cosine {cos:.6f}, max abs {diff:.4f}, argmax "
+                  f"{got.argmax().item()} vs {want.argmax().item()}, finite {finite}", flush=True)
+            if not finite or cos < LOGITS_COS_TOL:
+                raise SystemExit(f"chip_smoke: serving run {run}: first-step logits disagree "
+                                 "with chat's")
+    print(f"  run {run}: ViT groups of {counter.vit_rows} images; logits of {len(reqs)} "
+          f"requests checked", flush=True)
+    del b
+    torch.cuda.empty_cache()
+    return worst
+
+
+def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
+                k3_per_layer: int, k4_per_layer: int) -> dict:
+    """One serving run at the full width: ``ContinuousBatcher`` over
+    ``ref.model`` (pool of 16 x 6144 columns, chunks of 16, the ladder down to
+    ``min_pool``, an int8 pool when ``ref`` has an int8 cache). First the
+    first-step logits check (:func:`check_serving_logits`). Then a warm-up
+    request (it leaves the pool at the smallest rung, so the run grows it);
+    then, counters reset, the preamble registered and the workload's two
+    waves served. Checks the launches against the forwards the run made, that
+    every request was answered, ``errors`` is empty and each answer is
+    chat's or parts from it at a near-tie (:func:`check_answers`); prints the
+    seconds, ``stats``, emitted tokens per second. Returns (the launches, the
+    near-tie gap limit)."""
+    n_vit, n_llm = ref.cfg.vit.num_hidden_layers, ref.cfg.llm.num_hidden_layers
+    kv_quantized = ref.kv_quantized
+    decode_key = "decode_attention_int8" if kv_quantized else "decode_attention"
+    first, later = serving_workload(run)
+    print(f"serving run {run} ({name}): {len(first) + len(later)} requests in two waves, "
+          f"max_new_tokens {SERVE_MAX_NEW}, ContinuousBatcher(num_slots={SERVE_SLOTS}, "
+          f"capacity={SERVE_CAPACITY}, chunk={SERVE_CHUNK}, pool_ladder=True, "
+          f"min_pool={min_pool}, kv_quantized={kv_quantized})", flush=True)
+
+    def engine():
+        return ContinuousBatcher(
+            ref.model, ref.tokenizer, ref.new_token_ids, SERVE_SLOTS, SERVE_CAPACITY,
+            SERVE_CHUNK, ref.vit_transform, SEED, kv_quantized=kv_quantized,
+            pool_ladder=True, min_pool=min_pool)
+
+    gap_limit = NEAR_TIE_FACTOR * check_serving_logits(run, ref, engine)
+    b = engine()
+    b.submit(Request(prompt="warm-up", max_new_tokens=2))
+    b.run()
+    if b.pool != min_pool:
+        raise SystemExit(f"chip_smoke: the drained pool is {b.pool} rows, not {min_pool}")
+    eos = b.new_token_ids["eos_token_id"]
+    got_ids = _recording_ids(b)
+    counter = ForwardCounter(ref.model)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pid = b.register_prefix(SERVE_PREAMBLE)
+
+    def submit(wave):
+        return [b.submit(Request(prompt=p, image=None if a is None else _pil_image(a),
+                                 max_new_tokens=SERVE_MAX_NEW,
+                                 prefix_id=pid if pre else None)) for a, p, pre in wave]
+
+    rids = submit(first)
+    st = b._reset_stats()
+    pools = []
+    while b.has_work():
+        b._round(st, eos)
+        pools.append(b.pool)
+        if st["rounds"] == 1:
+            rids += submit(later)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counter.remove()
+    forwards = counter.decode + counter.prefill
+    launches = check_counts(f"serving run {run}", {
+        "flash_block_attention": counter.vit * n_vit + counter.prefill * n_llm,
+        decode_key: counter.decode * n_llm,
+        "silu_mul_quant": forwards * n_llm * k3_per_layer,
+        "w4_matmul": forwards * n_llm * k4_per_layer,
+    })
+    answers = dict(b._done)
+    missing = [r for r in rids if not isinstance(answers.get(r), str)]
+    if b.errors or missing:
+        raise SystemExit(f"chip_smoke: serving run {run}: errors {b.errors}, unanswered {missing}")
+    rounds = st["rounds"]
+    row = dict(card=CARD, seconds=seconds, emitted_tokens=st["emitted_tokens"],
+               emitted_tok_s=st["emitted_tokens"] / seconds,
+               stats={k: st[k] for k in ("rounds", "admit_s", "decode_s", "host_s", "round_s",
+                                         "repacks", "repack_s", "admitted")},
+               pool_by_round=pools, decode_forwards=counter.decode,
+               prefill_forwards=counter.prefill, vit_forwards=counter.vit,
+               vit_group_images=counter.vit_rows,
+               launches_per_round={k: v / rounds for k, v in launches.items() if v})
+    print(f"  run {run}: {json.dumps(row)}", flush=True)
+    del b
+    torch.cuda.empty_cache()
+    check_answers(run, ref, [(rid, a, _prompt(p, pre)) for rid, (a, p, pre)
+                             in zip(rids, first + later)], got_ids, SERVE_MAX_NEW, gap_limit)
+    return launches, gap_limit
+
+
+def run_near_capacity(run: str, ref: InterleaveInferencer, gap_limit: float) -> dict:
+    """The scatter chunk at the full width: four text requests (SERVE_TEXT[:4])
+    in a pool of 4 x SERVE_TIGHT columns, each asking for as many tokens as
+    its extent allows, less 0, 5, 10 and 15. Their decode tails come within
+    a chunk of the capacity, so the batcher falls back to the scatter chunk,
+    and a slot that finishes inside such a chunk runs on past the capacity,
+    its writes dropped. Checks that both happened, the launches (K2 or
+    K2-int8 at every decode step), that ``errors`` is empty and the answers
+    against chat's (:func:`check_answers`). Returns the launches."""
+    n_llm = ref.cfg.llm.num_hidden_layers
+    decode_key = "decode_attention_int8" if ref.kv_quantized else "decode_attention"
+    b = ContinuousBatcher(ref.model, ref.tokenizer, ref.new_token_ids, 4, SERVE_TIGHT,
+                          SERVE_CHUNK, ref.vit_transform, SEED, kv_quantized=ref.kv_quantized)
+    budgets = [SERVE_TIGHT - (len(ref.tokenizer.encode(p)) + 2) - 1 - 5 * k
+               for k, p in enumerate(SERVE_TEXT[:4])]
+    print(f"serving run {run}, near capacity: {len(budgets)} text requests, max_new_tokens "
+          f"{budgets}, ContinuousBatcher(num_slots=4, capacity={SERVE_TIGHT}, "
+          f"chunk={SERVE_CHUNK}, kv_quantized={ref.kv_quantized})", flush=True)
+    got_ids = _recording_ids(b)
+    seen = dict(scatter_chunks=0, chunks_past_capacity=0)
+    chunk = serving.decode_chunk
+
+    def counted(*args, **kw):
+        out = chunk(*args, **kw)
+        seen["scatter_chunks"] += 1
+        seen["chunks_past_capacity"] += int(out[3].lens.max().item() > SERVE_TIGHT)
+        return out
+
+    counter = ForwardCounter(ref.model)
+    reset_counts()
+    serving.decode_chunk = counted
+    try:
+        rids = [b.submit(Request(prompt=p, max_new_tokens=n))
+                for p, n in zip(SERVE_TEXT[:4], budgets)]
+        b.run()
+    finally:
+        serving.decode_chunk = chunk
+        counter.remove()
+    launches = check_counts(f"serving run {run} near capacity", {
+        "flash_block_attention": counter.prefill * n_llm, decode_key: counter.decode * n_llm})
+    print(f"  run {run} near capacity: {json.dumps(dict(seen, stats=b.stats))}", flush=True)
+    missing = [r for r in rids if r not in got_ids]
+    if b.errors or missing or not seen["scatter_chunks"] or not seen["chunks_past_capacity"]:
+        raise SystemExit(f"chip_smoke: serving run {run} near capacity: errors {b.errors}, "
+                         f"unanswered {missing}, {seen}")
+    del b
+    torch.cuda.empty_cache()
+    check_answers(f"{run} near capacity", ref, [(rid, None, p) for rid, p in
+                                               zip(rids, SERVE_TEXT[:4])], got_ids, budgets,
+                  gap_limit)
+    return launches
+
+
+def run_serving_phase(inf: InterleaveInferencer) -> list:
+    """Runs A (bf16 weights and pool), B (bf16 weights, int8 pool) and C
+    (w4a8 per channel, fused, int8 pool) on the smoke's model, A's and B's
+    pools also near capacity. The batcher waits for the card at the end of
+    each phase of a round (UNIMEDVL_SERVING_PROFILE), so that ``stats`` splits
+    device work. Returns their launches."""
+    os.environ["UNIMEDVL_SERVING_PROFILE"] = "1"
+    try:
+        int8_pool = InterleaveInferencer(inf.model, inf.tokenizer, inf.new_token_ids,
+                                         vit_transform=inf.vit_transform, seed=SEED,
+                                         kv_quantized=True)
+        launches = []
+        for name, ref, run in (("bf16 weights, bf16 pool", inf, "A"),
+                               ("bf16 weights, int8 pool", int8_pool, "B")):
+            main, gap_limit = run_serving(name, ref, run, 4, 0, 0)
+            launches += [main, run_near_capacity(run, ref, gap_limit)]
+        del int8_pool
+        w4a8 = quantized_inferencer(inf, bits=4, act_quant=True)
+        launches.append(run_serving("w4a8 per channel, fused, int8 pool", w4a8, "C", 2, 1, 4)[0])
+        del w4a8
+    finally:
+        os.environ.pop("UNIMEDVL_SERVING_PROFILE")
+    torch.cuda.empty_cache()
+    return launches
+
+
 # further numbers a kernel's row of the ``kernels`` line carries, where it has them
 EXTRA_KEYS = (
     "one_row_ms", "one_row_ms_back_to_back", "tiles_skipped", "max_abs_err_lse",
     "cache_partial_t2i_ms", "cache_partial_edit_ms", "library_note", "concat_k1b_ms",
     "k_island_ms", "concat_copy_ms", "k1b_on_concat_ms", "q_island_only_ms", "launches_from",
     "n_split", "split_len", "cases", "ms_in_graph", "vit", "gemm", "bf16_gemm",
-    "one_row_ms_in_graph", "gemv_cases",
+    "one_row_ms_in_graph", "gemv_cases", "serving_cases",
 )
 
 COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches there)
@@ -1161,8 +1742,11 @@ def check_counts(path: str, want: dict) -> dict:
 
 
 def _first_step_logits(inf: InterleaveInferencer, image, prompt) -> torch.Tensor:
+    """chat's first decode step on one request (no image when ``image`` is
+    None); its logits [V]."""
     ctx = inf.init_gen_context()
-    ctx = inf.update_context_image(image, ctx, vae=False)
+    if image is not None:
+        ctx = inf.update_context_image(image, ctx, vae=False)
     ctx = inf.update_context_text(prompt, ctx)
     ctx = inf._ensure_capacity(ctx, 1)
     lm = inf.model.language_model
@@ -2029,6 +2613,7 @@ def run(tmp: str) -> None:
           "InterleaveInferencer(sp_mesh=...), full depth", flush=True)
     paths.append(run_sp_generation(inf, make_sp_mesh(tmp), plain_rows))
     paths.append(run_quantized_chat(inf, logits_bf16))
+    paths += run_serving_phase(inf)
     train_timings, train_paths = run_training(inf)
     timings.update(train_timings)
     paths += train_paths

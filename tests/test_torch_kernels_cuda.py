@@ -456,6 +456,8 @@ def test_flash_cache_block_skips_the_cache_gap(gen):
     _assert_close(got, want)
 
 
+SERVE_LENS = tuple([5141 + 3 * i for i in range(4)] + [1063 + 5 * i for i in range(4)]
+                   + [746 + 4 * i for i in range(8)])
 DECODE = [
     # (M, H, Hk, lens, base, col); the kernel's splits (ops.decode_attention.plan_splits)
     # are noted where the case is about them
@@ -468,6 +470,10 @@ DECODE = [
     (1024, 28, 4, tuple(776 + (i % 7) * 8 for i in range(48)),  # batched decode, 2 splits
      tuple(776 + (i % 7) * 8 for i in range(48)), tuple(776 + (i % 7) * 8 for i in range(48))),
     (40, 28, 4, (30, 3), (30, 20), (35, 19)),  # below one tile; stream 1 band empty
+    # batched serving: a pool of 16 over 6144 columns, 980 / 378x532 / 378 px streams near
+    # 5150 / 1070 / 750 columns, the aligned chunk's band at step 8, then (lens, lens)
+    (6144, 28, 4, SERVE_LENS, (max(SERVE_LENS),) * 16, (max(SERVE_LENS) + 7,) * 16),
+    (6144, 28, 4, SERVE_LENS, SERVE_LENS, SERVE_LENS),
 ]
 
 
@@ -580,7 +586,7 @@ def test_decode_attention_int8_reads_a_cache_layer(gen):
     assert (got[1] == 0).all()
 
 
-@pytest.mark.parametrize("R", [1, 3, 731])
+@pytest.mark.parametrize("R", [1, 3, 8, 16, 731])  # 8, 16: a serving pool's decode step
 @pytest.mark.parametrize("I", [18944, 64])
 def test_silu_mul_quant_matches_plain(gen, R, I):
     g, u = _randn(gen, R, I, scale=2.0), _randn(gen, R, I)
@@ -680,10 +686,11 @@ def test_w4a8_matmul_equals_plain(gen, shape):
 
 @pytest.mark.parametrize("group", [0, 512])
 @pytest.mark.parametrize("kn", W4_PROJECTIONS)
-@pytest.mark.parametrize("m", [5, 64, 65, 731, 4902])
+@pytest.mark.parametrize("m", [5, 8, 16, 64, 65, 731, 4902])
 def test_w4a8_gemm_equals_plain_at_the_projection_shapes(gen, m, kn, group):
-    """The int8-x GEMM (m > 4) at the prefill's shapes, per channel and with
-    groups of 512 in-rows: equal to the plain version bit for bit."""
+    """The int8-x GEMM (m > 4) at the prefill's shapes and a serving pool's
+    decode step (m 8, 16), per channel and with groups of 512 in-rows: equal
+    to the plain version bit for bit."""
     K, N = kn
     _, wp, ws = _w4_inputs(gen, m, K, N, K // group if group else 0)
     x = _int8(gen, m, K)

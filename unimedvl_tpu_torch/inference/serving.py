@@ -1,0 +1,820 @@
+"""Continuous batching for batched VQA and report serving, the text side
+(port of unimedvl_tpu/inference/serving.py; BASELINE config 3).
+
+A pool of S slots over one multi-stream ``KVCache`` on the model's device.
+Requests are admitted into free slots by grouped prefills into small
+P-stream blocks (``bagel.prefill_vit_group`` for images of one bucket, a
+[P, T] text prefill, an optional shared preamble seeded into the block), each
+stored into the pool with one indexed copy per array (:func:`group_store`).
+Decoding runs in chunks of up to K greedy steps between host reads: the
+aligned chunk (:func:`decode_chunk_aligned`: every stream writes step d at
+one column, then the band moves back to each stream's tail) or, near
+capacity, the scatter chunk (:func:`decode_chunk`: each stream writes at its
+own ``lens[s]``); both attend through K2, or K2-int8 over an int8 pool. A
+chunk ends early once every active slot has emitted eos; a slot that
+finishes mid-chunk wastes the chunk's remaining steps, and its row is reused,
+lens rewritten, at the next admission. With the pool ladder the pool shrinks
+to the rung that fits the live slots and the backlog (:func:`repack_pool`),
+and grows a rung ahead of admission.
+
+The port writes the pool in place where the JAX package donates it, and runs
+each chunk as a Python loop with one host check a step where the JAX package
+has a ``while_loop``. Greedy only. Not here: speculative chunks
+(``decode_chunk_spec``, ROADMAP queue 1 M9), text-to-image requests and the
+HTTP server (M10b), ``mesh=`` (M13), the int4 cache (M8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from unimedvl_tpu_torch.models import bagel
+from unimedvl_tpu_torch.models import qwen2_mot as mot
+from unimedvl_tpu_torch.models.bagel import Bagel
+from unimedvl_tpu_torch.models.qwen2_mot import KVCache
+
+
+def _arrays(cache: KVCache):
+    """The cache's value and scale arrays (the scales only when int8)."""
+    return [cache.k, cache.v] + ([cache.k_scale, cache.v_scale] if cache.quantized else [])
+
+
+def group_store(cache: KVCache, block: KVCache, slots: np.ndarray) -> KVCache:
+    """Store a P-stream block (capacity Tc, from column 0) into the pool's
+    rows ``slots``, in place: one indexed copy per array. ``slots[i] >= S``
+    marks a padding row of the group, left out on the host (the JAX
+    package's ``mode="drop"``). Returns the pool with the stored rows' lens."""
+    slots = np.asarray(slots)
+    keep = np.nonzero(slots < cache.k.shape[1])[0]
+    if len(keep) == 0:
+        return cache
+    dev = cache.k.device
+    rows = torch.from_numpy(slots[keep].astype(np.int64)).to(dev)
+    src = torch.from_numpy(keep.astype(np.int64)).to(dev)
+    Tc = block.capacity
+    for dst, blk in zip(_arrays(cache), _arrays(block)):
+        dst[:, rows, :, :Tc] = blk.index_select(1, src).to(dst.dtype)
+    lens = cache.lens.clone()
+    lens[rows] = block.lens.index_select(0, src).to(lens.dtype)
+    return dataclasses.replace(cache, lens=lens)
+
+
+def repack_pool(cache: KVCache, perm) -> KVCache:
+    """Gather slot rows into a new pool of ``len(perm)`` rows: new slot i
+    takes old slot ``perm[i]``; ``perm[i] < 0`` gives a fresh row (lens 0,
+    stale values, never attended). The ladder's move: once most requests
+    have finished, the live rows go to a prefix of a smaller pool, so a
+    chunk's per-slot work (cache reads, activation rows) follows the work
+    left; it grows back a rung ahead of admission."""
+    perm = torch.as_tensor(np.asarray(perm), dtype=torch.int64).to(cache.k.device)
+    src = perm.clamp_min(0)
+    lens = torch.where(perm >= 0, cache.lens.index_select(0, src), 0).to(cache.lens.dtype)
+
+    def take(t):
+        return None if t is None else t.index_select(1, src)
+
+    return KVCache(k=take(cache.k), v=take(cache.v), lens=lens, k_scale=take(cache.k_scale),
+                   v_scale=take(cache.v_scale))
+
+
+def seed_prefix_block(block: KVCache, prefix: KVCache, tp: int) -> KVCache:
+    """Copy a 1-stream prefix cache into the leading columns of every row of
+    a fresh admission block, in place (values, and scales for an int8
+    cache): the shared preamble, prefilled once, instead of once per request.
+    ``tp``: the preamble's valid length, which becomes every row's lens;
+    columns past it hold the prefix block's padding and are overwritten by
+    the suffix prefill before anything attends to them."""
+    Mp = prefix.capacity
+    for dst, src in zip(_arrays(block), _arrays(prefix)):
+        dst[:, :, :, :Mp] = src.to(dst.dtype)  # broadcast over the block's rows
+    lens = torch.full_like(block.lens, tp)
+    return dataclasses.replace(block, lens=lens)
+
+
+def _step_logits(model: Bagel, cache: KVCache, cur: torch.Tensor, pos: torch.Tensor, **kw):
+    """One decode step of every stream, ``kw`` the forward's options (from
+    :func:`_scatter_kw` or :func:`_aligned_kw`); (logits [S, V] fp32, cache)."""
+    lm = model.language_model
+    x = mot.embed_tokens(lm, cur)[:, None, :]
+    h, cache = lm.model(x, pos[:, None], cache, causal=True, **kw)
+    return mot.lm_head(lm, h[:, 0]), cache
+
+
+def _step(model: Bagel, cache: KVCache, cur: torch.Tensor, pos: torch.Tensor, **kw):
+    """One greedy decode step of every stream; (next tokens [S] int32, cache)."""
+    logits, cache = _step_logits(model, cache, cur, pos, **kw)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+def _scatter_kw(active: torch.Tensor):
+    """The forward's options of :func:`decode_chunk`'s step i: each stream
+    written at its own lens[s], only the active rows valid."""
+    q_valid = active.to(torch.bool)[:, None]
+    return lambda i: dict(q_valid=q_valid)
+
+
+def _aligned_kw(cache: KVCache, active: torch.Tensor):
+    """(base, the forward's options of :func:`decode_chunk_aligned`'s step
+    i): step i writes every stream at column base + i, base the largest lens
+    of an ACTIVE slot (a freed slot's stale lens must not push the band up)."""
+    base = torch.where(active.to(torch.bool), cache.lens, 0).max().to(torch.int32)
+    return base, lambda i: dict(decode_cols=(base, base + i))
+
+
+@torch.no_grad()
+def _chunk(model, cache, cur_tokens, positions, active, num_steps, eos, step_kw):
+    """The loop both chunk flavours share: up to ``num_steps`` greedy steps,
+    ``step_kw(i)`` the forward's options of step i. Returns (tokens [S, K]
+    zero-filled past the exit, last [S], positions [S], cache, steps run)."""
+    S = cur_tokens.shape[0]
+    dev = cur_tokens.device
+    buf = torch.zeros((S, num_steps), dtype=torch.int32, device=dev)
+    cur = cur_tokens.to(torch.int32)
+    pos = positions.to(torch.int64)
+    done = ~active  # inactive slots count as finished for the early exit
+    n = 0
+    while n < num_steps:
+        cur, cache = _step(model, cache, cur, pos, **step_kw(n))
+        pos = torch.where(active, pos + 1, pos)
+        buf[:, n] = cur
+        n += 1
+        if eos is not None:
+            done = done | (cur == eos)
+            if bool(done.all()):  # the one host read of a step
+                break
+    return buf, cur, pos.to(positions.dtype), cache, n
+
+
+def decode_chunk(
+    model: Bagel,
+    cache: KVCache,
+    cur_tokens: torch.Tensor,  # [S]
+    positions: torch.Tensor,  # [S]
+    active: torch.Tensor,  # [S] bool
+    num_steps: int,
+    eos: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, KVCache]:
+    """Up to ``num_steps`` greedy decode steps of every slot (serving.py:110).
+    Each step writes a stream's kv at its own ``lens[s]`` and attends to
+    [0, lens[s]] (K2 / K2-int8 with the band ``(lens, lens)``); only active
+    slots advance their lens and positions. With ``eos`` the chunk exits once
+    every active slot has emitted it. Returns (tokens [S, K], zero past the
+    exit, last [S], positions [S], cache)."""
+    active = active.to(torch.bool)
+    tokens, last, pos, cache, _ = _chunk(
+        model, cache, cur_tokens, positions, active, num_steps, eos, _scatter_kw(active))
+    return tokens, last, pos, cache
+
+
+def _compact_band(cache: KVCache, base: torch.Tensor, k: int, lens0: torch.Tensor,
+                  active: torch.Tensor, n_steps: int) -> KVCache:
+    """Move the aligned band [base, base + k) back to each active stream's
+    [lens0[s], lens0[s] + k), in place, and advance the active streams' lens
+    by ``n_steps``. The band is taken out first (the two overlap when
+    lens0[s] > base - k); an inactive stream writes its band onto itself.
+    Past lens0[s] + n_steps the window carries stale columns on an early
+    exit, which only happens once every active stream has finished. The
+    scales move like the values ([L, S, Hk, M], no column-major carry)."""
+    S = lens0.shape[0]
+    dev = lens0.device
+    steps = torch.arange(k, device=dev)
+    band_cols = base.to(torch.int64) + steps  # [k]
+    start = torch.where(active, lens0.to(torch.int64), base.to(torch.int64))
+    rows = torch.arange(S, device=dev)[:, None].expand(S, k)
+    cols = start[:, None] + steps  # [S, k]
+    for arr in _arrays(cache):
+        band = arr.index_select(3, band_cols)  # [L, S, Hk, k, ...], a copy
+        perm = (1, 3, 0, 2) + tuple(range(4, arr.dim()))
+        arr[:, rows, :, cols] = band.permute(*perm)
+    lens = torch.where(active, lens0 + n_steps, lens0).to(lens0.dtype)
+    return dataclasses.replace(cache, lens=lens)
+
+
+def decode_chunk_aligned(
+    model: Bagel,
+    cache: KVCache,
+    cur_tokens: torch.Tensor,  # [S]
+    positions: torch.Tensor,  # [S]
+    active: torch.Tensor,  # [S] bool
+    num_steps: int,
+    eos: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, KVCache]:
+    """:func:`decode_chunk` with the aligned-column write (serving.py:234):
+    step d writes every stream's kv at column base + d, base the largest
+    lens of an ACTIVE slot (a freed slot's stale lens must not push the band
+    up), and attends to [0, lens[s]) and the band [base, base + d] through
+    the ``decode_cols`` path (K2 / K2-int8); then :func:`_compact_band` moves
+    the band to each stream's tail, so the returned cache keeps the
+    contiguous contract and the two flavours interleave freely. Contract:
+    max(lens[active]) + num_steps <= capacity (the batcher falls back to
+    :func:`decode_chunk` near capacity). The softmax visits the columns in
+    another order than the scatter chunk's, so logits may differ in the last
+    place."""
+    active = active.to(torch.bool)
+    lens0 = cache.lens
+    base, step_kw = _aligned_kw(cache, active)
+    tokens, last, pos, cache, n = _chunk(
+        model, cache, cur_tokens, positions, active, num_steps, eos, step_kw)
+    return tokens, last, pos, _compact_band(cache, base, num_steps, lens0, active, n)
+
+
+@dataclasses.dataclass
+class _Slot:
+    request_id: Optional[int] = None
+    cur_token: int = 0
+    position: int = 0
+    remaining: int = 0
+    out_ids: List[int] = dataclasses.field(default_factory=list)
+    #: host mirror of the slot's cache lens (kv extent): the planned kv_len at
+    #: admission, plus the chunk length for every chunk the slot survives.
+    #: Gates the aligned chunk (max live kv_len + chunk <= capacity).
+    kv_len: int = 0
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: str
+    #: a PIL image (or anything ``data.imaging.pil_img2rgb`` takes)
+    image: Optional[object] = None
+    max_new_tokens: int = 128
+    #: a text-to-image request's (H, W); rejected here: unified serving is
+    #: ROADMAP queue 1 M10b
+    image_size: Optional[Tuple[int, int]] = None
+    #: the denoise's option overrides of such a request
+    gen_params: Optional[Dict] = None
+    #: shared-preamble reuse: an id from ContinuousBatcher.register_prefix.
+    #: Admission seeds the slot with the preamble's cache and prefills only
+    #: [encode(prompt) + eos] after it. Text-only requests.
+    prefix_id: Optional[int] = None
+
+
+class ContinuousBatcher:
+    def __init__(
+        self,
+        model: Bagel,
+        tokenizer,
+        new_token_ids: Dict[str, int],
+        num_slots: int = 8,
+        capacity: int = 4096,
+        chunk: int = 16,
+        vit_transform=None,
+        seed: int = 0,
+        *,
+        kv_quantized: bool = False,
+        kv_bits: int = 8,
+        pool_ladder: bool = False,
+        min_pool: int = 32,
+    ):
+        """The positional parameters come in the JAX batcher's order, with
+        ``model`` in the place of its ``params, cfg``; the rest are
+        keyword-only (the port has no ``mesh``, ``spec_*``, ``pipeline`` or
+        ``gen_*``, so a positional tail could not line up).
+
+        ``model``: a Bagel on its device, whose pool of ``num_slots`` x
+        ``capacity`` columns is allocated there; ``tokenizer`` /
+        ``new_token_ids``: as for the inferencer; ``chunk``: decode steps
+        between host reads; ``vit_transform``: a
+        ``data.imaging.ImageTransform`` for image requests; ``seed``: kept
+        for the JAX batcher's order (decoding is greedy and draws nothing).
+        ``kv_quantized``: an int8 pool with per-key scales (K2-int8);
+        ``kv_bits``: 8 (the int4 cache is not ported). ``pool_ladder``: the
+        drain-tail rightsizing over the rungs ``num_slots``, its halvings down
+        to ``min_pool``."""
+        self.model = model
+        self.cfg = model.config
+        self.tokenizer = tokenizer
+        self.new_token_ids = new_token_ids
+        self.num_slots = num_slots
+        self.chunk = chunk
+        #: images per grouped prefill, and per admission round while slots decode
+        self._img_group = 8
+        #: rows of a text admission block: fixed, padding rows left out by the store
+        self._txt_group = 32
+        self.vit_transform = vit_transform
+        self.seed = seed
+        norm = model.language_model.model.norm.weight
+        self.device, self.dtype = norm.device, norm.dtype
+        llm = self.cfg.llm
+        self.cache = KVCache.create(
+            llm.num_hidden_layers, num_slots, capacity, llm.num_key_value_heads,
+            llm.head_dim, self.dtype, device=self.device, quantized=kv_quantized,
+            kv_bits=kv_bits,
+        )
+        self.capacity = capacity
+        self.slots = [_Slot() for _ in range(num_slots)]
+        #: registered preambles: (1-stream cache block, valid length, ids)
+        self._prefixes: List[Tuple[KVCache, int, List[int]]] = []
+        self.pool_ladder = pool_ladder
+        #: the pool's current size (the slot axis of self.cache); only slots
+        #: [0, pool) are admissible. Without the ladder it stays num_slots.
+        self.pool = num_slots
+        rungs = {num_slots}
+        if pool_ladder:
+            r = num_slots
+            while r // 2 >= max(1, min_pool):
+                r //= 2
+                rungs.add(r)
+        self._rungs = sorted(rungs)
+        self._next_id = 0
+        self._pending: List[Tuple[int, Request]] = []
+        self._done: Dict[int, str] = {}
+        #: per-request failures (rejections, prefill errors, cancellations):
+        #: a failed request never stops the batch
+        self.errors: Dict[int, str] = {}
+        #: run()'s breakdown in seconds and counts, reset per run (the JAX
+        #: batcher's keys; gen_s and gen_images stay 0 on the text side)
+        self.stats: Dict[str, float] = {}
+
+    # -- pool ladder ----------------------------------------------------------
+    def _rung(self, want: int) -> int:
+        """Smallest ladder rung that fits ``want`` live slots (num_slots cap)."""
+        for r in self._rungs:
+            if r >= want:
+                return r
+        return self.num_slots
+
+    def _repack(self, target: int) -> None:
+        """Compact the live slots to a prefix of a pool of ``target`` rows
+        (:func:`repack_pool`); each slot's host state moves with its row."""
+        t0 = time.perf_counter()
+        actives = [i for i in range(self.pool) if self.slots[i].request_id is not None]
+        assert len(actives) <= target, (len(actives), target)
+        perm = np.full((target,), -1, np.int64)
+        perm[: len(actives)] = actives
+        self.cache = repack_pool(self.cache, perm)
+        new_slots = [self.slots[i] for i in actives]
+        new_slots += [_Slot() for _ in range(self.num_slots - len(new_slots))]
+        self.slots = new_slots
+        self.pool = target
+        self._fence()
+        if self.stats:
+            self.stats["repacks"] = self.stats.get("repacks", 0) + 1
+            self.stats["repack_s"] = (
+                self.stats.get("repack_s", 0.0) + time.perf_counter() - t0)
+
+    # -- requests -------------------------------------------------------------
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _start_end(self) -> torch.Tensor:
+        ids = self.new_token_ids
+        return torch.tensor([ids["start_of_image"], ids["end_of_image"]], device=self.device)
+
+    def register_prefix(self, text: str) -> int:
+        """Prefill a shared preamble (system prompt, report template) once;
+        requests carrying the returned id (``Request(prefix_id=...)``) prefill
+        only their own suffix after it, the preamble's cache copied into their
+        admission block (:func:`seed_prefix_block`). A prefixed request decodes
+        over ``[bos] + encode(text) + encode(prompt) + [eos]``: end the
+        preamble where the tokenizer splits anyway if the result must equal an
+        unsplit prompt's."""
+        ids = [self.new_token_ids["bos_token_id"]] + self.tokenizer.encode(text)
+        Tp = len(ids)
+        Tp_pad = max(32, ((Tp + 31) // 32) * 32)
+        llm = self.cfg.llm
+        dtype, quantized = self._block_dtype_quant()
+        pad_ids = np.zeros((1, Tp_pad), np.int64)
+        pad_ids[0, :Tp] = ids
+        pos = np.arange(Tp_pad, dtype=np.int64)[None]
+        valid = np.zeros((1, Tp_pad), bool)
+        valid[0, :Tp] = True
+        block = KVCache.create(
+            llm.num_hidden_layers, 1, Tp_pad, llm.num_key_value_heads, llm.head_dim,
+            dtype, device=self.device, quantized=quantized)
+        block = bagel.prefill_text(self.model, block, self._tensor(pad_ids),
+                                   self._tensor(pos), self._tensor(valid))
+        self._prefixes.append((block, Tp, ids))
+        return len(self._prefixes) - 1
+
+    def submit(self, request: Request) -> int:
+        rid = self._next_id
+        self._next_id += 1
+        if request.image_size is not None:
+            self.errors[rid] = (
+                "text-to-image requests are not served by the port's batcher yet (unified "
+                "serving is ROADMAP queue 1 M10b); rejected before any device work"
+            )
+        else:
+            self._pending.append((rid, request))
+        return rid
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a submitted request: a pending one is dropped before any
+        device work; an in-flight one frees its slot at the next chunk
+        boundary (what its current chunk produced is discarded). The rid
+        lands in ``errors``. False if the request already finished."""
+        for i, (r, _req) in enumerate(self._pending):
+            if r == rid:
+                del self._pending[i]
+                self.errors[rid] = "cancelled before start"
+                return True
+        for slot in self.slots:
+            if slot.request_id == rid:
+                slot.request_id = None  # the row's lens are rewritten on reuse
+                self.errors[rid] = "cancelled mid-decode"
+                return True
+        return False
+
+    # -- admission -------------------------------------------------------------
+    def _plan_request(self, request: Request):
+        """Host-side shape math before any device work: token ids, image
+        geometry, and the largest cache extent the request will touch (the
+        image bucket's write, the padded text write, the decode appends)."""
+        from unimedvl_tpu_torch.data import imaging  # imports PIL
+
+        pfx_len = 0
+        pfx_pad = 0
+        if request.prefix_id is not None:
+            if request.image is not None or request.image_size is not None:
+                raise ValueError("prefix_id supports text-only requests")
+            pfx_block, pfx_len, _pids = self._prefixes[request.prefix_id]
+            pfx_pad = pfx_block.capacity
+            ids = (self.tokenizer.encode(request.prompt)
+                   + [self.new_token_ids["eos_token_id"]])
+        else:
+            ids = ([self.new_token_ids["bos_token_id"]]
+                   + self.tokenizer.encode(request.prompt)
+                   + [self.new_token_ids["eos_token_id"]])
+        T = len(ids)
+        T_pad = max(32, ((T + 31) // 32) * 32)
+        img_meta = None
+        kv_img = 0
+        extent = pfx_pad + T_pad if pfx_len else 0
+        if request.image is not None:
+            img = imaging.pil_img2rgb(request.image)
+            rt = self.vit_transform.resize_transform
+            w0, h0 = img.size
+            new_w, new_h = imaging.compute_resize_shape(
+                w0, h0, rt.max_size, rt.min_size, rt.stride, rt.max_pixels)
+            p = self.cfg.vit.patch_size
+            n = (new_h // p) * (new_w // p)
+            bucket = bagel.vit_token_bucket(n)
+            img_meta = (img, n, bucket)
+            kv_img = n + 2
+            extent = max(extent, bucket + 2)
+        kv_len = kv_img + pfx_len + T
+        extent = max(extent, kv_img + T_pad, kv_len + request.max_new_tokens + 1)
+        return ids, T_pad, img_meta, kv_len, extent
+
+    def _image_host_prep(self, img_meta):
+        """Resize, patchify and position ids of one image: (patch tokens
+        [1, bucket, p*p*3] on the device, position ids [bucket] numpy, n,
+        bucket)."""
+        from unimedvl_tpu_torch.data import imaging  # imports PIL
+
+        img, n, bucket = img_meta
+        u8 = np.array(self.vit_transform.resize_transform(img), dtype=np.uint8)
+        H, W = u8.shape[:2]
+        p = self.cfg.vit.patch_size
+        pos_ids = imaging.position_ids_extrapolate(H, W, p, self.cfg.vit_max_num_patch_per_side)
+        tokens = bagel.preprocess_vit_image(self.cfg, torch.from_numpy(u8).to(self.device))
+        tokens = F.pad(tokens, (0, 0, 0, bucket - n))
+        padded_pos = np.zeros(bucket, dtype=np.int64)
+        padded_pos[:n] = pos_ids
+        return tokens, padded_pos, n, bucket
+
+    def _block_dtype_quant(self):
+        """(dtype, int8) of an admission block: the pool's kind."""
+        return self.dtype, self.cache.quantized
+
+    def _vit_group(self, preps, capacity: Optional[int] = None) -> KVCache:
+        """The grouped ViT prefill of same-bucket images (one row each, no
+        padding rows: the port compiles nothing per shape)."""
+        P, bucket = len(preps), preps[0][3]
+        toks = torch.cat([prep[0] for prep in preps], dim=0)
+        pos = np.zeros((P, bucket), np.int64)
+        ns = np.zeros((P,), np.int64)
+        for j, (_tok, ppos, n, _b) in enumerate(preps):
+            pos[j] = ppos
+            ns[j] = n
+        dtype, quantized = self._block_dtype_quant()
+        return bagel.prefill_vit_group(
+            self.model, toks, self._tensor(pos), self._tensor(ns), self._start_end(),
+            torch.zeros((P,), dtype=torch.int64, device=self.device),
+            kv_dtype=dtype, quantized=quantized, capacity=capacity)
+
+    def _prefill_image_group(self, group) -> None:
+        """The legacy pool path's image step: the grouped ViT prefill into a
+        block of the bucket's size, stored into the pool. group: [(slot_idx,
+        rid, prep)]."""
+        block = self._vit_group([prep for _i, _r, prep in group])
+        slots = np.asarray([i for i, _r, _p in group], np.int64)
+        self.cache = group_store(self.cache, block, slots)
+
+    def _admit_image_text_block(self, members) -> None:
+        """Image and text prefill of a same-bucket group in one compact block:
+        the grouped ViT prefill with room for the text (capacity bucket + 2 +
+        T_max), one [P, T_max] text append into the block, one store into the
+        pool. members: [(slot_idx, rid, prep, admit)]."""
+        bucket = members[0][2][3]
+        T_max = max(a[4] for *_x, a in members)
+        P = len(members)
+        slots = np.zeros((P,), np.int64)
+        batch_ids = np.zeros((P, T_max), np.int64)
+        batch_pos = np.zeros((P, T_max), np.int64)
+        batch_valid = np.zeros((P, T_max), bool)
+        for j, (slot_idx, _rid, _prep, admit) in enumerate(members):
+            ids = admit[3]
+            T = len(ids)
+            slots[j] = slot_idx
+            batch_ids[j, :T] = ids
+            batch_pos[j, :T] = np.arange(1, 1 + T)  # rope 1 after the image
+            batch_valid[j, :T] = True
+        block = self._vit_group([m[2] for m in members], capacity=bucket + 2 + T_max)
+        block = bagel.prefill_text(self.model, block, self._tensor(batch_ids),
+                                   self._tensor(batch_pos), self._tensor(batch_valid))
+        self.cache = group_store(self.cache, block, slots)
+
+    def _admit_text_block(self, group, prefix_id: Optional[int] = None) -> None:
+        """Text-only admission in a compact [P, T_max] block: one prefill,
+        one store into the pool. P is fixed at ``_txt_group`` (the store leaves
+        the padding rows out). With ``prefix_id`` the block grows to
+        [P, Tp_pad + T_max], its leading columns seeded with the preamble's
+        cache, and only the suffixes are prefilled, at positions Tp on.
+        group: [admit]."""
+        T_max = max(a[4] for a in group)
+        P = max(self._txt_group, len(group))
+        pos0 = 0
+        M_blk = T_max
+        if prefix_id is not None:
+            pfx_block, pos0, _pids = self._prefixes[prefix_id]
+            M_blk = pfx_block.capacity + T_max
+        batch_ids = np.zeros((P, T_max), np.int64)
+        batch_pos = np.zeros((P, T_max), np.int64)
+        batch_valid = np.zeros((P, T_max), bool)
+        slots = np.full((P,), self.num_slots, np.int64)
+        for j, (i, _rid, _req, ids, _T_pad, _img, _kv_len) in enumerate(group):
+            T = len(ids)
+            batch_ids[j, :T] = ids
+            batch_pos[j, :T] = np.arange(pos0, pos0 + T)
+            batch_valid[j, :T] = True
+            slots[j] = i
+        dtype, quantized = self._block_dtype_quant()
+        llm = self.cfg.llm
+        block = KVCache.create(
+            llm.num_hidden_layers, P, M_blk, llm.num_key_value_heads, llm.head_dim, dtype,
+            device=self.device, quantized=quantized)
+        if prefix_id is not None:
+            block = seed_prefix_block(block, pfx_block, pos0)
+        block = bagel.prefill_text(self.model, block, self._tensor(batch_ids),
+                                   self._tensor(batch_pos), self._tensor(batch_valid))
+        self.cache = group_store(self.cache, block, slots)
+
+    def _prefill_text_group(self, group, T_max: int) -> None:
+        """The legacy pool path's text step: a [pool, T_max] prefill over the
+        whole pool, the members' rows valid and appended after their image."""
+        S = self.pool
+        batch_ids = np.zeros((S, T_max), np.int64)
+        batch_pos = np.zeros((S, T_max), np.int64)
+        batch_valid = np.zeros((S, T_max), bool)
+        for i, _rid, _req, ids, _T_pad, img_meta, _kv_len in group:
+            T = len(ids)
+            rope0 = 1 if img_meta is not None else 0
+            batch_ids[i, :T] = ids
+            batch_pos[i, :T] = np.arange(rope0, rope0 + T)
+            batch_valid[i, :T] = True
+        self.cache = bagel.prefill_text(self.model, self.cache, self._tensor(batch_ids),
+                                        self._tensor(batch_pos), self._tensor(batch_valid))
+
+    def _admit(self, throttle: bool = False):
+        """Admit pending requests into free slots, in FIFO order.
+
+        A request that cannot fit the capacity is rejected into ``errors``
+        before any prefill, and the batch runs on. Images of one bucket are
+        prefilled as a group, each with its text in the same compact block;
+        text-only requests as blocks of ``_txt_group`` rows, one block per
+        registered preamble. An image whose block (bucket + 2 + T_pad) would
+        exceed the capacity although the request fits takes the legacy pool
+        path: its image block is stored first, then its text is appended over
+        the whole pool, in groups whose shared padded length fits every
+        member (a member whose window overflows would lose its whole text).
+
+        ``throttle`` caps the round's admission while other slots decode: one
+        image group, a full text block. Reaching the image cap stops the
+        round, so later text does not overtake an earlier image request."""
+        admits = []  # (slot_idx, rid, req, ids, T_pad, img_meta, kv_len)
+        max_admits = self._txt_group if throttle else self.num_slots
+        max_img = self._img_group if throttle else self.num_slots
+        n_img = 0
+        stop = False
+        for i, slot in enumerate(self.slots[: self.pool]):
+            if slot.request_id is not None:
+                continue
+            if stop or len(admits) >= max_admits:
+                break
+            while self._pending:
+                rid, req = self._pending.pop(0)
+                try:
+                    ids, T_pad, img_meta, kv_len, extent = self._plan_request(req)
+                except Exception as e:  # a bad image, prefix id or tokenizer input
+                    self.errors[rid] = f"prefill planning failed: {e}"
+                    continue
+                if extent > self.capacity:
+                    self.errors[rid] = (
+                        f"request needs cache extent {extent} > capacity "
+                        f"{self.capacity} (rejected before prefill)"
+                    )
+                    continue
+                if img_meta is not None:
+                    if n_img >= max_img:  # image budget spent: requeue, stop
+                        self._pending.insert(0, (rid, req))
+                        stop = True
+                        break
+                    n_img += 1
+                admits.append((i, rid, req, ids, T_pad, img_meta, kv_len))
+                break
+        if not admits:
+            return
+
+        img_groups: Dict[int, list] = {}  # bucket -> [(i, rid, prep, admit)]
+        txt_groups: Dict[Optional[int], list] = {}  # prefix_id -> [admit]
+        legacy: list = []  # [(i, rid, prep, admit)]
+        ok_admits = []
+        for admit in admits:
+            i, rid, req, ids, T_pad, img_meta, kv_len = admit
+            if img_meta is not None:
+                try:
+                    prep = self._image_host_prep(img_meta)
+                except Exception as e:
+                    self.errors[rid] = f"image prefill failed: {e}"
+                    continue
+                bucket = prep[3]
+                if bucket + 2 + T_pad <= self.capacity:
+                    img_groups.setdefault(bucket, []).append((i, rid, prep, admit))
+                else:
+                    legacy.append((i, rid, prep, admit))
+            else:
+                txt_groups.setdefault(req.prefix_id, []).append(admit)
+            ok_admits.append(admit)
+        for bucket, members in sorted(img_groups.items()):
+            for lo in range(0, len(members), self._img_group):
+                self._admit_image_text_block(members[lo: lo + self._img_group])
+        for pid in sorted(txt_groups, key=lambda k: (k is not None, k or 0)):
+            grp = txt_groups[pid]
+            for lo in range(0, len(grp), self._txt_group):
+                self._admit_text_block(grp[lo: lo + self._txt_group], prefix_id=pid)
+        if legacy:
+            for lo in range(0, len(legacy), self._img_group):
+                self._prefill_image_group(
+                    [(i, rid, prep) for i, rid, prep, _a in legacy[lo: lo + self._img_group]])
+            # the text after each image, grouped so that every member's window
+            # [kv_img, kv_img + T_max) fits (the longest always fits its own group)
+            remaining = [a for _i, _r, _p, a in legacy]
+            while remaining:
+                T_max = max(a[4] for a in remaining)
+                fit = [a for a in remaining if (a[6] - len(a[3])) + T_max <= self.capacity]
+                remaining = [a for a in remaining
+                             if (a[6] - len(a[3])) + T_max > self.capacity]
+                self._prefill_text_group(fit, T_max)
+
+        for i, rid, req, ids, T_pad, img_meta, kv_len in ok_admits:
+            slot = self.slots[i]
+            rope0 = 1 if img_meta is not None else 0
+            if req.prefix_id is not None:  # the suffix's rope continues at Tp
+                rope0 = self._prefixes[req.prefix_id][1]
+            slot.request_id = rid
+            slot.cur_token = self.new_token_ids["bos_token_id"]
+            slot.kv_len = kv_len
+            slot.position = rope0 + len(ids)
+            # max_new_tokens counts the start token, as the reference's max_length does
+            slot.remaining = req.max_new_tokens - 1
+            slot.out_ids = [slot.cur_token]
+
+    # -- results ----------------------------------------------------------------
+    def _text(self, ids: List[int]) -> str:
+        text = self.tokenizer.decode(ids)
+        text = text.split("<|im_end|>")[0]
+        if "<|im_start|>" in text:
+            text = text.split("<|im_start|>")[1]
+        return text
+
+    def _finish(self, slot: _Slot):
+        self._done[slot.request_id] = self._text(slot.out_ids)
+        slot.request_id = None
+
+    def partials(self) -> Dict[int, str]:
+        """In-flight outputs: rid -> the text decoded so far, the last token
+        held back (it may begin a multi-token byte sequence). Host only."""
+        return {slot.request_id: self._text(slot.out_ids[:-1]) for slot in self.slots
+                if slot.request_id is not None and len(slot.out_ids) > 2}
+
+    def has_work(self) -> bool:
+        """True while any submitted request is unfinished."""
+        return bool(self._pending or any(s.request_id is not None for s in self.slots))
+
+    def _reset_stats(self) -> Dict[str, float]:
+        self.stats = {
+            "rounds": 0, "admit_s": 0.0, "decode_s": 0.0, "host_s": 0.0,
+            "gen_s": 0.0, "admitted": 0, "emitted_tokens": 0, "gen_images": 0,
+            "repacks": 0, "repack_s": 0.0, "round_s": 0.0,
+        }
+        return self.stats
+
+    # -- the engine ---------------------------------------------------------------
+    def run(self) -> Dict[int, str]:
+        """Serve every submitted request to the end; rid -> answer."""
+        st = self._reset_stats()
+        eos = self.new_token_ids["eos_token_id"]
+        while self.has_work():
+            self._round(st, eos)
+        return dict(self._done)
+
+    def _round(self, st: Dict[str, float], eos: int) -> None:
+        """One round: throttled admission, one decode chunk and its host
+        bookkeeping. ``round_s`` adds up the whole round, so what it holds
+        beyond admit_s + decode_s + host_s + repack_s is unattributed."""
+        t_round = time.perf_counter()
+        try:
+            self._round_inner(st, eos)
+        finally:
+            st["round_s"] = st.get("round_s", 0.0) + time.perf_counter() - t_round
+
+    def _fence(self) -> None:
+        """With UNIMEDVL_SERVING_PROFILE set, wait for the device at the end
+        of a repack and of admission, so that ``repack_s`` and ``admit_s``
+        hold their device work (``decode_s`` ends on its host read anyway);
+        unset, those two hold host time and their queued device work lands
+        in ``decode_s``."""
+        if os.environ.get("UNIMEDVL_SERVING_PROFILE") and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _round_inner(self, st: Dict[str, float], eos: int) -> None:
+        st["rounds"] += 1
+        # throttle admission while other slots decode, so that a burst of
+        # prefills does not stall them for long
+        running = any(s.request_id is not None for s in self.slots)
+        if self.pool_ladder and self._pending:
+            # grow a rung ahead of admission, for the backlog
+            n_active = sum(s.request_id is not None for s in self.slots)
+            target = self._rung(n_active + len(self._pending))
+            if target > self.pool:
+                self._repack(target)
+        t0 = time.perf_counter()
+        n_before = sum(s.request_id is not None for s in self.slots)
+        self._admit(throttle=running)
+        st["admitted"] += sum(s.request_id is not None for s in self.slots) - n_before
+        self._fence()
+        st["admit_s"] += time.perf_counter() - t0
+        if not any(s.request_id is not None for s in self.slots):
+            return
+        t0 = time.perf_counter()
+        pool_slots = self.slots[: self.pool]
+        active = np.asarray([s.request_id is not None for s in pool_slots])
+        cur = np.asarray([s.cur_token if s.request_id is not None else 0 for s in pool_slots],
+                         np.int32)
+        pos = np.asarray([s.position for s in pool_slots], np.int64)
+        k = self.chunk
+        # the aligned chunk while its band fits above every live stream (the
+        # largest live kv extent + chunk <= capacity), else the scatter chunk.
+        # kv_len mirrors the device lens: a chunk advances every active slot
+        # by the steps it ran, and a surviving slot always ran all of them
+        # (an early exit needs every active slot finished).
+        base_est = max((s.kv_len for s in self.slots if s.request_id is not None), default=0)
+        chunk_fn = decode_chunk_aligned if base_est + k <= self.capacity else decode_chunk
+        tokens, _last, _pos, self.cache = chunk_fn(
+            self.model, self.cache, self._tensor(cur), self._tensor(pos),
+            self._tensor(active), k, eos=eos)
+        tokens = tokens.cpu().numpy()  # [S, k]: the round's host read
+        st["decode_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i, slot in enumerate(pool_slots):
+            if slot.request_id is None:
+                continue
+            slot.kv_len += k
+            seq = tokens[i]
+            # max_new_tokens 1 is the start token alone: the budget is spent
+            # before any of the chunk's tokens
+            finished = slot.remaining <= 0
+            used = 0
+            for t in seq:
+                if finished:
+                    break
+                used += 1
+                if int(t) == eos:
+                    finished = True
+                    break
+                slot.out_ids.append(int(t))
+                slot.remaining -= 1
+                if slot.remaining <= 0:
+                    finished = True
+                    break
+            slot.position = int(pos[i]) + used
+            slot.cur_token = int(seq[used - 1])
+            st["emitted_tokens"] += used
+            if finished:
+                self._finish(slot)
+        st["host_s"] += time.perf_counter() - t0
+        if self.pool_ladder:
+            # drain-tail shrink: the next chunk runs at the rung that fits the
+            # live slots and the backlog
+            n_active = sum(s.request_id is not None for s in self.slots)
+            target = self._rung(max(1, n_active + len(self._pending)))
+            if target < self.pool:
+                self._repack(target)

@@ -227,6 +227,53 @@ def prefill_vit_bucketed(
 
 
 @torch.no_grad()
+def prefill_vit_group(
+    model: Bagel,
+    patch_tokens: torch.Tensor,  # [P, Tb, p*p*3] padded to one shared bucket
+    vit_pos_ids: torch.Tensor,  # [P, Tb]
+    n_tokens: torch.Tensor,  # [P] int actual patch counts; 0 = inactive row
+    start_end_ids: torch.Tensor,  # [2] (<vision_start>, <vision_end>)
+    rope_pos: torch.Tensor,  # [P]
+    kv_dtype: torch.dtype = torch.bfloat16,
+    quantized: bool = False,
+    capacity: Optional[int] = None,
+    kv_bits: int = 8,
+) -> KVCache:
+    """P images of one bucket in one pass (bagel.py:196-249): the ViT over
+    [P, Tb], the connector and the position add, then an und-mode
+    non-causal forward into a fresh P-stream cache block of ``capacity``
+    columns (default Tb + 2; more leaves room for the requests' text, which
+    serving appends into the same block). Row i holds [<vision_start>,
+    tokens..., <vision_end>] with lens n_i + 2, or lens 0 for an inactive
+    row; the caller stores the block into its slot pool
+    (``inference.serving.group_store``)."""
+    lm = model.language_model
+    P, Tb = patch_tokens.shape[:2]
+    T = Tb + 2
+    device = patch_tokens.device
+    n = n_tokens.to(device=device, dtype=torch.int64)
+    active = n > 0
+    vit_valid = (torch.arange(Tb, device=device)[None] < n[:, None]) & active[:, None]
+    vit_embed = encode_vit_tokens(model, patch_tokens, vit_pos_ids, vit_valid)
+    se = mot.embed_tokens(lm, start_end_ids).to(vit_embed.dtype)
+    # rows: 0 = start, 1..Tb = vit (garbage past n_i, masked), n_i + 1 = end
+    x = F.pad(vit_embed, (0, 0, 1, 1))
+    x[:, 0] = se[0]
+    is_end = torch.arange(T, device=device)[None, :, None] == (n[:, None, None] + 1)
+    x = torch.where(is_end, se[1], x)
+    q_valid = (torch.arange(T, device=device)[None] < n[:, None] + 2) & active[:, None]
+    llm = model.config.llm
+    cache = KVCache.create(
+        llm.num_hidden_layers, P, T if capacity is None else capacity,
+        llm.num_key_value_heads, llm.head_dim, kv_dtype, device=device,
+        quantized=quantized, kv_bits=kv_bits,
+    )
+    positions = rope_pos.to(device=device, dtype=torch.int64)[:, None]
+    _, cache = lm.model(x, positions, cache, causal=False, q_valid=q_valid)
+    return cache
+
+
+@torch.no_grad()
 def generate_text(
     model: Bagel,
     cache: KVCache,

@@ -17,11 +17,14 @@ mode (VAE image blocks and denoise steps, packing contract
 rows, 0 and ``gen_end_row`` (T - 1 unless given).
 
 Attention: und blocks (text, ViT images) go through K1a
-(ops/flash_attention.py), decode steps through K2 (ops/decode_attention.py),
-gen blocks through K1b, which norms and rotates the raw q inside the kernel;
-the k side gets the same fp32 island outside it, since its result is what
-the cache holds. With ``update_cache=False`` (the denoise steps) a gen block
-attends to ``concat(cache slice, block kv)`` and the cache is left untouched.
+(ops/flash_attention.py), decode steps through K2 (ops/decode_attention.py):
+the aligned-column step (``decode_cols``) and serving's per-stream step (one
+causal und token per stream, written at its own ``lens[s]``, band
+``(lens, lens)``); gen blocks through K1b, which norms and rotates the raw q
+inside the kernel; the k side gets the same fp32 island outside it, since its
+result is what the cache holds. With ``update_cache=False`` (the denoise
+steps) a gen block attends to ``concat(cache slice, block kv)`` and the cache
+is left untouched.
 
 Quantized serving modes (unimedvl_tpu_torch/quant.py). A projection may be a
 ``QuantLinear`` (int8 or packed-int4 weights) and q/k/v and gate/up may be
@@ -34,7 +37,10 @@ int8 (``KVCache.create(quantized=True)``): k, v int8 with fp32 per-key scales
 ``k_scale``, ``v_scale`` [L, S, Hk, M], one layout for every path. A write
 quantizes the block and stores its scales at the same columns, in place;
 decode steps go through K2-int8 with the layer's scales; prefill and denoise
-blocks dequantize the layer's slice once and take K1a / K1b.
+blocks dequantize the layer's slice once and take K1a / K1b. A multi-stream
+write whose window runs past capacity is dropped for that stream, as the JAX
+package's scatter drops it (serving's finished streams run on to the end of
+their chunk).
 
 Training (``forward_train``): one packed flat sequence [T, C] with no cache.
 Each token belongs to one expert by index (``und_idx``, ``gen_idx``); every
@@ -174,18 +180,31 @@ def dequant_slice(vals: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -
 
 
 def _write_kv(cache_l: torch.Tensor, block: torch.Tensor, cols: torch.Tensor,
-              scale_l: Optional[torch.Tensor] = None) -> None:
+              scale_l: Optional[torch.Tensor] = None, drop_overflow: bool = False) -> None:
     """cache_l [S, Hk, M, D] <- block [S, T, Hk, D] at columns cols [S, T], in
     place. With ``scale_l`` [S, Hk, M] (an int8 cache) the block is quantized
-    per (token, head) and its scales land at the same columns."""
+    per (token, head) and its scales land at the same columns.
+
+    ``drop_overflow``: a row whose window (ascending columns) runs past M is
+    dropped whole and its cache row stays as it was, as the JAX package's
+    multi-stream scatter drops it: the row's columns are clamped and rewritten
+    with what they held, so no host sync decides which rows write."""
     S, T = cols.shape
     rows = torch.arange(S, device=cols.device)[:, None].expand(S, T)
     if scale_l is None:
-        cache_l[rows, :, cols] = block.to(cache_l.dtype)
-        return
-    q, scale = _quantize_kv_block(block)
-    cache_l[rows, :, cols] = q
-    scale_l[rows, :, cols] = scale
+        vals = [(cache_l, block.to(cache_l.dtype))]
+    else:
+        q, scale = _quantize_kv_block(block)
+        vals = [(cache_l, q), (scale_l, scale)]
+    if drop_overflow:
+        M = cache_l.shape[2]
+        fits = cols[:, -1:] < M  # [S, 1]
+        cols = cols.clamp_max(M - 1)
+        vals = [(dst, torch.where(fits.view(S, 1, *(1,) * (src.dim() - 2)), src,
+                                  dst[rows, :, cols]))
+                for dst, src in vals]
+    for dst, src in vals:
+        dst[rows, :, cols] = src
 
 
 def _mot_rows(x, und_fn, gen_fn, gen: bool, end_row: Optional[int]) -> torch.Tensor:
@@ -283,15 +302,21 @@ class Qwen2MoTAttention(nn.Module):
                                  k_scale=k_scale, v_scale=v_scale)
         elif update_cache:
             cols = lens[:, None] + torch.arange(T, device=x.device)
-            _write_kv(k_cache, k, cols, k_scale)
-            _write_kv(v_cache, v, cols, v_scale)
-            if k_scale is not None:
-                k_cache = dequant_slice(k_cache, k_scale, x.dtype)
-                v_cache = dequant_slice(v_cache, v_scale, x.dtype)
-            o = flash_block_attention(
-                q, k_cache, v_cache, lens, lens, causal,
-                q_valid_len=q_valid_len, kv_head_major=True, q_preproc=q_preproc,
-            )
+            _write_kv(k_cache, k, cols, k_scale, drop_overflow=S > 1)
+            _write_kv(v_cache, v, cols, v_scale, drop_overflow=S > 1)
+            if T == 1 and causal and not gen:
+                # serving's decode step: each stream attends to [0, lens[s]],
+                # the band (lens, lens), through K2 or K2-int8
+                o = decode_attention(q, k_cache, v_cache, lens, (lens, lens),
+                                     k_scale=k_scale, v_scale=v_scale)
+            else:
+                if k_scale is not None:
+                    k_cache = dequant_slice(k_cache, k_scale, x.dtype)
+                    v_cache = dequant_slice(v_cache, v_scale, x.dtype)
+                o = flash_block_attention(
+                    q, k_cache, v_cache, lens, lens, causal,
+                    q_valid_len=q_valid_len, kv_head_major=True, q_preproc=q_preproc,
+                )
         else:
             if k_scale is not None:
                 k_cache = dequant_slice(k_cache, k_scale, x.dtype)
