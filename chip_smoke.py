@@ -20,7 +20,15 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   C); each run's first-step logits (images admitted in groups of one
   bucket, text, text after the preamble) held to chat's, and its answers to
   chat's up to near-ties; A's and B's pools also near capacity, where the
-  batcher falls back to the scatter chunk;
+  batcher falls back to the scatter chunk; run D, B's workload decoded
+  speculatively (``spec_decode=True``, 7 drafts a verify forward, no ladder);
+- the speculative decode path: ``InterleaveInferencer(spec_decode=True)``
+  answering the three chat requests, the 378x378 request at 128 tokens
+  plainly and speculatively (the lookup over a junk history and over the
+  plain answer planted; junk drafts, the floor, and the plain answer as
+  drafts, the ceiling), planted and oracle again in w4a8 (K4's int8 GEMM and
+  K3 at m 8), two ``chat_turn``s and a ``gen_text_stream``; every answer gated
+  against chat's up to near-ties; K1a at the verify block's shapes (T 8);
 - the training path: LoRA steps (rank 16, every projection of both experts)
   over the frozen 28-layer model, on packed batches of synthetic VQA,
   text-to-image and editing examples (980 px and 378 px understanding
@@ -54,6 +62,7 @@ from __future__ import annotations
 import copy
 import datetime
 import gc
+import hashlib
 import itertools
 import json
 import os
@@ -62,6 +71,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -361,6 +371,8 @@ def check_kernels() -> dict:
     timings["w4_matmul"] = check_w4_matmul(g, randn)
     for name, rows in check_serving_shapes(g, randn, ints).items():
         timings[name]["serving_cases"] = rows
+    print("K1a at the speculative verify shapes:", flush=True)
+    timings["flash_block_attention"]["spec_cases"] = check_spec_k1a(randn, ints)
     return timings
 
 
@@ -1357,11 +1369,12 @@ def logits_workload(run: str):
 
 class ForwardCounter:
     """Forwards of the LLM split into decode steps (one row per stream) and
-    prefills, and forwards of the ViT: the launches a serving run must show
+    prefills (the speculative verify forwards among them, counted also in
+    ``verify``), and forwards of the ViT: the launches a run must show
     follow from them."""
 
     def __init__(self, model):
-        self.decode = self.prefill = self.vit = 0
+        self.decode = self.prefill = self.vit = self.verify = 0
         self.vit_rows = []  # the images of each ViT forward
         lm = model.language_model.model
         self.hooks = [
@@ -1372,8 +1385,9 @@ class ForwardCounter:
     def _llm(self, module, args):
         if args[0].shape[1] == 1:
             self.decode += 1
-        else:
+        else:  # a prefill block has 18 rows or more, a verify block SPEC_K + 1
             self.prefill += 1
+            self.verify += args[0].shape[1] == SPEC_K + 1
 
     def _vit(self, module, args):
         self.vit += 1
@@ -1391,11 +1405,12 @@ NEAR_TIE_FACTOR = 2.0
 SERVE_TIGHT = 96  # the near-capacity run's pool capacity (columns)
 
 
-def _chat_steps(inf: InterleaveInferencer, image, prompt: str, max_length: int):
-    """``inf.chat`` on one request, with ``qwen2_mot.lm_head`` wrapped while
-    it runs to keep chat's two largest logits of every decode step. Returns
-    (ids: [bos] and the greedy tokens, eos last where the answer ended on it,
-    at most max_length; steps: [(top-2 values, top-2 ids)] per step)."""
+def _greedy_steps(inf: InterleaveInferencer, decode, max_length: int):
+    """``decode()`` (a plain greedy decode of ``inf``: one lm_head call a
+    step), with ``qwen2_mot.lm_head`` wrapped while it runs to keep the two
+    largest logits of every step. Returns (ids: [bos] and the greedy tokens,
+    eos last where the answer ended on it, at most max_length; steps:
+    [(top-2 values, top-2 ids)] per step)."""
     steps = []
     lm_head = qwen2_mot.lm_head
 
@@ -1406,7 +1421,7 @@ def _chat_steps(inf: InterleaveInferencer, image, prompt: str, max_length: int):
 
     qwen2_mot.lm_head = record
     try:
-        inf.chat([] if image is None else [image], prompt, max_length=max_length)
+        decode()
     finally:
         qwen2_mot.lm_head = lm_head
     steps = [(t.values.tolist(), t.indices.tolist()) for t in steps]
@@ -1415,21 +1430,39 @@ def _chat_steps(inf: InterleaveInferencer, image, prompt: str, max_length: int):
     return (ids[: ids.index(eos) + 1] if eos in ids else ids), steps
 
 
+_CHAT_STEPS = {}  # (inferencer, image digest, prompt, max_length) -> _greedy_steps' result
+_INF_KEYS = itertools.count()  # an inferencer's key there (an id() may be reused)
+
+
+def _chat_steps(inf: InterleaveInferencer, image, prompt: str, max_length: int):
+    """:func:`_greedy_steps` of ``inf.chat`` on one request, kept for the
+    run: the serving runs and the spec phase gate the same requests
+    against the same inferencer."""
+    digest = None if image is None else hashlib.sha1(image.tobytes()).hexdigest()
+    key = (inf.__dict__.setdefault("_smoke_key", next(_INF_KEYS)), digest, prompt, max_length)
+    if key not in _CHAT_STEPS:
+        _CHAT_STEPS[key] = _greedy_steps(inf, lambda: inf.chat(
+            [] if image is None else [image], prompt, max_length=max_length), max_length)
+    return _CHAT_STEPS[key]
+
+
 def check_answers(run: str, ref: InterleaveInferencer, requests, got_ids: dict, max_new,
-                  gap_limit: float) -> list:
+                  gap_limit: float, reference=None) -> list:
     """Each request's answer ids (``got_ids``: rid -> the slot's out_ids)
     against ``ref.chat``'s on the same request: equal, or parting at a
     near-tie, where the engine took chat's second choice and chat's top-2
     logits lie within ``gap_limit``. ``requests``: [(rid, image, prompt)];
     ``max_new``: one budget, or one per request. Prints each request's
     agreeing tokens and, where it parts, the step, chat's top-2 gap there and
-    whether the engine took chat's runner-up. Returns the splits as (step,
-    gap) pairs; fails on one that is no near-tie."""
+    whether the engine took chat's runner-up. ``reference(image, prompt,
+    budget)`` replaces chat as the reference (:func:`_greedy_steps`' result).
+    Returns the splits as (step, gap) pairs; fails on one that is no
+    near-tie."""
     eos = ref.new_token_ids["eos_token_id"]
     budgets = max_new if isinstance(max_new, list) else [max_new] * len(requests)
     shown, splits, bad = [], [], []
     for (rid, image, prompt), budget in zip(requests, budgets):
-        want, steps = _chat_steps(ref, image, prompt, budget)
+        want, steps = (reference or partial(_chat_steps, ref))(image, prompt, budget)
         got = got_ids[rid] + ([eos] if len(got_ids[rid]) < budget else [])
         n = 0
         while n < min(len(got), len(want)) and got[n] == want[n]:
@@ -1485,16 +1518,48 @@ def _engine_first_step_logits(b: ContinuousBatcher, scatter: bool) -> torch.Tens
     return logits
 
 
+def _verify_row0_logits(model, cache: qwen2_mot.KVCache, cur: torch.Tensor, pos: torch.Tensor,
+                        live: torch.Tensor) -> torch.Tensor:
+    """A speculative verify forward ([S, SPEC_K + 1]: each stream's current
+    token and SPEC_K zero drafts, causal, the ``live`` rows valid) over
+    ``cache``, written past its lens; the logits [S, V] of row 0, the one
+    that a plain step's logits compare with (the rows after it see the
+    drafts)."""
+    lm = model.language_model
+    S = cur.shape[0]
+    block = torch.cat([cur[:, None], torch.zeros((S, SPEC_K), dtype=cur.dtype,
+                                                 device=cur.device)], dim=1)
+    positions = pos[:, None] + torch.arange(SPEC_K + 1, device=pos.device)
+    with torch.no_grad():
+        h, _ = lm.model(qwen2_mot.embed_tokens(lm, block), positions, cache, causal=True,
+                        q_valid=live[:, None].expand(S, SPEC_K + 1))
+        return qwen2_mot.lm_head(lm, h[:, 0])
+
+
+def _engine_first_verify_logits(b: ContinuousBatcher) -> torch.Tensor:
+    """After admission: every slot's first verify forward over a clone of
+    the pool; the logits [pool, V] of its row 0."""
+    slots = b.slots[: b.pool]
+    live = torch.tensor([s.request_id is not None for s in slots], device=b.device)
+    cur = torch.tensor([s.cur_token if s.request_id is not None else 0 for s in slots],
+                       dtype=torch.int64, device=b.device)
+    pos = torch.tensor([s.position for s in slots], dtype=torch.int64, device=b.device)
+    return _verify_row0_logits(b.model, b.cache.clone(), cur, pos, live)
+
+
 def _prompt(prompt: str, prefixed: bool) -> str:
     return (SERVE_PREAMBLE if prefixed else "") + prompt
 
 
-def check_serving_logits(run: str, ref: InterleaveInferencer, engine) -> float:
+def check_serving_logits(run: str, ref: InterleaveInferencer, engine,
+                         flavours=("aligned", "scatter")) -> float:
     """The first-step logits of :func:`logits_workload`'s requests, admitted
     in one round (every ViT group of more than one image; the text rows in a
     P = 32 block, two of them after the preamble), the step run as the
-    aligned chunk and as the scatter chunk run it, against chat's on the same
-    request at LOGITS_COS_TOL. Returns the largest |logit difference|."""
+    aligned chunk and as the scatter chunk run it (or as a speculative
+    chunk's verify forward runs it: ``flavours`` ("verify",)), against
+    chat's on the same request at LOGITS_COS_TOL. Returns the largest
+    |logit difference|."""
     b = engine()
     pid = b.register_prefix(SERVE_PREAMBLE)
     reqs = logits_workload(run)
@@ -1507,8 +1572,8 @@ def check_serving_logits(run: str, ref: InterleaveInferencer, engine) -> float:
     if b.errors or min(counter.vit_rows) < 2:
         raise SystemExit(f"chip_smoke: serving run {run}: the logits check's admission gave "
                          f"errors {b.errors}, ViT groups {counter.vit_rows}")
-    logits = {flavour: _engine_first_step_logits(b, flavour == "scatter")
-              for flavour in ("aligned", "scatter")}
+    logits = {flavour: _engine_first_verify_logits(b) if flavour == "verify" else
+              _engine_first_step_logits(b, flavour == "scatter") for flavour in flavours}
     slot_of = {s.request_id: i for i, s in enumerate(b.slots[: b.pool])}
     worst = 0.0
     for rid, (arr, prompt, pre) in zip(rids, reqs):
@@ -1535,7 +1600,7 @@ def check_serving_logits(run: str, ref: InterleaveInferencer, engine) -> float:
 
 
 def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
-                k3_per_layer: int, k4_per_layer: int) -> dict:
+                k3_per_layer: int, k4_per_layer: int, spec: bool = False) -> dict:
     """One serving run at the full width: ``ContinuousBatcher`` over
     ``ref.model`` (pool of 16 x 6144 columns, chunks of 16, the ladder down to
     ``min_pool``, an int8 pool when ``ref`` has an int8 cache). First the
@@ -1545,28 +1610,35 @@ def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
     waves served. Checks the launches against the forwards the run made, that
     every request was answered, ``errors`` is empty and each answer is
     chat's or parts from it at a near-tie (:func:`check_answers`); prints the
-    seconds, ``stats``, emitted tokens per second. Returns (the launches, the
-    near-tie gap limit)."""
+    seconds, ``stats``, emitted tokens per second. With ``spec`` the engine
+    decodes speculatively (``spec_decode=True``, SPEC_K drafts, SPEC_NGRAM)
+    over a pool that keeps its 16 rows (no ladder); the logits check runs
+    the verify forward's first row, and the row adds the tokens per verify
+    forward and the int8 dequantize time of one verify forward (both layer
+    slices of the pool, every layer). Returns (the launches, the near-tie gap
+    limit)."""
     n_vit, n_llm = ref.cfg.vit.num_hidden_layers, ref.cfg.llm.num_hidden_layers
     kv_quantized = ref.kv_quantized
     decode_key = "decode_attention_int8" if kv_quantized else "decode_attention"
     first, later = serving_workload(run)
+    options = (dict(spec_decode=True, spec_k=SPEC_K, spec_ngram=SPEC_NGRAM) if spec
+               else dict(pool_ladder=True, min_pool=min_pool))
     print(f"serving run {run} ({name}): {len(first) + len(later)} requests in two waves, "
           f"max_new_tokens {SERVE_MAX_NEW}, ContinuousBatcher(num_slots={SERVE_SLOTS}, "
-          f"capacity={SERVE_CAPACITY}, chunk={SERVE_CHUNK}, pool_ladder=True, "
-          f"min_pool={min_pool}, kv_quantized={kv_quantized})", flush=True)
+          f"capacity={SERVE_CAPACITY}, chunk={SERVE_CHUNK}, kv_quantized={kv_quantized}, "
+          f"{', '.join(f'{k}={v}' for k, v in options.items())})", flush=True)
 
     def engine():
         return ContinuousBatcher(
             ref.model, ref.tokenizer, ref.new_token_ids, SERVE_SLOTS, SERVE_CAPACITY,
-            SERVE_CHUNK, ref.vit_transform, SEED, kv_quantized=kv_quantized,
-            pool_ladder=True, min_pool=min_pool)
+            SERVE_CHUNK, ref.vit_transform, SEED, kv_quantized=kv_quantized, **options)
 
-    gap_limit = NEAR_TIE_FACTOR * check_serving_logits(run, ref, engine)
+    gap_limit = NEAR_TIE_FACTOR * check_serving_logits(
+        run, ref, engine, ("verify",) if spec else ("aligned", "scatter"))
     b = engine()
     b.submit(Request(prompt="warm-up", max_new_tokens=2))
     b.run()
-    if b.pool != min_pool:
+    if b.pool != (SERVE_SLOTS if spec else min_pool):
         raise SystemExit(f"chip_smoke: the drained pool is {b.pool} rows, not {min_pool}")
     eos = b.new_token_ids["eos_token_id"]
     got_ids = _recording_ids(b)
@@ -1609,9 +1681,18 @@ def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
                stats={k: st[k] for k in ("rounds", "admit_s", "decode_s", "host_s", "round_s",
                                          "repacks", "repack_s", "admitted")},
                pool_by_round=pools, decode_forwards=counter.decode,
+               tokens_per_decode_forward=st["emitted_tokens"] / max(
+                   1, counter.decode + counter.verify),
                prefill_forwards=counter.prefill, vit_forwards=counter.vit,
                vit_group_images=counter.vit_rows,
                launches_per_round={k: v / rounds for k, v in launches.items() if v})
+    if spec:
+        k8, v8, ks, vs = b.cache.layer(0)
+        dequant = cuda_ms(lambda: (qwen2_mot.dequant_slice(k8, ks, torch.bfloat16),
+                                   qwen2_mot.dequant_slice(v8, vs, torch.bfloat16)))
+        row.update(verify_forwards=counter.verify,
+                   dequant_ms_per_verify_forward=dequant * ref.cfg.llm.num_hidden_layers,
+                   dequant_ms_per_layer=dequant)
     print(f"  run {run}: {json.dumps(row)}", flush=True)
     del b
     torch.cuda.empty_cache()
@@ -1674,9 +1755,10 @@ def run_near_capacity(run: str, ref: InterleaveInferencer, gap_limit: float) -> 
 
 
 def run_serving_phase(inf: InterleaveInferencer) -> list:
-    """Runs A (bf16 weights and pool), B (bf16 weights, int8 pool) and C
-    (w4a8 per channel, fused, int8 pool) on the smoke's model, A's and B's
-    pools also near capacity. The batcher waits for the card at the end of
+    """Runs A (bf16 weights and pool), B (bf16 weights, int8 pool), C
+    (w4a8 per channel, fused, int8 pool) and D (B's, decoded speculatively:
+    SPEC_K drafts a verify forward, no ladder) on the smoke's model, A's and
+    B's pools also near capacity. The batcher waits for the card at the end of
     each phase of a round (UNIMEDVL_SERVING_PROFILE), so that ``stats`` splits
     device work. Returns their launches."""
     os.environ["UNIMEDVL_SERVING_PROFILE"] = "1"
@@ -1689,14 +1771,323 @@ def run_serving_phase(inf: InterleaveInferencer) -> list:
                                ("bf16 weights, int8 pool", int8_pool, "B")):
             main, gap_limit = run_serving(name, ref, run, 4, 0, 0)
             launches += [main, run_near_capacity(run, ref, gap_limit)]
-        del int8_pool
         w4a8 = quantized_inferencer(inf, bits=4, act_quant=True)
         launches.append(run_serving("w4a8 per channel, fused, int8 pool", w4a8, "C", 2, 1, 4)[0])
         del w4a8
+        torch.cuda.empty_cache()
+        launches.append(run_serving("bf16 weights, int8 pool, speculative", int8_pool, "D",
+                                    SERVE_SLOTS, 0, 0, spec=True)[0])
+        del int8_pool
     finally:
         os.environ.pop("UNIMEDVL_SERVING_PROFILE")
     torch.cuda.empty_cache()
     return launches
+
+
+# -- speculative decoding (M9) ------------------------------------------------------------------
+SPEC_K, SPEC_NGRAM = 7, 3
+SPEC_LENGTH = 128  # the floor / ceiling request's answer length
+SPEC_TURN = "Now describe the right lung in one sentence."
+
+
+def check_spec_k1a(randn, ints) -> list:
+    """K1a at the verify block's shapes: T = SPEC_K + 1 causal rows per
+    stream after its context, at S 1 with lens 800 (M 1024: a 378 px chat)
+    and 5000 (M 5632: a 980 px chat), and at S 16 over run A's pool lens (M
+    6144: run D); the rows of ``flash_block_attention.spec_cases``."""
+    T = SPEC_K + 1
+    cases = []
+    for S, lens, M in ((1, (800,), 1024), (1, (5000,), 5632), (16, SERVE_LENS, SERVE_CAPACITY)):
+        kc, vc = randn(S, 4, M, 128), randn(S, 4, M, 128)
+        ln = ints(*lens)
+        cases.append(_k1a_case(
+            f"K1a verify S={S} T={T} M={M} causal, lens {min(lens)}-{max(lens)}",
+            randn(S, T, 28, 128, scale=2.0), kc, vc, ln, ln, True, ints(*[T] * S)))
+    return cases
+
+
+def spec_inferencer(inf: InterleaveInferencer) -> InterleaveInferencer:
+    """An inferencer over ``inf``'s model and cache kind that decodes greedy
+    answers speculatively."""
+    return InterleaveInferencer(inf.model, inf.tokenizer, inf.new_token_ids,
+                                vit_transform=inf.vit_transform, seed=SEED,
+                                kv_quantized=inf.kv_quantized, spec_decode=True, spec_k=SPEC_K,
+                                spec_ngram=SPEC_NGRAM)
+
+
+def _context(inf: InterleaveInferencer, image, prompt: str):
+    ctx = inf.init_gen_context()
+    if image is not None:
+        ctx = inf.update_context_image(image, ctx, vae=False)
+    return inf.update_context_text(prompt, ctx)
+
+
+def spec_gap_limit(name: str, plain: InterleaveInferencer, spec: InterleaveInferencer,
+                   requests) -> float:
+    """Row 0 of the first verify forward against chat's first decode step,
+    per (image, prompt) request, at LOGITS_COS_TOL: K1a over T = SPEC_K + 1
+    rows against K2 (or K2-int8) over one. Returns NEAR_TIE_FACTOR times the
+    largest |logit difference|, the answers' near-tie gate."""
+    worst = 0.0
+    for image, prompt in requests:
+        ctx = spec._ensure_capacity(_context(spec, image, prompt), SPEC_K + 1)
+        dev = spec.device
+        got = _verify_row0_logits(
+            spec.model, ctx.cache, torch.tensor([spec.new_token_ids["bos_token_id"]], device=dev),
+            torch.tensor([ctx.rope], device=dev), torch.ones(1, dtype=torch.bool, device=dev))[0]
+        want = _first_step_logits(plain, image, prompt)
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=0).item()
+        diff = (got - want).abs().max().item()
+        worst = max(worst, diff)
+        what = "text" if image is None else "x".join(map(str, image.shape[:2]))
+        print(f"  {name} {what}: first verify row's logits vs chat's first step: cosine "
+              f"{cos:.6f}, max abs {diff:.4f}, argmax {got.argmax().item()} vs "
+              f"{want.argmax().item()}", flush=True)
+        if not bool(torch.isfinite(got).all()) or cos < LOGITS_COS_TOL:
+            raise SystemExit(f"chip_smoke: {name}: the verify forward's logits disagree with "
+                             "chat's")
+    return NEAR_TIE_FACTOR * worst
+
+
+def _answer_ids(out: torch.Tensor) -> list:
+    return [t for t in out[0].tolist() if t >= 0]
+
+
+def _expected(counter: ForwardCounter, n_vit: int, n_llm: int, kv_int8: bool, k3: int,
+              k4: int) -> dict:
+    """The launches that the forwards ``counter`` saw must show."""
+    forwards = counter.decode + counter.prefill
+    return {"flash_block_attention": counter.vit * n_vit + counter.prefill * n_llm,
+            "decode_attention_int8" if kv_int8 else "decode_attention": counter.decode * n_llm,
+            "silu_mul_quant": forwards * n_llm * k3, "w4_matmul": forwards * n_llm * k4}
+
+
+def run_spec_chat(plain: InterleaveInferencer, spec: InterleaveInferencer) -> tuple:
+    """The three chat requests through ``spec.chat`` at MAX_LENGTH, the
+    verify forwards and each request's fix-up forward counted, the answers
+    gated against plain chat's. Returns (the launches, the gap limit)."""
+    n_vit, n_llm = plain.cfg.vit.num_hidden_layers, plain.cfg.llm.num_hidden_layers
+    images = _images()
+    requests = [(images[i], REQUESTS[i][2]) for i in range(len(REQUESTS))]
+    gap_limit = spec_gap_limit("spec chat", plain, spec, requests)
+    spec.chat([images[2]], REQUESTS[2][2], max_length=2)  # warm-up
+    calls = []
+    decode = bagel.generate_text_spec
+
+    def recorded(*args, **kw):
+        out = decode(*args, **kw)
+        calls.append((_answer_ids(out[0]), out[3]))
+        return out
+
+    counter = ForwardCounter(spec.model)
+    reset_counts()
+    bagel.generate_text_spec = recorded
+    try:
+        for image, prompt in requests:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            spec.chat([image], prompt, max_length=MAX_LENGTH)
+            torch.cuda.synchronize()
+            ids, n_fwd = calls[-1]
+            print(f"  spec chat {'x'.join(map(str, image.shape[:2]))}: {len(ids) - 1} tokens "
+                  f"in {n_fwd} verify forwards ({(len(ids) - 1) / n_fwd:.2f} a forward), "
+                  f"{time.perf_counter() - t0:.3f} s with the image and text prefills",
+                  flush=True)
+    finally:
+        bagel.generate_text_spec = decode
+        counter.remove()
+    launches = check_counts("the spec chat path", _expected(counter, n_vit, n_llm, False, 0, 0))
+    check_answers("spec chat", plain, [(i, image, prompt) for i, (image, prompt)
+                                       in enumerate(requests)],
+                  {i: ids for i, (ids, _n) in enumerate(calls)}, MAX_LENGTH, gap_limit)
+    return launches, gap_limit
+
+
+def _fixed_drafts(table: list, start, device):
+    """A stand-in for ``bagel.propose_drafts`` that drafts ``table``'s ids
+    from column ``start(hlen)`` on (clipped to its end) instead of looking
+    them up; a few device ops, no host read."""
+    ids = torch.tensor(table, dtype=torch.int32, device=device)
+
+    def propose(hist, hlen, ngram, K):
+        col = start(hlen.to(torch.int64))[:, None] + torch.arange(K, device=device)
+        return ids[col.clamp(0, len(table) - 1)]
+    return propose
+
+
+def spec_floor_ceiling(name: str, plain: InterleaveInferencer, gap_limit: float,
+                       labels, k3: int, k4: int) -> tuple:
+    """The 378x378 request at SPEC_LENGTH tokens, on one context: the plain
+    aligned decode, then ``generate_text_spec`` with the drafts of each of
+    ``labels``: "junk history" (the lookup over random ids) and "planted"
+    (over the plain answer planted before the real history, as
+    benchmarks/spec_decode_bench.py plants it) keep the lookup, which also
+    finds the answer's own repeats: a random model's answer repeats itself,
+    and the latest match wins, so neither is a pure floor or ceiling. "junk
+    drafts" (random ids in place of the lookup: the floor) and "oracle
+    drafts" (the plain answer's next SPEC_K tokens: the ceiling) replace
+    ``bagel.propose_drafts``. For each: decode tok/s (answer tokens after
+    the start token over the decode call), tokens per verify forward,
+    forwards and ms per forward (the fix-up forward counted); the launches
+    checked and the answers gated against chat's. Returns (the launches
+    added up, the rows)."""
+    n_vit, n_llm = plain.cfg.vit.num_hidden_layers, plain.cfg.llm.num_hidden_layers
+    _h, _w, prompt = REQUESTS[2]
+    image = _images()[2]
+    model = plain.model
+    ctx = plain._ensure_capacity(_context(plain, image, prompt), SPEC_LENGTH + SPEC_K + 1)
+    bos, eos = plain.new_token_ids["bos_token_id"], plain.new_token_ids["eos_token_id"]
+    dev = plain.device
+    start = torch.tensor([bos], device=dev)
+    positions = torch.tensor([ctx.rope], device=dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (out, lengths), dt = timed(lambda: bagel.generate_text(
+        model, ctx.cache, start, positions, SPEC_LENGTH, eos))
+    plain_ids = _answer_ids(out)
+    n = len(plain_ids)
+    rows = {"plain": dict(tokens=n, decode_tok_s=(n - 1) / dt, forwards=n, tokens_per_forward=1.0,
+                          ms_per_forward=1e3 * dt / n)}
+    real = list(ctx.hist) + [bos]
+    junk = np.random.default_rng(SEED + 13).integers(0, plain.cfg.llm.vocab_size,
+                                                     len(real) + SPEC_LENGTH).tolist()
+    hlen0 = len(real)
+    runs = {  # label: (history, the stand-in for propose_drafts or None)
+        "junk history": (junk[:len(real) - 1] + [bos], None),
+        "planted": (real[-SPEC_NGRAM:] + plain_ids[1:] + real, None),
+        "junk drafts": (real, _fixed_drafts(junk, lambda hlen: hlen, dev)),
+        "oracle drafts": (real, _fixed_drafts(plain_ids[1:], lambda hlen: hlen - hlen0, dev)),
+    }
+    got, total = {}, {}
+    lookup = bagel.propose_drafts
+    for label in labels:
+        hist, drafts = runs[label]
+        HL = -(-(len(hist) + SPEC_LENGTH + SPEC_K) // 256) * 256
+        row = torch.zeros((1, HL), dtype=torch.int32)
+        row[0, :len(hist)] = torch.tensor(hist, dtype=torch.int32)
+        row = row.to(dev)
+        hlen = torch.tensor([len(hist)], dtype=torch.int32, device=dev)
+        counter = ForwardCounter(model)
+        reset_counts()
+        bagel.propose_drafts = drafts or lookup
+        try:
+            (out, _lengths, _cache, n_fwd), dt = timed(lambda: bagel.generate_text_spec(
+                model, ctx.cache, start, positions, SPEC_LENGTH, eos, row, hlen,
+                k_draft=SPEC_K, ngram=SPEC_NGRAM))
+        finally:
+            bagel.propose_drafts = lookup
+            counter.remove()
+        launches = check_counts(f"the {name} spec decode, {label}",
+                                _expected(counter, n_vit, n_llm, plain.kv_quantized, k3, k4))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        got[label] = _answer_ids(out)
+        n = len(got[label])
+        rows[label] = dict(tokens=n, decode_tok_s=(n - 1) / dt, forwards=n_fwd,
+                           tokens_per_forward=(n - 1) / n_fwd,
+                           ms_per_forward=1e3 * dt / (n_fwd + 1))
+    print(f"  {name}, 378x378 at {SPEC_LENGTH} tokens ({CARD}): {json.dumps(rows)}", flush=True)
+    check_answers(f"{name} spec floor/ceiling", plain, [(label, image, prompt) for label in got],
+                  got, SPEC_LENGTH, gap_limit)
+    if "oracle drafts" in rows and rows["oracle drafts"]["tokens_per_forward"] <= 1.0:
+        raise SystemExit(f"chip_smoke: {name}: the oracle drafts were not accepted")
+    return total, rows
+
+
+def run_chat_turns(plain: InterleaveInferencer, spec: InterleaveInferencer,
+                   gap_limit: float) -> None:
+    """Two ``chat_turn``s of ``spec``: the 378x378 request, then a text
+    question. The second turn's first forward must prefill its own text
+    only, at the rope position after the kept answer; each answer is gated
+    against the plain ``chat_turn`` on the same context."""
+    image = _images()[2]
+    p1, p2 = REQUESTS[2][2], SPEC_TURN
+
+    def reference(fn):
+        return _greedy_steps(plain, fn, MAX_LENGTH)
+
+    refs = {p1: reference(lambda: plain.chat_turn(None, p1, images=[image],
+                                                  max_length=MAX_LENGTH))}
+    a1, ctx1 = spec.chat_turn(None, p1, images=[image], max_length=MAX_LENGTH)
+    refs[p2] = reference(lambda: plain.chat_turn(ctx1, p2, max_length=MAX_LENGTH))
+    first = []
+    hook = spec.model.language_model.model.register_forward_pre_hook(
+        lambda m, args, kw: first.append((int(args[1][0, 0]), args[0].shape[1],
+                                          int(kw["q_valid"].sum()))), with_kwargs=True)
+    try:
+        a2, ctx2 = spec.chat_turn(ctx1, p2, max_length=MAX_LENGTH)
+    finally:
+        hook.remove()
+    n2 = len(spec._encode_prompt(p2))
+    print(f"  chat_turn: turn 1 kept {ctx1.kv_len} columns, turn 2 prefilled "
+          f"{first[0][2]} rows at position {first[0][0]} (its prompt: {n2} ids after rope "
+          f"{ctx1.rope}), kept {ctx2.kv_len}; answers {a1[:40]!r} / {a2[:40]!r}", flush=True)
+    if first[0] != (ctx1.rope, max(32, -(-n2 // 32) * 32), n2):
+        raise SystemExit("chip_smoke: the second chat_turn prefilled more than its own text")
+    ids1 = list(ctx1.hist[len(spec._encode_prompt(p1)):])
+    ids2 = list(ctx2.hist[len(ctx1.hist) + n2:])
+    check_answers("spec chat_turn", plain, [(1, image, p1), (2, None, p2)], {1: ids1, 2: ids2},
+                  MAX_LENGTH, gap_limit, reference=lambda _image, prompt, _b: refs[prompt])
+
+
+def run_spec_stream(spec: InterleaveInferencer) -> None:
+    """One ``gen_text_stream`` of ``spec`` (chunks of 8 verify forwards):
+    its pieces must concatenate to ``spec.gen_text``'s answer."""
+    image = _images()[2]
+    ctx = _context(spec, image, REQUESTS[2][2])
+    pieces = list(spec.gen_text_stream(ctx, max_length=MAX_LENGTH, chunk=8))
+    answer = spec.gen_text(ctx, max_length=MAX_LENGTH)
+    print(f"  gen_text_stream: {len(pieces)} pieces, joined equal to gen_text's answer: "
+          f"{''.join(pieces) == answer}", flush=True)
+    if "".join(pieces) != answer:
+        raise SystemExit("chip_smoke: the spec stream's pieces differ from gen_text's answer")
+
+
+def run_spec_phase(inf: InterleaveInferencer) -> list:
+    """Speculative decoding at the full width (SPEC_K drafts, SPEC_NGRAM):
+    bf16 spec chat on the three requests, the 378x378 request at
+    SPEC_LENGTH tokens plain and with four draft sources
+    (:func:`spec_floor_ceiling`), planted and oracle drafts again in w4a8 per
+    channel (K4's int8 GEMM and K3 at m 8), two ``chat_turn``s and one
+    ``gen_text_stream`` (serving run D runs in :func:`run_serving_phase`).
+    Returns the launches of each path."""
+    n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
+    spec = spec_inferencer(inf)
+    print(f"spec decode path: InterleaveInferencer(spec_decode=True, spec_k={SPEC_K}, "
+          f"spec_ngram={SPEC_NGRAM}), 3 chat requests at max_length {MAX_LENGTH}", flush=True)
+    chat_launches, gap_limit = run_spec_chat(inf, spec)
+    paths = [chat_launches]
+    print(f"spec decode, 378x378 request at {SPEC_LENGTH} tokens: plain; the lookup over a junk "
+          "history and over the plain answer planted; junk and oracle drafts in its place",
+          flush=True)
+    paths.append(spec_floor_ceiling("bf16", inf, gap_limit, (
+        "junk history", "planted", "junk drafts", "oracle drafts"), 0, 0)[0])
+    print("spec decode, w4a8 per channel + fused + int8 KV: planted and oracle drafts",
+          flush=True)
+    w4a8 = quantized_inferencer(inf, bits=4, act_quant=True)
+    w4a8_gap = spec_gap_limit("w4a8 spec", w4a8, spec_inferencer(w4a8), [(_images()[2],
+                                                                          REQUESTS[2][2])])
+    paths.append(spec_floor_ceiling("w4a8 per channel", w4a8, w4a8_gap,
+                                    ("planted", "oracle drafts"), 1, 4)[0])
+    del w4a8
+    torch.cuda.empty_cache()
+    print("spec decode: two chat_turns and a gen_text_stream", flush=True)
+    counter = ForwardCounter(inf.model)
+    reset_counts()
+    try:
+        run_chat_turns(inf, spec, gap_limit)
+        run_spec_stream(spec)
+    finally:
+        counter.remove()
+    paths.append(check_counts("the chat_turn and stream calls",
+                              _expected(counter, n_vit, n_llm, False, 0, 0)))
+    return paths
 
 
 # further numbers a kernel's row of the ``kernels`` line carries, where it has them
@@ -1705,7 +2096,7 @@ EXTRA_KEYS = (
     "cache_partial_t2i_ms", "cache_partial_edit_ms", "library_note", "concat_k1b_ms",
     "k_island_ms", "concat_copy_ms", "k1b_on_concat_ms", "q_island_only_ms", "launches_from",
     "n_split", "split_len", "cases", "ms_in_graph", "vit", "gemm", "bf16_gemm",
-    "one_row_ms_in_graph", "gemv_cases", "serving_cases",
+    "one_row_ms_in_graph", "gemv_cases", "serving_cases", "spec_cases",
 )
 
 COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches there)
@@ -2614,6 +3005,7 @@ def run(tmp: str) -> None:
     paths.append(run_sp_generation(inf, make_sp_mesh(tmp), plain_rows))
     paths.append(run_quantized_chat(inf, logits_bf16))
     paths += run_serving_phase(inf)
+    paths += run_spec_phase(inf)
     train_timings, train_paths = run_training(inf)
     timings.update(train_timings)
     paths += train_paths

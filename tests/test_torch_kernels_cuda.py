@@ -86,6 +86,10 @@ FLASH = [
     (130, 130, 16, 16, 72, (130, 61), (130, 130), None, False, False),
     (66, 200, 8, 2, 128, (10, 3), (120, 3), (66, 40), False, True),
     (64, 64, 4, 4, 72, (0,), (0,), (64,), True, False),
+    # the speculative verify block: 8 causal rows after the context; a
+    # finished stream (no valid row) and a window that runs past M
+    (8, 1024, 28, 4, 128, (800,), (800,), (8,), True, True),
+    (8, 64, 28, 4, 128, (40, 20, 57, 0), (40, 20, 57, 0), (8, 0, 8, 8), True, True),
 ]
 
 

@@ -1,6 +1,10 @@
 """``InterleaveInferencer`` of the PyTorch port against the JAX package's, on
 the CPU: the tiny config and fake tokenizer of tests/test_pipeline.py, the
 same weights (``from_jax_params``), fp32. Answers must be the same strings.
+The speculative decode and the kept context (``TestSpecAndKeptContext``, as
+tests/test_pipeline.py:138-270 holds them): spec ``chat``, ``chat_turn``
+over three turns and ``gen_text_stream`` plain and spec, with the kept
+contexts equal (kv length, rope, history, cache on [0, lens)).
 
 Generation runs on the tiny config with its VAE and a random velocity head;
 the port's ``_randn`` replays the JAX inferencer's draws (a copy of its key,
@@ -288,6 +292,15 @@ def test_positional_parameters_follow_the_jax_inferencer():
     positional = [n for n, p in port.items() if p.kind == p.POSITIONAL_OR_KEYWORD]
     assert positional == ["self", "model", "tokenizer", "new_token_ids", "vae_transform",
                           "vit_transform", "seed"]
+    keyword = [n for n, p in port.items() if p.kind == p.KEYWORD_ONLY]
+    assert keyword == ["sp_mesh", "kv_quantized", "kv_bits", "spec_decode", "spec_k",
+                       "spec_ngram"]
+    for name in keyword:
+        assert port[name].default == inspect.signature(JaxInferencer.__init__).parameters[
+            name].default, name
+    gen_text = inspect.signature(InterleaveInferencer.gen_text).parameters
+    assert gen_text["return_ctx"].kind == inspect.Parameter.KEYWORD_ONLY
+    assert list(gen_text) == list(inspect.signature(JaxInferencer.gen_text).parameters)
 
     model = from_jax_params(
         jax.tree.map(np.asarray, jbagel.init_params(jax.random.PRNGKey(1), CFG)),
@@ -297,6 +310,109 @@ def test_positional_parameters_follow_the_jax_inferencer():
     assert inf.vae_transform is vae_t and inf.vit_transform is vit_t
     with pytest.raises(TypeError):
         InterleaveInferencer(model, None, {}, vae_t, vit_t, 3, None)
+
+
+@pytest.fixture(scope="module")
+def inferencers():
+    """JAX and port inferencers, plain and spec (k 3, ngram 2), over one
+    model of the chat config."""
+    params = jbagel.init_params(jax.random.PRNGKey(1), CFG)
+    tok, ids, _ = add_special_tokens(FakeTokenizer())
+    transform = ImageTransform(32, 8, 2, 1024)
+    model = from_jax_params(jax.tree.map(np.asarray, params), port_config(CFG), device="cpu")
+    ttok, tids, _ = ttokenizer.add_special_tokens(FakeTokenizer())
+    out = {}
+    for name, kw in (("plain", {}), ("spec", dict(spec_decode=True, spec_k=3, spec_ngram=2))):
+        out["jax", name] = JaxInferencer(params, CFG, tok, ids, vit_transform=transform,
+                                         **kw)
+        out["torch", name] = InterleaveInferencer(
+            model, ttok, tids, vit_transform=timaging.ImageTransform(32, 8, 2, 1024), **kw)
+    return out
+
+
+def assert_caches_equal(got, want):
+    """tests/test_torch_serving.py's comparison (imported here, where that
+    module, which imports this one, is complete)."""
+    from tests.test_torch_serving import assert_caches_equal as same
+
+    same(got, want)
+
+
+class TestSpecAndKeptContext:
+    def test_spec_chat(self, inferencers):
+        images = [_image(2, 24, 28)]
+        prompt = "what is this? what is this?"
+        want = inferencers["jax", "spec"].chat(images, prompt, max_length=12)
+        got = inferencers["torch", "spec"].chat(images, prompt, max_length=12)
+        assert got == want == inferencers["torch", "plain"].chat(images, prompt, max_length=12)
+
+    def test_gen_text_twice_on_one_context(self, inferencers):
+        inf = inferencers["torch", "spec"]
+        ctx = inf.update_context_text("describe the image", inf.init_gen_context())
+        lens, hist = ctx.cache.lens.clone(), ctx.hist
+        first = inf.gen_text(ctx, max_length=10)
+        text, new = inf.gen_text(ctx, max_length=10, return_ctx=True)
+        assert text == first == inf.gen_text(ctx, max_length=10)
+        assert torch.equal(ctx.cache.lens, lens) and ctx.hist == hist
+        assert new.cache.k is ctx.cache.k and int(new.cache.lens[0]) == int(lens[0]) + (
+            new.kv_len - ctx.kv_len)
+
+    @pytest.mark.parametrize("mode", ["plain", "spec"])
+    def test_chat_turns(self, inferencers, mode):
+        """Three turns, the first with an image: each answer and the kept
+        context (kv length, rope, history, cache on [0, lens)) equal the
+        JAX inferencer's; the second turn prefills only its own text."""
+        jinf, tinf = inferencers["jax", mode], inferencers["torch", mode]
+        jctx = tctx = None
+        turns = [("what is this?", [_image(5, 20, 24)]), ("and the left side?", None),
+                 ("what is this? and the left side?", None)]
+        first = []  # (start position, valid rows) of each turn's first forward
+        hook = tinf.model.language_model.model.register_forward_pre_hook(
+            lambda m, args, kw: first.append((int(args[1][0, 0]), int(kw["q_valid"].sum()))),
+            with_kwargs=True)
+        try:
+            for i, (prompt, images) in enumerate(turns):
+                want, jctx = jinf.chat_turn(jctx, prompt, images=images, max_length=9)
+                rope, n = (0, 0) if tctx is None else (tctx.rope, len(first))
+                got, tctx = tinf.chat_turn(tctx, prompt, images=images, max_length=9)
+                assert got == want
+                assert (tctx.kv_len, tctx.rope, tctx.hist) == (jctx.kv_len, jctx.rope,
+                                                              jctx.hist)
+                assert_caches_equal(tctx.cache, jctx.cache)
+                if i:  # a later turn prefills its own text only, after the kept answer
+                    assert first[n] == (rope, len(tinf._encode_prompt(prompt)))
+        finally:
+            hook.remove()
+
+    @pytest.mark.parametrize("mode,chunk", [("plain", 3), ("spec", 2)])
+    def test_gen_text_stream(self, inferencers, mode, chunk):
+        """The pieces concatenate to gen_text's answer (and the JAX stream's
+        pieces are the same); the kept context equals the JAX stream's and
+        gen_text(return_ctx=True)'s."""
+        jinf, tinf = inferencers["jax", mode], inferencers["torch", mode]
+        prompt = "a scan of the chest; a scan of the"
+        tctx = tinf.update_context_text(prompt, tinf.init_gen_context())
+        jctx = jinf.update_context_text(prompt, jinf.init_gen_context())
+        jres, tres = {}, {}
+        want = list(jinf.gen_text_stream(jctx, max_length=11, chunk=chunk, result=jres))
+        got = list(tinf.gen_text_stream(tctx, max_length=11, chunk=chunk, result=tres))
+        assert got == want and "".join(got) == tres["text"] == tinf.gen_text(tctx, max_length=11)
+        text, kept = tinf.gen_text(tctx, max_length=11, return_ctx=True)
+        for c in (tres["ctx"], kept):
+            assert (c.kv_len, c.rope, c.hist) == (jres["ctx"].kv_len, jres["ctx"].rope,
+                                                  jres["ctx"].hist)
+            assert_caches_equal(c.cache, jres["ctx"].cache)
+
+    def test_sampling_decodes_plainly(self, inferencers):
+        """A sampling request with spec_decode takes the plain decode: the
+        same draws give the same answer as the plain inferencer's."""
+        spec, plain = inferencers["torch", "spec"], inferencers["torch", "plain"]
+        answers = []
+        for inf in (spec, plain):
+            inf._generator.manual_seed(7)
+            ctx = inf.update_context_text("sample me", inf.init_gen_context())
+            answers.append(inf.gen_text(ctx, max_length=8, do_sample=True, temperature=0.8))
+        assert answers[0] == answers[1]
 
 
 @pytest.fixture(scope="module")

@@ -10,7 +10,9 @@ within 1e-6 relative), lens exactly. The cases follow tests/test_serving.py:
 answers equal to unbatched ``chat``, grouped image admission, capacity
 rejection and the co-admission split, the legacy pool path, a failed image,
 the early exit, the scatter fallback near capacity, the int8 pool, the pool
-ladder, the prefix cache, cancellation and a w4a8 engine.
+ladder, the prefix cache, cancellation and a w4a8 engine; and the speculative
+engine (``spec_decode``, tests/test_serving.py:229, :277, :830), against the
+JAX one and the plain engine, with images, a preamble and near capacity.
 """
 
 import dataclasses
@@ -343,7 +345,7 @@ def _to_jax(c: KVCache):
                         v_scale=j(c.v_scale))
 
 
-def assert_caches_equal(got: KVCache, want, rows=None, valid_only=True):
+def assert_caches_equal(got: KVCache, want, rows=None, valid_only=True, scale_rtol=1e-6):
     """Per row, the columns [0, lens) (or all of them) agree; lens exactly."""
     want = _to_torch(want)
     lens = want.lens
@@ -357,7 +359,7 @@ def assert_caches_equal(got: KVCache, want, rows=None, valid_only=True):
                 continue
             a, w = a[:, s, :, :n], w[:, s, :, :n]
             if name.endswith("scale"):
-                torch.testing.assert_close(a, w, rtol=1e-6, atol=0)
+                torch.testing.assert_close(a, w, rtol=scale_rtol, atol=0)
             elif a.dtype == torch.int8:
                 assert torch.equal(a, w)
             else:
@@ -558,7 +560,9 @@ def test_positional_parameters_follow_the_jax_batcher(pair):
                           "chunk", "vit_transform", "seed"]
     assert positional[2:] == jax_params[3:len(positional) + 1]
     keyword = [n for n, p in port.items() if p.kind == p.KEYWORD_ONLY]
-    assert keyword == ["kv_quantized", "kv_bits", "pool_ladder", "min_pool"]
+    assert keyword == ["kv_quantized", "kv_bits", "spec_decode", "spec_k", "spec_ngram",
+                       "pool_ladder", "min_pool"]
+    assert keyword == sorted(keyword, key=jax_params.index)
     assert all(n in jax_params for n in keyword)
     for name in keyword + positional[2:]:
         assert port[name].default == inspect.signature(
@@ -576,3 +580,54 @@ def test_request_keeps_the_jax_fields():
     jf = [(f.name, f.default) for f in dataclasses.fields(jserving.Request)]
     tf = [(f.name, f.default) for f in dataclasses.fields(Request)]
     assert tf == jf
+
+
+SPEC = dict(spec_decode=True, spec_k=3, spec_ngram=2)
+
+
+class TestSpecBatcher:
+    @pytest.mark.parametrize("requests,kw", [
+        (TEXT, dict(num_slots=2, capacity=128, chunk=4)),
+        (IMAGES + TEXT[3:4], SLOTS),
+    ], ids=["text", "images"])
+    def test_matches_jax_and_the_plain_engine(self, pair, requests, kw):
+        got, eng = both(pair, requests, **SPEC, **kw)
+        assert not eng.errors and eng._hist.shape == (kw["num_slots"], kw["capacity"])
+        assert got == serve(pair["torch"], requests, **kw)[0]
+
+    @pytest.mark.parametrize("kv_quantized", [False, True], ids=["fp32", "int8"])
+    def test_preamble(self, pair, kv_quantized):
+        reqs = [dict(prompt=p, max_new_tokens=m, prefix=0) for p, m in
+                [("is there a fracture?", 6), ("describe the lungs", 9), ("any effusion?", 4)]]
+        got, eng = both(pair, reqs, prefixes=[PREAMBLE], kv_quantized=kv_quantized, **SPEC,
+                        **SLOTS)
+        plain = serve(pair["torch"], reqs, prefixes=[PREAMBLE], kv_quantized=kv_quantized,
+                      **SLOTS)[0]
+        assert got == plain and not eng.errors
+
+    def test_near_capacity(self, pair, monkeypatch):
+        """Requests whose extent (kv_len + max_new_tokens + 1) meets the
+        capacity: the batcher reserves no draft margin, so late verify
+        windows straddle the end and the JAX scatter drops them whole, so the
+        block's rows attend stale columns at their own positions. The port
+        matches the JAX batcher there; on these requests both also still give
+        the plain engine's answers (ROADMAP queue 3 records the stale read)."""
+        reqs = [dict(prompt="q" * 39, max_new_tokens=22), dict(prompt="r" * 30, max_new_tokens=31)]
+        straddled = []
+        verify = bagel.verify_block
+
+        def watched(model, cache, cur, draft, pos, live):
+            past = (cache.lens + draft.shape[1] + 1 > cache.capacity) & live
+            straddled.append(bool(past.any()))
+            return verify(model, cache, cur, draft, pos, live)
+
+        monkeypatch.setattr(bagel, "verify_block", watched)
+        got, eng = both(pair, reqs, num_slots=2, capacity=64, chunk=4, **SPEC)
+        assert not eng.errors and all(isinstance(a, str) for a in got)
+        assert any(straddled)
+        monkeypatch.undo()
+        assert got == serve(pair["torch"], reqs, num_slots=2, capacity=64, chunk=4)[0]
+
+    def test_pool_ladder_raises(self, pair):
+        with pytest.raises(ValueError, match="pool_ladder"):
+            ContinuousBatcher(pair["model"], None, {}, spec_decode=True, pool_ladder=True)

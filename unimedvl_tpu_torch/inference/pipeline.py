@@ -1,17 +1,24 @@
 """Host-side inference orchestrator (port of
 unimedvl_tpu/inference/pipeline.py::InterleaveInferencer): context set-up,
-text, ViT and VAE image context updates, answer decoding and ``chat`` (the
-VQA entry point), and image generation: ``gen_image`` with the batched CFG
-flow loop, ``interleave_inference`` (text to image, image editing) and
-``__call__``.
+text, ViT and VAE image context updates, answer decoding (``gen_text``, also
+keeping the answer in the context, and ``gen_text_stream``), ``chat`` (the VQA
+entry point) and the stateful ``chat_turn``, and image generation:
+``gen_image`` with the batched CFG flow loop, ``interleave_inference`` (text to
+image, image editing) and ``__call__``.
 
 Contexts hold the KV cache, which the port updates in place. A context is a
 cursor into that cache, not a snapshot: after ``update_context_*`` on a
 context, use the returned one and drop the old. ``fork`` gives a context
 storage of its own (a copy), so forks can be appended to independently, as
-the CFG recipes do. ``gen_text`` writes its decode kv past the context's
-``lens`` and never advances them, so asking twice on one context gives the
-same answer.
+the CFG recipes do. ``gen_text`` and ``gen_text_stream`` write their decode kv
+past the context's ``lens`` and never advance them, so asking twice on one
+context gives the same answer; a context they return (``return_ctx``,
+``result``, ``chat_turn``) shares the storage and has lens of its own.
+
+With ``spec_decode`` greedy answers decode speculatively
+(``bagel.generate_text_spec``, ``serving.decode_chunk_spec``): drafts looked
+up in the context's text history (``GenContext.hist``: prompt and answer ids),
+verified ``spec_k`` + 1 tokens a forward, the same tokens as the plain decode.
 
 Every random draw (the initial noise of the flow loop, the VAE posterior
 sample) comes from the inferencer's ``torch.Generator`` through ``_randn``.
@@ -19,15 +26,14 @@ sample) comes from the inferencer's ``torch.Generator`` through ``_randn``.
 With ``sp_mesh`` the flow loop runs as the sequence-parallel program of
 ``parallel/sp_denoise.py`` over that mesh's ranks.
 
-Multi-turn ``chat_turn``, streaming, speculative decoding, the
-vqa-reconstruction recipes and chunked generation jobs are later slices of
-ROADMAP queue 1.
+The vqa-reconstruction recipes and chunked generation jobs are later slices
+of ROADMAP queue 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +42,7 @@ import torch.nn.functional as F
 from unimedvl_tpu_torch.config import TransformConfig
 from unimedvl_tpu_torch.models import bagel
 from unimedvl_tpu_torch.models.bagel import Bagel
+from unimedvl_tpu_torch.models import qwen2_mot as mot
 from unimedvl_tpu_torch.models.qwen2_mot import KVCache, check_kv_bits
 
 # System prompts for think mode (inferencer.py:23-28).
@@ -56,16 +63,20 @@ def _round_up(x: int, m: int) -> int:
 @dataclasses.dataclass
 class GenContext:
     """One conversation context: cache + host bookkeeping (kv length and next
-    rope position)."""
+    rope position). ``hist``: the running text id history (prompts and
+    answers; image blocks are not recorded), where the speculative decode
+    looks up its drafts."""
 
     cache: KVCache
     kv_len: int = 0
     rope: int = 0
+    hist: Tuple[int, ...] = ()
 
     def fork(self) -> "GenContext":
         """A context with the same contents in storage of its own: appending
         to either leaves the other as it was."""
-        return GenContext(cache=self.cache.clone(), kv_len=self.kv_len, rope=self.rope)
+        return GenContext(cache=self.cache.clone(), kv_len=self.kv_len, rope=self.rope,
+                          hist=self.hist)
 
 
 class InterleaveInferencer:
@@ -81,6 +92,9 @@ class InterleaveInferencer:
         sp_mesh=None,
         kv_quantized: bool = False,
         kv_bits: int = 8,
+        spec_decode: bool = False,
+        spec_k: int = 7,
+        spec_ngram: int = 3,
     ):
         """The positional parameters come in the JAX inferencer's order, with
         ``model`` in the place of its ``params, cfg``; the rest are keyword-only
@@ -98,6 +112,11 @@ class InterleaveInferencer:
         context (half the cache bytes of a decode step and of a long
         context; a non-parity mode, like the quantized weights);
         ``kv_bits``: 8; the int4 cache (4) is not ported.
+        ``spec_decode``: prompt-lookup speculative decoding of greedy answers
+        (``bagel.generate_text_spec``): ``spec_k`` drafts verified per forward,
+        looked up after the latest earlier occurrence of the trailing
+        ``spec_ngram`` ids of the context's text history; the same answer as
+        the plain decode. A sampling request decodes plainly.
         ``sp_mesh``: a ``parallel.mesh.Mesh`` with the axes ("model", "seq").
         The denoise loop then goes through
         ``parallel.sp_denoise.generate_latents_tp_sp`` (latents sharded over
@@ -115,6 +134,9 @@ class InterleaveInferencer:
             )
         self.sp_mesh = sp_mesh
         self.kv_quantized = kv_quantized
+        self.spec_decode = spec_decode
+        self.spec_k = spec_k
+        self.spec_ngram = spec_ngram
         self.model = model
         self.cfg = model.config
         self.tokenizer = tokenizer
@@ -149,7 +171,7 @@ class InterleaveInferencer:
         if needed <= cap:
             return ctx
         pad = _round_up(needed, _CAPACITY_BUCKET) - cap
-        return GenContext(cache=ctx.cache.padded(pad), kv_len=ctx.kv_len, rope=ctx.rope)
+        return dataclasses.replace(ctx, cache=ctx.cache.padded(pad))
 
     # -- text ----------------------------------------------------------------
     def _encode_prompt(self, text: str) -> List[int]:
@@ -173,7 +195,8 @@ class InterleaveInferencer:
             torch.from_numpy(positions)[None].to(dev),
             (torch.arange(T_pad) < T)[None].to(dev),
         )
-        return GenContext(cache=cache, kv_len=ctx.kv_len + T, rope=ctx.rope + T)
+        return GenContext(cache=cache, kv_len=ctx.kv_len + T, rope=ctx.rope + T,
+                          hist=ctx.hist + tuple(ids))
 
     # -- images --------------------------------------------------------------
     @staticmethod
@@ -253,7 +276,7 @@ class InterleaveInferencer:
             self.model, ctx.cache, tokens, torch.from_numpy(padded_pos)[None].to(self.device),
             n, self._start_end(), ctx.rope,
         )
-        return GenContext(cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1)
+        return dataclasses.replace(ctx, cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1)
 
     def update_context_image(self, image, ctx: GenContext, vae: bool = True,
                              vit: bool = True) -> GenContext:
@@ -284,29 +307,164 @@ class InterleaveInferencer:
             self.model, ctx.cache, tokens,
             torch.from_numpy(padded_pos)[None].to(self.device), n, self._start_end(), ctx.rope,
         )
-        return GenContext(cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1)
+        return dataclasses.replace(ctx, cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1)
 
     # -- text generation -----------------------------------------------------
-    def gen_text(self, ctx: GenContext, max_length: int = 500, do_sample: bool = False,
-                 temperature: float = 1.0) -> str:
-        """Decode an answer (inferencer.py:259-279; bagel.py:1236-1317). The
-        caller's context is unaffected: decode kv lands past its lens."""
-        ctx = self._ensure_capacity(ctx, max_length + 1)
-        bos = self.new_token_ids["bos_token_id"]
-        out, _ = bagel.generate_text(
-            self.model, ctx.cache,
-            torch.tensor([bos], device=self.device),
-            torch.tensor([ctx.rope], device=self.device),
-            max_length, self.new_token_ids["eos_token_id"],
-            do_sample, temperature, self._generator,
-        )
-        ids = [i for i in out[0].tolist() if i >= 0]
+    def _hist_rows(self, ctx: GenContext, start: int, max_length: int):
+        """The speculative decode's history: the context's text ids and the
+        start token, in a row of HL columns (room for the answer and a draft
+        window, rounded up to 256), and its length; both on the device."""
+        hist = list(ctx.hist) + [start]
+        HL = _round_up(len(hist) + max_length + self.spec_k, 256)
+        row = np.zeros((1, HL), np.int32)
+        row[0, :len(hist)] = hist
+        return (torch.from_numpy(row).to(self.device),
+                torch.tensor([len(hist)], dtype=torch.int32, device=self.device))
+
+    def _parse(self, ids: List[int]) -> Tuple[str, bool]:
+        """The answer text of ``ids`` (reference parsing, bagel.py:1389-1391)
+        and whether it reached <|im_end|>."""
         text = self.tokenizer.decode(ids)
-        # reference parsing (bagel.py:1389-1391)
+        done = "<|im_end|>" in text
         text = text.split("<|im_end|>")[0]
         if "<|im_start|>" in text:
             text = text.split("<|im_start|>")[1]
-        return text
+        return text, done
+
+    def gen_text(self, ctx: GenContext, max_length: int = 500, do_sample: bool = False,
+                 temperature: float = 1.0, *,
+                 return_ctx: bool = False) -> Union[str, Tuple[str, GenContext]]:
+        """Decode an answer (inferencer.py:259-279; bagel.py:1236-1317). The
+        caller's context is unaffected: decode kv lands past its lens.
+
+        ``return_ctx``: also return the context after the answer, whose cache
+        holds the start token and every emitted token (the reference's
+        cache-keeping decode, bagel.py:1259-1314), so that the next turn
+        prefills only its own text; it shares the caller's storage. Greedy
+        with ``spec_decode``: the speculative decode (capacity for
+        max_length + spec_k + 1 more columns); else with ``return_ctx``: the
+        contiguous-cache decode; else the aligned-column decode."""
+        use_spec = self.spec_decode and not do_sample
+        ctx = self._ensure_capacity(ctx, max_length + (self.spec_k + 1 if use_spec else 1))
+        bos, eos = self.new_token_ids["bos_token_id"], self.new_token_ids["eos_token_id"]
+        start = torch.tensor([bos], device=self.device)
+        positions = torch.tensor([ctx.rope], device=self.device)
+        if use_spec:
+            hist, hlen = self._hist_rows(ctx, bos, max_length)
+            out, lengths, cache, _ = bagel.generate_text_spec(
+                self.model, ctx.cache, start, positions, max_length, eos, hist, hlen,
+                k_draft=self.spec_k, ngram=self.spec_ngram)
+        elif return_ctx:
+            out, lengths, cache = bagel.generate_text_ctx(
+                self.model, ctx.cache, start, positions, max_length, eos, do_sample,
+                temperature, self._generator)
+        else:
+            out, lengths = bagel.generate_text(
+                self.model, ctx.cache, start, positions, max_length, eos, do_sample,
+                temperature, self._generator)
+        ids = [i for i in out[0].tolist() if i >= 0]
+        text, _ = self._parse(ids)
+        if not return_ctx:
+            return text
+        n = int(lengths[0])
+        return text, GenContext(cache=cache, kv_len=ctx.kv_len + n, rope=ctx.rope + n,
+                                hist=ctx.hist + tuple(ids))
+
+    def gen_text_stream(self, ctx: GenContext, max_length: int = 500, chunk: int = 8,
+                        result: Optional[dict] = None):
+        """Greedy decode as a generator of text increments
+        (pipeline.py:460-609): the decode runs in chunks of ``chunk`` steps
+        with one host read a step (``serving.decode_chunk`` at S = 1) or,
+        with ``spec_decode``, of ``chunk`` verify forwards
+        (``serving.decode_chunk_spec``). The pieces concatenate to
+        ``gen_text``'s answer: each yield decodes the id prefix but its last
+        id (which may merge with the next), with a trailing U+FFFD trimmed.
+        Stops at eos, <|im_end|> or ``max_length``. The caller's context is
+        unaffected: decode kv lands past its lens, and the chunks return new
+        lens.
+
+        ``result``: a dict filled at the end with ``text`` (the answer) and
+        ``ctx`` (the context after it, as ``gen_text(return_ctx=True)``
+        gives it; the newest token's pending kv is written by one more T = 1
+        forward). The plain path's capacity covers a whole chunk past
+        ``max_length``, since a chunk may run on past it."""
+        from unimedvl_tpu_torch.inference.serving import decode_chunk, decode_chunk_spec
+
+        use_spec = self.spec_decode
+        ctx = self._ensure_capacity(ctx, max_length + (self.spec_k + 1 if use_spec else chunk))
+        eos = self.new_token_ids["eos_token_id"]
+        cache = ctx.cache
+        cur = self.new_token_ids["bos_token_id"]
+        pos = ctx.rope
+        ids = [cur]
+        emitted = ""
+        stop = False
+        pending = True  # the newest emitted token's kv is not yet written
+        plain_forwards = 0  # the plain path's steps run so far
+        dev = self.device
+        one = torch.ones((1,), dtype=torch.bool, device=dev)
+        if use_spec:
+            hist, hlen = self._hist_rows(ctx, cur, max_length)
+
+        while len(ids) < max_length and not stop:
+            cur_t = torch.tensor([cur], dtype=torch.int32, device=dev)
+            pos_t = torch.tensor([pos], dtype=torch.int64, device=dev)
+            if use_spec:
+                budget = torch.tensor([max_length - len(ids)], dtype=torch.int32, device=dev)
+                tokens, counts, fin, last, new_pos, cache, hist, hlen = decode_chunk_spec(
+                    self.model, cache, cur_t, pos_t, one, budget, hist, hlen, chunk, eos,
+                    k_draft=self.spec_k, ngram=self.spec_ngram)
+                n = int(counts[0])
+                ids.extend(tokens[0, :n].tolist())
+                pos, cur = int(new_pos[0]), int(last[0])
+                if bool(fin[0]):
+                    stop = True
+                    pending = pending and n > 0  # an immediate eos consumed the pending token
+                stop = stop or len(ids) >= max_length
+            else:
+                tokens, _last, _pos, cache = decode_chunk(
+                    self.model, cache, cur_t, pos_t, one, chunk, eos=eos)
+                seq = tokens[0].tolist()
+                used = 0
+                hit_eos = False
+                for t in seq:
+                    used += 1
+                    if t == eos:
+                        stop = hit_eos = True
+                        break
+                    ids.append(t)
+                    if len(ids) >= max_length:
+                        stop = True
+                        break
+                pos += used
+                cur = seq[used - 1]
+                # the steps run: up to the eos step, else the whole chunk (it
+                # exits early on eos only); the newest token has kv once the
+                # forwards cover every id
+                plain_forwards += used if hit_eos else len(seq)
+                pending = plain_forwards < len(ids)
+            text, done = self._parse(ids if stop else ids[:-1])
+            stop = stop or done
+            text = text if stop else text.rstrip("\ufffd")
+            if text.startswith(emitted) and len(text) > len(emitted):
+                yield text[len(emitted):]
+                emitted = text
+
+        final, _ = self._parse(ids)
+        if final.startswith(emitted) and len(final) > len(emitted):
+            yield final[len(emitted):]
+        if result is None:
+            return
+        if pending:
+            lm = self.model.language_model
+            x = mot.embed_tokens(lm, torch.tensor([cur], device=dev))[:, None, :]
+            with torch.no_grad():
+                _, cache = lm.model(x, torch.tensor([[pos]], device=dev), cache, causal=True)
+        n = len(ids)
+        result["text"] = final
+        result["ctx"] = GenContext(
+            cache=dataclasses.replace(cache, lens=ctx.cache.lens + n),
+            kv_len=ctx.kv_len + n, rope=ctx.rope + n, hist=ctx.hist + tuple(ids))
 
     def chat(self, images: List, prompt: str, max_length: int = 512,
              do_sample: bool = False, temperature: float = 1.0) -> str:
@@ -320,6 +478,22 @@ class InterleaveInferencer:
         return self.gen_text(
             ctx, max_length=max_length, do_sample=do_sample, temperature=temperature
         )
+
+    def chat_turn(self, ctx: Optional[GenContext], prompt: str, images: Optional[List] = None,
+                  max_length: int = 512, do_sample: bool = False,
+                  temperature: float = 1.0) -> Tuple[str, GenContext]:
+        """One turn of a stateful chat (pipeline.py:1281-1306): the images
+        (ViT only) and the prompt appended to ``ctx`` (None starts a
+        conversation), an answer decoded, and (answer, the context after it),
+        whose cache already holds the answer, so the next turn prefills only
+        its own text. The new context shares the storage of ``ctx``."""
+        if ctx is None:
+            ctx = self.init_gen_context()
+        for image in images or []:
+            ctx = self.update_context_image(image, ctx, vae=False, vit=True)
+        ctx = self.update_context_text(prompt, ctx)
+        return self.gen_text(ctx, max_length=max_length, do_sample=do_sample,
+                             temperature=temperature, return_ctx=True)
 
     # -- image generation ----------------------------------------------------
     def _stack_contexts(self, contexts: List[GenContext]) -> Tuple[KVCache, torch.Tensor]:

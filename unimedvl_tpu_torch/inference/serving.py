@@ -15,13 +15,16 @@ chunk ends early once every active slot has emitted eos; a slot that
 finishes mid-chunk wastes the chunk's remaining steps, and its row is reused,
 lens rewritten, at the next admission. With the pool ladder the pool shrinks
 to the rung that fits the live slots and the backlog (:func:`repack_pool`),
-and grows a rung ahead of admission.
+and grows a rung ahead of admission. With ``spec_decode`` every chunk is a
+speculative one (:func:`decode_chunk_spec`): prompt-lookup drafts from each
+slot's id history, verified k + 1 at a time through K1a, greedy-exact per
+slot; the chunk flavours share the pending-token contract, so they interleave.
 
 The port writes the pool in place where the JAX package donates it, and runs
-each chunk as a Python loop with one host check a step where the JAX package
-has a ``while_loop``. Greedy only. Not here: speculative chunks
-(``decode_chunk_spec``, ROADMAP queue 1 M9), text-to-image requests and the
-HTTP server (M10b), ``mesh=`` (M13), the int4 cache (M8).
+each chunk as a Python loop with one host check a step (a verify forward, in
+a speculative chunk) where the JAX package has a ``while_loop``. Greedy
+only. Not here: text-to-image requests and the HTTP server (M10b), ``mesh=``
+(M13), the int4 cache (M8).
 """
 
 from __future__ import annotations
@@ -225,6 +228,67 @@ def decode_chunk_aligned(
     return tokens, last, pos, _compact_band(cache, base, num_steps, lens0, active, n)
 
 
+@torch.no_grad()
+def decode_chunk_spec(
+    model: Bagel,
+    cache: KVCache,
+    cur_tokens: torch.Tensor,  # [S]
+    positions: torch.Tensor,  # [S]
+    active: torch.Tensor,  # [S] bool
+    budget: torch.Tensor,  # [S] int: most tokens a slot may emit in this chunk
+    hist: torch.Tensor,  # [S, HL] int32 id history (prompt + emitted)
+    hlen: torch.Tensor,  # [S]
+    num_iters: int,
+    eos: int,
+    k_draft: int = 7,
+    ngram: int = 3,
+):
+    """A speculative chunk (serving.py:320-410): up to ``num_iters`` verify
+    forwards ([S, k_draft + 1] each, ``bagel.verify_block``), each emitting 1
+    to k_draft + 1 greedy-exact tokens per live slot (``bagel.spec_accept``).
+    It keeps :func:`decode_chunk`'s pending-token contract: the returned
+    ``last`` token has no kv yet, and the next chunk of either flavour
+    forwards it. A slot freezes (no lens or position advance) once it has
+    emitted ``budget`` tokens or eos; the chunk ends early when no slot is
+    live (the one host read of an iteration). ``hist`` is updated in place.
+
+    Returns (tokens [S, num_iters * (k_draft + 1)], counts [S], fin [S],
+    last [S], positions [S], cache, hist, hlen): ``tokens[:counts]`` holds
+    no eos, and ``fin`` says whether a slot stopped at eos."""
+    S = cur_tokens.shape[0]
+    dev = cur_tokens.device
+    K = k_draft
+    W = num_iters * (K + 1)
+    out = torch.zeros((S, W + K + 1), dtype=torch.int32, device=dev)  # windowed-write margin
+    active = active.to(torch.bool)
+    budget = budget.to(device=dev, dtype=torch.int32)
+    fin = torch.zeros(S, dtype=torch.bool, device=dev)
+    cursor = torch.zeros(S, dtype=torch.int32, device=dev)
+    cur = cur_tokens.to(torch.int32)
+    pos = positions.to(torch.int64)
+    hlen = hlen.to(torch.int32)
+    for _ in range(num_iters):
+        live = active & ~fin & (cursor < budget)
+        if not bool(live.any()):  # the one host read of an iteration
+            break
+        draft = bagel.propose_drafts(hist, hlen, ngram, K)
+        lens = cache.lens
+        g, cache = bagel.verify_block(model, cache, cur, draft, pos, live)
+        E, done, emit, last = bagel.spec_accept(draft, g, live, cursor, budget, eos)
+        fin = fin | done
+        bagel._scatter_row_window(out, emit, cursor)
+        bagel._scatter_row_window(hist, emit.clamp_min(0), hlen)
+        # live with E == 0 is the immediate eos: the pending cur's kv was
+        # written and consumed although nothing was emitted
+        lens = lens + torch.where(live, E.clamp_min(1), 0).to(lens.dtype)
+        cache = dataclasses.replace(cache, lens=lens)
+        cur = torch.where(E >= 1, last, cur)
+        cursor = cursor + E
+        pos = pos + E
+        hlen = hlen + E
+    return out[:, :W], cursor, fin, cur, pos.to(positions.dtype), cache, hist, hlen
+
+
 @dataclasses.dataclass
 class _Slot:
     request_id: Optional[int] = None
@@ -269,13 +333,16 @@ class ContinuousBatcher:
         *,
         kv_quantized: bool = False,
         kv_bits: int = 8,
+        spec_decode: bool = False,
+        spec_k: int = 7,
+        spec_ngram: int = 3,
         pool_ladder: bool = False,
         min_pool: int = 32,
     ):
         """The positional parameters come in the JAX batcher's order, with
         ``model`` in the place of its ``params, cfg``; the rest are
-        keyword-only (the port has no ``mesh``, ``spec_*``, ``pipeline`` or
-        ``gen_*``, so a positional tail could not line up).
+        keyword-only (the port has no ``mesh``, ``pipeline`` or ``gen_*``, so
+        a positional tail could not line up).
 
         ``model``: a Bagel on its device, whose pool of ``num_slots`` x
         ``capacity`` columns is allocated there; ``tokenizer`` /
@@ -284,9 +351,17 @@ class ContinuousBatcher:
         ``data.imaging.ImageTransform`` for image requests; ``seed``: kept
         for the JAX batcher's order (decoding is greedy and draws nothing).
         ``kv_quantized``: an int8 pool with per-key scales (K2-int8);
-        ``kv_bits``: 8 (the int4 cache is not ported). ``pool_ladder``: the
-        drain-tail rightsizing over the rungs ``num_slots``, its halvings down
-        to ``min_pool``."""
+        ``kv_bits``: 8 (the int4 cache is not ported). ``spec_decode``:
+        speculative continuous batching, every chunk a
+        :func:`decode_chunk_spec` (``spec_k`` prompt-lookup drafts verified
+        per forward, from the trailing ``spec_ngram`` ids of each slot's
+        history: its prompt, a preamble's ids included, and what it emitted);
+        greedy-exact per slot. ``pool_ladder``: the drain-tail rightsizing over
+        the rungs ``num_slots``, its halvings down to ``min_pool``; not with
+        ``spec_decode``."""
+        if spec_decode and pool_ladder:
+            raise ValueError("pool_ladder and spec_decode are not composed (nor in the JAX "
+                             "batcher)")
         self.model = model
         self.cfg = model.config
         self.tokenizer = tokenizer
@@ -308,6 +383,14 @@ class ContinuousBatcher:
             kv_bits=kv_bits,
         )
         self.capacity = capacity
+        self.spec_decode = spec_decode
+        self.spec_k = spec_k
+        self.spec_ngram = spec_ngram
+        if spec_decode:
+            # each slot's id history for the drafts: rewritten at admission,
+            # appended by the chunks
+            self._hist = torch.zeros((num_slots, capacity), dtype=torch.int32, device=self.device)
+            self._hlen = torch.zeros((num_slots,), dtype=torch.int32, device=self.device)
         self.slots = [_Slot() for _ in range(num_slots)]
         #: registered preambles: (1-stream cache block, valid length, ids)
         self._prefixes: List[Tuple[KVCache, int, List[int]]] = []
@@ -686,6 +769,26 @@ class ContinuousBatcher:
             # max_new_tokens counts the start token, as the reference's max_length does
             slot.remaining = req.max_new_tokens - 1
             slot.out_ids = [slot.cur_token]
+        if self.spec_decode and ok_admits:
+            self._write_hist(ok_admits)
+
+    def _write_hist(self, admits) -> None:
+        """The admitted slots' history rows: the prompt's ids (after a
+        preamble's ids for a prefixed request) and the start token, the last
+        ``capacity`` of them."""
+        bos = self.new_token_ids["bos_token_id"]
+        rows = np.zeros((len(admits), self.capacity), np.int32)
+        hlens = np.zeros((len(admits),), np.int32)
+        for j, (_i, _rid, req, ids, *_rest) in enumerate(admits):
+            seq = list(ids) + [bos]
+            if req.prefix_id is not None:  # draft from the preamble too
+                seq = list(self._prefixes[req.prefix_id][2]) + seq
+            seq = seq[-self.capacity:]
+            rows[j, :len(seq)] = seq
+            hlens[j] = len(seq)
+        idx = self._tensor(np.asarray([a[0] for a in admits], np.int64))
+        self._hist[idx] = self._tensor(rows)
+        self._hlen[idx] = self._tensor(hlens)
 
     # -- results ----------------------------------------------------------------
     def _text(self, ids: List[int]) -> str:
@@ -771,6 +874,9 @@ class ContinuousBatcher:
                          np.int32)
         pos = np.asarray([s.position for s in pool_slots], np.int64)
         k = self.chunk
+        if self.spec_decode:
+            self._spec_round(st, eos, pool_slots, active, cur, pos, t0)
+            return
         # the aligned chunk while its band fits above every live stream (the
         # largest live kv extent + chunk <= capacity), else the scatter chunk.
         # kv_len mirrors the device lens: a chunk advances every active slot
@@ -818,3 +924,31 @@ class ContinuousBatcher:
             target = self._rung(max(1, n_active + len(self._pending)))
             if target < self.pool:
                 self._repack(target)
+
+    def _spec_round(self, st, eos, pool_slots, active, cur, pos, t0) -> None:
+        """The round's decode as one :func:`decode_chunk_spec` of up to
+        ``chunk`` verify forwards, each slot's budget its remaining tokens,
+        and its host bookkeeping (serving.py:1280-1314)."""
+        budget = np.asarray([max(s.remaining, 0) if s.request_id is not None else 0
+                             for s in pool_slots], np.int32)
+        tokens, counts, fin, last, new_pos, self.cache, self._hist, self._hlen = \
+            decode_chunk_spec(
+                self.model, self.cache, self._tensor(cur), self._tensor(pos),
+                self._tensor(active), self._tensor(budget), self._hist, self._hlen,
+                self.chunk, eos, k_draft=self.spec_k, ngram=self.spec_ngram)
+        tokens, counts, fin, last, new_pos = (
+            t.cpu().numpy() for t in (tokens, counts, fin, last, new_pos))  # the host read
+        st["decode_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i, slot in enumerate(pool_slots):
+            if slot.request_id is None:
+                continue
+            n = int(counts[i])
+            slot.out_ids.extend(int(t) for t in tokens[i, :n])
+            st["emitted_tokens"] += n
+            slot.remaining -= n
+            slot.position = int(new_pos[i])
+            slot.cur_token = int(last[i])
+            if bool(fin[i]) or slot.remaining <= 0:
+                self._finish(slot)
+        st["host_s"] += time.perf_counter() - t0

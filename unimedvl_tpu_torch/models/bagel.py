@@ -1,7 +1,10 @@
 """Bagel unified model (port of unimedvl_tpu/models/bagel.py): the
 understanding programs (the ViT image prefill, the causal text prefill, the
-greedy / sampled decode loop) and the generation programs (the VAE image
-prefill, the rectified-flow loop with batched CFG, the VAE decode).
+greedy / sampled decode loops: the aligned-column decode, the
+contiguous-cache decode that keeps its answer in the cache, and the
+prompt-lookup speculative decode, greedy-exact against the latter) and the
+generation programs (the VAE image prefill, the rectified-flow loop with
+batched CFG, the VAE decode).
 
 ``Bagel`` holds every released weight under its released name: the Qwen2 MoT
 LLM with both experts, the SigLIP ViT, the connector and the frozen ViT
@@ -28,6 +31,7 @@ is held and runs in fp32.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
@@ -273,6 +277,13 @@ def prefill_vit_group(
     return cache
 
 
+def _next_token(logits, do_sample: bool, temperature: float, generator) -> torch.Tensor:
+    if do_sample:
+        probs = torch.softmax(logits / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
 @torch.no_grad()
 def generate_text(
     model: Bagel,
@@ -313,18 +324,209 @@ def generate_text(
             x, pos[:, None], cache, causal=True, decode_cols=(base, base + step)
         )
         logits = mot.lm_head(lm, h[:, 0])  # [S, V] fp32
-        if do_sample:
-            probs = torch.softmax(logits / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        else:
-            nxt = torch.argmax(logits, dim=-1)
-        cur = nxt.to(torch.int32)
+        cur = _next_token(logits, do_sample, temperature, generator)
         done = done | (cur == eos_id)
         pos = pos + 1
         if bool(done.all()):
             break
     lengths = (out >= 0).sum(dim=1)
     return out, lengths
+
+
+@torch.no_grad()
+def generate_text_ctx(
+    model: Bagel,
+    cache: KVCache,
+    start_tokens: torch.Tensor,  # [S]
+    positions: torch.Tensor,  # [S]
+    max_length: int,
+    eos_id: int,
+    do_sample: bool = False,
+    temperature: float = 1.0,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """The contiguous-cache decode (bagel.py:430-496): like
+    :func:`generate_text`, but each stream appends its kv at its own
+    ``lens[s]`` (the T = 1 per-stream step, K2 / K2-int8 with the band
+    ``(lens, lens)``) and the cache comes back with lens advanced, so a
+    multi-turn chat keeps its context instead of prefilling every answer
+    again. The cache then holds the start token and every emitted token but
+    eos (eos is never forwarded); a finished stream stops advancing
+    (``q_valid = ~done``). The kv lands in the caller's cache tensors past
+    its lens; the returned lens are new tensors.
+
+    Returns (tokens [S, max_length] padded with -1, lengths [S], cache)."""
+    lm = model.language_model
+    S = start_tokens.shape[0]
+    device = start_tokens.device
+    out = torch.full((S, max_length), -1, dtype=torch.int32, device=device)
+    done = torch.zeros(S, dtype=torch.bool, device=device)
+    cur = start_tokens.to(torch.int32)
+    pos = positions.to(torch.int64)
+    for step in range(max_length):
+        out[:, step] = torch.where(done, -1, cur)
+        x = mot.embed_tokens(lm, cur)[:, None, :]
+        h, cache = lm.model(x, pos[:, None], cache, causal=True, q_valid=~done[:, None])
+        cur = _next_token(mot.lm_head(lm, h[:, 0]), do_sample, temperature, generator)
+        done = done | (cur == eos_id)
+        pos = pos + 1
+        if bool(done.all()):  # the one host read of a step
+            break
+    return out, (out >= 0).sum(dim=1), cache
+
+
+def propose_drafts(hist: torch.Tensor, hlen: torch.Tensor, ngram: int, K: int) -> torch.Tensor:
+    """Prompt-lookup drafts (bagel.py:499-519): the K ids that followed the
+    latest PRIOR occurrence of each stream's trailing ``ngram`` ids in
+    ``hist`` [S, HL] (valid region [0, hlen)). Tail positions are clamped at
+    0; a match counts only at b < hlen - ngram; with no match the drafts
+    start at 0; draft positions are clipped to HL - 1. Drafts cost speed
+    only, never correctness: one is accepted only where it equals the greedy
+    choice. Returns int32 [S, K]."""
+    HL = hist.shape[1]
+    B = HL - ngram + 1
+    dev = hist.device
+    hlen = hlen.to(torch.int64)
+    tail_pos = (hlen[:, None] - ngram + torch.arange(ngram, device=dev)).clamp_min(0)
+    tail = torch.gather(hist, 1, tail_pos)
+    windows = hist.unfold(1, ngram, 1)  # [S, B, ngram]
+    b = torch.arange(B, device=dev)
+    match = (windows == tail[:, None, :]).all(dim=-1) & (b[None] < hlen[:, None] - ngram)
+    b_star = torch.where(match, b[None], -1).amax(dim=1)  # -1: no match
+    dstart = torch.where(b_star >= 0, b_star + ngram, 0)
+    dpos = (dstart[:, None] + torch.arange(K, device=dev)).clamp(0, HL - 1)
+    return torch.gather(hist, 1, dpos).to(torch.int32)
+
+
+def _scatter_row_window(buf: torch.Tensor, vals: torch.Tensor,
+                        starts: torch.Tensor) -> torch.Tensor:
+    """Write a [S, W] window into ``buf`` [S, L] at per-stream columns
+    ``starts``, in place, and return ``buf`` (bagel.py:522-540). One stream
+    clamps its start into [0, L - W], as JAX's ``dynamic_update_slice`` does;
+    several drop a row whose window runs past L, whole, as JAX's
+    ``FILL_OR_DROP`` scatter does (the row's columns are rewritten with what
+    they held, so no host read decides which rows write)."""
+    S, W = vals.shape
+    L = buf.shape[1]
+    steps = torch.arange(W, device=buf.device)
+    starts = starts.to(torch.int64)
+    vals = vals.to(buf.dtype)
+    if S == 1:
+        buf[0, starts[:1].clamp(0, L - W) + steps] = vals[0]
+        return buf
+    cols = starts[:, None] + steps
+    fits = cols[:, -1:] < L
+    cols = cols.clamp_max(L - 1)
+    rows = torch.arange(S, device=buf.device)[:, None].expand(S, W)
+    buf[rows, cols] = torch.where(fits, vals, buf[rows, cols])
+    return buf
+
+
+def spec_accept(draft, g, live, cursor, limit, eos_id: int):
+    """The acceptance algebra of one verify forward (bagel.py:611-642),
+    on the device: ``draft`` [S, K], ``g`` the greedy choices [S, K + 1] of
+    the block [cur, draft]. A live stream accepts 1 + the longest prefix of
+    drafts equal to the greedy choices, cut at the first valid eos and at
+    ``limit - cursor`` tokens; the others accept 0 (they freeze). Returns
+    (E [S] tokens accepted, fin [S] an eos was reached, the [S, K + 1]
+    window of accepted tokens (-1 past E), the last accepted token or -1)."""
+    K1 = g.shape[1]
+    idxs = torch.arange(K1, device=g.device)[None]
+    matched = (draft == g[:, :-1]).to(torch.int32)
+    c = 1 + torch.cumprod(matched, dim=1).sum(dim=1)
+    is_eos = (g == eos_id) & (idxs < c[:, None])
+    e = torch.where(is_eos, idxs, K1).amin(dim=1)
+    E = torch.where(live, torch.minimum(torch.minimum(c, e), limit - cursor), 0).to(torch.int32)
+    fin = live & (e < c) & (e <= E)
+    emit = torch.where(idxs < E[:, None], g, -1)
+    last = torch.gather(g, 1, (E.to(torch.int64) - 1).clamp_min(0)[:, None])[:, 0]
+    return E, fin, emit, torch.where(E >= 1, last, -1)
+
+
+def verify_block(model: Bagel, cache: KVCache, cur, draft, pos, live):
+    """The [S, K + 1] verify forward: the block [cur, drafts] at positions
+    pos.., written at each stream's lens (a window past the capacity is
+    dropped whole when S > 1), causal over the cache through K1a, only the
+    ``live`` streams' rows valid. Returns (greedy choices int32 [S, K + 1],
+    the cache)."""
+    lm = model.language_model
+    S, K = draft.shape
+    block = torch.cat([cur[:, None], draft], dim=1)
+    x = mot.embed_tokens(lm, block)
+    block_pos = pos[:, None] + torch.arange(K + 1, device=pos.device)
+    h, cache = lm.model(x, block_pos, cache, causal=True,
+                        q_valid=live[:, None].expand(S, K + 1))
+    logits = mot.lm_head(lm, h.reshape(S * (K + 1), -1))
+    return torch.argmax(logits, dim=-1).reshape(S, K + 1).to(torch.int32), cache
+
+
+@torch.no_grad()
+def generate_text_spec(
+    model: Bagel,
+    cache: KVCache,
+    start_tokens: torch.Tensor,  # [S]
+    positions: torch.Tensor,  # [S]
+    max_length: int,
+    eos_id: int,
+    hist_ids: torch.Tensor,  # [S, HL] prompt ids, the last valid one the start token
+    hist_lens: torch.Tensor,  # [S]
+    k_draft: int = 7,
+    ngram: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache, int]:
+    """Prompt-lookup speculative decode (bagel.py:547-674), greedy-exact
+    against :func:`generate_text_ctx`: the same tokens, lengths and final
+    cache, with ``k_draft`` drafts (:func:`propose_drafts`) verified per
+    forward (:func:`verify_block`). A Python loop with one host read an
+    iteration (is any stream still live); the acceptance stays on the
+    device. Streams freeze (no lens or position advance) once done or full.
+    After the loop one T = 1 forward (``q_valid = pending``) writes the kv of
+    each stream's newest accepted token, so that the cache holds every
+    emitted token as the plain decode's does.
+
+    ``hist_ids`` is not modified. HL must be >= max(hist_lens) + max_length
+    + k_draft, and the cache must have room for lens + max_length + k_draft
+    + 1 columns. Returns (tokens [S, max_length] with the start token and
+    without eos, padded with -1; lengths [S]; the cache; the number of verify
+    forwards)."""
+    S = start_tokens.shape[0]
+    dev = start_tokens.device
+    K = k_draft
+    out = torch.full((S, max_length + K + 1), -1, dtype=torch.int32, device=dev)
+    out[:, 0] = start_tokens.to(torch.int32)
+    cursor = torch.ones(S, dtype=torch.int32, device=dev)  # slot 0 holds the start token
+    done = torch.zeros(S, dtype=torch.bool, device=dev)
+    cur = start_tokens.to(torch.int32)
+    pos = positions.to(torch.int64)
+    lens = cache.lens
+    pending = torch.ones(S, dtype=torch.bool, device=dev)  # the start token has no kv yet
+    hist = hist_ids.to(torch.int32).clone()
+    hlen = hist_lens.to(torch.int32).to(dev)
+    n_forwards = 0
+    while bool(((cursor < max_length) & ~done).any()):  # the one host read of an iteration
+        draft = propose_drafts(hist, hlen, ngram, K)
+        g, cache = verify_block(model, dataclasses.replace(cache, lens=lens), cur, draft,
+                                pos, ~done)
+        active = ~done & (cursor < max_length)
+        E, fin, emit, last = spec_accept(draft, g, active, cursor, max_length, eos_id)
+        done = done | fin
+        _scatter_row_window(out, emit, cursor)
+        _scatter_row_window(hist, emit.clamp_min(0), hlen)
+        # active with E == 0 is the immediate eos: cur's kv was written and
+        # consumed, and nothing new is pending
+        lens = lens + torch.where(active, E.clamp_min(1), 0).to(lens.dtype)
+        cur = torch.where(E >= 1, last, cur)
+        pending = torch.where(active, E >= 1, pending)
+        cursor = cursor + E
+        pos = pos + E
+        hlen = hlen + E
+        n_forwards += 1
+    lm = model.language_model
+    x = mot.embed_tokens(lm, cur)[:, None, :]
+    _, cache = lm.model(x, pos[:, None], dataclasses.replace(cache, lens=lens), causal=True,
+                        q_valid=pending[:, None])
+    cache = dataclasses.replace(cache, lens=lens + pending.to(lens.dtype))
+    out = out[:, :max_length]
+    return out, (out >= 0).sum(dim=1), cache, n_forwards
 
 
 # ---------------------------------------------------------------------------

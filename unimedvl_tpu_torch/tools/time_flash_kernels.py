@@ -4,6 +4,7 @@ in one run, so that two versions of ``csrc/flash_block_attention.cu`` (and of
 the device code it shares) can be compared:
 
     python unimedvl_tpu_torch/tools/time_flash_kernels.py PARENT CHANGE CHANGE PARENT
+    python unimedvl_tpu_torch/tools/time_flash_kernels.py --verify PARENT CHANGE CHANGE PARENT
 
 Each checkout is timed in a process of its own (it imports that checkout's
 package and builds its kernels there), at path shapes of ``chip_smoke.py``,
@@ -18,7 +19,12 @@ times per call in a run of 20, the same for one
 ``scaled_dot_product_attention`` call on the same mask (q pre-processed
 outside, K/V expanded to the query heads beforehand), and the shape's bound
 (the larger of its bytes over 3.35 TB/s and its flops over 989 TFLOP/s), as
-one JSON line per checkout after the card's name and power limit."""
+one JSON line per checkout after the card's name and power limit.
+
+``--verify`` times K1a at the speculative decode's verify block instead:
+T = 8 causal rows per stream after its context, at S 1 with lens 800 over M
+1024 and lens 5000 over M 5632, and at S 16 over a serving pool's lens (4
+streams near 5150 columns, 4 near 1070, 8 near 750; M 6144)."""
 
 from __future__ import annotations
 
@@ -31,16 +37,23 @@ RUN = 20
 HBM_BYTES_S, BF16_FLOPS_S = 3.35e12, 989e12
 
 
-def bound_ms(q_rows, keys, H, Hk, D) -> float:
-    """Least time for an attention call in which each of a stream's rows
-    sees all its keys: q and out once, K and V once per KV head, at the HBM
-    rate, or 4 H D flops per (row, key) pair at the bf16 peak."""
+VERIFY_T = 8  # the verify block: the current token and 7 drafts
+SERVE_LENS = tuple([5141 + 3 * i for i in range(4)] + [1063 + 5 * i for i in range(4)]
+                   + [746 + 4 * i for i in range(8)])
+
+
+def bound_ms(q_rows, keys, H, Hk, D, pairs=None) -> float:
+    """Least time for an attention call: q and out once, K and V once per KV
+    head, at the HBM rate, or 4 H D flops per visible (row, key) pair at the
+    bf16 peak; ``pairs`` per stream, each row seeing all its keys unless
+    given."""
+    pairs = [r * k for r, k in zip(q_rows, keys)] if pairs is None else pairs
     n_bytes = sum(4 * r * H * D + 4 * k * Hk * D for r, k in zip(q_rows, keys))
-    flops = sum(4.0 * H * D * r * k for r, k in zip(q_rows, keys))
+    flops = sum(4.0 * H * D * p for p in pairs)
     return 1e3 * max(n_bytes / HBM_BYTES_S, flops / BF16_FLOPS_S)
 
 
-def _worker(checkout: str) -> None:
+def _worker(checkout: str, verify: bool = False) -> None:
     sys.path.insert(0, checkout)
     import torch
 
@@ -85,6 +98,21 @@ def _worker(checkout: str) -> None:
         return torch.arange(M, device="cuda")[None, None]
 
     out = {"checkout": checkout}
+    if verify:
+        T = VERIFY_T
+        for S, lens, M in ((1, (800,), 1024), (1, (5000,), 5632), (16, SERVE_LENS, 6144)):
+            q, kc, vc = randn(S, T, 28, 128, scale=2.0), randn(S, 4, M, 128), randn(S, 4, M, 128)
+            ln = ints(*lens)
+            rows = torch.arange(T, device="cuda")[None, :, None]
+            off = cols(M) - ln[:, None, None]
+            mask = (off < 0) | ((off >= 0) & (off <= rows))
+            out[f"K1a verify S={S} T={T} M={M}, lens {min(lens)}-{max(lens)}"] = dict(
+                both(lambda: fa.flash_block_attention(q, kc, vc, ln, ln, True, T, True)),
+                sdpa=sdpa(q, kc, vc, mask),
+                bound_ms=bound_ms([T] * S, [n + T for n in lens], 28, 4, 128,
+                                  [T * n + T * (T + 1) // 2 for n in lens]))
+        print(json.dumps(out), flush=True)
+        return
     q, kv = randn(1, 5122, 28, 128, scale=2.0), randn(2, 1, 4, 5632, 128)
     zero, qvl = ints(0), ints(4902)
     out["K1a image prefill"] = dict(
@@ -162,8 +190,10 @@ def _worker(checkout: str) -> None:
 
 
 def main(argv) -> int:
+    verify = argv[:1] == ["--verify"]
+    argv = argv[1:] if verify else argv
     if len(argv) == 2 and argv[0] == "--worker":
-        _worker(argv[1])
+        _worker(argv[1], verify)
         return 0
     if not argv:
         print(__doc__)
@@ -172,7 +202,8 @@ def main(argv) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     for checkout in argv:
-        subprocess.run([sys.executable, __file__, "--worker", checkout], check=True)
+        subprocess.run([sys.executable, __file__, *(["--verify"] if verify else []), "--worker",
+                        checkout], check=True)
     return 0
 
 
