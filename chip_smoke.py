@@ -22,6 +22,13 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   chat's up to near-ties; A's and B's pools also near capacity, where the
   batcher falls back to the scatter chunk; run D, B's workload decoded
   speculatively (``spec_decode=True``, 7 drafts a verify forward, no ladder);
+- the unified serving path (run E): the batcher with ``pipeline=`` serving 12
+  of run A's text and image requests beside eight text-to-image requests
+  (four 512x512, four 256x256: two groups of four images denoised in one
+  forward a step, ``gen_chunk`` 10), text answers gated against chat's and
+  each image's latent against the one-shot path; then the HTTP front end
+  (``ServingDaemon``, ``make_server`` on 127.0.0.1): /v1/generate with an
+  image, /v1/images at 512x512, /v1/health;
 - the speculative decode path: ``InterleaveInferencer(spec_decode=True)``
   answering the three chat requests, the 378x378 request at 128 tokens
   plainly and speculatively (the lookup over a junk history and over the
@@ -373,6 +380,8 @@ def check_kernels() -> dict:
         timings[name]["serving_cases"] = rows
     print("K1a at the speculative verify shapes:", flush=True)
     timings["flash_block_attention"]["spec_cases"] = check_spec_k1a(randn, ints)
+    print("K1b at the grouped denoise shapes (run E):", flush=True)
+    timings["flash_block_attention_q_preproc"]["group_cases"] = check_group_k1b(randn, ints)
     return timings
 
 
@@ -1368,22 +1377,25 @@ def logits_workload(run: str):
 
 
 class ForwardCounter:
-    """Forwards of the LLM split into decode steps (one row per stream) and
+    """Forwards of the LLM split into denoise steps (gen-mode forwards that
+    leave the cache as it was), decode steps (one row per stream) and
     prefills (the speculative verify forwards among them, counted also in
     ``verify``), and forwards of the ViT: the launches a run must show
     follow from them."""
 
     def __init__(self, model):
-        self.decode = self.prefill = self.vit = self.verify = 0
+        self.decode = self.prefill = self.vit = self.verify = self.denoise = 0
         self.vit_rows = []  # the images of each ViT forward
         lm = model.language_model.model
         self.hooks = [
-            lm.register_forward_pre_hook(self._llm),
+            lm.register_forward_pre_hook(self._llm, with_kwargs=True),
             model.vit_model.register_forward_pre_hook(self._vit),
         ]
 
-    def _llm(self, module, args):
-        if args[0].shape[1] == 1:
+    def _llm(self, module, args, kwargs):
+        if kwargs.get("update_cache") is False:
+            self.denoise += 1
+        elif args[0].shape[1] == 1:
             self.decode += 1
         else:  # a prefill block has 18 rows or more, a verify block SPEC_K + 1
             self.prefill += 1
@@ -1758,7 +1770,8 @@ def run_serving_phase(inf: InterleaveInferencer) -> list:
     """Runs A (bf16 weights and pool), B (bf16 weights, int8 pool), C
     (w4a8 per channel, fused, int8 pool) and D (B's, decoded speculatively:
     SPEC_K drafts a verify forward, no ladder) on the smoke's model, A's and
-    B's pools also near capacity. The batcher waits for the card at the end of
+    B's pools also near capacity; after A, run E (unified text and image
+    serving) and the HTTP front end. The batcher waits for the card at the end of
     each phase of a round (UNIMEDVL_SERVING_PROFILE), so that ``stats`` splits
     device work. Returns their launches."""
     os.environ["UNIMEDVL_SERVING_PROFILE"] = "1"
@@ -1771,6 +1784,8 @@ def run_serving_phase(inf: InterleaveInferencer) -> list:
                                ("bf16 weights, int8 pool", int8_pool, "B")):
             main, gap_limit = run_serving(name, ref, run, 4, 0, 0)
             launches += [main, run_near_capacity(run, ref, gap_limit)]
+            if run == "A":
+                launches += [run_unified_serving(inf, gap_limit), run_http(inf)]
         w4a8 = quantized_inferencer(inf, bits=4, act_quant=True)
         launches.append(run_serving("w4a8 per channel, fused, int8 pool", w4a8, "C", 2, 1, 4)[0])
         del w4a8
@@ -1781,6 +1796,335 @@ def run_serving_phase(inf: InterleaveInferencer) -> list:
     finally:
         os.environ.pop("UNIMEDVL_SERVING_PROFILE")
     torch.cuda.empty_cache()
+    return launches
+
+
+# -- unified text and image serving (M10b) -----------------------------------------------------
+GEN_CHUNK, GEN_GROUP = 10, 4  # the batcher's defaults
+T2I_REQUESTS = [(GEN_SIZE, p) for p in (
+    GEN_PROMPT, "An axial CT slice of the abdomen with a renal cyst.",
+    "A T2-weighted brain MRI with a small frontal lesion.", "A frontal chest radiograph, normal.",
+)] + [((256, 256), p) for p in (
+    "A lateral knee radiograph.", "A hand radiograph with a healed fracture.",
+    "An ultrasound of the gallbladder with a stone.", "A sagittal lumbar spine MRI.",
+)]
+
+
+def t2i_lens(prompt: str) -> int:
+    """A text-to-image request's context length: bos + the prompt + eos."""
+    return len(prompt.encode("utf-8")) + 2
+
+
+def check_group_k1b(randn, ints) -> list:
+    """K1b at the grouped denoise steps of run E (H 28 / Hk 4, D 128,
+    non-causal, the block behind a 512-column context cache): S 12 = 4
+    images x 3 streams at T 1026 (512 px) and T 258 (256 px), lens as
+    ``_start_gen`` leaves them (the prompt for the main and cfg_img streams, 0
+    for cfg_text), and S 4, T 1026 (the 1-stream steps of four images).
+    Each row: kernel against plain on every row, the bound from this data's
+    visible pairs, and SDPA's time on the same mask with q pre-processed
+    outside (no PyTorch call norms and rotates q inside attention)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    lens512 = [t2i_lens(p) for (size, p) in T2I_REQUESTS if size == GEN_SIZE]
+    lens256 = [t2i_lens(p) for (size, p) in T2I_REQUESTS if size != GEN_SIZE]
+    cases = []
+    for name, T, lens in (
+            ("4 images x 3 streams, 512 px", 1026, [x for n in lens512 for x in (n, 0, n)]),
+            ("4 images x 3 streams, 256 px", 258, [x for n in lens256 for x in (n, 0, n)]),
+            ("4 images x 1 stream, 512 px", 1026, lens512)):
+        S, cap = len(lens), 512
+        M = cap + T
+        q = randn(S, T, 28, 128, scale=2.0)
+        kc, vc = randn(S, 4, M, 128), randn(S, 4, M, 128)
+        ln, bs = ints(*lens), ints(*[cap] * S)
+        cos, sin = rope_cos_sin(torch.full((S, 1), 57, device="cuda"), 128, 1e6)
+        w = [(1 + 0.1 * torch.randn(128, generator=g, device="cuda")).to(torch.bfloat16)
+             for _ in range(2)]
+        qp = dict(w_und=w[0], w_gen=w[1], cos=cos, sin=sin, end_row=None, eps=1e-6)
+        r = _compare(f"K1b grouped denoise, {name}: S={S} T={T} M={M}",
+                     lambda: fa.flash_block_attention(q, kc, vc, ln, bs, False, None, True,
+                                                      q_preproc=qp),
+                     lambda: fa.flash_block_attention_ref(q, kc, vc, ln, bs, False, None, True,
+                                                          q_preproc=qp), T, back_to_back=False)
+        r.update(attention_bound([T] * S, [n + T for n in lens], 28, 4, 128, 2, "bf16"))
+        per = fa._launch.per_stream
+        mask = fa._visibility_mask(T, M, ln, bs, per(T, S, q.device), False, q.device)
+        r["library_ms"] = sdpa_ms(fa.preprocess_q(q, qp), kc, vc, mask)
+        print(f"    bound {r['bound_ms']:.4f} ms by {r['bound_by']}; SDPA on q pre-processed "
+              f"outside, same mask {r['library_ms']:.3f} ms", flush=True)
+        r.pop("ms_back_to_back")
+        cases.append(dict(case=f"{name}: S={S} T={T} M={M}, lens {min(lens)}-{max(lens)}", **r))
+    return cases
+
+
+def _unified_text_workload():
+    """Run E's 12 text and image requests, from run A's: two of each image
+    size (980x980, 378x532, 378x378) and six text prompts, without the
+    preamble, as (image array or None, prompt)."""
+    first, later = serving_workload("A")
+    images = [first[i] for i in (0, 1, 4, 5, 8, 9)]
+    return [(a, p) for a, p, _pre in images] + [(None, p) for p in SERVE_TEXT[:6]]
+
+
+def _t2i_contexts(inf: InterleaveInferencer, prompt: str):
+    """The batcher's text-to-image context recipe (``ContinuousBatcher._start_gen``)."""
+    g = inf.init_gen_context()
+    ci, ct = g.fork(), g.fork()
+    return inf.update_context_text(prompt, g), ct, inf.update_context_text(prompt, ci)
+
+
+def _timed(store: dict, key_fn, fn):
+    """``fn`` wrapped to add its synchronised seconds to ``store[key_fn(args)]``."""
+    def call(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        key = key_fn(*args, **kw)
+        store[key] = store.get(key, 0.0) + time.perf_counter() - t0
+        return out
+    return call
+
+
+def run_unified_serving(inf: InterleaveInferencer, gap_limit: float) -> dict:
+    """Run E, unified serving at the full width: ``ContinuousBatcher``
+    (pool of 16 x 6144, chunks of 16, ``pipeline=inf``, ``gen_chunk`` 10,
+    ``gen_group`` 4) serving 12 of run A's text and image requests and eight
+    text-to-image requests at the batcher's defaults (50 timesteps, CFG text
+    3.0 and image 1.5 on (0.4, 1.0]): four 512x512 and four 256x256, two
+    groups. The same 12 text requests run alone first, on an engine without
+    a pipeline. Checks the launches against the forwards (K1b at every
+    denoise forward x 28), that every request was answered with ``errors``
+    empty, the text answers against chat's (:func:`check_answers`, run A's
+    near-tie limit) and each image's final latent against the one-shot
+    ``gen_image_latent`` of the same request, the generator replayed to the
+    same draw (cosine at VELOCITY_COS_TOL: cuBLAS picks algorithms by row
+    count, so a group is not bit-equal). Prints the text emitted tok/s alone
+    and with the images in flight, ``gen_s``, s/image per geometry and the ms
+    per grouped denoise step at G 4 against G 1. Returns the launches."""
+    n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
+    text = _unified_text_workload()
+
+    def engine(pipeline=None):
+        return ContinuousBatcher(inf.model, inf.tokenizer, inf.new_token_ids, SERVE_SLOTS,
+                                 SERVE_CAPACITY, SERVE_CHUNK, inf.vit_transform, SEED,
+                                 pipeline=pipeline, gen_chunk=GEN_CHUNK, gen_group=GEN_GROUP)
+
+    def submit_text(b):
+        return [b.submit(Request(prompt=p, image=None if a is None else _pil_image(a),
+                                 max_new_tokens=SERVE_MAX_NEW)) for a, p in text]
+
+    print(f"serving run E (unified): {len(text)} text and image requests and "
+          f"{len(T2I_REQUESTS)} text-to-image requests (4 x 512x512, 4 x 256x256, 50 "
+          f"timesteps), ContinuousBatcher(num_slots={SERVE_SLOTS}, capacity={SERVE_CAPACITY}, "
+          f"chunk={SERVE_CHUNK}, pipeline=..., gen_chunk={GEN_CHUNK}, gen_group={GEN_GROUP})",
+          flush=True)
+    warm = engine(inf)  # first uses of the shapes and the VAE decode, not counted
+    warm.submit(Request(prompt="warm-up", max_new_tokens=2))
+    warm.submit(Request(prompt="warm-up", image_size=(256, 256), gen_params=dict(
+        num_timesteps=3)))
+    warm.run()
+    del warm
+    b = engine()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    submit_text(b)
+    b.run()
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t0
+    alone_tok_s = b.stats["emitted_tokens"] / alone_s
+    del b
+
+    b = engine(inf)
+    eos = b.new_token_ids["eos_token_id"]
+    got_ids = _recording_ids(b)
+    latents, spent = {}, {}
+    finish_group = inf.finish_gen_job_group
+
+    def record(job):
+        x = job.x_t if job.x_t.dim() == 3 else job.x_t[None]
+        for rid, xg in zip(b._gen_job[0], x):
+            latents[rid] = xg.clone()
+        return finish_group(job)
+
+    geometry = lambda job, *a, **k: job.image_shape  # noqa: E731
+    inf.finish_gen_job_group = _timed(spent, geometry, record)
+    inf.advance_gen_job = _timed(spent, geometry, inf.advance_gen_job)
+    b._start_gen = _timed(spent, lambda req: req.image_size, b._start_gen)
+    gen_state = inf._generator.get_state()
+    counter = ForwardCounter(inf.model)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        rids = submit_text(b)
+        img_rids = [b.submit(Request(prompt=p, image_size=hw)) for hw, p in T2I_REQUESTS]
+        st = b._reset_stats()
+        text_s, gen_rounds = None, 0
+        while b.has_work():
+            gen_rounds += b._gen_job is not None
+            b._round(st, eos)
+            if text_s is None and all(r in b._done or r in b.errors for r in rids):
+                text_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        counter.remove()
+        for name in ("finish_gen_job_group", "advance_gen_job"):
+            del inf.__dict__[name]
+    launches = check_counts("serving run E (unified)", {
+        "flash_block_attention": counter.vit * n_vit + counter.prefill * n_llm,
+        "flash_block_attention_q_preproc": counter.denoise * n_llm,
+        "decode_attention": counter.decode * n_llm,
+    })
+    out = dict(b._done)
+    bad = [r for r in rids if not isinstance(out.get(r), str)] + [
+        r for r, (hw, _p) in zip(img_rids, T2I_REQUESTS)
+        if getattr(out.get(r), "size", None) != hw[::-1]]
+    if b.errors or bad:
+        raise SystemExit(f"chip_smoke: serving run E: errors {b.errors}, unanswered {bad}")
+    n_img = {hw: sum(h == hw for h, _p in T2I_REQUESTS) for hw, _p in T2I_REQUESTS}
+    row = dict(card=CARD, seconds=seconds, text_s=text_s,
+               text_emitted_tokens=st["emitted_tokens"],
+               text_emitted_tok_s_with_t2i=st["emitted_tokens"] / text_s,
+               text_emitted_tok_s_alone=alone_tok_s, alone_s=alone_s,
+               stats={k: st[k] for k in ("rounds", "admit_s", "gen_s", "decode_s", "host_s",
+                                         "round_s", "gen_images", "emitted_tokens")},
+               s_per_image={f"{h}x{w}": spent[(h, w)] / n for (h, w), n in n_img.items()},
+               gen_rounds=gen_rounds, denoise_forwards=counter.denoise,
+               decode_forwards=counter.decode, prefill_forwards=counter.prefill,
+               vit_forwards=counter.vit)
+    print(f"  run E: {json.dumps(row)}", flush=True)
+    check_answers("E", inf, [(rid, a, p) for rid, (a, p) in zip(rids, text)], got_ids,
+                  SERVE_MAX_NEW, gap_limit)
+    # each image against the one-shot path on the same draw of the generator
+    inf._generator.set_state(gen_state)
+    for rid, (hw, p) in zip(img_rids, T2I_REQUESTS):
+        g_ctx, ct, ci = _t2i_contexts(inf, p)
+        want = inf.gen_image_latent(hw, g_ctx, cfg_text_precontext=ct, cfg_img_precontext=ci,
+                                    cfg_text_scale=3.0)
+        got = latents[rid]
+        cos, finite = _cosine(got, want), bool(torch.isfinite(got).all())
+        print(f"  run E image {hw[0]}x{hw[1]} {p[:32]!r}: final latent vs the one-shot "
+              f"gen_image_latent: cosine {cos:.6f}, max abs {(got - want).abs().max().item():.4f} "
+              f"(latent std {want.std().item():.3f}), finite {finite}", flush=True)
+        if not finite or got.shape != want.shape or cos < VELOCITY_COS_TOL:
+            raise SystemExit("chip_smoke: run E's image disagrees with the one-shot path")
+    time_grouped_steps(inf, b)
+    del b
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_grouped_steps(inf: InterleaveInferencer, b: ContinuousBatcher) -> None:
+    """ms per denoise step of four images in one forward (G 4) against one
+    image (G 1), at each of run E's geometries, for a 3-stream step (step 0,
+    CFG on) and a 1-stream step (step 48, outside the interval)."""
+    se = inf._start_end()
+    rows = {}
+    for hw in dict.fromkeys(hw for hw, _p in T2I_REQUESTS):
+        jobs = [b._start_gen(Request(prompt=p, image_size=hw)) for h, p in T2I_REQUESTS
+                if h == hw]
+        grouped = inf.merge_gen_jobs(jobs)
+        for step, kind in ((0, "3-stream"), (48, "1-stream")):
+            ms = {}
+            for G, j in ((4, grouped), (1, jobs[0])):
+                fn = bagel.generate_latents_group if G > 1 else bagel.generate_latents
+                ms[G] = cuda_ms(lambda: fn(inf.model, j.caches, j.positions, j.pos_ids, j.x_t,
+                                           se, step_range=(step, step + 1), **j.kw),
+                                warmup=1, iters=5)
+            rows[f"{hw[0]}x{hw[1]} {kind}"] = dict(g4_ms=ms[4], g1_ms=ms[1],
+                                                    g4_per_image_ms=ms[4] / 4)
+    print(f"  run E, ms per denoise step, four images in one forward (G 4) vs one (G 1): "
+          f"{json.dumps(dict(card=CARD, steps=rows))}", flush=True)
+
+
+def _http(base: str, path: str, payload=None):
+    """(status, JSON body) of a GET (no payload) or POST to the local server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def run_http(inf: InterleaveInferencer) -> dict:
+    """The HTTP front end in this process (``ServingDaemon`` on its thread,
+    ``make_server`` on 127.0.0.1, an ephemeral port) over an engine with
+    ``pipeline=inf`` (pool 4 x 2048): one /v1/generate with the 378x378
+    image as PNG, whose answer must equal the engine's for the same request
+    run alone; one /v1/images at 512x512 (a PNG of that size, finite and not
+    flat); /v1/health. Checks the launches. Returns them."""
+    import base64
+    import io
+    import threading
+
+    from unimedvl_tpu_torch.inference.server import ServingDaemon, make_server
+
+    n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
+    h, w, prompt = REQUESTS[2]
+    image = _images()[2]
+
+    def engine():
+        return ContinuousBatcher(inf.model, inf.tokenizer, inf.new_token_ids, 4, 2048,
+                                 SERVE_CHUNK, inf.vit_transform, SEED, pipeline=inf,
+                                 gen_chunk=GEN_CHUNK, gen_group=GEN_GROUP)
+
+    ref = engine()
+    rid = ref.submit(Request(prompt=prompt, image=_pil_image(image), max_new_tokens=SERVE_MAX_NEW))
+    want = ref.run()[rid]
+    del ref
+    buf = io.BytesIO()
+    _pil_image(image).save(buf, format="PNG")
+    print("HTTP front end: ServingDaemon + make_server on 127.0.0.1 (ephemeral port), an engine "
+          "with pipeline=..., pool 4 x 2048", flush=True)
+    counter = ForwardCounter(inf.model)
+    reset_counts()
+    daemon = ServingDaemon(engine()).start()
+    server = make_server(daemon, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        t0 = time.perf_counter()
+        code, text = _http(base, "/v1/generate", {
+            "prompt": prompt, "max_new_tokens": SERVE_MAX_NEW,
+            "image_png_b64": base64.b64encode(buf.getvalue()).decode()})
+        t1 = time.perf_counter()
+        code_img, img = _http(base, "/v1/images", {"prompt": GEN_PROMPT, "height": GEN_SIZE[0],
+                                                   "width": GEN_SIZE[1]})
+        t2 = time.perf_counter()
+        code_h, health = _http(base, "/v1/health")
+    finally:
+        server.shutdown()
+        server.server_close()
+        daemon.stop()
+        thread.join(timeout=30)
+        counter.remove()
+    launches = check_counts("the HTTP front end", {
+        "flash_block_attention": counter.vit * n_vit + counter.prefill * n_llm,
+        "flash_block_attention_q_preproc": counter.denoise * n_llm,
+        "decode_attention": counter.decode * n_llm,
+    })
+    from PIL import Image
+
+    pixels = np.zeros((0,), np.uint8)
+    if code_img == 200:
+        pixels = np.asarray(Image.open(io.BytesIO(base64.b64decode(img["image_png_b64"]))))
+    print(f"  /v1/generate ({h}x{w} PNG): {code}, {t1 - t0:.2f} s, answer equals the engine's: "
+          f"{text.get('text') == want}; /v1/images {GEN_SIZE[0]}x{GEN_SIZE[1]}: {code_img}, "
+          f"{t2 - t1:.2f} s, shape {pixels.shape}, std {float(pixels.std()) if pixels.size else 0:.3f}"
+          f"; /v1/health: {code_h}, stats {json.dumps(health.get('stats'))}", flush=True)
+    if (code != 200 or text.get("text") != want or code_img != 200
+            or pixels.shape != (*GEN_SIZE, 3) or not pixels.std() > 0
+            or code_h != 200 or health.get("ok") is not True):
+        raise SystemExit("chip_smoke: the HTTP front end failed")
     return launches
 
 
@@ -2096,7 +2440,7 @@ EXTRA_KEYS = (
     "cache_partial_t2i_ms", "cache_partial_edit_ms", "library_note", "concat_k1b_ms",
     "k_island_ms", "concat_copy_ms", "k1b_on_concat_ms", "q_island_only_ms", "launches_from",
     "n_split", "split_len", "cases", "ms_in_graph", "vit", "gemm", "bf16_gemm",
-    "one_row_ms_in_graph", "gemv_cases", "serving_cases", "spec_cases",
+    "one_row_ms_in_graph", "gemv_cases", "serving_cases", "spec_cases", "group_cases",
 )
 
 COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches there)

@@ -2,7 +2,8 @@
 and without a CUDA toolchain: it keeps its own config, tokenizer set-up and
 image preprocessing, and builds its kernels at the first CUDA launch. The
 multi-rank modules (``parallel/``, ``tools/dryrun_sp.py``) start no process
-group and no process when imported. The same holds for ``chip_smoke.py``'s
+group and no process when imported, and the HTTP front end
+(``inference/server.py``, ``scripts/``) starts no server. The same holds for ``chip_smoke.py``'s
 imports."""
 
 import os
@@ -39,6 +40,10 @@ import unimedvl_tpu_torch.training.dataset
 import unimedvl_tpu_torch.models.bagel
 import unimedvl_tpu_torch.weights.loader
 import unimedvl_tpu_torch.inference
+import unimedvl_tpu_torch.inference.server
+import unimedvl_tpu_torch.scripts.common
+import unimedvl_tpu_torch.scripts.interactive_vqa
+import unimedvl_tpu_torch.scripts.serve_http
 import unimedvl_tpu_torch.parallel
 import unimedvl_tpu_torch.parallel.mesh
 import unimedvl_tpu_torch.parallel.sp_denoise
@@ -48,6 +53,8 @@ import torch.distributed
 assert not torch.distributed.is_initialized()  # importing starts no process group
 import multiprocessing
 assert not multiprocessing.active_children()  # and no rank
+import threading
+assert threading.active_count() == 1  # no daemon or server thread
 import chip_smoke
 check("import chip_smoke")
 from unimedvl_tpu_torch.ops import cuda_build

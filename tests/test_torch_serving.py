@@ -125,6 +125,30 @@ def both(pair, requests, **kw):
     return got, teng
 
 
+def both_ids(pair, requests, **kw):
+    """Both engines on ``requests``, recording each request's ids (the
+    slot's ``out_ids``: the start token and the emitted tokens) as it
+    finishes: they must be equal token for token, and ``errors`` empty.
+    Returns the port's (ids in submission order, engine)."""
+    out = []
+    for side in (pair["jax"], pair["torch"]):
+        eng = side.engine(**kw)
+        ids = {}
+
+        def record(slot, ids=ids, finish=eng._finish):
+            ids[slot.request_id] = list(slot.out_ids)
+            finish(slot)
+
+        eng._finish = record
+        rids = [eng.submit(side.request(**r)) for r in requests]
+        eng.run()
+        out.append(([ids.get(r) for r in rids], eng))
+    (want, jeng), (got, teng) = out
+    assert got == want, (got, want)
+    assert not teng.errors and not jeng.errors, (teng.errors, jeng.errors)
+    return got, teng
+
+
 def chat_answers(inf, requests):
     """The unbatched oracle: the port's ``chat`` / ``gen_text`` per request."""
     out = []
@@ -220,10 +244,33 @@ class TestEngine:
         got, eng = both(pair, requests, kv_quantized=True, **SLOTS)
         assert not eng.errors and eng.cache.k.dtype == torch.int8
 
+    def test_one_stream_scatter_chunk_past_capacity(self, pair, monkeypatch):
+        """``num_slots=1``, one request planned to the capacity (kv_len 22 +
+        42 + 1 = 65) whose budget ends one token into a scatter chunk: the
+        chunk's other steps write at columns 63-65, past the end, which one
+        stream clamps back over its last column, as the JAX package's
+        ``dynamic_update_slice`` does. The ids equal the JAX batcher's token
+        for token. Before the S = 1 repair the write past M raised
+        (IndexError on the CPU, a device-side assert on the card)."""
+        past = []
+        chunk = serving.decode_chunk
+
+        def watched(*args, **kw):
+            out = chunk(*args, **kw)
+            past.append(int(out[3].lens.max()) > out[3].capacity)
+            return out
+
+        monkeypatch.setattr(serving, "decode_chunk", watched)
+        got, eng = both_ids(pair, [dict(prompt="q" * 20, max_new_tokens=42)], num_slots=1,
+                            capacity=65, chunk=4)
+        assert len(got[0]) == 42 and any(past)
+
     def test_t2i_request_rejected(self, pair):
+        """Without a pipeline a text-to-image request is rejected into
+        ``errors`` before any device work (tests/test_serving.py:507)."""
         requests = [dict(prompt="draw", image_size=(32, 32)), dict(prompt="hi", max_new_tokens=4)]
         got, eng = serve(pair["torch"], requests, **SLOTS)[:2]
-        assert got[0] is None and "M10b" in eng.errors[0]
+        assert got[0] is None and "pipeline" in eng.errors[0]
         assert got[1] is not None
 
 
@@ -561,7 +608,7 @@ def test_positional_parameters_follow_the_jax_batcher(pair):
     assert positional[2:] == jax_params[3:len(positional) + 1]
     keyword = [n for n, p in port.items() if p.kind == p.KEYWORD_ONLY]
     assert keyword == ["kv_quantized", "kv_bits", "spec_decode", "spec_k", "spec_ngram",
-                       "pool_ladder", "min_pool"]
+                       "pipeline", "gen_chunk", "gen_group", "pool_ladder", "min_pool"]
     assert keyword == sorted(keyword, key=jax_params.index)
     assert all(n in jax_params for n in keyword)
     for name in keyword + positional[2:]:

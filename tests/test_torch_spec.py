@@ -38,7 +38,7 @@ from unimedvl_tpu_torch.ops import flash_attention as fa
 from unimedvl_tpu_torch.weights.loader import from_jax_params
 
 from tests.test_torch_config import port_config
-from tests.test_torch_serving import _to_jax, assert_caches_equal
+from tests.test_torch_serving import _to_jax, assert_caches_equal, both_ids, pair  # noqa: F401
 
 # tests/test_spec_decode.py's config
 CFG = BagelConfig(
@@ -291,3 +291,24 @@ def test_decode_chunk_spec_matches_jax(models, quantized, case):
                                jax.random.PRNGKey(0))
     np.testing.assert_array_equal(t2[0].numpy()[act], np.asarray(w2[0])[act])
     assert_caches_equal(t2[3], w2[3], rows=rows, **tol)
+
+
+def test_one_stream_spec_batcher_to_capacity(pair, monkeypatch):
+    """A ``num_slots=1`` spec batcher (3 drafts a forward) whose request is
+    planned to the capacity (kv_len 22 + 41 + 1 = 64): the JAX batcher plans
+    no draft margin, so the last verify windows straddle the end, and one
+    stream's window is clamped back into [0, M - T] as the JAX package's
+    ``dynamic_update_slice`` places it. The ids equal the JAX batcher's token
+    for token. Before the S = 1 repair the write past M raised (IndexError on
+    the CPU, a device-side assert on the card)."""
+    straddled = []
+    verify = bagel.verify_block
+
+    def watched(model, cache, cur, draft, pos, live):
+        straddled.append(bool(((cache.lens + draft.shape[1] + 1 > cache.capacity) & live).any()))
+        return verify(model, cache, cur, draft, pos, live)
+
+    monkeypatch.setattr(bagel, "verify_block", watched)
+    got, eng = both_ids(pair, [dict(prompt="q" * 20, max_new_tokens=41)], num_slots=1,
+                        capacity=64, chunk=4, spec_decode=True, spec_k=3, spec_ngram=2)
+    assert len(got[0]) == 41 and any(straddled)

@@ -26,8 +26,14 @@ sample) comes from the inferencer's ``torch.Generator`` through ``_randn``.
 With ``sp_mesh`` the flow loop runs as the sequence-parallel program of
 ``parallel/sp_denoise.py`` over that mesh's ranks.
 
-The vqa-reconstruction recipes and chunked generation jobs are later slices
-of ROADMAP queue 1.
+Generation also runs as a resumable job (``start_gen_job``,
+``advance_gen_job``, ``finish_gen_job``), a few flow steps at a time, which
+the serving engine interleaves with its text decode; ``merge_gen_jobs`` joins
+compatible jobs into one grouped job whose images share each step's forward
+(``bagel.generate_latents_group``). A job chunked at any boundary gives the
+one-shot ``gen_image``'s result.
+
+The vqa-reconstruction recipes are a later slice of ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -77,6 +83,29 @@ class GenContext:
         to either leaves the other as it was."""
         return GenContext(cache=self.cache.clone(), kv_len=self.kv_len, rope=self.rope,
                           hist=self.hist)
+
+
+@dataclasses.dataclass
+class GenImageJob:
+    """A resumable text-to-image denoise (pipeline.py:71-91): made by
+    :meth:`InterleaveInferencer.start_gen_job`, advanced a few flow steps at
+    a time by ``advance_gen_job``, decoded by ``finish_gen_job``. ``x_t`` is
+    [n, p*p*z] for one image, [G, n, p*p*z] for a group from
+    ``merge_gen_jobs``, whose ``caches`` then hold the images' streams
+    g-major."""
+
+    image_shape: Tuple[int, int]
+    caches: KVCache  # stacked [main, cfg_text?, cfg_img?] context streams, per image
+    positions: torch.Tensor
+    pos_ids: torch.Tensor
+    x_t: torch.Tensor
+    step: int  # flow steps done
+    total_steps: int  # num_timesteps - 1
+    kw: Dict[str, Any]
+
+    @property
+    def done(self) -> bool:
+        return self.step >= self.total_steps
 
 
 class InterleaveInferencer:
@@ -505,7 +534,7 @@ class InterleaveInferencer:
         positions = torch.tensor([c.rope for c in contexts], device=self.device)
         return stacked, positions
 
-    def gen_image_latent(
+    def start_gen_job(
         self,
         image_shape: Tuple[int, int],
         gen_context: GenContext,
@@ -518,13 +547,15 @@ class InterleaveInferencer:
         cfg_renorm_type: str = "global",
         num_timesteps: int = 50,
         timestep_shift: float = 3.0,
-    ) -> torch.Tensor:
-        """Denoise to the final latent tokens [h*w, p*p*z] fp32, without the
-        VAE decode. The main context and the CFG contexts in use run as the
-        streams of one batched forward per step."""
+    ) -> GenImageJob:
+        """A denoise not yet started, with :meth:`gen_image`'s options and
+        contexts: the main context and the CFG contexts in use stacked as the
+        streams of one cache, and the initial noise, drawn from the
+        inferencer's generator as the one-shot path draws it (one draw a
+        job, in the order the jobs start), so a job run to its end gives the
+        one-shot result."""
         H, W = image_shape
         ld = self.cfg.latent_downsample
-        h, w = H // ld, W // ld
         use_text_cfg = cfg_text_scale > 1.0 and cfg_text_precontext is not None
         use_img_cfg = cfg_img_scale > 1.0 and cfg_img_precontext is not None
         contexts = [gen_context]
@@ -534,7 +565,7 @@ class InterleaveInferencer:
             contexts.append(cfg_img_precontext)
         caches, positions = self._stack_contexts(contexts)
         pos_ids = self._position_ids(H, W, ld, self.cfg.max_latent_size)
-        noise = self._randn((h * w, self.cfg.patch_latent_dim))
+        noise = self._randn(((H // ld) * (W // ld), self.cfg.patch_latent_dim))
         kw = dict(
             num_timesteps=num_timesteps, timestep_shift=timestep_shift,
             cfg_text_scale=cfg_text_scale, cfg_img_scale=cfg_img_scale,
@@ -542,11 +573,65 @@ class InterleaveInferencer:
             cfg_renorm_type=cfg_renorm_type, use_text_cfg=use_text_cfg,
             use_img_cfg=use_img_cfg,
         )
-        pos_ids = torch.from_numpy(pos_ids).to(self.device)
+        return GenImageJob(image_shape=image_shape, caches=caches, positions=positions,
+                           pos_ids=torch.from_numpy(pos_ids).to(self.device), x_t=noise, step=0,
+                           total_steps=num_timesteps - 1, kw=kw)
+
+    def advance_gen_job(self, job: GenImageJob, steps: int) -> GenImageJob:
+        """The job after its next ``steps`` flow steps (fewer at the end):
+        ``bagel.generate_latents`` over ``step_range``, or
+        ``generate_latents_group`` for a grouped job, every image in one
+        forward a step."""
+        if job.done:
+            return job
+        hi = min(job.step + steps, job.total_steps)
+        fn = bagel.generate_latents_group if job.x_t.dim() == 3 else bagel.generate_latents
+        x_t = fn(self.model, job.caches, job.positions, job.pos_ids, job.x_t, self._start_end(),
+                 step_range=(job.step, hi), **job.kw)
+        return dataclasses.replace(job, x_t=x_t, step=hi)
+
+    def merge_gen_jobs(self, jobs: List[GenImageJob]) -> GenImageJob:
+        """G compatible jobs (one geometry, the same options, at the same
+        step, caches of one shape) as one grouped job: the caches joined
+        g-major on the stream dim (a copy), the states stacked."""
+        j0 = jobs[0]
+        for j in jobs[1:]:
+            if (j.image_shape != j0.image_shape or j.kw != j0.kw
+                    or (j.step, j.total_steps) != (j0.step, j0.total_steps)
+                    or j.caches.k.shape != j0.caches.k.shape):
+                raise ValueError("merge_gen_jobs: the jobs differ in geometry, options, step "
+                                 "or cache shape")
+        if len(jobs) == 1:
+            return j0
+        return dataclasses.replace(
+            j0, caches=KVCache.stack([j.caches for j in jobs]),
+            positions=torch.cat([j.positions for j in jobs]),
+            x_t=torch.stack([j.x_t for j in jobs]))
+
+    def finish_gen_job(self, job: GenImageJob):
+        """The finished job's image (PIL); a grouped job takes
+        :meth:`finish_gen_job_group`."""
+        if not job.done or job.x_t.dim() != 2:
+            raise ValueError("finish_gen_job: the job is not done, or is grouped")
+        return self.decode_image(job.x_t, job.image_shape)
+
+    def finish_gen_job_group(self, job: GenImageJob) -> List:
+        """The finished job's images (PIL), one per member."""
+        if not job.done:
+            raise ValueError("finish_gen_job_group: the job is not done")
+        x_t = job.x_t if job.x_t.dim() == 3 else job.x_t[None]
+        return [self.decode_image(x, job.image_shape) for x in x_t]
+
+    def gen_image_latent(self, image_shape: Tuple[int, int], gen_context: GenContext,
+                         **kw) -> torch.Tensor:
+        """Denoise to the final latent tokens [h*w, p*p*z] fp32, without the
+        VAE decode; :meth:`gen_image`'s options. The main context and the CFG
+        contexts in use run as the streams of one batched forward per step."""
+        job = self.start_gen_job(image_shape, gen_context, **kw)
         mesh = self.sp_mesh
         if (
             mesh is not None
-            and (h * w) % mesh.shape["seq"] == 0
+            and job.x_t.shape[0] % mesh.shape["seq"] == 0
             and self.cfg.llm.num_key_value_heads % mesh.shape["model"] == 0
             # the sequence-parallel attention routes through the MoT gen twins;
             # other configs take the single-device denoise
@@ -555,9 +640,9 @@ class InterleaveInferencer:
             from unimedvl_tpu_torch.parallel.sp_denoise import generate_latents_tp_sp
 
             return generate_latents_tp_sp(
-                self.model, caches, positions, pos_ids, noise, self._start_end(), mesh, **kw)
-        return bagel.generate_latents(
-            self.model, caches, positions, pos_ids, noise, self._start_end(), **kw)
+                self.model, job.caches, job.positions, job.pos_ids, job.x_t,
+                self._start_end(), mesh, **job.kw)
+        return self.advance_gen_job(job, job.total_steps).x_t
 
     def decode_image(self, latent_tokens: torch.Tensor, image_shape: Tuple[int, int]):
         """Latent tokens -> a PIL RGB image of ``image_shape`` (H, W)."""

@@ -1,5 +1,5 @@
-"""Continuous batching for batched VQA and report serving, the text side
-(port of unimedvl_tpu/inference/serving.py; BASELINE config 3).
+"""Continuous batching for batched VQA, report and image serving (port of
+unimedvl_tpu/inference/serving.py; BASELINE config 3).
 
 A pool of S slots over one multi-stream ``KVCache`` on the model's device.
 Requests are admitted into free slots by grouped prefills into small
@@ -20,11 +20,19 @@ speculative one (:func:`decode_chunk_spec`): prompt-lookup drafts from each
 slot's id history, verified k + 1 at a time through K1a, greedy-exact per
 slot; the chunk flavours share the pending-token contract, so they interleave.
 
+With a ``pipeline`` (an ``InterleaveInferencer`` over the same model) the
+engine also serves text-to-image requests (``Request(image_size=...)``):
+each becomes a ``pipeline.GenImageJob`` with the interleave-inference
+context recipe, up to ``gen_group`` compatible jobs (one geometry, the same
+options) merge into one grouped job whose images share each step's forward,
+and every round runs one segment of ``gen_chunk`` flow steps beside its
+decode chunk, so text and image requests share the card.
+
 The port writes the pool in place where the JAX package donates it, and runs
 each chunk as a Python loop with one host check a step (a verify forward, in
 a speculative chunk) where the JAX package has a ``while_loop``. Greedy
-only. Not here: text-to-image requests and the HTTP server (M10b), ``mesh=``
-(M13), the int4 cache (M8).
+only. Not here: ``mesh=`` (M13), the int4 cache (M8), and the compiled
+denoise windows (``gen_window_dynamic``), which ``step_range`` replaces.
 """
 
 from __future__ import annotations
@@ -308,10 +316,11 @@ class Request:
     #: a PIL image (or anything ``data.imaging.pil_img2rgb`` takes)
     image: Optional[object] = None
     max_new_tokens: int = 128
-    #: a text-to-image request's (H, W); rejected here: unified serving is
-    #: ROADMAP queue 1 M10b
+    #: a text-to-image request: generate an (H, W) image from ``prompt``
+    #: (needs ContinuousBatcher(pipeline=...); the result is a PIL image)
     image_size: Optional[Tuple[int, int]] = None
-    #: the denoise's option overrides of such a request
+    #: the denoise's option overrides of such a request (anything
+    #: ``start_gen_job`` takes)
     gen_params: Optional[Dict] = None
     #: shared-preamble reuse: an id from ContinuousBatcher.register_prefix.
     #: Admission seeds the slot with the preamble's cache and prefills only
@@ -336,13 +345,16 @@ class ContinuousBatcher:
         spec_decode: bool = False,
         spec_k: int = 7,
         spec_ngram: int = 3,
+        pipeline=None,
+        gen_chunk: int = 10,
+        gen_group: int = 4,
         pool_ladder: bool = False,
         min_pool: int = 32,
     ):
         """The positional parameters come in the JAX batcher's order, with
         ``model`` in the place of its ``params, cfg``; the rest are
-        keyword-only (the port has no ``mesh``, ``pipeline`` or ``gen_*``, so
-        a positional tail could not line up).
+        keyword-only (the port has no ``mesh``, so a positional tail could
+        not line up).
 
         ``model``: a Bagel on its device, whose pool of ``num_slots`` x
         ``capacity`` columns is allocated there; ``tokenizer`` /
@@ -356,8 +368,11 @@ class ContinuousBatcher:
         :func:`decode_chunk_spec` (``spec_k`` prompt-lookup drafts verified
         per forward, from the trailing ``spec_ngram`` ids of each slot's
         history: its prompt, a preamble's ids included, and what it emitted);
-        greedy-exact per slot. ``pool_ladder``: the drain-tail rightsizing over
-        the rungs ``num_slots``, its halvings down to ``min_pool``; not with
+        greedy-exact per slot. ``pipeline``: an ``InterleaveInferencer`` over
+        the same model, for text-to-image requests, denoised ``gen_chunk``
+        flow steps a round, up to ``gen_group`` compatible ones in one
+        grouped job. ``pool_ladder``: the drain-tail rightsizing over the
+        rungs ``num_slots``, its halvings down to ``min_pool``; not with
         ``spec_decode``."""
         if spec_decode and pool_ladder:
             raise ValueError("pool_ladder and spec_decode are not composed (nor in the JAX "
@@ -407,12 +422,21 @@ class ContinuousBatcher:
         self._rungs = sorted(rungs)
         self._next_id = 0
         self._pending: List[Tuple[int, Request]] = []
-        self._done: Dict[int, str] = {}
+        self.pipeline = pipeline
+        self.gen_chunk = gen_chunk
+        self.gen_group = gen_group
+        self._gen_pending: List[Tuple[int, Request]] = []
+        #: started jobs not yet in a group
+        self._gen_ready: List[Tuple[int, object]] = []
+        #: (rids, GenImageJob) in flight; a cancelled member's rid is None
+        self._gen_job = None
+        #: rid -> answer text, or a PIL image for a text-to-image request
+        self._done: Dict[int, object] = {}
         #: per-request failures (rejections, prefill errors, cancellations):
         #: a failed request never stops the batch
         self.errors: Dict[int, str] = {}
         #: run()'s breakdown in seconds and counts, reset per run (the JAX
-        #: batcher's keys; gen_s and gen_images stay 0 on the text side)
+        #: batcher's keys)
         self.stats: Dict[str, float] = {}
 
     # -- pool ladder ----------------------------------------------------------
@@ -480,30 +504,116 @@ class ContinuousBatcher:
         rid = self._next_id
         self._next_id += 1
         if request.image_size is not None:
-            self.errors[rid] = (
-                "text-to-image requests are not served by the port's batcher yet (unified "
-                "serving is ROADMAP queue 1 M10b); rejected before any device work"
-            )
+            if self.pipeline is None:
+                self.errors[rid] = ("t2i request needs ContinuousBatcher(pipeline=...) "
+                                    "(rejected before any device work)")
+            else:
+                self._gen_pending.append((rid, request))
         else:
             self._pending.append((rid, request))
         return rid
 
     def cancel(self, rid: int) -> bool:
         """Cancel a submitted request: a pending one is dropped before any
-        device work; an in-flight one frees its slot at the next chunk
-        boundary (what its current chunk produced is discarded). The rid
-        lands in ``errors``. False if the request already finished."""
-        for i, (r, _req) in enumerate(self._pending):
-            if r == rid:
-                del self._pending[i]
-                self.errors[rid] = "cancelled before start"
-                return True
+        device work; an in-flight text request frees its slot at the next
+        chunk boundary (what its current chunk produced is discarded); a
+        started image request leaves its group, whose other members denoise
+        on. The rid lands in ``errors``. False if the request already
+        finished."""
+        for queue in (self._pending, self._gen_pending):
+            for i, (r, _req) in enumerate(queue):
+                if r == rid:
+                    del queue[i]
+                    self.errors[rid] = "cancelled before start"
+                    return True
         for slot in self.slots:
             if slot.request_id == rid:
                 slot.request_id = None  # the row's lens are rewritten on reuse
                 self.errors[rid] = "cancelled mid-decode"
                 return True
+        for i, (r, _job) in enumerate(self._gen_ready):
+            if r == rid:
+                del self._gen_ready[i]
+                self.errors[rid] = "cancelled before denoise"
+                return True
+        if self._gen_job is not None and rid in self._gen_job[0]:
+            rids, job = self._gen_job
+            if any(r is not None and r != rid for r in rids):
+                self._gen_job = ([None if r == rid else r for r in rids], job)
+            else:
+                self._gen_job = None
+            self.errors[rid] = "cancelled mid-denoise"
+            return True
         return False
+
+    # -- text to image ----------------------------------------------------------
+    def _start_gen(self, request: Request):
+        """The job of a text-to-image request, with the interleave-inference
+        context recipe: the cfg_text context forks before the prompt, the
+        cfg_img context holds the prompt; ``cfg_text_scale`` 3.0 unless
+        ``gen_params`` says otherwise."""
+        pipe = self.pipeline
+        gen_context = pipe.init_gen_context()
+        cfg_img_context = gen_context.fork()
+        cfg_text_context = gen_context.fork()
+        gen_context = pipe.update_context_text(request.prompt, gen_context)
+        cfg_img_context = pipe.update_context_text(request.prompt, cfg_img_context)
+        kw = dict(cfg_text_scale=3.0)  # interleave_inference's default
+        kw.update(request.gen_params or {})
+        return pipe.start_gen_job(request.image_size, gen_context,
+                                  cfg_text_precontext=cfg_text_context,
+                                  cfg_img_precontext=cfg_img_context, **kw)
+
+    @staticmethod
+    def _group_compatible(a, b) -> bool:
+        """``merge_gen_jobs``' precondition: one geometry, the same options,
+        the same step and caches of one shape."""
+        return (a.image_shape == b.image_shape and a.kw == b.kw
+                and (a.step, a.total_steps) == (b.step, b.total_steps)
+                and a.caches.k.shape == b.caches.k.shape)
+
+    def _advance_gen(self) -> None:
+        """One segment of the image work: with no job in flight, start
+        pending requests (their context prefills) until a group's worth is
+        ready and merge the first with up to ``gen_group`` - 1 compatible
+        ones (the others wait in ``_gen_ready``); then ``gen_chunk`` flow
+        steps of the job, and the VAE decode once it is done. A failure
+        lands in ``errors`` for the requests it concerns."""
+        if self._gen_job is None and (self._gen_ready or self._gen_pending):
+            while self._gen_pending and len(self._gen_ready) < self.gen_group:
+                rid, req = self._gen_pending.pop(0)
+                try:
+                    self._gen_ready.append((rid, self._start_gen(req)))
+                except Exception as e:  # a bad size or option of this request
+                    self.errors[rid] = f"t2i prefill failed: {e}"
+            if self._gen_ready:
+                (lead_rid, lead), rest = self._gen_ready[0], []
+                rids, jobs = [lead_rid], [lead]
+                for rid, job in self._gen_ready[1:]:
+                    if len(jobs) < self.gen_group and self._group_compatible(lead, job):
+                        rids.append(rid)
+                        jobs.append(job)
+                    else:
+                        rest.append((rid, job))
+                self._gen_ready = rest
+                self._gen_job = (rids, self.pipeline.merge_gen_jobs(jobs))
+        if self._gen_job is None:
+            return
+        rids, job = self._gen_job
+        try:
+            job = self.pipeline.advance_gen_job(job, self.gen_chunk)
+            if job.done:
+                for rid, image in zip(rids, self.pipeline.finish_gen_job_group(job)):
+                    if rid is not None:  # None: cancelled mid-denoise
+                        self._done[rid] = image
+                self._gen_job = None
+            else:
+                self._gen_job = (rids, job)
+        except Exception as e:
+            for rid in rids:
+                if rid is not None:
+                    self.errors[rid] = f"t2i denoise failed: {e}"
+            self._gen_job = None
 
     # -- admission -------------------------------------------------------------
     def _plan_request(self, request: Request):
@@ -810,7 +920,9 @@ class ContinuousBatcher:
 
     def has_work(self) -> bool:
         """True while any submitted request is unfinished."""
-        return bool(self._pending or any(s.request_id is not None for s in self.slots))
+        return bool(self._pending or self._gen_pending or self._gen_ready
+                    or self._gen_job is not None
+                    or any(s.request_id is not None for s in self.slots))
 
     def _reset_stats(self) -> Dict[str, float]:
         self.stats = {
@@ -821,8 +933,9 @@ class ContinuousBatcher:
         return self.stats
 
     # -- the engine ---------------------------------------------------------------
-    def run(self) -> Dict[int, str]:
-        """Serve every submitted request to the end; rid -> answer."""
+    def run(self) -> Dict[int, object]:
+        """Serve every submitted request to the end; rid -> answer text, or
+        the image of a text-to-image request."""
         st = self._reset_stats()
         eos = self.new_token_ids["eos_token_id"]
         while self.has_work():
@@ -830,9 +943,10 @@ class ContinuousBatcher:
         return dict(self._done)
 
     def _round(self, st: Dict[str, float], eos: int) -> None:
-        """One round: throttled admission, one decode chunk and its host
-        bookkeeping. ``round_s`` adds up the whole round, so what it holds
-        beyond admit_s + decode_s + host_s + repack_s is unattributed."""
+        """One round: throttled admission, one segment of image work, one
+        decode chunk and its host bookkeeping. ``round_s`` adds up the whole
+        round, so what it holds beyond admit_s + gen_s + decode_s + host_s +
+        repack_s is unattributed."""
         t_round = time.perf_counter()
         try:
             self._round_inner(st, eos)
@@ -841,10 +955,10 @@ class ContinuousBatcher:
 
     def _fence(self) -> None:
         """With UNIMEDVL_SERVING_PROFILE set, wait for the device at the end
-        of a repack and of admission, so that ``repack_s`` and ``admit_s``
-        hold their device work (``decode_s`` ends on its host read anyway);
-        unset, those two hold host time and their queued device work lands
-        in ``decode_s``."""
+        of a repack, of admission and of an image segment, so that
+        ``repack_s``, ``admit_s`` and ``gen_s`` hold their device work
+        (``decode_s`` ends on its host read anyway); unset, those hold host
+        time and their queued device work lands in ``decode_s``."""
         if os.environ.get("UNIMEDVL_SERVING_PROFILE") and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -865,8 +979,16 @@ class ContinuousBatcher:
         st["admitted"] += sum(s.request_id is not None for s in self.slots) - n_before
         self._fence()
         st["admit_s"] += time.perf_counter() - t0
+        # one segment of image work a round, beside the decode chunk below
+        if self._gen_job is not None or self._gen_pending or self._gen_ready:
+            t0 = time.perf_counter()
+            n_done = len(self._done)
+            self._advance_gen()
+            self._fence()
+            st["gen_images"] += len(self._done) - n_done
+            st["gen_s"] += time.perf_counter() - t0
         if not any(s.request_id is not None for s in self.slots):
-            return
+            return  # no text in flight: no decode chunk
         t0 = time.perf_counter()
         pool_slots = self.slots[: self.pool]
         active = np.asarray([s.request_id is not None for s in pool_slots])

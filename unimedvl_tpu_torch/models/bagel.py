@@ -176,6 +176,27 @@ def preprocess_vit_image(cfg: BagelConfig, image_u8: torch.Tensor) -> torch.Tens
     return x.reshape(1, (H // p) * (W // p), p * p * C)
 
 
+@torch.no_grad()
+def prefill_vit(
+    model: Bagel,
+    cache: KVCache,
+    patch_tokens: torch.Tensor,  # [1, Tv, p*p*3] exact shape
+    vit_pos_ids: torch.Tensor,  # [1, Tv]
+    start_end_ids: torch.Tensor,  # [2] (<vision_start>, <vision_end>)
+    rope_pos: torch.Tensor,  # [1] shared position id
+) -> KVCache:
+    """ViT image prefill of one image at its exact token count, non-causal
+    (bagel.py:523-615): [<vision_start>, tokens..., <vision_end>] at one rope
+    position. :func:`prefill_vit_bucketed` is the same block padded to a
+    bucket."""
+    lm = model.language_model
+    vit_embed = encode_vit_tokens(model, patch_tokens, vit_pos_ids)
+    se = mot.embed_tokens(lm, start_end_ids).to(vit_embed.dtype)
+    x = torch.cat([se[None, :1], vit_embed, se[None, 1:]], dim=1)
+    _, cache = lm.model(x, rope_pos.to(torch.int64)[:, None], cache, causal=False)
+    return cache
+
+
 def vit_token_bucket(n: int) -> int:
     """Token-count bucket for image prefill: fine steps for small images,
     512-steps beyond (the JAX package's ladder, kept so both pad alike)."""
@@ -696,13 +717,37 @@ def _cfg_runs(in_interval: np.ndarray):
     return runs
 
 
-@torch.no_grad()
 def generate_latents(
     model: Bagel,
     caches: KVCache,  # stacked streams [L, S_cfg, Hk, M, D]: main, cfg_text?, cfg_img?
     positions: torch.Tensor,  # [S_cfg] rope position of each context
     latent_pos_ids: torch.Tensor,  # [n]
     init_noise: torch.Tensor,  # [n, p*p*z] fp32
+    start_end_ids: torch.Tensor,  # [2]
+    **kw,
+) -> torch.Tensor:
+    """The rectified-flow loop (bagel.py:901-1211) as a Python loop; returns
+    the final latent tokens [n, p*p*z] fp32.
+
+    Each step runs one gen-mode forward over all context streams at once,
+    attending to each stream's cache plus the latent block without writing
+    it. Steps outside ``cfg_interval`` run the main stream alone.
+    ``step_range=(lo, hi)`` runs steps [lo, hi) of the schedule with
+    ``init_noise`` as the state at step lo; split ranges compose to the
+    full run. The options are :func:`generate_latents_group`'s: this is that
+    loop over one image.
+    """
+    return generate_latents_group(model, caches, positions, latent_pos_ids, init_noise[None],
+                                  start_end_ids, **kw)[0]
+
+
+@torch.no_grad()
+def generate_latents_group(
+    model: Bagel,
+    caches: KVCache,  # [L, G * S1, Hk, M, D]: each image's streams, g-major
+    positions: torch.Tensor,  # [G * S1] rope position of each context stream
+    latent_pos_ids: torch.Tensor,  # [n], one geometry for every image
+    init_noise: torch.Tensor,  # [G, n, p*p*z] fp32
     start_end_ids: torch.Tensor,  # [2]
     num_timesteps: int = 50,
     timestep_shift: float = 3.0,
@@ -715,19 +760,24 @@ def generate_latents(
     use_img_cfg: bool = False,
     step_range: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """The rectified-flow loop (bagel.py:901-1211) as a Python loop; returns
-    the final latent tokens [n, p*p*z] fp32.
+    """The flow loop of G images in one forward a step (bagel.py:872-1001):
+    the stream layout is G copies of one image's [main, cfg_text?, cfg_img?],
+    g-major, so ``caches`` is the stream-dim concatenation of the images'
+    caches; every image shares the schedule and the CFG options. Outside the
+    CFG interval only each image's main stream runs (rows 0::S1). The CFG
+    combination and its renorm run per image, so each image's latents are
+    those of its own loop. Returns the final latents [G, n, p*p*z] fp32.
 
-    Each step runs one gen-mode forward over all context streams at once,
-    attending to each stream's cache plus the latent block without writing
-    it. Steps outside ``cfg_interval`` run the main stream alone.
-    ``step_range=(lo, hi)`` runs steps [lo, hi) of the schedule with
-    ``init_noise`` as the state at step lo; split ranges compose to the
-    full run.
-    """
+    State dtypes (see the module's note): x_t fp32, ``vae2llm`` and the
+    timestep embedding in fp32, their sum rounded to the model dtype once,
+    the velocity from ``llm2vae`` in the model dtype, the CFG and the update
+    in fp32."""
     lm = model.language_model
-    S = caches.k.shape[1]
-    n = init_noise.shape[0]
+    G, n = init_noise.shape[:2]
+    S_all = caches.k.shape[1]
+    if S_all % G:
+        raise ValueError(f"{S_all} cache streams do not split into {G} images")
+    S1 = S_all // G
     device = init_noise.device
     ts, dts = flow_timesteps(num_timesteps, timestep_shift)
     lo, hi = cfg_interval
@@ -737,6 +787,7 @@ def generate_latents(
     lo_s, hi_s = step_range if step_range is not None else (0, len(ts))
 
     se = mot.embed_tokens(lm, start_end_ids)
+    C = se.shape[-1]
     pos_emb = model.latent_pos_embed.pos_embed[latent_pos_ids]  # [n, C]
     # every step's timestep embedding in one call: no host-to-device copy per step
     t_emb = time_embed(model, torch.from_numpy(ts).to(device))  # [steps, C] fp32
@@ -745,25 +796,31 @@ def generate_latents(
         run_start, run_end = max(run_start, lo_s), min(run_end, hi_s)
         if run_start >= run_end:
             continue
-        cfg_on = cfg_on and S > 1
-        n_streams = S if cfg_on else 1
-        step_caches = caches if n_streams == S else caches.streams(1)
-        block_positions = positions[:n_streams, None]
+        cfg_on = cfg_on and S1 > 1
+        active = S1 if cfg_on else 1  # streams per image in this run
+        if active == S1:
+            step_caches, pos_act = caches, positions
+        else:  # each image's main stream
+            step_caches = caches._map(lambda t: t[:, 0::S1], lambda t: t[:, 0::S1],
+                                      caches.lens[0::S1])
+            pos_act = positions[0::S1]
+        block_positions = pos_act[:, None]
         for i in range(run_start, run_end):
             x_lat = (_linear(x_t, model.vae2llm) + t_emb[i] + pos_emb).to(se.dtype)
-            block = torch.cat([se[:1], x_lat, se[1:]], dim=0)  # [n + 2, C]
-            x = block[None].expand(n_streams, -1, -1)
+            block = torch.cat([se[:1].expand(G, 1, C), x_lat, se[1:].expand(G, 1, C)], dim=1)
+            # each image's block over its active streams (a view at G = 1)
+            x = block[:, None].expand(G, active, n + 2, C).reshape(G * active, n + 2, C)
             h, _ = lm.model(x, block_positions, step_caches, causal=False, mode="gen",
                             update_cache=False)
-            v_all = _linear(h[:, 1:n + 1], model.llm2vae)
-            v = v_all[0]
+            v_all = _linear(h[:, 1:n + 1], model.llm2vae).view(G, active, n, -1)
+            v = v_all[:, 0]
             if cfg_on:
-                v_text = v_all[1] if use_text_cfg else v
-                v_img = v_all[1 + int(use_text_cfg)] if use_img_cfg else v
-                v = _cfg_combine(
-                    v, v_text, v_img, float(text_scales[i]), float(img_scales[i]),
+                v_text = v_all[:, 1] if use_text_cfg else v
+                v_img = v_all[:, 1 + int(use_text_cfg)] if use_img_cfg else v
+                v = torch.stack([_cfg_combine(
+                    v[g], v_text[g], v_img[g], float(text_scales[i]), float(img_scales[i]),
                     cfg_renorm_min, cfg_renorm_type, use_text_cfg, use_img_cfg,
-                )
+                ) for g in range(G)])
             x_t = x_t - v.float() * float(dts[i])
     return x_t
 

@@ -301,7 +301,11 @@ class Qwen2MoTAttention(nn.Module):
             o = decode_attention(q, k_cache, v_cache, lens, (base, col),
                                  k_scale=k_scale, v_scale=v_scale)
         elif update_cache:
-            cols = lens[:, None] + torch.arange(T, device=x.device)
+            # one stream: the window lands where the JAX package's
+            # dynamic_update_slice puts it, its start clamped into [0, M - T];
+            # several: at lens, a window past M dropped whole
+            start = lens.clamp(0, k_cache.shape[2] - T) if S == 1 else lens
+            cols = start[:, None] + torch.arange(T, device=x.device)
             _write_kv(k_cache, k, cols, k_scale, drop_overflow=S > 1)
             _write_kv(v_cache, v, cols, v_scale, drop_overflow=S > 1)
             if T == 1 and causal and not gen:

@@ -1,4 +1,5 @@
-"""1D rotary position embeddings for the LLM (port of unimedvl_tpu/ops/rope.py).
+"""Rotary position embeddings (port of unimedvl_tpu/ops/rope.py): 1D for the
+LLM, and the 2D tables of the ViT's rope (``rope_2d_tables``).
 
 fp32 angles, split-halves ``rotate_half`` (not interleaved), and the multiply
 in the dtype of q/k with cos/sin cast to it first.
@@ -52,3 +53,21 @@ def apply_rope_one(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> tor
     cos = cos.to(x.dtype)[..., :, None, :]
     sin = sin.to(x.dtype)[..., :, None, :]
     return x * cos + _rotate_half(x) * sin
+
+
+def rope_2d_tables(dim: int, max_h: int, max_w: int, theta: float = 10000.0, device=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """2D ViT rope tables (siglip_navit.py:102-127). ``dim`` is head_dim // 2
+    (each spatial axis rotates half of a head). Returns (cos_h, sin_h, cos_w,
+    sin_w), each [max_h * max_w, dim] fp32, indexed by the flattened position
+    id row * max_w + col."""
+    inv_freq = rope_inv_freq(dim, theta, device)
+    rows = torch.arange(max_h, dtype=torch.float32, device=device)[:, None].expand(max_h, max_w)
+    cols = torch.arange(max_w, dtype=torch.float32, device=device)[None, :].expand(max_h, max_w)
+
+    def one_side(grid):
+        freqs = grid[..., None] * inv_freq  # [H, W, dim // 2]
+        emb = torch.cat([freqs, freqs], dim=-1).reshape(-1, dim)
+        return torch.cos(emb), torch.sin(emb)
+
+    return (*one_side(rows), *one_side(cols))

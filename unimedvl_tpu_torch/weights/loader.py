@@ -325,6 +325,7 @@ def load_bagel_checkpoint(
     quantize_bits: Optional[int] = None,
     act_quant: bool = False,
     quantize_group: int = 0,
+    base_dir: Optional[str] = None,
 ) -> Bagel:
     """Read a released checkpoint directory (``llm_config.json``,
     ``vit_config.json``, ``ema.safetensors`` or ``model.safetensors``, sharded
@@ -338,7 +339,11 @@ def load_bagel_checkpoint(
     on ``device``, so the bf16 LLM is never whole there; ``act_quant`` marks
     the leaves for integer matmuls; ``quantize_group``: group-wise w4 scales.
     The result equals quantizing after a plain load. Fuse afterwards with
-    ``quant.fuse_serving_projections(model.language_model)``."""
+    ``quant.fuse_serving_projections(model.language_model)``.
+
+    ``base_dir``: a base checkpoint merged under the fine-tune in
+    ``ckpt_dir``, whose keys win (reference eval/vlm/utils.py:281-317; the
+    JAX package's ``MergedReader``); the VAE still comes from ``ckpt_dir``."""
     from safetensors import safe_open
 
     device = _target_device(device)
@@ -347,6 +352,8 @@ def load_bagel_checkpoint(
     if quantize_bits is None and (act_quant or quantize_group):
         raise ValueError("act_quant and quantize_group need quantize_bits")
     files = _safetensors_files(ckpt_dir, prefer_ema)
+    if base_dir is not None:  # the fine-tune's keys win
+        files = {**_safetensors_files(base_dir, prefer_ema), **files}
     wanted = Bagel(cfg, device="meta").state_dict().keys()
     missing = [k for k in wanted if k not in files]
     if missing:
