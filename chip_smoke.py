@@ -29,6 +29,20 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   each image's latent against the one-shot path; then the HTTP front end
   (``ServingDaemon``, ``make_server`` on 127.0.0.1): /v1/generate with an
   image, /v1/images at 512x512, /v1/health;
+- the quantized generation path (run H): the 512x512 text-to-image request
+  and the edit in full-int8, w4a8 per channel and weight-only w4 per channel
+  (fused, int8 KV cache), K3 and K4 at every projection of the denoise
+  steps; each first velocity held to the same quantized model's plain
+  versions;
+- batched VQA eval (run F): ``eval.run_vqa_eval`` over run A's 16 image
+  requests in a pool of 16 x 6144, three times: a bf16 pool, an int8 pool
+  and an int4 pool (``kv_bits=4``: values packed two a byte, unpacked a
+  layer at a time for K2-int8), the bf16 predictions gated against chat's,
+  the accuracy and the report metrics against chat's answers;
+- the vqa-reconstruction recipes (run G): ``inference_ver=1`` on a 512x512
+  image (an answer, then the image generated again from it) and ``_ver0_1``
+  over two images, ver1's first velocity and final latent held to the plain
+  versions and to ``gen_image_latent`` on the same contexts;
 - the speculative decode path: ``InterleaveInferencer(spec_decode=True)``
   answering the three chat requests, the 378x378 request at 128 tokens
   plainly and speculatively (the lookup over a junk history and over the
@@ -382,6 +396,9 @@ def check_kernels() -> dict:
     timings["flash_block_attention"]["spec_cases"] = check_spec_k1a(randn, ints)
     print("K1b at the grouped denoise shapes (run E):", flush=True)
     timings["flash_block_attention_q_preproc"]["group_cases"] = check_group_k1b(randn, ints)
+    for name, rows in check_generation_quant_shapes(g, randn).items():
+        timings[name]["gen_cases"] = rows
+    timings["decode_attention_int8"]["int4_cases"] = check_int4_decode(g, randn, ints)
     return timings
 
 
@@ -1332,6 +1349,133 @@ def check_serving_shapes(g, randn, ints) -> dict:
     return rows
 
 
+# -- the kernels at this slice's shapes (eval's int4 pool, quantized text to image) ----------
+GEN_ROWS = (3078, 1026)  # a 512 px denoise step's rows: 3 streams x 1026, and 1 stream
+PROJECTIONS = (("qkv", 3584, 4608), ("o", 3584, 3584), ("gate_up", 3584, 37888),
+               ("down", 18944, 3584))
+
+
+def check_generation_quant_shapes(g, randn) -> dict:
+    """K3 and K4 at the quantized generation path's rows (m 3078 and 1026:
+    the 3-stream and 1-stream steps at 512 px): K3 at I 18944 (q within
+    K3_MAX_STEP, scales within K3_SCALE_RTOL), K4 at the four projections
+    per channel with int8 x (w4a8: EQUAL to the plain version) and bf16 x
+    (weight-only w4: the reordering bound of :func:`check_w4_matmul`). Each
+    K4 row carries the ``torch.mm`` time on the weight unpacked and scaled to
+    bf16 (a yardstick: no PyTorch call multiplies by packed int4). Returns
+    {kernel name: [rows]}."""
+    print("K3 and K4 at the 512 px denoise step's rows (m 3078 = 3 x 1026, m 1026):",
+          flush=True)
+    rows = {"silu_mul_quant": [], "w4_matmul": []}
+    I = 18944
+    for R in GEN_ROWS:
+        gate, up = randn(R, 2 * I, scale=2.0).split(I, dim=-1)
+        q_ref, sc_ref = aq.silu_mul_quant_ref(gate, up)
+        qq, sc = aq.silu_mul_quant(gate, up)
+        torch.cuda.synchronize()
+        step = (qq.int() - q_ref.int()).abs()
+        share = (step > 0).float().mean().item()
+        rel = ((sc - sc_ref).abs() / sc_ref).max().item()
+        if rel > K3_SCALE_RTOL or step.max().item() > K3_MAX_STEP or share > K3_MAX_SHARE:
+            raise SystemExit(f"chip_smoke: K3 R={R} disagrees with its plain version")
+        ms = cuda_ms(lambda: aq.silu_mul_quant(gate, up))
+        plain_ms = cuda_ms(lambda: aq.silu_mul_quant_ref(gate, up), warmup=1, iters=3)
+        b = bound(R * I * 5 + R * 4, R * I * 15, "fp32")
+        _line(f"K3 R={R}", f"max step {step.max().item()}, share differing {share:.2e}, "
+              f"scale rel err {rel:.2e}", ms, plain_ms, b)
+        rows["silu_mul_quant"].append(dict(case=f"R={R}", max_abs_err=float(step.max().item()),
+                                           ms=ms, plain_ms=plain_ms, library_ms=None, **b))
+    for proj, K, N in PROJECTIONS:
+        wp = w4.pack_int4(_rand_int8(g, N, K, lo=-8, hi=8))
+        ws = torch.rand(N, generator=g, device="cuda") * 0.01 + 0.001
+        wb = (w4.unpack_int4(wp).float() * ws[:, None]).to(torch.bfloat16)
+        for m in GEN_ROWS:
+            for kind in ("w4a8", "bf16 x"):
+                if kind == "w4a8":
+                    x = _rand_int8(g, m, K)
+                    xs = torch.rand(m, 1, generator=g, device="cuda") * 0.05 + 0.001
+                    got, want = w4.w4_matmul(x, xs, wp, ws), w4.w4_matmul_ref(x, xs, wp, ws)
+                    ok = torch.equal(got, want)
+                    err = (got.float() - want.float()).abs().max().item()
+                    text = f"equal {ok}"
+                    b = bound(m * K + m * 4 + N * K // 2 + N * 4 + m * N * 2, 2.0 * m * K * N,
+                              "int8")
+                    xb = randn(m, K)  # the yardstick's bf16 x of the same shape
+                else:
+                    x, xs = randn(m, K), None
+                    got = w4.w4_matmul(x, None, wp, ws).float()
+                    torch.cuda.synchronize()
+                    want = w4.w4_matmul_ref(x, None, wp, ws).float()
+                    tol = (2.0**-7 * want.abs()
+                           + 1e-3 * K**0.5 * 8 * x.float().abs().max() * ws.max() / 16)
+                    err = (got - want).abs().max().item()
+                    worst = ((got - want).abs() / tol).max().item()
+                    ok = worst <= 1.0
+                    text = f"max abs err {err:.3e}, worst err/bound {worst:.3f}"
+                    b = bound(m * K * 2 + N * K // 2 + N * 4 + m * N * 2, 2.0 * m * K * N, "bf16")
+                    xb = x
+                if not ok:
+                    raise SystemExit(f"chip_smoke: K4 {kind} {proj} m={m} disagrees with its "
+                                     "plain version")
+                ms = cuda_ms(lambda: w4.w4_matmul(x, xs, wp, ws))
+                plain_ms = cuda_ms(lambda: w4.w4_matmul_ref(x, xs, wp, ws), warmup=1, iters=3)
+                mm_ms = cuda_ms(lambda: torch.mm(xb, wb.t()))
+                _line(f"K4 {kind} {proj} m={m} K={K} N={N} per channel", text, ms, plain_ms, b,
+                      f"; torch.mm on the unpacked bf16 weight {mm_ms:.4f} ms")
+                rows["w4_matmul"].append(dict(
+                    case=f"{kind} {proj} m={m} per channel", max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, library_ms=None, yardstick_mm_ms=mm_ms, **b))
+        del wb
+    return rows
+
+
+def check_int4_decode(g, randn, ints) -> list:
+    """K2-int8 behind the int4 cache's unpack at run A's pool (16 streams x
+    6144 columns, run A's lens): random int4 values packed two a byte as the
+    cache stores them, unpacked a layer's slice at a time
+    (``qwen2_mot._decode_kv``: every column, k and v) and read by K2-int8
+    with the scales, under (lens, lens) and the aligned band. The unpack
+    must give back the values packed; K2-int8 is held to its plain version
+    on the unpacked values. Times the unpack apart from K2-int8. Returns the
+    rows."""
+    print("K2-int8 behind the int4 unpack (pool of 16 x 6144, run A's lens):", flush=True)
+    S, M, D = SERVE_SLOTS, SERVE_CAPACITY, 128
+    ln = ints(*SERVE_LENS)
+    top = max(SERVE_LENS)
+    q = randn(S, 1, 28, D, scale=2.0)
+    k4, v4 = (_rand_int8(g, S, 4, M, D, lo=-7, hi=8) for _ in "kv")
+    kp, vp = qwen2_mot.pack_int4(k4), qwen2_mot.pack_int4(v4)
+    ks = torch.rand(S, 4, M, generator=g, device="cuda") * 0.3 + 0.03
+    vs = torch.rand(S, 4, M, generator=g, device="cuda") * 0.3 + 0.03
+    k8, v8 = qwen2_mot._decode_kv(kp, vp, 4)
+    if not (torch.equal(k8, k4) and torch.equal(v8, v4)):
+        raise SystemExit("chip_smoke: the int4 unpack does not give back the packed values")
+    unpack_ms = cuda_ms(lambda: qwen2_mot._decode_kv(kp, vp, 4))
+    # the unpack reads k and v packed and writes them as int8
+    unpack_bound = bound(2 * S * 4 * M * (D // 2 + D), 0, "int8")
+    print(f"  int4 unpack of a layer's k and v slices [{S}, 4, {M}, {D // 2}] -> int8: equal "
+          f"True; "
+          f"{unpack_ms:.4f} ms (bound {unpack_bound['bound_ms']:.4f} ms by bytes), "
+          f"{28 * unpack_ms:.2f} ms a decode step of 28 layers", flush=True)
+    rows = []
+    bands = {"band (lens, lens)": (ln, ln),
+             f"aligned band [{top}, {top + 7}]": (ints(*[top] * S), ints(*[top + 7] * S))}
+    for band_name, (base, col) in bands.items():
+        name = f"K2-int8 on unpacked int4, S={S} M={M}, {band_name}"
+        kernel = lambda: dec.decode_attention(q, k8, v8, ln, (base, col), k_scale=ks,  # noqa: E731
+                                              v_scale=vs)
+        r = _with_splits(name, S, M, _compare(
+            name, kernel, lambda: dec.decode_attention_ref(q, k8, v8, ln, (base, col), ks, vs),
+            1, row_atol=True), kernel)
+        keys = [a + max(0, c - max(a, b) + 1)
+                for a, b, c in zip(SERVE_LENS, base.tolist(), col.tolist())]
+        r.update(attention_bound([1] * S, keys, 28, 4, D, 1, "bf16", scales=True))
+        rows.append(dict(r["case"], max_abs_err=r["max_abs_err"], ms=r["ms"],
+                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], library_ms=None,
+                         unpack_ms=unpack_ms, unpack_bound_ms=unpack_bound["bound_ms"]))
+    return rows
+
+
 def _pil_image(arr: np.ndarray):
     from PIL import Image
 
@@ -1380,11 +1524,12 @@ class ForwardCounter:
     """Forwards of the LLM split into denoise steps (gen-mode forwards that
     leave the cache as it was), decode steps (one row per stream) and
     prefills (the speculative verify forwards among them, counted also in
-    ``verify``), and forwards of the ViT: the launches a run must show
-    follow from them."""
+    ``verify``), and forwards of the ViT; ``gen`` counts the gen-mode
+    forwards (VAE image prefills and denoise steps, through K1b): the
+    launches a run must show follow from them."""
 
     def __init__(self, model):
-        self.decode = self.prefill = self.vit = self.verify = self.denoise = 0
+        self.decode = self.prefill = self.vit = self.verify = self.denoise = self.gen = 0
         self.vit_rows = []  # the images of each ViT forward
         lm = model.language_model.model
         self.hooks = [
@@ -1393,6 +1538,7 @@ class ForwardCounter:
         ]
 
     def _llm(self, module, args, kwargs):
+        self.gen += kwargs.get("mode") == "gen"  # VAE image blocks and denoise steps
         if kwargs.get("update_cache") is False:
             self.denoise += 1
         elif args[0].shape[1] == 1:
@@ -1699,7 +1845,7 @@ def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
                vit_group_images=counter.vit_rows,
                launches_per_round={k: v / rounds for k, v in launches.items() if v})
     if spec:
-        k8, v8, ks, vs = b.cache.layer(0)
+        k8, v8, ks, vs, _bits = b.cache.layer(0)
         dequant = cuda_ms(lambda: (qwen2_mot.dequant_slice(k8, ks, torch.bfloat16),
                                    qwen2_mot.dequant_slice(v8, vs, torch.bfloat16)))
         row.update(verify_forwards=counter.verify,
@@ -1783,6 +1929,7 @@ def run_serving_phase(inf: InterleaveInferencer) -> list:
         for name, ref, run in (("bf16 weights, bf16 pool", inf, "A"),
                                ("bf16 weights, int8 pool", int8_pool, "B")):
             main, gap_limit = run_serving(name, ref, run, 4, 0, 0)
+            GAP_LIMITS[run] = gap_limit
             launches += [main, run_near_capacity(run, ref, gap_limit)]
             if run == "A":
                 launches += [run_unified_serving(inf, gap_limit), run_http(inf)]
@@ -2435,12 +2582,177 @@ def run_spec_phase(inf: InterleaveInferencer) -> list:
 
 
 # further numbers a kernel's row of the ``kernels`` line carries, where it has them
+# -- batched VQA eval (M11), with the int4 KV cache -----------------------------------------
+EVAL_SLOTS, EVAL_CAPACITY, EVAL_MAX_NEW = 16, 6144, 32
+GAP_LIMITS = {}  # serving run -> its near-tie limit (run_serving_phase)
+
+
+def eval_requests():
+    """Run A's 16 image requests: 4 x 980x980, 4 x 378x532, 8 x 378x378, as
+    (image array, question)."""
+    first, later = serving_workload("A")
+    return [(a, p) for a, p, _pre in first + later if a is not None]
+
+
+def _chat_answer(inf: InterleaveInferencer, image, prompt: str) -> str:
+    """chat's greedy answer text on one request (from :func:`_chat_steps`, so
+    a request that run A gated costs nothing more)."""
+    ids, _ = _chat_steps(inf, image, prompt, EVAL_MAX_NEW)
+    eos = inf.new_token_ids["eos_token_id"]
+    return inf._parse([i for i in ids if i != eos])[0]
+
+
+class _EvalBatcher(ContinuousBatcher):
+    """The batcher ``run_vqa_eval`` builds, kept where the smoke can read it:
+    its submissions in order (``rids``) and each request's ids as it
+    finishes (``ids``)."""
+
+    made = []
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.rids, self.ids = [], _recording_ids(self)
+        _EvalBatcher.made.append(self)
+
+    def submit(self, req):
+        self.rids.append(super().submit(req))
+        return self.rids[-1]
+
+
+def _eval_first_step_logits(inf: InterleaveInferencer, samples, **kv) -> torch.Tensor:
+    """The first decode step's logits [16, V] of the eval's engine over
+    ``samples`` (all admitted in one round into a pool of the kind ``kv``
+    asks for), in sample order."""
+    from unimedvl_tpu_torch.eval import vqa
+
+    b = ContinuousBatcher(inf.model, inf.tokenizer, inf.new_token_ids, EVAL_SLOTS,
+                          EVAL_CAPACITY, vit_transform=vqa.build_transform(), **kv)
+    rids = [b.submit(Request(prompt=s["question"], image=s["image"],
+                             max_new_tokens=EVAL_MAX_NEW)) for s in samples]
+    b._admit()
+    if b.errors or b._pending:
+        raise SystemExit(f"chip_smoke: eval run F's admission gave errors {b.errors}")
+    logits = _engine_first_step_logits(b, scatter=False)
+    slot_of = {s.request_id: i for i, s in enumerate(b.slots[: b.pool])}
+    out = logits[[slot_of[r] for r in rids]]
+    del b, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_eval_phase(inf: InterleaveInferencer) -> dict:
+    """Run F, the batched VQA eval at the full width: ``eval.run_vqa_eval``
+    over run A's 16 image requests (``num_slots=16``, ``capacity=6144``,
+    ``max_new_tokens=32``), each sample's answer chat's greedy answer, three
+    times: a bf16 pool, an int8 pool, an int4 pool (``kv_bits=4``). Gates:
+    the bf16 predictions against chat's (:func:`check_answers`, run A's
+    near-tie limit); ``exact_match_accuracy`` at least the share of samples
+    with no split; on every sample whose prediction equals chat's answer,
+    ``report_metrics`` is what identical texts score (ROUGE-L 1.0 where the
+    text has a word; BLEU-3 needs three words, and METEOR's fragmentation
+    penalty keeps identity below 1); every run's launches against its
+    forwards (K2 in the bf16 run, K2-int8 at every decode step of the int8
+    and int4 runs); the first-step logits finite. The int8 and int4 runs'
+    first-step logits against the bf16 engine's are printed side by side
+    (non-parity modes: no gate), and each run's emitted tok/s, ``stats`` and
+    the metrics. Returns the launches."""
+    from unimedvl_tpu_torch.eval import exact_match_accuracy, report_metrics, vqa
+    from unimedvl_tpu_torch.eval.text_metrics import tokenize
+
+    n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
+    reqs = eval_requests()
+    answers = [_chat_answer(inf, a, p) for a, p in reqs]
+    samples = [dict(image=_pil_image(a), question=p, answer=ans)
+               for (a, p), ans in zip(reqs, answers)]
+    runs = [("bf16 pool", dict()), ("int8 pool", dict(kv_quantized=True)),
+            ("int4 pool", dict(kv_quantized=True, kv_bits=4))]
+    print(f"eval run F: run_vqa_eval over {len(samples)} image samples (4 x 980x980, 4 x "
+          f"378x532, 8 x 378x378), num_slots={EVAL_SLOTS}, capacity={EVAL_CAPACITY}, "
+          f"max_new_tokens={EVAL_MAX_NEW}, answers chat's; pools: bf16, int8, int4", flush=True)
+    logits = {name: _eval_first_step_logits(inf, samples, **kv) for name, kv in runs}
+    for name, rows in logits.items():
+        if not bool(torch.isfinite(rows).all()):
+            raise SystemExit(f"chip_smoke: eval run F ({name}): non-finite first-step logits")
+    for name in ("int8 pool", "int4 pool"):
+        cos = torch.nn.functional.cosine_similarity(logits[name], logits["bf16 pool"], dim=-1)
+        diff = (logits[name] - logits["bf16 pool"]).abs().amax(dim=-1)
+        agree = (logits[name].argmax(-1) == logits["bf16 pool"].argmax(-1)).float().mean()
+        print(f"  run F {name} vs bf16 pool, first-step logits per sample: cosine min "
+              f"{cos.min().item():.6f} median {cos.median().item():.6f}, max abs max "
+              f"{diff.max().item():.4f}, argmax agreeing {agree.item():.3f}", flush=True)
+    total = {name: 0 for name in COUNTERS}
+    os.environ["UNIMEDVL_SERVING_PROFILE"] = "1"
+    made = serving.ContinuousBatcher
+    try:
+        for name, kv in runs:
+            decode_key = "decode_attention_int8" if kv else "decode_attention"
+            counter = ForwardCounter(inf.model)
+            reset_counts()
+            serving.ContinuousBatcher = _EvalBatcher
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                preds, acc = vqa.run_vqa_eval(
+                    inf.model, inf.tokenizer, inf.new_token_ids, samples,
+                    max_new_tokens=EVAL_MAX_NEW, num_slots=EVAL_SLOTS, capacity=EVAL_CAPACITY,
+                    metric=exact_match_accuracy, **kv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            finally:
+                serving.ContinuousBatcher = made
+                counter.remove()
+            b = _EvalBatcher.made.pop()
+            launches = check_counts(f"eval run F ({name})", {
+                "flash_block_attention": counter.vit * n_vit + counter.prefill * n_llm,
+                decode_key: counter.decode * n_llm,
+            })
+            for k, v in launches.items():
+                total[k] += v
+            if b.errors or len(preds) != len(samples) or not all(isinstance(p, str)
+                                                                 for p in preds):
+                raise SystemExit(f"chip_smoke: eval run F ({name}): errors {b.errors}")
+            st = b.stats
+            row = dict(card=CARD, pool=name, seconds=seconds,
+                       emitted_tokens=st["emitted_tokens"],
+                       emitted_tok_s=st["emitted_tokens"] / seconds,
+                       stats={k: st[k] for k in ("rounds", "admit_s", "decode_s", "host_s",
+                                                 "round_s", "admitted")},
+                       decode_forwards=counter.decode, prefill_forwards=counter.prefill,
+                       vit_forwards=counter.vit, accuracy=acc,
+                       same_as_chat=sum(p == a for p, a in zip(preds, answers)),
+                       report_metrics=report_metrics(preds, answers),
+                       cache_gib=sum(t.numel() * t.element_size() for t in
+                                     serving._arrays(b.cache)) / 2**30)
+            print(f"  run F ({name}): {json.dumps(row)}", flush=True)
+            if name == "bf16 pool":
+                splits = check_answers("F", inf, [(rid, a, p) for rid, (a, p) in
+                                                  zip(b.rids, reqs)], b.ids, EVAL_MAX_NEW,
+                                       GAP_LIMITS["A"])
+                floor = (len(samples) - len(splits)) / len(samples)
+                if acc < floor:
+                    raise SystemExit(f"chip_smoke: eval run F: accuracy {acc} below the share "
+                                     f"of samples with no split, {floor}")
+                for p, a in zip(preds, answers):
+                    if p != a:
+                        continue
+                    got, ident = report_metrics([p], [a]), report_metrics([a], [a])
+                    if got != ident or (tokenize(a) and got["rouge_l"] != 1.0):
+                        raise SystemExit(f"chip_smoke: eval run F: report_metrics {got} on an "
+                                         f"answer equal to chat's (identity scores {ident})")
+            del b
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("UNIMEDVL_SERVING_PROFILE")
+    return total
+
+
 EXTRA_KEYS = (
     "one_row_ms", "one_row_ms_back_to_back", "tiles_skipped", "max_abs_err_lse",
     "cache_partial_t2i_ms", "cache_partial_edit_ms", "library_note", "concat_k1b_ms",
     "k_island_ms", "concat_copy_ms", "k1b_on_concat_ms", "q_island_only_ms", "launches_from",
     "n_split", "split_len", "cases", "ms_in_graph", "vit", "gemm", "bf16_gemm",
     "one_row_ms_in_graph", "gemv_cases", "serving_cases", "spec_cases", "group_cases",
+    "gen_cases", "int4_cases",
 )
 
 COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches there)
@@ -2657,10 +2969,17 @@ def _denoise_inputs(inf: InterleaveInferencer, edit: bool = False):
         cfg_text = ctx.fork()
     ctx = inf.update_context_text(prompt, ctx)
     cfg_img = inf.update_context_text(prompt, cfg_img)
-    caches, positions = inf._stack_contexts([ctx, cfg_text, cfg_img])
+    return _stacked_inputs(inf, [ctx, cfg_text, cfg_img], GEN_SIZE)
+
+
+def _stacked_inputs(inf: InterleaveInferencer, contexts, shape):
+    """(caches, positions, latent position ids, noise) of a denoise at
+    ``shape`` over ``contexts`` (main, cfg_text, cfg_img), the noise from a
+    generator of its own (SEED + 3)."""
+    caches, positions = inf._stack_contexts(contexts)
     ld = inf.cfg.latent_downsample
-    h, w = GEN_SIZE[0] // ld, GEN_SIZE[1] // ld
-    pos_ids = torch.from_numpy(inf._position_ids(*GEN_SIZE, ld, inf.cfg.max_latent_size))
+    h, w = shape[0] // ld, shape[1] // ld
+    pos_ids = torch.from_numpy(inf._position_ids(*shape, ld, inf.cfg.max_latent_size))
     g = torch.Generator(device=inf.device).manual_seed(SEED + 3)
     noise = torch.randn(h * w, inf.cfg.patch_latent_dim, generator=g, device=inf.device)
     return caches, positions, pos_ids.to(inf.device), noise
@@ -2675,12 +2994,19 @@ def _first_step_velocity(inf: InterleaveInferencer, mesh=None, edit: bool = Fals
     """Post-CFG velocity of the first flow step (t = 1) of the text-to-image
     request, or of the edit. With ``mesh``, through the sequence-parallel
     program: a schedule of two timesteps is that one step with dt = 1."""
-    caches, positions, pos_ids, noise = _denoise_inputs(inf, edit)
+    inputs = _denoise_inputs(inf, edit)
     if mesh is not None:
+        caches, positions, pos_ids, noise = inputs
         x1 = sp_denoise.generate_latents_tp_sp(
             inf.model, caches, positions, pos_ids, noise, inf._start_end(), mesh,
             num_timesteps=2, **RECIPE)
         return noise - x1
+    return _velocity_on(inf, *inputs)
+
+
+def _velocity_on(inf: InterleaveInferencer, caches, positions, pos_ids, noise) -> torch.Tensor:
+    """The first flow step's post-CFG velocity (t = 1, RECIPE's options) on
+    stacked denoise inputs."""
     x1 = bagel.generate_latents(
         inf.model, caches, positions, pos_ids, noise, inf._start_end(), num_timesteps=50,
         step_range=(0, 1), **RECIPE)
@@ -2703,19 +3029,21 @@ def _upcast(ref):
     return call
 
 
-def _with_plain_versions(fn, fp32_attention: bool = False):
+def _with_plain_versions(fn, fp32_attention: bool = False, quant_only: bool = False):
     """fn() with every kernel call swapped for its plain version; with
-    ``fp32_attention`` the attention ones run in fp32 (``_upcast``)."""
+    ``fp32_attention`` the attention ones run in fp32 (``_upcast``); with
+    ``quant_only`` only K3 and K4 (the attention kernels stay)."""
     flash = _upcast(fa.flash_block_attention_ref) if fp32_attention else \
         fa.flash_block_attention_ref
     decode = _upcast(dec.decode_attention_ref) if fp32_attention else dec.decode_attention_ref
-    swapped = [(siglip, "flash_block_attention", flash),
-               (qwen2_mot, "flash_block_attention", flash),
-               (qwen2_mot, "decode_attention", decode),
-               (qwen2_mot, "silu_mul_quant", aq.silu_mul_quant_ref),
-               (qwen2_mot, "packed_train_attention", fat.packed_train_attention_ref),
-               (sp_denoise, "flash_block_attention", flash),
+    swapped = [(qwen2_mot, "silu_mul_quant", aq.silu_mul_quant_ref),
                (quant, "w4_matmul", w4.w4_matmul_ref)]
+    if not quant_only:
+        swapped += [(siglip, "flash_block_attention", flash),
+                    (qwen2_mot, "flash_block_attention", flash),
+                    (qwen2_mot, "decode_attention", decode),
+                    (qwen2_mot, "packed_train_attention", fat.packed_train_attention_ref),
+                    (sp_denoise, "flash_block_attention", flash)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swapped]
     for mod, name, f in swapped:
         setattr(mod, name, f)
@@ -2727,32 +3055,240 @@ def _with_plain_versions(fn, fp32_attention: bool = False):
 
 
 def check_velocity_against_plain(inf: InterleaveInferencer, mesh=None) -> dict:
-    """The first post-CFG velocity on the same inputs through the kernels,
-    the plain versions (bf16 in and out, p rounded to bf16 before P V, as the
-    kernels round it) and the plain versions with the attention in fp32;
-    asserts kernels vs plain and kernels vs fp32 at VELOCITY_COS_TOL and
-    prints the noise floor, plain bf16 vs fp32. Returns the three velocities."""
-    v = {"kernels": _first_step_velocity(inf, mesh),
-         "plain": _with_plain_versions(lambda: _first_step_velocity(inf, mesh)),
-         "fp32": _with_plain_versions(lambda: _first_step_velocity(inf, mesh), True)}
-    cos = {pair: _cosine(v[pair[0]], v[pair[1]])
-           for pair in (("kernels", "plain"), ("kernels", "fp32"), ("plain", "fp32"))}
+    """The first post-CFG velocity of the text-to-image request through the
+    kernels against the plain versions (:func:`check_velocities`)."""
     path = "the sequence-parallel path" if mesh is not None else \
         f"text-to-image {GEN_SIZE[0]}x{GEN_SIZE[1]}"
+    return check_velocities(path, lambda: _first_step_velocity(inf, mesh))
+
+
+def check_velocities(path: str, velocity, own_floor: bool = False) -> dict:
+    """``velocity()`` (a first post-CFG velocity) on the same inputs through
+    the kernels, the plain versions (bf16 in and out, p rounded to bf16
+    before P V, as the kernels round it) and the plain versions with the
+    attention in fp32; asserts kernels vs plain and kernels vs fp32 at
+    VELOCITY_COS_TOL and prints the noise floor, plain bf16 vs fp32.
+    ``own_floor``: the bound is set by VELOCITY_COS_TOL's rule from this
+    path's own noise floor, measured here (1 - 2 (1 - floor)), where that is
+    lower: in the quantized modes a last-place difference before an int8
+    activation rounding moves the value a whole step. Returns the three
+    velocities and the bound (``v["tol"]``)."""
+    v = {"kernels": velocity(),
+         "plain": _with_plain_versions(velocity),
+         "fp32": _with_plain_versions(velocity, True)}
+    cos = {pair: _cosine(v[pair[0]], v[pair[1]])
+           for pair in (("kernels", "plain"), ("kernels", "fp32"), ("plain", "fp32"))}
     print(f"end to end ({path}): first-step post-CFG velocity (std "
           f"{v['fp32'].std().item():.3f}), cosine kernels vs plain "
           f"{cos['kernels', 'plain']:.6f}, kernels vs fp32 attention "
           f"{cos['kernels', 'fp32']:.6f}; the noise floor, plain bf16 vs fp32 attention "
           f"{cos['plain', 'fp32']:.6f}; max abs kernels vs fp32 "
           f"{(v['kernels'] - v['fp32']).abs().max().item():.4f}", flush=True)
+    tol = VELOCITY_COS_TOL
+    if own_floor:
+        tol = min(tol, 1 - 2 * (1 - cos[("plain", "fp32")]))
+        print(f"  the bound from this path's floor: cosine >= {tol:.6f} (VELOCITY_COS_TOL "
+              f"{VELOCITY_COS_TOL:.6f})", flush=True)
     if (not bool(torch.isfinite(v["kernels"]).all()) or v["kernels"].shape != v["fp32"].shape
-            or min(cos[("kernels", "plain")], cos[("kernels", "fp32")]) < VELOCITY_COS_TOL):
+            or min(cos[("kernels", "plain")], cos[("kernels", "fp32")]) < tol):
         raise SystemExit(f"chip_smoke: the velocity of {path} disagrees with the plain versions'")
+    v["tol"] = tol
     return v
 
 
 def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     return torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+
+
+def gen_path_launches(counter: ForwardCounter, n_vit: int, n_llm: int, k3: int = 0,
+                      k4: int = 0, decode_key: str = "decode_attention") -> dict:
+    """The launches a generation-side run must show, from its forwards: K1a
+    at every ViT layer and at every und-mode prefill (text), K1b at every
+    gen-mode forward (VAE image prefills, denoise steps), K2 / K2-int8 at
+    every decode step; with quantized projections ``k3`` K3 and ``k4`` K4
+    launches per layer and expert run, where a gen-mode forward runs both
+    experts (the gen expert on every row, the und expert on the text rows)."""
+    und = counter.prefill - (counter.gen - counter.denoise)
+    runs = counter.decode + und + 2 * counter.gen
+    return {"flash_block_attention": counter.vit * n_vit + und * n_llm,
+            "flash_block_attention_q_preproc": counter.gen * n_llm,
+            decode_key: counter.decode * n_llm,
+            "silu_mul_quant": k3 * n_llm * runs, "w4_matmul": k4 * n_llm * runs}
+
+
+# -- the vqa-reconstruction recipes (what remains of M7) --------------------------------------
+RECON_PROMPT = "What abnormality is visible? Describe it in one sentence."
+
+
+def _recon_image(i: int) -> np.ndarray:
+    rng = np.random.default_rng(SEED + 20 + i)
+    return rng.integers(0, 256, (*GEN_SIZE, 3), dtype=np.uint8)
+
+
+def _recon_request(inf: InterleaveInferencer, path: str, call):
+    """``call()`` (a recipe) with ``gen_image`` and ``decode_image`` wrapped
+    to keep each image's contexts, options, the generator's state before its
+    noise is drawn, its seconds (synchronised) and its final latent; counters
+    reset just before. Returns (the recipe's output, its seconds, the kept
+    generations, the launches)."""
+    n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
+    gens, gen_image, decode_image = [], inf.gen_image, inf.decode_image
+
+    def recording(shape, ctx, **kw):
+        state = inf._generator.get_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen_image(shape, ctx, **kw)
+        torch.cuda.synchronize()
+        gens[-1].update(shape=shape, ctx=ctx, kw=kw, state=state,
+                        seconds=time.perf_counter() - t0)
+        return out
+
+    def keeping(latent, shape):
+        gens.append(dict(latent=latent.clone()))
+        return decode_image(latent, shape)
+
+    inf.gen_image, inf.decode_image = recording, keeping
+    counter = ForwardCounter(inf.model)
+    reset_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        counter.remove()
+        del inf.__dict__["gen_image"], inf.__dict__["decode_image"]
+    launches = check_counts(path, gen_path_launches(counter, n_vit, n_llm))
+    return out, seconds, gens, launches
+
+
+def run_reconstruction(inf: InterleaveInferencer) -> dict:
+    """Run G, the vqa-reconstruction recipes at the full width, recipe
+    defaults (50 timesteps, CFG text 3.0 / image 1.5 on (0.4, 1.0], global
+    renorm), answers of at most MAX_LENGTH tokens: ``inf(image=<512x512>,
+    text=..., inference_ver=1, reconstruct_image=True)`` (``_ver1``: the
+    answer from a VAE + ViT context, the image generated again from it),
+    then ``_ver0_1`` over two 512x512 images (a fresh context per image, CFG
+    scales 7.0). Gates: a non-empty answer and one 512x512 image per input
+    image; the launches against the forwards; ver1's first denoise step's
+    velocity on its own three contexts against the plain versions
+    (:func:`check_velocities`); ver1's final latent against
+    ``gen_image_latent`` on the same contexts with the generator replayed
+    (cosine at VELOCITY_COS_TOL, max |diff| printed). Returns the launches."""
+    total = {name: 0 for name in COUNTERS}
+    print(f"vqa-reconstruction (run G): inference_ver=1 on a {GEN_SIZE[0]}x{GEN_SIZE[1]} "
+          f"image, then _ver0_1 over two; 50 timesteps, answers of at most {MAX_LENGTH} "
+          "tokens", flush=True)
+    cases = [
+        ("ver1", [_recon_image(0)], lambda: inf(
+            image=_pil_image(_recon_image(0)), text=RECON_PROMPT, inference_ver=1,
+            reconstruct_image=True, max_think_token_n=MAX_LENGTH)),
+        ("ver0_1", [_recon_image(0), _recon_image(1)],
+         lambda: inf.interleave_inference_for_vqa_reconstruction_ver0_1(
+             [_pil_image(_recon_image(0)), _pil_image(_recon_image(1)), RECON_PROMPT],
+             reconstruct_image=True, max_think_token_n=MAX_LENGTH)),
+    ]
+    for name, images, call in cases:
+        out, seconds, gens, launches = _recon_request(inf, f"the {name} recipe", call)
+        for k, v in launches.items():
+            total[k] += v
+        text = out["text"] if isinstance(out, dict) else out[0]
+        imgs = (([out["image"]] if out["image"] is not None else []) if isinstance(out, dict)
+                else out[1:])
+        row = dict(card=CARD, recipe=name, seconds=seconds, answer=text[:60],
+                   s_per_image=[gd["seconds"] for gd in gens],
+                   answer_and_contexts_s=seconds - sum(gd["seconds"] for gd in gens))
+        print(f"  {name}: {json.dumps(row)}", flush=True)
+        if (not isinstance(text, str) or not text.strip() or len(imgs) != len(images)
+                or any(getattr(im, "size", None) != GEN_SIZE[::-1] for im in imgs)
+                or any(not bool(torch.isfinite(gd["latent"]).all()) for gd in gens)):
+            raise SystemExit(f"chip_smoke: the {name} recipe returned {text!r} and {imgs}")
+        if name != "ver1":
+            continue
+        gd = gens[0]
+        contexts = [gd["ctx"], gd["kw"]["cfg_text_precontext"], gd["kw"]["cfg_img_precontext"]]
+        check_velocities(f"the ver1 recipe's reconstruction {GEN_SIZE[0]}x{GEN_SIZE[1]}",
+                         lambda: _velocity_on(inf, *_stacked_inputs(inf, contexts, gd["shape"])))
+        inf._generator.set_state(gd["state"])
+        want = inf.gen_image_latent(gd["shape"], gd["ctx"], **gd["kw"])
+        cos = _cosine(gd["latent"], want)
+        print(f"  ver1's image: final latent vs gen_image_latent on the same contexts, the "
+              f"generator replayed: cosine {cos:.6f}, max abs "
+              f"{(gd['latent'] - want).abs().max().item():.4f} (latent std "
+              f"{want.std().item():.3f})", flush=True)
+        if cos < VELOCITY_COS_TOL:
+            raise SystemExit("chip_smoke: ver1's image disagrees with gen_image_latent")
+    return total
+
+
+# -- quantized text to image (what remains of M7) --------------------------------------------
+QUANT_GEN_MODES = [  # name, options, K4 launches per layer and expert run, K3 likewise
+    ("full-int8 + fused + int8 KV", dict(bits=8, act_quant=True), 0, 1),
+    ("w4a8 per channel + fused + int8 KV", dict(bits=4, act_quant=True), 4, 1),
+    ("weight-only w4 per channel + fused + int8 KV", dict(bits=4), 4, 0),
+]
+
+
+def run_quantized_generation(inf: InterleaveInferencer, v_bf16: torch.Tensor,
+                             bf16_rows: dict) -> dict:
+    """Run H, text to image and an edit at 512x512 (recipe defaults) in the
+    quantized modes, each on its own quantized copy of the LLM (freed before
+    the next), fused, with an int8 KV cache: full-int8, w4a8 per channel,
+    weight-only w4 per channel. Checks the launches against the forwards (K3
+    and K4 at every projection of both experts in a gen-mode forward, of the
+    und expert in a text prefill), gates the first post-CFG velocity of the
+    text-to-image request against the same quantized model's plain versions
+    at the bound its own noise floor sets (:func:`check_velocities`,
+    ``own_floor``: in full-int8 a K3 output one step off in a few elements
+    moves it as far as bf16 against fp32 attention does), also with only K3
+    and K4 swapped for their plain versions, and prints its cosine against the
+    bf16 model's
+    (``v_bf16``: an observation, these are non-parity modes) and each
+    request's s/image split into context build, denoise and VAE decode beside
+    bf16's (``bf16_rows``, from the same call). Returns the launches."""
+    n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
+    total = {name: 0 for name in COUNTERS}
+    for name, kw, k4, k3 in QUANT_GEN_MODES:
+        print(f"quantized generation path (run H), {name}: text-to-image and an edit at "
+              f"{GEN_SIZE[0]}x{GEN_SIZE[1]}, 50 timesteps", flush=True)
+        qinf = quantized_inferencer(inf, **kw)
+        # warm-up (first uses of the quantized shapes), few steps, not counted
+        qinf.interleave_inference([GEN_PROMPT], image_shapes=GEN_SIZE, num_timesteps=3)
+        counter = ForwardCounter(qinf.model)
+        reset_counts()
+        rows = {}
+        try:
+            for rname, inputs in (("text-to-image", [GEN_PROMPT]),
+                                  ("edit", [_edit_image(), EDIT_PROMPT])):
+                _, rows[rname] = _gen_request(qinf, inputs)
+        finally:
+            counter.remove()
+        launches = check_counts(f"the quantized generation path ({name})", gen_path_launches(
+            counter, n_vit, n_llm, k3=k3, k4=k4, decode_key="decode_attention_int8"))
+        for k, v in launches.items():
+            total[k] += v
+        for rname, row in rows.items():
+            ref = bf16_rows[rname]
+            split = {k: row[k] for k in ("s_per_image", "context_build_s", "denoise_s",
+                                         "vae_decode_s", "ms_per_3_stream_step",
+                                         "ms_per_1_stream_step")}
+            print(f"  {name} {rname}: {json.dumps(dict(card=CARD, **split))}; bf16 "
+                  f"{json.dumps({k: ref[k] for k in split})}; s/image "
+                  f"{row['s_per_image'] / ref['s_per_image']:.3f}x bf16's", flush=True)
+        velocity = partial(_first_step_velocity, qinf)
+        v = check_velocities(f"quantized text-to-image, {name}", velocity, own_floor=True)
+        cos_quant = _cosine(v["kernels"], _with_plain_versions(velocity, quant_only=True))
+        print(f"  {name}: first velocity with K3 and K4 against their plain versions alone "
+              f"(the attention kernels kept): cosine {cos_quant:.6f}; against the bf16 "
+              f"model's (not a parity mode): cosine {_cosine(v['kernels'], v_bf16):.4f}",
+              flush=True)
+        if cos_quant < v["tol"]:
+            raise SystemExit(f"chip_smoke: K3 / K4 move the first velocity of {name}")
+        del qinf, v
+        torch.cuda.empty_cache()
+    return total
 
 
 def run_cache_block_step(inf: InterleaveInferencer) -> dict:
@@ -3327,29 +3863,48 @@ def main() -> None:
 
 
 def run(tmp: str) -> None:
+    t_start = time.perf_counter()
+
+    def done(phase: str) -> None:
+        """Where the run's time goes: seconds since the start, at each phase's end."""
+        print(f"[{time.perf_counter() - t_start:.1f} s] {phase} done", flush=True)
+
     build_kernels()
     timings = check_kernels()
     time_int8_matmul_candidates(torch.Generator(device="cuda").manual_seed(SEED + 4))
     torch.cuda.empty_cache()
+    done("kernel checks")
     inf = build_inferencer()
     print("chat path: 3 chat requests, greedy, max_length "
           f"{MAX_LENGTH}, full 14B geometry, random weights (seed {SEED})", flush=True)
     paths = [run_main_path(inf)]
     logits_bf16 = check_against_plain_path(inf)
+    done("chat")
     print(f"generation path: text-to-image and an image edit at {GEN_SIZE[0]}x{GEN_SIZE[1]}, "
           "50 timesteps, CFG text 3.0 / image 1.5 on (0.4, 1.0], global renorm", flush=True)
     launches, plain_rows = run_generation(inf)
     paths.append(launches)
-    check_velocity_against_plain(inf)
+    v_bf16 = check_velocity_against_plain(inf)["kernels"]
     print("K6 inside the model: the first denoise step of each request, its attention swapped "
           "for K6", flush=True)
     paths.append(run_cache_block_step(inf))
+    done("generation")
     print("sequence-parallel denoise path: the same two requests through "
           "InterleaveInferencer(sp_mesh=...), full depth", flush=True)
     paths.append(run_sp_generation(inf, make_sp_mesh(tmp), plain_rows))
+    done("sequence-parallel generation")
     paths.append(run_quantized_chat(inf, logits_bf16))
+    done("quantized chat")
+    paths.append(run_quantized_generation(inf, v_bf16, plain_rows))
+    done("quantized generation (run H)")
     paths += run_serving_phase(inf)
+    done("serving (runs A-E, HTTP)")
+    paths.append(run_eval_phase(inf))
+    done("eval (run F)")
+    paths.append(run_reconstruction(inf))
+    done("vqa-reconstruction (run G)")
     paths += run_spec_phase(inf)
+    done("speculative decoding")
     train_timings, train_paths = run_training(inf)
     timings.update(train_timings)
     paths += train_paths
@@ -3358,6 +3913,7 @@ def run(tmp: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     paths += run_full_finetune(tok, new_token_ids)
+    done("training")
     flash = "unimedvl_tpu_torch/csrc/flash_block_attention.cu"
     decode = "unimedvl_tpu_torch/csrc/decode_attention.cu"
     train = "unimedvl_tpu_torch/csrc/packed_train_attention.cu"

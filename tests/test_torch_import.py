@@ -1,6 +1,7 @@
 """The PyTorch port imports without jax, without anything of the JAX package
 and without a CUDA toolchain: it keeps its own config, tokenizer set-up and
-image preprocessing, and builds its kernels at the first CUDA launch. The
+image preprocessing, and its own copy of the eval text metrics, and builds
+its kernels at the first CUDA launch. The
 multi-rank modules (``parallel/``, ``tools/dryrun_sp.py``) start no process
 group and no process when imported, and the HTTP front end
 (``inference/server.py``, ``scripts/``) starts no server. The same holds for ``chip_smoke.py``'s
@@ -44,6 +45,13 @@ import unimedvl_tpu_torch.inference.server
 import unimedvl_tpu_torch.scripts.common
 import unimedvl_tpu_torch.scripts.interactive_vqa
 import unimedvl_tpu_torch.scripts.serve_http
+import unimedvl_tpu_torch.scripts.interactive_image_generator
+import unimedvl_tpu_torch.eval
+import unimedvl_tpu_torch.eval.vqa
+import unimedvl_tpu_torch.eval.text_metrics
+import unimedvl_tpu_torch.models.qwen2_mot
+import unimedvl_tpu_torch.inference.pipeline
+import unimedvl_tpu_torch.inference.serving
 import unimedvl_tpu_torch.parallel
 import unimedvl_tpu_torch.parallel.mesh
 import unimedvl_tpu_torch.parallel.sp_denoise

@@ -24,7 +24,9 @@ in a fixed order: repeats, and replays of a CUDA graph that captured it, are
 bit-equal to eager calls. K3 (silu * mul * quant): scales within 1e-6
 relative, q within one step, at most 1e-3 of the elements differing (expf
 against torch.sigmoid in the last place). K2-int8 takes the attention
-tolerance above.
+tolerance above, also over an int4 cache layer unpacked to int8 (the
+decode route of ``KVCache(kv_bits=4)``), whose unpack on the card must equal
+the CPU's for every byte.
 
 K5 (packed training attention). Its forward takes the attention tolerance.
 Each gradient is held, per element, to |err| <= 2^-7 (m + |plain|) + floor,
@@ -588,6 +590,40 @@ def test_decode_attention_int8_reads_a_cache_layer(gen):
                                     (band[0][:1], band[1][:1]), ks[1, :1], vs[1, :1])
     _assert_close(got[:1], want)
     assert (got[1] == 0).all()
+
+
+def test_int4_unpack_on_the_card_equals_the_cpu(gen):
+    """Every byte unpacks on the card as on the CPU (int8 shifts), and
+    packing random int4 values gives them back."""
+    from unimedvl_tpu_torch.models import qwen2_mot
+
+    every = torch.arange(-128, 128, dtype=torch.int8)
+    assert torch.equal(qwen2_mot.unpack_int4(every.cuda()).cpu(), qwen2_mot.unpack_int4(every))
+    q = torch.randint(-7, 8, (3, 4, 300, 128), generator=gen, device="cuda", dtype=torch.int8)
+    assert torch.equal(qwen2_mot.unpack_int4(qwen2_mot.pack_int4(q)), q)
+
+
+@pytest.mark.parametrize("band", ["aligned", "lens"])
+def test_decode_over_an_int4_cache_layer_takes_k2_int8(gen, band):
+    """One layer of an int4 cache as the decode step reads it: unpacked to
+    int8 (``_decode_kv``), then K2-int8 with the scales, against the plain
+    version on the unpacked values."""
+    from unimedvl_tpu_torch.models import qwen2_mot
+
+    L, S, Hk, M = 2, 3, 4, 700
+    q4 = torch.randint(-7, 8, (L, S, Hk, M, 128), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    kp, vp = qwen2_mot.pack_int4(q4), qwen2_mot.pack_int4(q4.flip(-1))
+    ks = torch.rand(L, S, Hk, M, generator=gen, device="cuda") * 0.3 + 0.02
+    vs = torch.rand(L, S, Hk, M, generator=gen, device="cuda") * 0.3 + 0.02
+    q = _randn(gen, S, 1, 28, 128, scale=2.0)
+    lens = _ints(500, 37, 690)
+    bands = (_ints(690, 690, 690), _ints(695, 695, 695)) if band == "aligned" else (lens, lens)
+    k8, v8 = qwen2_mot._decode_kv(kp[1], vp[1], 4)
+    before = dec.int8_counts["kernel"]
+    got = dec.decode_attention(q, k8, v8, lens, bands, k_scale=ks[1], v_scale=vs[1])
+    assert dec.int8_counts["kernel"] == before + 1
+    _assert_close(got, dec.decode_attention_ref(q, k8, v8, lens, bands, ks[1], vs[1]))
 
 
 @pytest.mark.parametrize("R", [1, 3, 8, 16, 731])  # 8, 16: a serving pool's decode step

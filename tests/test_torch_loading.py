@@ -11,9 +11,12 @@ JAX package on the CPU, fp32:
 - the 2D ViT rope (``rope_2d_tables``, ``siglip._apply_rope_2d``): the
   encoder with ``rope=True`` against the JAX encoder, through K1a's route and
   the dense differentiable one: atol 1e-4, as tests/test_torch_model.py;
-- the front ends ``scripts/interactive_vqa`` and ``scripts/serve_http``:
-  ``--help``, the refusal of flags whose paths are not ported, and a one-shot
-  answer and the REPL of the VQA front end over the tiny model.
+- the front ends ``scripts/interactive_vqa``, ``scripts/serve_http`` and
+  ``scripts/interactive_image_generator``: ``--help``, the refusal of flags
+  whose paths are not ported, the KV cache flags, a one-shot answer and the
+  REPL of the VQA front end over the tiny model, and the image front end's
+  text to image and edit (the reference's editing renorm) over the tiny
+  generation model.
 
 Time budget: about 20 s alone.
 """
@@ -36,7 +39,9 @@ from unimedvl_tpu.ops import rope as jrope
 from unimedvl_tpu.weights import bagel_loader as jloader
 from unimedvl_tpu_torch.models import bagel
 from unimedvl_tpu_torch.ops import rope
-from unimedvl_tpu_torch.scripts import common, interactive_vqa, serve_http
+from unimedvl_tpu_torch.scripts import (
+    common, interactive_image_generator, interactive_vqa, serve_http,
+)
 from unimedvl_tpu_torch.weights import loader
 
 from tests.test_torch_config import port_config
@@ -140,20 +145,35 @@ def test_vit_with_2d_rope_matches_jax(dense):
 # the front ends
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("script", [interactive_vqa, serve_http], ids=["vqa", "serve"])
-def test_help_and_unported_flags(script, capsys):
+@pytest.mark.parametrize("script,base", [
+    pytest.param(interactive_vqa, [], id="vqa"),
+    pytest.param(serve_http, [], id="serve"),
+    pytest.param(interactive_image_generator, ["--prompt", "p"], id="image"),
+])
+def test_help_and_unported_flags(script, base, capsys):
+    """``--help``; ``--tp`` / ``--dp`` (and the image front end's ``--sp``)
+    above 1 exit naming M13; ``--int4-kv`` (refused until the int4 cache was
+    ported) now asks for int4 caches."""
     with pytest.raises(SystemExit) as e:
         script.parse_args(["--help"])
     assert e.value.code == 0
     out = capsys.readouterr().out
-    for flag in ("--checkpoint", "--base-checkpoint", "--int8-kv", "--act-int8", "--w4",
-                 "--device"):
+    for flag in ("--checkpoint", "--base-checkpoint", "--int8-kv", "--int4-kv", "--act-int8",
+                 "--w4", "--device"):
         assert flag in out
-    for argv, why in ((["--tp", "2"], "M13"), (["--dp", "2"], "M13"), (["--int4-kv"], "M8")):
+    argvs = [["--tp", "2"], ["--dp", "2"]] + ([["--sp", "2"]] if base else [])
+    for argv in argvs:
         with pytest.raises(SystemExit) as e:
-            script.parse_args(["--checkpoint", "x"] + argv)
-        assert why in str(e.value.code)
-    assert script.parse_args(["--checkpoint", "x"]).device == "cuda"
+            script.parse_args(["--checkpoint", "x"] + base + argv)
+        assert "M13" in str(e.value.code)
+    args = script.parse_args(["--checkpoint", "x"] + base)
+    assert args.device == "cuda"
+    assert common.kv_options(args) == dict(kv_quantized=False, kv_bits=8)
+    for argv in (["--int4-kv"], ["--int8-kv", "--int4-kv"]):
+        args = script.parse_args(["--checkpoint", "x"] + base + argv)
+        assert common.kv_options(args) == dict(kv_quantized=True, kv_bits=4)
+    args = script.parse_args(["--checkpoint", "x", "--int8-kv"] + base)
+    assert common.kv_options(args) == dict(kv_quantized=True, kv_bits=8)
 
 
 def test_serve_http_flags():
@@ -214,3 +234,56 @@ def test_interactive_vqa_answers(pair, monkeypatch, capsys):  # noqa: F811
     interactive_vqa.main(["--checkpoint", "x", "--prompt", "and now?", "--max-length", "6",
                           "--stream"])
     assert capsys.readouterr().out.startswith(text_only)
+
+
+def test_image_generator_edit_takes_the_editing_renorm():
+    """An edit with the default (global) renorm switches to text_channel on
+    (0.0, 1.0] (interactive_image_generator.py:365-371); text to image and an
+    edit with another renorm keep the flags'."""
+    parse = interactive_image_generator.parse_args
+    t2i = interactive_image_generator.recipe(parse(["--checkpoint", "x", "--prompt", "p"]))
+    assert (t2i["cfg_renorm_type"], t2i["cfg_interval"]) == ("global", (0.4, 1.0))
+    assert t2i["image_shapes"] == (512, 512) and t2i["num_timesteps"] == 50
+    edit = interactive_image_generator.recipe(parse(
+        ["--checkpoint", "x", "--prompt", "p", "--image", "in.png", "--size", "32"]))
+    assert (edit["cfg_renorm_type"], edit["cfg_interval"]) == ("text_channel", (0.0, 1.0))
+    assert edit["image_shapes"] == (32, 32)
+    kept = interactive_image_generator.recipe(parse(
+        ["--checkpoint", "x", "--prompt", "p", "--image", "in.png", "--renorm", "channel"]))
+    assert (kept["cfg_renorm_type"], kept["cfg_interval"]) == ("channel", (0.4, 1.0))
+
+
+@pytest.mark.parametrize("edit", [False, True], ids=["text-to-image", "edit"])
+def test_image_generator_saves_the_recipes_image(edit, monkeypatch, tmp_path, capsys):
+    """``main`` over the tiny generation model (random weights, its VAE):
+    the saved PNG is ``interleave_inference``'s image for the flags' recipe on
+    the same seed."""
+    from PIL import Image
+
+    from tests.test_pipeline import TINY
+    from unimedvl_tpu_torch.data import imaging as timaging
+    from unimedvl_tpu_torch.data import tokenizer as ttokenizer
+    from unimedvl_tpu_torch.inference import InterleaveInferencer
+    from tests.test_torch_pipeline import FakeTokenizer
+
+    model = bagel.Bagel(port_config(TINY), device="cpu", dtype=torch.float32, with_vae=True)
+    bagel.init_random_(model, torch.Generator().manual_seed(3), llm2vae_zero=False)
+    tok, ids, _ = ttokenizer.add_special_tokens(FakeTokenizer())
+
+    def build(args):
+        return InterleaveInferencer(
+            model, tok, ids, vae_transform=timaging.ImageTransform(32, 8, 8, 1024),
+            vit_transform=timaging.ImageTransform(32, 8, 2, 1024), seed=args.seed)
+
+    monkeypatch.setattr(interactive_image_generator, "build", build)
+    src = tmp_path / "in.png"
+    _image(9, 32, 32).save(src)
+    out = tmp_path / "out.png"
+    argv = ["--checkpoint", "x", "--prompt", "a chest x-ray", "--size", "32", "--steps", "3",
+            "--out", str(out)] + (["--image", str(src)] if edit else [])
+    interactive_image_generator.main(argv)
+    assert "saved" in capsys.readouterr().out
+    args = interactive_image_generator.parse_args(argv)
+    inputs = ([Image.open(src)] if edit else []) + ["a chest x-ray"]
+    want = build(args).interleave_inference(inputs, **interactive_image_generator.recipe(args))
+    np.testing.assert_array_equal(np.asarray(Image.open(out)), np.asarray(want[-1]))

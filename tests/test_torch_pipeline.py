@@ -273,9 +273,12 @@ def test_int4_kv_cache_raises_naming_the_roadmap():
     model = from_jax_params(
         jax.tree.map(np.asarray, jbagel.init_params(jax.random.PRNGKey(1), CFG)),
         port_config(CFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        InterleaveInferencer(model, None, {}, kv_quantized=True, kv_bits=4)
+    with pytest.raises(ValueError, match="8 or 4 bits"):
+        InterleaveInferencer(model, None, {}, kv_quantized=True, kv_bits=2)
     assert not InterleaveInferencer(model, None, {}).init_gen_context().cache.quantized
+    cache = InterleaveInferencer(model, None, {}, kv_quantized=True,
+                                 kv_bits=4).init_gen_context().cache
+    assert cache.kv_bits == 4 and cache.k.shape[-1] == CFG.llm.head_dim // 2
 
 
 def test_positional_parameters_follow_the_jax_inferencer():
@@ -431,7 +434,8 @@ def gen_pair():
 
 def _replay_jax_noise(jax_inf, torch_inf, monkeypatch):
     """The port's draws become the JAX inferencer's next draws: a copy of its
-    key split in the same order; NCHW requests are the NHWC draw transposed."""
+    key split in the same order; NCHW requests are the NHWC draw transposed.
+    Returns the replayed key, in a list."""
     key = [jax_inf._rng]
 
     def randn(shape):
@@ -444,6 +448,7 @@ def _replay_jax_noise(jax_inf, torch_inf, monkeypatch):
         return torch.from_numpy(np.array(a))
 
     monkeypatch.setattr(torch_inf, "_randn", randn)
+    return key
 
 
 GEN_KW = dict(image_shapes=(32, 32), num_timesteps=6)
@@ -547,6 +552,9 @@ class TestGeneration:
                 == jax_inf._calculate_target_size_with_aspect_ratio(*size))
 
     def test_other_inference_versions_raise(self, gen_pair):
-        _, torch_inf = gen_pair
-        with pytest.raises(NotImplementedError, match="later slice"):
-            torch_inf(text="x", inference_ver=1)
+        """0 and 1 are the recipes (1, vqa-reconstruction, in
+        tests/test_torch_recipes.py); any other raises, as in JAX."""
+        jax_inf, torch_inf = gen_pair
+        for inf in (jax_inf, torch_inf):
+            with pytest.raises(ValueError, match="Unsupported inference_ver: 2"):
+                inf(text="x", inference_ver=2)

@@ -808,8 +808,14 @@ class TestInt8Cache:
             KVCache.stack([c, KVCache.create(2, 3, 8, 2, 4)])
 
     def test_kv_bits_4_raises(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            KVCache.create(1, 1, 8, 1, 4, quantized=True, kv_bits=4)
+        """Widths other than 8 and 4 raise, as the JAX package's assert
+        refuses them; 4 builds the packed int4 cache (tests/test_torch_kv4.py
+        holds its contents against the JAX package)."""
+        with pytest.raises(ValueError, match="8 or 4 bits"):
+            KVCache.create(1, 1, 8, 1, 4, quantized=True, kv_bits=2)
+        c = KVCache.create(1, 1, 8, 1, 4, quantized=True, kv_bits=4)
+        assert (c.kv_bits, c.k.dtype, c.k.shape, c.k_scale.shape) == (
+            4, torch.int8, (1, 1, 1, 8, 2), (1, 1, 1, 8))
 
     def test_quantize_kv_block_equals_jax(self):
         b = _rand(np.random.default_rng(17), 2, 5, 2, 16)

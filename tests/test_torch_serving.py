@@ -619,8 +619,10 @@ def test_positional_parameters_follow_the_jax_batcher(pair):
         2, 64, 8, "vit", 5)
     with pytest.raises(TypeError):
         ContinuousBatcher(pair["model"], None, {}, 2, 64, 8, None, 5, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        ContinuousBatcher(pair["model"], None, {}, kv_quantized=True, kv_bits=4)
+    with pytest.raises(ValueError, match="8 or 4 bits"):
+        ContinuousBatcher(pair["model"], None, {}, kv_quantized=True, kv_bits=2)
+    assert ContinuousBatcher(pair["model"], None, {}, kv_quantized=True,
+                             kv_bits=4).cache.kv_bits == 4
 
 
 def test_request_keeps_the_jax_fields():

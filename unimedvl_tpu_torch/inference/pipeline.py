@@ -4,7 +4,8 @@ text, ViT and VAE image context updates, answer decoding (``gen_text``, also
 keeping the answer in the context, and ``gen_text_stream``), ``chat`` (the VQA
 entry point) and the stateful ``chat_turn``, and image generation:
 ``gen_image`` with the batched CFG flow loop, ``interleave_inference`` (text to
-image, image editing) and ``__call__``.
+image, image editing), the vqa-reconstruction recipes (an answer, then the
+input images generated again from it) and ``__call__``.
 
 Contexts hold the KV cache, which the port updates in place. A context is a
 cursor into that cache, not a snapshot: after ``update_context_*`` on a
@@ -33,7 +34,6 @@ compatible jobs into one grouped job whose images share each step's forward
 (``bagel.generate_latents_group``). A job chunked at any boundary gives the
 one-shot ``gen_image``'s result.
 
-The vqa-reconstruction recipes are a later slice of ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -140,7 +140,8 @@ class InterleaveInferencer:
         ``kv_quantized``: int8 KV caches with per-key scales for every
         context (half the cache bytes of a decode step and of a long
         context; a non-parity mode, like the quantized weights);
-        ``kv_bits``: 8; the int4 cache (4) is not ported.
+        ``kv_bits``: their width, 8, or 4 for int4 values packed two to a
+        byte (a quarter of the bf16 cache's bytes; a further accuracy step).
         ``spec_decode``: prompt-lookup speculative decoding of greedy answers
         (``bagel.generate_text_spec``): ``spec_k`` drafts verified per forward,
         looked up after the latest earlier occurrence of the trailing
@@ -163,6 +164,7 @@ class InterleaveInferencer:
             )
         self.sp_mesh = sp_mesh
         self.kv_quantized = kv_quantized
+        self.kv_bits = kv_bits
         self.spec_decode = spec_decode
         self.spec_k = spec_k
         self.spec_ngram = spec_ngram
@@ -188,7 +190,7 @@ class InterleaveInferencer:
         cache = KVCache.create(
             llm.num_hidden_layers, 1, capacity, llm.num_key_value_heads,
             llm.head_dim, dtype=self.dtype, device=self.device,
-            quantized=self.kv_quantized,
+            quantized=self.kv_quantized, kv_bits=self.kv_bits,
         )
         return GenContext(cache=cache)
 
@@ -742,6 +744,125 @@ class InterleaveInferencer:
         ))
         return output_list
 
+    def _answer_context(self, input_lists: List[Any], text_fork: bool):
+        """The vqa-reconstruction recipes' context: texts, and images with
+        their VAE and ViT tokens; with ``text_fork`` also a context of the
+        texts alone. Returns (context, the texts' context or None)."""
+        ctx = self.init_gen_context()
+        texts = ctx.fork() if text_fork else None
+        for term in input_lists:
+            if isinstance(term, str):
+                ctx = self.update_context_text(term, ctx)
+                if text_fork:
+                    texts = self.update_context_text(term, texts)
+            else:
+                ctx = self.update_context_image(self._vae_resized_u8(term), ctx, vae=True,
+                                                vit=True)
+        return ctx, texts
+
+    def _target_shape(self, image) -> Tuple[int, int]:
+        """(H, W) to reconstruct ``image`` (PIL or uint8 [H, W, 3]) at."""
+        h, w = image.shape[:2] if isinstance(image, np.ndarray) else image.size[::-1]
+        return self._calculate_target_size_with_aspect_ratio(w, h)
+
+    def interleave_inference_for_vqa_reconstruction_ver1(
+        self,
+        input_lists: List[Any],
+        reconstruct_image: bool = False,
+        max_think_token_n: int = 1000,
+        do_sample: bool = False,
+        text_temperature: float = 0.3,
+        cfg_text_scale: float = 3.0,
+        cfg_img_scale: float = 1.5,
+        cfg_interval: Tuple[float, float] = (0.4, 1.0),
+        timestep_shift: float = 3.0,
+        num_timesteps: int = 50,
+        cfg_renorm_min: float = 0.0,
+        cfg_renorm_type: str = "global",
+        **_,
+    ) -> List[Any]:
+        """VQA, then each input image reconstructed from the answer in turn
+        (inferencer.py:282-362): the answer from a VAE + ViT context; each
+        image generated at its aspect-preserving target size and fed back
+        VAE-only into the full and cfg_text contexts before the next. The
+        cfg_img context holds the texts and the answer."""
+        output_list: List[Any] = []
+        vqa_context, vqa_img_context = self._answer_context(input_lists, text_fork=True)
+        answer = self.gen_text(vqa_context, max_length=max_think_token_n, do_sample=do_sample,
+                               temperature=text_temperature)
+        output_list.append(answer)
+        images = [t for t in input_lists if not isinstance(t, str)]
+        if not reconstruct_image or not answer.strip() or not images:
+            return output_list
+        cfg_text_context = vqa_context.fork()
+        cfg_img_context = self.update_context_text(answer, vqa_img_context.fork())
+        full_context = self.update_context_text(answer, vqa_context.fork())
+        for image in images:
+            generated = self.gen_image(
+                self._target_shape(image), full_context, cfg_text_precontext=cfg_text_context,
+                cfg_img_precontext=cfg_img_context, cfg_text_scale=cfg_text_scale,
+                cfg_img_scale=cfg_img_scale, cfg_interval=cfg_interval,
+                timestep_shift=timestep_shift, num_timesteps=num_timesteps,
+                cfg_renorm_min=cfg_renorm_min, cfg_renorm_type=cfg_renorm_type,
+            )
+            output_list.append(generated)
+            processed = self._vae_resized_u8(generated)
+            full_context = self.update_context_image(processed, full_context, vae=True,
+                                                     vit=False)
+            cfg_text_context = self.update_context_image(processed, cfg_text_context, vae=True,
+                                                         vit=False)
+        return output_list
+
+    def interleave_inference_for_vqa_reconstruction_ver0(
+        self,
+        input_lists: List[Any],
+        reconstruct_image: bool = False,
+        max_think_token_n: int = 1000,
+        do_sample: bool = False,
+        text_temperature: float = 0.3,
+        cfg_interval: Tuple[float, float] = (0.4, 1.0),
+        timestep_shift: float = 3.0,
+        num_timesteps: int = 50,
+        cfg_renorm_min: float = 0.0,
+        cfg_renorm_type: str = "global",
+        multi_image: bool = False,
+        **_,
+    ) -> List[Any]:
+        """VQA, then a reconstruction of the first input image (every one
+        with ``multi_image``) from a fresh context per image
+        (inferencer.py:365-549): the image (VAE + ViT) is the cfg_text
+        context, image and answer the full context, the answer alone the
+        cfg_img context; CFG text and image scales 7.0."""
+        output_list: List[Any] = []
+        vqa_context, _ = self._answer_context(input_lists, text_fork=False)
+        answer = self.gen_text(vqa_context, max_length=max_think_token_n, do_sample=do_sample,
+                               temperature=text_temperature)
+        output_list.append(answer)
+        images = [t for t in input_lists if not isinstance(t, str)]
+        if not reconstruct_image or not answer.strip() or not images:
+            return output_list
+        for image in images if multi_image else images[:1]:
+            shape = self._target_shape(image)
+            gen_context = self.init_gen_context()
+            cfg_text_context = self.update_context_image(
+                self._vae_resized_u8(image), gen_context.fork(), vae=True, vit=True)
+            full_context = self.update_context_text(answer, cfg_text_context.fork())
+            cfg_img_context = self.update_context_text(answer, gen_context.fork())
+            output_list.append(self.gen_image(
+                shape, full_context, cfg_text_precontext=cfg_text_context,
+                cfg_img_precontext=cfg_img_context, cfg_text_scale=7.0, cfg_img_scale=7.0,
+                cfg_interval=cfg_interval, timestep_shift=timestep_shift,
+                num_timesteps=num_timesteps, cfg_renorm_min=cfg_renorm_min,
+                cfg_renorm_type=cfg_renorm_type,
+            ))
+        return output_list
+
+    def interleave_inference_for_vqa_reconstruction_ver0_1(self, input_lists: List[Any],
+                                                           **kw) -> List[Any]:
+        """``_ver0`` over every input image (``multi_image=True``)."""
+        return self.interleave_inference_for_vqa_reconstruction_ver0(
+            input_lists, multi_image=True, **kw)
+
     def _calculate_target_size_with_aspect_ratio(self, width: int, height: int):
         """(H, W) keeping the aspect ratio under the VAE transform's
         constraints (inferencer.py:42-71)."""
@@ -757,23 +878,24 @@ class InterleaveInferencer:
     def __call__(self, image=None, text: Optional[str] = None, inference_ver: int = 0,
                  **kwargs) -> Dict[str, Any]:
         """Main entry point (inferencer.py:640-680): ``{"image": ..., "text": ...}``.
-        ``inference_ver=0`` is ``interleave_inference``; the
-        vqa-reconstruction recipe (1) is a later slice."""
+        ``inference_ver=0`` is ``interleave_inference``, 1 the
+        vqa-reconstruction recipe (``_ver1``); any other raises."""
         output: Dict[str, Any] = {"image": None, "text": None}
         if image is None and text is None:
             return output
-        if inference_ver != 0:
-            raise NotImplementedError(
-                f"inference_ver={inference_ver} (vqa-reconstruction) is a later slice "
-                "of ROADMAP queue 1 (M7)"
-            )
         inputs: List[Any] = []
         if image is not None:
             inputs.extend(image if isinstance(image, list) else [image])
         if text is not None:
             inputs.append(text)
+        if inference_ver == 0:
+            items = self.interleave_inference(inputs, **kwargs)
+        elif inference_ver == 1:
+            items = self.interleave_inference_for_vqa_reconstruction_ver1(inputs, **kwargs)
+        else:
+            raise ValueError(f"Unsupported inference_ver: {inference_ver}")
         images = []
-        for item in self.interleave_inference(inputs, **kwargs):
+        for item in items:
             if isinstance(item, str):
                 output["text"] = item
             else:

@@ -10,7 +10,9 @@ Decoding runs in chunks of up to K greedy steps between host reads: the
 aligned chunk (:func:`decode_chunk_aligned`: every stream writes step d at
 one column, then the band moves back to each stream's tail) or, near
 capacity, the scatter chunk (:func:`decode_chunk`: each stream writes at its
-own ``lens[s]``); both attend through K2, or K2-int8 over an int8 pool. A
+own ``lens[s]``); both attend through K2, or K2-int8 over an int8 pool or an
+int4 one (``kv_bits=4``: values packed two a byte, a layer's slice unpacked
+to int8 for the kernel); the pool moves carry packed arrays unchanged. A
 chunk ends early once every active slot has emitted eos; a slot that
 finishes mid-chunk wastes the chunk's remaining steps, and its row is reused,
 lens rewritten, at the next admission. With the pool ladder the pool shrinks
@@ -31,8 +33,8 @@ decode chunk, so text and image requests share the card.
 The port writes the pool in place where the JAX package donates it, and runs
 each chunk as a Python loop with one host check a step (a verify forward, in
 a speculative chunk) where the JAX package has a ``while_loop``. Greedy
-only. Not here: ``mesh=`` (M13), the int4 cache (M8), and the compiled
-denoise windows (``gen_window_dynamic``), which ``step_range`` replaces.
+only. Not here: ``mesh=`` (M13) and the compiled denoise windows
+(``gen_window_dynamic``), which ``step_range`` replaces.
 """
 
 from __future__ import annotations
@@ -91,8 +93,8 @@ def repack_pool(cache: KVCache, perm) -> KVCache:
     def take(t):
         return None if t is None else t.index_select(1, src)
 
-    return KVCache(k=take(cache.k), v=take(cache.v), lens=lens, k_scale=take(cache.k_scale),
-                   v_scale=take(cache.v_scale))
+    return dataclasses.replace(cache, k=take(cache.k), v=take(cache.v), lens=lens,
+                               k_scale=take(cache.k_scale), v_scale=take(cache.v_scale))
 
 
 def seed_prefix_block(block: KVCache, prefix: KVCache, tp: int) -> KVCache:
@@ -363,7 +365,8 @@ class ContinuousBatcher:
         ``data.imaging.ImageTransform`` for image requests; ``seed``: kept
         for the JAX batcher's order (decoding is greedy and draws nothing).
         ``kv_quantized``: an int8 pool with per-key scales (K2-int8);
-        ``kv_bits``: 8 (the int4 cache is not ported). ``spec_decode``:
+        ``kv_bits``: 8, or 4 for int4 values packed two to a byte, unpacked
+        to int8 a layer at a time for K2-int8. ``spec_decode``:
         speculative continuous batching, every chunk a
         :func:`decode_chunk_spec` (``spec_k`` prompt-lookup drafts verified
         per forward, from the trailing ``spec_ngram`` ids of each slot's
@@ -486,7 +489,6 @@ class ContinuousBatcher:
         Tp = len(ids)
         Tp_pad = max(32, ((Tp + 31) // 32) * 32)
         llm = self.cfg.llm
-        dtype, quantized = self._block_dtype_quant()
         pad_ids = np.zeros((1, Tp_pad), np.int64)
         pad_ids[0, :Tp] = ids
         pos = np.arange(Tp_pad, dtype=np.int64)[None]
@@ -494,7 +496,7 @@ class ContinuousBatcher:
         valid[0, :Tp] = True
         block = KVCache.create(
             llm.num_hidden_layers, 1, Tp_pad, llm.num_key_value_heads, llm.head_dim,
-            dtype, device=self.device, quantized=quantized)
+            device=self.device, **self._block_options())
         block = bagel.prefill_text(self.model, block, self._tensor(pad_ids),
                                    self._tensor(pos), self._tensor(valid))
         self._prefixes.append((block, Tp, ids))
@@ -673,9 +675,11 @@ class ContinuousBatcher:
         padded_pos[:n] = pos_ids
         return tokens, padded_pos, n, bucket
 
-    def _block_dtype_quant(self):
-        """(dtype, int8) of an admission block: the pool's kind."""
-        return self.dtype, self.cache.quantized
+    def _block_options(self):
+        """The ``KVCache.create`` options of an admission block: the pool's
+        kind (dtype, quantized, kv_bits)."""
+        return dict(dtype=self.dtype, quantized=self.cache.quantized,
+                    kv_bits=self.cache.kv_bits)
 
     def _vit_group(self, preps, capacity: Optional[int] = None) -> KVCache:
         """The grouped ViT prefill of same-bucket images (one row each, no
@@ -687,11 +691,12 @@ class ContinuousBatcher:
         for j, (_tok, ppos, n, _b) in enumerate(preps):
             pos[j] = ppos
             ns[j] = n
-        dtype, quantized = self._block_dtype_quant()
+        kind = self._block_options()
         return bagel.prefill_vit_group(
             self.model, toks, self._tensor(pos), self._tensor(ns), self._start_end(),
             torch.zeros((P,), dtype=torch.int64, device=self.device),
-            kv_dtype=dtype, quantized=quantized, capacity=capacity)
+            kv_dtype=kind["dtype"], quantized=kind["quantized"], capacity=capacity,
+            kv_bits=kind["kv_bits"])
 
     def _prefill_image_group(self, group) -> None:
         """The legacy pool path's image step: the grouped ViT prefill into a
@@ -749,11 +754,10 @@ class ContinuousBatcher:
             batch_pos[j, :T] = np.arange(pos0, pos0 + T)
             batch_valid[j, :T] = True
             slots[j] = i
-        dtype, quantized = self._block_dtype_quant()
         llm = self.cfg.llm
         block = KVCache.create(
-            llm.num_hidden_layers, P, M_blk, llm.num_key_value_heads, llm.head_dim, dtype,
-            device=self.device, quantized=quantized)
+            llm.num_hidden_layers, P, M_blk, llm.num_key_value_heads, llm.head_dim,
+            device=self.device, **self._block_options())
         if prefix_id is not None:
             block = seed_prefix_block(block, pfx_block, pos0)
         block = bagel.prefill_text(self.model, block, self._tensor(batch_ids),

@@ -40,7 +40,10 @@ decode steps go through K2-int8 with the layer's scales; prefill and denoise
 blocks dequantize the layer's slice once and take K1a / K1b. A multi-stream
 write whose window runs past capacity is dropped for that stream, as the JAX
 package's scatter drops it (serving's finished streams run on to the end of
-their chunk).
+their chunk). With ``kv_bits=4`` the values are int4 in [-7, 7], two to a
+byte along D (``pack_int4``, K4's nibble order), under the same scales:
+every path writes and reads them where it writes and reads int8, a read
+unpacking the layer's slice to int8 first (``unpack_int4``).
 
 Training (``forward_train``): one packed flat sequence [T, C] with no cache.
 Each token belongs to one expert by index (``und_idx``, ``gen_idx``); every
@@ -73,6 +76,8 @@ from unimedvl_tpu_torch.ops.decode_attention import decode_attention
 from unimedvl_tpu_torch.ops.flash_attention import flash_block_attention
 from unimedvl_tpu_torch.ops.flash_attention_train import packed_train_attention
 from unimedvl_tpu_torch.ops.rope import apply_rope, apply_rope_one, rope_cos_sin
+# the int4 cache packs along D as K4 packs its weights along K
+from unimedvl_tpu_torch.ops.w4_matmul import pack_int4, unpack_int4
 
 
 @dataclasses.dataclass
@@ -80,13 +85,20 @@ class KVCache:
     """Append-only per-stream KV cache: k, v [L, S, Hk, M, D]; lens [S] int32.
     The int8 serving mode (``create(..., quantized=True)``) stores k, v as
     int8 with fp32 per-(stream, head, position) absmax scales ``k_scale``,
-    ``v_scale`` [L, S, Hk, M]: half the cache bytes a decode step reads."""
+    ``v_scale`` [L, S, Hk, M]: half the cache bytes a decode step reads.
+    ``kv_bits=4`` stores int4 values packed two to a byte along D (k, v
+    [L, S, Hk, M, D / 2] int8; ``pack_int4``: element 2j in the low nibble of
+    byte j, two's complement) under the same scales: a quarter of the bf16
+    cache's bytes. ``kv_bits`` is the stored width of a
+    quantized cache (torch has no int4 dtype, so the dtype cannot tell);
+    the head dim is the config's, never ``k.shape[-1]``."""
 
     k: torch.Tensor
     v: torch.Tensor
     lens: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    kv_bits: int = 8
 
     @property
     def capacity(self) -> int:
@@ -106,16 +118,20 @@ class KVCache:
             return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device), lens=lens)
         check_kv_bits(kv_bits)
+        if kv_bits == 4 and head_dim % 2:
+            raise ValueError(f"an int4 cache packs pairs along the head dim; {head_dim} is odd")
+        vshape = shape[:-1] + (head_dim * kv_bits // 8,)
         return cls(
-            k=torch.zeros(shape, dtype=torch.int8, device=device),
-            v=torch.zeros(shape, dtype=torch.int8, device=device), lens=lens,
+            k=torch.zeros(vshape, dtype=torch.int8, device=device),
+            v=torch.zeros(vshape, dtype=torch.int8, device=device), lens=lens,
             k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
             v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            kv_bits=kv_bits,
         )
 
     def _map(self, kv_fn, scale_fn, lens) -> "KVCache":
-        return KVCache(
-            k=kv_fn(self.k), v=kv_fn(self.v), lens=lens,
+        return dataclasses.replace(
+            self, k=kv_fn(self.k), v=kv_fn(self.v), lens=lens,
             k_scale=None if self.k_scale is None else scale_fn(self.k_scale),
             v_scale=None if self.v_scale is None else scale_fn(self.v_scale),
         )
@@ -138,8 +154,9 @@ class KVCache:
     @classmethod
     def stack(cls, caches) -> "KVCache":
         """Caches of one capacity and one kind joined along the stream dim."""
-        if len({c.quantized for c in caches}) != 1:
-            raise ValueError("cannot stack a mix of int8 and float KV caches")
+        if len({(c.quantized, c.quantized and c.kv_bits) for c in caches}) != 1:
+            raise ValueError("cannot stack a mix of int8 and float KV caches, or of int8 "
+                             "and int4 ones")
         cat = lambda ts: torch.cat(ts, dim=1)  # noqa: E731
         quantized = caches[0].quantized
         return cls(
@@ -147,43 +164,56 @@ class KVCache:
             lens=torch.cat([c.lens for c in caches]),
             k_scale=cat([c.k_scale for c in caches]) if quantized else None,
             v_scale=cat([c.v_scale for c in caches]) if quantized else None,
+            kv_bits=caches[0].kv_bits,
         )
 
     def layer(self, i: int):
-        """(k, v, k_scale, v_scale) views of layer ``i``; the scales None for
-        a float cache."""
+        """(k, v, k_scale, v_scale, bits) of layer ``i``: views of the arrays,
+        the scales None for a float cache, ``bits`` the stored width of a
+        quantized one (else None)."""
         if self.k_scale is None:
-            return self.k[i], self.v[i], None, None
-        return self.k[i], self.v[i], self.k_scale[i], self.v_scale[i]
+            return self.k[i], self.v[i], None, None, None
+        return self.k[i], self.v[i], self.k_scale[i], self.v_scale[i], self.kv_bits
 
 
 def check_kv_bits(kv_bits: int) -> None:
-    """The quantized cache is int8; int4 values have no torch dtype and the
-    decode kernel never served them."""
-    if kv_bits != 8:
-        raise NotImplementedError(
-            f"kv_bits={kv_bits}: the int4 KV cache is not ported; it is listed in ROADMAP "
-            "queue 1 (what remains of M8)"
-        )
+    """A quantized cache stores int8 or int4 values; other widths raise, as
+    the JAX package's ``assert kv_bits in (8, 4)`` refuses them."""
+    if kv_bits not in (8, 4):
+        raise ValueError(f"kv_bits={kv_bits}: a quantized KV cache stores 8 or 4 bits")
 
 
-def _quantize_kv_block(block: torch.Tensor):
-    """[..., D] -> (int8 values, fp32 per-row absmax scales over the last dim)."""
-    q, scale = quant.quantize_activations(block)
-    return q, scale[..., 0]
+def _quantize_kv_block(block: torch.Tensor, bits: int = 8):
+    """[..., D] -> (values, fp32 per-row absmax scales over the last dim):
+    int8 values, or with ``bits`` 4 the JAX package's int4 rounding
+    (``max(absmax, 1e-8) / 7``, round half to even, clip to [-7, 7]) packed
+    by :func:`pack_int4`."""
+    if bits != 4:
+        q, scale = quant.quantize_activations(block)
+        return q, scale[..., 0]
+    b32 = block.float()
+    scale = torch.clamp_min(b32.abs().amax(dim=-1), 1e-8) / 7.0
+    q = torch.clamp(torch.round(b32 / scale[..., None]), -7, 7).to(torch.int8)
+    return pack_int4(q), scale
 
 
-def dequant_slice(vals: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """int8 [..., D] x fp32 [...] -> ``dtype``: a cache slice as the prefill
-    and denoise kernels read it, materialised once per layer."""
+def dequant_slice(vals: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype,
+                  bits: int = 8) -> torch.Tensor:
+    """int8 [..., D] (or packed int4 [..., D / 2] with ``bits`` 4) x fp32
+    [...] -> ``dtype`` [..., D]: a cache slice as the prefill and denoise
+    kernels read it, materialised once per layer."""
+    if bits == 4:
+        vals = unpack_int4(vals)
     return (vals.float() * scale[..., None]).to(dtype)
 
 
 def _write_kv(cache_l: torch.Tensor, block: torch.Tensor, cols: torch.Tensor,
-              scale_l: Optional[torch.Tensor] = None, drop_overflow: bool = False) -> None:
+              scale_l: Optional[torch.Tensor] = None, drop_overflow: bool = False,
+              bits: int = 8) -> None:
     """cache_l [S, Hk, M, D] <- block [S, T, Hk, D] at columns cols [S, T], in
-    place. With ``scale_l`` [S, Hk, M] (an int8 cache) the block is quantized
-    per (token, head) and its scales land at the same columns.
+    place. With ``scale_l`` [S, Hk, M] (a quantized cache of ``bits``) the
+    block is quantized per (token, head), packed where ``bits`` is 4 (cache_l
+    is then [S, Hk, M, D / 2]), and its scales land at the same columns.
 
     ``drop_overflow``: a row whose window (ascending columns) runs past M is
     dropped whole and its cache row stays as it was, as the JAX package's
@@ -194,7 +224,7 @@ def _write_kv(cache_l: torch.Tensor, block: torch.Tensor, cols: torch.Tensor,
     if scale_l is None:
         vals = [(cache_l, block.to(cache_l.dtype))]
     else:
-        q, scale = _quantize_kv_block(block)
+        q, scale = _quantize_kv_block(block, bits)
         vals = [(cache_l, q), (scale_l, scale)]
     if drop_overflow:
         M = cache_l.shape[2]
@@ -205,6 +235,16 @@ def _write_kv(cache_l: torch.Tensor, block: torch.Tensor, cols: torch.Tensor,
                 for dst, src in vals]
     for dst, src in vals:
         dst[rows, :, cols] = src
+
+
+def _decode_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, bits: Optional[int]):
+    """The layer's k, v slices as K2 / K2-int8 take them: an int4 cache's
+    values unpacked to int8 over every column (the band's reach is on the
+    device, and reading it would synchronise the host), the scales applied
+    by the kernel as for int8."""
+    if bits == 4:
+        return unpack_int4(k_cache), unpack_int4(v_cache)
+    return k_cache, v_cache
 
 
 def _mot_rows(x, und_fn, gen_fn, gen: bool, end_row: Optional[int]) -> torch.Tensor:
@@ -260,14 +300,15 @@ class Qwen2MoTAttention(nn.Module):
     def forward(self, x, cos, sin, kv_layer, lens, causal, q_valid_len, decode_cols,
                 gen=False, end_row=None, update_cache=True):
         """x [S, T, C] normed input; ``kv_layer``: this layer's cache views
-        (k, v [S, Hk, M, D], and for an int8 cache k_scale, v_scale [S, Hk, M],
-        else None), written in place unless ``update_cache`` is False.
-        ``gen``: the MoT gen mode (see the module docstring). Returns the
-        attention output [S, T, C]."""
+        (k, v [S, Hk, M, D], and for a quantized cache k_scale, v_scale
+        [S, Hk, M] and its width, else None; int4 values packed, [S, Hk, M,
+        D / 2]), written in place unless ``update_cache`` is False. ``gen``:
+        the MoT gen mode (see the module docstring). Returns the attention
+        output [S, T, C]."""
         cfg = self.cfg
         S, T, _ = x.shape
         H, Hk, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        k_cache, v_cache, k_scale, v_scale = kv_layer
+        k_cache, v_cache, k_scale, v_scale, bits = kv_layer
         fused, ftp = quant.fused_key(self, "qkv_proj")
         if fused is not None:  # serving fusion: one projection, not three
             qkv = self._proj(fused, x, gen, end_row)
@@ -296,9 +337,9 @@ class Qwen2MoTAttention(nn.Module):
         if decode_cols is not None:
             base, col = decode_cols
             cols = col.reshape(1, 1).expand(S, 1)
-            _write_kv(k_cache, k, cols, k_scale)
-            _write_kv(v_cache, v, cols, v_scale)
-            o = decode_attention(q, k_cache, v_cache, lens, (base, col),
+            _write_kv(k_cache, k, cols, k_scale, bits=bits)
+            _write_kv(v_cache, v, cols, v_scale, bits=bits)
+            o = decode_attention(q, *_decode_kv(k_cache, v_cache, bits), lens, (base, col),
                                  k_scale=k_scale, v_scale=v_scale)
         elif update_cache:
             # one stream: the window lands where the JAX package's
@@ -306,25 +347,25 @@ class Qwen2MoTAttention(nn.Module):
             # several: at lens, a window past M dropped whole
             start = lens.clamp(0, k_cache.shape[2] - T) if S == 1 else lens
             cols = start[:, None] + torch.arange(T, device=x.device)
-            _write_kv(k_cache, k, cols, k_scale, drop_overflow=S > 1)
-            _write_kv(v_cache, v, cols, v_scale, drop_overflow=S > 1)
+            _write_kv(k_cache, k, cols, k_scale, drop_overflow=S > 1, bits=bits)
+            _write_kv(v_cache, v, cols, v_scale, drop_overflow=S > 1, bits=bits)
             if T == 1 and causal and not gen:
                 # serving's decode step: each stream attends to [0, lens[s]],
                 # the band (lens, lens), through K2 or K2-int8
-                o = decode_attention(q, k_cache, v_cache, lens, (lens, lens),
+                o = decode_attention(q, *_decode_kv(k_cache, v_cache, bits), lens, (lens, lens),
                                      k_scale=k_scale, v_scale=v_scale)
             else:
                 if k_scale is not None:
-                    k_cache = dequant_slice(k_cache, k_scale, x.dtype)
-                    v_cache = dequant_slice(v_cache, v_scale, x.dtype)
+                    k_cache = dequant_slice(k_cache, k_scale, x.dtype, bits)
+                    v_cache = dequant_slice(v_cache, v_scale, x.dtype, bits)
                 o = flash_block_attention(
                     q, k_cache, v_cache, lens, lens, causal,
                     q_valid_len=q_valid_len, kv_head_major=True, q_preproc=q_preproc,
                 )
         else:
             if k_scale is not None:
-                k_cache = dequant_slice(k_cache, k_scale, x.dtype)
-                v_cache = dequant_slice(v_cache, v_scale, x.dtype)
+                k_cache = dequant_slice(k_cache, k_scale, x.dtype, bits)
+                v_cache = dequant_slice(v_cache, v_scale, x.dtype, bits)
             o = _attend_cache_and_block(q, k, v, k_cache, v_cache, lens, causal, q_valid_len,
                                         q_preproc)
         return self._proj("o_proj", o.reshape(S, T, H * D), gen, end_row)

@@ -1,6 +1,6 @@
 """What the port's front ends share: the model flags, the refusal of flags
-whose paths are not ported, and loading a released checkpoint onto the
-device in the mode the flags ask for."""
+whose paths are not ported, loading a released checkpoint onto the device
+in the mode the flags ask for, and the KV cache options."""
 
 from __future__ import annotations
 
@@ -27,16 +27,15 @@ def add_model_flags(ap: argparse.ArgumentParser) -> None:
                     help="group-wise w4 scales (0 = per channel)")
     ap.add_argument("--fused", action="store_true",
                     help="fuse the qkv and gate_up projections")
-    ap.add_argument("--int4-kv", action="store_true", help="not ported (ROADMAP queue 1, M8)")
+    ap.add_argument("--int4-kv", action="store_true",
+                    help="int4 KV caches, two values a byte, per-key scales (a quarter of the "
+                         "bf16 cache's bytes; a further accuracy step)")
     ap.add_argument("--tp", type=int, default=1, help="not ported (ROADMAP queue 1, M13)")
     ap.add_argument("--dp", type=int, default=1, help="not ported (ROADMAP queue 1, M13)")
 
 
 def refuse_unported(args) -> None:
     """Exit non-zero, naming why, for a flag whose path the port lacks."""
-    if args.int4_kv:
-        sys.exit("--int4-kv: the int4 KV cache is not ported (no torch int4 dtype; "
-                 "ROADMAP queue 1, what remains of M8)")
     if args.tp > 1 or args.dp > 1:
         sys.exit("--tp/--dp: serving over a device mesh is not ported (ROADMAP queue 1, "
                  "what remains of M13); the port serves on one card")
@@ -58,6 +57,12 @@ def load(args):
         quant.fuse_serving_projections(model.language_model)
     tokenizer, new_token_ids, _ = load_tokenizer(args.checkpoint)
     return model, tokenizer, new_token_ids
+
+
+def kv_options(args) -> dict:
+    """The inferencer's and the batcher's KV cache options from the flags
+    (``--int4-kv`` wins over ``--int8-kv``, as in the JAX package's scripts)."""
+    return dict(kv_quantized=args.int8_kv or args.int4_kv, kv_bits=4 if args.int4_kv else 8)
 
 
 def vit_transform():

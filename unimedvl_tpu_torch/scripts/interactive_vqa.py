@@ -8,7 +8,8 @@ Usage:
   python -m unimedvl_tpu_torch.scripts.interactive_vqa --checkpoint /path/to/ckpt \\
       [--image xr.png --prompt "What abnormality is visible?"] \\
       [--max-length 512] [--sample --temperature 0.3] [--think] [--stream] \\
-      [--spec] [--int8-kv] [--int8 | --act-int8] [--w4 [--w4-group 512]] [--fused]
+      [--spec] [--int8-kv | --int4-kv] [--int8 | --act-int8] [--w4 [--w4-group 512]] \\
+      [--fused]
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ def build(args):
     model, tokenizer, new_token_ids = common.load(args)
     inferencer = InterleaveInferencer(
         model, tokenizer, new_token_ids, vit_transform=common.vit_transform(), seed=args.seed,
-        kv_quantized=args.int8_kv, spec_decode=args.spec)
+        spec_decode=args.spec, **common.kv_options(args))
     print(f"model loaded in {time.time() - t0:.1f} s on {inferencer.device}", file=sys.stderr)
     return inferencer
 

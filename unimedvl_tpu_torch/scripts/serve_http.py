@@ -5,7 +5,7 @@ scripts/serve_http.py). Loads a released checkpoint directory onto the card.
 Usage:
   python -m unimedvl_tpu_torch.scripts.serve_http --checkpoint /path/to/ckpt \\
       [--host 127.0.0.1 --port 8000] [--slots 48] [--capacity 4096] [--chunk 16] \\
-      [--int8-kv] [--int8 | --act-int8] [--w4 [--w4-group 512]] [--fused] \\
+      [--int8-kv | --int4-kv] [--int8 | --act-int8] [--w4 [--w4-group 512]] [--fused] \\
       [--spec] [--t2i [--gen-chunk 10 --gen-group 4]] [--prefix-text TEXT]
 
   curl -s localhost:8000/v1/health
@@ -66,7 +66,7 @@ def main(argv=None):
                                         vit_transform=vit_transform, seed=args.seed)
     batcher = ContinuousBatcher(
         model, tokenizer, new_token_ids, args.slots, args.capacity, args.chunk, vit_transform,
-        args.seed, kv_quantized=args.int8_kv, spec_decode=args.spec, pipeline=pipeline,
+        args.seed, spec_decode=args.spec, pipeline=pipeline, **common.kv_options(args),
         gen_chunk=args.gen_chunk, gen_group=args.gen_group)
     if args.prefix_text:
         pid = batcher.register_prefix(args.prefix_text)
