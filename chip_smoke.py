@@ -85,7 +85,9 @@ import datetime
 import gc
 import hashlib
 import itertools
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -97,11 +99,13 @@ from functools import partial
 import numpy as np
 import torch
 
-from unimedvl_tpu_torch.config import BagelConfig, LLMConfig, TransformConfig, VAEConfig, ViTConfig
+from unimedvl_tpu_torch.config import (BagelConfig, E2EVAEConfig, LLMConfig, TransformConfig,
+                                       VAEConfig, ViTConfig)
 from unimedvl_tpu_torch.data.tokenizer import ByteTokenizer, add_special_tokens
 from unimedvl_tpu_torch import quant
 from unimedvl_tpu_torch.inference import ContinuousBatcher, InterleaveInferencer, Request, serving
 from unimedvl_tpu_torch.models import bagel, qwen2_mot, siglip
+from unimedvl_tpu_torch.models.layers import QuantLinear
 from unimedvl_tpu_torch.ops import act_quant as aq
 from unimedvl_tpu_torch.ops import cuda_build
 from unimedvl_tpu_torch.ops import decode_attention as dec
@@ -127,6 +131,11 @@ MEAN_ABS_TOL = 2e-3
 # the whole path with kernels vs with the plain versions: first-step logits of
 # a chat request, first-step post-CFG velocity of a generation request
 LOGITS_COS_TOL = 0.999
+# One attention call inside the model against its plain version on the same
+# inputs (the quantized paths with their int8 activations replayed): both
+# round their output to bf16 (2^-9 of a value), so 1 - cos is of order 1e-6;
+# a wrong mask, scale or head map reads far below the bound
+ATTN_COS_TOL = 0.9999
 # The velocity's bound comes from its noise floor, measured on an H100 80GB
 # HBM3 (PERF.md): the plain versions in bf16 (p and q's island rounded to
 # bf16, as the kernels round them) against the plain versions with fp32
@@ -2752,7 +2761,7 @@ EXTRA_KEYS = (
     "k_island_ms", "concat_copy_ms", "k1b_on_concat_ms", "q_island_only_ms", "launches_from",
     "n_split", "split_len", "cases", "ms_in_graph", "vit", "gemm", "bf16_gemm",
     "one_row_ms_in_graph", "gemv_cases", "serving_cases", "spec_cases", "group_cases",
-    "gen_cases", "int4_cases",
+    "gen_cases", "int4_cases", "backward_cases",
 )
 
 COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches there)
@@ -3033,16 +3042,15 @@ def _with_plain_versions(fn, fp32_attention: bool = False, quant_only: bool = Fa
     """fn() with every kernel call swapped for its plain version; with
     ``fp32_attention`` the attention ones run in fp32 (``_upcast``); with
     ``quant_only`` only K3 and K4 (the attention kernels stay)."""
-    flash = _upcast(fa.flash_block_attention_ref) if fp32_attention else \
-        fa.flash_block_attention_ref
-    decode = _upcast(dec.decode_attention_ref) if fp32_attention else dec.decode_attention_ref
-    swapped = [(qwen2_mot, "silu_mul_quant", aq.silu_mul_quant_ref),
-               (quant, "w4_matmul", w4.w4_matmul_ref)]
+    flash, decode, train = (_upcast(f) if fp32_attention else f for f in (
+        fa.flash_block_attention_ref, dec.decode_attention_ref, fat.packed_train_attention_ref))
+    swapped = [(qwen2_mot, "silu_mul_quant_autograd", aq.silu_mul_quant_ref),
+               (quant, "w4_matmul_autograd", w4.w4_matmul_ref)]
     if not quant_only:
         swapped += [(siglip, "flash_block_attention", flash),
                     (qwen2_mot, "flash_block_attention", flash),
                     (qwen2_mot, "decode_attention", decode),
-                    (qwen2_mot, "packed_train_attention", fat.packed_train_attention_ref),
+                    (qwen2_mot, "packed_train_attention", train),
                     (sp_denoise, "flash_block_attention", flash)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swapped]
     for mod, name, f in swapped:
@@ -3062,20 +3070,214 @@ def check_velocity_against_plain(inf: InterleaveInferencer, mesh=None) -> dict:
     return check_velocities(path, lambda: _first_step_velocity(inf, mesh))
 
 
-def check_velocities(path: str, velocity, own_floor: bool = False) -> dict:
+class QuantReplay:
+    """The kernel side's int8 activations, recorded in call order and fed to
+    the plain sides: K3's (q, scale) (``qwen2_mot.silu_mul_quant_autograd``)
+    and every ``quant.quantize_activations`` output (the act-quant
+    projections' inputs, the int8 KV cache's keys and values, the int8
+    head's hidden). Both sides then round the same, so a last-place
+    difference before a rounding cannot move a value a whole int8 step.
+    What this takes out of the end-to-end comparison is held call by call:
+    each replayed K3 call runs the plain version on the plain side's own
+    (g, u) and holds the recorded (q, scale) to it at K3's bounds (a wrong
+    K3 fails here), and :class:`AttentionTap` holds every attention output.
+    ``own_scales`` (a training step, whose gradient flows through the
+    scales): each replayed scale carries the plain side's own scale's graph,
+    ``recorded + (own - own.detach())``, so the forward uses the recorded
+    values bit for bit and the gradient is the plain definition's. The call
+    order is the code's, the same on both sides (recomputed layers
+    included); each replayed call checks its shape and the replay must use
+    up the record."""
+
+    def __init__(self, own_scales: bool = False):
+        self.k3, self.act, self.own_scales = [], [], own_scales
+        self.k3_worst = dict(step=0, share=0.0, scale_rel=0.0)
+
+    def _patched(self, k3_fn, act_fn):
+        saved = (qwen2_mot.silu_mul_quant_autograd, quant.quantize_activations)
+        qwen2_mot.silu_mul_quant_autograd, quant.quantize_activations = k3_fn, act_fn
+        return saved
+
+    def record(self, fn):
+        k3, act = qwen2_mot.silu_mul_quant_autograd, quant.quantize_activations
+
+        def rec(store, out):  # q waits in host memory: a training step's would crowd the card
+            store.append((out[0].detach().to("cpu"), out[1].detach()))
+            return out
+
+        saved = self._patched(lambda g, u: rec(self.k3, k3(g, u)),
+                              lambda x: rec(self.act, act(x)))
+        try:
+            return fn()
+        finally:
+            self._patched(*saved)
+
+    def _k3(self, it, g, u):
+        """A replayed K3 call: the recorded (q, scale) against the plain
+        version on this side's (g, u)."""
+        q, scale = next(it)
+        if q.shape != g.shape:
+            raise SystemExit(f"chip_smoke: the replayed K3 output is {tuple(q.shape)}, the "
+                             f"plain side asks for {tuple(g.shape)}")
+        q = q.to(g.device)
+        q_ref, own = aq.silu_mul_quant_ref(g, u)
+        if q.numel():
+            with torch.no_grad():
+                step = (q.int() - q_ref.int()).abs()
+                w = self.k3_worst
+                w["step"] = max(w["step"], int(step.max().item()))
+                w["share"] = max(w["share"], (step > 0).float().mean().item())
+                w["scale_rel"] = max(w["scale_rel"], ((scale - own).abs() / own).max().item())
+        return q, (scale + (own - own.detach()) if self.own_scales else scale)
+
+    def _act(self, it, x, act):
+        q, scale = next(it)
+        if q.shape != x.shape:
+            raise SystemExit(f"chip_smoke: the replayed activations are {tuple(q.shape)}, the "
+                             f"plain side asks for {tuple(x.shape)}")
+        if self.own_scales:
+            own = act(x)[1]
+            scale = scale + (own - own.detach())
+        return q.to(x.device), scale
+
+    def replay(self, fn):
+        it = {"k3": iter(self.k3), "act": iter(self.act)}
+        act = quant.quantize_activations
+        saved = self._patched(lambda g, u: self._k3(it["k3"], g, u),
+                              lambda x: self._act(it["act"], x, act))
+        try:
+            out = fn()
+        finally:
+            self._patched(*saved)
+        left = sum(1 for _ in it["k3"]) + sum(1 for _ in it["act"])
+        if left:
+            raise SystemExit(f"chip_smoke: {left} recorded activations were not replayed")
+        return out
+
+    def check_k3(self, path: str) -> None:
+        """Prints and gates the replayed K3 calls' worst readings (the bounds
+        of :func:`check_silu_mul_quant`)."""
+        if not self.k3:
+            return
+        w = self.k3_worst
+        print(f"  K3 call by call ({len(self.k3)} calls) against the plain version on the same "
+              f"(g, u): max step {w['step']}, largest share differing {w['share']:.2e}, scale "
+              f"rel err {w['scale_rel']:.2e}", flush=True)
+        if (w["step"] > K3_MAX_STEP or w["share"] > K3_MAX_SHARE
+                or w["scale_rel"] > K3_SCALE_RTOL):
+            raise SystemExit(f"chip_smoke: K3 inside {path} disagrees with its plain version")
+
+
+class AttentionTap:
+    """The model's attention outputs, call by call (``qwen2_mot``'s K1a / K1b,
+    K2 and K5 call sites): recorded on the kernel side and held, on a plain
+    side that ran on the kernel side's int8 activations (:class:`QuantReplay`),
+    to the plain version's output on the same inputs. There every
+    projection's input is replayed, so a layer's attention output reaches the
+    result only through int8 values; this is where a wrong attention kernel
+    fails. Each call: cosine at ATTN_COS_TOL and every element within the
+    kernel checks' bound, ATOL + RTOL |plain|, where the plain output is
+    finite (a query row that sees nothing); the kernel's must be finite
+    there too."""
+
+    SITES = ("flash_block_attention", "decode_attention", "packed_train_attention")
+
+    def __init__(self):
+        self.outs, self.worst = [], {}
+
+    def _run(self, fn, on_call):
+        saved = {n: getattr(qwen2_mot, n) for n in self.SITES}
+
+        def wrap(n, f):
+            def call(*args, **kw):
+                out = f(*args, **kw)
+                on_call(n, out[0] if isinstance(out, tuple) else out)
+                return out
+            return call
+
+        for n, f in saved.items():
+            setattr(qwen2_mot, n, wrap(n, f))
+        try:
+            return fn()
+        finally:
+            for n, f in saved.items():
+                setattr(qwen2_mot, n, f)
+
+    def record(self, fn):
+        return self._run(fn, lambda n, out: self.outs.append((n, out.detach())))
+
+    def compare(self, side: str, fn):
+        """fn() with each attention output held to the recorded one; keeps,
+        per site, the calls, the lowest cosine and the worst err/bound."""
+        it = iter(self.outs)
+
+        def check(n, want):
+            name, got = next(it)
+            if name != n or got.shape != want.shape:
+                raise SystemExit(f"chip_smoke: the {side} side called {n} "
+                                 f"{tuple(want.shape)} where the kernel side called {name} "
+                                 f"{tuple(got.shape)}")
+            ref = want.detach().float()
+            ok = torch.isfinite(ref)
+            got = got.float()
+            if not bool(torch.isfinite(got[ok]).all()):
+                raise SystemExit(f"chip_smoke: {n} gave a non-finite output where its plain "
+                                 "version is finite")
+            ref, got = ref[ok], got[ok]
+            worst = ((got - ref).abs() / (ATOL + RTOL * ref.abs())).max().item() \
+                if ref.numel() else 0.0
+            cos = _cosine(got, ref) if ref.numel() else 1.0
+            calls, lo, hi = self.worst.get((side, n), (0, 1.0, 0.0))
+            self.worst[(side, n)] = (calls + 1, min(lo, cos), max(hi, worst))
+
+        out = self._run(fn, check)
+        if next(it, None) is not None:
+            raise SystemExit(f"chip_smoke: the {side} side made fewer attention calls than the "
+                             "kernel side")
+        return out
+
+    def check(self, path: str) -> None:
+        for (side, n), (calls, cos, worst) in sorted(self.worst.items()):
+            print(f"  {n} call by call against the {side} version on the same inputs: {calls} "
+                  f"calls, lowest cosine {cos:.6f}, worst err/bound {worst:.3f}", flush=True)
+            if cos < ATTN_COS_TOL or worst > 1.0:
+                raise SystemExit(f"chip_smoke: {n} inside {path} disagrees with its {side} "
+                                 "version")
+
+
+def check_velocities(path: str, velocity, replay: bool = False, per_call: bool = False) -> dict:
     """``velocity()`` (a first post-CFG velocity) on the same inputs through
     the kernels, the plain versions (bf16 in and out, p rounded to bf16
     before P V, as the kernels round it) and the plain versions with the
     attention in fp32; asserts kernels vs plain and kernels vs fp32 at
     VELOCITY_COS_TOL and prints the noise floor, plain bf16 vs fp32.
-    ``own_floor``: the bound is set by VELOCITY_COS_TOL's rule from this
-    path's own noise floor, measured here (1 - 2 (1 - floor)), where that is
-    lower: in the quantized modes a last-place difference before an int8
-    activation rounding moves the value a whole step. Returns the three
-    velocities and the bound (``v["tol"]``)."""
-    v = {"kernels": velocity(),
-         "plain": _with_plain_versions(velocity),
-         "fp32": _with_plain_versions(velocity, True)}
+    ``replay`` (the quantized modes): the plain sides run on the kernel
+    side's int8 activations (:class:`QuantReplay`). ``per_call`` (where every
+    projection's input is replayed, so each layer's attention sees the
+    kernel side's inputs): every attention output and K3 call is also held
+    to its plain version (:class:`AttentionTap`, ``QuantReplay.check_k3``).
+    Returns the three velocities and the replay (``v["replay"]``)."""
+    rec = QuantReplay() if replay else None
+    tap = AttentionTap() if per_call else None
+    if rec is None:
+        v = {"kernels": velocity(),
+             "plain": _with_plain_versions(velocity),
+             "fp32": _with_plain_versions(velocity, True)}
+    else:
+        def plain(side):
+            run = (lambda: rec.replay(velocity)) if tap is None else \
+                (lambda: tap.compare(side, lambda: rec.replay(velocity)))
+            return _with_plain_versions(run, side == "fp32")
+
+        kernels = (lambda: rec.record(velocity)) if tap is None else \
+            (lambda: tap.record(lambda: rec.record(velocity)))
+        v = {"kernels": kernels(), "plain": plain("plain"), "fp32": plain("fp32")}
+        print(f"  replayed the kernel side's int8 activations: {len(rec.k3)} K3 outputs, "
+              f"{len(rec.act)} quantize_activations outputs", flush=True)
+        if tap is not None:
+            tap.check(path)
+            rec.check_k3(path)
+            del tap
     cos = {pair: _cosine(v[pair[0]], v[pair[1]])
            for pair in (("kernels", "plain"), ("kernels", "fp32"), ("plain", "fp32"))}
     print(f"end to end ({path}): first-step post-CFG velocity (std "
@@ -3084,15 +3286,11 @@ def check_velocities(path: str, velocity, own_floor: bool = False) -> dict:
           f"{cos['kernels', 'fp32']:.6f}; the noise floor, plain bf16 vs fp32 attention "
           f"{cos['plain', 'fp32']:.6f}; max abs kernels vs fp32 "
           f"{(v['kernels'] - v['fp32']).abs().max().item():.4f}", flush=True)
-    tol = VELOCITY_COS_TOL
-    if own_floor:
-        tol = min(tol, 1 - 2 * (1 - cos[("plain", "fp32")]))
-        print(f"  the bound from this path's floor: cosine >= {tol:.6f} (VELOCITY_COS_TOL "
-              f"{VELOCITY_COS_TOL:.6f})", flush=True)
     if (not bool(torch.isfinite(v["kernels"]).all()) or v["kernels"].shape != v["fp32"].shape
-            or min(cos[("kernels", "plain")], cos[("kernels", "fp32")]) < tol):
-        raise SystemExit(f"chip_smoke: the velocity of {path} disagrees with the plain versions'")
-    v["tol"] = tol
+            or min(cos[("kernels", "plain")], cos[("kernels", "fp32")]) < VELOCITY_COS_TOL):
+        raise SystemExit(f"chip_smoke: the velocity of {path} disagrees with the plain versions' "
+                         f"(VELOCITY_COS_TOL {VELOCITY_COS_TOL:.6f})")
+    v["replay"] = rec
     return v
 
 
@@ -3240,11 +3438,10 @@ def run_quantized_generation(inf: InterleaveInferencer, v_bf16: torch.Tensor,
     and K4 at every projection of both experts in a gen-mode forward, of the
     und expert in a text prefill), gates the first post-CFG velocity of the
     text-to-image request against the same quantized model's plain versions
-    at the bound its own noise floor sets (:func:`check_velocities`,
-    ``own_floor``: in full-int8 a K3 output one step off in a few elements
-    moves it as far as bf16 against fp32 attention does), also with only K3
-    and K4 swapped for their plain versions, and prints its cosine against the
-    bf16 model's
+    at the fixed VELOCITY_COS_TOL, the plain sides fed the kernel side's int8
+    activations (:func:`check_velocities` with ``replay``), also with only K4
+    swapped for its plain version, and prints its cosine against the bf16
+    model's
     (``v_bf16``: an observation, these are non-parity modes) and each
     request's s/image split into context build, denoise and VAE decode beside
     bf16's (``bf16_rows``, from the same call). Returns the launches."""
@@ -3278,14 +3475,16 @@ def run_quantized_generation(inf: InterleaveInferencer, v_bf16: torch.Tensor,
                   f"{json.dumps({k: ref[k] for k in split})}; s/image "
                   f"{row['s_per_image'] / ref['s_per_image']:.3f}x bf16's", flush=True)
         velocity = partial(_first_step_velocity, qinf)
-        v = check_velocities(f"quantized text-to-image, {name}", velocity, own_floor=True)
-        cos_quant = _cosine(v["kernels"], _with_plain_versions(velocity, quant_only=True))
-        print(f"  {name}: first velocity with K3 and K4 against their plain versions alone "
-              f"(the attention kernels kept): cosine {cos_quant:.6f}; against the bf16 "
-              f"model's (not a parity mode): cosine {_cosine(v['kernels'], v_bf16):.4f}",
-              flush=True)
-        if cos_quant < v["tol"]:
-            raise SystemExit(f"chip_smoke: K3 / K4 move the first velocity of {name}")
+        v = check_velocities(f"quantized text-to-image, {name}", velocity, replay=True,
+                             per_call=kw.get("act_quant", False))
+        cos_quant = _cosine(v["kernels"], _with_plain_versions(
+            lambda: v["replay"].replay(velocity), quant_only=True))
+        print(f"  {name}: first velocity with K4 against its plain version alone on the same "
+              f"int8 activations (the attention kernels kept): cosine {cos_quant:.6f}; against "
+              f"the bf16 model's (not a parity mode): cosine "
+              f"{_cosine(v['kernels'], v_bf16):.4f}", flush=True)
+        if cos_quant < VELOCITY_COS_TOL:
+            raise SystemExit(f"chip_smoke: K4 moves the first velocity of {name}")
         del qinf, v
         torch.cuda.empty_cache()
     return total
@@ -3644,8 +3843,8 @@ def check_packed_train_attention(ft_seq, lora_seq) -> dict:
 
 def _checksums(named) -> dict:
     """An exact, order-free checksum of every tensor's bits (the int64 sum of
-    its 16- or 32-bit words): any update of a tensor changes it."""
-    words = {2: torch.int16, 4: torch.int32}
+    its 8-, 16- or 32-bit words): any update of a tensor changes it."""
+    words = {1: torch.int8, 2: torch.int16, 4: torch.int32}
     return {n: int(torch.sum(p.detach().view(words[p.element_size()]), dtype=torch.int64))
             for n, p in named}
 
@@ -3656,25 +3855,31 @@ def _draw_noises(seqs, g):
 
 
 def _loss_and_grads(model, seqs, noises):
-    loss = trainer.loss_fn(model, seqs, noises, backward_scale=1.0)
+    loss, _ = trainer.loss_fn(model, seqs, noises, backward_scale=1.0)
     grads = {n: p.grad.float() for n, p in model.named_parameters() if p.grad is not None}
     for p in model.parameters():
         p.grad = None
     return float(loss), grads
 
 
+STEP_STATS = {}  # path -> its steps' median s/step, packed tokens/s and peak GiB
+
+
 def _run_steps(step, state, batches, it, g, per_step: int, n_llm: int, n_vit: int, path: str,
-               frozen_vit: bool):
+               frozen_vit: bool, quant_launches=None):
     """TRAIN_STEPS steps with the counters reset just before: each takes
     ``per_step`` batches (the given ones first, then the prefetcher's).
     Prints the losses and times and checks the launch counts: with per-layer
     recomputation the forward kernel runs twice per layer and sequence, each
     backward kernel once; a frozen ViT goes through K1a, a trained one through
-    plain attention. Returns (state, launches)."""
+    plain attention; ``quant_launches(seq)``: the K3 / K4 launches a
+    sequence adds. Keeps the steps' numbers in STEP_STATS[path]. Returns
+    (state, launches)."""
     batches = list(batches)
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     n_seq = n_vit_seq = 0
+    extra, times, rates = {}, [], []
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3688,22 +3893,122 @@ def _run_steps(step, state, batches, it, g, per_step: int, n_llm: int, n_vit: in
         seqs = [s for b in taken for s in b]
         n_seq += len(seqs)
         n_vit_seq += sum("vit_patch_tokens" in s for s in seqs)
+        for s in seqs:
+            for k, v in (quant_launches(s) if quant_launches else {}).items():
+                extra[k] = extra.get(k, 0) + v
         tokens = sum(s["mask_document_id"].shape[0] for s in seqs)
+        times.append(t2 - t1)
+        rates.append(tokens / (t2 - t1))
         real = sum(int((s["mask_document_id"] > 0).sum()) for s in seqs)
         print(f"  step {i}: loss {loss:.4f}; {len(seqs)} sequence(s), {tokens} packed tokens "
               f"({real} real); waited {t1 - t0:.3f} s for the batch, step {t2 - t1:.3f} s, "
               f"{tokens / (t2 - t1):.0f} packed tokens/s", flush=True)
         if not np.isfinite(loss):
             raise SystemExit(f"chip_smoke: {path}: the loss is not finite")
-    print(f"  peak memory over the steps: {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
-          flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak memory over the steps: {peak:.1f} GiB", flush=True)
+    STEP_STATS[path] = dict(card=CARD, s_per_step=statistics.median(times),
+                            packed_tokens_per_s=statistics.median(rates), peak_gib=peak)
     launches = check_counts(path, {
         "packed_train_attention_fwd": 2 * n_llm * n_seq,
         "packed_train_attention_bwd_dq": n_llm * n_seq,
         "packed_train_attention_bwd_dkv": n_llm * n_seq,
         "flash_block_attention": n_vit * n_vit_seq if frozen_vit else 0,
+        **extra,
     })
     return state, launches
+
+
+def _grad_cosines(grads_a, grads_b) -> tuple:
+    """(cosine over every adapter gradient, {lora_b name: its cosine})."""
+    names = sorted(grads_a)
+    flat_a = torch.cat([grads_a[n].flatten() for n in names])
+    flat_b = torch.cat([grads_b[n].flatten() for n in names])
+    per = {n: _cosine(grads_a[n], grads_b[n]) for n in names if n.endswith("lora_b")}
+    return _cosine(flat_a, flat_b), per
+
+
+def _gate_first_step(name: str, model, first, g, replay: bool = False) -> None:
+    """The first step's loss and adapter gradients through the kernels
+    against the same step with every kernel swapped for its plain version:
+    loss within LOSS_REL_TOL, the adapter gradients at GRAD_COS_TOL.
+    ``replay`` (a base that quantizes its activations, :func:`_gate_replayed`)."""
+    noises = _draw_noises(first, g)
+    step = partial(_loss_and_grads, model, first, noises)
+    if replay:
+        return _gate_replayed(name, model, first, g, step)
+    loss_k, grads_k = step()
+    loss_p, grads_p = _with_plain_versions(step)
+    cos, per = _grad_cosines(grads_k, grads_p)
+    worst = min(per, key=per.get)
+    flat_k = torch.cat([grads_k[n].flatten() for n in sorted(grads_k)])
+    print(f"  {name} first step, kernels vs plain versions ({_describe(first[0])}): loss "
+          f"{loss_k:.5f} vs {loss_p:.5f}; adapter gradients: cosine {cos:.6f} over "
+          f"{flat_k.numel()} values (norm {flat_k.norm().item():.4f}), worst tensor "
+          f"{per[worst]:.6f} ({worst})", flush=True)
+    if not (abs(loss_k - loss_p) <= LOSS_REL_TOL * abs(loss_p) and cos >= GRAD_COS_TOL
+            and bool(torch.isfinite(flat_k).all())):
+        raise SystemExit(f"chip_smoke: the {name} step with the kernels disagrees with the same "
+                         "step on the plain versions")
+
+
+QA_WITNESS_DRAWS = 3  # flow-noise draws of the unreplayed first step (the first is the gated one)
+
+
+def _gate_replayed(name: str, model, first, g, step) -> None:
+    """The first step over a base that quantizes its activations. Without a
+    replay the int8 roundings of the two sides part (a last-place difference
+    moves a value a whole step, and an act-quant projection passes its input
+    gradient only at each row's absmax entry, which a near tie moves), so the
+    unreplayed adapter gradients are read, not gated, beside their noise
+    floor: on QA_WITNESS_DRAWS flow-noise draws, kernels vs plain, kernels vs
+    plain with fp32 attention and plain vs plain with fp32 attention (no
+    kernel in it), each with its worst lora_b tensor. Gated: the unreplayed
+    loss within LOSS_REL_TOL; on the step replayed with the kernel side's
+    int8 values (:class:`QuantReplay` with the plain side's own scales'
+    gradients), the loss within LOSS_REL_TOL, the adapter gradients at
+    GRAD_COS_TOL, every K5 forward (:class:`AttentionTap`) and every K3 call
+    against its plain version on the same inputs."""
+    rec, tap = QuantReplay(own_scales=True), AttentionTap()
+    loss_k, grads_k = tap.record(lambda: rec.record(step))
+    loss_r, grads_r = _with_plain_versions(lambda: tap.compare("plain", lambda: rec.replay(step)))
+    n_k3, n_act = len(rec.k3), len(rec.act)
+    rec.check_k3(f"the {name} step")
+    tap.check(f"the {name} step")
+    del rec, tap
+    cos_r, per_r = _grad_cosines(grads_k, grads_r)
+    worst_r = min(per_r, key=per_r.get)
+    flat = torch.cat([grads_k[n].flatten() for n in sorted(grads_k)])
+    print(f"  {name} first step ({_describe(first[0])}), replayed ({n_k3} K3 outputs, {n_act} "
+          f"quantize_activations outputs), kernels vs plain versions: loss {loss_k:.5f} vs "
+          f"{loss_r:.5f}; adapter gradients: cosine {cos_r:.6f} over {flat.numel()} values "
+          f"(norm {flat.norm().item():.4f}), worst tensor {per_r[worst_r]:.6f} ({worst_r})",
+          flush=True)
+    loss_k0, loss_p = loss_k, None
+    for draw in range(QA_WITNESS_DRAWS):
+        if draw:
+            noises = _draw_noises(first, g)
+            step = partial(_loss_and_grads, model, first, noises)
+            loss_k, grads_k = step()
+        sides = {"kernels": (loss_k, grads_k), "plain": _with_plain_versions(step),
+                 "fp32": _with_plain_versions(step, True)}
+        if draw == 0:
+            loss_p = sides["plain"][0]
+        text = []
+        for a, b in (("kernels", "plain"), ("kernels", "fp32"), ("plain", "fp32")):
+            cos, per = _grad_cosines(sides[a][1], sides[b][1])
+            worst = min(per, key=per.get)
+            text.append(f"{a} vs {b} {cos:.6f} (loss {sides[a][0]:.5f} vs {sides[b][0]:.5f}; "
+                        f"worst {per[worst]:.6f}, {worst.replace('language_model.model.', '')}"
+                        f"; that tensor in the gated pair {per_r[worst]:.6f})")
+        print(f"  {name}, unreplayed, noise draw {draw}: adapter gradient cosines "
+              + "; ".join(text), flush=True)
+        del sides
+    if not (abs(loss_k0 - loss_p) <= LOSS_REL_TOL * abs(loss_p)
+            and abs(loss_k0 - loss_r) <= LOSS_REL_TOL * abs(loss_r) and cos_r >= GRAD_COS_TOL
+            and bool(torch.isfinite(flat).all())):
+        raise SystemExit(f"chip_smoke: the {name} step with the kernels disagrees with the same "
+                         "step on the plain versions")
 
 
 def run_lora(inf: InterleaveInferencer, it, first) -> dict:
@@ -3721,26 +4026,7 @@ def run_lora(inf: InterleaveInferencer, it, first) -> dict:
           f"{lora.count_lora_params(model) / 1e6:.1f} M adapter parameters (bf16) over "
           f"{sum(p.numel() for _, p in base) / 1e9:.2f} B frozen; remat {cfg.llm.remat}; "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB held", flush=True)
-    # the first step's loss and adapter gradients, kernels against plain attention
-    noises = _draw_noises(first, g)
-    loss_k, grads_k = _loss_and_grads(model, first, noises)
-    loss_p, grads_p = _with_plain_versions(lambda: _loss_and_grads(model, first, noises))
-    flat_k = torch.cat([grads_k[n].flatten() for n in sorted(grads_k)])
-    flat_p = torch.cat([grads_p[n].flatten() for n in sorted(grads_k)])
-    cos = torch.nn.functional.cosine_similarity(flat_k, flat_p, dim=0).item()
-    per = {n: torch.nn.functional.cosine_similarity(
-        grads_k[n].flatten(), grads_p[n].flatten(), dim=0).item()
-        for n in grads_k if n.endswith("lora_b")}
-    worst = min(per, key=per.get)
-    print(f"  first step, kernels vs plain attention ({_describe(first[0])}): loss {loss_k:.5f} "
-          f"vs {loss_p:.5f}; adapter gradients: cosine {cos:.6f} over {flat_k.numel()} values "
-          f"(norm {flat_k.norm().item():.4f}), worst tensor {per[worst]:.6f} ({worst})",
-          flush=True)
-    if not (abs(loss_k - loss_p) <= LOSS_REL_TOL * abs(loss_p) and cos >= GRAD_COS_TOL
-            and bool(torch.isfinite(flat_k).all())):
-        raise SystemExit("chip_smoke: the LoRA step with the kernels disagrees with the same "
-                         "step with plain attention")
-    del grads_k, grads_p, flat_k, flat_p
+    _gate_first_step("LoRA", model, first, g)
     state, launches = _run_steps(step, state, [first], it, g, 1, n_llm, n_vit,
                                  "the LoRA training path", frozen_vit=True)
     still = [n for n, c in _checksums(base).items() if c != before[n]]
@@ -3756,8 +4042,6 @@ def run_lora(inf: InterleaveInferencer, it, first) -> dict:
 def build_trainable(n_layers: int, freeze_und: bool) -> bagel.Bagel:
     """The full width at ``n_layers`` LLM layers (the ViT at its full depth),
     random bf16 weights and an fp32 VAE from the seed."""
-    import dataclasses
-
     cfg = full_config()
     cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
         cfg.llm, num_hidden_layers=n_layers, freeze_und=freeze_und))
@@ -3835,8 +4119,357 @@ def _finetune(model, it, freeze_und: bool) -> dict:
     return launches
 
 
+# -- QLoRA: the quantized projections under autograd (run I) ----------------------------------
+# mode, quantize_llm_params options, group size; the projections of the 14B at the routed rows
+# of a training sequence
+QB_MODES = [("q", 8, False, 0), ("qa", 8, True, 0), ("p4", 4, False, 0), ("p4", 4, False, 512),
+            ("p4a", 4, True, 0), ("p4a", 4, True, 512)]
+QB_PROJECTIONS = (("q/o", 3584, 3584), ("k/v", 3584, 512), ("gate/up", 3584, 18944),
+                  ("down", 18944, 3584))
+QB_COS_TOL = 0.999  # each gradient against autograd of the plain route, as a whole
+
+
+def _plain_quant_linear(x, lin):
+    """The plain route of a quantized projection, differentiable by torch's
+    autograd: x quantized per token in the act-quant modes, the product in
+    fp32 (K4's plain version for packed weights)."""
+    xq, xs = quant.quantize_activations(x) if lin.act_quant else (x, None)
+    return _plain_preq(xq, xs, lin)
+
+
+def _plain_preq(xq, xs, lin):
+    if lin.packed:
+        return w4.w4_matmul_ref(xq, xs, lin.weight_q, lin.scale, torch.bfloat16)
+    acc = xq.float() @ lin.weight_q.float().t()
+    return (acc * (lin.scale if xs is None else xs * lin.scale)).to(torch.bfloat16)
+
+
+def _grad_case(fn_kernel, fn_plain, inputs, dy, timed: bool):
+    """Gradients of ``fn(*inputs)`` into the float inputs through the kernel
+    route and the plain route, their cosines and max abs differences; with
+    ``timed`` the kernel route's forward and backward and the plain route's
+    times."""
+    out = {}
+    for side, fn in (("kernel", fn_kernel), ("plain", fn_plain)):
+        xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+        y = fn(*xs)
+        out[side] = torch.autograd.grad(y, xs, dy, retain_graph=timed)
+        if timed:
+            out[side + "_fwd_ms"] = cuda_ms(lambda: fn(*xs), 1, 5)
+            out[side + "_bwd_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(y, xs, dy, retain_graph=True), 1, 5)
+        del y
+    res = dict(cos=[_cosine(a.float(), b.float()) for a, b in zip(out["kernel"], out["plain"])],
+               max_abs=[(a.float() - b.float()).abs().max().item()
+                        for a, b in zip(out["kernel"], out["plain"])])
+    if timed:
+        res.update({k: v for k, v in out.items() if k.endswith("_ms")})
+    return res
+
+
+def check_quant_backward(seq) -> dict:
+    """Each quantized mode's differentiable route at the 14B projection shapes
+    (q/o 3584->3584, k/v 3584->512, gate/up 3584->18944, down 18944->3584), at
+    the rows the training forward routes to each expert in ``seq`` (a T 6144
+    sequence of the LoRA phase): dx (and K3's dg, du at the down projection
+    of the act-quant modes) against autograd of the plain route, gated at
+    QB_COS_TOL; at the understanding rows also the forward's and the
+    backward's times and the widening's (the weight to bf16, once per
+    backward in ``q`` and ``p4``). Returns the K4 and K3 rows for the
+    ``kernels`` line."""
+    rows = (seq["und_idx"].numel(), seq["gen_idx"].numel())
+    print(f"QLoRA's projections under autograd at the routed rows of {_describe(seq)} "
+          f"(card {CARD}): dx against autograd of the plain route, cosine >= {QB_COS_TOL}",
+          flush=True)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    k4_rows, k3_rows, failed = [], [], []
+    for mode, bits, act, group in QB_MODES:
+        for pname, K, N in QB_PROJECTIONS:
+            w = torch.randn(N, K, generator=g, device=DEVICE) * K**-0.5
+            q, scale = quant.quantize_weight(w.to(torch.bfloat16), bits, group)
+            lin = QuantLinear(quant.mode_name(bits, act), q, scale)
+            del w
+            for m in rows:
+                if m == 0:
+                    continue
+                timed = m == rows[0]
+                x = torch.randn(m, K, generator=g, device=DEVICE).to(torch.bfloat16)
+                dy = torch.randn(m, N, generator=g, device=DEVICE).to(torch.bfloat16)
+                before = dict(w4.counts)
+                r = _grad_case(lin, lambda t: _plain_quant_linear(t, lin), [x], dy, timed)
+                widen = None
+                if timed and not act:
+                    widen = cuda_ms(lambda: (w4.unpack_int4(lin.weight_q) if lin.packed
+                                             else lin.weight_q).to(torch.bfloat16), 1, 5)
+                row = dict(mode=mode, group=group, projection=pname, m=m, K=K, N=N,
+                           cos_dx=r["cos"][0], max_abs_dx=r["max_abs"][0],
+                           **{k: r[k] for k in r if k.endswith("_ms")},
+                           widen_ms=widen)
+                if lin.packed and x.is_cuda and w4.counts["kernel"] == before["kernel"]:
+                    raise SystemExit(f"chip_smoke: {mode} {pname} did not launch K4")
+                print(f"  {json.dumps(row)}", flush=True)
+                if r["cos"][0] < QB_COS_TOL or not math.isfinite(r["max_abs"][0]):
+                    failed.append(row)
+                if lin.packed:
+                    k4_rows.append(row)
+                if pname == "down" and act:  # K3 in front of the down projection
+                    gg = torch.randn(m, K, generator=g, device=DEVICE).to(torch.bfloat16) * 2
+                    uu = torch.randn(m, K, generator=g, device=DEVICE).to(torch.bfloat16)
+                    r3 = _grad_case(
+                        lambda a, b: quant.quantized_linear_preq(
+                            *aq.silu_mul_quant_autograd(a, b), lin, torch.bfloat16),
+                        lambda a, b: _plain_preq(*aq.silu_mul_quant_ref(a, b), lin),
+                        [gg, uu], dy, timed)
+                    row3 = dict(mode=mode, group=group, R=m, I=K, cos_dg=r3["cos"][0],
+                                cos_du=r3["cos"][1], max_abs_dg=r3["max_abs"][0],
+                                max_abs_du=r3["max_abs"][1],
+                                **{k: v for k, v in r3.items() if k.endswith("_ms")})
+                    print(f"  K3 {json.dumps(row3)}", flush=True)
+                    k3_rows.append(row3)
+                    if min(r3["cos"]) < QB_COS_TOL:
+                        failed.append(row3)
+            del lin, q, scale
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"chip_smoke: a quantized route's gradient disagrees with the plain "
+                         f"route's: {failed}")
+    return {"w4_matmul": k4_rows, "silu_mul_quant": k3_rows}
+
+
+QLORA_MODES = [  # name, quantize_llm_params options, adapter targets, K4 / K3 per expert call set
+    ("weight-only w4 per channel (p4), adapters on every projection", dict(bits=4),
+     lora.TARGETS_ALL, 7, 0),
+    ("full-int8 (qa), adapters on q/k/v/o", dict(bits=8, act_quant=True),
+     ("q", "k", "v", "o"), 0, 1),
+]
+
+
+def qlora_model(model, **kw):
+    """A copy of ``model`` whose LLM is quantized on the card: new modules
+    around the same tensors for everything that stays, each projection
+    quantized from its bf16 weight."""
+    lm = model.language_model
+    shared = {id(t): t for t in itertools.chain(lm.parameters(), lm.buffers())}
+    qlm = copy.deepcopy(lm, shared)
+    quant.quantize_llm_params(qlm, **kw)
+    qmodel = copy.copy(model)
+    qmodel._modules = dict(model._modules, language_model=qlm)
+    return qmodel
+
+
+def run_qlora(inf: InterleaveInferencer, it, first) -> list:
+    """Run I: adapter training over a quantized copy of the 28-layer LLM,
+    rank 16, in each of QLORA_MODES (the copy freed before the next):
+    K4 forward and its backward route at every projection of both experts
+    (weight-only w4), K3 forward and its backward route at every MLP's down
+    (full-int8). Gates as run LoRA's: the first step against the same step
+    on the plain versions, the base's bits unchanged, every lora_b moved,
+    the launches against the forwards (recomputed once per layer)."""
+    cfg = inf.model.config
+    n_llm, n_vit = cfg.llm.num_hidden_layers, cfg.vit.num_hidden_layers
+    paths = []
+    for name, kw, targets, k4, k3 in QLORA_MODES:
+        t0 = time.perf_counter()
+        held = torch.cuda.memory_allocated()
+        model = qlora_model(inf.model, **kw)
+        g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+        base = list(itertools.chain(model.named_parameters(), model.named_buffers()))
+        before = _checksums(base)
+        lora.add_lora(model, g, rank=LORA_RANK, targets=targets)
+        step, state = lora.make_lora_train_step(cfg, model)
+        adapters = [m for m in model.modules() if isinstance(m, lora.LoRALinear)]
+        torch.cuda.synchronize()
+        print(f"QLoRA (run I), {name}: {len(adapters)} adapted projections, "
+              f"{lora.count_lora_params(model) / 1e6:.1f} M adapter parameters (bf16); the "
+              f"quantized copy {(torch.cuda.memory_allocated() - held) / 2**30:.2f} GiB, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        _gate_first_step(f"QLoRA {name}", model, first, g, replay=kw.get("act_quant", False))
+
+        def launches(seq, k4=k4, k3=k3):
+            runs = 2 * n_llm * ((seq["und_idx"].numel() > 0) + (seq["gen_idx"].numel() > 0))
+            return {"w4_matmul": k4 * runs, "silu_mul_quant": k3 * runs}
+
+        path = f"the QLoRA training path, {name}"
+        state, counted = _run_steps(step, state, [first], it, g, 1, n_llm, n_vit, path,
+                                    frozen_vit=True, quant_launches=launches)
+        paths.append(counted)
+        still = [n for n, c in _checksums(base).items() if c != before[n]]
+        unmoved = [i for i, m in enumerate(adapters) if not bool((m.lora_b != 0).any())]
+        print(f"  after {state.step} steps: {len(adapters) - len(unmoved)} of {len(adapters)} "
+              f"lora_b moved from zero; base tensors (the quantized buffers included) whose "
+              f"bits changed: {len(still)} of {len(base)}; {json.dumps(STEP_STATS[path])}",
+              flush=True)
+        if still or unmoved:
+            raise SystemExit(f"chip_smoke: QLoRA ({name}) moved the base, or left an adapter "
+                             "where it was")
+        del model, state, step, adapters, base
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
+# -- the e2e-VAE extras, snapshots and export (run J) ------------------------------------------
+E2E_LAYERS = FT_LAYERS
+E2E_DTYPE = torch.bfloat16
+E2E_RESUME_LOSS_RTOL = 1e-3  # the resumed step against the uninterrupted one, if not bit-equal
+E2E_RESUME_PARAM_ULPS = 2  # and each watched entry within 2 bf16 steps of its magnitude
+
+
+def _e2e_config():
+    cfg = full_config()
+    return dataclasses.replace(
+        cfg, llm=dataclasses.replace(cfg.llm, num_hidden_layers=E2E_LAYERS),
+        e2e=E2EVAEConfig(enable_batch_norm=True, diffusion_feature_layer=E2E_LAYERS // 2))
+
+
+def _e2e_model(seed: int) -> bagel.Bagel:
+    model = bagel.Bagel(_e2e_config(), device="meta", dtype=E2E_DTYPE, with_vae=True)
+    model = model.to_empty(device=DEVICE)
+    return bagel.init_random_(model, torch.Generator(device=DEVICE).manual_seed(seed),
+                              llm2vae_zero=False)
+
+
+def _e2e_step(step, state, batch, i: int):
+    """One e2e step on ``batch`` with the flow noise drawn from a generator
+    seeded by the step's index, so a resumed run draws the same."""
+    noises = _draw_noises(batch, torch.Generator(device=DEVICE).manual_seed(SEED + 30 + i))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = step(state, batch, noises=noises)
+    loss = float(loss)
+    return state, loss, time.perf_counter() - t0
+
+
+def run_e2e(tok, new_token_ids, tmp: str) -> dict:
+    """Run J: a full fine-tune at E2E_LAYERS of 28 LLM layers, full width,
+    with ``cfg.e2e`` (the latent batch-norm and both REPA terms, teacher
+    features from the seed at teacher_feature_dim): two steps,
+    ``save_snapshot``, a third step; the exported checkpoint
+    (``export_bagel_checkpoint``) read back by ``load_bagel_checkpoint`` must
+    give the in-memory model's first-step chat logits; a fresh model
+    restored from the snapshot takes the third step again, which must equal
+    the uninterrupted one (bit for bit, or within E2E_RESUME_LOSS_RTOL and
+    E2E_RESUME_PARAM_ULPS where the card's sums are not deterministic).
+    Returns the launches of the three steps."""
+    from unimedvl_tpu_torch.weights.bagel_export import export_bagel_checkpoint
+    from unimedvl_tpu_torch.weights.loader import load_bagel_checkpoint
+    from unimedvl_tpu_torch.weights.snapshot import restore_snapshot, save_snapshot
+
+    model = _e2e_model(SEED)
+    cfg = model.config
+    n_llm, dt = cfg.llm.num_hidden_layers, cfg.e2e.teacher_feature_dim
+    it = train_batches(model, tok, new_token_ids, train_examples(False), FT_SEQ_LEN)
+    try:
+        batches = [next(it) for _ in range(TRAIN_STEPS)]
+    finally:
+        it.close(wait=True)
+    tg = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    for b in batches:
+        for seq in b:
+            if "vae_clean_tokens" in seq:
+                seq["repa_teacher_features"] = torch.randn(
+                    seq["vae_clean_tokens"].shape[0], dt, generator=tg, device=DEVICE)
+    step, init_state = trainer.make_train_step(cfg, model)
+    state = init_state()
+    n_trained = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"e2e-VAE fine-tune (run J): {n_llm} of 28 LLM layers at the full width, "
+          f"{n_trained / 1e9:.2f} B trained parameters (bf16, AdamW moments bf16), latent "
+          f"batch-norm and REPA (teacher width {dt}, feature layer "
+          f"{cfg.e2e.diffusion_feature_layer}), {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+          "held", flush=True)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    snap = os.path.join(tmp, "snapshot")
+    losses, times = [], []
+    for i, batch in enumerate(batches):
+        if i == TRAIN_STEPS - 1:
+            t0 = time.perf_counter()
+            save_snapshot(snap, state)
+            size = os.path.getsize(os.path.join(snap, "snapshot.pt")) / 2**30
+            print(f"  snapshot after step {state.step}: {size:.1f} GiB written in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        state, loss, sec = _e2e_step(step, state, batch, i)
+        losses.append(loss)
+        times.append(sec)
+        print(f"  step {i}: loss {loss:.4f} ({_describe(batch[0])}), {sec:.3f} s; bn_state mean "
+              f"{state.bn_state.mean.abs().mean().item():.4f}, var "
+              f"{state.bn_state.var.mean().item():.4f}", flush=True)
+        if not math.isfinite(loss):
+            raise SystemExit("chip_smoke: run J's loss is not finite")
+    launches = check_counts("the e2e-VAE training path (run J)", {
+        "packed_train_attention_fwd": 2 * n_llm * TRAIN_STEPS,
+        "packed_train_attention_bwd_dq": n_llm * TRAIN_STEPS,
+        "packed_train_attention_bwd_dkv": n_llm * TRAIN_STEPS,
+    })
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    STEP_STATS["run J"] = dict(card=CARD, s_per_step=statistics.median(times[1:]), peak_gib=peak)
+    print(f"  run J: {json.dumps(STEP_STATS['run J'])}", flush=True)
+    watch = ["language_model.model.layers.0.mlp_moe_gen.down_proj.weight",
+             "language_model.model.layers.0.self_attn.q_proj.weight", "repa_proj.weight",
+             "repa_vae_proj.weight", "vit_model.vision_model.encoder.layers.0.mlp.fc1.weight"]
+    params = dict(model.named_parameters())
+    want = {n: params[n].detach().float().cpu() for n in watch}
+    want_sums = _checksums(model.named_parameters())
+    want_bn = (state.bn_state.mean.cpu(), state.bn_state.var.cpu())
+    del state, step, params
+    gc.collect()
+
+    # export, then the released-format files read back: the same first-step logits
+    export = os.path.join(tmp, "export")
+    model.requires_grad_(False)
+    t0 = time.perf_counter()
+    written = export_bagel_checkpoint(export, model, dtype=E2E_DTYPE)
+    print(f"  exported {sorted(written)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    image, prompt = _images()[1], REQUESTS[1][2]
+    logits = {}
+    logits["in memory"] = _first_step_logits(InterleaveInferencer(
+        model, tok, new_token_ids, seed=SEED), image, prompt)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    reloaded = load_bagel_checkpoint(export, device=DEVICE, dtype=E2E_DTYPE)
+    logits["reloaded"] = _first_step_logits(InterleaveInferencer(
+        reloaded, tok, new_token_ids, seed=SEED), image, prompt)
+    del reloaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    diff = (logits["in memory"] - logits["reloaded"]).abs().max().item()
+    print(f"  export round trip: first-step chat logits of the reloaded checkpoint against the "
+          f"in-memory model's: max abs {diff:.3e}, equal {diff == 0}", flush=True)
+    if diff != 0:
+        raise SystemExit("chip_smoke: the exported checkpoint does not reload to the same model")
+
+    # the snapshot restored into a fresh model; its third step against the uninterrupted one
+    fresh = _e2e_model(SEED + 1)
+    step, init_state = trainer.make_train_step(fresh.config, fresh)
+    t0 = time.perf_counter()
+    state = restore_snapshot(snap, init_state(), device=DEVICE)
+    print(f"  restored the snapshot (step {state.step}) into a fresh model in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    state, loss, _ = _e2e_step(step, state, batches[-1], TRAIN_STEPS - 1)
+    params = dict(fresh.named_parameters())
+    sums = _checksums(fresh.named_parameters())
+    equal = sum(sums[n] == want_sums[n] for n in want_sums)
+    worst = max(((params[n].detach().float().cpu() - want[n]).abs()
+                 / (want[n].abs() * 2.0**-8 * E2E_RESUME_PARAM_ULPS + 1e-12)).max().item()
+                for n in watch)
+    bn_equal = torch.equal(state.bn_state.mean.cpu(), want_bn[0]) and \
+        torch.equal(state.bn_state.var.cpu(), want_bn[1])
+    print(f"  resumed step {TRAIN_STEPS - 1}: loss {loss:.6f} vs uninterrupted "
+          f"{losses[-1]:.6f}; {equal} of {len(want_sums)} parameter tensors bit-equal; watched "
+          f"entries' worst |diff| / ({E2E_RESUME_PARAM_ULPS} bf16 steps) {worst:.3f}; bn_state "
+          f"equal {bn_equal}", flush=True)
+    if not (abs(loss - losses[-1]) <= E2E_RESUME_LOSS_RTOL * abs(losses[-1]) and worst <= 1.0):
+        raise SystemExit("chip_smoke: the resumed run J differs from the uninterrupted one")
+    del fresh, state, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def run_training(inf: InterleaveInferencer):
-    """The training phases; returns (K5's timings, the launches of each path)."""
+    """The training phases; returns (K5's timings, K3's and K4's backward
+    cases, the launches of each path)."""
     tok, ids = inf.tokenizer, inf.new_token_ids
     lora_it = train_batches(inf.model, tok, ids, train_examples(True), LORA_SEQ_LEN)
     ft_it = train_batches(inf.model, tok, ids, train_examples(False), FT_SEQ_LEN)
@@ -3844,9 +4477,17 @@ def run_training(inf: InterleaveInferencer):
         first, ft_first = next(lora_it), next(ft_it)
         ft_it.close(wait=True)
         timings = check_packed_train_attention(ft_first[0], first[0])
+        backward = check_quant_backward(first[0])
+        print(f"QLoRA training paths (run I): {TRAIN_STEPS} steps each over a quantized copy of "
+              f"the full-depth model, one packed sequence of {LORA_SEQ_LEN} tokens per step",
+              flush=True)
+        paths = run_qlora(inf, lora_it, first)
         print(f"LoRA training path: {TRAIN_STEPS} steps over the full-depth model, one packed "
               f"sequence of {LORA_SEQ_LEN} tokens per step", flush=True)
-        return timings, [run_lora(inf, lora_it, first)]
+        paths.append(run_lora(inf, lora_it, first))
+        print("training steps at the full depth, bf16 LoRA beside QLoRA (same call): "
+              + json.dumps(STEP_STATS), flush=True)
+        return timings, backward, paths
     finally:  # a worker left running would abort the interpreter's exit
         ft_it.close(wait=True)
         lora_it.close(wait=True)
@@ -3905,8 +4546,10 @@ def run(tmp: str) -> None:
     done("vqa-reconstruction (run G)")
     paths += run_spec_phase(inf)
     done("speculative decoding")
-    train_timings, train_paths = run_training(inf)
+    train_timings, backward, train_paths = run_training(inf)
     timings.update(train_timings)
+    for name, cases in backward.items():
+        timings[name]["backward_cases"] = cases
     paths += train_paths
     tok, new_token_ids = inf.tokenizer, inf.new_token_ids
     del inf  # the 28-layer model makes room for the full fine-tune's state
@@ -3914,6 +4557,8 @@ def run(tmp: str) -> None:
     torch.cuda.empty_cache()
     paths += run_full_finetune(tok, new_token_ids)
     done("training")
+    paths.append(run_e2e(tok, new_token_ids, tmp))
+    done("e2e-VAE step, snapshot resume and export (run J)")
     flash = "unimedvl_tpu_torch/csrc/flash_block_attention.cu"
     decode = "unimedvl_tpu_torch/csrc/decode_attention.cu"
     train = "unimedvl_tpu_torch/csrc/packed_train_attention.cu"

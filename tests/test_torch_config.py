@@ -29,6 +29,26 @@ def port_config(cfg):
     return getattr(tconfig, type(cfg).__name__).from_dict(dataclasses.asdict(cfg))
 
 
+_INIT_PARAMS = {}
+
+
+def init_params(seed: int, cfg, llm2vae_zero: bool = True):
+    """``unimedvl_tpu.models.bagel.init_params(PRNGKey(seed), cfg,
+    llm2vae_zero)``, drawn once per process: the draw compiles its random ops
+    anew in every test module (tests/conftest.py clears jax's caches between
+    modules), which took ~20 s a module; modules that ask for the same
+    weights share the arrays (immutable) in containers of their own."""
+    import jax
+
+    from unimedvl_tpu.models import bagel as jbagel
+
+    key = (seed, cfg, llm2vae_zero)
+    if key not in _INIT_PARAMS:
+        _INIT_PARAMS[key] = jbagel.init_params(jax.random.PRNGKey(seed), cfg,
+                                               llm2vae_zero=llm2vae_zero)
+    return jax.tree.map(lambda x: x, _INIT_PARAMS[key])
+
+
 def _fields(cls):
     out = {}
     for f in dataclasses.fields(cls):

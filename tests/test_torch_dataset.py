@@ -16,14 +16,13 @@ from PIL import Image
 
 from unimedvl_tpu.data.imaging import ImageTransform as JImageTransform
 from unimedvl_tpu.data.tokenizer import add_special_tokens as j_add_special_tokens
-from unimedvl_tpu.models import bagel as jbagel
 from unimedvl_tpu.training import dataset as jdataset
 from unimedvl_tpu_torch.data.imaging import ImageTransform
 from unimedvl_tpu_torch.data.tokenizer import add_special_tokens
 from unimedvl_tpu_torch.training import dataset, trainer
 
 from tests.test_pipeline import TINY, FakeTokenizer
-from tests.test_torch_config import port_config
+from tests.test_torch_config import init_params, port_config
 from tests.test_torch_train import port_model
 
 TCFG = port_config(TINY)
@@ -48,7 +47,7 @@ def _examples(cls):
 
 @pytest.fixture(scope="module")
 def setup():
-    params = jbagel.init_params(jax.random.PRNGKey(0), TINY, llm2vae_zero=False)
+    params = init_params(0, TINY, llm2vae_zero=False)
     return params, port_model(params), jdataset.make_latent_fn(params, TINY)
 
 

@@ -25,7 +25,6 @@ from unimedvl_tpu.data.imaging import ImageTransform
 from unimedvl_tpu.data.tokenizer import add_special_tokens
 from unimedvl_tpu.eval import text_metrics as jtm
 from unimedvl_tpu.eval import vqa as jvqa
-from unimedvl_tpu.models import bagel as jbagel
 from unimedvl_tpu_torch import eval as teval
 from unimedvl_tpu_torch.data import imaging as timaging
 from unimedvl_tpu_torch.data import tokenizer as ttokenizer
@@ -34,7 +33,7 @@ from unimedvl_tpu_torch.eval import vqa
 from unimedvl_tpu_torch.weights.loader import from_jax_params
 
 from tests.test_pipeline import TINY
-from tests.test_torch_config import port_config
+from tests.test_torch_config import init_params, port_config
 from tests.test_torch_pipeline import FakeTokenizer
 
 PRED = "the cat sat on mat"
@@ -129,7 +128,7 @@ def test_package_exports_and_transform():
 
 @pytest.fixture(scope="module")
 def models():
-    params = jbagel.init_params(jax.random.PRNGKey(0), TINY, llm2vae_zero=False)
+    params = init_params(0, TINY, llm2vae_zero=False)
     model = from_jax_params(jax.tree.map(np.asarray, params), port_config(TINY), device="cpu")
     return params, model
 

@@ -56,6 +56,13 @@ import unimedvl_tpu_torch.parallel
 import unimedvl_tpu_torch.parallel.mesh
 import unimedvl_tpu_torch.parallel.sp_denoise
 import unimedvl_tpu_torch.tools.dryrun_sp
+import unimedvl_tpu_torch.training.e2e_vae
+import unimedvl_tpu_torch.weights.bagel_export
+import unimedvl_tpu_torch.weights.snapshot
+import unimedvl_tpu_torch.data.degradations
+import unimedvl_tpu_torch.scripts.export_checkpoint
+import unimedvl_tpu_torch.scripts.make_synthetic_ckpt
+import unimedvl_tpu_torch.scripts.toy_overfit
 check("the port's modules")
 import torch.distributed
 assert not torch.distributed.is_initialized()  # importing starts no process group

@@ -1183,3 +1183,71 @@ def test_kernels_without_a_backward_refuse_inputs_that_require_grad(gen):
     with pytest.raises(RuntimeError, match="no backward kernel"):
         dec.decode_attention(qd, kc, vc, _ints(10), (_ints(10), _ints(12)))
     dec.decode_attention(qd.detach(), kc, vc, _ints(10), (_ints(10), _ints(12)))
+
+
+# -- the differentiable routes of K3 and K4 (QLoRA) -------------------------------------------
+# Each route's forward is the kernel and its backward torch; both are held to autograd of the
+# plain version on the same inputs, each gradient as a whole by cosine >= 0.9999: with bf16 x,
+# dx rounds dy * w_scale to bf16 before a bf16 product where the plain version's backward is
+# fp32; with int8 x the scale's gradient takes y from the kernel's bf16 output.
+
+
+def _cos(a, b):
+    return torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(), 0).item()
+
+
+@pytest.mark.parametrize("group", [0, 512])
+@pytest.mark.parametrize("kn", [(3584, 512), (18944, 3584)])
+def test_w4_matmul_autograd_against_plain_autograd(gen, kn, group):
+    K, N = kn
+    m = 300
+    q = torch.randint(-8, 8, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+    wp = w4.pack_int4(q)
+    G = K // group if group else 1
+    ws = (torch.rand(G, N, generator=gen, device="cuda") * 0.02 + 0.001).squeeze(0)
+    x = _randn(gen, m, K)
+    x[1, 5] = x[1, 9] = x[1].abs().max() * 2  # a tie in the int8 case's absmax
+    dy = _randn(gen, m, N)
+    grads = {}
+    for name, route in (("kernel", w4.w4_matmul_autograd), ("plain", w4.w4_matmul_ref)):
+        a = x.clone().requires_grad_(True)
+        before = w4.counts["kernel"]
+        y = route(a, None, wp, ws)
+        y.backward(dy)
+        xq, xs = aq.silu_mul_quant_ref(a.detach(), torch.ones_like(a.detach()))  # any int8 x
+        s = xs.clone().requires_grad_(True)
+        route(xq, s, wp, ws).backward(dy)
+        if name == "kernel":
+            assert w4.counts["kernel"] == before + 2 and y.grad_fn is not None
+        grads[name] = (a.grad, s.grad)
+    assert _cos(grads["kernel"][0], grads["plain"][0]) >= 0.9999
+    assert _cos(grads["kernel"][1], grads["plain"][1]) >= 0.9999
+
+
+@pytest.mark.parametrize("R", [3, 700])
+def test_silu_mul_quant_autograd_against_plain_autograd(gen, R):
+    g, u = _randn(gen, R, 18944, scale=2.0), _randn(gen, R, 18944)
+    d_scale = torch.randn(R, 1, generator=gen, device="cuda")
+    out = {}
+    for name, route in (("kernel", aq.silu_mul_quant_autograd), ("plain", aq.silu_mul_quant_ref)):
+        gg, uu = g.clone().requires_grad_(True), u.clone().requires_grad_(True)
+        q, scale = route(gg, uu)
+        scale.backward(d_scale)
+        out[name] = (gg.grad, uu.grad, scale.detach())
+    torch.testing.assert_close(out["kernel"][2], out["plain"][2], rtol=1e-6, atol=0)
+    for i in range(2):
+        assert _cos(out["kernel"][i], out["plain"][i]) >= 0.9999
+        # one entry per row (a tie in bf16 products may make two)
+        assert ((out["kernel"][i] != 0).sum(dim=1) <= 2).all()
+
+
+def test_quantized_kernels_refuse_grad_outside_their_routes(gen):
+    x = _randn(gen, 8, 1024).requires_grad_(True)
+    wp = torch.zeros(512, 512, dtype=torch.int8, device="cuda")
+    with pytest.raises(RuntimeError, match="w4_matmul_autograd"):
+        w4.w4_matmul(x, None, wp, torch.ones(512, device="cuda"))
+    with pytest.raises(RuntimeError, match="silu_mul_quant_autograd"):
+        aq.silu_mul_quant(x, x)
+    with torch.no_grad():
+        w4.w4_matmul(x, None, wp, torch.ones(512, device="cuda"))
+        aq.silu_mul_quant(x, x)

@@ -32,13 +32,21 @@ from unimedvl_tpu_torch.models.qwen2_mot import KVCache, pack_int4, unpack_int4
 from unimedvl_tpu_torch.ops import decode_attention as dec
 
 from tests.test_pipeline import TINY as CFG
-from tests.test_torch_serving import (  # noqa: F401  (pair: fixture)
-    IMAGES, PREAMBLE, SLOTS, TEXT, both, both_ids, pair, serve,
+from tests.test_torch_config import init_params
+from tests.test_torch_serving import (
+    IMAGES, PREAMBLE, SLOTS, TEXT, both, both_ids, make_pair, serve,
 )
 
 L, HK, D = CFG.llm.num_hidden_layers, CFG.llm.num_key_value_heads, CFG.llm.head_dim
 INT4 = dict(kv_quantized=True, kv_bits=4)
 SCALE_RTOL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """test_torch_serving.py's pair over the tree the training, eval and
+    recipe modules draw (one draw a process, ~20 s)."""
+    return make_pair(init_params(0, CFG, llm2vae_zero=False))
 
 
 def _to_torch(c) -> KVCache:

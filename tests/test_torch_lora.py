@@ -2,7 +2,7 @@
 (TINY config): adapters carried over by ``from_jax_params``, step-0 identity,
 runtime adapter math equal to merged weights, the adapter-only step against
 ``make_lora_train_step`` for two steps with the base bit-identical, and the
-refusals (a quantized base, fusing unmerged adapters).
+refusals (merging into a quantized base, fusing unmerged adapters).
 
 Tolerances: losses 1e-5 absolute; adapter leaves after two AdamW steps 1e-5;
 merged against runtime 1e-5 (the same low-rank product summed in another
@@ -22,10 +22,10 @@ from unimedvl_tpu_torch.models import bagel
 from unimedvl_tpu_torch.models.layers import LoRALinear
 from unimedvl_tpu_torch.training import lora
 
-from tests.test_torch_config import port_config
+from tests.test_torch_config import init_params, port_config
 from tests.test_torch_train import (
-    CFG, LOSS_TOL, PARAM_TOL, _replay_batch_noise, _stacked, jax_batch, jax_state_dict,
-    make_batch, port_model, replay_noise,
+    CFG, LOSS_TOL, PARAM_TOL, _jax_train_forward, _replay_batch_noise, _stacked, jax_batch,
+    jax_state_dict, make_batch, port_model, replay_noise,
 )
 
 
@@ -44,7 +44,7 @@ def _randomize_b(params, seed=7):
 
 @pytest.fixture(scope="module")
 def jparams():
-    base = jbagel.init_params(jax.random.PRNGKey(0), CFG, llm2vae_zero=False)
+    base = init_params(0, CFG, llm2vae_zero=False)
     return _randomize_b(jlora.add_lora(base, jax.random.PRNGKey(3), rank=4, alpha=8.0,
                                        dtype=jnp.float32))
 
@@ -91,7 +91,7 @@ class TestAdapters:
 
     def test_runtime_equals_merged(self, jparams):
         batch, key = make_batch(), jax.random.PRNGKey(4)
-        want = jbagel.train_forward(jparams, CFG, jax_batch(batch), key)
+        want = _jax_train_forward(jparams, CFG, jax_batch(batch), key)
         model = port_model(jparams)
         noise = replay_noise(key, batch)
         runtime = bagel.train_forward(model, batch, noise=noise)
@@ -110,18 +110,22 @@ class TestAdapters:
         model = port_model(jparams)
         with pytest.raises(ValueError, match="merge_lora"):
             quant.fuse_serving_projections(model.language_model)
-        with pytest.raises(NotImplementedError, match="M8"):
-            quant.quantize_llm_params(model.language_model)
         with pytest.raises(ValueError, match="already carries"):
             lora.add_lora(model, torch.Generator(), rank=4)
         with pytest.raises(ValueError, match="unknown lora targets"):
             lora.add_lora(model, torch.Generator(), targets=("qkv",))
+        # adapters ride a quantized base (QLoRA, tests/test_torch_qlora.py); a quantized
+        # base cannot absorb them
+        quant.quantize_llm_params(model.language_model)
+        assert model.language_model.model.layers[0].self_attn.q_proj.mode == "q"
+        with pytest.raises(ValueError, match="quantized base"):
+            lora.merge_lora(model)
         plain = port_model(jbagel.init_params(jax.random.PRNGKey(0), CFG))
         with pytest.raises(ValueError, match="no adapters"):
             lora.make_lora_train_step(port_config(CFG), plain)
         quant.quantize_llm_params(plain.language_model)
-        with pytest.raises(NotImplementedError, match="QLoRA"):
-            lora.add_lora(plain, torch.Generator())
+        lora.add_lora(plain, torch.Generator(), rank=4, dtype=torch.float32)
+        assert plain.language_model.model.layers[0].mlp.down_proj.mode == "q"
 
 
 class TestLoRAStep:

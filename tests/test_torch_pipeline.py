@@ -50,7 +50,7 @@ from unimedvl_tpu_torch.ops import w4_matmul as w4
 from unimedvl_tpu_torch.weights.loader import from_jax_params
 
 from tests.test_pipeline import TINY as GEN_CFG
-from tests.test_torch_config import port_config
+from tests.test_torch_config import init_params, port_config
 
 # tests/test_pipeline.py's TINY without the gen side, which chat never runs
 CFG = BagelConfig(
@@ -420,7 +420,7 @@ class TestSpecAndKeptContext:
 
 @pytest.fixture(scope="module")
 def gen_pair():
-    params = jbagel.init_params(jax.random.PRNGKey(0), GEN_CFG, llm2vae_zero=False)
+    params = init_params(0, GEN_CFG, llm2vae_zero=False)
     tok, new_token_ids, _ = add_special_tokens(FakeTokenizer())
     kw = dict(vae_transform=ImageTransform(32, 8, 8, 1024),
               vit_transform=ImageTransform(32, 8, 2, 1024), seed=0)

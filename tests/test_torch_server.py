@@ -27,7 +27,6 @@ from PIL import Image
 from unimedvl_tpu.data.imaging import ImageTransform
 from unimedvl_tpu.data.tokenizer import add_special_tokens
 from unimedvl_tpu.inference import serving as jserving
-from unimedvl_tpu.models import bagel as jbagel
 from unimedvl_tpu_torch.data import imaging as timaging
 from unimedvl_tpu_torch.data import tokenizer as ttokenizer
 from unimedvl_tpu_torch.inference import ContinuousBatcher, InterleaveInferencer, Request
@@ -39,13 +38,13 @@ from unimedvl_tpu_torch.ops import flash_attention as fa
 from unimedvl_tpu_torch.weights.loader import from_jax_params
 
 from tests.test_pipeline import TINY
-from tests.test_torch_config import port_config
+from tests.test_torch_config import init_params, port_config
 from tests.test_torch_pipeline import FakeTokenizer
 
 
 @pytest.fixture(scope="module")
 def parts():
-    params = jbagel.init_params(jax.random.PRNGKey(0), TINY, llm2vae_zero=False)
+    params = init_params(0, TINY, llm2vae_zero=False)
     ttok, tids, _ = ttokenizer.add_special_tokens(FakeTokenizer())
 
     def model():

@@ -43,7 +43,7 @@ from unimedvl_tpu_torch.ops import flash_attention as fa
 from unimedvl_tpu_torch.weights.loader import from_jax_params
 
 from tests.test_pipeline import TINY as CFG
-from tests.test_torch_config import port_config
+from tests.test_torch_config import init_params, port_config
 from tests.test_torch_pipeline import QCFG, QUANT_MODES, FakeTokenizer
 
 ATOL = 1e-5
@@ -64,7 +64,11 @@ class Side:
 
 @pytest.fixture(scope="module")
 def pair():
-    params = jbagel.init_params(jax.random.PRNGKey(1), CFG)
+    return make_pair(init_params(1, CFG))
+
+
+def make_pair(params):
+    """Both batchers and the port's inferencer over one JAX tree of CFG."""
     model = from_jax_params(jax.tree.map(np.asarray, params), port_config(CFG), device="cpu")
     tok, ids, _ = add_special_tokens(FakeTokenizer())
     ttok, tids, _ = ttokenizer.add_special_tokens(FakeTokenizer())

@@ -36,7 +36,7 @@ from unimedvl_tpu_torch.training import trainer
 from unimedvl_tpu_torch.weights import loader
 
 from tests.test_pipeline import TINY
-from tests.test_torch_config import port_config
+from tests.test_torch_config import init_params, port_config
 
 CFG = TINY
 LOSS_TOL = 1e-5  # ce / mse / loss, absolute on values of order 1-10
@@ -93,6 +93,11 @@ def replay_noise(key, batch):
     return torch.from_numpy(full[:n])
 
 
+# the JAX forward as one compiled program per batch layout (op by op it compiled each
+# primitive apart, several times slower); same function, fp32 sums fused differently
+_jax_train_forward = jax.jit(jbagel.train_forward, static_argnums=(1, 4))
+
+
 def port_model(params, cfg=CFG):
     return loader.from_jax_params(jax.tree.map(np.asarray, params), port_config(cfg),
                                   device="cpu")
@@ -105,7 +110,7 @@ def jax_state_dict(tree, cfg=CFG):
 
 @pytest.fixture(scope="module")
 def params():
-    return jbagel.init_params(jax.random.PRNGKey(0), CFG, llm2vae_zero=False)
+    return init_params(0, CFG, llm2vae_zero=False)
 
 
 class TestBlockmask:
@@ -231,7 +236,7 @@ class TestTrainForward:
     def test_losses(self, params, mods):
         batch = make_batch(with_vit=mods[0], with_vae=mods[1])
         key = jax.random.PRNGKey(1)
-        want = jbagel.train_forward(params, CFG, jax_batch(batch), key)
+        want = _jax_train_forward(params, CFG, jax_batch(batch), key)
         got = bagel.train_forward(port_model(params), batch, noise=replay_noise(key, batch))
         assert sorted(got) == sorted(want)
         for k in want:
@@ -241,7 +246,7 @@ class TestTrainForward:
     def test_feature_layer_tap(self, params):
         batch = make_batch()
         key = jax.random.PRNGKey(2)
-        want = jbagel.train_forward(params, CFG, jax_batch(batch), key, diffusion_feature_layer=0)
+        want = _jax_train_forward(params, CFG, jax_batch(batch), key, 0)
         got = bagel.train_forward(port_model(params), batch, noise=replay_noise(key, batch),
                                   diffusion_feature_layer=0)
         feats = got["diffusion_features"].detach().numpy()
@@ -262,15 +267,20 @@ class TestTrainForward:
             bagel.train_forward(model, batch, noise=torch.zeros(3, CFG.patch_latent_dim))
 
     def test_e2e_extras_raise(self, params):
+        """The e2e-VAE extras are ported (tests/test_torch_e2e_vae.py): without
+        ``cfg.e2e`` a bn_state is ignored, as in the JAX package; sharding
+        still raises, naming M13."""
         model = port_model(params)
-        with pytest.raises(NotImplementedError, match="M12"):
-            bagel.train_forward(model, make_batch(), bn_state=object(),
-                                generator=torch.Generator())
+        batch, key = make_batch(), jax.random.PRNGKey(1)
+        plain = bagel.train_forward(model, batch, noise=replay_noise(key, batch))
+        ignored = bagel.train_forward(model, batch, noise=replay_noise(key, batch),
+                                      bn_state=object())
+        assert float(ignored["loss"]) == float(plain["loss"]) and "bn_state" not in ignored
         with pytest.raises(NotImplementedError, match="M13"):
             trainer.make_train_step(port_config(CFG), model, mesh=object())
-        cfg = dataclasses.replace(port_config(CFG), e2e=E2EVAEConfig())
-        with pytest.raises(NotImplementedError, match="M12"):
-            trainer.make_train_step(cfg, model)
+        cfg = dataclasses.replace(port_config(CFG), e2e=E2EVAEConfig(enable_batch_norm=True))
+        state = trainer.make_train_step(cfg, model)[1]()  # the step keeps the BN state
+        assert torch.equal(state.bn_state.var, torch.ones(CFG.vae.z_channels))
 
     def test_remat_changes_nothing(self, params):
         batch, key = make_batch(), jax.random.PRNGKey(1)
@@ -307,7 +317,7 @@ class TestGradients:
         def loss(p):
             return jbagel.train_forward(p, cfg, jax_batch(batch), key)["loss"]
 
-        want = jax_state_dict(jax.grad(loss)(params), cfg)
+        want = jax_state_dict(jax.jit(jax.grad(loss))(params), cfg)
         model = port_model(params, cfg)
         for p in model.parameters():  # every leaf, the frozen twins too: their grads must be 0
             p.requires_grad_(True)

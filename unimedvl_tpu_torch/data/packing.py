@@ -239,7 +239,8 @@ def strip_padding(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
     Index lists padded with T lose those entries, together with the rows of
     the arrays that run beside them (text ids; CE labels and weights; VAE
-    tokens, positions, timesteps and weights). ViT images keep their padded
+    tokens, positions, timesteps and weights, and REPA teacher features where
+    the batch has them). ViT images keep their padded
     [N, max_n] form, minus images with no valid token; ``vit_token_idx`` (new)
     lists the rows of the flat [N * max_n] embedding that are real, and
     ``vit_scatter_idx`` where in the packed sequence each goes. A sequence
@@ -260,7 +261,8 @@ def strip_padding(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         keep_rows("ce_idx", "ce_labels", "ce_weight")
     if "vae_scatter_idx" in batch:
         keep_rows("vae_scatter_idx", "vae_clean_tokens", "vae_latent_pos_ids",
-                  "vae_timesteps_raw", "mse_weight")
+                  "vae_timesteps_raw", "mse_weight",
+                  *(["repa_teacher_features"] if "repa_teacher_features" in batch else []))
     if "vit_scatter_idx" in batch:
         vit_keys = ("vit_patch_tokens", "vit_pos_ids", "vit_valid", "vit_scatter_idx")
         N, max_n = batch["vit_pos_ids"].shape

@@ -10,7 +10,10 @@ batched CFG, the VAE decode).
 LLM with both experts, the SigLIP ViT, the connector and the frozen ViT
 position table, the gen-side projections (``vae2llm``, ``llm2vae``,
 ``time_embedder``, ``latent_pos_embed``) and, when built ``with_vae``, the
-FLUX VAE as ``vae_model`` (shipped apart, as ``ae.safetensors``).
+FLUX VAE as ``vae_model`` (shipped apart, as ``ae.safetensors``). With
+``cfg.e2e`` it also holds the REPA projections ``repa_proj`` (LLM hidden ->
+teacher width) and ``repa_vae_proj`` (latent tokens -> teacher width), which
+no released checkpoint carries.
 
 Packing contracts as in the JAX package: text blocks are [S, T] ids with
 trailing padding, causal; an image block is [<vision_start>, tokens...,
@@ -49,6 +52,7 @@ from unimedvl_tpu_torch.models.siglip import SiglipVisionModel
 from unimedvl_tpu_torch.models.vae import AutoEncoder, GroupNorm
 from unimedvl_tpu_torch.ops.activations import ACT2FN, silu
 from unimedvl_tpu_torch.ops.sincos import get_2d_sincos_pos_embed, timestep_embedding
+from unimedvl_tpu_torch.training import e2e_vae
 
 
 class MLPConnector(nn.Module):
@@ -96,6 +100,11 @@ class Bagel(nn.Module):
             self.latent_pos_embed = PosEmbed(cfg.max_latent_size**2, C, device, dtype)
             if with_vae:
                 self.vae_model = AutoEncoder(cfg.vae, device)
+        if cfg.e2e is not None:  # the REPA projections (training/e2e_vae.py), trained
+            dt = cfg.e2e.teacher_feature_dim
+            self.repa_proj = linear(C, dt, True, device, dtype)
+            if cfg.visual_gen and cfg.vae is not None:
+                self.repa_vae_proj = linear(cfg.patch_latent_dim, dt, True, device, dtype)
         self.requires_grad_(False)
 
 
@@ -873,14 +882,6 @@ def prepare_sequence(batch: Dict[str, np.ndarray], device, pin: bool = False
     return out
 
 
-def _no_e2e(cfg: BagelConfig, batch, bn_state) -> None:
-    if cfg.e2e is not None or bn_state is not None or "repa_teacher_features" in batch:
-        raise NotImplementedError(
-            "the e2e-VAE training extras (latent batch-norm, REPA alignment; "
-            "training/e2e_vae.py) are not ported: ROADMAP, what remains of M12"
-        )
-
-
 def train_forward(
     model: Bagel,
     batch: Dict[str, torch.Tensor],
@@ -903,13 +904,22 @@ def train_forward(
     of fp32 scalars (weighted means); with ``diffusion_feature_layer``, also
     ``diffusion_features``.
 
+    ``cfg.e2e`` (training/e2e_vae.py, as the JAX package's train_forward):
+    the feature tap defaults to ``cfg.e2e.diffusion_feature_layer``; with
+    ``enable_batch_norm`` and a ``bn_state`` the clean latents are
+    batch-normed and the new state comes back as ``bn_state``; with
+    ``repa_teacher_features`` [Nv, Dt] in the batch the REPA terms join the
+    loss (``repa_align`` through ``repa_proj``, ``repa_vae_align`` through
+    ``repa_vae_proj``).
+
     Attention takes the segment arrays (K5 on the card). The dense [T, T]
     mask is built only for CPU tensors, whose plain attention needs it."""
     cfg = model.config
-    _no_e2e(cfg, batch, bn_state)
+    if diffusion_feature_layer is None and cfg.e2e is not None:
+        diffusion_feature_layer = cfg.e2e.diffusion_feature_layer
     if isinstance(batch["packed_position_ids"], np.ndarray):
-        batch = prepare_sequence(batch, model.language_model.lm_head.weight.device)
-    x, stash = train_embed(model, batch, noise, generator)
+        batch = prepare_sequence(batch, model.language_model.model.embed_tokens.weight.device)
+    x, stash = train_embed(model, batch, noise, generator, bn_state=bn_state)
     segments = (batch["mask_document_id"], batch["mask_fn_id"], batch["mask_noise_id"])
     result = mot.forward_train(
         model.language_model.model, x, batch["packed_position_ids"], None,
@@ -925,11 +935,13 @@ def train_embed(
     batch: Dict[str, torch.Tensor],
     noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    bn_state=None,
 ):
     """Prologue of :func:`train_forward`: the packed [T, C] input embedding
     (text, ViT and noised VAE-latent rows, reference bagel.py:229-287).
-    Returns (x, stash); the stash carries what the losses need (noise, clean,
-    t_shifted).
+    Returns (x, stash); the stash carries what the losses need (noise, clean
+    (batch-normed under ``cfg.e2e.enable_batch_norm`` with a ``bn_state``),
+    t_shifted, the new bn_state or None).
 
     A ViT with trainable parameters runs with plain differentiable attention;
     a frozen one runs under ``torch.no_grad()`` through K1a."""
@@ -950,9 +962,14 @@ def train_embed(
         flat = vit_embed.reshape(-1, vit_embed.shape[-1]).index_select(0, batch["vit_token_idx"])
         x.index_copy_(0, batch["vit_scatter_idx"], flat.to(x.dtype))
 
-    clean = t_shifted = None
+    clean = t_shifted = new_bn_state = None
     if "vae_clean_tokens" in batch:  # visual generation branch (bagel.py:263-287)
         clean = batch["vae_clean_tokens"]  # [Nv, 64]
+        if cfg.e2e is not None and cfg.e2e.enable_batch_norm and bn_state is not None:
+            # the latent batch-norm on the clean latents (bagel.py:230-231)
+            clean, new_bn_state = e2e_vae.latent_batch_norm(
+                clean, bn_state, cfg.vae.z_channels, training=True,
+                momentum=cfg.e2e.bn_momentum, eps=cfg.e2e.bn_eps)
         t = torch.sigmoid(batch["vae_timesteps_raw"])
         t_shifted = cfg.timestep_shift * t / (1 + (cfg.timestep_shift - 1) * t)
         if noise is None:
@@ -970,7 +987,8 @@ def train_embed(
         lat = lat + model.latent_pos_embed.pos_embed[batch["vae_latent_pos_ids"]]
         x.index_copy_(0, batch["vae_scatter_idx"], lat.to(x.dtype))
 
-    return x, {"noise": noise, "t_shifted": t_shifted, "clean": clean}
+    return x, {"noise": noise, "t_shifted": t_shifted, "clean": clean,
+               "bn_state": new_bn_state}
 
 
 def train_losses(
@@ -981,7 +999,9 @@ def train_losses(
     features: Optional[torch.Tensor] = None,  # diffusion_feature_layer tap [T, C]
 ) -> Dict[str, torch.Tensor]:
     """Epilogue of :func:`train_forward`: the CE and rectified-flow MSE
-    losses (reference bagel.py:309-374)."""
+    losses and, under ``cfg.e2e``, the REPA terms (reference
+    bagel.py:309-374)."""
+    cfg = model.config
     out: Dict[str, torch.Tensor] = {}
     if features is not None and "vae_scatter_idx" in batch:
         out["diffusion_features"] = features.index_select(0, batch["vae_scatter_idx"])
@@ -996,6 +1016,22 @@ def train_losses(
         w = batch["mse_weight"].float() * (stash["t_shifted"] > 0)
         out["mse"] = torch.sum(per_tok * w) / torch.clamp(torch.sum(w), min=1.0)
         loss = loss + out["mse"]
+
+    teacher = batch.get("repa_teacher_features") if cfg.e2e is not None else None
+    if teacher is not None and "diffusion_features" in out and hasattr(model, "repa_proj"):
+        # mid-layer diffusion features against the frozen teacher (bagel.py:63-83)
+        out["repa_align"] = e2e_vae.repa_alignment_loss(
+            out["diffusion_features"], teacher, model.repa_proj, weight=batch.get("mse_weight"),
+            alignment_type=cfg.e2e.repa_alignment_type)
+        loss = loss + cfg.e2e.repa_diffusion_coeff * out["repa_align"]
+    if teacher is not None and "vae_clean_tokens" in batch and hasattr(model, "repa_vae_proj"):
+        # the latents themselves against the teacher (REPA-E style; bagel.py:69), post-BN
+        out["repa_vae_align"] = e2e_vae.repa_alignment_loss(
+            stash["clean"], teacher, model.repa_vae_proj, weight=batch.get("mse_weight"),
+            alignment_type=cfg.e2e.repa_alignment_type)
+        loss = loss + cfg.e2e.repa_vae_coeff * out["repa_vae_align"]
+    if stash.get("bn_state") is not None:
+        out["bn_state"] = stash["bn_state"]
 
     if "ce_idx" in batch:
         h_ce = h.index_select(0, batch["ce_idx"])

@@ -62,31 +62,44 @@ def linear_from_tensors(weight: torch.Tensor, bias=None) -> nn.Linear:
 
 
 class LoRALinear(nn.Module):
-    """A bf16 or fp32 linear with a low-rank adapter (the ``lora_a`` branch
-    of the JAX package's ``_linear``): ``y = x W^T + b + ((x A^T) B^T) * s``.
+    """A linear with a low-rank adapter (the ``lora_a`` branch of the JAX
+    package's ``_linear``): ``y = base(x) + ((x A^T) B^T) * s``.
 
-    ``weight`` [out, in] and ``bias`` are the base linear's own parameters,
-    shared, not copied; ``lora_a`` [r, in] and ``lora_b`` [out, r] are the
-    adapter (the JAX leaves [in, r] and [r, out], transposed to this package's
-    [out, in] convention); ``lora_s`` (alpha / rank) is a buffer: it takes no
-    gradient and no optimizer update. Every path that calls the module sees
-    the adapter: the training forward and unfused inference."""
+    The base is a bf16 or fp32 ``nn.Linear`` (``weight`` [out, in], shared,
+    not copied) or a :class:`QuantLinear` (QLoRA: its ``weight_q`` and
+    ``scale`` stay buffers under the same names, ``mode`` says how it
+    multiplies); its ``bias`` is the base's own frozen parameter. ``lora_a``
+    [r, in] and ``lora_b`` [out, r] are the adapter (the JAX leaves [in, r]
+    and [r, out], transposed to this package's [out, in] convention); a
+    packed int4 base has ``in = 2 * weight_q.shape[1]``, as JAX's
+    ``_kernel_shape`` widens it. ``lora_s`` (alpha / rank) is a buffer: it
+    takes no gradient and no optimizer update. Every path that calls the
+    module sees the adapter: the training forward and unfused inference. An
+    adapted module is not a ``QuantLinear``: the MLP takes K3 only for a down
+    projection without an adapter, as the JAX package does."""
 
-    def __init__(self, base: nn.Linear, lora_a: torch.Tensor, lora_b: torch.Tensor,
+    def __init__(self, base: nn.Module, lora_a: torch.Tensor, lora_b: torch.Tensor,
                  lora_s: float):
         super().__init__()
-        if not isinstance(base, nn.Linear):
-            raise TypeError(f"LoRA adapts a plain nn.Linear, got {type(base).__name__}")
-        out_f, in_f = base.weight.shape
+        if isinstance(base, QuantLinear):
+            self.mode = base.mode
+            out_f, in_f = base.out_features, base.in_features
+            self.register_buffer("weight_q", base.weight_q)
+            self.register_buffer("scale", base.scale)
+        elif isinstance(base, nn.Linear):
+            self.mode = None
+            out_f, in_f = base.weight.shape
+            self.weight = base.weight
+        else:
+            raise TypeError(f"LoRA adapts an nn.Linear or a QuantLinear, got {type(base).__name__}")
         if lora_a.shape[1] != in_f or lora_b.shape != (out_f, lora_a.shape[0]):
             raise ValueError(
                 f"adapter shapes {tuple(lora_a.shape)}, {tuple(lora_b.shape)} do not fit a "
                 f"[{out_f}, {in_f}] weight")
         self.in_features, self.out_features = in_f, out_f
-        self.weight = base.weight
         self.bias = base.bias
-        self.lora_a = nn.Parameter(lora_a)
-        self.lora_b = nn.Parameter(lora_b)
+        self.lora_a = lora_a if isinstance(lora_a, nn.Parameter) else nn.Parameter(lora_a)
+        self.lora_b = lora_b if isinstance(lora_b, nn.Parameter) else nn.Parameter(lora_b)
         self.register_buffer("lora_s", torch.tensor(float(lora_s), dtype=torch.float32,
                                                     device=lora_a.device))
 
@@ -94,11 +107,23 @@ class LoRALinear(nn.Module):
     def rank(self) -> int:
         return self.lora_a.shape[0]
 
+    @property
+    def packed(self) -> bool:
+        return self.mode is not None and self.mode.startswith("p4")
+
+    @property
+    def act_quant(self) -> bool:
+        return self.mode is not None and self.mode.endswith("a")
+
     def extra_repr(self) -> str:
-        return f"in={self.in_features}, out={self.out_features}, rank={self.rank}"
+        base = "" if self.mode is None else f"mode={self.mode}, "
+        return f"{base}in={self.in_features}, out={self.out_features}, rank={self.rank}"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x, self.weight, self.bias)
+        if self.mode is None:
+            y = F.linear(x, self.weight, self.bias)
+        else:
+            y = quant.quantized_forward(x, self)
         low = F.linear(F.linear(x, self.lora_a.to(x.dtype)), self.lora_b.to(x.dtype))
         return y + low * self.lora_s.to(y.dtype)
 
@@ -149,9 +174,7 @@ class QuantLinear(nn.Module):
         return f"mode={self.mode}, in={self.in_features}, out={self.out_features}"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.act_quant:
-            return quant.quantized_linear_act(x, self)
-        return quant.quantized_linear(x, self)
+        return quant.quantized_forward(x, self)
 
 
 def embedding(n: int, dim: int, device=None, dtype=None) -> nn.Embedding:

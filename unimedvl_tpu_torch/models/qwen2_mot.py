@@ -69,7 +69,7 @@ from torch.utils.checkpoint import checkpoint
 from unimedvl_tpu_torch.config import LLMConfig
 from unimedvl_tpu_torch import quant
 from unimedvl_tpu_torch.models.layers import QuantLinear, RMSNorm, embedding, linear
-from unimedvl_tpu_torch.ops.act_quant import silu_mul_quant
+from unimedvl_tpu_torch.ops.act_quant import silu_mul_quant_autograd
 from unimedvl_tpu_torch.ops.activations import ACT2FN
 from unimedvl_tpu_torch.ops.attention import gqa_attention
 from unimedvl_tpu_torch.ops.decode_attention import decode_attention
@@ -389,10 +389,13 @@ class Qwen2MLP(nn.Module):
         else:
             g, u = self.gate_proj(x), self.up_proj(x)
         down = self.down_proj
+        # a full-int8 / w4a8 down projection without an adapter, with silu: K3
+        # forms silu(g) * u in fp32 and quantizes it per token in one pass. An
+        # adapted down (a LoRALinear, not a QuantLinear) takes the product
+        # rounded to x's dtype, as the JAX package's _mlp does ("lora_a" not
+        # in down)
         if isinstance(down, QuantLinear) and down.act_quant and self.act_is_silu:
-            # full-int8 / w4a8 down projection: K3 forms silu(g) * u in fp32 and
-            # quantizes it per token in one pass
-            xq, xs = silu_mul_quant(g, u)
+            xq, xs = silu_mul_quant_autograd(g, u)
             return quant.quantized_linear_preq(xq, xs, down, x.dtype)
         return down(self.act(g) * u)
 
@@ -522,8 +525,10 @@ def lm_head(lm: Qwen2MoTForCausalLM, hidden: torch.Tensor) -> torch.Tensor:
     ``out_dtype``), so the [V, C] weight is read once and never widened. A
     quantized head (always int8): mode ``qa`` quantizes the hidden per token
     and multiplies in integers; mode ``q`` widens the int8 weight to the
-    hidden's dtype. Either keeps the logits fp32. The unquantized head is
-    differentiable (the training loss goes through it)."""
+    hidden's dtype. Either keeps the logits fp32. Every head is
+    differentiable in the hidden (the training loss goes through it; a
+    quantized head under QLoRA): ``qa`` through the activation scale, ``q``
+    through ``quant.WidenedMatmul``."""
     head = lm.lm_head
     h2 = hidden.reshape(-1, hidden.shape[-1])
     if isinstance(head, QuantLinear):
@@ -533,7 +538,7 @@ def lm_head(lm: Qwen2MoTForCausalLM, hidden: torch.Tensor) -> torch.Tensor:
             hq, hs = quant.quantize_activations(h2)
             logits = quant.int_mm(hq, head.weight_q).float() * (hs * head.scale)
         else:
-            logits = quant.mm_f32(h2, head.weight_q.to(hidden.dtype)) * head.scale
+            logits = quant.widened_matmul(h2, head.weight_q, head.scale)
         return logits.reshape(*hidden.shape[:-1], head.out_features)
     w = head.weight
     if hidden.dtype != torch.float32 and not hidden.is_cuda:

@@ -39,18 +39,23 @@ def on_device(index: int):
     return torch.cuda.device(index)
 
 
-def check_no_grad(kernel: str, names: Sequence[str], tensors: Sequence[torch.Tensor]) -> None:
+ATTENTION_ROUTES = ("training attention: ops.flash_attention_train.packed_train_attention; "
+                    "the ViT: dense_attention=True")
+
+
+def check_no_grad(kernel: str, names: Sequence[str], tensors: Sequence[torch.Tensor],
+                  routes: str = ATTENTION_ROUTES) -> None:
     """A kernel without a backward must not sit in an autograd graph: its
     output has no ``grad_fn``, so the inputs' gradients would silently come out
-    as zero. Raises when grad mode is on and an input requires grad."""
+    as zero. Raises when grad mode is on and an input requires grad (a None
+    input is skipped); ``routes`` names the differentiable routes."""
     if not torch.is_grad_enabled():
         return
-    wanting = [n for n, t in zip(names, tensors) if t.requires_grad]
+    wanting = [n for n, t in zip(names, tensors) if t is not None and t.requires_grad]
     if wanting:
         raise RuntimeError(
             f"{kernel} has no backward kernel, but {', '.join(wanting)} require grad: call it "
-            "under torch.no_grad(), or take a differentiable route (training attention: "
-            "ops.flash_attention_train.packed_train_attention; the ViT: dense_attention=True)"
+            f"under torch.no_grad(), or take a differentiable route ({routes})"
         )
 
 

@@ -29,6 +29,15 @@ relative, q within one step on a small share of elements.
 
 ``silu_mul_quant`` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; there is no threshold and no fallback.
+
+Gradients. The kernel has no backward: its wrapper refuses inputs that
+require grad while grad mode is on (``_launch.check_no_grad``).
+``silu_mul_quant_autograd`` is the differentiable route (QLoRA over a
+full-int8 base), with the gradient ``jax.grad`` gives the JAX definition: q
+is integer and passes none; the scale's reaches g and u only at each row's
+argmax of |x| (split equally over ties; none for a row whose absmax is under
+1e-8), then dg = dx * u * silu'(g) and du = dx * silu(g), in torch
+(:func:`silu_mul_quant_backward`).
 """
 
 from __future__ import annotations
@@ -76,6 +85,8 @@ def quantize_fast_twin(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_kernel(g, u):
+    _launch.check_no_grad("silu_mul_quant", ("g", "u"), (g, u),
+                          "ops.act_quant.silu_mul_quant_autograd")
     I = g.shape[-1]
     R = g.numel() // I
     if I % 8 or I > KERNEL_MAX_WIDTH or R < 1:
@@ -123,13 +134,69 @@ def _rows(t: torch.Tensor, name: str) -> torch.Tensor:
 def silu_mul_quant(g: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``quantize_activations(silu(g) * u)`` in one pass, by the module's
     definition. g, u: [..., I] of one shape. Returns (q int8 [..., I], scale
-    fp32 [..., 1]), the input of ``quant.quantized_linear_preq``. CUDA tensors
-    go through the kernel (bf16, rows 16-byte aligned; anything else raises),
-    CPU tensors through :func:`silu_mul_quant_ref`."""
+    fp32 [..., 1]), the input of ``quant.quantized_linear_preq``; no rows give
+    empty outputs and launch nothing. CUDA tensors go through the kernel
+    (bf16, rows 16-byte aligned; anything else raises), CPU tensors through
+    :func:`silu_mul_quant_ref`."""
     if g.shape != u.shape:
         raise ValueError(f"g and u must have one shape, got {tuple(g.shape)} and {tuple(u.shape)}")
+    if g.numel() == 0:  # no rows (an expert the sequence routes nothing to): no launch
+        return (torch.empty(g.shape, dtype=torch.int8, device=g.device),
+                torch.empty(*g.shape[:-1], 1, dtype=torch.float32, device=g.device))
     if g.device.type == "cuda":
         return _launch_kernel(g, u)
     if g.device.type == "cpu":
         return silu_mul_quant_ref(g, u)
     raise ValueError(f"silu_mul_quant runs on CUDA or CPU tensors, got {g.device}")
+
+
+# ---------------------------------------------------------------------------
+# the differentiable route
+# ---------------------------------------------------------------------------
+
+def silu_mul_quant_backward(g: torch.Tensor, u: torch.Tensor, d_scale: torch.Tensor):
+    """(dg, du) in g's and u's dtypes from the scale's cotangent ``d_scale``
+    [..., 1]: x = silu(g) * u in fp32 as the forward defines it; d absmax =
+    d_scale / 127 where absmax >= 1e-8 (the clamp's branch), 0 elsewhere;
+    shared equally by the entries of a row where |x| equals its absmax, with
+    sign(x); then through the product and silu."""
+    g32, u32 = g.float(), u.float()
+    sig = torch.sigmoid(g32)
+    silu_g = g32 * sig
+    x = silu_g * u32
+    ax = x.abs()
+    absmax = ax.amax(dim=-1, keepdim=True)
+    tie = ax == absmax
+    d_absmax = torch.where(absmax >= 1e-8, d_scale.float() / 127.0, torch.zeros_like(absmax))
+    dx = torch.where(tie, torch.sign(x) * (d_absmax / tie.sum(dim=-1, keepdim=True)),
+                     torch.zeros_like(x))
+    dg = dx * u32 * (sig * (1.0 + g32 * (1.0 - sig)))
+    du = dx * silu_g
+    return dg.to(g.dtype), du.to(u.dtype)
+
+
+class SiluMulQuant(torch.autograd.Function):
+    """:func:`silu_mul_quant` under autograd: the forward is the kernel on
+    CUDA tensors and the plain version on CPU tensors; the backward is
+    :func:`silu_mul_quant_backward`. q is marked non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, g, u):
+        q, scale = silu_mul_quant(g, u)
+        ctx.save_for_backward(g, u)
+        ctx.mark_non_differentiable(q)
+        return q, scale
+
+    @staticmethod
+    def backward(ctx, dq, d_scale):
+        g, u = ctx.saved_tensors
+        if d_scale is None:
+            return None, None
+        return silu_mul_quant_backward(g, u, d_scale)
+
+
+def silu_mul_quant_autograd(g: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`silu_mul_quant` where a gradient may be wanted, through
+    :class:`SiluMulQuant` (which builds no graph under no_grad or for inputs
+    that need no gradient)."""
+    return SiluMulQuant.apply(g, u)

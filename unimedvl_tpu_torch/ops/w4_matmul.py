@@ -41,6 +41,15 @@ are widened into a bf16 tile in shared memory, each nibble through the
 mantissa of 128.0 (``widen_nibbles_twin``; the GEMV widens the same way in
 registers). A shape the kernel does not take raises: there is no threshold
 and no fallback.
+
+Gradients. The kernel has no backward, so its wrapper refuses inputs that
+require grad while grad mode is on (``_launch.check_no_grad``).
+``w4_matmul_autograd`` is the differentiable route (QLoRA over a packed
+base): the forward is :func:`w4_matmul` (the kernel on the card), the
+backward is torch, as ``jax.grad`` transposes the JAX function's XLA route
+on the CPU. With bf16 x, dx = (dy * w_scale) @ unpack(wp), one projection's
+weight widened to x's dtype at a time (:func:`w4_matmul_dx`); with int8 x no
+gradient reaches x, and x_scale's is sum_n dy * y / x_scale.
 """
 
 from __future__ import annotations
@@ -320,6 +329,8 @@ def _arrivals(dev: torch.device) -> torch.Tensor:
 
 
 def _launch_kernel(x, x_scale, wp, w_scale, out_dtype):
+    _launch.check_no_grad("w4_matmul", ("x", "x_scale"), (x, x_scale),
+                          "ops.w4_matmul.w4_matmul_autograd")
     N, K = wp.shape[0], 2 * wp.shape[1]
     m = x.numel() // K
     dev = x.device
@@ -382,7 +393,8 @@ def w4_matmul(
 ) -> torch.Tensor:
     """``y = (x @ unpack(wp).T) * x_scale * w_scale`` without the unpacked
     weights ever reaching device memory; returns [..., N] in ``out_dtype``.
-    Leading dims of x are flattened. CUDA tensors go through the kernel (K a
+    Leading dims of x are flattened; x without rows gives an empty output
+    and launches nothing. CUDA tensors go through the kernel (K a
     multiple of 64, groups of a multiple of 64 in-rows, N a multiple of 8,
     bf16 output; anything else raises), CPU tensors through
     :func:`w4_matmul_ref`."""
@@ -391,8 +403,82 @@ def w4_matmul(
             f"wp must be int8 [N, K/2] with K = x.shape[-1]: got {wp.dtype} "
             f"{tuple(wp.shape)} for x {tuple(x.shape)}"
         )
+    if x.numel() == 0:  # no rows (an expert the sequence routes nothing to): no launch
+        return torch.empty(*x.shape[:-1], wp.shape[0], dtype=out_dtype, device=x.device)
     if x.device.type == "cuda":
         return _launch_kernel(x, x_scale, wp, w_scale, out_dtype)
     if x.device.type == "cpu":
         return w4_matmul_ref(x, x_scale, wp, w_scale, out_dtype)
     raise ValueError(f"w4_matmul runs on CUDA or CPU tensors, got {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# the differentiable route
+# ---------------------------------------------------------------------------
+
+def w4_matmul_dx(dy: torch.Tensor, wp: torch.Tensor, w_scale: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The gradient into a float x of ``y = (x @ unpack(wp).T) * w_scale``:
+    dy [..., N] -> dx [..., K] in ``dtype``, dx[m, k] = sum_n dy[m, n] *
+    w_scale[g(k), n] * W[n, k]. The weight is widened to ``dtype`` whole
+    (one projection at a time) and each group's columns take one
+    ``torch.matmul`` of ``(dy * w_scale[g])`` rounded to ``dtype``, with fp32
+    sums on the card. Not the forward's plain version: the forward's int4
+    arithmetic is K4's; this is the transposed product JAX's XLA route
+    differentiates to."""
+    N, K = wp.shape[0], 2 * wp.shape[1]
+    G = _n_groups(w_scale, N, K)
+    dy2 = dy.reshape(-1, N).float()
+    w = unpack_int4(wp).to(dtype)  # [N, K], the widening
+    ws = w_scale.float().reshape(max(G, 1), N)
+    if not G:
+        dx = (dy2 * ws[0]).to(dtype) @ w
+    else:
+        gk = K // G
+        dx = torch.cat([(dy2 * ws[i]).to(dtype) @ w[:, i * gk:(i + 1) * gk] for i in range(G)],
+                       dim=1)
+    return dx.reshape(*dy.shape[:-1], K)
+
+
+class W4Matmul(torch.autograd.Function):
+    """:func:`w4_matmul` under autograd. Forward: the kernel on CUDA tensors,
+    the plain version on CPU tensors. Backward, by x's type:
+
+    - bf16 / fp32 x (``x_scale`` None): dx = :func:`w4_matmul_dx`.
+    - int8 x: no gradient into x (integers); d x_scale[m] = sum_n dy[m, n] *
+      y[m, n] / x_scale[m], y the output before any bias. The port keeps y as
+      the forward returned it, rounded to ``out_dtype`` (bf16 on the card:
+      2^-9 relative per element), where JAX differentiates the fp32 product
+      before its cast; in fp32 the two agree to the last place.
+
+    The packed weight and its scales take no gradient (buffers)."""
+
+    @staticmethod
+    def forward(ctx, x, x_scale, wp, w_scale, out_dtype):
+        y = w4_matmul(x, x_scale, wp, w_scale, out_dtype)
+        ctx.x_dtype = x.dtype
+        if x_scale is None:
+            ctx.save_for_backward(wp, w_scale)
+        else:
+            ctx.save_for_backward(x_scale, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        if ctx.x_dtype != torch.int8:
+            wp, w_scale = ctx.saved_tensors
+            dx = w4_matmul_dx(dy, wp, w_scale, ctx.x_dtype) if ctx.needs_input_grad[0] else None
+            return dx, None, None, None, None
+        x_scale, y = ctx.saved_tensors
+        d_scale = None
+        if ctx.needs_input_grad[1]:
+            sums = (dy.float() * y.float()).sum(dim=-1, keepdim=True)
+            d_scale = (sums / x_scale.float()).reshape(x_scale.shape).to(x_scale.dtype)
+        return None, d_scale, None, None, None
+
+
+def w4_matmul_autograd(x, x_scale, wp, w_scale, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`w4_matmul` where a gradient may be wanted, through
+    :class:`W4Matmul` (which builds no graph under no_grad or for inputs that
+    need no gradient)."""
+    return W4Matmul.apply(x, x_scale, wp, w_scale, out_dtype)

@@ -23,6 +23,14 @@ Apply to a loaded model with::
 
 Quantization runs on the weight's device, one weight at a time, and each bf16
 weight is released as soon as its quantized form exists.
+
+Gradients (QLoRA). Every mode passes a gradient to x, as ``jax.grad`` of the
+JAX package's ``_linear`` does on the CPU. ``q`` and ``p4``: through the
+widened weight (:class:`WidenedMatmul`; K4's backward,
+``ops.w4_matmul.W4Matmul``). ``qa`` and ``p4a``: only through the
+activation scale ``max(|x|) / 127``, at each row's absmax entry (torch's
+autograd of :func:`quantize_activations`; K4 with int8 x and K3 pass it on).
+The weights are buffers and take none.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from unimedvl_tpu_torch.ops.w4_matmul import pack_int4, unpack_int4, w4_matmul
+from unimedvl_tpu_torch.ops.w4_matmul import pack_int4, unpack_int4, w4_matmul_autograd
 
 # projections quantized inside each decoder layer (biases and norms stay as they are)
 QUANT_KEYS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
@@ -111,16 +119,47 @@ def int_mm(xq2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xq2, w.t())
 
 
+class WidenedMatmul(torch.autograd.Function):
+    """``(x2 @ weight_q^T) * scale`` with the int8 weight widened to x2's
+    dtype, fp32 sums and an fp32 result [m, N] (:func:`mm_f32`), under
+    autograd: the backward widens the weight again, where saving the widened
+    copy would hold a bf16 weight per projection until the backward, and
+    gives dx = (dy * scale) rounded to x2's dtype @ W. The weight and scale
+    take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x2, weight_q, scale):
+        ctx.save_for_backward(weight_q, scale)
+        ctx.x_dtype = x2.dtype
+        return mm_f32(x2, weight_q.to(x2.dtype)) * scale
+
+    @staticmethod
+    def backward(ctx, dy):
+        weight_q, scale = ctx.saved_tensors
+        dtype = ctx.x_dtype
+        dx = (dy * scale).to(dtype) @ weight_q.to(dtype) if ctx.needs_input_grad[0] else None
+        return dx, None, None
+
+
+def widened_matmul(x2: torch.Tensor, weight_q: torch.Tensor, scale: torch.Tensor
+                   ) -> torch.Tensor:
+    """``(x2 @ weight_q^T) * scale``, fp32 [m, N], through
+    :class:`WidenedMatmul` (which builds no graph under no_grad or for an x2
+    that needs no gradient)."""
+    return WidenedMatmul.apply(x2, weight_q, scale)
+
+
 def quantized_linear(x: torch.Tensor, p) -> torch.Tensor:
     """Weight-only modes: ``y = (x @ W_q^T) * scale (+ bias)`` in x's dtype.
     ``q``: the int8 weights widen to x's dtype (a real write and read of the
-    widened copy per call), the sums are fp32. ``p4``: K4 on bf16 x."""
+    widened copy per call), the sums are fp32. ``p4``: K4 on bf16 x. Both
+    are differentiable in x."""
     if p.packed:
-        y = w4_matmul(x, None, p.weight_q, p.scale, out_dtype=x.dtype)
+        y = w4_matmul_autograd(x, None, p.weight_q, p.scale, out_dtype=x.dtype)
     else:
         x2 = x.reshape(-1, x.shape[-1])
-        y = mm_f32(x2, p.weight_q.to(x.dtype)) * p.scale
-        y = y.to(x.dtype).reshape(*x.shape[:-1], -1)
+        y = widened_matmul(x2, p.weight_q, p.scale)
+        y = y.to(x.dtype).reshape(*x.shape[:-1], y.shape[-1])
     if p.bias is not None:
         y = y + p.bias.to(x.dtype)
     return y
@@ -150,14 +189,22 @@ def quantized_linear_preq(xq: torch.Tensor, xs: torch.Tensor, p,
     (xq int8, xs fp32 [..., 1]) from :func:`quantize_activations` or from
     K3 (ops/act_quant.py)."""
     if p.packed:  # w4a8: the nibbles unpack in registers (K4)
-        y = w4_matmul(xq, xs, p.weight_q, p.scale, out_dtype=out_dtype)
+        y = w4_matmul_autograd(xq, xs, p.weight_q, p.scale, out_dtype=out_dtype)
     else:
         acc = int_mm(xq.reshape(-1, xq.shape[-1]), p.weight_q)
-        y = acc.reshape(*xq.shape[:-1], -1).float() * (xs * p.scale)
+        y = acc.reshape(*xq.shape[:-1], acc.shape[-1]).float() * (xs * p.scale)
         y = y.to(out_dtype)
     if p.bias is not None:
         y = y + p.bias.to(out_dtype)
     return y
+
+
+def quantized_forward(x: torch.Tensor, p) -> torch.Tensor:
+    """A quantized leaf's forward by its mode, as the JAX ``_linear``
+    dispatches: modes ending in ``a`` quantize x and multiply in integers."""
+    if p.act_quant:
+        return quantized_linear_act(x, p)
+    return quantized_linear(x, p)
 
 
 # ---------------------------------------------------------------------------
@@ -171,11 +218,17 @@ def mode_name(bits: int, act_quant: bool) -> str:
 
 
 @torch.no_grad()
-def _quantize_module(lin: nn.Linear, bits: int, act_quant: bool, group_size: int):
-    from unimedvl_tpu_torch.models.layers import QuantLinear  # layers imports this module
+def _quantize_module(lin: nn.Module, bits: int, act_quant: bool, group_size: int):
+    """A quantized leaf for a bf16 ``nn.Linear``, or for a ``LoRALinear`` over
+    one: its adapter rides along on the quantized base (the same parameters),
+    as the JAX package carries ``lora_a`` / ``lora_b`` / ``lora_s`` across."""
+    from unimedvl_tpu_torch.models.layers import LoRALinear, QuantLinear  # layers imports this
 
     q, scale = quantize_weight(lin.weight, bits, group_size)
-    return QuantLinear(mode_name(bits, act_quant), q, scale, lin.bias)
+    base = QuantLinear(mode_name(bits, act_quant), q, scale, lin.bias)
+    if isinstance(lin, LoRALinear):
+        return LoRALinear(base, lin.lora_a, lin.lora_b, float(lin.lora_s))
+    return base
 
 
 @torch.no_grad()
@@ -188,7 +241,10 @@ def quantize_llm_params(lm, act_quant: bool = False, bits: int = 8, group_size: 
     ``act_quant=True`` marks the leaves for integer matmuls (``qa`` /
     ``p4a``): the same stored bytes, another forward. ``bits=4`` packs int4
     (``group_size``: group-wise scales); the lm_head stays int8 even then:
-    the logits are the step's accuracy-critical tail."""
+    the logits are the step's accuracy-critical tail. A projection that
+    carries a LoRA adapter becomes an adapted quantized projection (QLoRA)."""
+    from unimedvl_tpu_torch.models.layers import LoRALinear
+
     for layer in lm.model.layers:
         for parent in (layer.self_attn, layer.mlp, getattr(layer, "mlp_moe_gen", None)):
             if parent is None:
@@ -196,12 +252,8 @@ def quantize_llm_params(lm, act_quant: bool = False, bits: int = 8, group_size: 
             for key in QUANT_KEYS:
                 for sfx in EXPERTS:
                     lin = getattr(parent, key + sfx, None)
-                    if hasattr(lin, "lora_a"):
-                        raise NotImplementedError(
-                            f"{key + sfx} carries a LoRA adapter: adapters over a quantized "
-                            "base (QLoRA) are not ported (ROADMAP, what remains of M8); "
-                            "training.lora.merge_lora first")
-                    if isinstance(lin, nn.Linear):
+                    if isinstance(lin, nn.Linear) or (isinstance(lin, LoRALinear)
+                                                      and lin.mode is None):
                         setattr(parent, key + sfx,
                                 _quantize_module(lin, bits, act_quant, group_size))
     lm.lm_head = _quantize_module(lm.lm_head, 8, act_quant, 0)

@@ -11,7 +11,15 @@ Where the JAX package returns new trees, the port edits the module tree in
 place: a 14B base cannot be copied on one card. Only ``lora_a`` and ``lora_b``
 require grad: the base gets no gradient and no optimizer moments, so adapter
 training over the full-depth bf16 base fits one 80 GB card beside the base's
-28 GB. Adapters over a quantized base (QLoRA) are not ported.
+28 GB.
+
+QLoRA: adapters ride a quantized base too, in every mode (int8 ``q`` /
+``qa``, packed int4 ``p4`` / ``p4a``, per channel or group-wise). Quantize
+first and add adapters (``add_lora`` over ``QuantLinear`` leaves), or add
+adapters and quantize (``quant.quantize_llm_params`` carries them across).
+The frozen base's buffers stay integers; its projections pass gradients to
+x through their differentiable routes (``quant.py``). :func:`merge_lora`
+refuses a quantized base, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -74,7 +82,8 @@ def add_lora(
 ):
     """Attach LoRA adapters, in place, to a Bagel or its LLM; returns it.
     ``lora_a`` ~ N(0, 1/in) drawn from ``generator``, ``lora_b`` = 0 (the
-    model's function is unchanged at step 0), ``lora_s`` = alpha / rank."""
+    model's function is unchanged at step 0), ``lora_s`` = alpha / rank.
+    Works over bf16 and quantized bases alike."""
     unknown = set(targets) - set(_TARGET_MAP)
     if unknown:
         raise ValueError(f"unknown lora targets {sorted(unknown)}; valid: {TARGETS_ALL}")
@@ -83,15 +92,13 @@ def add_lora(
         raise ValueError("no adapter sites matched (targets/experts filter)")
     for parent, name in sites:
         base = getattr(parent, name)
-        if isinstance(base, QuantLinear):
-            raise NotImplementedError(
-                f"{name}: adapters over a quantized base (QLoRA) are not ported: ROADMAP, "
-                "what remains of M8"
-            )
         if isinstance(base, LoRALinear):
             raise ValueError(f"{name} already carries an adapter")
-        out_f, in_f = base.weight.shape
-        device = base.weight.device
+        if isinstance(base, QuantLinear):  # QLoRA; a packed base counts 2 in-rows a byte
+            out_f, in_f, device = base.out_features, base.in_features, base.weight_q.device
+        else:
+            out_f, in_f = base.weight.shape
+            device = base.weight.device
         a = torch.randn((rank, in_f), generator=generator, dtype=torch.float32,
                         device=generator.device) * in_f**-0.5
         setattr(parent, name, LoRALinear(
@@ -112,8 +119,14 @@ def _lora_modules(model) -> List[Tuple[nn.Module, str, LoRALinear]]:
 @torch.no_grad()
 def merge_lora(model):
     """Fold every adapter into its base weight, in fp32, in place, and put a
-    plain linear back; returns the model."""
-    for parent, name, mod in _lora_modules(model):
+    plain linear back; returns the model. A quantized base cannot absorb the
+    update exactly, so it raises (quantize after merging instead), as the
+    JAX package's does."""
+    found = _lora_modules(model)
+    if any(mod.mode is not None for _, _, mod in found):
+        raise ValueError("merge_lora on a quantized base: dequantize, or quantize after "
+                         "merging instead")
+    for parent, name, mod in found:
         delta = (mod.lora_b.float() @ mod.lora_a.float()) * mod.lora_s
         mod.weight.copy_((mod.weight.float() + delta).to(mod.weight.dtype))
         lin = nn.Linear(mod.in_features, mod.out_features, bias=mod.bias is not None,
@@ -148,8 +161,13 @@ def make_lora_train_step(cfg, model, optimizer=None, accum_steps: int = 1):
     The frozen base takes part in the forward only; gradients and AdamW
     moments exist for the adapter leaves alone. ``optimizer``: a factory as
     ``trainer.make_optimizer`` returns (default AdamW 1e-4, b2 0.95, weight
-    decay 1e-4). ``batches`` follow ``trainer.loss_fn``'s contract."""
-    trainer._check_cfg(cfg)
+    decay 1e-4). ``batches`` follow ``trainer.loss_fn``'s contract. The base
+    may be quantized (QLoRA). The e2e-VAE extras (latent batch-norm, REPA)
+    are not taken here, as the JAX package's lean step does not take them:
+    ``cfg.e2e`` raises."""
+    if cfg.e2e is not None:
+        raise ValueError("make_lora_train_step takes no e2e-VAE extras (cfg.e2e): train them "
+                         "with trainer.make_train_step")
     adapters = apply_lora_only(model)
     if not adapters:
         raise ValueError("the model carries no adapters: add_lora(...) first")

@@ -9,8 +9,11 @@ as its loss is known, so one sequence's activations are live at a time and
 the gradients sum in place in ``param.grad``. The model is updated in place.
 
 Every parameter outside the VAE trains (the position tables too, which are
-plain leaves of the JAX tree), with decoupled weight decay on all of them, as
-optax's ``adamw`` applies it. The VAE is fp32 and frozen: latents come from
+plain leaves of the JAX tree; the REPA projections under ``cfg.e2e``), with
+decoupled weight decay on all of them, as optax's ``adamw`` applies it. With
+``cfg.e2e.enable_batch_norm`` the state carries the latent batch-norm's
+running statistics (``bn_state``), updated with the mean over a step's
+sequences of each sequence's new statistics. The VAE is fp32 and frozen: latents come from
 ``training.dataset.make_latent_fn``. Sharding over several cards (the JAX
 package's ``mesh`` / ``fsdp`` arguments, ``make_pp_train_step``) belongs to
 the multi-GPU slice.
@@ -27,6 +30,7 @@ import torch
 from unimedvl_tpu_torch.config import BagelConfig
 from unimedvl_tpu_torch.models import bagel
 from unimedvl_tpu_torch.models.bagel import Bagel
+from unimedvl_tpu_torch.training.e2e_vae import BatchNormState
 
 _VAE = "vae_model."
 _UND_LAYER_PARTS = ("input_layernorm", "post_attention_layernorm", "mlp")
@@ -34,16 +38,18 @@ _UND_LAYER_PARTS = ("input_layernorm", "post_attention_layernorm", "mlp")
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (updated in place), its optimizer, the step count and, when
-    an EMA decay is set, the EMA shadow of every trained parameter by name.
-    The shadow is fp32 by default: at decay 0.999 a step moves it by ~1e-3 of
-    the value, below bf16's resolution. (The released checkpoints are EMA
-    weights, ``ema.safetensors``.)"""
+    """The model (updated in place), its optimizer, the step count, the
+    latent batch-norm's running statistics under ``cfg.e2e.enable_batch_norm``
+    (else None) and, when an EMA decay is set, the EMA shadow of every
+    trained parameter by name. The shadow is fp32 by default: at decay 0.999
+    a step moves it by ~1e-3 of the value, below bf16's resolution. (The
+    released checkpoints are EMA weights, ``ema.safetensors``.)"""
 
     model: Bagel
     optimizer: torch.optim.Optimizer
     step: int = 0
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    bn_state: Optional[BatchNormState] = None
 
 
 def make_optimizer(
@@ -106,17 +112,8 @@ def create_train_state(model: Bagel, optimizer=None, cfg: Optional[BagelConfig] 
     """A train state over ``model``: everything outside the VAE trains.
     ``optimizer``: a factory as :func:`make_optimizer` returns."""
     cfg = cfg or model.config
-    _check_cfg(cfg)
     return _init_state(model, set_trainable(model, cfg), optimizer or make_optimizer(), None,
-                       torch.float32)
-
-
-def _check_cfg(cfg: BagelConfig) -> None:
-    if cfg.e2e is not None:
-        raise NotImplementedError(
-            "cfg.e2e (latent batch-norm, REPA; training/e2e_vae.py) is not ported: ROADMAP, "
-            "what remains of M12"
-        )
+                       torch.float32, cfg)
 
 
 def place_batches(batches, device, pin: bool = False) -> List[Dict[str, torch.Tensor]]:
@@ -136,26 +133,44 @@ def loss_fn(
     noises: Optional[Sequence[Optional[torch.Tensor]]] = None,
     generator: Optional[torch.Generator] = None,
     backward_scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Mean loss over the packed sequences of ``batches`` (a stacked numpy
-    batch with a leading axis [B, ...], or a list of prepared sequences).
-    ``noises``: one flow-noise tensor per sequence (None entries, or no list:
-    drawn from ``generator``, one draw per sequence in order).
+    bn_state: Optional[BatchNormState] = None,
+):
+    """(mean loss, new bn_state or None) over the packed sequences of
+    ``batches`` (a stacked numpy batch with a leading axis [B, ...], or a
+    list of prepared sequences). ``noises``: one flow-noise tensor per
+    sequence (None entries, or no list: drawn from ``generator``, one draw
+    per sequence in order). ``bn_state``: every sequence is normalized with
+    it, and the new state is the mean of the new states of the sequences
+    that carry latent tokens (the JAX package's sync-BN analogue over its
+    batch, whose vmap also averages in a sequence without latents, from its
+    bucket of zero rows).
 
     ``backward_scale``: backpropagate ``scale * loss_i / B`` right after each
     sequence's forward, so only one sequence's graph is ever live; the
     returned mean is then detached."""
-    device = model.language_model.lm_head.weight.device
+    device = model.language_model.model.embed_tokens.weight.device
     seqs = place_batches(batches, device)
     total = torch.zeros((), dtype=torch.float32, device=device)
+    new_bn = []
     for i, seq in enumerate(seqs):
         noise = noises[i] if noises is not None else None
-        loss = bagel.train_forward(model, seq, noise=noise, generator=generator)["loss"]
+        out = bagel.train_forward(model, seq, noise=noise, generator=generator,
+                                  bn_state=bn_state)
+        loss = out["loss"]
+        if "bn_state" in out:
+            new_bn.append(out["bn_state"])
         if backward_scale is not None:
             (loss * (backward_scale / len(seqs))).backward()
             loss = loss.detach()
         total = total + loss
-    return total / len(seqs)
+    return total / len(seqs), _mean_bn(new_bn)
+
+
+def _mean_bn(states: Sequence[BatchNormState]) -> Optional[BatchNormState]:
+    if not states:
+        return None
+    return BatchNormState(mean=torch.stack([s.mean for s in states]).mean(dim=0),
+                          var=torch.stack([s.var for s in states]).mean(dim=0))
 
 
 def _apply_update(state: TrainState, ema_decay: Optional[float]) -> None:
@@ -201,48 +216,63 @@ def make_train_step(
     parameters in ``state.ema_params`` (dtype ``ema_dtype``):
     ``ema = decay * ema + (1 - decay) * param`` after every update.
 
+    ``cfg.e2e``: the REPA projections train with the rest, and with
+    ``enable_batch_norm`` the state starts a ``BatchNormState`` (zero means,
+    unit variances) that each step replaces with the mean of its sequences'
+    new statistics (over the accumulated batches too).
+
     ``mesh`` / ``fsdp`` (sharding over several cards) are not ported."""
     if mesh is not None or fsdp:
         raise NotImplementedError(
             "make_train_step(mesh=..., fsdp=...): sharded training is ROADMAP slice M13; this "
             "step runs on one card"
         )
-    _check_cfg(cfg)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
     factory = optimizer or make_optimizer()
 
     def init_state() -> TrainState:
-        return _init_state(model, set_trainable(model, cfg), factory, ema_decay, ema_dtype)
+        return _init_state(model, set_trainable(model, cfg), factory, ema_decay, ema_dtype, cfg)
 
     return functools.partial(_step, accum_steps=accum_steps, ema_decay=ema_decay), init_state
 
 
-def _init_state(model, params, factory, ema_decay, ema_dtype) -> TrainState:
+def _init_state(model, params, factory, ema_decay, ema_dtype, cfg=None) -> TrainState:
     ema = None
     if ema_decay is not None:
         ema = {name: p.detach().to(ema_dtype, copy=True)
                for name, p in model.named_parameters() if p.requires_grad}
-    return TrainState(model=model, optimizer=factory(params), ema_params=ema)
+    bn_state = None
+    if cfg is not None and cfg.e2e is not None and cfg.e2e.enable_batch_norm:
+        bn_state = BatchNormState.create(
+            cfg.vae.z_channels, model.language_model.model.embed_tokens.weight.device)
+    return TrainState(model=model, optimizer=factory(params), ema_params=ema, bn_state=bn_state)
 
 
 def _step(state: TrainState, batches, generator=None, noises=None, *, accum_steps: int,
           ema_decay: Optional[float]):
     if accum_steps == 1:
-        loss = loss_fn(state.model, batches, noises, generator, backward_scale=1.0)
+        loss, new_bn = loss_fn(state.model, batches, noises, generator, backward_scale=1.0,
+                               bn_state=state.bn_state)
     else:
         if isinstance(batches, dict):  # stacked [accum_steps, B, ...], as the JAX step takes it
             batches = [{k: v[i] for k, v in batches.items()} for i in range(accum_steps)]
         if len(batches) != accum_steps:
             raise ValueError(f"expected {accum_steps} batches to accumulate, got {len(batches)}")
-        loss = 0.0
+        loss, states = 0.0, []
         for i, b in enumerate(batches):
-            loss = loss + loss_fn(state.model, b, None if noises is None else noises[i],
-                                  generator, backward_scale=1.0)
+            loss_i, bn_i = loss_fn(state.model, b, None if noises is None else noises[i],
+                                   generator, backward_scale=1.0, bn_state=state.bn_state)
+            loss = loss + loss_i
+            if bn_i is not None:
+                states.append(bn_i)
         inv = 1.0 / accum_steps
         loss = loss * inv
+        new_bn = _mean_bn(states)
         grads = [p.grad for g in state.optimizer.param_groups for p in g["params"]
                  if p.grad is not None]
         torch._foreach_mul_(grads, inv)
     _apply_update(state, ema_decay)
+    if new_bn is not None:
+        state.bn_state = new_bn
     return state, loss

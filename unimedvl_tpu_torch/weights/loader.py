@@ -17,7 +17,7 @@ and [G, N] scales; fused ``qkv``, ``qkv_gen``, ``gate_up`` and their
 shard-interleaved ``_tp{N}`` variants, whose column order is kept) becomes the port's
 ``QuantLinear`` with the same integers and scales, and its LoRA adapter leaves
 (``lora_a`` [L, in, r], ``lora_b`` [L, r, out], ``lora_s`` [L]) become
-``LoRALinear``s per layer. JAX leaves are [in, out],
+``LoRALinear``s per layer, over a bf16 or a quantized base (QLoRA). JAX leaves are [in, out],
 packed along in; the port's are [out, in], packed along in: one transposition
 here, of bytes, which leaves each byte's two nibbles as they were.
 
@@ -108,10 +108,6 @@ def _lin(sd, name, p, i=None, quant_modes=None):
         key = next((k for k in _JAX_QUANT_LEAVES if k in p), None)
         if key is None:
             raise KeyError(f"{name}: no kernel leaf in {sorted(p)}")
-        if "lora_a" in p:
-            raise NotImplementedError(
-                f"{name}: LoRA over a quantized base (QLoRA) is not ported: ROADMAP, what "
-                "remains of M8")
         sd[name + ".weight_q"] = np.ascontiguousarray(pick(np.asarray(p[key])).T)
         sd[name + ".scale"] = np.ascontiguousarray(pick(np.asarray(p["scale"])))
         quant_modes[name] = _JAX_QUANT_LEAVES[key]
@@ -232,6 +228,9 @@ def jax_tree_to_state_dict(tree: Dict, cfg: BagelConfig, quant_modes: Optional[D
         _lin(sd, "time_embedder.mlp.0", tree["time_embedder"]["fc1"])
         _lin(sd, "time_embedder.mlp.2", tree["time_embedder"]["fc2"])
         sd["latent_pos_embed.pos_embed"] = np.asarray(tree["latent_pos_embed"])
+    for name in ("repa_proj", "repa_vae_proj"):  # the e2e-VAE extras' projections
+        if name in tree:
+            _lin(sd, name, tree[name]["proj"])
     if "vae" in tree:
         _vae_state_dict(sd, tree["vae"], cfg.vae, _VAE)
     return sd
