@@ -59,9 +59,22 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   with the understanding expert frozen;
 - the sequence-parallel denoise path: the same two generation requests
   through an inferencer with ``sp_mesh``, a ("model", "seq") mesh of 1 x 1
-  (one card holds one rank; on a one-rank NCCL group where NCCL starts, so
-  that the collective calls really run), every layer's attention as a cache
-  partial and a block partial (K1c twice) merged by their log-sum-exps;
+  (one card holds one rank) on a one-rank NCCL group, so that the collective
+  calls really run (a group that cannot start fails the run), every layer's
+  attention as a cache partial and a block partial (K1c twice) merged by
+  their log-sum-exps;
+- the serving paths under ``mesh=`` (M13, serving side) on a one-rank
+  ("data", "model") NCCL mesh over the same model: the three chat requests,
+  run A's 24 requests through ``ContinuousBatcher(mesh=...)``, run F's bf16
+  eval through ``run_vqa_eval(mesh=...)`` and a 512x512 text-to-image request
+  through ``gen_images_grouped`` on a 1 x 1 x 1 ("data", "model", "seq")
+  mesh, each equal to the same call without the mesh; tensor parallelism
+  over two processes sharing the card (gloo; each builds only its shard of
+  the same seeded weights): the 980x980 chat request in bf16 and in w4a8
+  (K4 at the shard shapes, K3's second entry with the row scales all-reduced
+  with MAX), held to the one-rank model; the sharded loader on a 2-layer
+  checkpoint at the 14B width; and every kernel at a rank's shapes for tp 2
+  and 4 (``check_shard_shapes``);
 
 and checks that every kernel call of each path went through the kernels, and
 that each path's output agrees with the same computation on the kernels'
@@ -408,6 +421,9 @@ def check_kernels() -> dict:
     for name, rows in check_generation_quant_shapes(g, randn).items():
         timings[name]["gen_cases"] = rows
     timings["decode_attention_int8"]["int4_cases"] = check_int4_decode(g, randn, ints)
+    shard_rows, timings["silu_mul_quant_global"] = check_shard_shapes(g, randn, ints)
+    for name, rows in shard_rows.items():
+        timings[name]["shard_cases"] = rows
     return timings
 
 
@@ -1100,7 +1116,7 @@ def run_main_path(inf: InterleaveInferencer) -> dict:
     return run_chat_requests(inf, range(len(REQUESTS)), "the chat path", lambda f, steps, imgs: {
         "flash_block_attention": imgs * (n_vit + n_llm) + imgs * n_llm,
         "decode_attention": steps * n_llm,
-    })
+    }, CHAT_ROWS)
 
 
 def quantized_inferencer(inf: InterleaveInferencer, **kw) -> InterleaveInferencer:
@@ -2761,7 +2777,7 @@ EXTRA_KEYS = (
     "k_island_ms", "concat_copy_ms", "k1b_on_concat_ms", "q_island_only_ms", "launches_from",
     "n_split", "split_len", "cases", "ms_in_graph", "vit", "gemm", "bf16_gemm",
     "one_row_ms_in_graph", "gemv_cases", "serving_cases", "spec_cases", "group_cases",
-    "gen_cases", "int4_cases", "backward_cases",
+    "gen_cases", "int4_cases", "backward_cases", "shard_cases",
 )
 
 COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches there)
@@ -2772,6 +2788,7 @@ COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches th
     "decode_attention": (dec.counts, "kernel"),
     "decode_attention_int8": (dec.int8_counts, "kernel"),
     "silu_mul_quant": (aq.counts, "kernel"),
+    "silu_mul_quant_global": (aq.global_counts, "kernel"),
     "w4_matmul": (w4.counts, "kernel"),
     "packed_train_attention_fwd": (fat.counts, "fwd"),
     "packed_train_attention_bwd_dq": (fat.counts, "bwd_dq"),
@@ -3106,7 +3123,7 @@ class QuantReplay:
             return out
 
         saved = self._patched(lambda g, u: rec(self.k3, k3(g, u)),
-                              lambda x: rec(self.act, act(x)))
+                              lambda x, reduce_max=None: rec(self.act, act(x, reduce_max)))
         try:
             return fn()
         finally:
@@ -3143,8 +3160,9 @@ class QuantReplay:
     def replay(self, fn):
         it = {"k3": iter(self.k3), "act": iter(self.act)}
         act = quant.quantize_activations
+        # one rank: no projection reduces its scales (reduce_max stays None)
         saved = self._patched(lambda g, u: self._k3(it["k3"], g, u),
-                              lambda x: self._act(it["act"], x, act))
+                              lambda x, reduce_max=None: self._act(it["act"], x, act))
         try:
             out = fn()
         finally:
@@ -3556,38 +3574,6 @@ print("ok")
 """
 
 
-def make_sp_mesh(rendezvous_dir: str):
-    """The ("model", "seq") mesh of one rank. Where NCCL is built in and a
-    one-rank group starts (tried in a child process first, under a time limit:
-    a communicator that cannot start must not take this run with it), the mesh
-    sits on a real NCCL group with a one-rank group per axis, so the path's
-    all-reduces and all-gathers really run; otherwise it has no group and every
-    collective is the identity. Prints which."""
-    axes, sizes = ("model", "seq"), (1, 1)
-    dist = torch.distributed
-    if not (dist.is_available() and dist.is_nccl_available()):
-        print("sequence-parallel mesh 1 x 1: NCCL is not built into this torch; no process "
-              "group, collectives are the identity", flush=True)
-        return pmesh.make_mesh(axes, sizes)
-    try:
-        probe = subprocess.run([sys.executable, "-c", NCCL_PROBE], capture_output=True,
-                               text=True, timeout=120)
-        failed = None if probe.returncode == 0 else probe.stderr.strip().splitlines()[-1:]
-    except subprocess.TimeoutExpired:
-        failed = ["no answer within 120 s"]
-    if failed is not None:
-        print(f"sequence-parallel mesh 1 x 1: a one-rank NCCL group did not start ({failed}); "
-              "no process group, collectives are the identity", flush=True)
-        return pmesh.make_mesh(axes, sizes)
-    dist.init_process_group(
-        "nccl", init_method=f"file://{rendezvous_dir}/rendezvous", world_size=1, rank=0,
-        timeout=datetime.timedelta(seconds=120))
-    mesh = pmesh.make_mesh(axes, sizes, singleton_groups=True)
-    print("sequence-parallel mesh 1 x 1 on a one-rank NCCL group (file:// rendezvous): the "
-          "path's all-reduces and all-gathers really run", flush=True)
-    return mesh
-
-
 def run_sp_generation(inf: InterleaveInferencer, mesh, plain_rows: dict) -> dict:
     """The sequence-parallel denoise path on the 1 x 1 mesh: the text-to-image
     request and the edit through an inferencer with ``sp_mesh``, timed beside
@@ -3625,6 +3611,537 @@ def run_sp_generation(inf: InterleaveInferencer, mesh, plain_rows: dict) -> dict
     if cos < VELOCITY_COS_TOL:
         raise SystemExit("chip_smoke: the sequence-parallel path's velocity disagrees with the "
                          "single-device path's")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# serving over a device mesh (M13, serving side)
+# ---------------------------------------------------------------------------
+
+SHARD_TPS = (2, 4)  # the "model" degrees whose per-rank kernel shapes are checked
+
+
+def check_shard_shapes(g, randn, ints) -> dict:
+    """The kernels at the shapes one rank of a tensor-parallel mesh gives
+    them at the 14B width, tp 2 and 4 (28 / 4 heads: 14 / 2 and 7 / 1 a
+    rank): K1a at the 980 px image prefill (T 5122 over 5632 columns); K2
+    and K2-int8 at the chat decode (S 1, lens 4950) and at run A's 16
+    streams (band (lens, lens)); K4 w4a8 (equal) and bf16-x at the four
+    projections' shards (qkv N 2304 / 1152, gate_up N 18944 / 9472, o K 1792
+    / 896, down K 9472 / 4736) at m 1, 16, 4902, per channel, and with groups
+    of 512 where the columns split (a row-parallel shard of o or down splits
+    a group of 512: the placement refuses it); K3's second entry (the scale
+    pass and the quantize pass) at R 1, 16, 4902 over I 9472 / 4736, against
+    its plain version. Each row: time, plain time, bound, library time.
+    Returns {kernel: rows} (``shard_cases`` in the kernels line) and the
+    ``kernels`` line's row of K3's second entry."""
+    print("kernels at the per-rank shapes of tensor parallelism (tp 2 and 4):", flush=True)
+    out = {k: [] for k in ("flash_block_attention", "decode_attention", "decode_attention_int8",
+                           "w4_matmul", "silu_mul_quant_global")}
+    M, T, n_img = 5632, 5122, 4902
+    jk = torch.arange(M, device="cuda")
+    for tp in SHARD_TPS:
+        H, Hk = 28 // tp, max(1, 4 // tp)
+        q = randn(1, T, H, 128, scale=2.0)
+        kc, vc = randn(1, Hk, M, 128), randn(1, Hk, M, 128)
+        zero, qvl = ints(0), ints(n_img)
+        name = f"K1a image prefill tp {tp}: T={T} M={M} {H}/{Hk} heads"
+        r = _compare(name, lambda: fa.flash_block_attention(q, kc, vc, zero, zero, False, qvl,
+                                                            True),
+                     lambda: fa.flash_block_attention_ref(q, kc, vc, zero, zero, False, qvl,
+                                                          True), n_img, back_to_back=False)
+        r.update(attention_bound([n_img], [n_img], H, Hk, 128, 2, "bf16"))
+        r["library_ms"] = sdpa_ms(q, kc, vc, (jk < n_img)[None, None].expand(1, T, M))
+        r.pop("ms_back_to_back")
+        out["flash_block_attention"].append(dict(case=name, **r))
+        del q, kc, vc
+        for S, lens, Mc in ((1, (4950,), M), (16, SERVE_LENS, SERVE_CAPACITY)):
+            qd = randn(S, 1, H, 128, scale=2.0)
+            ln = ints(*lens)
+            band = (ln, ln)
+            keys = [n + 1 for n in lens]
+            kb, vb = randn(S, Hk, Mc, 128), randn(S, Hk, Mc, 128)
+            name = f"K2 decode tp {tp}: S={S} {H}/{Hk} heads M={Mc}"
+            kern = lambda: dec.decode_attention(qd, kb, vb, ln, band)  # noqa: E731
+            r = _compare(name, kern, lambda: dec.decode_attention_ref(qd, kb, vb, ln, band), 1)
+            r["ms_in_graph"] = graph_ms(kern)
+            r.update(attention_bound([1] * S, keys, H, Hk, 128, 2, "bf16"))
+            mask = (torch.arange(Mc, device="cuda")[None] <= ln[:, None].long())[:, None]
+            r["library_ms"] = sdpa_ms(qd, kb, vb, mask)
+            out["decode_attention"].append(dict(case=name, **r))
+            k8, v8 = _rand_int8(g, S, Hk, Mc, 128), _rand_int8(g, S, Hk, Mc, 128)
+            ks = torch.rand(S, Hk, Mc, generator=g, device="cuda") * 0.02 + 0.002
+            vs = torch.rand(S, Hk, Mc, generator=g, device="cuda") * 0.02 + 0.002
+            name = f"K2-int8 decode tp {tp}: S={S} {H}/{Hk} heads M={Mc}"
+            kern = lambda: dec.decode_attention(qd, k8, v8, ln, band, k_scale=ks,  # noqa: E731
+                                                v_scale=vs)
+            r = _compare(name, kern, lambda: dec.decode_attention_ref(qd, k8, v8, ln, band, ks,
+                                                                      vs), 1, row_atol=True)
+            r["ms_in_graph"] = graph_ms(kern)
+            r.update(attention_bound([1] * S, keys, H, Hk, 128, 1, "bf16", scales=True))
+            r["library_ms"] = None  # no PyTorch attention call reads an int8 cache with scales
+            out["decode_attention_int8"].append(dict(case=name, **r))
+            del kb, vb, k8, v8
+        for proj, K, N, column in (("qkv", 3584, 4608 // tp, True),
+                                   ("gate_up", 3584, 37888 // tp, True),
+                                   ("o", 3584 // tp, 3584, False),
+                                   ("down", 18944 // tp, 3584, False)):
+            wp = w4.pack_int4(_rand_int8(g, N, K, lo=-8, hi=8))
+            for G in ((0, K // W4_GROUP) if column else (0,)):
+                ws = torch.rand((G, N) if G else (N,), generator=g, device="cuda") * 0.01 + 0.001
+                kind = "group 512" if G else "per channel"
+                for m in (1, 16, 4902):
+                    x = _rand_int8(g, m, K)
+                    xs = torch.rand(m, 1, generator=g, device="cuda") * 0.05 + 0.001
+                    got = w4.w4_matmul(x, xs, wp, ws)
+                    torch.cuda.synchronize()
+                    want = w4.w4_matmul_ref(x, xs, wp, ws)
+                    ms = cuda_ms(lambda: w4.w4_matmul(x, xs, wp, ws), warmup=1, iters=5)
+                    plain_ms = cuda_ms(lambda: w4.w4_matmul_ref(x, xs, wp, ws), warmup=1,
+                                       iters=2)
+                    b = bound(m * K + m * 4 + N * K // 2 + ws.numel() * 4 + m * N * 2,
+                              2.0 * m * K * N, "int8")
+                    name = f"K4 w4a8 tp {tp} {proj} m={m} K={K} N={N} {kind}"
+                    _line(name, f"equal {torch.equal(got, want)}", ms, plain_ms, b)
+                    if not torch.equal(got, want):
+                        raise SystemExit(f"chip_smoke: {name} differs from its plain version")
+                    out["w4_matmul"].append(dict(case=name, max_abs_err=0.0, ms=ms,
+                                                 plain_ms=plain_ms, library_ms=None, **b))
+                    xb = randn(m, K)
+                    got = w4.w4_matmul(xb, None, wp, ws).float()
+                    torch.cuda.synchronize()
+                    want = w4.w4_matmul_ref(xb, None, wp, ws).float()
+                    tol = (2.0**-7 * want.abs()
+                           + 1e-3 * K**0.5 * 8 * xb.float().abs().max() * ws.max() / 16)
+                    err = (got - want).abs()
+                    worst = (err / tol).max().item()
+                    ms = cuda_ms(lambda: w4.w4_matmul(xb, None, wp, ws), warmup=1, iters=5)
+                    plain_ms = cuda_ms(lambda: w4.w4_matmul_ref(xb, None, wp, ws), warmup=1,
+                                       iters=2)
+                    b = bound(m * K * 2 + N * K // 2 + ws.numel() * 4 + m * N * 2,
+                              2.0 * m * K * N, "bf16")
+                    name = f"K4 w4 bf16-x tp {tp} {proj} m={m} K={K} N={N} {kind}"
+                    _line(name, f"max abs err {err.max().item():.3e}, worst err/bound "
+                          f"{worst:.3f}", ms, plain_ms, b)
+                    if worst > 1.0:
+                        raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
+                    out["w4_matmul"].append(dict(case=name, max_abs_err=err.max().item(), ms=ms,
+                                                 plain_ms=plain_ms, library_ms=None, **b))
+            del wp
+        I = 18944 // tp
+        for R in (1, 16, 4902):
+            gu = randn(R, 2 * I, scale=2.0)  # the halves of a fused gate_up shard's output
+            gate, up = gu.split(I, dim=-1)
+            q8, sc = aq.silu_mul_quant_global(gate, up, None)
+            torch.cuda.synchronize()
+            q_ref, sc_ref = aq.silu_mul_quant_global_ref(gate, up, None)
+            step = (q8.int() - q_ref.int()).abs()
+            share = (step > 0).float().mean().item()
+            rel = ((sc - sc_ref).abs() / sc_ref).max().item()
+            first_q, first_sc = aq.silu_mul_quant(gate, up)
+            same_as_first = bool(torch.equal(first_q, q8) and torch.equal(first_sc, sc))
+            ms = cuda_ms(lambda: aq.silu_mul_quant_global(gate, up, None))
+            plain_ms = cuda_ms(lambda: aq.silu_mul_quant_global_ref(gate, up, None), warmup=1,
+                               iters=3)
+            b2b = back_to_back_ms(lambda: aq.silu_mul_quant_global(gate, up, None)) \
+                if R == 1 else None
+            # the function's least traffic, as the first entry's: g and u read once, q and
+            # the scales written; the kernel's two passes read g and u twice and form the
+            # product twice, a cost of its design, printed beside it
+            b = bound(R * I * 5 + R * 4, R * I * 15, "fp32")
+            two_pass = bound(R * I * 9 + R * 4, 2 * R * I * 15, "fp32")["bound_ms"]
+            name = f"K3 second entry tp {tp}: R={R} I={I}"
+            _line(name, f"max step {step.max().item()}, share differing {share:.2e}, scale rel "
+                  f"err {rel:.2e}, equal to the first entry's {same_as_first}; the two passes' "
+                  f"own bound {two_pass:.4f} ms", ms, plain_ms, b, _b2b_text(b2b))
+            if rel > K3_SCALE_RTOL or step.max().item() > K3_MAX_STEP or share > K3_MAX_SHARE:
+                raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
+            out["silu_mul_quant_global"].append(dict(
+                case=name, max_abs_err=float(step.max().item()), ms=ms, plain_ms=plain_ms,
+                ms_back_to_back=b2b, library_ms=None, two_pass_bound_ms=two_pass,
+                **b))  # no one PyTorch call
+            del gu
+    torch.cuda.empty_cache()
+    rows = out.pop("silu_mul_quant_global")
+    main = dict(rows[2])  # tp 2, R 4902: the image prefill's down shard
+    main.pop("case")
+    main["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    main["one_row_ms"], main["one_row_ms_back_to_back"] = rows[0]["ms"], rows[0]["ms_back_to_back"]
+    main["shard_cases"] = rows
+    return out, main
+
+
+def one_rank_mesh(axes, rendezvous_dir: str):
+    """A mesh of one rank over ``axes`` with a real one-rank NCCL group on
+    every axis, so that its all-reduces and gathers really run. The default
+    NCCL group starts at the first call, after a child process has shown
+    that one can (under a time limit: a communicator that cannot start must
+    not hang this run); if NCCL is missing or the probe fails, the run fails
+    with the probe's last line. No mesh without groups stands in for it."""
+    dist = torch.distributed
+    if not dist.is_initialized():
+        if not (dist.is_available() and dist.is_nccl_available()):
+            raise SystemExit("chip_smoke: NCCL is not built into this torch: the mesh paths "
+                             "need a one-rank NCCL group")
+        try:
+            probe = subprocess.run([sys.executable, "-c", NCCL_PROBE], capture_output=True,
+                                   text=True, timeout=120)
+            failed = None if probe.returncode == 0 else (
+                probe.stderr.strip().splitlines()[-1:] or [f"exit {probe.returncode}"])
+        except subprocess.TimeoutExpired:
+            failed = ["no answer within 120 s"]
+        if failed is not None:
+            raise SystemExit(f"chip_smoke: a one-rank NCCL group did not start: {failed[0]}")
+        dist.init_process_group(
+            "nccl", init_method=f"file://{rendezvous_dir}/rendezvous", world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=120))
+    mesh = pmesh.make_mesh(axes, (1,) * len(axes), singleton_groups=True)
+    print(f"mesh {dict(mesh.shape)} on a one-rank NCCL group (file:// rendezvous): the path's "
+          "collectives really run", flush=True)
+    return mesh
+
+
+CHAT_ROWS = []  # the bf16 chat path's rows (run_main_path), beside the mesh chat's
+
+
+def _mesh_chat(inf: InterleaveInferencer, mesh) -> dict:
+    """The three chat requests through ``InterleaveInferencer(mesh=...)`` on
+    the one-rank mesh over ``inf.model``: answer ids equal to chat's without
+    the mesh, the launches of K1a and K2, ms per decode step beside the
+    no-mesh path's (56 all-reduces a step, and the vocab gather)."""
+    minf = InterleaveInferencer(inf.model, inf.tokenizer, inf.new_token_ids,
+                                vit_transform=inf.vit_transform, seed=SEED, mesh=mesh)
+    images = _images()
+    for i, (h, w, prompt) in enumerate(REQUESTS):
+        want, _ = _chat_steps(inf, images[i], prompt, MAX_LENGTH)
+        got, _ = _greedy_steps(minf, lambda: minf.chat([images[i]], prompt,
+                                                       max_length=MAX_LENGTH), MAX_LENGTH)
+        print(f"  mesh chat {h}x{w}: {len(got) - 1} tokens, equal to the no-mesh answer "
+              f"{got == want}", flush=True)
+        if got != want:
+            raise SystemExit(f"chip_smoke: the mesh chat's answer {h}x{w} differs from chat's")
+    rows = []
+    n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
+    launches = run_chat_requests(minf, range(len(REQUESTS)), "the mesh chat path",
+                                 lambda f, steps, imgs: {
+                                     "flash_block_attention": imgs * (n_vit + n_llm)
+                                     + imgs * n_llm,
+                                     "decode_attention": steps * n_llm}, rows)
+    for row, base in zip(rows, CHAT_ROWS):
+        if row["decode_tok_s"] and base["decode_tok_s"]:
+            print(f"  {row['image']}: ms per decode step {1e3 / row['decode_tok_s']:.3f} on the "
+                  f"mesh ({2 * n_llm} all-reduces over 'model', one vocab gather), "
+                  f"{1e3 / base['decode_tok_s']:.3f} without (not gated)", flush=True)
+    return launches
+
+
+def _serve_run_a(inf: InterleaveInferencer, mesh, counted: bool = False):
+    """Run A's workload (two waves, the preamble) through a batcher without
+    the ladder, with or without ``mesh``: (each request's ids, seconds,
+    stats, the launches against the forwards when ``counted``)."""
+    b = ContinuousBatcher(inf.model, inf.tokenizer, inf.new_token_ids, SERVE_SLOTS,
+                          SERVE_CAPACITY, SERVE_CHUNK, inf.vit_transform, SEED, mesh=mesh)
+    got = _recording_ids(b)
+    counter = ForwardCounter(b.model) if counted else None  # the rank's model on a mesh
+    reset_counts()
+    first, later = serving_workload("A")
+    eos = b.new_token_ids["eos_token_id"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pid = b.register_prefix(SERVE_PREAMBLE)
+
+    def submit(wave):
+        return [b.submit(Request(prompt=p, image=None if a is None else _pil_image(a),
+                                 max_new_tokens=SERVE_MAX_NEW,
+                                 prefix_id=pid if pre else None)) for a, p, pre in wave]
+
+    rids = submit(first)
+    st = b._reset_stats()
+    try:
+        while b.has_work():
+            b._round(st, eos)
+            if st["rounds"] == 1:
+                rids += submit(later)
+        torch.cuda.synchronize()
+    finally:
+        if counter is not None:
+            counter.remove()
+    seconds = time.perf_counter() - t0
+    if b.errors or any(r not in got for r in rids):
+        raise SystemExit(f"chip_smoke: run A (mesh {mesh is not None}): errors {b.errors}")
+    launches = None
+    if counted:
+        n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
+        launches = check_counts("run A through ContinuousBatcher(mesh=...)", {
+            "flash_block_attention": counter.vit * n_vit + counter.prefill * n_llm,
+            "decode_attention": counter.decode * n_llm})
+    return [got[r] for r in rids], seconds, st, launches
+
+
+def _mesh_serving(inf: InterleaveInferencer, mesh) -> dict:
+    """Run A's 24 requests through ``ContinuousBatcher(mesh=...)`` and
+    without the mesh (the same options, no ladder): equal ids, the launches
+    of the mesh run against its forwards."""
+    plain, s_plain, _, _ = _serve_run_a(inf, None)
+    got, s_mesh, st, launches = _serve_run_a(inf, mesh, counted=True)
+    print(f"  run A through ContinuousBatcher(mesh=...): {len(got)} requests, "
+          f"{st['emitted_tokens']} tokens in {s_mesh:.2f} s; without the mesh {s_plain:.2f} s; "
+          f"ids equal {got == plain}", flush=True)
+    if got != plain:
+        raise SystemExit("chip_smoke: run A on the mesh answered otherwise than without it")
+    return launches
+
+
+def _mesh_eval(inf: InterleaveInferencer, mesh) -> None:
+    """Run F's bf16 eval through ``run_vqa_eval(mesh=...)``: predictions
+    equal to the same call without the mesh."""
+    from unimedvl_tpu_torch.eval import vqa
+
+    samples = [dict(image=_pil_image(a), question=p) for a, p in eval_requests()]
+    kw = dict(max_new_tokens=EVAL_MAX_NEW, num_slots=EVAL_SLOTS, capacity=EVAL_CAPACITY)
+    t0 = time.perf_counter()
+    want, _ = vqa.run_vqa_eval(inf.model, inf.tokenizer, inf.new_token_ids, samples, **kw)
+    t1 = time.perf_counter()
+    got, _ = vqa.run_vqa_eval(inf.model, inf.tokenizer, inf.new_token_ids, samples, mesh=mesh,
+                              **kw)
+    t2 = time.perf_counter()
+    print(f"  run F (bf16 pool) through run_vqa_eval(mesh=...): {len(got)} predictions equal "
+          f"to the no-mesh call's {got == want} ({t2 - t1:.2f} s, without {t1 - t0:.2f} s)",
+          flush=True)
+    if got != want:
+        raise SystemExit("chip_smoke: run_vqa_eval on the mesh predicted otherwise")
+
+
+def _mesh_grouped(inf: InterleaveInferencer, tmp: str) -> dict:
+    """One 512 px text-to-image request through ``gen_images_grouped`` (G 1)
+    on a 1 x 1 x 1 ("data", "model", "seq") mesh with a one-rank NCCL group
+    per axis, against the same call on a mesh without groups: equal latents
+    (a one-rank all-reduce of bf16 is exact). Launches: a cache partial and a
+    block partial (K1c) per layer and step."""
+    gmesh = one_rank_mesh(("data", "model", "seq"), tmp)
+    plain = pmesh.make_mesh(("data", "model", "seq"), (1, 1, 1))
+    ctx = inf.init_gen_context()
+    cfg_img, cfg_text = ctx.fork(), ctx.fork()
+    ctx = inf.update_context_text(GEN_PROMPT, ctx)
+    cfg_img = inf.update_context_text(GEN_PROMPT, cfg_img)
+    kw = dict(cfg_text_scale=3.0, cfg_img_scale=1.5, cfg_interval=(0.4, 1.0),
+              timestep_shift=3.0, num_timesteps=50)
+    out = {}
+    for name, m in (("plain", plain), ("mesh", gmesh)):
+        inf._generator.manual_seed(SEED + 20)
+        if name == "mesh":
+            reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = inf.gen_image_latents_grouped(GEN_SIZE, [ctx], m, [cfg_text], [cfg_img],
+                                                  **kw)
+        torch.cuda.synchronize()
+        out[name + "_s"] = time.perf_counter() - t0
+    n_llm = inf.cfg.llm.num_hidden_layers
+    launches = check_counts("gen_images_grouped on the one-rank mesh",
+                            {"flash_block_attention_lse": 2 * 49 * n_llm})
+    image = inf.decode_image(out["mesh"][0], GEN_SIZE)
+    same = torch.equal(out["mesh"], out["plain"])
+    print(f"  gen_images_grouped G=1 on a 1x1x1 NCCL mesh: latent {tuple(out['mesh'].shape)} "
+          f"equal to the groupless mesh's {same}, finite "
+          f"{bool(torch.isfinite(out['mesh']).all())}, image {image.size}; denoise "
+          f"{out['mesh_s']:.2f} s, without groups {out['plain_s']:.2f} s", flush=True)
+    if not same:
+        raise SystemExit("chip_smoke: gen_images_grouped on the NCCL mesh differs")
+    return launches
+
+
+TP_RANKS = 2
+TP_REQUEST = 0  # the 980x980 chat request
+TP_W4A8_LENGTH = 8  # the w4a8 answer's length: its launches, not a second answer, are the point
+
+
+def _tp_gate(name: str, ref_logits: torch.Tensor, ref_steps, got: dict) -> float:
+    """A TP rank's first-step logits against the one-rank model's (cosine at
+    LOGITS_COS_TOL), and its greedy ids against the one-rank ids up to the
+    first step whose top-2 gap lies within NEAR_TIE_FACTOR x the largest
+    first-step logit difference (printed). Returns that floor."""
+    logits = torch.from_numpy(got["logits"]).to(ref_logits.device)
+    cos = torch.nn.functional.cosine_similarity(logits, ref_logits.float(), dim=0).item()
+    diff = (logits - ref_logits.float()).abs().max().item()
+    floor = NEAR_TIE_FACTOR * diff
+    ids, want_ids = got["ids"], ref_steps[0]
+    n = 0
+    while n < min(len(ids), len(want_ids)) and ids[n] == want_ids[n]:
+        n += 1
+    tie = next((i for i, ((v1, v2), _) in enumerate(ref_steps[1]) if v1 - v2 <= floor), None)
+    print(f"  {name}: first-step logits vs the one-rank model: cosine {cos:.6f}, max abs "
+          f"{diff:.4f}; ids agree for {n - 1} of {len(want_ids) - 1} tokens; the first near-tie "
+          f"step (top-2 gap <= {floor:.4f}) is {tie}", flush=True)
+    if cos < LOGITS_COS_TOL or not np.isfinite(got["logits"]).all():
+        raise SystemExit(f"chip_smoke: {name}: the TP logits disagree with the one-rank model's")
+    agree_to = len(want_ids) if tie is None else tie + 1
+    if n < min(agree_to, len(ids), len(want_ids)):
+        raise SystemExit(f"chip_smoke: {name}: the TP answer parts from the one-rank one at "
+                         f"token {n}, before the first near-tie")
+    return floor
+
+
+def run_tp_program(inf: InterleaveInferencer) -> dict:
+    """Tensor parallelism over two ranks on this one card: two spawned
+    processes joined by gloo (NCCL refuses two ranks on one device), each
+    building only its shard of the same seeded weights
+    (``tools.dryrun_mesh.random_rank_model``: 14 query and 2 kv heads a rank),
+    answer the 980x980 chat request in bf16, then quantize their shards to
+    w4a8 per channel in place (fused, int8 KV cache) and answer it again:
+    K4's int8-x GEMM and GEMV at the shard shapes, K3's second entry at every
+    down (the whole row's scales, all-reduced with MAX). Both ranks are held
+    to ``inf.model`` (the one-rank model of the same weights) and its w4a8
+    copy: first-step logits, greedy ids up to a near-tie; in w4a8 every
+    down input of the first step to the one-rank K3 on the same rows
+    (``dryrun_mesh.GlobalScaleCheck``, K3's bounds), beside the control of
+    per-rank scales, which must read otherwise. The walls measure gloo's
+    staging through the host, not a multi-card figure."""
+    from unimedvl_tpu_torch.tools import dryrun_mesh
+
+    h, w, prompt = REQUESTS[TP_REQUEST]
+    image = _images()[TP_REQUEST]
+    ref_steps = _chat_steps(inf, image, prompt, MAX_LENGTH)
+    ref_bf16 = _first_step_logits(inf, image, prompt)
+    vt = inf.vit_transform.resize_transform
+    transform = (vt.max_size, vt.min_size, vt.stride, vt.max_pixels)
+    torch.cuda.empty_cache()
+    print(f"tensor parallelism over {TP_RANKS} processes on this card (gloo: host-staged "
+          f"collectives): the {h}x{w} chat request, max_length {MAX_LENGTH}, bf16 then w4a8",
+          flush=True)
+    t0 = time.perf_counter()
+    ranks = pmesh.run_on_ranks(dryrun_mesh.tp_chat_rank, TP_RANKS, full_config(), SEED, image,
+                               prompt, (MAX_LENGTH, TP_W4A8_LENGTH), transform, timeout_s=600.0)
+    wall = time.perf_counter() - t0
+    qinf = quantized_inferencer(inf, bits=4, act_quant=True)
+    ref_w4a8 = _first_step_logits(qinf, image, prompt)
+    del qinf
+    torch.cuda.empty_cache()
+    n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
+    launches = {name: 0 for name in COUNTERS}
+    for r, got in enumerate(ranks):
+        for mode, ref in (("bf16", ref_bf16), ("w4a8", ref_w4a8)):
+            run = got[mode]
+            f = run["forwards"]
+            forwards = f["prefill"] + f["decode"]
+            want = {"flash_block_attention": n_vit + 2 * n_llm,
+                    "decode_attention" if mode == "bf16" else "decode_attention_int8":
+                        f["decode"] * n_llm,
+                    "silu_mul_quant_global": forwards * n_llm if mode == "w4a8" else 0,
+                    "w4_matmul": forwards * n_llm * 4 if mode == "w4a8" else 0,
+                    "silu_mul_quant": 0, "plain": 0}
+            seen = {k: run["launches"].get(k, 0) for k in want}
+            row = dict(card=CARD, seconds=run["seconds"], forwards=f, launches=seen,
+                       peak_gib=run["peak_gib"])
+            print(f"  rank {r} {mode}: {json.dumps(row)}", flush=True)
+            if seen != want:
+                raise SystemExit(f"chip_smoke: TP rank {r} {mode} launched {seen}, not {want}")
+            if mode == "bf16":
+                _tp_gate(f"TP rank {r} bf16", ref, ref_steps, run)
+            else:
+                logits = torch.from_numpy(run["logits"]).to(ref.device)
+                cos = torch.nn.functional.cosine_similarity(logits, ref, dim=0).item()
+                gs = run["global_scales"]
+                print(f"  TP rank {r} w4a8: first-step logits vs the one-rank w4a8 model: "
+                      f"cosine {cos:.6f}, max abs {(logits - ref).abs().max().item():.4f}; "
+                      f"K3's second entry against the one-rank K3 on the same gathered rows, "
+                      f"{gs['calls']} calls, {gs['rows']} rows: max step {gs['max_step']}, "
+                      f"share differing {gs['max_share']:.2e}, scale rel err "
+                      f"{gs['max_scale_rel']:.2e}; per-rank scales (the control) would read "
+                      f"scale rel err {gs['per_rank_max_scale_rel']:.3e}, moving "
+                      f"{gs['per_rank_rows_differ']:.1%} of the rows' scales", flush=True)
+                if cos < LOGITS_COS_TOL:
+                    raise SystemExit("chip_smoke: the TP w4a8 logits disagree")
+                # the down input of every layer of the first step is the one-rank model's to
+                # K3's bounds; the control shows the check tells per-rank scales apart
+                if (gs["calls"] < n_llm or gs["max_step"] > K3_MAX_STEP
+                        or gs["max_share"] > K3_MAX_SHARE or gs["max_scale_rel"] > K3_SCALE_RTOL
+                        or gs["per_rank_max_scale_rel"] <= K3_SCALE_RTOL):
+                    raise SystemExit(f"chip_smoke: TP rank {r} w4a8: the down input's global "
+                                     f"scales disagree with the one-rank model's: {gs}")
+            if r == 0:
+                for k in launches:
+                    launches[k] += run["launches"].get(k, 0)
+    if not np.array_equal(ranks[0]["bf16"]["logits"], ranks[1]["bf16"]["logits"]):
+        raise SystemExit("chip_smoke: the two TP ranks' logits differ")
+    print(f"  TP program: {wall:.1f} s for both ranks (spawn, build {ranks[0]['build_s']:.1f} s, "
+          f"{ranks[0]['built_gib']:.2f} GiB a rank after the build); gloo's host staging, not a "
+          "multi-card figure", flush=True)
+    return launches
+
+
+LOAD_LAYERS = 2  # the sharded loader's checkpoint: the 14B width, two LLM layers
+
+
+def run_sharded_load(inf: InterleaveInferencer, tmp: str) -> None:
+    """The sharded loader at the 14B width: ``scripts.make_synthetic_ckpt``
+    writes a checkpoint of LOAD_LAYERS LLM layers (bf16, no VAE); two ranks
+    on this card (gloo) each read their halves (``load_bagel_checkpoint(
+    mesh=...)``, ranges through ``get_slice``). Checks that the halves' bytes
+    add up to the one-rank load's, that each rank's first-step logits equal
+    those of the TP program built from the whole load (``place_params``), and
+    that they match the one-rank model of the same files (LOGITS_COS_TOL)."""
+    from unimedvl_tpu_torch.scripts import make_synthetic_ckpt
+    from unimedvl_tpu_torch.tools import dryrun_mesh
+    from unimedvl_tpu_torch.tools.dryrun_mesh import first_step_logits, shard_bytes
+    from unimedvl_tpu_torch.weights.loader import load_bagel_checkpoint
+
+    ckpt = os.path.join(tmp, "ckpt_tp")
+    t0 = time.perf_counter()
+    make_synthetic_ckpt.main([ckpt, "--layers", str(LOAD_LAYERS), "--no-vae", "--seed", "5",
+                              "--shard-gb", "2"])
+    t1 = time.perf_counter()
+    h, w, prompt = REQUESTS[2]
+    image = _images()[2]
+    vt = inf.vit_transform.resize_transform
+    transform = (vt.max_size, vt.min_size, vt.stride, vt.max_pixels)
+    whole = load_bagel_checkpoint(ckpt, device="cuda")
+    winf = InterleaveInferencer(whole, inf.tokenizer, inf.new_token_ids,
+                                vit_transform=inf.vit_transform, seed=SEED)
+    ref = first_step_logits(winf, image, prompt)
+    whole_bytes = shard_bytes(whole)
+    del winf, whole
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    ranks = pmesh.run_on_ranks(dryrun_mesh.tp_load_rank, TP_RANKS, ckpt, image, prompt,
+                               transform, timeout_s=600.0)
+    t3 = time.perf_counter()
+    sharded = sum(r["bytes"]["sharded"] for r in ranks)
+    print(f"sharded loader ({LOAD_LAYERS}-layer 14B-width checkpoint written in {t1 - t0:.1f} "
+          f"s): TP-sharded bytes per rank {[r['bytes']['sharded'] for r in ranks]} add up to "
+          f"{sharded} (one-rank load {whole_bytes['sharded']}); unsharded bytes per rank "
+          f"{[r['bytes']['whole'] for r in ranks]} (one-rank {whole_bytes['whole']}); load "
+          f"{[round(r['load_s'], 2) for r in ranks]} s a rank, {t3 - t2:.1f} s with the spawn",
+          flush=True)
+    if sharded != whole_bytes["sharded"] or any(r["bytes"]["whole"] != whole_bytes["whole"]
+                                                for r in ranks):
+        raise SystemExit("chip_smoke: the sharded loader's halves do not add up to the whole")
+    for i, r in enumerate(ranks):
+        same = np.array_equal(r["logits"], r["placed_logits"])
+        logits = torch.from_numpy(r["logits"]).to(ref.device)
+        cos = torch.nn.functional.cosine_similarity(logits, ref.float(), dim=0).item()
+        print(f"  rank {i}: first-step logits equal to the placed whole load's {same}; vs the "
+              f"one-rank model of the same files: cosine {cos:.6f}, max abs "
+              f"{(logits - ref.float()).abs().max().item():.4f}", flush=True)
+        if not same or cos < LOGITS_COS_TOL:
+            raise SystemExit("chip_smoke: the sharded load's logits disagree")
+
+
+def run_mesh_phase(inf: InterleaveInferencer, tmp: str) -> list:
+    """The serving paths under ``mesh=`` on a one-rank ("data", "model")
+    NCCL mesh over ``inf.model`` (chat, run A through the batcher, run F's
+    eval, a grouped text-to-image request), each against the same call
+    without the mesh; then tensor parallelism over two processes on the card
+    and the sharded loader. Returns the launches."""
+    mesh = one_rank_mesh(("data", "model"), tmp)
+    print("mesh paths on a one-rank ('data', 'model') NCCL mesh, full depth and width:",
+          flush=True)
+    launches = [_mesh_chat(inf, mesh), _mesh_serving(inf, mesh)]
+    _mesh_eval(inf, mesh)
+    launches.append(_mesh_grouped(inf, tmp))
+    torch.cuda.empty_cache()
+    launches.append(run_tp_program(inf))
+    run_sharded_load(inf, tmp)
     return launches
 
 
@@ -4532,7 +5049,7 @@ def run(tmp: str) -> None:
     done("generation")
     print("sequence-parallel denoise path: the same two requests through "
           "InterleaveInferencer(sp_mesh=...), full depth", flush=True)
-    paths.append(run_sp_generation(inf, make_sp_mesh(tmp), plain_rows))
+    paths.append(run_sp_generation(inf, one_rank_mesh(("model", "seq"), tmp), plain_rows))
     done("sequence-parallel generation")
     paths.append(run_quantized_chat(inf, logits_bf16))
     done("quantized chat")
@@ -4542,6 +5059,8 @@ def run(tmp: str) -> None:
     done("serving (runs A-E, HTTP)")
     paths.append(run_eval_phase(inf))
     done("eval (run F)")
+    paths += run_mesh_phase(inf, tmp)
+    done("mesh paths (one-rank NCCL mesh, TP over two processes, sharded loader)")
     paths.append(run_reconstruction(inf))
     done("vqa-reconstruction (run G)")
     paths += run_spec_phase(inf)
@@ -4576,6 +5095,10 @@ def run(tmp: str) -> None:
             decode, "unimedvl_tpu/ops/decode_attention.py:130 (int8 k/v, k_scale, v_scale)"),
         "silu_mul_quant": ("unimedvl_tpu_torch/csrc/silu_mul_quant.cu",
                            "unimedvl_tpu/ops/act_quant.py:57"),
+        "silu_mul_quant_global": (
+            "unimedvl_tpu_torch/csrc/silu_mul_quant.cu",
+            "unimedvl_tpu/ops/act_quant.py:57 (second entry: row scales all-reduced over "
+            "'model' between a scale pass and a quantize pass)"),
         "w4_matmul": ("unimedvl_tpu_torch/csrc/w4_matmul.cu",
                       "unimedvl_tpu/ops/w4_matmul.py:202"),
         "packed_train_attention_fwd": (

@@ -30,6 +30,7 @@ from unimedvl_tpu_torch.data import imaging as timaging
 from unimedvl_tpu_torch.data import tokenizer as ttokenizer
 from unimedvl_tpu_torch.eval import text_metrics as tm
 from unimedvl_tpu_torch.eval import vqa
+from unimedvl_tpu_torch.parallel import mesh as pmesh
 from unimedvl_tpu_torch.weights.loader import from_jax_params
 
 from tests.test_pipeline import TINY
@@ -181,7 +182,8 @@ def test_run_vqa_eval_without_answers_and_refusals(models, monkeypatch):
                                                       {"question": "r"}],
                                   max_new_tokens=3, num_slots=2, capacity=128)
     assert len(preds) == 2 and acc is None
-    with pytest.raises(NotImplementedError, match="M13"):
-        vqa.run_vqa_eval(model, ttok, tids, [], mesh=object())
+    # a mesh is taken (tests/test_torch_serving_mesh.py); one without the serving axes is not
+    with pytest.raises(ValueError, match="'data', 'model'"):
+        vqa.run_vqa_eval(model, ttok, tids, [], mesh=pmesh.make_mesh(("model", "seq"), (1, 1)))
     with pytest.raises(ValueError, match="8 or 4 bits"):
         vqa.run_vqa_eval(model, ttok, tids, [], kv_quantized=True, kv_bits=2)

@@ -2,7 +2,8 @@
 and without a CUDA toolchain: it keeps its own config, tokenizer set-up and
 image preprocessing, and its own copy of the eval text metrics, and builds
 its kernels at the first CUDA launch. The
-multi-rank modules (``parallel/``, ``tools/dryrun_sp.py``) start no process
+multi-rank modules (``parallel/``, ``tools/dryrun_sp.py``,
+``tools/dryrun_mesh.py``) start no process
 group and no process when imported, and the HTTP front end
 (``inference/server.py``, ``scripts/``) starts no server. The same holds for ``chip_smoke.py``'s
 imports."""
@@ -56,6 +57,11 @@ import unimedvl_tpu_torch.parallel
 import unimedvl_tpu_torch.parallel.mesh
 import unimedvl_tpu_torch.parallel.sp_denoise
 import unimedvl_tpu_torch.tools.dryrun_sp
+import unimedvl_tpu_torch.tools.dryrun_mesh
+import unimedvl_tpu_torch.utils
+import unimedvl_tpu_torch.utils.profiling
+import unimedvl_tpu_torch.utils.debugging
+import unimedvl_tpu_torch.utils.logging
 import unimedvl_tpu_torch.training.e2e_vae
 import unimedvl_tpu_torch.weights.bagel_export
 import unimedvl_tpu_torch.weights.snapshot

@@ -1251,3 +1251,72 @@ def test_quantized_kernels_refuse_grad_outside_their_routes(gen):
     with torch.no_grad():
         w4.w4_matmul(x, None, wp, torch.ones(512, device="cuda"))
         aq.silu_mul_quant(x, x)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: K3's second entry and K4 at a rank's shard shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("R", [1, 3, 16, 4902])
+@pytest.mark.parametrize("I", [9472, 4736, 64])
+def test_silu_mul_quant_global_matches_plain(gen, R, I):
+    """K3's second entry (scale pass, reduction, quantize pass) at a down
+    shard's widths (I 18944 / 2 and / 4) on the halves of one fused gate_up
+    output: scales within 1e-6 relative and q within one step of its plain
+    version; without a reduction it gives the first entry's q and scales."""
+    gu = _randn(gen, R, 2 * I, scale=2.0)
+    g, u = gu.split(I, dim=-1)
+    before = aq.global_counts["kernel"]
+    q, s = aq.silu_mul_quant_global(g, u, None)
+    assert aq.global_counts["kernel"] == before + 1
+    q_ref, s_ref = aq.silu_mul_quant_global_ref(g, u, None)
+    assert q.shape == (R, I) and s.shape == (R, 1)
+    torch.testing.assert_close(s, s_ref, rtol=1e-6, atol=0)
+    diff = (q.int() - q_ref.int()).abs()
+    assert diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 1e-3
+    q1, s1 = aq.silu_mul_quant(g, u)
+    assert torch.equal(q, q1) and torch.equal(s, s1)
+
+
+def test_silu_mul_quant_global_takes_the_reduced_scales(gen):
+    """The quantize pass takes the scales as the reduction leaves them: a
+    reduction that doubles them halves q (to the rounding) against the plain
+    version given the same reduction."""
+    g, u = _randn(gen, 5, 9472, scale=2.0), _randn(gen, 5, 9472)
+
+    def double(s):
+        s.mul_(2.0)
+
+    q, s = aq.silu_mul_quant_global(g, u, double)
+    q_ref, s_ref = aq.silu_mul_quant_global_ref(g, u, double)
+    torch.testing.assert_close(s, s_ref, rtol=1e-6, atol=0)
+    assert (q.int() - q_ref.int()).abs().max().item() <= 1
+    assert q.abs().max().item() <= 64
+
+
+# (K, N) of a rank's projections at tp 2 and 4: qkv and gate_up column shards, o and down
+# row shards (packed K / 2 bytes)
+W4_SHARDS = [(3584, 2304), (3584, 1152), (3584, 18944), (3584, 9472), (1792, 3584),
+             (896, 3584), (9472, 3584), (4736, 3584)]
+
+
+@pytest.mark.parametrize("kn,group", [(kn, 0) for kn in W4_SHARDS]
+                         + [(kn, 512) for kn in W4_SHARDS if kn[0] % 512 == 0])
+@pytest.mark.parametrize("m", [1, 16, 4902])
+def test_w4_matmul_at_the_shard_shapes(gen, m, kn, group):
+    """K4 at a tensor-parallel rank's shapes, m 1 (GEMV), 16 and 4902
+    (GEMM): int8 x equal to the plain version, bf16 x within the reordering
+    bound. Groups of 512 only where a shard holds whole groups (the column
+    shards; the row shards of o and down split a group of 512 and are
+    refused by the placement)."""
+    K, N = kn
+    _, wp, ws = _w4_inputs(gen, m, K, N, K // group if group else 0)
+    x = _int8(gen, m, K)
+    xs = torch.rand(m, 1, generator=gen, device="cuda") * 0.05 + 0.001
+    got = w4.w4_matmul(x, xs, wp, ws)
+    assert torch.equal(got, w4.w4_matmul_ref(x, xs, wp, ws))
+    xb = _randn(gen, m, K)
+    got = w4.w4_matmul(xb, None, wp, ws).float()
+    want = w4.w4_matmul_ref(xb, None, wp, ws).float()
+    bound = 2.0**-7 * want.abs() + 1e-3 * K**0.5 * 8 * xb.float().abs().max() * ws.max() / 16
+    assert ((got - want).abs() <= bound).all(), ((got - want).abs() / bound).max().item()

@@ -151,8 +151,10 @@ def test_vit_with_2d_rope_matches_jax(dense):
     pytest.param(interactive_image_generator, ["--prompt", "p"], id="image"),
 ])
 def test_help_and_unported_flags(script, base, capsys):
-    """``--help``; ``--tp`` / ``--dp`` (and the image front end's ``--sp``)
-    above 1 exit naming M13; ``--int4-kv`` (refused until the int4 cache was
+    """``--help``; ``--tp`` / ``--dp`` above 1 parse for the in-process front
+    ends (a mesh under torchrun) and exit naming M13 for the HTTP server (the
+    next slice); the image front end's ``--sp`` parses with ``--tp`` and
+    exits with ``--dp``; ``--int4-kv`` (refused until the int4 cache was
     ported) now asks for int4 caches."""
     with pytest.raises(SystemExit) as e:
         script.parse_args(["--help"])
@@ -161,11 +163,20 @@ def test_help_and_unported_flags(script, base, capsys):
     for flag in ("--checkpoint", "--base-checkpoint", "--int8-kv", "--int4-kv", "--act-int8",
                  "--w4", "--device"):
         assert flag in out
-    argvs = [["--tp", "2"], ["--dp", "2"]] + ([["--sp", "2"]] if base else [])
-    for argv in argvs:
+    for argv in [["--tp", "2"], ["--dp", "2"]]:
+        if script is serve_http:
+            with pytest.raises(SystemExit) as e:
+                script.parse_args(["--checkpoint", "x"] + base + argv)
+            assert "M13" in str(e.value.code)
+        else:
+            args = script.parse_args(["--checkpoint", "x"] + base + argv)
+            assert (args.tp, args.dp) == ((2, 1) if argv[0] == "--tp" else (1, 2))
+    if script is interactive_image_generator:
+        args = script.parse_args(["--checkpoint", "x"] + base + ["--tp", "2", "--sp", "2"])
+        assert (args.tp, args.sp) == (2, 2)
         with pytest.raises(SystemExit) as e:
-            script.parse_args(["--checkpoint", "x"] + base + argv)
-        assert "M13" in str(e.value.code)
+            script.parse_args(["--checkpoint", "x"] + base + ["--dp", "2", "--sp", "2"])
+        assert "--sp" in str(e.value.code)
     args = script.parse_args(["--checkpoint", "x"] + base)
     assert args.device == "cuda"
     assert common.kv_options(args) == dict(kv_quantized=False, kv_bits=8)
@@ -188,7 +199,8 @@ def test_serve_http_flags():
 
 def test_common_load_quantizes_and_fuses(released_ckpt, monkeypatch):  # noqa: F811
     """``--int8 --w4 --fused`` on the synthetic checkpoint: a weight-only w4
-    model with fused projections, equal to quantizing a plain load."""
+    model with fused projections, equal to quantizing a plain load (fp32 on
+    the CPU, as the front ends load there)."""
     from unimedvl_tpu_torch import quant
     from unimedvl_tpu_torch.config import BagelConfig as TBagelConfig
     from unimedvl_tpu_torch.data import tokenizer as ttokenizer
@@ -204,7 +216,8 @@ def test_common_load_quantizes_and_fuses(released_ckpt, monkeypatch):  # noqa: F
     attn = model.language_model.model.layers[0].self_attn
     assert hasattr(attn, "qkv_proj") and attn.qkv_proj.mode == quant.mode_name(4, False)
     assert set(ids) == {"bos_token_id", "eos_token_id", "start_of_image", "end_of_image"}
-    want = loader.load_bagel_checkpoint(str(released_ckpt), device="cpu", quantize_bits=4)
+    want = loader.load_bagel_checkpoint(str(released_ckpt), device="cpu", dtype=torch.float32,
+                                        quantize_bits=4)
     quant.fuse_serving_projections(want.language_model)
     assert torch.equal(attn.qkv_proj.weight_q,
                        want.language_model.model.layers[0].self_attn.qkv_proj.weight_q)

@@ -296,7 +296,7 @@ def test_positional_parameters_follow_the_jax_inferencer():
     assert positional == ["self", "model", "tokenizer", "new_token_ids", "vae_transform",
                           "vit_transform", "seed"]
     keyword = [n for n, p in port.items() if p.kind == p.KEYWORD_ONLY]
-    assert keyword == ["sp_mesh", "kv_quantized", "kv_bits", "spec_decode", "spec_k",
+    assert keyword == ["mesh", "sp_mesh", "kv_quantized", "kv_bits", "spec_decode", "spec_k",
                        "spec_ngram"]
     for name in keyword:
         assert port[name].default == inspect.signature(JaxInferencer.__init__).parameters[

@@ -606,10 +606,17 @@ class TestLoaderOnQuantizedTrees:
 
     def test_tp_fused_leaves_raise(self, base):
         """The shard-interleaved fused leaves are ported; what raises now is
-        a use they do not serve: a split whose degree is not the tree's, a
-        packed-int4 projection under tensor parallelism (a later slice), a
-        width that does not divide."""
+        a use they do not serve: a whole model whose fused layout is for
+        another "model" degree than the sequence-parallel mesh's (a rank's
+        shard holds its own block), a row-parallel packed-int4 shard that
+        would split a group of scales (packed int4 itself shards,
+        tests/test_torch_mesh.py), a width that does not divide."""
         from unimedvl_tpu_torch.parallel import mesh as pmesh
+        from unimedvl_tpu_torch.parallel import sp_denoise
+
+        def model_rank0(tp):  # placement runs no collective: no process group needed
+            return pmesh.Mesh(("data", "model"), {"data": 1, "model": tp}, 0,
+                              {"data": 0, "model": 0}, {"data": None, "model": None})
 
         params, np_params = base
         model = loader.from_jax_params(np_params, TCFG, device="cpu")
@@ -617,10 +624,14 @@ class TestLoaderOnQuantizedTrees:
         layer = model.language_model.model.layers[0]
         assert hasattr(layer.self_attn, "qkv_proj_tp2") and hasattr(layer.mlp, "gate_up_proj_tp2")
         with pytest.raises(ValueError, match="tp=2 != mesh model axis 1"):
-            pmesh.tp_layer_view(layer, 0, 1)
+            sp_denoise._layer_view(layer, "layers.0", 1)
         p4 = _port_quantized(np_params, dict(bits=4), False)
-        with pytest.raises(NotImplementedError, match="packed-int4 .* later slice"):
-            pmesh.tp_layer_view(p4.language_model.model.layers[0], 0, 2)
+        rank0 = pmesh.place_params(p4, model_rank0(2)).language_model.model.layers[0]
+        K = TCFG.llm.num_attention_heads * TCFG.llm.head_dim
+        assert rank0.self_attn.o_proj.in_features * 2 == K  # the packed in dim split
+        grouped = _port_quantized(np_params, dict(bits=4, group_size=K // 2), False)
+        with pytest.raises(ValueError, match="2 groups of"):
+            pmesh.place_params(grouped, model_rank0(4))
         plain = loader.from_jax_params(np_params, TCFG, device="cpu")
         with pytest.raises(ValueError, match="does not split over tp=3"):
             quant.fuse_serving_projections(plain.language_model, tp=3)

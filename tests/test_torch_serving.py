@@ -611,7 +611,7 @@ def test_positional_parameters_follow_the_jax_batcher(pair):
                           "chunk", "vit_transform", "seed"]
     assert positional[2:] == jax_params[3:len(positional) + 1]
     keyword = [n for n, p in port.items() if p.kind == p.KEYWORD_ONLY]
-    assert keyword == ["kv_quantized", "kv_bits", "spec_decode", "spec_k", "spec_ngram",
+    assert keyword == ["mesh", "kv_quantized", "kv_bits", "spec_decode", "spec_k", "spec_ngram",
                        "pipeline", "gen_chunk", "gen_group", "pool_ladder", "min_pool"]
     assert keyword == sorted(keyword, key=jax_params.index)
     assert all(n in jax_params for n in keyword)

@@ -70,20 +70,19 @@ def run_vqa_eval(
     int4 pool (a non-parity mode). ``metric``: ``exact_match_accuracy``
     (closed-set VQA, default) or ``text_metrics.report_metrics`` (BLEU-3 /
     METEOR / ROUGE-L) -- any callable over (predictions, answers).
-    ``mesh`` is refused: serving over a device mesh is ROADMAP queue 1's M13.
+    ``mesh``: a ("data", "model") ``parallel.mesh.Mesh``; every rank calls
+    this with the same samples and holds its shard (the model's heads over
+    "model", the engine's slots over "data"; see ``ContinuousBatcher``), and
+    every rank returns the same predictions.
 
     Returns (predictions in sample order, the metric's result, or None when
     a sample has no answer)."""
     from unimedvl_tpu_torch.inference import serving
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_vqa_eval(mesh=...): serving over a device mesh is not ported (ROADMAP "
-            "queue 1, what remains of M13); the port evaluates on one card")
     samples = list(samples)
     batcher = serving.ContinuousBatcher(
         model, tokenizer, new_token_ids, num_slots, capacity,
-        vit_transform=build_transform(), spec_decode=spec_decode,
+        vit_transform=build_transform(), mesh=mesh, spec_decode=spec_decode,
         kv_quantized=kv_quantized, kv_bits=kv_bits,
     )
     rids = []

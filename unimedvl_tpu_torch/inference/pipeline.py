@@ -24,8 +24,15 @@ verified ``spec_k`` + 1 tokens a forward, the same tokens as the plain decode.
 Every random draw (the initial noise of the flow loop, the VAE posterior
 sample) comes from the inferencer's ``torch.Generator`` through ``_randn``.
 
-With ``sp_mesh`` the flow loop runs as the sequence-parallel program of
-``parallel/sp_denoise.py`` over that mesh's ranks.
+With ``mesh`` (a ``parallel.mesh.Mesh`` with the axes ("data", "model"))
+every rank runs the inferencer with the same arguments and seed and holds its
+shard of the model (``parallel.mesh.place_params``): heads and the MLP
+intermediate of both experts over "model", the vocab over "model", its part
+of every KV cache; the CFG streams of a denoise step shard over "data" when
+they divide it. Every rank returns the same answers and images.
+``gen_images_grouped`` denoises G images at once over a ("data", "model",
+"seq") mesh. With ``sp_mesh`` the flow loop runs as the sequence-parallel
+program of ``parallel/sp_denoise.py`` over that mesh's ranks.
 
 Generation also runs as a resumable job (``start_gen_job``,
 ``advance_gen_job``, ``finish_gen_job``), a few flow steps at a time, which
@@ -118,6 +125,7 @@ class InterleaveInferencer:
         vit_transform=None,
         seed: int = 0,
         *,
+        mesh=None,
         sp_mesh=None,
         kv_quantized: bool = False,
         kv_bits: int = 8,
@@ -126,8 +134,8 @@ class InterleaveInferencer:
         spec_ngram: int = 3,
     ):
         """The positional parameters come in the JAX inferencer's order, with
-        ``model`` in the place of its ``params, cfg``; the rest are keyword-only
-        (the port has no ``mesh``, so a positional tail could not line up).
+        ``model`` in the place of its ``params, cfg``; the rest are
+        keyword-only.
 
         ``model``: a Bagel on its device (built ``with_vae`` for image
         generation and VAE image contexts); ``tokenizer``: anything with
@@ -151,10 +159,17 @@ class InterleaveInferencer:
         The denoise loop then goes through
         ``parallel.sp_denoise.generate_latents_tp_sp`` (latents sharded over
         "seq", heads over "model") whenever the latent count divides the
-        "seq" axis and the kv heads the "model" axis; every rank of the mesh
-        runs the same inferencer with the same seed. Context builds and text
+        "seq" axis and the kv heads the "model" axis, on this rank's shard of
+        the model (placed once from a whole one); every rank of the mesh runs
+        the same inferencer with the same seed. Context builds and text
         decoding stay single-device. Not with ``kv_quantized``: that path
-        reads the context cache in the model's dtype."""
+        reads the context cache in the model's dtype.
+        ``mesh``: a ``parallel.mesh.Mesh`` with the axes ("data", "model");
+        ``model`` is whole (this rank's shard is placed from it) or already a
+        rank's shard of this mesh (``load_bagel_checkpoint(mesh=...)``).
+        Every rank of the mesh runs the same calls with the same seed; the
+        answers and images are the single-device ones. With ``sp_mesh`` too,
+        the two must span the same ranks in the same order."""
         if kv_quantized:
             check_kv_bits(kv_bits)
         if kv_quantized and sp_mesh is not None:
@@ -162,7 +177,26 @@ class InterleaveInferencer:
                 "kv_quantized=True is not supported with sp_mesh "
                 "(parallel/sp_denoise.py reads the context cache in the model's dtype)"
             )
+        if mesh is not None:
+            from unimedvl_tpu_torch.parallel.mesh import place_params
+
+            if mesh.axis_names != ("data", "model"):
+                raise ValueError(f"mesh must have the axes ('data', 'model'), got "
+                                 f"{mesh.axis_names}")
+            if sp_mesh is not None and (
+                    int(np.prod(list(mesh.shape.values())))
+                    != int(np.prod(list(sp_mesh.shape.values()))) or mesh.rank != sp_mesh.rank):
+                raise ValueError("mesh and sp_mesh must span the same ranks in the same order")
+            placed = getattr(model.language_model, "mesh", None)
+            if placed is None:
+                model = place_params(model, mesh)
+            elif placed.shape != mesh.shape or placed.rank != mesh.rank:
+                raise ValueError(f"the model is a shard of a mesh {placed.shape}, not of "
+                                 f"{mesh.shape}")
+        self.mesh = mesh
         self.sp_mesh = sp_mesh
+        #: (mesh, this rank's model of it) for the sequence-parallel denoise of a whole model
+        self._sp_placed = None
         self.kv_quantized = kv_quantized
         self.kv_bits = kv_bits
         self.spec_decode = spec_decode
@@ -634,17 +668,112 @@ class InterleaveInferencer:
         if (
             mesh is not None
             and job.x_t.shape[0] % mesh.shape["seq"] == 0
-            and self.cfg.llm.num_key_value_heads % mesh.shape["model"] == 0
+            # a rank's shard of ``self.mesh`` holds its kv heads already
+            and (self.mesh is not None
+                 or self.cfg.llm.num_key_value_heads % mesh.shape["model"] == 0)
             # the sequence-parallel attention routes through the MoT gen twins;
             # other configs take the single-device denoise
             and self.cfg.llm.mot_attention
         ):
             from unimedvl_tpu_torch.parallel.sp_denoise import generate_latents_tp_sp
 
+            model, (caches,) = self._sp_rank(mesh, [job.caches])
             return generate_latents_tp_sp(
-                self.model, job.caches, job.positions, job.pos_ids, job.x_t,
-                self._start_end(), mesh, **job.kw)
+                model, caches, job.positions, job.pos_ids, job.x_t, self._start_end(), mesh,
+                **job.kw)
         return self.advance_gen_job(job, job.total_steps).x_t
+
+    def _sp_rank(self, mesh, caches: List[KVCache]):
+        """This rank's model and kv heads of ``caches`` for the
+        sequence-parallel denoise over ``mesh``: the inferencer's own when its
+        model is a rank's shard already (``mesh=``) or "model" has one rank;
+        else the rank's shard of the whole model, placed once
+        (``parallel.mesh.place_params``: views of its tensors), and the
+        caches' kv heads of that rank. Context builds stay on the whole
+        model."""
+        if self.mesh is not None or mesh.shape["model"] == 1:
+            return self.model, caches
+        from unimedvl_tpu_torch.parallel import mesh as pmesh
+
+        if self._sp_placed is None or self._sp_placed[0] is not mesh:
+            self._sp_placed = (mesh, pmesh.place_params(self.model, mesh))
+        return self._sp_placed[1], [pmesh.shard_kv_heads(c, self.cfg, mesh) for c in caches]
+
+    def gen_image_latents_grouped(
+        self,
+        image_shape: Tuple[int, int],
+        gen_contexts: List[GenContext],
+        group_mesh,
+        cfg_text_precontexts: Optional[List[GenContext]] = None,
+        cfg_img_precontexts: Optional[List[GenContext]] = None,
+        cfg_text_scale: float = 4.0,
+        cfg_img_scale: float = 1.5,
+        cfg_interval: Tuple[float, float] = (0.4, 1.0),
+        cfg_renorm_min: float = 0.0,
+        cfg_renorm_type: str = "global",
+        num_timesteps: int = 50,
+        timestep_shift: float = 3.0,
+    ) -> torch.Tensor:
+        """G images denoised at once over a ("data", "model", "seq")
+        ``group_mesh`` (pipeline.py:909-981): image g runs the
+        sequence-parallel program (``parallel.sp_denoise
+        .generate_latents_dp_tp_sp``) on the ("model", "seq") sub-mesh of
+        data rank g. The images share ``image_shape`` and the CFG options;
+        each image's caches are padded to one capacity; the noise is drawn
+        per image from the inferencer's generator, in image order. Returns
+        the latents [G, h*w, p*p*z] fp32 on every rank."""
+        G = len(gen_contexts)
+        if group_mesh.axis_names != ("data", "model", "seq"):
+            raise ValueError(f"group_mesh must have the axes ('data', 'model', 'seq'), got "
+                             f"{group_mesh.axis_names}")
+        if group_mesh.shape["data"] != G:
+            raise ValueError(f"{G} images for a data axis of {group_mesh.shape['data']}")
+        if not self.cfg.llm.mot_attention:
+            raise ValueError("the grouped denoise routes projections through the MoT gen "
+                             "experts: the config needs mot_attention")
+        H, W = image_shape
+        ld = self.cfg.latent_downsample
+        n = (H // ld) * (W // ld)
+        if n % group_mesh.shape["seq"]:
+            raise ValueError(f"{n} latent tokens do not split over seq={group_mesh.shape['seq']}")
+        use_text_cfg = cfg_text_scale > 1.0 and cfg_text_precontexts is not None
+        use_img_cfg = cfg_img_scale > 1.0 and cfg_img_precontexts is not None
+        group_caches, group_positions = [], []
+        for g in range(G):
+            contexts = [gen_contexts[g]]
+            if use_text_cfg:
+                contexts.append(cfg_text_precontexts[g])
+            if use_img_cfg:
+                contexts.append(cfg_img_precontexts[g])
+            caches, positions = self._stack_contexts(contexts)
+            group_caches.append(caches)
+            group_positions.append(positions)
+        cap = max(c.capacity for c in group_caches)
+        group_caches = [c.padded(cap - c.capacity) for c in group_caches]
+        pos_ids = torch.from_numpy(
+            self._position_ids(H, W, ld, self.cfg.max_latent_size)).to(self.device)
+        group_noise = [self._randn((n, self.cfg.patch_latent_dim)) for _ in range(G)]
+        from unimedvl_tpu_torch.parallel.sp_denoise import generate_latents_dp_tp_sp
+
+        model, group_caches = self._sp_rank(group_mesh, group_caches)
+        return generate_latents_dp_tp_sp(
+            model, group_caches, group_positions, [pos_ids] * G, group_noise,
+            self._start_end(), group_mesh, num_timesteps=num_timesteps,
+            timestep_shift=timestep_shift, cfg_text_scale=cfg_text_scale,
+            cfg_img_scale=cfg_img_scale, cfg_interval=tuple(cfg_interval),
+            cfg_renorm_min=cfg_renorm_min, cfg_renorm_type=cfg_renorm_type,
+            use_text_cfg=use_text_cfg, use_img_cfg=use_img_cfg)
+
+    def gen_images_grouped(self, image_shape: Tuple[int, int], gen_contexts: List[GenContext],
+                           group_mesh, cfg_text_precontexts: Optional[List[GenContext]] = None,
+                           cfg_img_precontexts: Optional[List[GenContext]] = None,
+                           **kw) -> List:
+        """:meth:`gen_image_latents_grouped`, then each image VAE-decoded in
+        turn (PIL images, in context order)."""
+        latents = self.gen_image_latents_grouped(
+            image_shape, gen_contexts, group_mesh, cfg_text_precontexts=cfg_text_precontexts,
+            cfg_img_precontexts=cfg_img_precontexts, **kw)
+        return [self.decode_image(latents[g], image_shape) for g in range(latents.shape[0])]
 
     def decode_image(self, latent_tokens: torch.Tensor, image_shape: Tuple[int, int]):
         """Latent tokens -> a PIL RGB image of ``image_shape`` (H, W)."""

@@ -30,11 +30,21 @@ options) merge into one grouped job whose images share each step's forward,
 and every round runs one segment of ``gen_chunk`` flow steps beside its
 decode chunk, so text and image requests share the card.
 
+With ``mesh`` (a ``parallel.mesh.Mesh`` with the axes ("data", "model"))
+every rank runs the same batcher on the same requests and holds its shard of
+the model (``parallel.mesh.place_params``): heads and MLP intermediate over
+"model", the pool's kv heads with them. The slots shard over "data" when the
+data axis divides them (else every data rank holds the whole pool): each data
+rank prefills, stores and decodes its own slots, and after every chunk the
+per-slot results the host reads (tokens, and a speculative chunk's counts,
+finished flags, last tokens and positions) are gathered over "data", so the
+host state, ``errors`` and ``stats`` are the same on every rank.
+
 The port writes the pool in place where the JAX package donates it, and runs
 each chunk as a Python loop with one host check a step (a verify forward, in
 a speculative chunk) where the JAX package has a ``while_loop``. Greedy
-only. Not here: ``mesh=`` (M13) and the compiled denoise windows
-(``gen_window_dynamic``), which ``step_range`` replaces.
+only. Not here: the compiled denoise windows (``gen_window_dynamic``), which
+``step_range`` replaces.
 """
 
 from __future__ import annotations
@@ -342,6 +352,7 @@ class ContinuousBatcher:
         vit_transform=None,
         seed: int = 0,
         *,
+        mesh=None,
         kv_quantized: bool = False,
         kv_bits: int = 8,
         spec_decode: bool = False,
@@ -355,8 +366,7 @@ class ContinuousBatcher:
     ):
         """The positional parameters come in the JAX batcher's order, with
         ``model`` in the place of its ``params, cfg``; the rest are
-        keyword-only (the port has no ``mesh``, so a positional tail could
-        not line up).
+        keyword-only.
 
         ``model``: a Bagel on its device, whose pool of ``num_slots`` x
         ``capacity`` columns is allocated there; ``tokenizer`` /
@@ -376,10 +386,33 @@ class ContinuousBatcher:
         flow steps a round, up to ``gen_group`` compatible ones in one
         grouped job. ``pool_ladder``: the drain-tail rightsizing over the
         rungs ``num_slots``, its halvings down to ``min_pool``; not with
-        ``spec_decode``."""
+        ``spec_decode``. ``mesh``: a ``parallel.mesh.Mesh`` with the axes
+        ("data", "model") (see the module's docstring); ``model`` whole or
+        already a rank's shard of it; a ``pipeline`` then has the same mesh
+        and its shard serves both. Not with ``pool_ladder``."""
         if spec_decode and pool_ladder:
             raise ValueError("pool_ladder and spec_decode are not composed (nor in the JAX "
                              "batcher)")
+        self.mesh = mesh
+        #: this rank's slots [lo, lo + n) of the pool (all of them without a data split)
+        self._slot_lo, self._slot_n = 0, num_slots
+        if mesh is not None:
+            from unimedvl_tpu_torch.parallel.mesh import place_params, stream_range
+
+            if mesh.axis_names != ("data", "model"):
+                raise ValueError(f"mesh must have the axes ('data', 'model'), got "
+                                 f"{mesh.axis_names}")
+            if pool_ladder:
+                raise ValueError("pool_ladder and a mesh are not composed (nor in the JAX "
+                                 "batcher)")
+            if pipeline is not None:
+                if getattr(pipeline, "mesh", None) is None or pipeline.mesh.shape != mesh.shape:
+                    raise ValueError("with a mesh, the pipeline must be an InterleaveInferencer "
+                                     "of the same mesh")
+                model = pipeline.model
+            elif getattr(model.language_model, "mesh", None) is None:
+                model = place_params(model, mesh)
+            self._slot_lo, self._slot_n = stream_range(mesh, num_slots)
         self.model = model
         self.cfg = model.config
         self.tokenizer = tokenizer
@@ -396,7 +429,7 @@ class ContinuousBatcher:
         self.device, self.dtype = norm.device, norm.dtype
         llm = self.cfg.llm
         self.cache = KVCache.create(
-            llm.num_hidden_layers, num_slots, capacity, llm.num_key_value_heads,
+            llm.num_hidden_layers, self._slot_n, capacity, llm.num_key_value_heads,
             llm.head_dim, self.dtype, device=self.device, quantized=kv_quantized,
             kv_bits=kv_bits,
         )
@@ -407,8 +440,9 @@ class ContinuousBatcher:
         if spec_decode:
             # each slot's id history for the drafts: rewritten at admission,
             # appended by the chunks
-            self._hist = torch.zeros((num_slots, capacity), dtype=torch.int32, device=self.device)
-            self._hlen = torch.zeros((num_slots,), dtype=torch.int32, device=self.device)
+            self._hist = torch.zeros((self._slot_n, capacity), dtype=torch.int32,
+                                     device=self.device)
+            self._hlen = torch.zeros((self._slot_n,), dtype=torch.int32, device=self.device)
         self.slots = [_Slot() for _ in range(num_slots)]
         #: registered preambles: (1-stream cache block, valid length, ids)
         self._prefixes: List[Tuple[KVCache, int, List[int]]] = []
@@ -472,6 +506,25 @@ class ContinuousBatcher:
     # -- requests -------------------------------------------------------------
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _mine(self, slot: int) -> bool:
+        """Whether pool slot ``slot`` lives on this rank (every slot does
+        without a data split)."""
+        return self._slot_lo <= slot < self._slot_lo + self._slot_n
+
+    def _local_slots(self, slots) -> np.ndarray:
+        """Pool slots as rows of this rank's pool; another rank's slot, or a
+        padding row, becomes a row past it (left out by ``group_store``)."""
+        s = np.asarray(slots, np.int64)
+        local = s - self._slot_lo
+        return np.where((local >= 0) & (local < self._slot_n), local, self._slot_n)
+
+    def _gather_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """Per-slot results [n, ...] of this rank's slots as those of the whole
+        pool, gathered over "data" (the tensor itself without a data split)."""
+        if self._slot_n == self.num_slots:
+            return t
+        return self.mesh.gather(t, "data", dim=0)
 
     def _start_end(self) -> torch.Tensor:
         ids = self.new_token_ids
@@ -702,15 +755,22 @@ class ContinuousBatcher:
         """The legacy pool path's image step: the grouped ViT prefill into a
         block of the bucket's size, stored into the pool. group: [(slot_idx,
         rid, prep)]."""
+        group = [m for m in group if self._mine(m[0])]
+        if not group:
+            return
         block = self._vit_group([prep for _i, _r, prep in group])
         slots = np.asarray([i for i, _r, _p in group], np.int64)
-        self.cache = group_store(self.cache, block, slots)
+        self.cache = group_store(self.cache, block, self._local_slots(slots))
 
     def _admit_image_text_block(self, members) -> None:
         """Image and text prefill of a same-bucket group in one compact block:
         the grouped ViT prefill with room for the text (capacity bucket + 2 +
         T_max), one [P, T_max] text append into the block, one store into the
-        pool. members: [(slot_idx, rid, prep, admit)]."""
+        pool. members: [(slot_idx, rid, prep, admit)]; with a data split, this
+        rank's members."""
+        members = [m for m in members if self._mine(m[0])]
+        if not members:
+            return
         bucket = members[0][2][3]
         T_max = max(a[4] for *_x, a in members)
         P = len(members)
@@ -728,7 +788,7 @@ class ContinuousBatcher:
         block = self._vit_group([m[2] for m in members], capacity=bucket + 2 + T_max)
         block = bagel.prefill_text(self.model, block, self._tensor(batch_ids),
                                    self._tensor(batch_pos), self._tensor(batch_valid))
-        self.cache = group_store(self.cache, block, slots)
+        self.cache = group_store(self.cache, block, self._local_slots(slots))
 
     def _admit_text_block(self, group, prefix_id: Optional[int] = None) -> None:
         """Text-only admission in a compact [P, T_max] block: one prefill,
@@ -736,7 +796,10 @@ class ContinuousBatcher:
         the padding rows out). With ``prefix_id`` the block grows to
         [P, Tp_pad + T_max], its leading columns seeded with the preamble's
         cache, and only the suffixes are prefilled, at positions Tp on.
-        group: [admit]."""
+        group: [admit]; with a data split, this rank's members."""
+        group = [a for a in group if self._mine(a[0])]
+        if not group:
+            return
         T_max = max(a[4] for a in group)
         P = max(self._txt_group, len(group))
         pos0 = 0
@@ -762,16 +825,21 @@ class ContinuousBatcher:
             block = seed_prefix_block(block, pfx_block, pos0)
         block = bagel.prefill_text(self.model, block, self._tensor(batch_ids),
                                    self._tensor(batch_pos), self._tensor(batch_valid))
-        self.cache = group_store(self.cache, block, slots)
+        self.cache = group_store(self.cache, block, self._local_slots(slots))
 
     def _prefill_text_group(self, group, T_max: int) -> None:
         """The legacy pool path's text step: a [pool, T_max] prefill over the
-        whole pool, the members' rows valid and appended after their image."""
-        S = self.pool
+        whole pool (this rank's slots of it), the members' rows valid and
+        appended after their image."""
+        group = [a for a in group if self._mine(a[0])]
+        if not group:
+            return
+        S = min(self.pool, self._slot_n)
         batch_ids = np.zeros((S, T_max), np.int64)
         batch_pos = np.zeros((S, T_max), np.int64)
         batch_valid = np.zeros((S, T_max), bool)
         for i, _rid, _req, ids, _T_pad, img_meta, _kv_len in group:
+            i -= self._slot_lo
             T = len(ids)
             rope0 = 1 if img_meta is not None else 0
             batch_ids[i, :T] = ids
@@ -883,8 +951,9 @@ class ContinuousBatcher:
             # max_new_tokens counts the start token, as the reference's max_length does
             slot.remaining = req.max_new_tokens - 1
             slot.out_ids = [slot.cur_token]
-        if self.spec_decode and ok_admits:
-            self._write_hist(ok_admits)
+        mine = [a for a in ok_admits if self._mine(a[0])]
+        if self.spec_decode and mine:
+            self._write_hist(mine)
 
     def _write_hist(self, admits) -> None:
         """The admitted slots' history rows: the prompt's ids (after a
@@ -900,7 +969,7 @@ class ContinuousBatcher:
             seq = seq[-self.capacity:]
             rows[j, :len(seq)] = seq
             hlens[j] = len(seq)
-        idx = self._tensor(np.asarray([a[0] for a in admits], np.int64))
+        idx = self._tensor(np.asarray([a[0] - self._slot_lo for a in admits], np.int64))
         self._hist[idx] = self._tensor(rows)
         self._hlen[idx] = self._tensor(hlens)
 
@@ -1010,10 +1079,11 @@ class ContinuousBatcher:
         # (an early exit needs every active slot finished).
         base_est = max((s.kv_len for s in self.slots if s.request_id is not None), default=0)
         chunk_fn = decode_chunk_aligned if base_est + k <= self.capacity else decode_chunk
+        mine = slice(self._slot_lo, self._slot_lo + min(self._slot_n, len(pool_slots)))
         tokens, _last, _pos, self.cache = chunk_fn(
-            self.model, self.cache, self._tensor(cur), self._tensor(pos),
-            self._tensor(active), k, eos=eos)
-        tokens = tokens.cpu().numpy()  # [S, k]: the round's host read
+            self.model, self.cache, self._tensor(cur[mine]), self._tensor(pos[mine]),
+            self._tensor(active[mine]), k, eos=eos)
+        tokens = self._gather_slots(tokens).cpu().numpy()  # [S, k]: the round's host read
         st["decode_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         for i, slot in enumerate(pool_slots):
@@ -1057,13 +1127,15 @@ class ContinuousBatcher:
         and its host bookkeeping (serving.py:1280-1314)."""
         budget = np.asarray([max(s.remaining, 0) if s.request_id is not None else 0
                              for s in pool_slots], np.int32)
+        mine = slice(self._slot_lo, self._slot_lo + self._slot_n)
         tokens, counts, fin, last, new_pos, self.cache, self._hist, self._hlen = \
             decode_chunk_spec(
-                self.model, self.cache, self._tensor(cur), self._tensor(pos),
-                self._tensor(active), self._tensor(budget), self._hist, self._hlen,
+                self.model, self.cache, self._tensor(cur[mine]), self._tensor(pos[mine]),
+                self._tensor(active[mine]), self._tensor(budget[mine]), self._hist, self._hlen,
                 self.chunk, eos, k_draft=self.spec_k, ngram=self.spec_ngram)
         tokens, counts, fin, last, new_pos = (
-            t.cpu().numpy() for t in (tokens, counts, fin, last, new_pos))  # the host read
+            self._gather_slots(t).cpu().numpy()
+            for t in (tokens, counts, fin.to(torch.int32), last, new_pos))  # the host read
         st["decode_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         for i, slot in enumerate(pool_slots):

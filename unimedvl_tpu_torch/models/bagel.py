@@ -52,6 +52,7 @@ from unimedvl_tpu_torch.models.siglip import SiglipVisionModel
 from unimedvl_tpu_torch.models.vae import AutoEncoder, GroupNorm
 from unimedvl_tpu_torch.ops.activations import ACT2FN, silu
 from unimedvl_tpu_torch.ops.sincos import get_2d_sincos_pos_embed, timestep_embedding
+from unimedvl_tpu_torch.parallel.mesh import stream_range
 from unimedvl_tpu_torch.training import e2e_vae
 
 
@@ -780,8 +781,16 @@ def generate_latents_group(
     State dtypes (see the module's note): x_t fp32, ``vae2llm`` and the
     timestep embedding in fp32, their sum rounded to the model dtype once,
     the velocity from ``llm2vae`` in the model dtype, the CFG and the update
-    in fp32."""
+    in fp32.
+
+    On a rank of a mesh (``parallel.mesh.place_params``) whose "data" axis
+    divides a step's streams, each data rank runs the forward of its share
+    of the streams (``parallel.mesh.stream_range``) and the velocities are
+    gathered over "data" before the CFG combination, every step (the JAX
+    mesh program shards the streams over "data" there); otherwise every data
+    rank runs every stream."""
     lm = model.language_model
+    mesh = getattr(lm, "mesh", None)
     G, n = init_noise.shape[:2]
     S_all = caches.k.shape[1]
     if S_all % G:
@@ -819,9 +828,19 @@ def generate_latents_group(
             block = torch.cat([se[:1].expand(G, 1, C), x_lat, se[1:].expand(G, 1, C)], dim=1)
             # each image's block over its active streams (a view at G = 1)
             x = block[:, None].expand(G, active, n + 2, C).reshape(G * active, n + 2, C)
-            h, _ = lm.model(x, block_positions, step_caches, causal=False, mode="gen",
-                            update_cache=False)
-            v_all = _linear(h[:, 1:n + 1], model.llm2vae).view(G, active, n, -1)
+            s0, ns = (0, G * active) if mesh is None else stream_range(mesh, G * active)
+            if ns < G * active:
+                sl = slice(s0, s0 + ns)
+                mine = step_caches._map(lambda t: t[:, sl], lambda t: t[:, sl],
+                                        step_caches.lens[sl])
+                h, _ = lm.model(x[sl], block_positions[sl], mine, causal=False, mode="gen",
+                                update_cache=False)
+                v_loc = _linear(h[:, 1:n + 1], model.llm2vae)
+                v_all = mesh.gather(v_loc, "data", dim=0).view(G, active, n, -1)
+            else:
+                h, _ = lm.model(x, block_positions, step_caches, causal=False, mode="gen",
+                                update_cache=False)
+                v_all = _linear(h[:, 1:n + 1], model.llm2vae).view(G, active, n, -1)
             v = v_all[:, 0]
             if cfg_on:
                 v_text = v_all[:, 1] if use_text_cfg else v

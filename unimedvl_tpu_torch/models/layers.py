@@ -161,6 +161,10 @@ class QuantLinear(nn.Module):
             self.register_parameter("bias", None)
         else:
             self.bias = nn.Parameter(bias.detach(), requires_grad=False)
+        #: a row-parallel shard under tensor parallelism (parallel.mesh.attach_mesh):
+        #: reduces the activations' row absmax over "model" in place, so that the
+        #: int8 scale is the whole row's; None elsewhere
+        self.reduce_max = None
 
     @property
     def packed(self) -> bool:

@@ -69,7 +69,7 @@ from torch.utils.checkpoint import checkpoint
 from unimedvl_tpu_torch.config import LLMConfig
 from unimedvl_tpu_torch import quant
 from unimedvl_tpu_torch.models.layers import QuantLinear, RMSNorm, embedding, linear
-from unimedvl_tpu_torch.ops.act_quant import silu_mul_quant_autograd
+from unimedvl_tpu_torch.ops.act_quant import silu_mul_quant_autograd, silu_mul_quant_global
 from unimedvl_tpu_torch.ops.activations import ACT2FN
 from unimedvl_tpu_torch.ops.attention import gqa_attention
 from unimedvl_tpu_torch.ops.decode_attention import decode_attention
@@ -395,7 +395,10 @@ class Qwen2MLP(nn.Module):
         # rounded to x's dtype, as the JAX package's _mlp does ("lora_a" not
         # in down)
         if isinstance(down, QuantLinear) and down.act_quant and self.act_is_silu:
-            xq, xs = silu_mul_quant_autograd(g, u)
+            if down.reduce_max is not None:  # a row-parallel shard: the whole row's scales
+                xq, xs = silu_mul_quant_global(g, u, down.reduce_max)
+            else:
+                xq, xs = silu_mul_quant_autograd(g, u)
             return quant.quantized_linear_preq(xq, xs, down, x.dtype)
         return down(self.act(g) * u)
 
@@ -417,6 +420,9 @@ class Qwen2MoTDecoderLayer(nn.Module):
             self.post_attention_layernorm_moe_gen = RMSNorm(C, eps, device, dtype)
         if cfg.use_moe:
             self.mlp_moe_gen = Qwen2MLP(cfg, device, dtype)
+        #: a rank's layer of a tensor-parallel mesh (parallel.mesh.attach_mesh): its
+        #: attention and MLP outputs are partial sums over "model"
+        self.mesh = None
 
     def forward(self, x, cos, sin, kv_layer, lens, causal, q_valid_len, decode_cols,
                 gen=False, end_row=None, update_cache=True):
@@ -426,10 +432,13 @@ class Qwen2MoTDecoderLayer(nn.Module):
         h = _mot_rows(
             x, self.input_layernorm, lambda t: self.input_layernorm_moe_gen(t), gen_mot, end_row
         )
-        x = x + self.self_attn(
+        a = self.self_attn(
             h, cos, sin, kv_layer, lens, causal, q_valid_len, decode_cols,
             gen_mot, end_row, update_cache,
         )
+        if self.mesh is not None:  # the row-parallel o_proj's sum (Megatron)
+            self.mesh.all_reduce(a, "model")
+        x = x + a
         if cfg.mot_attention:
             h = _mot_rows(
                 x, lambda t: self.mlp(self.post_attention_layernorm(t)),
@@ -441,6 +450,8 @@ class Qwen2MoTDecoderLayer(nn.Module):
                 self.post_attention_layernorm(x), self.mlp, lambda t: self.mlp_moe_gen(t),
                 gen_moe, end_row,
             )
+        if self.mesh is not None:  # the row-parallel down_proj's sum
+            self.mesh.all_reduce(h, "model")
         return x + h
 
 
@@ -528,7 +539,20 @@ def lm_head(lm: Qwen2MoTForCausalLM, hidden: torch.Tensor) -> torch.Tensor:
     hidden's dtype. Either keeps the logits fp32. Every head is
     differentiable in the hidden (the training loss goes through it; a
     quantized head under QLoRA): ``qa`` through the activation scale, ``q``
-    through ``quant.WidenedMatmul``."""
+    through ``quant.WidenedMatmul``.
+
+    A rank's model of a mesh (``parallel.mesh.place_params``) holds a vocab
+    slice of the head: its logits are gathered over "model" (a sum into a
+    zeroed [rows, V] buffer), so every rank has the whole row."""
+    logits = _lm_head_local(lm, hidden)
+    mesh = getattr(lm, "mesh", None)
+    if mesh is None:
+        return logits
+    return mesh.gather(logits, "model", dim=-1)
+
+
+def _lm_head_local(lm: Qwen2MoTForCausalLM, hidden: torch.Tensor) -> torch.Tensor:
+    """:func:`lm_head` over the rows this module holds."""
     head = lm.lm_head
     h2 = hidden.reshape(-1, hidden.shape[-1])
     if isinstance(head, QuantLinear):

@@ -30,6 +30,14 @@ relative, q within one step on a small share of elements.
 ``silu_mul_quant`` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; there is no threshold and no fallback.
 
+The second entry, :func:`silu_mul_quant_global`, is the same function for a
+row whose I columns are sharded over tensor-parallel ranks (a row-parallel
+down projection under ``mesh=``): the scale must be the whole row's, as the
+JAX mesh program's all-reduce-max gives it. It is two launches of
+``csrc/silu_mul_quant.cu`` around the caller's reduction: a scale pass
+(each rank's row scale), the all-reduce-max, and a quantize pass that takes
+the scales (``silu_mul_quant_global_ref`` is its plain version).
+
 Gradients. The kernel has no backward: its wrapper refuses inputs that
 require grad while grad mode is on (``_launch.check_no_grad``).
 ``silu_mul_quant_autograd`` is the differentiable route (QLoRA over a
@@ -50,6 +58,9 @@ from unimedvl_tpu_torch.ops import _launch, cuda_build
 
 # launches of the kernel and calls of the plain version, for showing which ran
 counts = {"kernel": 0, "plain": 0}
+# the same for the second entry (silu_mul_quant_global): one per call, whose kernel side is two
+# launches (the scale pass and the quantize pass) around the caller's all-reduce
+global_counts = {"kernel": 0, "plain": 0}
 
 KERNEL_MAX_WIDTH = 1024 * 3 * 8  # 1024 threads x 3 chunks of 8 values in registers
 # rows spread over a cluster of CTAs up to this many rows (a CTA per SM at most), and the
@@ -148,6 +159,72 @@ def silu_mul_quant(g: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torc
     if g.device.type == "cpu":
         return silu_mul_quant_ref(g, u)
     raise ValueError(f"silu_mul_quant runs on CUDA or CPU tensors, got {g.device}")
+
+
+def silu_mul_quant_global_ref(g: torch.Tensor, u: torch.Tensor, reduce_max=None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`silu_mul_quant_global`: the row scales of
+    :func:`silu_mul_quant_ref`, reduced by ``reduce_max`` (in place; None:
+    as they are), then q by those scales."""
+    global_counts["plain"] += 1
+    g32, u32 = g.float(), u.float()
+    x = (g32 * torch.sigmoid(g32)) * u32
+    scale = torch.clamp_min(x.abs().amax(dim=-1, keepdim=True), 1e-8) / 127.0
+    if reduce_max is not None:
+        reduce_max(scale)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _launch_global(g, u, reduce_max):
+    _launch.check_no_grad("silu_mul_quant_global", ("g", "u"), (g, u),
+                          "ops.act_quant.silu_mul_quant_autograd (one rank)")
+    I = g.shape[-1]
+    R = g.numel() // I
+    if I % 8 or g.dim() < 2:
+        raise ValueError(f"the silu_mul_quant_global kernels take [..., I] rows of a multiple "
+                         f"of 8 values, got {tuple(g.shape)}")
+    _launch.check_cuda(("g", "u"), (g, u), torch.bfloat16)
+    g2, u2 = _rows(g, "g"), _rows(u, "u")
+    q = torch.empty(g.shape, dtype=torch.int8, device=g.device)
+    scale = torch.empty(*g.shape[:-1], 1, dtype=torch.float32, device=g.device)
+    lib = cuda_build.load_library()
+    with _launch.on_device(g.device.index):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        rc = lib.unimedvl_silu_mul_scale(g2.data_ptr(), u2.data_ptr(), scale.data_ptr(), R, I,
+                                         g2.stride(0), u2.stride(0), stream)
+        cuda_build.check(rc, "silu_mul_quant_global (scale pass)")
+        if reduce_max is not None:
+            reduce_max(scale)
+        rc = lib.unimedvl_silu_mul_quant_scaled(g2.data_ptr(), u2.data_ptr(), scale.data_ptr(),
+                                                q.data_ptr(), R, I, g2.stride(0), u2.stride(0),
+                                                stream)
+    cuda_build.check(rc, "silu_mul_quant_global (quantize pass)")
+    global_counts["kernel"] += 1
+    return q, scale
+
+
+def silu_mul_quant_global(g: torch.Tensor, u: torch.Tensor, reduce_max
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`silu_mul_quant` with the row scales reduced over ranks before
+    the quantization: ``reduce_max(scale)`` (in place, e.g. an all-reduce-max
+    over "model") between a scale pass and a quantize pass. Returns (q int8
+    [..., I], scale fp32 [..., 1]), the whole row's scale. CUDA tensors go
+    through the kernels (bf16, any I a multiple of 8), CPU tensors through
+    :func:`silu_mul_quant_global_ref`."""
+    if g.shape != u.shape:
+        raise ValueError(f"g and u must have one shape, got {tuple(g.shape)} and {tuple(u.shape)}")
+    if g.numel() == 0:
+        # no rows: the reduction still runs, so every rank joins the same collectives
+        scale = torch.empty(*g.shape[:-1], 1, dtype=torch.float32, device=g.device)
+        if reduce_max is not None:
+            reduce_max(scale)
+        return torch.empty(g.shape, dtype=torch.int8, device=g.device), scale
+    if g.device.type == "cuda":
+        return _launch_global(g, u, reduce_max)
+    if g.device.type == "cpu":
+        return silu_mul_quant_global_ref(g, u, reduce_max)
+    raise ValueError(f"silu_mul_quant_global runs on CUDA or CPU tensors, got {g.device}")
 
 
 # ---------------------------------------------------------------------------

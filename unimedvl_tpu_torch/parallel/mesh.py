@@ -1,51 +1,58 @@
-"""A device mesh over ``torch.distributed`` process groups, and the per-rank
-views that manual tensor parallelism needs (the part of
-unimedvl_tpu/parallel/mesh.py and sp_denoise.py's ``_layer_specs`` that the
-sequence-parallel denoise uses).
+"""A device mesh over ``torch.distributed`` process groups, and what manual
+tensor parallelism needs on each rank (the port of unimedvl_tpu/parallel/
+mesh.py, of ``bagel_loader.place_params`` and of sp_denoise.py's
+``_layer_specs``).
 
-One process is one rank and holds one device. ``Mesh`` names the axes
-(``("model", "seq")``, or ``("data", "model", "seq")`` for the grouped entry
-point), places rank r at the coordinates of ``arange(world).reshape(sizes)``
-(the JAX package's ``devices.reshape(tp, sp)``) and keeps, per axis, the
-process group of the ranks that differ from this one along that axis only. A
-collective over an axis without a group is the identity: a mesh of one rank
-needs no ``torch.distributed`` at all. The backend is the default group's:
-NCCL for CUDA tensors, gloo for CPU tensors.
+One process is one rank. ``Mesh`` names the axes (``("data", "model")`` for
+serving, ``("model", "seq")`` for the sequence-parallel denoise, ``("data",
+"model", "seq")`` for the grouped one), places rank r at the coordinates of
+``arange(world).reshape(sizes)`` (the JAX package's ``devices.reshape``) and
+keeps, per axis, the process group of the ranks that differ from this one
+along that axis only. A collective over an axis without a group is the
+identity: a mesh of one rank needs no ``torch.distributed`` at all. The
+backend is the default group's: NCCL for CUDA tensors, gloo for CPU tensors
+(and for CUDA tensors where NCCL cannot run, several ranks on one card:
+gloo carries ``all_reduce`` and ``broadcast`` of CUDA tensors, so every
+gather here is a sum into a zeroed buffer, :meth:`Mesh.gather`).
 
-``tp_layer_view`` is the counterpart of ``_layer_specs``: where JAX shards a
-stacked parameter tree by ``PartitionSpec``, a rank here narrows its own copy
-of each projection (every rank holds the whole model, as every process loads
-it): column-parallel leaves (``q k v q_gen k_gen v_gen gate up`` and the fused
-``qkv*``/``gate_up*``) keep a slice of their output dim (weight rows, bias,
-per-column scale), row-parallel leaves (``o o_gen down``) a slice of their
-input dim (scales whole), norms stay whole. Slices are views of the model's
-tensors, except the int8 weights of a row-parallel leaf, which are copied so
-that the integer matmul reads a dense matrix.
+Where JAX places a parameter tree by ``PartitionSpec`` and XLA partitions one
+program, every rank here holds a model of its own shapes and runs the same
+host code: :func:`leaf_ranges` says which part of each tensor a "model" rank
+holds (column-parallel ``q k v gate up`` and the fused ``qkv`` / ``gate_up``
+keep their output rows, the rank's heads by :func:`head_split`; row-parallel
+``o down`` their input columns, packed int4 bytes and group scales
+included; the embedding and the lm_head a vocab slice), :func:`place_params`
+builds the rank's model from a whole one (views, no copies at one "model"
+rank) and :func:`build_rank_model` from a state dict of shards (the sharded
+loader's). Decoder layers sum over "model" after the attention and after
+the MLP; the vocab-parallel embedding and head sum and gather over it.
 
-``run_on_ranks`` runs a function on ``world`` spawned CPU ranks joined by a
-gloo group (``file://`` rendezvous in a temporary directory): the tests and
-``tools/dryrun_sp.py`` hold the multi-rank program to the single-device one
-with it.
+:func:`stream_range` is the one rule for what "data" shards (streams when
+they divide it), :func:`kv_head_range` for the kv heads a "model" rank
+caches. ``run_on_ranks`` runs a function on ``world`` spawned CPU
+ranks joined by a gloo group (``file://`` rendezvous in a temporary
+directory): the tests and ``tools/dryrun_sp.py`` / ``tools/dryrun_mesh.py``
+hold the multi-rank programs to the single-device ones with it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
 import itertools
 import multiprocessing
 import os
 import queue
+import re
 import tempfile
 import traceback
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
-
-from unimedvl_tpu_torch.models.layers import QuantLinear, linear_from_tensors
 
 GROUP_TIMEOUT_S = 120.0
 
@@ -61,14 +68,33 @@ class Mesh:
     coords: Dict[str, int]
     groups: Dict[str, Optional[dist.ProcessGroup]]
 
-    def all_reduce(self, t: torch.Tensor, axis: str, async_op: bool = False):
-        """Sum ``t`` over ``axis``, in place. Returns a handle whose ``wait()``
-        must be called before ``t`` is read (None when nothing was started)."""
+    def all_reduce(self, t: torch.Tensor, axis: str, async_op: bool = False,
+                   op=dist.ReduceOp.SUM):
+        """Reduce ``t`` over ``axis`` (a sum unless ``op`` says otherwise), in
+        place. Returns a handle whose ``wait()`` must be called before ``t`` is
+        read (None when nothing was started). An axis the mesh does not have
+        raises."""
         group = self.groups[axis]
         if group is None:
             return None
-        work = dist.all_reduce(t, group=group, async_op=async_op)
+        work = dist.all_reduce(t, op=op, group=group, async_op=async_op)
         return work if async_op else None
+
+    def gather(self, t: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
+        """The ranks' ``t`` joined along ``dim`` in rank order over ``axis``,
+        as a sum into a zeroed buffer where this rank's part is written: one
+        ``all_reduce``, which every backend carries for CUDA tensors (gloo
+        has no CUDA ``all_gather``). Exact: every element is one rank's value
+        plus zeros."""
+        if self.groups[axis] is None:
+            return t
+        n, r = self.shape[axis], self.coords[axis]
+        shape = list(t.shape)
+        shape[dim] *= n
+        out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        out.narrow(dim, r * t.shape[dim], t.shape[dim]).copy_(t)
+        self.all_reduce(out, axis)
+        return out
 
     def all_gather(self, t: torch.Tensor, axis: str, dim: int) -> "Gathered":
         """Start gathering ``t`` over ``axis``; ``Gathered.wait()`` returns the
@@ -141,101 +167,358 @@ def make_mesh(axis_names: Sequence[str], sizes: Sequence[int],
 
 
 # ---------------------------------------------------------------------------
-# manual tensor parallelism: this rank's slice of each projection
+# manual tensor parallelism: which part of each leaf a "model" rank holds
 # ---------------------------------------------------------------------------
 
 COL = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
 ROW = ("o_proj", "down_proj")
 FUSED = ("qkv_proj", "gate_up_proj")
+EMBED = "language_model.model.embed_tokens"
+HEAD = "language_model.lm_head"
+
+# (dim, [(start, length), ...]): the rank's part of a tensor, the ranges joined along dim
+Ranges = Tuple[int, List[Tuple[int, int]]]
 
 
-def _narrow(t: Optional[torch.Tensor], dim: int, rank: int, tp: int, what: str):
-    if t is None:
-        return None
-    if t.shape[dim] % tp:
-        raise ValueError(f"{what}: dim {dim} of {tuple(t.shape)} does not split over {tp} ranks")
-    n = t.shape[dim] // tp
-    return t.narrow(dim, rank * n, n)
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """The attention heads of one "model" rank: query heads [q0, q0 + Hl)
+    and the kv heads [kv0, kv0 + Hkl) they read."""
+
+    q0: int
+    Hl: int
+    kv0: int
+    Hkl: int
 
 
-def shard_linear(lin: nn.Module, column: bool, rank: int, tp: int, what: str) -> nn.Module:
-    """This rank's Megatron shard of a linear: ``column`` narrows the output
-    dim (weight rows, bias, per-column scale), otherwise the input dim (the
-    scale stays whole). ``nn.Linear`` and ``QuantLinear`` in modes ``q`` and
-    ``qa``; with ``tp == 1`` the module itself."""
-    if tp == 1:
-        return lin
-    if hasattr(lin, "lora_a"):
-        raise ValueError(f"{what} carries a LoRA adapter: training.lora.merge_lora first")
-    if not column and lin.bias is not None:
-        # a replicated bias would be summed tp times by the row-parallel all-reduce
-        raise ValueError(f"{what}: a row-parallel projection with a bias is not supported")
-    if isinstance(lin, QuantLinear):
-        if lin.packed:
-            raise NotImplementedError(
-                f"{what}: packed-int4 projections under tensor parallelism are a later slice "
-                "(ROADMAP queue 1, what remains of M13)")
-        if column:
-            return QuantLinear(lin.mode, _narrow(lin.weight_q, 0, rank, tp, what),
-                               _narrow(lin.scale, 0, rank, tp, what),
-                               _narrow(lin.bias, 0, rank, tp, what))
-        return QuantLinear(lin.mode, _narrow(lin.weight_q, 1, rank, tp, what).contiguous(),
-                           lin.scale, None)
-    if not isinstance(lin, nn.Linear):
-        raise TypeError(f"{what}: cannot shard a {type(lin).__name__}")
-    if column:
-        return linear_from_tensors(_narrow(lin.weight, 0, rank, tp, what),
-                                   _narrow(lin.bias, 0, rank, tp, what))
-    return linear_from_tensors(_narrow(lin.weight, 1, rank, tp, what), None)
+def head_split(H: int, Hk: int, tp: int, rank: int) -> HeadSplit:
+    """Rank ``rank`` of ``tp`` serves query heads [r H / tp, (r + 1) H / tp)
+    and computes and caches the kv heads those read: ``Hk / tp`` of them when
+    tp divides Hk, else (tp a multiple of Hk) the one head of its group,
+    replicated over tp / Hk ranks, as the JAX mesh program replicates the
+    cache over "model" there. Any other split raises."""
+    if H % tp:
+        raise ValueError(f"{H} query heads do not split over model={tp}")
+    Hl = H // tp
+    if Hk % tp == 0:
+        return HeadSplit(rank * Hl, Hl, rank * (Hk // tp), Hk // tp)
+    if tp % Hk == 0:
+        return HeadSplit(rank * Hl, Hl, rank // (tp // Hk), 1)
+    raise ValueError(f"{Hk} kv heads neither split over model={tp} nor divide it "
+                     f"({H} query heads)")
 
 
-def _shard_children(module: nn.Module, rank: int, tp: int, path: str) -> Dict[str, nn.Module]:
-    """name -> this rank's shard, for every projection of ``module`` (both
-    experts); a fused leaf comes under its plain name (``qkv_proj``,
-    ``gate_up_proj``), whatever shard degree its own name carries: inside the
-    manual region that degree is the mesh's."""
-    out: Dict[str, nn.Module] = {}
-    for name, child in module._modules.items():
-        base = name[: -len("_moe_gen")] if name.endswith("_moe_gen") else name
-        sfx = name[len(base):]
-        if base in COL or base in ROW:
-            out[name] = shard_linear(child, base in COL, rank, tp, f"{path}.{name}")
-        elif base.startswith(FUSED):
-            plain = next(f for f in FUSED if base.startswith(f))
-            degree = int(base[len(plain) + len("_tp"):]) if base != plain else 1
-            if degree != tp:
-                raise ValueError(
-                    f"{path}.{name}: fused projection layout tp={degree} != mesh model axis "
-                    f"{tp}; re-fuse with quant.fuse_serving_projections(tp={tp})")
-            out[plain + sfx] = shard_linear(child, True, rank, tp, f"{path}.{name}")
+def local_llm_config(llm, tp: int, rank: int):
+    """The LLM geometry one "model" rank computes: its heads and MLP
+    intermediate, at the model's head dim. The vocabulary stays whole: the
+    rank's embedding and head rows are a vocab slice, gathered per call."""
+    hs = head_split(llm.num_attention_heads, llm.num_key_value_heads, tp, rank)
+    if llm.intermediate_size % tp:
+        raise ValueError(f"MLP intermediate {llm.intermediate_size} does not split over "
+                         f"model={tp}")
+    return dataclasses.replace(llm, num_attention_heads=hs.Hl, num_key_value_heads=hs.Hkl,
+                               intermediate_size=llm.intermediate_size // tp,
+                               head_dim_override=llm.head_dim)
+
+
+def vocab_range(V: int, tp: int, rank: int) -> Tuple[int, int]:
+    """(first row, rows) of the vocab slice of rank ``rank``."""
+    if V % tp:
+        raise ValueError(f"vocab {V} does not split over model={tp}")
+    return rank * (V // tp), V // tp
+
+
+def _fused_ranges(widths, local, ftp: int) -> List[Tuple[int, int]]:
+    """Rows of a fused leaf laid out as ``ftp`` shard blocks (each the join
+    of every part's block-th column shard; ``quant._cat``) that hold the
+    ``local`` (start, length) range of each part, in part order."""
+    W = sum(widths)
+    out: List[Tuple[int, int]] = []
+    off = 0
+    for w, (a, n) in zip(widths, local):
+        per = w // ftp
+        j = a
+        while j < a + n:  # one run per shard block the range crosses
+            s, within = divmod(j, per)
+            take = min(per - within, a + n - j)
+            start = s * (W // ftp) + off // ftp + within
+            if out and out[-1][0] + out[-1][1] == start:
+                out[-1] = (out[-1][0], out[-1][1] + take)
+            else:
+                out.append((start, take))
+            j += take
+        off += w
     return out
 
 
-def tp_layer_view(layer: nn.Module, rank: int, tp: int, path: str = "layer") -> Dict:
-    """One decoder layer as this "model" rank sees it: ``{"attn": {...},
-    "mlp": {...}, "mlp_moe_gen": {...}}`` of sharded projections, the norms
-    (whole) under their own names."""
-    attn = layer.self_attn
-    view = {"attn": _shard_children(attn, rank, tp, path + ".self_attn")}
-    for name in ("q_norm", "k_norm", "q_norm_moe_gen", "k_norm_moe_gen"):
-        if hasattr(attn, name):
-            view["attn"][name] = getattr(attn, name)
-    for name in ("mlp", "mlp_moe_gen"):
-        if hasattr(layer, name):
-            mlp = getattr(layer, name)
-            view[name] = _shard_children(mlp, rank, tp, f"{path}.{name}")
-            view[name]["act"], view[name]["act_is_silu"] = mlp.act, mlp.act_is_silu
-    for name in ("input_layernorm", "post_attention_layernorm", "input_layernorm_moe_gen",
-                 "post_attention_layernorm_moe_gen"):
-        if hasattr(layer, name):
-            view[name] = getattr(layer, name)
-    return view
+def leaf_ranges(key: str, shape, llm, tp: int, rank: int) -> Optional[Ranges]:
+    """The part of the tensor ``key`` (a name of the model's state dict,
+    released or quantized: ``.weight``, ``.bias``, ``.weight_q``, ``.scale``)
+    that "model" rank ``rank`` of ``tp`` holds, as ``bagel_param_specs``
+    places it (unimedvl_tpu/parallel/mesh.py): None for a whole tensor.
+
+    Column-parallel leaves (``q k v gate up`` of both experts and the fused
+    ``qkv`` / ``gate_up``, any shard layout) keep their output rows: the
+    rank's heads (:func:`head_split`) or its intermediate slice, and the same
+    columns of a per-column or group ``scale``. Row-parallel leaves (``o``,
+    ``down``) keep their input columns: the packed bytes of an int4 weight
+    (two in-rows a byte, so a contiguous byte range is a contiguous in
+    range), the groups of a [G, N] scale (the range must be whole groups, or
+    it raises with the group count; the JAX spec cannot place such a leaf
+    either); a per-column scale stays whole. The embedding and the lm_head
+    keep a vocab slice of rows. Norms, biases of row-parallel leaves (none in
+    this model) and everything outside the LLM stay whole."""
+    if tp == 1:
+        return None
+    module, leaf = key.rsplit(".", 1)
+    shape = tuple(shape)
+    if module in (EMBED, HEAD):
+        if leaf == "bias":
+            raise ValueError(f"{key}: a vocab-parallel head with a bias is not supported")
+        return 0, [vocab_range(shape[-1] if leaf == "scale" else shape[0], tp, rank)]
+    if not module.startswith("language_model.model.layers."):
+        return None
+    name = module.rsplit(".", 1)[1]
+    base = name[: -len("_moe_gen")] if name.endswith("_moe_gen") else name
+    hs = head_split(llm.num_attention_heads, llm.num_key_value_heads, tp, rank)
+    D, I = llm.head_dim, llm.intermediate_size
+    part = {"q_proj": (hs.q0 * D, hs.Hl * D), "k_proj": (hs.kv0 * D, hs.Hkl * D),
+            "v_proj": (hs.kv0 * D, hs.Hkl * D), "gate_proj": (rank * I // tp, I // tp),
+            "up_proj": (rank * I // tp, I // tp), "o_proj": (hs.q0 * D, hs.Hl * D),
+            "down_proj": (rank * I // tp, I // tp)}
+    col_dim = 0 if leaf in ("weight", "weight_q", "bias") else len(shape) - 1
+    if base in COL:
+        return col_dim, [part[base]]
+    for fused in FUSED:
+        if base == fused or base.startswith(fused + "_tp"):
+            ftp = 1 if base == fused else int(base[len(fused) + 3:])
+            if fused == "qkv_proj":
+                widths = (llm.num_attention_heads * D,) + (llm.num_key_value_heads * D,) * 2
+                local = [part["q_proj"], part["k_proj"], part["v_proj"]]
+            else:
+                widths, local = (I, I), [part["gate_proj"], part["up_proj"]]
+            return col_dim, _fused_ranges(widths, local, ftp)
+    if base not in ROW:
+        return None
+    a, n = part[base]
+    K = (llm.num_attention_heads * D) if base == "o_proj" else I
+    if leaf == "bias":
+        raise ValueError(f"{key}: a row-parallel projection with a bias is not supported")
+    if leaf == "weight":
+        return 1, [(a, n)]
+    if leaf == "weight_q":
+        packed = shape[1] * 2 == K
+        if packed and (a % 2 or n % 2):
+            raise ValueError(f"{key}: in range [{a}, {a + n}) splits a packed byte")
+        return 1, [(a // 2, n // 2) if packed else (a, n)]
+    if leaf == "scale" and len(shape) == 2:  # group scales [G, N]: the in-range's groups
+        G = shape[0]
+        g = K // G
+        if a % g or n % g:
+            raise ValueError(
+                f"{key}: {G} groups of {g} in-rows do not split over model={tp} (a row-parallel "
+                f"rank holds {n} in-rows); quantize per channel, or with a group that divides "
+                f"{n}")
+        return 0, [(a // g, n // g)]
+    return None
 
 
-def shard_kv_heads(t: torch.Tensor, rank: int, tp: int) -> torch.Tensor:
-    """The kv-head slice [L, S, Hk / tp, M, D] of a cache tensor for one
-    "model" rank, as a view."""
-    return _narrow(t, 2, rank, tp, "KV cache")
+def take_ranges(t, ranges: Optional[Ranges]):
+    """The part ``ranges`` of ``t``: ``t`` itself for None or a range that
+    covers it, a view for one range, a new tensor for several (None for a
+    missing tensor, a bias-free leaf's)."""
+    if ranges is None or t is None:
+        return t
+    dim, parts = ranges
+    if len(parts) == 1:
+        a, n = parts[0]
+        return t if (a, n) == (0, t.shape[dim]) else t.narrow(dim, a, n)
+    return torch.cat([t.narrow(dim, a, n) for a, n in parts], dim=dim)
+
+
+def _local_key(key: str, tp: int) -> str:
+    """A fused leaf's name in a rank's model: every shard layout becomes the
+    plain ``qkv_proj`` / ``gate_up_proj`` (a rank holds its own shard block,
+    in part order) when tp > 1."""
+    if tp == 1:
+        return key
+    return re.sub(r"\.(qkv_proj|gate_up_proj)_tp\d+(_moe_gen)?\.", r".\1\2.", key)
+
+
+def shard_state(state: Dict[str, torch.Tensor], llm, mesh: "Mesh") -> Dict[str, torch.Tensor]:
+    """The rank's part of every tensor of a whole model's state dict, under
+    the names of the rank's model (:func:`_local_key`); with one "model"
+    rank the tensors themselves. Quantized row-parallel weights are made
+    dense (the integer matmuls and K4 read them so)."""
+    tp, rank = mesh.shape.get("model", 1), mesh.coords.get("model", 0)
+    if tp > 1 and any(k.endswith(".lora_a") for k in state):
+        raise ValueError("a model with LoRA adapters cannot be sharded over 'model': "
+                         "training.lora.merge_lora first")
+    out = {}
+    for key, t in state.items():
+        part = take_ranges(t, leaf_ranges(key, t.shape, llm, tp, rank))
+        if key.endswith(".weight_q") and part is not t:
+            part = part.contiguous()
+        out[_local_key(key, tp)] = part
+    return out
+
+
+def fused_degree(keys) -> int:
+    """The shard layout of a state dict's fused leaves: 0 unfused, else N of
+    ``qkv_proj_tpN`` (1 for the plain ``qkv_proj``)."""
+    m = re.search(r"\.qkv_proj(_tp(\d+))?\.", " ".join(keys))
+    return 0 if m is None else int(m.group(2) or 1)
+
+
+class VocabParallelEmbedding(nn.Module):
+    """The token embedding of one "model" rank: rows [start, start + n) of the
+    table as ``weight``. A lookup takes the rank's rows (zeros for the ids of
+    other ranks) and sums over "model", which gives every rank the whole
+    lookup exactly (each id is found on one rank)."""
+
+    def __init__(self, weight: torch.Tensor, start: int, mesh: "Mesh"):
+        super().__init__()
+        self.weight = nn.Parameter(weight, requires_grad=False)
+        self.start = start
+        self.mesh = mesh
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        local = ids - self.start
+        mine = (local >= 0) & (local < self.weight.shape[0])
+        rows = torch.nn.functional.embedding(local.clamp(0, self.weight.shape[0] - 1),
+                                             self.weight)
+        out = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                             device=rows.device))
+        self.mesh.all_reduce(out, "model")
+        return out
+
+
+def _row_parallel(path: str) -> bool:
+    name = path.rsplit(".", 1)[-1]
+    return (name[: -len("_moe_gen")] if name.endswith("_moe_gen") else name) in ROW
+
+
+def attach_mesh(model, mesh: "Mesh") -> None:
+    """Mark a rank's model as one shard of ``mesh``: every decoder layer sums
+    its attention and MLP outputs over "model", the lm_head gathers the
+    vocab slices, and a row-parallel projection that quantizes its input
+    takes the whole row's absmax (an all-reduce-max over "model") as the JAX
+    mesh program's ``max(|x|)`` over a sharded axis does."""
+    from unimedvl_tpu_torch.models.layers import QuantLinear
+
+    lm = model.language_model
+    lm.mesh = mesh
+    for layer in lm.model.layers:
+        layer.mesh = mesh
+    if mesh.shape.get("model", 1) > 1:
+        reduce_max = functools.partial(mesh.all_reduce, axis="model", op=dist.ReduceOp.MAX)
+        for path, mod in lm.named_modules():
+            if isinstance(mod, QuantLinear) and mod.act_quant and _row_parallel(path):
+                mod.reduce_max = reduce_max
+
+
+def build_rank_model(state: Dict[str, torch.Tensor], cfg, mesh: "Mesh", device, dtype,
+                     quant_modes: Optional[Dict[str, str]] = None):
+    """A rank's Bagel around its shard ``state`` (names and shapes as
+    :func:`shard_state` gives them): the LLM built at the rank's geometry
+    (:func:`local_llm_config`), a :class:`VocabParallelEmbedding`, a vocab
+    slice of the lm_head, and :func:`attach_mesh`. ``model.config.llm`` is
+    the rank's geometry with the whole vocabulary; the pipeline and the
+    batcher size their caches from it."""
+    from unimedvl_tpu_torch.weights import loader
+
+    tp, rank = mesh.shape.get("model", 1), mesh.coords.get("model", 0)
+    llm = local_llm_config(cfg.llm, tp, rank)
+    v0, Vl = vocab_range(cfg.llm.vocab_size, tp, rank)
+    build_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(llm, vocab_size=Vl))
+    modes = {_local_key(k + ".", tp)[:-1]: m for k, m in (quant_modes or {}).items()}
+
+    def prepare(model):
+        lm = model.language_model
+        if tp > 1 or any(g is not None for g in mesh.groups.values()):
+            lm.model.embed_tokens = VocabParallelEmbedding(
+                lm.model.embed_tokens.weight, v0, mesh)
+        lm.vocab_start = v0
+
+    model = loader._build(state, build_cfg, device, dtype, modes, fused_degree(state),
+                          prepare=prepare)
+    model.config = dataclasses.replace(cfg, llm=llm)
+    attach_mesh(model, mesh)
+    return model
+
+
+def _quant_modes(model) -> Dict[str, str]:
+    from unimedvl_tpu_torch.models.layers import QuantLinear
+
+    return {path: mod.mode for path, mod in model.named_modules()
+            if isinstance(mod, QuantLinear)}
+
+
+def place_params(model, mesh: "Mesh"):
+    """This rank's model of ``mesh`` from a whole Bagel (the counterpart of
+    ``unimedvl_tpu/weights/bagel_loader.py::place_params``): the LLM's
+    projections of both experts sharded over "model" (views of the whole
+    model's tensors; a dense copy for a quantized row-parallel weight), the
+    embedding and the lm_head over the vocabulary, the ViT, the VAE, the
+    connector and the position tables shared whole. With one "model" rank
+    every tensor is the model's own: nothing is copied. The whole model is
+    left as it was, and can serve beside the placed one."""
+    if "model" not in mesh.shape:
+        raise ValueError(f"place_params needs a 'model' axis, got {mesh.axis_names}")
+    norm = model.language_model.model.norm.weight
+    state = shard_state(dict(model.state_dict(keep_vars=True)), model.config.llm, mesh)
+    state = {k: v.detach() for k, v in state.items()}
+    return build_rank_model(state, model.config, mesh, norm.device, norm.dtype,
+                            _quant_modes(model))
+
+
+def stream_range(mesh: "Mesh", n_streams: int) -> Tuple[int, int]:
+    """(first, count) of the ``n_streams`` streams (KV-cache slots, CFG
+    streams) this rank runs: a contiguous share over "data" when the data
+    degree divides them, as the JAX package shards them there, else all of
+    them on every data rank. The one place of this rule: the batcher's slots,
+    the grouped denoise's streams and :func:`kv_cache_spec` take it here."""
+    dp, d = mesh.shape.get("data", 1), mesh.coords.get("data", 0)
+    if n_streams % dp:
+        return 0, n_streams
+    return d * (n_streams // dp), n_streams // dp
+
+
+def kv_head_range(cfg, mesh: "Mesh") -> Tuple[int, int]:
+    """(first, count) of the kv heads of the whole model ``cfg`` that this
+    "model" rank computes and caches (:func:`head_split`)."""
+    hs = head_split(cfg.llm.num_attention_heads, cfg.llm.num_key_value_heads,
+                    mesh.shape.get("model", 1), mesh.coords.get("model", 0))
+    return hs.kv0, hs.Hkl
+
+
+def kv_cache_spec(cfg, mesh: "Mesh", n_streams: int) -> Dict[str, object]:
+    """How a KV cache of ``n_streams`` of the whole model ``cfg`` shards on
+    ``mesh``, as the JAX package's ``kv_cache_spec`` / ``_cache_spec`` read:
+    streams over "data" (:func:`stream_range`), kv heads over "model"
+    (:func:`kv_head_range`). ``{"streams": (first, count), "kv_heads":
+    (first, count)}`` for this rank."""
+    return {"streams": stream_range(mesh, n_streams), "kv_heads": kv_head_range(cfg, mesh)}
+
+
+def shard_kv_heads(cache, cfg, mesh: "Mesh"):
+    """This "model" rank's kv heads of a ``KVCache`` built by the whole model
+    ``cfg`` (values and scales, as views; every stream kept)."""
+    h0, nh = kv_head_range(cfg, mesh)
+    heads = lambda t: None if t is None else t[:, :, h0:h0 + nh]  # noqa: E731
+    return dataclasses.replace(cache, k=heads(cache.k), v=heads(cache.v),
+                               k_scale=heads(cache.k_scale), v_scale=heads(cache.v_scale))
+
+
+def shard_cache(cache, cfg, mesh: "Mesh"):
+    """This rank's part of a whole ``KVCache`` (:func:`kv_cache_spec`), as
+    views: its streams and its kv heads of values and scales."""
+    s0, ns = stream_range(mesh, cache.k.shape[1])
+    cache = shard_kv_heads(cache, cfg, mesh)
+    streams = lambda t: None if t is None else t[:, s0:s0 + ns]  # noqa: E731
+    return dataclasses.replace(
+        cache, k=streams(cache.k), v=streams(cache.v), lens=cache.lens[s0:s0 + ns],
+        k_scale=streams(cache.k_scale), v_scale=streams(cache.v_scale))
 
 
 # ---------------------------------------------------------------------------

@@ -3,15 +3,20 @@ unimedvl_tpu/parallel/sp_denoise.py): the rectified-flow loop of
 ``models.bagel.generate_latents`` as one program over a ``("model", "seq")``
 mesh of ranks, each a process with its own device.
 
-Every rank calls :func:`generate_latents_tp_sp` with the full inputs and its
-own :class:`~unimedvl_tpu_torch.parallel.mesh.Mesh`; the function slices the
-noise, the position embeddings, the weights and the cache for that rank and
-returns the full latent on every rank.
+Every rank calls :func:`generate_latents_tp_sp` with its own model, its own
+kv heads of the context cache, the full noise and latent inputs and its own
+:class:`~unimedvl_tpu_torch.parallel.mesh.Mesh`; the function slices the noise
+and the position embeddings for that rank and returns the full latent on
+every rank.
 
-  * Megatron tensor parallelism over "model": the attention heads and the MLP
-    intermediate of both MoT experts narrow per rank
-    (``mesh.tp_layer_view``); two all-reduces per layer on the local
-    [S, nloc + 2, C] activations.
+  * Megatron tensor parallelism over "model": the model is this rank's shard
+    (``parallel.mesh.place_params``: the attention heads and the MLP
+    intermediate of both MoT experts, a vocab slice of the embedding), or
+    the whole model when "model" has one rank; the cache holds the rank's kv
+    heads (``parallel.mesh.shard_kv_heads`` of a whole one). Two all-reduces
+    per layer on the local [S, nloc + 2, C] activations. A full-int8 or w4a8
+    row-parallel projection quantizes its input over the rank's features
+    (per-rank scales), as the JAX shard_map program does.
   * The n latent tokens shard over "seq". The two text rows (<vision_start>,
     <vision_end>) are replicated on every seq rank, so each local block keeps
     the [start, latents..., end] packing contract and the MoT row routing of
@@ -54,7 +59,7 @@ from unimedvl_tpu_torch.ops.act_quant import silu_mul_quant
 from unimedvl_tpu_torch.ops.attention import combine_attention_partials
 from unimedvl_tpu_torch.ops.flash_attention import flash_block_attention
 from unimedvl_tpu_torch.ops.rope import apply_rope_one, rope_cos_sin
-from unimedvl_tpu_torch.parallel.mesh import Mesh, shard_kv_heads, tp_layer_view
+from unimedvl_tpu_torch.parallel.mesh import FUSED, Mesh
 
 
 def gather_block(t: torch.Tensor, mesh: Mesh):
@@ -72,11 +77,11 @@ def gather_block(t: torch.Tensor, mesh: Mesh):
 
 def _sp_attention(
     x: torch.Tensor,  # [S, lT, C] local block [start, latent chunk, end], normed
-    lp: Dict,  # this rank's view of the layer (mesh.tp_layer_view)
+    lp: Dict,  # this rank's layer (_layer_view)
     cfg,
     cos_q: torch.Tensor,  # [S, 1, D]: one rope position per stream
     sin_q: torch.Tensor,
-    k_cache: torch.Tensor,  # [S, Hk / tp, M, D] local kv-head slice (head-major)
+    k_cache: torch.Tensor,  # [S, Hkl, M, D] this rank's kv heads (head-major)
     v_cache: torch.Tensor,
     lens: torch.Tensor,
     n_global: int,  # latent tokens over all seq ranks
@@ -92,23 +97,16 @@ def _sp_attention(
     partial, whose kernel runs while they are in flight."""
     S, lT, _ = x.shape
     D = cfg.head_dim
+    Hl, Hkl = cfg.num_attention_heads, cfg.num_key_value_heads  # the rank's own
     ap = lp["attn"]
 
     def proj(name):
         return _mot_rows(x, ap[name], ap[name + "_moe_gen"], True, None)
 
-    if "qkv_proj" in ap:
-        # fused serving layout: one projection per expert; the local columns are this
-        # rank's [q_s|k_s|v_s] block, split by the local head counts (from the local
-        # fused width: inside this program the shard degree is the mesh's)
-        fused = proj("qkv_proj")
-        heads_tot = cfg.num_attention_heads + 2 * cfg.num_key_value_heads
-        tp_deg = (heads_tot * D) // fused.shape[-1]
-        Hl, Hkl = cfg.num_attention_heads // tp_deg, cfg.num_key_value_heads // tp_deg
-        q, k, v = fused.split([Hl * D, Hkl * D, Hkl * D], dim=-1)
+    if "qkv_proj" in ap:  # fused serving layout: the rank's [q|k|v] columns
+        q, k, v = proj("qkv_proj").split([Hl * D, Hkl * D, Hkl * D], dim=-1)
     else:
         q, k, v = proj("q_proj"), proj("k_proj"), proj("v_proj")
-        Hl, Hkl = q.shape[-1] // D, k.shape[-1] // D
     q = q.reshape(S, lT, Hl, D).contiguous()  # the kernels read q dense
     k = k.reshape(S, lT, Hkl, D)
     v = v.reshape(S, lT, Hkl, D)
@@ -178,10 +176,59 @@ def _mot_one_text_row(x, und_fn, gen_fn, gen_mode: bool, text_row: Optional[int]
     return y
 
 
+def _per_rank_scales(mod):
+    """A row-parallel projection (o, down) as the JAX shard_map program runs
+    it: one that quantizes its input takes the absmax over this rank's
+    features only, with no all-reduce-max (ROADMAP's recorded difference
+    "Full-int8 on a mesh is a different function"); others as they are."""
+    if isinstance(mod, QuantLinear) and mod.act_quant:
+        return lambda t: quant.quantized_linear_preq(*quant.quantize_activations(t), mod,
+                                                     t.dtype)
+    return mod
+
+
+def _layer_view(layer, path: str, tp: int) -> Dict:
+    """One decoder layer of this rank's model as the denoise reads it:
+    ``{"attn": {...}, "mlp": {...}, "mlp_moe_gen": {...}}`` of its
+    projections of both experts (a fused one under its plain name) and q/k
+    norms, the MLPs' activations and the layer norms, the row-parallel
+    projections through :func:`_per_rank_scales`. A fused leaf laid out for
+    a "model" degree (``_tpN``) raises: a rank's model holds its own block
+    (``parallel.mesh.place_params``)."""
+    def projections(module, where):
+        out = {}
+        for name, child in module._modules.items():
+            base = name[: -len("_moe_gen")] if name.endswith("_moe_gen") else name
+            fused = next((f for f in FUSED if base.startswith(f)), None)
+            if fused is not None and base != fused:
+                raise ValueError(
+                    f"{where}.{name}: fused projection layout tp={base[len(fused) + 3:]} != mesh "
+                    f"model axis {tp}; give this rank's shard (parallel.mesh.place_params), or "
+                    f"re-fuse with quant.fuse_serving_projections(tp=1)")
+            if base in ("o_proj", "down_proj"):
+                out[name + "_per_rank"] = _per_rank_scales(child)
+            out[name] = child
+        return out
+
+    attn = layer.self_attn
+    view = {"attn": projections(attn, f"{path}.self_attn")}
+    for name in ("mlp", "mlp_moe_gen"):
+        if hasattr(layer, name):
+            mlp = getattr(layer, name)
+            view[name] = projections(mlp, f"{path}.{name}")
+            view[name]["act"], view[name]["act_is_silu"] = mlp.act, mlp.act_is_silu
+    for name in ("input_layernorm", "post_attention_layernorm", "input_layernorm_moe_gen",
+                 "post_attention_layernorm_moe_gen"):
+        if hasattr(layer, name):
+            view[name] = getattr(layer, name)
+    return view
+
+
 def _mlp_fn(norm, mv: Dict):
     """norm -> gate/up -> act -> down on this rank's MLP shard; the result is
     a partial sum over "model". A down projection that quantizes its input
-    takes K3 (silu * mul * quant in one pass), as ``Qwen2MLP`` does."""
+    takes K3 (silu * mul * quant in one pass, per-rank scales), as
+    ``Qwen2MLP`` does on one device."""
     down = mv["down_proj"]
 
     def f(t):
@@ -193,7 +240,7 @@ def _mlp_fn(norm, mv: Dict):
         if isinstance(down, QuantLinear) and down.act_quant and mv["act_is_silu"]:
             xq, xs = silu_mul_quant(g, u)
             return quant.quantized_linear_preq(xq, xs, down, t.dtype)
-        return down(mv["act"](g) * u)
+        return mv["down_proj_per_rank"](mv["act"](g) * u)
 
     return f
 
@@ -221,7 +268,7 @@ def _sp_decoder_layer(
 
     lT = x.shape[1]
     if overlap_chunks <= 1 or lT < 4:
-        o = _mot_rows(attn_ctx, ap["o_proj"], ap["o_proj_moe_gen"], True, None)
+        o = _mot_rows(attn_ctx, ap["o_proj_per_rank"], ap["o_proj_moe_gen_per_rank"], True, None)
         mesh.all_reduce(o, "model")  # the Megatron row-parallel reduction
         x = residual + o
         if dedup:
@@ -235,7 +282,7 @@ def _sp_decoder_layer(
         return x + h
 
     def o_proj(ctx, text_row):
-        return _mot_one_text_row(ctx, ap["o_proj"], ap["o_proj_moe_gen"], True,
+        return _mot_one_text_row(ctx, ap["o_proj_per_rank"], ap["o_proj_moe_gen_per_rank"], True,
                                  text_row).contiguous()
 
     def mlp_block(xc, text_row):
@@ -275,7 +322,7 @@ def _denoise_body(
     views: list,  # this model rank's view of every layer
     se: torch.Tensor,  # [2, C] start / end token embeddings
     pos_emb: torch.Tensor,  # [nloc, C] local latent position embeddings
-    caches: KVCache,  # local kv-head slices [L, S, Hk / tp, M, D]
+    caches: KVCache,  # this rank's kv heads [L, S, Hkl, M, D]
     positions: torch.Tensor,  # [S]
     noise: torch.Tensor,  # [nloc, p*p*z]
     schedule,  # host arrays (ts, dts, text_scales, img_scales, runs)
@@ -328,6 +375,8 @@ def _denoise_body(
 
 
 def _check_layout(model: Bagel, caches: KVCache, n: int, mesh: Mesh, axes: Tuple[str, ...]):
+    """The model must be this "model" rank's (a whole model only when the
+    axis has one rank) and the caches must hold its kv heads."""
     if mesh.axis_names != axes:
         raise ValueError(f"the mesh must have the axes {axes}, got {mesh.axis_names}")
     if caches.quantized:
@@ -337,9 +386,19 @@ def _check_layout(model: Bagel, caches: KVCache, n: int, mesh: Mesh, axes: Tuple
     tp, sp = mesh.shape["model"], mesh.shape["seq"]
     if n % sp:
         raise ValueError(f"{n} latent tokens do not split over seq={sp}")
-    if llm.num_key_value_heads % tp or llm.num_attention_heads % tp:
-        raise ValueError(f"{llm.num_attention_heads}/{llm.num_key_value_heads} heads do not "
-                         f"split over model={tp}")
+    placed = getattr(model.language_model, "mesh", None)
+    if placed is None and tp > 1:
+        raise ValueError(f"over model={tp} the denoise takes this rank's model: "
+                         "parallel.mesh.place_params(model, mesh)")
+    if placed is not None and (placed.shape.get("model", 1), placed.coords.get("model", 0)) != (
+            tp, mesh.coords["model"]):
+        raise ValueError(
+            f"the model is the shard of model rank {placed.coords.get('model', 0)} of "
+            f"{placed.shape.get('model', 1)}; this mesh wants rank {mesh.coords['model']} "
+            f"of {tp}: the two meshes must span the same ranks in the same order")
+    if caches.k.shape[2] != llm.num_key_value_heads:
+        raise ValueError(f"the caches hold {caches.k.shape[2]} kv heads, this rank's model "
+                         f"{llm.num_key_value_heads}: parallel.mesh.shard_kv_heads")
     if not llm.mot_attention:
         raise ValueError("the sequence-parallel denoise routes through the MoT gen twins: "
                          "the config needs mot_attention")
@@ -357,21 +416,18 @@ def _schedule(num_timesteps, timestep_shift, cfg_text_scale, cfg_img_scale, cfg_
 
 def _denoise_on_rank(model, caches, positions, latent_pos_ids, init_noise, start_end_ids, mesh,
                      schedule, statics, overlap_chunks, overlap_gather, dedup_text_mlp):
-    """Slice everything for this rank, run its part, and gather the latents
-    over "seq": the full [n, p*p*z] on every rank."""
-    tp, sp = mesh.shape["model"], mesh.shape["seq"]
-    m_rank, s_rank = mesh.coords["model"], mesh.coords["seq"]
+    """Slice the latent rows for this seq rank, run its part, and gather the
+    latents over "seq": the full [n, p*p*z] on every rank."""
+    sp, s_rank = mesh.shape["seq"], mesh.coords["seq"]
     n = init_noise.shape[0]
     nloc = n // sp
     rows = slice(s_rank * nloc, (s_rank + 1) * nloc)
     lm = model.language_model
-    views = [tp_layer_view(layer, m_rank, tp, f"layers.{i}")
+    views = [_layer_view(layer, f"layers.{i}", mesh.shape["model"])
              for i, layer in enumerate(lm.model.layers)]
-    local = KVCache(k=shard_kv_heads(caches.k, m_rank, tp),
-                    v=shard_kv_heads(caches.v, m_rank, tp), lens=caches.lens)
     x0 = _denoise_body(
         model, views, mot.embed_tokens(lm, start_end_ids),
-        model.latent_pos_embed.pos_embed[latent_pos_ids][rows], local, positions,
+        model.latent_pos_embed.pos_embed[latent_pos_ids][rows], caches, positions,
         init_noise[rows], schedule, n, statics, mesh, overlap_chunks=overlap_chunks,
         overlap_gather=overlap_gather, dedup_text_mlp=dedup_text_mlp,
     )
@@ -380,8 +436,8 @@ def _denoise_on_rank(model, caches, positions, latent_pos_ids, init_noise, start
 
 @torch.no_grad()
 def generate_latents_tp_sp(
-    model: Bagel,
-    caches: KVCache,  # [L, S_cfg, Hk, M, D], whole, on this rank's device
+    model: Bagel,  # this "model" rank's (parallel.mesh.place_params); whole at model=1
+    caches: KVCache,  # [L, S_cfg, Hkl, M, D]: this rank's kv heads, on its device
     positions: torch.Tensor,  # [S_cfg]
     latent_pos_ids: torch.Tensor,  # [n]
     init_noise: torch.Tensor,  # [n, p*p*z]
@@ -401,10 +457,10 @@ def generate_latents_tp_sp(
     dedup_text_mlp: bool = True,
 ) -> torch.Tensor:
     """The rectified-flow denoise over a ("model", "seq") mesh; the same
-    function as ``models.bagel.generate_latents`` (any (tp, sp) with
-    ``num_key_value_heads % tp == 0`` and ``n % sp == 0``). Called by every
-    rank of the mesh with the same full inputs; returns x_0 [n, p*p*z] fp32 on
-    every rank.
+    function as ``models.bagel.generate_latents`` (any (tp, sp) whose heads
+    ``parallel.mesh.head_split`` splits, with ``n % sp == 0``). Called by
+    every rank of the mesh with its model and kv heads and the same full
+    latent inputs; returns x_0 [n, p*p*z] fp32 on every rank.
 
     ``overlap_chunks``: 2 (default) splits each layer's chain after the
     attention into two row-independent chunks whose all-reduces over "model"
@@ -429,7 +485,7 @@ def generate_latents_tp_sp(
 @torch.no_grad()
 def generate_latents_dp_tp_sp(
     model: Bagel,
-    group_caches,  # list[G] of KVCache [L, S_cfg, Hk, M, D], of one geometry
+    group_caches,  # list[G] of KVCache [L, S_cfg, Hkl, M, D] (this rank's kv heads)
     group_positions,  # list[G] of [S_cfg]
     group_latent_pos_ids,  # list[G] of [n]
     group_init_noise,  # list[G] of [n, p*p*z]
@@ -450,7 +506,8 @@ def generate_latents_dp_tp_sp(
 ) -> torch.Tensor:
     """G = mesh.shape["data"] independent images denoised at once, each on its
     own ("model", "seq") sub-mesh; the groups share the schedule and the CFG
-    settings and have one geometry. Every rank is given every group's inputs
+    settings and have one geometry. ``model``: this rank's, as for
+    :func:`generate_latents_tp_sp`. Every rank is given every group's inputs
     and runs its own group's program (the data axis carries no collective
     until the end); returns x_0 stacked [G, n, p*p*z] on every rank."""
     G = mesh.shape.get("data", 0)

@@ -35,9 +35,11 @@ The weights are buffers and take none.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from unimedvl_tpu_torch.ops.w4_matmul import pack_int4, unpack_int4, w4_matmul_autograd
@@ -48,8 +50,8 @@ EXPERTS = ("", "_moe_gen")
 INT_MM_MIN_ROWS = 17  # torch._int_mm takes more than 16 rows
 
 
-def quantize_weight(weight: torch.Tensor, bits: int = 8,
-                    group_size: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight(weight: torch.Tensor, bits: int = 8, group_size: int = 0,
+                    reduce_max=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-output-channel intN quantization of a [.., out, in]
     weight: ``scale = max(absmax, 1e-8) / qmax`` over the in dim, ``q =
     clip(round_half_even(w / scale), -qmax, qmax)``, in fp32.
@@ -57,7 +59,12 @@ def quantize_weight(weight: torch.Tensor, bits: int = 8,
     ``bits=8``: (int8 [.., out, in], fp32 scale [.., out]). ``bits=4``: the
     values packed two to a byte along the in dim, (int8 [.., out, in/2],
     scale). ``group_size`` (bits=4 only): one scale for each block of
-    ``group_size`` in-rows of an output channel; scale [.., in/group, out]."""
+    ``group_size`` in-rows of an output channel; scale [.., in/group, out].
+
+    ``reduce_max``: for an in dim sharded over ranks (a row-parallel shard),
+    reduces the per-channel absmax to the whole row's in place, so that every
+    rank quantizes its columns with the scale of the whole weight (group
+    scales need none: a rank holds whole groups)."""
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     if group_size and bits != 4:
@@ -74,6 +81,8 @@ def quantize_weight(weight: torch.Tensor, bits: int = 8,
         scale = scale.squeeze(-1).transpose(-1, -2).contiguous()  # [.., G, out]
     else:
         absmax = w32.abs().amax(dim=-1, keepdim=True)
+        if reduce_max is not None:
+            reduce_max(absmax)
         scale = torch.clamp_min(absmax, 1e-8) / qmax
         q = torch.clamp(torch.round(w32 / scale), -qmax, qmax).to(torch.int8)
         scale = scale.squeeze(-1)
@@ -165,11 +174,14 @@ def quantized_linear(x: torch.Tensor, p) -> torch.Tensor:
     return y
 
 
-def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_activations(x: torch.Tensor, reduce_max=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-token int8: (x_q int8, x_scale fp32 [..., 1]),
-    absmax over the feature dim."""
+    absmax over the feature dim. ``reduce_max``: for a feature dim sharded
+    over ranks, reduces the partial absmax to the whole row's, in place."""
     x32 = x.float()
     absmax = x32.abs().amax(dim=-1, keepdim=True)
+    if reduce_max is not None:
+        reduce_max(absmax)
     scale = torch.clamp_min(absmax, 1e-8) / 127.0
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -179,7 +191,7 @@ def quantized_linear_act(x: torch.Tensor, p) -> torch.Tensor:
     """Full-int8 (``qa``) and w4a8 (``p4a``) matmul: x is quantized per token,
     the product is integer, and ``x_scale`` and the weight scale rescale it in
     fp32."""
-    xq, xs = quantize_activations(x)
+    xq, xs = quantize_activations(x, getattr(p, "reduce_max", None))
     return quantized_linear_preq(xq, xs, p, x.dtype)
 
 
@@ -218,14 +230,20 @@ def mode_name(bits: int, act_quant: bool) -> str:
 
 
 @torch.no_grad()
-def _quantize_module(lin: nn.Module, bits: int, act_quant: bool, group_size: int):
+def _quantize_module(lin: nn.Module, bits: int, act_quant: bool, group_size: int,
+                     reduce_max=None):
     """A quantized leaf for a bf16 ``nn.Linear``, or for a ``LoRALinear`` over
     one: its adapter rides along on the quantized base (the same parameters),
-    as the JAX package carries ``lora_a`` / ``lora_b`` / ``lora_s`` across."""
+    as the JAX package carries ``lora_a`` / ``lora_b`` / ``lora_s`` across.
+    ``reduce_max``: the leaf is a row-parallel shard (see
+    :func:`quantize_weight`); an act-quant leaf keeps it for its
+    activations' scales."""
     from unimedvl_tpu_torch.models.layers import LoRALinear, QuantLinear  # layers imports this
 
-    q, scale = quantize_weight(lin.weight, bits, group_size)
+    q, scale = quantize_weight(lin.weight, bits, group_size, reduce_max)
     base = QuantLinear(mode_name(bits, act_quant), q, scale, lin.bias)
+    if act_quant:
+        base.reduce_max = reduce_max
     if isinstance(lin, LoRALinear):
         return LoRALinear(base, lin.lora_a, lin.lora_b, float(lin.lora_s))
     return base
@@ -242,9 +260,18 @@ def quantize_llm_params(lm, act_quant: bool = False, bits: int = 8, group_size: 
     ``p4a``): the same stored bytes, another forward. ``bits=4`` packs int4
     (``group_size``: group-wise scales); the lm_head stays int8 even then:
     the logits are the step's accuracy-critical tail. A projection that
-    carries a LoRA adapter becomes an adapted quantized projection (QLoRA)."""
+    carries a LoRA adapter becomes an adapted quantized projection (QLoRA).
+
+    A rank's shard of a mesh (``parallel.mesh.place_params``) quantizes its
+    shard: the row-parallel projections with the whole row's per-channel
+    absmax (an all-reduce-max over "model"), so every rank holds its part of
+    the whole model's quantized weights."""
     from unimedvl_tpu_torch.models.layers import LoRALinear
 
+    mesh = getattr(lm, "mesh", None)
+    row_reduce = None
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        row_reduce = functools.partial(mesh.all_reduce, axis="model", op=dist.ReduceOp.MAX)
     for layer in lm.model.layers:
         for parent in (layer.self_attn, layer.mlp, getattr(layer, "mlp_moe_gen", None)):
             if parent is None:
@@ -254,8 +281,9 @@ def quantize_llm_params(lm, act_quant: bool = False, bits: int = 8, group_size: 
                     lin = getattr(parent, key + sfx, None)
                     if isinstance(lin, nn.Linear) or (isinstance(lin, LoRALinear)
                                                       and lin.mode is None):
+                        reduce = row_reduce if key in ("o_proj", "down_proj") else None
                         setattr(parent, key + sfx,
-                                _quantize_module(lin, bits, act_quant, group_size))
+                                _quantize_module(lin, bits, act_quant, group_size, reduce))
     lm.lm_head = _quantize_module(lm.lm_head, 8, act_quant, 0)
     return lm
 

@@ -10,6 +10,11 @@ Usage:
       [--out out.png] [--image input.png] [--size 512] [--steps 50] \\
       [--cfg-text 3.0 --cfg-img 1.5 --renorm global] [--think] [--spec] \\
       [--int8-kv | --int4-kv] [--int8 | --act-int8] [--w4 [--w4-group 512]] [--fused]
+  torchrun --nproc-per-node N -m unimedvl_tpu_torch.scripts.interactive_image_generator ... \\
+      --tp T --dp D        (a ("data", "model") mesh of N = T * D ranks; --dp 3 puts the
+                            three CFG streams on their own ranks)
+      --tp T --sp S        (the sequence-parallel denoise over a ("model", "seq") mesh of
+                            N = T * S ranks; prefill and decode run whole on every rank)
 """
 
 from __future__ import annotations
@@ -53,12 +58,11 @@ def parse_args(argv=None):
                          "pre-pass (greedy-exact)")
     ap.add_argument("--seed", type=int, default=DEFAULT_CONFIG["seed"])
     ap.add_argument("--sp", type=int, default=1,
-                    help="not ported (ROADMAP queue 1, M13): one card serves one rank")
+                    help="sequence-parallel degree of the denoise: with --tp T the T * S "
+                         "ranks form a (model, seq) mesh and the latents shard over seq")
     args = ap.parse_args(argv)
-    common.refuse_unported(args)
-    if args.sp > 1:
-        sys.exit("--sp: a sequence-parallel mesh over several cards is not ported (ROADMAP "
-                 "queue 1, what remains of M13); one card serves one rank")
+    if args.sp > 1 and args.dp > 1:
+        sys.exit("--sp takes --tp, not --dp (a (model, seq) mesh)")
     return args
 
 
@@ -82,9 +86,19 @@ def build(args):
     from unimedvl_tpu_torch.config import TransformConfig
     from unimedvl_tpu_torch.data.imaging import ImageTransform
     from unimedvl_tpu_torch.inference import InterleaveInferencer
+    from unimedvl_tpu_torch.parallel.mesh import make_mesh
+    from unimedvl_tpu_torch.utils import get_logger
 
     t0 = time.time()
-    model, tokenizer, new_token_ids = common.load(args)
+    mesh = sp_mesh = None
+    if args.sp > 1:  # every rank holds the whole model; the denoise shards it
+        rank = common.init_ranks(args, args.tp * args.sp)
+        sp_mesh = make_mesh(("model", "seq"), (args.tp, args.sp))
+        model, tokenizer, new_token_ids = common.load(args, fuse_tp=args.tp)
+    else:
+        rank = common.init_ranks(args, args.tp * args.dp)
+        mesh = common.make_mesh(args)
+        model, tokenizer, new_token_ids = common.load(args, mesh)
     tvae, tvit = TransformConfig.vae_interactive(), TransformConfig.vit_interactive()
     inferencer = InterleaveInferencer(
         model, tokenizer, new_token_ids,
@@ -92,8 +106,11 @@ def build(args):
                                      tvae.max_pixels),
         vit_transform=ImageTransform(tvit.max_size, tvit.min_size, tvit.stride,
                                      tvit.max_pixels),
-        seed=args.seed, spec_decode=args.spec, **common.kv_options(args))
-    print(f"model loaded in {time.time() - t0:.1f} s on {inferencer.device}", file=sys.stderr)
+        seed=args.seed, mesh=mesh, sp_mesh=sp_mesh, spec_decode=args.spec,
+        **common.kv_options(args))
+    if rank == 0:
+        get_logger("unimedvl_tpu_torch.interactive_image_generator").info(
+            common.loaded_message(t0, inferencer))
     return inferencer
 
 
@@ -106,8 +123,8 @@ def main(argv=None):
     t0 = time.time()
     for item in inferencer.interleave_inference(inputs, **recipe(args)):
         if isinstance(item, str):
-            print(f"[think] {item}")
-        else:
+            common.say(f"[think] {item}")
+        elif common.is_rank0():
             item.save(args.out)
             print(f"[{time.time() - t0:.2f}s] saved {args.out} ({item.size[0]}x{item.size[1]})")
 

@@ -10,6 +10,8 @@ Usage:
       [--max-length 512] [--sample --temperature 0.3] [--think] [--stream] \\
       [--spec] [--int8-kv | --int4-kv] [--int8 | --act-int8] [--w4 [--w4-group 512]] \\
       [--fused]
+  torchrun --nproc-per-node N -m unimedvl_tpu_torch.scripts.interactive_vqa ... \\
+      --tp T --dp D        (N = T * D ranks; every rank loads its shard, rank 0 prints)
 """
 
 from __future__ import annotations
@@ -44,20 +46,23 @@ def parse_args(argv=None):
     ap.add_argument("--spec", action="store_true",
                     help="prompt-lookup speculative decoding (greedy-exact)")
     ap.add_argument("--seed", type=int, default=DEFAULT_CONFIG["seed"])
-    args = ap.parse_args(argv)
-    common.refuse_unported(args)
-    return args
+    return ap.parse_args(argv)
 
 
 def build(args):
     from unimedvl_tpu_torch.inference import InterleaveInferencer
+    from unimedvl_tpu_torch.utils import get_logger
 
     t0 = time.time()
-    model, tokenizer, new_token_ids = common.load(args)
+    rank = common.init_ranks(args, args.tp * args.dp)
+    mesh = common.make_mesh(args)
+    model, tokenizer, new_token_ids = common.load(args, mesh)
     inferencer = InterleaveInferencer(
         model, tokenizer, new_token_ids, vit_transform=common.vit_transform(), seed=args.seed,
-        spec_decode=args.spec, **common.kv_options(args))
-    print(f"model loaded in {time.time() - t0:.1f} s on {inferencer.device}", file=sys.stderr)
+        mesh=mesh, spec_decode=args.spec, **common.kv_options(args))
+    if rank == 0:
+        get_logger("unimedvl_tpu_torch.interactive_vqa").info(
+            common.loaded_message(t0, inferencer))
     return inferencer
 
 
@@ -81,18 +86,20 @@ def main(argv=None):
                                                       vae=False, vit=True)
             ctx = inferencer.update_context_text(prompt, ctx)
             for piece in inferencer.gen_text_stream(ctx, max_length=args.max_length):
-                print(piece, end="", flush=True)
-            print(f"\n[{time.time() - t0:.2f}s]")
+                common.say(piece, end="", flush=True)
+            common.say(f"\n[{time.time() - t0:.2f}s]")
             return
         else:
             out = inferencer.chat([Image.open(p) for p in images], prompt,
                                   max_length=args.max_length, do_sample=args.sample,
                                   temperature=args.temperature)
-        print(f"[{time.time() - t0:.2f}s] {out}")
+        common.say(f"[{time.time() - t0:.2f}s] {out}")
 
     if args.prompt:
         answer(args.image, args.prompt)
         return
+    if args.tp * args.dp > 1:
+        sys.exit("the REPL reads one terminal: on a mesh, pass --prompt")
 
     print("Interactive VQA. Commands: /image <path>  /clear  /quit")
     images = list(args.image)

@@ -56,22 +56,40 @@ def run_denoise_calls(rank: int, world: int, axes, sizes, models, calls: List[Di
     ``generate_latents_dp_tp_sp``). ``models``: a Bagel, or a dict of them by
     name. A call is ``{"inputs": (k, v, lens, positions, pos_ids, noise,
     start_end) or a list of such per group, "kw": keyword arguments,
-    "grouped": bool, "model": a name of ``models``}``, tensors on the CPU.
-    Returns the latents as numpy arrays, one per call."""
+    "grouped": bool, "model": a name of ``models``}``, tensors on the CPU,
+    the caches whole. Each whole model is placed once (this rank's shard,
+    ``parallel.mesh.place_params``) when "model" has several ranks, and each
+    cache narrowed to the rank's kv heads. Returns the latents as numpy
+    arrays, one per call."""
     mesh = pmesh.make_mesh(axes, sizes)
+    placed = {}
+
+    def rank_model(name, whole):
+        if mesh.shape["model"] == 1:
+            return whole
+        if name not in placed:
+            placed[name] = pmesh.place_params(whole, mesh)
+        return placed[name]
+
     out = []
     for call in calls:
-        model = models[call["model"]] if isinstance(models, dict) else models
+        name = call.get("model")
+        whole = models[name] if isinstance(models, dict) else models
+        model = rank_model(name, whole)
+
+        def cache(k, v, lens):
+            return pmesh.shard_kv_heads(_cache(k, v, lens), whole.config, mesh)
+
         if call.get("grouped"):
             groups = call["inputs"]
             got = sp_denoise.generate_latents_dp_tp_sp(
-                model, [_cache(*g[:3]) for g in groups], [g[3] for g in groups],
+                model, [cache(*g[:3]) for g in groups], [g[3] for g in groups],
                 [g[4] for g in groups], [g[5] for g in groups], groups[0][6], mesh,
                 **call["kw"])
         else:
             k, v, lens, positions, pos_ids, noise, se = call["inputs"]
             got = sp_denoise.generate_latents_tp_sp(
-                model, _cache(k, v, lens), positions, pos_ids, noise, se, mesh, **call["kw"])
+                model, cache(k, v, lens), positions, pos_ids, noise, se, mesh, **call["kw"])
         out.append(got.numpy())
     return out
 

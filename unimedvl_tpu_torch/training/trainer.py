@@ -221,10 +221,12 @@ def make_train_step(
     unit variances) that each step replaces with the mean of its sequences'
     new statistics (over the accumulated batches too).
 
-    ``mesh`` / ``fsdp`` (sharding over several cards) are not ported."""
+    ``mesh`` / ``fsdp`` (sharding over several cards) are not ported yet:
+    the training half of M13 is the next slice (ROADMAP queue 1)."""
     if mesh is not None or fsdp:
         raise NotImplementedError(
-            "make_train_step(mesh=..., fsdp=...): sharded training is ROADMAP slice M13; this "
+            "make_train_step(mesh=..., fsdp=...): sharded training is the next slice of M13 "
+            "(ROADMAP queue 1: make_train_step(mesh=, fsdp=), parallel/pp_train.py); this "
             "step runs on one card"
         )
     if accum_steps < 1:

@@ -53,11 +53,13 @@ _KEEP_DTYPE_SUFFIXES = (".weight_q", ".scale", ".lora_s")
 
 
 def _build(state: Dict[str, torch.Tensor], cfg: BagelConfig, device, dtype,
-           quant_modes: Optional[Dict[str, str]] = None, fused_tp: int = 0) -> Bagel:
+           quant_modes: Optional[Dict[str, str]] = None, fused_tp: int = 0,
+           prepare=None) -> Bagel:
     """A Bagel around ``state``. ``quant_modes``: module path -> mode of
     every quantized linear in ``state`` (its ``weight_q`` and ``scale`` shape
     the leaf); ``fused_tp``: the LLM's q/k/v and gate/up are fused leaves of
-    that shard degree (1: plain; 0: not fused)."""
+    that shard degree (1: plain; 0: not fused); ``prepare``: called with the
+    model before the state is assigned (a mesh rank's module swaps)."""
     with_vae = any(k.startswith(_VAE) for k in state)
     model = Bagel(cfg, device="meta", dtype=dtype, with_vae=with_vae)
     if fused_tp:
@@ -76,6 +78,8 @@ def _build(state: Dict[str, torch.Tensor], cfg: BagelConfig, device, dtype,
             return v.to(device=device)
         return v.to(device=device, dtype=torch.float32 if k.startswith(_VAE) else dtype)
 
+    if prepare is not None:
+        prepare(model)
     state = {k: placed(k, v) for k, v in state.items()}
     model.load_state_dict(state, strict=True, assign=True)  # keeps requires_grad=False
     return model
@@ -244,19 +248,27 @@ def _to_torch(a: np.ndarray) -> torch.Tensor:
 
 
 def from_jax_params(tree: Dict, cfg: BagelConfig, device="cuda",
-                    dtype: torch.dtype = torch.float32) -> Bagel:
+                    dtype: torch.dtype = torch.float32, mesh=None) -> Bagel:
     """A Bagel holding the JAX tree's weights (numpy leaves, e.g.
     ``jax.tree.map(np.asarray, bagel.init_params(...))``), bf16 or quantized,
     fused or not, with or without LoRA adapters, as the tree is. Like the
     other loaders it places the model on the card unless the caller names
-    another device, and raises when there is none."""
+    another device, and raises when there is none. ``mesh``: this rank's
+    shard of a ``parallel.mesh.Mesh`` (``parallel.mesh.place_params``'s
+    model), with only the rank's part of each sharded leaf moved to
+    ``device``."""
+    from unimedvl_tpu_torch.parallel import mesh as pmesh
+
     device = _target_device(device)
     quant_modes: Dict[str, str] = {}
     sd = jax_tree_to_state_dict(tree, cfg, quant_modes)
-    fused = re.search(r"\.qkv_proj(_tp(\d+))?\.", " ".join(sd))
-    fused_tp = 0 if fused is None else int(fused.group(2) or 1)
+    if mesh is not None:
+        state = pmesh.shard_state({k: _to_torch(v) for k, v in sd.items()}, cfg.llm, mesh)
+        return pmesh.build_rank_model({k: v.contiguous() for k, v in state.items()}, cfg, mesh,
+                                      device, dtype, quant_modes)
     return _build({k: _to_torch(v) for k, v in sd.items()}, cfg, device, dtype,
-                  quant_modes, fused_tp)
+                  quant_modes, pmesh.fused_degree(sd))
+
 
 
 # ---------------------------------------------------------------------------
@@ -325,6 +337,7 @@ def load_bagel_checkpoint(
     act_quant: bool = False,
     quantize_group: int = 0,
     base_dir: Optional[str] = None,
+    mesh=None,
 ) -> Bagel:
     """Read a released checkpoint directory (``llm_config.json``,
     ``vit_config.json``, ``ema.safetensors`` or ``model.safetensors``, sharded
@@ -342,8 +355,19 @@ def load_bagel_checkpoint(
 
     ``base_dir``: a base checkpoint merged under the fine-tune in
     ``ckpt_dir``, whose keys win (reference eval/vlm/utils.py:281-317; the
-    JAX package's ``MergedReader``); the VAE still comes from ``ckpt_dir``."""
+    JAX package's ``MergedReader``); the VAE still comes from ``ckpt_dir``.
+
+    ``mesh``: a ``parallel.mesh.Mesh`` with a "model" axis; every rank of it
+    calls this and gets its shard (``parallel.mesh.place_params``'s model):
+    each tensor the mesh shards is read as the rank's ranges of it
+    (``safe_open(...).get_slice``), so no rank holds a whole sharded tensor
+    on the host or on the device. Quantizing a row-parallel projection's
+    shard per channel takes the whole row's absmax (an all-reduce-max over
+    "model"): every rank holds its part of the whole model's quantized
+    weights."""
     from safetensors import safe_open
+
+    from unimedvl_tpu_torch.parallel import mesh as pmesh
 
     device = _target_device(device)
     if cfg is None:
@@ -360,19 +384,34 @@ def load_bagel_checkpoint(
     state: Dict[str, torch.Tensor] = {}
     quant_modes: Dict[str, str] = {}
     handles = {}
+    tp = 1 if mesh is None else mesh.shape.get("model", 1)
+    rank = 0 if mesh is None else mesh.coords.get("model", 0)
+    row_reduce = None
+    if tp > 1:
+        import functools
+
+        import torch.distributed as dist
+
+        row_reduce = functools.partial(mesh.all_reduce, axis="model", op=dist.ReduceOp.MAX)
     try:
         for key in wanted:
             path = files[key]
             if path not in handles:
                 handles[path] = safe_open(path, framework="pt").__enter__()
-            t = handles[path].get_tensor(key)
+            if mesh is None:
+                t = handles[path].get_tensor(key)
+            else:
+                sl = handles[path].get_slice(key)
+                t = _read_ranges(sl, pmesh.leaf_ranges(key, sl.get_shape(), cfg.llm, tp, rank))
             if key.endswith("patch_embedding.weight") and t.dim() == 4:
                 t = t.permute(0, 2, 3, 1).reshape(t.shape[0], -1)
             module = key[: -len(".weight")]
             if quantize_bits is not None and _is_quantized_weight(key):
                 head = module == "language_model.lm_head"  # int8 whatever the bits
                 bits, group = (8, 0) if head else (quantize_bits, quantize_group)
-                q, scale = quant.quantize_weight(t.to(device=device, dtype=dtype), bits, group)
+                row = module.endswith(("o_proj", "o_proj_moe_gen", "down_proj"))
+                q, scale = quant.quantize_weight(t.to(device=device, dtype=dtype), bits, group,
+                                                 row_reduce if row else None)
                 state[module + ".weight_q"], state[module + ".scale"] = q, scale
                 quant_modes[module] = quant.mode_name(bits, act_quant)
             else:
@@ -383,7 +422,22 @@ def load_bagel_checkpoint(
     ae_path = os.path.join(ckpt_dir, "ae.safetensors")
     if cfg.visual_gen and cfg.vae is not None and os.path.exists(ae_path):
         state.update({_VAE + k: v for k, v in _read_ae(ae_path).items()})
+    if mesh is not None:
+        return pmesh.build_rank_model(state, cfg, mesh, device, dtype, quant_modes)
     return _build(state, cfg, device, dtype, quant_modes)
+
+
+def _read_ranges(sl, ranges) -> torch.Tensor:
+    """A safetensors slice's ``ranges`` (``parallel.mesh.leaf_ranges``; None:
+    the whole tensor), read from the file and nothing else."""
+    if ranges is None:
+        return sl[:]
+    dim, parts = ranges
+    if dim == 0:
+        pieces = [sl[a:a + n] for a, n in parts]
+    else:
+        pieces = [sl[:, a:a + n] for a, n in parts]
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=dim)
 
 
 def _is_quantized_weight(key: str) -> bool:
