@@ -51,7 +51,7 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   K3 at m 8), two ``chat_turn``s and a ``gen_text_stream``; every answer gated
   against chat's up to near-ties; K1a at the verify block's shapes (T 8);
 - the training path: LoRA steps (rank 16, every projection of both experts)
-  over the frozen 28-layer model, on packed batches of synthetic VQA,
+  over the frozen model cut to ``LORA_LAYERS`` layers, on packed batches of synthetic VQA,
   text-to-image and editing examples (980 px and 378 px understanding
   images, 512 px generation images) from ``PackedBatchIterator`` through
   ``Prefetcher``; then full fine-tune steps (gradient accumulation 2, EMA)
@@ -63,7 +63,7 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   calls really run (a group that cannot start fails the run), every layer's
   attention as a cache partial and a block partial (K1c twice) merged by
   their log-sum-exps;
-- the serving paths under ``mesh=`` (M13, serving side) on a one-rank
+- the serving paths under ``mesh=`` (M13's serving side) on a one-rank
   ("data", "model") NCCL mesh over the same model: the three chat requests,
   run A's 24 requests through ``ContinuousBatcher(mesh=...)``, run F's bf16
   eval through ``run_vqa_eval(mesh=...)`` and a 512x512 text-to-image request
@@ -74,7 +74,15 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   (K4 at the shard shapes, K3's second entry with the row scales all-reduced
   with MAX), held to the one-rank model; the sharded loader on a 2-layer
   checkpoint at the 14B width; and every kernel at a rank's shapes for tp 2
-  and 4 (``check_shard_shapes``);
+  and 4 (``check_shard_shapes``; K5 at a TP-2 rank's 14 / 2 heads);
+- training on a mesh (run K, M13's training side) at the full width and the
+  fine-tune's depth: the TP x DP step on a one-rank NCCL mesh, bit-equal to
+  the step without a mesh; then over two processes sharing the card (gloo,
+  each building only its shard of the same seeded weights) a TP-2 step, an
+  FSDP step over two data ranks and a GPipe step over two stages, each held
+  to the one-rank step's loss and gradients at a bound set from the floor
+  measured in the same call (kernels against plain versions), with the
+  replicated tensors bit-equal on both ranks after two more steps;
 
 and checks that every kernel call of each path went through the kernels, and
 that each path's output agrees with the same computation on the kernels'
@@ -423,7 +431,7 @@ def check_kernels() -> dict:
     timings["decode_attention_int8"]["int4_cases"] = check_int4_decode(g, randn, ints)
     shard_rows, timings["silu_mul_quant_global"] = check_shard_shapes(g, randn, ints)
     for name, rows in shard_rows.items():
-        timings[name]["shard_cases"] = rows
+        timings.setdefault(name, {})["shard_cases"] = rows
     return timings
 
 
@@ -3762,6 +3770,7 @@ def check_shard_shapes(g, randn, ints) -> dict:
                 **b))  # no one PyTorch call
             del gu
     torch.cuda.empty_cache()
+    out.update(check_k5_shard_shapes(g))
     rows = out.pop("silu_mul_quant_global")
     main = dict(rows[2])  # tp 2, R 4902: the image prefill's down shard
     main.pop("case")
@@ -3769,6 +3778,34 @@ def check_shard_shapes(g, randn, ints) -> dict:
     main["one_row_ms"], main["one_row_ms_back_to_back"] = rows[0]["ms"], rows[0]["ms_back_to_back"]
     main["shard_cases"] = rows
     return out, main
+
+
+# K5 at a TP-2 rank's heads (14 / 2) on packed layouts like the training batches': (sample
+# lens, split lens, modes) at T 4096 (a 512 px edit's latents beside a 378 px VQA) and T 6144
+# (a 980 px VQA beside a 512 px edit)
+K5_SHARD_LAYOUTS = (
+    ([1095, 3001], [40, 1026, 29, 33, 729, 2239], ["causal", "noise", "causal", "causal", "full",
+                                                   "causal"]),
+    ([4949, 1195], [24, 4900, 25, 40, 1026, 129], ["causal", "full", "causal", "causal", "noise",
+                                                   "causal"]),
+)
+
+
+def check_k5_shard_shapes(g) -> dict:
+    """K5 (forward, dq, dk/dv) at the heads one rank of a TP-2 training mesh
+    gives it at the 14B width (14 / 2), at T 4096 and T 6144, against its
+    plain version, timed beside SDPA on the same mask and the card's bound.
+    Returns {K5 kernel name: rows} for ``shard_cases``."""
+    out = {"packed_train_attention_" + k: [] for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    for layout in K5_SHARD_LAYOUTS:
+        ids = tuple(torch.from_numpy(a).to(DEVICE) for a in packed_segment_ids(*layout))
+        T = ids[0].shape[0]
+        rows = _k5_case(f"tp 2 rank, 14/2 heads, T {T}", ids, g, timed=True, heads=(14, 2))
+        for key, row in rows.items():
+            out["packed_train_attention_" + key].append(dict(case=f"tp 2, 14/2 heads, T {T}",
+                                                             **row))
+    torch.cuda.empty_cache()
+    return out
 
 
 def one_rank_mesh(axes, rendezvous_dir: str):
@@ -3953,14 +3990,20 @@ def _mesh_grouped(inf: InterleaveInferencer, tmp: str) -> dict:
 
 TP_RANKS = 2
 TP_REQUEST = 0  # the 980x980 chat request
+# the TP-2 bf16 logits' cosine bound: 1 - factor x (1 - the one-rank model's bf16-vs-fp32-attention
+# cosine measured in the same call), as VELOCITY_COS_TOL was set; the w4a8 run stays at
+# LOGITS_COS_TOL (its int8 roundings move with the partial sums' order)
+TP_FLOOR_FACTOR = 2.0
 TP_W4A8_LENGTH = 8  # the w4a8 answer's length: its launches, not a second answer, are the point
 
 
-def _tp_gate(name: str, ref_logits: torch.Tensor, ref_steps, got: dict) -> float:
+def _tp_gate(name: str, ref_logits: torch.Tensor, ref_steps, got: dict, cos_bound: float
+             ) -> float:
     """A TP rank's first-step logits against the one-rank model's (cosine at
-    LOGITS_COS_TOL), and its greedy ids against the one-rank ids up to the
-    first step whose top-2 gap lies within NEAR_TIE_FACTOR x the largest
-    first-step logit difference (printed). Returns that floor."""
+    ``cos_bound``, set from the floor measured in the same call), and its
+    greedy ids against the one-rank ids up to the first step whose top-2 gap
+    lies within NEAR_TIE_FACTOR x the largest first-step logit difference
+    (printed). Returns that floor."""
     logits = torch.from_numpy(got["logits"]).to(ref_logits.device)
     cos = torch.nn.functional.cosine_similarity(logits, ref_logits.float(), dim=0).item()
     diff = (logits - ref_logits.float()).abs().max().item()
@@ -3970,10 +4013,10 @@ def _tp_gate(name: str, ref_logits: torch.Tensor, ref_steps, got: dict) -> float
     while n < min(len(ids), len(want_ids)) and ids[n] == want_ids[n]:
         n += 1
     tie = next((i for i, ((v1, v2), _) in enumerate(ref_steps[1]) if v1 - v2 <= floor), None)
-    print(f"  {name}: first-step logits vs the one-rank model: cosine {cos:.6f}, max abs "
-          f"{diff:.4f}; ids agree for {n - 1} of {len(want_ids) - 1} tokens; the first near-tie "
-          f"step (top-2 gap <= {floor:.4f}) is {tie}", flush=True)
-    if cos < LOGITS_COS_TOL or not np.isfinite(got["logits"]).all():
+    print(f"  {name}: first-step logits vs the one-rank model: cosine {cos:.6f} (bound "
+          f"{cos_bound:.6f}), max abs {diff:.4f}; ids agree for {n - 1} of {len(want_ids) - 1} "
+          f"tokens; the first near-tie step (top-2 gap <= {floor:.4f}) is {tie}", flush=True)
+    if cos < cos_bound or not np.isfinite(got["logits"]).all():
         raise SystemExit(f"chip_smoke: {name}: the TP logits disagree with the one-rank model's")
     agree_to = len(want_ids) if tie is None else tie + 1
     if n < min(agree_to, len(ids), len(want_ids)):
@@ -4003,6 +4046,15 @@ def run_tp_program(inf: InterleaveInferencer) -> dict:
     image = _images()[TP_REQUEST]
     ref_steps = _chat_steps(inf, image, prompt, MAX_LENGTH)
     ref_bf16 = _first_step_logits(inf, image, prompt)
+    # the floor: the one-rank logits against the same with every attention in fp32
+    fp32 = _with_plain_versions(lambda: _first_step_logits(inf, image, prompt),
+                                fp32_attention=True)
+    floor_cos = _cosine(ref_bf16.float(), fp32.float())
+    cos_bound = 1 - TP_FLOOR_FACTOR * (1 - floor_cos)
+    print(f"  TP-2 logits bound: the one-rank first-step logits in bf16 vs with fp32 attention, "
+          f"cosine {floor_cos:.6f} (the floor); the ranks are held at 1 - {TP_FLOOR_FACTOR:g} "
+          f"(1 - floor) = {cos_bound:.6f}", flush=True)
+    del fp32
     vt = inf.vit_transform.resize_transform
     transform = (vt.max_size, vt.min_size, vt.stride, vt.max_pixels)
     torch.cuda.empty_cache()
@@ -4037,7 +4089,7 @@ def run_tp_program(inf: InterleaveInferencer) -> dict:
             if seen != want:
                 raise SystemExit(f"chip_smoke: TP rank {r} {mode} launched {seen}, not {want}")
             if mode == "bf16":
-                _tp_gate(f"TP rank {r} bf16", ref, ref_steps, run)
+                _tp_gate(f"TP rank {r} bf16", ref, ref_steps, run, cos_bound)
             else:
                 logits = torch.from_numpy(run["logits"]).to(ref.device)
                 cos = torch.nn.functional.cosine_similarity(logits, ref, dim=0).item()
@@ -4151,6 +4203,9 @@ def run_mesh_phase(inf: InterleaveInferencer, tmp: str) -> list:
 
 LORA_SEQ_LEN = 6144  # room for the 980 px VQA example (4900 patches) beside another
 LORA_RANK = 16
+# the LoRA and QLoRA steps' depth: cut from 28 when run K was added, to keep the smoke inside
+# its time limit; the width, the sequence and every gate stay
+LORA_LAYERS = 8
 FT_SEQ_LEN = 4096
 # full fine-tune: bf16 parameter + gradient + two moments + fp32 EMA are 12
 # bytes per trained parameter; both experts are 466 M parameters per layer,
@@ -4234,11 +4289,12 @@ def _grad_error(got: torch.Tensor, want: torch.Tensor, floor=None):
     return (diff / tol).max().item(), diff.max().item()
 
 
-def _k5_case(name, ids, g, timed: bool):
+def _k5_case(name, ids, g, timed: bool, heads=(28, 4)):
     """K5 (forward and the three gradients) against its plain version on one
-    set of segment ids, at the LLM's heads; with ``timed``, also the three
-    kernels' times, the plain version's, SDPA's and the card's bounds."""
-    H, Hk, D = 28, 4, 128
+    set of segment ids, at ``heads`` (query, kv; the LLM's by default); with
+    ``timed``, also the three kernels' times, the plain version's, SDPA's and
+    the card's bounds."""
+    (H, Hk), D = heads, 128
     T = ids[0].shape[0]
 
     def randn(h):
@@ -4528,10 +4584,29 @@ def _gate_replayed(name: str, model, first, g, step) -> None:
                          "step on the plain versions")
 
 
-def run_lora(inf: InterleaveInferencer, it, first) -> dict:
-    """The slice's full-depth path: adapters of rank 16 on every projection
-    of both experts of the 28-layer bf16 model, ``make_lora_train_step``."""
-    model, cfg = inf.model, inf.model.config
+def shallow_model(model, n_layers: int):
+    """``model`` cut to its first ``n_layers`` LLM layers at the full width:
+    new Bagel and LLM module objects around the same layer modules and
+    tensors, the configs' depth cut to match."""
+    if n_layers == model.config.llm.num_hidden_layers:
+        return model
+    lm = copy.copy(model.language_model)
+    inner = copy.copy(lm.model)
+    inner._modules = dict(inner._modules,
+                          layers=torch.nn.ModuleList(list(inner.layers)[:n_layers]))
+    inner.cfg = dataclasses.replace(inner.cfg, num_hidden_layers=n_layers)
+    lm._modules = dict(lm._modules, model=inner)
+    out = copy.copy(model)
+    out._modules = dict(model._modules, language_model=lm)
+    out.config = dataclasses.replace(model.config, llm=dataclasses.replace(
+        model.config.llm, num_hidden_layers=n_layers))
+    return out
+
+
+def run_lora(model, it, first) -> dict:
+    """Adapters of rank 16 on every projection of both experts of the bf16
+    model (LORA_LAYERS of its layers), ``make_lora_train_step``."""
+    cfg = model.config
     n_llm, n_vit = cfg.llm.num_hidden_layers, cfg.vit.num_hidden_layers
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     base = [(n, p) for n, p in model.named_parameters()]
@@ -4634,6 +4709,237 @@ def _finetune(model, it, freeze_und: bool) -> dict:
     elif not all(m > 0 for m in moved.values()):
         raise SystemExit("chip_smoke: the full fine-tune left an expert or the ViT unmoved")
     return launches
+
+
+# -- training on a mesh (run K): TP, FSDP and GPipe over two processes on the card ------------
+MESH_SEQS = 2  # the global batch: two packed sequences of FT_SEQ_LEN
+MESH_STEPS = 2  # steps after the gradient step
+# a program's loss and watched-gradient cosines against the one-rank step are held at a bound set
+# from the floor measured in the same call (the one-rank step with the kernels against the same
+# step with every kernel's plain version): cosine >= 1 - factor (1 - floor), loss relative
+# difference <= factor x the floor's, as VELOCITY_COS_TOL was set
+MESH_FLOOR_FACTOR = 2.0
+MESH_WATCH = (
+    "language_model.model.layers.0.mlp.gate_proj.weight",
+    "language_model.model.layers.0.mlp_moe_gen.gate_proj.weight",
+    f"language_model.model.layers.{FT_LAYERS - 1}.self_attn.o_proj.weight",
+    "language_model.model.embed_tokens.weight",
+    "vit_model.vision_model.encoder.layers.0.mlp.fc1.weight",
+)
+MESH_DTYPE = torch.bfloat16
+MESH_PROGRAMS = (  # name, axes, sizes, options
+    dict(name="TP 2", axes=("data", "model"), sizes=(1, 2)),
+    dict(name="FSDP over 2 data ranks", axes=("data", "model"), sizes=(2, 1), fsdp=True),
+    dict(name="GPipe, 2 stages", axes=("pipe",), sizes=(2,), pipe=True),
+)
+
+
+def _embed_ids(seqs) -> list:
+    """The token ids of the batch's text (the embedding rows with a gradient)."""
+    return sorted({int(i) for s in seqs for i in s["packed_text_ids"].tolist()})
+
+
+def _watched_loss_and_grads(model, seqs, noises, embed_ids):
+    """One one-rank step's mean loss and the gradients of MESH_WATCH (fp32; of
+    the embedding the rows of ``embed_ids``); the model's gradients are then
+    dropped."""
+    loss, _ = trainer.loss_fn(model, seqs, noises, backward_scale=1.0)
+    params = dict(model.named_parameters())
+    ids = torch.tensor(embed_ids, device=DEVICE)
+    grads = {n: (params[n].grad[ids] if n == pmesh.EMBED + ".weight" else params[n].grad)
+             .float() for n in MESH_WATCH}
+    for p in model.parameters():
+        p.grad = None
+    return float(loss), grads
+
+
+def _cos64(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The cosine of two large tensors with float64 sums (fp32 reductions over
+    tens of millions of entries lose the digits that these cosines need)."""
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b) / max(float(a.norm() * b.norm()), 1e-300)
+
+
+def _mesh_cosines(per_rank, i, prog, ref, embed_ids, llm) -> dict:
+    """Each watched gradient of program ``i`` against the reference's, over
+    the whole tensor: the ranks' parts joined by their dot products (a
+    tensor every rank holds whole counted once)."""
+    from unimedvl_tpu_torch.tools import dryrun_train
+
+    shape = dict(zip(prog["axes"], prog["sizes"]))
+    fsdp, pipe = prog.get("fsdp", False), prog.get("pipe", False)
+    row_of = {t: j for j, t in enumerate(embed_ids)}
+    out = {}
+    for name in MESH_WATCH:
+        dot = na = nb = 0.0
+        counted = False
+        for r in per_rank:
+            res = r[i]
+            if name not in res["grads"]:
+                continue
+            if dryrun_train.replicated(name, llm, shape, fsdp, pipe):
+                if counted:
+                    continue
+                counted = True
+            if name == dryrun_train.EMBED:
+                part = res["grads"][name]
+                got = dryrun_train.from_host(part["rows"]).to(DEVICE)
+                want = ref[name][[row_of[t] for t in part["ids"]]]
+                if fsdp:
+                    n = want.shape[1] // shape["data"]
+                    want = want[:, res["coords"]["data"] * n:(res["coords"]["data"] + 1) * n]
+            else:
+                got = dryrun_train.from_host(res["grads"][name]).to(DEVICE)
+                want = dryrun_train.rank_part(name, ref[name], llm, shape, res["coords"], fsdp)
+            got, want = got.double(), want.double()
+            dot += float((got * want).sum())
+            na += float(got.square().sum())
+            nb += float(want.square().sum())
+        out[name] = dot / max(math.sqrt(na * nb), 1e-30)
+    return out
+
+
+def _one_rank_nccl_step(model, seqs, noises, tmp) -> dict:
+    """The TP x DP step on a one-rank ("data", "model") NCCL mesh against the
+    same step without a mesh (on ``model``, then on a model built anew from
+    the same seed), on the same batch and noise: the loss and every
+    parameter after it bit for bit. Frees ``model``. Returns the K5 launches
+    of both steps."""
+    mesh = one_rank_mesh(("data", "model"), tmp)
+    sums, losses = [], []
+    reset_counts()
+    for placed in (False, True):
+        if placed:
+            model = pmesh.place_params(build_trainable(FT_LAYERS, False), mesh)
+        step, init_state = trainer.make_train_step(model.whole_config if placed else
+                                                   model.config, model,
+                                                   mesh=mesh if placed else None)
+        state = init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, seqs, noises=noises)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        print(f"  {'one-rank NCCL mesh' if placed else 'no mesh'}: loss {losses[-1]:.6f}, step "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        sums.append(_checksums(model.named_parameters()))
+        del model, state, step, init_state
+        gc.collect()
+        torch.cuda.empty_cache()
+    equal = sum(sums[0][n] == sums[1][n] for n in sums[0])
+    print(f"  the TP x DP step on the one-rank NCCL mesh vs without: loss equal "
+          f"{losses[0] == losses[1]}, parameters bit-equal {equal} of {len(sums[0])}",
+          flush=True)
+    if losses[0] != losses[1] or equal != len(sums[0]) or sums[0].keys() != sums[1].keys():
+        raise SystemExit("chip_smoke: the one-rank NCCL mesh step differs from the step without "
+                         "a mesh")
+    n = len(seqs) * FT_LAYERS * 2
+    return check_counts("the no-mesh and one-rank NCCL mesh steps", {
+        "packed_train_attention_fwd": 2 * n, "packed_train_attention_bwd_dq": n,
+        "packed_train_attention_bwd_dkv": n})
+
+
+def run_mesh_training(tok, new_token_ids, tmp: str) -> dict:
+    """Run K: training on a mesh at the full width and FT_LAYERS layers, bf16.
+    The one-rank reference first (the gradient step of MESH_SEQS packed
+    sequences of FT_SEQ_LEN with the kernels, and with the plain versions:
+    the floor), then the TP x DP step on a one-rank NCCL mesh against the
+    step without a mesh (bit for bit), then one spawn of two processes on
+    this card (gloo) running the programs of MESH_PROGRAMS in turn: each
+    builds its shard of the same seeded weights, takes the gradient step and
+    MESH_STEPS more. Gates per program: the loss and every watched
+    gradient's cosine against the reference at the floor's bound, every
+    loss finite, the tensors replicated over the mesh bit-equal on both
+    ranks after the steps, K5's launches on each rank as its layers,
+    sequences and recomputation give them. The walls measure gloo's host
+    staging on one card, not a multi-card figure. Returns the launches."""
+    from unimedvl_tpu_torch.tools import dryrun_train
+
+    model = build_trainable(FT_LAYERS, False)
+    trainer.set_trainable(model)
+    it = train_batches(model, tok, new_token_ids, train_examples(False), FT_SEQ_LEN)
+    try:
+        seqs = [s for _ in range(MESH_SEQS) for s in next(it)]
+    finally:
+        it.close(wait=True)
+    noises = _draw_noises(seqs, torch.Generator(device=DEVICE).manual_seed(SEED + 9))
+    ids = _embed_ids(seqs)
+    print(f"training on a mesh (run K): {FT_LAYERS} of 28 LLM layers at the full width, bf16, "
+          f"a batch of {len(seqs)} packed sequences ({', '.join(_describe(q) for q in seqs)}); "
+          f"the gradient step and {MESH_STEPS} more in each program", flush=True)
+    loss_k, ref = _watched_loss_and_grads(model, seqs, noises, ids)
+    loss_p, plain = _with_plain_versions(lambda: _watched_loss_and_grads(model, seqs, noises, ids))
+    floor_cos = {n: _cos64(ref[n], plain[n]) for n in MESH_WATCH}
+    floor_loss = abs(loss_k - loss_p) / abs(loss_p)
+    bounds = {n: 1 - MESH_FLOOR_FACTOR * (1 - c) for n, c in floor_cos.items()}
+    loss_bound = MESH_FLOOR_FACTOR * floor_loss
+    short = {n: n.replace("language_model.model.", "").replace("vit_model.vision_model.", "vit.")
+             for n in MESH_WATCH}
+    print(f"  one-rank reference, kernels vs plain versions (the floor): loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (rel {floor_loss:.3e}; programs held to {loss_bound:.3e}); cosines "
+          + ", ".join(f"{short[n]} {floor_cos[n]:.6f} (bound {bounds[n]:.6f})"
+                      for n in MESH_WATCH), flush=True)
+    llm = model.config.llm
+    del plain
+    paths = [_one_rank_nccl_step(model, seqs, noises, tmp)]
+    del model
+    host_seqs = [{k: v.cpu() for k, v in q.items()} for q in seqs]
+    host_noises = [None if n is None else n.cpu() for n in noises]
+    del seqs, noises
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(full_config(), llm=dataclasses.replace(
+        full_config().llm, num_hidden_layers=FT_LAYERS))
+    print(f"  {len(MESH_PROGRAMS)} programs over two processes on this card (gloo), one spawn: "
+          + "; ".join(f"{p['name']} {dict(zip(p['axes'], p['sizes']))}" for p in MESH_PROGRAMS),
+          flush=True)
+    t0 = time.perf_counter()
+    ranks = pmesh.run_on_ranks(dryrun_train.card_train_rank, 2, cfg, SEED, host_seqs,
+                               host_noises, MESH_PROGRAMS, MESH_WATCH, ids, MESH_STEPS, DEVICE,
+                               MESH_DTYPE, timeout_s=900.0)
+    wall = time.perf_counter() - t0
+    launches = {k: 0 for k in COUNTERS}
+    for i, prog in enumerate(MESH_PROGRAMS):
+        shape = dict(zip(prog["axes"], prog["sizes"]))
+        cos = _mesh_cosines(ranks, i, prog, ref, ids, llm)
+        for r, per in enumerate(ranks):
+            res = per[i]
+            n_seq = len(host_seqs) // shape.get("data", 1)
+            n = res["layers"] * n_seq * (1 + MESH_STEPS)
+            want = {"fwd": 2 * n, "bwd_dq": n, "bwd_dkv": n, "plain": 0}
+            print(f"  {prog['name']}, rank {r} {res['coords']}: losses "
+                  f"{[round(x, 6) for x in res['losses']]}; K5 launches {res['launches']} "
+                  f"(expected {want}: {res['layers']} layers x {n_seq} sequence(s) x "
+                  f"{1 + MESH_STEPS} steps, the forward twice); peak {res['peak_gib']:.1f} GiB; "
+                  f"build {res['build_s']:.1f} s, steps {res['steps_s']:.1f} s ({CARD})",
+                  flush=True)
+            if res["launches"] != want:
+                raise SystemExit(f"chip_smoke: {prog['name']} rank {r} launched K5 "
+                                 f"{res['launches']}, not {want}")
+            if not np.isfinite(res["losses"]).all():
+                raise SystemExit(f"chip_smoke: {prog['name']}: a loss is not finite")
+            for key, name in (("fwd", "packed_train_attention_fwd"),
+                              ("bwd_dq", "packed_train_attention_bwd_dq"),
+                              ("bwd_dkv", "packed_train_attention_bwd_dkv")):
+                launches[name] += res["launches"][key]
+        loss = ranks[0][i]["losses"][0]
+        rel = abs(loss - loss_k) / abs(loss_k)
+        names = [n for n in ranks[0][i]["checksums"]
+                 if dryrun_train.replicated(n, llm, shape, prog.get("fsdp", False),
+                                            prog.get("pipe", False))]
+        differ = [n for n in names if ranks[1][i]["checksums"].get(n) !=
+                  ranks[0][i]["checksums"][n]]
+        print(f"  {prog['name']}: gradient-step loss {loss:.6f} vs the one-rank {loss_k:.6f} "
+              f"(rel {rel:.3e}, bound {loss_bound:.3e}); watched gradients' cosine to the "
+              "one-rank step: " + ", ".join(f"{short[n]} {c:.6f}" for n, c in cos.items())
+              + f"; after {1 + MESH_STEPS} updates {len(names) - len(differ)} of {len(names)} "
+              "replicated tensors bit-equal on both ranks", flush=True)
+        if rel > loss_bound or any(c < bounds[n] for n, c in cos.items()) or differ:
+            raise SystemExit(f"chip_smoke: {prog['name']} disagrees with the one-rank step, or "
+                             f"its replicated tensors differ across ranks ({differ[:3]})")
+    print(f"  run K's programs: {wall:.1f} s for both ranks, one spawn (gloo's host staging on "
+          "one card, not a multi-card figure)", flush=True)
+    paths.append(launches)
+    return {k: sum(p.get(k, 0) for p in paths) for k in COUNTERS}
 
 
 # -- QLoRA: the quantized projections under autograd (run I) ----------------------------------
@@ -4774,21 +5080,22 @@ def qlora_model(model, **kw):
     return qmodel
 
 
-def run_qlora(inf: InterleaveInferencer, it, first) -> list:
-    """Run I: adapter training over a quantized copy of the 28-layer LLM,
+def run_qlora(inf_model, it, first) -> list:
+    """Run I: adapter training over a quantized copy of the LLM (LORA_LAYERS
+    layers),
     rank 16, in each of QLORA_MODES (the copy freed before the next):
     K4 forward and its backward route at every projection of both experts
     (weight-only w4), K3 forward and its backward route at every MLP's down
     (full-int8). Gates as run LoRA's: the first step against the same step
     on the plain versions, the base's bits unchanged, every lora_b moved,
     the launches against the forwards (recomputed once per layer)."""
-    cfg = inf.model.config
+    cfg = inf_model.config
     n_llm, n_vit = cfg.llm.num_hidden_layers, cfg.vit.num_hidden_layers
     paths = []
     for name, kw, targets, k4, k3 in QLORA_MODES:
         t0 = time.perf_counter()
         held = torch.cuda.memory_allocated()
-        model = qlora_model(inf.model, **kw)
+        model = qlora_model(inf_model, **kw)
         g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
         base = list(itertools.chain(model.named_parameters(), model.named_buffers()))
         before = _checksums(base)
@@ -4995,14 +5302,15 @@ def run_training(inf: InterleaveInferencer):
         ft_it.close(wait=True)
         timings = check_packed_train_attention(ft_first[0], first[0])
         backward = check_quant_backward(first[0])
+        small = shallow_model(inf.model, LORA_LAYERS)
         print(f"QLoRA training paths (run I): {TRAIN_STEPS} steps each over a quantized copy of "
-              f"the full-depth model, one packed sequence of {LORA_SEQ_LEN} tokens per step",
-              flush=True)
-        paths = run_qlora(inf, lora_it, first)
-        print(f"LoRA training path: {TRAIN_STEPS} steps over the full-depth model, one packed "
-              f"sequence of {LORA_SEQ_LEN} tokens per step", flush=True)
-        paths.append(run_lora(inf, lora_it, first))
-        print("training steps at the full depth, bf16 LoRA beside QLoRA (same call): "
+              f"the model at {LORA_LAYERS} of its 28 layers (full width), one packed sequence of "
+              f"{LORA_SEQ_LEN} tokens per step", flush=True)
+        paths = run_qlora(small, lora_it, first)
+        print(f"LoRA training path: {TRAIN_STEPS} steps over the model at {LORA_LAYERS} of its "
+              f"28 layers, one packed sequence of {LORA_SEQ_LEN} tokens per step", flush=True)
+        paths.append(run_lora(small, lora_it, first))
+        print(f"training steps at {LORA_LAYERS} layers, bf16 LoRA beside QLoRA (same call): "
               + json.dumps(STEP_STATS), flush=True)
         return timings, backward, paths
     finally:  # a worker left running would abort the interpreter's exit
@@ -5066,6 +5374,8 @@ def run(tmp: str) -> None:
     paths += run_spec_phase(inf)
     done("speculative decoding")
     train_timings, backward, train_paths = run_training(inf)
+    for name, row in train_timings.items():  # K5's rows at a TP rank's shapes stay
+        row["shard_cases"] = timings.get(name, {}).get("shard_cases")
     timings.update(train_timings)
     for name, cases in backward.items():
         timings[name]["backward_cases"] = cases
@@ -5076,6 +5386,9 @@ def run(tmp: str) -> None:
     torch.cuda.empty_cache()
     paths += run_full_finetune(tok, new_token_ids)
     done("training")
+    paths.append(run_mesh_training(tok, new_token_ids, tmp))
+    done("training on a mesh (run K: the one-rank NCCL step; TP, FSDP and GPipe over two "
+         "processes)")
     paths.append(run_e2e(tok, new_token_ids, tmp))
     done("e2e-VAE step, snapshot resume and export (run J)")
     flash = "unimedvl_tpu_torch/csrc/flash_block_attention.cu"

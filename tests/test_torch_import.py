@@ -3,7 +3,7 @@ and without a CUDA toolchain: it keeps its own config, tokenizer set-up and
 image preprocessing, and its own copy of the eval text metrics, and builds
 its kernels at the first CUDA launch. The
 multi-rank modules (``parallel/``, ``tools/dryrun_sp.py``,
-``tools/dryrun_mesh.py``) start no process
+``tools/dryrun_mesh.py``, ``tools/dryrun_train.py``) start no process
 group and no process when imported, and the HTTP front end
 (``inference/server.py``, ``scripts/``) starts no server. The same holds for ``chip_smoke.py``'s
 imports."""
@@ -56,6 +56,8 @@ import unimedvl_tpu_torch.inference.serving
 import unimedvl_tpu_torch.parallel
 import unimedvl_tpu_torch.parallel.mesh
 import unimedvl_tpu_torch.parallel.sp_denoise
+import unimedvl_tpu_torch.parallel.pp_train
+import unimedvl_tpu_torch.tools.dryrun_train
 import unimedvl_tpu_torch.tools.dryrun_sp
 import unimedvl_tpu_torch.tools.dryrun_mesh
 import unimedvl_tpu_torch.utils

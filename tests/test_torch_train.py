@@ -32,6 +32,7 @@ from unimedvl_tpu_torch.data import packing
 from unimedvl_tpu_torch.models import bagel
 from unimedvl_tpu_torch.ops import _launch, blockmask
 from unimedvl_tpu_torch.ops import flash_attention_train as fat
+from unimedvl_tpu_torch.parallel import mesh as pmesh
 from unimedvl_tpu_torch.training import trainer
 from unimedvl_tpu_torch.weights import loader
 
@@ -268,16 +269,21 @@ class TestTrainForward:
 
     def test_e2e_extras_raise(self, params):
         """The e2e-VAE extras are ported (tests/test_torch_e2e_vae.py): without
-        ``cfg.e2e`` a bn_state is ignored, as in the JAX package; sharding
-        still raises, naming M13."""
+        ``cfg.e2e`` a bn_state is ignored, as in the JAX package; a mesh step
+        refuses a model that is not a rank's model of its mesh, and FSDP
+        without a mesh (tests/test_torch_train_mesh.py runs the mesh steps)."""
         model = port_model(params)
         batch, key = make_batch(), jax.random.PRNGKey(1)
         plain = bagel.train_forward(model, batch, noise=replay_noise(key, batch))
         ignored = bagel.train_forward(model, batch, noise=replay_noise(key, batch),
                                       bn_state=object())
         assert float(ignored["loss"]) == float(plain["loss"]) and "bn_state" not in ignored
-        with pytest.raises(NotImplementedError, match="M13"):
-            trainer.make_train_step(port_config(CFG), model, mesh=object())
+        mesh = pmesh.Mesh(("data", "model"), {"data": 1, "model": 2}, 0,
+                          {"data": 0, "model": 0}, {"data": None, "model": None})
+        with pytest.raises(ValueError, match="not a rank's model of this mesh"):
+            trainer.make_train_step(port_config(CFG), model, mesh=mesh)
+        with pytest.raises(ValueError, match="fsdp=True"):
+            trainer.make_train_step(port_config(CFG), model, fsdp=True)
         cfg = dataclasses.replace(port_config(CFG), e2e=E2EVAEConfig(enable_batch_norm=True))
         state = trainer.make_train_step(cfg, model)[1]()  # the step keeps the BN state
         assert torch.equal(state.bn_state.var, torch.ones(CFG.vae.z_channels))

@@ -20,6 +20,15 @@ unimedvl_tpu/inference/server.py; standard library only).
   Text and image requests share the one engine. Cancellation reaches a
   pending request before any device work and an in-flight one at the next
   round boundary.
+
+On a mesh (``ServingDaemon(batcher, mesh=...)``, the batcher a
+``ContinuousBatcher(mesh=)`` on every rank) rank 0 runs the HTTP front end
+and the queue. Each round it broadcasts that round's events to every rank
+(submits, cancels, prefix registrations, stop: a pickled byte tensor, its
+length first, over the default process group); every rank applies them in
+the same order and steps its engine (:meth:`ServingDaemon.follow` on the
+other ranks), so the host states stay equal and the collectives of each
+round meet. Only rank 0 answers.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from __future__ import annotations
 import base64
 import io
 import json
+import pickle
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -46,9 +56,14 @@ class ServingDaemon:
     """The engine's loop on a thread of its own, with thread-safe submit,
     result, cancel and partial-text tickets."""
 
-    def __init__(self, batcher: ContinuousBatcher, idle_wait_s: float = 0.02):
+    def __init__(self, batcher: ContinuousBatcher, idle_wait_s: float = 0.02, mesh=None):
         self.batcher = batcher
         self.idle_wait_s = idle_wait_s
+        #: the mesh the batcher runs on; with several ranks each round's events fan out
+        self.mesh = mesh if mesh is not None and _world(mesh) > 1 else None
+        self._prefix_inbox = []  # [(waiter id, text)], registered by the loop thread on a mesh
+        self._prefix_ids: Dict[int, int] = {}  # waiter id -> prefix id
+        self._stop_sent = False
         self._cv = threading.Condition()
         self._inbox = []  # [(ticket, Request)], drained by the loop thread
         self._results: Dict[int, Tuple[str, object]] = {}  # ticket -> (kind, value)
@@ -66,6 +81,8 @@ class ServingDaemon:
         return self
 
     def stop(self, timeout: float = 30.0) -> None:
+        """Stop the loop (on a mesh, rank 0's: the stop reaches the other
+        ranks as the last round's event)."""
         self._stop.set()
         with self._cv:
             self._cv.notify_all()
@@ -111,6 +128,22 @@ class ServingDaemon:
             self._cv.notify_all()
             return True
 
+    def register_prefix(self, text: str, timeout: Optional[float] = 600.0) -> int:
+        """Register a shared preamble (a prefill). On a mesh the loop thread
+        registers it on every rank at a round boundary; this waits for it."""
+        if self.mesh is None:
+            return self.batcher.register_prefix(text)
+        with self._cv:
+            w = self._tickets()
+            self._prefix_inbox.append((w, text))
+            self._cv.notify_all()
+            if not self._cv.wait_for(lambda: w in self._prefix_ids or self._stop.is_set(),
+                                     timeout=timeout):
+                raise TimeoutError("the prefix was not registered in time")
+            if w not in self._prefix_ids:
+                raise RuntimeError("daemon stopped")
+            return self._prefix_ids.pop(w)
+
     def queued(self) -> int:
         with self._cv:
             return len(self._inbox) + len(self._rid_to_ticket)
@@ -126,14 +159,26 @@ class ServingDaemon:
         with self._cv:
             inbox, self._inbox = self._inbox, []
             cancels, self._cancel_inbox = self._cancel_inbox, []
-        for t, req in inbox:
-            rid = self.batcher.submit(req)
-            with self._cv:
-                self._rid_to_ticket[rid] = t
-        for t in cancels:
-            for rid, tt in list(self._rid_to_ticket.items()):
-                if tt == t:
-                    self.batcher.cancel(rid)
+            prefixes, self._prefix_inbox = self._prefix_inbox, []
+        rids = [rid for t in cancels for rid, tt in list(self._rid_to_ticket.items()) if tt == t]
+        events = ([("prefix", w, text) for w, text in prefixes]
+                  + [("submit", t, req) for t, req in inbox] + [("cancel", rid) for rid in rids])
+        if self.mesh is not None:
+            stop = self._stop.is_set()
+            _broadcast_events(self.batcher, events + ([("stop",)] if stop else []))
+            self._stop_sent = stop
+        for kind, *rest in events:
+            if kind == "submit":
+                rid = self.batcher.submit(rest[1])
+                with self._cv:
+                    self._rid_to_ticket[rid] = rest[0]
+            elif kind == "cancel":
+                self.batcher.cancel(rest[0])
+            else:
+                pid = self.batcher.register_prefix(rest[1])
+                with self._cv:
+                    self._prefix_ids[rest[0]] = pid
+                    self._cv.notify_all()
         self._collect()  # rejections at submit, cancellations
 
     def _collect(self) -> None:
@@ -161,14 +206,70 @@ class ServingDaemon:
         with torch.no_grad():  # grad mode is per thread: this one serves
             while not self._stop.is_set():
                 self._drain()
+                if self._stop_sent:  # the other ranks have left: no further round
+                    return
                 if self.batcher.has_work():
                     self.batcher._round(self.batcher.stats, eos)
                     self._collect()
                     self._publish_partials()
                 else:
                     with self._cv:
-                        if not self._inbox and not self._stop.is_set():
+                        if not (self._inbox or self._prefix_inbox or self._cancel_inbox
+                                or self._stop.is_set()):
                             self._cv.wait(timeout=self.idle_wait_s)
+            if self.mesh is not None:
+                self._drain()  # the stop reaches the other ranks as a round's event
+
+    def follow(self) -> None:
+        """The loop of a rank other than 0 on a mesh: apply rank 0's events of
+        each round in its order and step the engine, until the stop event.
+        Answers stay here unread (only rank 0 answers); they are dropped."""
+        eos = self.batcher.new_token_ids["eos_token_id"]
+        b = self.batcher
+        with torch.no_grad():
+            while True:
+                events = _broadcast_events(b, None)
+                for kind, *rest in events:
+                    if kind == "submit":
+                        b.submit(rest[1])
+                    elif kind == "cancel":
+                        b.cancel(rest[0])
+                    elif kind == "prefix":
+                        b.register_prefix(rest[1])
+                if any(kind == "stop" for kind, *_ in events):
+                    return
+                if b.has_work():
+                    b._round(b.stats, eos)
+                b._done.clear()
+                b.errors.clear()
+
+
+def _world(mesh) -> int:
+    n = 1
+    for a in mesh.axis_names:
+        n *= mesh.shape[a]
+    return n
+
+
+def _broadcast_events(batcher: ContinuousBatcher, events):
+    """One round's events from rank 0 to every rank of the default process
+    group (``events`` None on the others): a pickled byte tensor on the
+    engine's device, its length first. Returns the events."""
+    import torch.distributed as dist
+
+    device = batcher.device
+    if events is not None:
+        data = torch.frombuffer(bytearray(pickle.dumps(events)), dtype=torch.uint8).to(device)
+        n = torch.tensor([data.numel()], dtype=torch.int64, device=device)
+    else:
+        n = torch.zeros(1, dtype=torch.int64, device=device)
+    dist.broadcast(n, src=0)
+    if events is None:
+        data = torch.empty(int(n.item()), dtype=torch.uint8, device=device)
+    dist.broadcast(data, src=0)
+    if events is None:
+        events = pickle.loads(data.cpu().numpy().tobytes())
+    return events
 
 
 def _json_response(handler: BaseHTTPRequestHandler, code: int, obj) -> None:
@@ -246,7 +347,7 @@ def make_server(daemon: ServingDaemon, host: str = "127.0.0.1", port: int = 8000
                 elif self.path == "/v1/prefixes":
                     # register a shared preamble once (a prefill: at start-up or
                     # low traffic); later /v1/generate calls name its prefix_id
-                    pid = daemon.batcher.register_prefix(payload.get("text", ""))
+                    pid = daemon.register_prefix(payload.get("text", ""))
                     return _json_response(self, 200, {"prefix_id": pid})
                 elif self.path == "/v1/images":
                     knobs = {k: payload[k] for k in GEN_KNOBS if k in payload}

@@ -1052,6 +1052,11 @@ def train_losses(
     if stash.get("bn_state") is not None:
         out["bn_state"] = stash["bn_state"]
 
+    fsdp_head = getattr(model.language_model.lm_head, "fsdp_dim", None) is not None
+    if "ce_idx" not in batch and fsdp_head:
+        # an FSDP head is gathered over "data" by every data rank, so a sequence without
+        # CE rows runs it on none (its collectives, forward and backward, must run)
+        loss = loss + mot.lm_head(model.language_model, h[:0]).sum()
     if "ce_idx" in batch:
         h_ce = h.index_select(0, batch["ce_idx"])
         logits = mot.lm_head(model.language_model, h_ce)  # fp32 [Nc, V]

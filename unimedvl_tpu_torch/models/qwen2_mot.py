@@ -78,6 +78,7 @@ from unimedvl_tpu_torch.ops.flash_attention_train import packed_train_attention
 from unimedvl_tpu_torch.ops.rope import apply_rope, apply_rope_one, rope_cos_sin
 # the int4 cache packs along D as K4 packs its weights along K
 from unimedvl_tpu_torch.ops.w4_matmul import pack_int4, unpack_int4
+from unimedvl_tpu_torch.parallel import mesh as pmesh
 
 
 @dataclasses.dataclass
@@ -543,12 +544,15 @@ def lm_head(lm: Qwen2MoTForCausalLM, hidden: torch.Tensor) -> torch.Tensor:
 
     A rank's model of a mesh (``parallel.mesh.place_params``) holds a vocab
     slice of the head: its logits are gathered over "model" (a sum into a
-    zeroed [rows, V] buffer), so every rank has the whole row."""
-    logits = _lm_head_local(lm, hidden)
+    zeroed [rows, V] buffer), so every rank has the whole row. Under autograd
+    the hidden enters through ``parallel.mesh.copy_in`` (each rank's part of
+    its gradient comes from its vocab slice) and the gather is
+    ``parallel.mesh.gather_model`` (the backward takes the rank's slice)."""
     mesh = getattr(lm, "mesh", None)
+    logits = _lm_head_local(lm, pmesh.copy_in(hidden, mesh))
     if mesh is None:
         return logits
-    return mesh.gather(logits, "model", dim=-1)
+    return pmesh.gather_model(logits, mesh, dim=-1)
 
 
 def _lm_head_local(lm: Qwen2MoTForCausalLM, hidden: torch.Tensor) -> torch.Tensor:
@@ -564,7 +568,7 @@ def _lm_head_local(lm: Qwen2MoTForCausalLM, hidden: torch.Tensor) -> torch.Tenso
         else:
             logits = quant.widened_matmul(h2, head.weight_q, head.scale)
         return logits.reshape(*hidden.shape[:-1], head.out_features)
-    w = head.weight
+    w = pmesh.fsdp_weight(head)
     if hidden.dtype != torch.float32 and not hidden.is_cuda:
         raise ValueError("low-precision lm_head runs on CUDA tensors only")
     logits = _MatmulF32Out.apply(h2, w.to(hidden.dtype))
@@ -630,7 +634,13 @@ def make_train_layer_body(
 ):
     """The per-layer training body ``body(x, layer) -> x`` closed over one
     packed sequence's routing and mask state; ``layer`` is a
-    ``Qwen2MoTDecoderLayer``."""
+    ``Qwen2MoTDecoderLayer``. On a rank of a mesh (``layer.mesh``, set by
+    ``parallel.mesh.attach_mesh``; ``cfg`` the rank's geometry) the body is
+    Megatron's: the norms' outputs enter each expert's column-parallel
+    projections through ``parallel.mesh.copy_in``, and the outputs of o and
+    down leave through ``parallel.mesh.reduce_out``; under FSDP the layer's
+    shards are gathered over "data" for the body's span
+    (``parallel.mesh.whole_leaves``)."""
     T = position_ids.shape[0]
     C = cfg.hidden_size
     H, Hk, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -643,15 +653,24 @@ def make_train_layer_body(
         return _route(x, und_idx, gen_idx, und_fn, gen_fn, tail, freeze)
 
     def body(x, layer):
+        # FSDP: the layer's whole leaves, gathered here (inside the checkpoint of cfg.remat,
+        # so the recompute gathers again) and dropped at the end
+        with pmesh.whole_leaves(layer):
+            return layer_body(x, layer, getattr(layer, "mesh", None))
+
+    def layer_body(x, layer, mesh):
+        # on a rank of a "model" axis: copy_in in front of each expert's column-parallel
+        # q k v and gate up, reduce_out after o and after down (Megatron's f and g)
         ap = layer.self_attn
         residual = x
         if cfg.mot_attention:
             h = route(x, layer.input_layernorm, layer.input_layernorm_moe_gen, (C,))
+            h = pmesh.copy_in(h, mesh)
             q = route(h, ap.q_proj, ap.q_proj_moe_gen, (H * D,))
             k = route(h, ap.k_proj, ap.k_proj_moe_gen, (Hk * D,))
             v = route(h, ap.v_proj, ap.v_proj_moe_gen, (Hk * D,), freeze=fz)
         else:
-            h = layer.input_layernorm(x)
+            h = pmesh.copy_in(layer.input_layernorm(x), mesh)
             q, k, v = ap.q_proj(h), ap.k_proj(h), ap.v_proj(h)
         q = q.reshape(T, H, D)
         k = k.reshape(T, Hk, D)
@@ -671,21 +690,22 @@ def make_train_layer_body(
             o = route(o, ap.o_proj, ap.o_proj_moe_gen, (C,), freeze=fz)
         else:
             o = ap.o_proj(o)
-        x = residual + o
+        x = residual + pmesh.reduce_out(o, mesh)
 
         residual = x
         if cfg.mot_attention:
             h = route(
-                x, lambda t: layer.mlp(layer.post_attention_layernorm(t)),
-                lambda t: layer.mlp_moe_gen(layer.post_attention_layernorm_moe_gen(t)),
+                x, lambda t: layer.mlp(pmesh.copy_in(layer.post_attention_layernorm(t), mesh)),
+                lambda t: layer.mlp_moe_gen(
+                    pmesh.copy_in(layer.post_attention_layernorm_moe_gen(t), mesh)),
                 (C,), freeze=fz,
             )
         elif cfg.use_moe:  # one post norm, routed MLP (qwen2_navit.py:946-955)
-            h = route(layer.post_attention_layernorm(x), layer.mlp, layer.mlp_moe_gen, (C,),
-                      freeze=fz)
+            h = route(pmesh.copy_in(layer.post_attention_layernorm(x), mesh), layer.mlp,
+                      layer.mlp_moe_gen, (C,), freeze=fz)
         else:
-            h = layer.mlp(layer.post_attention_layernorm(x))
-        return residual + h
+            h = layer.mlp(pmesh.copy_in(layer.post_attention_layernorm(x), mesh))
+        return residual + pmesh.reduce_out(h, mesh)
 
     return body
 

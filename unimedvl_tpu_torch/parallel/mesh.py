@@ -37,6 +37,7 @@ hold the multi-rank programs to the single-device ones with it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import functools
@@ -79,6 +80,19 @@ class Mesh:
             return None
         work = dist.all_reduce(t, op=op, group=group, async_op=async_op)
         return work if async_op else None
+
+    def axis_rank(self, axis: str, index: int) -> int:
+        """The global rank at this rank's coordinates with ``axis`` set to
+        ``index``."""
+        coords = [index if a == axis else self.coords[a] for a in self.axis_names]
+        return int(np.ravel_multi_index(coords, [self.shape[a] for a in self.axis_names]))
+
+    def broadcast(self, t: torch.Tensor, axis: str, index: int) -> None:
+        """Broadcast ``t`` in place from the rank at ``index`` along ``axis``
+        to every rank of that axis (nothing without a group)."""
+        group = self.groups[axis]
+        if group is not None:
+            dist.broadcast(t, src=self.axis_rank(axis, index), group=group)
 
     def gather(self, t: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
         """The ranks' ``t`` joined along ``dim`` in rank order over ``axis``,
@@ -164,6 +178,283 @@ def make_mesh(axis_names: Sequence[str], sizes: Sequence[int],
             if rank in ranks:
                 groups[name] = group
     return Mesh(axis_names, dict(zip(axis_names, sizes)), rank, coords, groups)
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives: the training forward on a rank
+# ---------------------------------------------------------------------------
+
+def axis_group(mesh: Optional["Mesh"], axis: str) -> Optional[dist.ProcessGroup]:
+    """The process group of ``axis`` on ``mesh`` (None without a mesh, an
+    axis the mesh lacks, or one without a group): a collective over it is
+    the identity."""
+    return None if mesh is None else mesh.groups.get(axis)
+
+
+class _CopyIn(torch.autograd.Function):
+    """Megatron's f, in front of a column-parallel projection. Forward: the
+    identity (every "model" rank holds the whole input). Backward: the
+    cotangent summed over "model" (each rank's is the part that flowed
+    through its output columns)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        ctx.mesh.all_reduce(g, "model")
+        return g, None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Megatron's g, after a row-parallel projection (and the vocab-parallel
+    lookup). Forward: the ranks' partial sums summed over "model".
+    Backward: the identity (each partial entered the sum with weight one)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        out = x.clone(memory_format=torch.contiguous_format)
+        mesh.all_reduce(out, "model")
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherModel(torch.autograd.Function):
+    """The vocab-parallel logits joined over "model". Forward:
+    :meth:`Mesh.gather` along ``dim``. Backward: the rank's slice of the
+    cotangent. Exact because every rank computes the same loss from the same
+    whole row, so the cotangent is the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.dim, ctx.n, ctx.r = dim, x.shape[dim], mesh.coords["model"]
+        return mesh.gather(x.contiguous(), "model", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.r * ctx.n, ctx.n), None, None
+
+
+class _GatherData(torch.autograd.Function):
+    """FSDP: whole tensors from each "data" rank's shards. Forward: each data
+    rank in turn broadcasts its shards, joined into one flat buffer, and
+    every rank writes them into their places (a gather: each shard crosses
+    once, half the traffic of a sum into zeros). Backward: the whole
+    gradients written into one flat buffer, summed over "data" by one
+    ``all_reduce``, and each rank keeps its slice (a reduce-scatter): the
+    gradient of the batch of every data rank, for the rank's shard."""
+
+    @staticmethod
+    def forward(ctx, mesh, dims, *shards):
+        n, me = mesh.shape["data"], mesh.coords["data"]
+        shapes = []
+        for t, d in zip(shards, dims):
+            shape = list(t.shape)
+            shape[d] *= n
+            shapes.append(shape)
+        sizes = [int(np.prod(s)) for s in shapes]
+        like = shards[0]
+        out = torch.empty(sum(sizes), dtype=like.dtype, device=like.device)
+        wholes = [v.view(s) for v, s in zip(out.split(sizes), shapes)]
+        mine = torch.cat([t.reshape(-1) for t in shards])
+        for r in range(n):
+            flat = mine if r == me else torch.empty_like(mine)
+            mesh.broadcast(flat, "data", r)
+            for w, part, t, d in zip(wholes, flat.split([t.numel() for t in shards]), shards,
+                                     dims):
+                w.narrow(d, r * t.shape[d], t.shape[d]).copy_(part.view(t.shape))
+        ctx.mesh, ctx.dims, ctx.shapes, ctx.sizes = mesh, dims, shapes, sizes
+        return tuple(wholes)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh = ctx.mesh
+        n, r = mesh.shape["data"], mesh.coords["data"]
+        like = next(g for g in grads if g is not None)
+        buf = torch.zeros(sum(ctx.sizes), dtype=like.dtype, device=like.device)
+        for v, g, s in zip(buf.split(ctx.sizes), grads, ctx.shapes):
+            if g is not None:
+                v.view(s).copy_(g)
+        mesh.all_reduce(buf, "data")
+        out = []
+        for v, s, d, need in zip(buf.split(ctx.sizes), ctx.shapes, ctx.dims,
+                                 ctx.needs_input_grad[2:]):
+            k = s[d] // n
+            out.append(v.view(s).narrow(d, r * k, k).clone() if need else None)
+        return (None, None, *out)
+
+
+def _taped(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_in(x: torch.Tensor, mesh: Optional["Mesh"]) -> torch.Tensor:
+    """:class:`_CopyIn` over "model" (the identity without a "model" group,
+    or for a tensor off the autograd tape)."""
+    if axis_group(mesh, "model") is None or not _taped(x):
+        return x
+    return _CopyIn.apply(x, mesh)
+
+
+def reduce_out(x: torch.Tensor, mesh: Optional["Mesh"]) -> torch.Tensor:
+    """The sum over "model" of a partial result: :class:`_ReduceOut` when
+    ``x`` is on the autograd tape, else an in-place ``all_reduce``."""
+    if axis_group(mesh, "model") is None:
+        return x
+    if _taped(x):
+        return _ReduceOut.apply(x, mesh)
+    mesh.all_reduce(x, "model")
+    return x
+
+
+def gather_model(x: torch.Tensor, mesh: Optional["Mesh"], dim: int = -1) -> torch.Tensor:
+    """The ranks' ``x`` joined along ``dim`` over "model":
+    :class:`_GatherModel` when ``x`` is on the autograd tape, else
+    :meth:`Mesh.gather`."""
+    if axis_group(mesh, "model") is None:
+        return x
+    dim = dim % x.dim()
+    if _taped(x):
+        return _GatherModel.apply(x, mesh, dim)
+    return mesh.gather(x, "model", dim)
+
+
+def gather_data(mesh: "Mesh", shards: Sequence[torch.Tensor], dims: Sequence[int]):
+    """The whole tensors of FSDP ``shards`` (each sharded over "data" along
+    its entry of ``dims``), by :class:`_GatherData`: one collective each way
+    for all of them. The shards must share a dtype."""
+    if axis_group(mesh, "data") is None:
+        return tuple(shards)
+    if len({t.dtype for t in shards}) != 1:
+        raise ValueError(f"gather_data takes shards of one dtype, got "
+                         f"{sorted({str(t.dtype) for t in shards})}")
+    return _GatherData.apply(mesh, tuple(dims), *shards)
+
+
+# ---------------------------------------------------------------------------
+# FSDP: the large leaves of a rank's model sharded over "data" as well
+# ---------------------------------------------------------------------------
+
+FSDP_DIM = 1  # every FSDP leaf shards its hidden dim: the in dim of a column-parallel
+# kernel and of the vocab tables, the out dim (0) of a row-parallel kernel
+
+
+def fsdp_dim(key: str) -> Optional[int]:
+    """The dim of the parameter ``key`` (a name of a rank's model) that FSDP
+    shards over "data", as ``bagel_param_specs(fsdp=True)`` places it
+    (unimedvl_tpu/parallel/mesh.py), in torch's [out, in] layout: the in dim
+    of the column-parallel ``q k v gate up`` of both experts
+    (``P(None, d, "model")``), the out dim of the row-parallel ``o down``
+    (``P(None, "model", d)``), the hidden dim of ``embed_tokens``
+    (``P("model", d)``) and of the ``lm_head`` (``P(d, "model")``). None for
+    every other tensor (norms, biases, everything outside the LLM)."""
+    module, leaf = key.rsplit(".", 1)
+    if leaf != "weight":
+        return None
+    if module in (EMBED, HEAD):
+        return 1
+    if not module.startswith("language_model.model.layers."):
+        return None
+    name = module.rsplit(".", 1)[1]
+    base = name[: -len("_moe_gen")] if name.endswith("_moe_gen") else name
+    if base in COL:
+        return 1
+    if base in ROW:
+        return 0
+    return None
+
+
+def fsdp_range(key: str, shape, mesh: "Mesh") -> Optional[Ranges]:
+    """The "data" rank's part of the tensor ``key`` of a rank's model under
+    FSDP: (dim, [(start, length)]), or None for a tensor FSDP leaves whole. A
+    dim that does not divide over "data" raises, naming the numbers, as the
+    JAX placement refuses it."""
+    d = fsdp_dim(key)
+    if d is None:
+        return None
+    dp, r = mesh.shape.get("data", 1), mesh.coords.get("data", 0)
+    if shape[d] % dp:
+        raise ValueError(f"{key}: dim {d} of {tuple(shape)} ({shape[d]}) does not split over "
+                         f"data={dp} (FSDP)")
+    n = shape[d] // dp
+    return d, [(r * n, n)]
+
+
+def model_partial(key: str) -> bool:
+    """Whether the gradient of the parameter ``key`` of a rank's model is a
+    partial sum over "model": the q / k norms, one [D] weight applied to
+    every head of the rank's share."""
+    module = key.rsplit(".", 1)[0]
+    name = module.rsplit(".", 1)[-1]
+    return module.startswith("language_model.model.layers.") and name in (
+        "q_norm", "k_norm", "q_norm_moe_gen", "k_norm_moe_gen")
+
+
+def shard_for_training(model, mesh: "Mesh", fsdp: bool) -> None:
+    """Make a rank's model of ``mesh`` the train state's own: every parameter
+    is copied (a model placed with views shares the whole model's tensors,
+    and a train step updates its parameters in place), and with ``fsdp`` the
+    FSDP leaves (:func:`fsdp_dim`) are narrowed to this "data" rank's slice
+    and marked: each decoder layer gathers its leaves at the start of its
+    training body (:func:`whole_leaves`), the embedding and the lm_head
+    theirs at each use (:func:`fsdp_weight`)."""
+    if getattr(model, "train_sharding", None) == (id(mesh), fsdp):
+        return  # already the state's own
+    for name, p in model.named_parameters():
+        p.data = take_ranges(p.data, fsdp_range(name, p.shape, mesh) if fsdp else None).clone()
+    model.train_sharding = (id(mesh), fsdp)
+    if not fsdp:
+        return
+    layers = model.language_model.model.layers
+    for layer in layers:
+        layer.fsdp_leaves = []
+    prefix = "language_model.model.layers."
+    for path, mod in model.named_modules():
+        d = fsdp_dim(path + ".weight") if "weight" in mod._parameters else None
+        if d is None:
+            continue
+        if path.startswith(prefix):
+            layers[int(path[len(prefix):].split(".", 1)[0])].fsdp_leaves.append((mod, d))
+        else:
+            mod.fsdp_dim = d
+        mod.fsdp_mesh = mesh
+
+
+def fsdp_weight(module) -> torch.Tensor:
+    """``module.weight``, whole: gathered over "data" when it is an FSDP
+    shard (:func:`shard_for_training`)."""
+    d = getattr(module, "fsdp_dim", None)
+    if d is None:
+        return module.weight
+    return gather_data(module.fsdp_mesh, [module.weight], [d])[0]
+
+
+@contextlib.contextmanager
+def whole_leaves(layer):
+    """Within the block, the FSDP leaves of ``layer`` are whole tensors
+    gathered over "data" (one collective; the gradients go back to the
+    shards through its backward); outside it the layer holds its shards.
+    Under per-layer recomputation this runs again in the backward, so no
+    whole layer lives between layers."""
+    leaves = getattr(layer, "fsdp_leaves", None)
+    if not leaves:
+        yield
+        return
+    shards = [mod._parameters["weight"] for mod, _ in leaves]
+    wholes = gather_data(leaves[0][0].fsdp_mesh, shards, [d for _, d in leaves])
+    try:
+        for (mod, _), w in zip(leaves, wholes):
+            mod._parameters["weight"] = w
+        yield
+    finally:
+        for (mod, _), p in zip(leaves, shards):
+            mod._parameters["weight"] = p
 
 
 # ---------------------------------------------------------------------------
@@ -373,24 +664,27 @@ def fused_degree(keys) -> int:
 class VocabParallelEmbedding(nn.Module):
     """The token embedding of one "model" rank: rows [start, start + n) of the
     table as ``weight``. A lookup takes the rank's rows (zeros for the ids of
-    other ranks) and sums over "model", which gives every rank the whole
-    lookup exactly (each id is found on one rank)."""
+    other ranks) and sums over "model" (:func:`reduce_out`), which gives
+    every rank the whole lookup exactly (each id is found on one rank) and,
+    under autograd, each rank the gradient of its own rows. The weight
+    requires grad as the caller's did; under FSDP it is gathered over "data"
+    at each lookup (:func:`fsdp_weight`)."""
 
-    def __init__(self, weight: torch.Tensor, start: int, mesh: "Mesh"):
+    def __init__(self, weight: torch.Tensor, start: int, mesh: "Mesh",
+                 requires_grad: bool = False):
         super().__init__()
-        self.weight = nn.Parameter(weight, requires_grad=False)
+        self.weight = nn.Parameter(weight, requires_grad=requires_grad)
         self.start = start
         self.mesh = mesh
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        w = fsdp_weight(self)
         local = ids - self.start
-        mine = (local >= 0) & (local < self.weight.shape[0])
-        rows = torch.nn.functional.embedding(local.clamp(0, self.weight.shape[0] - 1),
-                                             self.weight)
+        mine = (local >= 0) & (local < w.shape[0])
+        rows = torch.nn.functional.embedding(local.clamp(0, w.shape[0] - 1), w)
         out = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                              device=rows.device))
-        self.mesh.all_reduce(out, "model")
-        return out
+        return reduce_out(out, self.mesh)
 
 
 def _row_parallel(path: str) -> bool:
@@ -436,13 +730,15 @@ def build_rank_model(state: Dict[str, torch.Tensor], cfg, mesh: "Mesh", device, 
     def prepare(model):
         lm = model.language_model
         if tp > 1 or any(g is not None for g in mesh.groups.values()):
-            lm.model.embed_tokens = VocabParallelEmbedding(
-                lm.model.embed_tokens.weight, v0, mesh)
+            weight = lm.model.embed_tokens.weight
+            lm.model.embed_tokens = VocabParallelEmbedding(weight, v0, mesh,
+                                                           weight.requires_grad)
         lm.vocab_start = v0
 
     model = loader._build(state, build_cfg, device, dtype, modes, fused_degree(state),
                           prepare=prepare)
     model.config = dataclasses.replace(cfg, llm=llm)
+    model.whole_config = cfg
     attach_mesh(model, mesh)
     return model
 

@@ -1,8 +1,7 @@
 """What the port's front ends share: the model flags, the process group and
-mesh of ``--tp`` / ``--dp`` under ``torchrun``, the refusal of flags whose
-paths are not ported, loading a released checkpoint (a rank's shard on a
-mesh) onto the device in the mode the flags ask for, and the KV cache
-options.
+mesh of ``--tp`` / ``--dp`` under ``torchrun``, loading a released
+checkpoint (a rank's shard on a mesh) onto the device in the mode the flags
+ask for, and the KV cache options.
 
 A mesh run starts one process per rank::
 
@@ -22,9 +21,8 @@ import sys
 
 
 def add_model_flags(ap: argparse.ArgumentParser) -> None:
-    """The checkpoint, device and quantized-mode flags, named as the JAX
-    package's scripts name them, and the flags of paths the port does not
-    have (refused by :func:`refuse_unported`)."""
+    """The checkpoint, device, quantized-mode and mesh flags, named as the
+    JAX package's scripts name them."""
     ap.add_argument("--checkpoint", required=True)
     ap.add_argument("--base-checkpoint", default=None,
                     help="base checkpoint merged under the fine-tune (fine-tune keys win)")
@@ -49,25 +47,21 @@ def add_model_flags(ap: argparse.ArgumentParser) -> None:
                     help="data axis size (slots, CFG streams); run under torchrun")
 
 
-def refuse_unported(args) -> None:
-    """Exit non-zero, naming why, for a flag whose path the port lacks (the
-    HTTP server's mesh)."""
-    if args.tp > 1 or args.dp > 1:
-        sys.exit("--tp/--dp: the HTTP server over a device mesh is the next slice of M13 "
-                 "(ROADMAP queue 1: serve_http --tp/--dp with its request fan-out to every "
-                 "rank's engine); the in-process entry points take mesh=")
-
-
 def init_ranks(args, world: int):
     """Join the default process group of a ``torchrun`` launch of ``world``
     ranks (NCCL on CUDA, rank r on ``cuda:{LOCAL_RANK}``; gloo with
     ``--device cpu``) and point ``args.device`` at this rank's device.
-    Nothing to do for one rank. Returns the process's rank."""
+    Nothing to do for one rank, or where the caller has made the group
+    already (the tests' spawned ranks). Returns the process's rank."""
     import torch
     import torch.distributed as dist
 
     if world == 1:
         return 0
+    if dist.is_available() and dist.is_initialized():  # a group made by the caller
+        if dist.get_world_size() != world:
+            sys.exit(f"the mesh has {world} ranks, the process group {dist.get_world_size()}")
+        return dist.get_rank()
     if "RANK" not in os.environ:
         sys.exit(f"a mesh of {world} ranks runs under torchrun --nproc-per-node {world}")
     if int(os.environ["WORLD_SIZE"]) != world:

@@ -1,6 +1,7 @@
-"""Toy end-to-end training run on one device: examples -> packing -> the
-train step, over a tiny random-weight Bagel (the port's counterpart of
-scripts/toy_overfit.py, whose TP x DP mesh is multi-GPU work, ROADMAP M13).
+"""Toy end-to-end training run: examples -> packing -> the train step, over a
+tiny random-weight Bagel, on one device or on a ("data", "model") mesh of
+``--dp`` x ``--tp`` ranks (the port's counterpart of scripts/toy_overfit.py
+and its TP x DP mesh).
 
 It overfits a handful of synthetic examples of the three task types
 (vlm_sft, t2i_pretrain, unified_edit), so the losses, masks and MoT routing
@@ -11,6 +12,13 @@ and both experts moved. The loss curve and the before / after losses go to
 
     python -m unimedvl_tpu_torch.scripts.toy_overfit --out curve.json \\
         [--steps 200] [--device cuda|cpu] [--ema-decay 0.99] [--export-dir DIR]
+    torchrun --nproc-per-node 8 -m unimedvl_tpu_torch.scripts.toy_overfit \\
+        --out curve.json --tp 4 --dp 2 --device cpu
+
+On a mesh every rank builds the same seeded model and batches, trains its
+shard (``make_train_step(mesh=)``: each data rank takes its share of every
+batch) and checks the same asserts; rank 0 prints and writes ``--out``.
+``--export-dir`` runs on one device only.
 """
 
 from __future__ import annotations
@@ -53,7 +61,14 @@ def main(argv=None) -> int:
                     help="keep an EMA shadow of the trained parameters")
     ap.add_argument("--export-dir", default=None,
                     help="export the trained (EMA with --ema-decay) weights and reload them")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree (the mesh's model axis); run under torchrun")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel degree (the mesh's data axis); run under torchrun")
     args = ap.parse_args(argv)
+    if args.export_dir and args.tp * args.dp > 1:
+        sys.exit("toy_overfit: --export-dir writes the whole model, which a rank of a mesh does "
+                 "not hold; export from a one-device run")
 
     import torch
     from PIL import Image
@@ -62,14 +77,22 @@ def main(argv=None) -> int:
     from unimedvl_tpu_torch.data.tokenizer import ByteTokenizer, add_special_tokens
     from unimedvl_tpu_torch.models import bagel
     from unimedvl_tpu_torch.training import dataset, trainer
+    from unimedvl_tpu_torch.scripts import common
     from unimedvl_tpu_torch.weights.loader import _target_device
 
+    common.init_ranks(args, args.tp * args.dp)
     device = _target_device(args.device)
     cfg = tiny_config()
-    model = bagel.Bagel(cfg, device="meta", dtype=torch.float32, with_vae=True)
-    model = model.to_empty(device=device)
-    bagel.init_random_(model, torch.Generator(device=device).manual_seed(args.seed),
+    whole = bagel.Bagel(cfg, device="meta", dtype=torch.float32, with_vae=True)
+    whole = whole.to_empty(device=device)
+    bagel.init_random_(whole, torch.Generator(device=device).manual_seed(args.seed),
                        llm2vae_zero=False)
+    mesh = common.make_mesh(args)
+    model = whole
+    if mesh is not None:
+        from unimedvl_tpu_torch.parallel.mesh import place_params
+
+        model = place_params(whole, mesh)
     tok, new_ids, _ = add_special_tokens(ByteTokenizer())
 
     def img(seed):
@@ -85,13 +108,13 @@ def main(argv=None) -> int:
     ]
     it = dataset.Prefetcher(dataset.PackedBatchIterator(
         examples, tok, new_ids, cfg, ImageTransform(32, 8, 2, 1024),
-        ImageTransform(32, 8, 8, 1024), latent_fn=dataset.make_latent_fn(model),
+        ImageTransform(32, 8, 8, 1024), latent_fn=dataset.make_latent_fn(whole),
         batch_size=args.batch_size, seq_len=args.seq_len, seed=args.seed,
     ), place_fn=dataset.make_place_fn(device))
     try:
         step, init_state = trainer.make_train_step(
             cfg, model, optimizer=trainer.make_optimizer(learning_rate=args.lr),
-            ema_decay=args.ema_decay)
+            ema_decay=args.ema_decay, mesh=mesh)
         state = init_state()
         eval_batch = next(it)
 
@@ -118,14 +141,15 @@ def main(argv=None) -> int:
             state, loss = step(state, next(it), generator=g)
             curve.append(float(loss))
             if i % 20 == 0:
-                print(f"step {i}: loss {curve[-1]:.4f}", flush=True)
+                common.say(f"step {i}: loss {curve[-1]:.4f}", flush=True)
         seconds = time.perf_counter() - t0
         ce1, mse1 = eval_losses()
     finally:
         it.close(wait=True)
     delta = {k: float((params[n].detach() - before[k]).abs().max()) for k, n in watch.items()}
     out = {
-        "device": str(device), "steps": args.steps, "seconds": seconds,
+        "device": str(device), "mesh": None if mesh is None else dict(mesh.shape),
+        "steps": args.steps, "seconds": seconds,
         "loss_first10_mean": float(np.mean(curve[:10])),
         "loss_last10_mean": float(np.mean(curve[-10:])),
         "ce_before": ce0, "ce_after": ce1, "mse_before": mse0, "mse_after": mse1,
@@ -146,13 +170,20 @@ def main(argv=None) -> int:
             raise SystemExit("toy_overfit: the exported weights do not reload as written")
         out["exported"] = sorted(written)
         out["export_kind"] = "ema" if args.ema_decay is not None else "params"
-    with open(args.out, "w") as f:
-        json.dump(out, f, indent=1)
-    print(json.dumps({k: v for k, v in out.items() if k != "curve"}))
+    if common.is_rank0():
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    common.say(json.dumps({k: v for k, v in out.items() if k != "curve"}))
     ok = (out["loss_last10_mean"] < out["loss_first10_mean"] and ce1 < ce0
           and delta["und"] > 0 and delta["gen"] > 0 and (np.isnan(mse0) or mse1 < mse0))
-    print("OVERFIT", "PASS" if ok else "FAIL")
+    common.say("OVERFIT", "PASS" if ok else "FAIL")
     return 0 if ok else 1
+
+
+def run_rank(rank: int, world: int, argv) -> int:
+    """:func:`main` on one rank of a process group that is already up (the
+    tests' spawned gloo ranks, ``parallel.mesh.run_on_ranks``)."""
+    return main(argv)
 
 
 if __name__ == "__main__":

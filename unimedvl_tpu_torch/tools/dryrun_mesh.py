@@ -517,6 +517,77 @@ def tp_load_rank(rank: int, world: int, ckpt: str, image, prompt: str, transform
     return out
 
 
+def _http(base: str, path: str, payload=None):
+    """The JSON body of a route's answer (of an error status too)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(base + path, data=data),
+                                    timeout=120) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return json.loads(e.read())
+
+
+def http_rank(rank: int, world: int, model, argv, requests, prefix: str) -> list:
+    """``scripts.serve_http`` on one rank of a mesh (``--tp`` / ``--dp`` in
+    ``argv``; the process group is up) or on one process (world 1), over
+    ``model`` (placed on the mesh here) with :class:`CharTokenizer`. Rank 0
+    registers ``prefix`` (``POST /v1/prefixes``), submits ``requests``
+    ((prompt, image or None, max_new_tokens, with the prefix) tuples) with
+    ``"async": true`` through its HTTP server, collects every answer and
+    stops the daemon, which stops the other ranks' loops. Returns the
+    answers (None on the other ranks)."""
+    import base64
+    import io
+    import threading
+
+    from PIL import Image
+
+    from unimedvl_tpu_torch.data import imaging
+    from unimedvl_tpu_torch.scripts import common, serve_http
+
+    args = serve_http.parse_args(["--checkpoint", "unused", "--device", "cpu", "--port", "0",
+                                  *argv])
+    mesh = common.make_mesh(args)
+    local = model if mesh is None else pmesh.place_params(model, mesh)
+    tok, ids = tokenizer()
+    daemon, server = serve_http.build(args, local, tok, ids, mesh,
+                                      vit_transform=imaging.ImageTransform(*VIT_T))
+    if server is None:
+        daemon.follow()
+        return None
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        pid = _http(base, "/v1/prefixes", {"text": prefix})["prefix_id"]
+        tickets = []
+        for prompt, image, max_new, prefixed in requests:
+            payload = {"prompt": prompt, "max_new_tokens": max_new, "async": True}
+            if image is not None:
+                buf = io.BytesIO()
+                Image.fromarray(image).save(buf, format="PNG")
+                payload["image_png_b64"] = base64.b64encode(buf.getvalue()).decode()
+            if prefixed:
+                payload["prefix_id"] = pid
+            tickets.append(_http(base, "/v1/generate", payload)["ticket"])
+        answers = []
+        for t in tickets:
+            while True:
+                got = _http(base, f"/v1/result/{t}?timeout=30")
+                if got.get("status") != "pending":
+                    answers.append(got.get("text", got.get("error")))
+                    break
+        return answers
+    finally:
+        server.shutdown()
+        server.server_close()
+        daemon.stop()
+
+
 def tiny_model(seed: int = 0, device="cpu", dtype=torch.float32):
     model = bagel.Bagel(TINY, device="meta", dtype=dtype, with_vae=True).to_empty(device=device)
     return bagel.init_random_(model, torch.Generator(device=device).manual_seed(seed),

@@ -172,7 +172,7 @@ def make_lora_train_step(cfg, model, optimizer=None, accum_steps: int = 1):
     if not adapters:
         raise ValueError("the model carries no adapters: add_lora(...) first")
     factory = optimizer or trainer.make_optimizer(1e-4, weight_decay=1e-4, b1=0.9, b2=0.95)
-    state = trainer._init_state(model, adapters, factory, None, torch.float32)
+    state = trainer._init_state(model, None, factory, None, torch.float32, params=adapters)
     return functools.partial(trainer._step, accum_steps=accum_steps, ema_decay=None), state
 
 

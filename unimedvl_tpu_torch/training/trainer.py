@@ -14,9 +14,14 @@ decoupled weight decay on all of them, as optax's ``adamw`` applies it. With
 ``cfg.e2e.enable_batch_norm`` the state carries the latent batch-norm's
 running statistics (``bn_state``), updated with the mean over a step's
 sequences of each sequence's new statistics. The VAE is fp32 and frozen: latents come from
-``training.dataset.make_latent_fn``. Sharding over several cards (the JAX
-package's ``mesh`` / ``fsdp`` arguments, ``make_pp_train_step``) belongs to
-the multi-GPU slice.
+``training.dataset.make_latent_fn``.
+
+On a mesh (``make_train_step(mesh=, fsdp=)``, ``make_pp_train_step``) every
+rank runs this host code over its shard of the model and its share of the
+batch; the result is the JAX mesh program's, the single-device function:
+the mean loss over the global batch, its gradients, one AdamW update per
+call, and every tensor replicated over an axis bit-equal on the ranks of
+that axis.
 """
 
 from __future__ import annotations
@@ -50,6 +55,10 @@ class TrainState:
     step: int = 0
     ema_params: Optional[Dict[str, torch.Tensor]] = None
     bn_state: Optional[BatchNormState] = None
+    #: the ``parallel.mesh.Mesh`` the state is a rank's shard of (None: one card); with
+    #: ``fsdp`` the large leaves (``parallel.mesh.fsdp_dim``) hold this data rank's slice
+    mesh: Optional[object] = None
+    fsdp: bool = False
 
 
 def make_optimizer(
@@ -111,9 +120,8 @@ def create_train_state(model: Bagel, optimizer=None, cfg: Optional[BagelConfig] 
                        ) -> TrainState:
     """A train state over ``model``: everything outside the VAE trains.
     ``optimizer``: a factory as :func:`make_optimizer` returns."""
-    cfg = cfg or model.config
-    return _init_state(model, set_trainable(model, cfg), optimizer or make_optimizer(), None,
-                       torch.float32, cfg)
+    return _init_state(model, cfg or model.config, optimizer or make_optimizer(), None,
+                       torch.float32)
 
 
 def place_batches(batches, device, pin: bool = False) -> List[Dict[str, torch.Tensor]]:
@@ -150,6 +158,16 @@ def loss_fn(
     returned mean is then detached."""
     device = model.language_model.model.embed_tokens.weight.device
     seqs = place_batches(batches, device)
+    total, new_bn = _loss_sum(model, seqs, noises, generator, backward_scale, len(seqs),
+                              bn_state)
+    return total / len(seqs), _mean_bn(new_bn)
+
+
+def _loss_sum(model, seqs, noises, generator, backward_scale, denominator, bn_state):
+    """(sum of the sequences' losses, their new bn states): each sequence
+    backpropagates ``backward_scale * loss_i / denominator`` after its
+    forward."""
+    device = model.language_model.model.embed_tokens.weight.device
     total = torch.zeros((), dtype=torch.float32, device=device)
     new_bn = []
     for i, seq in enumerate(seqs):
@@ -160,10 +178,10 @@ def loss_fn(
         if "bn_state" in out:
             new_bn.append(out["bn_state"])
         if backward_scale is not None:
-            (loss * (backward_scale / len(seqs))).backward()
+            (loss * (backward_scale / denominator)).backward()
             loss = loss.detach()
         total = total + loss
-    return total / len(seqs), _mean_bn(new_bn)
+    return total, new_bn
 
 
 def _mean_bn(states: Sequence[BatchNormState]) -> Optional[BatchNormState]:
@@ -200,7 +218,7 @@ def make_train_step(
     mesh=None,
     fsdp: bool = False,
 ):
-    """Build the train step for one card: returns ``(step, init_state)`` with
+    """Build the train step: returns ``(step, init_state)`` with
     ``step(state, batches, generator=None, noises=None) -> (state, loss)``.
     With ``cfg.llm.freeze_und`` the understanding twins are out of the
     optimizer entirely (no update, not just no gradient).
@@ -221,25 +239,64 @@ def make_train_step(
     unit variances) that each step replaces with the mean of its sequences'
     new statistics (over the accumulated batches too).
 
-    ``mesh`` / ``fsdp`` (sharding over several cards) are not ported yet:
-    the training half of M13 is the next slice (ROADMAP queue 1)."""
-    if mesh is not None or fsdp:
-        raise NotImplementedError(
-            "make_train_step(mesh=..., fsdp=...): sharded training is the next slice of M13 "
-            "(ROADMAP queue 1: make_train_step(mesh=, fsdp=), parallel/pp_train.py); this "
-            "step runs on one card"
-        )
+    ``mesh``: a ``parallel.mesh.Mesh`` with the axes ("data", "model"), and
+    ``model`` this rank's model of it (``parallel.mesh.place_params``,
+    ``build_rank_model``, ``load_bagel_checkpoint(mesh=)``): TP over
+    "model" (Megatron's collectives in the training body, the vocab-parallel
+    embedding and head), DP over "data". Every rank is given the whole
+    batch of B sequences (B % data == 0) and runs sequences [d B / dp,
+    (d + 1) B / dp); drawn noise is drawn for all B in the one-device order
+    and each rank keeps its own, so injected and drawn noises agree. After
+    the backward the gradients of the leaves that are not FSDP shards are
+    summed over "data" (the q / k norms', applied to the rank's heads, also
+    over "model"), as are the loss and the batch-norm statistics.
+    ``init_state`` copies every parameter first (a placed model shares the
+    whole model's tensors, and the step updates in place).
+
+    ``fsdp``: the large LLM leaves (``parallel.mesh.fsdp_dim``: the layer
+    kernels of both experts, the embedding, the head) and their AdamW
+    moments and EMA hold this data rank's slice; each layer gathers them
+    over "data" at the start of its body and its backward reduce-scatters
+    their gradients (``parallel.mesh.whole_leaves``)."""
+    if fsdp and mesh is None:
+        raise ValueError("fsdp=True shards over the 'data' axis of a mesh: pass mesh=")
+    if mesh is not None:
+        _check_rank_model(model, mesh, ("data", "model"))
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
-    factory = optimizer or make_optimizer()
-
-    def init_state() -> TrainState:
-        return _init_state(model, set_trainable(model, cfg), factory, ema_decay, ema_dtype, cfg)
-
+    init_state = functools.partial(_init_state, model, cfg, optimizer or make_optimizer(),
+                                   ema_decay, ema_dtype, mesh, fsdp)
     return functools.partial(_step, accum_steps=accum_steps, ema_decay=ema_decay), init_state
 
 
-def _init_state(model, params, factory, ema_decay, ema_dtype, cfg=None) -> TrainState:
+def _check_rank_model(model: Bagel, mesh, axes) -> None:
+    if tuple(mesh.axis_names) != tuple(axes):
+        raise ValueError(f"this step runs on a mesh with the axes {axes}, got "
+                         f"{mesh.axis_names}")
+    if getattr(model.language_model, "mesh", None) is not mesh:
+        raise ValueError("model is not a rank's model of this mesh: place it first "
+                         "(parallel.mesh.place_params, build_rank_model, or "
+                         "load_bagel_checkpoint(mesh=))")
+    tp = mesh.shape.get("model", 1)
+    whole = getattr(model, "whole_config", model.config)
+    if whole.llm.num_key_value_heads % tp:
+        raise ValueError(f"training at model={tp} needs the {whole.llm.num_key_value_heads} kv "
+                         "heads to split over it, not be replicated (a rank would hold a "
+                         "partial gradient of a shared head)")
+
+
+def _init_state(model, cfg, factory, ema_decay, ema_dtype, mesh=None, fsdp=False,
+                params=None) -> TrainState:
+    """A train state over ``model`` training ``params`` (by default everything
+    outside the VAE, :func:`set_trainable`); on a mesh its parameters are
+    copied first and, with ``fsdp``, narrowed
+    (``parallel.mesh.shard_for_training``)."""
+    if mesh is not None:
+        from unimedvl_tpu_torch.parallel.mesh import shard_for_training
+
+        shard_for_training(model, mesh, fsdp)
+    if params is None:
+        params = set_trainable(model, cfg)
     ema = None
     if ema_decay is not None:
         ema = {name: p.detach().to(ema_dtype, copy=True)
@@ -248,33 +305,214 @@ def _init_state(model, params, factory, ema_decay, ema_dtype, cfg=None) -> Train
     if cfg is not None and cfg.e2e is not None and cfg.e2e.enable_batch_norm:
         bn_state = BatchNormState.create(
             cfg.vae.z_channels, model.language_model.model.embed_tokens.weight.device)
-    return TrainState(model=model, optimizer=factory(params), ema_params=ema, bn_state=bn_state)
+    return TrainState(model=model, optimizer=factory(params), ema_params=ema, bn_state=bn_state,
+                      mesh=mesh, fsdp=fsdp)
+
+
+def _accum_batches(batches, noises, accum_steps: int):
+    """[(batch, its noises)] of one call: ``accum_steps`` of them."""
+    if accum_steps == 1:
+        return [(batches, noises)]
+    if isinstance(batches, dict):  # stacked [accum_steps, B, ...], as the JAX step takes it
+        batches = [{k: v[i] for k, v in batches.items()} for i in range(accum_steps)]
+    if len(batches) != accum_steps:
+        raise ValueError(f"expected {accum_steps} batches to accumulate, got {len(batches)}")
+    return [(b, None if noises is None else noises[i]) for i, b in enumerate(batches)]
+
+
+def _noise_shapes(batches) -> List[Optional[tuple]]:
+    """The flow-noise shape of each sequence of a batch (None for one without
+    the latent keys), padding rows dropped, as ``train_embed`` draws it."""
+    if isinstance(batches, (list, tuple)):
+        return [None if "vae_clean_tokens" not in s else tuple(s["vae_clean_tokens"].shape)
+                for s in batches]
+    B, T = batches["packed_position_ids"].shape[:2]
+    if "vae_clean_tokens" not in batches:
+        return [None] * B
+    width = batches["vae_clean_tokens"].shape[-1]
+    return [(int((batches["vae_scatter_idx"][b] < T).sum()), width) for b in range(B)]
+
+
+def data_share(mesh, n: int):
+    """(first, count) of the ``n`` sequences of a batch that this "data"
+    rank runs: a contiguous share, as ``P("data")`` places a batch axis; a
+    batch that does not divide raises."""
+    dp, d = mesh.shape.get("data", 1), mesh.coords.get("data", 0)
+    if n % dp:
+        raise ValueError(f"a batch of {n} sequences does not split over data={dp}")
+    return d * (n // dp), n // dp
+
+
+def _rank_sequences(batches, noises, generator, mesh, device):
+    """(this rank's prepared sequences, their noises, B): the rank's share of
+    the batch, with the noise of every sequence of the batch drawn in order
+    when it is drawn (so each rank keeps the draws the single device makes)."""
+    if isinstance(batches, (list, tuple)):
+        B = len(batches)
+    else:
+        B = batches["packed_position_ids"].shape[0]
+    if mesh is None or mesh.shape.get("data", 1) == 1:
+        return place_batches(batches, device), noises, B
+    s0, n = data_share(mesh, B)
+    if noises is None and generator is not None:
+        noises = [None if sh is None else
+                  torch.randn(sh, generator=generator, dtype=torch.float32,
+                              device=generator.device)
+                  for sh in _noise_shapes(batches)]
+    if isinstance(batches, (list, tuple)):
+        seqs = list(batches[s0:s0 + n])
+    else:
+        seqs = [bagel.prepare_sequence({k: v[b] for k, v in batches.items()}, device)
+                for b in range(s0, s0 + n)]
+    return seqs, None if noises is None else list(noises[s0:s0 + n]), B
+
+
+def _bn_sums(states: Sequence[BatchNormState], z: int, device) -> torch.Tensor:
+    """[sum of means | sum of variances | count] of some sequences' new
+    batch-norm states (fp32), for a sum over "data"."""
+    out = torch.zeros(2 * z + 1, dtype=torch.float32, device=device)
+    for st in states:
+        out[:z] += st.mean.float()
+        out[z:2 * z] += st.var.float()
+        out[2 * z] += 1
+    return out
+
+
+def compute_gradients(state: TrainState, batches, generator=None, noises=None,
+                      accum_steps: int = 1):
+    """The gradients of one call of the step, left in ``param.grad`` (on a
+    mesh: this rank's part, reduced over the axes its leaves are replicated
+    over), without the update: returns (mean loss, the new batch-norm state
+    or None). ``batches`` / ``noises`` as the step takes them."""
+    mesh = state.mesh
+    model = state.model
+    device = model.language_model.model.embed_tokens.weight.device
+    groups = _accum_batches(batches, noises, accum_steps)
+    loss = torch.zeros((), dtype=torch.float32, device=device)
+    bn_parts = []
+    for b, nz in groups:
+        seqs, nz, B = _rank_sequences(b, nz, generator, mesh, device)
+        loss_i, bn_i = _loss_sum(model, seqs, nz, generator, 1.0, B, state.bn_state)
+        loss = loss + loss_i / B
+        bn_parts.append(bn_i)
+    if accum_steps > 1:
+        inv = 1.0 / accum_steps
+        loss = loss * inv
+        grads = [p.grad for g in state.optimizer.param_groups for p in g["params"]
+                 if p.grad is not None]
+        torch._foreach_mul_(grads, inv)
+    if mesh is None:
+        return loss, _mean_bn([m for m in (_mean_bn(p) for p in bn_parts) if m is not None])
+    reduce_gradients(model, state.fsdp)
+    return _reduce_loss(mesh, loss), _reduce_bn(mesh, bn_parts, state.bn_state)
+
+
+def _sum_over(mesh, t: torch.Tensor, axis: str) -> torch.Tensor:
+    """``t`` summed over ``axis`` in place (as it is without that axis)."""
+    from unimedvl_tpu_torch.parallel.mesh import axis_group
+
+    if axis_group(mesh, axis) is not None:
+        mesh.all_reduce(t, axis)
+    return t
+
+
+def _reduce_loss(mesh, loss: torch.Tensor) -> torch.Tensor:
+    return _sum_over(mesh, loss.reshape(1).clone(), "data")[0]
 
 
 def _step(state: TrainState, batches, generator=None, noises=None, *, accum_steps: int,
           ema_decay: Optional[float]):
-    if accum_steps == 1:
-        loss, new_bn = loss_fn(state.model, batches, noises, generator, backward_scale=1.0,
-                               bn_state=state.bn_state)
-    else:
-        if isinstance(batches, dict):  # stacked [accum_steps, B, ...], as the JAX step takes it
-            batches = [{k: v[i] for k, v in batches.items()} for i in range(accum_steps)]
-        if len(batches) != accum_steps:
-            raise ValueError(f"expected {accum_steps} batches to accumulate, got {len(batches)}")
-        loss, states = 0.0, []
-        for i, b in enumerate(batches):
-            loss_i, bn_i = loss_fn(state.model, b, None if noises is None else noises[i],
-                                   generator, backward_scale=1.0, bn_state=state.bn_state)
-            loss = loss + loss_i
-            if bn_i is not None:
-                states.append(bn_i)
-        inv = 1.0 / accum_steps
-        loss = loss * inv
-        new_bn = _mean_bn(states)
-        grads = [p.grad for g in state.optimizer.param_groups for p in g["params"]
-                 if p.grad is not None]
-        torch._foreach_mul_(grads, inv)
+    loss, new_bn = compute_gradients(state, batches, generator, noises, accum_steps)
     _apply_update(state, ema_decay)
     if new_bn is not None:
         state.bn_state = new_bn
     return state, loss
+
+
+def _reduce_bn(mesh, parts, bn_state: BatchNormState) -> Optional[BatchNormState]:
+    """The new batch-norm state of a call on a mesh: per accumulated batch the
+    mean over its latent-carrying sequences of every data rank (sums and
+    counts summed over "data": every rank takes part, with or without such
+    sequences), then the mean over the batches that had any."""
+    if bn_state is None:
+        return None
+    z = bn_state.mean.shape[-1]
+    sums = _sum_over(mesh, torch.stack([_bn_sums(p, z, bn_state.mean.device) for p in parts]),
+                     "data")
+    means = [(row[:z] / row[2 * z], row[z:2 * z] / row[2 * z]) for row in sums if row[2 * z] > 0]
+    if not means:
+        return None
+    return BatchNormState(mean=torch.stack([m for m, _ in means]).mean(dim=0),
+                          var=torch.stack([v for _, v in means]).mean(dim=0))
+
+
+def reduce_gradients(model: Bagel, fsdp: bool = False) -> None:
+    """Sum the gradients of a rank's trained parameters over the mesh axes
+    they are replicated over: over "data" every leaf that is not an FSDP
+    shard (those were summed in their gather's backward), and over "model"
+    the q / k norms (applied to the rank's heads, so each rank holds a
+    partial sum). One ``all_reduce`` per axis and dtype, over a flat buffer;
+    a parameter without a gradient takes part with zeros, so every rank runs
+    the same collectives."""
+    from unimedvl_tpu_torch.parallel.mesh import axis_group, fsdp_dim, model_partial
+
+    mesh = model.language_model.mesh
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    plan = [("data", [p for n, p in named if not (fsdp and fsdp_dim(n) is not None)]),
+            ("model", [p for n, p in named if model_partial(n)])]
+    for ax, params in plan:
+        if axis_group(mesh, ax) is None or not params:
+            continue
+        for dtype in sorted({p.dtype for p in params}, key=str):
+            group = [p for p in params if p.dtype == dtype]
+            flat = torch.cat([torch.zeros(p.numel(), dtype=dtype, device=p.device)
+                              if p.grad is None else p.grad.reshape(-1) for p in group])
+            mesh.all_reduce(flat, ax)
+            for p, g in zip(group, flat.split([p.numel() for p in group])):
+                p.grad = g.view(p.shape)
+
+
+def make_pp_train_step(cfg: BagelConfig, model: Bagel, mesh, optimizer=None,
+                       ema_decay: Optional[float] = None,
+                       ema_dtype: torch.dtype = torch.float32):
+    """The pipeline-parallel train step (the JAX ``make_pp_train_step``):
+    the layer stack over the mesh's "pipe" axis with the GPipe schedule
+    (``parallel.pp_train``), ``model`` this rank's stage model
+    (``parallel.pp_train.place_params_pp``). ``batches`` carry M
+    microbatches (a stacked numpy batch [M, ...] or a list), given whole to
+    every rank; the loss is the mean over them and one AdamW update is made
+    per call. The state and the update are :func:`make_train_step`'s: the
+    optimizer, the EMA and ``freeze_und`` act on the rank's parameters; the
+    gradients are summed over "data" (the q / k norms' also over "model")."""
+    from unimedvl_tpu_torch.parallel.pp_train import PP_AXES
+
+    if tuple(mesh.axis_names) not in PP_AXES:
+        raise ValueError(f"a pipeline mesh has the axes {PP_AXES}, got {mesh.axis_names}")
+    _check_rank_model(model, mesh, mesh.axis_names)
+    init_state = functools.partial(_init_state, model, cfg, optimizer or make_optimizer(),
+                                   ema_decay, ema_dtype, mesh)
+
+    def step(state: TrainState, batches, generator=None, noises=None):
+        loss, new_bn = pp_compute_gradients(state, cfg, batches, generator, noises)
+        _apply_update(state, ema_decay)
+        if new_bn is not None:
+            state.bn_state = new_bn
+        return state, loss
+
+    return step, init_state
+
+
+def pp_compute_gradients(state: TrainState, cfg: BagelConfig, batches, generator=None,
+                         noises=None):
+    """:func:`compute_gradients` of the pipeline step: the GPipe loss over
+    the microbatches and its reverse schedule, the gradients reduced over
+    the axes their leaves are replicated over. Returns (mean loss, the new
+    batch-norm state or None)."""
+    from unimedvl_tpu_torch.parallel.pp_train import pipeline_train_loss
+
+    mesh = state.mesh
+    loss, new_bn = pipeline_train_loss(state.model, cfg, mesh, batches, noises, generator,
+                                       state.bn_state)
+    loss.backward()
+    reduce_gradients(state.model)
+    return _reduce_loss(mesh, loss.detach()), _reduce_bn(mesh, [new_bn], state.bn_state)
