@@ -115,6 +115,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from functools import partial
 
 import numpy as np
@@ -125,6 +126,7 @@ from unimedvl_tpu_torch.config import (BagelConfig, E2EVAEConfig, LLMConfig, Tra
 from unimedvl_tpu_torch.data.tokenizer import ByteTokenizer, add_special_tokens
 from unimedvl_tpu_torch import quant
 from unimedvl_tpu_torch.inference import ContinuousBatcher, InterleaveInferencer, Request, serving
+from unimedvl_tpu_torch.inference import programs
 from unimedvl_tpu_torch.models import bagel, qwen2_mot, siglip
 from unimedvl_tpu_torch.models.layers import QuantLinear
 from unimedvl_tpu_torch.ops import act_quant as aq
@@ -1068,54 +1070,188 @@ def _images():
     return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w, _ in REQUESTS]
 
 
-def run_chat_requests(inf: InterleaveInferencer, requests, path: str, expected,
-                      rows_out=None) -> dict:
-    """Chat requests (indices into REQUESTS) with the counters reset just
-    before; ``expected(forwards, decode_steps, image_blocks)`` gives the launch
-    counts the path must show. Returns the launches each kernel counted; each
-    request's row of times goes to ``rows_out`` where given."""
-    images = _images()
-    # warm-up request (cuBLAS handles, first launches), not counted or timed
-    inf.chat([images[2]], REQUESTS[2][2], max_length=2)
-
-    stamps = []  # embed_tokens runs once per forward: the image and text
-    # prefills, then every decode step, whose input is the token just chosen
+def _chat_pass(inf: InterleaveInferencer, requests, images, graphed: bool):
+    """One pass of chat requests by one route: the captured decode program
+    (``graphed``) or the eager loop (``inf.graphs = False``, with the top-2 of
+    every step recorded as :func:`_greedy_steps` records them, and kept for
+    the later phases' gates in ``_CHAT_STEPS``). Returns (each request's row
+    of times, each request's answer ids, the eager pass's top-2 per step).
+    Stamps, synchronised: an eager forward at its embedding (its start), a
+    replay of the decode program at its end; the first replay of a graph
+    holds its capture, so ms per decode step leaves the first step out."""
+    stamps = []
 
     def stamp(module, args, output):
+        if programs.capturing():
+            return
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
 
+    def replayed(graph):
+        if graph.kind == "decode":
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    answers, tops, rows = [], [], []
+    generate = bagel.generate_text
+
+    def recording(*args, **kw):
+        out = generate(*args, **kw)
+        answers.append([i for i in out[0][0].tolist() if i >= 0])
+        return out
+
     hook = inf.model.language_model.model.embed_tokens.register_forward_hook(stamp)
-    reset_counts()
-    total_steps, image_blocks, forwards = 0, 0, 0
-    for i in requests:
-        (h, w, prompt), image = REQUESTS[i], images[i]
-        stamps.clear()
+    programs.listeners.append(replayed)
+    bagel.generate_text = recording
+    captures = programs.stats["captures"]
+    try:
+        for i in requests:
+            (h, w, prompt), image = REQUESTS[i], images[i]
+            stamps.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if graphed:
+                inf.chat([image], prompt, max_length=MAX_LENGTH)
+            else:
+                ids, steps = _greedy_steps(inf, lambda: inf.chat([image], prompt,
+                                                                 max_length=MAX_LENGTH),
+                                           MAX_LENGTH)
+                digest = hashlib.sha1(image.tobytes()).hexdigest()
+                key = (inf.__dict__.setdefault("_smoke_key", next(_INF_KEYS)), digest, prompt,
+                       MAX_LENGTH)
+                _CHAT_STEPS[key] = ids, steps
+                tops.append((ids, steps))
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+            n_img = (h // 14) * (w // 14)
+            if graphed:  # stamps: image prefill, text prefill, then each replay's end
+                steps, first_end = len(stamps) - 2, stamps[2]
+                ms_step = 1e3 * (stamps[-1] - stamps[2]) / max(1, steps - 1)
+            else:  # stamps: image prefill, text prefill, then each decode step's start
+                steps, first_end = len(stamps) - 2, stamps[3]
+                ms_step = 1e3 * (t_end - stamps[3]) / max(1, steps - 1)
+            rows.append(dict(
+                route="graphed" if graphed else "eager", image=f"{h}x{w}", image_tokens=n_img,
+                s_per_image=stamps[1] - t0, ttft_s=first_end - t0, decode_steps=steps,
+                ms_per_decode_step=ms_step,
+                decode_tok_s=(steps - 1) / (t_end - first_end) if steps > 1 else None,
+                captures=programs.stats["captures"] - captures))
+            captures = programs.stats["captures"]
+            print(f"  request {rows[-1]['image']} ({rows[-1]['route']}): {json.dumps(rows[-1])}",
+                  flush=True)
+    finally:
+        bagel.generate_text = generate
+        programs.listeners.remove(replayed)
+        hook.remove()
+    return rows, answers, tops
+
+
+def run_chat_requests(inf: InterleaveInferencer, requests, path: str, expected,
+                      rows_out=None, graphed: bool = True, eager_requests=None,
+                      trace: bool = True) -> dict:
+    """Chat requests (indices into REQUESTS) by the default route, the
+    captured decode program, and then by the eager loop (``graphs=False``),
+    the counters reset just before each pass; ``expected(forwards,
+    decode_steps, image_blocks)`` gives the launch counts each pass must show
+    (the program's replays count their captured launches, and it runs the
+    steps the eager loop runs, so both passes show the same). The graphed
+    answers must be the eager ones token for token (:func:`check_answers`
+    with no near-tie allowance). Then a profiler trace of the graphed decode
+    step (:func:`trace_decode_step`). Returns the graphed pass's launches
+    (the path's); each request's graphed row goes to ``rows_out`` where
+    given. Without ``graphed`` (a model on a mesh, which runs eagerly) only
+    the eager pass runs, and its launches and rows are returned.
+    ``eager_requests`` (default: all): the eager pass's requests, to bound
+    the smoke's time; with fewer, each pass's launches are held to
+    ``expected`` of its own forwards. ``trace``: trace the graphed step."""
+    images = _images()
+    # warm-up request (cuBLAS handles, first launches), not counted or timed
+    inf.chat([images[2]], REQUESTS[2][2], max_length=2)
+    eager_requests = list(requests if eager_requests is None else eager_requests)
+    launches, rows = {}, {}
+    for graphed in (True, False) if graphed else (False,):
+        inf.graphs = None if graphed else False
+        reqs = list(requests) if graphed else eager_requests
+        reset_counts()
+        counter = ForwardCounter(inf.model)
+        try:
+            rows[graphed], answers, tops = _chat_pass(inf, reqs, images, graphed)
+        finally:
+            counter.remove()
+            inf.graphs = None
+        steps = sum(r["decode_steps"] for r in rows[graphed])
+        route = "graphed" if graphed else "eager"
+        launches[graphed] = check_counts(f"{path} ({route})", expected(
+            counter.prefill + counter.decode, steps, len(reqs)))
+        if graphed:
+            got = {i: ids for i, ids in zip(reqs, answers)}
+    if True not in launches:
+        if rows_out is not None:
+            rows_out.extend(rows[False])
+        return launches[False]
+    if eager_requests == list(requests) and launches[True] != launches[False]:
+        raise SystemExit(f"chip_smoke: {path}: the graphed launches differ from the eager ones")
+    refs = dict(zip(eager_requests, tops))
+    check_answers(f"{path}, graphed vs eager", inf,
+                  [(i, images[i], REQUESTS[i][2]) for i in eager_requests], got, MAX_LENGTH,
+                  0.0, reference=lambda image, prompt, budget: refs[
+                      next(i for i in eager_requests if REQUESTS[i][2] == prompt
+                           and images[i] is image)])
+    ms = {route: statistics.median(r["ms_per_decode_step"] for r in rows[g])
+          for route, g in (("graphed", True), ("eager", False))}
+    print(f"  {path}: ms per decode step (median over the requests) graphed {ms['graphed']:.3f}, "
+          f"eager {ms['eager']:.3f} ({CARD})", flush=True)
+    if trace:
+        trace_decode_step(inf, requests[0], path)
+    if rows_out is not None:
+        rows_out.extend(rows[True])
+    return launches[True]
+
+
+TRACE_STEPS = 8
+
+
+def trace_decode_step(inf: InterleaveInferencer, request: int, path: str) -> dict:
+    """Where a graphed decode step's time goes: TRACE_STEPS steps of one
+    request's decode program (an end token that never comes) in a
+    ``torch.profiler`` trace; busy time from the trace's kernel events (the
+    union of their intervals), idle share against the wall of the same steps
+    without the profiler (median of 3). Prints and returns the row."""
+    from unimedvl_tpu_torch.tools.profile_decode_step import _summarise
+
+    h, w, prompt = REQUESTS[request]
+    ctx = inf.init_gen_context()
+    ctx = inf.update_context_image(_images()[request], ctx, vae=False)
+    ctx = inf.update_context_text(prompt, ctx)
+    ctx = inf._ensure_capacity(ctx, TRACE_STEPS + 1)
+    start = torch.tensor([inf.new_token_ids["bos_token_id"]], device="cuda")
+    pos = torch.tensor([ctx.rope], device="cuda")
+
+    def run():
+        return bagel.generate_text(inf.model, ctx.cache, start, pos, TRACE_STEPS, eos_id=-1)
+
+    run()  # the capture
+    walls = []
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        answer = inf.chat([image], prompt, max_length=MAX_LENGTH)
+        run()
         torch.cuda.synchronize()
-        t_end = time.perf_counter()
-        if not isinstance(answer, str):
-            raise SystemExit(f"chip_smoke: chat returned {type(answer)}")
-        steps = len(stamps) - 2
-        n_img = (h // 14) * (w // 14)
-        total_steps += steps
-        image_blocks += 1
-        forwards += len(stamps)
-        row = dict(
-            image=f"{h}x{w}", image_tokens=n_img, s_per_image=stamps[1] - t0,
-            text_prefill_s=stamps[2] - stamps[1],
-            ttft_s=stamps[3] - t0 if steps > 1 else None,
-            ttft_after_image_s=stamps[3] - stamps[1] if steps > 1 else None,
-            decode_steps=steps,
-            decode_tok_s=(steps - 1) / (t_end - stamps[3]) if steps > 1 else None,
-        )
-        print(f"  request {row['image']}: {json.dumps(row)} answer {answer[:60]!r}", flush=True)
-        if rows_out is not None:
-            rows_out.append(row)
-    hook.remove()
-    return check_counts(path, expected(forwards, total_steps, image_blocks))
+        walls.append(time.perf_counter() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "decode.trace.json")
+        prof.export_chrome_trace(trace)
+        from pathlib import Path
+        wall_ms = 1e3 * statistics.median(walls) / TRACE_STEPS
+        row = dict(card=CARD, route="graphed", image=f"{h}x{w}", steps=TRACE_STEPS,
+                   wall_ms=wall_ms, **_summarise(Path(trace), TRACE_STEPS, wall_ms))
+    row.pop("k4_by_grid", None)
+    print(f"  {path}: graphed decode step, traced: {json.dumps(row)}", flush=True)
+    return row
 
 
 def run_main_path(inf: InterleaveInferencer) -> dict:
@@ -1180,12 +1316,15 @@ def run_quantized_chat(inf: InterleaveInferencer, logits_bf16: torch.Tensor) -> 
               f"{MAX_LENGTH}", flush=True)
         qinf = quantized_inferencer(inf, **kw)
         rows = []
+        # the eager comparison on one request a mode, and a trace of the graphed step in
+        # full-int8 and w4a8 per channel (the smoke's time)
         launches = run_chat_requests(qinf, requests, f"the {name} path", lambda f, steps, imgs: {
             "flash_block_attention": imgs * (n_vit + n_llm) + imgs * n_llm,
             "decode_attention_int8": steps * n_llm,
             "silu_mul_quant": f * n_llm * k3_per_layer,
             "w4_matmul": f * n_llm * k4_per_layer,
-        }, rows)
+        }, rows, eager_requests=list(requests)[-1:],
+            trace=name.startswith(("full-int8", "w4a8 per channel")))
         s_per_image[name] = {row["image"]: row["s_per_image"] for row in rows}
         for k, v in launches.items():
             total[k] += v
@@ -1559,7 +1698,10 @@ class ForwardCounter:
     prefills (the speculative verify forwards among them, counted also in
     ``verify``), and forwards of the ViT; ``gen`` counts the gen-mode
     forwards (VAE image prefills and denoise steps, through K1b): the
-    launches a run must show follow from them."""
+    launches a run must show follow from them. A captured device program's
+    step counts at each replay (``programs.listeners``: a decode or chunk
+    step is a decode step, a flow step a denoise step), and the forwards of
+    a graph's warm-up and capture count nowhere."""
 
     def __init__(self, model):
         self.decode = self.prefill = self.vit = self.verify = self.denoise = self.gen = 0
@@ -1569,8 +1711,18 @@ class ForwardCounter:
             lm.register_forward_pre_hook(self._llm, with_kwargs=True),
             model.vit_model.register_forward_pre_hook(self._vit),
         ]
+        programs.listeners.append(self._replay)
+
+    def _replay(self, graph):
+        if graph.kind == "denoise":
+            self.denoise += 1
+            self.gen += 1
+        else:
+            self.decode += 1
 
     def _llm(self, module, args, kwargs):
+        if programs.capturing():
+            return
         self.gen += kwargs.get("mode") == "gen"  # VAE image blocks and denoise steps
         if kwargs.get("update_cache") is False:
             self.denoise += 1
@@ -1587,6 +1739,7 @@ class ForwardCounter:
     def remove(self):
         for h in self.hooks:
             h.remove()
+        programs.listeners.remove(self._replay)
 
 
 # an answer that parts from chat's passes only at a near-tie: the engine took
@@ -1612,7 +1765,8 @@ def _greedy_steps(inf: InterleaveInferencer, decode, max_length: int):
 
     qwen2_mot.lm_head = record
     try:
-        decode()
+        with programs.eager():  # the eager loop: a graph would not call the wrapper
+            decode()
     finally:
         qwen2_mot.lm_head = lm_head
     steps = [(t.values.tolist(), t.indices.tolist()) for t in steps]
@@ -1625,15 +1779,74 @@ _CHAT_STEPS = {}  # (inferencer, image digest, prompt, max_length) -> _greedy_st
 _INF_KEYS = itertools.count()  # an inferencer's key there (an id() may be reused)
 
 
+def _chat_ids(inf: InterleaveInferencer, decode, max_length: int) -> list:
+    """``decode()`` (a greedy chat of ``inf``) by its default route, the
+    captured decode program on the card: [bos] and the answer's ids, eos
+    last where the answer ended on it (:func:`_greedy_steps`' form)."""
+    outs = []
+    generate = bagel.generate_text
+
+    def recording(*args, **kw):
+        out = generate(*args, **kw)
+        outs.append(out[0][0].tolist())
+        return out
+
+    bagel.generate_text = recording
+    try:
+        decode()
+    finally:
+        bagel.generate_text = generate
+    ids = [i for i in outs[-1] if i >= 0]
+    return ids + ([inf.new_token_ids["eos_token_id"]] if len(ids) < max_length else [])
+
+
+class _LazySteps:
+    """chat's top-2 per step (:func:`_greedy_steps`), computed on the eager
+    route at the first read and held to the graphed answer's ids: a gate
+    reads them only where an answer parts from chat's, so the references
+    decode on the captured program and a parting request once eagerly. The
+    inferencer is held weakly: a kept reference must not keep its model on
+    the card."""
+
+    def __init__(self, inf: InterleaveInferencer, image, prompt: str, max_length: int,
+                 ids: list):
+        self.inf, self.request, self.ids, self.steps = weakref.ref(inf), (
+            image, prompt, max_length), ids, None
+
+    def _get(self) -> list:
+        if self.steps is None:
+            inf = self.inf()
+            if inf is None:
+                raise SystemExit("chip_smoke: a chat reference's inferencer was freed")
+            image, prompt, max_length = self.request
+            ids, self.steps = _greedy_steps(inf, lambda: inf.chat(
+                [] if image is None else [image], prompt, max_length=max_length), max_length)
+            if ids != self.ids:
+                raise SystemExit("chip_smoke: chat's eager answer differs from its graphed one")
+        return self.steps
+
+    def __getitem__(self, i):
+        return self._get()[i]
+
+    def __iter__(self):
+        return iter(self._get())
+
+    def __len__(self) -> int:
+        return len(self._get())
+
+
 def _chat_steps(inf: InterleaveInferencer, image, prompt: str, max_length: int):
-    """:func:`_greedy_steps` of ``inf.chat`` on one request, kept for the
-    run: the serving runs and the spec phase gate the same requests
-    against the same inferencer."""
+    """chat's answer ids on one request and its top-2 per step (lazily:
+    :class:`_LazySteps`), kept for the run: the serving runs and the spec
+    phase gate the same requests against the same inferencer."""
     digest = None if image is None else hashlib.sha1(image.tobytes()).hexdigest()
     key = (inf.__dict__.setdefault("_smoke_key", next(_INF_KEYS)), digest, prompt, max_length)
     if key not in _CHAT_STEPS:
-        _CHAT_STEPS[key] = _greedy_steps(inf, lambda: inf.chat(
-            [] if image is None else [image], prompt, max_length=max_length), max_length)
+        def decode():
+            return inf.chat([] if image is None else [image], prompt, max_length=max_length)
+
+        ids = _chat_ids(inf, decode, max_length)
+        _CHAT_STEPS[key] = ids, _LazySteps(inf, image, prompt, max_length, ids)
     return _CHAT_STEPS[key]
 
 
@@ -1807,10 +2020,11 @@ def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
     the verify forward's first row, and the row adds the tokens per verify
     forward and the int8 dequantize time of one verify forward (both layer
     slices of the pool, every layer). Returns (the launches, the near-tie gap
-    limit)."""
-    n_vit, n_llm = ref.cfg.vit.num_hidden_layers, ref.cfg.llm.num_hidden_layers
+    limit). Without ``spec`` the workload runs twice: by the default route,
+    the captured chunk programs (the run's launches and answers), then on an
+    eager batcher (``graphs=False``), whose tokens and steps run the graphed
+    run must show."""
     kv_quantized = ref.kv_quantized
-    decode_key = "decode_attention_int8" if kv_quantized else "decode_attention"
     first, later = serving_workload(run)
     options = (dict(spec_decode=True, spec_k=SPEC_K, spec_ngram=SPEC_NGRAM) if spec
                else dict(pool_ladder=True, min_pool=min_pool))
@@ -1819,14 +2033,51 @@ def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
           f"capacity={SERVE_CAPACITY}, chunk={SERVE_CHUNK}, kv_quantized={kv_quantized}, "
           f"{', '.join(f'{k}={v}' for k, v in options.items())})", flush=True)
 
-    def engine():
+    def engine(graphs=None):
         return ContinuousBatcher(
             ref.model, ref.tokenizer, ref.new_token_ids, SERVE_SLOTS, SERVE_CAPACITY,
-            SERVE_CHUNK, ref.vit_transform, SEED, kv_quantized=kv_quantized, **options)
+            SERVE_CHUNK, ref.vit_transform, SEED, kv_quantized=kv_quantized, graphs=graphs,
+            **options)
 
     gap_limit = NEAR_TIE_FACTOR * check_serving_logits(
         run, ref, engine, ("verify",) if spec else ("aligned", "scatter"))
-    b = engine()
+    # the speculative chunks are eager: run D has one pass
+    routes = [("speculative, eager", None)] if spec else [("graphed", None), ("eager", False)]
+    runs = {route: _serve_waves(run, ref, engine(graphs), first, later, min_pool, spec, route,
+                                k3_per_layer, k4_per_layer) for route, graphs in routes}
+    launches, rids, got_ids, row = runs[routes[0][0]]
+    if not spec:
+        _, eager_rids, eager_ids, eager_row = runs["eager"]
+        same = [r for r, e in zip(rids, eager_rids) if got_ids.get(r) == eager_ids.get(e)]
+        ran = row["stats"]["decode_steps"]
+        print(f"  run {run}: graphed vs eager batcher: requests with equal tokens "
+              f"{len(same)}/{len(rids)}; decode steps run {ran} graphed (of "
+              f"{row['decode_forwards']} replays: {row['decode_forwards'] - ran} past a chunk's "
+              f"exit), {eager_row['decode_forwards']} eager; emitted tok/s "
+              f"{row['emitted_tok_s']:.1f} graphed, {eager_row['emitted_tok_s']:.1f} eager; ms "
+              f"per decode step {row['ms_per_decode_step']:.3f} graphed, "
+              f"{eager_row['ms_per_decode_step']:.3f} eager; graphs captured "
+              f"{row['graphs_captured']}, the graph pool at most {row['graph_pool_bytes_max']} "
+              f"bytes so far ({CARD})",
+              flush=True)
+        if len(same) != len(rids) or ran != eager_row["decode_forwards"]:
+            raise SystemExit(f"chip_smoke: serving run {run}: the graphed batcher's tokens or "
+                             "steps differ from the eager batcher's")
+    check_answers(run, ref, [(rid, a, _prompt(p, pre)) for rid, (a, p, pre)
+                             in zip(rids, first + later)], got_ids, SERVE_MAX_NEW, gap_limit)
+    return launches, gap_limit
+
+
+def _serve_waves(run: str, ref: InterleaveInferencer, b: ContinuousBatcher, first, later,
+                 min_pool: int, spec: bool, route: str, k3_per_layer: int,
+                 k4_per_layer: int):
+    """:func:`run_serving`'s workload on engine ``b``: the warm-up request,
+    then, counters reset, the preamble and the two waves. Checks the launches
+    against the forwards (a replay of a chunk program is a decode forward,
+    those past a chunk's exit included), the answers and ``errors``; prints
+    the row. Returns (launches, rids, the answer ids, the row)."""
+    n_vit, n_llm = ref.cfg.vit.num_hidden_layers, ref.cfg.llm.num_hidden_layers
+    decode_key = "decode_attention_int8" if ref.kv_quantized else "decode_attention"
     b.submit(Request(prompt="warm-up", max_new_tokens=2))
     b.run()
     if b.pool != (SERVE_SLOTS if spec else min_pool):
@@ -1835,6 +2086,7 @@ def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
     got_ids = _recording_ids(b)
     counter = ForwardCounter(ref.model)
     reset_counts()
+    captures = programs.stats["captures"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pid = b.register_prefix(SERVE_PREAMBLE)
@@ -1856,7 +2108,7 @@ def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
     seconds = time.perf_counter() - t0
     counter.remove()
     forwards = counter.decode + counter.prefill
-    launches = check_counts(f"serving run {run}", {
+    launches = check_counts(f"serving run {run} ({route})", {
         "flash_block_attention": counter.vit * n_vit + counter.prefill * n_llm,
         decode_key: counter.decode * n_llm,
         "silu_mul_quant": forwards * n_llm * k3_per_layer,
@@ -1867,15 +2119,18 @@ def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
     if b.errors or missing:
         raise SystemExit(f"chip_smoke: serving run {run}: errors {b.errors}, unanswered {missing}")
     rounds = st["rounds"]
-    row = dict(card=CARD, seconds=seconds, emitted_tokens=st["emitted_tokens"],
+    row = dict(card=CARD, route=route, seconds=seconds, emitted_tokens=st["emitted_tokens"],
                emitted_tok_s=st["emitted_tokens"] / seconds,
                stats={k: st[k] for k in ("rounds", "admit_s", "decode_s", "host_s", "round_s",
-                                         "repacks", "repack_s", "admitted")},
+                                         "repacks", "repack_s", "admitted", "decode_steps")},
                pool_by_round=pools, decode_forwards=counter.decode,
+               ms_per_decode_step=1e3 * st["decode_s"] / max(1, counter.decode),
                tokens_per_decode_forward=st["emitted_tokens"] / max(
                    1, counter.decode + counter.verify),
                prefill_forwards=counter.prefill, vit_forwards=counter.vit,
                vit_group_images=counter.vit_rows,
+               graphs_captured=programs.stats["captures"] - captures,
+               graph_pool_bytes_max=programs.stats["pool_bytes_max"],
                launches_per_round={k: v / rounds for k, v in launches.items() if v})
     if spec:
         k8, v8, ks, vs, _bits = b.cache.layer(0)
@@ -1887,9 +2142,7 @@ def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
     print(f"  run {run}: {json.dumps(row)}", flush=True)
     del b
     torch.cuda.empty_cache()
-    check_answers(run, ref, [(rid, a, _prompt(p, pre)) for rid, (a, p, pre)
-                             in zip(rids, first + later)], got_ids, SERVE_MAX_NEW, gap_limit)
-    return launches, gap_limit
+    return launches, rids, got_ids, row
 
 
 def run_near_capacity(run: str, ref: InterleaveInferencer, gap_limit: float) -> dict:
@@ -2472,6 +2725,9 @@ def spec_floor_ceiling(name: str, plain: InterleaveInferencer, gap_limit: float,
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
+    # the plain decode by its default route, the captured program (the speculative one is
+    # eager); its capture untimed
+    bagel.generate_text(model, ctx.cache, start, positions, SPEC_LENGTH, eos)
     (out, lengths), dt = timed(lambda: bagel.generate_text(
         model, ctx.cache, start, positions, SPEC_LENGTH, eos))
     plain_ids = _answer_ids(out)
@@ -2641,15 +2897,22 @@ class _EvalBatcher(ContinuousBatcher):
     finishes (``ids``)."""
 
     made = []
+    graphs = None  # the route of its decode chunks
 
     def __init__(self, *args, **kw):
-        super().__init__(*args, **kw)
+        super().__init__(*args, graphs=type(self).graphs, **kw)
         self.rids, self.ids = [], _recording_ids(self)
         _EvalBatcher.made.append(self)
 
     def submit(self, req):
         self.rids.append(super().submit(req))
         return self.rids[-1]
+
+
+class _EagerEvalBatcher(_EvalBatcher):
+    """:class:`_EvalBatcher` with the eager decode chunks (``graphs=False``)."""
+
+    graphs = False
 
 
 def _eval_first_step_logits(inf: InterleaveInferencer, samples, **kv) -> torch.Tensor:
@@ -2671,6 +2934,39 @@ def _eval_first_step_logits(inf: InterleaveInferencer, samples, **kv) -> torch.T
     del b, logits
     torch.cuda.empty_cache()
     return out
+
+
+def _eager_eval(inf: InterleaveInferencer, samples, kv: dict, name: str,
+                graphed: _EvalBatcher) -> dict:
+    """``run_vqa_eval`` once more over the same samples and pool on eager
+    decode chunks (``graphs=False``): every request's ids must be the graphed
+    engine's. Runs outside the counted window (the caller's counters are
+    saved and put back). Returns the eager run's seconds and emitted tok/s."""
+    from unimedvl_tpu_torch.eval import exact_match_accuracy, vqa
+
+    saved = {name_: dict(c) for name_, (c, _key) in COUNTERS.items()}
+    made = serving.ContinuousBatcher
+    serving.ContinuousBatcher = _EagerEvalBatcher
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        vqa.run_vqa_eval(inf.model, inf.tokenizer, inf.new_token_ids, samples,
+                         max_new_tokens=EVAL_MAX_NEW, num_slots=EVAL_SLOTS,
+                         capacity=EVAL_CAPACITY, metric=exact_match_accuracy, **kv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        serving.ContinuousBatcher = made
+        for name_, (c, _key) in COUNTERS.items():
+            c.update(saved[name_])
+    b = _EvalBatcher.made.pop()
+    same = sum(graphed.ids.get(r) == b.ids.get(e) for r, e in zip(graphed.rids, b.rids))
+    print(f"  run F ({name}): graphed vs eager batcher, requests with equal tokens "
+          f"{same}/{len(b.rids)}", flush=True)
+    if same != len(b.rids) or len(b.rids) != len(graphed.rids):
+        raise SystemExit(f"chip_smoke: eval run F ({name}): the graphed engine's tokens differ "
+                         "from the eager engine's")
+    return dict(seconds=seconds, emitted_tok_s=b.stats["emitted_tokens"] / seconds)
 
 
 def run_eval_phase(inf: InterleaveInferencer) -> dict:
@@ -2735,6 +3031,7 @@ def run_eval_phase(inf: InterleaveInferencer) -> dict:
                 serving.ContinuousBatcher = made
                 counter.remove()
             b = _EvalBatcher.made.pop()
+            eager = _eager_eval(inf, samples, kv, name, b)
             launches = check_counts(f"eval run F ({name})", {
                 "flash_block_attention": counter.vit * n_vit + counter.prefill * n_llm,
                 decode_key: counter.decode * n_llm,
@@ -2753,6 +3050,7 @@ def run_eval_phase(inf: InterleaveInferencer) -> dict:
                        decode_forwards=counter.decode, prefill_forwards=counter.prefill,
                        vit_forwards=counter.vit, accuracy=acc,
                        same_as_chat=sum(p == a for p, a in zip(preds, answers)),
+                       eager=eager,
                        report_metrics=report_metrics(preds, answers),
                        cache_gib=sum(t.numel() * t.element_size() for t in
                                      serving._arrays(b.cache)) / 2**30)
@@ -2862,7 +3160,9 @@ def check_against_plain_path(inf: InterleaveInferencer) -> torch.Tensor:
 class StepTimer:
     """Host stamps around every forward of the LLM (synchronised, so each
     stamp is the device's time too): the denoise steps are the gen-mode
-    forwards that leave the cache as it was."""
+    forwards that leave the cache as it was. A captured flow step is stamped
+    at the end of its replay (``programs.listeners``), its start the end of
+    what ran before it; the first replay of a graph includes its capture."""
 
     def __init__(self, lm_model):
         self.steps = []  # (start, end, streams)
@@ -2871,20 +3171,35 @@ class StepTimer:
             lm_model.register_forward_pre_hook(self._pre, with_kwargs=True),
             lm_model.register_forward_hook(self._post, with_kwargs=True),
         ]
+        self._mark = None  # the end of the last forward or replay
+        programs.listeners.append(self._replay)
 
     def _pre(self, module, args, kwargs):
+        if programs.capturing():
+            return
         torch.cuda.synchronize()
         self._start = time.perf_counter()
 
     def _post(self, module, args, kwargs, output):
-        if kwargs.get("update_cache", True):
+        if programs.capturing():
             return
         torch.cuda.synchronize()
-        self.steps.append((self._start, time.perf_counter(), args[0].shape[0]))
+        self._mark = time.perf_counter()
+        if kwargs.get("update_cache", True):
+            return
+        self.steps.append((self._start, self._mark, args[0].shape[0]))
+
+    def _replay(self, graph):
+        if graph.kind != "denoise":
+            return
+        torch.cuda.synchronize()
+        start, self._mark = self._mark, time.perf_counter()
+        self.steps.append((start, self._mark, graph.rows))
 
     def remove(self):
         for h in self._hooks:
             h.remove()
+        programs.listeners.remove(self._replay)
 
 
 class SPStepTimer:
@@ -2949,7 +3264,39 @@ def _gen_request(inf: InterleaveInferencer, inputs, **kw):
         vae_decode_s=t_end - steps[-1][1], s_per_image=t_end - t0,
         image_std=float(np.asarray(image).std()),
     )
+    row["latent"] = z
     return image, row
+
+
+def check_gen_against_eager(inf: InterleaveInferencer, path: str, requests, states,
+                            graphed: dict, expected: dict) -> None:
+    """The generation requests once more on the eager flow loop
+    (``inf.graphs = False``), each from the generator state its graphed run
+    started from: the final latent within VELOCITY_COS_TOL of the graphed
+    one, the image within 1 per uint8 pixel, the launches ``expected()``
+    (the graphed run's for the same requests). Prints s/image both ways.
+    ``graphed``: name -> (image, row) of the graphed runs."""
+    reset_counts()
+    inf.graphs = False
+    try:
+        for (name, inputs), state in zip(requests, states):
+            inf._generator.set_state(state)
+            image, row = _gen_request(inf, inputs)
+            g_image, g_row = graphed[name]
+            cos = _cosine(g_row["latent"], row["latent"])
+            px = int(np.abs(np.asarray(image, np.int32) - np.asarray(g_image, np.int32)).max())
+            print(f"  {path} {name}: graphed vs eager flow loop: final latent cosine {cos:.6f}, "
+                  f"image max |diff| {px} per pixel; s/image {g_row['s_per_image']:.3f} graphed, "
+                  f"{row['s_per_image']:.3f} eager; ms per 3-stream step "
+                  f"{g_row['ms_per_3_stream_step']:.2f} / {row['ms_per_3_stream_step']:.2f}, "
+                  f"1-stream {g_row['ms_per_1_stream_step']:.2f} / "
+                  f"{row['ms_per_1_stream_step']:.2f} ({CARD})", flush=True)
+            if cos < VELOCITY_COS_TOL or px > 1:
+                raise SystemExit(f"chip_smoke: {path} {name}: the graphed flow loop disagrees "
+                                 "with the eager one")
+    finally:
+        inf.graphs = None
+    check_counts(f"{path} (eager)", expected())
 
 
 def _edit_image() -> np.ndarray:
@@ -2963,29 +3310,39 @@ def run_generation(inf: InterleaveInferencer):
     denoise is the sequence-parallel program: two K1c launches per layer and
     step in place of one K1b. Returns (the launches, each request's timings)."""
     sp = inf.sp_mesh is not None
-    # warm-up edit request (first uses of the shapes, cuDNN set-up), few steps, not counted
-    inf.interleave_inference([_edit_image(), EDIT_PROMPT], image_shapes=GEN_SIZE,
-                             num_timesteps=3)
+    # warm-up edit request (first uses of the shapes, cuDNN set-up), few steps, eager (a
+    # schedule of 3 steps would capture graphs of its own), not counted
+    with programs.eager():
+        inf.interleave_inference([_edit_image(), EDIT_PROMPT], image_shapes=GEN_SIZE,
+                                 num_timesteps=3)
     reset_counts()
     requests = [("text-to-image", [GEN_PROMPT]), ("edit", [_edit_image(), EDIT_PROMPT])]
-    rows = {}
+    rows, outs, states = {}, {}, []
     for name, inputs in requests:
-        _, rows[name] = _gen_request(inf, inputs)
+        states.append(inf._generator.get_state())
+        outs[name] = _gen_request(inf, inputs)
+        rows[name] = {k: v for k, v in outs[name][1].items() if k != "latent"}
         print(f"  request {name} {GEN_SIZE[0]}x{GEN_SIZE[1]}: {json.dumps(rows[name])}",
               flush=True)
     n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
     steps = 49  # num_timesteps 50
     denoise = 2 * steps * n_llm  # every denoise step of both requests
-    launches = check_counts(
-        "the sequence-parallel denoise path" if sp else "the generation path", {
-            # text prefills: main and cfg_img context in each request; the edit's ViT image
-            "flash_block_attention": 2 * 2 * n_llm + (n_vit + n_llm),
-            # the edit's VAE prefill, and without sp_mesh every denoise step
-            "flash_block_attention_q_preproc": n_llm + (0 if sp else denoise),
-            # with sp_mesh: a cache partial and a block partial per layer and step
-            "flash_block_attention_lse": 2 * denoise if sp else 0,
-            "decode_attention": 0,
-        })
+    expected = {
+        # text prefills: main and cfg_img context in each request; the edit's ViT image
+        "flash_block_attention": 2 * 2 * n_llm + (n_vit + n_llm),
+        # the edit's VAE prefill, and without sp_mesh every denoise step
+        "flash_block_attention_q_preproc": n_llm + (0 if sp else denoise),
+        # with sp_mesh: a cache partial and a block partial per layer and step
+        "flash_block_attention_lse": 2 * denoise if sp else 0,
+        "decode_attention": 0,
+    }
+    path = "the sequence-parallel denoise path" if sp else "the generation path"
+    launches = check_counts(path, expected)
+    if not sp:  # the sequence-parallel denoise runs eagerly
+        # the eager comparison on the text-to-image request (the smoke's time)
+        check_gen_against_eager(inf, path, requests[:1], states[:1], outs, lambda: {
+            "flash_block_attention": 2 * n_llm,
+            "flash_block_attention_q_preproc": steps * n_llm})
     return launches, rows
 
 
@@ -3081,7 +3438,8 @@ def _with_plain_versions(fn, fp32_attention: bool = False, quant_only: bool = Fa
     for mod, name, f in swapped:
         setattr(mod, name, f)
     try:
-        return fn()
+        with programs.eager():  # a captured graph would replay the kernels
+            return fn()
     finally:
         for mod, name, f in saved:
             setattr(mod, name, f)
@@ -3283,6 +3641,11 @@ def check_velocities(path: str, velocity, replay: bool = False, per_call: bool =
     kernel side's inputs): every attention output and K3 call is also held
     to its plain version (:class:`AttentionTap`, ``QuantReplay.check_k3``).
     Returns the three velocities and the replay (``v["replay"]``)."""
+    with programs.eager():  # the recorders and taps see every call of the eager step
+        return _check_velocities(path, velocity, replay, per_call)
+
+
+def _check_velocities(path: str, velocity, replay: bool, per_call: bool) -> dict:
     rec = QuantReplay() if replay else None
     tap = AttentionTap() if per_call else None
     if rec is None:
@@ -3477,19 +3840,32 @@ def run_quantized_generation(inf: InterleaveInferencer, v_bf16: torch.Tensor,
         print(f"quantized generation path (run H), {name}: text-to-image and an edit at "
               f"{GEN_SIZE[0]}x{GEN_SIZE[1]}, 50 timesteps", flush=True)
         qinf = quantized_inferencer(inf, **kw)
-        # warm-up (first uses of the quantized shapes), few steps, not counted
-        qinf.interleave_inference([GEN_PROMPT], image_shapes=GEN_SIZE, num_timesteps=3)
+        # warm-up (first uses of the quantized shapes), few steps, eager (a schedule of 3 steps
+        # would capture graphs of its own), not counted
+        with programs.eager():
+            qinf.interleave_inference([GEN_PROMPT], image_shapes=GEN_SIZE, num_timesteps=3)
         counter = ForwardCounter(qinf.model)
         reset_counts()
-        rows = {}
+        rows, outs, states = {}, {}, []
+        requests = (("text-to-image", [GEN_PROMPT]), ("edit", [_edit_image(), EDIT_PROMPT]))
         try:
-            for rname, inputs in (("text-to-image", [GEN_PROMPT]),
-                                  ("edit", [_edit_image(), EDIT_PROMPT])):
-                _, rows[rname] = _gen_request(qinf, inputs)
+            for rname, inputs in requests:
+                states.append(qinf._generator.get_state())
+                outs[rname] = _gen_request(qinf, inputs)
+                rows[rname] = outs[rname][1]
         finally:
             counter.remove()
-        launches = check_counts(f"the quantized generation path ({name})", gen_path_launches(
+        path = f"the quantized generation path ({name})"
+        launches = check_counts(path, gen_path_launches(
             counter, n_vit, n_llm, k3=k3, k4=k4, decode_key="decode_attention_int8"))
+        # the eager comparison on the text-to-image request alone (the smoke's time)
+        counter = ForwardCounter(qinf.model)
+        try:
+            check_gen_against_eager(qinf, path, requests[:1], states[:1], outs, lambda: (
+                gen_path_launches(counter, n_vit, n_llm, k3=k3, k4=k4,
+                                  decode_key="decode_attention_int8")))
+        finally:
+            counter.remove()
         for k, v in launches.items():
             total[k] += v
         for rname, row in rows.items():
@@ -3535,7 +3911,8 @@ def run_cache_block_step(inf: InterleaveInferencer) -> dict:
         saved = qwen2_mot._attend_cache_and_block
         qwen2_mot._attend_cache_and_block = attend
         try:
-            return fn()
+            with programs.eager():  # a captured graph would not see the swap
+                return fn()
         finally:
             qwen2_mot._attend_cache_and_block = saved
 
@@ -3551,9 +3928,9 @@ def run_cache_block_step(inf: InterleaveInferencer) -> dict:
     for edit, name in ((False, "text-to-image"), (True, "edit")):
         cos, finite = _cosine(got[edit], want[edit]), bool(torch.isfinite(got[edit]).all())
         caches, positions, pos_ids, noise = _denoise_inputs(inf, edit)
-        step = lambda: bagel.generate_latents(  # noqa: E731
+        step = lambda: bagel.generate_latents(  # noqa: E731  (eager, as K6's swap runs)
             inf.model, caches, positions, pos_ids, noise, inf._start_end(), num_timesteps=50,
-            step_range=(0, 1), **RECIPE)
+            step_range=(0, 1), graphs=False, **RECIPE)
         ms_today, ms_k6 = cuda_ms(step, iters=5), cuda_ms(lambda: swapped(step), iters=5)
         print(f"  {name} {GEN_SIZE[0]}x{GEN_SIZE[1]}, first step (3 streams, lens "
               f"{caches.lens.tolist()}, capacity {caches.capacity}): post-CFG velocity K6 vs "
@@ -3863,12 +4240,13 @@ def _mesh_chat(inf: InterleaveInferencer, mesh) -> dict:
                                  lambda f, steps, imgs: {
                                      "flash_block_attention": imgs * (n_vit + n_llm)
                                      + imgs * n_llm,
-                                     "decode_attention": steps * n_llm}, rows)
+                                     "decode_attention": steps * n_llm}, rows, graphed=False)
     for row, base in zip(rows, CHAT_ROWS):
         if row["decode_tok_s"] and base["decode_tok_s"]:
             print(f"  {row['image']}: ms per decode step {1e3 / row['decode_tok_s']:.3f} on the "
-                  f"mesh ({2 * n_llm} all-reduces over 'model', one vocab gather), "
-                  f"{1e3 / base['decode_tok_s']:.3f} without (not gated)", flush=True)
+                  f"mesh ({2 * n_llm} all-reduces over 'model', one vocab gather; eager), "
+                  f"{1e3 / base['decode_tok_s']:.3f} without (the captured program; not gated)",
+                  flush=True)
     return launches
 
 
@@ -4057,6 +4435,9 @@ def run_tp_program(inf: InterleaveInferencer) -> dict:
     del fp32
     vt = inf.vit_transform.resize_transform
     transform = (vt.max_size, vt.min_size, vt.stride, vt.max_pixels)
+    # the ranks need the card's memory that the graphs' pool and the programs' caches hold
+    programs.drop_all()
+    gc.collect()
     torch.cuda.empty_cache()
     print(f"tensor parallelism over {TP_RANKS} processes on this card (gloo: host-staged "
           f"collectives): the {h}x{w} chat request, max_length {MAX_LENGTH}, bf16 then w4a8",
@@ -5381,6 +5762,7 @@ def run(tmp: str) -> None:
         timings[name]["backward_cases"] = cases
     paths += train_paths
     tok, new_token_ids = inf.tokenizer, inf.new_token_ids
+    _CHAT_STEPS.clear()  # the chat references of the inference phases
     del inf  # the 28-layer model makes room for the full fine-tune's state
     gc.collect()
     torch.cuda.empty_cache()

@@ -53,6 +53,7 @@ import unimedvl_tpu_torch.eval.text_metrics
 import unimedvl_tpu_torch.models.qwen2_mot
 import unimedvl_tpu_torch.inference.pipeline
 import unimedvl_tpu_torch.inference.serving
+import unimedvl_tpu_torch.inference.programs
 import unimedvl_tpu_torch.parallel
 import unimedvl_tpu_torch.parallel.mesh
 import unimedvl_tpu_torch.parallel.sp_denoise

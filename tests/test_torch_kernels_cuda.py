@@ -1320,3 +1320,110 @@ def test_w4_matmul_at_the_shard_shapes(gen, m, kn, group):
     want = w4.w4_matmul_ref(xb, None, wp, ws).float()
     bound = 2.0**-7 * want.abs() + 1e-3 * K**0.5 * 8 * xb.float().abs().max() * ws.max() / 16
     assert ((got - want).abs() <= bound).all(), ((got - want).abs() / bound).max().item()
+
+
+# ---------------------------------------------------------------------------
+# The device programs (inference/programs.py): each captured program against
+# its eager loop on the same inputs. A two-layer model of head dim 128 (K2,
+# K1b), bf16, random weights; an int8 cache for the decode. Tokens and lens
+# must be equal; latents within 1e-3 (the same kernels on the same inputs).
+# ---------------------------------------------------------------------------
+
+def _program_model():
+    import dataclasses
+
+    from unimedvl_tpu_torch.config import LLMConfig
+    from unimedvl_tpu_torch.models import bagel
+    from unimedvl_tpu_torch.scripts.toy_overfit import tiny_config
+
+    cfg = dataclasses.replace(tiny_config(), llm=LLMConfig(
+        vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+        num_attention_heads=2, num_key_value_heads=1, rope_theta=10000.0))
+    model = bagel.Bagel(cfg, device="cuda", dtype=torch.bfloat16)
+    bagel.init_random_(model, torch.Generator(device="cuda").manual_seed(0), llm2vae_zero=False)
+    return model
+
+
+def _program_context(model, S, M, lens, quantized=False):
+    from unimedvl_tpu_torch.models import bagel
+    from unimedvl_tpu_torch.models.qwen2_mot import KVCache
+
+    llm = model.config.llm
+    T = max(lens)
+    ids = (torch.arange(S * T, device="cuda").reshape(S, T) * 7 + 3) % llm.vocab_size
+    pos = torch.arange(T, device="cuda").expand(S, T).contiguous()
+    valid = torch.arange(T, device="cuda")[None] < torch.tensor(lens, device="cuda")[:, None]
+    cache = KVCache.create(llm.num_hidden_layers, S, M, llm.num_key_value_heads, llm.head_dim,
+                           torch.bfloat16, device="cuda", quantized=quantized)
+    return bagel.prefill_text(model, cache, ids, pos, valid)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_decode_program_captured_equals_eager(gen, quantized):
+    """generate_text as a captured graph against its eager loop: tokens,
+    lengths and K2's launches equal, twice (the second call replays)."""
+    from unimedvl_tpu_torch.models import bagel
+
+    model = _program_model()
+    cache = _program_context(model, 2, 512, [40, 23], quantized)
+    start, pos = torch.tensor([5, 9], device="cuda"), torch.tensor([40, 23], device="cuda")
+    counts = dec.int8_counts if quantized else dec.counts
+    before = counts["kernel"]
+    want = bagel.generate_text(model, cache, start, pos, 12, -1, graphs=False)
+    eager = counts["kernel"] - before
+    for _ in range(2):
+        before = counts["kernel"]
+        got = bagel.generate_text(model, cache, start, pos, 12, -1, graphs=True)
+        assert counts["kernel"] - before == eager == 12 * 2
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("flavour", ["decode_chunk", "decode_chunk_aligned"])
+def test_chunk_program_captured_equals_eager(gen, flavour):
+    """A decode chunk as a captured graph against its eager loop: tokens,
+    last, positions, lens and each live stream's cache columns equal."""
+    from unimedvl_tpu_torch.inference import serving
+
+    model = _program_model()
+    fn = getattr(serving, flavour)
+    args = (torch.tensor([3, 5, 7], device="cuda"), torch.tensor([40, 23, 11], device="cuda"),
+            torch.tensor([True, False, True], device="cuda"))
+    out = {}
+    for graphs in (False, True):
+        cache = _program_context(model, 3, 256, [40, 23, 11])
+        out[graphs] = fn(model, cache, *args, 8, graphs=graphs, return_steps=True)
+    (tok, last, pos, c, n), (tok_g, last_g, pos_g, c_g, n_g) = out[False], out[True]
+    assert int(n) == int(n_g) == 8
+    for a, b in ((tok, tok_g), (last, last_g), (pos, pos_g), (c.lens, c_g.lens)):
+        assert torch.equal(a, b)
+    for s in (0, 2):
+        n_s = int(c.lens[s])
+        assert torch.equal(c.k[:, s, :, :n_s], c_g.k[:, s, :, :n_s])
+
+
+def test_flow_program_captured_equals_eager(gen):
+    """generate_latents_group as captured graphs (a CFG run and a main-stream
+    run, K1b inside) against its eager loop, over two step_range segments."""
+    from unimedvl_tpu_torch.models import bagel
+    from unimedvl_tpu_torch.models.qwen2_mot import KVCache
+
+    model = _program_model()
+    cfg, llm = model.config, model.config.llm
+    G, S1, n = 2, 3, 16
+    caches = KVCache.stack([_program_context(model, S1, 128, [20, 9, 20]) for _ in range(G)])
+    positions = torch.tensor([20, 9, 20] * G, device="cuda")
+    pos_ids = torch.randperm(cfg.max_latent_size ** 2, device="cuda", generator=gen)[:n]
+    noise = torch.randn(G, n, cfg.patch_latent_dim, device="cuda", generator=gen)
+    se = torch.tensor([llm.vocab_size - 2, llm.vocab_size - 1], device="cuda")
+    kw = dict(num_timesteps=6, timestep_shift=1.0, cfg_text_scale=2.0, cfg_img_scale=1.5,
+              cfg_interval=(0.4, 1.0), use_text_cfg=True, use_img_cfg=True)
+    want = bagel.generate_latents_group(model, caches, positions, pos_ids, noise, se,
+                                        graphs=False, **kw)
+    before = fa.q_preproc_counts["kernel"]
+    half = bagel.generate_latents_group(model, caches, positions, pos_ids, noise, se,
+                                        graphs=True, step_range=(0, 2), **kw)
+    got = bagel.generate_latents_group(model, caches, positions, pos_ids, half, se,
+                                       graphs=True, step_range=(2, 5), **kw)
+    assert fa.q_preproc_counts["kernel"] - before == 5 * llm.num_hidden_layers
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)

@@ -297,7 +297,10 @@ def test_positional_parameters_follow_the_jax_inferencer():
                           "vit_transform", "seed"]
     keyword = [n for n, p in port.items() if p.kind == p.KEYWORD_ONLY]
     assert keyword == ["mesh", "sp_mesh", "kv_quantized", "kv_bits", "spec_decode", "spec_k",
-                       "spec_ngram"]
+                       "spec_ngram", "graphs"]
+    # graphs: the route of the port's device programs, which has no JAX counterpart
+    assert port["graphs"].default is None
+    keyword.remove("graphs")
     for name in keyword:
         assert port[name].default == inspect.signature(JaxInferencer.__init__).parameters[
             name].default, name

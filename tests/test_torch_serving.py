@@ -612,7 +612,10 @@ def test_positional_parameters_follow_the_jax_batcher(pair):
     assert positional[2:] == jax_params[3:len(positional) + 1]
     keyword = [n for n, p in port.items() if p.kind == p.KEYWORD_ONLY]
     assert keyword == ["mesh", "kv_quantized", "kv_bits", "spec_decode", "spec_k", "spec_ngram",
-                       "pipeline", "gen_chunk", "gen_group", "pool_ladder", "min_pool"]
+                       "pipeline", "gen_chunk", "gen_group", "pool_ladder", "min_pool", "graphs"]
+    # graphs: the route of the port's decode chunks, which has no JAX counterpart
+    assert port["graphs"].default is None
+    keyword.remove("graphs")
     assert keyword == sorted(keyword, key=jax_params.index)
     assert all(n in jax_params for n in keyword)
     for name in keyword + positional[2:]:

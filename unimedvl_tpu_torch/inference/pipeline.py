@@ -132,6 +132,7 @@ class InterleaveInferencer:
         spec_decode: bool = False,
         spec_k: int = 7,
         spec_ngram: int = 3,
+        graphs: Optional[bool] = None,
     ):
         """The positional parameters come in the JAX inferencer's order, with
         ``model`` in the place of its ``params, cfg``; the rest are
@@ -169,7 +170,14 @@ class InterleaveInferencer:
         rank's shard of this mesh (``load_bagel_checkpoint(mesh=...)``).
         Every rank of the mesh runs the same calls with the same seed; the
         answers and images are the single-device ones. With ``sp_mesh`` too,
-        the two must span the same ranks in the same order."""
+        the two must span the same ranks in the same order.
+        ``graphs``: the route of the greedy answer decode (``gen_text``
+        without ``return_ctx``) and of the flow loop
+        (``inference.programs.use_graphs``): by default, on a CUDA device
+        without a mesh, the captured device programs
+        (``bagel.DecodeProgram``, ``bagel.FlowProgram``); False their eager
+        loops. Sampled answers, the kept-context and speculative decodes,
+        ``gen_text_stream`` and the sequence-parallel denoise run eagerly."""
         if kv_quantized:
             check_kv_bits(kv_bits)
         if kv_quantized and sp_mesh is not None:
@@ -202,6 +210,7 @@ class InterleaveInferencer:
         self.spec_decode = spec_decode
         self.spec_k = spec_k
         self.spec_ngram = spec_ngram
+        self.graphs = graphs
         self.model = model
         self.cfg = model.config
         self.tokenizer = tokenizer
@@ -236,6 +245,9 @@ class InterleaveInferencer:
         if needed <= cap:
             return ctx
         pad = _round_up(needed, _CAPACITY_BUCKET) - cap
+        from unimedvl_tpu_torch.inference import programs
+
+        programs.drop_reading(ctx.cache.k, ctx.cache.v, ctx.cache.k_scale, ctx.cache.v_scale)
         return dataclasses.replace(ctx, cache=ctx.cache.padded(pad))
 
     # -- text ----------------------------------------------------------------
@@ -426,7 +438,8 @@ class InterleaveInferencer:
         else:
             out, lengths = bagel.generate_text(
                 self.model, ctx.cache, start, positions, max_length, eos, do_sample,
-                temperature, self._generator)
+                temperature, self._generator,
+                graphs=False if do_sample else self.graphs)
         ids = [i for i in out[0].tolist() if i >= 0]
         text, _ = self._parse(ids)
         if not return_ctx:
@@ -487,8 +500,8 @@ class InterleaveInferencer:
                     pending = pending and n > 0  # an immediate eos consumed the pending token
                 stop = stop or len(ids) >= max_length
             else:
-                tokens, _last, _pos, cache = decode_chunk(
-                    self.model, cache, cur_t, pos_t, one, chunk, eos=eos)
+                tokens, _last, _pos, cache = decode_chunk(  # eager: not captured yet
+                    self.model, cache, cur_t, pos_t, one, chunk, eos=eos, graphs=False)
                 seq = tokens[0].tolist()
                 used = 0
                 hit_eos = False
@@ -623,7 +636,7 @@ class InterleaveInferencer:
         hi = min(job.step + steps, job.total_steps)
         fn = bagel.generate_latents_group if job.x_t.dim() == 3 else bagel.generate_latents
         x_t = fn(self.model, job.caches, job.positions, job.pos_ids, job.x_t, self._start_end(),
-                 step_range=(job.step, hi), **job.kw)
+                 step_range=(job.step, hi), graphs=self.graphs, **job.kw)
         return dataclasses.replace(job, x_t=x_t, step=hi)
 
     def merge_gen_jobs(self, jobs: List[GenImageJob]) -> GenImageJob:

@@ -1,0 +1,363 @@
+"""Device programs: the port's counterpart of the JAX package's compiled loops
+(``jax.jit`` around ``lax.while_loop`` / ``lax.scan``), as captured CUDA
+graphs.
+
+A program is one step body over static buffers: the loop state lives on the
+device (a 0-dim int32 step counter, the current tokens, positions, finished
+flags, the output tokens, the flow state ``x_t``, a cache's ``lens``), and
+the loop's exit test is computed there too (``go``), gating every state
+update, so a replay past the exit changes nothing the caller reads. The
+bodies live beside their eager loops (``models/bagel.py``: the chat decode
+and the flow step; ``inference/serving.py``: the batcher's decode chunks);
+this module holds what they share:
+
+- :class:`Graph`, one step body. On a CUDA device its first replay warms
+  the body up on a side stream (library loads, ``cudaFuncSetAttribute``, the
+  per-card buffers such as K4's arrival counters happen outside capture),
+  puts the state back as it was, and captures the body into one memory pool
+  shared by every program (``torch.cuda.graph_pool_handle()``); later
+  replays launch the graph. On a CPU tensor a replay calls the same body on
+  the same buffers: the plain route the CPU tests run. A capture or replay
+  error raises; nothing falls back to the eager loop.
+- The registry (:func:`lookup`): programs keyed by what they run (program,
+  streams, capacity, the cache's dtype and bits, the chunk flavour, the
+  options baked into the body) and by the storage their graphs read (the
+  weights: every parameter's and buffer's data pointer, shape and dtype,
+  :func:`weights_key`; a cache that the program does not copy into buffers of
+  its own). What replaces storage drops the programs that read it
+  (:func:`drop_reading`: ``quant.quantize_llm_params``,
+  ``fuse_serving_projections``, ``serving.repack_pool``,
+  ``InterleaveInferencer._ensure_capacity``, ``training.lora.add_lora`` and
+  ``merge_lora``); a key
+  whose storage changed no longer matches and is captured anew. At most
+  ``MAX_PROGRAMS`` stay, the least recently used dropped first.
+- Launch counts. A kernel wrapper counts its launches in Python; a replay
+  runs no Python, so each graph records what its capture added to the
+  counters (``COUNTER_MODULES``), puts the counters back as they were before
+  the warm-up, and adds that record at every replay. ``listeners`` are
+  called at every captured replay with the graph (its ``kind``: "decode",
+  "chunk" or "denoise"); :func:`capturing` is true during a warm-up and a
+  capture, so that forward hooks can tell those calls from the path's.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import threading
+import weakref
+from typing import Callable, Dict, Iterable, List, Optional
+
+import torch
+from torch import nn
+
+#: modules whose ``*counts`` dicts count kernel launches
+COUNTER_MODULES = ("act_quant", "decode_attention", "flash_attention", "w4_matmul")
+MAX_PROGRAMS = 24
+
+#: called as fn(graph) at every captured replay
+listeners: List[Callable[["Graph"], None]] = []
+
+_state = threading.local()
+_lock = threading.RLock()
+_registry: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
+_pools: Dict[int, object] = {}
+_pool_users: Dict[int, int] = {}
+_streams: Dict[int, object] = {}
+_static: "weakref.WeakValueDictionary[tuple, object]" = weakref.WeakValueDictionary()
+#: graphs captured in this process, and the largest the shared pool has been after a capture
+stats = {"captures": 0, "pool_bytes_max": 0}
+
+
+def capturing() -> bool:
+    """True while a graph's warm-up or capture runs its body on this thread."""
+    return getattr(_state, "capturing", False)
+
+
+def use_graphs(graphs: Optional[bool], device: torch.device, model: nn.Module,
+               eager_reason: Optional[str] = None) -> bool:
+    """Whether a loop runs as its program: ``graphs`` None takes the program
+    on a CUDA device and the eager loop elsewhere; True the program on any
+    device (its plain route on the CPU); False the eager loop. A model on a
+    mesh runs its collectives between the kernels, which a graph does not
+    capture, so it takes the eager loop, and True raises; so does True where
+    ``eager_reason`` names why the loop is eager by design. Within
+    :func:`eager`, None takes the eager loop."""
+    on_mesh = getattr(model.language_model, "mesh", None) is not None
+    if graphs and (on_mesh or eager_reason):
+        raise ValueError(f"graphs=True: {eager_reason or 'a model on a mesh runs eagerly'}")
+    if graphs is None:
+        return (device.type == "cuda" and not on_mesh and not eager_reason
+                and not getattr(_state, "eager", False))
+    return bool(graphs)
+
+
+@contextlib.contextmanager
+def eager():
+    """Within the block, on this thread, ``graphs=None`` takes the eager
+    loops: for code that swaps module functions for others (plain versions,
+    taps, recorders), which a captured graph would not see (it replays the
+    kernels it captured). An explicit ``graphs=True`` still takes the
+    program."""
+    before = getattr(_state, "eager", False)
+    _state.eager = True
+    try:
+        yield
+    finally:
+        _state.eager = before
+
+
+def weights_key(*modules: nn.Module) -> tuple:
+    """(name, data pointer, shape, dtype) of every parameter and buffer of
+    ``modules``: the storage a captured body reads. Quantizing, fusing,
+    loading into new tensors or adding adapters changes it."""
+    key = []
+    for m in modules:
+        for name, t in m.named_parameters():
+            key.append((name, t.data_ptr(), tuple(t.shape), t.dtype))
+        for name, t in m.named_buffers():
+            key.append((name, t.data_ptr(), tuple(t.shape), t.dtype))
+    return tuple(key)
+
+
+def tensors_key(tensors: Iterable[Optional[torch.Tensor]]) -> tuple:
+    """(data pointer, shape, strides, dtype) of each tensor (None kept)."""
+    return tuple(None if t is None else (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 for t in tensors)
+
+
+def _pointer_set(sources) -> set:
+    """The data pointers of ``sources``: modules (their parameters and
+    buffers), tensors, or iterables of tensors; None is skipped."""
+    ptrs = set()
+    for s in sources:
+        if s is None:
+            continue
+        if isinstance(s, nn.Module):
+            ptrs.update(t.data_ptr() for t in s.parameters())
+            ptrs.update(t.data_ptr() for t in s.buffers())
+        elif isinstance(s, torch.Tensor):
+            ptrs.add(s.data_ptr())
+        else:
+            ptrs.update(t.data_ptr() for t in s if t is not None)
+    ptrs.discard(0)  # an empty or meta tensor holds no storage
+    return ptrs
+
+
+def lookup(key: tuple, build: Callable[[], object], reads: Iterable = (), owner=None):
+    """The program of ``key``, built by ``build()`` at its first use and
+    recorded as reading the storage of ``reads`` (as :func:`drop_reading`
+    takes it); dropped when ``owner`` (the module it runs, which a program
+    holds only weakly) is collected, and, the least recently used first,
+    beyond ``MAX_PROGRAMS``."""
+    with _lock:
+        prog = _registry.get(key)
+        if prog is not None:
+            _registry.move_to_end(key)
+            return prog
+    prog = build()
+    prog.reads = _pointer_set(reads)
+    if owner is not None:
+        weakref.finalize(owner, _drop_if_current, key, id(prog))
+    with _lock:
+        _registry[key] = prog
+        while len(_registry) > MAX_PROGRAMS:
+            _release(_registry.popitem(last=False)[1])
+    return prog
+
+
+def _drop_if_current(key: tuple, prog_id: int) -> None:
+    with _lock:
+        prog = _registry.get(key)
+        if prog is not None and id(prog) == prog_id:
+            _release(_registry.pop(key))
+
+
+def _release(prog) -> None:
+    for g in prog.graphs():
+        g.reset()
+        g.body = None  # the graph's body holds its program: free both without the cycle GC
+
+
+def static_buffer(key: tuple, make: Callable[[], object]):
+    """A buffer shared by the programs that ask for it under ``key`` (a
+    cache of one shape, which each program copies its caller's into at every
+    call); kept while a program holds it."""
+    with _lock:
+        buf = _static.get(key)
+        if buf is None:
+            buf = make()
+            _static[key] = buf
+        return buf
+
+
+def model_ref(model: nn.Module):
+    """A weak reference to ``model`` for a program's body: a program must not
+    keep the weights alive (its ``lookup`` owner drops it with them)."""
+    ref = weakref.ref(model)
+
+    def get():
+        m = ref()
+        if m is None:
+            raise RuntimeError("the model of this device program was freed")
+        return m
+    return get
+
+
+def drop_reading(*sources) -> int:
+    """Drop every program that reads the storage of ``sources`` (modules,
+    tensors, or iterables of tensors). Returns how many were dropped."""
+    ptrs = _pointer_set(sources)
+    with _lock:
+        stale = [k for k, p in _registry.items() if p.reads & ptrs]
+        for k in stale:
+            _release(_registry.pop(k))
+    return len(stale)
+
+
+def drop_all() -> None:
+    with _lock:
+        while _registry:
+            _release(_registry.popitem()[1])
+
+
+def programs() -> list:
+    """The live programs, least recently used first."""
+    with _lock:
+        return list(_registry.values())
+
+
+def pool_bytes(device: Optional[torch.device] = None) -> Optional[int]:
+    """The bytes the shared graph pool reserves on ``device`` (the current
+    CUDA device by default), from the allocator's snapshot; None when no
+    graph was captured there."""
+    index = None if device is None else torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    pool = _pools.get(index)
+    if pool is None:
+        return None
+    want = tuple(pool) if isinstance(pool, (tuple, list)) else pool
+    total = 0
+    for seg in torch.cuda.memory_snapshot():
+        got = seg.get("segment_pool_id")
+        if seg.get("device") == index and got is not None and tuple(got) == want:
+            total += seg["total_size"]
+    return total
+
+
+def _pool(index: int):
+    """The shared pool of device ``index``, counted as used by one more
+    graph. The allocator frees a pool once no graph uses it, and a capture
+    into a freed pool's handle fails, so a pool whose graphs are all reset
+    is forgotten and the next capture takes a new one."""
+    with _lock:
+        if index not in _pools:
+            with torch.cuda.device(index):
+                _pools[index] = torch.cuda.graph_pool_handle()
+            _pool_users[index] = 0
+        _pool_users[index] += 1
+        return _pools[index]
+
+
+def _capture_stream(device: torch.device):
+    """The one side stream of ``device`` on which every graph warms up and is
+    captured. The allocator keeps a freed block for the stream it was used
+    on, so one stream lets each capture reuse the pool's blocks and each
+    warm-up the last one's, where a stream per capture would strand them."""
+    with _lock:
+        if device.index not in _streams:
+            _streams[device.index] = torch.cuda.Stream(device)
+        return _streams[device.index]
+
+
+def _unpool(index: int) -> None:
+    with _lock:
+        _pool_users[index] -= 1
+        if _pool_users[index] == 0:
+            del _pools[index], _pool_users[index]
+
+
+def _counter_dicts() -> list:
+    import importlib
+
+    out = []
+    for name in COUNTER_MODULES:
+        mod = importlib.import_module(f"unimedvl_tpu_torch.ops.{name}")
+        out.extend(v for k, v in vars(mod).items() if k.endswith("counts") and isinstance(v, dict))
+    return out
+
+
+def _snapshot(dicts) -> list:
+    return [dict(d) for d in dicts]
+
+
+class Graph:
+    """One step body over static buffers (see the module's docstring).
+    ``keep``: the state tensors the warm-up changes and that are put back
+    before the capture; ``rows`` is told to the listeners (the streams of a
+    step)."""
+
+    def __init__(self, kind: str, body: Callable[[], None], device: torch.device,
+                 keep: Iterable[torch.Tensor] = (), rows: int = 0):
+        self.kind, self.body, self.device = kind, body, device
+        self.keep = list(keep)
+        self.rows = rows
+        self.graph = None
+        self.launches: list = []  # (counter dict, key, launches) added by one replay
+
+    def replay(self) -> None:
+        if self.device.type != "cuda":
+            self.body()
+            return
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        for d, k, n in self.launches:
+            d[k] += n
+        for fn in listeners:
+            fn(self)
+
+    def reset(self) -> None:
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+            _unpool(self._pool_index)
+
+    def _capture(self) -> None:
+        dicts = _counter_dicts()
+        before = _snapshot(dicts)
+        saved = [t.clone() for t in self.keep]
+        main = torch.cuda.current_stream(self.device)
+        side = _capture_stream(main.device)
+        _state.capturing = True
+        try:
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self.body()  # warm-up: lazy loads and per-card buffers, outside capture
+                for t, s in zip(self.keep, saved):
+                    t.copy_(s)
+            main.wait_stream(side)
+            mid = _snapshot(dicts)
+            graph = torch.cuda.CUDAGraph()
+            index = side.device.index
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=_pool(index), capture_error_mode="thread_local")
+                try:
+                    self.body()
+                finally:
+                    try:
+                        graph.capture_end()
+                    finally:
+                        self._pool_index = index
+            main.wait_stream(side)
+            after = _snapshot(dicts)
+        finally:
+            _state.capturing = False
+        self.launches = [(d, k, after[i][k] - mid[i][k]) for i, d in enumerate(dicts)
+                         for k in d if after[i][k] != mid[i][k]]
+        for d, b in zip(dicts, before):
+            d.update(b)
+        self.graph = graph
+        stats["captures"] += 1
+        stats["pool_bytes_max"] = max(stats["pool_bytes_max"], pool_bytes(self.device) or 0)

@@ -40,9 +40,12 @@ per-slot results the host reads (tokens, and a speculative chunk's counts,
 finished flags, last tokens and positions) are gathered over "data", so the
 host state, ``errors`` and ``stats`` are the same on every rank.
 
-The port writes the pool in place where the JAX package donates it, and runs
-each chunk as a Python loop with one host check a step (a verify forward, in
-a speculative chunk) where the JAX package has a ``while_loop``. Greedy
+The port writes the pool in place where the JAX package donates it. Where
+the JAX package has a jitted chunk ``while_loop``, the port runs a captured
+device program on the card (:class:`ChunkProgram`, ``inference/programs.py``):
+one graph a step, the loop state and the exit test on the device, one host
+read a chunk; ``graphs=False`` takes the eager loop, one host check a step.
+The speculative chunks stay eager (a host check a verify forward). Greedy
 only. Not here: the compiled denoise windows (``gen_window_dynamic``), which
 ``step_range`` replaces.
 """
@@ -96,6 +99,9 @@ def repack_pool(cache: KVCache, perm) -> KVCache:
     have finished, the live rows go to a prefix of a smaller pool, so a
     chunk's per-slot work (cache reads, activation rows) follows the work
     left; it grows back a rung ahead of admission."""
+    from unimedvl_tpu_torch.inference import programs
+
+    programs.drop_reading(_arrays(cache))  # the chunk programs of the pool it replaces
     perm = torch.as_tensor(np.asarray(perm), dtype=torch.int64).to(cache.k.device)
     src = perm.clamp_min(0)
     lens = torch.where(perm >= 0, cache.lens.index_select(0, src), 0).to(cache.lens.dtype)
@@ -153,9 +159,11 @@ def _aligned_kw(cache: KVCache, active: torch.Tensor):
 
 @torch.no_grad()
 def _chunk(model, cache, cur_tokens, positions, active, num_steps, eos, step_kw):
-    """The loop both chunk flavours share: up to ``num_steps`` greedy steps,
-    ``step_kw(i)`` the forward's options of step i. Returns (tokens [S, K]
-    zero-filled past the exit, last [S], positions [S], cache, steps run)."""
+    """The eager loop both chunk flavours share, the plain version of
+    :class:`ChunkProgram`: up to ``num_steps`` greedy steps, ``step_kw(i)``
+    the forward's options of step i, one host read a step. Returns (tokens
+    [S, K] zero-filled past the exit, last [S], positions [S], cache, steps
+    run)."""
     S = cur_tokens.shape[0]
     dev = cur_tokens.device
     buf = torch.zeros((S, num_steps), dtype=torch.int32, device=dev)
@@ -175,6 +183,134 @@ def _chunk(model, cache, cur_tokens, positions, active, num_steps, eos, step_kw)
     return buf, cur, pos.to(positions.dtype), cache, n
 
 
+class ChunkProgram:
+    """A decode chunk as a device program (the JAX package's jitted chunk
+    ``while_loop`` with its donated cache): one captured graph is one greedy
+    step of every slot over static buffers (``inference/programs.py``). The
+    loop state lives on the device: the step counter ``n`` (0-dim int32, the
+    number of steps run), ``cur``, ``pos``, ``done``, the tokens ``buf``, the
+    slots' ``lens`` (the scatter flavour advances them in place) and ``go =
+    (n < K) & ~all(done)``, which gates every state update. A chunk is K
+    replays and no host read: the caller reads the tokens (and ``n``) once,
+    after the chunk, as the JAX batcher does. A replay past the exit runs the
+    step's kernels and changes no state: its kv write lands at a column past
+    each stream's valid length (the pending token's, rewritten by the next
+    chunk) or, in the aligned flavour, inside the band past the steps run,
+    which :func:`_compact_band` leaves past each stream's lens.
+
+    The program writes the pool's own arrays (the batcher's pool, which
+    persists across rounds); the slots' lens, tokens, positions and the
+    active mask are copied into its buffers at every call. Keyed by the
+    flavour, S, K, eos, the pool arrays (pointers, shapes, dtype, width) and
+    the LLM's weights; ``repack_pool`` drops the programs of the pool it
+    replaces."""
+
+    def __init__(self, model: Bagel, cache: KVCache, num_steps: int, eos: Optional[int],
+                 aligned: bool):
+        from unimedvl_tpu_torch.inference import programs
+
+        S = cache.k.shape[1]
+        dev = cache.k.device
+        self._model = programs.model_ref(model)
+        self.K, self.eos, self.aligned = num_steps, eos, aligned
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.lens = torch.zeros(S, dtype=cache.lens.dtype, device=dev)
+        self.cache = None  # the pool with self.lens, held only while a chunk runs
+        self.active = torch.zeros(S, dtype=torch.bool, device=dev)
+        self.q_valid = self.active[:, None]
+        self.cur = torch.zeros(S, **i32)
+        self.pos = torch.zeros(S, dtype=torch.int64, device=dev)
+        self.done = torch.zeros(S, dtype=torch.bool, device=dev)
+        self.buf = torch.zeros((S, num_steps), **i32)
+        self.n = torch.zeros((), **i32)
+        self.go = torch.ones((), dtype=torch.bool, device=dev)
+        self.base = torch.zeros((), **i32)
+        self.cols = torch.arange(num_steps, **i32)
+        self.graph = programs.Graph(
+            "chunk", self._body, dev, rows=S,
+            keep=(self.lens, self.cur, self.pos, self.done, self.buf, self.n, self.go))
+
+    @classmethod
+    def get(cls, model: Bagel, cache: KVCache, num_steps: int, eos: Optional[int],
+            aligned: bool):
+        from unimedvl_tpu_torch.inference import programs
+
+        arrays = _arrays(cache)
+        key = ("chunk", aligned, num_steps, eos, cache.kv_bits, cache.lens.dtype,
+               programs.tensors_key(arrays), programs.weights_key(model.language_model))
+        return programs.lookup(key, lambda: cls(model, cache, num_steps, eos, aligned),
+                               reads=(model.language_model, arrays), owner=model.language_model)
+
+    def graphs(self):
+        return [self.graph]
+
+    def _body(self) -> None:
+        go = self.go
+        if self.aligned:
+            kw = dict(decode_cols=(self.base, self.base + self.n))
+        else:
+            kw = dict(q_valid=self.q_valid)
+        nxt, cache = _step(self._model(), self.cache, self.cur, self.pos, **kw)
+        if not self.aligned:
+            self.lens.copy_(torch.where(go, cache.lens, self.lens))
+        self.pos.copy_(torch.where(go & self.active, self.pos + 1, self.pos))
+        self.buf.copy_(torch.where(go & (self.cols == self.n), nxt[:, None], self.buf))
+        self.cur.copy_(torch.where(go, nxt, self.cur))
+        self.n.add_(go.to(torch.int32))
+        if self.eos is None:
+            self.go.copy_(self.n < self.K)
+        else:
+            self.done.copy_(torch.where(go, self.done | (nxt == self.eos), self.done))
+            self.go.copy_((self.n < self.K) & ~self.done.all())
+
+    def run(self, cache: KVCache, cur_tokens, positions, active):
+        """K replays from the given state; (tokens [S, K], last [S],
+        positions [S], cache, steps run as a 0-dim device tensor)."""
+        self.lens.copy_(cache.lens)
+        self.active.copy_(active)
+        self.cur.copy_(cur_tokens)
+        self.pos.copy_(positions)
+        self.done.copy_(~active)
+        self.buf.zero_()
+        self.n.zero_()
+        self.go.fill_(True)
+        if self.aligned:
+            self.base.copy_(torch.where(active, cache.lens, 0).max())
+        self.cache = dataclasses.replace(cache, lens=self.lens)
+        try:
+            for _ in range(self.K):
+                self.graph.replay()
+        finally:
+            self.cache = None
+        n = self.n.clone()
+        if self.aligned:
+            out = _compact_band(cache, self.base.clone(), self.K, cache.lens, active, n)
+        else:
+            out = dataclasses.replace(cache, lens=self.lens.clone())
+        return (self.buf.clone(), self.cur.clone(), self.pos.to(positions.dtype, copy=True), out,
+                n)
+
+
+@torch.no_grad()
+def _run_chunk(model, cache, cur_tokens, positions, active, num_steps, eos, aligned, graphs):
+    """Either chunk flavour by either route (``inference.programs.use_graphs``):
+    (tokens, last, positions, cache, steps run)."""
+    from unimedvl_tpu_torch.inference import programs
+
+    active = active.to(torch.bool)
+    if programs.use_graphs(graphs, cur_tokens.device, model):
+        prog = ChunkProgram.get(model, cache, num_steps, eos, aligned)
+        return prog.run(cache, cur_tokens, positions, active)
+    if not aligned:
+        return _chunk(model, cache, cur_tokens, positions, active, num_steps, eos,
+                      _scatter_kw(active))
+    lens0 = cache.lens
+    base, step_kw = _aligned_kw(cache, active)
+    tokens, last, pos, cache, n = _chunk(
+        model, cache, cur_tokens, positions, active, num_steps, eos, step_kw)
+    return tokens, last, pos, _compact_band(cache, base, num_steps, lens0, active, n), n
+
+
 def decode_chunk(
     model: Bagel,
     cache: KVCache,
@@ -183,28 +319,34 @@ def decode_chunk(
     active: torch.Tensor,  # [S] bool
     num_steps: int,
     eos: Optional[int] = None,
+    graphs: Optional[bool] = None,
+    return_steps: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, KVCache]:
     """Up to ``num_steps`` greedy decode steps of every slot (serving.py:110).
     Each step writes a stream's kv at its own ``lens[s]`` and attends to
     [0, lens[s]] (K2 / K2-int8 with the band ``(lens, lens)``); only active
     slots advance their lens and positions. With ``eos`` the chunk exits once
     every active slot has emitted it. Returns (tokens [S, K], zero past the
-    exit, last [S], positions [S], cache)."""
-    active = active.to(torch.bool)
-    tokens, last, pos, cache, _ = _chunk(
-        model, cache, cur_tokens, positions, active, num_steps, eos, _scatter_kw(active))
-    return tokens, last, pos, cache
+    exit, last [S], positions [S], cache), and with ``return_steps`` the steps
+    run (an int, or a 0-dim device tensor from the program).
+
+    ``graphs``: by default, on a CUDA device, the chunk runs as a
+    :class:`ChunkProgram` with no host read; ``graphs=False`` runs the eager
+    loop, its plain version, with one host read a step."""
+    out = _run_chunk(model, cache, cur_tokens, positions, active, num_steps, eos, False, graphs)
+    return out if return_steps else out[:4]
 
 
 def _compact_band(cache: KVCache, base: torch.Tensor, k: int, lens0: torch.Tensor,
-                  active: torch.Tensor, n_steps: int) -> KVCache:
+                  active: torch.Tensor, n_steps) -> KVCache:
     """Move the aligned band [base, base + k) back to each active stream's
     [lens0[s], lens0[s] + k), in place, and advance the active streams' lens
-    by ``n_steps``. The band is taken out first (the two overlap when
-    lens0[s] > base - k); an inactive stream writes its band onto itself.
-    Past lens0[s] + n_steps the window carries stale columns on an early
-    exit, which only happens once every active stream has finished. The
-    scales move like the values ([L, S, Hk, M], no column-major carry)."""
+    by ``n_steps`` (an int, or a 0-dim device tensor). The band is taken out
+    first (the two overlap when lens0[s] > base - k); an inactive stream
+    writes its band onto itself. Past lens0[s] + n_steps the window carries
+    stale columns on an early exit, which only happens once every active
+    stream has finished. The scales move like the values ([L, S, Hk, M], no
+    column-major carry)."""
     S = lens0.shape[0]
     dev = lens0.device
     steps = torch.arange(k, device=dev)
@@ -228,6 +370,8 @@ def decode_chunk_aligned(
     active: torch.Tensor,  # [S] bool
     num_steps: int,
     eos: Optional[int] = None,
+    graphs: Optional[bool] = None,
+    return_steps: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, KVCache]:
     """:func:`decode_chunk` with the aligned-column write (serving.py:234):
     step d writes every stream's kv at column base + d, base the largest
@@ -239,13 +383,9 @@ def decode_chunk_aligned(
     max(lens[active]) + num_steps <= capacity (the batcher falls back to
     :func:`decode_chunk` near capacity). The softmax visits the columns in
     another order than the scatter chunk's, so logits may differ in the last
-    place."""
-    active = active.to(torch.bool)
-    lens0 = cache.lens
-    base, step_kw = _aligned_kw(cache, active)
-    tokens, last, pos, cache, n = _chunk(
-        model, cache, cur_tokens, positions, active, num_steps, eos, step_kw)
-    return tokens, last, pos, _compact_band(cache, base, num_steps, lens0, active, n)
+    place. ``graphs`` and ``return_steps`` as for :func:`decode_chunk`."""
+    out = _run_chunk(model, cache, cur_tokens, positions, active, num_steps, eos, True, graphs)
+    return out if return_steps else out[:4]
 
 
 @torch.no_grad()
@@ -363,6 +503,7 @@ class ContinuousBatcher:
         gen_group: int = 4,
         pool_ladder: bool = False,
         min_pool: int = 32,
+        graphs: Optional[bool] = None,
     ):
         """The positional parameters come in the JAX batcher's order, with
         ``model`` in the place of its ``params, cfg``; the rest are
@@ -389,7 +530,11 @@ class ContinuousBatcher:
         ``spec_decode``. ``mesh``: a ``parallel.mesh.Mesh`` with the axes
         ("data", "model") (see the module's docstring); ``model`` whole or
         already a rank's shard of it; a ``pipeline`` then has the same mesh
-        and its shard serves both. Not with ``pool_ladder``."""
+        and its shard serves both. Not with ``pool_ladder``. ``graphs``: the
+        decode chunks' route (``inference.programs.use_graphs``): by default a
+        captured :class:`ChunkProgram` on a CUDA device without a mesh, one
+        host read a chunk; False the eager loop, one host read a step. The
+        speculative chunks are eager."""
         if spec_decode and pool_ladder:
             raise ValueError("pool_ladder and spec_decode are not composed (nor in the JAX "
                              "batcher)")
@@ -419,6 +564,7 @@ class ContinuousBatcher:
         self.new_token_ids = new_token_ids
         self.num_slots = num_slots
         self.chunk = chunk
+        self.graphs = graphs
         #: images per grouped prefill, and per admission round while slots decode
         self._img_group = 8
         #: rows of a text admission block: fixed, padding rows left out by the store
@@ -1001,7 +1147,7 @@ class ContinuousBatcher:
         self.stats = {
             "rounds": 0, "admit_s": 0.0, "decode_s": 0.0, "host_s": 0.0,
             "gen_s": 0.0, "admitted": 0, "emitted_tokens": 0, "gen_images": 0,
-            "repacks": 0, "repack_s": 0.0, "round_s": 0.0,
+            "repacks": 0, "repack_s": 0.0, "round_s": 0.0, "decode_steps": 0,
         }
         return self.stats
 
@@ -1080,10 +1226,16 @@ class ContinuousBatcher:
         base_est = max((s.kv_len for s in self.slots if s.request_id is not None), default=0)
         chunk_fn = decode_chunk_aligned if base_est + k <= self.capacity else decode_chunk
         mine = slice(self._slot_lo, self._slot_lo + min(self._slot_n, len(pool_slots)))
-        tokens, _last, _pos, self.cache = chunk_fn(
+        tokens, _last, _pos, self.cache, n = chunk_fn(
             self.model, self.cache, self._tensor(cur[mine]), self._tensor(pos[mine]),
-            self._tensor(active[mine]), k, eos=eos)
-        tokens = self._gather_slots(tokens).cpu().numpy()  # [S, k]: the round's host read
+            self._tensor(active[mine]), k, eos=eos, graphs=self.graphs, return_steps=True)
+        # the round's host read: the tokens [S, k] and the steps run
+        tokens = self._gather_slots(tokens)
+        host = torch.cat([tokens.flatten(), torch.as_tensor(n, dtype=tokens.dtype,
+                                                            device=tokens.device).view(1)])
+        host = host.cpu().numpy()
+        tokens = host[:-1].reshape(tokens.shape)
+        st["decode_steps"] += int(host[-1])
         st["decode_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         for i, slot in enumerate(pool_slots):

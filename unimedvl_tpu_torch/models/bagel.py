@@ -326,20 +326,35 @@ def generate_text(
     do_sample: bool = False,
     temperature: float = 1.0,
     generator: Optional[torch.Generator] = None,
+    graphs: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Autoregressive decode (bagel.py:1259-1314) as a Python loop with one
-    eos check per step. Over an int8 cache every step quantizes its kv at the
-    write and attends through the int8 decode kernel; the scales keep the
-    cache's one layout [L, S, Hk, M].
+    """Autoregressive decode (bagel.py:1259-1314). Over an int8 cache every
+    step quantizes its kv at the write and attends through the int8 decode
+    kernel; the scales keep the cache's one layout [L, S, Hk, M].
 
     Step d writes its kv at column base + d with base = max(lens) for every
     stream (the JAX package's aligned-column decode); lens do not advance, so
     the caller's context is unaffected. The caller guarantees capacity for
     base + max_length columns.
 
+    ``graphs`` (``inference.programs.use_graphs``): by default, on a CUDA
+    device, greedy decoding runs as a captured device program
+    (:class:`DecodeProgram`, the JAX package's jitted ``while_loop``), and
+    the caller's cache is copied into the program's own and left as it was;
+    ``graphs=False`` runs the eager loop below, the program's plain version,
+    with one eos check per step. Sampled decoding (``do_sample``) runs the
+    eager loop by design: a captured ``torch.multinomial`` would need the
+    generator registered with the graph, which is not done yet.
+
     Returns (tokens [S, max_length] int32 — starting with the start token,
     excluding eos, padded with -1; lengths [S]).
     """
+    from unimedvl_tpu_torch.inference import programs
+
+    if programs.use_graphs(graphs, start_tokens.device, model,
+                           "sampled decoding runs eagerly" if do_sample else None):
+        return DecodeProgram.get(model, cache, start_tokens.shape[0], max_length, eos_id).run(
+            cache, start_tokens, positions)
     lm = model.language_model
     S = start_tokens.shape[0]
     device = start_tokens.device
@@ -362,6 +377,109 @@ def generate_text(
             break
     lengths = (out >= 0).sum(dim=1)
     return out, lengths
+
+
+def _static_like(cache: KVCache) -> KVCache:
+    """A zeroed cache of ``cache``'s shapes, dtypes and width."""
+    return cache._map(torch.zeros_like, torch.zeros_like, torch.zeros_like(cache.lens))
+
+
+def _copy_cache(dst: KVCache, src: KVCache) -> None:
+    """``src``'s values, scales and lens into ``dst``'s storage."""
+    for d, s in ((dst.k, src.k), (dst.v, src.v), (dst.k_scale, src.k_scale),
+                 (dst.v_scale, src.v_scale), (dst.lens, src.lens)):
+        if d is not None:
+            d.copy_(s)
+
+
+def _cache_kind(cache: KVCache) -> tuple:
+    return (tuple(cache.k.shape), cache.k.dtype, cache.quantized, cache.kv_bits,
+            cache.lens.dtype, cache.k.device)
+
+
+class DecodeProgram:
+    """:func:`generate_text`'s greedy loop as a device program: one captured
+    graph is one decode step over static buffers (``inference/programs.py``).
+    The loop state lives on the device: ``step`` (0-dim int32), ``cur``,
+    ``pos``, ``done``, the output tokens ``out`` and ``go = (step <
+    max_length) & ~all(done)``, the JAX ``cond``, which gates every state
+    update; the step's kv column ``base + step`` is computed in the graph
+    into the 0-dim int32 band K2 / K2-int8 read without a copy. The cache is
+    the program's own, one per shape, dtype and width (the caller's copied in
+    at every call: 323 MB read and written at M 5632 in bf16, about 0.2 ms at
+    3.35 TB/s), so one program serves every request whose cache has its
+    shape, and the caller's cache is never written.
+
+    The host reads ``go`` after every replay (R = 1: a blocking 1-byte read,
+    tens of microseconds beside a step of several milliseconds), so the
+    program never runs a step the eager loop would not, and never more than
+    ``max_length`` replays. Keyed by S, ``max_length``, eos, the cache's
+    shape, dtype and width, and the LLM's weights."""
+
+    def __init__(self, model: Bagel, cache: KVCache, S: int, max_length: int, eos_id: int):
+        from unimedvl_tpu_torch.inference import programs
+
+        dev = cache.k.device
+        self._model = programs.model_ref(model)
+        self.max_length, self.eos_id = max_length, int(eos_id)
+        # one static cache per shape, dtype and width, shared by the decode programs
+        self.cache = programs.static_buffer(("decode",) + _cache_kind(cache),
+                                            lambda: _static_like(cache))
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.base = torch.zeros((), **i32)
+        self.step = torch.zeros((), **i32)
+        self.cur = torch.zeros(S, **i32)
+        self.pos = torch.zeros(S, dtype=torch.int64, device=dev)
+        self.done = torch.zeros(S, dtype=torch.bool, device=dev)
+        self.go = torch.ones((), dtype=torch.bool, device=dev)
+        self.out = torch.full((S, max_length), -1, **i32)
+        self.cols = torch.arange(max_length, **i32)
+        self.graph = programs.Graph(
+            "decode", self._body, dev, rows=S,
+            keep=(self.step, self.cur, self.pos, self.done, self.go, self.out))
+
+    @classmethod
+    def get(cls, model: Bagel, cache: KVCache, S: int, max_length: int, eos_id: int):
+        from unimedvl_tpu_torch.inference import programs
+
+        key = ("decode", S, max_length, int(eos_id), _cache_kind(cache),
+               programs.weights_key(model.language_model))
+        return programs.lookup(key, lambda: cls(model, cache, S, max_length, eos_id),
+                               reads=(model.language_model,), owner=model.language_model)
+
+    def graphs(self):
+        return [self.graph]
+
+    def _body(self) -> None:
+        lm = self._model().language_model
+        go = self.go
+        self.out.copy_(torch.where(go & (self.cols == self.step),
+                                   torch.where(self.done, -1, self.cur)[:, None], self.out))
+        x = mot.embed_tokens(lm, self.cur)[:, None, :]
+        h, _ = lm.model(x, self.pos[:, None], self.cache, causal=True,
+                        decode_cols=(self.base, self.base + self.step))
+        nxt = torch.argmax(mot.lm_head(lm, h[:, 0]), dim=-1).to(torch.int32)
+        self.cur.copy_(torch.where(go, nxt, self.cur))
+        self.done.copy_(torch.where(go, self.done | (nxt == self.eos_id), self.done))
+        self.pos.add_(go.to(torch.int64))
+        self.step.add_(go.to(torch.int32))
+        self.go.copy_((self.step < self.max_length) & ~self.done.all())
+
+    def run(self, cache: KVCache, start_tokens: torch.Tensor, positions: torch.Tensor):
+        _copy_cache(self.cache, cache)
+        self.base.copy_(cache.lens.max())
+        self.step.zero_()
+        self.cur.copy_(start_tokens)
+        self.pos.copy_(positions)
+        self.done.zero_()
+        self.go.fill_(True)
+        self.out.fill_(-1)
+        for _ in range(self.max_length):
+            self.graph.replay()
+            if not bool(self.go):  # the host's one read of a step
+                break
+        out = self.out.clone()
+        return out, (out >= 0).sum(dim=1)
 
 
 @torch.no_grad()
@@ -769,6 +887,7 @@ def generate_latents_group(
     use_text_cfg: bool = False,
     use_img_cfg: bool = False,
     step_range: Optional[Tuple[int, int]] = None,
+    graphs: Optional[bool] = None,
 ) -> torch.Tensor:
     """The flow loop of G images in one forward a step (bagel.py:872-1001):
     the stream layout is G copies of one image's [main, cfg_text?, cfg_img?],
@@ -788,7 +907,14 @@ def generate_latents_group(
     of the streams (``parallel.mesh.stream_range``) and the velocities are
     gathered over "data" before the CFG combination, every step (the JAX
     mesh program shards the streams over "data" there); otherwise every data
-    rank runs every stream."""
+    rank runs every stream.
+
+    ``graphs`` (``inference.programs.use_graphs``): by default, on a CUDA
+    device without a mesh, the loop runs as a captured device program
+    (:class:`FlowProgram`, the JAX package's ``lax.scan``); ``graphs=False``
+    runs the eager loop below, the program's plain version."""
+    from unimedvl_tpu_torch.inference import programs
+
     lm = model.language_model
     mesh = getattr(lm, "mesh", None)
     G, n = init_noise.shape[:2]
@@ -803,6 +929,14 @@ def generate_latents_group(
     text_scales = np.where(in_interval, cfg_text_scale, 1.0).astype(np.float32)
     img_scales = np.where(in_interval, cfg_img_scale, 1.0).astype(np.float32)
     lo_s, hi_s = step_range if step_range is not None else (0, len(ts))
+    if programs.use_graphs(graphs, device, model):
+        cfg = dict(num_timesteps=num_timesteps, timestep_shift=timestep_shift,
+                   cfg_text_scale=cfg_text_scale, cfg_img_scale=cfg_img_scale,
+                   cfg_interval=tuple(cfg_interval), cfg_renorm_min=cfg_renorm_min,
+                   cfg_renorm_type=cfg_renorm_type, use_text_cfg=use_text_cfg,
+                   use_img_cfg=use_img_cfg)
+        prog = FlowProgram.get(model, caches, positions, G, n, init_noise.shape[-1], cfg)
+        return prog.run(caches, positions, latent_pos_ids, init_noise, start_end_ids, lo_s, hi_s)
 
     se = mot.embed_tokens(lm, start_end_ids)
     C = se.shape[-1]
@@ -851,6 +985,124 @@ def generate_latents_group(
                 ) for g in range(G)])
             x_t = x_t - v.float() * float(dts[i])
     return x_t
+
+
+class FlowProgram:
+    """:func:`generate_latents_group` as a device program: one captured graph
+    is one flow step of a cfg-run kind ("all": every stream of each image, in
+    the CFG interval; "main": each image's main stream, rows ``0::S1``), over
+    static buffers (``inference/programs.py``): the state ``x_t`` (fp32,
+    updated in place), the step index ``i`` (0-dim int64), and the step's
+    inputs read at ``i`` from device arrays (the timestep embeddings of every
+    step, computed once, and the ``dts``). The CFG scales are constant within
+    a ``_cfg_runs`` run and are baked into the "all" graph. The caches, the
+    positions, the latent position embedding and the <vision_start/end>
+    embeddings are the program's own, copied in at every call, so one program
+    serves every request of its geometry; a ``step_range`` segment sets ``i``
+    and replays. No exit test: a run's steps are known on the host. Keyed by
+    G, S1, the latent count and width, the caches' shape, dtype and width,
+    the schedule and CFG options, and the weights."""
+
+    def __init__(self, model: Bagel, caches: KVCache, positions: torch.Tensor, G: int, n: int,
+                 d: int, cfg: dict):
+        from unimedvl_tpu_torch.inference import programs
+
+        lm = model.language_model
+        dev = caches.k.device
+        self._model = programs.model_ref(model)
+        self.cfg, self.G, self.n = cfg, G, n
+        self.S1 = caches.k.shape[1] // G
+        # one static cache per shape, dtype and width, shared by the flow programs
+        self.caches = programs.static_buffer(("flow",) + _cache_kind(caches),
+                                             lambda: _static_like(caches))
+        self.positions = torch.zeros_like(positions)
+        C = model.config.llm.hidden_size
+        self.dtype = lm.model.embed_tokens.weight.dtype
+        self.pos_emb = torch.zeros((n, C), dtype=model.latent_pos_embed.pos_embed.dtype, device=dev)
+        self.se = torch.zeros((2, C), dtype=self.dtype, device=dev)
+        self.x_t = torch.zeros((G, n, d), dtype=torch.float32, device=dev)
+        self.i = torch.zeros((), dtype=torch.int64, device=dev)
+        ts, dts = flow_timesteps(cfg["num_timesteps"], cfg["timestep_shift"])
+        self.t_emb = time_embed(model, torch.from_numpy(ts).to(dev))  # [steps, C] fp32
+        self.dts = torch.from_numpy(dts).to(dev)
+        lo, hi = cfg["cfg_interval"]
+        self.in_interval = (ts > lo) & (ts <= hi)
+        self._graphs = {}
+        self.device = dev
+
+    @classmethod
+    def get(cls, model: Bagel, caches: KVCache, positions: torch.Tensor, G: int, n: int, d: int,
+            cfg: dict):
+        from unimedvl_tpu_torch.inference import programs
+
+        mods = (model.language_model, model.vae2llm, model.llm2vae, model.time_embedder,
+                model.latent_pos_embed)
+        key = ("flow", G, n, d, _cache_kind(caches), tuple(positions.shape), positions.dtype,
+               tuple(sorted(cfg.items())), programs.weights_key(*mods))
+        return programs.lookup(key, lambda: cls(model, caches, positions, G, n, d, cfg),
+                               reads=mods, owner=model.language_model)
+
+    def graphs(self):
+        return list(self._graphs.values())
+
+    def _graph(self, cfg_on: bool):
+        from unimedvl_tpu_torch.inference import programs
+
+        kind = "all" if cfg_on else "main"
+        if kind not in self._graphs:
+            self._graphs[kind] = programs.Graph(
+                "denoise", lambda: self._body(cfg_on), self.device, keep=(self.x_t, self.i),
+                rows=self.G * (self.S1 if cfg_on else 1))
+        return self._graphs[kind]
+
+    def _body(self, cfg_on: bool) -> None:
+        model, cfg, G, n, S1 = self._model(), self.cfg, self.G, self.n, self.S1
+        lm = model.language_model
+        C = self.se.shape[-1]
+        active = S1 if cfg_on else 1
+        if cfg_on:
+            step_caches, pos_act = self.caches, self.positions
+        else:  # each image's main stream
+            c = self.caches
+            step_caches = c._map(lambda t: t[:, 0::S1], lambda t: t[:, 0::S1], c.lens[0::S1])
+            pos_act = self.positions[0::S1]
+        i = self.i.view(1)
+        x_lat = (_linear(self.x_t, model.vae2llm) + self.t_emb.index_select(0, i)
+                 + self.pos_emb).to(self.dtype)
+        se = self.se
+        block = torch.cat([se[:1].expand(G, 1, C), x_lat, se[1:].expand(G, 1, C)], dim=1)
+        x = block[:, None].expand(G, active, n + 2, C).reshape(G * active, n + 2, C)
+        h, _ = lm.model(x, pos_act[:, None], step_caches, causal=False, mode="gen",
+                        update_cache=False)
+        v_all = _linear(h[:, 1:n + 1], model.llm2vae).view(G, active, n, -1)
+        v = v_all[:, 0]
+        if cfg_on:
+            ut, ui = cfg["use_text_cfg"], cfg["use_img_cfg"]
+            v_text = v_all[:, 1] if ut else v
+            v_img = v_all[:, 1 + int(ut)] if ui else v
+            v = torch.stack([_cfg_combine(
+                v[g], v_text[g], v_img[g], float(cfg["cfg_text_scale"]),
+                float(cfg["cfg_img_scale"]), cfg["cfg_renorm_min"], cfg["cfg_renorm_type"], ut, ui,
+            ) for g in range(G)])
+        self.x_t.copy_(self.x_t - v.float() * self.dts.index_select(0, i))
+        self.i.add_(1)
+
+    def run(self, caches, positions, latent_pos_ids, init_noise, start_end_ids, lo_s, hi_s):
+        model = self._model()
+        _copy_cache(self.caches, caches)
+        self.positions.copy_(positions)
+        self.pos_emb.copy_(model.latent_pos_embed.pos_embed[latent_pos_ids])
+        self.se.copy_(mot.embed_tokens(model.language_model, start_end_ids))
+        self.x_t.copy_(init_noise)
+        for run_start, run_end, cfg_on in _cfg_runs(self.in_interval):
+            run_start, run_end = max(run_start, lo_s), min(run_end, hi_s)
+            if run_start >= run_end:
+                continue
+            graph = self._graph(cfg_on and self.S1 > 1)
+            self.i.fill_(run_start)
+            for _ in range(run_start, run_end):
+                graph.replay()
+        return self.x_t.clone()
 
 
 @torch.no_grad()

@@ -266,7 +266,10 @@ def quantize_llm_params(lm, act_quant: bool = False, bits: int = 8, group_size: 
     shard: the row-parallel projections with the whole row's per-channel
     absmax (an all-reduce-max over "model"), so every rank holds its part of
     the whole model's quantized weights."""
+    from unimedvl_tpu_torch.inference import programs
     from unimedvl_tpu_torch.models.layers import LoRALinear
+
+    programs.drop_reading(lm)  # the device programs that read the weights it replaces
 
     mesh = getattr(lm, "mesh", None)
     row_reduce = None
@@ -379,6 +382,9 @@ def fuse_serving_projections(lm, tp: int = 1):
     forward recovers the plain q/k/v and gate/up with :func:`deinterleave`, so
     one such tree serves prefill, decode and the manual-TP denoise. ``tp``
     must equal the mesh's "model" axis."""
+    from unimedvl_tpu_torch.inference import programs
+
+    programs.drop_reading(lm)  # the device programs that read the weights it replaces
     tag = f"_tp{tp}" if tp > 1 else ""
     for layer in lm.model.layers:
         attn = layer.self_attn

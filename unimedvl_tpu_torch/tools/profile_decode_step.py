@@ -16,9 +16,11 @@ all four).
 
 Each request's context is built as ``chat`` builds it; then
 ``bagel.generate_text`` runs STEPS greedy steps with an end token that never
-comes, as ``gen_text`` runs them (one host read of the end test per step).
-Per (checkout, mode, request) it prints one JSON line, every figure per
-decode step: the wall time without the profiler (median of 3 runs), and from
+comes, as ``gen_text`` runs them (one host read of the end test per step),
+by each route: the captured decode program (``graphs=True``, the default on
+the card; its capture before the timed runs) and the eager loop
+(``graphs=False``). Per (checkout, mode, request, route) it prints one JSON
+line, every figure per decode step: the wall time without the profiler (median of 3 runs), and from
 the trace's kernel events the card's busy time (the union of kernel
 intervals), the launches, the busy time split by kind (K2 / K2-int8,
 GEMMs, K3, K4, the rest: element-wise ops, reductions, copies), and K4's
@@ -105,30 +107,33 @@ def profile(checkout: str, mode: str, inf, request: int) -> None:
     start = torch.tensor([inf.new_token_ids["bos_token_id"]], device=inf.device)
     pos = torch.tensor([ctx.rope], device=inf.device)
 
-    def run():
-        with torch.no_grad():
-            bagel.generate_text(inf.model, ctx.cache, start, pos, STEPS, eos_id=-1)
+    for graphs in (True, False):
+        def run():
+            with torch.no_grad():
+                bagel.generate_text(inf.model, ctx.cache, start, pos, STEPS, eos_id=-1,
+                                    graphs=graphs)
 
-    run()
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         run()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        run()
-        torch.cuda.synchronize()
-    tag = Path(checkout).resolve().name
-    path = OUT_DIR / f"decode_step_{tag}_{mode}_{h}x{w}.trace.json"
-    prof.export_chrome_trace(str(path))
-    wall_ms = 1e3 * statistics.median(walls) / STEPS
-    row = dict(checkout=checkout, mode=mode, image=f"{h}x{w}",
-               cache_columns=int(ctx.cache.lens.max()) + 1, steps=STEPS, wall_ms=wall_ms,
-               decode_tok_s=1e3 / wall_ms, **_summarise(path, STEPS, wall_ms))
-    print(json.dumps(row), flush=True)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            run()
+            torch.cuda.synchronize()
+        tag = Path(checkout).resolve().name
+        route = "graphed" if graphs else "eager"
+        path = OUT_DIR / f"decode_step_{tag}_{mode}_{h}x{w}_{route}.trace.json"
+        prof.export_chrome_trace(str(path))
+        wall_ms = 1e3 * statistics.median(walls) / STEPS
+        row = dict(checkout=checkout, mode=mode, image=f"{h}x{w}", route=route,
+                   cache_columns=int(ctx.cache.lens.max()) + 1, steps=STEPS, wall_ms=wall_ms,
+                   decode_tok_s=1e3 / wall_ms, **_summarise(path, STEPS, wall_ms))
+        print(json.dumps(row), flush=True)
 
 
 def _worker(checkout: str, modes) -> None:

@@ -84,6 +84,9 @@ def add_lora(
     ``lora_a`` ~ N(0, 1/in) drawn from ``generator``, ``lora_b`` = 0 (the
     model's function is unchanged at step 0), ``lora_s`` = alpha / rank.
     Works over bf16 and quantized bases alike."""
+    from unimedvl_tpu_torch.inference import programs
+
+    programs.drop_reading(model)  # the device programs that read the weights it replaces
     unknown = set(targets) - set(_TARGET_MAP)
     if unknown:
         raise ValueError(f"unknown lora targets {sorted(unknown)}; valid: {TARGETS_ALL}")
@@ -122,6 +125,9 @@ def merge_lora(model):
     plain linear back; returns the model. A quantized base cannot absorb the
     update exactly, so it raises (quantize after merging instead), as the
     JAX package's does."""
+    from unimedvl_tpu_torch.inference import programs
+
+    programs.drop_reading(model)  # the device programs that read the weights it replaces
     found = _lora_modules(model)
     if any(mod.mode is not None for _, _, mod in found):
         raise ValueError("merge_lora on a quantized base: dequantize, or quantize after "
