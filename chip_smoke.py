@@ -4,6 +4,9 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
 (random bf16 weights and an fp32 VAE from a seed):
 
 - the chat path: three VQA requests through ``InterleaveInferencer.chat``;
+  then the 378x378 request sampled, two ``chat_turn``s and a
+  ``gen_text_stream``, each by its captured device program and by its eager
+  loop (tokens equal);
 - the generation path: a 512x512 text-to-image request and a 512x512 image
   edit through ``interleave_inference`` with the recipe's defaults (50
   timesteps, CFG text 3.0 and image 1.5 on the interval (0.4, 1.0], global
@@ -49,7 +52,9 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   plain answer planted; junk drafts, the floor, and the plain answer as
   drafts, the ceiling), planted and oracle again in w4a8 (K4's int8 GEMM and
   K3 at m 8), two ``chat_turn``s and a ``gen_text_stream``; every answer gated
-  against chat's up to near-ties; K1a at the verify block's shapes (T 8);
+  against chat's up to near-ties; the decodes run as captured device
+  programs, and the chat, the ``chat_turn``s and run D once more eagerly
+  (tokens and verify forwards equal); K1a at the verify block's shapes (T 8);
 - the training path: LoRA steps (rank 16, every projection of both experts)
   over the frozen model cut to ``LORA_LAYERS`` layers, on packed batches of synthetic VQA,
   text-to-image and editing examples (980 px and 378 px understanding
@@ -67,8 +72,9 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   ("data", "model") NCCL mesh over the same model: the three chat requests,
   run A's 24 requests through ``ContinuousBatcher(mesh=...)``, run F's bf16
   eval through ``run_vqa_eval(mesh=...)`` and a 512x512 text-to-image request
-  through ``gen_images_grouped`` on a 1 x 1 x 1 ("data", "model", "seq")
-  mesh, each equal to the same call without the mesh; tensor parallelism
+  (11 timesteps) through ``gen_images_grouped`` on a 1 x 1 x 1 ("data",
+  "model", "seq") mesh, each equal to the same call without the mesh;
+  tensor parallelism
   over two processes sharing the card (gloo; each builds only its shard of
   the same seeded weights): the 980x980 chat request in bf16 and in w4a8
   (K4 at the shard shapes, K3's second entry with the row scales all-reduced
@@ -82,7 +88,7 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   FSDP step over two data ranks and a GPipe step over two stages, each held
   to the one-rank step's loss and gradients at a bound set from the floor
   measured in the same call (kernels against plain versions), with the
-  replicated tensors bit-equal on both ranks after two more steps;
+  replicated tensors bit-equal on both ranks after one more step;
 
 and checks that every kernel call of each path went through the kernels, and
 that each path's output agrees with the same computation on the kernels'
@@ -101,6 +107,7 @@ function, that call's time.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import datetime
 import gc
@@ -1263,6 +1270,137 @@ def run_main_path(inf: InterleaveInferencer) -> dict:
     }, CHAT_ROWS)
 
 
+@contextlib.contextmanager
+def _recording(name: str, calls: list):
+    """Within the block ``bagel.<name>`` (a decode function) appends (its
+    output, the seconds it took, synchronised) to ``calls`` at every call."""
+    decode = getattr(bagel, name)
+
+    def recorded(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode(*args, **kw)
+        torch.cuda.synchronize()
+        calls.append((out, time.perf_counter() - t0))
+        return out
+
+    setattr(bagel, name, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(bagel, name, decode)
+
+
+def _decode_row(route: str, out, seconds: float, captures: int) -> dict:
+    """A decode call's row: its tokens after the start token, steps (each
+    emitted token was forwarded once) and ms per step."""
+    steps = int(out[1][0])
+    return dict(route=route, tokens=steps - 1, decode_steps=steps,
+                ms_per_decode_step=1e3 * seconds / steps, decode_tok_s=(steps - 1) / seconds,
+                captures=captures)
+
+
+SAMPLE_TEMPERATURE = 0.7
+
+
+def run_sampled_chat(inf: InterleaveInferencer) -> dict:
+    """The 378x378 chat request sampled at SAMPLE_TEMPERATURE from one state
+    of the inferencer's generator: by the captured decode program (twice:
+    the first call captures, the second is timed) and by the eager loop. The
+    tokens must be equal, and so must the generator's state after each (a
+    replay draws from the registered generator as the eager step does); the
+    generator is then put back as it was. Returns the graphed pass's
+    launches."""
+    n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
+    image, prompt = _images()[2], REQUESTS[2][2]
+    print(f"sampled chat: the 378x378 request, do_sample=True, temperature "
+          f"{SAMPLE_TEMPERATURE}; torch.cuda.CUDAGraph.register_generator_state: "
+          f"{hasattr(torch.cuda.CUDAGraph, 'register_generator_state')}", flush=True)
+    kept = inf._generator.get_state()
+    rows, got, launches = [], {}, None
+    try:
+        for route, graphs in (("graphed", None), ("graphed", None), ("eager", False)):
+            inf.graphs = graphs
+            inf._generator.manual_seed(SEED + 21)
+            calls = []
+            counter = ForwardCounter(inf.model)
+            reset_counts()
+            captures = programs.stats["captures"]
+            try:
+                with _recording("generate_text", calls):
+                    inf.chat([image], prompt, max_length=MAX_LENGTH, do_sample=True,
+                             temperature=SAMPLE_TEMPERATURE)
+            finally:
+                counter.remove()
+                inf.graphs = None
+            (out, _lengths), dt = calls[-1]
+            count = check_counts(f"the sampled chat ({route})", _expected(
+                counter, n_vit, n_llm, False, 0, 0))
+            launches = launches or count
+            rows.append(_decode_row(route, (out, _lengths), dt,
+                                    programs.stats["captures"] - captures))
+            got.setdefault(route, []).append((_answer_ids(out), inf._generator.get_state()))
+    finally:
+        inf._generator.set_state(kept)
+    (ids, state), (ids2, state2) = got["graphed"]
+    e_ids, e_state = got["eager"][0]
+    same = ids == ids2 == e_ids and torch.equal(state, e_state) and torch.equal(state2, e_state)
+    print(f"  sampled chat ({CARD}): {json.dumps(rows)}; graphed tokens and generator state "
+          f"equal to the eager loop's: {same}", flush=True)
+    if not same:
+        raise SystemExit("chip_smoke: the sampled decode program's tokens or generator state "
+                         "differ from the eager loop's")
+    return launches
+
+
+def run_kept_decode(inf: InterleaveInferencer) -> dict:
+    """Two ``chat_turn``s (the 378x378 request, then SPEC_TURN) and one
+    ``gen_text_stream`` (chunks of 8) of the plain inferencer, by the
+    captured programs (the kept-context decode; the stream's chunks over
+    buffers of the cache's shape) and by the eager loops: the kept ids and
+    the stream's pieces must be equal, and each route's launches must follow
+    from its forwards; the pieces joined must be the first turn's answer (the same
+    context, decoded through the same per-stream steps). Prints ms per
+    decode step of each turn both ways. Returns the graphed pass's
+    launches."""
+    n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
+    image, p1, p2 = _images()[2], REQUESTS[2][2], SPEC_TURN
+    rows, got, launches = [], {}, {}
+    for route, graphs in (("graphed", None), ("eager", False)):
+        inf.graphs = graphs
+        calls = []
+        counter = ForwardCounter(inf.model)
+        reset_counts()
+        captures = programs.stats["captures"]
+        try:
+            with _recording("generate_text_ctx", calls):
+                a1, ctx1 = inf.chat_turn(None, p1, images=[image], max_length=MAX_LENGTH)
+                _a2, ctx2 = inf.chat_turn(ctx1, p2, max_length=MAX_LENGTH)
+            ctx = _context(inf, image, p1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pieces = list(inf.gen_text_stream(ctx, max_length=MAX_LENGTH, chunk=8))
+            stream_s = time.perf_counter() - t0
+        finally:
+            counter.remove()
+            inf.graphs = None
+        launches[route] = check_counts(f"the kept-context turns and the stream ({route})",
+                                       _expected(counter, n_vit, n_llm, False, 0, 0))
+        for turn, (out, dt) in enumerate(calls, 1):
+            rows.append(dict(_decode_row(route, out, dt, 0), turn=turn))
+        rows.append(dict(route=route, stream_pieces=len(pieces), stream_s=stream_s,
+                         captures=programs.stats["captures"] - captures))
+        got[route] = (ctx2.hist, ctx2.kv_len, pieces, a1)
+    same = got["graphed"] == got["eager"] and "".join(got["graphed"][2]) == got["graphed"][3]
+    print(f"  kept-context turns and stream ({CARD}): {json.dumps(rows)}; graphed ids and "
+          f"pieces equal to the eager ones, joined equal to the first turn's answer: {same}",
+          flush=True)
+    if not same:
+        raise SystemExit("chip_smoke: the kept-context or stream programs differ from the "
+                         "eager loops")
+    return launches["graphed"]
+
+
 def quantized_inferencer(inf: InterleaveInferencer, **kw) -> InterleaveInferencer:
     """An inferencer over a quantized copy of ``inf``'s LLM, its projections
     fused as a server fuses them, with an int8 KV cache. The copy shares every tensor that stays as it is (embedding,
@@ -1700,8 +1838,9 @@ class ForwardCounter:
     forwards (VAE image prefills and denoise steps, through K1b): the
     launches a run must show follow from them. A captured device program's
     step counts at each replay (``programs.listeners``: a decode or chunk
-    step is a decode step, a flow step a denoise step), and the forwards of
-    a graph's warm-up and capture count nowhere."""
+    step is a decode step, a verify forward a prefill and a verify, a flow
+    step a denoise step), and the forwards of a graph's warm-up and capture
+    count nowhere."""
 
     def __init__(self, model):
         self.decode = self.prefill = self.vit = self.verify = self.denoise = self.gen = 0
@@ -1717,6 +1856,9 @@ class ForwardCounter:
         if graph.kind == "denoise":
             self.denoise += 1
             self.gen += 1
+        elif graph.kind == "verify":
+            self.prefill += 1
+            self.verify += 1
         else:
             self.decode += 1
 
@@ -2020,10 +2162,10 @@ def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
     the verify forward's first row, and the row adds the tokens per verify
     forward and the int8 dequantize time of one verify forward (both layer
     slices of the pool, every layer). Returns (the launches, the near-tie gap
-    limit). Without ``spec`` the workload runs twice: by the default route,
-    the captured chunk programs (the run's launches and answers), then on an
-    eager batcher (``graphs=False``), whose tokens and steps run the graphed
-    run must show."""
+    limit). The workload runs twice: by the default route, the captured
+    chunk programs (the run's launches and answers), then on an eager
+    batcher (``graphs=False``), whose tokens and decode steps (with ``spec``
+    verify forwards) run the graphed run must show."""
     kv_quantized = ref.kv_quantized
     first, later = serving_workload(run)
     options = (dict(spec_decode=True, spec_k=SPEC_K, spec_ngram=SPEC_NGRAM) if spec
@@ -2041,28 +2183,27 @@ def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
 
     gap_limit = NEAR_TIE_FACTOR * check_serving_logits(
         run, ref, engine, ("verify",) if spec else ("aligned", "scatter"))
-    # the speculative chunks are eager: run D has one pass
-    routes = [("speculative, eager", None)] if spec else [("graphed", None), ("eager", False)]
+    routes = [("graphed", None), ("eager", False)]
     runs = {route: _serve_waves(run, ref, engine(graphs), first, later, min_pool, spec, route,
                                 k3_per_layer, k4_per_layer) for route, graphs in routes}
-    launches, rids, got_ids, row = runs[routes[0][0]]
-    if not spec:
-        _, eager_rids, eager_ids, eager_row = runs["eager"]
-        same = [r for r, e in zip(rids, eager_rids) if got_ids.get(r) == eager_ids.get(e)]
-        ran = row["stats"]["decode_steps"]
-        print(f"  run {run}: graphed vs eager batcher: requests with equal tokens "
-              f"{len(same)}/{len(rids)}; decode steps run {ran} graphed (of "
-              f"{row['decode_forwards']} replays: {row['decode_forwards'] - ran} past a chunk's "
-              f"exit), {eager_row['decode_forwards']} eager; emitted tok/s "
-              f"{row['emitted_tok_s']:.1f} graphed, {eager_row['emitted_tok_s']:.1f} eager; ms "
-              f"per decode step {row['ms_per_decode_step']:.3f} graphed, "
-              f"{eager_row['ms_per_decode_step']:.3f} eager; graphs captured "
-              f"{row['graphs_captured']}, the graph pool at most {row['graph_pool_bytes_max']} "
-              f"bytes so far ({CARD})",
-              flush=True)
-        if len(same) != len(rids) or ran != eager_row["decode_forwards"]:
-            raise SystemExit(f"chip_smoke: serving run {run}: the graphed batcher's tokens or "
-                             "steps differ from the eager batcher's")
+    launches, rids, got_ids, row = runs["graphed"]
+    _, eager_rids, eager_ids, eager_row = runs["eager"]
+    same = [r for r, e in zip(rids, eager_rids) if got_ids.get(r) == eager_ids.get(e)]
+    ran = row["stats"]["decode_steps"]
+    forwards = "verify_forwards" if spec else "decode_forwards"
+    step = "verify forward" if spec else "decode step"
+    print(f"  run {run}: graphed vs eager batcher: requests with equal tokens "
+          f"{len(same)}/{len(rids)}; {step}s run {ran} graphed (of {row[forwards]} replays: "
+          f"{row[forwards] - ran} past a chunk's exit), {eager_row[forwards]} eager; emitted "
+          f"tok/s {row['emitted_tok_s']:.1f} graphed, {eager_row['emitted_tok_s']:.1f} eager; ms "
+          f"per {step} {row['ms_per_decode_step']:.3f} graphed, "
+          f"{eager_row['ms_per_decode_step']:.3f} eager; graphs captured "
+          f"{row['graphs_captured']}, the graph pool at most {row['graph_pool_bytes_max']} "
+          f"bytes so far ({CARD})",
+          flush=True)
+    if len(same) != len(rids) or ran != eager_row[forwards]:
+        raise SystemExit(f"chip_smoke: serving run {run}: the graphed batcher's tokens or "
+                         f"{step}s differ from the eager batcher's")
     check_answers(run, ref, [(rid, a, _prompt(p, pre)) for rid, (a, p, pre)
                              in zip(rids, first + later)], got_ids, SERVE_MAX_NEW, gap_limit)
     return launches, gap_limit
@@ -2124,9 +2265,12 @@ def _serve_waves(run: str, ref: InterleaveInferencer, b: ContinuousBatcher, firs
                stats={k: st[k] for k in ("rounds", "admit_s", "decode_s", "host_s", "round_s",
                                          "repacks", "repack_s", "admitted", "decode_steps")},
                pool_by_round=pools, decode_forwards=counter.decode,
-               ms_per_decode_step=1e3 * st["decode_s"] / max(1, counter.decode),
+               # a spec run's steps are its verify forwards run (replays past a chunk's exit
+               # left out), the device counter the batcher adds to decode_steps
+               ms_per_decode_step=1e3 * st["decode_s"] / max(
+                   1, st["decode_steps"] if spec else counter.decode),
                tokens_per_decode_forward=st["emitted_tokens"] / max(
-                   1, counter.decode + counter.verify),
+                   1, st["decode_steps"] if spec else counter.decode),
                prefill_forwards=counter.prefill, vit_forwards=counter.vit,
                vit_group_images=counter.vit_rows,
                graphs_captured=programs.stats["captures"] - captures,
@@ -2640,43 +2784,62 @@ def _expected(counter: ForwardCounter, n_vit: int, n_llm: int, kv_int8: bool, k3
 
 
 def run_spec_chat(plain: InterleaveInferencer, spec: InterleaveInferencer) -> tuple:
-    """The three chat requests through ``spec.chat`` at MAX_LENGTH, the
-    verify forwards and each request's fix-up forward counted, the answers
-    gated against plain chat's. Returns (the launches, the gap limit)."""
+    """The three chat requests through ``spec.chat`` at MAX_LENGTH by the
+    captured spec program (a warm-up request captures the 378x378 shape
+    first), the verify forwards and each request's fix-up forward counted,
+    the answers gated against plain chat's; then the 378x378 request once
+    more on the eager loop: its tokens and verify forwards must be the
+    graphed ones. Prints ms per verify forward (the decode call over its
+    forwards, the fix-up one counted) and tok/s both ways. Returns (the
+    graphed launches, the gap limit)."""
     n_vit, n_llm = plain.cfg.vit.num_hidden_layers, plain.cfg.llm.num_hidden_layers
     images = _images()
     requests = [(images[i], REQUESTS[i][2]) for i in range(len(REQUESTS))]
     gap_limit = spec_gap_limit("spec chat", plain, spec, requests)
-    spec.chat([images[2]], REQUESTS[2][2], max_length=2)  # warm-up
-    calls = []
-    decode = bagel.generate_text_spec
+    spec.chat([images[2]], REQUESTS[2][2], max_length=MAX_LENGTH)  # warm-up: its capture
+    calls, rows = [], {}
 
-    def recorded(*args, **kw):
-        out = decode(*args, **kw)
-        calls.append((_answer_ids(out[0]), out[3]))
-        return out
+    def row(route, out, dt):
+        ids, n_fwd = _answer_ids(out[0]), int(out[3])
+        return ids, n_fwd, dict(route=route, tokens=len(ids) - 1, verify_forwards=n_fwd,
+                                tokens_per_forward=(len(ids) - 1) / n_fwd,
+                                ms_per_verify_forward=1e3 * dt / (n_fwd + 1),
+                                decode_tok_s=(len(ids) - 1) / dt)
 
     counter = ForwardCounter(spec.model)
     reset_counts()
-    bagel.generate_text_spec = recorded
     try:
-        for image, prompt in requests:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            spec.chat([image], prompt, max_length=MAX_LENGTH)
-            torch.cuda.synchronize()
-            ids, n_fwd = calls[-1]
-            print(f"  spec chat {'x'.join(map(str, image.shape[:2]))}: {len(ids) - 1} tokens "
-                  f"in {n_fwd} verify forwards ({(len(ids) - 1) / n_fwd:.2f} a forward), "
-                  f"{time.perf_counter() - t0:.3f} s with the image and text prefills",
-                  flush=True)
+        with _recording("generate_text_spec", calls):
+            for image, prompt in requests:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                spec.chat([image], prompt, max_length=MAX_LENGTH)
+                torch.cuda.synchronize()
+                ids, n_fwd, r = row("graphed", *calls[-1])
+                print(f"  spec chat {'x'.join(map(str, image.shape[:2]))}: {json.dumps(r)}, "
+                      f"{time.perf_counter() - t0:.3f} s with the image and text prefills",
+                      flush=True)
     finally:
-        bagel.generate_text_spec = decode
         counter.remove()
     launches = check_counts("the spec chat path", _expected(counter, n_vit, n_llm, False, 0, 0))
     check_answers("spec chat", plain, [(i, image, prompt) for i, (image, prompt)
                                        in enumerate(requests)],
-                  {i: ids for i, (ids, _n) in enumerate(calls)}, MAX_LENGTH, gap_limit)
+                  {i: row("graphed", *c)[0] for i, c in enumerate(calls)}, MAX_LENGTH, gap_limit)
+    rows["graphed"] = row("graphed", *calls[2])
+    spec.graphs = False
+    try:
+        with _recording("generate_text_spec", calls):
+            spec.chat([images[2]], REQUESTS[2][2], max_length=MAX_LENGTH)
+    finally:
+        spec.graphs = None
+    rows["eager"] = row("eager", *calls[-1])
+    same = rows["graphed"][:2] == rows["eager"][:2]
+    print(f"  spec chat 378x378, graphed vs eager ({CARD}): "
+          f"{json.dumps([rows['graphed'][2], rows['eager'][2]])}; tokens and verify forwards "
+          f"equal: {same}", flush=True)
+    if not same:
+        raise SystemExit("chip_smoke: the spec program's tokens or verify forwards differ from "
+                         "the eager loop's")
     return launches, gap_limit
 
 
@@ -2703,8 +2866,10 @@ def spec_floor_ceiling(name: str, plain: InterleaveInferencer, gap_limit: float,
     and the latest match wins, so neither is a pure floor or ceiling. "junk
     drafts" (random ids in place of the lookup: the floor) and "oracle
     drafts" (the plain answer's next SPEC_K tokens: the ceiling) replace
-    ``bagel.propose_drafts``. For each: decode tok/s (answer tokens after
-    the start token over the decode call), tokens per verify forward,
+    ``bagel.propose_drafts``. Each decode runs as its captured program,
+    timed after an untimed call that captures it (a stand-in proposer
+    captures a program of its own). For each: decode tok/s (answer tokens
+    after the start token over the decode call), tokens per verify forward,
     forwards and ms per forward (the fix-up forward counted); the launches
     checked and the answers gated against chat's. Returns (the launches
     added up, the rows)."""
@@ -2725,8 +2890,7 @@ def spec_floor_ceiling(name: str, plain: InterleaveInferencer, gap_limit: float,
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    # the plain decode by its default route, the captured program (the speculative one is
-    # eager); its capture untimed
+    # both decodes by their default route, the captured programs; their captures untimed
     bagel.generate_text(model, ctx.cache, start, positions, SPEC_LENGTH, eos)
     (out, lengths), dt = timed(lambda: bagel.generate_text(
         model, ctx.cache, start, positions, SPEC_LENGTH, eos))
@@ -2753,16 +2917,23 @@ def spec_floor_ceiling(name: str, plain: InterleaveInferencer, gap_limit: float,
         row[0, :len(hist)] = torch.tensor(hist, dtype=torch.int32)
         row = row.to(dev)
         hlen = torch.tensor([len(hist)], dtype=torch.int32, device=dev)
-        counter = ForwardCounter(model)
-        reset_counts()
-        bagel.propose_drafts = drafts or lookup
+        bagel.propose_drafts = drafts or lookup  # a stand-in captures a program of its own
+
+        def decode():
+            return bagel.generate_text_spec(model, ctx.cache, start, positions, SPEC_LENGTH, eos,
+                                            row, hlen, k_draft=SPEC_K, ngram=SPEC_NGRAM)
+
         try:
-            (out, _lengths, _cache, n_fwd), dt = timed(lambda: bagel.generate_text_spec(
-                model, ctx.cache, start, positions, SPEC_LENGTH, eos, row, hlen,
-                k_draft=SPEC_K, ngram=SPEC_NGRAM))
+            decode()  # the capture
+            counter = ForwardCounter(model)
+            reset_counts()
+            try:
+                (out, _lengths, _cache, n_fwd), dt = timed(decode)
+            finally:
+                counter.remove()
         finally:
             bagel.propose_drafts = lookup
-            counter.remove()
+        n_fwd = int(n_fwd)
         launches = check_counts(f"the {name} spec decode, {label}",
                                 _expected(counter, n_vit, n_llm, plain.kv_quantized, k3, k4))
         for k, v in launches.items():
@@ -2783,9 +2954,11 @@ def spec_floor_ceiling(name: str, plain: InterleaveInferencer, gap_limit: float,
 def run_chat_turns(plain: InterleaveInferencer, spec: InterleaveInferencer,
                    gap_limit: float) -> None:
     """Two ``chat_turn``s of ``spec``: the 378x378 request, then a text
-    question. The second turn's first forward must prefill its own text
-    only, at the rope position after the kept answer; each answer is gated
-    against the plain ``chat_turn`` on the same context."""
+    question, by the captured spec program, then again on the eager loop:
+    the kept ids and each turn's verify forwards must be equal. The second
+    turn's first forward must prefill its own text only, at the rope
+    position after the kept answer; each answer is gated against the plain
+    ``chat_turn`` on the same context."""
     image = _images()[2]
     p1, p2 = REQUESTS[2][2], SPEC_TURN
 
@@ -2794,31 +2967,54 @@ def run_chat_turns(plain: InterleaveInferencer, spec: InterleaveInferencer,
 
     refs = {p1: reference(lambda: plain.chat_turn(None, p1, images=[image],
                                                   max_length=MAX_LENGTH))}
-    a1, ctx1 = spec.chat_turn(None, p1, images=[image], max_length=MAX_LENGTH)
-    refs[p2] = reference(lambda: plain.chat_turn(ctx1, p2, max_length=MAX_LENGTH))
-    first = []
-    hook = spec.model.language_model.model.register_forward_pre_hook(
-        lambda m, args, kw: first.append((int(args[1][0, 0]), args[0].shape[1],
-                                          int(kw["q_valid"].sum()))), with_kwargs=True)
-    try:
-        a2, ctx2 = spec.chat_turn(ctx1, p2, max_length=MAX_LENGTH)
-    finally:
-        hook.remove()
-    n2 = len(spec._encode_prompt(p2))
-    print(f"  chat_turn: turn 1 kept {ctx1.kv_len} columns, turn 2 prefilled "
-          f"{first[0][2]} rows at position {first[0][0]} (its prompt: {n2} ids after rope "
-          f"{ctx1.rope}), kept {ctx2.kv_len}; answers {a1[:40]!r} / {a2[:40]!r}", flush=True)
-    if first[0] != (ctx1.rope, max(32, -(-n2 // 32) * 32), n2):
-        raise SystemExit("chip_smoke: the second chat_turn prefilled more than its own text")
-    ids1 = list(ctx1.hist[len(spec._encode_prompt(p1)):])
-    ids2 = list(ctx2.hist[len(ctx1.hist) + n2:])
+    turns = {}
+    for route, graphs in (("graphed", None), ("eager", False)):
+        spec.graphs = graphs
+        calls, first = [], []
+        try:
+            with _recording("generate_text_spec", calls):
+                a1, ctx1 = spec.chat_turn(None, p1, images=[image], max_length=MAX_LENGTH)
+                hook = spec.model.language_model.model.register_forward_pre_hook(
+                    lambda m, args, kw: None if programs.capturing() else first.append(
+                        (int(args[1][0, 0]), args[0].shape[1], int(kw["q_valid"].sum()))),
+                    with_kwargs=True)
+                try:
+                    a2, ctx2 = spec.chat_turn(ctx1, p2, max_length=MAX_LENGTH)
+                finally:
+                    hook.remove()
+        finally:
+            spec.graphs = None
+        turns[route] = (ctx2.hist, [int(out[3]) for out, _dt in calls],
+                        [1e3 * dt / (int(out[3]) + 1) for out, dt in calls])
+        if route == "graphed":
+            refs[p2] = reference(lambda: plain.chat_turn(ctx1, p2, max_length=MAX_LENGTH))
+            n2 = len(spec._encode_prompt(p2))
+            print(f"  chat_turn: turn 1 kept {ctx1.kv_len} columns, turn 2 prefilled "
+                  f"{first[0][2]} rows at position {first[0][0]} (its prompt: {n2} ids after rope "
+                  f"{ctx1.rope}), kept {ctx2.kv_len}; answers {a1[:40]!r} / {a2[:40]!r}",
+                  flush=True)
+            if first[0] != (ctx1.rope, max(32, -(-n2 // 32) * 32), n2):
+                raise SystemExit("chip_smoke: the second chat_turn prefilled more than its own "
+                                 "text")
+            ids1 = list(ctx1.hist[len(spec._encode_prompt(p1)):])
+            ids2 = list(ctx2.hist[len(ctx1.hist) + n2:])
+    same = turns["graphed"][:2] == turns["eager"][:2]
+    print(f"  spec chat_turns, graphed vs eager ({CARD}): verify forwards "
+          f"{turns['graphed'][1]} / {turns['eager'][1]}, ms per verify forward "
+          f"{[round(x, 3) for x in turns['graphed'][2]]} / "
+          f"{[round(x, 3) for x in turns['eager'][2]]}; kept ids and forwards equal: {same}",
+          flush=True)
+    if not same:
+        raise SystemExit("chip_smoke: the spec chat_turns differ between the program and the "
+                         "eager loop")
     check_answers("spec chat_turn", plain, [(1, image, p1), (2, None, p2)], {1: ids1, 2: ids2},
                   MAX_LENGTH, gap_limit, reference=lambda _image, prompt, _b: refs[prompt])
 
 
 def run_spec_stream(spec: InterleaveInferencer) -> None:
-    """One ``gen_text_stream`` of ``spec`` (chunks of 8 verify forwards):
-    its pieces must concatenate to ``spec.gen_text``'s answer."""
+    """One ``gen_text_stream`` of ``spec`` (chunks of 8 verify forwards, the
+    spec chunk's program over buffers of the cache's shape): its pieces must
+    concatenate to ``spec.gen_text``'s answer."""
     image = _images()[2]
     ctx = _context(spec, image, REQUESTS[2][2])
     pieces = list(spec.gen_text_stream(ctx, max_length=MAX_LENGTH, chunk=8))
@@ -2867,6 +3063,9 @@ def run_spec_phase(inf: InterleaveInferencer) -> list:
         counter.remove()
     paths.append(check_counts("the chat_turn and stream calls",
                               _expected(counter, n_vit, n_llm, False, 0, 0)))
+    print(f"  graphs captured so far {programs.stats['captures']}, the graph pool at most "
+          f"{programs.stats['pool_bytes_max']} bytes, now {programs.pool_bytes()}, "
+          f"{len(programs.programs())} programs kept ({CARD})", flush=True)
     return paths
 
 
@@ -4220,20 +4419,13 @@ CHAT_ROWS = []  # the bf16 chat path's rows (run_main_path), beside the mesh cha
 
 def _mesh_chat(inf: InterleaveInferencer, mesh) -> dict:
     """The three chat requests through ``InterleaveInferencer(mesh=...)`` on
-    the one-rank mesh over ``inf.model``: answer ids equal to chat's without
-    the mesh, the launches of K1a and K2, ms per decode step beside the
-    no-mesh path's (56 all-reduces a step, and the vocab gather)."""
+    the one-rank mesh over ``inf.model`` (the eager route: a mesh runs no
+    graph), once: the launches of K1a and K2, answer ids (kept by the pass)
+    equal to chat's without the mesh, ms per decode step beside the no-mesh
+    path's (56 all-reduces a step, and the vocab gather)."""
     minf = InterleaveInferencer(inf.model, inf.tokenizer, inf.new_token_ids,
                                 vit_transform=inf.vit_transform, seed=SEED, mesh=mesh)
     images = _images()
-    for i, (h, w, prompt) in enumerate(REQUESTS):
-        want, _ = _chat_steps(inf, images[i], prompt, MAX_LENGTH)
-        got, _ = _greedy_steps(minf, lambda: minf.chat([images[i]], prompt,
-                                                       max_length=MAX_LENGTH), MAX_LENGTH)
-        print(f"  mesh chat {h}x{w}: {len(got) - 1} tokens, equal to the no-mesh answer "
-              f"{got == want}", flush=True)
-        if got != want:
-            raise SystemExit(f"chip_smoke: the mesh chat's answer {h}x{w} differs from chat's")
     rows = []
     n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
     launches = run_chat_requests(minf, range(len(REQUESTS)), "the mesh chat path",
@@ -4241,6 +4433,13 @@ def _mesh_chat(inf: InterleaveInferencer, mesh) -> dict:
                                      "flash_block_attention": imgs * (n_vit + n_llm)
                                      + imgs * n_llm,
                                      "decode_attention": steps * n_llm}, rows, graphed=False)
+    for i, (h, w, prompt) in enumerate(REQUESTS):
+        want, _ = _chat_steps(inf, images[i], prompt, MAX_LENGTH)
+        got, _ = _chat_steps(minf, images[i], prompt, MAX_LENGTH)  # the eager pass's
+        print(f"  mesh chat {h}x{w}: {len(got) - 1} tokens, equal to the no-mesh answer "
+              f"{got == want}", flush=True)
+        if got != want:
+            raise SystemExit(f"chip_smoke: the mesh chat's answer {h}x{w} differs from chat's")
     for row, base in zip(rows, CHAT_ROWS):
         if row["decode_tok_s"] and base["decode_tok_s"]:
             print(f"  {row['image']}: ms per decode step {1e3 / row['decode_tok_s']:.3f} on the "
@@ -4327,12 +4526,16 @@ def _mesh_eval(inf: InterleaveInferencer, mesh) -> None:
         raise SystemExit("chip_smoke: run_vqa_eval on the mesh predicted otherwise")
 
 
+MESH_GEN_TIMESTEPS = 11  # the grouped mesh request's schedule: 10 steps, both CFG regimes
+
+
 def _mesh_grouped(inf: InterleaveInferencer, tmp: str) -> dict:
     """One 512 px text-to-image request through ``gen_images_grouped`` (G 1)
     on a 1 x 1 x 1 ("data", "model", "seq") mesh with a one-rank NCCL group
-    per axis, against the same call on a mesh without groups: equal latents
-    (a one-rank all-reduce of bf16 is exact). Launches: a cache partial and a
-    block partial (K1c) per layer and step."""
+    per axis, against the same call on a mesh without groups, at
+    MESH_GEN_TIMESTEPS: equal latents (a one-rank all-reduce of bf16 is
+    exact). Launches: a cache partial and a block partial (K1c) per layer and
+    step."""
     gmesh = one_rank_mesh(("data", "model", "seq"), tmp)
     plain = pmesh.make_mesh(("data", "model", "seq"), (1, 1, 1))
     ctx = inf.init_gen_context()
@@ -4340,7 +4543,7 @@ def _mesh_grouped(inf: InterleaveInferencer, tmp: str) -> dict:
     ctx = inf.update_context_text(GEN_PROMPT, ctx)
     cfg_img = inf.update_context_text(GEN_PROMPT, cfg_img)
     kw = dict(cfg_text_scale=3.0, cfg_img_scale=1.5, cfg_interval=(0.4, 1.0),
-              timestep_shift=3.0, num_timesteps=50)
+              timestep_shift=3.0, num_timesteps=MESH_GEN_TIMESTEPS)
     out = {}
     for name, m in (("plain", plain), ("mesh", gmesh)):
         inf._generator.manual_seed(SEED + 20)
@@ -4354,7 +4557,7 @@ def _mesh_grouped(inf: InterleaveInferencer, tmp: str) -> dict:
         out[name + "_s"] = time.perf_counter() - t0
     n_llm = inf.cfg.llm.num_hidden_layers
     launches = check_counts("gen_images_grouped on the one-rank mesh",
-                            {"flash_block_attention_lse": 2 * 49 * n_llm})
+                            {"flash_block_attention_lse": 2 * (MESH_GEN_TIMESTEPS - 1) * n_llm})
     image = inf.decode_image(out["mesh"][0], GEN_SIZE)
     same = torch.equal(out["mesh"], out["plain"])
     print(f"  gen_images_grouped G=1 on a 1x1x1 NCCL mesh: latent {tuple(out['mesh'].shape)} "
@@ -5094,7 +5297,7 @@ def _finetune(model, it, freeze_und: bool) -> dict:
 
 # -- training on a mesh (run K): TP, FSDP and GPipe over two processes on the card ------------
 MESH_SEQS = 2  # the global batch: two packed sequences of FT_SEQ_LEN
-MESH_STEPS = 2  # steps after the gradient step
+MESH_STEPS = 1  # steps after the gradient step
 # a program's loss and watched-gradient cosines against the one-rank step are held at a bound set
 # from the floor measured in the same call (the one-rank step with the kernels against the same
 # step with every kernel's plain version): cosine >= 1 - factor (1 - floor), loss relative
@@ -5726,6 +5929,7 @@ def run(tmp: str) -> None:
           f"{MAX_LENGTH}, full 14B geometry, random weights (seed {SEED})", flush=True)
     paths = [run_main_path(inf)]
     logits_bf16 = check_against_plain_path(inf)
+    paths += [run_sampled_chat(inf), run_kept_decode(inf)]
     done("chat")
     print(f"generation path: text-to-image and an image edit at {GEN_SIZE[0]}x{GEN_SIZE[1]}, "
           "50 timesteps, CFG text 3.0 / image 1.5 on (0.4, 1.0], global renorm", flush=True)

@@ -5,15 +5,24 @@ compile) and loaded into both frameworks.
 
 On a CPU tensor a program's replay calls its step body on its static
 buffers: that plain route must equal the eager loop bit for bit (tokens,
-lengths, positions, lens, steps run, cache arrays, latents), and the JAX
-program on the same inputs (one JAX program each: ``generate_text``,
-``decode_chunk``, ``decode_chunk_aligned``, ``generate_latents_group``;
-tokens exactly, latents within 1e-5 as tests/test_torch_gen_serving.py holds
-the eager loop). The decode runs in the float mode, full-int8 fused over an
-int8 cache, w4a8 over an int4 cache; the chunks exit early mid-chunk and run
-their remaining replays past the exit; the flow loop runs over two
-``step_range`` segments. A program's key is dropped by ``quantize_llm_params``
-and by ``repack_pool``. The captured route (CUDA graphs) is held to the eager
+lengths, positions, lens, steps run, verify forwards, histories, cache
+arrays, latents; a program that copies the columns it made valid back into
+its caller's cache is held to the eager loop's on [0, lens)), and the JAX
+program on the same inputs (one JAX program each: ``generate_text`` greedy
+and sampled, ``generate_text_ctx``, ``generate_text_spec``,
+``decode_chunk``, ``decode_chunk_aligned``, ``decode_chunk_spec``,
+``generate_latents_group``; tokens exactly, caches as
+tests/test_torch_serving.py's ``assert_caches_equal``, latents within 1e-5
+as tests/test_torch_gen_serving.py holds the eager loop). A sampled program
+draws what the eager loop draws from one generator state; against JAX, the
+JAX loop's Gumbel draws g are replayed as the exponential draws exp(-g). The
+decodes run in the float mode, full-int8 fused over an int8 cache, w4a8 over
+an int4 cache; the chunks exit early mid-chunk and run their remaining
+replays past the exit, which change nothing the caller reads; the flow loop
+runs over two ``step_range`` segments; ``gen_text_stream`` runs both kinds
+of chunk. A program's key is dropped by ``quantize_llm_params`` and by
+``repack_pool``; the programs keyed by a cache's shape survive
+``_ensure_capacity``. The captured route (CUDA graphs) is held to the eager
 one in tests/test_torch_kernels_cuda.py, on the card.
 """
 
@@ -35,7 +44,7 @@ from unimedvl_tpu_torch.weights.loader import from_jax_params
 
 from tests.test_pipeline import TINY as CFG
 from tests.test_torch_config import port_config
-from tests.test_torch_serving import _to_jax
+from tests.test_torch_serving import _to_jax, assert_caches_equal
 
 L, Hk, D = CFG.llm.num_hidden_layers, CFG.llm.num_key_value_heads, CFG.llm.head_dim
 V = CFG.llm.vocab_size
@@ -168,11 +177,124 @@ def test_decode_replays_past_the_exit_change_nothing(setup):
         assert torch.equal(a, b)
 
 
-def test_sampled_decode_is_eager_by_design(setup):
+def test_sampled_decode_is_eager_by_design(modes):
+    """Sampled decoding was eager by design while a captured
+    ``torch.multinomial`` could not be; it now runs as its program: in every
+    mode, from one generator state, the program's tokens are the eager
+    loop's and the generator ends in the same state."""
+    for model, kw in modes.values():
+        cache = _prefilled(model, **kw)
+        got = []
+        for graphs in (False, True):
+            g = torch.Generator().manual_seed(11)
+            out = bagel.generate_text(model, cache, torch.tensor([5, 9]), torch.tensor([9, 6]), 8,
+                                      -1, do_sample=True, temperature=0.7, generator=g,
+                                      graphs=graphs)
+            got.append((out, g.get_state()))
+        (want, want_state), (tokens, state) = got
+        for a, b in zip(tokens, want):
+            assert torch.equal(a, b)
+        assert torch.equal(state, want_state)
+
+
+def test_sampling_draw_is_multinomials():
+    """The capturable draw gives ``torch.multinomial``'s sample for the same
+    generator state and leaves the generator where it does."""
+    logits = torch.from_numpy(np.random.default_rng(4).standard_normal((3, V), np.float32) * 3)
+    for seed in range(8):
+        a, b = torch.Generator().manual_seed(seed), torch.Generator().manual_seed(seed)
+        want = torch.multinomial(torch.softmax(logits / 0.8, dim=-1), 1, generator=a)[:, 0]
+        assert torch.equal(bagel._next_token(logits, True, 0.8, b), want.to(torch.int32))
+        assert torch.equal(a.get_state(), b.get_state())
+
+
+SAMPLED = ["generate_text_ctx", "decode_chunk", "decode_chunk_aligned"]
+
+
+@pytest.mark.parametrize("fn", SAMPLED)
+def test_sampled_programs_equal_the_eager_loops(setup, fn):
+    """The kept-context decode and both chunk flavours, sampled from one
+    generator state: tokens and lens bit for bit by either route."""
     model = setup["model"]
-    with pytest.raises(ValueError, match="sampled decoding runs eagerly"):
-        bagel.generate_text(model, _prefilled(model), torch.tensor([5, 9]), torch.tensor([9, 6]),
-                            4, -1, do_sample=True, graphs=True)
+    got = []
+    for graphs in (False, True):
+        g = torch.Generator().manual_seed(5)
+        if fn == "generate_text_ctx":
+            out = bagel.generate_text_ctx(model, _prefilled(model), torch.tensor([5, 9]),
+                                          torch.tensor([9, 6]), 8, -1, True, 1.3, g, graphs=graphs)
+        else:
+            cache = _prefilled(model, S=3, M=40, lens=(9, 6, 11))
+            out = getattr(serving, fn)(model, cache, *_chunk_args(MASKS[0]), 6, do_sample=True,
+                                       temperature=1.3, generator=g, graphs=graphs)
+        got.append(out)
+    for a, b in zip(got[0][:2], got[1][:2]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0][-1].lens, got[1][-1].lens)
+
+
+def test_sampled_decode_program_matches_jax(setup, monkeypatch):
+    """The JAX loop's Gumbel draws g replayed as the port's exponential draws
+    q = exp(-g): argmax(probs / q) is argmax(logits / T + g), the JAX
+    categorical draw, so the tokens are the JAX program's."""
+    model, S, T, steps = setup["model"], 2, 0.9, 8
+    cache = _prefilled(model)
+    rng, gumbels = jax.random.PRNGKey(3), []
+    for _ in range(steps):
+        rng, sub = jax.random.split(rng)
+        gumbels.append(torch.from_numpy(np.array(jax.random.gumbel(sub, (S, V), jnp.float32))))
+    draws = iter(gumbels)
+    monkeypatch.setattr(bagel, "_exp_noise", lambda like, generator: torch.exp(-next(draws)))
+    got, lengths = bagel.generate_text(model, cache, torch.tensor([5, 9]), torch.tensor([9, 6]),
+                                       steps, -1, do_sample=True, temperature=T, graphs=True)
+    want, jlen = jbagel.generate_text(
+        setup["params"], CFG, _to_jax(cache), jnp.asarray([5, 9], jnp.int32),
+        jnp.asarray([9, 6], jnp.int32), steps, jnp.asarray(-1, jnp.int32), do_sample=True,
+        temperature=T, rng=jax.random.PRNGKey(3))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(lengths.numpy(), np.asarray(jlen))
+
+
+# ---------------------------------------------------------------------------
+# (a') the kept-context decode
+# ---------------------------------------------------------------------------
+
+def _kept(model, cache, max_length, eos, graphs):
+    return bagel.generate_text_ctx(model, cache, torch.tensor([5, 9]), torch.tensor([9, 6]),
+                                   max_length, eos, graphs=graphs)
+
+
+@pytest.mark.parametrize("mode", ["float", "int8", "w4a8-int4kv"])
+def test_kept_decode_program_equals_the_eager_loop(modes, mode):
+    """Tokens, lengths and the new lens bit for bit, with no eos, one
+    stream's and both streams'; the program writes the columns it made
+    valid into the caller's storage, equal to the eager loop's on [0, lens)."""
+    model, kw = modes[mode]
+    cache = _prefilled(model, **kw)
+    free, *_ = _kept(model, cache.clone(), 10, -1, False)
+    common = [int(t) for t in free[0, 1:] if (free[1, 1:] == t).any()]
+    for e in [-1, int(free[1, 3])] + common[:1]:
+        want = _kept(model, cache.clone(), 10, e, False)
+        mine = cache.clone()
+        got = _kept(model, mine, 10, e, True)
+        for g, w in zip(got[:2], want[:2]):
+            assert torch.equal(g, w)
+        assert got[2].k is mine.k
+        _assert_same_cache(got[2], want[2], valid_only=True)
+        assert torch.equal(mine.lens, cache.lens)  # the caller's lens are not advanced
+
+
+def test_kept_decode_program_matches_jax(setup):
+    model = setup["model"]
+    cache = _prefilled(model)
+    free, *_ = _kept(model, cache.clone(), 8, -1, False)
+    eos = int(free[0, 3])
+    jcache = _to_jax(cache)
+    got = _kept(model, cache, 8, eos, True)
+    want = jbagel.generate_text_ctx(setup["params"], CFG, jcache, jnp.asarray([5, 9], jnp.int32),
+                                    jnp.asarray([9, 6], jnp.int32), 8, jnp.asarray(eos, jnp.int32))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert_caches_equal(got[2], want[2])
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +371,204 @@ def test_chunk_program_matches_jax(setup, flavour):
     np.testing.assert_array_equal(pos.numpy(), np.asarray(pos_j))
     np.testing.assert_array_equal(out.lens.numpy(), np.asarray(cache_j.lens))
     assert 0 < int(n) < K
+
+
+# ---------------------------------------------------------------------------
+# (b') speculative decoding and the stream
+# ---------------------------------------------------------------------------
+
+HL = 64
+
+
+def _hist(S, lens, start):
+    """Each stream's draft history, as ``_prefilled`` made its context: its
+    prompt ids and the start token, in [S, HL] int32, and the lengths; stale
+    ids past them (a batcher's reused row), which drafts may read."""
+    ids = (np.arange(S * 12).reshape(S, 12) * 7 + 3) % V
+    hist = np.zeros((S, HL), np.int32)
+    hist[:, :40] = (np.arange(40) * 5 + 1) % V
+    for s, n in enumerate(lens):
+        hist[s, :n] = ids[s, :n]
+        hist[s, n] = start[s]
+    return torch.from_numpy(hist), torch.tensor([n + 1 for n in lens], dtype=torch.int32)
+
+
+def _spec(model, cache, max_length, eos, graphs, hist=None):
+    """``hist``: (ids, lengths), by default :func:`_hist`'s."""
+    h, hlen = _hist(2, (9, 6), (5, 9)) if hist is None else hist
+    return bagel.generate_text_spec(model, cache, torch.tensor([5, 9]), torch.tensor([9, 6]),
+                                    max_length, eos, h, hlen, k_draft=3, ngram=2, graphs=graphs)
+
+
+def _planted(answers):
+    """Each stream's history with its answer planted before it, after its
+    trailing two ids (the lookup's ngram): every draft is then accepted."""
+    h, hlen = _hist(2, (9, 6), (5, 9))
+    out = torch.zeros_like(h)
+    lens = []
+    for s, n in enumerate(hlen.tolist()):
+        real = h[s, :n].tolist()
+        seq = real[-2:] + [t for t in answers[s, 1:].tolist() if t >= 0] + real
+        out[s, :len(seq)] = torch.tensor(seq)
+        lens.append(len(seq))
+    return out, torch.tensor(lens, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("mode", ["float", "int8", "w4a8-int4kv"])
+def test_spec_program_equals_the_eager_loop(modes, mode):
+    """Tokens, lengths, the new lens and the verify forwards bit for bit,
+    with no eos and with one, and with the answer planted in the history (a
+    stream accepts several drafts a forward); the caller's history is left
+    as it was and the caller's cache holds the eager loop's columns on
+    [0, lens)."""
+    model, kw = modes[mode]
+    cache = _prefilled(model, **kw)
+    free = _spec(model, cache.clone(), 10, -1, False)
+    for eos, hist in ((-1, None), (int(free[0][1, 3]), None), (-1, _planted(free[0]))):
+        want = _spec(model, cache.clone(), 10, eos, False, hist)
+        before = None if hist is None else hist[0].clone()
+        mine = cache.clone()
+        got = _spec(model, mine, 10, eos, True, hist)
+        for g, w in zip(got[:2], want[:2]):
+            assert torch.equal(g, w)
+        assert int(got[3]) == want[3]
+        assert got[2].k is mine.k
+        _assert_same_cache(got[2], want[2], valid_only=True)
+        if hist is not None:
+            assert torch.equal(hist[0], before)
+    assert int(got[3]) < int(got[1].max()) - 1  # the planted answer took fewer forwards
+
+
+def test_spec_program_matches_jax(setup):
+    model = setup["model"]
+    cache = _prefilled(model)
+    jcache = _to_jax(cache)
+    h, hlen = _hist(2, (9, 6), (5, 9))
+    out, lengths, got_cache, n = _spec(model, cache, 9, -1, True)
+    want = jbagel.generate_text_spec(
+        setup["params"], CFG, jcache, jnp.asarray([5, 9], jnp.int32),
+        jnp.asarray([9, 6], jnp.int32), 9, jnp.asarray(-1, jnp.int32), jnp.asarray(h.numpy()),
+        jnp.asarray(hlen.numpy()), k_draft=3, ngram=2)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(lengths.numpy(), np.asarray(want[1]))
+    assert_caches_equal(got_cache, want[2])
+    assert int(n) == int(want[3])
+
+
+SPEC_ACTIVE = torch.tensor([True, False, True])
+
+
+def _spec_chunk(model, cache, graphs, static=False, budget=(20, 3, 20), iters=4):
+    hist, hlen = _hist(3, (9, 6, 11), (3, 5, 7))
+    return serving.decode_chunk_spec(
+        model, cache, torch.tensor([3, 5, 7]), torch.tensor([9, 6, 11]), SPEC_ACTIVE,
+        torch.tensor(budget), hist, hlen, iters, 1, k_draft=3, ngram=2, graphs=graphs,
+        return_steps=True, static=static)
+
+
+@pytest.mark.parametrize("mode", ["float", "int8", "w4a8-int4kv"])
+@pytest.mark.parametrize("static", [False, True], ids=["pool", "static"])
+def test_spec_chunk_program_equals_the_eager_loop(modes, mode, static):
+    """Every output bit for bit (tokens, counts, fin, last, positions, the
+    history, hlen, verify forwards run) and the live slots' cache columns on
+    [0, lens): over the pool's own arrays, and over the programs' static
+    buffers with the columns made valid copied back; budgets that end every
+    slot before the chunk's last iteration, so the program replays past its
+    exit."""
+    model, kw = modes[mode]
+    cache = _prefilled(model, S=3, M=40, lens=(9, 6, 11), **kw)
+    runs = []
+    for graphs in (False, True):
+        c = cache.clone()
+        runs.append((_spec_chunk(model, c, graphs, static, budget=(4, 2, 5), iters=6), c))
+    (want, _), (got, mine) = runs
+    for i in (0, 1, 2, 3, 4, 6, 7):
+        assert torch.equal(got[i], want[i]), i
+    assert int(got[8]) == want[8] < 6
+    assert got[5].k is mine.k
+    _assert_same_cache(got[5], want[5], valid_only=True, rows=SPEC_ACTIVE.tolist())
+
+
+def test_spec_chunk_program_matches_jax(setup):
+    model = setup["model"]
+    cache = _prefilled(model, S=3, M=40, lens=(9, 6, 11))
+    jcache = _to_jax(cache)
+    hist, hlen = _hist(3, (9, 6, 11), (3, 5, 7))
+    want = jserving.decode_chunk_spec(
+        setup["params"], CFG, jcache, jnp.asarray([3, 5, 7], jnp.int32),
+        jnp.asarray([9, 6, 11], jnp.int32), jnp.asarray(SPEC_ACTIVE.numpy()),
+        jnp.asarray([20, 3, 20], jnp.int32), jnp.asarray(hist.numpy()), jnp.asarray(hlen.numpy()),
+        4, jnp.asarray(1, jnp.int32), k_draft=3, ngram=2)
+    got = _spec_chunk(model, cache, True)
+    act = SPEC_ACTIVE.numpy()
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    for a, w in ((got[0], want[0]), (got[2], want[2]), (got[3], want[3]), (got[6], want[6])):
+        np.testing.assert_array_equal(a.numpy()[act], np.asarray(w)[act])
+    np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
+    np.testing.assert_array_equal(got[7].numpy(), np.asarray(want[7]))
+    assert_caches_equal(got[5], want[5], rows=np.nonzero(act)[0])
+
+
+def test_replays_past_the_exit_change_nothing(setup):
+    """After a speculative chunk (every slot done before its last
+    iteration) and a kept-context decode, more replays leave the state the
+    caller reads as it was: the tokens, counts, flags, lens, positions,
+    history and hlen, the forward counter, and the pool's valid columns."""
+    model = setup["model"]
+    pool = _prefilled(model, S=3, M=40, lens=(9, 6, 11))
+    got = _spec_chunk(model, pool, True, budget=(4, 2, 5), iters=6)
+    prog = programs.programs()[-1]
+    assert isinstance(prog, bagel.SpecProgram) and not bool(prog.go)
+    assert prog.hist is got[6]
+    prog.cache = pool  # held only while a chunk runs
+    names = ("out", "cursor", "fin", "cur", "pos", "lens", "hlen", "hist", "it", "go", "pending")
+    state = [getattr(prog, n).clone() for n in names]
+    valid = pool._map(lambda t: t, lambda t: t, prog.lens).clone()
+    for _ in range(3):
+        prog.verify.replay()
+    for n, a in zip(names, state):
+        assert torch.equal(getattr(prog, n), a), n
+    _assert_same_cache(pool._map(lambda t: t, lambda t: t, prog.lens), valid, valid_only=True)
+    kept = _prefilled(model)
+    free, *_ = _kept(model, kept.clone(), 8, -1, False)
+    _kept(model, kept, 8, int(free[0, 2]), True)
+    prog = programs.programs()[-1]
+    names = ("out", "cur", "pos", "done", "step", "go", "lens")
+    state = [getattr(prog, n).clone() for n in names]
+    prog.graph.replay()
+    for n, a in zip(names, state):
+        assert torch.equal(getattr(prog, n), a), n
+
+
+def _inferencers(model, **kw):
+    from unimedvl_tpu_torch.tools import dryrun_mesh
+
+    return [dryrun_mesh.inferencer(model, None, graphs=g, **kw) for g in (False, True)]
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
+def test_stream_programs_equal_the_eager_chunks(setup, spec):
+    """``gen_text_stream`` by the chunks' programs (over buffers of the
+    cache's shape, the valid columns copied back) and by their eager loops:
+    the same pieces, answer and kept context; a second request on a new
+    context captures nothing anew."""
+    kw = dict(spec_decode=True, spec_k=3, spec_ngram=2) if spec else {}
+    programs.drop_all()
+    results = []
+    for inf in _inferencers(setup["model"], **kw):
+        ctx = inf.update_context_text("a scan of the chest; a scan of the", inf.init_gen_context())
+        res = {}
+        pieces = list(inf.gen_text_stream(ctx, max_length=11, chunk=3, result=res))
+        n = len(programs.programs())
+        ctx2 = inf.update_context_text("another scan", inf.init_gen_context())
+        again = list(inf.gen_text_stream(ctx2, max_length=11, chunk=3))
+        assert len(programs.programs()) == n
+        results.append((pieces, res, again))
+    (want, wres, wagain), (got, gres, gagain) = results
+    assert got == want and gagain == wagain and gres["text"] == wres["text"]
+    assert (gres["ctx"].kv_len, gres["ctx"].rope, gres["ctx"].hist) == (
+        wres["ctx"].kv_len, wres["ctx"].rope, wres["ctx"].hist)
+    _assert_same_cache(gres["ctx"].cache, wres["ctx"].cache, valid_only=True)
 
 
 # ---------------------------------------------------------------------------
@@ -329,3 +649,39 @@ def test_a_program_is_kept_per_key_and_dropped_with_its_storage(setup):
     assert len(programs.programs()) == 2 and programs.programs()[-1] is not chunk[0]
     quant.quantize_llm_params(model.language_model, act_quant=True)
     assert programs.programs() == []
+
+
+def test_new_programs_are_kept_per_shape_and_the_pool_ones_dropped(setup, monkeypatch):
+    """The kept-context and speculative programs of a chat, keyed by its
+    cache's shape, read none of its storage: ``_ensure_capacity`` growing
+    the context keeps them, and a new context of the old shape reuses them.
+    A speculative chunk over a pool is keyed by the pool and its history:
+    ``repack_pool`` drops it. A draft proposer swapped in gets a program of
+    its own."""
+    model = copy.deepcopy(setup["model"])
+    programs.drop_all()
+    plain, spec = (_inferencers(model, **kw)[1] for kw in (
+        {}, dict(spec_decode=True, spec_k=3, spec_ngram=2)))
+    for inf in (plain, spec):
+        ctx = inf.update_context_text("a scan of the chest", inf.init_gen_context())
+        inf.chat_turn(ctx, "and the left side?", max_length=6)
+    kinds = [(type(p), getattr(p, "kept", None)) for p in programs.programs()]
+    assert kinds == [(bagel.DecodeProgram, True), (bagel.SpecProgram, None)]
+    grown = spec._ensure_capacity(ctx, ctx.cache.capacity + 1)
+    assert grown.cache.k is not ctx.cache.k and len(programs.programs()) == 2
+    for inf in (plain, spec):
+        inf.chat_turn(None, "a new conversation", max_length=6)
+    assert len(programs.programs()) == 2
+    pool = _prefilled(model, S=3, M=40, lens=(9, 6, 11))
+    _spec_chunk(model, pool, True)
+    assert len(programs.programs()) == 3
+    serving.repack_pool(pool, np.asarray([1, 0, 2]))
+    assert len(programs.programs()) == 2
+    _spec(model, _prefilled(model), 6, -1, True)
+    monkeypatch.setattr(bagel, "propose_drafts", _fixed_proposer)
+    _spec(model, _prefilled(model), 6, -1, True)
+    assert programs.programs()[-1].propose is _fixed_proposer and len(programs.programs()) == 4
+
+
+def _fixed_proposer(hist, hlen, ngram, K):
+    return torch.zeros((hist.shape[0], K), dtype=torch.int32)

@@ -1427,3 +1427,119 @@ def test_flow_program_captured_equals_eager(gen):
                                        graphs=True, step_range=(2, 5), **kw)
     assert fa.q_preproc_counts["kernel"] - before == 5 * llm.num_hidden_layers
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("fn", ["generate_text", "generate_text_ctx", "decode_chunk",
+                                "decode_chunk_aligned"])
+def test_sampled_program_captured_equals_eager(gen, fn):
+    """A sampled decode as a captured graph (its generator registered with
+    the graph) against its eager loop, from one seed: tokens and lens equal,
+    the generator left in the same state by both, so that a draw after the
+    decode (an inferencer's image noise) is the same; twice (the second call
+    replays)."""
+    from unimedvl_tpu_torch.inference import serving
+    from unimedvl_tpu_torch.models import bagel
+
+    model = _program_model()
+    chunk = fn.startswith("decode_chunk")
+    S = 3 if chunk else 2
+    lens = [40, 23, 11][:S]
+    start, pos = torch.tensor([5, 9, 7][:S], device="cuda"), torch.tensor(lens, device="cuda")
+    active = torch.ones(S, dtype=torch.bool, device="cuda")
+    out = {}
+    g = torch.Generator(device="cuda")
+    for graphs in (False, True, True):
+        g.manual_seed(7)
+        cache = _program_context(model, S, 256, lens)
+        if chunk:
+            got = getattr(serving, fn)(model, cache, start, pos, active, 8, do_sample=True,
+                                       temperature=1.5, generator=g, graphs=graphs)
+        else:
+            got = getattr(bagel, fn)(model, cache, start, pos, 12, -1, True, 1.5, g,
+                                     graphs=graphs)
+        after = torch.randn(4, generator=g, device="cuda")
+        if graphs in out:
+            for a, b in zip(got[:2], out[graphs][0][:2]):
+                assert torch.equal(a, b)
+        out.setdefault(graphs, (got, after))
+    (want, w_after), (got, g_after) = out[False], out[True]
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a, b)
+    if fn != "generate_text":
+        assert torch.equal(got[-1].lens, want[-1].lens)
+    if not chunk:  # a chunk's replays past its exit draw too (none here: no eos)
+        assert torch.equal(g_after, w_after)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_kept_and_spec_programs_captured_equal_eager(gen, quantized):
+    """generate_text_ctx and generate_text_spec (S 1 and 2, verify block of
+    T 4 through K1a) as captured graphs against their eager loops: tokens,
+    lengths, verify forwards, lens, the caller's cache on [0, lens) and the
+    kernels' launches equal."""
+    from unimedvl_tpu_torch.models import bagel
+
+    model = _program_model()
+    counts = dec.int8_counts if quantized else dec.counts
+    for S in (1, 2):
+        lens = [40, 23][:S]
+        start, pos = torch.tensor([5, 9][:S], device="cuda"), torch.tensor(lens, device="cuda")
+        hist = torch.zeros((S, 256), dtype=torch.int32, device="cuda")
+        for s, n in enumerate(lens):
+            hist[s, :n] = (torch.arange(n, device="cuda") * 7 + 3 + s * n) % 512
+            hist[s, n - 1] = start[s]
+        hlen = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for fn in ("generate_text_ctx", "generate_text_spec"):
+            extra = (hist, hlen) if fn == "generate_text_spec" else ()
+            kw = dict(k_draft=3, ngram=2) if extra else {}
+            res = {}
+            for graphs in (False, True, True):
+                cache = _program_context(model, S, 512, lens, quantized)
+                before = (counts["kernel"], fa.counts["kernel"])
+                got = getattr(bagel, fn)(model, cache, start, pos, 16, -1, *extra, graphs=graphs,
+                                         **kw)
+                launched = (counts["kernel"] - before[0], fa.counts["kernel"] - before[1])
+                res[graphs] = (got, launched)
+            (want, w_n), (got, g_n) = res[False], res[True]
+            assert g_n == w_n
+            for a, b in zip(got[:2], want[:2]):
+                assert torch.equal(a, b)
+            if extra:
+                assert int(got[3]) == want[3] and w_n[1] == want[3] * 2
+            assert torch.equal(got[2].lens, want[2].lens)
+            for s in range(S):
+                n_s = int(want[2].lens[s])
+                assert torch.equal(got[2].k[:, s, :, :n_s], want[2].k[:, s, :, :n_s])
+                assert torch.equal(got[2].v[:, s, :, :n_s], want[2].v[:, s, :, :n_s])
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["pool", "static"])
+def test_spec_chunk_program_captured_equals_eager(gen, static):
+    """decode_chunk_spec as a captured graph (S 3, budgets that end the
+    slots early, so some replays run past the exit) against its eager loop:
+    every output, the verify forwards run and the live slots' cache columns
+    equal."""
+    from unimedvl_tpu_torch.inference import serving
+
+    model = _program_model()
+    lens = [40, 23, 11]
+    args = (torch.tensor([3, 5, 7], device="cuda"), torch.tensor(lens, device="cuda"),
+            torch.tensor([True, False, True], device="cuda"),
+            torch.tensor([5, 3, 6], dtype=torch.int32, device="cuda"))
+    out = {}
+    for graphs in (False, True):
+        cache = _program_context(model, 3, 256, lens)
+        hist = torch.zeros((3, 256), dtype=torch.int32, device="cuda")
+        hist[:, :40] = (torch.arange(40, device="cuda") * 5 + 1) % 512
+        hlen = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out[graphs] = serving.decode_chunk_spec(model, cache, *args, hist, hlen, 8, 1,
+                                                k_draft=3, ngram=2, graphs=graphs,
+                                                return_steps=True, static=static)
+    want, got = out[False], out[True]
+    for i in (0, 1, 2, 3, 4, 6, 7):
+        assert torch.equal(got[i], want[i]), i
+    assert int(got[8]) == want[8] < 8
+    assert torch.equal(got[5].lens, want[5].lens)
+    for s in (0, 2):
+        n_s = int(want[5].lens[s])
+        assert torch.equal(got[5].k[:, s, :, :n_s], want[5].k[:, s, :, :n_s])

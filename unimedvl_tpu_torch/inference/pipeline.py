@@ -171,13 +171,14 @@ class InterleaveInferencer:
         Every rank of the mesh runs the same calls with the same seed; the
         answers and images are the single-device ones. With ``sp_mesh`` too,
         the two must span the same ranks in the same order.
-        ``graphs``: the route of the greedy answer decode (``gen_text``
-        without ``return_ctx``) and of the flow loop
+        ``graphs``: the route of the answer decodes (``gen_text``, greedy or
+        sampled, kept in the context or not, speculative or not), of
+        ``gen_text_stream``'s chunks and of the flow loop
         (``inference.programs.use_graphs``): by default, on a CUDA device
         without a mesh, the captured device programs
-        (``bagel.DecodeProgram``, ``bagel.FlowProgram``); False their eager
-        loops. Sampled answers, the kept-context and speculative decodes,
-        ``gen_text_stream`` and the sequence-parallel denoise run eagerly."""
+        (``bagel.DecodeProgram``, ``bagel.SpecProgram``,
+        ``serving.ChunkProgram``, ``bagel.FlowProgram``); False their eager
+        loops. The sequence-parallel denoise runs eagerly."""
         if kv_quantized:
             check_kv_bits(kv_bits)
         if kv_quantized and sp_mesh is not None:
@@ -430,16 +431,15 @@ class InterleaveInferencer:
             hist, hlen = self._hist_rows(ctx, bos, max_length)
             out, lengths, cache, _ = bagel.generate_text_spec(
                 self.model, ctx.cache, start, positions, max_length, eos, hist, hlen,
-                k_draft=self.spec_k, ngram=self.spec_ngram)
+                k_draft=self.spec_k, ngram=self.spec_ngram, graphs=self.graphs)
         elif return_ctx:
             out, lengths, cache = bagel.generate_text_ctx(
                 self.model, ctx.cache, start, positions, max_length, eos, do_sample,
-                temperature, self._generator)
+                temperature, self._generator, graphs=self.graphs)
         else:
             out, lengths = bagel.generate_text(
                 self.model, ctx.cache, start, positions, max_length, eos, do_sample,
-                temperature, self._generator,
-                graphs=False if do_sample else self.graphs)
+                temperature, self._generator, graphs=self.graphs)
         ids = [i for i in out[0].tolist() if i >= 0]
         text, _ = self._parse(ids)
         if not return_ctx:
@@ -452,9 +452,12 @@ class InterleaveInferencer:
                         result: Optional[dict] = None):
         """Greedy decode as a generator of text increments
         (pipeline.py:460-609): the decode runs in chunks of ``chunk`` steps
-        with one host read a step (``serving.decode_chunk`` at S = 1) or,
-        with ``spec_decode``, of ``chunk`` verify forwards
-        (``serving.decode_chunk_spec``). The pieces concatenate to
+        (``serving.decode_chunk`` at S = 1) or, with ``spec_decode``, of
+        ``chunk`` verify forwards (``serving.decode_chunk_spec``), with one
+        host read a chunk: by the route of ``graphs``, the chunks' programs
+        over buffers of the cache's shape (``static=True``: nothing is
+        captured anew for a new request), or their eager loops, one host read
+        a step or a verify forward. The pieces concatenate to
         ``gen_text``'s answer: each yield decodes the id prefix but its last
         id (which may merge with the next), with a trailing U+FFFD trimmed.
         Stops at eos, <|im_end|> or ``max_length``. The caller's context is
@@ -491,7 +494,8 @@ class InterleaveInferencer:
                 budget = torch.tensor([max_length - len(ids)], dtype=torch.int32, device=dev)
                 tokens, counts, fin, last, new_pos, cache, hist, hlen = decode_chunk_spec(
                     self.model, cache, cur_t, pos_t, one, budget, hist, hlen, chunk, eos,
-                    k_draft=self.spec_k, ngram=self.spec_ngram)
+                    k_draft=self.spec_k, ngram=self.spec_ngram, graphs=self.graphs,
+                    static=True)
                 n = int(counts[0])
                 ids.extend(tokens[0, :n].tolist())
                 pos, cur = int(new_pos[0]), int(last[0])
@@ -500,8 +504,9 @@ class InterleaveInferencer:
                     pending = pending and n > 0  # an immediate eos consumed the pending token
                 stop = stop or len(ids) >= max_length
             else:
-                tokens, _last, _pos, cache = decode_chunk(  # eager: not captured yet
-                    self.model, cache, cur_t, pos_t, one, chunk, eos=eos, graphs=False)
+                tokens, _last, _pos, cache = decode_chunk(
+                    self.model, cache, cur_t, pos_t, one, chunk, eos=eos, graphs=self.graphs,
+                    static=True)
                 seq = tokens[0].tolist()
                 used = 0
                 hit_eos = False

@@ -18,7 +18,13 @@ this module holds what they share:
   shared by every program (``torch.cuda.graph_pool_handle()``); later
   replays launch the graph. On a CPU tensor a replay calls the same body on
   the same buffers: the plain route the CPU tests run. A capture or replay
-  error raises; nothing falls back to the eager loop.
+  error raises; nothing falls back to the eager loop. A body that samples
+  names its ``torch.Generator``: the warm-up's draws are put back, and the
+  generator is registered with the graph
+  (``CUDAGraph.register_generator_state``), so that every replay draws
+  from its state and advances it as the eager step would, and eager draws
+  between replays (the image noise of an inferencer's one generator) go on
+  from there.
 - The registry (:func:`lookup`): programs keyed by what they run (program,
   streams, capacity, the cache's dtype and bits, the chunk flavour, the
   options baked into the body) and by the storage their graphs read (the
@@ -35,9 +41,14 @@ this module holds what they share:
   runs no Python, so each graph records what its capture added to the
   counters (``COUNTER_MODULES``), puts the counters back as they were before
   the warm-up, and adds that record at every replay. ``listeners`` are
-  called at every captured replay with the graph (its ``kind``: "decode",
-  "chunk" or "denoise"); :func:`capturing` is true during a warm-up and a
-  capture, so that forward hooks can tell those calls from the path's.
+  called at every captured replay with the graph (its ``kind``: "decode"
+  for a T = 1 forward of a decode loop, "chunk" for a step of a batcher's
+  chunk, "verify" for a speculative verify forward, "denoise" for a flow
+  step); :func:`capturing` is true during a warm-up and a capture, so that
+  forward hooks can tell those calls from the path's.
+- :func:`static_buffer`: the caches (and draft histories) that programs copy
+  their caller's into, one per shape, dtype and width, shared by every
+  program that copies in at each call.
 """
 
 from __future__ import annotations
@@ -74,21 +85,18 @@ def capturing() -> bool:
     return getattr(_state, "capturing", False)
 
 
-def use_graphs(graphs: Optional[bool], device: torch.device, model: nn.Module,
-               eager_reason: Optional[str] = None) -> bool:
+def use_graphs(graphs: Optional[bool], device: torch.device, model: nn.Module) -> bool:
     """Whether a loop runs as its program: ``graphs`` None takes the program
     on a CUDA device and the eager loop elsewhere; True the program on any
     device (its plain route on the CPU); False the eager loop. A model on a
     mesh runs its collectives between the kernels, which a graph does not
-    capture, so it takes the eager loop, and True raises; so does True where
-    ``eager_reason`` names why the loop is eager by design. Within
+    capture, so it takes the eager loop, and True raises. Within
     :func:`eager`, None takes the eager loop."""
     on_mesh = getattr(model.language_model, "mesh", None) is not None
-    if graphs and (on_mesh or eager_reason):
-        raise ValueError(f"graphs=True: {eager_reason or 'a model on a mesh runs eagerly'}")
+    if graphs and on_mesh:
+        raise ValueError("graphs=True: a model on a mesh runs eagerly")
     if graphs is None:
-        return (device.type == "cuda" and not on_mesh and not eager_reason
-                and not getattr(_state, "eager", False))
+        return device.type == "cuda" and not on_mesh and not getattr(_state, "eager", False)
     return bool(graphs)
 
 
@@ -294,13 +302,16 @@ def _snapshot(dicts) -> list:
 class Graph:
     """One step body over static buffers (see the module's docstring).
     ``keep``: the state tensors the warm-up changes and that are put back
-    before the capture; ``rows`` is told to the listeners (the streams of a
-    step)."""
+    before the capture; ``generators``: those the body draws from, whose
+    state the warm-up's draws are taken back from and which the graph
+    registers; ``rows`` is told to the listeners (the streams of a step)."""
 
     def __init__(self, kind: str, body: Callable[[], None], device: torch.device,
-                 keep: Iterable[torch.Tensor] = (), rows: int = 0):
+                 keep: Iterable[torch.Tensor] = (), rows: int = 0,
+                 generators: Iterable[torch.Generator] = ()):
         self.kind, self.body, self.device = kind, body, device
         self.keep = list(keep)
+        self.generators = list(generators)
         self.rows = rows
         self.graph = None
         self.launches: list = []  # (counter dict, key, launches) added by one replay
@@ -327,6 +338,7 @@ class Graph:
         dicts = _counter_dicts()
         before = _snapshot(dicts)
         saved = [t.clone() for t in self.keep]
+        drawn = [g.get_state() for g in self.generators]
         main = torch.cuda.current_stream(self.device)
         side = _capture_stream(main.device)
         _state.capturing = True
@@ -337,8 +349,12 @@ class Graph:
                 for t, s in zip(self.keep, saved):
                     t.copy_(s)
             main.wait_stream(side)
+            for g, s in zip(self.generators, drawn):
+                g.set_state(s)
             mid = _snapshot(dicts)
             graph = torch.cuda.CUDAGraph()
+            for g in self.generators:
+                graph.register_generator_state(g)
             index = side.device.index
             side.wait_stream(main)
             with torch.cuda.stream(side):

@@ -44,10 +44,11 @@ The port writes the pool in place where the JAX package donates it. Where
 the JAX package has a jitted chunk ``while_loop``, the port runs a captured
 device program on the card (:class:`ChunkProgram`, ``inference/programs.py``):
 one graph a step, the loop state and the exit test on the device, one host
-read a chunk; ``graphs=False`` takes the eager loop, one host check a step.
-The speculative chunks stay eager (a host check a verify forward). Greedy
-only. Not here: the compiled denoise windows (``gen_window_dynamic``), which
-``step_range`` replaces.
+read a chunk; the speculative chunks likewise (``bagel.SpecProgram``: one
+graph a verify forward); ``graphs=False`` takes the eager loops, one host
+check a step or a verify forward. The batcher decodes greedily; the chunks
+also sample (``do_sample``). Not here: the compiled denoise windows
+(``gen_window_dynamic``), which ``step_range`` replaces.
 """
 
 from __future__ import annotations
@@ -136,10 +137,13 @@ def _step_logits(model: Bagel, cache: KVCache, cur: torch.Tensor, pos: torch.Ten
     return mot.lm_head(lm, h[:, 0]), cache
 
 
-def _step(model: Bagel, cache: KVCache, cur: torch.Tensor, pos: torch.Tensor, **kw):
-    """One greedy decode step of every stream; (next tokens [S] int32, cache)."""
+def _step(model: Bagel, cache: KVCache, cur: torch.Tensor, pos: torch.Tensor, sampler=None,
+          **kw):
+    """One decode step of every stream, greedy or by ``sampler`` (``(do_sample,
+    temperature, generator)``, as ``bagel._next_token`` takes them); (next
+    tokens [S] int32, cache)."""
     logits, cache = _step_logits(model, cache, cur, pos, **kw)
-    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    return bagel._next_token(logits, *(sampler or (False, 1.0, None))), cache
 
 
 def _scatter_kw(active: torch.Tensor):
@@ -158,10 +162,10 @@ def _aligned_kw(cache: KVCache, active: torch.Tensor):
 
 
 @torch.no_grad()
-def _chunk(model, cache, cur_tokens, positions, active, num_steps, eos, step_kw):
+def _chunk(model, cache, cur_tokens, positions, active, num_steps, eos, step_kw, sampler):
     """The eager loop both chunk flavours share, the plain version of
-    :class:`ChunkProgram`: up to ``num_steps`` greedy steps, ``step_kw(i)``
-    the forward's options of step i, one host read a step. Returns (tokens
+    :class:`ChunkProgram`: up to ``num_steps`` steps, ``step_kw(i)`` the
+    forward's options of step i, one host read a step. Returns (tokens
     [S, K] zero-filled past the exit, last [S], positions [S], cache, steps
     run)."""
     S = cur_tokens.shape[0]
@@ -172,7 +176,7 @@ def _chunk(model, cache, cur_tokens, positions, active, num_steps, eos, step_kw)
     done = ~active  # inactive slots count as finished for the early exit
     n = 0
     while n < num_steps:
-        cur, cache = _step(model, cache, cur, pos, **step_kw(n))
+        cur, cache = _step(model, cache, cur, pos, sampler, **step_kw(n))
         pos = torch.where(active, pos + 1, pos)
         buf[:, n] = cur
         n += 1
@@ -185,9 +189,9 @@ def _chunk(model, cache, cur_tokens, positions, active, num_steps, eos, step_kw)
 
 class ChunkProgram:
     """A decode chunk as a device program (the JAX package's jitted chunk
-    ``while_loop`` with its donated cache): one captured graph is one greedy
-    step of every slot over static buffers (``inference/programs.py``). The
-    loop state lives on the device: the step counter ``n`` (0-dim int32, the
+    ``while_loop`` with its donated cache): one captured graph is one step of
+    every slot over static buffers (``inference/programs.py``). The loop
+    state lives on the device: the step counter ``n`` (0-dim int32, the
     number of steps run), ``cur``, ``pos``, ``done``, the tokens ``buf``, the
     slots' ``lens`` (the scatter flavour advances them in place) and ``go =
     (n < K) & ~all(done)``, which gates every state update. A chunk is K
@@ -196,26 +200,39 @@ class ChunkProgram:
     step's kernels and changes no state: its kv write lands at a column past
     each stream's valid length (the pending token's, rewritten by the next
     chunk) or, in the aligned flavour, inside the band past the steps run,
-    which :func:`_compact_band` leaves past each stream's lens.
+    which :func:`_compact_band` leaves past each stream's lens. A sampled
+    chunk draws from its generator, registered with the graph; its replays
+    past the exit draw too, so the generator ends K steps' draws on, where
+    the eager loop stops drawing at the exit (the JAX chunk takes a key and
+    returns none).
 
     The program writes the pool's own arrays (the batcher's pool, which
-    persists across rounds); the slots' lens, tokens, positions and the
-    active mask are copied into its buffers at every call. Keyed by the
-    flavour, S, K, eos, the pool arrays (pointers, shapes, dtype, width) and
-    the LLM's weights; ``repack_pool`` drops the programs of the pool it
-    replaces."""
+    persists across rounds), keyed by them: ``repack_pool`` drops the
+    programs of the pool it replaces. With ``static`` (the scatter flavour
+    only: ``InterleaveInferencer.gen_text_stream``, whose cache is new every
+    request) it runs in the programs' shared cache of the pool's shape
+    (``bagel.static_cache``), the caller's copied in at every call and the
+    columns the chunk made valid, [lens, new lens), copied back, so a new
+    caller captures nothing anew. The slots' lens, tokens, positions and
+    the active mask are copied into its buffers at every call. Keyed by the
+    flavour, S, K, eos, the sampling options, the pool arrays (pointers,
+    shapes, dtype, width; with ``static`` the shape, dtype and width) and
+    the LLM's weights."""
 
     def __init__(self, model: Bagel, cache: KVCache, num_steps: int, eos: Optional[int],
-                 aligned: bool):
+                 aligned: bool, static: bool, sampler: tuple):
         from unimedvl_tpu_torch.inference import programs
 
         S = cache.k.shape[1]
         dev = cache.k.device
         self._model = programs.model_ref(model)
-        self.K, self.eos, self.aligned = num_steps, eos, aligned
+        self.K, self.eos, self.aligned, self.static = num_steps, eos, aligned, static
+        self.sampler = sampler[:3]
         i32 = dict(dtype=torch.int32, device=dev)
         self.lens = torch.zeros(S, dtype=cache.lens.dtype, device=dev)
-        self.cache = None  # the pool with self.lens, held only while a chunk runs
+        # the pool with self.lens (a caller's pool held only while a chunk runs)
+        self.static_cache = bagel.static_cache(cache) if static else None
+        self.cache = None
         self.active = torch.zeros(S, dtype=torch.bool, device=dev)
         self.q_valid = self.active[:, None]
         self.cur = torch.zeros(S, **i32)
@@ -228,18 +245,28 @@ class ChunkProgram:
         self.cols = torch.arange(num_steps, **i32)
         self.graph = programs.Graph(
             "chunk", self._body, dev, rows=S,
-            keep=(self.lens, self.cur, self.pos, self.done, self.buf, self.n, self.go))
+            keep=(self.lens, self.cur, self.pos, self.done, self.buf, self.n, self.go),
+            generators=[sampler[2]] if sampler[0] and dev.type == "cuda" else [])
 
     @classmethod
     def get(cls, model: Bagel, cache: KVCache, num_steps: int, eos: Optional[int],
-            aligned: bool):
+            aligned: bool, static: bool = False, do_sample: bool = False,
+            temperature: float = 1.0, generator: Optional[torch.Generator] = None):
         from unimedvl_tpu_torch.inference import programs
 
+        if aligned and static:
+            raise ValueError("the aligned chunk writes its caller's pool; static is the scatter "
+                             "chunk's")
+        sampler = bagel._sampler(do_sample, temperature, generator, cache.k.device)
         arrays = _arrays(cache)
-        key = ("chunk", aligned, num_steps, eos, cache.kv_bits, cache.lens.dtype,
-               programs.tensors_key(arrays), programs.weights_key(model.language_model))
-        return programs.lookup(key, lambda: cls(model, cache, num_steps, eos, aligned),
-                               reads=(model.language_model, arrays), owner=model.language_model)
+        where = (bagel._cache_kind(cache),) if static else (
+            cache.kv_bits, cache.lens.dtype, programs.tensors_key(arrays))
+        key = ("chunk", aligned, static, num_steps, eos, sampler[3], where,
+               programs.weights_key(model.language_model))
+        reads = (model.language_model,) if static else (model.language_model, arrays)
+        return programs.lookup(key, lambda: cls(model, cache, num_steps, eos, aligned, static,
+                                                sampler),
+                               reads=reads, owner=model.language_model)
 
     def graphs(self):
         return [self.graph]
@@ -250,7 +277,7 @@ class ChunkProgram:
             kw = dict(decode_cols=(self.base, self.base + self.n))
         else:
             kw = dict(q_valid=self.q_valid)
-        nxt, cache = _step(self._model(), self.cache, self.cur, self.pos, **kw)
+        nxt, cache = _step(self._model(), self.cache, self.cur, self.pos, self.sampler, **kw)
         if not self.aligned:
             self.lens.copy_(torch.where(go, cache.lens, self.lens))
         self.pos.copy_(torch.where(go & self.active, self.pos + 1, self.pos))
@@ -276,7 +303,10 @@ class ChunkProgram:
         self.go.fill_(True)
         if self.aligned:
             self.base.copy_(torch.where(active, cache.lens, 0).max())
-        self.cache = dataclasses.replace(cache, lens=self.lens)
+        if self.static:
+            bagel._copy_cache(self.static_cache, cache)
+        store = self.static_cache if self.static else cache
+        self.cache = dataclasses.replace(store, lens=self.lens)
         try:
             for _ in range(self.K):
                 self.graph.replay()
@@ -286,28 +316,31 @@ class ChunkProgram:
         if self.aligned:
             out = _compact_band(cache, self.base.clone(), self.K, cache.lens, active, n)
         else:
+            if self.static:
+                bagel._copy_columns(cache, self.static_cache, cache.lens, self.lens, self.K)
             out = dataclasses.replace(cache, lens=self.lens.clone())
         return (self.buf.clone(), self.cur.clone(), self.pos.to(positions.dtype, copy=True), out,
                 n)
 
 
 @torch.no_grad()
-def _run_chunk(model, cache, cur_tokens, positions, active, num_steps, eos, aligned, graphs):
+def _run_chunk(model, cache, cur_tokens, positions, active, num_steps, eos, aligned, graphs,
+               static=False, sampler=(False, 1.0, None)):
     """Either chunk flavour by either route (``inference.programs.use_graphs``):
     (tokens, last, positions, cache, steps run)."""
     from unimedvl_tpu_torch.inference import programs
 
     active = active.to(torch.bool)
     if programs.use_graphs(graphs, cur_tokens.device, model):
-        prog = ChunkProgram.get(model, cache, num_steps, eos, aligned)
+        prog = ChunkProgram.get(model, cache, num_steps, eos, aligned, static, *sampler)
         return prog.run(cache, cur_tokens, positions, active)
     if not aligned:
         return _chunk(model, cache, cur_tokens, positions, active, num_steps, eos,
-                      _scatter_kw(active))
+                      _scatter_kw(active), sampler)
     lens0 = cache.lens
     base, step_kw = _aligned_kw(cache, active)
     tokens, last, pos, cache, n = _chunk(
-        model, cache, cur_tokens, positions, active, num_steps, eos, step_kw)
+        model, cache, cur_tokens, positions, active, num_steps, eos, step_kw, sampler)
     return tokens, last, pos, _compact_band(cache, base, num_steps, lens0, active, n), n
 
 
@@ -319,21 +352,31 @@ def decode_chunk(
     active: torch.Tensor,  # [S] bool
     num_steps: int,
     eos: Optional[int] = None,
+    do_sample: bool = False,
+    temperature: float = 1.0,
+    generator: Optional[torch.Generator] = None,
     graphs: Optional[bool] = None,
     return_steps: bool = False,
+    static: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, KVCache]:
-    """Up to ``num_steps`` greedy decode steps of every slot (serving.py:110).
-    Each step writes a stream's kv at its own ``lens[s]`` and attends to
-    [0, lens[s]] (K2 / K2-int8 with the band ``(lens, lens)``); only active
-    slots advance their lens and positions. With ``eos`` the chunk exits once
-    every active slot has emitted it. Returns (tokens [S, K], zero past the
-    exit, last [S], positions [S], cache), and with ``return_steps`` the steps
-    run (an int, or a 0-dim device tensor from the program).
+    """Up to ``num_steps`` decode steps of every slot (serving.py:110), greedy
+    or, with ``do_sample``, drawn at ``temperature`` from ``generator`` (the
+    device's default when None) as ``bagel._next_token`` draws. Each step
+    writes a stream's kv at its own ``lens[s]`` and attends to [0, lens[s]]
+    (K2 / K2-int8 with the band ``(lens, lens)``); only active slots advance
+    their lens and positions. With ``eos`` the chunk exits once every active
+    slot has emitted it. Returns (tokens [S, K], zero past the exit, last
+    [S], positions [S], cache), and with ``return_steps`` the steps run (an
+    int, or a 0-dim device tensor from the program).
 
     ``graphs``: by default, on a CUDA device, the chunk runs as a
     :class:`ChunkProgram` with no host read; ``graphs=False`` runs the eager
-    loop, its plain version, with one host read a step."""
-    out = _run_chunk(model, cache, cur_tokens, positions, active, num_steps, eos, False, graphs)
+    loop, its plain version, with one host read a step. ``static``: the
+    program runs in a cache of its own, the caller's copied in and the
+    columns made valid copied back (see :class:`ChunkProgram`), for a caller
+    whose cache is new at every request."""
+    out = _run_chunk(model, cache, cur_tokens, positions, active, num_steps, eos, False, graphs,
+                     static, (do_sample, temperature, generator))
     return out if return_steps else out[:4]
 
 
@@ -370,6 +413,9 @@ def decode_chunk_aligned(
     active: torch.Tensor,  # [S] bool
     num_steps: int,
     eos: Optional[int] = None,
+    do_sample: bool = False,
+    temperature: float = 1.0,
+    generator: Optional[torch.Generator] = None,
     graphs: Optional[bool] = None,
     return_steps: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, KVCache]:
@@ -383,8 +429,10 @@ def decode_chunk_aligned(
     max(lens[active]) + num_steps <= capacity (the batcher falls back to
     :func:`decode_chunk` near capacity). The softmax visits the columns in
     another order than the scatter chunk's, so logits may differ in the last
-    place. ``graphs`` and ``return_steps`` as for :func:`decode_chunk`."""
-    out = _run_chunk(model, cache, cur_tokens, positions, active, num_steps, eos, True, graphs)
+    place. ``do_sample``, ``temperature``, ``generator``, ``graphs`` and
+    ``return_steps`` as for :func:`decode_chunk`."""
+    out = _run_chunk(model, cache, cur_tokens, positions, active, num_steps, eos, True, graphs,
+                     sampler=(do_sample, temperature, generator))
     return out if return_steps else out[:4]
 
 
@@ -402,6 +450,9 @@ def decode_chunk_spec(
     eos: int,
     k_draft: int = 7,
     ngram: int = 3,
+    graphs: Optional[bool] = None,
+    return_steps: bool = False,
+    static: bool = False,
 ):
     """A speculative chunk (serving.py:320-410): up to ``num_iters`` verify
     forwards ([S, k_draft + 1] each, ``bagel.verify_block``), each emitting 1
@@ -410,23 +461,42 @@ def decode_chunk_spec(
     ``last`` token has no kv yet, and the next chunk of either flavour
     forwards it. A slot freezes (no lens or position advance) once it has
     emitted ``budget`` tokens or eos; the chunk ends early when no slot is
-    live (the one host read of an iteration). ``hist`` is updated in place.
+    live. ``hist`` is updated in place.
+
+    ``graphs``: by default, on a CUDA device, a ``bagel.SpecProgram``
+    (``num_iters`` replays with no host read, one a replay with one slot)
+    over the pool's own arrays and ``hist``, keyed by their storage; with
+    ``static`` over buffers of their shape, the caller's copied in and the
+    columns made valid copied back, for a caller whose cache and history
+    are new at every request. ``graphs=False``: the eager loop, its plain
+    version, with one host read an iteration.
 
     Returns (tokens [S, num_iters * (k_draft + 1)], counts [S], fin [S],
-    last [S], positions [S], cache, hist, hlen): ``tokens[:counts]`` holds
-    no eos, and ``fin`` says whether a slot stopped at eos."""
+    last [S], positions [S], cache, hist, hlen), and with ``return_steps``
+    the verify forwards run (an int, or a 0-dim device tensor from the
+    program): ``tokens[:counts]`` holds no eos, and ``fin`` says whether a
+    slot stopped at eos."""
+    from unimedvl_tpu_torch.inference import programs
+
+    active = active.to(torch.bool)
+    if programs.use_graphs(graphs, cur_tokens.device, model):
+        prog = bagel.SpecProgram.get(model, cache, hist, k_draft, ngram, eos, num_iters,
+                                     chunk=True, static=static)
+        out = prog.run_chunk(cache, cur_tokens, positions, active,
+                             budget.to(device=cur_tokens.device, dtype=torch.int32), hist, hlen)
+        return out if return_steps else out[:8]
     S = cur_tokens.shape[0]
     dev = cur_tokens.device
     K = k_draft
     W = num_iters * (K + 1)
     out = torch.zeros((S, W + K + 1), dtype=torch.int32, device=dev)  # windowed-write margin
-    active = active.to(torch.bool)
     budget = budget.to(device=dev, dtype=torch.int32)
     fin = torch.zeros(S, dtype=torch.bool, device=dev)
     cursor = torch.zeros(S, dtype=torch.int32, device=dev)
     cur = cur_tokens.to(torch.int32)
     pos = positions.to(torch.int64)
     hlen = hlen.to(torch.int32)
+    n = 0
     for _ in range(num_iters):
         live = active & ~fin & (cursor < budget)
         if not bool(live.any()):  # the one host read of an iteration
@@ -446,7 +516,9 @@ def decode_chunk_spec(
         cursor = cursor + E
         pos = pos + E
         hlen = hlen + E
-    return out[:, :W], cursor, fin, cur, pos.to(positions.dtype), cache, hist, hlen
+        n += 1
+    got = (out[:, :W], cursor, fin, cur, pos.to(positions.dtype), cache, hist, hlen)
+    return got + (n,) if return_steps else got
 
 
 @dataclasses.dataclass
@@ -532,9 +604,10 @@ class ContinuousBatcher:
         already a rank's shard of it; a ``pipeline`` then has the same mesh
         and its shard serves both. Not with ``pool_ladder``. ``graphs``: the
         decode chunks' route (``inference.programs.use_graphs``): by default a
-        captured :class:`ChunkProgram` on a CUDA device without a mesh, one
-        host read a chunk; False the eager loop, one host read a step. The
-        speculative chunks are eager."""
+        captured :class:`ChunkProgram` (a speculative chunk: a
+        ``bagel.SpecProgram``) on a CUDA device without a mesh, one host read
+        a chunk; False the eager loops, one host read a step or a verify
+        forward."""
         if spec_decode and pool_ladder:
             raise ValueError("pool_ladder and spec_decode are not composed (nor in the JAX "
                              "batcher)")
@@ -1276,18 +1349,21 @@ class ContinuousBatcher:
     def _spec_round(self, st, eos, pool_slots, active, cur, pos, t0) -> None:
         """The round's decode as one :func:`decode_chunk_spec` of up to
         ``chunk`` verify forwards, each slot's budget its remaining tokens,
-        and its host bookkeeping (serving.py:1280-1314)."""
+        and its host bookkeeping (serving.py:1280-1314). ``decode_steps``
+        counts the verify forwards run."""
         budget = np.asarray([max(s.remaining, 0) if s.request_id is not None else 0
                              for s in pool_slots], np.int32)
         mine = slice(self._slot_lo, self._slot_lo + self._slot_n)
-        tokens, counts, fin, last, new_pos, self.cache, self._hist, self._hlen = \
+        tokens, counts, fin, last, new_pos, self.cache, self._hist, self._hlen, n = \
             decode_chunk_spec(
                 self.model, self.cache, self._tensor(cur[mine]), self._tensor(pos[mine]),
                 self._tensor(active[mine]), self._tensor(budget[mine]), self._hist, self._hlen,
-                self.chunk, eos, k_draft=self.spec_k, ngram=self.spec_ngram)
+                self.chunk, eos, k_draft=self.spec_k, ngram=self.spec_ngram, graphs=self.graphs,
+                return_steps=True)
         tokens, counts, fin, last, new_pos = (
             self._gather_slots(t).cpu().numpy()
             for t in (tokens, counts, fin.to(torch.int32), last, new_pos))  # the host read
+        st["decode_steps"] += int(n)
         st["decode_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         for i, slot in enumerate(pool_slots):

@@ -308,11 +308,35 @@ def prefill_vit_group(
     return cache
 
 
+def _exp_noise(like: torch.Tensor, generator) -> torch.Tensor:
+    """``q ~ Exp(1)`` of ``like``'s shape and dtype from ``generator`` (the
+    default generator of its device when None): a sampled step's draw."""
+    return torch.empty_like(like).exponential_(1, generator=generator)
+
+
 def _next_token(logits, do_sample: bool, temperature: float, generator) -> torch.Tensor:
+    """Every stream's next token, int32 [S]: the argmax, or one draw of
+    ``softmax(logits / temperature)`` made as ``torch.multinomial`` makes
+    one (``argmax(probs / q)``, ``q`` from :func:`_exp_noise`), so that the
+    same generator state gives the same tokens, without its sanity checks,
+    which read the probabilities on the host and could not be captured."""
     if do_sample:
         probs = torch.softmax(logits / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+        return torch.argmax(probs / _exp_noise(probs, generator), dim=-1).to(torch.int32)
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _sampler(do_sample: bool, temperature: float, generator, device: torch.device) -> tuple:
+    """The sampling options a decode program bakes in: (do_sample,
+    temperature, the generator, resolved to its device's default when None;
+    the key's part: the generator by identity, which the program holds, so
+    the identity is not reused while it lives)."""
+    if not do_sample:
+        return False, 1.0, None, (False,)
+    if generator is None:
+        generator = (torch.cuda.default_generators[device.index] if device.type == "cuda"
+                     else torch.default_generator)
+    return True, float(temperature), generator, (True, float(temperature), id(generator))
 
 
 @torch.no_grad()
@@ -338,23 +362,24 @@ def generate_text(
     base + max_length columns.
 
     ``graphs`` (``inference.programs.use_graphs``): by default, on a CUDA
-    device, greedy decoding runs as a captured device program
+    device, the decode runs as a captured device program
     (:class:`DecodeProgram`, the JAX package's jitted ``while_loop``), and
     the caller's cache is copied into the program's own and left as it was;
     ``graphs=False`` runs the eager loop below, the program's plain version,
-    with one eos check per step. Sampled decoding (``do_sample``) runs the
-    eager loop by design: a captured ``torch.multinomial`` would need the
-    generator registered with the graph, which is not done yet.
+    with one eos check per step. ``do_sample`` draws every step from
+    ``generator`` (the device's default when None) as :func:`_next_token`
+    draws, by either route: the same tokens from the same generator state,
+    which both routes advance alike.
 
     Returns (tokens [S, max_length] int32 — starting with the start token,
     excluding eos, padded with -1; lengths [S]).
     """
     from unimedvl_tpu_torch.inference import programs
 
-    if programs.use_graphs(graphs, start_tokens.device, model,
-                           "sampled decoding runs eagerly" if do_sample else None):
-        return DecodeProgram.get(model, cache, start_tokens.shape[0], max_length, eos_id).run(
-            cache, start_tokens, positions)
+    if programs.use_graphs(graphs, start_tokens.device, model):
+        prog = DecodeProgram.get(model, cache, start_tokens.shape[0], max_length, eos_id, False,
+                                 do_sample, temperature, generator)
+        return prog.run(cache, start_tokens, positions)[:2]
     lm = model.language_model
     S = start_tokens.shape[0]
     device = start_tokens.device
@@ -384,12 +409,14 @@ def _static_like(cache: KVCache) -> KVCache:
     return cache._map(torch.zeros_like, torch.zeros_like, torch.zeros_like(cache.lens))
 
 
+def _cache_arrays(cache: KVCache) -> list:
+    return [t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None]
+
+
 def _copy_cache(dst: KVCache, src: KVCache) -> None:
     """``src``'s values, scales and lens into ``dst``'s storage."""
-    for d, s in ((dst.k, src.k), (dst.v, src.v), (dst.k_scale, src.k_scale),
-                 (dst.v_scale, src.v_scale), (dst.lens, src.lens)):
-        if d is not None:
-            d.copy_(s)
+    for d, s in zip(_cache_arrays(dst) + [dst.lens], _cache_arrays(src) + [src.lens]):
+        d.copy_(s)
 
 
 def _cache_kind(cache: KVCache) -> tuple:
@@ -397,35 +424,85 @@ def _cache_kind(cache: KVCache) -> tuple:
             cache.lens.dtype, cache.k.device)
 
 
+def static_cache(cache: KVCache) -> KVCache:
+    """The cache of ``cache``'s shape, dtype and width that device programs
+    copy their caller's into at every call (``programs.static_buffer``): one
+    a kind, shared by every such program."""
+    from unimedvl_tpu_torch.inference import programs
+
+    return programs.static_buffer(("cache",) + _cache_kind(cache), lambda: _static_like(cache))
+
+
+def _window(lo: torch.Tensor, hi: torch.Tensor, width: int, end: int):
+    """(rows, cols, keep) [S, width] of each stream's columns [lo, hi),
+    ``hi - lo <= width``: the window's columns past ``end`` are clamped onto
+    its last one, where every copy then writes the same value."""
+    S = lo.shape[0]
+    cols = (lo.to(torch.int64)[:, None] + torch.arange(width, device=lo.device)).clamp_max(end - 1)
+    keep = (cols >= lo.to(torch.int64)[:, None]) & (cols < hi.to(torch.int64)[:, None])
+    return torch.arange(S, device=lo.device)[:, None].expand(S, width), cols, keep
+
+
+def _copy_columns(dst: KVCache, src: KVCache, lo: torch.Tensor, hi: torch.Tensor,
+                  width: int) -> None:
+    """Columns [lo[s], hi[s]) of every stream of ``src``'s values and scales
+    into ``dst``'s, in place: what a program's steps made valid in its own
+    cache, into its caller's; ``hi - lo <= width``."""
+    rows, cols, keep = _window(lo, hi, width, dst.capacity)
+    for d, s in zip(_cache_arrays(dst), _cache_arrays(src)):
+        k = keep.view(*keep.shape, *(1,) * (d.dim() - 2))  # [S, width, L, Hk(, D)]
+        d[:, rows, :, cols] = torch.where(k, s[:, rows, :, cols], d[:, rows, :, cols])
+
+
+def _copy_ids(dst: torch.Tensor, src: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+              width: int) -> None:
+    """Columns [lo[s], hi[s]) of each row of ``src`` [S, HL] into ``dst``."""
+    rows, cols, keep = _window(lo, hi, width, dst.shape[1])
+    dst[rows, cols] = torch.where(keep, src[rows, cols], dst[rows, cols])
+
+
 class DecodeProgram:
-    """:func:`generate_text`'s greedy loop as a device program: one captured
-    graph is one decode step over static buffers (``inference/programs.py``).
-    The loop state lives on the device: ``step`` (0-dim int32), ``cur``,
-    ``pos``, ``done``, the output tokens ``out`` and ``go = (step <
-    max_length) & ~all(done)``, the JAX ``cond``, which gates every state
-    update; the step's kv column ``base + step`` is computed in the graph
-    into the 0-dim int32 band K2 / K2-int8 read without a copy. The cache is
-    the program's own, one per shape, dtype and width (the caller's copied in
-    at every call: 323 MB read and written at M 5632 in bf16, about 0.2 ms at
-    3.35 TB/s), so one program serves every request whose cache has its
-    shape, and the caller's cache is never written.
+    """The decode loops of :func:`generate_text` (the aligned-column decode)
+    and, with ``kept``, of :func:`generate_text_ctx` (each stream written at
+    its own lens) as a device program: one captured graph is one decode step
+    over static buffers (``inference/programs.py``). The loop state lives on
+    the device: ``step`` (0-dim int32), ``cur``, ``pos``, ``done``, the output
+    tokens ``out``, the kept decode's ``lens`` and ``go = (step < max_length)
+    & ~all(done)``, the JAX ``cond``, which gates every state update. The
+    aligned step's kv column ``base + step`` is computed in the graph into
+    the 0-dim int32 band K2 / K2-int8 read without a copy; the kept step
+    writes each stream at its ``lens`` (the band ``(lens, lens)``) with
+    ``q_valid = ~done``, and ``lens`` advances on the device. A sampled
+    program draws from its generator, which the graph registers.
+
+    The cache is the programs' shared one of its shape, dtype and width
+    (:func:`static_cache`; the caller's copied in at every call: 323 MB read
+    and written at M 5632 in bf16, about 0.2 ms at 3.35 TB/s), so one program
+    serves every request whose cache has its shape: a chat turn, whose
+    context is new every turn, captures nothing anew. The aligned decode
+    never writes the caller's cache; the kept decode copies the columns its
+    steps made valid, [lens, new lens) of each stream, back into the caller's
+    storage, where the eager loop writes them.
 
     The host reads ``go`` after every replay (R = 1: a blocking 1-byte read,
     tens of microseconds beside a step of several milliseconds), so the
-    program never runs a step the eager loop would not, and never more than
-    ``max_length`` replays. Keyed by S, ``max_length``, eos, the cache's
-    shape, dtype and width, and the LLM's weights."""
+    program never runs a step the eager loop would not, never more than
+    ``max_length`` replays, and a sampled program draws what the eager loop
+    draws. Keyed by the flavour, S, ``max_length``, eos, the sampling options
+    (:func:`_sampler`), the cache's shape, dtype and width, and the LLM's
+    weights."""
 
-    def __init__(self, model: Bagel, cache: KVCache, S: int, max_length: int, eos_id: int):
+    def __init__(self, model: Bagel, cache: KVCache, S: int, max_length: int, eos_id: int,
+                 kept: bool, sampler: tuple):
         from unimedvl_tpu_torch.inference import programs
 
         dev = cache.k.device
         self._model = programs.model_ref(model)
-        self.max_length, self.eos_id = max_length, int(eos_id)
-        # one static cache per shape, dtype and width, shared by the decode programs
-        self.cache = programs.static_buffer(("decode",) + _cache_kind(cache),
-                                            lambda: _static_like(cache))
+        self.max_length, self.eos_id, self.kept = max_length, int(eos_id), kept
+        self.do_sample, self.temperature, self.generator, _ = sampler
+        self.cache = static_cache(cache)
         i32 = dict(dtype=torch.int32, device=dev)
+        self.lens = torch.zeros(S, dtype=cache.lens.dtype, device=dev)
         self.base = torch.zeros((), **i32)
         self.step = torch.zeros((), **i32)
         self.cur = torch.zeros(S, **i32)
@@ -436,15 +513,20 @@ class DecodeProgram:
         self.cols = torch.arange(max_length, **i32)
         self.graph = programs.Graph(
             "decode", self._body, dev, rows=S,
-            keep=(self.step, self.cur, self.pos, self.done, self.go, self.out))
+            keep=(self.step, self.cur, self.pos, self.done, self.go, self.out, self.lens),
+            generators=[self.generator] if self.do_sample and dev.type == "cuda" else [])
 
     @classmethod
-    def get(cls, model: Bagel, cache: KVCache, S: int, max_length: int, eos_id: int):
+    def get(cls, model: Bagel, cache: KVCache, S: int, max_length: int, eos_id: int,
+            kept: bool = False, do_sample: bool = False, temperature: float = 1.0,
+            generator: Optional[torch.Generator] = None):
         from unimedvl_tpu_torch.inference import programs
 
-        key = ("decode", S, max_length, int(eos_id), _cache_kind(cache),
+        sampler = _sampler(do_sample, temperature, generator, cache.k.device)
+        key = ("decode", kept, S, max_length, int(eos_id), sampler[3], _cache_kind(cache),
                programs.weights_key(model.language_model))
-        return programs.lookup(key, lambda: cls(model, cache, S, max_length, eos_id),
+        return programs.lookup(key, lambda: cls(model, cache, S, max_length, eos_id, kept,
+                                                sampler),
                                reads=(model.language_model,), owner=model.language_model)
 
     def graphs(self):
@@ -456,9 +538,16 @@ class DecodeProgram:
         self.out.copy_(torch.where(go & (self.cols == self.step),
                                    torch.where(self.done, -1, self.cur)[:, None], self.out))
         x = mot.embed_tokens(lm, self.cur)[:, None, :]
-        h, _ = lm.model(x, self.pos[:, None], self.cache, causal=True,
-                        decode_cols=(self.base, self.base + self.step))
-        nxt = torch.argmax(mot.lm_head(lm, h[:, 0]), dim=-1).to(torch.int32)
+        if self.kept:
+            h, cache = lm.model(x, self.pos[:, None],
+                                dataclasses.replace(self.cache, lens=self.lens), causal=True,
+                                q_valid=~self.done[:, None])
+            self.lens.copy_(torch.where(go, cache.lens, self.lens))
+        else:
+            h, _ = lm.model(x, self.pos[:, None], self.cache, causal=True,
+                            decode_cols=(self.base, self.base + self.step))
+        nxt = _next_token(mot.lm_head(lm, h[:, 0]), self.do_sample, self.temperature,
+                          self.generator)
         self.cur.copy_(torch.where(go, nxt, self.cur))
         self.done.copy_(torch.where(go, self.done | (nxt == self.eos_id), self.done))
         self.pos.add_(go.to(torch.int64))
@@ -466,7 +555,10 @@ class DecodeProgram:
         self.go.copy_((self.step < self.max_length) & ~self.done.all())
 
     def run(self, cache: KVCache, start_tokens: torch.Tensor, positions: torch.Tensor):
+        """The loop from the given state: (tokens, lengths, and for the kept
+        decode the caller's cache with its new lens, else None)."""
         _copy_cache(self.cache, cache)
+        self.lens.copy_(cache.lens)
         self.base.copy_(cache.lens.max())
         self.step.zero_()
         self.cur.copy_(start_tokens)
@@ -479,7 +571,11 @@ class DecodeProgram:
             if not bool(self.go):  # the host's one read of a step
                 break
         out = self.out.clone()
-        return out, (out >= 0).sum(dim=1)
+        lengths = (out >= 0).sum(dim=1)
+        if not self.kept:
+            return out, lengths, None
+        _copy_columns(cache, self.cache, cache.lens, self.lens, self.max_length)
+        return out, lengths, dataclasses.replace(cache, lens=self.lens.clone())
 
 
 @torch.no_grad()
@@ -493,6 +589,7 @@ def generate_text_ctx(
     do_sample: bool = False,
     temperature: float = 1.0,
     generator: Optional[torch.Generator] = None,
+    graphs: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
     """The contiguous-cache decode (bagel.py:430-496): like
     :func:`generate_text`, but each stream appends its kv at its own
@@ -502,9 +599,19 @@ def generate_text_ctx(
     again. The cache then holds the start token and every emitted token but
     eos (eos is never forwarded); a finished stream stops advancing
     (``q_valid = ~done``). The kv lands in the caller's cache tensors past
-    its lens; the returned lens are new tensors.
+    its lens; the returned lens are new tensors. ``graphs``, ``do_sample``
+    and ``generator`` as for :func:`generate_text`: by default on a CUDA
+    device the kept :class:`DecodeProgram`, which copies the columns [lens,
+    new lens) back into the caller's tensors (what the eager loop wrote past
+    them is not: nothing reads it).
 
     Returns (tokens [S, max_length] padded with -1, lengths [S], cache)."""
+    from unimedvl_tpu_torch.inference import programs
+
+    if programs.use_graphs(graphs, start_tokens.device, model):
+        prog = DecodeProgram.get(model, cache, start_tokens.shape[0], max_length, eos_id, True,
+                                 do_sample, temperature, generator)
+        return prog.run(cache, start_tokens, positions)
     lm = model.language_model
     S = start_tokens.shape[0]
     device = start_tokens.device
@@ -609,6 +716,202 @@ def verify_block(model: Bagel, cache: KVCache, cur, draft, pos, live):
     return torch.argmax(logits, dim=-1).reshape(S, K + 1).to(torch.int32), cache
 
 
+class SpecProgram:
+    """The speculative decode loops as a device program: one captured graph
+    ("verify") is one iteration of :func:`generate_text_spec` or, with
+    ``chunk``, of ``serving.decode_chunk_spec``: the drafts (the
+    ``propose_drafts`` the program was built with), the [S, k + 1] verify
+    forward (:func:`verify_block`, K1a at T = k + 1), the acceptance
+    (:func:`spec_accept`), the two windowed writes of the tokens and of the
+    history, and the updates of ``lens``, ``cur``, ``pending``, ``cursor``,
+    ``pos``, ``hlen`` and the forward counter ``it``, all on the device and
+    gated by ``go = (it < iters) & any(live)``, ``live = active & ~fin &
+    (cursor < limit)``: the JAX ``cond``s, with ``limit`` the answer's
+    ``max_length`` or the chunk's budgets, ``active`` every stream or the
+    chunk's slots, ``iters`` ``max_length`` (never binding) or the chunk's
+    ``num_iters``. A second graph ("decode") is :func:`generate_text_spec`'s
+    fix-up forward, the pending tokens' kv at T = 1.
+
+    Replays past the exit change nothing the caller reads: no stream is
+    live, so nothing is accepted and no lens, position or cursor moves, and
+    the token and history windows are written only under ``go``. The verify
+    still writes its kv window at [lens, lens + k + 1) of each stream, past
+    its valid columns, inside the room the capacity contract reserves
+    (lens + max_length + k + 1 for :func:`generate_text_spec`); with S > 1 a
+    window that runs past the capacity is dropped whole
+    (``qwen2_mot._write_kv``, as :func:`_scatter_row_window` drops a row),
+    but one stream's is clamped into the cache, so with S = 1 the host reads
+    ``go`` before every replay and runs none past the exit.
+
+    Storage: with ``static`` the cache and the history are buffers of their
+    shape shared by the programs (:func:`static_cache`), the caller's copied
+    in at every call and the columns the call made valid copied back ([lens,
+    new lens); of the history [hlen, new hlen + k + 1), where the eager loop
+    wrote, since drafts read past hlen), so that a caller whose storage is
+    new at every request (a chat, a stream) captures nothing anew; otherwise the
+    program writes the caller's own (the batcher's pool and history, which
+    persist across rounds) and is keyed by their storage.
+    :func:`generate_text_spec` reads ``go`` before every replay (one host
+    read an iteration, as its eager loop; at most ``max_length`` replays); a
+    chunk of S > 1 replays ``num_iters`` times with no host read."""
+
+    def __init__(self, model: Bagel, cache: KVCache, hist: torch.Tensor, k_draft: int,
+                 ngram: int, eos_id: int, iters: int, chunk: bool, static: bool, propose):
+        from unimedvl_tpu_torch.inference import programs
+
+        S, HL = hist.shape
+        dev = cache.k.device
+        self._model = programs.model_ref(model)
+        self.S, self.K, self.ngram, self.eos = S, k_draft, ngram, int(eos_id)
+        self.iters, self.chunk, self.static, self.propose = iters, chunk, static, propose
+        # a chunk's pool is its caller's, held only while it runs; its history is
+        # the caller's too, held by the program (the key holds its storage)
+        self.cache = static_cache(cache) if static else None
+        self.hist = programs.static_buffer(
+            ("hist", S, HL, dev), lambda: torch.zeros((S, HL), dtype=torch.int32, device=dev)
+        ) if static else hist
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.width = iters * (k_draft + 1) if chunk else iters  # tokens a call can emit
+        self.lens = torch.zeros(S, dtype=cache.lens.dtype, device=dev)
+        self.active = torch.ones(S, dtype=torch.bool, device=dev)
+        self.limit = torch.zeros(S, **i32)
+        self.fin = torch.zeros(S, dtype=torch.bool, device=dev)
+        self.pending = torch.zeros(S, dtype=torch.bool, device=dev)
+        self.cursor = torch.zeros(S, **i32)
+        self.cur = torch.zeros(S, **i32)
+        self.pos = torch.zeros(S, dtype=torch.int64, device=dev)
+        self.hlen = torch.zeros(S, **i32)
+        self.it = torch.zeros((), **i32)
+        self.go = torch.ones((), dtype=torch.bool, device=dev)
+        self.out = torch.zeros((S, self.width + k_draft + 1), **i32)  # windowed-write margin
+        self.verify = programs.Graph("verify", self._body, dev, rows=S, keep=(
+            self.lens, self.fin, self.pending, self.cursor, self.cur, self.pos, self.hlen,
+            self.it, self.go, self.out, self.hist))
+        self.fixup = None if chunk else programs.Graph("decode", self._fixup, dev, rows=S,
+                                                       keep=(self.lens,))
+
+    @classmethod
+    def get(cls, model: Bagel, cache: KVCache, hist: torch.Tensor, k_draft: int, ngram: int,
+            eos_id: int, iters: int, chunk: bool, static: bool = True):
+        from unimedvl_tpu_torch.inference import programs
+
+        propose = globals()["propose_drafts"]  # a stand-in swapped in captures its own graph
+        key = ("spec", chunk, static, iters, k_draft, ngram, int(eos_id), tuple(hist.shape),
+               propose, programs.weights_key(model.language_model))
+        reads = (model.language_model,)
+        if static:
+            key += (_cache_kind(cache),)
+        else:
+            arrays = _cache_arrays(cache) + [hist]
+            key += (cache.kv_bits, cache.lens.dtype, programs.tensors_key(arrays))
+            reads += (arrays,)
+        return programs.lookup(key, lambda: cls(model, cache, hist, k_draft, ngram, eos_id, iters,
+                                                chunk, static, propose),
+                               reads=reads, owner=model.language_model)
+
+    def graphs(self):
+        return [g for g in (self.verify, self.fixup) if g is not None]
+
+    def _live(self) -> torch.Tensor:
+        return self.active & ~self.fin & (self.cursor < self.limit)
+
+    def _body(self) -> None:
+        go = self.go
+        live = go & self._live()
+        draft = self.propose(self.hist, self.hlen, self.ngram, self.K)
+        # the eager loops' verify rows: a chunk's live slots; generate_text_spec's
+        # every stream not done (a full one's too)
+        g, _ = verify_block(self._model(), dataclasses.replace(self.cache, lens=self.lens),
+                            self.cur, draft, self.pos, live if self.chunk else go & ~self.fin)
+        E, fin, emit, last = spec_accept(draft, g, live, self.cursor, self.limit, self.eos)
+        self.fin.copy_(self.fin | fin)
+        self.out.copy_(torch.where(go, _scatter_row_window(self.out.clone(), emit, self.cursor),
+                                   self.out))
+        self.hist.copy_(torch.where(
+            go, _scatter_row_window(self.hist.clone(), emit.clamp_min(0), self.hlen), self.hist))
+        self.lens.add_(torch.where(live, E.clamp_min(1), 0).to(self.lens.dtype))
+        self.cur.copy_(torch.where(E >= 1, last, self.cur))
+        self.pending.copy_(torch.where(live, E >= 1, self.pending))
+        self.cursor.add_(E)
+        self.pos.add_(E)
+        self.hlen.add_(E)
+        self.it.add_(go.to(torch.int32))
+        self.go.copy_((self.it < self.iters) & self._live().any())
+
+    def _fixup(self) -> None:
+        lm = self._model().language_model
+        x = mot.embed_tokens(lm, self.cur)[:, None, :]
+        lm.model(x, self.pos[:, None], dataclasses.replace(self.cache, lens=self.lens),
+                 causal=True, q_valid=self.pending[:, None])
+        self.lens.add_(self.pending.to(self.lens.dtype))
+
+    def _loop(self, cache: KVCache, hist: torch.Tensor, cur, positions, hlen) -> None:
+        """Copies the caller's state in (its cache and history too, when
+        static) and runs the verify replays."""
+        if self.static:
+            _copy_cache(self.cache, cache)
+            self.hist.copy_(hist)
+        else:
+            self.cache = cache
+        self.lens.copy_(cache.lens)
+        self.cur.copy_(cur)
+        self.pos.copy_(positions)
+        self.hlen.copy_(hlen)
+        self.fin.zero_()
+        self.pending.fill_(True)  # the start token's kv is not written yet
+        self.it.zero_()
+        self.go.copy_(self._live().any() & (self.iters > 0))
+        if self.S == 1 or not self.chunk:
+            for _ in range(self.iters):
+                if not bool(self.go):  # the host's one read of an iteration
+                    break
+                self.verify.replay()
+        else:
+            for _ in range(self.iters):
+                self.verify.replay()
+
+    def _copy_back(self, cache: KVCache, hist: torch.Tensor, hlen0: torch.Tensor) -> None:
+        if self.static:
+            _copy_columns(cache, self.cache, cache.lens, self.lens, self.width)
+            # the history as the eager loop leaves it, its last window's zeros too:
+            # the next call's drafts may read past hlen
+            _copy_ids(hist, self.hist, hlen0.to(self.hlen.device), self.hlen + self.K + 1,
+                      self.width + self.K + 1)
+        else:
+            self.cache = None
+
+    def generate(self, cache: KVCache, start_tokens, positions, hist_ids, hist_lens):
+        """:func:`generate_text_spec`'s loop and fix-up forward; its result,
+        ``n_forwards`` the device counter (a 0-dim tensor)."""
+        self.active.fill_(True)
+        self.limit.fill_(self.iters)
+        self.out.fill_(-1)
+        self.out[:, 0] = start_tokens
+        self.cursor.fill_(1)  # slot 0 holds the start token
+        self._loop(cache, hist_ids, start_tokens, positions, hist_lens)
+        self.fixup.replay()
+        _copy_columns(cache, self.cache, cache.lens, self.lens, self.width)
+        out = self.out[:, :self.iters].clone()
+        return (out, (out >= 0).sum(dim=1), dataclasses.replace(cache, lens=self.lens.clone()),
+                self.it.clone())
+
+    def run_chunk(self, cache: KVCache, cur_tokens, positions, active, budget, hist, hlen):
+        """``serving.decode_chunk_spec``'s loop; its result and the verify
+        forwards run (a 0-dim tensor). ``hist`` is updated in place."""
+        self.active.copy_(active)
+        self.limit.copy_(budget)
+        self.out.zero_()
+        self.cursor.zero_()
+        try:
+            self._loop(cache, hist, cur_tokens, positions, hlen)
+        finally:
+            self._copy_back(cache, hist, hlen)
+        return (self.out[:, :self.width].clone(), self.cursor.clone(), self.fin.clone(),
+                self.cur.clone(), self.pos.to(positions.dtype, copy=True),
+                dataclasses.replace(cache, lens=self.lens.clone()), hist, self.hlen.clone(),
+                self.it.clone())
+
+
 @torch.no_grad()
 def generate_text_spec(
     model: Bagel,
@@ -621,22 +924,35 @@ def generate_text_spec(
     hist_lens: torch.Tensor,  # [S]
     k_draft: int = 7,
     ngram: int = 3,
-) -> Tuple[torch.Tensor, torch.Tensor, KVCache, int]:
+    graphs: Optional[bool] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache, object]:
     """Prompt-lookup speculative decode (bagel.py:547-674), greedy-exact
     against :func:`generate_text_ctx`: the same tokens, lengths and final
     cache, with ``k_draft`` drafts (:func:`propose_drafts`) verified per
-    forward (:func:`verify_block`). A Python loop with one host read an
-    iteration (is any stream still live); the acceptance stays on the
-    device. Streams freeze (no lens or position advance) once done or full.
-    After the loop one T = 1 forward (``q_valid = pending``) writes the kv of
-    each stream's newest accepted token, so that the cache holds every
-    emitted token as the plain decode's does.
+    forward (:func:`verify_block`). Streams freeze (no lens or position
+    advance) once done or full. After the loop one T = 1 forward
+    (``q_valid = pending``) writes the kv of each stream's newest accepted
+    token, so that the cache holds every emitted token as the plain decode's
+    does.
+
+    ``graphs`` (``inference.programs.use_graphs``): by default, on a CUDA
+    device, a :class:`SpecProgram` (one captured graph an iteration, the
+    fix-up forward another; the cache and the history copied into the
+    program's own, the columns made valid copied back); ``graphs=False``
+    the eager loop, its plain version: a Python loop with one host read an
+    iteration (is any stream still live), the acceptance on the device.
 
     ``hist_ids`` is not modified. HL must be >= max(hist_lens) + max_length
     + k_draft, and the cache must have room for lens + max_length + k_draft
     + 1 columns. Returns (tokens [S, max_length] with the start token and
     without eos, padded with -1; lengths [S]; the cache; the number of verify
-    forwards)."""
+    forwards: an int, or a 0-dim device tensor from the program)."""
+    from unimedvl_tpu_torch.inference import programs
+
+    if programs.use_graphs(graphs, start_tokens.device, model):
+        prog = SpecProgram.get(model, cache, hist_ids, k_draft, ngram, eos_id, max_length,
+                               chunk=False)
+        return prog.generate(cache, start_tokens, positions, hist_ids, hist_lens)
     S = start_tokens.shape[0]
     dev = start_tokens.device
     K = k_draft
@@ -1012,9 +1328,7 @@ class FlowProgram:
         self._model = programs.model_ref(model)
         self.cfg, self.G, self.n = cfg, G, n
         self.S1 = caches.k.shape[1] // G
-        # one static cache per shape, dtype and width, shared by the flow programs
-        self.caches = programs.static_buffer(("flow",) + _cache_kind(caches),
-                                             lambda: _static_like(caches))
+        self.caches = static_cache(caches)
         self.positions = torch.zeros_like(positions)
         C = model.config.llm.hidden_size
         self.dtype = lm.model.embed_tokens.weight.dtype
