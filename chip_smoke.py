@@ -1084,8 +1084,11 @@ def _chat_pass(inf: InterleaveInferencer, requests, images, graphed: bool):
     the later phases' gates in ``_CHAT_STEPS``). Returns (each request's row
     of times, each request's answer ids, the eager pass's top-2 per step).
     Stamps, synchronised: an eager forward at its embedding (its start), a
-    replay of the decode program at its end; the first replay of a graph
-    holds its capture, so ms per decode step leaves the first step out."""
+    replay of a prefill or decode program at its end; the first replay of a
+    graph holds its capture, so ms per decode step leaves the first step
+    out. ``ttft_s`` is PERF.md's "TTFT after image": from the end of the
+    image prefill to the end of the first decode step (the first answer
+    token chosen); ``ttft_from_start_s`` from the request's start."""
     stamps = []
 
     def stamp(module, args, output):
@@ -1095,7 +1098,7 @@ def _chat_pass(inf: InterleaveInferencer, requests, images, graphed: bool):
         stamps.append(time.perf_counter())
 
     def replayed(graph):
-        if graph.kind == "decode":
+        if graph.kind in ("decode", "prefill"):
             torch.cuda.synchronize()
             stamps.append(time.perf_counter())
 
@@ -1131,15 +1134,16 @@ def _chat_pass(inf: InterleaveInferencer, requests, images, graphed: bool):
             torch.cuda.synchronize()
             t_end = time.perf_counter()
             n_img = (h // 14) * (w // 14)
-            if graphed:  # stamps: image prefill, text prefill, then each replay's end
-                steps, first_end = len(stamps) - 2, stamps[2]
+            if graphed:  # stamps: each replay's end (image prefill, text prefill, decode steps)
+                steps, image_end, first_end = len(stamps) - 2, stamps[0], stamps[2]
                 ms_step = 1e3 * (stamps[-1] - stamps[2]) / max(1, steps - 1)
             else:  # stamps: image prefill, text prefill, then each decode step's start
-                steps, first_end = len(stamps) - 2, stamps[3]
+                steps, image_end, first_end = len(stamps) - 2, stamps[1], stamps[3]
                 ms_step = 1e3 * (t_end - stamps[3]) / max(1, steps - 1)
             rows.append(dict(
                 route="graphed" if graphed else "eager", image=f"{h}x{w}", image_tokens=n_img,
-                s_per_image=stamps[1] - t0, ttft_s=first_end - t0, decode_steps=steps,
+                s_per_image=image_end - t0, ttft_s=first_end - image_end,
+                ttft_from_start_s=first_end - t0, decode_steps=steps,
                 ms_per_decode_step=ms_step,
                 decode_tok_s=(steps - 1) / (t_end - first_end) if steps > 1 else None,
                 captures=programs.stats["captures"] - captures))
@@ -1155,7 +1159,7 @@ def _chat_pass(inf: InterleaveInferencer, requests, images, graphed: bool):
 
 def run_chat_requests(inf: InterleaveInferencer, requests, path: str, expected,
                       rows_out=None, graphed: bool = True, eager_requests=None,
-                      trace: bool = True) -> dict:
+                      trace: bool = True, warm: bool = False, all_rows=None) -> dict:
     """Chat requests (indices into REQUESTS) by the default route, the
     captured decode program, and then by the eager loop (``graphs=False``),
     the counters reset just before each pass; ``expected(forwards,
@@ -1170,10 +1174,14 @@ def run_chat_requests(inf: InterleaveInferencer, requests, path: str, expected,
     the eager pass runs, and its launches and rows are returned.
     ``eager_requests`` (default: all): the eager pass's requests, to bound
     the smoke's time; with fewer, each pass's launches are held to
-    ``expected`` of its own forwards. ``trace``: trace the graphed step."""
+    ``expected`` of its own forwards. ``trace``: trace the graphed step.
+    ``warm``: each request once by the graphed route first, untimed, so
+    that the graphed pass replays programs captured before it."""
     images = _images()
-    # warm-up request (cuBLAS handles, first launches), not counted or timed
-    inf.chat([images[2]], REQUESTS[2][2], max_length=2)
+    # warm-up (cuBLAS handles, first launches; with ``warm`` every program's capture),
+    # not counted or timed
+    for i in (requests if warm else [2]):
+        inf.chat([images[i]], REQUESTS[i][2], max_length=MAX_LENGTH if warm else 2)
     eager_requests = list(requests if eager_requests is None else eager_requests)
     launches, rows = {}, {}
     for graphed in (True, False) if graphed else (False,):
@@ -1212,7 +1220,90 @@ def run_chat_requests(inf: InterleaveInferencer, requests, path: str, expected,
         trace_decode_step(inf, requests[0], path)
     if rows_out is not None:
         rows_out.extend(rows[True])
+    if all_rows is not None:
+        all_rows.extend(rows[True] + rows[False])
     return launches[True]
+
+
+CONTEXT_REPS = 1  # timed builds of each context by each route (graphed: after its capture)
+
+
+def _chat_context(inf: InterleaveInferencer, i: int) -> list:
+    """chat's context of REQUESTS[i]: the ViT image, then the prompt."""
+    ctx = inf.update_context_image(_images()[i], inf.init_gen_context(), vae=False)
+    return [inf.update_context_text(REQUESTS[i][2], ctx)]
+
+
+def _same_contexts(case: str, got: list, want: list) -> None:
+    """Graphed contexts against eager ones: kv_len, rope, lens, and each
+    stream's values (and scales) on [0, lens), bit for bit."""
+    for g, w in zip(got, want):
+        a, b = g.cache, w.cache
+        same = (g.kv_len, g.rope) == (w.kv_len, w.rope) and torch.equal(a.lens, b.lens)
+        for s, n in enumerate(b.lens.tolist()):
+            for x, y in zip(serving._arrays(a), serving._arrays(b)):
+                if same and not torch.equal(x[:, s, :, :n], y[:, s, :, :n]):
+                    diff = (x[:, s, :, :n].float() - y[:, s, :, :n].float()).abs().max().item()
+                    print(f"  {case}: graphed vs eager context, max abs {diff}", flush=True)
+                    same = False
+        if not same:
+            raise SystemExit(f"chip_smoke: {case}: the graphed context build differs from the "
+                             "eager one")
+
+
+def check_context_builds(inf: InterleaveInferencer) -> list:
+    """Every context build of the chat and generation paths by its prefill
+    programs and eagerly (``graphs=False``): the three chat requests' (the
+    ViT image, then the prompt), the text-to-image request's and the
+    edit's (:func:`_gen_contexts`: text prefills, and the edit's VAE encode,
+    VAE and ViT images). Each route builds each case CONTEXT_REPS times
+    timed (the card waited for at both ends), the graphed route after an
+    untimed build (its captures); the graphed contexts must equal the eager ones
+    (:func:`_same_contexts`). Prints each case's seconds by route (median),
+    the captures, their seconds, the shared pool's bytes after them and the
+    live programs. Returns the rows."""
+    cases = [(f"chat {h}x{w}", partial(_chat_context, inf, i))
+             for i, (h, w, _p) in enumerate(REQUESTS)]
+    cases += [("text-to-image 512x512", partial(_gen_contexts, inf)),
+              ("edit 512x512", partial(_gen_contexts, inf, True))]
+    rows = []
+    for case, build in cases:
+        row, built = dict(card=CARD, case=case), {}
+        for route, graphs in (("graphed", None), ("eager", False)):
+            inf.graphs = graphs
+            captures, capture_s = programs.stats["captures"], programs.stats["capture_s"]
+            try:
+                if graphs is None:  # the programs' captures
+                    built[route] = build()
+                walls = []
+                for _ in range(CONTEXT_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    built[route] = build()
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+            finally:
+                inf.graphs = None
+            row[f"{route}_s"] = statistics.median(walls)
+            if graphs is None:
+                row["captures"] = programs.stats["captures"] - captures
+                row["capture_s"] = programs.stats["capture_s"] - capture_s
+        _same_contexts(case, built["graphed"], built["eager"])
+        row["equal"] = True
+        print(f"  context build {case}: {json.dumps(row)}", flush=True)
+        rows.append(row)
+    keys = {}
+    for name, mods in (("LLM", (inf.model.language_model,)),
+                       ("LLM + ViT", bagel._vit_modules(inf.model))):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            programs.weights_key(*mods)
+        keys[name] = 1e3 * (time.perf_counter() - t0) / 10
+    print(f"  context builds: graphs captured so far {programs.stats['captures']} in "
+          f"{programs.stats['capture_s']:.2f} s, the graph pool {programs.pool_bytes()} bytes "
+          f"after them, {len(programs.programs())} programs kept; host ms of a lookup's "
+          f"weights key {json.dumps(keys)} ({CARD})", flush=True)
+    return rows
 
 
 TRACE_STEPS = 8
@@ -1262,12 +1353,21 @@ def trace_decode_step(inf: InterleaveInferencer, request: int, path: str) -> dic
 
 
 def run_main_path(inf: InterleaveInferencer) -> dict:
-    """The bf16 chat path: three requests through K1a and K2."""
+    """The bf16 chat path: three requests through K1a and K2, each program
+    captured before the graphed pass; prints the warm rows side by side."""
     n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
-    return run_chat_requests(inf, range(len(REQUESTS)), "the chat path", lambda f, steps, imgs: {
-        "flash_block_attention": imgs * (n_vit + n_llm) + imgs * n_llm,
-        "decode_attention": steps * n_llm,
-    }, CHAT_ROWS)
+    rows = []
+    launches = run_chat_requests(
+        inf, range(len(REQUESTS)), "the chat path", lambda f, steps, imgs: {
+            "flash_block_attention": imgs * (n_vit + n_llm) + imgs * n_llm,
+            "decode_attention": steps * n_llm}, CHAT_ROWS, warm=True, all_rows=rows)
+    for route in ("graphed", "eager"):
+        for r in (r for r in rows if r["route"] == route):
+            print(f"  warm chat {r['image']} ({route}): s/image {r['s_per_image']:.4f}, TTFT "
+                  f"after the image {r['ttft_s']:.4f} s (from the start "
+                  f"{r['ttft_from_start_s']:.4f}), decode {r['decode_tok_s']:.1f} tok/s "
+                  f"({CARD})", flush=True)
+    return launches
 
 
 @contextlib.contextmanager
@@ -1839,8 +1939,9 @@ class ForwardCounter:
     launches a run must show follow from them. A captured device program's
     step counts at each replay (``programs.listeners``: a decode or chunk
     step is a decode step, a verify forward a prefill and a verify, a flow
-    step a denoise step), and the forwards of a graph's warm-up and capture
-    count nowhere."""
+    step a denoise step, a prefill program's the forwards its graph names:
+    its ViT forward of ``graph.rows`` images, its LLM prefills, gen-mode or
+    not), and the forwards of a graph's warm-up and capture count nowhere."""
 
     def __init__(self, model):
         self.decode = self.prefill = self.vit = self.verify = self.denoise = self.gen = 0
@@ -1853,7 +1954,13 @@ class ForwardCounter:
         programs.listeners.append(self._replay)
 
     def _replay(self, graph):
-        if graph.kind == "denoise":
+        if graph.kind == "prefill":
+            f = graph.forwards
+            self.vit += f.get("vit", 0)
+            self.vit_rows += [graph.rows] * f.get("vit", 0)
+            self.prefill += f.get("prefill", 0)
+            self.gen += f.get("gen", 0)
+        elif graph.kind == "denoise":
             self.denoise += 1
             self.gen += 1
         elif graph.kind == "verify":
@@ -1875,6 +1982,8 @@ class ForwardCounter:
             self.verify += args[0].shape[1] == SPEC_K + 1
 
     def _vit(self, module, args):
+        if programs.capturing():
+            return
         self.vit += 1
         self.vit_rows.append(args[0].shape[0])
 
@@ -2146,7 +2255,8 @@ def check_serving_logits(run: str, ref: InterleaveInferencer, engine,
 
 
 def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
-                k3_per_layer: int, k4_per_layer: int, spec: bool = False) -> dict:
+                k3_per_layer: int, k4_per_layer: int, spec: bool = False,
+                warm: bool = False) -> dict:
     """One serving run at the full width: ``ContinuousBatcher`` over
     ``ref.model`` (pool of 16 x 6144 columns, chunks of 16, the ladder down to
     ``min_pool``, an int8 pool when ``ref`` has an int8 cache). First the
@@ -2165,7 +2275,11 @@ def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
     limit). The workload runs twice: by the default route, the captured
     chunk programs (the run's launches and answers), then on an eager
     batcher (``graphs=False``), whose tokens and decode steps (with ``spec``
-    verify forwards) run the graphed run must show."""
+    verify forwards) run the graphed run must show. With ``warm`` the eager
+    batcher runs first and its admission blocks are built again by their
+    programs (:func:`_admission_recorded`, :func:`_capture_admission`): the
+    graphed run replays programs captured before it, and each program's block
+    is held to the eager one."""
     kv_quantized = ref.kv_quantized
     first, later = serving_workload(run)
     options = (dict(spec_decode=True, spec_k=SPEC_K, spec_ngram=SPEC_NGRAM) if spec
@@ -2181,11 +2295,25 @@ def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
             SERVE_CHUNK, ref.vit_transform, SEED, kv_quantized=kv_quantized, graphs=graphs,
             **options)
 
+    # the logits check admits eagerly: its groups' shapes are not the run's, and the
+    # admission programs are held to the eager blocks below
     gap_limit = NEAR_TIE_FACTOR * check_serving_logits(
-        run, ref, engine, ("verify",) if spec else ("aligned", "scatter"))
-    routes = [("graphed", None), ("eager", False)]
-    runs = {route: _serve_waves(run, ref, engine(graphs), first, later, min_pool, spec, route,
-                                k3_per_layer, k4_per_layer) for route, graphs in routes}
+        run, ref, lambda: engine(False), ("verify",) if spec else ("aligned", "scatter"))
+    # with ``warm`` the eager run comes first: its admission blocks, built again by their
+    # programs (captured there), make the graphed run's admission warm
+    routes = [("eager", False), ("graphed", None)] if warm else [("graphed", None),
+                                                                 ("eager", False)]
+    runs = {}
+    for route, graphs in routes:
+        recording = warm and route == "eager"
+        with (_admission_recorded() if recording else contextlib.nullcontext()) as calls:
+            runs[route] = _serve_waves(run, ref, engine(graphs), first, later, min_pool, spec,
+                                       route, k3_per_layer, k4_per_layer)
+        if recording:
+            blocks = _capture_admission(calls)
+            print(f"  run {run}: the eager run's admission blocks by their programs, captured "
+                  f"now: every array equal to the eager block's, {json.dumps(blocks)}",
+                  flush=True)
     launches, rids, got_ids, row = runs["graphed"]
     _, eager_rids, eager_ids, eager_row = runs["eager"]
     same = [r for r, e in zip(rids, eager_rids) if got_ids.get(r) == eager_ids.get(e)]
@@ -2197,7 +2325,8 @@ def run_serving(name: str, ref: InterleaveInferencer, run: str, min_pool: int,
           f"{row[forwards] - ran} past a chunk's exit), {eager_row[forwards]} eager; emitted "
           f"tok/s {row['emitted_tok_s']:.1f} graphed, {eager_row['emitted_tok_s']:.1f} eager; ms "
           f"per {step} {row['ms_per_decode_step']:.3f} graphed, "
-          f"{eager_row['ms_per_decode_step']:.3f} eager; graphs captured "
+          f"{eager_row['ms_per_decode_step']:.3f} eager; admit_s {row['stats']['admit_s']:.4f} "
+          f"graphed, {eager_row['stats']['admit_s']:.4f} eager; graphs captured "
           f"{row['graphs_captured']}, the graph pool at most {row['graph_pool_bytes_max']} "
           f"bytes so far ({CARD})",
           flush=True)
@@ -2275,6 +2404,7 @@ def _serve_waves(run: str, ref: InterleaveInferencer, b: ContinuousBatcher, firs
                vit_group_images=counter.vit_rows,
                graphs_captured=programs.stats["captures"] - captures,
                graph_pool_bytes_max=programs.stats["pool_bytes_max"],
+               graph_pool_bytes=programs.pool_bytes(), live_programs=len(programs.programs()),
                launches_per_round={k: v / rounds for k, v in launches.items() if v})
     if spec:
         k8, v8, ks, vs, _bits = b.cache.layer(0)
@@ -2287,6 +2417,46 @@ def _serve_waves(run: str, ref: InterleaveInferencer, b: ContinuousBatcher, firs
     del b
     torch.cuda.empty_cache()
     return launches, rids, got_ids, row
+
+
+@contextlib.contextmanager
+def _admission_recorded():
+    """Within the block every admission block the batcher builds
+    (``serving.image_text_block``, ``serving.text_block``) is recorded:
+    yields the list of (name, function, args, keyword args but ``graphs``)."""
+    calls = []
+    saved = serving.image_text_block, serving.text_block
+
+    def wrap(name, fn):
+        def recording(*args, graphs=None, **kw):
+            calls.append((name, fn, args, kw))
+            return fn(*args, graphs=graphs, **kw)
+        return recording
+
+    serving.image_text_block = wrap("image_text_block", saved[0])
+    serving.text_block = wrap("text_block", saved[1])
+    try:
+        yield calls
+    finally:
+        serving.image_text_block, serving.text_block = saved
+
+
+def _capture_admission(calls) -> dict:
+    """Each recorded admission block built by its program (``graphs=None``:
+    captured at its first use) and eagerly (``graphs=False``): every array
+    of the two must be equal, bit for bit (the program zeroes its block as
+    the eager route makes a new one). Returns the blocks checked by kind."""
+    checked = {}
+    for name, fn, args, kw in calls:
+        got = fn(*args, graphs=None, **kw)
+        want = fn(*args, graphs=False, **kw)
+        for a, w in zip(serving._arrays(got) + [got.lens], serving._arrays(want) + [want.lens]):
+            if not torch.equal(a, w):
+                diff = (a.float() - w.float()).abs().max().item()
+                raise SystemExit(f"chip_smoke: the {name} program's block differs from the "
+                                 f"eager block (max abs {diff}, shape {tuple(a.shape)})")
+        checked[name] = checked.get(name, 0) + 1
+    return checked
 
 
 def run_near_capacity(run: str, ref: InterleaveInferencer, gap_limit: float) -> dict:
@@ -2358,7 +2528,7 @@ def run_serving_phase(inf: InterleaveInferencer) -> list:
         launches = []
         for name, ref, run in (("bf16 weights, bf16 pool", inf, "A"),
                                ("bf16 weights, int8 pool", int8_pool, "B")):
-            main, gap_limit = run_serving(name, ref, run, 4, 0, 0)
+            main, gap_limit = run_serving(name, ref, run, 4, 0, 0, warm=True)
             GAP_LIMITS[run] = gap_limit
             launches += [main, run_near_capacity(run, ref, gap_limit)]
             if run == "A":
@@ -2372,6 +2542,10 @@ def run_serving_phase(inf: InterleaveInferencer) -> list:
         del int8_pool
     finally:
         os.environ.pop("UNIMEDVL_SERVING_PROFILE")
+    # the serving runs' admission blocks, pool-keyed chunk programs and their graphs'
+    # share of the pool: no later phase replays them
+    programs.drop_all()
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -2974,14 +3148,18 @@ def run_chat_turns(plain: InterleaveInferencer, spec: InterleaveInferencer,
         try:
             with _recording("generate_text_spec", calls):
                 a1, ctx1 = spec.chat_turn(None, p1, images=[image], max_length=MAX_LENGTH)
-                hook = spec.model.language_model.model.register_forward_pre_hook(
-                    lambda m, args, kw: None if programs.capturing() else first.append(
-                        (int(args[1][0, 0]), args[0].shape[1], int(kw["q_valid"].sum()))),
-                    with_kwargs=True)
+                # turn 2's text prefill, by either route (its program runs no forward hook)
+                prefill = bagel.prefill_text
+
+                def recorded(model, cache, ids, pos, valid, **kw):
+                    first.append((int(pos[0, 0]), ids.shape[1], int(valid.sum())))
+                    return prefill(model, cache, ids, pos, valid, **kw)
+
+                bagel.prefill_text = recorded
                 try:
                     a2, ctx2 = spec.chat_turn(ctx1, p2, max_length=MAX_LENGTH)
                 finally:
-                    hook.remove()
+                    bagel.prefill_text = prefill
         finally:
             spec.graphs = None
         turns[route] = (ctx2.hist, [int(out[3]) for out, _dt in calls],
@@ -3073,6 +3251,7 @@ def run_spec_phase(inf: InterleaveInferencer) -> list:
 # -- batched VQA eval (M11), with the int4 KV cache -----------------------------------------
 EVAL_SLOTS, EVAL_CAPACITY, EVAL_MAX_NEW = 16, 6144, 32
 GAP_LIMITS = {}  # serving run -> its near-tie limit (run_serving_phase)
+EVAL_PREDS = {}  # run F's pool -> (its predictions, seconds), for the mesh eval
 
 
 def eval_requests():
@@ -3165,7 +3344,8 @@ def _eager_eval(inf: InterleaveInferencer, samples, kv: dict, name: str,
     if same != len(b.rids) or len(b.rids) != len(graphed.rids):
         raise SystemExit(f"chip_smoke: eval run F ({name}): the graphed engine's tokens differ "
                          "from the eager engine's")
-    return dict(seconds=seconds, emitted_tok_s=b.stats["emitted_tokens"] / seconds)
+    return dict(seconds=seconds, emitted_tok_s=b.stats["emitted_tokens"] / seconds,
+                admit_s=b.stats["admit_s"])
 
 
 def run_eval_phase(inf: InterleaveInferencer) -> dict:
@@ -3197,22 +3377,18 @@ def run_eval_phase(inf: InterleaveInferencer) -> dict:
     print(f"eval run F: run_vqa_eval over {len(samples)} image samples (4 x 980x980, 4 x "
           f"378x532, 8 x 378x378), num_slots={EVAL_SLOTS}, capacity={EVAL_CAPACITY}, "
           f"max_new_tokens={EVAL_MAX_NEW}, answers chat's; pools: bf16, int8, int4", flush=True)
-    logits = {name: _eval_first_step_logits(inf, samples, **kv) for name, kv in runs}
-    for name, rows in logits.items():
-        if not bool(torch.isfinite(rows).all()):
-            raise SystemExit(f"chip_smoke: eval run F ({name}): non-finite first-step logits")
-    for name in ("int8 pool", "int4 pool"):
-        cos = torch.nn.functional.cosine_similarity(logits[name], logits["bf16 pool"], dim=-1)
-        diff = (logits[name] - logits["bf16 pool"]).abs().amax(dim=-1)
-        agree = (logits[name].argmax(-1) == logits["bf16 pool"].argmax(-1)).float().mean()
-        print(f"  run F {name} vs bf16 pool, first-step logits per sample: cosine min "
-              f"{cos.min().item():.6f} median {cos.median().item():.6f}, max abs max "
-              f"{diff.max().item():.4f}, argmax agreeing {agree.item():.3f}", flush=True)
+    logits = {}
     total = {name: 0 for name in COUNTERS}
     os.environ["UNIMEDVL_SERVING_PROFILE"] = "1"
     made = serving.ContinuousBatcher
     try:
         for name, kv in runs:
+            # just before the pool's timed runs: its admission programs, captured here, are
+            # the ones the graphed run replays
+            logits[name] = _eval_first_step_logits(inf, samples, **kv)
+            if not bool(torch.isfinite(logits[name]).all()):
+                raise SystemExit(f"chip_smoke: eval run F ({name}): non-finite first-step "
+                                 "logits")
             decode_key = "decode_attention_int8" if kv else "decode_attention"
             counter = ForwardCounter(inf.model)
             reset_counts()
@@ -3230,6 +3406,7 @@ def run_eval_phase(inf: InterleaveInferencer) -> dict:
                 serving.ContinuousBatcher = made
                 counter.remove()
             b = _EvalBatcher.made.pop()
+            EVAL_PREDS[name] = preds, seconds
             eager = _eager_eval(inf, samples, kv, name, b)
             launches = check_counts(f"eval run F ({name})", {
                 "flash_block_attention": counter.vit * n_vit + counter.prefill * n_llm,
@@ -3273,6 +3450,13 @@ def run_eval_phase(inf: InterleaveInferencer) -> dict:
             torch.cuda.empty_cache()
     finally:
         os.environ.pop("UNIMEDVL_SERVING_PROFILE")
+    for name in ("int8 pool", "int4 pool"):
+        cos = torch.nn.functional.cosine_similarity(logits[name], logits["bf16 pool"], dim=-1)
+        diff = (logits[name] - logits["bf16 pool"]).abs().amax(dim=-1)
+        agree = (logits[name].argmax(-1) == logits["bf16 pool"].argmax(-1)).float().mean()
+        print(f"  run F {name} vs bf16 pool, first-step logits per sample: cosine min "
+              f"{cos.min().item():.6f} median {cos.median().item():.6f}, max abs max "
+              f"{diff.max().item():.4f}, argmax agreeing {agree.item():.3f}", flush=True)
     return total
 
 
@@ -3361,7 +3545,8 @@ class StepTimer:
     stamp is the device's time too): the denoise steps are the gen-mode
     forwards that leave the cache as it was. A captured flow step is stamped
     at the end of its replay (``programs.listeners``), its start the end of
-    what ran before it; the first replay of a graph includes its capture."""
+    what ran before it (a forward or any replay: a context build's prefill
+    programs too); the first replay of a graph includes its capture."""
 
     def __init__(self, lm_model):
         self.steps = []  # (start, end, streams)
@@ -3389,11 +3574,10 @@ class StepTimer:
         self.steps.append((self._start, self._mark, args[0].shape[0]))
 
     def _replay(self, graph):
-        if graph.kind != "denoise":
-            return
         torch.cuda.synchronize()
         start, self._mark = self._mark, time.perf_counter()
-        self.steps.append((start, self._mark, graph.rows))
+        if graph.kind == "denoise":
+            self.steps.append((start, self._mark, graph.rows))
 
     def remove(self):
         for h in self._hooks:
@@ -3545,10 +3729,10 @@ def run_generation(inf: InterleaveInferencer):
     return launches, rows
 
 
-def _denoise_inputs(inf: InterleaveInferencer, edit: bool = False):
-    """(caches, positions, latent position ids, noise) of a 512x512 request's
-    denoise, the contexts built as interleave_inference builds them: the
-    text-to-image request, or with ``edit`` the image edit."""
+def _gen_contexts(inf: InterleaveInferencer, edit: bool = False) -> list:
+    """A 512x512 request's contexts [main, cfg_text, cfg_img], built as
+    interleave_inference builds them: the text-to-image request, or with
+    ``edit`` the image edit (its VAE posterior sample from SEED + 10)."""
     inf._generator.manual_seed(SEED + 10)  # the same VAE posterior sample at every call
     ctx = inf.init_gen_context()
     cfg_img, cfg_text = ctx.fork(), ctx.fork()
@@ -3559,7 +3743,13 @@ def _denoise_inputs(inf: InterleaveInferencer, edit: bool = False):
         cfg_text = ctx.fork()
     ctx = inf.update_context_text(prompt, ctx)
     cfg_img = inf.update_context_text(prompt, cfg_img)
-    return _stacked_inputs(inf, [ctx, cfg_text, cfg_img], GEN_SIZE)
+    return [ctx, cfg_text, cfg_img]
+
+
+def _denoise_inputs(inf: InterleaveInferencer, edit: bool = False):
+    """(caches, positions, latent position ids, noise) of a 512x512 request's
+    denoise over :func:`_gen_contexts`."""
+    return _stacked_inputs(inf, _gen_contexts(inf, edit), GEN_SIZE)
 
 
 def _stacked_inputs(inf: InterleaveInferencer, contexts, shape):
@@ -4162,25 +4352,40 @@ def run_sp_generation(inf: InterleaveInferencer, mesh, plain_rows: dict) -> dict
     """The sequence-parallel denoise path on the 1 x 1 mesh: the text-to-image
     request and the edit through an inferencer with ``sp_mesh``, timed beside
     ``plain_rows`` (the same requests without it, earlier in this run); then
-    the path against the single-device one on the same noise: the final latent
-    of the text-to-image denoise (all 49 steps) and the first post-CFG
-    velocity, the latter also against the plain versions."""
+    the path against the single-device one on the same inputs: the final
+    latent of the text-to-image request's denoise (all 49 steps) against
+    ``bagel.generate_latents`` on its contexts and noise, and the first
+    post-CFG velocity, the latter also against the plain versions."""
     sp_inf = InterleaveInferencer(inf.model, inf.tokenizer, inf.new_token_ids,
                                   vit_transform=inf.vit_transform, seed=SEED, sp_mesh=mesh)
-    launches, rows = run_generation(sp_inf)
+    calls = []  # each full-depth SP denoise of the requests: its inputs and its latent
+    tp_sp = sp_denoise.generate_latents_tp_sp
+
+    def recorded(model, caches, positions, pos_ids, x_t, se, sp_mesh, **kw):
+        noise = x_t.clone()
+        out = tp_sp(model, caches, positions, pos_ids, x_t, se, sp_mesh, **kw)
+        if kw.get("num_timesteps") == 50:
+            calls.append((model, caches, positions, pos_ids, noise, se, kw, out))
+        return out
+
+    sp_denoise.generate_latents_tp_sp = recorded
+    try:
+        launches, rows = run_generation(sp_inf)
+    finally:
+        sp_denoise.generate_latents_tp_sp = tp_sp
     for name, row in rows.items():
         base = plain_rows[name]
         print(f"  {name}: " + "; ".join(
             f"{key} {row[key]:.3f} with sp_mesh, {base[key]:.3f} without"
             for key in ("s_per_image", "denoise_s", "ms_per_3_stream_step",
                         "ms_per_1_stream_step")), flush=True)
-    caches, positions, pos_ids, noise = _denoise_inputs(inf)
-    args = (inf.model, caches, positions, pos_ids, noise, inf._start_end())
-    x_sp = sp_denoise.generate_latents_tp_sp(*args, mesh, num_timesteps=50, **RECIPE)
-    x_one = bagel.generate_latents(*args, num_timesteps=50, **RECIPE)
+    # the text-to-image request's own denoise against the single-device loop on its inputs
+    model, caches, positions, pos_ids, noise, se, kw, x_sp = calls[0]
+    x_one = bagel.generate_latents(model, caches, positions, pos_ids, noise, se, **kw)
     cos, finite = _cosine(x_sp, x_one), bool(torch.isfinite(x_sp).all())
     moved = (x_one - noise).std().item()
-    print(f"end to end (text-to-image {GEN_SIZE[0]}x{GEN_SIZE[1]}, 49 steps, the same noise): "
+    print(f"end to end (text-to-image {GEN_SIZE[0]}x{GEN_SIZE[1]}, 49 steps, the request's "
+          "contexts and noise): "
           f"final latent [n, 64] of generate_latents_tp_sp vs generate_latents: cosine "
           f"{cos:.6f}, max abs {(x_sp - x_one).abs().max().item():.4f} (latent std "
           f"{x_one.std().item():.3f}, of which the denoise moved {moved:.3f}), cosine of the "
@@ -4508,19 +4713,19 @@ def _mesh_serving(inf: InterleaveInferencer, mesh) -> dict:
 
 def _mesh_eval(inf: InterleaveInferencer, mesh) -> None:
     """Run F's bf16 eval through ``run_vqa_eval(mesh=...)``: predictions
-    equal to the same call without the mesh."""
+    equal to the same call without the mesh (run F's bf16 run, whose
+    predictions the eval phase keeps in EVAL_PREDS)."""
     from unimedvl_tpu_torch.eval import vqa
 
     samples = [dict(image=_pil_image(a), question=p) for a, p in eval_requests()]
     kw = dict(max_new_tokens=EVAL_MAX_NEW, num_slots=EVAL_SLOTS, capacity=EVAL_CAPACITY)
-    t0 = time.perf_counter()
-    want, _ = vqa.run_vqa_eval(inf.model, inf.tokenizer, inf.new_token_ids, samples, **kw)
+    want, s_want = EVAL_PREDS["bf16 pool"]
     t1 = time.perf_counter()
     got, _ = vqa.run_vqa_eval(inf.model, inf.tokenizer, inf.new_token_ids, samples, mesh=mesh,
                               **kw)
     t2 = time.perf_counter()
     print(f"  run F (bf16 pool) through run_vqa_eval(mesh=...): {len(got)} predictions equal "
-          f"to the no-mesh call's {got == want} ({t2 - t1:.2f} s, without {t1 - t0:.2f} s)",
+          f"to the no-mesh call's {got == want} ({t2 - t1:.2f} s, without {s_want:.2f} s)",
           flush=True)
     if got != want:
         raise SystemExit("chip_smoke: run_vqa_eval on the mesh predicted otherwise")
@@ -4606,7 +4811,7 @@ def _tp_gate(name: str, ref_logits: torch.Tensor, ref_steps, got: dict, cos_boun
     return floor
 
 
-def run_tp_program(inf: InterleaveInferencer) -> dict:
+def run_tp_program(inf: InterleaveInferencer, tmp: str) -> dict:
     """Tensor parallelism over two ranks on this one card: two spawned
     processes joined by gloo (NCCL refuses two ranks on one device), each
     building only its shard of the same seeded weights
@@ -4620,7 +4825,10 @@ def run_tp_program(inf: InterleaveInferencer) -> dict:
     down input of the first step to the one-rank K3 on the same rows
     (``dryrun_mesh.GlobalScaleCheck``, K3's bounds), beside the control of
     per-rank scales, which must read otherwise. The walls measure gloo's
-    staging through the host, not a multi-card figure."""
+    staging through the host, not a multi-card figure. The same spawn then
+    runs the sharded loader (:func:`_sharded_load_setup`,
+    :func:`_check_sharded_load`): one process start, CUDA and gloo group a
+    rank for both."""
     from unimedvl_tpu_torch.tools import dryrun_mesh
 
     h, w, prompt = REQUESTS[TP_REQUEST]
@@ -4638,17 +4846,22 @@ def run_tp_program(inf: InterleaveInferencer) -> dict:
     del fp32
     vt = inf.vit_transform.resize_transform
     transform = (vt.max_size, vt.min_size, vt.stride, vt.max_pixels)
+    load = _sharded_load_setup(inf, tmp)
     # the ranks need the card's memory that the graphs' pool and the programs' caches hold
     programs.drop_all()
     gc.collect()
     torch.cuda.empty_cache()
     print(f"tensor parallelism over {TP_RANKS} processes on this card (gloo: host-staged "
-          f"collectives): the {h}x{w} chat request, max_length {MAX_LENGTH}, bf16 then w4a8",
-          flush=True)
+          f"collectives): the {h}x{w} chat request, max_length {MAX_LENGTH}, bf16 then w4a8; "
+          "then, in the same processes, the sharded loader", flush=True)
     t0 = time.perf_counter()
-    ranks = pmesh.run_on_ranks(dryrun_mesh.tp_chat_rank, TP_RANKS, full_config(), SEED, image,
-                               prompt, (MAX_LENGTH, TP_W4A8_LENGTH), transform, timeout_s=600.0)
+    both = pmesh.run_on_ranks(
+        dryrun_mesh.tp_chat_and_load_rank, TP_RANKS,
+        (full_config(), SEED, image, prompt, (MAX_LENGTH, TP_W4A8_LENGTH), transform),
+        (load["ckpt"], load["image"], load["prompt"], transform), timeout_s=900.0)
     wall = time.perf_counter() - t0
+    ranks = [r["chat"] for r in both]
+    _check_sharded_load(load, [r["load"] for r in both])
     qinf = quantized_inferencer(inf, bits=4, act_quant=True)
     ref_w4a8 = _first_step_logits(qinf, image, prompt)
     del qinf
@@ -4700,25 +4913,20 @@ def run_tp_program(inf: InterleaveInferencer) -> dict:
                     launches[k] += run["launches"].get(k, 0)
     if not np.array_equal(ranks[0]["bf16"]["logits"], ranks[1]["bf16"]["logits"]):
         raise SystemExit("chip_smoke: the two TP ranks' logits differ")
-    print(f"  TP program: {wall:.1f} s for both ranks (spawn, build {ranks[0]['build_s']:.1f} s, "
-          f"{ranks[0]['built_gib']:.2f} GiB a rank after the build); gloo's host staging, not a "
-          "multi-card figure", flush=True)
+    print(f"  TP program and sharded loader: {wall:.1f} s for both ranks (one spawn, build "
+          f"{ranks[0]['build_s']:.1f} s, {ranks[0]['built_gib']:.2f} GiB a rank after the "
+          "build); gloo's host staging, not a multi-card figure", flush=True)
     return launches
 
 
 LOAD_LAYERS = 2  # the sharded loader's checkpoint: the 14B width, two LLM layers
 
 
-def run_sharded_load(inf: InterleaveInferencer, tmp: str) -> None:
-    """The sharded loader at the 14B width: ``scripts.make_synthetic_ckpt``
-    writes a checkpoint of LOAD_LAYERS LLM layers (bf16, no VAE); two ranks
-    on this card (gloo) each read their halves (``load_bagel_checkpoint(
-    mesh=...)``, ranges through ``get_slice``). Checks that the halves' bytes
-    add up to the one-rank load's, that each rank's first-step logits equal
-    those of the TP program built from the whole load (``place_params``), and
-    that they match the one-rank model of the same files (LOGITS_COS_TOL)."""
+def _sharded_load_setup(inf: InterleaveInferencer, tmp: str) -> dict:
+    """The sharded loader's inputs at the 14B width: ``scripts.make_synthetic_ckpt``
+    writes a checkpoint of LOAD_LAYERS LLM layers (bf16, no VAE), and the
+    one-rank model of those files gives the reference logits and bytes."""
     from unimedvl_tpu_torch.scripts import make_synthetic_ckpt
-    from unimedvl_tpu_torch.tools import dryrun_mesh
     from unimedvl_tpu_torch.tools.dryrun_mesh import first_step_logits, shard_bytes
     from unimedvl_tpu_torch.weights.loader import load_bagel_checkpoint
 
@@ -4726,11 +4934,8 @@ def run_sharded_load(inf: InterleaveInferencer, tmp: str) -> None:
     t0 = time.perf_counter()
     make_synthetic_ckpt.main([ckpt, "--layers", str(LOAD_LAYERS), "--no-vae", "--seed", "5",
                               "--shard-gb", "2"])
-    t1 = time.perf_counter()
-    h, w, prompt = REQUESTS[2]
-    image = _images()[2]
-    vt = inf.vit_transform.resize_transform
-    transform = (vt.max_size, vt.min_size, vt.stride, vt.max_pixels)
+    write_s = time.perf_counter() - t0
+    image, prompt = _images()[2], REQUESTS[2][2]
     whole = load_bagel_checkpoint(ckpt, device="cuda")
     winf = InterleaveInferencer(whole, inf.tokenizer, inf.new_token_ids,
                                 vit_transform=inf.vit_transform, seed=SEED)
@@ -4738,17 +4943,25 @@ def run_sharded_load(inf: InterleaveInferencer, tmp: str) -> None:
     whole_bytes = shard_bytes(whole)
     del winf, whole
     torch.cuda.empty_cache()
-    t2 = time.perf_counter()
-    ranks = pmesh.run_on_ranks(dryrun_mesh.tp_load_rank, TP_RANKS, ckpt, image, prompt,
-                               transform, timeout_s=600.0)
-    t3 = time.perf_counter()
+    return dict(ckpt=ckpt, image=image, prompt=prompt, ref=ref, whole_bytes=whole_bytes,
+                write_s=write_s)
+
+
+def _check_sharded_load(load: dict, ranks: list) -> None:
+    """The sharded loader's ranks (each read its halves:
+    ``load_bagel_checkpoint(mesh=...)``, ranges through ``get_slice``): the
+    halves' bytes add up to the one-rank load's, each rank's first-step
+    logits equal those of the TP program built from the whole load
+    (``place_params``) and match the one-rank model of the same files
+    (LOGITS_COS_TOL)."""
+    ref, whole_bytes = load["ref"], load["whole_bytes"]
     sharded = sum(r["bytes"]["sharded"] for r in ranks)
-    print(f"sharded loader ({LOAD_LAYERS}-layer 14B-width checkpoint written in {t1 - t0:.1f} "
-          f"s): TP-sharded bytes per rank {[r['bytes']['sharded'] for r in ranks]} add up to "
+    print(f"sharded loader ({LOAD_LAYERS}-layer 14B-width checkpoint written in "
+          f"{load['write_s']:.1f} s): TP-sharded bytes per rank "
+          f"{[r['bytes']['sharded'] for r in ranks]} add up to "
           f"{sharded} (one-rank load {whole_bytes['sharded']}); unsharded bytes per rank "
           f"{[r['bytes']['whole'] for r in ranks]} (one-rank {whole_bytes['whole']}); load "
-          f"{[round(r['load_s'], 2) for r in ranks]} s a rank, {t3 - t2:.1f} s with the spawn",
-          flush=True)
+          f"{[round(r['load_s'], 2) for r in ranks]} s a rank", flush=True)
     if sharded != whole_bytes["sharded"] or any(r["bytes"]["whole"] != whole_bytes["whole"]
                                                 for r in ranks):
         raise SystemExit("chip_smoke: the sharded loader's halves do not add up to the whole")
@@ -4776,8 +4989,7 @@ def run_mesh_phase(inf: InterleaveInferencer, tmp: str) -> list:
     _mesh_eval(inf, mesh)
     launches.append(_mesh_grouped(inf, tmp))
     torch.cuda.empty_cache()
-    launches.append(run_tp_program(inf))
-    run_sharded_load(inf, tmp)
+    launches.append(run_tp_program(inf, tmp))
     return launches
 
 
@@ -5916,8 +6128,10 @@ def run(tmp: str) -> None:
     t_start = time.perf_counter()
 
     def done(phase: str) -> None:
-        """Where the run's time goes: seconds since the start, at each phase's end."""
-        print(f"[{time.perf_counter() - t_start:.1f} s] {phase} done", flush=True)
+        """Where the run's time goes: seconds since the start, at each phase's end (and the
+        graphs captured so far, with the seconds their warm-ups and captures took)."""
+        print(f"[{time.perf_counter() - t_start:.1f} s] {phase} done (graphs captured so far "
+              f"{programs.stats['captures']} in {programs.stats['capture_s']:.1f} s)", flush=True)
 
     build_kernels()
     timings = check_kernels()
@@ -5928,6 +6142,7 @@ def run(tmp: str) -> None:
     print("chat path: 3 chat requests, greedy, max_length "
           f"{MAX_LENGTH}, full 14B geometry, random weights (seed {SEED})", flush=True)
     paths = [run_main_path(inf)]
+    check_context_builds(inf)
     logits_bf16 = check_against_plain_path(inf)
     paths += [run_sampled_chat(inf), run_kept_decode(inf)]
     done("chat")

@@ -22,8 +22,15 @@ replays past the exit, which change nothing the caller reads; the flow loop
 runs over two ``step_range`` segments; ``gen_text_stream`` runs both kinds
 of chunk. A program's key is dropped by ``quantize_llm_params`` and by
 ``repack_pool``; the programs keyed by a cache's shape survive
-``_ensure_capacity``. The captured route (CUDA graphs) is held to the eager
-one in tests/test_torch_kernels_cuda.py, on the card.
+``_ensure_capacity``. The prefill programs (``bagel.PrefillProgram``: the
+text, ViT and VAE context builds with the VAE encode, the batcher's image
+and text admission blocks) are held to their eager functions bit for bit
+and to the JAX jitted functions in the three modes; one ViT program serves
+two images of a bucket, a VAE program's <vision_end> row moves within one,
+an image group of three is padded to four, and the inferencer's and the
+batcher's answers are those of the eager prefills. The captured route
+(CUDA graphs) is held to the eager one in tests/test_torch_kernels_cuda.py,
+on the card.
 """
 
 import copy
@@ -34,16 +41,20 @@ import numpy as np
 import pytest
 import torch
 
+from unimedvl_tpu import quant as jquant
 from unimedvl_tpu.inference import serving as jserving
 from unimedvl_tpu.models import bagel as jbagel
+from unimedvl_tpu.models import qwen2_mot as jmot
 from unimedvl_tpu_torch import quant
 from unimedvl_tpu_torch.inference import programs, serving
 from unimedvl_tpu_torch.models import bagel
 from unimedvl_tpu_torch.models.qwen2_mot import KVCache
+from unimedvl_tpu_torch.models.qwen2_mot import _mot_rows as mot_rows
 from unimedvl_tpu_torch.weights.loader import from_jax_params
 
 from tests.test_pipeline import TINY as CFG
 from tests.test_torch_config import port_config
+from tests.test_torch_kv4 import _to_jax as _to_jax4, assert_int4_equal
 from tests.test_torch_serving import _to_jax, assert_caches_equal
 
 L, Hk, D = CFG.llm.num_hidden_layers, CFG.llm.num_key_value_heads, CFG.llm.head_dim
@@ -540,6 +551,12 @@ def test_replays_past_the_exit_change_nothing(setup):
         assert torch.equal(getattr(prog, n), a), n
 
 
+def _loops() -> list:
+    """The live programs but the context builds' prefills (also keyed by
+    their cache's shape: the counts below are the decode loops')."""
+    return [p for p in programs.programs() if not isinstance(p, bagel.PrefillProgram)]
+
+
 def _inferencers(model, **kw):
     from unimedvl_tpu_torch.tools import dryrun_mesh
 
@@ -559,10 +576,10 @@ def test_stream_programs_equal_the_eager_chunks(setup, spec):
         ctx = inf.update_context_text("a scan of the chest; a scan of the", inf.init_gen_context())
         res = {}
         pieces = list(inf.gen_text_stream(ctx, max_length=11, chunk=3, result=res))
-        n = len(programs.programs())
+        n = len(_loops())
         ctx2 = inf.update_context_text("another scan", inf.init_gen_context())
         again = list(inf.gen_text_stream(ctx2, max_length=11, chunk=3))
-        assert len(programs.programs()) == n
+        assert len(_loops()) == n
         results.append((pieces, res, again))
     (want, wres, wagain), (got, gres, gagain) = results
     assert got == want and gagain == wagain and gres["text"] == wres["text"]
@@ -665,23 +682,366 @@ def test_new_programs_are_kept_per_shape_and_the_pool_ones_dropped(setup, monkey
     for inf in (plain, spec):
         ctx = inf.update_context_text("a scan of the chest", inf.init_gen_context())
         inf.chat_turn(ctx, "and the left side?", max_length=6)
-    kinds = [(type(p), getattr(p, "kept", None)) for p in programs.programs()]
+    kinds = [(type(p), getattr(p, "kept", None)) for p in _loops()]
     assert kinds == [(bagel.DecodeProgram, True), (bagel.SpecProgram, None)]
     grown = spec._ensure_capacity(ctx, ctx.cache.capacity + 1)
-    assert grown.cache.k is not ctx.cache.k and len(programs.programs()) == 2
+    assert grown.cache.k is not ctx.cache.k and len(_loops()) == 2
     for inf in (plain, spec):
         inf.chat_turn(None, "a new conversation", max_length=6)
-    assert len(programs.programs()) == 2
+    assert len(_loops()) == 2
     pool = _prefilled(model, S=3, M=40, lens=(9, 6, 11))
     _spec_chunk(model, pool, True)
-    assert len(programs.programs()) == 3
+    assert len(_loops()) == 3
     serving.repack_pool(pool, np.asarray([1, 0, 2]))
-    assert len(programs.programs()) == 2
+    assert len(_loops()) == 2
     _spec(model, _prefilled(model), 6, -1, True)
     monkeypatch.setattr(bagel, "propose_drafts", _fixed_proposer)
     _spec(model, _prefilled(model), 6, -1, True)
-    assert programs.programs()[-1].propose is _fixed_proposer and len(programs.programs()) == 4
+    assert _loops()[-1].propose is _fixed_proposer and len(_loops()) == 4
 
 
 def _fixed_proposer(hist, hlen, ngram, K):
     return torch.zeros((hist.shape[0], K), dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# (d) the prefills and the batcher's admission blocks
+# ---------------------------------------------------------------------------
+
+MODES = ["float", "int8", "w4a8-int4kv"]
+SE = np.asarray([V - 2, V - 1])
+
+
+@pytest.fixture(scope="module")
+def jax_modes(setup):
+    """mode -> the JAX tree of ``_modes``' port model: the same transforms
+    (``quantize_llm_params(via_host=True)``, ``fuse_serving_projections``),
+    which the port's equal bit for bit (tests/test_torch_quant.py)."""
+    params = setup["params"]
+    int8 = jquant.fuse_serving_projections(
+        jquant.quantize_llm_params(params["llm"], via_host=True, act_quant=True, bits=8))
+    w4a8 = jquant.quantize_llm_params(params["llm"], via_host=True, act_quant=True, bits=4)
+    return {"float": params, "int8": {**params, "llm": int8},
+            "w4a8-int4kv": {**params, "llm": w4a8}}
+
+
+@pytest.fixture
+def jax_k3(monkeypatch):
+    """The JAX ``_mlp`` held to K3's definition (tests/test_torch_pipeline.py)."""
+    monkeypatch.setattr(jmot, "_FORCE_SILU_QUANT", True)
+
+
+def _jx(c: KVCache):
+    """The port's cache as a JAX one (an int4 cache's values unpacked)."""
+    return _to_jax4(c) if c.quantized and c.kv_bits == 4 else _to_jax(c)
+
+
+def _jcreate(S, M, kw):
+    return jmot.KVCache.create(L, S, M, Hk, D, jnp.float32, quantized=bool(kw),
+                               kv_bits=kw.get("kv_bits", 8))
+
+
+def _both_routes(fn):
+    """``fn(graphs)`` by the eager route and by the program's plain route
+    (a new program: every one is dropped first)."""
+    programs.drop_all()
+    return fn(False), fn(True)
+
+
+def _vit_inputs(seed, n, Tb=32):
+    rng = np.random.default_rng(seed)
+    p = CFG.vit.patch_size
+    toks = rng.standard_normal((1, Tb, p * p * 3)).astype(np.float32)
+    toks[:, n:] = 0
+    pos = np.zeros((1, Tb), np.int64)
+    pos[0, :n] = rng.permutation(CFG.vit_max_num_patch_per_side ** 2)[:n]
+    return toks, pos
+
+
+def _vae_inputs(seed, h, w):
+    """An image [1, 3, h, w], its posterior noise (NCHW, and the JAX key it
+    comes from) and the latent position ids padded to the bucket 16."""
+    rng = np.random.default_rng(seed)
+    image = rng.uniform(-1, 1, (1, 3, h, w)).astype(np.float32)
+    key = jax.random.PRNGKey(seed)
+    ds, z = CFG.vae.downsample, CFG.vae.z_channels
+    noise = np.asarray(jax.random.normal(key, (1, h // ds, w // ds, z), jnp.float32))
+    n = (h // CFG.latent_downsample) * (w // CFG.latent_downsample)
+    pos = np.zeros((1, 16), np.int64)
+    pos[0, :n] = rng.permutation(CFG.max_latent_size ** 2)[:n]
+    return image, key, noise.transpose(0, 3, 1, 2).copy(), pos, n
+
+
+def _group_inputs(seed, ns=(30, 17, 25), P=4, Tb=30, T=32):
+    """An image group of len(ns) rows padded to P (n = 0), with each real
+    row's text [P, T] after it (rope 1 on)."""
+    rng = np.random.default_rng(seed)
+    p = CFG.vit.patch_size
+    toks = rng.standard_normal((P, Tb, p * p * 3)).astype(np.float32)
+    ns = np.asarray(list(ns) + [0] * (P - len(ns)))
+    toks[ns == 0] = 0
+    pos = np.stack([np.arange(Tb) * (i + 1) % (CFG.vit_max_num_patch_per_side ** 2)
+                    for i in range(P)]).astype(np.int64)
+    ids = (np.arange(P * T).reshape(P, T) * 11 + 5) % V
+    tpos = np.broadcast_to(np.arange(1, 1 + T), (P, T)).copy()
+    lens = np.asarray([9, 20, 3, 0])[:P]
+    valid = (np.arange(T)[None] < lens[:, None]) & (ns[:, None] > 0)
+    return toks, pos, ns, ids, tpos, valid
+
+
+def _prefix(model, kw, Mp=32, tp=13):
+    """A registered preamble's 1-stream block: tp ids prefilled into Mp columns."""
+    ids = (np.arange(Mp)[None] * 3 + 1) % V
+    c = KVCache.create(L, 1, Mp, Hk, D, torch.float32, **kw)
+    return bagel.prefill_text(model, c, torch.from_numpy(ids), torch.from_numpy(np.arange(Mp)[None]),
+                              torch.from_numpy(np.arange(Mp)[None] < tp), graphs=False), tp
+
+
+def _text_block_inputs(P=4, T=32, tp=13):
+    ids = (np.arange(P * T).reshape(P, T) * 5 + 2) % V
+    pos = np.broadcast_to(np.arange(tp, tp + T), (P, T)).copy()
+    valid = np.arange(T)[None] < np.asarray([7, 19, 1, 0])[:P, None]
+    return ids, pos, valid
+
+
+def _run_program(name, model, kw, graphs):
+    """One prefill program's function by the route of ``graphs``: (its
+    cache or block, the inputs the JAX side needs)."""
+    t = torch.from_numpy
+    if name == "text":
+        # every [4, 32] prefill of a mode into 64 columns: one JAX compile a mode
+        cache = _prefilled(model, S=4, M=64, lens=(9, 6, 11, 3), **kw)
+        ids = (np.arange(4 * 32).reshape(4, 32) * 3 + 4) % V
+        pos = np.stack([np.arange(n, n + 32) for n in (9, 6, 11, 3)])
+        valid = np.arange(32)[None] < np.asarray([[21], [30], [0], [32]])
+        jc = _jx(cache)
+        out = bagel.prefill_text(model, cache, t(ids), t(pos), t(valid), graphs=graphs)
+        return out, (jc, ids, pos, valid)
+    if name == "vit":
+        cache = _prefilled(model, S=1, M=80, lens=(9,), **kw)
+        toks, pos = _vit_inputs(1, 27)
+        jc = _jx(cache)
+        out = bagel.prefill_vit_bucketed(model, cache, t(toks), t(pos), 27, t(SE), 9,
+                                         graphs=graphs)
+        return out, (jc, toks, pos)
+    if name == "vae":
+        cache = _prefilled(model, S=1, M=80, lens=(9,), **kw)
+        image, key, noise, pos, n = _vae_inputs(2, 24, 32)
+        tokens = bagel.encode_vae_latent_tokens(model, t(image), t(noise), graphs=graphs)
+        jc = _jx(cache)
+        padded = torch.nn.functional.pad(tokens, (0, 0, 0, 16 - n))
+        out = bagel.prefill_vae_bucketed(model, cache, padded, t(pos), n, t(SE), 9,
+                                         graphs=graphs)
+        return out, (jc, image, key, padded.numpy(), pos, n, tokens)
+    if name == "image_group":
+        toks, pos, ns, ids, tpos, valid = _group_inputs(3)
+        block = serving.image_text_block(
+            model, t(toks), t(pos), t(ns), t(SE), t(ids), t(tpos), t(valid), capacity=30 + 2 + 32,
+            kv_dtype=torch.float32, quantized=bool(kw), kv_bits=kw.get("kv_bits", 8),
+            graphs=graphs)
+        return block.clone(), (toks, pos, ns, ids, tpos, valid)
+    prefix, tp = _prefix(model, kw)
+    ids, pos, valid = _text_block_inputs()
+    block = serving.text_block(model, t(ids), t(pos), t(valid), 32 + 32, prefix, tp,
+                               kv_dtype=torch.float32, quantized=bool(kw),
+                               kv_bits=kw.get("kv_bits", 8), graphs=graphs)
+    return block.clone(), (_jx(prefix), tp, ids, pos, valid)
+
+
+def _jax_program(name, jparams, kw, args):
+    """The JAX jitted functions on the same inputs."""
+    j = jnp.asarray
+    i32 = lambda a: jnp.asarray(a, jnp.int32)  # noqa: E731
+    if name == "text":
+        jc, ids, pos, valid = args
+        return jbagel.prefill_text(jparams, CFG, jc, i32(ids), i32(pos), j(valid))
+    if name == "vit":
+        jc, toks, pos = args
+        return jbagel.prefill_vit_bucketed(jparams, CFG, jc, j(toks), i32(pos), i32(27), i32(SE),
+                                           i32([9]))
+    if name == "vae":
+        jc, image, key, padded, pos, n, tokens = args
+        # the encode reads the VAE alone: one compile for the three modes
+        want = jbagel.encode_vae_latent_tokens({"vae": jparams["vae"]}, CFG,
+                                               j(image.transpose(0, 2, 3, 1)), key)
+        np.testing.assert_allclose(tokens.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+        return jbagel.prefill_vae_bucketed(jparams, CFG, jc, j(padded), i32(pos), i32(n),
+                                           i32(SE), i32([9]), jnp.asarray(0.0, jnp.float32))
+    if name == "image_group":
+        toks, pos, ns, ids, tpos, valid = args
+        block = jbagel.prefill_vit_group(
+            jparams, CFG, j(toks), i32(pos), i32(ns), i32(SE), jnp.zeros((4,), jnp.int32),
+            kv_dtype=jnp.float32, quantized=bool(kw), capacity=64, kv_bits=kw.get("kv_bits", 8))
+        return jbagel.prefill_text(jparams, CFG, block, i32(ids), i32(tpos), j(valid))
+    jprefix, tp, ids, pos, valid = args
+    block = jserving.seed_prefix_block(_jcreate(4, 64, kw), jprefix, i32(tp))
+    return jbagel.prefill_text(jparams, CFG, block, i32(ids), i32(pos), j(valid))
+
+
+PREFILLS = ["text", "vit", "vae", "image_group", "seeded_text_block"]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", PREFILLS)
+def test_prefill_program_equals_the_eager_function_and_jax(modes, jax_modes, jax_k3, name, mode):
+    """Each prefill program's plain route against its eager function, bit
+    for bit (lens, and each stream's cache arrays on [0, lens); a block's
+    every column: the program zeroes its own as the eager route creates a
+    new one), and against the JAX jitted function on the same inputs at
+    ``assert_caches_equal``'s tolerances (the VAE latent tokens within 1e-4,
+    as tests/test_torch_gen.py holds the encode; the JAX prefill then takes
+    the port's tokens). The image group is P = 3 padded to 4 (row 3
+    inactive, stored nowhere: its lens stays 0)."""
+    model, kw = modes[mode]
+    (want, _), (got, args) = _both_routes(lambda g: _run_program(name, model, kw, g))
+    block = name in ("image_group", "seeded_text_block")
+    _assert_same_cache(got, want, valid_only=not block)
+    jwant = _jax_program(name, jax_modes[mode], kw, args)
+    rows = [0, 1, 2] if name == "image_group" else None
+    (assert_int4_equal if kw.get("kv_bits") == 4 else assert_caches_equal)(got, jwant, rows=rows)
+    if name == "image_group":
+        assert got.lens.tolist()[3] == 0 and got.k.shape[1] == 4
+
+
+def test_one_vit_program_serves_a_bucket(setup):
+    """Two images of one bucket (n 27 and 19) and two rope positions through
+    one program, each equal to the eager function's cache."""
+    model = setup["model"]
+    programs.drop_all()
+    for seed, n, rope in ((1, 27, 9), (4, 19, 3)):
+        toks, pos = _vit_inputs(seed, n)
+        runs = []
+        for graphs in (False, True):
+            cache = _prefilled(model, S=1, M=80, lens=(9,))
+            runs.append(bagel.prefill_vit_bucketed(
+                model, cache, torch.from_numpy(toks), torch.from_numpy(pos), n,
+                torch.from_numpy(SE), rope, graphs=graphs))
+        _assert_same_cache(runs[1], runs[0], valid_only=True)
+        assert runs[1].lens.tolist() == [9 + n + 2]
+    assert len(programs.programs()) == 1
+    assert isinstance(programs.programs()[0], bagel.PrefillProgram)
+
+
+def test_vae_end_row_moves_within_a_bucket(setup):
+    """Two VAE images of bucket 16, 12 and 16 latent tokens: one encode
+    program each (its key is the image's shape) and one prefill program
+    whose <vision_end> row moves (13, then 17: the block's last row), each
+    equal to the eager route bit for bit (the JAX side:
+    ``test_prefill_program_equals_the_eager_function_and_jax[vae-*]``)."""
+    model = setup["model"]
+    programs.drop_all()
+    t = torch.from_numpy
+    for seed, h, w in ((2, 24, 32), (5, 32, 32)):
+        image, key, noise, pos, n = _vae_inputs(seed, h, w)
+        runs = []
+        for graphs in (False, True):
+            cache = _prefilled(model, S=1, M=80, lens=(9,))
+            tokens = bagel.encode_vae_latent_tokens(model, t(image), t(noise), graphs=graphs)
+            padded = torch.nn.functional.pad(tokens, (0, 0, 0, 16 - n))
+            runs.append(bagel.prefill_vae_bucketed(model, cache, padded, t(pos), n, t(SE), 4,
+                                                   graphs=graphs))
+        _assert_same_cache(runs[1], runs[0], valid_only=True)
+        assert runs[1].lens.tolist() == [9 + n + 2]
+    kinds = sorted(p.graph.forwards.get("gen", 0) for p in programs.programs())
+    assert kinds == [0, 0, 1]  # two encodes (one a geometry), one prefill
+
+
+def test_mot_rows_by_a_device_row_equals_the_host_row():
+    """``_mot_rows`` with ``end_row`` a 0-dim tensor: the rows of the host
+    int's slices, bit for bit."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 7, 5), np.float32))
+    und, gen = (lambda t: t * 3.0 + 1.0), (lambda t: t * -2.0)
+    for end in (1, 4, 6):
+        want = mot_rows(x, und, gen, True, end)
+        assert torch.equal(mot_rows(x, und, gen, True, torch.tensor(end)), want)
+
+
+def _chats(model, image, graphs):
+    from unimedvl_tpu_torch.tools import dryrun_mesh
+
+    inf = dryrun_mesh.inferencer(model, None, graphs=graphs)
+    ctx = inf.update_context_image(image, inf.init_gen_context(), vae=True, vit=True)
+    ctx = inf.update_context_text("which side?", ctx)
+    return inf, ctx, inf.gen_text(ctx, max_length=4), inf.chat([image], "and now?", max_length=4)
+
+
+def test_inferencer_context_builds_by_program(setup):
+    """An edit-style context (VAE and ViT image, then text) and a chat by
+    the programs and by the eager prefills: the same cache on [0, lens),
+    kv_len, rope and answers. A second image of the same buckets captures
+    nothing anew."""
+    model = setup["model"]
+    img = np.random.default_rng(3).integers(0, 256, (32, 24, 3), dtype=np.uint8)
+    (_, wctx, wtext, wchat), (inf, gctx, gtext, gchat) = _both_routes(
+        lambda g: _chats(model, img, g))
+    assert (gtext, gchat) == (wtext, wchat)
+    assert (gctx.kv_len, gctx.rope) == (wctx.kv_len, wctx.rope)
+    _assert_same_cache(gctx.cache, wctx.cache, valid_only=True)
+    n = len(programs.programs())
+    other = np.random.default_rng(4).integers(0, 256, (24, 32, 3), dtype=np.uint8)
+    inf.chat([other], "and now?", max_length=4)
+    prefills = [p for p in programs.programs() if isinstance(p, bagel.PrefillProgram)]
+    # the VAE encode, the VAE prefill, the ViT prefill, the text prefill
+    assert len(programs.programs()) == n and len(prefills) == 4
+
+
+def _batcher(model, graphs, **kw):
+    from unimedvl_tpu_torch.data import imaging
+    from unimedvl_tpu_torch.data.tokenizer import add_special_tokens
+    from tests.test_torch_pipeline import FakeTokenizer
+
+    tok, ids, _ = add_special_tokens(FakeTokenizer())
+    return serving.ContinuousBatcher(model, tok, ids, num_slots=8, capacity=512, chunk=4,
+                                     vit_transform=imaging.ImageTransform(32, 8, 2, 1024),
+                                     graphs=graphs, **kw)
+
+
+def _serve_port(model, graphs):
+    from tests.test_torch_serving import _image
+
+    b = _batcher(model, graphs)
+    pid = b.register_prefix("You are a radiologist. ")
+    reqs = [serving.Request(prompt=p, image=_image(20 + i, h, w), max_new_tokens=3)
+            for i, (p, h, w) in enumerate([("what?", 24, 28), ("describe", 32, 24),
+                                           ("count", 26, 30)])]
+    reqs += [serving.Request(prompt="alpha", max_new_tokens=3),
+             serving.Request(prompt="beta", max_new_tokens=3, prefix_id=pid)]
+    rids = [b.submit(r) for r in reqs]
+    out = b.run()
+    assert not b.errors
+    return [out[r] for r in rids], b
+
+
+def test_batcher_admission_by_program(setup):
+    """The batcher's admission blocks by their programs and eagerly: the
+    same answers; three images of one bucket are one block padded to four
+    rows (the JAX batcher's power of two), and the text blocks with and
+    without the preamble are programs of their own."""
+    model = setup["model"]
+    (want, _), (got, b) = _both_routes(lambda g: _serve_port(model, g))
+    assert got == want
+    blocks = [p for p in programs.programs() if p.family == "admission"]
+    rows = sorted(p.cache.k.shape[1] for p in blocks)
+    assert rows == [4, 32, 32]
+    assert len({tuple(p.inputs) for p in blocks}) == 3  # image, text, preamble-seeded text
+
+
+def test_prefill_programs_dropped_with_their_storage(setup):
+    """Quantizing the weights drops the prefill programs; ``repack_pool``
+    drops a pool's text prefill (the batcher's legacy path writes the pool's
+    own arrays), and not the one keyed by a cache's shape."""
+    model = copy.deepcopy(setup["model"])
+    programs.drop_all()
+    pool = _prefilled(model, S=3, M=40, lens=(9, 6, 11))
+    ids = torch.from_numpy((np.arange(3 * 8).reshape(3, 8) * 7) % V)
+    pos = torch.from_numpy(np.broadcast_to(np.arange(12, 20), (3, 8)).copy())
+    valid = torch.ones((3, 8), dtype=torch.bool)
+    pool = bagel.prefill_text(model, pool, ids, pos, valid, graphs=True, static=False)
+    bagel.prefill_text(model, _prefilled(model, S=3, M=40, lens=(9, 6, 11)), ids, pos, valid,
+                       graphs=True)
+    assert len(programs.programs()) == 2
+    serving.repack_pool(pool, np.asarray([2, 0, 1]))
+    (left,) = programs.programs()
+    assert left.storage == "static"
+    quant.quantize_llm_params(model.language_model, act_quant=True)
+    assert programs.programs() == []

@@ -1543,3 +1543,122 @@ def test_spec_chunk_program_captured_equals_eager(gen, static):
     for s in (0, 2):
         n_s = int(want[5].lens[s])
         assert torch.equal(got[5].k[:, s, :, :n_s], want[5].k[:, s, :, :n_s])
+
+
+def _prefill_model():
+    """:func:`_program_model`'s LLM with a ViT of head dim 72 (K1a) and the
+    tiny VAE (fp32)."""
+    import dataclasses
+
+    from unimedvl_tpu_torch.config import ViTConfig
+    from unimedvl_tpu_torch.models import bagel
+
+    cfg = dataclasses.replace(_program_model().config, vit=ViTConfig(
+        hidden_size=144, intermediate_size=288, num_hidden_layers=2, num_attention_heads=2,
+        image_size=32, patch_size=2, rope=False))
+    model = bagel.Bagel(cfg, device="cuda", dtype=torch.bfloat16, with_vae=True)
+    bagel.init_random_(model, torch.Generator(device="cuda").manual_seed(1), llm2vae_zero=False)
+    return model
+
+
+def _same_valid(a, b):
+    """Equal lens and equal values and scales on each stream's [0, lens)."""
+    assert torch.equal(a.lens, b.lens)
+    for s, n in enumerate(a.lens.tolist()):
+        for x, y in zip((a.k, a.v, a.k_scale, a.v_scale), (b.k, b.v, b.k_scale, b.v_scale)):
+            if x is not None:
+                assert torch.equal(x[:, s, :, :n], y[:, s, :, :n])
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_context_prefill_programs_captured_equal_eager(gen, quantized):
+    """The context builds as captured programs against their eager
+    functions: a text prefill; two images of one ViT bucket (n 50 and 37,
+    one capture); two VAE images of one latent bucket (16 and 12 tokens: one
+    prefill capture whose <vision_end> row moves, an encode capture a
+    geometry). Lens, each cache's valid columns and K1a / K1b's launches
+    equal."""
+    from unimedvl_tpu_torch.inference import programs
+    from unimedvl_tpu_torch.models import bagel
+
+    model = _prefill_model()
+    cfg, llm = model.config, model.config.llm
+    se = torch.tensor([llm.vocab_size - 2, llm.vocab_size - 1], device="cuda")
+    images = [torch.rand(1, 3, h, w, device="cuda", generator=gen) * 2 - 1
+              for h, w in ((32, 32), (24, 32))]
+    noises = [torch.randn(1, 4, h // 4, w // 4, device="cuda", generator=gen)
+              for h, w in ((32, 32), (24, 32))]
+    vit = [torch.randn(1, 64, 12, device="cuda", generator=gen) for _ in range(2)]
+    pos = torch.randperm(256, device="cuda", generator=gen)[:64][None]
+    runs = {}
+    for graphs in (False, True):
+        programs.drop_all()
+        cache = _program_context(model, 1, 512, [20], quantized)
+        before = (fa.counts["kernel"], fa.q_preproc_counts["kernel"], programs.stats["captures"])
+        got = []
+        ids = (torch.arange(32, device="cuda")[None] * 5 + 1) % llm.vocab_size
+        cache = bagel.prefill_text(model, cache, ids, torch.arange(20, 52, device="cuda")[None],
+                                   torch.arange(32, device="cuda")[None] < 25, graphs=graphs)
+        got.append(cache.clone())
+        for tokens, n in zip(vit, (50, 37)):
+            cache = bagel.prefill_vit_bucketed(model, cache, tokens, pos, n, se,
+                                               int(cache.lens[0]), graphs=graphs)
+            got.append(cache.clone())
+        for image, noise in zip(images, noises):
+            lat = bagel.encode_vae_latent_tokens(model, image, noise, graphs=graphs)
+            n = lat.shape[1]
+            lat = torch.nn.functional.pad(lat, (0, 0, 0, 16 - n))
+            lpos = torch.arange(16, device="cuda")[None] * (torch.arange(16, device="cuda") < n)
+            cache = bagel.prefill_vae_bucketed(model, cache, lat, lpos, n, se, 60,
+                                               graphs=graphs)
+            got.append(cache.clone())
+        runs[graphs] = got, (fa.counts["kernel"] - before[0],
+                             fa.q_preproc_counts["kernel"] - before[1],
+                             programs.stats["captures"] - before[2])
+    (want, w_counts), (got, g_counts) = runs[False], runs[True]
+    for a, b in zip(got, want):
+        _same_valid(a, b)
+    assert g_counts[:2] == w_counts[:2]
+    assert g_counts[1] == 2 * llm.num_hidden_layers
+    assert g_counts[2] == 5  # text, ViT, VAE prefill, an encode for each geometry
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16_pool", "int8_pool"])
+def test_admission_programs_captured_equal_eager(gen, quantized):
+    """The batcher's admission blocks as captured programs against the eager
+    functions, twice (the second call replays): an image group of 3 padded
+    to 4 with its text, and a text block seeded with a preamble. Every
+    column equal (each program zeroes its block as the eager route creates
+    a new one)."""
+    from unimedvl_tpu_torch.inference import programs, serving
+    from unimedvl_tpu_torch.models import bagel
+
+    model = _prefill_model()
+    llm = model.config.llm
+    V = llm.vocab_size
+    se = torch.tensor([V - 2, V - 1], device="cuda")
+    kind = dict(kv_dtype=torch.bfloat16, quantized=quantized)
+    prefix = _program_context(model, 1, 64, [29], quantized)
+    tids = (torch.arange(32 * 32, device="cuda").reshape(32, 32) * 3 + 2) % V
+    tpos = torch.arange(29, 61, device="cuda").expand(32, 32).contiguous()
+    tvalid = torch.arange(32, device="cuda")[None] < (torch.arange(32, device="cuda") % 7)[:, None]
+    for call in range(2):
+        toks = torch.randn(4, 64, 12, device="cuda", generator=gen)
+        ns = torch.tensor([60, 41, 64, 0], device="cuda")
+        vpos = torch.randperm(256, device="cuda", generator=gen)[:64].expand(4, 64).contiguous()
+        ids = (torch.arange(4 * 32, device="cuda").reshape(4, 32) * 7 + call) % V
+        ipos = torch.arange(1, 33, device="cuda").expand(4, 32).contiguous()
+        ivalid = torch.arange(32, device="cuda")[None] < torch.tensor([[9], [30], [3], [0]],
+                                                                      device="cuda")
+        blocks = {}
+        for graphs in (False, True):
+            img = serving.image_text_block(model, toks, vpos, ns, se, ids, ipos, ivalid,
+                                           capacity=64 + 2 + 32, graphs=graphs, **kind)
+            txt = serving.text_block(model, tids, tpos, tvalid, 96, prefix, 29, graphs=graphs,
+                                     **kind)
+            blocks[graphs] = img.clone(), txt.clone()
+        for a, b in zip(blocks[True], blocks[False]):
+            for x, y in zip((a.k, a.v, a.k_scale, a.v_scale, a.lens),
+                            (b.k, b.v, b.k_scale, b.v_scale, b.lens)):
+                assert (x is None and y is None) or torch.equal(x, y)
+    assert len([p for p in programs.programs() if p.family == "admission"]) == 2

@@ -171,14 +171,16 @@ class InterleaveInferencer:
         Every rank of the mesh runs the same calls with the same seed; the
         answers and images are the single-device ones. With ``sp_mesh`` too,
         the two must span the same ranks in the same order.
-        ``graphs``: the route of the answer decodes (``gen_text``, greedy or
-        sampled, kept in the context or not, speculative or not), of
-        ``gen_text_stream``'s chunks and of the flow loop
+        ``graphs``: the route of the context builds (the text, ViT and VAE
+        prefills and the VAE encode), of the answer decodes (``gen_text``,
+        greedy or sampled, kept in the context or not, speculative or not),
+        of ``gen_text_stream``'s chunks and of the flow loop
         (``inference.programs.use_graphs``): by default, on a CUDA device
         without a mesh, the captured device programs
-        (``bagel.DecodeProgram``, ``bagel.SpecProgram``,
-        ``serving.ChunkProgram``, ``bagel.FlowProgram``); False their eager
-        loops. The sequence-parallel denoise runs eagerly."""
+        (``bagel.PrefillProgram``, ``bagel.DecodeProgram``,
+        ``bagel.SpecProgram``, ``serving.ChunkProgram``,
+        ``bagel.FlowProgram``); False their eager versions. The
+        sequence-parallel denoise runs eagerly."""
         if kv_quantized:
             check_kv_bits(kv_bits)
         if kv_quantized and sp_mesh is not None:
@@ -271,7 +273,7 @@ class InterleaveInferencer:
             self.model, ctx.cache,
             torch.from_numpy(padded)[None].to(dev),
             torch.from_numpy(positions)[None].to(dev),
-            (torch.arange(T_pad) < T)[None].to(dev),
+            (torch.arange(T_pad) < T)[None].to(dev), graphs=self.graphs,
         )
         return GenContext(cache=cache, kv_len=ctx.kv_len + T, rope=ctx.rope + T,
                           hist=ctx.hist + tuple(ids))
@@ -346,13 +348,13 @@ class InterleaveInferencer:
         ctx = self._ensure_capacity(ctx, bucket + 2)
         image_t = bagel.preprocess_vae_image(torch.tensor(u8, device=self.device))
         noise = self._randn((1, vae.z_channels, H // vae.downsample, W // vae.downsample))
-        tokens = bagel.encode_vae_latent_tokens(self.model, image_t, noise)
+        tokens = bagel.encode_vae_latent_tokens(self.model, image_t, noise, graphs=self.graphs)
         tokens = F.pad(tokens, (0, 0, 0, bucket - n))
         padded_pos = np.zeros(bucket, np.int64)
         padded_pos[:n] = pos_ids
         cache = bagel.prefill_vae_bucketed(
             self.model, ctx.cache, tokens, torch.from_numpy(padded_pos)[None].to(self.device),
-            n, self._start_end(), ctx.rope,
+            n, self._start_end(), ctx.rope, graphs=self.graphs,
         )
         return dataclasses.replace(ctx, cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1)
 
@@ -384,6 +386,7 @@ class InterleaveInferencer:
         cache = bagel.prefill_vit_bucketed(
             self.model, ctx.cache, tokens,
             torch.from_numpy(padded_pos)[None].to(self.device), n, self._start_end(), ctx.rope,
+            graphs=self.graphs,
         )
         return dataclasses.replace(ctx, cache=cache, kv_len=ctx.kv_len + n + 2, rope=ctx.rope + 1)
 

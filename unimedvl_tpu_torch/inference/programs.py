@@ -36,7 +36,8 @@ this module holds what they share:
   ``InterleaveInferencer._ensure_capacity``, ``training.lora.add_lora`` and
   ``merge_lora``); a key
   whose storage changed no longer matches and is captured anew. At most
-  ``MAX_PROGRAMS`` stay, the least recently used dropped first.
+  ``MAX_PROGRAMS`` stay, and ``FAMILY_LIMITS`` of a family (the batcher's
+  admission blocks), the least recently used dropped first.
 - Launch counts. A kernel wrapper counts its launches in Python; a replay
   runs no Python, so each graph records what its capture added to the
   counters (``COUNTER_MODULES``), puts the counters back as they were before
@@ -44,11 +45,18 @@ this module holds what they share:
   called at every captured replay with the graph (its ``kind``: "decode"
   for a T = 1 forward of a decode loop, "chunk" for a step of a batcher's
   chunk, "verify" for a speculative verify forward, "denoise" for a flow
-  step); :func:`capturing` is true during a warm-up and a capture, so that
-  forward hooks can tell those calls from the path's.
+  step, "prefill" for a context build or an admission block, whose
+  ``forwards`` say what it ran); :func:`capturing` is true during a warm-up
+  and a capture, so that forward hooks can tell those calls from the
+  path's.
 - :func:`static_buffer`: the caches (and draft histories) that programs copy
   their caller's into, one per shape, dtype and width, shared by every
   program that copies in at each call.
+
+The prefills (``bagel.PrefillProgram``: the text, ViT and VAE context
+builds, the VAE encode, the batcher's admission blocks) are programs of
+one graph and no loop: their inputs, row counts and rope positions
+included, are copied into static buffers at every call.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import threading
+import time
 import weakref
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -65,6 +74,10 @@ from torch import nn
 #: modules whose ``*counts`` dicts count kernel launches
 COUNTER_MODULES = ("act_quant", "decode_attention", "flash_attention", "w4_matmul")
 MAX_PROGRAMS = 24
+#: programs kept of a ``family`` (:func:`lookup`): the batcher's admission
+#: blocks each hold a block cache of their own (a 980 px group of four in
+#: bf16: 0.6 GB)
+FAMILY_LIMITS = {"admission": 8}
 
 #: called as fn(graph) at every captured replay
 listeners: List[Callable[["Graph"], None]] = []
@@ -76,8 +89,9 @@ _pools: Dict[int, object] = {}
 _pool_users: Dict[int, int] = {}
 _streams: Dict[int, object] = {}
 _static: "weakref.WeakValueDictionary[tuple, object]" = weakref.WeakValueDictionary()
-#: graphs captured in this process, and the largest the shared pool has been after a capture
-stats = {"captures": 0, "pool_bytes_max": 0}
+#: graphs captured in this process, the seconds their warm-ups and captures took (the
+#: card waited for at both ends), and the largest the shared pool has been after a capture
+stats = {"captures": 0, "capture_s": 0.0, "pool_bytes_max": 0}
 
 
 def capturing() -> bool:
@@ -152,12 +166,14 @@ def _pointer_set(sources) -> set:
     return ptrs
 
 
-def lookup(key: tuple, build: Callable[[], object], reads: Iterable = (), owner=None):
+def lookup(key: tuple, build: Callable[[], object], reads: Iterable = (), owner=None,
+           family: Optional[str] = None):
     """The program of ``key``, built by ``build()`` at its first use and
     recorded as reading the storage of ``reads`` (as :func:`drop_reading`
     takes it); dropped when ``owner`` (the module it runs, which a program
     holds only weakly) is collected, and, the least recently used first,
-    beyond ``MAX_PROGRAMS``."""
+    beyond ``MAX_PROGRAMS``, or beyond ``FAMILY_LIMITS[family]`` programs of
+    its ``family``."""
     with _lock:
         prog = _registry.get(key)
         if prog is not None:
@@ -165,12 +181,16 @@ def lookup(key: tuple, build: Callable[[], object], reads: Iterable = (), owner=
             return prog
     prog = build()
     prog.reads = _pointer_set(reads)
+    prog.family = family
     if owner is not None:
         weakref.finalize(owner, _drop_if_current, key, id(prog))
     with _lock:
         _registry[key] = prog
         while len(_registry) > MAX_PROGRAMS:
             _release(_registry.popitem(last=False)[1])
+        kin = [k for k, p in _registry.items() if family is not None and p.family == family]
+        for k in kin[:max(0, len(kin) - FAMILY_LIMITS.get(family, len(kin)))]:
+            _release(_registry.pop(k))
     return prog
 
 
@@ -304,15 +324,20 @@ class Graph:
     ``keep``: the state tensors the warm-up changes and that are put back
     before the capture; ``generators``: those the body draws from, whose
     state the warm-up's draws are taken back from and which the graph
-    registers; ``rows`` is told to the listeners (the streams of a step)."""
+    registers; ``rows`` is told to the listeners (the streams of a step);
+    ``forwards``, of a "prefill" graph, the forwards one replay runs (``vit``:
+    ViT forwards, ``prefill``: LLM block forwards, ``gen``: those of them in
+    gen mode), for listeners that count forwards."""
 
     def __init__(self, kind: str, body: Callable[[], None], device: torch.device,
                  keep: Iterable[torch.Tensor] = (), rows: int = 0,
-                 generators: Iterable[torch.Generator] = ()):
+                 generators: Iterable[torch.Generator] = (),
+                 forwards: Optional[Dict[str, int]] = None):
         self.kind, self.body, self.device = kind, body, device
         self.keep = list(keep)
         self.generators = list(generators)
         self.rows = rows
+        self.forwards = dict(forwards or {})
         self.graph = None
         self.launches: list = []  # (counter dict, key, launches) added by one replay
 
@@ -335,6 +360,8 @@ class Graph:
             _unpool(self._pool_index)
 
     def _capture(self) -> None:
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
         dicts = _counter_dicts()
         before = _snapshot(dicts)
         saved = [t.clone() for t in self.keep]
@@ -375,5 +402,7 @@ class Graph:
         for d, b in zip(dicts, before):
             d.update(b)
         self.graph = graph
+        torch.cuda.synchronize(self.device)
         stats["captures"] += 1
+        stats["capture_s"] += time.perf_counter() - t0
         stats["pool_bytes_max"] = max(stats["pool_bytes_max"], pool_bytes(self.device) or 0)

@@ -3,9 +3,11 @@ unimedvl_tpu/inference/serving.py; BASELINE config 3).
 
 A pool of S slots over one multi-stream ``KVCache`` on the model's device.
 Requests are admitted into free slots by grouped prefills into small
-P-stream blocks (``bagel.prefill_vit_group`` for images of one bucket, a
-[P, T] text prefill, an optional shared preamble seeded into the block), each
-stored into the pool with one indexed copy per array (:func:`group_store`).
+P-stream blocks (:func:`image_text_block`: ``bagel.prefill_vit_group`` for
+images of one bucket, P padded to a power of two, and their text;
+:func:`text_block`: a [P, T] text prefill, an optional shared preamble
+seeded into the block), each stored into the pool with one indexed copy per
+array (:func:`group_store`).
 Decoding runs in chunks of up to K greedy steps between host reads: the
 aligned chunk (:func:`decode_chunk_aligned`: every stream writes step d at
 one column, then the band moves back to each stream's tail) or, near
@@ -45,8 +47,9 @@ the JAX package has a jitted chunk ``while_loop``, the port runs a captured
 device program on the card (:class:`ChunkProgram`, ``inference/programs.py``):
 one graph a step, the loop state and the exit test on the device, one host
 read a chunk; the speculative chunks likewise (``bagel.SpecProgram``: one
-graph a verify forward); ``graphs=False`` takes the eager loops, one host
-check a step or a verify forward. The batcher decodes greedily; the chunks
+graph a verify forward), and each admission block (``bagel.PrefillProgram``:
+one graph a block shape); ``graphs=False`` takes the eager loops and
+prefills, one host check a step or a verify forward. The batcher decodes greedily; the chunks
 also sample (``do_sample``). Not here: the compiled denoise windows
 (``gen_window_dynamic``), which ``step_range`` replaces.
 """
@@ -114,18 +117,128 @@ def repack_pool(cache: KVCache, perm) -> KVCache:
                                k_scale=take(cache.k_scale), v_scale=take(cache.v_scale))
 
 
-def seed_prefix_block(block: KVCache, prefix: KVCache, tp: int) -> KVCache:
+def seed_prefix_block(block: KVCache, prefix: KVCache, tp) -> KVCache:
     """Copy a 1-stream prefix cache into the leading columns of every row of
     a fresh admission block, in place (values, and scales for an int8
     cache): the shared preamble, prefilled once, instead of once per request.
-    ``tp``: the preamble's valid length, which becomes every row's lens;
-    columns past it hold the prefix block's padding and are overwritten by
-    the suffix prefill before anything attends to them."""
+    ``tp``: the preamble's valid length (a host int or a 0-dim device
+    tensor), which becomes every row's lens; columns past it hold the prefix
+    block's padding and are overwritten by the suffix prefill before
+    anything attends to them."""
     Mp = prefix.capacity
     for dst, src in zip(_arrays(block), _arrays(prefix)):
         dst[:, :, :, :Mp] = src.to(dst.dtype)  # broadcast over the block's rows
-    lens = torch.full_like(block.lens, tp)
+    lens = torch.zeros_like(block.lens) + tp
     return dataclasses.replace(block, lens=lens)
+
+
+def _zeroed(block: KVCache) -> KVCache:
+    """``block``'s arrays zeroed in place, with lens 0: a fresh block, as
+    ``KVCache.create`` makes it, in storage a program keeps."""
+    for t in _arrays(block):
+        t.zero_()
+    return dataclasses.replace(block, lens=torch.zeros_like(block.lens))
+
+
+def _image_text_block(model: Bagel, block: KVCache, patch_tokens, vit_pos_ids, n_tokens,
+                      start_end_ids, rope_pos, token_ids=None, positions=None,
+                      valid=None) -> KVCache:
+    block = bagel._prefill_vit_rows(model, _zeroed(block), patch_tokens, vit_pos_ids, n_tokens,
+                                    start_end_ids, rope_pos)
+    if token_ids is None:
+        return block
+    return bagel._prefill_text(model, block, token_ids, positions, valid)
+
+
+def _block_maker(model: Bagel, P: int, capacity: int, device, kv_dtype, quantized: bool,
+                 kv_bits: int):
+    llm = model.config.llm
+    return lambda: KVCache.create(llm.num_hidden_layers, P, capacity, llm.num_key_value_heads,
+                                  llm.head_dim, kv_dtype, device=device, quantized=quantized,
+                                  kv_bits=kv_bits)
+
+
+@torch.no_grad()
+def image_text_block(
+    model: Bagel,
+    patch_tokens: torch.Tensor,  # [P, Tb, p*p*3] padded to one shared bucket
+    vit_pos_ids: torch.Tensor,  # [P, Tb]
+    n_tokens: torch.Tensor,  # [P]; 0 = inactive row
+    start_end_ids: torch.Tensor,  # [2]
+    token_ids: Optional[torch.Tensor] = None,  # [P, T_max], the text after each image
+    positions: Optional[torch.Tensor] = None,  # [P, T_max]
+    valid: Optional[torch.Tensor] = None,  # [P, T_max] bool
+    capacity: Optional[int] = None,
+    kv_dtype: torch.dtype = torch.bfloat16,
+    quantized: bool = False,
+    kv_bits: int = 8,
+    graphs: Optional[bool] = None,
+) -> KVCache:
+    """An image admission block: ``bagel.prefill_vit_group`` of P images
+    (rope 0) into a block of ``capacity`` columns (default Tb + 2), then,
+    with ``token_ids``, their text appended into the same block
+    (``bagel.prefill_text``; rope 1 on, the caller's ``positions``).
+    ``graphs`` (``inference.programs.use_graphs``): by default, on a CUDA
+    device, a ``bagel.PrefillProgram`` keyed by (P, bucket, T_max, the
+    block's kind), which zeroes and fills a block of its own and returns it
+    (valid until its next call: store it at once); ``graphs=False`` the
+    eager functions into a new block."""
+    P, Tb = patch_tokens.shape[:2]
+    kind = (P, Tb + 2 if capacity is None else capacity, kv_dtype, quantized, kv_bits)
+    inputs = dict(patch_tokens=patch_tokens, vit_pos_ids=vit_pos_ids, n_tokens=n_tokens,
+                  start_end_ids=start_end_ids,
+                  rope_pos=torch.zeros((P,), dtype=torch.int64, device=patch_tokens.device))
+    if token_ids is not None:
+        inputs.update(token_ids=token_ids, positions=positions, valid=valid)
+    return bagel._prefill("admit_image", model, _image_text_block, bagel._vit_modules(model),
+                          inputs, None, graphs, "block",
+                          dict(vit=1, prefill=1 + (token_ids is not None)), bake=kind,
+                          block=_block_maker(model, *kind[:2], patch_tokens.device, *kind[2:]),
+                          family="admission")
+
+
+def _text_block(model: Bagel, block: KVCache, token_ids, positions, valid, prefix_len=None,
+                **prefix) -> KVCache:
+    block = _zeroed(block)
+    if prefix:
+        pfx = KVCache(k=prefix["prefix_k"], v=prefix["prefix_v"], lens=block.lens[:1],
+                      k_scale=prefix.get("prefix_k_scale"), v_scale=prefix.get("prefix_v_scale"),
+                      kv_bits=block.kv_bits)
+        block = seed_prefix_block(block, pfx, prefix_len)
+    return bagel._prefill_text(model, block, token_ids, positions, valid)
+
+
+@torch.no_grad()
+def text_block(
+    model: Bagel,
+    token_ids: torch.Tensor,  # [P, T_max]
+    positions: torch.Tensor,  # [P, T_max]
+    valid: torch.Tensor,  # [P, T_max] bool
+    capacity: int,
+    prefix: Optional[KVCache] = None,
+    prefix_len=None,
+    kv_dtype: torch.dtype = torch.bfloat16,
+    quantized: bool = False,
+    kv_bits: int = 8,
+    graphs: Optional[bool] = None,
+) -> KVCache:
+    """A text admission block of ``capacity`` columns: with ``prefix`` (a
+    1-stream preamble cache, valid for ``prefix_len`` columns) its leading
+    columns seeded by :func:`seed_prefix_block`, then the [P, T_max]
+    prefill. ``graphs`` as for :func:`image_text_block`: a program per
+    (P, T_max, the preamble's width, the block's kind); the preamble is
+    copied into its buffers at every call."""
+    P = token_ids.shape[0]
+    kind = (P, capacity, kv_dtype, quantized, kv_bits)
+    inputs = dict(token_ids=token_ids, positions=positions, valid=valid)
+    if prefix is not None:
+        inputs.update(prefix_len=prefix_len, prefix_k=prefix.k, prefix_v=prefix.v)
+        if prefix.quantized:
+            inputs.update(prefix_k_scale=prefix.k_scale, prefix_v_scale=prefix.v_scale)
+    return bagel._prefill("admit_text", model, _text_block, (model.language_model,), inputs,
+                          None, graphs, "block", dict(prefill=1), bake=kind,
+                          block=_block_maker(model, P, capacity, token_ids.device, *kind[2:]),
+                          family="admission")
 
 
 def _step_logits(model: Bagel, cache: KVCache, cur: torch.Tensor, pos: torch.Tensor, **kw):
@@ -603,10 +716,12 @@ class ContinuousBatcher:
         ("data", "model") (see the module's docstring); ``model`` whole or
         already a rank's shard of it; a ``pipeline`` then has the same mesh
         and its shard serves both. Not with ``pool_ladder``. ``graphs``: the
-        decode chunks' route (``inference.programs.use_graphs``): by default a
-        captured :class:`ChunkProgram` (a speculative chunk: a
-        ``bagel.SpecProgram``) on a CUDA device without a mesh, one host read
-        a chunk; False the eager loops, one host read a step or a verify
+        route of the decode chunks and of admission
+        (``inference.programs.use_graphs``): by default a captured
+        :class:`ChunkProgram` (a speculative chunk: a ``bagel.SpecProgram``)
+        on a CUDA device without a mesh, one host read a chunk, and the
+        admission blocks' and the preambles' prefill programs; False the
+        eager loops and prefills, one host read a step or a verify
         forward."""
         if spec_decode and pool_ladder:
             raise ValueError("pool_ladder and spec_decode are not composed (nor in the JAX "
@@ -770,7 +885,7 @@ class ContinuousBatcher:
             llm.num_hidden_layers, 1, Tp_pad, llm.num_key_value_heads, llm.head_dim,
             device=self.device, **self._block_options())
         block = bagel.prefill_text(self.model, block, self._tensor(pad_ids),
-                                   self._tensor(pos), self._tensor(valid))
+                                   self._tensor(pos), self._tensor(valid), graphs=self.graphs)
         self._prefixes.append((block, Tp, ids))
         return len(self._prefixes) - 1
 
@@ -953,22 +1068,33 @@ class ContinuousBatcher:
         return dict(dtype=self.dtype, quantized=self.cache.quantized,
                     kv_bits=self.cache.kv_bits)
 
-    def _vit_group(self, preps, capacity: Optional[int] = None) -> KVCache:
-        """The grouped ViT prefill of same-bucket images (one row each, no
-        padding rows: the port compiles nothing per shape)."""
+    def _vit_group(self, preps, texts=None, capacity: Optional[int] = None) -> KVCache:
+        """The grouped ViT prefill of same-bucket images, P padded to a power
+        of two with inactive rows (n = 0, stored nowhere), as the JAX batcher
+        pads it, so that the programs stay few; with ``texts`` (ids,
+        positions, valid [P, T_max] numpy of the real rows) their text
+        appended into the same block (:func:`image_text_block`)."""
         P, bucket = len(preps), preps[0][3]
-        toks = torch.cat([prep[0] for prep in preps], dim=0)
-        pos = np.zeros((P, bucket), np.int64)
-        ns = np.zeros((P,), np.int64)
+        P_pad = 1 << (P - 1).bit_length()
+        rows = [prep[0] for prep in preps]
+        if P_pad > P:
+            rows.append(rows[0].new_zeros((P_pad - P,) + tuple(rows[0].shape[1:])))
+        toks = torch.cat(rows, dim=0)
+        pos = np.zeros((P_pad, bucket), np.int64)
+        ns = np.zeros((P_pad,), np.int64)
         for j, (_tok, ppos, n, _b) in enumerate(preps):
             pos[j] = ppos
             ns[j] = n
+        text = {}
+        if texts is not None:
+            text = {name: self._tensor(np.concatenate(
+                [a, np.zeros((P_pad - P,) + a.shape[1:], a.dtype)]))
+                for name, a in zip(("token_ids", "positions", "valid"), texts)}
         kind = self._block_options()
-        return bagel.prefill_vit_group(
-            self.model, toks, self._tensor(pos), self._tensor(ns), self._start_end(),
-            torch.zeros((P,), dtype=torch.int64, device=self.device),
-            kv_dtype=kind["dtype"], quantized=kind["quantized"], capacity=capacity,
-            kv_bits=kind["kv_bits"])
+        return image_text_block(
+            self.model, toks, self._tensor(pos), self._tensor(ns), self._start_end(), **text,
+            capacity=capacity, kv_dtype=kind["dtype"], quantized=kind["quantized"],
+            kv_bits=kind["kv_bits"], graphs=self.graphs)
 
     def _prefill_image_group(self, group) -> None:
         """The legacy pool path's image step: the grouped ViT prefill into a
@@ -1004,9 +1130,8 @@ class ContinuousBatcher:
             batch_ids[j, :T] = ids
             batch_pos[j, :T] = np.arange(1, 1 + T)  # rope 1 after the image
             batch_valid[j, :T] = True
-        block = self._vit_group([m[2] for m in members], capacity=bucket + 2 + T_max)
-        block = bagel.prefill_text(self.model, block, self._tensor(batch_ids),
-                                   self._tensor(batch_pos), self._tensor(batch_valid))
+        block = self._vit_group([m[2] for m in members], (batch_ids, batch_pos, batch_valid),
+                                capacity=bucket + 2 + T_max)
         self.cache = group_store(self.cache, block, self._local_slots(slots))
 
     def _admit_text_block(self, group, prefix_id: Optional[int] = None) -> None:
@@ -1036,14 +1161,12 @@ class ContinuousBatcher:
             batch_pos[j, :T] = np.arange(pos0, pos0 + T)
             batch_valid[j, :T] = True
             slots[j] = i
-        llm = self.cfg.llm
-        block = KVCache.create(
-            llm.num_hidden_layers, P, M_blk, llm.num_key_value_heads, llm.head_dim,
-            device=self.device, **self._block_options())
-        if prefix_id is not None:
-            block = seed_prefix_block(block, pfx_block, pos0)
-        block = bagel.prefill_text(self.model, block, self._tensor(batch_ids),
-                                   self._tensor(batch_pos), self._tensor(batch_valid))
+        kind = self._block_options()
+        block = text_block(
+            self.model, self._tensor(batch_ids), self._tensor(batch_pos),
+            self._tensor(batch_valid), M_blk, pfx_block if prefix_id is not None else None, pos0,
+            kv_dtype=kind["dtype"], quantized=kind["quantized"], kv_bits=kind["kv_bits"],
+            graphs=self.graphs)
         self.cache = group_store(self.cache, block, self._local_slots(slots))
 
     def _prefill_text_group(self, group, T_max: int) -> None:
@@ -1065,7 +1188,8 @@ class ContinuousBatcher:
             batch_pos[i, :T] = np.arange(rope0, rope0 + T)
             batch_valid[i, :T] = True
         self.cache = bagel.prefill_text(self.model, self.cache, self._tensor(batch_ids),
-                                        self._tensor(batch_pos), self._tensor(batch_valid))
+                                        self._tensor(batch_pos), self._tensor(batch_valid),
+                                        graphs=self.graphs, static=False)
 
     def _admit(self, throttle: bool = False):
         """Admit pending requests into free slots, in FIFO order.

@@ -4,7 +4,10 @@ greedy / sampled decode loops: the aligned-column decode, the
 contiguous-cache decode that keeps its answer in the cache, and the
 prompt-lookup speculative decode, greedy-exact against the latter) and the
 generation programs (the VAE image prefill, the rectified-flow loop with
-batched CFG, the VAE decode).
+batched CFG, the VAE decode). On a CUDA device each prefill and loop runs as
+a captured device program (:class:`PrefillProgram`, :class:`DecodeProgram`,
+:class:`SpecProgram`, :class:`FlowProgram`; ``inference/programs.py``), its
+eager function the plain version (``graphs=False``).
 
 ``Bagel`` holds every released weight under its released name: the Qwen2 MoT
 LLM with both experts, the SigLIP ViT, the connector and the frozen ViT
@@ -216,6 +219,13 @@ def vit_token_bucket(n: int) -> int:
     return ((n + 511) // 512) * 512
 
 
+def _prefill_text(model: Bagel, cache: KVCache, token_ids, positions, valid) -> KVCache:
+    lm = model.language_model
+    x = mot.embed_tokens(lm, token_ids)
+    _, cache = lm.model(x, positions, cache, causal=True, q_valid=valid)
+    return cache
+
+
 @torch.no_grad()
 def prefill_text(
     model: Bagel,
@@ -223,12 +233,27 @@ def prefill_text(
     token_ids: torch.Tensor,  # [S, T] trailing padding
     positions: torch.Tensor,  # [S, T]
     valid: torch.Tensor,  # [S, T] bool
+    graphs: Optional[bool] = None,
+    static: bool = True,
 ) -> KVCache:
-    """Causal text prefill (bagel.py:412-458)."""
-    lm = model.language_model
-    x = mot.embed_tokens(lm, token_ids)
-    _, cache = lm.model(x, positions, cache, causal=True, q_valid=valid)
-    return cache
+    """Causal text prefill (bagel.py:412-458).
+
+    ``graphs`` (``inference.programs.use_graphs``): by default, on a CUDA
+    device, a :class:`PrefillProgram` keyed by S, T and the cache's shape,
+    dtype and width: the ids, positions and mask copied into its buffers, the
+    caller's cache into the programs' own of its shape and the columns made
+    valid copied back; with ``static`` False over the caller's own arrays
+    (the batcher's pool), keyed by their storage. ``graphs=False``: the eager
+    forward, the program's plain version."""
+    return _prefill("text", model, _prefill_text, (model.language_model,),
+                    dict(token_ids=token_ids, positions=positions, valid=valid), cache, graphs,
+                    "static" if static else "caller", dict(prefill=1), token_ids.shape[1])
+
+
+def _prefill_vit_bucketed(model: Bagel, cache: KVCache, patch_tokens, vit_pos_ids, n_tokens,
+                          start_end_ids, rope_pos) -> KVCache:
+    return _prefill_vit_rows(model, cache, patch_tokens, vit_pos_ids, n_tokens.reshape(1),
+                             start_end_ids, rope_pos.reshape(1))
 
 
 @torch.no_grad()
@@ -237,26 +262,48 @@ def prefill_vit_bucketed(
     cache: KVCache,
     patch_tokens: torch.Tensor,  # [1, Tb, p*p*3] padded to a bucket
     vit_pos_ids: torch.Tensor,  # [1, Tb]
-    n_tokens: int,  # actual patch count (<= Tb)
+    n_tokens,  # actual patch count (<= Tb): a host int or a 0-dim device tensor
     start_end_ids: torch.Tensor,  # [2] (<vision_start>, <vision_end>)
-    rope_pos: int,
+    rope_pos,  # a host int or a 0-dim device tensor
+    graphs: Optional[bool] = None,
 ) -> KVCache:
     """ViT image prefill, non-causal (bagel.py:523-615), over a padded bucket:
-    <vision_end> sits at row n + 1 and rows >= n + 2 are masked (their cache
-    columns are overwritten by the next append)."""
+    <vision_end> sits at row n + 1 (placed by ``torch.where`` on the row
+    index) and rows >= n + 2 are masked (their cache columns are overwritten
+    by the next append). ``n_tokens`` and ``rope_pos`` are device tensors
+    within, as the JAX package traces them, so the program
+    (:class:`PrefillProgram`, by default on a CUDA device; ``graphs`` as for
+    :func:`prefill_text`: the ViT, the connector, the position add and the
+    und prefill in one graph) captures once a bucket and capacity and serves
+    every image of them."""
+    return _prefill("vit", model, _prefill_vit_bucketed, _vit_modules(model),
+                    dict(patch_tokens=patch_tokens, vit_pos_ids=vit_pos_ids, n_tokens=n_tokens,
+                         start_end_ids=start_end_ids, rope_pos=rope_pos),
+                    cache, graphs, "static", dict(vit=1, prefill=1), patch_tokens.shape[1] + 2)
+
+
+def _prefill_vit_rows(model: Bagel, cache: KVCache, patch_tokens, vit_pos_ids, n_tokens,
+                      start_end_ids, rope_pos) -> KVCache:
+    """P images of one bucket, one a row, appended to ``cache`` at its lens:
+    [<vision_start>, tokens..., <vision_end>] at row i's rope position, the
+    end row placed by ``torch.where`` on the row index, rows past n_i + 2
+    masked; n_i = 0 is an inactive row, whose lens do not advance."""
     lm = model.language_model
-    Tb = patch_tokens.shape[1]
+    P, Tb = patch_tokens.shape[:2]
     T = Tb + 2
     device = patch_tokens.device
-    vit_valid = (torch.arange(Tb, device=device) < n_tokens)[None]
+    n = n_tokens.to(device=device, dtype=torch.int64)
+    active = n > 0
+    vit_valid = (torch.arange(Tb, device=device)[None] < n[:, None]) & active[:, None]
     vit_embed = encode_vit_tokens(model, patch_tokens, vit_pos_ids, vit_valid)
     se = mot.embed_tokens(lm, start_end_ids).to(vit_embed.dtype)
-    x = torch.zeros(1, T, vit_embed.shape[-1], dtype=vit_embed.dtype, device=device)
-    x[0, 0] = se[0]
-    x[0, 1:Tb + 1] = vit_embed[0]
-    x[0, n_tokens + 1] = se[1]
-    q_valid = (torch.arange(T, device=device) < n_tokens + 2)[None]
-    positions = torch.full((1, T), rope_pos, dtype=torch.int64, device=device)
+    # rows: 0 = start, 1..Tb = vit (garbage past n_i, masked), n_i + 1 = end
+    x = F.pad(vit_embed, (0, 0, 1, 1))
+    x[:, 0] = se[0]
+    is_end = torch.arange(T, device=device)[None, :, None] == (n[:, None, None] + 1)
+    x = torch.where(is_end, se[1], x)
+    q_valid = (torch.arange(T, device=device)[None] < n[:, None] + 2) & active[:, None]
+    positions = rope_pos.to(device=device, dtype=torch.int64)[:, None]
     _, cache = lm.model(x, positions, cache, causal=False, q_valid=q_valid)
     return cache
 
@@ -281,31 +328,161 @@ def prefill_vit_group(
     serving appends into the same block). Row i holds [<vision_start>,
     tokens..., <vision_end>] with lens n_i + 2, or lens 0 for an inactive
     row; the caller stores the block into its slot pool
-    (``inference.serving.group_store``)."""
-    lm = model.language_model
-    P, Tb = patch_tokens.shape[:2]
-    T = Tb + 2
-    device = patch_tokens.device
-    n = n_tokens.to(device=device, dtype=torch.int64)
-    active = n > 0
-    vit_valid = (torch.arange(Tb, device=device)[None] < n[:, None]) & active[:, None]
-    vit_embed = encode_vit_tokens(model, patch_tokens, vit_pos_ids, vit_valid)
-    se = mot.embed_tokens(lm, start_end_ids).to(vit_embed.dtype)
-    # rows: 0 = start, 1..Tb = vit (garbage past n_i, masked), n_i + 1 = end
-    x = F.pad(vit_embed, (0, 0, 1, 1))
-    x[:, 0] = se[0]
-    is_end = torch.arange(T, device=device)[None, :, None] == (n[:, None, None] + 1)
-    x = torch.where(is_end, se[1], x)
-    q_valid = (torch.arange(T, device=device)[None] < n[:, None] + 2) & active[:, None]
+    (``inference.serving.group_store``). The batcher's admission runs it,
+    with the text append, as a program (``serving.image_text_block``)."""
     llm = model.config.llm
-    cache = KVCache.create(
-        llm.num_hidden_layers, P, T if capacity is None else capacity,
-        llm.num_key_value_heads, llm.head_dim, kv_dtype, device=device,
+    P, Tb = patch_tokens.shape[:2]
+    block = KVCache.create(
+        llm.num_hidden_layers, P, Tb + 2 if capacity is None else capacity,
+        llm.num_key_value_heads, llm.head_dim, kv_dtype, device=patch_tokens.device,
         quantized=quantized, kv_bits=kv_bits,
     )
-    positions = rope_pos.to(device=device, dtype=torch.int64)[:, None]
-    _, cache = lm.model(x, positions, cache, causal=False, q_valid=q_valid)
-    return cache
+    return _prefill_vit_rows(model, block, patch_tokens, vit_pos_ids, n_tokens, start_end_ids,
+                             rope_pos)
+
+
+def _vit_modules(model: Bagel) -> tuple:
+    """The modules an image prefill reads: the LLM, the ViT, the connector
+    and the ViT position table."""
+    return (model.language_model, model.vit_model, model.connector, model.vit_pos_embed)
+
+
+def _scalar(x, device: torch.device) -> torch.Tensor:
+    """A host int as a 0-dim int64 tensor filled on ``device`` (no
+    host-to-device copy); a tensor as it is."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.full((), int(x), dtype=torch.int64, device=device)
+
+
+def _prefill(name: str, model: Bagel, fn, modules: tuple, inputs: dict, cache, graphs,
+             storage: Optional[str], forwards: dict, width: int = 0, out=None, bake=(),
+             block=None, family: Optional[str] = None):
+    """``fn(model, cache, **inputs)`` by the route of ``graphs``
+    (``inference.programs.use_graphs``): its :class:`PrefillProgram`, or
+    the eager call, host ints among the inputs as 0-dim device tensors."""
+    from unimedvl_tpu_torch.inference import programs
+
+    device = next(v.device for v in inputs.values() if isinstance(v, torch.Tensor))
+    if programs.use_graphs(graphs, device, model):
+        prog = PrefillProgram.get(name, model, fn, modules, inputs, cache, storage, forwards,
+                                  width, out, bake, block, family)
+        return prog.run(cache, **inputs)
+    if block is not None:
+        cache = block()
+    return fn(model, cache, **{k: _scalar(v, device) for k, v in inputs.items()})
+
+
+class PrefillProgram:
+    """A prefill as a device program (the JAX package jits each prefill per
+    shape): one captured graph ("prefill") runs the eager function over
+    static input buffers, into which every call copies its inputs (token
+    ids, positions and masks, patch or latent tokens, the posterior noise;
+    row counts, rope positions and <vision_end> rows as 0-dim tensors,
+    filled), so one capture serves every input of its shapes: every image
+    of a bucket. The cache it writes, by ``storage``:
+
+    - "static": the programs' shared cache of the caller's shape, dtype and
+      width (:func:`static_cache`, as :class:`DecodeProgram`'s). The caller's
+      is copied in at every call and the columns the prefill made valid,
+      [lens, new lens) of each stream, are copied back into the caller's
+      storage, where the eager prefill writes them. A chat's context is new
+      at every request and at every 512-column bucket it grows to
+      (``InterleaveInferencer._ensure_capacity``): a program keyed by its
+      storage would capture once a request, one keyed by its shape once.
+    - "caller": the caller's own arrays (the batcher's pool, which persists
+      across rounds), keyed by their storage; ``serving.repack_pool`` drops
+      the program.
+    - "block": a block cache of the program's own, made by ``block()``,
+      which the function zeroes and fills (the batcher's admission blocks,
+      which the eager route creates anew), returned; valid until the
+      program's next call.
+    - None: no cache (the VAE encode); the result is a tensor of
+      ``out = (shape, dtype)``, returned as a copy.
+
+    The graph writes only where the eager function writes, and its warm-up
+    writes the columns its replay then rewrites. Keyed by the flavour, the
+    inputs' shapes and dtypes, the cache (its kind, or its storage for
+    "caller"), what the function bakes in (``bake``) and the weights of
+    ``modules``; a ``family`` bounds how many stay
+    (``programs.FAMILY_LIMITS``)."""
+
+    def __init__(self, model: Bagel, fn, inputs: dict, cache: Optional[KVCache],
+                 storage: Optional[str], forwards: dict, width: int, out, block):
+        from unimedvl_tpu_torch.inference import programs
+
+        device = next(v.device for v in inputs.values() if isinstance(v, torch.Tensor))
+        self._model = programs.model_ref(model)
+        self.fn, self.storage, self.width = fn, storage, width
+        self.inputs = {k: torch.zeros_like(v) if isinstance(v, torch.Tensor)
+                       else torch.zeros((), dtype=torch.int64, device=device)
+                       for k, v in inputs.items()}
+        self.cache = static_cache(cache) if storage == "static" else (
+            block() if storage == "block" else None)
+        like = self.cache if self.cache is not None else cache
+        self.lens = None if like is None else torch.zeros_like(like.lens)
+        self.new_lens = None if like is None else torch.zeros_like(like.lens)
+        self.out = None if out is None else torch.zeros(out[0], dtype=out[1], device=device)
+        rows = 0 if like is None else like.lens.shape[0]
+        self.graph = programs.Graph("prefill", self._body, device, rows=rows, forwards=forwards)
+
+    @classmethod
+    def get(cls, name: str, model: Bagel, fn, modules: tuple, inputs: dict, cache, storage,
+            forwards: dict, width: int, out, bake, block, family):
+        from unimedvl_tpu_torch.inference import programs
+
+        shapes = tuple((k, tuple(v.shape), v.dtype, v.device) if isinstance(v, torch.Tensor)
+                       else (k, int) for k, v in inputs.items())
+        key = ("prefill", name, storage, shapes, bake, programs.weights_key(*modules))
+        reads = modules
+        if storage == "static":
+            key += (_cache_kind(cache),)
+        elif storage == "caller":
+            arrays = _cache_arrays(cache)
+            key += (cache.kv_bits, cache.lens.dtype, programs.tensors_key(arrays))
+            reads += (arrays,)
+        return programs.lookup(key, lambda: cls(model, fn, inputs, cache, storage, forwards,
+                                                width, out, block),
+                               reads=reads, owner=model.language_model, family=family)
+
+    def graphs(self):
+        return [self.graph]
+
+    def _body(self) -> None:
+        cache = None if self.cache is None else dataclasses.replace(self.cache, lens=self.lens)
+        got = self.fn(self._model(), cache, **self.inputs)
+        if self.out is not None:
+            self.out.copy_(got)
+        else:
+            self.new_lens.copy_(got.lens)
+
+    def run(self, cache: Optional[KVCache] = None, **inputs):
+        """The prefill of ``inputs`` into ``cache`` (see the class's
+        docstring); the cache with its new lens, the block, or the tensor."""
+        for k, v in inputs.items():
+            if isinstance(v, torch.Tensor):
+                self.inputs[k].copy_(v)
+            else:
+                self.inputs[k].fill_(v)
+        if self.storage == "static":
+            _copy_cache(self.cache, cache)
+        elif self.storage == "caller":
+            self.cache = cache
+        if self.storage in ("static", "caller"):
+            self.lens.copy_(cache.lens)
+        try:
+            self.graph.replay()
+        finally:
+            if self.storage == "caller":
+                self.cache = None
+        if self.out is not None:
+            return self.out.clone()
+        lens = self.new_lens.clone()
+        if self.storage == "block":
+            return dataclasses.replace(self.cache, lens=lens)
+        if self.storage == "static":
+            _copy_columns(cache, self.cache, cache.lens, lens, self.width)
+        return dataclasses.replace(cache, lens=lens)
 
 
 def _exp_noise(like: torch.Tensor, generator) -> torch.Tensor:
@@ -1019,13 +1196,7 @@ def preprocess_vae_image(image_u8: torch.Tensor) -> torch.Tensor:
     return ((x - 0.5) / 0.5).permute(2, 0, 1)[None]
 
 
-@torch.no_grad()
-def encode_vae_latent_tokens(
-    model: Bagel, image: torch.Tensor, noise: Optional[torch.Tensor] = None
-) -> torch.Tensor:
-    """VAE-encode image [1, 3, H, W] and patchify the latent into
-    [1, h*w, p*p*z] tokens in (p, q, channel) order (bagel.py:757-776).
-    ``noise`` [1, z, H/8, W/8] draws the posterior sample; None takes the mean."""
+def _encode_vae_latent_tokens(model: Bagel, cache, image, noise=None) -> torch.Tensor:
     z = model.vae_model.encode(image, noise).permute(0, 2, 3, 1)  # NHWC
     p = model.config.latent_patch_size
     n, h, w, c = z.shape
@@ -1033,22 +1204,40 @@ def encode_vae_latent_tokens(
     return z.reshape(n, (h // p) * (w // p), p * p * c)
 
 
+@torch.no_grad()
+def encode_vae_latent_tokens(
+    model: Bagel, image: torch.Tensor, noise: Optional[torch.Tensor] = None,
+    graphs: Optional[bool] = None,
+) -> torch.Tensor:
+    """VAE-encode image [1, 3, H, W] and patchify the latent into
+    [1, h*w, p*p*z] tokens in (p, q, channel) order (bagel.py:757-776).
+    ``noise`` [1, z, H/8, W/8] draws the posterior sample; None takes the mean.
+    ``graphs`` as for :func:`prefill_text`: by default on a CUDA device a
+    :class:`PrefillProgram` keyed by the image's shape (the image and the
+    noise copied into its buffers; the noise is drawn by the caller)."""
+    cfg = model.config
+    p, ds = cfg.latent_patch_size, cfg.vae.downsample
+    h, w = image.shape[2] // ds, image.shape[3] // ds
+    out = ((1, (h // p) * (w // p), p * p * cfg.vae.z_channels), torch.float32)
+    inputs = dict(image=image) if noise is None else dict(image=image, noise=noise)
+    return _prefill("vae_encode", model, _encode_vae_latent_tokens, (model.vae_model,), inputs,
+                    None, graphs, None, {}, out=out)
+
+
 def _vae_block(model: Bagel, latent_tokens, latent_pos_ids, start_end_ids, n_tokens, timestep):
     """The gen block [1, Nb + 2, C]: <vision_start>, the latent tokens
     (vae2llm + timestep embedding + position, in fp32, then rounded to the
-    model dtype), <vision_end> at row n_tokens + 1."""
+    model dtype), <vision_end> at row n_tokens + 1 (a host int or a 0-dim
+    device tensor; placed by ``torch.where`` on the row index)."""
     lm = model.language_model
     t = torch.full((1,), float(timestep), dtype=torch.float32, device=latent_tokens.device)
     x_lat = _linear(latent_tokens.float(), model.vae2llm) + time_embed(model, t)[:, None]
     x_lat = x_lat + model.latent_pos_embed.pos_embed[latent_pos_ids]
     se = mot.embed_tokens(lm, start_end_ids)
-    x_lat = x_lat.to(se.dtype)
-    x = torch.zeros(1, x_lat.shape[1] + 2, x_lat.shape[-1], dtype=se.dtype,
-                    device=x_lat.device)
-    x[0, 0] = se[0]
-    x[0, 1:x_lat.shape[1] + 1] = x_lat[0]
-    x[0, n_tokens + 1] = se[1]
-    return x
+    x = F.pad(x_lat.to(se.dtype), (0, 0, 1, 1))
+    x[:, 0] = se[0]
+    rows = torch.arange(x.shape[1], device=x.device)[None, :, None]
+    return torch.where(rows == n_tokens + 1, se[1], x)
 
 
 @torch.no_grad()
@@ -1069,30 +1258,47 @@ def prefill_vae(
     return cache
 
 
+def _prefill_vae_bucketed(model: Bagel, cache: KVCache, latent_tokens, latent_pos_ids, n_tokens,
+                          start_end_ids, rope_pos, timestep: float = 0.0) -> KVCache:
+    x = _vae_block(model, latent_tokens, latent_pos_ids, start_end_ids, n_tokens, timestep)
+    T = x.shape[1]
+    q_valid = (torch.arange(T, device=x.device) < n_tokens + 2)[None]
+    _, cache = model.language_model.model(
+        x, rope_pos.reshape(1, 1), cache, causal=False, q_valid=q_valid, mode="gen",
+        gen_end_row=n_tokens + 1,
+    )
+    return cache
+
+
 @torch.no_grad()
 def prefill_vae_bucketed(
     model: Bagel,
     cache: KVCache,
     latent_tokens: torch.Tensor,  # [1, Nb, p*p*z] padded to a bucket
     latent_pos_ids: torch.Tensor,  # [1, Nb]
-    n_tokens: int,  # actual latent count (<= Nb)
+    n_tokens,  # actual latent count (<= Nb): a host int or a 0-dim device tensor
     start_end_ids: torch.Tensor,  # [2]
-    rope_pos: int,
+    rope_pos,  # a host int or a 0-dim device tensor
     timestep: float = 0.0,
+    graphs: Optional[bool] = None,
 ) -> KVCache:
     """VAE image prefill over a padded bucket: <vision_end> sits at row
-    n + 1, which the MoT routes to the und expert, and rows >= n + 2 are
-    masked (their cache columns are overwritten by the next append). The
-    caller provides capacity for the whole padded block."""
-    x = _vae_block(model, latent_tokens, latent_pos_ids, start_end_ids, n_tokens, timestep)
-    T = x.shape[1]
-    q_valid = (torch.arange(T, device=x.device) < n_tokens + 2)[None]
-    positions = torch.full((1, 1), rope_pos, dtype=torch.int64, device=x.device)
-    _, cache = model.language_model.model(
-        x, positions, cache, causal=False, q_valid=q_valid, mode="gen",
-        gen_end_row=n_tokens + 1,
-    )
-    return cache
+    n + 1, which the MoT routes to the und expert (``gen_end_row``, a device
+    tensor: ``qwen2_mot._mot_rows`` gathers it by index, K1b reads it from
+    the device), and rows >= n + 2 are masked (their cache columns are
+    overwritten by the next append). The caller provides capacity for the
+    whole padded block. ``graphs`` as for :func:`prefill_vit_bucketed`: one
+    capture serves every latent count of a bucket (``timestep`` is baked
+    in)."""
+    def fn(model, cache, **kw):
+        return _prefill_vae_bucketed(model, cache, **kw, timestep=timestep)
+
+    mods = (model.language_model, model.vae2llm, model.time_embedder, model.latent_pos_embed)
+    return _prefill("vae", model, fn, mods,
+                    dict(latent_tokens=latent_tokens, latent_pos_ids=latent_pos_ids,
+                         n_tokens=n_tokens, start_end_ids=start_end_ids, rope_pos=rope_pos),
+                    cache, graphs, "static", dict(prefill=1, gen=1),
+                    latent_tokens.shape[1] + 2, bake=(float(timestep),))
 
 
 def _cfg_combine(

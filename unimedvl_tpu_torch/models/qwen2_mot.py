@@ -248,14 +248,25 @@ def _decode_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, bits: Optional[int]
     return k_cache, v_cache
 
 
-def _mot_rows(x, und_fn, gen_fn, gen: bool, end_row: Optional[int]) -> torch.Tensor:
+def _mot_rows(x, und_fn, gen_fn, gen: bool, end_row) -> torch.Tensor:
     """In gen mode, ``gen_fn`` on every row of x [S, T, ...] and ``und_fn``
     on the text rows 0 and ``end_row`` (None: T - 1), which overwrite; in und
     mode ``und_fn`` on every row. The text rows go through ``und_fn`` in one
-    call, so the understanding expert's weights are read once."""
+    call, so the understanding expert's weights are read once.
+
+    ``end_row``: a host int, or a 0-dim or one-element integer tensor on x's
+    device, one row for every stream (a bucketed block's <vision_end>, which
+    a device program takes as an input, as the JAX package traces it): that
+    row is gathered and written back by index (``index_select`` /
+    ``index_copy_``), the same values as the slices of a host int."""
     if not gen:
         return und_fn(x)
     y = gen_fn(x)
+    if isinstance(end_row, torch.Tensor):
+        end = end_row.reshape(1).to(torch.int64)
+        text_y = und_fn(torch.cat([x[:, :1], x.index_select(1, end)], dim=1)).to(y.dtype)
+        y[:, :1] = text_y[:, :1]
+        return y.index_copy_(1, end, text_y[:, 1:])
     end = x.shape[1] - 1 if end_row is None else end_row
     text_y = und_fn(torch.cat([x[:, :1], x[:, end:end + 1]], dim=1)).to(y.dtype)
     y[:, :1] = text_y[:, :1]
@@ -491,7 +502,8 @@ class Qwen2MoTModel(nn.Module):
         advance and the mask admits [0, lens) plus [base, col].
 
         ``mode="gen"``: the gen packing contract, with the <vision_end> row at
-        ``gen_end_row`` (a host int, for a trailing-padded block) or T - 1.
+        ``gen_end_row`` (a host int or a 0-dim device tensor, for a
+        trailing-padded block) or T - 1.
         ``update_cache=False``: the block attends to cache plus itself and the
         cache comes back as it was.
         """

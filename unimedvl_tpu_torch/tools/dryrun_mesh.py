@@ -481,6 +481,19 @@ def tp_chat_rank(rank: int, world: int, cfg: BagelConfig, seed: int, image, prom
     return out
 
 
+def tp_chat_and_load_rank(rank: int, world: int, chat_args: tuple, load_args: tuple) -> Dict:
+    """:func:`tp_chat_rank` and then, its model freed, :func:`tp_load_rank`
+    in one rank process: one spawn (process start, CUDA and the gloo group)
+    for both programs. Returns {"chat": ..., "load": ...}."""
+    import gc
+
+    out = {"chat": tp_chat_rank(rank, world, *chat_args)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["load"] = tp_load_rank(rank, world, *load_args)
+    return out
+
+
 def _smoke_tokenizer():
     from unimedvl_tpu_torch.data.tokenizer import ByteTokenizer, add_special_tokens
 

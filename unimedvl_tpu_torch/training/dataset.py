@@ -354,7 +354,8 @@ def make_latent_fn(model):
     def latent_fn(image_u8: np.ndarray) -> np.ndarray:
         img = bagel.preprocess_vae_image(torch.from_numpy(np.array(image_u8))
                                          .to(device))
-        toks = bagel.encode_vae_latent_tokens(model, img, None)
+        # eager: the packing worker meets each image geometry once, off the main thread
+        toks = bagel.encode_vae_latent_tokens(model, img, None, graphs=False)
         return toks[0].float().cpu().numpy()
 
     return latent_fn
