@@ -67,15 +67,19 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   (one card holds one rank) on a one-rank NCCL group, so that the collective
   calls really run (a group that cannot start fails the run), every layer's
   attention as a cache partial and a block partial (K1c twice) merged by
-  their log-sum-exps;
+  their log-sum-exps; each flow step a captured graph
+  (``sp_denoise.SPProgram``, the collectives inside it), the text-to-image
+  denoise once more by the eager loop;
 - the serving paths under ``mesh=`` (M13's serving side) on a one-rank
-  ("data", "model") NCCL mesh over the same model: the three chat requests,
-  run A's 24 requests through ``ContinuousBatcher(mesh=...)``, run F's bf16
-  eval through ``run_vqa_eval(mesh=...)`` and a 512x512 text-to-image request
-  (11 timesteps) through ``gen_images_grouped`` on a 1 x 1 x 1 ("data",
-  "model", "seq") mesh, each equal to the same call without the mesh;
-  tensor parallelism
-  over two processes sharing the card (gloo; each builds only its shard of
+  ("data", "model") NCCL mesh over the same model, by their captured
+  programs (every collective inside the graphs) and once eagerly: the three
+  chat requests, run A's 24 requests through ``ContinuousBatcher(mesh=...)``,
+  run F's bf16 eval through ``run_vqa_eval(mesh=...)`` and a 512x512
+  text-to-image request (11 timesteps) through ``gen_images_grouped`` on a
+  1 x 1 x 1 ("data", "model", "seq") mesh, each equal to the same call
+  without the mesh and to its eager route; tensor parallelism
+  over two processes sharing the card (gloo, eagerly: no graph captures a
+  host-staged collective; each builds only its shard of
   the same seeded weights): the 980x980 chat request in bf16 and in w4a8
   (K4 at the shard shapes, K3's second entry with the row scales all-reduced
   with MAX), held to the one-rank model; the sharded loader on a 2-layer
@@ -1314,8 +1318,10 @@ def trace_decode_step(inf: InterleaveInferencer, request: int, path: str) -> dic
     request's decode program (an end token that never comes) in a
     ``torch.profiler`` trace; busy time from the trace's kernel events (the
     union of their intervals), idle share against the wall of the same steps
-    without the profiler (median of 3). Prints and returns the row."""
-    from unimedvl_tpu_torch.tools.profile_decode_step import _summarise
+    without the profiler (median of 3); on a mesh, NCCL's kernels apart and
+    the collectives' breakdown (``collective_stats``). Prints and returns the
+    row."""
+    from unimedvl_tpu_torch.tools.profile_decode_step import KINDS, _summarise, collective_stats
 
     h, w, prompt = REQUESTS[request]
     ctx = inf.init_gen_context()
@@ -1346,7 +1352,10 @@ def trace_decode_step(inf: InterleaveInferencer, request: int, path: str) -> dic
         from pathlib import Path
         wall_ms = 1e3 * statistics.median(walls) / TRACE_STEPS
         row = dict(card=CARD, route="graphed", image=f"{h}x{w}", steps=TRACE_STEPS,
-                   wall_ms=wall_ms, **_summarise(Path(trace), TRACE_STEPS, wall_ms))
+                   wall_ms=wall_ms, **_summarise(Path(trace), TRACE_STEPS, wall_ms,
+                                                 KINDS + [("nccl", ("nccl",))]))
+        if inf.mesh is not None:
+            row["collectives"] = collective_stats(Path(trace), TRACE_STEPS)
     row.pop("k4_by_grid", None)
     print(f"  {path}: graphed decode step, traced: {json.dumps(row)}", flush=True)
     return row
@@ -3585,29 +3594,34 @@ class StepTimer:
         programs.listeners.remove(self._replay)
 
 
-class SPStepTimer:
-    """StepTimer's counterpart for the sequence-parallel denoise, which runs
-    the decoder layers itself: stamps (synchronised) before a step's first
-    layer and after its last."""
+class SPStepTimer(StepTimer):
+    """StepTimer for the sequence-parallel denoise, which runs the decoder
+    layers itself: an eager step is stamped (synchronised) before its first
+    layer and after its last; a captured step (``sp_denoise.SPProgram``) at
+    the end of its replay, as StepTimer stamps a flow step (the layers run
+    in the graph; a warm-up or capture is not stamped)."""
 
     def __init__(self, lm_model):
-        self.steps = []  # (start, end, streams)
-        self._start = None
+        super().__init__(lm_model)
         self._last = len(lm_model.layers) - 1
         self._layer = sp_denoise._sp_decoder_layer
         sp_denoise._sp_decoder_layer = self._timed
 
     def _timed(self, x, *args, layer_idx=None, **kw):
+        if programs.capturing():
+            return self._layer(x, *args, layer_idx=layer_idx, **kw)
         if layer_idx == 0:
             torch.cuda.synchronize()
             self._start = time.perf_counter()
         out = self._layer(x, *args, layer_idx=layer_idx, **kw)
         if layer_idx == self._last:
             torch.cuda.synchronize()
-            self.steps.append((self._start, time.perf_counter(), x.shape[0]))
+            self._mark = time.perf_counter()
+            self.steps.append((self._start, self._mark, x.shape[0]))
         return out
 
     def remove(self):
+        super().remove()
         sp_denoise._sp_decoder_layer = self._layer
 
 
@@ -4349,15 +4363,22 @@ print("ok")
 
 
 def run_sp_generation(inf: InterleaveInferencer, mesh, plain_rows: dict) -> dict:
-    """The sequence-parallel denoise path on the 1 x 1 mesh: the text-to-image
-    request and the edit through an inferencer with ``sp_mesh``, timed beside
-    ``plain_rows`` (the same requests without it, earlier in this run); then
-    the path against the single-device one on the same inputs: the final
-    latent of the text-to-image request's denoise (all 49 steps) against
-    ``bagel.generate_latents`` on its contexts and noise, and the first
-    post-CFG velocity, the latter also against the plain versions."""
+    """The sequence-parallel denoise path on the 1 x 1 mesh of one-rank NCCL
+    groups: the text-to-image request and the edit through an inferencer with
+    ``sp_mesh``, by the default route (the captured ``sp_denoise.SPProgram``,
+    every collective in its graphs), timed beside ``plain_rows`` (the same
+    requests without it, earlier in this run); then the path against the
+    single-device one on the same inputs: the final latent of the
+    text-to-image request's denoise (all 49 steps) against
+    ``bagel.generate_latents`` on its contexts and noise and against the same
+    denoise by the eager loop (``graphs=False``, bit for bit; timed: ms per
+    step both ways), and the first post-CFG velocity, the latter also against
+    the plain versions."""
     sp_inf = InterleaveInferencer(inf.model, inf.tokenizer, inf.new_token_ids,
                                   vit_transform=inf.vit_transform, seed=SEED, sp_mesh=mesh)
+    if not programs.use_graphs(None, torch.device("cuda"), inf.model, mesh):
+        raise SystemExit("chip_smoke: the NCCL sp_mesh does not take the SP program")
+    captures = (programs.stats["captures"], programs.stats["collective_captures"])
     calls = []  # each full-depth SP denoise of the requests: its inputs and its latent
     tp_sp = sp_denoise.generate_latents_tp_sp
 
@@ -4376,11 +4397,40 @@ def run_sp_generation(inf: InterleaveInferencer, mesh, plain_rows: dict) -> dict
     for name, row in rows.items():
         base = plain_rows[name]
         print(f"  {name}: " + "; ".join(
-            f"{key} {row[key]:.3f} with sp_mesh, {base[key]:.3f} without"
+            f"{key} {row[key]:.3f} with sp_mesh (graphed), {base[key]:.3f} without"
             for key in ("s_per_image", "denoise_s", "ms_per_3_stream_step",
-                        "ms_per_1_stream_step")), flush=True)
+                        "ms_per_1_stream_step")) + f" ({CARD})", flush=True)
+    print(f"  SP programs: {programs.stats['captures'] - captures[0]} captures, of which "
+          f"{programs.stats['collective_captures'] - captures[1]} hold collectives", flush=True)
     # the text-to-image request's own denoise against the single-device loop on its inputs
     model, caches, positions, pos_ids, noise, se, kw, x_sp = calls[0]
+    # ... and against the eager loop on the same inputs, timed (one rank: the same sums)
+    timer = SPStepTimer(model.language_model.model)
+    n = pmesh.counts["collectives"]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_eager = tp_sp(model, caches, positions, pos_ids, noise, se, mesh,
+                        **dict(kw, graphs=False))
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+    finally:
+        timer.remove()
+    collectives = pmesh.counts["collectives"] - n
+    eager_ms = {k: 1e3 * statistics.median(b - a for a, b, st in timer.steps if st == k)
+                for k in (3, 1) if any(st == k for _, _, st in timer.steps)}
+    row = rows["text-to-image"]
+    cos = _cosine(x_sp, x_eager)
+    print(f"  text-to-image denoise, graphed vs eager SP loop: final latent equal "
+          f"{torch.equal(x_sp, x_eager)}, cosine {cos:.6f}, max abs "
+          f"{(x_sp - x_eager).abs().max().item():.3g}; denoise s {row['denoise_s']:.3f} graphed, "
+          f"{eager_s:.3f} eager ({collectives} collectives); ms per 3-stream step "
+          f"{row['ms_per_3_stream_step']:.2f} graphed / {eager_ms.get(3, float('nan')):.2f} eager "
+          f"/ {plain_rows['text-to-image']['ms_per_3_stream_step']:.2f} one device; 1-stream "
+          f"{row['ms_per_1_stream_step']:.2f} / {eager_ms.get(1, float('nan')):.2f} / "
+          f"{plain_rows['text-to-image']['ms_per_1_stream_step']:.2f} ({CARD})", flush=True)
+    if not torch.equal(x_sp, x_eager):  # the same kernels on the same inputs, in one order
+        raise SystemExit("chip_smoke: the captured SP denoise differs from the eager loop")
     x_one = bagel.generate_latents(model, caches, positions, pos_ids, noise, se, **kw)
     cos, finite = _cosine(x_sp, x_one), bool(torch.isfinite(x_sp).all())
     moved = (x_one - noise).std().item()
@@ -4624,20 +4674,29 @@ CHAT_ROWS = []  # the bf16 chat path's rows (run_main_path), beside the mesh cha
 
 def _mesh_chat(inf: InterleaveInferencer, mesh) -> dict:
     """The three chat requests through ``InterleaveInferencer(mesh=...)`` on
-    the one-rank mesh over ``inf.model`` (the eager route: a mesh runs no
-    graph), once: the launches of K1a and K2, answer ids (kept by the pass)
-    equal to chat's without the mesh, ms per decode step beside the no-mesh
-    path's (56 all-reduces a step, and the vocab gather)."""
+    the one-rank NCCL mesh over ``inf.model``, by the default route (the
+    captured programs, the collectives in their graphs) and then eagerly
+    (:func:`run_chat_requests`: answers token for token, launches equal, the
+    graphed decode step traced): answer ids equal to chat's without the
+    mesh, ms per decode step graphed / eager / without the mesh (56
+    all-reduces a step, the embedding's sum and the vocab gather)."""
     minf = InterleaveInferencer(inf.model, inf.tokenizer, inf.new_token_ids,
                                 vit_transform=inf.vit_transform, seed=SEED, mesh=mesh)
+    if not programs.use_graphs(None, minf.device, minf.model):
+        raise SystemExit("chip_smoke: a model on the NCCL mesh does not take its programs")
     images = _images()
     rows = []
     n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
+    captures = (programs.stats["captures"], programs.stats["collective_captures"])
+    n = pmesh.counts["collectives"]
     launches = run_chat_requests(minf, range(len(REQUESTS)), "the mesh chat path",
                                  lambda f, steps, imgs: {
                                      "flash_block_attention": imgs * (n_vit + n_llm)
                                      + imgs * n_llm,
-                                     "decode_attention": steps * n_llm}, rows, graphed=False)
+                                     "decode_attention": steps * n_llm}, all_rows=rows)
+    print(f"  mesh chat: {programs.stats['captures'] - captures[0]} captures, of which "
+          f"{programs.stats['collective_captures'] - captures[1]} hold collectives; "
+          f"{pmesh.counts['collectives'] - n} collectives in all", flush=True)
     for i, (h, w, prompt) in enumerate(REQUESTS):
         want, _ = _chat_steps(inf, images[i], prompt, MAX_LENGTH)
         got, _ = _chat_steps(minf, images[i], prompt, MAX_LENGTH)  # the eager pass's
@@ -4645,21 +4704,25 @@ def _mesh_chat(inf: InterleaveInferencer, mesh) -> dict:
               f"{got == want}", flush=True)
         if got != want:
             raise SystemExit(f"chip_smoke: the mesh chat's answer {h}x{w} differs from chat's")
-    for row, base in zip(rows, CHAT_ROWS):
-        if row["decode_tok_s"] and base["decode_tok_s"]:
-            print(f"  {row['image']}: ms per decode step {1e3 / row['decode_tok_s']:.3f} on the "
-                  f"mesh ({2 * n_llm} all-reduces over 'model', one vocab gather; eager), "
-                  f"{1e3 / base['decode_tok_s']:.3f} without (the captured program; not gated)",
-                  flush=True)
+    graphed = [r for r in rows if r["route"] == "graphed"]
+    eager = [r for r in rows if r["route"] == "eager"]
+    for g, e, base in zip(graphed, eager, CHAT_ROWS):
+        print(f"  {g['image']}: ms per decode step on the mesh {g['ms_per_decode_step']:.3f} "
+              f"graphed, {e['ms_per_decode_step']:.3f} eager ({2 * n_llm} all-reduces over "
+              f"'model', the embedding's sum, one vocab gather); "
+              f"{base['ms_per_decode_step']:.3f} without the mesh (graphed; not gated) ({CARD})",
+              flush=True)
     return launches
 
 
-def _serve_run_a(inf: InterleaveInferencer, mesh, counted: bool = False):
+def _serve_run_a(inf: InterleaveInferencer, mesh, counted: bool = False, graphs=None):
     """Run A's workload (two waves, the preamble) through a batcher without
-    the ladder, with or without ``mesh``: (each request's ids, seconds,
-    stats, the launches against the forwards when ``counted``)."""
+    the ladder, with or without ``mesh``, by the route of ``graphs``: (each
+    request's ids, seconds, stats, the launches against the forwards when
+    ``counted``)."""
     b = ContinuousBatcher(inf.model, inf.tokenizer, inf.new_token_ids, SERVE_SLOTS,
-                          SERVE_CAPACITY, SERVE_CHUNK, inf.vit_transform, SEED, mesh=mesh)
+                          SERVE_CAPACITY, SERVE_CHUNK, inf.vit_transform, SEED, mesh=mesh,
+                          graphs=graphs)
     got = _recording_ids(b)
     counter = ForwardCounter(b.model) if counted else None  # the rank's model on a mesh
     reset_counts()
@@ -4698,16 +4761,25 @@ def _serve_run_a(inf: InterleaveInferencer, mesh, counted: bool = False):
 
 
 def _mesh_serving(inf: InterleaveInferencer, mesh) -> dict:
-    """Run A's 24 requests through ``ContinuousBatcher(mesh=...)`` and
-    without the mesh (the same options, no ladder): equal ids, the launches
-    of the mesh run against its forwards."""
+    """Run A's 24 requests through ``ContinuousBatcher(mesh=...)`` by the
+    default route (captured chunks and admission blocks, the collectives in
+    their graphs), then eagerly (``graphs=False``), and without the mesh
+    (the same options, no ladder): equal ids, the launches of the graphed
+    mesh run against its forwards."""
     plain, s_plain, _, _ = _serve_run_a(inf, None)
+    captures = (programs.stats["captures"], programs.stats["collective_captures"])
     got, s_mesh, st, launches = _serve_run_a(inf, mesh, counted=True)
+    captures = (programs.stats["captures"] - captures[0],
+                programs.stats["collective_captures"] - captures[1])
+    eager, s_eager, _, _ = _serve_run_a(inf, mesh, graphs=False)
     print(f"  run A through ContinuousBatcher(mesh=...): {len(got)} requests, "
-          f"{st['emitted_tokens']} tokens in {s_mesh:.2f} s; without the mesh {s_plain:.2f} s; "
-          f"ids equal {got == plain}", flush=True)
-    if got != plain:
-        raise SystemExit("chip_smoke: run A on the mesh answered otherwise than without it")
+          f"{st['emitted_tokens']} tokens in {s_mesh:.2f} s graphed ({captures[0]} captures, "
+          f"{captures[1]} holding collectives), {s_eager:.2f} s eager; without the mesh "
+          f"{s_plain:.2f} s (graphed); ids equal to the eager route's {got == eager}, to the "
+          f"no-mesh run's {got == plain} ({CARD})", flush=True)
+    if got != plain or got != eager:
+        raise SystemExit("chip_smoke: run A on the mesh answered otherwise than eagerly or "
+                         "without it")
     return launches
 
 
@@ -4724,10 +4796,15 @@ def _mesh_eval(inf: InterleaveInferencer, mesh) -> None:
     got, _ = vqa.run_vqa_eval(inf.model, inf.tokenizer, inf.new_token_ids, samples, mesh=mesh,
                               **kw)
     t2 = time.perf_counter()
+    with programs.eager():  # the eval takes no graphs=: its batcher's default, eagerly
+        eager, _ = vqa.run_vqa_eval(inf.model, inf.tokenizer, inf.new_token_ids, samples,
+                                    mesh=mesh, **kw)
+    t3 = time.perf_counter()
     print(f"  run F (bf16 pool) through run_vqa_eval(mesh=...): {len(got)} predictions equal "
-          f"to the no-mesh call's {got == want} ({t2 - t1:.2f} s, without {s_want:.2f} s)",
+          f"to the no-mesh call's {got == want}, to the eager route's {got == eager} "
+          f"({t2 - t1:.2f} s graphed, {t3 - t2:.2f} s eager, without the mesh {s_want:.2f} s)",
           flush=True)
-    if got != want:
+    if got != want or got != eager:
         raise SystemExit("chip_smoke: run_vqa_eval on the mesh predicted otherwise")
 
 
@@ -4737,10 +4814,12 @@ MESH_GEN_TIMESTEPS = 11  # the grouped mesh request's schedule: 10 steps, both C
 def _mesh_grouped(inf: InterleaveInferencer, tmp: str) -> dict:
     """One 512 px text-to-image request through ``gen_images_grouped`` (G 1)
     on a 1 x 1 x 1 ("data", "model", "seq") mesh with a one-rank NCCL group
-    per axis, against the same call on a mesh without groups, at
-    MESH_GEN_TIMESTEPS: equal latents (a one-rank all-reduce of bf16 is
-    exact). Launches: a cache partial and a block partial (K1c) per layer and
-    step."""
+    per axis, by the default route (``sp_denoise.SPProgram``, the
+    collectives in its graphs), against the same call on a mesh without
+    groups (captured too: no collective), at MESH_GEN_TIMESTEPS: equal
+    latents (a one-rank all-reduce of bf16 is exact); and against the NCCL
+    mesh's eager loop (``graphs=False``), bit for bit. Launches: a cache
+    partial and a block partial (K1c) per layer and step."""
     gmesh = one_rank_mesh(("data", "model", "seq"), tmp)
     plain = pmesh.make_mesh(("data", "model", "seq"), (1, 1, 1))
     ctx = inf.init_gen_context()
@@ -4750,26 +4829,35 @@ def _mesh_grouped(inf: InterleaveInferencer, tmp: str) -> dict:
     kw = dict(cfg_text_scale=3.0, cfg_img_scale=1.5, cfg_interval=(0.4, 1.0),
               timestep_shift=3.0, num_timesteps=MESH_GEN_TIMESTEPS)
     out = {}
-    for name, m in (("plain", plain), ("mesh", gmesh)):
+    n_llm = inf.cfg.llm.num_hidden_layers
+    for name, m in (("plain", plain), ("mesh", gmesh), ("eager", gmesh)):
         inf._generator.manual_seed(SEED + 20)
         if name == "mesh":
             reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out[name] = inf.gen_image_latents_grouped(GEN_SIZE, [ctx], m, [cfg_text], [cfg_img],
-                                                  **kw)
-        torch.cuda.synchronize()
-        out[name + "_s"] = time.perf_counter() - t0
-    n_llm = inf.cfg.llm.num_hidden_layers
-    launches = check_counts("gen_images_grouped on the one-rank mesh",
-                            {"flash_block_attention_lse": 2 * (MESH_GEN_TIMESTEPS - 1) * n_llm})
+        inf.graphs = False if name == "eager" else None
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = inf.gen_image_latents_grouped(GEN_SIZE, [ctx], m, [cfg_text], [cfg_img],
+                                                      **kw)
+            torch.cuda.synchronize()
+            out[name + "_s"] = time.perf_counter() - t0
+        finally:
+            inf.graphs = None
+        if name == "mesh":
+            launches = check_counts(
+                "gen_images_grouped on the one-rank mesh",
+                {"flash_block_attention_lse": 2 * (MESH_GEN_TIMESTEPS - 1) * n_llm})
     image = inf.decode_image(out["mesh"][0], GEN_SIZE)
     same = torch.equal(out["mesh"], out["plain"])
-    print(f"  gen_images_grouped G=1 on a 1x1x1 NCCL mesh: latent {tuple(out['mesh'].shape)} "
-          f"equal to the groupless mesh's {same}, finite "
+    cos = _cosine(out["mesh"], out["eager"])
+    print(f"  gen_images_grouped G=1 on a 1x1x1 NCCL mesh (graphed): latent "
+          f"{tuple(out['mesh'].shape)} equal to the groupless mesh's {same}, to the eager "
+          f"loop's {torch.equal(out['mesh'], out['eager'])} (cosine {cos:.6f}), finite "
           f"{bool(torch.isfinite(out['mesh']).all())}, image {image.size}; denoise "
-          f"{out['mesh_s']:.2f} s, without groups {out['plain_s']:.2f} s", flush=True)
-    if not same:
+          f"{out['mesh_s']:.2f} s graphed (the first call captures), {out['eager_s']:.2f} s "
+          f"eager, without groups {out['plain_s']:.2f} s", flush=True)
+    if not same or not torch.equal(out["mesh"], out["eager"]):
         raise SystemExit("chip_smoke: gen_images_grouped on the NCCL mesh differs")
     return launches
 
@@ -4852,8 +4940,9 @@ def run_tp_program(inf: InterleaveInferencer, tmp: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"tensor parallelism over {TP_RANKS} processes on this card (gloo: host-staged "
-          f"collectives): the {h}x{w} chat request, max_length {MAX_LENGTH}, bf16 then w4a8; "
-          "then, in the same processes, the sharded loader", flush=True)
+          f"collectives, which no CUDA graph captures, so these ranks run eagerly: "
+          f"programs.use_graphs): the {h}x{w} chat request, max_length {MAX_LENGTH}, bf16 then "
+          "w4a8; then, in the same processes, the sharded loader", flush=True)
     t0 = time.perf_counter()
     both = pmesh.run_on_ranks(
         dryrun_mesh.tp_chat_and_load_rank, TP_RANKS,
@@ -4979,11 +5068,14 @@ def _check_sharded_load(load: dict, ranks: list) -> None:
 def run_mesh_phase(inf: InterleaveInferencer, tmp: str) -> list:
     """The serving paths under ``mesh=`` on a one-rank ("data", "model")
     NCCL mesh over ``inf.model`` (chat, run A through the batcher, run F's
-    eval, a grouped text-to-image request), each against the same call
-    without the mesh; then tensor parallelism over two processes on the card
-    and the sharded loader. Returns the launches."""
+    eval, a grouped text-to-image request), each by the default route (the
+    captured programs, every collective in their graphs) against the same
+    call by the eager route and without the mesh; then tensor parallelism
+    over two processes on the card (gloo: eagerly) and the sharded loader.
+    Returns the launches."""
     mesh = one_rank_mesh(("data", "model"), tmp)
-    print("mesh paths on a one-rank ('data', 'model') NCCL mesh, full depth and width:",
+    print("mesh paths on a one-rank ('data', 'model') NCCL mesh, full depth and width, by the "
+          "captured programs (the default on an NCCL mesh), each against its eager route:",
           flush=True)
     launches = [_mesh_chat(inf, mesh), _mesh_serving(inf, mesh)]
     _mesh_eval(inf, mesh)

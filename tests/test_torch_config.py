@@ -12,6 +12,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from unimedvl_tpu import config as jconfig
@@ -24,6 +25,13 @@ CLASSES = ["LLMConfig", "ViTConfig", "VAEConfig", "E2EVAEConfig", "BagelConfig",
            "GenerationConfig", "TransformConfig"]
 
 
+# The port's tests run their torch ops on one thread per process. They run in several
+# pytest-xdist workers at once, beside spawned ranks and XLA's own threads, and their
+# tensors are small: the workers' intra-op threads (one per core each) only spun against
+# one another, and every module imports this one when it is collected.
+torch.set_num_threads(1)
+
+
 def port_config(cfg):
     """The port's config object for a JAX-package config object."""
     return getattr(tconfig, type(cfg).__name__).from_dict(dataclasses.asdict(cfg))
@@ -34,19 +42,72 @@ _INIT_PARAMS = {}
 
 def init_params(seed: int, cfg, llm2vae_zero: bool = True):
     """``unimedvl_tpu.models.bagel.init_params(PRNGKey(seed), cfg,
-    llm2vae_zero)``, drawn once per process: the draw compiles its random ops
-    anew in every test module (tests/conftest.py clears jax's caches between
-    modules), which took ~20 s a module; modules that ask for the same
-    weights share the arrays (immutable) in containers of their own."""
+    llm2vae_zero)``, drawn once per test run: the draw compiles its random
+    ops anew in every test module (tests/conftest.py clears jax's caches
+    between modules), 20–50 s a draw on a loaded host; modules that ask for
+    the same weights share the arrays (immutable) in containers of their
+    own, within a process and, under pytest-xdist, across the run's workers
+    (:func:`_run_shared_draw`)."""
+    import jax
+
+    key = (seed, cfg, llm2vae_zero)
+    if key not in _INIT_PARAMS:
+        _INIT_PARAMS[key] = _run_shared_draw(key)
+    return jax.tree.map(lambda x: x, _INIT_PARAMS[key])
+
+
+def _draw(key):
     import jax
 
     from unimedvl_tpu.models import bagel as jbagel
 
-    key = (seed, cfg, llm2vae_zero)
-    if key not in _INIT_PARAMS:
-        _INIT_PARAMS[key] = jbagel.init_params(jax.random.PRNGKey(seed), cfg,
-                                               llm2vae_zero=llm2vae_zero)
-    return jax.tree.map(lambda x: x, _INIT_PARAMS[key])
+    seed, cfg, llm2vae_zero = key
+    return jbagel.init_params(jax.random.PRNGKey(seed), cfg, llm2vae_zero=llm2vae_zero)
+
+
+def _run_shared_draw(key):
+    """The draw of ``key``, made by the first worker of this pytest-xdist run
+    that asks for it (``PYTEST_XDIST_TESTRUNUID`` names the run) and stored
+    as numpy arrays in a file of the run's own under the temporary
+    directory; the other workers wait on its lock and load the same arrays,
+    bit for bit. Without xdist the draw is made here."""
+    import fcntl
+    import hashlib
+    import os
+    import pickle
+    import shutil
+    import tempfile
+    import time
+    from pathlib import Path
+
+    import jax
+    import jax.numpy as jnp
+
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if not run:
+        return _draw(key)
+    folder = Path(tempfile.gettempdir()) / f"unimedvl_torch_draws_{run}"
+    if not folder.exists():  # the folders of earlier runs (a day old) go
+        for old in folder.parent.glob("unimedvl_torch_draws_*"):
+            try:  # another worker of this run may be removing it too
+                if time.time() - old.stat().st_mtime > 86400:
+                    shutil.rmtree(old, ignore_errors=True)
+            except FileNotFoundError:
+                pass
+    folder.mkdir(exist_ok=True)
+    name = hashlib.sha256(repr(key).encode()).hexdigest()[:32]
+    path = folder / f"{name}.pkl"
+    with open(folder / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            with open(path, "rb") as f:
+                return jax.tree.map(jnp.asarray, pickle.load(f))
+        tree = _draw(key)
+        partial = path.with_suffix(".partial")
+        with open(partial, "wb") as f:
+            pickle.dump(jax.tree.map(np.asarray, tree), f)
+        os.replace(partial, path)
+        return tree
 
 
 def _fields(cls):

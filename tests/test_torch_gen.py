@@ -39,7 +39,7 @@ from unimedvl_tpu_torch.ops import norms, rope, sincos
 from unimedvl_tpu_torch.weights import loader
 
 from tests.test_pipeline import TINY as CFG
-from tests.test_torch_config import port_config
+from tests.test_torch_config import init_params, port_config
 from tests.test_torch_model import released_ckpt  # noqa: F401 (fixture)
 from tests.test_vae import SMALL
 
@@ -51,7 +51,7 @@ MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 
 @pytest.fixture(scope="module")
 def pair():
-    params = jbagel.init_params(jax.random.PRNGKey(2), CFG, llm2vae_zero=False)
+    params = init_params(2, CFG, llm2vae_zero=False)
     model = loader.from_jax_params(jax.tree.map(np.asarray, params), TCFG, device="cpu")
     return params, model
 

@@ -43,7 +43,7 @@ from unimedvl_tpu_torch.ops import flash_attention as fa
 from unimedvl_tpu_torch.weights.loader import from_jax_params
 
 from tests.test_pipeline import TINY as CFG
-from tests.test_torch_config import port_config
+from tests.test_torch_config import init_params, port_config
 from tests.test_torch_pipeline import FakeTokenizer
 from tests.test_torch_serving import _to_torch
 
@@ -54,7 +54,7 @@ ENGINE = dict(num_slots=2, capacity=128, chunk=4)
 
 @pytest.fixture(scope="module")
 def setup():
-    params = jbagel.init_params(jax.random.PRNGKey(0), CFG, llm2vae_zero=False)
+    params = init_params(0, CFG, llm2vae_zero=False)
     model = from_jax_params(jax.tree.map(np.asarray, params), port_config(CFG), device="cpu")
     tok, ids, _ = add_special_tokens(FakeTokenizer())
     ttok, tids, _ = ttokenizer.add_special_tokens(FakeTokenizer())

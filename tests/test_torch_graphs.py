@@ -1045,3 +1045,76 @@ def test_prefill_programs_dropped_with_their_storage(setup):
     assert left.storage == "static"
     quant.quantize_llm_params(model.language_model, act_quant=True)
     assert programs.programs() == []
+
+
+# ---------------------------------------------------------------------------
+# the route of a model on a mesh (programs.use_graphs), with stand-in groups
+# ---------------------------------------------------------------------------
+
+class _Group:
+    """A stand-in process group: only its backend is read."""
+
+    def __init__(self, backend):
+        self.backend = backend
+
+
+def _on_mesh(monkeypatch, model_backend, seq_backend=None):
+    """(a stand-in rank's model on a ("data", "model") mesh whose "model"
+    group runs over ``model_backend``, an ("model", "seq") mesh whose "seq"
+    group runs over ``seq_backend``)."""
+    from types import SimpleNamespace
+
+    from unimedvl_tpu_torch.parallel import mesh as pmesh
+
+    monkeypatch.setattr(pmesh, "group_backend", lambda g: g.backend)
+
+    def mesh(axes, groups):
+        return pmesh.Mesh(axes, {a: 1 for a in axes}, 0, {a: 0 for a in axes}, groups)
+
+    model = SimpleNamespace(language_model=SimpleNamespace(
+        mesh=mesh(("data", "model"), {"data": None, "model": _Group(model_backend)})))
+    sp = mesh(("model", "seq"), {"model": None,
+                                 "seq": None if seq_backend is None else _Group(seq_backend)})
+    return model, sp
+
+
+CUDA, CPU = torch.device("cuda"), torch.device("cpu")
+
+
+def test_nccl_mesh_takes_the_programs_by_default(monkeypatch):
+    """Every group NCCL: the rule of one device (programs on the card, the
+    eager loops on the CPU, ``graphs`` as given); the mesh enters the key."""
+    model, sp = _on_mesh(monkeypatch, "nccl", "nccl")
+    assert model.language_model.mesh.capturable and sp.capturable
+    assert programs.use_graphs(None, CUDA, model) and programs.use_graphs(None, CUDA, model, sp)
+    assert programs.use_graphs(True, CUDA, model) and not programs.use_graphs(False, CUDA, model)
+    assert not programs.use_graphs(None, CPU, model)
+    with programs.eager():
+        assert not programs.use_graphs(None, CUDA, model)
+    key = programs.mesh_key(model, sp)
+    assert [k[0] for k in key] == [("data", "model"), ("model", "seq")]
+    assert key != programs.mesh_key(model) and programs.mesh_key(None) == ()
+
+
+def test_gloo_mesh_runs_eagerly_on_the_card(monkeypatch):
+    """A gloo group (the model's, or the sequence-parallel mesh's): on a
+    CUDA device ``graphs=None`` takes the eager loop; on the CPU ``graphs=
+    True`` takes the program's plain route, as the CPU mesh tests run it."""
+    for model_backend, seq_backend in (("gloo", None), ("nccl", "gloo")):
+        model, sp = _on_mesh(monkeypatch, model_backend, seq_backend)
+        assert not programs.use_graphs(None, CUDA, model, sp)
+        assert not programs.use_graphs(False, CUDA, model, sp)
+        assert programs.use_graphs(True, CPU, model, sp)
+        assert not programs.use_graphs(None, CPU, model, sp)
+    assert not model.language_model.mesh.capturable or not sp.capturable
+
+
+def test_gloo_mesh_refuses_graphs_on_the_card(monkeypatch):
+    """``graphs=True`` on a CUDA device over a gloo group raises, naming the
+    axis and its backend."""
+    model, sp = _on_mesh(monkeypatch, "gloo")
+    with pytest.raises(ValueError, match="'model' axis runs over gloo"):
+        programs.use_graphs(True, CUDA, model)
+    model, sp = _on_mesh(monkeypatch, "nccl", "gloo")
+    with pytest.raises(ValueError, match="'seq' axis runs over gloo"):
+        programs.use_graphs(True, CUDA, model, sp)

@@ -1344,7 +1344,7 @@ def _program_model():
     return model
 
 
-def _program_context(model, S, M, lens, quantized=False):
+def _program_context(model, S, M, lens, quantized=False, graphs=None):
     from unimedvl_tpu_torch.models import bagel
     from unimedvl_tpu_torch.models.qwen2_mot import KVCache
 
@@ -1355,7 +1355,7 @@ def _program_context(model, S, M, lens, quantized=False):
     valid = torch.arange(T, device="cuda")[None] < torch.tensor(lens, device="cuda")[:, None]
     cache = KVCache.create(llm.num_hidden_layers, S, M, llm.num_key_value_heads, llm.head_dim,
                            torch.bfloat16, device="cuda", quantized=quantized)
-    return bagel.prefill_text(model, cache, ids, pos, valid)
+    return bagel.prefill_text(model, cache, ids, pos, valid, graphs=graphs)
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["bf16_cache", "int8_cache"])
@@ -1662,3 +1662,195 @@ def test_admission_programs_captured_equal_eager(gen, quantized):
                             (b.k, b.v, b.k_scale, b.v_scale, b.lens)):
                 assert (x is None and y is None) or torch.equal(x, y)
     assert len([p for p in programs.programs() if p.family == "admission"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# The programs on a one-rank NCCL mesh: a rank's model (parallel.mesh.place_params
+# over a mesh whose axes each hold a real one-rank NCCL group) runs its captured
+# programs by default, every collective inside the graph; each is held to its eager
+# route on the same inputs, with the same number of collectives a call.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_group(tmp_path_factory):
+    """A one-rank NCCL default group for the module (destroyed after it)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    made = not dist.is_initialized()
+    if made:
+        rendezvous = tmp_path_factory.mktemp("nccl") / "rendezvous"
+        dist.init_process_group("nccl", init_method=f"file://{rendezvous}", world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=120))
+    assert dist.get_backend() == "nccl"
+    yield
+    if made:
+        dist.destroy_process_group()
+
+
+def _nccl_mesh(axes):
+    from unimedvl_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(axes, (1,) * len(axes), singleton_groups=True)
+    assert mesh.capturable and all(g is not None for g in mesh.groups.values())
+    return mesh
+
+
+def _both_routes(run):
+    """``run(graphs)`` eagerly, then captured (a new capture, then a replay):
+    (eager result, captured results, collectives of each call, captures that
+    hold collectives)."""
+    from unimedvl_tpu_torch.inference import programs
+    from unimedvl_tpu_torch.parallel import mesh as pmesh
+
+    programs.drop_all()
+    out, calls = {}, []
+    before = programs.stats["collective_captures"]
+    for graphs in (False, True, True):
+        n = pmesh.counts["collectives"]
+        out.setdefault(graphs, []).append(run(graphs))
+        calls.append(pmesh.counts["collectives"] - n)
+    return out[False][0], out[True], calls, programs.stats["collective_captures"] - before
+
+
+def test_mesh_decode_program_captured_equals_eager(gen, nccl_group):
+    """generate_text on a rank's model of a one-rank NCCL ("data", "model")
+    mesh: by default the captured program (its 2 L all-reduces and the vocab
+    gather inside the graph); tokens, lengths and the last step's logits
+    equal to the eager route's, twice (the second call replays), with as
+    many collectives a call."""
+    from unimedvl_tpu_torch.inference import programs
+    from unimedvl_tpu_torch.models import bagel
+    from unimedvl_tpu_torch.models import qwen2_mot as mot
+    from unimedvl_tpu_torch.parallel import mesh as pmesh
+
+    mesh = _nccl_mesh(("data", "model"))
+    model = pmesh.place_params(_program_model(), mesh)
+    assert programs.use_graphs(None, torch.device("cuda"), model)
+    start, pos = torch.tensor([5, 9], device="cuda"), torch.tensor([40, 23], device="cuda")
+    last = torch.zeros(2, model.config.llm.vocab_size, device="cuda")
+    real = mot.lm_head
+
+    def recorded(lm, h):
+        logits = real(lm, h)
+        last.copy_(logits)
+        return logits
+
+    def run(graphs):
+        cache = _program_context(model, 2, 512, [40, 23], graphs=False)
+        mot.lm_head = recorded
+        try:
+            tokens, lengths = bagel.generate_text(model, cache, start, pos, 12, -1,
+                                                  graphs=None if graphs else False)
+        finally:
+            mot.lm_head = real
+        return tokens, lengths, last.clone()
+
+    want, got, calls, captures = _both_routes(run)
+    for g in got:
+        for a, b in zip(g, want):
+            assert torch.equal(a, b)
+    L = model.config.llm.num_hidden_layers
+    assert calls[0] > 12 * (2 * L + 1) and len(set(calls)) == 1
+    assert captures == 1
+
+
+def test_mesh_chunk_and_admission_programs_captured_equal_eager(gen, nccl_group):
+    """A batcher's decode chunk and an admission block (an image group and
+    its text) on a rank's model of a one-rank NCCL mesh, captured against
+    eager: tokens, positions, lens and the live columns of the chunk, every
+    column of the block."""
+    from unimedvl_tpu_torch.inference import serving
+    from unimedvl_tpu_torch.parallel import mesh as pmesh
+
+    mesh = _nccl_mesh(("data", "model"))
+    model = pmesh.place_params(_prefill_model(), mesh)
+    args = (torch.tensor([3, 5, 7], device="cuda"), torch.tensor([40, 23, 11], device="cuda"),
+            torch.tensor([True, False, True], device="cuda"))
+
+    def chunk(graphs):
+        cache = _program_context(model, 3, 256, [40, 23, 11], graphs=False)
+        return serving.decode_chunk(model, cache, *args, 8, graphs=None if graphs else False,
+                                    return_steps=True)
+
+    want, got, calls, captures = _both_routes(chunk)
+    for tok, last, pos, c, n in got:
+        assert int(n) == int(want[4]) == 8
+        for a, b in ((tok, want[0]), (last, want[1]), (pos, want[2]), (c.lens, want[3].lens)):
+            assert torch.equal(a, b)
+        for s in (0, 2):
+            n_s = int(want[3].lens[s])
+            assert torch.equal(c.k[:, s, :, :n_s], want[3].k[:, s, :, :n_s])
+    # a chunk program is keyed by its pool's arrays, and each call's pool is new
+    assert len(set(calls)) == 1 and captures == 2
+
+    V = model.config.llm.vocab_size
+    se = torch.tensor([V - 2, V - 1], device="cuda")
+    toks = torch.randn(4, 64, 12, device="cuda", generator=gen)
+    ns = torch.tensor([60, 41, 64, 0], device="cuda")
+    vpos = torch.randperm(256, device="cuda", generator=gen)[:64].expand(4, 64).contiguous()
+    ids = (torch.arange(4 * 32, device="cuda").reshape(4, 32) * 7) % V
+    ipos = torch.arange(1, 33, device="cuda").expand(4, 32).contiguous()
+    ivalid = torch.arange(32, device="cuda")[None] < torch.tensor([[9], [30], [3], [0]],
+                                                                  device="cuda")
+
+    def block(graphs):
+        return serving.image_text_block(model, toks, vpos, ns, se, ids, ipos, ivalid,
+                                        capacity=64 + 2 + 32, graphs=None if graphs else False,
+                                        kv_dtype=torch.bfloat16, quantized=False).clone()
+
+    want, got, calls, captures = _both_routes(block)
+    for b in got:
+        for x, y in ((b.k, want.k), (b.v, want.v), (b.lens, want.lens)):
+            assert torch.equal(x, y)
+    assert calls[0] > 0 and len(set(calls)) == 1 and captures == 1
+
+
+def test_mesh_flow_and_sp_programs_captured_equal_eager(gen, nccl_group):
+    """A flow step (generate_latents_group on a rank's model of a one-rank
+    NCCL ("data", "model") mesh) and the sequence-parallel step
+    (generate_latents_tp_sp over a one-rank NCCL ("model", "seq") mesh: the
+    gathers over "seq", the chunks' all-reduces over "model" and the renorm's
+    sums in the graph), captured against eager within the flow program's
+    tolerance, each with as many collectives a call and one capture a
+    cfg-run kind."""
+    from unimedvl_tpu_torch.models import bagel
+    from unimedvl_tpu_torch.models.qwen2_mot import KVCache
+    from unimedvl_tpu_torch.parallel import mesh as pmesh
+    from unimedvl_tpu_torch.parallel import sp_denoise
+
+    whole = _program_model()
+    cfg, llm = whole.config, whole.config.llm
+    model = pmesh.place_params(whole, _nccl_mesh(("data", "model")))
+    S1, n = 3, 16
+    caches = KVCache.stack([_program_context(whole, S1, 128, [20, 9, 20])])
+    positions = torch.tensor([20, 9, 20], device="cuda")
+    pos_ids = torch.randperm(cfg.max_latent_size ** 2, device="cuda", generator=gen)[:n]
+    noise = torch.randn(n, cfg.patch_latent_dim, device="cuda", generator=gen)
+    se = torch.tensor([llm.vocab_size - 2, llm.vocab_size - 1], device="cuda")
+    kw = dict(num_timesteps=6, timestep_shift=1.0, cfg_text_scale=2.0, cfg_img_scale=1.5,
+              cfg_interval=(0.4, 1.0), use_text_cfg=True, use_img_cfg=True)
+
+    def flow(graphs):
+        return bagel.generate_latents(model, caches, positions, pos_ids, noise, se,
+                                      graphs=None if graphs else False, **kw)
+
+    want, got, calls, captures = _both_routes(flow)
+    for g in got:
+        torch.testing.assert_close(g, want, rtol=1e-3, atol=1e-3)
+    assert calls[0] > 0 and len(set(calls)) == 1 and captures == 2
+
+    sp_mesh = _nccl_mesh(("model", "seq"))
+
+    def sp(graphs):
+        return sp_denoise.generate_latents_tp_sp(whole, caches, positions, pos_ids, noise, se,
+                                                 sp_mesh, graphs=None if graphs else False, **kw)
+
+    want_sp, got, calls, captures = _both_routes(sp)
+    for g in got:
+        torch.testing.assert_close(g, want_sp, rtol=1e-3, atol=1e-3)
+    assert calls[0] > 0 and len(set(calls)) == 1 and captures == 2
+    torch.testing.assert_close(want_sp, want, rtol=2.0**-6, atol=2.0**-6)

@@ -44,7 +44,7 @@ from unimedvl_tpu_torch.scripts import (
 )
 from unimedvl_tpu_torch.weights import loader
 
-from tests.test_torch_config import port_config
+from tests.test_torch_config import init_params, port_config
 from tests.test_torch_model import released_ckpt  # noqa: F401
 from tests.test_torch_pipeline import CFG, _image, pair  # noqa: F401
 
@@ -125,7 +125,7 @@ def test_vit_with_2d_rope_matches_jax(dense):
     """The tiny ViT with ``rope=True`` (no position table; q and k rotated
     by the 2D tables before attention), 20 of 32 tokens valid, raster ids
     from the 16 x 16 grid."""
-    params = jbagel.init_params(jax.random.PRNGKey(2), ROPE_CFG)
+    params = init_params(2, ROPE_CFG)
     assert "position_embedding" not in params["vit"]
     model = loader.from_jax_params(jax.tree.map(np.asarray, params), port_config(ROPE_CFG),
                                    device="cpu")

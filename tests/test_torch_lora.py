@@ -66,7 +66,7 @@ class TestAdapters:
     @pytest.mark.parametrize("targets,experts", [
         (lora.TARGETS_ALL, ("und", "gen")), (("q", "v"), ("gen",)), (("down",), ("und",))])
     def test_add_lora_sites_and_step0_identity(self, targets, experts):
-        base = jbagel.init_params(jax.random.PRNGKey(0), CFG, llm2vae_zero=False)
+        base = init_params(0, CFG, llm2vae_zero=False)
         want = jlora.add_lora(base, jax.random.PRNGKey(1), rank=4, targets=targets,
                               experts=experts)
         batch, key = make_batch(), jax.random.PRNGKey(2)
@@ -120,7 +120,7 @@ class TestAdapters:
         assert model.language_model.model.layers[0].self_attn.q_proj.mode == "q"
         with pytest.raises(ValueError, match="quantized base"):
             lora.merge_lora(model)
-        plain = port_model(jbagel.init_params(jax.random.PRNGKey(0), CFG))
+        plain = port_model(init_params(0, CFG))
         with pytest.raises(ValueError, match="no adapters"):
             lora.make_lora_train_step(port_config(CFG), plain)
         quant.quantize_llm_params(plain.language_model)

@@ -39,6 +39,7 @@ from tests.test_torch_config import init_params, port_config
 RANKS_TIMEOUT_S = 240.0
 TOL = dict(rtol=2e-4, atol=2e-4)
 PROMPT = "what is this?"
+SAMPLE_T = 0.7  # the sampled chat's temperature
 GEN_KW = dict(cfg_text_scale=2.0, cfg_img_scale=1.5, cfg_interval=(0.0, 1.0),
               cfg_renorm_type="global", num_timesteps=3)
 EDIT_KW = dict(GEN_KW, cfg_img_scale=2.0, cfg_renorm_type="text_channel")
@@ -137,6 +138,25 @@ def _jax_grouped(params):
     return out, noises
 
 
+def _jax_sampled(params, mesh):
+    """The JAX mesh inferencer's sampled chat and the Gumbel draws of its
+    decode loop (``jax.random.categorical`` is the argmax of logits / T plus
+    them), made from the key it drew, in step order."""
+    import jax.numpy as jnp
+
+    inf = _jax_inf(params, mesh)
+    keys = []
+    real = inf._next_rng
+    inf._next_rng = lambda: keys.append(real()) or keys[-1]
+    text = inf.chat([Image.fromarray(_image())], PROMPT, max_length=8, do_sample=True,
+                    temperature=SAMPLE_T)
+    rng, gumbels = keys[-1], []
+    for _ in range(4 * 8):  # more than the loop draws: replays past the exit draw too
+        rng, sub = jax.random.split(rng)
+        gumbels.append(np.asarray(jax.random.gumbel(sub, (1, TINY.llm.vocab_size), jnp.float32)))
+    return text, gumbels
+
+
 def _port(tree):
     return from_jax_params(jax.tree.map(np.asarray, tree), port_config(TINY), device="cpu")
 
@@ -181,6 +201,7 @@ def jax_side(params, edit_image):
     for name, kw in P4.items():
         out[name] = _jax_inf(_quantized(params, kw)).chat([img], PROMPT, max_length=8)
     out["grouped"], out["grouped_noise"] = _jax_grouped(params)
+    out["sampled_mesh"], out["sampled_gumbels"] = _jax_sampled(params, mesh24)
     return out
 
 
@@ -201,7 +222,10 @@ def _chat(model, **kw):
 def mesh24(models, jax_side, edit_image):
     """One spawn of the (2, 4) mesh: chat, spec chat, edit, int8 fused,
     full-int8 (with K3's second entry recorded), per-channel int4, and the
-    grouped text to image on a (2, 2, 2) mesh of the same ranks."""
+    grouped text to image on a (2, 2, 2) mesh of the same ranks; then chat,
+    spec chat, edit and the grouped text to image again by the device
+    programs' plain route (``graphs=True``), and a sampled chat (the JAX
+    draws replayed) by both routes."""
     edit = dict(kind="latent", model="base", image=edit_image, text="a tiny image",
                 gen_kw=EDIT_KW, inf_kw=dict(seed=13))
     edit["noises"] = _port_noise(models["base"], edit, jax_side["edit_keys"])
@@ -211,8 +235,21 @@ def mesh24(models, jax_side, edit_image):
         dict(kind="grouped", model="base", sizes=(2, 2, 2), texts=GROUPED_PROMPTS,
              noises=jax_side["grouped_noise"], gen_kw=GEN_KW),
     ]
+    graphed = dict(graphs=True)
+    sample = dict(temperature=SAMPLE_T, gumbels=jax_side["sampled_gumbels"])
+    cases += [
+        _chat("base", inf_kw=graphed), _chat("base", inf_kw=dict(graphed, spec_decode=True,
+                                                                 spec_k=4)),
+        dict(edit, inf_kw=dict(graphed, seed=13)), dict(cases[7], inf_kw=graphed),
+        _chat("base", sample=sample), _chat("base", sample=sample, inf_kw=graphed),
+    ]
     return pmesh.run_on_ranks(dryrun_mesh.run_mesh_cases, 8, ("data", "model"), (2, 4), models,
                               cases, timeout_s=RANKS_TIMEOUT_S)
+
+
+#: the (2, 4) spawn's cases run by the programs' plain route, and their eager twins
+PROGRAM_CASES = {"chat": (8, 0), "spec_chat": (9, 1), "edit": (10, 2), "grouped": (11, 7),
+                 "sampled_chat": (13, 12)}
 
 
 @pytest.fixture(scope="module")
@@ -220,6 +257,18 @@ def mesh12(models):
     """One spawn of a (1, 2) mesh: the int4 trees at tp 2, group-wise too."""
     cases = [_chat("p4"), _chat("p4a"), _chat("p4-g16")]
     return pmesh.run_on_ranks(dryrun_mesh.run_mesh_cases, 2, ("data", "model"), (1, 2), models,
+                              cases, timeout_s=RANKS_TIMEOUT_S)
+
+
+@pytest.fixture(scope="module")
+def mesh32(models, jax_side):
+    """One spawn of a (3, 2) mesh: text to image with its 3 CFG streams over
+    "data", eagerly and by the flow program's plain route."""
+    case = dict(kind="latent", model="base", text="a tiny image", gen_kw=GEN_KW,
+                inf_kw=dict(seed=11))
+    case["noises"] = _port_noise(models["base"], case, jax_side["t2i_keys"])
+    cases = [case, dict(case, inf_kw=dict(seed=11, graphs=True))]
+    return pmesh.run_on_ranks(dryrun_mesh.run_mesh_cases, 6, ("data", "model"), (3, 2), models,
                               cases, timeout_s=RANKS_TIMEOUT_S)
 
 
@@ -243,15 +292,10 @@ class TestMeshPipeline:
     def test_spec_chat_tp_mesh(self, jax_side, mesh24):
         assert _every_rank(mesh24, 1) == jax_side["spec_mesh"] == jax_side["chat"]
 
-    def test_t2i_latents_stream_mesh(self, models, jax_side):
+    def test_t2i_latents_stream_mesh(self, jax_side, mesh32):
         """3 CFG streams over data = 3 x TP 2, the noise replayed from the
         JAX mesh inferencer's draws."""
-        case = dict(kind="latent", model="base", text="a tiny image", gen_kw=GEN_KW,
-                    inf_kw=dict(seed=11))
-        case["noises"] = _port_noise(models["base"], case, jax_side["t2i_keys"])
-        per_rank = pmesh.run_on_ranks(dryrun_mesh.run_mesh_cases, 6, ("data", "model"), (3, 2),
-                                      models, [case], timeout_s=RANKS_TIMEOUT_S)
-        got = _every_rank(per_rank, 0)
+        got = _every_rank(mesh32, 0)
         np.testing.assert_allclose(got, jax_side["t2i"], **TOL)
 
     def test_edit_latents_tp_mesh(self, jax_side, mesh24):
@@ -317,6 +361,36 @@ class TestMeshPipeline:
         per_rank, i = (mesh24, {"p4": 5, "p4a": 6}[name]) if tp == 4 else (
             mesh12, {"p4": 0, "p4a": 1, "p4-g16": 2}[name])
         assert _every_rank(per_rank, i) == jax_side[name]
+
+
+class TestMeshPrograms:
+    """The device programs' plain route on a gloo mesh (``graphs=True`` on
+    the CPU: each program's step body on its static buffers, the collectives
+    inside it) against the eager route on the same ranks, bit for bit, and
+    against the JAX mesh program at the tolerances above."""
+
+    @pytest.mark.parametrize("name", ["chat", "spec_chat", "sampled_chat"])
+    def test_chat_programs_tp_mesh(self, jax_side, mesh24, name):
+        """Greedy, speculative and sampled chat (the sampled one from the JAX
+        loop's Gumbel draws, replayed as the port's exponential draws)."""
+        got, eager = (_every_rank(mesh24, i) for i in PROGRAM_CASES[name])
+        want = {"chat": "chat_mesh", "spec_chat": "spec_mesh", "sampled_chat": "sampled_mesh"}
+        assert got == eager == jax_side[want[name]]
+
+    @pytest.mark.parametrize("name,want", [("edit", "edit"), ("grouped", "grouped")])
+    def test_latent_programs_tp_mesh(self, jax_side, mesh24, name, want):
+        """The edit's flow program over (2, 4), and the grouped text to image's
+        sequence-parallel program over (2, 2, 2)."""
+        got, eager = (_every_rank(mesh24, i) for i in PROGRAM_CASES[name])
+        np.testing.assert_array_equal(got, eager)
+        np.testing.assert_allclose(got, jax_side[want], **TOL)
+
+    def test_flow_program_gathers_streams_over_data(self, jax_side, mesh32):
+        """The flow program on (3, 2): each data rank's stream, the
+        velocities gathered over "data" inside the step body."""
+        got, eager = _every_rank(mesh32, 1), _every_rank(mesh32, 0)
+        np.testing.assert_array_equal(got, eager)
+        np.testing.assert_allclose(got, jax_side["t2i"], **TOL)
 
 
 def _fake_mesh(dp, tp, rank):

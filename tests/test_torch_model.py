@@ -24,7 +24,7 @@ from unimedvl_tpu_torch.models import bagel, qwen2_mot
 from unimedvl_tpu_torch.models.qwen2_mot import KVCache
 from unimedvl_tpu_torch.weights import loader
 
-from tests.test_torch_config import port_config
+from tests.test_torch_config import init_params, port_config
 from tests.test_weights import CFG as CKPT_CFG, synthetic_state_dict
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -46,7 +46,7 @@ CFG = BagelConfig(
 
 @pytest.fixture(scope="module")
 def pair():
-    params = jbagel.init_params(jax.random.PRNGKey(0), CFG)
+    params = init_params(0, CFG)
     model = loader.from_jax_params(jax.tree.map(np.asarray, params), port_config(CFG), device="cpu")
     return params, model
 

@@ -94,7 +94,7 @@ class FakeTokenizer:
 
 @pytest.fixture(scope="module")
 def pair():
-    params = jbagel.init_params(jax.random.PRNGKey(1), CFG)
+    params = init_params(1, CFG)
     tok, new_token_ids, _ = add_special_tokens(FakeTokenizer())
     transform = ImageTransform(32, 8, 2, 1024)
     jax_inf = JaxInferencer(params, CFG, tok, new_token_ids, vit_transform=transform)
@@ -166,7 +166,7 @@ def quant_pair(request):
     model comes from its own transforms on the fp32 weights (which
     tests/test_torch_quant.py shows equal to loading the JAX tree)."""
     kw, fused = QUANT_MODES[request.param]
-    params = jbagel.init_params(jax.random.PRNGKey(3), QCFG)
+    params = init_params(3, QCFG)
     llm = jquant.quantize_llm_params(params["llm"], via_host=True, **kw)
     if fused:
         llm = jquant.fuse_serving_projections(llm)
@@ -271,7 +271,7 @@ class TestQuantizedChat:
 
 def test_int4_kv_cache_raises_naming_the_roadmap():
     model = from_jax_params(
-        jax.tree.map(np.asarray, jbagel.init_params(jax.random.PRNGKey(1), CFG)),
+        jax.tree.map(np.asarray, init_params(1, CFG)),
         port_config(CFG), device="cpu")
     with pytest.raises(ValueError, match="8 or 4 bits"):
         InterleaveInferencer(model, None, {}, kv_quantized=True, kv_bits=2)
@@ -309,7 +309,7 @@ def test_positional_parameters_follow_the_jax_inferencer():
     assert list(gen_text) == list(inspect.signature(JaxInferencer.gen_text).parameters)
 
     model = from_jax_params(
-        jax.tree.map(np.asarray, jbagel.init_params(jax.random.PRNGKey(1), CFG)),
+        jax.tree.map(np.asarray, init_params(1, CFG)),
         port_config(CFG), device="cpu")
     vae_t, vit_t = timaging.ImageTransform(32, 8, 8, 1024), timaging.ImageTransform(32, 8, 2, 1024)
     inf = InterleaveInferencer(model, None, {}, vae_t, vit_t, 3)
@@ -322,7 +322,7 @@ def test_positional_parameters_follow_the_jax_inferencer():
 def inferencers():
     """JAX and port inferencers, plain and spec (k 3, ngram 2), over one
     model of the chat config."""
-    params = jbagel.init_params(jax.random.PRNGKey(1), CFG)
+    params = init_params(1, CFG)
     tok, ids, _ = add_special_tokens(FakeTokenizer())
     transform = ImageTransform(32, 8, 2, 1024)
     model = from_jax_params(jax.tree.map(np.asarray, params), port_config(CFG), device="cpu")

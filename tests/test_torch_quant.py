@@ -41,6 +41,7 @@ from unimedvl_tpu_torch.ops import decode_attention as dec
 from unimedvl_tpu_torch.ops import w4_matmul as w4
 from unimedvl_tpu_torch.weights import loader
 
+from tests.test_torch_config import init_params
 from tests.test_torch_model import released_ckpt  # noqa: F401  (fixture)
 
 CFG = BagelConfig(
@@ -541,7 +542,7 @@ class TestDecodeInt8:
 @pytest.fixture(scope="module")
 def base():
     """bf16-free fp32 weights of the small config in both packages."""
-    params = jbagel.init_params(jax.random.PRNGKey(2), CFG)
+    params = init_params(2, CFG)
     return params, jax.tree.map(np.asarray, params)
 
 

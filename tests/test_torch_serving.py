@@ -350,7 +350,7 @@ def w4a8_pair():
     """Both batchers over one w4a8 tree (per channel, unfused) with int8 pools,
     the JAX ``_mlp`` held to K3's definition as in tests/test_torch_pipeline.py."""
     kw, fused = QUANT_MODES["w4a8"]
-    params = jbagel.init_params(jax.random.PRNGKey(3), QCFG)
+    params = init_params(3, QCFG)
     jparams = {**params, "llm": jquant.quantize_llm_params(params["llm"], via_host=True, **kw)}
     model = from_jax_params(jax.tree.map(np.asarray, params), port_config(QCFG), device="cpu")
     quant.quantize_llm_params(model.language_model, **kw)

@@ -95,6 +95,10 @@ def ranks(params):
         dict(kind="serve", batch_kw=dict(BATCH, num_slots=3), requests=REQUESTS),
         UNIFIED,
     ]
+    # the mixed batch, the speculative engine and unified serving again by the device
+    # programs' plain route (chunks, spec chunks, admission blocks, flow steps)
+    cases += [dict(c, batch_kw=dict(c["batch_kw"], graphs=True))
+              for c in (cases[0], cases[1], UNIFIED)]
     return pmesh.run_on_ranks(dryrun_mesh.run_mesh_cases, 8, ("data", "model"), (2, 4), model,
                               cases, timeout_s=RANKS_TIMEOUT_S)
 
@@ -157,6 +161,25 @@ class TestServingMesh:
         for r in ranks[1:]:  # every rank holds the same results
             for rid in want[0]:
                 np.testing.assert_array_equal(np.asarray(r[5][1][rid]), np.asarray(got[1][rid]))
+
+    @pytest.mark.parametrize("name,i,eager", [("mixed", 6, 0), ("spec", 7, 1)])
+    def test_batcher_programs_tp_dp_mesh(self, jax_side, ranks, name, i, eager):
+        """``graphs=True`` on the gloo ranks: the chunk, spec-chunk and
+        admission programs' plain route gives the eager engine's answers,
+        errors and emitted tokens, and so the JAX mesh engine's."""
+        got = _every_rank(ranks, i)
+        assert got == _every_rank(ranks, eager)
+        assert got[:3] == jax_side[name][:3]
+
+    def test_unified_programs_on_mesh(self, ranks):
+        """Unified serving by the programs' plain route (the grouped flow
+        program gathers its streams over "data"): texts and images equal to
+        the eager route's, bit for bit, on every rank."""
+        for r in ranks:
+            got, want = r[8], r[5]
+            assert got[0] == want[0] and got[2:] == want[2:]
+            for rid in want[0]:
+                np.testing.assert_array_equal(np.asarray(got[1][rid]), np.asarray(want[1][rid]))
 
     def test_refusals(self):
         """The pool ladder with a mesh raises, as the JAX batcher asserts; a

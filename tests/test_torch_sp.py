@@ -14,7 +14,8 @@ Tolerances: the multi-rank program sums over ranks in another order than one
 device, and XLA in another than torch: rtol 2e-4, atol 2e-5 against either
 reference (the JAX test's own); the chunked chain only reorders independent
 rows: 1e-5 / 1e-6; the owner-rotated text MLP is exact; the two-partial
-attention is softmax algebra in fp32: 1e-4 / 1e-5.
+attention is softmax algebra in fp32: 1e-4 / 1e-5. The SP program's plain
+route (``graphs=True``) equals the eager loop bit for bit.
 """
 
 import jax
@@ -37,7 +38,7 @@ from unimedvl_tpu_torch.parallel import sp_denoise
 from unimedvl_tpu_torch.tools import dryrun_sp
 from unimedvl_tpu_torch.weights.loader import from_jax_params
 
-from tests.test_torch_config import port_config
+from tests.test_torch_config import init_params, port_config
 
 CFG = BagelConfig(
     llm=LLMConfig(vocab_size=128, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
@@ -123,7 +124,7 @@ def _same_on_every_rank(per_rank, i):
 def trees():
     """The JAX trees: unquantized, int8, and the three fused ``_tp2`` ones."""
     assert len(jax.devices()) == 8, "conftest must force 8 CPU devices"
-    base = jbagel.init_params(jax.random.PRNGKey(0), CFG, llm2vae_zero=False)
+    base = init_params(0, CFG, llm2vae_zero=False)
     q = jquant.quantize_llm_params(base["llm"])
     qa = jquant.quantize_llm_params(base["llm"], act_quant=True)
 
@@ -159,6 +160,9 @@ TP2_SP4_CALLS = {
     "qa_tp2": ("qa_tp2", (1, 16, 32, 17), dict(num_timesteps=3)),
     "bf16_tp2": ("bf16_tp2", (3, 16, 32, 11), dict(CFG_ALL)),
     "q_tp2": ("q_tp2", (1, 16, 32, 13), dict(num_timesteps=3)),
+    # renorm_global by the SP program's plain route: both cfg-run kinds, every collective
+    # inside the step body
+    "program": ("base", (3, 16, 32, 1), dict(CFG_ON, cfg_renorm_type="global", graphs=True)),
 }
 
 
@@ -184,6 +188,17 @@ class TestSPDenoise:
             got, _jax_sp(trees["base"], CFG, arrays, _jax_mesh(2, 4), **kw), **TOL)
         np.testing.assert_allclose(got, _single(models["base"], arrays, **kw), **TOL)
         assert np.abs(got - arrays[5]).max() > 1e-2  # a random velocity head: the state moved
+
+    def test_tp2_sp4_program_equals_eager_and_jax(self, trees, tp2_sp4):
+        """``graphs=True`` on the gloo ranks: :class:`SPProgram`'s step body
+        on its static buffers (the step index and dt read on the device, the
+        CFG scales baked in) gives the eager loop's latents bit for bit, and
+        the JAX mesh program's within its tolerance."""
+        _, shape, kw = TP2_SP4_CALLS["renorm_global"]
+        np.testing.assert_array_equal(tp2_sp4["program"], tp2_sp4["renorm_global"])
+        np.testing.assert_allclose(
+            tp2_sp4["program"], _jax_sp(trees["base"], CFG, _inputs(CFG, *shape),
+                                        _jax_mesh(2, 4), **kw), **TOL)
 
     def test_overlap_chunks_equivalence(self, tp2_sp4):
         np.testing.assert_allclose(tp2_sp4["chunks_2"], tp2_sp4["chunks_1"], rtol=1e-5,
@@ -315,7 +330,7 @@ class TestSPDenoiseFlashGeometry:
         in interpret mode, the port K1c's and K1b's plain versions. Tolerance
         5e-4: the JAX flash test's own (online softmax in tiles against one
         softmax, through a layer and two flow steps)."""
-        params = jbagel.init_params(jax.random.PRNGKey(2), CFG128, llm2vae_zero=False)
+        params = init_params(2, CFG128, llm2vae_zero=False)
         model = _port(params, CFG128)
         arrays = _inputs(CFG128, 2, 124, 32, 11, lens=[5, 9])
         kw = dict(num_timesteps=3, cfg_text_scale=2.0, use_text_cfg=True,
@@ -345,7 +360,7 @@ class TestInferencer:
         from unimedvl_tpu.inference import InterleaveInferencer as JaxInferencer
         from unimedvl_tpu_torch.inference import InterleaveInferencer
 
-        params = jbagel.init_params(jax.random.PRNGKey(0), TINY, llm2vae_zero=False)
+        params = init_params(0, TINY, llm2vae_zero=False)
         tok, ids, _ = add_special_tokens(FakeTokenizer())
         transforms = ((32, 8, 8, 1024), (32, 8, 2, 1024))
         jax_inf = JaxInferencer(

@@ -37,7 +37,7 @@ from unimedvl_tpu_torch.models.qwen2_mot import KVCache
 from unimedvl_tpu_torch.ops import flash_attention as fa
 from unimedvl_tpu_torch.weights.loader import from_jax_params
 
-from tests.test_torch_config import port_config
+from tests.test_torch_config import init_params, port_config
 from tests.test_torch_serving import _to_jax, assert_caches_equal, both_ids, pair  # noqa: F401
 
 # tests/test_spec_decode.py's config
@@ -54,7 +54,7 @@ CAP = 128  # cache capacity
 
 @pytest.fixture(scope="module")
 def models():
-    params = jbagel.init_params(jax.random.PRNGKey(0), CFG)
+    params = init_params(0, CFG)
     model = from_jax_params(jax.tree.map(np.asarray, params), port_config(CFG), device="cpu")
     return params, model
 

@@ -317,7 +317,7 @@ class TestGradients:
     @pytest.mark.parametrize("freeze_und", [False, True])
     def test_every_parameter(self, freeze_und):
         cfg = dataclasses.replace(CFG, llm=dataclasses.replace(CFG.llm, freeze_und=freeze_und))
-        params = jbagel.init_params(jax.random.PRNGKey(0), cfg, llm2vae_zero=False)
+        params = init_params(0, cfg, llm2vae_zero=False)
         batch, key = make_batch(), jax.random.PRNGKey(1)
 
         def loss(p):
@@ -381,7 +381,7 @@ class TestTrainStep:
     @pytest.mark.parametrize("freeze_und", [False, True])
     def test_three_steps_against_optax(self, freeze_und):
         cfg = dataclasses.replace(CFG, llm=dataclasses.replace(CFG.llm, freeze_und=freeze_und))
-        params = jbagel.init_params(jax.random.PRNGKey(0), cfg, llm2vae_zero=False)
+        params = init_params(0, cfg, llm2vae_zero=False)
         stacked = _stacked()
         keys = [jax.random.PRNGKey(10 + i) for i in range(3)]
         lr = 1e-3

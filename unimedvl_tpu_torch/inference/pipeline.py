@@ -32,7 +32,10 @@ of every KV cache; the CFG streams of a denoise step shard over "data" when
 they divide it. Every rank returns the same answers and images.
 ``gen_images_grouped`` denoises G images at once over a ("data", "model",
 "seq") mesh. With ``sp_mesh`` the flow loop runs as the sequence-parallel
-program of ``parallel/sp_denoise.py`` over that mesh's ranks.
+program of ``parallel/sp_denoise.py`` over that mesh's ranks. On a mesh whose
+groups are all NCCL the device programs run as on one device, with the
+collectives inside their graphs; a mesh with a gloo group runs eagerly
+(``inference.programs.use_graphs``).
 
 Generation also runs as a resumable job (``start_gen_job``,
 ``advance_gen_job``, ``finish_gen_job``), a few flow steps at a time, which
@@ -175,12 +178,14 @@ class InterleaveInferencer:
         prefills and the VAE encode), of the answer decodes (``gen_text``,
         greedy or sampled, kept in the context or not, speculative or not),
         of ``gen_text_stream``'s chunks and of the flow loop
-        (``inference.programs.use_graphs``): by default, on a CUDA device
-        without a mesh, the captured device programs
-        (``bagel.PrefillProgram``, ``bagel.DecodeProgram``,
-        ``bagel.SpecProgram``, ``serving.ChunkProgram``,
-        ``bagel.FlowProgram``); False their eager versions. The
-        sequence-parallel denoise runs eagerly."""
+        (``inference.programs.use_graphs``): by default, on a CUDA device,
+        the captured device programs (``bagel.PrefillProgram``,
+        ``bagel.DecodeProgram``, ``bagel.SpecProgram``,
+        ``serving.ChunkProgram``, ``bagel.FlowProgram``, and the
+        sequence-parallel denoise's ``sp_denoise.SPProgram``); on a
+        ``mesh`` or ``sp_mesh`` whose groups are all NCCL too, with the
+        collectives inside the graphs, and eagerly on one with a gloo group;
+        False their eager versions."""
         if kv_quantized:
             check_kv_bits(kv_bits)
         if kv_quantized and sp_mesh is not None:
@@ -701,7 +706,7 @@ class InterleaveInferencer:
             model, (caches,) = self._sp_rank(mesh, [job.caches])
             return generate_latents_tp_sp(
                 model, caches, job.positions, job.pos_ids, job.x_t, self._start_end(), mesh,
-                **job.kw)
+                graphs=self.graphs, **job.kw)
         return self.advance_gen_job(job, job.total_steps).x_t
 
     def _sp_rank(self, mesh, caches: List[KVCache]):
@@ -783,7 +788,7 @@ class InterleaveInferencer:
             timestep_shift=timestep_shift, cfg_text_scale=cfg_text_scale,
             cfg_img_scale=cfg_img_scale, cfg_interval=tuple(cfg_interval),
             cfg_renorm_min=cfg_renorm_min, cfg_renorm_type=cfg_renorm_type,
-            use_text_cfg=use_text_cfg, use_img_cfg=use_img_cfg)
+            use_text_cfg=use_text_cfg, use_img_cfg=use_img_cfg, graphs=self.graphs)
 
     def gen_images_grouped(self, image_shape: Tuple[int, int], gen_contexts: List[GenContext],
                            group_mesh, cfg_text_precontexts: Optional[List[GenContext]] = None,

@@ -57,6 +57,19 @@ The prefills (``bagel.PrefillProgram``: the text, ViT and VAE context
 builds, the VAE encode, the batcher's admission blocks) are programs of
 one graph and no loop: their inputs, row counts and rope positions
 included, are copied into static buffers at every call.
+
+A rank's model of a mesh (``parallel.mesh``) runs the same programs when
+every group of its mesh is NCCL (:func:`use_graphs`): ProcessGroupNCCL
+issues a collective on a stream of its own, joined to the caller's by
+events, which a capture records as edges of the graph, so each graph holds
+its step's all-reduces and gathers beside the kernels. A communicator is
+created at its group's first collective, which a capture cannot do: the
+warm-up, which runs the whole body, runs every collective once before.
+A program's key holds the mesh (:func:`mesh_key`), and a graph records the
+collectives a replay runs (``parallel.mesh.counts``) as it records
+launches; ``stats["collective_captures"]`` counts the captures that hold
+any. The sequence-parallel denoise's flow step is
+``parallel.sp_denoise.SPProgram``.
 """
 
 from __future__ import annotations
@@ -89,9 +102,10 @@ _pools: Dict[int, object] = {}
 _pool_users: Dict[int, int] = {}
 _streams: Dict[int, object] = {}
 _static: "weakref.WeakValueDictionary[tuple, object]" = weakref.WeakValueDictionary()
-#: graphs captured in this process, the seconds their warm-ups and captures took (the
-#: card waited for at both ends), and the largest the shared pool has been after a capture
-stats = {"captures": 0, "capture_s": 0.0, "pool_bytes_max": 0}
+#: graphs captured in this process, those of them that hold collectives (a model on an
+#: NCCL mesh), the seconds their warm-ups and captures took (the card waited for at both
+#: ends), and the largest the shared pool has been after a capture
+stats = {"captures": 0, "collective_captures": 0, "capture_s": 0.0, "pool_bytes_max": 0}
 
 
 def capturing() -> bool:
@@ -99,19 +113,49 @@ def capturing() -> bool:
     return getattr(_state, "capturing", False)
 
 
-def use_graphs(graphs: Optional[bool], device: torch.device, model: nn.Module) -> bool:
+def _meshes(model: Optional[nn.Module], mesh) -> list:
+    """The meshes a call runs over: the model's (a rank's model of a mesh,
+    ``parallel.mesh.attach_mesh``) and ``mesh`` (the sequence-parallel
+    denoise's, which a whole model at one "model" rank does not carry)."""
+    found = [] if model is None else [getattr(model.language_model, "mesh", None)]
+    return [m for m in found + [mesh] if m is not None]
+
+
+def use_graphs(graphs: Optional[bool], device: torch.device, model: Optional[nn.Module],
+               mesh=None) -> bool:
     """Whether a loop runs as its program: ``graphs`` None takes the program
     on a CUDA device and the eager loop elsewhere; True the program on any
-    device (its plain route on the CPU); False the eager loop. A model on a
-    mesh runs its collectives between the kernels, which a graph does not
-    capture, so it takes the eager loop, and True raises. Within
-    :func:`eager`, None takes the eager loop."""
-    on_mesh = getattr(model.language_model, "mesh", None) is not None
-    if graphs and on_mesh:
-        raise ValueError("graphs=True: a model on a mesh runs eagerly")
+    device (its plain route on the CPU); False the eager loop. Within
+    :func:`eager`, None takes the eager loop.
+
+    On a mesh (the model's, or ``mesh``) the program's graph captures the
+    collectives with the kernels when every group is NCCL, which runs on
+    the card's streams: the rule above holds as it is. A gloo group stages
+    a CUDA tensor through the host, which a graph cannot capture: on a CUDA
+    device such a mesh takes the eager loop, and True raises naming the
+    backend. On the CPU, True takes the program's plain route on any
+    mesh."""
+    meshes = _meshes(model, mesh)
+    if device.type == "cuda" and not all(m.capturable for m in meshes):
+        if graphs:
+            blocked = {a: b for m in meshes for a, b in m.backends().items() if b != "nccl"}
+            raise ValueError(
+                "graphs=True: a CUDA graph captures NCCL collectives only; this mesh's "
+                + ", ".join(f"{a!r} axis runs over {b}" for a, b in sorted(blocked.items()))
+                + " (the eager route, graphs=None or False, runs it)")
+        return False
     if graphs is None:
-        return device.type == "cuda" and not on_mesh and not getattr(_state, "eager", False)
+        return device.type == "cuda" and not getattr(_state, "eager", False)
     return bool(graphs)
+
+
+def mesh_key(model: Optional[nn.Module], mesh=None) -> tuple:
+    """What a program's key holds of the meshes it runs over (the model's
+    and ``mesh``): each one's axes and sizes, this rank, and its groups (a
+    graph replays the communicators it captured)."""
+    return tuple((m.axis_names, tuple(m.shape[a] for a in m.axis_names), m.rank,
+                  tuple(None if m.groups[a] is None else id(m.groups[a]) for a in m.axis_names))
+                 for m in _meshes(model, mesh))
 
 
 @contextlib.contextmanager
@@ -306,13 +350,16 @@ def _unpool(index: int) -> None:
 
 
 def _counter_dicts() -> list:
+    """The kernels' launch counters, and last the mesh's collective counter."""
     import importlib
+
+    from unimedvl_tpu_torch.parallel import mesh as pmesh
 
     out = []
     for name in COUNTER_MODULES:
         mod = importlib.import_module(f"unimedvl_tpu_torch.ops.{name}")
         out.extend(v for k, v in vars(mod).items() if k.endswith("counts") and isinstance(v, dict))
-    return out
+    return out + [pmesh.counts]
 
 
 def _snapshot(dicts) -> list:
@@ -340,6 +387,7 @@ class Graph:
         self.forwards = dict(forwards or {})
         self.graph = None
         self.launches: list = []  # (counter dict, key, launches) added by one replay
+        self.collectives = 0  # the collectives one replay runs (``parallel.mesh.counts``)
 
     def replay(self) -> None:
         if self.device.type != "cuda":
@@ -399,10 +447,12 @@ class Graph:
             _state.capturing = False
         self.launches = [(d, k, after[i][k] - mid[i][k]) for i, d in enumerate(dicts)
                          for k in d if after[i][k] != mid[i][k]]
+        self.collectives = after[-1]["collectives"] - mid[-1]["collectives"]
         for d, b in zip(dicts, before):
             d.update(b)
         self.graph = graph
         torch.cuda.synchronize(self.device)
         stats["captures"] += 1
+        stats["collective_captures"] += bool(self.collectives)
         stats["capture_s"] += time.perf_counter() - t0
         stats["pool_bytes_max"] = max(stats["pool_bytes_max"], pool_bytes(self.device) or 0)

@@ -375,7 +375,7 @@ class ChunkProgram:
         where = (bagel._cache_kind(cache),) if static else (
             cache.kv_bits, cache.lens.dtype, programs.tensors_key(arrays))
         key = ("chunk", aligned, static, num_steps, eos, sampler[3], where,
-               programs.weights_key(model.language_model))
+               programs.weights_key(model.language_model), programs.mesh_key(model))
         reads = (model.language_model,) if static else (model.language_model, arrays)
         return programs.lookup(key, lambda: cls(model, cache, num_steps, eos, aligned, static,
                                                 sampler),
@@ -719,10 +719,11 @@ class ContinuousBatcher:
         route of the decode chunks and of admission
         (``inference.programs.use_graphs``): by default a captured
         :class:`ChunkProgram` (a speculative chunk: a ``bagel.SpecProgram``)
-        on a CUDA device without a mesh, one host read a chunk, and the
-        admission blocks' and the preambles' prefill programs; False the
-        eager loops and prefills, one host read a step or a verify
-        forward."""
+        on a CUDA device, one host read a chunk, and the admission blocks'
+        and the preambles' prefill programs; on a mesh whose groups are all
+        NCCL too, the collectives inside the graphs, and eagerly on a mesh
+        with a gloo group; False the eager loops and prefills, one host read
+        a step or a verify forward."""
         if spec_decode and pool_ladder:
             raise ValueError("pool_ladder and spec_decode are not composed (nor in the JAX "
                              "batcher)")

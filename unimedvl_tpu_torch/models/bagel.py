@@ -433,7 +433,8 @@ class PrefillProgram:
 
         shapes = tuple((k, tuple(v.shape), v.dtype, v.device) if isinstance(v, torch.Tensor)
                        else (k, int) for k, v in inputs.items())
-        key = ("prefill", name, storage, shapes, bake, programs.weights_key(*modules))
+        key = ("prefill", name, storage, shapes, bake, programs.weights_key(*modules),
+               programs.mesh_key(model))
         reads = modules
         if storage == "static":
             key += (_cache_kind(cache),)
@@ -701,7 +702,7 @@ class DecodeProgram:
 
         sampler = _sampler(do_sample, temperature, generator, cache.k.device)
         key = ("decode", kept, S, max_length, int(eos_id), sampler[3], _cache_kind(cache),
-               programs.weights_key(model.language_model))
+               programs.weights_key(model.language_model), programs.mesh_key(model))
         return programs.lookup(key, lambda: cls(model, cache, S, max_length, eos_id, kept,
                                                 sampler),
                                reads=(model.language_model,), owner=model.language_model)
@@ -974,7 +975,7 @@ class SpecProgram:
 
         propose = globals()["propose_drafts"]  # a stand-in swapped in captures its own graph
         key = ("spec", chunk, static, iters, k_draft, ngram, int(eos_id), tuple(hist.shape),
-               propose, programs.weights_key(model.language_model))
+               propose, programs.weights_key(model.language_model), programs.mesh_key(model))
         reads = (model.language_model,)
         if static:
             key += (_cache_kind(cache),)
@@ -1349,6 +1350,27 @@ def _cfg_combine(
     return (v_ * torch.clamp(norm_v / (norm_v_ + 1e-8), renorm_min, 1.0)).to(v.dtype)
 
 
+def _step_velocities(model: Bagel, x: torch.Tensor, block_positions: torch.Tensor,
+                     step_caches: KVCache, G: int, active: int, n: int) -> torch.Tensor:
+    """A flow step's velocities [G, active, n, d] of its G * active streams
+    (blocks ``x``): on a rank of a mesh whose "data" axis divides them, the
+    forward of this data rank's share (``parallel.mesh.stream_range``) and
+    the velocities gathered over "data"; otherwise every stream's."""
+    lm = model.language_model
+    mesh = getattr(lm, "mesh", None)
+    s0, ns = (0, G * active) if mesh is None else stream_range(mesh, G * active)
+    if ns < G * active:
+        sl = slice(s0, s0 + ns)
+        mine = step_caches._map(lambda t: t[:, sl], lambda t: t[:, sl], step_caches.lens[sl])
+        h, _ = lm.model(x[sl], block_positions[sl], mine, causal=False, mode="gen",
+                        update_cache=False)
+        v_loc = _linear(h[:, 1:n + 1], model.llm2vae)
+        return mesh.gather(v_loc, "data", dim=0).view(G, active, n, -1)
+    h, _ = lm.model(x, block_positions, step_caches, causal=False, mode="gen",
+                    update_cache=False)
+    return _linear(h[:, 1:n + 1], model.llm2vae).view(G, active, n, -1)
+
+
 def flow_timesteps(num_timesteps: int, timestep_shift: float):
     """(timesteps [T-1], dts [T-1]) fp32 numpy (bagel.py:937-940)."""
     ts = np.linspace(1.0, 0.0, num_timesteps, dtype=np.float32)
@@ -1432,13 +1454,14 @@ def generate_latents_group(
     rank runs every stream.
 
     ``graphs`` (``inference.programs.use_graphs``): by default, on a CUDA
-    device without a mesh, the loop runs as a captured device program
-    (:class:`FlowProgram`, the JAX package's ``lax.scan``); ``graphs=False``
-    runs the eager loop below, the program's plain version."""
+    device (on a rank's model, when its mesh's groups are all NCCL), the
+    loop runs as a captured device program (:class:`FlowProgram`, the JAX
+    package's ``lax.scan``, the gather over "data" inside its graph);
+    ``graphs=False`` runs the eager loop below, the program's plain
+    version."""
     from unimedvl_tpu_torch.inference import programs
 
     lm = model.language_model
-    mesh = getattr(lm, "mesh", None)
     G, n = init_noise.shape[:2]
     S_all = caches.k.shape[1]
     if S_all % G:
@@ -1484,19 +1507,7 @@ def generate_latents_group(
             block = torch.cat([se[:1].expand(G, 1, C), x_lat, se[1:].expand(G, 1, C)], dim=1)
             # each image's block over its active streams (a view at G = 1)
             x = block[:, None].expand(G, active, n + 2, C).reshape(G * active, n + 2, C)
-            s0, ns = (0, G * active) if mesh is None else stream_range(mesh, G * active)
-            if ns < G * active:
-                sl = slice(s0, s0 + ns)
-                mine = step_caches._map(lambda t: t[:, sl], lambda t: t[:, sl],
-                                        step_caches.lens[sl])
-                h, _ = lm.model(x[sl], block_positions[sl], mine, causal=False, mode="gen",
-                                update_cache=False)
-                v_loc = _linear(h[:, 1:n + 1], model.llm2vae)
-                v_all = mesh.gather(v_loc, "data", dim=0).view(G, active, n, -1)
-            else:
-                h, _ = lm.model(x, block_positions, step_caches, causal=False, mode="gen",
-                                update_cache=False)
-                v_all = _linear(h[:, 1:n + 1], model.llm2vae).view(G, active, n, -1)
+            v_all = _step_velocities(model, x, block_positions, step_caches, G, active, n)
             v = v_all[:, 0]
             if cfg_on:
                 v_text = v_all[:, 1] if use_text_cfg else v
@@ -1521,9 +1532,12 @@ class FlowProgram:
     positions, the latent position embedding and the <vision_start/end>
     embeddings are the program's own, copied in at every call, so one program
     serves every request of its geometry; a ``step_range`` segment sets ``i``
-    and replays. No exit test: a run's steps are known on the host. Keyed by
-    G, S1, the latent count and width, the caches' shape, dtype and width,
-    the schedule and CFG options, and the weights."""
+    and replays. No exit test: a run's steps are known on the host. On a
+    rank's model whose "data" axis divides a step's streams the graph runs
+    the rank's share and gathers the velocities over "data", as the eager
+    loop does. Keyed by G, S1, the latent count and width, the caches'
+    shape, dtype and width, the schedule and CFG options, the weights and
+    the mesh (``programs.mesh_key``)."""
 
     def __init__(self, model: Bagel, caches: KVCache, positions: torch.Tensor, G: int, n: int,
                  d: int, cfg: dict):
@@ -1558,7 +1572,7 @@ class FlowProgram:
         mods = (model.language_model, model.vae2llm, model.llm2vae, model.time_embedder,
                 model.latent_pos_embed)
         key = ("flow", G, n, d, _cache_kind(caches), tuple(positions.shape), positions.dtype,
-               tuple(sorted(cfg.items())), programs.weights_key(*mods))
+               tuple(sorted(cfg.items())), programs.weights_key(*mods), programs.mesh_key(model))
         return programs.lookup(key, lambda: cls(model, caches, positions, G, n, d, cfg),
                                reads=mods, owner=model.language_model)
 
@@ -1577,7 +1591,6 @@ class FlowProgram:
 
     def _body(self, cfg_on: bool) -> None:
         model, cfg, G, n, S1 = self._model(), self.cfg, self.G, self.n, self.S1
-        lm = model.language_model
         C = self.se.shape[-1]
         active = S1 if cfg_on else 1
         if cfg_on:
@@ -1592,9 +1605,7 @@ class FlowProgram:
         se = self.se
         block = torch.cat([se[:1].expand(G, 1, C), x_lat, se[1:].expand(G, 1, C)], dim=1)
         x = block[:, None].expand(G, active, n + 2, C).reshape(G * active, n + 2, C)
-        h, _ = lm.model(x, pos_act[:, None], step_caches, causal=False, mode="gen",
-                        update_cache=False)
-        v_all = _linear(h[:, 1:n + 1], model.llm2vae).view(G, active, n, -1)
+        v_all = _step_velocities(model, x, pos_act[:, None], step_caches, G, active, n)
         v = v_all[:, 0]
         if cfg_on:
             ut, ui = cfg["use_text_cfg"], cfg["use_img_cfg"]

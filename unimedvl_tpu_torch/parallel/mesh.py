@@ -57,17 +57,43 @@ from torch import nn
 
 GROUP_TIMEOUT_S = 120.0
 
+#: collectives issued over a group (a graph's replay adds those its capture issued, as
+#: the kernels' launch counters do: ``inference/programs.py``)
+counts = {"collectives": 0}
+
+
+def group_backend(group: dist.ProcessGroup) -> str:
+    """The backend of a process group ("nccl", "gloo", ...)."""
+    return str(dist.get_backend(group))
+
 
 @dataclasses.dataclass
 class Mesh:
     """Axis names and sizes, this rank's coordinates, and the process group
-    of each axis (None: no collective runs over it)."""
+    of each axis (None: no collective runs over it).
+
+    Every collective is issued on the current stream and reads nothing back
+    to the host: on NCCL the stream waits for the collective's stream by an
+    event, so a CUDA graph captures it as an edge of the graph. A work
+    started with ``async_op`` is waited for by the code that started it,
+    before its result is read."""
 
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
     rank: int
     coords: Dict[str, int]
     groups: Dict[str, Optional[dist.ProcessGroup]]
+
+    def backends(self) -> Dict[str, str]:
+        """The backend of each axis that has a group."""
+        return {a: group_backend(g) for a, g in self.groups.items() if g is not None}
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can capture this mesh's collectives: every
+        group is NCCL (a mesh without groups runs none). Gloo stages a CUDA
+        tensor through the host, which no graph captures."""
+        return all(b == "nccl" for b in self.backends().values())
 
     def all_reduce(self, t: torch.Tensor, axis: str, async_op: bool = False,
                    op=dist.ReduceOp.SUM):
@@ -78,6 +104,7 @@ class Mesh:
         group = self.groups[axis]
         if group is None:
             return None
+        counts["collectives"] += 1
         work = dist.all_reduce(t, op=op, group=group, async_op=async_op)
         return work if async_op else None
 
@@ -92,6 +119,7 @@ class Mesh:
         to every rank of that axis (nothing without a group)."""
         group = self.groups[axis]
         if group is not None:
+            counts["collectives"] += 1
             dist.broadcast(t, src=self.axis_rank(axis, index), group=group)
 
     def gather(self, t: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
@@ -118,6 +146,7 @@ class Mesh:
             return Gathered(t, None, None, dim)
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.shape[axis])]
+        counts["collectives"] += 1
         work = dist.all_gather(parts, t, group=group, async_op=True)
         return Gathered(t, parts, work, dim)
 

@@ -38,8 +38,12 @@ picks the kernel or its plain version by the tensors' device, so the JAX
 module's third branch (masked softmax in XLA) has no counterpart here.
 
 A mesh of one rank is legal and needs no process group: it is how one card
-runs this program. The JAX module's jit cache (``_PROGRAM_CACHE``) has no
-counterpart either: the loops over steps and layers are Python loops.
+runs this program. The JAX module's jitted ``shard_map`` scan and its cache
+(``_PROGRAM_CACHE``) are :class:`SPProgram`: one captured CUDA graph a flow
+step of a cfg-run kind, every collective inside it, kept in the device
+programs' registry (``inference/programs.py``), on a mesh whose groups are
+all NCCL; a mesh with a gloo group, and ``graphs=False``, run the eager loop
+over steps and layers.
 """
 
 from __future__ import annotations
@@ -317,9 +321,64 @@ def _sp_decoder_layer(
     return torch.cat(outs, dim=1)
 
 
-def _denoise_body(
+def _sp_step(
     model: Bagel,
     views: list,  # this model rank's view of every layer
+    se: torch.Tensor,  # [2, C] start / end token embeddings
+    pos_emb: torch.Tensor,  # [nloc, C] local latent position embeddings
+    caches: KVCache,  # this rank's kv heads [L, S, Hkl, M, D]
+    positions: torch.Tensor,  # [S]
+    x_t: torch.Tensor,  # [nloc, p*p*z] fp32 flow state
+    t_emb: torch.Tensor,  # the step's timestep embedding, [C] or [1, C] fp32
+    dt,  # the step's dt: a float, or a [1] fp32 tensor read on the device
+    scales: Optional[Tuple[float, float]],  # (text, img) CFG scales; None: the main stream
+    n_global: int,
+    statics: Dict,
+    mesh: Mesh,
+    overlap_chunks: int = 1,
+    overlap_gather: bool = False,
+    dedup_text_mlp: bool = False,
+) -> torch.Tensor:
+    """One flow step of one rank: every stream of ``caches`` when ``scales``
+    is given (the CFG interval), else the main stream alone. Returns the
+    next local state [nloc, p*p*z] fp32. The eager loop and
+    :class:`SPProgram`'s graphs run this body."""
+    llm = model.config.llm
+    lm = model.language_model.model
+    nloc = x_t.shape[0]
+    n_streams = caches.k.shape[1] if scales is not None else 1
+    step_caches = caches if scales is not None else caches.streams(1)
+    cos_q, sin_q = rope_cos_sin(positions[:n_streams, None], llm.head_dim, llm.rope_theta)
+    x_lat = (bagel._linear(x_t, model.vae2llm) + t_emb + pos_emb).to(se.dtype)
+    block = torch.cat([se[:1], x_lat, se[1:]], dim=0)  # [nloc + 2, C]
+    h = block[None].expand(n_streams, -1, -1)
+    for li, lp in enumerate(views):
+        h = _sp_decoder_layer(
+            h, lp, llm, cos_q, sin_q, step_caches.k[li], step_caches.v[li], step_caches.lens,
+            n_global, mesh, overlap_chunks=overlap_chunks, overlap_gather=overlap_gather,
+            layer_idx=li, dedup_text_mlp=dedup_text_mlp,
+        )
+    h = _mot_rows(h, lm.norm, lambda t: lm.norm_moe_gen(t), llm.use_moe, None)
+    v_all = bagel._linear(h[:, 1:nloc + 1], model.llm2vae)  # [ns, nloc, p*p*z]
+    v = v_all[0]
+    if scales is not None:
+        use_text_cfg, use_img_cfg = statics["use_text_cfg"], statics["use_img_cfg"]
+        v_text = v_all[1] if use_text_cfg else v
+        v_img = v_all[1 + int(use_text_cfg)] if use_img_cfg else v
+        v = bagel._cfg_combine(
+            v, v_text, v_img, scales[0], scales[1], statics["cfg_renorm_min"],
+            statics["cfg_renorm_type"], use_text_cfg, use_img_cfg, seq_group=mesh.groups["seq"],
+        )
+    return x_t - v.float() * dt
+
+
+def _views(model: Bagel, mesh: Mesh) -> list:
+    return [_layer_view(layer, f"layers.{i}", mesh.shape["model"])
+            for i, layer in enumerate(model.language_model.model.layers)]
+
+
+def _denoise_body(
+    model: Bagel,
     se: torch.Tensor,  # [2, C] start / end token embeddings
     pos_emb: torch.Tensor,  # [nloc, C] local latent position embeddings
     caches: KVCache,  # this rank's kv heads [L, S, Hkl, M, D]
@@ -329,49 +388,122 @@ def _denoise_body(
     n_global: int,
     statics: Dict,
     mesh: Mesh,
-    overlap_chunks: int = 1,
-    overlap_gather: bool = False,
-    dedup_text_mlp: bool = False,
+    **opts,
 ) -> torch.Tensor:
-    """One rank's part of the denoise loop: Python loops over the CFG runs,
-    the steps and the layers. Returns the local final latents [nloc, p*p*z]."""
-    llm = model.config.llm
-    lm = model.language_model.model
+    """One rank's part of the denoise loop, eagerly: Python loops over the
+    CFG runs, the steps and the layers (:func:`_sp_step`). Returns the local
+    final latents [nloc, p*p*z]."""
     S = caches.k.shape[1]
-    nloc = noise.shape[0]
     ts, dts, text_scales, img_scales, runs = schedule
-    use_text_cfg, use_img_cfg = statics["use_text_cfg"], statics["use_img_cfg"]
+    views = _views(model, mesh)
     # every step's timestep embedding in one call: no host-to-device copy per step
     t_emb = bagel.time_embed(model, torch.from_numpy(ts).to(noise.device))  # [steps, C] fp32
     x_t = noise.float()
     for run_start, run_end, cfg_on in runs:
         cfg_on = cfg_on and S > 1
-        n_streams = S if cfg_on else 1
-        step_caches = caches if n_streams == S else caches.streams(1)
-        cos_q, sin_q = rope_cos_sin(positions[:n_streams, None], llm.head_dim, llm.rope_theta)
         for i in range(run_start, run_end):
-            x_lat = (bagel._linear(x_t, model.vae2llm) + t_emb[i] + pos_emb).to(se.dtype)
-            block = torch.cat([se[:1], x_lat, se[1:]], dim=0)  # [nloc + 2, C]
-            h = block[None].expand(n_streams, -1, -1)
-            for li, lp in enumerate(views):
-                h = _sp_decoder_layer(
-                    h, lp, llm, cos_q, sin_q, step_caches.k[li], step_caches.v[li],
-                    step_caches.lens, n_global, mesh, overlap_chunks=overlap_chunks,
-                    overlap_gather=overlap_gather, layer_idx=li, dedup_text_mlp=dedup_text_mlp,
-                )
-            h = _mot_rows(h, lm.norm, lambda t: lm.norm_moe_gen(t), llm.use_moe, None)
-            v_all = bagel._linear(h[:, 1:nloc + 1], model.llm2vae)  # [ns, nloc, p*p*z]
-            v = v_all[0]
-            if cfg_on:
-                v_text = v_all[1] if use_text_cfg else v
-                v_img = v_all[1 + int(use_text_cfg)] if use_img_cfg else v
-                v = bagel._cfg_combine(
-                    v, v_text, v_img, float(text_scales[i]), float(img_scales[i]),
-                    statics["cfg_renorm_min"], statics["cfg_renorm_type"], use_text_cfg,
-                    use_img_cfg, seq_group=mesh.groups["seq"],
-                )
-            x_t = x_t - v.float() * float(dts[i])
+            scales = (float(text_scales[i]), float(img_scales[i])) if cfg_on else None
+            x_t = _sp_step(model, views, se, pos_emb, caches, positions, x_t, t_emb[i],
+                           float(dts[i]), scales, n_global, statics, mesh, **opts)
     return x_t
+
+
+class SPProgram:
+    """One rank's part of the sequence-parallel denoise as a device program,
+    as ``bagel.FlowProgram`` is the single-device loop's: one captured graph
+    is one flow step (:func:`_sp_step`) of a cfg-run kind ("all": every
+    stream, in the CFG interval, its scales baked in; "main": the main
+    stream), over static buffers: the local state ``x_t`` (fp32), the step
+    index ``i`` (0-dim int64), and the step's timestep embedding and dt read
+    at ``i`` from device arrays. Every collective of the step runs inside the
+    graph: the gathers of the block's k and v over "seq"
+    (:func:`gather_block`), the overlap chunks' all-reduces over "model", the
+    text rows' broadcast over "seq" and the renorm's sums. The caches (this
+    rank's kv heads), the positions, the local latent position embeddings and
+    the <vision_start/end> embeddings are copied in at every call; the final
+    gather over "seq" runs after the replays. Keyed by the geometry, the
+    schedule and CFG options, the overlap options, the weights and the mesh
+    (``programs.mesh_key``)."""
+
+    def __init__(self, model: Bagel, caches: KVCache, positions: torch.Tensor, nloc: int, d: int,
+                 n_global: int, schedule, statics: Dict, opts: Dict, mesh: Mesh,
+                 cfg_scales: Tuple[float, float]):
+        from unimedvl_tpu_torch.inference import programs
+
+        dev = caches.k.device
+        self._model = programs.model_ref(model)
+        self.mesh, self.n_global, self.statics, self.opts = mesh, n_global, statics, opts
+        self.caches = bagel.static_cache(caches)
+        self.positions = torch.zeros_like(positions)
+        C = model.config.llm.hidden_size
+        self.pos_emb = torch.zeros((nloc, C), dtype=model.latent_pos_embed.pos_embed.dtype,
+                                   device=dev)
+        self.se = torch.zeros((2, C), dtype=model.language_model.model.embed_tokens.weight.dtype,
+                              device=dev)
+        self.x_t = torch.zeros((nloc, d), dtype=torch.float32, device=dev)
+        self.i = torch.zeros((), dtype=torch.int64, device=dev)
+        ts, dts, _, _, self.runs = schedule
+        self.t_emb = bagel.time_embed(model, torch.from_numpy(ts).to(dev))  # [steps, C] fp32
+        self.dts = torch.from_numpy(dts).to(dev)
+        self.cfg_scales = cfg_scales
+        self._graphs = {}
+        self.device = dev
+
+    @classmethod
+    def get(cls, model: Bagel, caches: KVCache, positions: torch.Tensor, nloc: int, d: int,
+            n_global: int, schedule_kw: Dict, statics: Dict, opts: Dict, mesh: Mesh):
+        from unimedvl_tpu_torch.inference import programs
+
+        mods = (model.language_model, model.vae2llm, model.llm2vae, model.time_embedder,
+                model.latent_pos_embed)
+        key = ("sp", nloc, d, n_global, bagel._cache_kind(caches), tuple(positions.shape),
+               positions.dtype, tuple(sorted(schedule_kw.items())),
+               tuple(sorted(statics.items())), tuple(sorted(opts.items())),
+               programs.weights_key(*mods), programs.mesh_key(model, mesh))
+        # a cfg run's scales, as the eager loop's float32 schedule holds them
+        scales = (float(np.float32(schedule_kw["cfg_text_scale"])),
+                  float(np.float32(schedule_kw["cfg_img_scale"])))
+        return programs.lookup(key, lambda: cls(model, caches, positions, nloc, d, n_global,
+                                                _schedule(**schedule_kw), statics, opts, mesh,
+                                                scales),
+                               reads=mods, owner=model.language_model)
+
+    def graphs(self):
+        return list(self._graphs.values())
+
+    def _graph(self, cfg_on: bool):
+        from unimedvl_tpu_torch.inference import programs
+
+        kind = "all" if cfg_on else "main"
+        if kind not in self._graphs:
+            self._graphs[kind] = programs.Graph(
+                "denoise", lambda: self._body(cfg_on), self.device, keep=(self.x_t, self.i),
+                rows=self.caches.k.shape[1] if cfg_on else 1)
+        return self._graphs[kind]
+
+    def _body(self, cfg_on: bool) -> None:
+        model = self._model()
+        i = self.i.view(1)
+        x_t = _sp_step(model, _views(model, self.mesh), self.se, self.pos_emb, self.caches,
+                       self.positions, self.x_t, self.t_emb.index_select(0, i),
+                       self.dts.index_select(0, i), self.cfg_scales if cfg_on else None,
+                       self.n_global, self.statics, self.mesh, **self.opts)
+        self.x_t.copy_(x_t)
+        self.i.add_(1)
+
+    def run(self, se, pos_emb, caches, positions, noise) -> torch.Tensor:
+        bagel._copy_cache(self.caches, caches)
+        self.positions.copy_(positions)
+        self.pos_emb.copy_(pos_emb)
+        self.se.copy_(se)
+        self.x_t.copy_(noise)
+        S = caches.k.shape[1]
+        for run_start, run_end, cfg_on in self.runs:
+            graph = self._graph(cfg_on and S > 1)
+            self.i.fill_(run_start)
+            for _ in range(run_start, run_end):
+                graph.replay()
+        return self.x_t.clone()
 
 
 def _check_layout(model: Bagel, caches: KVCache, n: int, mesh: Mesh, axes: Tuple[str, ...]):
@@ -415,23 +547,40 @@ def _schedule(num_timesteps, timestep_shift, cfg_text_scale, cfg_img_scale, cfg_
 
 
 def _denoise_on_rank(model, caches, positions, latent_pos_ids, init_noise, start_end_ids, mesh,
-                     schedule, statics, overlap_chunks, overlap_gather, dedup_text_mlp):
-    """Slice the latent rows for this seq rank, run its part, and gather the
+                     schedule_kw, statics, opts, graphs):
+    """Slice the latent rows for this seq rank, run its part (by the route
+    of ``graphs``: its :class:`SPProgram` or the eager loop), and gather the
     latents over "seq": the full [n, p*p*z] on every rank."""
+    from unimedvl_tpu_torch.inference import programs
+
     sp, s_rank = mesh.shape["seq"], mesh.coords["seq"]
     n = init_noise.shape[0]
     nloc = n // sp
     rows = slice(s_rank * nloc, (s_rank + 1) * nloc)
-    lm = model.language_model
-    views = [_layer_view(layer, f"layers.{i}", mesh.shape["model"])
-             for i, layer in enumerate(lm.model.layers)]
-    x0 = _denoise_body(
-        model, views, mot.embed_tokens(lm, start_end_ids),
-        model.latent_pos_embed.pos_embed[latent_pos_ids][rows], caches, positions,
-        init_noise[rows], schedule, n, statics, mesh, overlap_chunks=overlap_chunks,
-        overlap_gather=overlap_gather, dedup_text_mlp=dedup_text_mlp,
-    )
+    se = mot.embed_tokens(model.language_model, start_end_ids)
+    pos_emb = model.latent_pos_embed.pos_embed[latent_pos_ids][rows]
+    noise = init_noise[rows]
+    if programs.use_graphs(graphs, noise.device, model, mesh):
+        prog = SPProgram.get(model, caches, positions, nloc, noise.shape[-1], n, schedule_kw,
+                             statics, opts, mesh)
+        x0 = prog.run(se, pos_emb, caches, positions, noise)
+    else:
+        x0 = _denoise_body(model, se, pos_emb, caches, positions, noise,
+                           _schedule(**schedule_kw), n, statics, mesh, **opts)
     return mesh.all_gather(x0, "seq", dim=0).wait()
+
+
+def _options(num_timesteps, timestep_shift, cfg_text_scale, cfg_img_scale, cfg_interval,
+             cfg_renorm_min, cfg_renorm_type, use_text_cfg, use_img_cfg, overlap_chunks,
+             overlap_gather, dedup_text_mlp):
+    """(schedule, statics, opts) keyword dicts of the entry points' options."""
+    return (dict(num_timesteps=num_timesteps, timestep_shift=timestep_shift,
+                 cfg_text_scale=cfg_text_scale, cfg_img_scale=cfg_img_scale,
+                 cfg_interval=tuple(cfg_interval)),
+            dict(cfg_renorm_min=cfg_renorm_min, cfg_renorm_type=cfg_renorm_type,
+                 use_text_cfg=use_text_cfg, use_img_cfg=use_img_cfg),
+            dict(overlap_chunks=overlap_chunks, overlap_gather=overlap_gather,
+                 dedup_text_mlp=dedup_text_mlp))
 
 
 @torch.no_grad()
@@ -455,6 +604,7 @@ def generate_latents_tp_sp(
     overlap_chunks: int = 2,
     overlap_gather: bool = True,
     dedup_text_mlp: bool = True,
+    graphs: Optional[bool] = None,
 ) -> torch.Tensor:
     """The rectified-flow denoise over a ("model", "seq") mesh; the same
     function as ``models.bagel.generate_latents`` (any (tp, sp) whose heads
@@ -471,15 +621,20 @@ def generate_latents_tp_sp(
     ``dedup_text_mlp``: the und-expert MLP of the two seq-replicated text rows
     runs on one seq rank per layer (owner = layer % sp) and a small all-reduce
     broadcasts it, instead of every rank reading the und MLP shard for them.
-    Exact."""
+    Exact.
+
+    ``graphs`` (``inference.programs.use_graphs``, over the model's mesh and
+    ``mesh``): by default, on a CUDA device whose groups are all NCCL, each
+    flow step replays a captured graph (:class:`SPProgram`) with every
+    collective inside it; on a mesh with a gloo group, and with
+    ``graphs=False``, the eager loop, the program's plain version."""
     _check_layout(model, caches, init_noise.shape[0], mesh, ("model", "seq"))
-    schedule = _schedule(num_timesteps, timestep_shift, cfg_text_scale, cfg_img_scale,
-                         cfg_interval)
-    statics = dict(cfg_renorm_min=cfg_renorm_min, cfg_renorm_type=cfg_renorm_type,
-                   use_text_cfg=use_text_cfg, use_img_cfg=use_img_cfg)
+    schedule_kw, statics, opts = _options(
+        num_timesteps, timestep_shift, cfg_text_scale, cfg_img_scale, cfg_interval,
+        cfg_renorm_min, cfg_renorm_type, use_text_cfg, use_img_cfg, overlap_chunks,
+        overlap_gather, dedup_text_mlp)
     return _denoise_on_rank(model, caches, positions, latent_pos_ids, init_noise, start_end_ids,
-                            mesh, schedule, statics, overlap_chunks, overlap_gather,
-                            dedup_text_mlp)
+                            mesh, schedule_kw, statics, opts, graphs)
 
 
 @torch.no_grad()
@@ -503,13 +658,15 @@ def generate_latents_dp_tp_sp(
     overlap_chunks: int = 2,
     overlap_gather: bool = True,
     dedup_text_mlp: bool = True,
+    graphs: Optional[bool] = None,
 ) -> torch.Tensor:
     """G = mesh.shape["data"] independent images denoised at once, each on its
     own ("model", "seq") sub-mesh; the groups share the schedule and the CFG
     settings and have one geometry. ``model``: this rank's, as for
     :func:`generate_latents_tp_sp`. Every rank is given every group's inputs
     and runs its own group's program (the data axis carries no collective
-    until the end); returns x_0 stacked [G, n, p*p*z] on every rank."""
+    until the end); returns x_0 stacked [G, n, p*p*z] on every rank.
+    ``graphs`` as there: a rank's group runs its :class:`SPProgram`."""
     G = mesh.shape.get("data", 0)
     if len(group_caches) != G:
         raise ValueError(f"{len(group_caches)} groups for a data axis of {G}")
@@ -518,11 +675,11 @@ def generate_latents_dp_tp_sp(
                   ("data", "model", "seq"))
     if any(c.quantized for c in group_caches):
         raise ValueError("int8 KV caches are not supported in the sequence-parallel denoise")
-    schedule = _schedule(num_timesteps, timestep_shift, cfg_text_scale, cfg_img_scale,
-                         cfg_interval)
-    statics = dict(cfg_renorm_min=cfg_renorm_min, cfg_renorm_type=cfg_renorm_type,
-                   use_text_cfg=use_text_cfg, use_img_cfg=use_img_cfg)
+    schedule_kw, statics, opts = _options(
+        num_timesteps, timestep_shift, cfg_text_scale, cfg_img_scale, cfg_interval,
+        cfg_renorm_min, cfg_renorm_type, use_text_cfg, use_img_cfg, overlap_chunks,
+        overlap_gather, dedup_text_mlp)
     x0 = _denoise_on_rank(model, group_caches[g], group_positions[g], group_latent_pos_ids[g],
-                          group_init_noise[g], start_end_ids, mesh, schedule, statics,
-                          overlap_chunks, overlap_gather, dedup_text_mlp)
+                          group_init_noise[g], start_end_ids, mesh, schedule_kw, statics, opts,
+                          graphs)
     return mesh.all_gather(x0[None], "data", dim=0).wait()

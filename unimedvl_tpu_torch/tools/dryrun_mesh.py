@@ -120,7 +120,8 @@ def serve(model, mesh, case):
     from unimedvl_tpu_torch.inference.serving import ContinuousBatcher, Request
 
     tok, ids = tokenizer()
-    pipe = inferencer(model, mesh) if case.get("t2i") else None
+    pipe = inferencer(model, mesh, graphs=case["batch_kw"].get("graphs")) if case.get("t2i") \
+        else None
     b = ContinuousBatcher(model, tok, ids, vit_transform=imaging.ImageTransform(*VIT_T),
                           mesh=mesh, pipeline=pipe, **case["batch_kw"])
     pid = b.register_prefix(case["prefix"]) if case.get("prefix") else None
@@ -158,11 +159,33 @@ def shard_bytes(model) -> Dict[str, int]:
     return out
 
 
+def _replayed_draws(gumbels):
+    """``bagel._exp_noise`` replaying the JAX loop's Gumbel draws g as the
+    exponential draws exp(-g) (argmax(probs / q) is then the JAX categorical
+    draw), in order."""
+    draws = iter(gumbels)
+    return lambda like, generator: torch.exp(-torch.from_numpy(np.array(next(draws)))).to(like)
+
+
 def run_case(model, mesh, case):
+    """One case on this rank (see :func:`run_mesh_cases`). A case's
+    ``inf_kw`` / ``batch_kw`` reach the inferencer / batcher, ``graphs``
+    among them (True: the device programs' plain route on the CPU); a chat
+    case with ``sample`` (temperature, Gumbel draws) samples with the draws
+    replayed."""
     kind = case["kind"]
     if kind == "chat":
         inf = inferencer(model, mesh, **case.get("inf_kw", {}))
-        return inf.chat(case["images"], case["prompt"], max_length=case.get("max_length", 8))
+        sample = case.get("sample")
+        if sample is None:
+            return inf.chat(case["images"], case["prompt"], max_length=case.get("max_length", 8))
+        real = bagel._exp_noise
+        bagel._exp_noise = _replayed_draws(sample["gumbels"])
+        try:
+            return inf.chat(case["images"], case["prompt"], max_length=case.get("max_length", 8),
+                            do_sample=True, temperature=sample["temperature"])
+        finally:
+            bagel._exp_noise = real
     if kind == "latent":
         inf = inferencer(model, mesh, **case.get("inf_kw", {}))
         _replay(inf, case["noises"])
@@ -173,7 +196,7 @@ def run_case(model, mesh, case):
         return vqa_eval(model, mesh, case)
     if kind == "grouped":
         gmesh = pmesh.make_mesh(("data", "model", "seq"), case["sizes"])
-        inf = inferencer(model, None)
+        inf = inferencer(model, None, **case.get("inf_kw", {}))
         _replay(inf, case["noises"])
         ctxs, texts, imgs = [], [], []
         for prompt in case["texts"]:
