@@ -152,7 +152,7 @@ from unimedvl_tpu_torch.ops.rope import rope_cos_sin
 from unimedvl_tpu_torch.parallel import mesh as pmesh
 from unimedvl_tpu_torch.parallel import sp_denoise
 from unimedvl_tpu_torch.tools import time_quant_kernels as tqk
-from unimedvl_tpu_torch.training import dataset, lora, trainer
+from unimedvl_tpu_torch.training import dataset, e2e_vae, lora, trainer
 
 SEED = 0
 # kernel vs plain version (fp32 softmax over the same bf16 inputs): the kernel
@@ -5104,6 +5104,10 @@ FT_ACCUM, FT_EMA_DECAY = 2, 0.999
 TRAIN_STEPS = 3
 # the LoRA step with the kernels against the same step with plain attention
 LOSS_REL_TOL = 1e-2
+# a replayed training step's loss against the eager forward's on the same batch, parameters and
+# noise (the same kernels over the padded and the stripped shapes: they agree to about 1e-6 on the
+# first step, against a loss that moves by far more between two batches)
+REPLAY_LOSS_RTOL = 1e-3
 GRAD_COS_TOL = 0.999
 # K5's gradients against the plain version's, per element:
 # |err| <= K5_GRAD_RTOL (m + |plain|) + floor, m the largest |plain| of the
@@ -5128,35 +5132,86 @@ def _pil(seed: int, h: int, w: int):
     return Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
 
 
-def train_examples(with_980: bool):
+def _shift_letters(text: str, k: int) -> str:
+    """``text`` with each ASCII letter moved ``k`` places in the alphabet."""
+    def shift(c):
+        base = 97 if c.islower() else 65
+        return chr((ord(c) - base + k) % 26 + base) if c.isascii() and c.isalpha() else c
+    return "".join(map(shift, text))
+
+
+def train_examples(with_980: bool, variant: int = 0):
     """Synthetic examples of the three tasks at real sizes: VQA at 980 px
     (``with_980``) and 378 px, text-to-image at 512 px, an edit of a 512 px
-    image (its source also goes through the ViT, at 504 px)."""
+    image (its source also goes through the ViT, at 504 px). ``variant`` k:
+    other images (their seeds moved by 100 k) and each text's letters moved
+    k places, so that the examples pack into the same layout (the byte-level
+    tokenizer keeps each text's length) with new values."""
     ex = dataset.Example
+
+    def img(seed, h, w):
+        return _pil(seed + 100 * variant, h, w)
+
+    def text(t):
+        return _shift_letters(t, variant)
+
     out = [
-        ex("vlm_sft", REQUESTS[2][2], image=_pil(11, 378, 378),
-           answer="No effusion is seen; both costophrenic angles are sharp."),
-        ex("t2i_pretrain", GEN_PROMPT, image=_pil(12, *GEN_SIZE)),
-        ex("unified_edit", EDIT_PROMPT, image=_pil(13, *GEN_SIZE), target_image=_pil(14, *GEN_SIZE)),
+        ex("vlm_sft", text(REQUESTS[2][2]), image=img(11, 378, 378),
+           answer=text("No effusion is seen; both costophrenic angles are sharp.")),
+        ex("t2i_pretrain", text(GEN_PROMPT), image=img(12, *GEN_SIZE)),
+        ex("unified_edit", text(EDIT_PROMPT), image=img(13, *GEN_SIZE),
+           target_image=img(14, *GEN_SIZE)),
     ]
     if with_980:
-        out.insert(0, ex("vlm_sft", REQUESTS[0][2], image=_pil(10, 980, 980),
-                         answer="A rounded opacity projects over the right lower zone."))
+        out.insert(0, ex("vlm_sft", text(REQUESTS[0][2]), image=img(10, 980, 980),
+                         answer=text("A rounded opacity projects over the right lower zone.")))
     return out
 
 
-def train_batches(model, tok, new_token_ids, examples, seq_len: int) -> dataset.Prefetcher:
-    """Packed batches of one sequence each, prepared and copied to the card by
-    the prefetcher's worker thread; the latents come from the model's VAE."""
+def train_batches(model, tok, new_token_ids, with_980: bool, seq_len: int, steps: int = 1,
+                  per_step: int = 1, extra=None) -> dataset.Prefetcher:
+    """The batches of ``steps`` training steps of ``per_step`` packed batches
+    of one sequence each, prepared and copied to the card by the
+    prefetcher's worker thread (``dataset.make_place_fn``: with their
+    padding, as the step's program takes them). Step k takes the first
+    ``per_step`` packs of ``train_examples(with_980, variant=k)``, so every
+    step's batches fall in the first step's buckets and a replay of its
+    graphs takes new values. ``extra(batch)`` adds arrays to a numpy batch
+    before it is placed; the latents come from the model's VAE."""
     from unimedvl_tpu_torch.data.imaging import ImageTransform
 
     vit, vae = TransformConfig.vit_vqa(), TransformConfig.vae_interactive()
-    it = dataset.PackedBatchIterator(
-        examples, tok, new_token_ids, model.config,
-        ImageTransform(vit.max_size, vit.min_size, vit.stride, vit.max_pixels),
-        ImageTransform(vae.max_size, vae.min_size, vae.stride, vae.max_pixels),
-        latent_fn=dataset.make_latent_fn(model), batch_size=1, seq_len=seq_len, seed=SEED)
-    return dataset.Prefetcher(it, depth=2, place_fn=dataset.make_place_fn(DEVICE))
+
+    def packs():
+        for k in range(steps):
+            it = iter(dataset.PackedBatchIterator(
+                train_examples(with_980, k), tok, new_token_ids, model.config,
+                ImageTransform(vit.max_size, vit.min_size, vit.stride, vit.max_pixels),
+                ImageTransform(vae.max_size, vae.min_size, vae.stride, vae.max_pixels),
+                latent_fn=dataset.make_latent_fn(model), batch_size=1, seq_len=seq_len,
+                seed=SEED))
+            for _ in range(per_step):
+                batch = next(it)
+                yield batch if extra is None else extra(batch)
+
+    return dataset.Prefetcher(packs(), depth=2, place_fn=dataset.make_place_fn(DEVICE))
+
+
+class StepBatches:
+    """The batches of each step of the training paths that share them: step
+    i's ``per_step`` batches are taken from the prefetcher when a path first
+    asks for them (the wait printed) and kept for the paths after it."""
+
+    def __init__(self, it: dataset.Prefetcher, per_step: int):
+        self.it, self.per_step, self.steps = it, per_step, []
+
+    def __call__(self, i: int) -> list:
+        while len(self.steps) <= i:
+            t0 = time.perf_counter()
+            self.steps.append([next(self.it) for _ in range(self.per_step)])
+            print(f"  waited {time.perf_counter() - t0:.3f} s for step {len(self.steps) - 1}'s "
+                  f"batch(es) from the prefetcher", flush=True)
+        return self.steps[i]
 
 
 def _segments(seq) -> tuple:
@@ -5311,7 +5366,11 @@ def _checksums(named) -> dict:
 
 
 def _draw_noises(seqs, g):
-    return [torch.randn(s["vae_clean_tokens"].shape, generator=g, device=DEVICE)
+    """One flow-noise draw per sequence with latents, of its real rows (as the
+    eager step draws it; a padded sequence's program copies it into its real
+    rows)."""
+    return [torch.randn((s.vae_rows if bagel.is_padded(s) else s["vae_clean_tokens"].shape[0],
+                         s["vae_clean_tokens"].shape[1]), generator=g, device=DEVICE)
             if "vae_clean_tokens" in s else None for s in seqs]
 
 
@@ -5323,53 +5382,199 @@ def _loss_and_grads(model, seqs, noises):
     return float(loss), grads
 
 
-STEP_STATS = {}  # path -> its steps' median s/step, packed tokens/s and peak GiB
+STEP_STATS = {}  # path -> its steps' s/step graphed and eager, packed tokens/s, peak GiB, graphs
 
 
-def _run_steps(step, state, batches, it, g, per_step: int, n_llm: int, n_vit: int, path: str,
-               frozen_vit: bool, quant_launches=None):
-    """TRAIN_STEPS steps with the counters reset just before: each takes
-    ``per_step`` batches (the given ones first, then the prefetcher's).
-    Prints the losses and times and checks the launch counts: with per-layer
+def _trained_named(state) -> list:
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [(names[id(p)], p) for g in state.optimizer.param_groups for p in g["params"]]
+
+
+def _dot_cosine(pairs) -> float:
+    """The cosine of two tensor lists joined, from per-tensor fp32 dots on the
+    card summed in float64 on the host; 1 when both are zero (a tensor that
+    no gradient reaches, as the ViT under ``freeze_und``)."""
+    dot = na = nb = 0.0
+    for a, b in pairs:
+        a, b = a.float().flatten(), b.float().flatten()
+        dot += float(torch.dot(a, b))
+        na += float(torch.dot(a, a))
+        nb += float(torch.dot(b, b))
+    if na == nb == 0.0:
+        return 1.0
+    return dot / max(math.sqrt(na * nb), 1e-300)
+
+
+def _eager_reference(step, state, batch, noises, names=None):
+    """One eager step of ``step``'s kind (its accumulation and EMA) on
+    ``batch`` (stripped sequences) from ``state``, which must be fresh, then
+    the state put back as it was (parameters, EMA, optimizer, step,
+    batch-norm state). Returns (the loss, the AdamW first moment of each
+    trained tensor, or of ``names``, by name, the step's seconds)."""
+    if state.step:
+        raise ValueError("the eager reference puts the state back to a fresh one: give it one")
+    trained = _trained_named(state)
+    keep = {n: p.detach().clone() for n, p in trained}
+    bn = None if state.bn_state is None else (state.bn_state.mean.clone(),
+                                              state.bn_state.var.clone())
+    eager = trainer.TrainStep(step.accum_steps, step.ema_decay, graphs=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = eager(state, batch, noises=noises)
+    loss = float(loss)
+    seconds = time.perf_counter() - t0
+    moments = {n: m.clone() for n, m in _moments(state, names).items()}
+    with torch.no_grad():
+        for n, p in trained:
+            p.copy_(keep[n])
+            if state.ema_params is not None:  # a fresh EMA equals the parameters
+                state.ema_params[n].copy_(keep[n])
+    state.optimizer.state.clear()
+    state.step = 0
+    if bn is not None:
+        state.bn_state = e2e_vae.BatchNormState(mean=bn[0].clone(), var=bn[1].clone())
+    return loss, moments, seconds
+
+
+def _moments(state, names=None) -> dict:
+    """Each trained tensor's AdamW first moment by name (of ``names``)."""
+    return {n: state.optimizer.state[p]["exp_avg"] for n, p in _trained_named(state)
+            if (names is None or n in names) and p in state.optimizer.state}
+
+
+def _gate_against_eager(path: str, loss: float, loss_e: float, got: dict, ref: dict, b1: float,
+                        watch=None):
+    """The program's first step against the eager step from the same state
+    on the same noise: the loss within LOSS_REL_TOL, the AdamW first moments
+    (``got`` the program's, ``ref`` the eager step's: (1 - b1) times the mean
+    gradient) at GRAD_COS_TOL over every tensor of ``ref`` joined, or each of
+    ``watch``."""
+    pairs = {n: (ref[n], got[n]) for n in ref}
+    if watch is None:
+        cos, what = _dot_cosine(pairs.values()), f"{len(pairs)} tensors joined"
+    else:
+        per = {n: _dot_cosine([pairs[n]]) for n in watch}
+        worst = min(per, key=per.get)
+        cos, what = per[worst], f"the worst of {len(per)} watched, {worst}"
+    print(f"  {path}, the program's first step against the eager step (same state and noise): "
+          f"loss {loss:.5f} vs {loss_e:.5f}; AdamW first moments (1 - {b1}) g: cosine "
+          f"{cos:.6f} ({what})", flush=True)
+    if not (abs(loss - loss_e) <= LOSS_REL_TOL * abs(loss_e) and cos >= GRAD_COS_TOL):
+        raise SystemExit(f"chip_smoke: {path}: the program's step disagrees with the eager step")
+
+
+def _uncounted(fn):
+    """fn() with the kernels' counters left as they were (launches made to
+    check a step, not the main path's)."""
+    saved = [(c, key, c[key], c["plain"]) for c, key in COUNTERS.values()]
+    try:
+        return fn()
+    finally:
+        for c, key, n, plain in saved:
+            c[key], c["plain"] = n, plain
+
+
+def _forward_loss(model, taken, noises, bn_state=None) -> float:
+    """The loss a step computes on ``taken`` (its batches, each the mean over
+    its sequences; their mean) at the current parameters, by the eager
+    forward on the stripped sequences, without gradients."""
+    with torch.no_grad():
+        return float(np.mean([float(trainer.loss_fn(model, b, n, bn_state=bn_state)[0])
+                              for b, n in zip(taken, noises)]))
+
+
+def _gate_replay(path: str, i: int, loss: float, want: float, captured: int, taken,
+                 before) -> None:
+    """A step after the first: it replayed the first step's graphs (none
+    captured) on batches with new values (``before``: the step's before), and
+    its loss is the eager forward's on the same batches, parameters and
+    noise (``want``) within REPLAY_LOSS_RTOL."""
+    new = sorted({k for b, p in zip(taken, before) for k in b[0]
+                  if not torch.equal(b[0][k], p[0][k])})
+    print(f"  {path}, step {i}: {captured} graphs captured, inputs with new values {new}; loss "
+          f"{loss:.6f} vs the eager forward's {want:.6f} on the same batch, parameters and noise "
+          f"(rel {abs(loss - want) / abs(want):.2e})", flush=True)
+    if captured or not new or not abs(loss - want) <= REPLAY_LOSS_RTOL * abs(want):
+        raise SystemExit(f"chip_smoke: {path}: step {i} did not replay its graphs on new values "
+                         "to the eager forward's loss")
+
+
+def _run_steps(step, state, batches, g, n_llm: int, n_vit: int, path: str, frozen_vit: bool,
+               quant_launches=None, watch=None):
+    """The path's TRAIN_STEPS steps, the counters reset just before; step i
+    takes ``batches(i)`` (a list of ``per_step`` batches, :class:`StepBatches`).
+    Step 0: one eager step with the state then put back
+    (:func:`_eager_reference`), then the step by its program, which captures
+    its graphs, gated against the eager step (:func:`_gate_against_eager`).
+    Steps 1..: the prefetcher's next batches, in the first step's buckets
+    with new values, the flow noise drawn by the step from ``g``: each
+    replays the graphs and is gated against the eager forward on the same
+    batch (:func:`_gate_replay`). Checks the launches: with per-layer
     recomputation the forward kernel runs twice per layer and sequence, each
-    backward kernel once; a frozen ViT goes through K1a, a trained one through
-    plain attention; ``quant_launches(seq)``: the K3 / K4 launches a
-    sequence adds. Keeps the steps' numbers in STEP_STATS[path]. Returns
-    (state, launches)."""
-    batches = list(batches)
+    backward kernel once; a frozen ViT goes through K1a, a trained one
+    through plain attention; ``quant_launches(seq)``: the K3 / K4 launches a
+    sequence adds (a padded sequence runs each expert on its padded rows).
+    Keeps the numbers in STEP_STATS[path]. Returns (state, launches)."""
+    first = batches(0)
+    per_step = len(first)
+
+    def arg(x):
+        return x if per_step > 1 else x[0]
+
+    stripped = [trainer.prepared(b, DEVICE, False) for b in first]
+    noises = [_draw_noises(b, g) for b in first]
+    tokens = sum(s["mask_document_id"].shape[0] for b in first for s in b)
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    n_seq = n_vit_seq = 0
-    extra, times, rates = {}, [], []
+    loss_e, ref, t_eager = _eager_reference(step, state, arg(stripped), arg(noises), watch)
+    seqs = [s for b in stripped for s in b]
+    times = []
+    caps0, cap_s0 = programs.stats["captures"], programs.stats["capture_s"]
     for i in range(TRAIN_STEPS):
+        taken = batches(i)
+        want = None
+        if i:  # the noise the step draws, from a copy of its generator
+            twin = torch.Generator(device=DEVICE)
+            twin.set_state(g.get_state())
+            want = _uncounted(lambda: _forward_loss(
+                state.model, taken, [_draw_noises(b, twin) for b in taken]))
+        caps = programs.stats["captures"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        while len(batches) < per_step:
-            batches.append(next(it))
-        taken, batches = batches[:per_step], batches[per_step:]
-        t1 = time.perf_counter()
-        state, loss = step(state, taken if per_step > 1 else taken[0], generator=g)
-        loss = float(loss)
-        t2 = time.perf_counter()  # float() waited for the card
-        seqs = [s for b in taken for s in b]
-        n_seq += len(seqs)
-        n_vit_seq += sum("vit_patch_tokens" in s for s in seqs)
-        for s in seqs:
-            for k, v in (quant_launches(s) if quant_launches else {}).items():
-                extra[k] = extra.get(k, 0) + v
-        tokens = sum(s["mask_document_id"].shape[0] for s in seqs)
-        times.append(t2 - t1)
-        rates.append(tokens / (t2 - t1))
-        real = sum(int((s["mask_document_id"] > 0).sum()) for s in seqs)
-        print(f"  step {i}: loss {loss:.4f}; {len(seqs)} sequence(s), {tokens} packed tokens "
-              f"({real} real); waited {t1 - t0:.3f} s for the batch, step {t2 - t1:.3f} s, "
-              f"{tokens / (t2 - t1):.0f} packed tokens/s", flush=True)
+        state, loss = step(state, arg(taken), generator=g,
+                           noises=arg(noises) if i == 0 else None)
+        loss = float(loss)  # waits for the card
+        times.append(time.perf_counter() - t0)
+        seqs += [s for b in taken for s in b]
+        print(f"  graphed step {i}: loss {loss:.4f}; {per_step} batch(es), {tokens} packed "
+              f"tokens; {times[-1]:.3f} s ({programs.stats['captures'] - caps} graphs captured), "
+              f"{tokens / times[-1]:.0f} packed tokens/s", flush=True)
         if not np.isfinite(loss):
             raise SystemExit(f"chip_smoke: {path}: the loss is not finite")
+        if i == 0:
+            _gate_against_eager(path, loss, loss_e, _moments(state, ref), ref,
+                                state.optimizer.param_groups[0]["betas"][0], watch)
+        else:
+            _gate_replay(path, i, loss, want, programs.stats["captures"] - caps, taken,
+                         batches(i - 1))
+    del ref
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  peak memory over the steps: {peak:.1f} GiB", flush=True)
-    STEP_STATS[path] = dict(card=CARD, s_per_step=statistics.median(times),
-                            packed_tokens_per_s=statistics.median(rates), peak_gib=peak)
+    graphed = statistics.median(times[1:]) if len(times) > 1 else times[0]
+    # the eager step is the fresh state's first (its one-time costs inside, as the capturing
+    # step's are): tools/profile_train_step.py times both routes in their steady state
+    STEP_STATS[path] = dict(
+        card=CARD, s_per_step_graphed=graphed, s_capture_step=times[0],
+        s_first_eager_step=t_eager, packed_tokens_per_s_graphed=tokens / graphed,
+        peak_gib=peak, captures=programs.stats["captures"] - caps0,
+        capture_s=programs.stats["capture_s"] - cap_s0,
+        train_pool_bytes=programs.pool_bytes(pool="train"))
+    print(f"  {path}: eager step {t_eager:.3f} s (loss {loss_e:.4f}); "
+          f"{json.dumps(STEP_STATS[path])}", flush=True)
+    extra = {}
+    for seq in seqs:
+        for k, v in (quant_launches(seq) if quant_launches else {}).items():
+            extra[k] = extra.get(k, 0) + v
+    n_seq, n_vit_seq = len(seqs), sum("vit_patch_tokens" in q for q in seqs)
     launches = check_counts(path, {
         "packed_train_attention_fwd": 2 * n_llm * n_seq,
         "packed_train_attention_bwd_dq": n_llm * n_seq,
@@ -5491,9 +5696,11 @@ def shallow_model(model, n_layers: int):
     return out
 
 
-def run_lora(model, it, first) -> dict:
+def run_lora(model, batches) -> dict:
     """Adapters of rank 16 on every projection of both experts of the bf16
-    model (LORA_LAYERS of its layers), ``make_lora_train_step``."""
+    model (LORA_LAYERS of its layers), ``make_lora_train_step``: by its
+    program, gated against one eager step and the eager forward
+    (:func:`_run_steps` over ``batches``, a :class:`StepBatches`)."""
     cfg = model.config
     n_llm, n_vit = cfg.llm.num_hidden_layers, cfg.vit.num_hidden_layers
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
@@ -5506,8 +5713,8 @@ def run_lora(model, it, first) -> dict:
           f"{lora.count_lora_params(model) / 1e6:.1f} M adapter parameters (bf16) over "
           f"{sum(p.numel() for _, p in base) / 1e9:.2f} B frozen; remat {cfg.llm.remat}; "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB held", flush=True)
-    _gate_first_step("LoRA", model, first, g)
-    state, launches = _run_steps(step, state, [first], it, g, 1, n_llm, n_vit,
+    _gate_first_step("LoRA", model, trainer.prepared(batches(0)[0], DEVICE, False), g)
+    state, launches = _run_steps(step, state, batches, g, n_llm, n_vit,
                                  "the LoRA training path", frozen_vit=True)
     still = [n for n, c in _checksums(base).items() if c != before[n]]
     unmoved = [i for i, m in enumerate(adapters) if not bool((m.lora_b != 0).any())]
@@ -5516,6 +5723,8 @@ def run_lora(model, it, first) -> dict:
           flush=True)
     if still or unmoved or any(p.grad is not None or p.requires_grad for _, p in base):
         raise SystemExit("chip_smoke: LoRA moved the base, or left an adapter where it was")
+    del step, state
+    programs.drop_all()  # the step's training pool with it
     return launches
 
 
@@ -5539,7 +5748,9 @@ def run_full_finetune(tok, new_token_ids) -> list:
     paths = []
     for freeze_und in (False, True):
         model = build_trainable(FT_LAYERS, freeze_und)
-        it = train_batches(model, tok, new_token_ids, train_examples(False), FT_SEQ_LEN)
+        # the steps, and one more update for the EMA's recurrence
+        it = train_batches(model, tok, new_token_ids, False, FT_SEQ_LEN,
+                           TRAIN_STEPS + (not freeze_und), FT_ACCUM)
         try:
             paths.append(_finetune(model, it, freeze_und))
         finally:  # a worker left running would abort the interpreter's exit
@@ -5548,6 +5759,15 @@ def run_full_finetune(tok, new_token_ids) -> list:
         gc.collect()
         torch.cuda.empty_cache()
     return paths
+
+
+FT_WATCH = (  # the full fine-tune's gate reads these tensors' first moments
+    "language_model.model.layers.0.mlp.gate_proj.weight",
+    "language_model.model.layers.0.mlp_moe_gen.gate_proj.weight",
+    f"language_model.model.layers.{FT_LAYERS - 1}.self_attn.o_proj_moe_gen.weight",
+    "language_model.lm_head.weight",
+    "vit_model.vision_model.encoder.layers.0.mlp.fc1.weight",
+)
 
 
 def _finetune(model, it, freeze_und: bool) -> dict:
@@ -5573,17 +5793,22 @@ def _finetune(model, it, freeze_und: bool) -> dict:
               for n, lab in trainer._freeze_und_labels(model).items()
               if freeze_und and lab == "freeze"}
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
-    if not freeze_und:  # one step alone, to hold the EMA to its recurrence
+    batches = StepBatches(it, FT_ACCUM)
+    gate = [n for n in FT_WATCH if params[n].requires_grad]
+    state, launches = _run_steps(step, state, batches, g, cfg.llm.num_hidden_layers,
+                                 cfg.vit.num_hidden_layers, f"the {name} path",
+                                 frozen_vit=False, watch=gate)
+    if not freeze_und:  # one more update, to hold the EMA to its recurrence
         ema_before = {n: state.ema_params[n].clone() for n in watch.values()}
-        state, _ = step(state, [next(it) for _ in range(FT_ACCUM)], generator=g)
+        state, _ = step(state, batches(TRAIN_STEPS), generator=g)
         for n, prev in ema_before.items():
             want = FT_EMA_DECAY * prev + (1 - FT_EMA_DECAY) * params[n].detach().float()
             torch.testing.assert_close(state.ema_params[n], want, rtol=1e-6, atol=1e-9)
         print(f"  the EMA shadow obeys ema = {FT_EMA_DECAY} ema + {1 - FT_EMA_DECAY:.3f} param "
-              f"after the first update ({len(ema_before)} tensors, fp32)", flush=True)
-    state, launches = _run_steps(step, state, [], it, g, FT_ACCUM, cfg.llm.num_hidden_layers,
-                                 cfg.vit.num_hidden_layers, f"the {name} path",
-                                 frozen_vit=False)
+              f"after a replayed update ({len(ema_before)} tensors, fp32)", flush=True)
+        for key, n in (("packed_train_attention_fwd", 2), ("packed_train_attention_bwd_dq", 1),
+                       ("packed_train_attention_bwd_dkv", 1)):
+            launches[key] += n * FT_ACCUM * cfg.llm.num_hidden_layers
     moved = {k: (params[n] != before[k]).float().mean().item() for k, n in watch.items()}
     print(f"  share of entries that moved after {state.step} updates (bf16 weights, lr 1e-5): "
           f"{moved}", flush=True)
@@ -5596,6 +5821,8 @@ def _finetune(model, it, freeze_und: bool) -> dict:
                              "the generation expert where it was")
     elif not all(m > 0 for m in moved.values()):
         raise SystemExit("chip_smoke: the full fine-tune left an expert or the ViT unmoved")
+    del step, state
+    programs.drop_all()
     return launches
 
 
@@ -5687,41 +5914,58 @@ def _mesh_cosines(per_rank, i, prog, ref, embed_ids, llm) -> dict:
     return out
 
 
-def _one_rank_nccl_step(model, seqs, noises, tmp) -> dict:
+def _one_rank_nccl_step(model, padded, noises, tmp) -> dict:
     """The TP x DP step on a one-rank ("data", "model") NCCL mesh against the
     same step without a mesh (on ``model``, then on a model built anew from
-    the same seed), on the same batch and noise: the loss and every
-    parameter after it bit for bit. Frees ``model``. Returns the K5 launches
-    of both steps."""
+    the same seed), both by their programs (every collective inside the
+    graphs), on the same batch and noise: the loss and every parameter after
+    it bit for bit; then the mesh step eagerly on a third model, the
+    program's step gated against it (:func:`_gate_against_eager` over
+    MESH_WATCH). ``padded``: the batch's sequences as the prefetcher placed
+    them (each step prepares them for its route). Frees ``model``. Returns
+    the K5 launches of the three steps."""
     mesh = one_rank_mesh(("data", "model"), tmp)
-    sums, losses = [], []
+    sums, losses, moments = [], [], {}
     reset_counts()
-    for placed in (False, True):
+    for placed, graphs in ((False, None), (True, None), (True, False)):
         if placed:
             model = pmesh.place_params(build_trainable(FT_LAYERS, False), mesh)
         step, init_state = trainer.make_train_step(model.whole_config if placed else
                                                    model.config, model,
-                                                   mesh=mesh if placed else None)
+                                                   mesh=mesh if placed else None, graphs=graphs)
         state = init_state()
+        caps = programs.stats["collective_captures"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, loss = step(state, seqs, noises=noises)
+        state, loss = step(state, padded, noises=noises)
         losses.append(float(loss))
         torch.cuda.synchronize()
-        print(f"  {'one-rank NCCL mesh' if placed else 'no mesh'}: loss {losses[-1]:.6f}, step "
-              f"{time.perf_counter() - t0:.3f} s", flush=True)
-        sums.append(_checksums(model.named_parameters()))
+        route = "eagerly" if graphs is False else (
+            f"by its program ({programs.stats['collective_captures'] - caps} captures holding "
+            "collectives)")
+        print(f"  {'one-rank NCCL mesh' if placed else 'no mesh'} {route}: loss {losses[-1]:.6f}, "
+              f"step {time.perf_counter() - t0:.3f} s", flush=True)
+        if graphs is None:
+            sums.append(_checksums(model.named_parameters()))
+        if placed and graphs is None:
+            moments = {n: m.clone() for n, m in _moments(state, MESH_WATCH).items()}
+        elif placed:
+            _gate_against_eager("the one-rank NCCL mesh step", losses[1], losses[2], moments,
+                                _moments(state, MESH_WATCH),
+                                state.optimizer.param_groups[0]["betas"][0], watch=MESH_WATCH)
+            del moments
         del model, state, step, init_state
+        programs.drop_all()
         gc.collect()
         torch.cuda.empty_cache()
     equal = sum(sums[0][n] == sums[1][n] for n in sums[0])
-    print(f"  the TP x DP step on the one-rank NCCL mesh vs without: loss equal "
-          f"{losses[0] == losses[1]}, parameters bit-equal {equal} of {len(sums[0])}",
+    print(f"  the TP x DP step on the one-rank NCCL mesh vs without, both by their programs: "
+          f"loss equal {losses[0] == losses[1]}, parameters bit-equal {equal} of {len(sums[0])}",
           flush=True)
     if losses[0] != losses[1] or equal != len(sums[0]) or sums[0].keys() != sums[1].keys():
         raise SystemExit("chip_smoke: the one-rank NCCL mesh step differs from the step without "
                          "a mesh")
-    n = len(seqs) * FT_LAYERS * 2
+    n = len(padded) * FT_LAYERS * 3
     return check_counts("the no-mesh and one-rank NCCL mesh steps", {
         "packed_train_attention_fwd": 2 * n, "packed_train_attention_bwd_dq": n,
         "packed_train_attention_bwd_dkv": n})
@@ -5745,11 +5989,12 @@ def run_mesh_training(tok, new_token_ids, tmp: str) -> dict:
 
     model = build_trainable(FT_LAYERS, False)
     trainer.set_trainable(model)
-    it = train_batches(model, tok, new_token_ids, train_examples(False), FT_SEQ_LEN)
+    it = train_batches(model, tok, new_token_ids, False, FT_SEQ_LEN, per_step=MESH_SEQS)
     try:
-        seqs = [s for _ in range(MESH_SEQS) for s in next(it)]
+        padded = [s for _ in range(MESH_SEQS) for s in next(it)]
     finally:
         it.close(wait=True)
+    seqs = trainer.prepared(padded, DEVICE, False)
     noises = _draw_noises(seqs, torch.Generator(device=DEVICE).manual_seed(SEED + 9))
     ids = _embed_ids(seqs)
     print(f"training on a mesh (run K): {FT_LAYERS} of 28 LLM layers at the full width, bf16, "
@@ -5769,8 +6014,8 @@ def run_mesh_training(tok, new_token_ids, tmp: str) -> dict:
                       for n in MESH_WATCH), flush=True)
     llm = model.config.llm
     del plain
-    paths = [_one_rank_nccl_step(model, seqs, noises, tmp)]
-    del model
+    paths = [_one_rank_nccl_step(model, padded, noises, tmp)]
+    del model, padded
     host_seqs = [{k: v.cpu() for k, v in q.items()} for q in seqs]
     host_noises = [None if n is None else n.cpu() for n in noises]
     del seqs, noises
@@ -5968,15 +6213,15 @@ def qlora_model(model, **kw):
     return qmodel
 
 
-def run_qlora(inf_model, it, first) -> list:
+def run_qlora(inf_model, batches) -> list:
     """Run I: adapter training over a quantized copy of the LLM (LORA_LAYERS
-    layers),
-    rank 16, in each of QLORA_MODES (the copy freed before the next):
+    layers), rank 16, in each of QLORA_MODES (the copy freed before the next):
     K4 forward and its backward route at every projection of both experts
     (weight-only w4), K3 forward and its backward route at every MLP's down
-    (full-int8). Gates as run LoRA's: the first step against the same step
-    on the plain versions, the base's bits unchanged, every lora_b moved,
-    the launches against the forwards (recomputed once per layer)."""
+    (full-int8), inside the step's graphs. Gates as run LoRA's: the first
+    step against the same step on the plain versions, the program's first
+    step against an eager step, the base's bits unchanged, every lora_b
+    moved, the launches against the forwards (recomputed once per layer)."""
     cfg = inf_model.config
     n_llm, n_vit = cfg.llm.num_hidden_layers, cfg.vit.num_hidden_layers
     paths = []
@@ -5995,26 +6240,27 @@ def run_qlora(inf_model, it, first) -> list:
               f"{lora.count_lora_params(model) / 1e6:.1f} M adapter parameters (bf16); the "
               f"quantized copy {(torch.cuda.memory_allocated() - held) / 2**30:.2f} GiB, "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        _gate_first_step(f"QLoRA {name}", model, first, g, replay=kw.get("act_quant", False))
+        _gate_first_step(f"QLoRA {name}", model, trainer.prepared(batches(0)[0], DEVICE, False),
+                         g, replay=kw.get("act_quant", False))
 
         def launches(seq, k4=k4, k3=k3):
             runs = 2 * n_llm * ((seq["und_idx"].numel() > 0) + (seq["gen_idx"].numel() > 0))
             return {"w4_matmul": k4 * runs, "silu_mul_quant": k3 * runs}
 
         path = f"the QLoRA training path, {name}"
-        state, counted = _run_steps(step, state, [first], it, g, 1, n_llm, n_vit, path,
+        state, counted = _run_steps(step, state, batches, g, n_llm, n_vit, path,
                                     frozen_vit=True, quant_launches=launches)
         paths.append(counted)
         still = [n for n, c in _checksums(base).items() if c != before[n]]
         unmoved = [i for i, m in enumerate(adapters) if not bool((m.lora_b != 0).any())]
         print(f"  after {state.step} steps: {len(adapters) - len(unmoved)} of {len(adapters)} "
               f"lora_b moved from zero; base tensors (the quantized buffers included) whose "
-              f"bits changed: {len(still)} of {len(base)}; {json.dumps(STEP_STATS[path])}",
-              flush=True)
+              f"bits changed: {len(still)} of {len(base)}", flush=True)
         if still or unmoved:
             raise SystemExit(f"chip_smoke: QLoRA ({name}) moved the base, or left an adapter "
                              "where it was")
         del model, state, step, adapters, base
+        programs.drop_all()
         gc.collect()
         torch.cuda.empty_cache()
     return paths
@@ -6056,7 +6302,9 @@ def run_e2e(tok, new_token_ids, tmp: str) -> dict:
     """Run J: a full fine-tune at E2E_LAYERS of 28 LLM layers, full width,
     with ``cfg.e2e`` (the latent batch-norm and both REPA terms, teacher
     features from the seed at teacher_feature_dim): two steps,
-    ``save_snapshot``, a third step; the exported checkpoint
+    ``save_snapshot``, a third step (the steps after the first on new values
+    in the first's bucket, replays gated against the eager forward); the
+    exported checkpoint
     (``export_bagel_checkpoint``) read back by ``load_bagel_checkpoint`` must
     give the in-memory model's first-step chat logits; a fresh model
     restored from the snapshot takes the third step again, which must equal
@@ -6070,17 +6318,20 @@ def run_e2e(tok, new_token_ids, tmp: str) -> dict:
     model = _e2e_model(SEED)
     cfg = model.config
     n_llm, dt = cfg.llm.num_hidden_layers, cfg.e2e.teacher_feature_dim
-    it = train_batches(model, tok, new_token_ids, train_examples(False), FT_SEQ_LEN)
+    rng = np.random.default_rng(SEED + 9)
+
+    def teacher(batch):  # the teacher's features of the real latent rows, zero padding rows
+        if "vae_scatter_idx" in batch:
+            real = batch["vae_scatter_idx"] < batch["packed_position_ids"].shape[-1]
+            batch["repa_teacher_features"] = (rng.standard_normal((*real.shape, dt), np.float32)
+                                              * real[..., None])
+        return batch
+
+    it = train_batches(model, tok, new_token_ids, False, FT_SEQ_LEN, TRAIN_STEPS, extra=teacher)
     try:
         batches = [next(it) for _ in range(TRAIN_STEPS)]
     finally:
         it.close(wait=True)
-    tg = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
-    for b in batches:
-        for seq in b:
-            if "vae_clean_tokens" in seq:
-                seq["repa_teacher_features"] = torch.randn(
-                    seq["vae_clean_tokens"].shape[0], dt, generator=tg, device=DEVICE)
     step, init_state = trainer.make_train_step(cfg, model)
     state = init_state()
     n_trained = sum(p.numel() for p in model.parameters() if p.requires_grad)
@@ -6088,9 +6339,15 @@ def run_e2e(tok, new_token_ids, tmp: str) -> dict:
           f"{n_trained / 1e9:.2f} B trained parameters (bf16, AdamW moments bf16), latent "
           f"batch-norm and REPA (teacher width {dt}, feature layer "
           f"{cfg.e2e.diffusion_feature_layer}), {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
-          "held", flush=True)
+          "held; the steps by the step's program, the first gated against an eager step",
+          flush=True)
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    gate = ["language_model.model.layers.0.mlp_moe_gen.down_proj.weight", "repa_proj.weight",
+            "repa_vae_proj.weight", "language_model.model.embed_tokens.weight"]
+    loss_e, ref, t_eager = _eager_reference(
+        step, state, batches[0],
+        _draw_noises(batches[0], torch.Generator(device=DEVICE).manual_seed(SEED + 30)), gate)
     snap = os.path.join(tmp, "snapshot")
     losses, times = [], []
     for i, batch in enumerate(batches):
@@ -6100,21 +6357,35 @@ def run_e2e(tok, new_token_ids, tmp: str) -> dict:
             size = os.path.getsize(os.path.join(snap, "snapshot.pt")) / 2**30
             print(f"  snapshot after step {state.step}: {size:.1f} GiB written in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
+        want = None
+        if i:  # the eager forward on the step's batch and noise (_e2e_step's draw)
+            nz = _draw_noises(batch, torch.Generator(device=DEVICE).manual_seed(SEED + 30 + i))
+            want = _uncounted(lambda: _forward_loss(model, [batch], [nz], state.bn_state))
+        caps = programs.stats["captures"]
         state, loss, sec = _e2e_step(step, state, batch, i)
         losses.append(loss)
         times.append(sec)
-        print(f"  step {i}: loss {loss:.4f} ({_describe(batch[0])}), {sec:.3f} s; bn_state mean "
+        print(f"  step {i}: loss {loss:.4f} ({_describe(batch[0])}), {sec:.3f} s "
+              f"({programs.stats['captures'] - caps} graphs captured); bn_state mean "
               f"{state.bn_state.mean.abs().mean().item():.4f}, var "
               f"{state.bn_state.var.mean().item():.4f}", flush=True)
         if not math.isfinite(loss):
             raise SystemExit("chip_smoke: run J's loss is not finite")
+        if i == 0:
+            _gate_against_eager("run J", loss, loss_e, _moments(state, gate), ref,
+                                state.optimizer.param_groups[0]["betas"][0], watch=gate)
+            del ref
+        else:
+            _gate_replay("run J", i, loss, want, programs.stats["captures"] - caps, [batch],
+                         [batches[i - 1]])
     launches = check_counts("the e2e-VAE training path (run J)", {
-        "packed_train_attention_fwd": 2 * n_llm * TRAIN_STEPS,
-        "packed_train_attention_bwd_dq": n_llm * TRAIN_STEPS,
-        "packed_train_attention_bwd_dkv": n_llm * TRAIN_STEPS,
+        "packed_train_attention_fwd": 2 * n_llm * (TRAIN_STEPS + 1),
+        "packed_train_attention_bwd_dq": n_llm * (TRAIN_STEPS + 1),
+        "packed_train_attention_bwd_dkv": n_llm * (TRAIN_STEPS + 1),
     })
     peak = torch.cuda.max_memory_allocated() / 2**30
-    STEP_STATS["run J"] = dict(card=CARD, s_per_step=statistics.median(times[1:]), peak_gib=peak)
+    STEP_STATS["run J"] = dict(card=CARD, s_steps_graphed=times, s_first_eager_step=t_eager,
+                               peak_gib=peak, train_pool_bytes=programs.pool_bytes(pool="train"))
     print(f"  run J: {json.dumps(STEP_STATS['run J'])}", flush=True)
     watch = ["language_model.model.layers.0.mlp_moe_gen.down_proj.weight",
              "language_model.model.layers.0.self_attn.q_proj.weight", "repa_proj.weight",
@@ -6183,107 +6454,176 @@ def run_training(inf: InterleaveInferencer):
     """The training phases; returns (K5's timings, K3's and K4's backward
     cases, the launches of each path)."""
     tok, ids = inf.tokenizer, inf.new_token_ids
-    lora_it = train_batches(inf.model, tok, ids, train_examples(True), LORA_SEQ_LEN)
-    ft_it = train_batches(inf.model, tok, ids, train_examples(False), FT_SEQ_LEN)
+    lora_it = train_batches(inf.model, tok, ids, True, LORA_SEQ_LEN, TRAIN_STEPS)
+    ft_it = train_batches(inf.model, tok, ids, False, FT_SEQ_LEN)
     try:
-        first, ft_first = next(lora_it), next(ft_it)
+        batches = StepBatches(lora_it, 1)
+        first = trainer.prepared(batches(0)[0], DEVICE, False)[0]
+        ft_first = trainer.prepared(next(ft_it), DEVICE, False)[0]
         ft_it.close(wait=True)
-        timings = check_packed_train_attention(ft_first[0], first[0])
-        backward = check_quant_backward(first[0])
+        timings = check_packed_train_attention(ft_first, first)
+        backward = check_quant_backward(first)
         small = shallow_model(inf.model, LORA_LAYERS)
-        print(f"QLoRA training paths (run I): {TRAIN_STEPS} steps each over a quantized copy of "
-              f"the model at {LORA_LAYERS} of its 28 layers (full width), one packed sequence of "
+        print(f"QLoRA training paths (run I): {TRAIN_STEPS} steps by the step's program and one "
+              f"eager step each over a quantized copy of the model at {LORA_LAYERS} of its 28 "
+              f"layers (full width), one packed sequence of {LORA_SEQ_LEN} tokens per step (the "
+              "steps after the first: the prefetcher's next batches, new values in the first's "
+              "bucket)", flush=True)
+        paths = run_qlora(small, batches)
+        print(f"LoRA training path: {TRAIN_STEPS} steps by the step's program and one eager step "
+              f"over the model at {LORA_LAYERS} of its 28 layers, one packed sequence of "
               f"{LORA_SEQ_LEN} tokens per step", flush=True)
-        paths = run_qlora(small, lora_it, first)
-        print(f"LoRA training path: {TRAIN_STEPS} steps over the model at {LORA_LAYERS} of its "
-              f"28 layers, one packed sequence of {LORA_SEQ_LEN} tokens per step", flush=True)
-        paths.append(run_lora(small, lora_it, first))
-        print(f"training steps at {LORA_LAYERS} layers, bf16 LoRA beside QLoRA (same call): "
-              + json.dumps(STEP_STATS), flush=True)
+        paths.append(run_lora(small, batches))
         return timings, backward, paths
     finally:  # a worker left running would abort the interpreter's exit
         ft_it.close(wait=True)
         lora_it.close(wait=True)
 
 
-def main() -> None:
+#: the phases ``--phases`` selects, by the names their stamps print, and the phases each needs
+#: run before it (its gates read their outputs); the kernel checks always run
+PHASES = {
+    "kernel checks": (), "chat": (), "generation": (), "sp generation": ("generation",),
+    "quantized chat": ("chat",), "quantized generation": ("generation",), "serving": (),
+    "eval": ("serving",), "mesh": ("chat", "eval"), "reconstruction": (), "spec": (),
+    "training": (), "mesh training": (), "e2e": (),
+}
+
+
+def select_phases(names) -> list:
+    """The phases to run, in the run's order: ``names`` (None: all) with the
+    phases they need."""
+    if names is None:
+        return list(PHASES)
+    unknown = [n for n in names if n not in PHASES]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {unknown}; the phases are {list(PHASES)}")
+    want = set(names) | {"kernel checks"}
+    while True:
+        more = {d for n in want for d in PHASES[n]} - want
+        if not more:
+            return [n for n in PHASES if n in want]
+        want |= more
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="The port's smoke run on one card.")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (with the phases they need): "
+                         + ", ".join(PHASES) + "; by default every phase")
+    args = ap.parse_args(argv)
     check_device()
+    phases = select_phases(None if args.phases is None else
+                           [n.strip() for n in args.phases.split(",") if n.strip()])
     with tempfile.TemporaryDirectory() as tmp:
         try:
-            run(tmp)
+            run(tmp, phases)
         finally:
             if torch.distributed.is_available() and torch.distributed.is_initialized():
                 torch.distributed.destroy_process_group()
 
 
-def run(tmp: str) -> None:
+def run(tmp: str, phases=None) -> None:
+    phases = list(PHASES) if phases is None else phases
+    full = phases == list(PHASES)
     t_start = time.perf_counter()
+    t_last = [t_start]
 
-    def done(phase: str) -> None:
-        """Where the run's time goes: seconds since the start, at each phase's end (and the
-        graphs captured so far, with the seconds their warm-ups and captures took)."""
-        print(f"[{time.perf_counter() - t_start:.1f} s] {phase} done (graphs captured so far "
-              f"{programs.stats['captures']} in {programs.stats['capture_s']:.1f} s)", flush=True)
+    def done(phase: str, what: str = "") -> None:
+        """Where the run's time goes: seconds since the start and the phase's own, at each
+        phase's end (and the graphs captured so far, with the seconds their warm-ups and
+        captures took). ``phase`` is its name in PHASES."""
+        now = time.perf_counter()
+        print(f"[{now - t_start:.1f} s] {phase} done{f' ({what})' if what else ''} in "
+              f"{now - t_last[0]:.1f} s (graphs captured so far {programs.stats['captures']} "
+              f"in {programs.stats['capture_s']:.1f} s)", flush=True)
+        t_last[0] = now
 
+    if not full:
+        print(f"phases: {phases}", flush=True)
     build_kernels()
     timings = check_kernels()
     time_int8_matmul_candidates(torch.Generator(device="cuda").manual_seed(SEED + 4))
     torch.cuda.empty_cache()
     done("kernel checks")
-    inf = build_inferencer()
-    print("chat path: 3 chat requests, greedy, max_length "
-          f"{MAX_LENGTH}, full 14B geometry, random weights (seed {SEED})", flush=True)
-    paths = [run_main_path(inf)]
-    check_context_builds(inf)
-    logits_bf16 = check_against_plain_path(inf)
-    paths += [run_sampled_chat(inf), run_kept_decode(inf)]
-    done("chat")
-    print(f"generation path: text-to-image and an image edit at {GEN_SIZE[0]}x{GEN_SIZE[1]}, "
-          "50 timesteps, CFG text 3.0 / image 1.5 on (0.4, 1.0], global renorm", flush=True)
-    launches, plain_rows = run_generation(inf)
-    paths.append(launches)
-    v_bf16 = check_velocity_against_plain(inf)["kernels"]
-    print("K6 inside the model: the first denoise step of each request, its attention swapped "
-          "for K6", flush=True)
-    paths.append(run_cache_block_step(inf))
-    done("generation")
-    print("sequence-parallel denoise path: the same two requests through "
-          "InterleaveInferencer(sp_mesh=...), full depth", flush=True)
-    paths.append(run_sp_generation(inf, one_rank_mesh(("model", "seq"), tmp), plain_rows))
-    done("sequence-parallel generation")
-    paths.append(run_quantized_chat(inf, logits_bf16))
-    done("quantized chat")
-    paths.append(run_quantized_generation(inf, v_bf16, plain_rows))
-    done("quantized generation (run H)")
-    paths += run_serving_phase(inf)
-    done("serving (runs A-E, HTTP)")
-    paths.append(run_eval_phase(inf))
-    done("eval (run F)")
-    paths += run_mesh_phase(inf, tmp)
-    done("mesh paths (one-rank NCCL mesh, TP over two processes, sharded loader)")
-    paths.append(run_reconstruction(inf))
-    done("vqa-reconstruction (run G)")
-    paths += run_spec_phase(inf)
-    done("speculative decoding")
-    train_timings, backward, train_paths = run_training(inf)
-    for name, row in train_timings.items():  # K5's rows at a TP rank's shapes stay
-        row["shard_cases"] = timings.get(name, {}).get("shard_cases")
-    timings.update(train_timings)
-    for name, cases in backward.items():
-        timings[name]["backward_cases"] = cases
-    paths += train_paths
-    tok, new_token_ids = inf.tokenizer, inf.new_token_ids
-    _CHAT_STEPS.clear()  # the chat references of the inference phases
-    del inf  # the 28-layer model makes room for the full fine-tune's state
-    gc.collect()
-    torch.cuda.empty_cache()
-    paths += run_full_finetune(tok, new_token_ids)
-    done("training")
-    paths.append(run_mesh_training(tok, new_token_ids, tmp))
-    done("training on a mesh (run K: the one-rank NCCL step; TP, FSDP and GPipe over two "
-         "processes)")
-    paths.append(run_e2e(tok, new_token_ids, tmp))
-    done("e2e-VAE step, snapshot resume and export (run J)")
+    paths = []
+    inf = tok = new_token_ids = None
+    if set(phases) - {"kernel checks", "mesh training", "e2e"}:
+        inf = build_inferencer()
+        tok, new_token_ids = inf.tokenizer, inf.new_token_ids
+    elif set(phases) & {"mesh training", "e2e"}:
+        tok, new_token_ids, _ = add_special_tokens(ByteTokenizer())
+    if "chat" in phases:
+        print("chat path: 3 chat requests, greedy, max_length "
+              f"{MAX_LENGTH}, full 14B geometry, random weights (seed {SEED})", flush=True)
+        paths = [run_main_path(inf)]
+        check_context_builds(inf)
+        logits_bf16 = check_against_plain_path(inf)
+        paths += [run_sampled_chat(inf), run_kept_decode(inf)]
+        done("chat")
+    if "generation" in phases:
+        print(f"generation path: text-to-image and an image edit at {GEN_SIZE[0]}x{GEN_SIZE[1]}, "
+              "50 timesteps, CFG text 3.0 / image 1.5 on (0.4, 1.0], global renorm", flush=True)
+        launches, plain_rows = run_generation(inf)
+        paths.append(launches)
+        v_bf16 = check_velocity_against_plain(inf)["kernels"]
+        print("K6 inside the model: the first denoise step of each request, its attention "
+              "swapped for K6", flush=True)
+        paths.append(run_cache_block_step(inf))
+        done("generation")
+    if "sp generation" in phases:
+        print("sequence-parallel denoise path: the same two requests through "
+              "InterleaveInferencer(sp_mesh=...), full depth", flush=True)
+        paths.append(run_sp_generation(inf, one_rank_mesh(("model", "seq"), tmp), plain_rows))
+        done("sp generation", "the SP denoise through sp_mesh")
+    if "quantized chat" in phases:
+        paths.append(run_quantized_chat(inf, logits_bf16))
+        done("quantized chat")
+    if "quantized generation" in phases:
+        paths.append(run_quantized_generation(inf, v_bf16, plain_rows))
+        done("quantized generation", "run H")
+    if "serving" in phases:
+        paths += run_serving_phase(inf)
+        done("serving", "runs A-E, HTTP")
+    if "eval" in phases:
+        paths.append(run_eval_phase(inf))
+        done("eval", "run F")
+    if "mesh" in phases:
+        paths += run_mesh_phase(inf, tmp)
+        done("mesh", "one-rank NCCL mesh, TP over two processes, sharded loader")
+    if "reconstruction" in phases:
+        paths.append(run_reconstruction(inf))
+        done("reconstruction", "run G")
+    if "spec" in phases:
+        paths += run_spec_phase(inf)
+        done("spec", "speculative decoding")
+    if "training" in phases:
+        train_timings, backward, train_paths = run_training(inf)
+        for name, row in train_timings.items():  # K5's rows at a TP rank's shapes stay
+            row["shard_cases"] = timings.get(name, {}).get("shard_cases")
+        timings.update(train_timings)
+        for name, cases in backward.items():
+            timings[name]["backward_cases"] = cases
+        paths += train_paths
+    if inf is not None:
+        _CHAT_STEPS.clear()  # the chat references of the inference phases
+        del inf  # the 28-layer model makes room for the full fine-tune's state
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "training" in phases:
+        paths += run_full_finetune(tok, new_token_ids)
+        print(f"training steps, graphed and eager (same call, {CARD}): "
+              + json.dumps(STEP_STATS), flush=True)
+        done("training")
+    if "mesh training" in phases:
+        paths.append(run_mesh_training(tok, new_token_ids, tmp))
+        done("mesh training", "run K: the one-rank NCCL step; TP, FSDP and GPipe over two "
+             "processes")
+    if "e2e" in phases:
+        paths.append(run_e2e(tok, new_token_ids, tmp))
+        done("e2e", "run J: e2e-VAE steps, snapshot resume and export")
     flash = "unimedvl_tpu_torch/csrc/flash_block_attention.cu"
     decode = "unimedvl_tpu_torch/csrc/decode_attention.cu"
     train = "unimedvl_tpu_torch/csrc/packed_train_attention.cu"
@@ -6320,17 +6660,21 @@ def run(tmp: str) -> None:
             "library_ms")
     # K6 is on no entry point's path: its launches are those of the phase that swaps it into
     # the denoise step (run_cache_block_step), and the line says so
-    timings["flash_cache_block_attention"]["launches_from"] = (
+    timings.setdefault("flash_cache_block_attention", {})["launches_from"] = (
         "a denoise step with K6 swapped in; no entry point routes through it")
+    # a run of some phases lists every kernel: those it did not time carry nulls
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=sum(p[name] for p in paths), **{k: timings[name][k] for k in keys},
-             **{k: v for k, v in timings[name].items() if k in EXTRA_KEYS})
+             launches=sum(p.get(name, 0) for p in paths),
+             **{k: timings.get(name, {}).get(k) for k in keys},
+             **{k: v for k, v in timings.get(name, {}).items() if k in EXTRA_KEYS})
         for name, (src, rep) in sources.items()
     ]
     unlaunched = [k["name"] for k in kernels if k["launches"] < 1]
-    if unlaunched:
+    if unlaunched and full:
         raise SystemExit(f"chip_smoke: no path launched {unlaunched}")
+    if unlaunched:
+        print(f"kernels no selected phase launched: {unlaunched}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

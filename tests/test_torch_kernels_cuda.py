@@ -1854,3 +1854,204 @@ def test_mesh_flow_and_sp_programs_captured_equal_eager(gen, nccl_group):
         torch.testing.assert_close(g, want_sp, rtol=1e-3, atol=1e-3)
     assert calls[0] > 0 and len(set(calls)) == 1 and captures == 2
     torch.testing.assert_close(want_sp, want, rtol=2.0**-6, atol=2.0**-6)
+
+
+# ---------------------------------------------------------------------------
+# The training steps as programs (training.trainer.TrainProgram): each graphed
+# step against its own bodies run op by op over the same buffers
+# (programs.plain_bodies), bit for bit over three calls that include the
+# capturing one, K5's launches inside the captures counted as the bodies
+# count them; and the first call against the stripped eager step, within a
+# floor measured in the same test: the gap between the eager bf16 step and
+# the same step in fp32 on the CPU (the plain versions), as the smoke's
+# TP_FLOOR_FACTOR bounds the tensor-parallel chat. The gap is read on the
+# AdamW first moments after the first update ((1 - b1) times the mean
+# gradient) and on the loss (plus one bf16 step of it).
+# ---------------------------------------------------------------------------
+
+TRAIN_FLOOR_FACTOR = 2.0
+TRAIN_KINDS = ["full", "lora", "qlora_w4a8"]
+
+
+def _train_batch(cfg, seed):
+    """A stacked batch of B = 2 packed sequences (text with CE rows, a
+    conditioning and a noised latent block, ViT images of 36 and 20 patches)
+    with padding in every list."""
+    import numpy as np
+
+    from unimedvl_tpu_torch.data.packing import pack_training_batch
+    from unimedvl_tpu_torch.training.dataset import stack_packed
+
+    rng = np.random.default_rng(seed)
+    pd, vp, V = cfg.patch_latent_dim, cfg.vit.patch_size ** 2 * 3, cfg.llm.vocab_size
+
+    def text(n):
+        return {"type": "text", "ids": rng.integers(0, V - 8, n).tolist(), "loss": True}
+
+    def vae(n, t, loss):
+        return {"type": "vae", "clean_tokens": rng.standard_normal((n, pd)).astype(np.float32),
+                "pos_ids": np.arange(n), "timestep_raw": t, "loss": loss}
+
+    def vit(n):
+        return {"type": "vit", "patch_tokens": rng.standard_normal((n, vp)).astype(np.float32),
+                "pos_ids": np.arange(n)}
+
+    a = pack_training_batch([[text(40), vae(16, -np.inf, False), vae(24, 0.3, True)],
+                             [vit(36), text(30)]], pad_multiple=32)
+    b = pack_training_batch([[vit(20), text(25)], [text(12), vae(20, -0.4, True)]],
+                            pad_multiple=32)
+    return stack_packed([a, b])
+
+
+def _train_kind(kind, mesh=None, cpu=False):
+    """(model, make(graphs) -> (step, state)) of a training kind on
+    :func:`_prefill_model` (bf16, a ViT of head dim 72): the full fine-tune
+    (accumulation 2, EMA), LoRA, QLoRA over w4a8 per channel (K3 and K4
+    under autograd); on ``mesh``, a rank's model of it; with ``cpu``, the
+    same model in fp32 on the CPU (the plain versions)."""
+    from unimedvl_tpu_torch import quant
+    from unimedvl_tpu_torch.parallel import mesh as pmesh
+    from unimedvl_tpu_torch.training import lora, trainer
+
+    model = _prefill_model()
+    if kind == "qlora_w4a8":
+        quant.quantize_llm_params(model.language_model, act_quant=True, bits=4)
+    if kind != "full":
+        lora.add_lora(model, torch.Generator(device="cuda").manual_seed(3), rank=4)
+    if cpu:
+        model = model.float().cpu()
+    if mesh is not None:
+        model = pmesh.place_params(model, mesh)
+    cfg = getattr(model, "whole_config", model.config)
+
+    def make(graphs):
+        if kind == "full":
+            step, init = trainer.make_train_step(cfg, model, accum_steps=2, ema_decay=0.9,
+                                                 mesh=mesh, graphs=graphs)
+            return step, init()
+        return lora.make_lora_train_step(cfg, model, graphs=graphs)
+
+    return model, make
+
+
+def _train_calls(model, kind):
+    """Three calls' batches (the first twice: a replay of its buckets) and
+    their noises (drawn from a seed, real rows only)."""
+    from unimedvl_tpu_torch.training import trainer
+
+    batches = [_train_batch(model.config, s) for s in (0, 0, 1)]
+    g = torch.Generator(device="cuda").manual_seed(9)
+
+    def noises(b):
+        shapes = trainer._noise_shapes(b)
+        return [None if s is None else torch.randn(s, generator=g, device="cuda")
+                for s in shapes]
+
+    if kind == "full":  # accumulation 2: two batches a call
+        return [([b, b], [noises(b), noises(b)]) for b in batches]
+    return [(b, noises(b)) for b in batches]
+
+
+def _moments(state):
+    return [state.optimizer.state[p]["exp_avg"].float()
+            for g in state.optimizer.param_groups for p in g["params"]]
+
+
+def _rel(a, b):
+    num = sum(float((x - y).square().sum()) for x, y in zip(a, b))
+    den = sum(float(y.square().sum()) for y in b)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def _held_to_floor(kind, make_model, graphed_first):
+    """The graphed first call (its loss and first moments) against the
+    stripped eager step of ``make_model()``, within TRAIN_FLOOR_FACTOR times
+    the eager step's own gap to the fp32 plain step on the CPU."""
+    model, make = make_model()
+    (batch, noises), = _train_calls(model, kind)[:1]
+    step, state = make(False)
+    _, loss_e = step(state, batch, noises=noises)
+    m_e = _moments(state)
+    del step, state, model, make
+    _, make_f = _train_kind(kind, cpu=True)
+    step, state = make_f(False)
+
+    def to_cpu(n):
+        return None if n is None else n.cpu()
+
+    nz = ([[to_cpu(x) for x in n] for n in noises] if kind == "full" else
+          [to_cpu(x) for x in noises])
+    _, loss_f = step(state, batch, noises=nz)
+    m_f = [m.cuda() for m in _moments(state)]
+    loss_g, m_g = graphed_first
+    floor = _rel(m_e, m_f)
+    assert _rel(m_g, m_f) <= TRAIN_FLOOR_FACTOR * floor, (_rel(m_g, m_f), floor)
+    gap_e, gap_g = abs(float(loss_e) - float(loss_f)), abs(loss_g - float(loss_f))
+    assert gap_g <= TRAIN_FLOOR_FACTOR * gap_e + 2.0**-8 * abs(float(loss_f))
+
+
+def _graphed_against_bodies(model_pair, kind):
+    """Three calls by the graphs and by the bodies run op by op over their own
+    buffers, on two identical models: losses, every trained tensor, the
+    AdamW state and K5's launches equal. Returns the graphed first call's
+    (loss, first moments) and the collectives one graphed call ran."""
+    from unimedvl_tpu_torch.inference import programs
+    from unimedvl_tpu_torch.parallel import mesh as pmesh
+
+    programs.drop_all()
+    out = {}
+    for route in ("bodies", "graphs"):
+        model, make = model_pair()
+        step, state = make(True)
+        losses, launches, first = [], [], None
+        calls = _train_calls(model, kind)
+        for i, (batch, noises) in enumerate(calls):
+            before = dict(fat.counts)
+            n = pmesh.counts["collectives"]
+            if route == "bodies":
+                with programs.plain_bodies():
+                    state, loss = step(state, batch, noises=noises)
+            else:
+                state, loss = step(state, batch, noises=noises)
+            losses.append(float(loss))
+            launches.append({k: fat.counts[k] - before[k] for k in ("fwd", "bwd_dq", "bwd_dkv")})
+            if i == 0:
+                first = (losses[0], [m.clone() for m in _moments(state)])
+                collectives = pmesh.counts["collectives"] - n
+        params = [p.detach().clone() for g in state.optimizer.param_groups for p in g["params"]]
+        out[route] = (losses, launches, params, _moments(state), first, collectives)
+        del step, state, model
+        programs.drop_all()
+    (lb, kb, pb, mb, _, cb), (lg, kg, pg, mg, first, cg) = out["bodies"], out["graphs"]
+    assert lg == lb
+    assert kg == kb and all(k["fwd"] > 0 and k["bwd_dq"] > 0 and k["bwd_dkv"] > 0 for k in kg)
+    assert all(torch.equal(a, b) for a, b in zip(pg, pb))
+    assert all(torch.equal(a, b) for a, b in zip(mg, mb))
+    assert cg == cb
+    return first, cg
+
+
+@pytest.mark.parametrize("kind", TRAIN_KINDS)
+def test_train_program_captured_equals_its_bodies_and_the_eager_step(gen, kind):
+    """A graphed training step (the full fine-tune with accumulation and the
+    EMA, LoRA, QLoRA w4a8) equals its bodies run op by op, bit for bit, over
+    three calls (the first captures); its first call lies within the floor
+    of the stripped eager step."""
+    first, _ = _graphed_against_bodies(lambda: _train_kind(kind), kind)
+    _held_to_floor(kind, lambda: _train_kind(kind), first)
+
+
+def test_mesh_train_program_captured_equals_its_bodies_and_the_eager_step(gen, nccl_group):
+    """The full fine-tune step on a rank's model of a one-rank NCCL ("data",
+    "model") mesh: its graphs (the gradients' and the loss's all-reduces
+    inside the update graph, the forward's and backward's collectives inside
+    the train graphs) against its bodies, bit for bit over three calls with
+    as many collectives a call; its first call within the floor of the
+    stripped eager mesh step."""
+    from unimedvl_tpu_torch.inference import programs
+
+    mesh = _nccl_mesh(("data", "model"))
+    before = programs.stats["collective_captures"]
+    first, collectives = _graphed_against_bodies(lambda: _train_kind("full", mesh), "full")
+    assert collectives > 0 and programs.stats["collective_captures"] > before
+    _held_to_floor("full", lambda: _train_kind("full", mesh), first)

@@ -38,6 +38,7 @@ LOSS_RTOL = 2e-5
 TOL = dict(rtol=2e-4, atol=2e-6)
 SHAPE = {"data": 2, "model": 2}
 LR = 1e-3
+KEY_BIASES = ("k_proj.bias", "k_proj_moe_gen.bias")
 FZ = dataclasses.replace(CFG, llm=dataclasses.replace(CFG.llm, freeze_und=True))
 
 
@@ -91,6 +92,9 @@ def ranks(params, data, tmp_path_factory):
         dict(one, model="fz", fsdp=True),                     # 5 freeze_und
         dict(batches=[data["first"], data["second"]], noises=[data["n1"], data["n2"]],
              ema=0.9, fsdp=True, lr=LR, snapshot=snap),       # 6 sharded snapshot
+        dict(one, graphs=True),                               # 7 TP x DP, the program
+        dict(batches=[[data["first"], data["second"]]], noises=[[data["n1"], data["n2"]]],
+             accum=2, fsdp=True, lr=LR, graphs=True),         # 8 case 2 by the program
     ]
     models = {"base": port_model(params), "fz": port_model(params, FZ)}
     return pmesh.run_on_ranks(dryrun_train.run_train_cases, 4, ("data", "model"), (2, 2),
@@ -248,6 +252,35 @@ class TestMeshTrainStep:
             assert res["resumed_equal"]
             assert res["resumed_loss"] == res["losses"][1]
             assert res["other_mesh"] is not None and "mesh" in res["other_mesh"]
+
+
+    def test_programs_equal_the_jax_step_and_the_eager_steps(self, params, data, jax_step,
+                                                               ranks):
+        """The step's program (``graphs=True``: its plain route on the CPU,
+        the collectives over gloo) on the (2, 2) mesh: TP x DP against the
+        JAX mesh program as the eager step is held; FSDP with accumulation
+        against the eager step of case 2 (the loss) and against the
+        one-device program on the same batches (every parameter: the eager
+        step strips the padding, and over the stripped shapes AdamW's first
+        step turns a gradient entry at rounding size into an update anywhere
+        in [-lr, lr]; so do the attention key biases, whose gradient is zero
+        in exact arithmetic, here as in tests/test_torch_train_graphs.py);
+        replicated tensors bit-equal across ranks."""
+        want_loss, want = jax_step
+        _, one = _one_device(params, CFG, [[data["first"], data["second"]]],
+                             [[data["n1"], data["n2"]]], accum_steps=2, graphs=True)
+        whole = {n: p.detach().numpy() for n, p in one.model.named_parameters()}
+        llm = port_config(CFG).llm
+        for r in ranks:
+            np.testing.assert_allclose(r[7]["losses"][0], want_loss, rtol=LOSS_RTOL)
+            np.testing.assert_allclose(r[8]["losses"][0], r[2]["losses"][0], rtol=LOSS_RTOL)
+            for name, t in r[8]["params"].items():
+                part = dryrun_train.rank_part(name, whole[name], llm, SHAPE, r[8]["coords"], True)
+                tol = dict(rtol=0, atol=LR) if name.endswith(KEY_BIASES) else TOL
+                np.testing.assert_allclose(t, part, err_msg=name, **tol)
+        assert _assert_parts(ranks, 7, {**want, **_vae(params)}, False, **TOL) > 4 * 60
+        _replicated_equal(ranks, 7, False)
+        _replicated_equal(ranks, 8, True)
 
 
 def _vae(params):

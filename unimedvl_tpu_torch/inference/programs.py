@@ -70,6 +70,14 @@ collectives a replay runs (``parallel.mesh.counts``) as it records
 launches; ``stats["collective_captures"]`` counts the captures that hold
 any. The sequence-parallel denoise's flow step is
 ``parallel.sp_denoise.SPProgram``.
+
+The training steps (``training.trainer.TrainProgram``) are programs whose
+graphs are ``Graph(training=True)``: the warm-up is the call's real work (a
+"train" graph's first run is the sequence it is given, an "update" graph's
+the call's update), so nothing is put back and the capture only records;
+the allocator's cached blocks are returned between the two, so that a
+step's activations are not held twice; and they share a pool of their own
+(``pool_bytes(pool="train")``), freed with the step.
 """
 
 from __future__ import annotations
@@ -85,12 +93,14 @@ import torch
 from torch import nn
 
 #: modules whose ``*counts`` dicts count kernel launches
-COUNTER_MODULES = ("act_quant", "decode_attention", "flash_attention", "w4_matmul")
+COUNTER_MODULES = ("act_quant", "decode_attention", "flash_attention", "flash_attention_train",
+                   "w4_matmul")
 MAX_PROGRAMS = 24
 #: programs kept of a ``family`` (:func:`lookup`): the batcher's admission
 #: blocks each hold a block cache of their own (a 980 px group of four in
-#: bf16: 0.6 GB)
-FAMILY_LIMITS = {"admission": 8}
+#: bf16: 0.6 GB); a training step's buckets (``training.trainer``) each hold a
+#: graph of a forward and a backward
+FAMILY_LIMITS = {"admission": 8, "train": 8}
 
 #: called as fn(graph) at every captured replay
 listeners: List[Callable[["Graph"], None]] = []
@@ -98,14 +108,15 @@ listeners: List[Callable[["Graph"], None]] = []
 _state = threading.local()
 _lock = threading.RLock()
 _registry: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
-_pools: Dict[int, object] = {}
-_pool_users: Dict[int, int] = {}
+_pools: Dict[tuple, object] = {}  # (device index, pool name) -> graph pool handle
+_pool_users: Dict[tuple, int] = {}
 _streams: Dict[int, object] = {}
 _static: "weakref.WeakValueDictionary[tuple, object]" = weakref.WeakValueDictionary()
 #: graphs captured in this process, those of them that hold collectives (a model on an
 #: NCCL mesh), the seconds their warm-ups and captures took (the card waited for at both
-#: ends), and the largest the shared pool has been after a capture
-stats = {"captures": 0, "collective_captures": 0, "capture_s": 0.0, "pool_bytes_max": 0}
+#: ends), and the largest the shared pool and the training pool have been after a capture
+stats = {"captures": 0, "collective_captures": 0, "capture_s": 0.0, "pool_bytes_max": 0,
+         "train_pool_bytes_max": 0}
 
 
 def capturing() -> bool:
@@ -156,6 +167,20 @@ def mesh_key(model: Optional[nn.Module], mesh=None) -> tuple:
     return tuple((m.axis_names, tuple(m.shape[a] for a in m.axis_names), m.rank,
                   tuple(None if m.groups[a] is None else id(m.groups[a]) for a in m.axis_names))
                  for m in _meshes(model, mesh))
+
+
+@contextlib.contextmanager
+def plain_bodies():
+    """Within the block, on this thread, a :class:`Graph` on a CUDA device
+    runs its body directly instead of capturing or replaying it: the
+    program's own computation over its own buffers, launched op by op (what
+    a captured graph is held to, bit for bit)."""
+    before = getattr(_state, "plain", False)
+    _state.plain = True
+    try:
+        yield
+    finally:
+        _state.plain = before
 
 
 @contextlib.contextmanager
@@ -249,6 +274,8 @@ def _release(prog) -> None:
     for g in prog.graphs():
         g.reset()
         g.body = None  # the graph's body holds its program: free both without the cycle GC
+    if hasattr(prog, "release"):  # what else it holds (a training step's gradients)
+        prog.release()
 
 
 def static_buffer(key: tuple, make: Callable[[], object]):
@@ -299,13 +326,14 @@ def programs() -> list:
         return list(_registry.values())
 
 
-def pool_bytes(device: Optional[torch.device] = None) -> Optional[int]:
-    """The bytes the shared graph pool reserves on ``device`` (the current
-    CUDA device by default), from the allocator's snapshot; None when no
-    graph was captured there."""
+def pool_bytes(device: Optional[torch.device] = None, pool: str = "shared") -> Optional[int]:
+    """The bytes the graph pool ``pool`` ("shared": the inference programs';
+    "train": the training steps') reserves on ``device`` (the current CUDA
+    device by default), from the allocator's snapshot; None when no graph
+    of it was captured there."""
     index = None if device is None else torch.device(device).index
     index = torch.cuda.current_device() if index is None else index
-    pool = _pools.get(index)
+    pool = _pools.get((index, pool))
     if pool is None:
         return None
     want = tuple(pool) if isinstance(pool, (tuple, list)) else pool
@@ -317,18 +345,18 @@ def pool_bytes(device: Optional[torch.device] = None) -> Optional[int]:
     return total
 
 
-def _pool(index: int):
-    """The shared pool of device ``index``, counted as used by one more
-    graph. The allocator frees a pool once no graph uses it, and a capture
-    into a freed pool's handle fails, so a pool whose graphs are all reset
-    is forgotten and the next capture takes a new one."""
+def _pool(key: tuple):
+    """The pool ``key`` (device index, pool name), counted as used by one
+    more graph. The allocator frees a pool once no graph uses it, and a
+    capture into a freed pool's handle fails, so a pool whose graphs are all
+    reset is forgotten and the next capture takes a new one."""
     with _lock:
-        if index not in _pools:
-            with torch.cuda.device(index):
-                _pools[index] = torch.cuda.graph_pool_handle()
-            _pool_users[index] = 0
-        _pool_users[index] += 1
-        return _pools[index]
+        if key not in _pools:
+            with torch.cuda.device(key[0]):
+                _pools[key] = torch.cuda.graph_pool_handle()
+            _pool_users[key] = 0
+        _pool_users[key] += 1
+        return _pools[key]
 
 
 def _capture_stream(device: torch.device):
@@ -342,11 +370,11 @@ def _capture_stream(device: torch.device):
         return _streams[device.index]
 
 
-def _unpool(index: int) -> None:
+def _unpool(key: tuple) -> None:
     with _lock:
-        _pool_users[index] -= 1
-        if _pool_users[index] == 0:
-            del _pools[index], _pool_users[index]
+        _pool_users[key] -= 1
+        if _pool_users[key] == 0:
+            del _pools[key], _pool_users[key]
 
 
 def _counter_dicts() -> list:
@@ -374,13 +402,21 @@ class Graph:
     registers; ``rows`` is told to the listeners (the streams of a step);
     ``forwards``, of a "prefill" graph, the forwards one replay runs (``vit``:
     ViT forwards, ``prefill``: LLM block forwards, ``gen``: those of them in
-    gen mode), for listeners that count forwards."""
+    gen mode), for listeners that count forwards.
+
+    ``training``: a training step's graph (see the module's docstring): the
+    warm-up is the first call's real work (nothing is put back, its
+    launches count, and the call that captures replays nothing), the
+    allocator's cached blocks are returned before the capture, and the
+    graph goes into the "train" pool."""
 
     def __init__(self, kind: str, body: Callable[[], None], device: torch.device,
                  keep: Iterable[torch.Tensor] = (), rows: int = 0,
                  generators: Iterable[torch.Generator] = (),
-                 forwards: Optional[Dict[str, int]] = None):
+                 forwards: Optional[Dict[str, int]] = None, training: bool = False):
         self.kind, self.body, self.device = kind, body, device
+        self.training = training
+        self.pool = "train" if training else "shared"
         self.keep = list(keep)
         self.generators = list(generators)
         self.rows = rows
@@ -390,11 +426,15 @@ class Graph:
         self.collectives = 0  # the collectives one replay runs (``parallel.mesh.counts``)
 
     def replay(self) -> None:
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or getattr(_state, "plain", False):
             self.body()
             return
         if self.graph is None:
             self._capture()
+            if self.training:  # the warm-up was this call's work
+                for fn in listeners:
+                    fn(self)
+                return
         self.graph.replay()
         for d, k, n in self.launches:
             d[k] += n
@@ -405,7 +445,7 @@ class Graph:
         if self.graph is not None:
             self.graph.reset()
             self.graph = None
-            _unpool(self._pool_index)
+            _unpool(self._pool_key)
 
     def _capture(self) -> None:
         torch.cuda.synchronize(self.device)
@@ -427,20 +467,23 @@ class Graph:
             for g, s in zip(self.generators, drawn):
                 g.set_state(s)
             mid = _snapshot(dicts)
+            if self.training:
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
             graph = torch.cuda.CUDAGraph()
             for g in self.generators:
                 graph.register_generator_state(g)
-            index = side.device.index
+            key = (side.device.index, self.pool)
             side.wait_stream(main)
             with torch.cuda.stream(side):
-                graph.capture_begin(pool=_pool(index), capture_error_mode="thread_local")
+                graph.capture_begin(pool=_pool(key), capture_error_mode="thread_local")
                 try:
                     self.body()
                 finally:
                     try:
                         graph.capture_end()
                     finally:
-                        self._pool_index = index
+                        self._pool_key = key
             main.wait_stream(side)
             after = _snapshot(dicts)
         finally:
@@ -448,11 +491,12 @@ class Graph:
         self.launches = [(d, k, after[i][k] - mid[i][k]) for i, d in enumerate(dicts)
                          for k in d if after[i][k] != mid[i][k]]
         self.collectives = after[-1]["collectives"] - mid[-1]["collectives"]
-        for d, b in zip(dicts, before):
+        for d, b in zip(dicts, mid if self.training else before):
             d.update(b)
         self.graph = graph
         torch.cuda.synchronize(self.device)
         stats["captures"] += 1
         stats["collective_captures"] += bool(self.collectives)
         stats["capture_s"] += time.perf_counter() - t0
-        stats["pool_bytes_max"] = max(stats["pool_bytes_max"], pool_bytes(self.device) or 0)
+        name = "pool_bytes_max" if self.pool == "shared" else f"{self.pool}_pool_bytes_max"
+        stats[name] = max(stats.get(name, 0), pool_bytes(self.device, self.pool) or 0)

@@ -1660,21 +1660,55 @@ _INDEX_KEYS = ("packed_text_indexes", "und_idx", "gen_idx", "ce_idx", "ce_labels
                "vae_latent_pos_ids", "packed_position_ids")
 
 
-def prepare_sequence(batch: Dict[str, np.ndarray], device, pin: bool = False
-                     ) -> Dict[str, torch.Tensor]:
+class PreparedSequence(dict):
+    """One packed sequence as :func:`prepare_sequence` gives it, its padding
+    slots dropped. ``host``: the numpy arrays it was prepared from, so that
+    a training step whose route takes the other form
+    (``training.trainer.prepared``) prepares it again."""
+
+    host: Optional[Dict[str, np.ndarray]] = None
+
+
+class PaddedSequence(PreparedSequence):
+    """One packed sequence as :func:`prepare_sequence` gives it with
+    ``padded=True``: every index list keeps its padding slots (index T) and
+    the arrays beside them their padding rows, as ``pack_training_batch``
+    pads them, so that the arrays' shapes are the batch's bucket's.
+    ``vae_rows``: its real latent rows (a host int), the rows of the flow
+    noise the eager step draws for it."""
+
+    vae_rows: int = 0
+
+
+def prepare_sequence(batch: Dict[str, np.ndarray], device, pin: bool = False,
+                     padded: bool = False) -> PreparedSequence:
     """One packed sequence of ``data.packing.pack_training_batch`` (numpy, or
     one row of a ``stack_packed`` batch) as the tensors :func:`train_forward`
     takes, on ``device``.
 
     The packed arrays pad their index lists with T and rely on out-of-range
-    gathers that fill and scatters that drop. Torch index ops raise on such
-    an index, so the padding slots are dropped here, on the host
-    (``strip_padding``): they carry zero loss weight and reach no token, so
-    every loss equals the padded computation's. Index arrays become int64,
+    gathers that fill and scatters that drop. By default the padding slots
+    are dropped here, on the host (``strip_padding``): they carry zero loss
+    weight and reach no token, so every loss equals the padded
+    computation's. With ``padded`` they stay (a :class:`PaddedSequence`):
+    ViT images as [N, max_n] with ``vit_valid`` and ``vit_scatter_idx`` over
+    all N * max_n rows, the other lists at their padded lengths; the forward
+    reads a padding slot's row from row T - 1 and writes it to a dropped
+    sink row (``qwen2_mot.Rows``). Every shape is then fixed by the bucket,
+    as a captured training program needs. Index arrays become int64,
     segment ids stay int32. ``pin`` stages the arrays in pinned host memory
-    and copies without blocking (for a worker thread feeding the card)."""
-    out = {}
-    for key, a in strip_padding(batch).items():
+    and copies without blocking (for a worker thread feeding the card; the
+    caching host allocator keeps a staged block until its copy is done)."""
+    if padded:
+        out = PaddedSequence()
+        T = batch["packed_position_ids"].shape[0]
+        if "vae_scatter_idx" in batch:
+            out.vae_rows = int((np.asarray(batch["vae_scatter_idx"]) < T).sum())
+        arrays = batch
+    else:
+        out, arrays = PreparedSequence(), strip_padding(batch)
+    out.host = batch
+    for key, a in arrays.items():
         t = torch.from_numpy(np.ascontiguousarray(a))
         if key in _INDEX_KEYS:
             t = t.to(torch.int64)
@@ -1682,6 +1716,10 @@ def prepare_sequence(batch: Dict[str, np.ndarray], device, pin: bool = False
             t = t.pin_memory()
         out[key] = t.to(device, non_blocking=pin)
     return out
+
+
+def is_padded(batch) -> bool:
+    return isinstance(batch, PaddedSequence)
 
 
 def train_forward(
@@ -1715,7 +1753,11 @@ def train_forward(
     ``repa_vae_proj``).
 
     Attention takes the segment arrays (K5 on the card). The dense [T, T]
-    mask is built only for CPU tensors, whose plain attention needs it."""
+    mask is built only for CPU tensors, whose plain attention needs it.
+
+    A :class:`PaddedSequence` runs at its padded lengths: every padding row
+    is computed and dropped, with zero loss weight (the JAX forward's
+    semantics), so its losses and gradients are the stripped sequence's."""
     cfg = model.config
     if diffusion_feature_layer is None and cfg.e2e is not None:
         diffusion_feature_layer = cfg.e2e.diffusion_feature_layer
@@ -1751,7 +1793,9 @@ def train_embed(
     lm = model.language_model
     T = batch["packed_position_ids"].shape[0]
     text_embed = mot.embed_tokens(lm, batch["packed_text_ids"])
-    x = torch.zeros((T, cfg.llm.hidden_size), dtype=text_embed.dtype, device=text_embed.device)
+    # row T: the sink of a padded sequence's padding slots, dropped at the end
+    x = torch.zeros((T + 1, cfg.llm.hidden_size), dtype=text_embed.dtype,
+                    device=text_embed.device)
     x.index_copy_(0, batch["packed_text_indexes"], text_embed)
 
     if "vit_patch_tokens" in batch:  # visual understanding branch (bagel.py:248-261)
@@ -1761,36 +1805,55 @@ def train_embed(
         else:
             with torch.no_grad():
                 vit_embed = _encode_vit_tokens(*args, dense_attention=False)
-        flat = vit_embed.reshape(-1, vit_embed.shape[-1]).index_select(0, batch["vit_token_idx"])
+        flat = vit_embed.reshape(-1, vit_embed.shape[-1])
+        if "vit_token_idx" in batch:  # stripped: the real rows only
+            flat = flat.index_select(0, batch["vit_token_idx"])
         x.index_copy_(0, batch["vit_scatter_idx"], flat.to(x.dtype))
 
-    clean = t_shifted = new_bn_state = None
+    clean = t_shifted = new_bn_state = bn_rows = None
     if "vae_clean_tokens" in batch:  # visual generation branch (bagel.py:263-287)
         clean = batch["vae_clean_tokens"]  # [Nv, 64]
+        real = batch["vae_scatter_idx"] < T if is_padded(batch) else None
         if cfg.e2e is not None and cfg.e2e.enable_batch_norm and bn_state is not None:
-            # the latent batch-norm on the clean latents (bagel.py:230-231)
+            # the latent batch-norm on the clean latents (bagel.py:230-231), its statistics
+            # over the real rows
             clean, new_bn_state = e2e_vae.latent_batch_norm(
                 clean, bn_state, cfg.vae.z_channels, training=True,
-                momentum=cfg.e2e.bn_momentum, eps=cfg.e2e.bn_eps)
+                momentum=cfg.e2e.bn_momentum, eps=cfg.e2e.bn_eps, valid=real)
+            if real is not None:
+                bn_rows = real.sum(dtype=torch.float32)
         t = torch.sigmoid(batch["vae_timesteps_raw"])
         t_shifted = cfg.timestep_shift * t / (1 + (cfg.timestep_shift - 1) * t)
-        if noise is None:
-            if generator is None:
-                raise ValueError("the flow noise is an input: pass noise=, or a torch.Generator "
-                                 "to draw it from")
-            noise = torch.randn(clean.shape, generator=generator, dtype=torch.float32,
-                                device=generator.device).to(clean.device)
-        if noise.shape != clean.shape:
-            raise ValueError(f"noise must be {tuple(clean.shape)} (one row per latent token, "
-                             f"padding rows dropped), got {tuple(noise.shape)}")
-        noise = noise.to(clean.dtype)
+        noise = _flow_noise(batch, clean, noise, generator)
         x_t = (1 - t_shifted[:, None]) * clean + t_shifted[:, None] * noise
         lat = _linear(x_t, model.vae2llm) + time_embed(model, t_shifted)
         lat = lat + model.latent_pos_embed.pos_embed[batch["vae_latent_pos_ids"]]
         x.index_copy_(0, batch["vae_scatter_idx"], lat.to(x.dtype))
 
-    return x, {"noise": noise, "t_shifted": t_shifted, "clean": clean,
-               "bn_state": new_bn_state}
+    return x[:T], {"noise": noise, "t_shifted": t_shifted, "clean": clean,
+                   "bn_state": new_bn_state, "bn_rows": bn_rows}
+
+
+def _flow_noise(batch, clean: torch.Tensor, noise, generator) -> torch.Tensor:
+    """The flow noise of a sequence's latent rows, in their dtype: ``noise``
+    or, when None, a draw from ``generator`` of one row per real latent
+    token. A padded sequence takes its real rows' noise (drawn, or given as
+    the eager step takes it) with zero padding rows, or a [n_pad, 64] tensor
+    as it is."""
+    n_real = batch.vae_rows if is_padded(batch) else clean.shape[0]
+    if noise is None:
+        if generator is None:
+            raise ValueError("the flow noise is an input: pass noise=, or a torch.Generator "
+                             "to draw it from")
+        noise = torch.randn((n_real, clean.shape[1]), generator=generator, dtype=torch.float32,
+                            device=generator.device).to(clean.device)
+    if is_padded(batch) and noise.shape == (n_real, clean.shape[1]) != clean.shape:
+        noise = torch.cat([noise.to(clean.device), noise.new_zeros(
+            (clean.shape[0] - n_real, clean.shape[1]), device=clean.device)])
+    if noise.shape != clean.shape:
+        raise ValueError(f"noise must be {tuple(clean.shape)} (one row per latent token, "
+                         f"padding rows dropped), got {tuple(noise.shape)}")
+    return noise.to(clean.dtype)
 
 
 def train_losses(
@@ -1804,13 +1867,18 @@ def train_losses(
     losses and, under ``cfg.e2e``, the REPA terms (reference
     bagel.py:309-374)."""
     cfg = model.config
+    T = h.shape[0]
+
+    def rows(key):  # a padding slot (index T) reads row T - 1; its loss weight is 0
+        return batch[key].clamp(max=T - 1)
+
     out: Dict[str, torch.Tensor] = {}
     if features is not None and "vae_scatter_idx" in batch:
-        out["diffusion_features"] = features.index_select(0, batch["vae_scatter_idx"])
+        out["diffusion_features"] = features.index_select(0, rows("vae_scatter_idx"))
     loss = torch.zeros((), dtype=torch.float32, device=h.device)
 
     if "vae_clean_tokens" in batch:
-        h_vae = h.index_select(0, batch["vae_scatter_idx"])
+        h_vae = h.index_select(0, rows("vae_scatter_idx"))
         pred = _linear(h_vae, model.llm2vae).float()
         target = (stash["noise"] - stash["clean"]).float()
         per_tok = torch.mean(torch.square(pred - target), dim=-1)
@@ -1834,6 +1902,8 @@ def train_losses(
         loss = loss + cfg.e2e.repa_vae_coeff * out["repa_vae_align"]
     if stash.get("bn_state") is not None:
         out["bn_state"] = stash["bn_state"]
+        if stash.get("bn_rows") is not None:
+            out["bn_rows"] = stash["bn_rows"]  # its real latent rows (a padded sequence)
 
     fsdp_head = getattr(model.language_model.lm_head, "fsdp_dim", None) is not None
     if "ce_idx" not in batch and fsdp_head:
@@ -1841,7 +1911,7 @@ def train_losses(
         # CE rows runs it on none (its collectives, forward and backward, must run)
         loss = loss + mot.lm_head(model.language_model, h[:0]).sum()
     if "ce_idx" in batch:
-        h_ce = h.index_select(0, batch["ce_idx"])
+        h_ce = h.index_select(0, rows("ce_idx"))
         logits = mot.lm_head(model.language_model, h_ce)  # fp32 [Nc, V]
         logp = torch.log_softmax(logits, dim=-1)
         nll = -logp.gather(1, batch["ce_labels"][:, None])[:, 0]

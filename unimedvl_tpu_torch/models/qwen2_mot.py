@@ -59,7 +59,7 @@ device (``training.dataset.prepare_sequence``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -611,10 +611,27 @@ class _MatmulF32Out(torch.autograd.Function):
 # training forward (packed flat sequence, index-routed MoT)
 # ---------------------------------------------------------------------------
 
+class Rows(NamedTuple):
+    """One expert's rows of a packed [T, ...] sequence: ``read`` the rows
+    gathered, ``write`` where their results go. A padding slot of a padded
+    list (index T, ``pack_training_batch``'s) reads row T - 1 and writes the
+    sink row T, which is dropped: the JAX package's gather with fill and
+    scatter with ``mode="drop"``, without an out-of-range index (on the card
+    a device-side assert). A list without padding slots reads and writes its
+    own rows."""
+
+    read: torch.Tensor
+    write: torch.Tensor
+
+
+def route_rows(idx: torch.Tensor, T: int) -> Rows:
+    return Rows(idx.clamp(max=T - 1), idx)
+
+
 def _route(
     x: torch.Tensor,
-    und_idx: torch.Tensor,
-    gen_idx: torch.Tensor,
+    und: Rows,
+    gen: Rows,
     und_fn,
     gen_fn,
     out_shape_tail: Tuple[int, ...],
@@ -622,18 +639,21 @@ def _route(
 ) -> torch.Tensor:
     """Index-routed dual-expert application over a packed [T, ...] sequence
     (the reference's boolean-index writes, qwen2_navit.py:435-446, 820-835):
-    ``und_fn`` on the rows ``und_idx``, ``gen_fn`` on the rows ``gen_idx``,
-    written back to packed order; rows in neither set (trailing padding) are
-    zero. The index arrays are int64 and hold no padding slot. With
-    ``freeze_und`` the understanding rows carry no gradient."""
-    yu = und_fn(x.index_select(0, und_idx))
+    ``und_fn`` on the rows ``und``, ``gen_fn`` on the rows ``gen``
+    (:class:`Rows`), written back to packed order; rows in neither set
+    (trailing padding) are zero. A padding slot's row is computed on row
+    T - 1 and dropped: each row's result depends on that row alone, so the
+    real rows are the unpadded lists' and the dropped ones carry no gradient.
+    With ``freeze_und`` the understanding rows carry no gradient."""
+    T = x.shape[0]
+    yu = und_fn(x.index_select(0, und.read))
     if freeze_und:
         yu = yu.detach()
-    yg = gen_fn(x.index_select(0, gen_idx))
-    out = torch.zeros((x.shape[0], *out_shape_tail), dtype=yg.dtype, device=x.device)
-    out.index_copy_(0, und_idx, yu.to(yg.dtype))
-    out.index_copy_(0, gen_idx, yg)
-    return out
+    yg = gen_fn(x.index_select(0, gen.read))
+    out = torch.zeros((T + 1, *out_shape_tail), dtype=yg.dtype, device=x.device)
+    out.index_copy_(0, und.write, yu.to(yg.dtype))
+    out.index_copy_(0, gen.write, yg)
+    return out[:T]
 
 
 def make_train_layer_body(
@@ -660,9 +680,10 @@ def make_train_layer_body(
     cos, sin = rope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta)
     if segments is None and mask is None:
         raise ValueError("the training forward needs the segment ids or a dense mask")
+    und, gen = route_rows(und_idx, T), route_rows(gen_idx, T)
 
     def route(x, und_fn, gen_fn, tail, freeze=False):
-        return _route(x, und_idx, gen_idx, und_fn, gen_fn, tail, freeze)
+        return _route(x, und, gen, und_fn, gen_fn, tail, freeze)
 
     def body(x, layer):
         # FSDP: the layer's whole leaves, gathered here (inside the checkpoint of cfg.remat,
@@ -727,8 +748,8 @@ def forward_train(
     packed_x: torch.Tensor,  # [T, C] embedded packed sequence
     position_ids: torch.Tensor,  # [T]
     mask: Optional[torch.Tensor],  # [T, T] bool (ops.blockmask.dense_packed_mask) or None
-    und_idx: torch.Tensor,  # [Nu] int64, real tokens only
-    gen_idx: torch.Tensor,  # [Ng] int64, real tokens only
+    und_idx: torch.Tensor,  # [Nu] int64; padding slots (index T) allowed
+    gen_idx: torch.Tensor,  # [Ng] int64; padding slots allowed
     segments=None,  # (doc_id, fn_id, noise_id) [T] int tensors
     feature_layer: Optional[int] = None,
 ):
@@ -745,8 +766,11 @@ def forward_train(
     time and the layer's forward, its attention kernel included, runs twice."""
     cfg = model.cfg
     body = make_train_layer_body(cfg, position_ids, mask, und_idx, gen_idx, segments=segments)
-    if cfg.freeze_und:
-        packed_x = packed_x.index_copy(0, und_idx, packed_x.index_select(0, und_idx).detach())
+    if cfg.freeze_und:  # the understanding rows enter detached (a padding slot marks the sink)
+        T = packed_x.shape[0]
+        und = torch.zeros(T + 1, dtype=torch.bool, device=packed_x.device)
+        und = und.index_fill_(0, und_idx, True)[:T, None]
+        packed_x = torch.where(und, packed_x.detach(), packed_x)
     remat = cfg.remat and torch.is_grad_enabled()
     h, features = packed_x, None
     for i, layer in enumerate(model.layers):
@@ -767,6 +791,7 @@ def final_norm(model: Qwen2MoTModel, h: torch.Tensor, und_idx, gen_idx) -> torch
     (reference qwen2_navit.py:1106-1113)."""
     cfg = model.cfg
     if cfg.use_moe:
-        return _route(h, und_idx, gen_idx, model.norm, model.norm_moe_gen, (h.shape[-1],),
-                      freeze_und=cfg.freeze_und)
+        T = h.shape[0]
+        return _route(h, route_rows(und_idx, T), route_rows(gen_idx, T), model.norm,
+                      model.norm_moe_gen, (h.shape[-1],), freeze_und=cfg.freeze_und)
     return model.norm(h)

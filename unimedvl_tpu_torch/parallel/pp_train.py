@@ -218,13 +218,14 @@ def pipeline_train_loss(model, cfg, mesh: "pmesh.Mesh", batches, noises=None,
     (summed over "data" by ``training.trainer.reduce_gradients``).
     ``noises``: one per microbatch, or drawn from ``generator`` for all M in
     order."""
-    from unimedvl_tpu_torch.training.trainer import _rank_sequences
+    from unimedvl_tpu_torch.training.trainer import _rank_sequences, prepared
 
     first, n = stage_range(cfg.llm.num_hidden_layers, mesh)
     if len(model.language_model.model.layers) != n:
         raise ValueError(f"the model holds {len(model.language_model.model.layers)} layers, "
                          f"its stage {n}: place it with place_params_pp")
     device = model.language_model.model.norm.weight.device
-    seqs, noises, M = _rank_sequences(batches, noises, generator, mesh, device)
+    seqs, noises, M = _rank_sequences(batches, noises, generator, mesh)
+    seqs = prepared(seqs, device, False)
     total, new_bn = pipeline_loss_sum(model, mesh, seqs, noises, generator, bn_state)
     return total / M, new_bn

@@ -106,7 +106,7 @@ def _make_step(model, mesh, case):
                                           ema_decay=case.get("ema"))
     return trainer.make_train_step(cfg, model, optimizer=opt, accum_steps=case.get("accum", 1),
                                    ema_decay=case.get("ema"), mesh=mesh,
-                                   fsdp=case.get("fsdp", False))
+                                   fsdp=case.get("fsdp", False), graphs=case.get("graphs"))
 
 
 def _state_result(state, mesh, case) -> Dict:
@@ -234,7 +234,7 @@ def run_train_cases(rank: int, world: int, axes, sizes, models, cases: List[Dict
     A case is a dict: ``batches`` (one stacked numpy batch per call, or a
     list of them per call under ``accum``), ``noises`` (numpy, per call per
     sequence), and the step's options ``lr``, ``accum``, ``ema``, ``fsdp``,
-    ``pipe``, ``steps``, ``grads``, ``snapshot``."""
+    ``pipe``, ``steps``, ``grads``, ``snapshot``, ``graphs``."""
     mesh = pmesh.make_mesh(axes, sizes)
     return [run_step_case(models[case.get("model", "base")], mesh, case) for case in cases]
 

@@ -325,17 +325,23 @@ class Prefetcher:
 
 def make_place_fn(device) -> Callable:
     """A ``place_fn`` for :class:`Prefetcher`: a stacked numpy batch becomes a
-    list of prepared sequences on ``device`` (padding slots dropped on the
-    host, arrays staged in pinned memory and copied without blocking when the
-    device is a card)."""
+    list of prepared sequences on ``device``, in the form the train step
+    takes there by default (``trainer.prepared``): with their padding on a
+    card, where the step runs as its program, stripped on the host
+    elsewhere. A step whose route takes the other form prepares them again.
+    On a card the arrays are staged in pinned memory and copied without
+    blocking: the caching host allocator holds a staged block until its copy
+    has run, and the worker's copies are ordered before the step's use on
+    the card's default stream."""
     import torch
 
     from unimedvl_tpu_torch.training import trainer
 
     device = torch.device(device)
+    card = device.type == "cuda"
 
     def place(batch):
-        return trainer.place_batches(batch, device, pin=device.type == "cuda")
+        return trainer.prepared(batch, device, padded=card, pin=card)
 
     return place
 

@@ -57,15 +57,31 @@ def latent_batch_norm(
     training: bool,
     momentum: float = 0.1,
     eps: float = 1e-4,
+    valid: Optional[torch.Tensor] = None,  # [N] bool: the real tokens (a padded block)
 ) -> Tuple[torch.Tensor, BatchNormState]:
     """Normalize latent tokens per z-channel; returns (normed in the tokens'
     dtype, new state). Training: the batch statistics normalize and the
     running stats update as torch does (the running variance takes the
     unbiased batch variance); the new state carries no gradient. Eval: the
-    running stats normalize and the state is returned as it was."""
+    running stats normalize and the state is returned as it was.
+
+    ``valid``: the statistics are taken over those tokens only, their count
+    a device value (a padded block's shape does not say it; the padding
+    rows are normalized with the real rows' statistics). Without it, over
+    every token."""
     N, pd = tokens.shape
     x = tokens.reshape(N * (pd // z_channels), z_channels).float()
-    if training:
+    if training and valid is not None:
+        w = valid.to(x.dtype).repeat_interleave(pd // z_channels)[:, None]
+        n = w.sum()
+        mean = (x * w).sum(dim=0) / n.clamp(min=1)
+        var = ((x - mean) * w).square().sum(dim=0) / n.clamp(min=1)
+        unbiased = var.detach() * n / (n - 1).clamp(min=1)
+        new_state = BatchNormState(
+            mean=(1 - momentum) * state.mean + momentum * mean.detach(),
+            var=(1 - momentum) * state.var + momentum * unbiased,
+        )
+    elif training:
         mean = x.mean(dim=0)
         var = x.var(dim=0, unbiased=False)
         n = x.shape[0]

@@ -24,8 +24,7 @@ refuses a quantized base, as the JAX package's does.
 
 from __future__ import annotations
 
-import functools
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -161,7 +160,8 @@ def apply_lora_only(model) -> List[nn.Parameter]:
     return [p for p in params.values() if p.requires_grad]
 
 
-def make_lora_train_step(cfg, model, optimizer=None, accum_steps: int = 1):
+def make_lora_train_step(cfg, model, optimizer=None, accum_steps: int = 1,
+                         graphs: Optional[bool] = None):
     """Adapter training step: returns ``(step, state)`` with
     ``step(state, batches, generator=None, noises=None) -> (state, loss)``.
     The frozen base takes part in the forward only; gradients and AdamW
@@ -170,7 +170,10 @@ def make_lora_train_step(cfg, model, optimizer=None, accum_steps: int = 1):
     decay 1e-4). ``batches`` follow ``trainer.loss_fn``'s contract. The base
     may be quantized (QLoRA). The e2e-VAE extras (latent batch-norm, REPA)
     are not taken here, as the JAX package's lean step does not take them:
-    ``cfg.e2e`` raises."""
+    ``cfg.e2e`` raises. ``graphs`` as ``trainer.make_train_step`` takes it:
+    on a CUDA device the step runs as its program by default, the adapters'
+    gradients preallocated and every quantized base's kernels (K3, K4 under
+    autograd) inside its graphs."""
     if cfg.e2e is not None:
         raise ValueError("make_lora_train_step takes no e2e-VAE extras (cfg.e2e): train them "
                          "with trainer.make_train_step")
@@ -179,7 +182,7 @@ def make_lora_train_step(cfg, model, optimizer=None, accum_steps: int = 1):
         raise ValueError("the model carries no adapters: add_lora(...) first")
     factory = optimizer or trainer.make_optimizer(1e-4, weight_decay=1e-4, b1=0.9, b2=0.95)
     state = trainer._init_state(model, None, factory, None, torch.float32, params=adapters)
-    return functools.partial(trainer._step, accum_steps=accum_steps, ema_decay=None), state
+    return trainer.TrainStep(accum_steps, None, graphs), state
 
 
 def count_lora_params(model) -> int:

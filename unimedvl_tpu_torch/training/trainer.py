@@ -22,17 +22,28 @@ batch; the result is the JAX mesh program's, the single-device function:
 the mean loss over the global batch, its gradients, one AdamW update per
 call, and every tensor replicated over an axis bit-equal on the ranks of
 that axis.
+
+On a CUDA device the step runs as its program by default
+(:class:`TrainProgram`, ``graphs=``): the counterpart of the JAX package's
+jitted step. The sequences keep their padding (``bagel.prepare_sequence(
+padded=True)``), so a batch's shapes are its bucket's; a "train" graph per
+bucket runs one sequence's forward and backward into preallocated
+gradients, and an "update" graph the rest of the call. The eager step
+(``graphs=False``, or a gloo mesh) strips the padding on the host. Either
+prepares the sequences it is given for its own route (:func:`prepared`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
 from unimedvl_tpu_torch.config import BagelConfig
+from unimedvl_tpu_torch.inference import programs
 from unimedvl_tpu_torch.models import bagel
 from unimedvl_tpu_torch.models.bagel import Bagel
 from unimedvl_tpu_torch.training.e2e_vae import BatchNormState
@@ -67,10 +78,17 @@ def make_optimizer(
 ) -> Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]:
     """AdamW with decoupled weight decay as optax's ``adamw`` writes it:
     returns a factory that takes the parameters to train. The moments take
-    each parameter's dtype."""
-    return functools.partial(
-        torch.optim.AdamW, lr=learning_rate, betas=(b1, b2), eps=eps, weight_decay=weight_decay
-    )
+    each parameter's dtype. Parameters on a card get the fused
+    implementation with ``capturable=True`` (its step count on the card), as
+    the step's program captures it; the eager step updates with the same."""
+
+    def factory(params) -> torch.optim.Optimizer:
+        params = list(params)
+        card = bool(params) and all(p.is_cuda for p in params)
+        return torch.optim.AdamW(params, lr=learning_rate, betas=(b1, b2), eps=eps,
+                                 weight_decay=weight_decay, fused=card or None, capturable=card)
+
+    return factory
 
 
 def _freeze_und_labels(model: Bagel) -> Dict[str, str]:
@@ -127,12 +145,44 @@ def create_train_state(model: Bagel, optimizer=None, cfg: Optional[BagelConfig] 
 def place_batches(batches, device, pin: bool = False) -> List[Dict[str, torch.Tensor]]:
     """A stacked numpy batch [B, ...] (``training.dataset.stack_packed``) as a
     list of B prepared sequences on ``device`` (``bagel.prepare_sequence``:
-    padding slots dropped on the host). A list passes through."""
+    padding slots dropped on the host), as the eager step runs them. A list
+    of stripped sequences passes through (:func:`prepared`)."""
+    return prepared(batches, device, False, pin)
+
+
+def _sequences(batches) -> list:
+    """A batch's sequences: the rows of a stacked numpy batch, or the list."""
     if isinstance(batches, (list, tuple)):
         return list(batches)
     B = batches["packed_position_ids"].shape[0]
-    return [bagel.prepare_sequence({k: v[b] for k, v in batches.items()}, device, pin)
-            for b in range(B)]
+    return [{k: v[b] for k, v in batches.items()} for b in range(B)]
+
+
+def prepared(batches, device, padded: bool, pin: bool = False) -> list:
+    """A batch's sequences on ``device`` in the form a route of the step
+    takes: with their padding (``padded``, :class:`TrainProgram`) or
+    stripped (the eager step). A numpy sequence is prepared
+    (``bagel.prepare_sequence``); a prepared one passes when its form is the
+    route's and is prepared again from its host arrays when it is not; a
+    dict of tensors passes as a stripped sequence."""
+    out = []
+    for seq in _sequences(batches):
+        if isinstance(seq, bagel.PreparedSequence):
+            if bagel.is_padded(seq) == padded:
+                out.append(seq)
+                continue
+            if seq.host is None:
+                raise ValueError("a prepared sequence without its host arrays cannot change form")
+            seq = seq.host
+        elif any(isinstance(v, torch.Tensor) for v in seq.values()):
+            if padded:
+                raise ValueError("the training program takes sequences with their padding: a "
+                                 "numpy batch, or sequences from bagel.prepare_sequence; "
+                                 "graphs=False runs the eager step")
+            out.append(seq)
+            continue
+        out.append(bagel.prepare_sequence(seq, device, pin, padded))
+    return out
 
 
 def loss_fn(
@@ -172,16 +222,23 @@ def _loss_sum(model, seqs, noises, generator, backward_scale, denominator, bn_st
     new_bn = []
     for i, seq in enumerate(seqs):
         noise = noises[i] if noises is not None else None
-        out = bagel.train_forward(model, seq, noise=noise, generator=generator,
-                                  bn_state=bn_state)
-        loss = out["loss"]
-        if "bn_state" in out:
-            new_bn.append(out["bn_state"])
-        if backward_scale is not None:
-            (loss * (backward_scale / denominator)).backward()
-            loss = loss.detach()
-        total = total + loss
+        with torch.profiler.record_function("train.sequence"):
+            out = bagel.train_forward(model, seq, noise=noise, generator=generator,
+                                      bn_state=bn_state)
+            loss = out["loss"]
+            if "bn_state" in out and _latent_rows(seq):  # (a neutral block has none)
+                new_bn.append(out["bn_state"])
+            if backward_scale is not None:
+                (loss * (backward_scale / denominator)).backward()
+                loss = loss.detach()
+            total = total + loss
     return total, new_bn
+
+
+def _latent_rows(seq) -> int:
+    """The real latent rows of a sequence (a host int)."""
+    shape = _noise_shape(seq)
+    return 0 if shape is None else shape[0]
 
 
 def _mean_bn(states: Sequence[BatchNormState]) -> Optional[BatchNormState]:
@@ -192,20 +249,28 @@ def _mean_bn(states: Sequence[BatchNormState]) -> Optional[BatchNormState]:
 
 
 def _apply_update(state: TrainState, ema_decay: Optional[float]) -> None:
-    state.optimizer.step()
-    state.optimizer.zero_grad(set_to_none=True)
-    state.step += 1
-    if ema_decay is not None:
-        with torch.no_grad():
-            params = dict(state.model.named_parameters())
-            for name, e in state.ema_params.items():
-                e.mul_(ema_decay).add_(params[name].to(e.dtype), alpha=1.0 - ema_decay)
+    with torch.profiler.record_function("train.update"):
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
+        state.step += 1
+        if ema_decay is not None:
+            with torch.no_grad():
+                params = dict(state.model.named_parameters())
+                for name, e in state.ema_params.items():
+                    e.mul_(ema_decay).add_(params[name].to(e.dtype), alpha=1.0 - ema_decay)
+
+
+_PLAIN_STEPS: Dict[Optional[bool], "TrainStep"] = {}  # train_step's, one per ``graphs``
 
 
 def train_step(state: TrainState, batches, generator: Optional[torch.Generator] = None,
-               noises=None):
-    """One plain step (no accumulation, no EMA): returns (state, mean loss)."""
-    return _step(state, batches, generator, noises, accum_steps=1, ema_decay=None)
+               noises=None, graphs: Optional[bool] = None):
+    """One plain step (no accumulation, no EMA): returns (state, mean loss).
+    ``graphs`` as :func:`make_train_step` takes it (one step object per value,
+    so that its programs are kept between calls)."""
+    if graphs not in _PLAIN_STEPS:
+        _PLAIN_STEPS[graphs] = TrainStep(1, None, graphs)
+    return _PLAIN_STEPS[graphs](state, batches, generator, noises)
 
 
 def make_train_step(
@@ -217,6 +282,7 @@ def make_train_step(
     ema_dtype: torch.dtype = torch.float32,
     mesh=None,
     fsdp: bool = False,
+    graphs: Optional[bool] = None,
 ):
     """Build the train step: returns ``(step, init_state)`` with
     ``step(state, batches, generator=None, noises=None) -> (state, loss)``.
@@ -257,7 +323,17 @@ def make_train_step(
     kernels of both experts, the embedding, the head) and their AdamW
     moments and EMA hold this data rank's slice; each layer gathers them
     over "data" at the start of its body and its backward reduce-scatters
-    their gradients (``parallel.mesh.whole_leaves``)."""
+    their gradients (``parallel.mesh.whole_leaves``).
+
+    ``graphs``: None runs the step as its program (:class:`TrainProgram`)
+    on a CUDA device and eagerly elsewhere; True the program on any device
+    (its plain route on the CPU, on any mesh); False the eager step. On a
+    CUDA device a mesh with a gloo group runs eagerly, and True raises
+    (``inference.programs.use_graphs``); so does an optimizer the program
+    cannot capture (:meth:`TrainStep._program_updates`). ``batches`` may be
+    numpy or prepared sequences of either form (:func:`prepared`): the step
+    prepares them for its route, padded for the program, stripped for the
+    eager step."""
     if fsdp and mesh is None:
         raise ValueError("fsdp=True shards over the 'data' axis of a mesh: pass mesh=")
     if mesh is not None:
@@ -266,7 +342,7 @@ def make_train_step(
         raise ValueError(f"accum_steps must be at least 1, got {accum_steps}")
     init_state = functools.partial(_init_state, model, cfg, optimizer or make_optimizer(),
                                    ema_decay, ema_dtype, mesh, fsdp)
-    return functools.partial(_step, accum_steps=accum_steps, ema_decay=ema_decay), init_state
+    return TrainStep(accum_steps, ema_decay, graphs), init_state
 
 
 def _check_rank_model(model: Bagel, mesh, axes) -> None:
@@ -320,17 +396,18 @@ def _accum_batches(batches, noises, accum_steps: int):
     return [(b, None if noises is None else noises[i]) for i, b in enumerate(batches)]
 
 
-def _noise_shapes(batches) -> List[Optional[tuple]]:
-    """The flow-noise shape of each sequence of a batch (None for one without
-    the latent keys), padding rows dropped, as ``train_embed`` draws it."""
-    if isinstance(batches, (list, tuple)):
-        return [None if "vae_clean_tokens" not in s else tuple(s["vae_clean_tokens"].shape)
-                for s in batches]
-    B, T = batches["packed_position_ids"].shape[:2]
-    if "vae_clean_tokens" not in batches:
-        return [None] * B
-    width = batches["vae_clean_tokens"].shape[-1]
-    return [(int((batches["vae_scatter_idx"][b] < T).sum()), width) for b in range(B)]
+def _noise_shape(seq) -> Optional[tuple]:
+    """The flow-noise shape of a sequence (None without the latent keys),
+    padding rows dropped, as ``train_embed`` draws it."""
+    if "vae_clean_tokens" not in seq:
+        return None
+    width = seq["vae_clean_tokens"].shape[-1]
+    if bagel.is_padded(seq):
+        return seq.vae_rows, width
+    if isinstance(seq["vae_clean_tokens"], torch.Tensor):  # stripped
+        return tuple(seq["vae_clean_tokens"].shape)
+    T = seq["packed_position_ids"].shape[0]
+    return int((seq["vae_scatter_idx"] < T).sum()), width
 
 
 def data_share(mesh, n: int):
@@ -343,28 +420,27 @@ def data_share(mesh, n: int):
     return d * (n // dp), n // dp
 
 
-def _rank_sequences(batches, noises, generator, mesh, device):
-    """(this rank's prepared sequences, their noises, B): the rank's share of
-    the batch, with the noise of every sequence of the batch drawn in order
-    when it is drawn (so each rank keeps the draws the single device makes)."""
-    if isinstance(batches, (list, tuple)):
-        B = len(batches)
-    else:
-        B = batches["packed_position_ids"].shape[0]
+def _noise_shapes(batches) -> List[Optional[tuple]]:
+    """The flow-noise shape of each sequence of a batch (:func:`_noise_shape`)."""
+    return [_noise_shape(s) for s in _sequences(batches)]
+
+
+def _rank_sequences(batches, noises, generator, mesh):
+    """(this rank's sequences, as :func:`prepared` takes them, their noises,
+    B): the rank's share of the batch, with the noise of every sequence of
+    the batch drawn in order when it is drawn (so each rank keeps the draws
+    the single device makes)."""
+    seqs = _sequences(batches)
+    B = len(seqs)
     if mesh is None or mesh.shape.get("data", 1) == 1:
-        return place_batches(batches, device), noises, B
+        return seqs, noises, B
     s0, n = data_share(mesh, B)
     if noises is None and generator is not None:
         noises = [None if sh is None else
                   torch.randn(sh, generator=generator, dtype=torch.float32,
                               device=generator.device)
-                  for sh in _noise_shapes(batches)]
-    if isinstance(batches, (list, tuple)):
-        seqs = list(batches[s0:s0 + n])
-    else:
-        seqs = [bagel.prepare_sequence({k: v[b] for k, v in batches.items()}, device)
-                for b in range(s0, s0 + n)]
-    return seqs, None if noises is None else list(noises[s0:s0 + n]), B
+                  for sh in _noise_shapes(seqs)]
+    return seqs[s0:s0 + n], None if noises is None else list(noises[s0:s0 + n]), B
 
 
 def _bn_sums(states: Sequence[BatchNormState], z: int, device) -> torch.Tensor:
@@ -391,8 +467,9 @@ def compute_gradients(state: TrainState, batches, generator=None, noises=None,
     loss = torch.zeros((), dtype=torch.float32, device=device)
     bn_parts = []
     for b, nz in groups:
-        seqs, nz, B = _rank_sequences(b, nz, generator, mesh, device)
-        loss_i, bn_i = _loss_sum(model, seqs, nz, generator, 1.0, B, state.bn_state)
+        seqs, nz, B = _rank_sequences(b, nz, generator, mesh)
+        loss_i, bn_i = _loss_sum(model, prepared(seqs, device, False), nz, generator, 1.0, B,
+                                 state.bn_state)
         loss = loss + loss_i / B
         bn_parts.append(bn_i)
     if accum_steps > 1:
@@ -427,6 +504,321 @@ def _step(state: TrainState, batches, generator=None, noises=None, *, accum_step
     if new_bn is not None:
         state.bn_state = new_bn
     return state, loss
+
+
+class TrainStep:
+    """The train step of :func:`make_train_step` and
+    ``lora.make_lora_train_step``: ``step(state, batches, generator=None,
+    noises=None) -> (state, loss)``, by its program (:class:`TrainProgram`)
+    or eagerly, as ``graphs`` and the device say
+    (``inference.programs.use_graphs``). Its programs are dropped with it."""
+
+    def __init__(self, accum_steps: int, ema_decay: Optional[float],
+                 graphs: Optional[bool] = None):
+        self.accum_steps, self.ema_decay, self.graphs = accum_steps, ema_decay, graphs
+
+    def __call__(self, state: TrainState, batches, generator=None, noises=None):
+        model = state.model
+        device = model.language_model.model.embed_tokens.weight.device
+        if not (programs.use_graphs(self.graphs, device, model)
+                and self._program_updates(state.optimizer, device)):
+            return _step(state, batches, generator, noises, accum_steps=self.accum_steps,
+                         ema_decay=self.ema_decay)
+        prog = TrainProgram.get(self, state, device)
+        loss = prog.run(state, batches, generator, noises)
+        state.step += 1
+        return state, loss
+
+    def _program_updates(self, optimizer: torch.optim.Optimizer, device) -> bool:
+        """Whether the program can update with ``optimizer``: Adam or AdamW,
+        on a card built with ``capturable=True`` (:func:`make_optimizer`'s
+        there). Another runs the eager step under ``graphs=None`` and is
+        refused under ``graphs=True``."""
+        if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+            why = f"it updates with Adam or AdamW, got {type(optimizer).__name__}"
+        elif device.type == "cuda" and not all(g["capturable"] for g in optimizer.param_groups):
+            why = "on a card it captures its optimizer's update: build it with capturable=True"
+        else:
+            return True
+        if self.graphs:
+            raise ValueError(f"the training program (graphs=True): {why}")
+        return False
+
+
+def _adam_state(optimizer: torch.optim.Optimizer) -> list:
+    """Create the Adam state of every parameter that has none yet, as the
+    optimizer's first step would (the step count on the parameter's device
+    when the optimizer is capturable or fused), so that a program's key sees
+    the state it updates. Returns the state's tensors."""
+    from torch.optim.optimizer import _get_scalar_dtype
+
+    out = []
+    for group in optimizer.param_groups:
+        on_device = group["capturable"] or group["fused"]
+        for p in group["params"]:
+            st = optimizer.state[p]
+            if not st:
+                st["step"] = torch.zeros((), dtype=_get_scalar_dtype(),
+                                         device=p.device if on_device else None)
+                st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                if group["amsgrad"]:
+                    st["max_exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            out.extend(v for v in st.values() if isinstance(v, torch.Tensor))
+    return out
+
+
+class TrainProgram:
+    """A train step as device programs (the JAX package's jitted step,
+    ``unimedvl_tpu/training/trainer.py:270``), over static buffers:
+
+    - the gradients: one preallocated tensor per trained parameter, bound as
+      its ``.grad`` (on a mesh, views into one flat buffer per dtype of the
+      leaves summed over "data", so that their all-reduce needs no copy);
+    - a "train" graph per bucket (:class:`_TrainBucket`; a bucket is fixed
+      by T, every padded list's length, the ViT's [N, max_n] and which keys
+      the sequence has): one sequence's forward and the backward of ``w ·
+      loss_i`` (w = 1 / B) adding into the gradients, with the loss and the
+      batch-norm statistics summed on the device; replayed once per
+      sequence of a call (B × ``accum_steps`` times), its inputs and noise
+      copied into its buffers before each replay;
+    - an "update" graph: the gradients times 1 / ``accum_steps``, on a mesh
+      their sums over the axes they are replicated over (and the loss's and
+      the statistics'), the optimizer's AdamW (on a card built capturable,
+      its step count on the card: :func:`make_optimizer`'s fused one there),
+      the gradients zeroed in place, the EMA as in-place ops,
+      and the new batch-norm state chosen on the device (the eager step's
+      host test of each accumulated batch's count).
+
+    Each graph's warm-up is the call's real work: the first sequence of a
+    bucket and the first update run eagerly on the capture stream, then the
+    capture records them, so the capturing call computes what a replay
+    computes. The flow noise is drawn outside the graphs from the caller's
+    generator, in the eager step's shapes and order ([real rows, 64] a
+    sequence), into a bucket's noise buffer, whose padding rows are zero;
+    injected ``noises`` are copied in. A trained parameter that a call's
+    sequences do not reach gets a zero gradient, as in the JAX step (the
+    eager step leaves it out of that update).
+
+    The program is keyed by its step, the weights (``programs.weights_key``),
+    the optimizer's and the EMA's tensors and the mesh; its graphs share the
+    "train" graph pool, freed when the step is dropped."""
+
+    def __init__(self, state: TrainState, accum_steps: int, ema_decay: Optional[float],
+                 device: torch.device):
+        model = state.model
+        self.model = programs.model_ref(model)
+        self.device, self.accum_steps, self.ema_decay = device, accum_steps, ema_decay
+        self.optimizer = state.optimizer
+        self.mesh = state.mesh
+        self.params = [p for g in state.optimizer.param_groups for p in g["params"]]
+        names = {id(p): n for n, p in model.named_parameters()}
+        self.names = [names[id(p)] for p in self.params]
+        self.grads, self._flats = self._gradient_buffers(state.fsdp)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.loss_sum, self.loss_out = torch.zeros((), **f32), torch.zeros((), **f32)
+        self.weight = torch.ones((), **f32)
+        self.group = torch.zeros(1, dtype=torch.int64, device=device)
+        self.bn = None
+        if state.bn_state is not None:
+            z = state.bn_state.mean.shape[-1]
+            self.bn = BatchNormState(mean=state.bn_state.mean.clone(),
+                                     var=state.bn_state.var.clone())
+            self.bn_sums = torch.zeros((accum_steps, 2 * z + 1), **f32)
+        self.ema = None
+        if ema_decay is not None:
+            self.ema = [state.ema_params[n] for n in self.names]
+        self.update = programs.Graph("update", self._update, device, training=True)
+
+    @classmethod
+    def get(cls, step: TrainStep, state: TrainState, device: torch.device) -> "TrainProgram":
+        model = state.model
+        opt = _adam_state(state.optimizer)
+        ema = [] if state.ema_params is None else list(state.ema_params.values())
+        key = ("train", id(step), step.accum_steps, step.ema_decay, state.bn_state is not None,
+               state.fsdp, programs.weights_key(model), programs.tensors_key(opt),
+               programs.tensors_key(ema), programs.mesh_key(model))
+        return programs.lookup(
+            key, lambda: cls(state, step.accum_steps, step.ema_decay, device),
+            reads=(model, opt, ema), owner=step)
+
+    def graphs(self):
+        return [self.update]
+
+    def release(self) -> None:
+        """Unbind the static gradients (dropped with the program)."""
+        for p, g in zip(self.params, self.grads):
+            if p.grad is g:
+                p.grad = None
+
+    def _gradient_buffers(self, fsdp: bool):
+        """(one gradient tensor per trained parameter, the flat buffers of
+        those summed over "data": [(dtype, flat, their indexes)])."""
+        from unimedvl_tpu_torch.parallel.mesh import axis_group, fsdp_dim
+
+        grads = [None] * len(self.params)
+        flats = []
+        if axis_group(self.mesh, "data") is not None:
+            summed = [i for i, n in enumerate(self.names) if not (fsdp and fsdp_dim(n) is not None)]
+            for dtype in sorted({self.params[i].dtype for i in summed}, key=str):
+                idx = [i for i in summed if self.params[i].dtype == dtype]
+                flat = torch.zeros(sum(self.params[i].numel() for i in idx), dtype=dtype,
+                                   device=self.device)
+                for i, part in zip(idx, flat.split([self.params[i].numel() for i in idx])):
+                    grads[i] = part.view(self.params[i].shape)
+                flats.append((dtype, flat, idx))
+        for i, p in enumerate(self.params):
+            if grads[i] is None:
+                grads[i] = torch.zeros_like(p, memory_format=torch.contiguous_format)
+        return grads, flats
+
+    def _bind(self) -> None:
+        """Make the static gradients the parameters' ``.grad``; if a
+        parameter held another (an eager pass in between, which may also
+        have added into a static one), zero them first."""
+        stray = False
+        for p, g in zip(self.params, self.grads):
+            if p.grad is not g:
+                stray = True
+                p.grad = g
+        if stray:
+            torch._foreach_zero_(self.grads)
+
+    def run(self, state: TrainState, batches, generator=None, noises=None) -> torch.Tensor:
+        """One call of the step: every sequence through its bucket's graph,
+        then the update; returns the mean loss (a new 0-dim tensor)."""
+        self._bind()
+        if self.bn is not None:
+            self.bn.mean.copy_(state.bn_state.mean)
+            self.bn.var.copy_(state.bn_state.var)
+        for gi, (b, nz) in enumerate(_accum_batches(batches, noises, self.accum_steps)):
+            seqs, nz, B = _rank_sequences(b, nz, generator, self.mesh)
+            seqs = prepared(seqs, self.device, True, pin=self.device.type == "cuda")
+            self.weight.fill_(1.0 / B)
+            self.group.fill_(gi)
+            for i, seq in enumerate(seqs):
+                noise = nz[i] if nz is not None else None
+                if noise is None and "vae_clean_tokens" in seq:
+                    if generator is None:
+                        raise ValueError("the flow noise is an input: pass noises=, or a "
+                                         "torch.Generator to draw it from")
+                    noise = torch.randn(_noise_shape(seq),
+                                        generator=generator, dtype=torch.float32,
+                                        device=generator.device)
+                with torch.profiler.record_function("train.sequence"):
+                    _TrainBucket.get(self, seq).run(seq, noise)
+        with torch.profiler.record_function("train.update"):
+            self.update.replay()
+        if self.bn is not None:
+            state.bn_state = BatchNormState(mean=self.bn.mean.clone(), var=self.bn.var.clone())
+        return self.loss_out.clone()
+
+    def _update(self) -> None:
+        with torch.no_grad():
+            if self.accum_steps > 1:
+                torch._foreach_mul_(self.grads, 1.0 / self.accum_steps)
+                self.loss_sum.mul_(1.0 / self.accum_steps)
+            if self.mesh is not None:
+                self._reduce()
+            self.optimizer.step()
+            torch._foreach_zero_(self.grads)
+            self.loss_out.copy_(self.loss_sum)
+            self.loss_sum.zero_()
+            if self.ema is not None:
+                d = self.ema_decay
+                for e, p in zip(self.ema, self.params):
+                    e.mul_(d).add_(p.to(e.dtype), alpha=1.0 - d)
+            if self.bn is not None:
+                self._choose_bn()
+
+    def _reduce(self) -> None:
+        """The eager step's ``reduce_gradients``, ``_reduce_loss`` and
+        ``_reduce_bn`` sums over the fixed buffers: the gradients of the
+        leaves that are not FSDP shards over "data" (one all-reduce a flat
+        buffer), the q / k norms' also over "model", the loss and the
+        statistics over "data"."""
+        from unimedvl_tpu_torch.parallel.mesh import axis_group, model_partial
+
+        mesh = self.mesh
+        for _, flat, _ in self._flats:
+            mesh.all_reduce(flat, "data")
+        if axis_group(mesh, "model") is not None:
+            part = [g for g, n in zip(self.grads, self.names) if model_partial(n)]
+            for dtype in sorted({g.dtype for g in part}, key=str):
+                group = [g for g in part if g.dtype == dtype]
+                flat = torch.cat([g.reshape(-1) for g in group])
+                mesh.all_reduce(flat, "model")
+                for g, v in zip(group, flat.split([g.numel() for g in group])):
+                    g.copy_(v.view(g.shape))
+        if axis_group(mesh, "data") is not None:
+            mesh.all_reduce(self.loss_sum.view(1), "data")
+            if self.bn is not None:
+                mesh.all_reduce(self.bn_sums, "data")
+
+    def _choose_bn(self) -> None:
+        """The new batch-norm state: per accumulated batch the mean over its
+        sequences with latent rows, then the mean over the batches that had
+        any; the old state where none had."""
+        z = self.bn.mean.shape[-1]
+        count = self.bn_sums[:, 2 * z]
+        have = (count > 0).to(torch.float32)[:, None]
+        k = have.sum()
+        per = self.bn_sums[:, :2 * z] / count.clamp(min=1)[:, None]
+        new = (per * have).sum(dim=0) / k.clamp(min=1)
+        self.bn.mean.copy_(torch.where(k > 0, new[:z], self.bn.mean))
+        self.bn.var.copy_(torch.where(k > 0, new[z:], self.bn.var))
+        self.bn_sums.zero_()
+
+
+class _TrainBucket:
+    """One bucket of a :class:`TrainProgram`: its static inputs (a
+    ``PaddedSequence`` of the bucket's shapes), its noise buffer and its
+    "train" graph."""
+
+    def __init__(self, prog: TrainProgram, seq):
+        self.prog = weakref.ref(prog)  # the program drops its buckets when it goes
+        self.inputs = bagel.PaddedSequence({k: torch.empty_like(v) for k, v in seq.items()})
+        self.noise = None
+        if "vae_clean_tokens" in seq:
+            self.noise = torch.zeros(seq["vae_clean_tokens"].shape, dtype=torch.float32,
+                                     device=prog.device)
+        self.graph = programs.Graph("train", self._body, prog.device, training=True)
+
+    @staticmethod
+    def key(seq) -> tuple:
+        return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(seq.items()))
+
+    @classmethod
+    def get(cls, prog: TrainProgram, seq) -> "_TrainBucket":
+        return programs.lookup(("train-bucket", id(prog), cls.key(seq)), lambda: cls(prog, seq),
+                               reads=(prog.model(),), owner=prog, family="train")
+
+    def graphs(self):
+        return [self.graph]
+
+    def run(self, seq, noise) -> None:
+        for k, v in seq.items():
+            self.inputs[k].copy_(v, non_blocking=True)
+        self.inputs.vae_rows = seq.vae_rows
+        if self.noise is not None:
+            n = seq.vae_rows
+            if noise is not None and tuple(noise.shape) == tuple(self.noise.shape):
+                self.noise.copy_(noise)
+            else:
+                self.noise[:n].copy_(noise)
+                self.noise[n:].zero_()
+        self.graph.replay()
+
+    def _body(self) -> None:
+        prog = self.prog()
+        out = bagel.train_forward(prog.model(), self.inputs, noise=self.noise, bn_state=prog.bn)
+        (out["loss"] * prog.weight).backward()
+        with torch.no_grad():
+            prog.loss_sum.add_(out["loss"].detach() * prog.weight)
+            if "bn_state" in out:
+                st, have = out["bn_state"], (out["bn_rows"] > 0).to(torch.float32)
+                row = torch.cat([st.mean.float() * have, st.var.float() * have, have[None]])
+                prog.bn_sums.index_add_(0, prog.group, row[None])
 
 
 def _reduce_bn(mesh, parts, bn_state: BatchNormState) -> Optional[BatchNormState]:
