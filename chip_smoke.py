@@ -10,7 +10,8 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
 - the generation path: a 512x512 text-to-image request and a 512x512 image
   edit through ``interleave_inference`` with the recipe's defaults (50
   timesteps, CFG text 3.0 and image 1.5 on the interval (0.4, 1.0], global
-  renorm);
+  renorm); the VAE decode of the text-to-image latent by its captured
+  program against the eager decode (within 1 per pixel);
 - the quantized chat path, the LLM quantized on the card with an int8 KV
   cache and fused projections: full-int8 (the three chat requests), w4a8
   per channel and w4a8 with groups of 512 (one request each), weight-only w4
@@ -87,7 +88,10 @@ PyTorch version at the paths' shapes, then, with the full 14B geometry
   and 4 (``check_shard_shapes``; K5 at a TP-2 rank's 14 / 2 heads);
 - training on a mesh (run K, M13's training side) at the full width and the
   fine-tune's depth: the TP x DP step on a one-rank NCCL mesh, bit-equal to
-  the step without a mesh; then over two processes sharing the card (gloo,
+  the step without a mesh; the GPipe step on a one-rank NCCL ("data",
+  "pipe", "model") mesh by its program (one "pipeline" graph: the schedule,
+  its broadcasts and the reverse schedule), held to the eager step and
+  replayed on new inputs; then over two processes sharing the card (gloo,
   each building only its shard of the same seeded weights) a TP-2 step, an
   FSDP step over two data ranks and a GPipe step over two stages, each held
   to the one-rank step's loss and gradients at a bound set from the floor
@@ -3626,12 +3630,19 @@ class SPStepTimer(StepTimer):
 
 
 def _gen_request(inf: InterleaveInferencer, inputs, **kw):
-    """One interleave_inference request; returns (image, row of timings)."""
+    """One interleave_inference request; returns (image, row of timings).
+    The row's ``latent`` is the final latent tokens, as ``decode_image``
+    (wrapped here) took them: the decode is a program on the card, whose
+    replay no module hook sees."""
     timer_cls = StepTimer if inf.sp_mesh is None else SPStepTimer
     timer = timer_cls(inf.model.language_model.model)
-    decoded = []
-    hook = inf.model.vae_model.decoder.register_forward_hook(
-        lambda m, a, out: decoded.append((a[0].detach(), out.detach())))
+    decoded, decode_image, wrapped = [], inf.decode_image, inf.__dict__.get("decode_image")
+
+    def keeping(latent, shape):
+        decoded.append(latent.detach().clone())
+        return decode_image(latent, shape)
+
+    inf.decode_image = keeping
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3640,12 +3651,16 @@ def _gen_request(inf: InterleaveInferencer, inputs, **kw):
         t_end = time.perf_counter()
     finally:
         timer.remove()
-        hook.remove()
+        if wrapped is None:
+            del inf.__dict__["decode_image"]
+        else:
+            inf.decode_image = wrapped
     image = out[-1]
-    z, pixels = decoded[-1]
+    z = decoded[-1]
     if (getattr(image, "size", None) != GEN_SIZE[::-1] or image.mode != "RGB"
-            or not bool(torch.isfinite(z).all()) or not bool(torch.isfinite(pixels).all())):
-        raise SystemExit(f"chip_smoke: generation returned {image!r}, or non-finite latents")
+            or not bool(torch.isfinite(z).all()) or np.asarray(image).std() == 0):
+        raise SystemExit(f"chip_smoke: generation returned {image!r}, non-finite latents or a "
+                         "blank image")
     steps = timer.steps
     dur = [(b[0] if i + 1 < len(steps) else a[1]) - a[0]
            for i, (a, b) in enumerate(zip(steps, steps[1:] + steps[-1:]))]
@@ -3696,6 +3711,47 @@ def check_gen_against_eager(inf: InterleaveInferencer, path: str, requests, stat
     check_counts(f"{path} (eager)", expected())
 
 
+def check_vae_decode(inf: InterleaveInferencer, latent: torch.Tensor) -> dict:
+    """The 512x512 VAE decode of ``latent`` (the text-to-image request's
+    final latent tokens) by its program against the eager decode: the
+    program dropped and captured anew, then replayed, then the eager decode
+    (its decoder's output finite); the images within 1 per uint8 pixel.
+    Prints s per decode both ways, the capture's, and the shared graph
+    pool's bytes before and after the capture (its fp32 activations)."""
+    h, w = (s // inf.cfg.latent_downsample for s in GEN_SIZE)
+    programs.drop_reading(inf.model.vae_model)  # the VAE's programs: the decode and the encodes
+    pool_before = programs.pool_bytes()
+    caps = programs.stats["captures"]
+
+    def timed(graphs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image = bagel.decode_latent_to_image(inf.model, latent, h, w, graphs=graphs)
+        torch.cuda.synchronize()
+        return image, time.perf_counter() - t0
+
+    _, capture_s = timed(None)
+    got, graphed_s = timed(None)
+    captured = programs.stats["captures"] - caps
+    finite = []
+    hook = inf.model.vae_model.decoder.register_forward_hook(
+        lambda m, a, out: finite.append(bool(torch.isfinite(out).all())))
+    try:
+        want, eager_s = timed(False)
+    finally:
+        hook.remove()
+    px = int((got.int() - want.int()).abs().max())
+    row = dict(card=CARD, vae_decode_s_graphed=graphed_s, vae_decode_s_eager=eager_s,
+               capture_call_s=capture_s, captures=captured, max_abs_pixel_diff=px,
+               shared_pool_bytes_before=pool_before, shared_pool_bytes_after=programs.pool_bytes())
+    print(f"  VAE decode {GEN_SIZE[0]}x{GEN_SIZE[1]}, program vs eager on the text-to-image "
+          f"latent: {json.dumps(row)}", flush=True)
+    if captured != 1 or px > 1 or finite != [True]:
+        raise SystemExit("chip_smoke: the VAE decode's program disagrees with the eager decode, "
+                         "or did not capture once, or the decoder's output is not finite")
+    return row
+
+
 def _edit_image() -> np.ndarray:
     rng = np.random.default_rng(SEED + 2)
     return rng.integers(0, 256, (*GEN_SIZE, 3), dtype=np.uint8)
@@ -3735,6 +3791,8 @@ def run_generation(inf: InterleaveInferencer):
     }
     path = "the sequence-parallel denoise path" if sp else "the generation path"
     launches = check_counts(path, expected)
+    if not sp:
+        check_vae_decode(inf, outs["text-to-image"][1]["latent"])
     if not sp:  # the sequence-parallel denoise runs eagerly
         # the eager comparison on the text-to-image request (the smoke's time)
         check_gen_against_eager(inf, path, requests[:1], states[:1], outs, lambda: {
@@ -5484,17 +5542,17 @@ def _forward_loss(model, taken, noises, bn_state=None) -> float:
 
 
 def _gate_replay(path: str, i: int, loss: float, want: float, captured: int, taken,
-                 before) -> None:
+                 before, rtol: float = REPLAY_LOSS_RTOL) -> None:
     """A step after the first: it replayed the first step's graphs (none
     captured) on batches with new values (``before``: the step's before), and
     its loss is the eager forward's on the same batches, parameters and
-    noise (``want``) within REPLAY_LOSS_RTOL."""
+    noise (``want``) within ``rtol``."""
     new = sorted({k for b, p in zip(taken, before) for k in b[0]
                   if not torch.equal(b[0][k], p[0][k])})
     print(f"  {path}, step {i}: {captured} graphs captured, inputs with new values {new}; loss "
           f"{loss:.6f} vs the eager forward's {want:.6f} on the same batch, parameters and noise "
           f"(rel {abs(loss - want) / abs(want):.2e})", flush=True)
-    if captured or not new or not abs(loss - want) <= REPLAY_LOSS_RTOL * abs(want):
+    if captured or not new or not abs(loss - want) <= rtol * abs(want):
         raise SystemExit(f"chip_smoke: {path}: step {i} did not replay its graphs on new values "
                          "to the eager forward's loss")
 
@@ -5842,6 +5900,8 @@ MESH_WATCH = (
     "vit_model.vision_model.encoder.layers.0.mlp.fc1.weight",
 )
 MESH_DTYPE = torch.bfloat16
+# the one-rank NCCL pipeline program's replays on new inputs against the eager forward's loss
+PIPE_REPLAY_RTOL = 1e-5
 MESH_PROGRAMS = (  # name, axes, sizes, options
     dict(name="TP 2", axes=("data", "model"), sizes=(1, 2)),
     dict(name="FSDP over 2 data ranks", axes=("data", "model"), sizes=(2, 1), fsdp=True),
@@ -5971,12 +6031,83 @@ def _one_rank_nccl_step(model, padded, noises, tmp) -> dict:
         "packed_train_attention_bwd_dkv": n})
 
 
+def _one_rank_pipeline_step(batches, noises, tmp) -> dict:
+    """The GPipe step (``make_pp_train_step``) on a stage model of a one-rank
+    NCCL ("data", "pipe", "model") mesh (``place_params_pp`` of the seeded
+    model; every axis's collectives inside the graphs), MESH_SEQS
+    microbatches: the first step by its program, gated against the same
+    step run eagerly on a model built anew from the seed
+    (:func:`_gate_against_eager` over MESH_WATCH); then MESH_STEPS program
+    steps on ``batches[k]`` (``train_examples(variant=k)``: the first's
+    bucket, new values, the noise drawn by the step), each capturing nothing
+    and its loss the eager forward's within PIPE_REPLAY_RTOL. ``noises``:
+    the first batch's. Returns K5's launches (the program's steps and the
+    eager step; layers x microbatches x 2 forward, 1 dq, 1 dk/dv each)."""
+    from unimedvl_tpu_torch.parallel.pp_train import place_params_pp
+
+    mesh = one_rank_mesh(("data", "pipe", "model"), tmp)
+    reset_counts()
+    path = "the one-rank NCCL pipeline step"
+    rows, moments = {}, None
+    for graphs in (None, False):
+        model = place_params_pp(build_trainable(FT_LAYERS, False), mesh)
+        step, init_state = trainer.make_pp_train_step(model.whole_config, model, mesh,
+                                                      graphs=graphs)
+        state = init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        caps, cap_s = programs.stats["captures"], programs.stats["capture_s"]
+        walls, losses = [], []
+        t0 = time.perf_counter()
+        state, loss = step(state, batches[0], noises=noises)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+        route = "eager" if graphs is False else "graphed"
+        if graphs is None:
+            moments = {n: m.clone() for n, m in _moments(state, MESH_WATCH).items()}
+            g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+            for k in range(1, 1 + MESH_STEPS):
+                twin = torch.Generator(device=DEVICE)
+                twin.set_state(g.get_state())
+                want = _uncounted(lambda: _forward_loss(model, [batches[k]],
+                                                        [_draw_noises(batches[k], twin)]))
+                before = programs.stats["captures"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step(state, batches[k], generator=g)
+                losses.append(float(loss))
+                walls.append(time.perf_counter() - t0)
+                _gate_replay(path, k, losses[-1], want, programs.stats["captures"] - before,
+                             [batches[k]], [batches[k - 1]], rtol=PIPE_REPLAY_RTOL)
+        else:
+            _gate_against_eager(path, rows["graphed"]["losses"][0], losses[0], moments,
+                                _moments(state, MESH_WATCH),
+                                state.optimizer.param_groups[0]["betas"][0], watch=MESH_WATCH)
+        rows[route] = dict(card=CARD, losses=losses, walls_s=walls,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                           captures=programs.stats["captures"] - caps,
+                           capture_s=programs.stats["capture_s"] - cap_s,
+                           train_pool_bytes=programs.pool_bytes(pool="train"))
+        print(f"  {path} {route} ({MESH_SEQS} microbatches, {FT_LAYERS} layers): "
+              f"{json.dumps(rows[route])}", flush=True)
+        del model, state, step, init_state
+        programs.drop_all()
+        gc.collect()
+        torch.cuda.empty_cache()
+    n = len(batches[0]) * FT_LAYERS * (2 + MESH_STEPS)
+    return check_counts(path, {"packed_train_attention_fwd": 2 * n,
+                               "packed_train_attention_bwd_dq": n,
+                               "packed_train_attention_bwd_dkv": n})
+
+
 def run_mesh_training(tok, new_token_ids, tmp: str) -> dict:
     """Run K: training on a mesh at the full width and FT_LAYERS layers, bf16.
     The one-rank reference first (the gradient step of MESH_SEQS packed
     sequences of FT_SEQ_LEN with the kernels, and with the plain versions:
     the floor), then the TP x DP step on a one-rank NCCL mesh against the
-    step without a mesh (bit for bit), then one spawn of two processes on
+    step without a mesh (bit for bit), the pipeline program on a one-rank
+    NCCL mesh against its eager step (:func:`_one_rank_pipeline_step`), then
+    one spawn of two processes on
     this card (gloo) running the programs of MESH_PROGRAMS in turn: each
     builds its shard of the same seeded weights, takes the gradient step and
     MESH_STEPS more. Gates per program: the loss and every watched
@@ -5989,11 +6120,13 @@ def run_mesh_training(tok, new_token_ids, tmp: str) -> dict:
 
     model = build_trainable(FT_LAYERS, False)
     trainer.set_trainable(model)
-    it = train_batches(model, tok, new_token_ids, False, FT_SEQ_LEN, per_step=MESH_SEQS)
-    try:
-        padded = [s for _ in range(MESH_SEQS) for s in next(it)]
+    it = train_batches(model, tok, new_token_ids, False, FT_SEQ_LEN, 1 + MESH_STEPS, MESH_SEQS)
+    try:  # the first step's batch, and the pipeline program's later steps' (new values)
+        steps = [[s for _ in range(MESH_SEQS) for s in next(it)]
+                 for _ in range(1 + MESH_STEPS)]
     finally:
         it.close(wait=True)
+    padded = steps[0]
     seqs = trainer.prepared(padded, DEVICE, False)
     noises = _draw_noises(seqs, torch.Generator(device=DEVICE).manual_seed(SEED + 9))
     ids = _embed_ids(seqs)
@@ -6016,6 +6149,8 @@ def run_mesh_training(tok, new_token_ids, tmp: str) -> dict:
     del plain
     paths = [_one_rank_nccl_step(model, padded, noises, tmp)]
     del model, padded
+    paths.append(_one_rank_pipeline_step(steps, noises, tmp))
+    del steps
     host_seqs = [{k: v.cpu() for k, v in q.items()} for q in seqs]
     host_noises = [None if n is None else n.cpu() for n in noises]
     del seqs, noises

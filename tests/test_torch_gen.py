@@ -333,6 +333,27 @@ class TestVAE:
         assert got.dtype == np.uint8 and got.shape == want.shape == (32, 32, 3)
         assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
+    def test_decode_latent_to_image_program(self, pair):
+        """The decode as a program (``graphs=True``: its plain route over the
+        static buffers) equals the eager decode bit for bit and the JAX
+        decode as above; two latents of one size share one program (the
+        second replays it), another size builds a second."""
+        from unimedvl_tpu_torch.inference import programs
+
+        params, model = pair
+        programs.drop_all()
+        rng = np.random.default_rng(14)
+        for h, w in ((4, 4), (4, 4), (2, 6)):
+            tokens = _rand(rng, h * w, CFG.patch_latent_dim)
+            want = np.asarray(jbagel.decode_latent_to_image(params, CFG, jnp.asarray(tokens), h, w))
+            eager = bagel.decode_latent_to_image(model, _t(tokens), h, w, graphs=False)
+            got = bagel.decode_latent_to_image(model, _t(tokens), h, w, graphs=True)
+            assert got.dtype == torch.uint8 and got.shape == want.shape == (8 * h, 8 * w, 3)
+            assert torch.equal(got, eager)
+            assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 1
+        assert sum(isinstance(p, bagel.PrefillProgram) for p in programs.programs()) == 2
+        programs.drop_all()
+
     @pytest.mark.parametrize("prefix", ["", "module."])
     def test_load_ae_matches_jax_converter(self, tmp_path, prefix):
         """A synthetic ae.safetensors under the released names (with and

@@ -1623,6 +1623,27 @@ def test_context_prefill_programs_captured_equal_eager(gen, quantized):
     assert g_counts[2] == 5  # text, ViT, VAE prefill, an encode for each geometry
 
 
+def test_vae_decode_program_captured_equals_eager(gen):
+    """The VAE decode as a captured program against the eager decode, bit
+    for bit: two latents of one size (one capture, then a replay on new
+    values) and a second size (a second program)."""
+    from unimedvl_tpu_torch.inference import programs
+    from unimedvl_tpu_torch.models import bagel
+
+    programs.drop_all()
+    model = _prefill_model()
+    width = model.config.patch_latent_dim
+    caps = programs.stats["captures"]
+    for h, w in ((4, 4), (4, 4), (2, 6)):
+        tokens = torch.randn(h * w, width, generator=gen, device="cuda")
+        want = bagel.decode_latent_to_image(model, tokens, h, w, graphs=False)
+        got = bagel.decode_latent_to_image(model, tokens, h, w)
+        assert got.dtype == torch.uint8 and got.shape == want.shape
+        assert torch.equal(got, want)
+    assert programs.stats["captures"] - caps == 2
+    programs.drop_all()
+
+
 @pytest.mark.parametrize("quantized", [False, True], ids=["bf16_pool", "int8_pool"])
 def test_admission_programs_captured_equal_eager(gen, quantized):
     """The batcher's admission blocks as captured programs against the eager
@@ -1920,11 +1941,22 @@ def _train_kind(kind, mesh=None, cpu=False):
         lora.add_lora(model, torch.Generator(device="cuda").manual_seed(3), rank=4)
     if cpu:
         model = model.float().cpu()
-    if mesh is not None:
+    if kind == "pipe":  # the GPipe step; on the CPU over a mesh without groups
+        from unimedvl_tpu_torch.parallel.pp_train import place_params_pp
+
+        axes = ("data", "pipe", "model")
+        mesh = mesh or pmesh.Mesh(axes, {a: 1 for a in axes}, 0, {a: 0 for a in axes},
+                                  {a: None for a in axes})
+        model = place_params_pp(model, mesh)
+    elif mesh is not None:
         model = pmesh.place_params(model, mesh)
     cfg = getattr(model, "whole_config", model.config)
 
     def make(graphs):
+        if kind == "pipe":
+            step, init = trainer.make_pp_train_step(cfg, model, mesh, ema_decay=0.9,
+                                                    graphs=graphs)
+            return step, init()
         if kind == "full":
             step, init = trainer.make_train_step(cfg, model, accum_steps=2, ema_decay=0.9,
                                                  mesh=mesh, graphs=graphs)
@@ -2055,3 +2087,20 @@ def test_mesh_train_program_captured_equals_its_bodies_and_the_eager_step(gen, n
     first, collectives = _graphed_against_bodies(lambda: _train_kind("full", mesh), "full")
     assert collectives > 0 and programs.stats["collective_captures"] > before
     _held_to_floor("full", lambda: _train_kind("full", mesh), first)
+
+
+def test_pipeline_train_program_captured_equals_its_bodies_and_the_eager_step(gen, nccl_group):
+    """The GPipe step (``make_pp_train_step``, the EMA) on a stage model of a
+    one-rank NCCL ("data", "pipe", "model") mesh, M = 2 microbatches: its
+    "pipeline" graph (the embedding, the schedule with its broadcasts over
+    "pipe", the losses and the reverse schedule's nested backward) and its
+    update graph against its bodies, bit for bit over three calls with as
+    many collectives a call; its first call within the floor of the
+    stripped eager pipeline step."""
+    from unimedvl_tpu_torch.inference import programs
+
+    mesh = _nccl_mesh(("data", "pipe", "model"))
+    before = programs.stats["collective_captures"]
+    first, collectives = _graphed_against_bodies(lambda: _train_kind("pipe", mesh), "pipe")
+    assert collectives > 0 and programs.stats["collective_captures"] > before
+    _held_to_floor("pipe", lambda: _train_kind("pipe", mesh), first)

@@ -177,9 +177,9 @@ class InterleaveInferencer:
         ``graphs``: the route of the context builds (the text, ViT and VAE
         prefills and the VAE encode), of the answer decodes (``gen_text``,
         greedy or sampled, kept in the context or not, speculative or not),
-        of ``gen_text_stream``'s chunks and of the flow loop
-        (``inference.programs.use_graphs``): by default, on a CUDA device,
-        the captured device programs (``bagel.PrefillProgram``,
+        of ``gen_text_stream``'s chunks, of the flow loop and of the VAE
+        decode (``inference.programs.use_graphs``): by default, on a CUDA
+        device, the captured device programs (``bagel.PrefillProgram``,
         ``bagel.DecodeProgram``, ``bagel.SpecProgram``,
         ``serving.ChunkProgram``, ``bagel.FlowProgram``, and the
         sequence-parallel denoise's ``sp_denoise.SPProgram``); on a
@@ -807,7 +807,8 @@ class InterleaveInferencer:
 
         H, W = image_shape
         ld = self.cfg.latent_downsample
-        img = bagel.decode_latent_to_image(self.model, latent_tokens, H // ld, W // ld)
+        img = bagel.decode_latent_to_image(self.model, latent_tokens, H // ld, W // ld,
+                                           graphs=self.graphs)
         return Image.fromarray(img.cpu().numpy())
 
     def gen_image(

@@ -54,9 +54,9 @@ this module holds what they share:
   program that copies in at each call.
 
 The prefills (``bagel.PrefillProgram``: the text, ViT and VAE context
-builds, the VAE encode, the batcher's admission blocks) are programs of
-one graph and no loop: their inputs, row counts and rope positions
-included, are copied into static buffers at every call.
+builds, the VAE encode and decode, the batcher's admission blocks) are
+programs of one graph and no loop: their inputs, row counts and rope
+positions included, are copied into static buffers at every call.
 
 A rank's model of a mesh (``parallel.mesh``) runs the same programs when
 every group of its mesh is NCCL (:func:`use_graphs`): ProcessGroupNCCL
@@ -71,7 +71,8 @@ launches; ``stats["collective_captures"]`` counts the captures that hold
 any. The sequence-parallel denoise's flow step is
 ``parallel.sp_denoise.SPProgram``.
 
-The training steps (``training.trainer.TrainProgram``) are programs whose
+The training steps (``training.trainer.TrainProgram``, and
+``PipelineProgram`` for the pipeline-parallel step) are programs whose
 graphs are ``Graph(training=True)``: the warm-up is the call's real work (a
 "train" graph's first run is the sequence it is given, an "update" graph's
 the call's update), so nothing is put back and the capture only records;

@@ -397,7 +397,7 @@ class PrefillProgram:
       which the function zeroes and fills (the batcher's admission blocks,
       which the eager route creates anew), returned; valid until the
       program's next call.
-    - None: no cache (the VAE encode); the result is a tensor of
+    - None: no cache (the VAE encode and decode); the result is a tensor of
       ``out = (shape, dtype)``, returned as a copy.
 
     The graph writes only where the eager function writes, and its warm-up
@@ -1636,12 +1636,8 @@ class FlowProgram:
         return self.x_t.clone()
 
 
-@torch.no_grad()
-def decode_latent_to_image(
-    model: Bagel, latent_tokens: torch.Tensor, latent_h: int, latent_w: int
-) -> torch.Tensor:
-    """Unpatchify, VAE decode, denormalize: latent tokens [n, p*p*z] ->
-    uint8 [H, W, 3] on their device (inferencer.py:234-256)."""
+def _decode_latent_to_image(model: Bagel, latent_tokens, latent_h: int,
+                            latent_w: int) -> torch.Tensor:
     cfg = model.config
     p, c = cfg.latent_patch_size, cfg.latent_channel
     z = latent_tokens.float().reshape(latent_h, latent_w, p, p, c).permute(4, 0, 2, 1, 3)
@@ -1649,6 +1645,28 @@ def decode_latent_to_image(
     img = model.vae_model.decode(z)[0].permute(1, 2, 0)  # [H, W, 3] in [-1, 1]
     img = torch.clamp(img.float() * 0.5 + 0.5, 0.0, 1.0) * 255.0
     return img.to(torch.uint8)
+
+
+@torch.no_grad()
+def decode_latent_to_image(
+    model: Bagel, latent_tokens: torch.Tensor, latent_h: int, latent_w: int,
+    graphs: Optional[bool] = None,
+) -> torch.Tensor:
+    """Unpatchify, VAE decode, denormalize: latent tokens [n, p*p*z] ->
+    uint8 [H, W, 3] on their device (inferencer.py:234-256). ``graphs`` as
+    for :func:`encode_vae_latent_tokens`: by default on a CUDA device a
+    :class:`PrefillProgram` (the JAX package jits the decode per latent
+    size), one per ``(latent_h, latent_w)`` and token dtype, the tokens
+    copied into its buffer; the image is returned as a new tensor."""
+    ld = model.config.latent_downsample
+    out = ((latent_h * ld, latent_w * ld, 3), torch.uint8)
+
+    def fn(model, _cache, latent_tokens):
+        return _decode_latent_to_image(model, latent_tokens, latent_h, latent_w)
+
+    return _prefill("vae_decode", model, fn, (model.vae_model,),
+                    dict(latent_tokens=latent_tokens), None, graphs, None, {}, out=out,
+                    bake=(int(latent_h), int(latent_w)))
 
 
 # ---------------------------------------------------------------------------

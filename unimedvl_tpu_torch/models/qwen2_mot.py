@@ -766,11 +766,8 @@ def forward_train(
     time and the layer's forward, its attention kernel included, runs twice."""
     cfg = model.cfg
     body = make_train_layer_body(cfg, position_ids, mask, und_idx, gen_idx, segments=segments)
-    if cfg.freeze_und:  # the understanding rows enter detached (a padding slot marks the sink)
-        T = packed_x.shape[0]
-        und = torch.zeros(T + 1, dtype=torch.bool, device=packed_x.device)
-        und = und.index_fill_(0, und_idx, True)[:T, None]
-        packed_x = torch.where(und, packed_x.detach(), packed_x)
+    if cfg.freeze_und:  # the understanding rows enter detached
+        packed_x = detach_rows(packed_x, und_idx)
     remat = cfg.remat and torch.is_grad_enabled()
     h, features = packed_x, None
     for i, layer in enumerate(model.layers):
@@ -784,6 +781,15 @@ def forward_train(
     if feature_layer is not None:
         return h, features
     return h
+
+
+def detach_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x`` [T, ...] with the rows ``idx`` detached (no gradient flows into
+    them); a padding slot of a padded list (index T) marks the sink."""
+    T = x.shape[0]
+    rows = torch.zeros(T + 1, dtype=torch.bool, device=x.device)
+    rows = rows.index_fill_(0, idx, True)[:T].reshape(T, *([1] * (x.dim() - 1)))
+    return torch.where(rows, x.detach(), x)
 
 
 def final_norm(model: Qwen2MoTModel, h: torch.Tensor, und_idx, gen_idx) -> torch.Tensor:

@@ -24,6 +24,13 @@ The hops are ``broadcast``s over the "pipe" group (gloo carries
 "data" axis each data slice runs its own pipeline over its ``M / dp``
 microbatches. ``L % S == 0`` and ``M % dp == 0`` are required; the
 diffusion feature tap is refused, as the JAX pipeline refuses it.
+
+On a CUDA device whose mesh groups are all NCCL the step
+(``training.trainer.make_pp_train_step``) runs the whole call as one
+captured graph (``training.trainer.PipelineProgram``) over padded
+microbatches: the embedding, this schedule, the losses and the reverse
+schedule, its nested backward on the capture's stream. Every buffer a hop
+broadcasts is allocated inside the call, never carried between calls.
 """
 
 from __future__ import annotations
@@ -178,9 +185,11 @@ def pipeline_layers(model, mesh: "pmesh.Mesh", xs: Sequence[torch.Tensor], seqs)
 
 def pipeline_loss_sum(model, mesh: "pmesh.Mesh", seqs, noises=None,
                       generator: Optional[torch.Generator] = None, bn_state=None):
-    """(sum of the losses of this data rank's microbatches ``seqs``, their
-    new batch-norm states): embedding and losses replicated on every stage,
-    the layer stack pipelined (:func:`pipeline_layers`). Differentiable."""
+    """(sum of the losses of this data rank's microbatches ``seqs``, each
+    one's ``bagel.train_losses`` outputs): embedding and losses replicated on
+    every stage, the layer stack pipelined (:func:`pipeline_layers`).
+    Differentiable. The microbatches may be stripped or padded
+    (``bagel.prepare_sequence(padded=True)``, the step's program)."""
     cfg = model.config
     if cfg.e2e is not None and cfg.e2e.diffusion_feature_layer is not None:
         raise ValueError("the diffusion feature tap is not available inside the pipeline; "
@@ -190,20 +199,26 @@ def pipeline_loss_sum(model, mesh: "pmesh.Mesh", seqs, noises=None,
         x, stash = bagel.train_embed(model, seq, None if noises is None else noises[i],
                                      generator, bn_state=bn_state)
         if cfg.llm.freeze_und:
-            x = x.index_copy(0, seq["und_idx"], x.index_select(0, seq["und_idx"]).detach())
+            x = mot.detach_rows(x, seq["und_idx"])
         xs.append(x)
         stashes.append(stash)
     hs = pipeline_layers(model, mesh, xs, seqs)
     lm = model.language_model.model
     total = torch.zeros((), dtype=torch.float32, device=xs[0].device)
-    new_bn = []
+    outs = []
     for seq, h, stash in zip(seqs, hs, stashes):
         h = mot.final_norm(lm, h, seq["und_idx"], seq["gen_idx"])
-        out = bagel.train_losses(model, seq, h, stash)
-        total = total + out["loss"]
-        if "bn_state" in out:
-            new_bn.append(out["bn_state"])
-    return total, new_bn
+        outs.append(bagel.train_losses(model, seq, h, stash))
+        total = total + outs[-1]["loss"]
+    return total, outs
+
+
+def check_stage(model, cfg, mesh: "pmesh.Mesh") -> None:
+    """Refuse a model that does not hold exactly its stage's layers."""
+    _, n = stage_range(cfg.llm.num_hidden_layers, mesh)
+    if len(model.language_model.model.layers) != n:
+        raise ValueError(f"the model holds {len(model.language_model.model.layers)} layers, "
+                         f"its stage {n}: place it with place_params_pp")
 
 
 def pipeline_train_loss(model, cfg, mesh: "pmesh.Mesh", batches, noises=None,
@@ -212,20 +227,21 @@ def pipeline_train_loss(model, cfg, mesh: "pmesh.Mesh", batches, noises=None,
     stacked numpy batch [M, ...] or a list of M prepared sequences, given
     whole to every rank) with the layer stack pipelined over "pipe".
     Returns (this data rank's part of the mean: the sum of its microbatches'
-    losses over M, the mean itself without a "data" axis; this data rank's
-    new batch-norm states). ``loss.backward()`` runs the reverse schedule and
-    leaves in ``param.grad`` this rank's part of the gradient of the mean
-    (summed over "data" by ``training.trainer.reduce_gradients``).
+    losses over M, the mean itself without a "data" axis; the new
+    batch-norm states of this data rank's microbatches with latent rows, as
+    ``training.trainer.loss_fn`` keeps them). ``loss.backward()`` runs the
+    reverse schedule and leaves in ``param.grad`` this rank's part of the
+    gradient of the mean (summed over "data" by
+    ``training.trainer.reduce_gradients``).
     ``noises``: one per microbatch, or drawn from ``generator`` for all M in
     order."""
-    from unimedvl_tpu_torch.training.trainer import _rank_sequences, prepared
+    from unimedvl_tpu_torch.training.trainer import _latent_rows, _rank_sequences, prepared
 
-    first, n = stage_range(cfg.llm.num_hidden_layers, mesh)
-    if len(model.language_model.model.layers) != n:
-        raise ValueError(f"the model holds {len(model.language_model.model.layers)} layers, "
-                         f"its stage {n}: place it with place_params_pp")
+    check_stage(model, cfg, mesh)
     device = model.language_model.model.norm.weight.device
     seqs, noises, M = _rank_sequences(batches, noises, generator, mesh)
     seqs = prepared(seqs, device, False)
-    total, new_bn = pipeline_loss_sum(model, mesh, seqs, noises, generator, bn_state)
-    return total / M, new_bn
+    total, outs = pipeline_loss_sum(model, mesh, seqs, noises, generator, bn_state)
+    # the new batch-norm states of the microbatches with latent rows (a neutral block has none)
+    return total / M, [o["bn_state"] for seq, o in zip(seqs, outs)
+                       if "bn_state" in o and _latent_rows(seq)]

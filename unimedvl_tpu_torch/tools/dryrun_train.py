@@ -79,7 +79,9 @@ def checksums(model) -> Dict[str, int]:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().float().cpu().numpy()
+    """A copy (a CPU fp32 tensor's ``.numpy()`` shares its storage, which a
+    later step updates)."""
+    return t.detach().float().cpu().numpy().copy()
 
 
 def _torch_noises(noises):
@@ -103,7 +105,7 @@ def _make_step(model, mesh, case):
     cfg = model.whole_config
     if case.get("pipe"):
         return trainer.make_pp_train_step(cfg, model, mesh, optimizer=opt,
-                                          ema_decay=case.get("ema"))
+                                          ema_decay=case.get("ema"), graphs=case.get("graphs"))
     return trainer.make_train_step(cfg, model, optimizer=opt, accum_steps=case.get("accum", 1),
                                    ema_decay=case.get("ema"), mesh=mesh,
                                    fsdp=case.get("fsdp", False), graphs=case.get("graphs"))
@@ -158,12 +160,18 @@ def run_step_case(whole, mesh, case) -> Dict:
         return {"loss": float(loss), "coords": dict(mesh.coords),
                 "grads": {global_name(n, first): _numpy(p.grad)
                           for n, p in model.named_parameters() if p.grad is not None}}
-    losses, ema_err = [], 0.0
+    from unimedvl_tpu_torch.inference import programs
+
+    losses, buckets, ema_err = [], [], 0.0
     decay = case.get("ema")
     for i in range(case.get("steps", len(batches))):
         prev = None if decay is None else {n: e.clone() for n, e in state.ema_params.items()}
         state, loss = step(state, batches[i], noises=_nested(noises[i]))
         losses.append(float(loss))
+        buckets.append(sum(p.family == "train" for p in programs.programs()))
+        if case.get("first_params") and i == 0:
+            first = _state_result(state, mesh, case)
+            first_params, first_sums = first["params"], first["checksums"]
         if prev is not None:  # the recurrence, on this rank's shards
             params = dict(model.named_parameters())
             ema_err = max(ema_err, max(
@@ -175,6 +183,9 @@ def run_step_case(whole, mesh, case) -> Dict:
             save_snapshot(case["snapshot"], state)
     out = _state_result(state, mesh, case)
     out["losses"], out["ema_recurrence_err"] = losses, ema_err
+    out["train_buckets"] = buckets  # a program's buckets after each call
+    if case.get("first_params"):  # the parameters after the first call, and their checksums
+        out["first_params"], out["first_checksums"] = first_params, first_sums
     # the placed model's views never moved the whole model (init_state copies)
     out["whole_unchanged"] = checksums(whole) == whole_sums
     if case.get("snapshot"):
@@ -234,7 +245,10 @@ def run_train_cases(rank: int, world: int, axes, sizes, models, cases: List[Dict
     A case is a dict: ``batches`` (one stacked numpy batch per call, or a
     list of them per call under ``accum``), ``noises`` (numpy, per call per
     sequence), and the step's options ``lr``, ``accum``, ``ema``, ``fsdp``,
-    ``pipe``, ``steps``, ``grads``, ``snapshot``, ``graphs``."""
+    ``pipe``, ``steps``, ``grads``, ``snapshot``, ``graphs`` (the step's
+    route, for ``make_train_step`` and ``make_pp_train_step`` alike),
+    ``first_params`` (the parameters and checksums after the first call
+    too)."""
     mesh = pmesh.make_mesh(axes, sizes)
     return [run_step_case(models[case.get("model", "base")], mesh, case) for case in cases]
 

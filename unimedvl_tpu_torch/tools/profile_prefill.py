@@ -4,9 +4,11 @@
 text prefill of the prompt, as ``chat`` builds them) and of serving run A's
 first admission round (the first wave's twelve images, in three groups of
 four, each with its text: ``ContinuousBatcher._admit`` into a fresh pool of
-16 x 6144 columns), at the full 14B geometry with random bf16 weights.
+16 x 6144 columns), and of the 512x512 VAE decode (fp32, a latent drawn
+from a seed), at the full 14B geometry with random bf16 weights.
 
-    python unimedvl_tpu_torch/tools/profile_prefill.py [--routes eager,graphed]
+    python unimedvl_tpu_torch/tools/profile_prefill.py [--routes eager,graphed] \
+        [--cases builds,admission,decode]
 
 Each (case, route) is run once untimed (by the graphed route, its
 programs' captures), three times timed (the median is the wall, the card
@@ -86,13 +88,16 @@ def profile(name: str, route: str, run, card: str, prepare=lambda: None) -> dict
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--routes", default="eager,graphed")
+    ap.add_argument("--cases", default="builds,admission,decode")
     args = ap.parse_args(argv)
+    cases = args.cases.split(",")
     sys.path.insert(0, str(ROOT))
     import torch
 
     import chip_smoke as cs
     from unimedvl_tpu_torch.inference import programs
     from unimedvl_tpu_torch.inference.serving import ContinuousBatcher, Request
+    from unimedvl_tpu_torch.models import bagel
 
     cs.check_device()
     cs.build_kernels()
@@ -101,7 +106,7 @@ def main(argv=None) -> int:
     for route in args.routes.split(","):
         graphs = {"eager": False, "graphed": None}[route]
         inf.graphs = graphs
-        for i in (0, 2):
+        for i in ((0, 2) if "builds" in cases else ()):
             h, w, prompt = cs.REQUESTS[i]
 
             def build(_state, i=i, prompt=prompt):
@@ -125,7 +130,15 @@ def main(argv=None) -> int:
             if b.errors or b._pending:
                 raise SystemExit(f"profile_prefill: admission gave errors {b.errors}")
 
-        profile("run A admission round", route, admit, cs.CARD, prepare=batcher)
+        if "admission" in cases:
+            profile("run A admission round", route, admit, cs.CARD, prepare=batcher)
+        if "decode" in cases:
+            h, w = (s // inf.cfg.latent_downsample for s in cs.GEN_SIZE)
+            latent = torch.randn(h * w, inf.cfg.patch_latent_dim, device="cuda",
+                                 generator=torch.Generator(device="cuda").manual_seed(cs.SEED))
+            profile(f"vae decode {cs.GEN_SIZE[0]}x{cs.GEN_SIZE[1]}", route,
+                    lambda _s: bagel.decode_latent_to_image(inf.model, latent, h, w,
+                                                            graphs=graphs), cs.CARD)
         torch.cuda.empty_cache()
     inf.graphs = None
     print(json.dumps(dict(card=cs.CARD, captures=programs.stats["captures"],

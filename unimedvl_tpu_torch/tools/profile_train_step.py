@@ -11,7 +11,10 @@ captures its programs there), by each route asked for:
 - ``ft``: the full fine-tune at ``chip_smoke.FT_LAYERS`` layers, T 4096,
   accumulation 2 and an EMA;
 - ``mesh`` / ``mesh_fsdp``: that step on a one-rank NCCL ("data", "model")
-  mesh, without and with ``fsdp``.
+  mesh, without and with ``fsdp``;
+- ``pipe``: the GPipe step (``make_pp_train_step``) on a stage model of a
+  one-rank NCCL ("data", "pipe", "model") mesh at ``chip_smoke.FT_LAYERS``
+  layers, the ``ft`` step's two sequences as its M = 2 microbatches.
 
     PYTHONPATH=. python unimedvl_tpu_torch/tools/profile_train_step.py \\
         [--routes eager|graphed|graphed,eager] [--steps lora,qlora_w4a8,...] [--out DIR]
@@ -24,9 +27,10 @@ copies' time and count (a graph's copies run as kernel nodes and count in
 its busy time; eager copies are copy events outside it), the busy time by
 kind (the K5 kernels by name, K1a, K3, K4, GEMMs, the
 optimizer's multi-tensor kernels, the rest), and from its host ranges the
-host time per sequence and per update (the trainer's ``train.sequence`` and
-``train.update`` ranges: issuing a sequence's forward and backward, or
-copying its inputs in and replaying its graph); for a graphed route also the
+host time per sequence, per pipeline call and per update (the trainer's
+``train.sequence``, ``train.pipeline`` and ``train.update`` ranges: issuing
+a sequence's forward and backward, or the pipeline's, or copying its inputs
+in and replaying its graph); for a graphed route also the
 captures, their seconds and the training pool's bytes; the card's mean SM
 clock and power draw over the timed steps (``nvidia-smi``). With both
 routes, a line of the kernels whose time differs most between them. The
@@ -62,7 +66,7 @@ KINDS = [  # first match wins
     ("gemm", ("gemm", "cutlass", "nvjet", "xmma", "cublas", "gemv")),
     ("optimizer", ("multi_tensor", "adam", "foreach")),
 ]
-STEPS = ("lora", "qlora_w4a8", "qlora_int8", "ft", "mesh", "mesh_fsdp")
+STEPS = ("lora", "qlora_w4a8", "qlora_int8", "ft", "mesh", "mesh_fsdp", "pipe")
 
 
 def _kind(name: str) -> str:
@@ -132,6 +136,7 @@ def _summarise(trace_path: Path) -> dict:
                 idle_share=1 - busy / 1e3 / window,
                 busy_ms_by_kind={k: round(v, 3) for k, v in sorted(by_kind.items())},
                 host_ms_per_sequence=statistics.mean(host.get("train.sequence", [0.0])),
+                host_ms_per_pipeline=statistics.mean(host.get("train.pipeline", [0.0])),
                 host_ms_per_update=statistics.mean(host.get("train.update", [0.0])),
                 sequences_traced=len(host.get("train.sequence", [])), by_name=by_name)
 
@@ -249,7 +254,7 @@ def main(argv=None) -> None:
     del inf
     gc.collect()
     torch.cuda.empty_cache()
-    ft_steps = [s for s in steps if s in ("ft", "mesh", "mesh_fsdp")]
+    ft_steps = [s for s in steps if s in ("ft", "mesh", "mesh_fsdp", "pipe")]
     if not ft_steps:
         return
     model = cs.build_trainable(cs.FT_LAYERS, False)
@@ -267,23 +272,36 @@ def main(argv=None) -> None:
 
         _routes(f"ft_{cs.FT_LAYERS}_layers", make, batches, _tokens(batches[0]), routes, out_dir,
                 g)
-    mesh_steps = [s for s in ft_steps if s.startswith("mesh")]
+    mesh_steps = [s for s in ft_steps if s != "ft"]
     if not mesh_steps:
         return
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    from unimedvl_tpu_torch.parallel.pp_train import place_params_pp
+
     with tempfile.TemporaryDirectory() as tmp:
-        mesh = cs.one_rank_mesh(("data", "model"), tmp)
         seqs = [[s for b in side for s in b] for side in batches]  # one batch of both
         try:
             for name in mesh_steps:
-                placed = cs.pmesh.place_params(cs.build_trainable(cs.FT_LAYERS, False), mesh)
+                whole = cs.build_trainable(cs.FT_LAYERS, False)
+                if name == "pipe":
+                    mesh = cs.one_rank_mesh(("data", "pipe", "model"), tmp)
+                    placed = place_params_pp(whole, mesh)
 
-                def make(graphs, placed=placed, fsdp=name == "mesh_fsdp"):
-                    step, init_state = trainer.make_train_step(
-                        placed.whole_config, placed, mesh=mesh, fsdp=fsdp, graphs=graphs)
-                    return step, init_state()
+                    def make(graphs, placed=placed, mesh=mesh):
+                        step, init_state = trainer.make_pp_train_step(
+                            placed.whole_config, placed, mesh, graphs=graphs)
+                        return step, init_state()
+                else:
+                    mesh = cs.one_rank_mesh(("data", "model"), tmp)
+                    placed = cs.pmesh.place_params(whole, mesh)
+
+                    def make(graphs, placed=placed, mesh=mesh, fsdp=name == "mesh_fsdp"):
+                        step, init_state = trainer.make_train_step(
+                            placed.whole_config, placed, mesh=mesh, fsdp=fsdp, graphs=graphs)
+                        return step, init_state()
+                del whole
 
                 _routes(f"{name}_{cs.FT_LAYERS}_layers", make, seqs, _tokens(batches[0]), routes,
                         out_dir, g)

@@ -28,7 +28,9 @@ On a CUDA device the step runs as its program by default
 jitted step. The sequences keep their padding (``bagel.prepare_sequence(
 padded=True)``), so a batch's shapes are its bucket's; a "train" graph per
 bucket runs one sequence's forward and backward into preallocated
-gradients, and an "update" graph the rest of the call. The eager step
+gradients, and an "update" graph the rest of the call; the pipeline step's
+program (:class:`PipelineProgram`) runs the whole GPipe call as one graph
+in place of the per-sequence ones. The eager step
 (``graphs=False``, or a gloo mesh) strips the padding on the host. Either
 prepares the sequences it is given for its own route (:func:`prepared`).
 """
@@ -522,12 +524,18 @@ class TrainStep:
         device = model.language_model.model.embed_tokens.weight.device
         if not (programs.use_graphs(self.graphs, device, model)
                 and self._program_updates(state.optimizer, device)):
-            return _step(state, batches, generator, noises, accum_steps=self.accum_steps,
-                         ema_decay=self.ema_decay)
-        prog = TrainProgram.get(self, state, device)
+            return self._eager(state, batches, generator, noises)
+        prog = self._program().get(self, state, device)
         loss = prog.run(state, batches, generator, noises)
         state.step += 1
         return state, loss
+
+    def _eager(self, state: TrainState, batches, generator, noises):
+        return _step(state, batches, generator, noises, accum_steps=self.accum_steps,
+                     ema_decay=self.ema_decay)
+
+    def _program(self):
+        return TrainProgram
 
     def _program_updates(self, optimizer: torch.optim.Optimizer, device) -> bool:
         """Whether the program can update with ``optimizer``: Adam or AdamW,
@@ -604,10 +612,14 @@ class TrainProgram:
     the optimizer's and the EMA's tensors and the mesh; its graphs share the
     "train" graph pool, freed when the step is dropped."""
 
-    def __init__(self, state: TrainState, accum_steps: int, ema_decay: Optional[float],
-                 device: torch.device):
+    #: the kind of its buckets' graphs, and the profiler range around each replay
+    KIND = "train"
+    RANGE = "train.sequence"
+
+    def __init__(self, state: TrainState, step: TrainStep, device: torch.device):
         model = state.model
         self.model = programs.model_ref(model)
+        accum_steps, ema_decay = step.accum_steps, step.ema_decay
         self.device, self.accum_steps, self.ema_decay = device, accum_steps, ema_decay
         self.optimizer = state.optimizer
         self.mesh = state.mesh
@@ -635,12 +647,11 @@ class TrainProgram:
         model = state.model
         opt = _adam_state(state.optimizer)
         ema = [] if state.ema_params is None else list(state.ema_params.values())
-        key = ("train", id(step), step.accum_steps, step.ema_decay, state.bn_state is not None,
+        key = (cls.KIND, id(step), step.accum_steps, step.ema_decay, state.bn_state is not None,
                state.fsdp, programs.weights_key(model), programs.tensors_key(opt),
                programs.tensors_key(ema), programs.mesh_key(model))
-        return programs.lookup(
-            key, lambda: cls(state, step.accum_steps, step.ema_decay, device),
-            reads=(model, opt, ema), owner=step)
+        return programs.lookup(key, lambda: cls(state, step, device), reads=(model, opt, ema),
+                               owner=step)
 
     def graphs(self):
         return [self.update]
@@ -694,24 +705,29 @@ class TrainProgram:
         for gi, (b, nz) in enumerate(_accum_batches(batches, noises, self.accum_steps)):
             seqs, nz, B = _rank_sequences(b, nz, generator, self.mesh)
             seqs = prepared(seqs, self.device, True, pin=self.device.type == "cuda")
+            nz = [_program_noise(seq, None if nz is None else nz[i], generator)
+                  for i, seq in enumerate(seqs)]
             self.weight.fill_(1.0 / B)
             self.group.fill_(gi)
-            for i, seq in enumerate(seqs):
-                noise = nz[i] if nz is not None else None
-                if noise is None and "vae_clean_tokens" in seq:
-                    if generator is None:
-                        raise ValueError("the flow noise is an input: pass noises=, or a "
-                                         "torch.Generator to draw it from")
-                    noise = torch.randn(_noise_shape(seq),
-                                        generator=generator, dtype=torch.float32,
-                                        device=generator.device)
-                with torch.profiler.record_function("train.sequence"):
-                    _TrainBucket.get(self, seq).run(seq, noise)
+            for part, part_noises in self._parts(seqs, nz):
+                with torch.profiler.record_function(self.RANGE):
+                    _TrainBucket.get(self, part).run(part, part_noises)
         with torch.profiler.record_function("train.update"):
             self.update.replay()
         if self.bn is not None:
             state.bn_state = BatchNormState(mean=self.bn.mean.clone(), var=self.bn.var.clone())
         return self.loss_out.clone()
+
+    def _parts(self, seqs, noises) -> list:
+        """The replays of one batch: ([sequences], [their noises]) each, one
+        sequence a replay."""
+        return [([seq], [noise]) for seq, noise in zip(seqs, noises)]
+
+    def losses(self, seqs, noises) -> tuple:
+        """(the summed loss of a bucket's ``seqs``, their ``train_losses``
+        outputs): one sequence's training forward."""
+        out = bagel.train_forward(self.model(), seqs[0], noise=noises[0], bn_state=self.bn)
+        return out["loss"], [out]
 
     def _update(self) -> None:
         with torch.no_grad():
@@ -770,55 +786,74 @@ class TrainProgram:
         self.bn_sums.zero_()
 
 
-class _TrainBucket:
-    """One bucket of a :class:`TrainProgram`: its static inputs (a
-    ``PaddedSequence`` of the bucket's shapes), its noise buffer and its
-    "train" graph."""
+def _program_noise(seq, noise, generator):
+    """A sequence's flow noise for a program: ``noise`` as given, or drawn
+    from ``generator`` in the eager step's shape ([real rows, 64]) when the
+    sequence has latents; None without."""
+    if noise is None and "vae_clean_tokens" in seq:
+        if generator is None:
+            raise ValueError("the flow noise is an input: pass noises=, or a torch.Generator "
+                             "to draw it from")
+        noise = torch.randn(_noise_shape(seq), generator=generator, dtype=torch.float32,
+                            device=generator.device)
+    return noise
 
-    def __init__(self, prog: TrainProgram, seq):
+
+class _TrainBucket:
+    """One bucket of a :class:`TrainProgram`: the static inputs of the
+    sequences one replay runs (a ``PaddedSequence`` of the bucket's shapes
+    each: one sequence, or a pipeline step's microbatches), their noise
+    buffers and the graph (of the program's ``KIND``) of their forward and
+    the backward of ``weight · Σ losses``."""
+
+    def __init__(self, prog: TrainProgram, seqs):
         self.prog = weakref.ref(prog)  # the program drops its buckets when it goes
-        self.inputs = bagel.PaddedSequence({k: torch.empty_like(v) for k, v in seq.items()})
-        self.noise = None
-        if "vae_clean_tokens" in seq:
-            self.noise = torch.zeros(seq["vae_clean_tokens"].shape, dtype=torch.float32,
-                                     device=prog.device)
-        self.graph = programs.Graph("train", self._body, prog.device, training=True)
+        self.inputs = [bagel.PaddedSequence({k: torch.empty_like(v) for k, v in seq.items()})
+                       for seq in seqs]
+        self.noises = [torch.zeros(seq["vae_clean_tokens"].shape, dtype=torch.float32,
+                                   device=prog.device) if "vae_clean_tokens" in seq else None
+                       for seq in seqs]
+        self.graph = programs.Graph(prog.KIND, self._body, prog.device, training=True)
 
     @staticmethod
-    def key(seq) -> tuple:
-        return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(seq.items()))
+    def key(seqs) -> tuple:
+        return tuple(tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(seq.items()))
+                     for seq in seqs)
 
     @classmethod
-    def get(cls, prog: TrainProgram, seq) -> "_TrainBucket":
-        return programs.lookup(("train-bucket", id(prog), cls.key(seq)), lambda: cls(prog, seq),
-                               reads=(prog.model(),), owner=prog, family="train")
+    def get(cls, prog: TrainProgram, seqs) -> "_TrainBucket":
+        return programs.lookup(("train-bucket", id(prog), cls.key(seqs)),
+                               lambda: cls(prog, seqs), reads=(prog.model(),), owner=prog,
+                               family="train")
 
     def graphs(self):
         return [self.graph]
 
-    def run(self, seq, noise) -> None:
-        for k, v in seq.items():
-            self.inputs[k].copy_(v, non_blocking=True)
-        self.inputs.vae_rows = seq.vae_rows
-        if self.noise is not None:
-            n = seq.vae_rows
-            if noise is not None and tuple(noise.shape) == tuple(self.noise.shape):
-                self.noise.copy_(noise)
-            else:
-                self.noise[:n].copy_(noise)
-                self.noise[n:].zero_()
+    def run(self, seqs, noises) -> None:
+        for inputs, buf, seq, noise in zip(self.inputs, self.noises, seqs, noises):
+            for k, v in seq.items():
+                inputs[k].copy_(v, non_blocking=True)
+            inputs.vae_rows = seq.vae_rows
+            if buf is not None:
+                n = seq.vae_rows
+                if noise is not None and tuple(noise.shape) == tuple(buf.shape):
+                    buf.copy_(noise)
+                else:
+                    buf[:n].copy_(noise)
+                    buf[n:].zero_()
         self.graph.replay()
 
     def _body(self) -> None:
         prog = self.prog()
-        out = bagel.train_forward(prog.model(), self.inputs, noise=self.noise, bn_state=prog.bn)
-        (out["loss"] * prog.weight).backward()
+        total, outs = prog.losses(self.inputs, self.noises)
+        (total * prog.weight).backward()
         with torch.no_grad():
-            prog.loss_sum.add_(out["loss"].detach() * prog.weight)
-            if "bn_state" in out:
-                st, have = out["bn_state"], (out["bn_rows"] > 0).to(torch.float32)
-                row = torch.cat([st.mean.float() * have, st.var.float() * have, have[None]])
-                prog.bn_sums.index_add_(0, prog.group, row[None])
+            prog.loss_sum.add_(total.detach() * prog.weight)
+            for out in outs:
+                if "bn_state" in out:
+                    st, have = out["bn_state"], (out["bn_rows"] > 0).to(torch.float32)
+                    row = torch.cat([st.mean.float() * have, st.var.float() * have, have[None]])
+                    prog.bn_sums.index_add_(0, prog.group, row[None])
 
 
 def _reduce_bn(mesh, parts, bn_state: BatchNormState) -> Optional[BatchNormState]:
@@ -866,7 +901,7 @@ def reduce_gradients(model: Bagel, fsdp: bool = False) -> None:
 
 def make_pp_train_step(cfg: BagelConfig, model: Bagel, mesh, optimizer=None,
                        ema_decay: Optional[float] = None,
-                       ema_dtype: torch.dtype = torch.float32):
+                       ema_dtype: torch.dtype = torch.float32, graphs: Optional[bool] = None):
     """The pipeline-parallel train step (the JAX ``make_pp_train_step``):
     the layer stack over the mesh's "pipe" axis with the GPipe schedule
     (``parallel.pp_train``), ``model`` this rank's stage model
@@ -875,7 +910,12 @@ def make_pp_train_step(cfg: BagelConfig, model: Bagel, mesh, optimizer=None,
     every rank; the loss is the mean over them and one AdamW update is made
     per call. The state and the update are :func:`make_train_step`'s: the
     optimizer, the EMA and ``freeze_und`` act on the rank's parameters; the
-    gradients are summed over "data" (the q / k norms' also over "model")."""
+    gradients are summed over "data" (the q / k norms' also over "model").
+
+    ``graphs`` as :func:`make_train_step` takes it: by default on a CUDA
+    device whose mesh groups are all NCCL the step runs as its program
+    (:class:`PipelineProgram`), a gloo mesh there eagerly (True raises), the
+    CPU eagerly (True: the program's plain route)."""
     from unimedvl_tpu_torch.parallel.pp_train import PP_AXES
 
     if tuple(mesh.axis_names) not in PP_AXES:
@@ -883,15 +923,63 @@ def make_pp_train_step(cfg: BagelConfig, model: Bagel, mesh, optimizer=None,
     _check_rank_model(model, mesh, mesh.axis_names)
     init_state = functools.partial(_init_state, model, cfg, optimizer or make_optimizer(),
                                    ema_decay, ema_dtype, mesh)
+    return PipelineStep(cfg, ema_decay, graphs), init_state
 
-    def step(state: TrainState, batches, generator=None, noises=None):
-        loss, new_bn = pp_compute_gradients(state, cfg, batches, generator, noises)
-        _apply_update(state, ema_decay)
+
+class PipelineStep(TrainStep):
+    """The step of :func:`make_pp_train_step`: ``step(state, batches,
+    generator=None, noises=None) -> (state, loss)``, by its program
+    (:class:`PipelineProgram`) or eagerly (:func:`pp_compute_gradients`,
+    then the update), by :class:`TrainStep`'s rules."""
+
+    def __init__(self, cfg: BagelConfig, ema_decay: Optional[float],
+                 graphs: Optional[bool] = None):
+        super().__init__(1, ema_decay, graphs)
+        self.cfg = cfg
+
+    def _eager(self, state: TrainState, batches, generator, noises):
+        loss, new_bn = pp_compute_gradients(state, self.cfg, batches, generator, noises)
+        _apply_update(state, self.ema_decay)
         if new_bn is not None:
             state.bn_state = new_bn
         return state, loss
 
-    return step, init_state
+    def _program(self):
+        return PipelineProgram
+
+
+class PipelineProgram(TrainProgram):
+    """The pipeline step as device programs (the JAX package's jitted
+    ``shard_map`` around the GPipe ``lax.scan``,
+    ``unimedvl_tpu/training/trainer.py:307``): :class:`TrainProgram`'s
+    gradients, binding and "update" graph, and in place of a graph per
+    sequence one "pipeline" graph per bucket of this data rank's M / dp
+    padded microbatches (keyed by every microbatch's shapes), replayed once
+    a call. Its body is the whole GPipe call: each microbatch's embedding
+    (the ``freeze_und`` detach), the schedule over "pipe" with its
+    broadcasts, the final norm and the losses, and the backward of
+    ``Σ losses / M`` through the reverse schedule into the static
+    gradients, the loss and the batch-norm sums accumulated on the card.
+    The noise is drawn as :class:`TrainProgram` draws it, in the eager
+    step's order (``_rank_sequences``)."""
+
+    KIND = "pipeline"
+    RANGE = "train.pipeline"
+
+    def __init__(self, state: TrainState, step: PipelineStep, device: torch.device):
+        super().__init__(state, step, device)
+        self.cfg = step.cfg
+
+    def _parts(self, seqs, noises) -> list:
+        from unimedvl_tpu_torch.parallel.pp_train import check_stage
+
+        check_stage(self.model(), self.cfg, self.mesh)
+        return [(seqs, noises)]
+
+    def losses(self, seqs, noises) -> tuple:
+        from unimedvl_tpu_torch.parallel.pp_train import pipeline_loss_sum
+
+        return pipeline_loss_sum(self.model(), self.mesh, seqs, noises, bn_state=self.bn)
 
 
 def pp_compute_gradients(state: TrainState, cfg: BagelConfig, batches, generator=None,
@@ -903,8 +991,9 @@ def pp_compute_gradients(state: TrainState, cfg: BagelConfig, batches, generator
     from unimedvl_tpu_torch.parallel.pp_train import pipeline_train_loss
 
     mesh = state.mesh
-    loss, new_bn = pipeline_train_loss(state.model, cfg, mesh, batches, noises, generator,
-                                       state.bn_state)
-    loss.backward()
+    with torch.profiler.record_function("train.pipeline"):
+        loss, new_bn = pipeline_train_loss(state.model, cfg, mesh, batches, noises, generator,
+                                           state.bn_state)
+        loss.backward()
     reduce_gradients(state.model)
     return _reduce_loss(mesh, loss.detach()), _reduce_bn(mesh, [new_bn], state.bn_state)
