@@ -4516,6 +4516,9 @@ def run_sp_generation(inf: InterleaveInferencer, mesh, plain_rows: dict) -> dict
 # ---------------------------------------------------------------------------
 
 SHARD_TPS = (2, 4)  # the "model" degrees whose per-rank kernel shapes are checked
+# K3's second entry: decode and the batcher's streams (the cluster route), a 378 px block, the
+# 3-stream denoise and the 980 px image prefill (the ring)
+K3_GLOBAL_ROWS = (1, 8, 16, 731, 3078, 4902)
 
 
 def check_shard_shapes(g, randn, ints) -> dict:
@@ -4528,8 +4531,10 @@ def check_shard_shapes(g, randn, ints) -> dict:
     / 896, down K 9472 / 4736) at m 1, 16, 4902, per channel, and with groups
     of 512 where the columns split (a row-parallel shard of o or down splits
     a group of 512: the placement refuses it); K3's second entry (the scale
-    pass and the quantize pass) at R 1, 16, 4902 over I 9472 / 4736, against
-    its plain version. Each row: time, plain time, bound, library time.
+    pass and the quantize pass) at R 1, 8, 16, 731, 3078, 4902 over I 9472 /
+    4736, against its plain version and, without a reduction, equal to the
+    first entry; at R <= 16 also in a CUDA graph of 20. Each row: time, plain
+    time, bound, library time.
     Returns {kernel: rows} (``shard_cases`` in the kernels line) and the
     ``kernels`` line's row of K3's second entry."""
     print("kernels at the per-rank shapes of tensor parallelism (tp 2 and 4):", flush=True)
@@ -4626,7 +4631,8 @@ def check_shard_shapes(g, randn, ints) -> dict:
                                                  plain_ms=plain_ms, library_ms=None, **b))
             del wp
         I = 18944 // tp
-        for R in (1, 16, 4902):
+        t0 = time.perf_counter()
+        for R in K3_GLOBAL_ROWS:
             gu = randn(R, 2 * I, scale=2.0)  # the halves of a fused gate_up shard's output
             gate, up = gu.split(I, dim=-1)
             q8, sc = aq.silu_mul_quant_global(gate, up, None)
@@ -4637,34 +4643,44 @@ def check_shard_shapes(g, randn, ints) -> dict:
             rel = ((sc - sc_ref).abs() / sc_ref).max().item()
             first_q, first_sc = aq.silu_mul_quant(gate, up)
             same_as_first = bool(torch.equal(first_q, q8) and torch.equal(first_sc, sc))
-            ms = cuda_ms(lambda: aq.silu_mul_quant_global(gate, up, None))
+            kern = lambda: aq.silu_mul_quant_global(gate, up, None)  # noqa: E731
+            ms = cuda_ms(kern)
             plain_ms = cuda_ms(lambda: aq.silu_mul_quant_global_ref(gate, up, None), warmup=1,
                                iters=3)
-            b2b = back_to_back_ms(lambda: aq.silu_mul_quant_global(gate, up, None)) \
-                if R == 1 else None
+            b2b = back_to_back_ms(kern) if R == 1 else None
+            in_graph = graph_ms(kern) if R <= 16 else None
             # the function's least traffic, as the first entry's: g and u read once, q and
             # the scales written; the kernel's two passes read g and u twice and form the
             # product twice, a cost of its design, printed beside it
             b = bound(R * I * 5 + R * 4, R * I * 15, "fp32")
             two_pass = bound(R * I * 9 + R * 4, 2 * R * I * 15, "fp32")["bound_ms"]
             name = f"K3 second entry tp {tp}: R={R} I={I}"
+            graph_text = "" if in_graph is None else \
+                f"; {in_graph:.4f} ms per call in a CUDA graph of {BACK_TO_BACK}"
             _line(name, f"max step {step.max().item()}, share differing {share:.2e}, scale rel "
                   f"err {rel:.2e}, equal to the first entry's {same_as_first}; the two passes' "
-                  f"own bound {two_pass:.4f} ms", ms, plain_ms, b, _b2b_text(b2b))
+                  f"own bound {two_pass:.4f} ms; {aq.global_plan(R, I, aq._sm_count(0))}", ms,
+                  plain_ms, b, _b2b_text(b2b) + graph_text)
             if rel > K3_SCALE_RTOL or step.max().item() > K3_MAX_STEP or share > K3_MAX_SHARE:
                 raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
+            if not same_as_first:
+                raise SystemExit(f"chip_smoke: {name} without a reduction differs from the "
+                                 f"first entry")
             out["silu_mul_quant_global"].append(dict(
                 case=name, max_abs_err=float(step.max().item()), ms=ms, plain_ms=plain_ms,
-                ms_back_to_back=b2b, library_ms=None, two_pass_bound_ms=two_pass,
-                **b))  # no one PyTorch call
+                ms_back_to_back=b2b, ms_in_graph=in_graph, library_ms=None,
+                two_pass_bound_ms=two_pass, **b))  # no one PyTorch call
             del gu
+        print(f"  [K3 second entry at tp {tp}: {len(K3_GLOBAL_ROWS)} shapes in "
+              f"{time.perf_counter() - t0:.1f} s]", flush=True)
     torch.cuda.empty_cache()
     out.update(check_k5_shard_shapes(g))
     rows = out.pop("silu_mul_quant_global")
-    main = dict(rows[2])  # tp 2, R 4902: the image prefill's down shard
+    main = dict(rows[K3_GLOBAL_ROWS.index(4902)])  # tp 2, R 4902: the image prefill's down shard
     main.pop("case")
     main["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     main["one_row_ms"], main["one_row_ms_back_to_back"] = rows[0]["ms"], rows[0]["ms_back_to_back"]
+    main["one_row_ms_in_graph"] = rows[0]["ms_in_graph"]
     main["shard_cases"] = rows
     return out, main
 

@@ -1257,25 +1257,31 @@ def test_quantized_kernels_refuse_grad_outside_their_routes(gen):
 # tensor parallelism: K3's second entry and K4 at a rank's shard shapes
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("R", [1, 3, 16, 4902])
+@pytest.mark.parametrize("R", [1, 3, 8, 9, 16, 128, 129, 731, 1026, 3078, 4902])
 @pytest.mark.parametrize("I", [9472, 4736, 64])
 def test_silu_mul_quant_global_matches_plain(gen, R, I):
     """K3's second entry (scale pass, reduction, quantize pass) at a down
     shard's widths (I 18944 / 2 and / 4) on the halves of one fused gate_up
-    output: scales within 1e-6 relative and q within one step of its plain
-    version; without a reduction it gives the first entry's q and scales."""
+    output, on the cluster route and the ring (the switch at R 128, 129):
+    scales within 1e-6 relative and q within one step of its plain version;
+    without a reduction it gives the first entry's q and scales."""
     gu = _randn(gen, R, 2 * I, scale=2.0)
     g, u = gu.split(I, dim=-1)
     before = aq.global_counts["kernel"]
     q, s = aq.silu_mul_quant_global(g, u, None)
     assert aq.global_counts["kernel"] == before + 1
-    q_ref, s_ref = aq.silu_mul_quant_global_ref(g, u, None)
+    _assert_global_close(q, s, *aq.silu_mul_quant_global_ref(g, u, None))
     assert q.shape == (R, I) and s.shape == (R, 1)
+    q1, s1 = aq.silu_mul_quant(g, u)
+    assert torch.equal(q, q1) and torch.equal(s, s1)
+
+
+def _assert_global_close(q, s, q_ref, s_ref):
+    """K3's tolerance: scales within 1e-6 relative, q within one step on at
+    most 1e-3 of the elements."""
     torch.testing.assert_close(s, s_ref, rtol=1e-6, atol=0)
     diff = (q.int() - q_ref.int()).abs()
     assert diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 1e-3
-    q1, s1 = aq.silu_mul_quant(g, u)
-    assert torch.equal(q, q1) and torch.equal(s, s1)
 
 
 def test_silu_mul_quant_global_takes_the_reduced_scales(gen):
@@ -1292,6 +1298,58 @@ def test_silu_mul_quant_global_takes_the_reduced_scales(gen):
     torch.testing.assert_close(s, s_ref, rtol=1e-6, atol=0)
     assert (q.int() - q_ref.int()).abs().max().item() <= 1
     assert q.abs().max().item() <= 64
+
+
+@pytest.mark.parametrize("R,I", [(3, 9472), (731, 9472), (4902, 9472), (3078, 4736)])
+def test_silu_mul_quant_global_quantizes_each_row_by_its_own_scale(gen, R, I):
+    """The quantize pass walks the rows backward on the ring: a reduction
+    that scales row r by 1 + (r mod 7) / 4 holds every row to its own scale,
+    against the plain version given the same reduction."""
+    gu = _randn(gen, R, 2 * I, scale=2.0)
+    g, u = gu.split(I, dim=-1)
+
+    def per_row(s):
+        s.mul_(1.0 + (torch.arange(R, device=s.device) % 7).view(R, 1) / 4.0)
+
+    q, s = aq.silu_mul_quant_global(g, u, per_row)
+    _assert_global_close(q, s, *aq.silu_mul_quant_global_ref(g, u, per_row))
+
+
+@pytest.mark.parametrize("R", [0, 1, 8, 9, 128, 129, 731])
+@pytest.mark.parametrize("I", [9472, 4736])
+def test_silu_mul_quant_global_reduces_once_on_every_route(gen, R, I):
+    """``reduce_max`` runs exactly once a call, on either route and with no
+    rows, so that every rank of a mesh joins the same collectives."""
+    gu = _randn(gen, R, 2 * I, scale=2.0)
+    g, u = gu.split(I, dim=-1)
+    calls = []
+    q, s = aq.silu_mul_quant_global(g, u, calls.append)
+    assert len(calls) == 1 and calls[0] is s and s.shape == (R, 1) and q.shape == (R, I)
+
+
+def test_silu_mul_quant_global_past_the_old_grid_and_in_3d(gen):
+    """R 70000 rows (past the 65535 CTAs of a grid's y) at I 64, and a 3-D
+    input on strided halves, against the plain version."""
+    gu = _randn(gen, 70000, 128, scale=2.0)
+    g, u = gu.split(64, dim=-1)
+    q, s = aq.silu_mul_quant_global(g, u, None)
+    _assert_global_close(q, s, *aq.silu_mul_quant_global_ref(g, u, None))
+    gu = _randn(gen, 3, 245, 2 * 4736, scale=2.0)
+    g, u = gu.split(4736, dim=-1)
+    q, s = aq.silu_mul_quant_global(g, u, None)
+    assert q.shape == (3, 245, 4736) and s.shape == (3, 245, 1)
+    _assert_global_close(q, s, *aq.silu_mul_quant_global_ref(g, u, None))
+
+
+def test_silu_mul_quant_global_refuses_rows_past_its_width(gen):
+    """A row wider than the kernels take raises, naming the cap; it never
+    falls back to the plain version."""
+    I = aq.KERNEL_MAX_WIDTH + 8
+    g = _randn(gen, 2, I)
+    before = dict(aq.global_counts)
+    with pytest.raises(ValueError, match="KERNEL_MAX_WIDTH"):
+        aq.silu_mul_quant_global(g, g, None)
+    assert aq.global_counts == before
 
 
 # (K, N) of a rank's projections at tp 2 and 4: qkv and gate_up column shards, o and down

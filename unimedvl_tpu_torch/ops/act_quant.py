@@ -36,7 +36,13 @@ down projection under ``mesh=``): the scale must be the whole row's, as the
 JAX mesh program's all-reduce-max gives it. It is two launches of
 ``csrc/silu_mul_quant.cu`` around the caller's reduction: a scale pass
 (each rank's row scale), the all-reduce-max, and a quantize pass that takes
-the scales (``silu_mul_quant_global_ref`` is its plain version).
+the scales (``silu_mul_quant_global_ref`` is its plain version). Both passes
+follow :func:`global_plan`, which depends on (R, I) and the card's SM count
+alone, so every rank of a mesh launches the same and calls the reduction
+once: up to ``GLOBAL_CLUSTER_MAX_ROWS`` rows each row is spread over a
+cluster of CTAs; more rows go to persistent CTAs, one or two an SM, that keep a
+ring of rows in flight, and the quantize pass walks each CTA's rows
+backward, so that it starts on those the scale pass left in the L2.
 
 Gradients. The kernel has no backward: its wrapper refuses inputs that
 require grad while grad mode is on (``_launch.check_no_grad``).
@@ -50,7 +56,8 @@ argmax of |x| (split equally over ties; none for a row whose absmax is under
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -68,6 +75,16 @@ KERNEL_MAX_WIDTH = 1024 * 3 * 8  # 1024 threads x 3 chunks of 8 values in regist
 # card tests and tools/time_quant_kernels.py set them to reach either launch shape
 CLUSTER_MAX_ROWS, CLUSTER_SIZE = 8, 16
 NEAR_TIE = 0.5 - 2.0**-12  # |x / scale - its rint| from which the kernel redoes the division
+ROUND_ADD = 1.5 * 2.0**23  # p + this - this is rint(p) in fp32 for |p| < 2^22
+# the second entry's plan (global_plan): up to GLOBAL_CLUSTER_MAX_ROWS rows each row over a cluster
+# of the fewest CTAs (2, 4, 8, 16) that give each at most GLOBAL_CLUSTER_CHUNKS 16-byte chunks,
+# halved down to 2 while the route's CTAs are more than GLOBAL_CLUSTER_CTAS; more rows on
+# persistent CTAs, each a producer warp and consumer warps around a ring of up to RING_STAGES rows
+# of g and u: one an SM of 31 consumer warps with RING_BYTES of shared memory or, where half of it
+# still holds RING_PAIR_STAGES rows, two of 15 with half each. Chosen by the sweeps of
+# tools/time_quant_kernels.py --global on an H100 (PERF.md §6)
+GLOBAL_CLUSTER_MAX_ROWS, GLOBAL_CLUSTER_CHUNKS, GLOBAL_CLUSTER_CTAS = 128, 160, 128
+RING_STAGES, RING_BYTES, RING_PAIR_STAGES = 8, 8 * KERNEL_MAX_WIDTH, 4
 
 
 def silu_mul_quant_ref(g: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -82,17 +99,24 @@ def silu_mul_quant_ref(g: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, 
     return q, scale
 
 
-def quantize_fast_twin(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def quantize_fast_twin(x: torch.Tensor, scale: torch.Tensor, fadd: bool = False) -> torch.Tensor:
     """The kernel's rule for ``clip(round_half_even(x / scale), -127, 127)``
     in plain torch, fp32: ``x * (1 / scale)`` rounded, with the true division
     redone where that product lies within 2^-12 of a half-integer. Equal to
     the division bit for bit wherever ``|x / scale| < 128`` (x at most the
-    row's absmax); used by nothing on the main path."""
+    row's absmax); used by nothing on the main path. ``fadd``: as the second
+    entry's passes round (``quant8_chunk``): the product rounded by adding and
+    subtracting 1.5 * 2^23, and the value read back as the low byte of the
+    clipped value plus 1.5 * 2^23."""
     x, scale = x.float(), scale.float()
     p = x * (1.0 / scale)
-    r = torch.round(p)
+    r = (p + ROUND_ADD) - ROUND_ADD if fadd else torch.round(p)
     r = torch.where((p - r).abs() >= NEAR_TIE, torch.round(x / scale), r)
-    return torch.clamp(r, -127, 127)
+    r = torch.clamp(r, -127, 127)
+    if fadd:
+        byte = ((r + ROUND_ADD).view(torch.int32) & 0xFF).to(torch.uint8).view(torch.int8)
+        r = byte.float()
+    return r
 
 
 def _launch_kernel(g, u):
@@ -176,30 +200,86 @@ def silu_mul_quant_global_ref(g: torch.Tensor, u: torch.Tensor, reduce_max=None
     return q, scale
 
 
+class GlobalPlan(NamedTuple):
+    """How both passes of :func:`silu_mul_quant_global` launch."""
+
+    cluster: int  # CTAs a row is spread over (2, 4, 8, 16), or 0: the ring route
+    ctas: int  # CTAs a pass launches
+    stages: int  # rows a ring CTA holds in shared memory, or 0
+    per_sm: int = 1  # ring CTAs an SM
+
+
+@functools.lru_cache(maxsize=256)  # the wrapper's host time: a decode loop asks for one plan
+def global_plan(R: int, I: int, sms: int) -> GlobalPlan:
+    """The second entry's launch plan for R rows of I values on a card of
+    ``sms`` SMs: from these alone, never from the data, so that every rank of
+    a mesh makes the same launches and collectives. Raises for an I the
+    kernels do not take."""
+    if I <= 0 or I % 8 or I > KERNEL_MAX_WIDTH:
+        raise ValueError(f"the silu_mul_quant_global kernels take rows of a multiple of 8 up to "
+                         f"KERNEL_MAX_WIDTH = {KERNEL_MAX_WIDTH} values, got {I}")
+    n_vec = I // 8
+    if R <= GLOBAL_CLUSTER_MAX_ROWS:
+        C = next((c for c in (2, 4, 8, 16) if -(-n_vec // c) <= GLOBAL_CLUSTER_CHUNKS), 16)
+        while C > 2 and C * R > GLOBAL_CLUSTER_CTAS:
+            C //= 2
+        return GlobalPlan(C, C * R, 0)
+    per_sm = 2 if RING_BYTES // 2 // (4 * I) >= RING_PAIR_STAGES else 1
+    stages = min(RING_STAGES, RING_BYTES // per_sm // (4 * I))
+    return GlobalPlan(0, min(R, per_sm * sms), stages, per_sm)
+
+
+def global_rows(plan: GlobalPlan, R: int, quantize: bool) -> List[List[int]]:
+    """The rows that each worker of a pass takes, in its order, as the
+    kernels walk them: a cluster (or the quantize pass's C CTAs) per row, or a
+    ring CTA b its rows b, b + ctas, ... in the scale pass and the same rows
+    backward in the quantize pass, which so starts on those it read last."""
+    if plan.cluster:
+        return [[r] for r in range(R)]
+    walks = [list(range(b, R, plan.ctas)) for b in range(plan.ctas)]
+    return [walk[::-1] for walk in walks] if quantize else walks
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_PASSES = ("silu_mul_quant_global (scale pass)", "silu_mul_quant_global (quantize pass)")
+
+
+def _global_args(g2, u2, scale, q, plan: GlobalPlan, stream: int) -> tuple:
+    """The launch arguments of both passes on [R, I] row views g2, u2."""
+    R, I = g2.shape
+    return (g2.data_ptr(), u2.data_ptr(), q.data_ptr(), scale.data_ptr(), R, I, g2.stride(0),
+            u2.stride(0), plan.cluster, plan.per_sm, plan.ctas, plan.stages, stream)
+
+
+def _global_pass(quantize: int, args: tuple) -> None:
+    """One pass of the second entry: the row scales (0), or q by them (1)."""
+    rc = cuda_build.load_library().unimedvl_silu_mul_global_pass(quantize, *args)
+    cuda_build.check(rc, _PASSES[quantize])
+
+
 def _launch_global(g, u, reduce_max):
     _launch.check_no_grad("silu_mul_quant_global", ("g", "u"), (g, u),
                           "ops.act_quant.silu_mul_quant_autograd (one rank)")
     I = g.shape[-1]
     R = g.numel() // I
-    if I % 8 or g.dim() < 2:
-        raise ValueError(f"the silu_mul_quant_global kernels take [..., I] rows of a multiple "
-                         f"of 8 values, got {tuple(g.shape)}")
+    if g.dim() < 2:
+        raise ValueError(f"g and u must be [..., I] with at least one leading dim, "
+                         f"got {tuple(g.shape)}")
     _launch.check_cuda(("g", "u"), (g, u), torch.bfloat16)
+    plan = global_plan(R, I, _sm_count(g.device.index))
     g2, u2 = _rows(g, "g"), _rows(u, "u")
     q = torch.empty(g.shape, dtype=torch.int8, device=g.device)
     scale = torch.empty(*g.shape[:-1], 1, dtype=torch.float32, device=g.device)
-    lib = cuda_build.load_library()
     with _launch.on_device(g.device.index):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        rc = lib.unimedvl_silu_mul_scale(g2.data_ptr(), u2.data_ptr(), scale.data_ptr(), R, I,
-                                         g2.stride(0), u2.stride(0), stream)
-        cuda_build.check(rc, "silu_mul_quant_global (scale pass)")
+        args = _global_args(g2, u2, scale, q, plan, torch.cuda.current_stream(g.device).cuda_stream)
+        _global_pass(0, args)
         if reduce_max is not None:
             reduce_max(scale)
-        rc = lib.unimedvl_silu_mul_quant_scaled(g2.data_ptr(), u2.data_ptr(), scale.data_ptr(),
-                                                q.data_ptr(), R, I, g2.stride(0), u2.stride(0),
-                                                stream)
-    cuda_build.check(rc, "silu_mul_quant_global (quantize pass)")
+        _global_pass(1, args)
     global_counts["kernel"] += 1
     return q, scale
 

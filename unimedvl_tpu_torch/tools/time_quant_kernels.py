@@ -7,6 +7,7 @@ compared:
     python unimedvl_tpu_torch/tools/time_quant_kernels.py PARENT CHANGE CHANGE PARENT
     python unimedvl_tpu_torch/tools/time_quant_kernels.py --gemv PARENT CHANGE CHANGE PARENT
     python unimedvl_tpu_torch/tools/time_quant_kernels.py --chat PARENT CHANGE CHANGE PARENT
+    python unimedvl_tpu_torch/tools/time_quant_kernels.py --global PARENT CHANGE CHANGE PARENT
 
 Each checkout is timed in a process of its own (it imports that checkout's
 package and builds its kernels there). K4 runs at the LLM's four quantized
@@ -43,6 +44,20 @@ each. Beside them the wrapper's host time per call at m = 1 (``host_us``:
 200 calls on the host clock, no synchronisation inside; what a host-bound
 decode step pays per projection).
 
+``--global`` instead times K3's second entry (``silu_mul_quant_global``)
+at a tensor-parallel rank's down shard, I = 18944 / 2 and / 4, at R = 1, 8,
+16 (decode and the batcher's streams), 731 (a 378 px block), 1026 and 3078
+(the mesh denoise rows) and 4902 (the 980 px image prefill), on the halves of
+one fused gate_up output: the whole call with ``reduce_max=None`` and each
+pass alone as a bare launch, each in a run of 20 and in a CUDA graph of 20,
+beside the function's bound (5 R I + 4 R bytes), the two passes' (9 R I + 4
+R) and each pass's own. Where the checkout has ``global_plan``, its plan, and
+both passes in CUDA graphs on other plans: at R 1 to 256 on each cluster
+size and on the ring; above 128 rows on the ring with one CTA an SM or two,
+each with 2 stages or its most. Beside them the first entry
+(``silu_mul_quant``) on the whole row, I 18944, at R 1, 8 and 16, in a
+graph.
+
 ``--chat`` instead times, per checkout, the weight-only w4 serving mode end
 to end at the 14B geometry (random weights, ``chip_smoke.py``'s model and
 requests): the 980 px and 378 px requests, three times each after a warm-up,
@@ -65,6 +80,9 @@ ROWS = (1, 731, 4902)
 BF16_ROWS = (731, 4902)
 GROUP = 512
 K3_I, K3_ROWS = 18944, (1, 731, 4902)
+GLOBAL_TPS = {2: 18944 // 2, 4: 18944 // 4}  # K3's second entry: I of a down shard at tp 2, 4
+GLOBAL_ROWS = (1, 8, 16, 731, 1026, 3078, 4902)
+GLOBAL_SWEEP_ROWS = (1, 8, 16, 32, 64, 128, 256, 731, 4902)
 CLUSTERS = (0, 2, 4, 8, 16)
 GEMV_ROWS = (1, 2, 3, 4)
 L2_BYTES = 50e6  # the H100's L2
@@ -106,6 +124,43 @@ def rotating_graph_readings(calls, run: int = RUN, readings: int = 3) -> list:
     return out
 
 
+def run_ms(fn, run: int = RUN) -> list:
+    """Three readings of the time per call in ms in a run of ``run``, after
+    warm-up (CUDA events)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    readings = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(run):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        readings.append(round(start.elapsed_time(end) / run, 4))
+    return readings
+
+
+def graph_ms(fn, run: int = RUN) -> list:
+    """Three readings of the time per call in ms in a CUDA graph of ``run``
+    calls: the card's time alone."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(run):
+            fn()
+    return [round(r / run, 5) for r in run_ms(graph.replay)]
+
+
 def k4_bound_ms(m: int, K: int, N: int, groups: int, bf16_x: bool = False) -> float:
     x_bytes = 2 * m * K if bf16_x else m * K + 4 * m
     n_bytes = x_bytes + N * K // 2 + 4 * N * max(groups, 1) + 2 * m * N
@@ -124,35 +179,6 @@ def _worker(checkout: str) -> None:
     from unimedvl_tpu_torch import quant
     from unimedvl_tpu_torch.ops import act_quant as aq
     from unimedvl_tpu_torch.ops import w4_matmul as w4
-
-    def run_ms(fn):
-        """Three readings of the time per call in a run of RUN, after warm-up."""
-        for _ in range(3):
-            fn()
-        readings = []
-        for _ in range(3):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            for _ in range(RUN):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            readings.append(round(start.elapsed_time(end) / RUN, 4))
-        return readings
-
-    def graph_ms(fn):
-        """Three readings of the time per call in a CUDA graph of RUN calls."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(RUN):
-                fn()
-        return [round(r / RUN, 5) for r in run_ms(graph.replay)]
 
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -201,6 +227,87 @@ def _worker(checkout: str) -> None:
             aq.CLUSTER_MAX_ROWS, aq.CLUSTER_SIZE = (R, c) if c else (0, size)
             out["graph"][f"k3 R={R} cluster={c}"] = graph_ms(lambda: aq.silu_mul_quant(gate, up))
             aq.CLUSTER_MAX_ROWS, aq.CLUSTER_SIZE = limit, size
+    print(json.dumps(out), flush=True)
+
+
+def global_bounds_ms(R: int, I: int) -> dict:
+    """Bounds of K3's second entry at R rows of I: the function's (g and u
+    read once, q and the scales written, as the smoke reckons it), the two
+    passes' (g and u read twice), and each pass's own."""
+    ms = lambda n_bytes: round(1e3 * n_bytes / HBM_BYTES_S, 5)  # noqa: E731
+    return {"bound_ms": ms(5 * R * I + 4 * R), "two_pass_bound_ms": ms(9 * R * I + 4 * R),
+            "scale_bound_ms": ms(4 * R * I + 4 * R), "quant_bound_ms": ms(5 * R * I + 4 * R)}
+
+
+def _global_worker(checkout: str) -> None:
+    sys.path.insert(0, checkout)
+    import torch
+
+    from unimedvl_tpu_torch.ops import act_quant as aq
+    from unimedvl_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load_library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planned = hasattr(aq, "global_plan")  # the redesigned entry; before it, two plain kernels
+
+    def passes(g2, u2, scale, q, plan=None):
+        """(scale pass, quantize pass) as launches alone, without the wrapper."""
+        R, I = g2.shape
+        stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+        if planned:
+            plan = plan or aq.global_plan(R, I, sms)
+            return (lambda: aq._global_pass(0, aq._global_args(g2, u2, scale, q, plan, stream())),
+                    lambda: aq._global_pass(1, aq._global_args(g2, u2, scale, q, plan, stream())))
+        return (lambda: cuda_build.check(lib.unimedvl_silu_mul_scale(
+                    g2.data_ptr(), u2.data_ptr(), scale.data_ptr(), R, I, g2.stride(0),
+                    u2.stride(0), stream()), "scale pass"),
+                lambda: cuda_build.check(lib.unimedvl_silu_mul_quant_scaled(
+                    g2.data_ptr(), u2.data_ptr(), scale.data_ptr(), q.data_ptr(), R, I,
+                    g2.stride(0), u2.stride(0), stream()), "quantize pass"))
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {"checkout": checkout, "global": {}, "first_entry_graph": {}, "sweeps": {}}
+    for tp, I in GLOBAL_TPS.items():
+        for R in GLOBAL_ROWS:
+            gu = (torch.randn(R, 2 * I, generator=g, device="cuda") * 2.0).to(torch.bfloat16)
+            gate, up = gu.split(I, dim=-1)  # the halves of a fused gate_up shard's output
+            q = torch.empty(R, I, dtype=torch.int8, device="cuda")
+            scale = torch.empty(R, 1, device="cuda")
+            call = lambda: aq.silu_mul_quant_global(gate, up, None)  # noqa: E731
+            scale_pass, quant_pass = passes(gate, up, scale, q)
+            scale_pass()
+            row = {"call": {"run": run_ms(call), "graph": graph_ms(call)},
+                   "scale": {"run": run_ms(scale_pass), "graph": graph_ms(scale_pass)},
+                   "quant": {"run": run_ms(quant_pass), "graph": graph_ms(quant_pass)},
+                   **global_bounds_ms(R, I)}
+            if planned:
+                row["plan"] = aq.global_plan(R, I, sms)._asdict()
+            out["global"][f"tp {tp} R={R} I={I}"] = row
+            del gu, q, scale
+        for R in GLOBAL_SWEEP_ROWS if planned else ():
+            gu = (torch.randn(R, 2 * I, generator=g, device="cuda") * 2.0).to(torch.bfloat16)
+            gate, up = gu.split(I, dim=-1)
+            q = torch.empty(R, I, dtype=torch.int8, device="cuda")
+            scale = torch.empty(R, 1, device="cuda")
+            plans = {}
+            if R <= 256:  # either route, and each cluster size
+                plans = {f"cluster {c}": aq.GlobalPlan(c, c * R, 0) for c in (2, 4, 8, 16)}
+            base = aq.global_plan(max(R, aq.GLOBAL_CLUSTER_MAX_ROWS + 1), I, sms)
+            base = base._replace(ctas=min(R, base.per_sm * sms))
+            plans["ring"] = base
+            for per_sm in (1, 2) if R > 128 else ():  # the ring's other shape, and its stages
+                most = min(aq.RING_STAGES, aq.RING_BYTES // per_sm // (4 * I))
+                for stages in sorted({2, most}):
+                    plans[f"ring {per_sm} an SM, {stages} stages"] = base._replace(
+                        per_sm=per_sm, stages=stages, ctas=min(R, per_sm * sms))
+            for name, plan in plans.items():
+                both = passes(gate, up, scale, q, plan)
+                out["sweeps"][f"tp {tp} R={R} {name}"] = graph_ms(lambda: (both[0](), both[1]()))
+            del gu, q, scale
+    for R in (1, 8, 16):  # the first entry on the whole row, as one card runs it
+        gu = torch.randn(R, 2 * K3_I, generator=g, device="cuda").to(torch.bfloat16)
+        gate, up = gu.split(K3_I, dim=-1)
+        out["first_entry_graph"][f"R={R} I={K3_I}"] = graph_ms(lambda: aq.silu_mul_quant(gate, up))
     print(json.dumps(out), flush=True)
 
 
@@ -311,11 +418,13 @@ def _chat_worker(checkout: str) -> None:
 
 
 def main() -> None:
-    workers = {"--worker": _worker, "--gemv-worker": _gemv_worker, "--chat-worker": _chat_worker}
+    workers = {"--worker": _worker, "--gemv-worker": _gemv_worker, "--chat-worker": _chat_worker,
+               "--global-worker": _global_worker}
     if len(sys.argv) >= 3 and sys.argv[1] in workers:
         workers[sys.argv[1]](sys.argv[2])
         return
-    mode = sys.argv[1] if len(sys.argv) >= 2 and sys.argv[1] in ("--chat", "--gemv") else ""
+    modes = ("--chat", "--gemv", "--global")
+    mode = sys.argv[1] if len(sys.argv) >= 2 and sys.argv[1] in modes else ""
     checkouts = sys.argv[2 if mode else 1:] or ["."]
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
