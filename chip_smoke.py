@@ -436,7 +436,7 @@ def check_kernels() -> dict:
     timings["flash_cache_block_attention"] = check_cache_block(randn, ints)
     timings["decode_attention_int8"] = check_decode_int8(g, randn, ints)
     timings["silu_mul_quant"] = check_silu_mul_quant(randn)
-    timings["w4_matmul"] = check_w4_matmul(g, randn)
+    timings["w4_matmul"], timings["w4_matmul_simple"] = check_w4_matmul(g, randn)
     for name, rows in check_serving_shapes(g, randn, ints).items():
         timings[name]["serving_cases"] = rows
     print("K1a at the speculative verify shapes:", flush=True)
@@ -806,77 +806,135 @@ def check_silu_mul_quant(randn) -> dict:
     return out
 
 
+W4_G32 = 32  # the finest group on K4's tensor-core routes
+W4_SIMPLE_GROUP = 16  # a group no tensor-core product holds: the simple kernel's
+
+
+def k4_bound(m: int, K: int, N: int, G: int, int8_x: bool) -> dict:
+    """K4's least time: x, x_scale, the packed weights, w_scale read once and
+    y written once; the products (2 m K N) at the int8 or bf16 peak; with
+    group scales every group's sum scaled and added (2 m N G fp32
+    operations), at the fp32 peak: whichever of the three is largest."""
+    n_bytes = m * K * (1 if int8_x else 2) + (4 * m if int8_x else 0) + N * K // 2 \
+        + 4 * N * max(G, 1) + 2 * m * N
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = max(2.0 * m * K * N / PEAK_OPS_S["int8" if int8_x else "bf16"],
+                2.0 * m * N * G / PEAK_OPS_S["fp32"])
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _k4_route_call(x, xs, wp, ws):
+    """One K4 call on the card, and the route whose counter it moved
+    (exactly one launch, on the route ``k4_route`` names for the shape)."""
+    before = dict(w4.route_counts)
+    got = w4.w4_matmul(x, xs, wp, ws)
+    moved = [r for r in w4.route_counts if w4.route_counts[r] != before[r]]
+    N, K = wp.shape[0], 2 * wp.shape[1]
+    G = ws.shape[0] if ws.dim() == 2 else 0
+    want = w4.k4_route(x.numel() // K, K, N, G, xs is not None)
+    if moved != [want] or w4.route_counts[want] != before[want] + 1:
+        raise SystemExit(f"chip_smoke: K4 at m={x.numel() // K} K={K} N={N} G={G} launched "
+                         f"{moved}, not one {want}")
+    return got, want
+
+
+def _k4_want(x, xs, wp, ws):
+    """What a K4 call must equal (int8 x) or approach (bf16 x): the plain
+    version, or with int8 x on the GEMV at groups of 32 its twin, whose fold
+    adds the plain version's fp32 terms in another association (held to it
+    on the CPU by tests/test_torch_w4_gemv.py)."""
+    K = 2 * wp.shape[1]
+    m = x.numel() // K
+    G = ws.shape[0] if ws.dim() == 2 else 0
+    if xs is not None and G and K // G == W4_G32 and w4.k4_route(m, K, wp.shape[0], G, True) \
+            == "gemv":
+        return w4.w4_gemv_tiled_ref(x.cpu(), xs.cpu(), wp.cpu(), ws.cpu(),
+                                    n_sms=w4._n_sms(x.device)).cuda()
+    return w4.w4_matmul_ref(x, xs, wp, ws)
+
+
+def _k4_case(name, x, xs, wp, ws, timed=True, b2b=False, plain_iters=3) -> dict:
+    """K4 on one input against what it must equal (int8 x: bit for bit) or
+    approach (bf16 x: |err| <= 2^-7 |plain| + 1e-3 sqrt(K) 8 max|x|
+    max(w_scale) / 16), its route, and, where ``timed``, its time, the plain
+    version's and the bound."""
+    K, N = 2 * wp.shape[1], wp.shape[0]
+    m = x.numel() // K
+    G = ws.shape[0] if ws.dim() == 2 else 0
+    got, route = _k4_route_call(x, xs, wp, ws)
+    torch.cuda.synchronize()
+    want = _k4_want(x, xs, wp, ws)
+    err = (got.float() - want.float()).abs()
+    if xs is not None:
+        ok, text = torch.equal(got, want), f"equal {torch.equal(got, want)}"
+    else:
+        tol = 2.0**-7 * want.float().abs() + 1e-3 * K**0.5 * 8 * x.float().abs().max() \
+            * ws.max() / 16
+        worst = (err / tol).max().item()
+        ok, text = worst <= 1.0, f"worst err/bound {worst:.3f}"
+    text = f"{route}: {text} (max abs err {err.max().item():.3e})"
+    r = dict(case=name, route=route, max_abs_err=err.max().item(), library_ms=None,
+             **k4_bound(m, K, N, G, xs is not None))
+    if timed:
+        r["ms"] = cuda_ms(lambda: w4.w4_matmul(x, xs, wp, ws))
+        r["plain_ms"] = cuda_ms(lambda: w4.w4_matmul_ref(x, xs, wp, ws), warmup=1,
+                                iters=plain_iters)
+        r["ms_back_to_back"] = back_to_back_ms(lambda: w4.w4_matmul(x, xs, wp, ws)) if b2b \
+            else None
+        _line(name, text, r["ms"], r["plain_ms"], r, _b2b_text(r["ms_back_to_back"]))
+    else:
+        print(f"  {name}: {text}", flush=True)
+    if not ok:
+        raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
+    return r
+
+
 def check_w4_matmul(g, randn) -> dict:
     """K4 against its plain version at the LLM's four projection shapes (qkv
-    and gate_up fused, o, down), per channel and with groups of 512: the int8
-    branch (w4a8) must be EQUAL (exact integer sums, the same rounded fp32
-    scaling), on the GEMV (m 1 to 4) and the GEMM (m 731, 4902); the bf16 branch
+    and gate_up fused, o, down), per channel and with groups of 512 and of
+    32: the int8 branch (w4a8) must be EQUAL (exact integer sums, the same
+    rounded fp32 scaling), on the GEMV (m 1 to 4; at groups of 32 equal to its
+    twin, the fold's order) and the GEMM (m 731, 4902); the bf16 branch
     (weight-only w4; GEMV at m 1 to 4, GEMM at a text prefill's 17 rows and
     at m 731, 4902) sums fp32 in another order: |err| <= 2^-7 |plain| + 1e-3
-    sqrt(K) 8 max|x| max(w_scale) / 16. The GEMV captured in a CUDA graph
-    must replay equal to an eager call on new x. The ``kernels`` line's row
-    is the decode step's GEMV at gate_up, with the prefill's GEMMs at gate_up,
-    m 4902, per channel under ``gemm`` (int8 x) and ``bf16_gemm`` (bf16 x,
-    with the ``torch.mm`` yardstick), and the GEMV cold at each projection
-    under ``gemv_cases`` (``gemv_cold_cases``)."""
+    sqrt(K) 8 max|x| max(w_scale) / 16. Each call must launch the route
+    ``k4_route`` names. Groups of 32 at m 1, 4, 731, 4902 (int8 x) and 1, 4,
+    17, 4902 (bf16 x). Then the simple kernel: groups of 16 at qkv, m 4, and
+    K 96, N 12. The GEMV captured in a CUDA graph must replay equal to an
+    eager call on new x. The ``kernels`` line's row is the decode step's GEMV
+    at gate_up, with the prefill's GEMMs at gate_up, m 4902, per channel
+    under ``gemm`` (int8 x) and ``bf16_gemm`` (bf16 x, with the ``torch.mm``
+    yardstick), the groups of 32 under ``group32_cases``, and the GEMV cold
+    at each projection under ``gemv_cases`` (``gemv_cold_cases``); the
+    simple kernel's row is returned beside it."""
     print("K4 w4_matmul (w4a8: equality; bf16 x: |err| <= 2^-7 |ref| + reordering bound):",
           flush=True)
     shapes = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584)]
-    rows, shown, gemm, bf16_gemm = [], None, None, None
+    rows, group32, shown, gemm, bf16_gemm = [], [], None, None, None
     for K, N in shapes:
         wp = w4.pack_int4(_rand_int8(g, N, K, lo=-8, hi=8))
-        for G in (0, K // W4_GROUP):
+        for G, int8_ms, bf16_ms in ((0, (1, 2, 3, 4, 731, 4902), (1, 2, 3, 4, 17, 731, 4902)),
+                                    (K // W4_GROUP, (1, 2, 3, 4, 731, 4902),
+                                     (1, 2, 3, 4, 17, 731, 4902)),
+                                    (K // W4_G32, (1, 4, 731, 4902), (1, 4, 17, 4902))):
             ws = torch.rand((G, N) if G else (N,), generator=g, device="cuda") * 0.01 + 0.001
-            for m in (1, 2, 3, 4, 731, 4902):
+            kind = f"group {K // G}" if G else "per channel"
+            for m in int8_ms:
                 x = _rand_int8(g, m, K)
                 xs = torch.rand(m, 1, generator=g, device="cuda") * 0.05 + 0.001
-                got = w4.w4_matmul(x, xs, wp, ws)
-                torch.cuda.synchronize()
-                want = w4.w4_matmul_ref(x, xs, wp, ws)
-                err = (got.float() - want.float()).abs().max().item()
-                ms = cuda_ms(lambda: w4.w4_matmul(x, xs, wp, ws))
-                plain_ms = cuda_ms(lambda: w4.w4_matmul_ref(x, xs, wp, ws), warmup=1, iters=3)
-                b2b = back_to_back_ms(lambda: w4.w4_matmul(x, xs, wp, ws)) if m == 1 else None
-                b = bound(m * K + m * 4 + N * K // 2 + ws.numel() * 4 + m * N * 2,
-                          2.0 * m * K * N, "int8")
-                _line(f"K4 w4a8 m={m} K={K} N={N} {'group 512' if G else 'per channel'}",
-                      f"equal {torch.equal(got, want)} (max abs err {err:.3e})", ms, plain_ms, b,
-                      _b2b_text(b2b))
-                if not torch.equal(got, want):
-                    raise SystemExit("chip_smoke: K4 (w4a8) differs from its plain version")
-                r = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_back_to_back=b2b,
-                         library_ms=None, **b)
-                rows.append(r)  # no PyTorch call multiplies by packed int4 weights
+                r = _k4_case(f"K4 w4a8 m={m} K={K} N={N} {kind}", x, xs, wp, ws, b2b=m == 1)
+                (group32 if G and K // G == W4_G32 else rows).append(r)
                 if (m, K, N, G) == (1, 3584, 37888, 0):
                     shown = r
                 if (m, K, N, G) == (4902, 3584, 37888, 0):  # the GEMM path at gate_up
                     gemm = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
-        for G in (0, K // W4_GROUP):
-            ws = torch.rand((G, N) if G else (N,), generator=g, device="cuda") * 0.01 + 0.001
-            for m in (1, 2, 3, 4, 17, 731, 4902):
+            for m in bf16_ms:
                 x = randn(m, K)
-                got = w4.w4_matmul(x, None, wp, ws).float()
-                torch.cuda.synchronize()
-                want = w4.w4_matmul_ref(x, None, wp, ws).float()
-                tol = (2.0**-7 * want.abs()
-                       + 1e-3 * K**0.5 * 8 * x.float().abs().max() * ws.max() / 16)
-                err, worst = (got - want).abs(), ((got - want).abs() / tol).max().item()
-                kind = f"{'group 512' if G else 'per channel'}"
-                b = bound(m * K * 2 + N * K // 2 + ws.numel() * 4 + m * N * 2,
-                          2.0 * m * K * N, "bf16")
-                r = dict(max_abs_err=err.max().item(), library_ms=None, **b)
-                text = f"max abs err {err.max().item():.3e}, worst err/bound {worst:.3f}"
-                if m >= 731:  # the prefills: timed
-                    r["ms"] = cuda_ms(lambda: w4.w4_matmul(x, None, wp, ws))
-                    r["plain_ms"] = cuda_ms(lambda: w4.w4_matmul_ref(x, None, wp, ws),
-                                            warmup=1, iters=3)
-                    _line(f"K4 w4 bf16-x m={m} K={K} N={N} {kind}", text, r["ms"],
-                          r["plain_ms"], b)
-                else:
-                    print(f"  K4 w4 bf16-x m={m} K={K} N={N} {kind}: {text}", flush=True)
-                if worst > 1.0:
-                    raise SystemExit("chip_smoke: K4 (bf16 x) disagrees with its plain version")
-                rows.append(r)
+                # the prefills and the groups of 32: timed
+                r = _k4_case(f"K4 w4 bf16-x m={m} K={K} N={N} {kind}", x, None, wp, ws,
+                             timed=m >= 731 or (G and K // G == W4_G32))
+                (group32 if G and K // G == W4_G32 else rows).append(r)
                 if (m, K, N, G) == (4902, 3584, 37888, 0):  # the weight-only prefill's GEMM
                     # yardstick: x by the weight unpacked, scaled and cast to bf16 (another
                     # function: no PyTorch call multiplies by packed int4)
@@ -890,42 +948,72 @@ def check_w4_matmul(g, randn) -> dict:
     check_gemv_graph_replay(g, randn)
     out = dict(shown, gemm=dict(gemm, case="w4a8 m=4902 K=3584 N=37888 per channel"),
                bf16_gemm=dict(bf16_gemm, case="bf16 x m=4902 K=3584 N=37888 per channel"),
-               gemv_cases=gemv_cold_cases(g, randn))
-    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
-    return out
+               group32_cases=group32, gemv_cases=gemv_cold_cases(g, randn))
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows + group32)
+    for key in ("case", "route"):
+        out.pop(key)
+    return out, check_w4_simple(g, randn)
+
+
+def check_w4_simple(g, randn) -> dict:
+    """K4's simple kernel (the shapes no tensor-core product holds) against
+    the plain version: groups of 16 at qkv (K 3584, N 4608), m 4, and K 96,
+    N 12 per channel and with groups of 32 and 16, each with int8 x (equal)
+    and bf16 x (the reordering bound). Returns the ``kernels`` line's row:
+    the group-16 int8 case's numbers, every case under ``cases``."""
+    print("K4 simple kernel (the shapes outside the tensor-core routes):", flush=True)
+    cases = []
+    for K, N, G, m in ((3584, 4608, 3584 // W4_SIMPLE_GROUP, 4), (96, 12, 0, 4), (96, 12, 3, 4),
+                       (96, 12, 6, 17)):
+        wp = w4.pack_int4(_rand_int8(g, N, K, lo=-8, hi=8))
+        ws = torch.rand((G, N) if G else (N,), generator=g, device="cuda") * 0.01 + 0.001
+        kind = f"group {K // G}" if G else "per channel"
+        x = _rand_int8(g, m, K)
+        xs = torch.rand(m, 1, generator=g, device="cuda") * 0.05 + 0.001
+        cases.append(_k4_case(f"K4 simple w4a8 m={m} K={K} N={N} {kind}", x, xs, wp, ws,
+                              b2b=True))
+        cases.append(_k4_case(f"K4 simple bf16-x m={m} K={K} N={N} {kind}", randn(m, K), None,
+                              wp, ws))
+    row = {k: v for k, v in cases[0].items() if k not in ("case", "route")}
+    row["max_abs_err"] = max(r["max_abs_err"] for r in cases)
+    row["cases"] = cases
+    return row
 
 
 def check_gemv_graph_replay(g, randn) -> None:
     """K4's GEMV captured in a CUDA graph at down, m 4, groups of 512 (the
-    most slices, so the most arrivals per tile), with int8 and bf16 x:
-    three replays, each on new x copied in, equal to an eager call on that
-    x (the arrival counters are back at zero after every launch)."""
-    K, N, G, m = 18944, 3584, 18944 // W4_GROUP, 4
+    most slices of the int32 combine, so the most arrivals per tile) and of 32
+    (the fold), with int8 and bf16 x: three replays, each on new x copied
+    in, equal to an eager call on that x (the arrival counters are back at
+    zero after every launch)."""
+    K, N, m = 18944, 3584, 4
     wp = w4.pack_int4(_rand_int8(g, N, K, lo=-8, hi=8))
-    ws = torch.rand(G, N, generator=g, device="cuda") * 0.01 + 0.001
-    for int8x in (True, False):
-        def new_x():
-            if int8x:
-                return _rand_int8(g, m, K), torch.rand(m, 1, generator=g, device="cuda") * 0.05
-            return randn(m, K), None
-        x, xs = new_x()
-        w4.w4_matmul(x, xs, wp, ws)
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            y = w4.w4_matmul(x, xs, wp, ws)
-        for _ in range(3):
-            nx, nxs = new_x()
-            x.copy_(nx)
-            if int8x:
-                xs.copy_(nxs)
-            graph.replay()
+    for G in (K // W4_GROUP, K // W4_G32):
+        ws = torch.rand(G, N, generator=g, device="cuda") * 0.01 + 0.001
+        for int8x in (True, False):
+            def new_x():
+                if int8x:
+                    return _rand_int8(g, m, K), torch.rand(m, 1, generator=g,
+                                                           device="cuda") * 0.05
+                return randn(m, K), None
+            x, xs = new_x()
+            w4.w4_matmul(x, xs, wp, ws)
             torch.cuda.synchronize()
-            if not torch.equal(y, w4.w4_matmul(nx, nxs, wp, ws)):
-                raise SystemExit("chip_smoke: K4's GEMV replayed in a CUDA graph differs from "
-                                 "an eager call")
-    print(f"  K4 GEMV in a CUDA graph (K={K} N={N} group 512 m={m}, int8 and bf16 x): three "
-          "replays on new x equal to eager calls", flush=True)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                y = w4.w4_matmul(x, xs, wp, ws)
+            for _ in range(3):
+                nx, nxs = new_x()
+                x.copy_(nx)
+                if int8x:
+                    xs.copy_(nxs)
+                graph.replay()
+                torch.cuda.synchronize()
+                if not torch.equal(y, w4.w4_matmul(nx, nxs, wp, ws)):
+                    raise SystemExit("chip_smoke: K4's GEMV replayed in a CUDA graph differs "
+                                     "from an eager call")
+        print(f"  K4 GEMV in a CUDA graph (K={K} N={N} group {K // G} m={m}, int8 and bf16 x): "
+              "three replays on new x equal to eager calls", flush=True)
 
 
 def gemv_cold_cases(g, randn) -> list:
@@ -1540,13 +1628,15 @@ def run_quantized_chat(inf: InterleaveInferencer, logits_bf16: torch.Tensor) -> 
     """The quantized serving modes at the full width, each on its own
     quantized copy of the LLM (freed before the next) with an int8 KV cache:
     (a) full-int8, fused projections: the three requests; (b) w4a8 per channel
-    and (c) w4a8 with groups of 512, fused: the 378x378 request; (d)
+    and (c) w4a8 with groups of 512 and of 32, fused: the 378x378 request; (d)
     weight-only w4 per channel, fused: the 980x980 request (a 4902-row
     prefill through K4's bf16-x GEMM) and the 378x378 one, with x never
-    quantized, so K3 runs in no layer. After each, the first-step logits with
-    the kernels against the same model on the plain versions (asserted) and
-    against the bf16 model (printed: these are non-parity modes, and the
-    weights are random). Returns the launches of the phases added up."""
+    quantized, so K3 runs in no layer; (e) w4a8 with groups of 16, fused: a
+    text request through K4's simple kernel (:func:`run_simple_chat`). After
+    each, the first-step logits with the kernels against the same model on
+    the plain versions (asserted) and against the bf16 model (printed: these
+    are non-parity modes, and the weights are random). Returns the launches
+    of the phases added up."""
     n_vit, n_llm = inf.cfg.vit.num_hidden_layers, inf.cfg.llm.num_hidden_layers
     fused_per_layer = 4  # qkv, o, gate_up, down of the und expert
     phases = [  # name, options, requests, K4 launches per layer, K3 launches per layer
@@ -1555,6 +1645,8 @@ def run_quantized_chat(inf: InterleaveInferencer, logits_bf16: torch.Tensor) -> 
          fused_per_layer, 1),
         (f"w4a8 group {W4_GROUP} + fused + int8 KV",
          dict(bits=4, act_quant=True, group_size=W4_GROUP), [2], fused_per_layer, 1),
+        (f"w4a8 group {W4_G32} + fused + int8 KV",
+         dict(bits=4, act_quant=True, group_size=W4_G32), [2], fused_per_layer, 1),
         ("weight-only w4 per channel + fused + int8 KV", dict(bits=4), [0, 2],
          fused_per_layer, 0),
     ]
@@ -1565,6 +1657,7 @@ def run_quantized_chat(inf: InterleaveInferencer, logits_bf16: torch.Tensor) -> 
     for name, kw, requests, k4_per_layer, k3_per_layer in phases:
         print(f"quantized chat path, {name}: {len(requests)} request(s), greedy, max_length "
               f"{MAX_LENGTH}", flush=True)
+        t_mode = time.perf_counter()
         qinf = quantized_inferencer(inf, **kw)
         rows = []
         # the eager comparison on one request a mode, and a trace of the graphed step in
@@ -1594,8 +1687,65 @@ def run_quantized_chat(inf: InterleaveInferencer, logits_bf16: torch.Tensor) -> 
                              "the plain versions'")
         del qinf
         torch.cuda.empty_cache()
+        print(f"  the {name} mode in {time.perf_counter() - t_mode:.1f} s", flush=True)
     print(f"s/image by quantized mode (one request each): {json.dumps(s_per_image)}", flush=True)
+    t_mode = time.perf_counter()
+    for k, v in run_simple_chat(inf).items():
+        total[k] += v
+    print(f"  the simple kernel's chat in {time.perf_counter() - t_mode:.1f} s", flush=True)
     return total
+
+
+SIMPLE_PROMPT = "Name the imaging modality used to examine the lungs."
+SIMPLE_MAX_LENGTH = 8
+
+
+def run_simple_chat(inf: InterleaveInferencer) -> dict:
+    """K4's simple kernel on the chat path: the LLM quantized w4a8 with groups
+    of W4_SIMPLE_GROUP in-rows (no tensor-core product holds one), fused,
+    with an int8 KV cache, answering a text request through ``chat`` by the
+    captured programs (one warm-up call first, uncounted). Every K4 launch
+    must be the simple kernel's: forwards x 28 x 4 of each counter. The
+    first-step logits against the same model on the plain versions at
+    LOGITS_COS_TOL. Returns the launches."""
+    n_llm = inf.cfg.llm.num_hidden_layers
+    name = f"w4a8 group {W4_SIMPLE_GROUP} + fused + int8 KV, text only"
+    print(f"quantized chat path, {name}: one request, greedy, max_length {SIMPLE_MAX_LENGTH}",
+          flush=True)
+    qinf = quantized_inferencer(inf, bits=4, act_quant=True, group_size=W4_SIMPLE_GROUP)
+    qinf.chat([], SIMPLE_PROMPT, max_length=2)
+    reset_counts()
+    counter = ForwardCounter(qinf.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        answer = qinf.chat([], SIMPLE_PROMPT, max_length=SIMPLE_MAX_LENGTH)
+    finally:
+        counter.remove()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    f = counter.prefill + counter.decode
+    launches = check_counts(f"the {name} path", {
+        "flash_block_attention": counter.prefill * n_llm,
+        "decode_attention_int8": counter.decode * n_llm,
+        "silu_mul_quant": f * n_llm, "w4_matmul": f * n_llm * 4,
+        "w4_matmul_simple": f * n_llm * 4})
+    print(f"  answered in {seconds:.3f} s: {counter.prefill} prefill(s), {counter.decode} decode "
+          f"steps ({CARD}); {answer!r}", flush=True)
+    got = _first_step_logits(qinf, None, SIMPLE_PROMPT)
+    want = _with_plain_versions(lambda: _first_step_logits(qinf, None, SIMPLE_PROMPT),
+                                quant_only=True)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=0).item()
+    finite = bool(torch.isfinite(got).all())
+    print(f"  end to end (text): first-step logits kernels vs plain K3 and K4: cosine {cos:.6f}, "
+          f"max abs {(got - want).abs().max().item():.4f}, argmax {got.argmax().item()} vs "
+          f"{want.argmax().item()}, finite {finite}", flush=True)
+    if not finite or got.shape != (inf.cfg.llm.vocab_size,) or cos < LOGITS_COS_TOL:
+        raise SystemExit(f"chip_smoke: {name}: the kernel path's logits disagree with the plain "
+                         "versions'")
+    del qinf
+    torch.cuda.empty_cache()
+    return launches
 
 
 # -- batched serving (ContinuousBatcher) ------------------------------------------------------
@@ -3479,7 +3629,7 @@ EXTRA_KEYS = (
     "k_island_ms", "concat_copy_ms", "k1b_on_concat_ms", "q_island_only_ms", "launches_from",
     "n_split", "split_len", "cases", "ms_in_graph", "vit", "gemm", "bf16_gemm",
     "one_row_ms_in_graph", "gemv_cases", "serving_cases", "spec_cases", "group_cases",
-    "gen_cases", "int4_cases", "backward_cases", "shard_cases",
+    "gen_cases", "int4_cases", "backward_cases", "shard_cases", "group32_cases",
 )
 
 COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches there)
@@ -3491,7 +3641,8 @@ COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches th
     "decode_attention_int8": (dec.int8_counts, "kernel"),
     "silu_mul_quant": (aq.counts, "kernel"),
     "silu_mul_quant_global": (aq.global_counts, "kernel"),
-    "w4_matmul": (w4.counts, "kernel"),
+    "w4_matmul": (w4.counts, "kernel"),  # every route
+    "w4_matmul_simple": (w4.route_counts, "simple"),
     "packed_train_attention_fwd": (fat.counts, "fwd"),
     "packed_train_attention_bwd_dq": (fat.counts, "bwd_dq"),
     "packed_train_attention_bwd_dkv": (fat.counts, "bwd_dkv"),
@@ -3500,7 +3651,9 @@ COUNTERS = {  # kernel name -> (its wrapper's counts, the key of its launches th
 
 def reset_counts() -> None:
     for c, key in COUNTERS.values():
-        c[key] = c["plain"] = 0
+        c[key] = 0
+        if "plain" in c:
+            c["plain"] = 0
 
 
 def check_counts(path: str, want: dict) -> dict:
@@ -3508,7 +3661,7 @@ def check_counts(path: str, want: dict) -> dict:
     (kernels it does not name: 0); no plain version may have run."""
     want = {name: want.get(name, 0) for name in COUNTERS}
     launches = {name: c[key] for name, (c, key) in COUNTERS.items()}
-    plain = {name: c["plain"] for name, (c, _) in COUNTERS.items()}
+    plain = {name: c.get("plain", 0) for name, (c, _) in COUNTERS.items()}
     print(f"launches on {path}: {launches} (expected {want}); plain versions called "
           f"{plain}", flush=True)
     if launches != want or any(plain.values()):
@@ -4528,9 +4681,10 @@ def check_shard_shapes(g, randn, ints) -> dict:
     and K2-int8 at the chat decode (S 1, lens 4950) and at run A's 16
     streams (band (lens, lens)); K4 w4a8 (equal) and bf16-x at the four
     projections' shards (qkv N 2304 / 1152, gate_up N 18944 / 9472, o K 1792
-    / 896, down K 9472 / 4736) at m 1, 16, 4902, per channel, and with groups
-    of 512 where the columns split (a row-parallel shard of o or down splits
-    a group of 512: the placement refuses it); K3's second entry (the scale
+    / 896, down K 9472 / 4736) at m 1, 16, 4902, per channel, with groups of
+    512 where the columns split (a row-parallel shard of o or down splits a
+    group of 512: the placement refuses it) and with groups of 32 at the down
+    shards (which split no group of 32); K3's second entry (the scale
     pass and the quantize pass) at R 1, 8, 16, 731, 3078, 4902 over I 9472 /
     4736, against its plain version and, without a reduction, equal to the
     first entry; at R <= 16 also in a CUDA graph of 20. Each row: time, plain
@@ -4589,28 +4743,31 @@ def check_shard_shapes(g, randn, ints) -> dict:
                                    ("o", 3584 // tp, 3584, False),
                                    ("down", 18944 // tp, 3584, False)):
             wp = w4.pack_int4(_rand_int8(g, N, K, lo=-8, hi=8))
-            for G in ((0, K // W4_GROUP) if column else (0,)):
+            # groups of 512 where the columns split; groups of 32 at the down shard, which
+            # splits a group of 512 but not one of 32
+            groups = (0, K // W4_GROUP) if column else (0, K // W4_G32) if proj == "down" \
+                else (0,)
+            for G in groups:
                 ws = torch.rand((G, N) if G else (N,), generator=g, device="cuda") * 0.01 + 0.001
-                kind = "group 512" if G else "per channel"
+                kind = f"group {K // G}" if G else "per channel"
                 for m in (1, 16, 4902):
                     x = _rand_int8(g, m, K)
                     xs = torch.rand(m, 1, generator=g, device="cuda") * 0.05 + 0.001
-                    got = w4.w4_matmul(x, xs, wp, ws)
+                    got, route = _k4_route_call(x, xs, wp, ws)
                     torch.cuda.synchronize()
-                    want = w4.w4_matmul_ref(x, xs, wp, ws)
+                    want = _k4_want(x, xs, wp, ws)
                     ms = cuda_ms(lambda: w4.w4_matmul(x, xs, wp, ws), warmup=1, iters=5)
                     plain_ms = cuda_ms(lambda: w4.w4_matmul_ref(x, xs, wp, ws), warmup=1,
                                        iters=2)
-                    b = bound(m * K + m * 4 + N * K // 2 + ws.numel() * 4 + m * N * 2,
-                              2.0 * m * K * N, "int8")
+                    b = k4_bound(m, K, N, G, True)
                     name = f"K4 w4a8 tp {tp} {proj} m={m} K={K} N={N} {kind}"
-                    _line(name, f"equal {torch.equal(got, want)}", ms, plain_ms, b)
+                    _line(name, f"{route}: equal {torch.equal(got, want)}", ms, plain_ms, b)
                     if not torch.equal(got, want):
                         raise SystemExit(f"chip_smoke: {name} differs from its plain version")
                     out["w4_matmul"].append(dict(case=name, max_abs_err=0.0, ms=ms,
                                                  plain_ms=plain_ms, library_ms=None, **b))
                     xb = randn(m, K)
-                    got = w4.w4_matmul(xb, None, wp, ws).float()
+                    got = _k4_route_call(xb, None, wp, ws)[0].float()
                     torch.cuda.synchronize()
                     want = w4.w4_matmul_ref(xb, None, wp, ws).float()
                     tol = (2.0**-7 * want.abs()
@@ -4620,8 +4777,7 @@ def check_shard_shapes(g, randn, ints) -> dict:
                     ms = cuda_ms(lambda: w4.w4_matmul(xb, None, wp, ws), warmup=1, iters=5)
                     plain_ms = cuda_ms(lambda: w4.w4_matmul_ref(xb, None, wp, ws), warmup=1,
                                        iters=2)
-                    b = bound(m * K * 2 + N * K // 2 + ws.numel() * 4 + m * N * 2,
-                              2.0 * m * K * N, "bf16")
+                    b = k4_bound(m, K, N, G, False)
                     name = f"K4 w4 bf16-x tp {tp} {proj} m={m} K={K} N={N} {kind}"
                     _line(name, f"max abs err {err.max().item():.3e}, worst err/bound "
                           f"{worst:.3f}", ms, plain_ms, b)
@@ -5540,12 +5696,12 @@ def _gate_against_eager(path: str, loss: float, loss_e: float, got: dict, ref: d
 def _uncounted(fn):
     """fn() with the kernels' counters left as they were (launches made to
     check a step, not the main path's)."""
-    saved = [(c, key, c[key], c["plain"]) for c, key in COUNTERS.values()]
+    saved = [(c, dict(c)) for c, _key in COUNTERS.values()]
     try:
         return fn()
     finally:
-        for c, key, n, plain in saved:
-            c[key], c["plain"] = n, plain
+        for c, old in saved:
+            c.update(old)
 
 
 def _forward_loss(model, taken, noises, bn_state=None) -> float:
@@ -6798,6 +6954,10 @@ def run(tmp: str, phases=None) -> None:
             "'model' between a scale pass and a quantize pass)"),
         "w4_matmul": ("unimedvl_tpu_torch/csrc/w4_matmul.cu",
                       "unimedvl_tpu/ops/w4_matmul.py:202"),
+        "w4_matmul_simple": (
+            "unimedvl_tpu_torch/csrc/w4_matmul.cu",
+            "unimedvl_tpu/ops/w4_matmul.py:202 (the shapes its gate _kernel_fits :149 refuses, "
+            "which run its XLA group scan :262: groups of 16, 8, odd widths)"),
         "packed_train_attention_fwd": (
             train, "unimedvl_tpu/ops/flash_attention_train.py:263 (_fwd :111, _fwd_kernel :60)"),
         "packed_train_attention_bwd_dq": (

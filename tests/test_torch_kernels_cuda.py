@@ -16,12 +16,17 @@ absolute of the plain version's, and equal to it where that is float32 min
 
 The quantized kernels. K4 (packed-int4 matmul) with int8 x equals its plain
 version bit for bit, per channel and grouped (integer sums are exact and both
-apply the same rounded fp32 multiplies and adds in one order); with bf16 x the
-fp32 sums run in another order: |err| <= 2^-7 |plain| + 1e-3 * sqrt(K) * 8 *
-max|x| * max(w_scale) / 16 per element (a loose bound on the reordering error,
-well under one output rounding). K4's GEMV (m <= 4) combines its slice sums
-in a fixed order: repeats, and replays of a CUDA graph that captured it, are
-bit-equal to eager calls. K3 (silu * mul * quant): scales within 1e-6
+apply the same rounded fp32 multiplies and adds in one order), on every route
+``k4_route`` picks: the GEMV, the int8 GEMM, and the simple kernel that takes
+the shapes the tensor cores do not (groups of 16 or 8, K 96, N 12); the GEMV
+at groups of 32 adds its groups' fp32 terms in another association and equals
+its twin ``w4_gemv_tiled_ref`` bit for bit instead (the twin is held to the
+plain version on the CPU). With bf16 x the fp32 sums run in another order:
+|err| <= 2^-7 |plain| + 1e-3 * sqrt(K) * 8 * max|x| * max(w_scale) / 16 per
+element (a loose bound on the reordering error, well under one output
+rounding). K4's GEMV (m <= 4) combines its slice sums in a fixed order:
+repeats, and replays of a CUDA graph that captured it, are bit-equal to eager
+calls. K3 (silu * mul * quant): scales within 1e-6
 relative, q within one step, at most 1e-3 of the elements differing (expf
 against torch.sigmoid in the last place). K2-int8 takes the attention
 tolerance above, also over an int4 cache layer unpacked to int8 (the
@@ -705,68 +710,90 @@ W4_SHAPES = [
     (1, 3584, 4608, 0), (3, 3584, 4608, 7), (4, 18944, 3584, 37), (2, 1024, 512, 0),
     (5, 3584, 512, 0), (731, 3584, 4608, 0), (731, 3584, 4608, 7), (200, 18944, 3584, 37),
     (130, 1024, 136, 2), (64, 128, 8, 2), (3, 192, 24, 3), (70, 192, 136, 3), (131, 320, 264, 0),
+    # groups of 32 (the GEMV's fold, the GEMMs' pieces), of 96 (pieces of three products; the
+    # GEMV's slice of 96), K no multiple of 128
+    (3, 3584, 4608, 112), (200, 18944, 3584, 592), (64, 192, 24, 6), (5, 320, 264, 10),
+    (2, 192, 24, 2), (70, 192, 136, 2), (131, 576, 264, 6),
+]
+# the simple kernel's shapes: groups of 16, 8, 6, 2 in-rows; K no multiple of 64; N no multiple
+# of 8; a single in-row pair
+W4_SIMPLE_SHAPES = [
+    (1, 3584, 4608, 224), (4, 3584, 4608, 448), (17, 3584, 4608, 224), (3, 96, 12, 0),
+    (5, 96, 12, 6), (40, 96, 12, 3), (2, 128, 12, 0), (9, 320, 20, 20), (6, 6, 5, 3), (3, 2, 1, 0),
 ]
 # (K, N) of the LLM's four quantized projections: qkv fused, o, gate_up fused, down
 W4_PROJECTIONS = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584)]
 
 
-@pytest.mark.parametrize("shape", W4_SHAPES)
+def _w4_call(x, xs, wp, ws, route):
+    """One call of the wrapper, checked to be one launch of ``route``."""
+    before = dict(w4.route_counts), w4.counts["kernel"]
+    got = w4.w4_matmul(x, xs, wp, ws)
+    want = dict(before[0])
+    want[route] += 1
+    assert w4.route_counts == want and w4.counts["kernel"] == before[1] + 1
+    return got
+
+
+@pytest.mark.parametrize("shape", W4_SHAPES + W4_SIMPLE_SHAPES)
 def test_w4a8_matmul_equals_plain(gen, shape):
     m, K, N, G = shape
     _, wp, ws = _w4_inputs(gen, m, K, N, G)
     x = _int8(gen, m, K)
     xs = torch.rand(m, 1, generator=gen, device="cuda") * 0.05 + 0.001
-    before = w4.counts["kernel"]
-    got = w4.w4_matmul(x, xs, wp, ws)
-    assert w4.counts["kernel"] == before + 1
+    got = _w4_call(x, xs, wp, ws, w4.k4_route(m, K, N, G, True))
     want = w4.w4_matmul_ref(x, xs, wp, ws)
     assert got.dtype == torch.bfloat16 and got.shape == (m, N)
+    if w4.k4_route(m, K, N, G, True) == "gemv" and G and K // G == 32:  # the GEMV's fold
+        want = w4.w4_gemv_tiled_ref(x.cpu(), xs.cpu(), wp.cpu(), ws.cpu(), n_sms=w4._n_sms(x.device))
+        got = got.cpu()
     assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
 
 
-@pytest.mark.parametrize("group", [0, 512])
+@pytest.mark.parametrize("group", [0, 512, 32])
 @pytest.mark.parametrize("kn", W4_PROJECTIONS)
 @pytest.mark.parametrize("m", [5, 8, 16, 64, 65, 731, 4902])
 def test_w4a8_gemm_equals_plain_at_the_projection_shapes(gen, m, kn, group):
     """The int8-x GEMM (m > 4) at the prefill's shapes and a serving pool's
-    decode step (m 8, 16), per channel and with groups of 512 in-rows: equal
-    to the plain version bit for bit."""
+    decode step (m 8, 16), per channel and with groups of 512 and 32 in-rows:
+    equal to the plain version bit for bit."""
     K, N = kn
     _, wp, ws = _w4_inputs(gen, m, K, N, K // group if group else 0)
     x = _int8(gen, m, K)
     xs = torch.rand(m, 1, generator=gen, device="cuda") * 0.05 + 0.001
-    got = w4.w4_matmul(x, xs, wp, ws)
+    got = _w4_call(x, xs, wp, ws, "gemm")
     want = w4.w4_matmul_ref(x, xs, wp, ws)
     assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
 
 
-@pytest.mark.parametrize("shape", W4_SHAPES)
+def _assert_bf16_x_bound(got, want, x, ws, K):
+    got, want = got.float(), want.float()
+    bound = 2.0**-7 * want.abs() + 1e-3 * K**0.5 * 8 * x.float().abs().max() * ws.max() / 16
+    assert ((got - want).abs() <= bound).all(), ((got - want).abs() / bound).max().item()
+
+
+@pytest.mark.parametrize("shape", W4_SHAPES + W4_SIMPLE_SHAPES)
 def test_w4_matmul_bf16_x_matches_plain(gen, shape):
     m, K, N, G = shape
     _, wp, ws = _w4_inputs(gen, m, K, N, G)
     x = _randn(gen, m, K)
-    got = w4.w4_matmul(x, None, wp, ws).float()
-    want = w4.w4_matmul_ref(x, None, wp, ws).float()
-    bound = 2.0**-7 * want.abs() + 1e-3 * K**0.5 * 8 * x.float().abs().max() * ws.max() / 16
-    assert ((got - want).abs() <= bound).all(), ((got - want).abs() / bound).max().item()
+    got = _w4_call(x, None, wp, ws, w4.k4_route(m, K, N, G, False))
+    _assert_bf16_x_bound(got, w4.w4_matmul_ref(x, None, wp, ws), x, ws, K)
 
 
-@pytest.mark.parametrize("group", [0, 512])
+@pytest.mark.parametrize("group", [0, 512, 32])
 @pytest.mark.parametrize("kn", W4_PROJECTIONS)
 @pytest.mark.parametrize("m", [5, 17, 255, 257, 731, 4902])
 def test_w4_bf16_gemm_matches_plain_at_the_projection_shapes(gen, m, kn, group):
     """The bf16-x GEMM (weight-only w4, m > 4) at the prefill's shapes, per
-    channel and with groups of 512 in-rows: x tiles of 64, 128 and 256 rows,
-    cut at the edge (255, 257, 731, 4902) and a text prefill's few rows."""
+    channel and with groups of 512 and 32 in-rows: x tiles of 64, 128 and 256
+    rows, cut at the edge (255, 257, 731, 4902) and a text prefill's few
+    rows."""
     K, N = kn
     _, wp, ws = _w4_inputs(gen, m, K, N, K // group if group else 0)
     x = _randn(gen, m, K)
-    before = w4.counts["kernel"]
-    got = w4.w4_matmul(x, None, wp, ws).float()
-    assert w4.counts["kernel"] == before + 1
-    want = w4.w4_matmul_ref(x, None, wp, ws).float()
-    bound = 2.0**-7 * want.abs() + 1e-3 * K**0.5 * 8 * x.float().abs().max() * ws.max() / 16
-    assert ((got - want).abs() <= bound).all(), ((got - want).abs() / bound).max().item()
+    got = _w4_call(x, None, wp, ws, "bf16_gemm")
+    _assert_bf16_x_bound(got, w4.w4_matmul_ref(x, None, wp, ws), x, ws, K)
 
 
 def _w4_gemv_x(gen, m, K, int8x):
@@ -779,32 +806,41 @@ def _assert_w4_matches_plain(got, want, x, xs, ws, K):
     if xs is not None:  # int8 x: bit for bit
         assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
         return
-    got, want = got.float(), want.float()
-    bound = 2.0**-7 * want.abs() + 1e-3 * K**0.5 * 8 * x.float().abs().max() * ws.max() / 16
-    assert ((got - want).abs() <= bound).all(), ((got - want).abs() / bound).max().item()
+    _assert_bf16_x_bound(got, want, x, ws, K)
+
+
+def _w4_gemv_want(x, xs, wp, ws):
+    """What the GEMV must equal: the plain version, or with int8 x at groups
+    of 32 its twin (the fold's order), on the CPU."""
+    K = 2 * wp.shape[1]
+    if xs is not None and ws.dim() == 2 and K // ws.shape[0] == 32:
+        return w4.w4_gemv_tiled_ref(x.cpu(), xs.cpu(), wp.cpu(), ws.cpu(),
+                                    n_sms=w4._n_sms(x.device)).to(x.device)
+    return w4.w4_matmul_ref(x, xs, wp, ws)
 
 
 @pytest.mark.parametrize("int8x", [True, False], ids=["int8_x", "bf16_x"])
-@pytest.mark.parametrize("group", [0, 512])
+@pytest.mark.parametrize("group", [0, 512, 32])
 @pytest.mark.parametrize("kn", W4_PROJECTIONS)
 @pytest.mark.parametrize("m", [1, 2, 3, 4])
 def test_w4_gemv_matches_plain_at_the_projection_shapes(gen, m, kn, group, int8x):
     """The GEMV (m <= 4) at the decode step's shapes, per channel and with
-    groups of 512 in-rows: int8 x equal to the plain version, bf16 x within
-    the reordering bound; three calls bit-equal, each counted once."""
+    groups of 512 and 32 in-rows: int8 x equal to the plain version (at
+    groups of 32 to its twin ``w4_gemv_tiled_ref``), bf16 x within the
+    reordering bound; three calls bit-equal, each counted once."""
     K, N = kn
     _, wp, ws = _w4_inputs(gen, m, K, N, K // group if group else 0)
     x, xs = _w4_gemv_x(gen, m, K, int8x)
-    before = w4.counts["kernel"]
-    outs = [w4.w4_matmul(x, xs, wp, ws) for _ in range(3)]
-    assert w4.counts["kernel"] == before + 3
+    outs = [_w4_call(x, xs, wp, ws, "gemv") for _ in range(3)]
     assert outs[0].dtype == torch.bfloat16 and outs[0].shape == (m, N)
     assert all(torch.equal(o, outs[0]) for o in outs[1:])
-    _assert_w4_matches_plain(outs[0], w4.w4_matmul_ref(x, xs, wp, ws), x, xs, ws, K)
+    _assert_w4_matches_plain(outs[0], _w4_gemv_want(x, xs, wp, ws), x, xs, ws, K)
 
 
 @pytest.mark.parametrize("int8x", [True, False], ids=["int8_x", "bf16_x"])
-@pytest.mark.parametrize("shape", [(1, 3584, 37888, 0), (4, 18944, 3584, 37), (3, 3584, 4608, 7)])
+@pytest.mark.parametrize("shape", [(1, 3584, 37888, 0), (4, 18944, 3584, 37), (3, 3584, 4608, 7),
+                                   (1, 3584, 37888, 112), (4, 18944, 3584, 592),
+                                   (2, 3584, 4608, 112)])
 def test_w4_gemv_replays_in_a_cuda_graph(gen, shape, int8x):
     """Captured in a CUDA graph, the GEMV replays bit-equal to eager calls on
     the x copied in before each of three replays: its arrival counters are
@@ -826,7 +862,22 @@ def test_w4_gemv_replays_in_a_cuda_graph(gen, shape, int8x):
         torch.cuda.synchronize()
         want = w4.w4_matmul(new_x, new_xs, wp, ws)
         assert torch.equal(y, want)
-        _assert_w4_matches_plain(y, w4.w4_matmul_ref(new_x, new_xs, wp, ws), new_x, new_xs, ws, K)
+        _assert_w4_matches_plain(y, _w4_gemv_want(new_x, new_xs, wp, ws), new_x, new_xs, ws, K)
+
+
+@pytest.mark.parametrize("int8x", [True, False], ids=["int8_x", "bf16_x"])
+@pytest.mark.parametrize("group", [16, 8])
+@pytest.mark.parametrize("m", [1, 4, 17, 731])
+def test_w4_simple_kernel_at_a_projection_shape(gen, m, group, int8x):
+    """Groups of 16 and 8 in-rows fit no tensor-core product: the simple
+    kernel takes them at the qkv projection's shape, at a decode step's rows,
+    a text block's and a 378 px image prefill's; int8 x equal to the plain
+    version, bf16 x within the reordering bound."""
+    K, N = 3584, 4608
+    _, wp, ws = _w4_inputs(gen, m, K, N, K // group)
+    x, xs = _w4_gemv_x(gen, m, K, int8x)
+    got = _w4_call(x, xs, wp, ws, "simple")
+    _assert_w4_matches_plain(got, w4.w4_matmul_ref(x, xs, wp, ws), x, xs, ws, K)
 
 
 def test_w4_matmul_leading_dims_and_unpack(gen):
@@ -840,11 +891,12 @@ def test_w4_matmul_leading_dims_and_unpack(gen):
 
 
 def test_quantized_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    # K 96 is no tensor-core shape: the simple kernel takes it, equal to the plain version
     _, wp, ws = _w4_inputs(gen, 1, 96, 16, 0)
     x = _int8(gen, 2, 96)
     xs = torch.ones(2, 1, device="cuda")
-    with pytest.raises(ValueError, match="multiple of 64"):
-        w4.w4_matmul(x, xs, wp, ws)
+    got = _w4_call(x, xs, wp, ws, "simple")
+    assert torch.equal(got, w4.w4_matmul_ref(x, xs, wp, ws))
     _, wp, ws = _w4_inputs(gen, 1, 128, 16, 0)
     with pytest.raises(TypeError, match="int8 .* or bfloat16"):
         w4.w4_matmul(torch.zeros(2, 128, device="cuda"), None, wp, ws)

@@ -355,17 +355,19 @@ class TestW4Matmul:
     @pytest.mark.parametrize("m,K,N,groups", [
         (5, 1024, 512, 0), (300, 1024, 512, 0), (37, 1024, 512, 2), (261, 1024, 512, 1),
         (70, 192, 136, 3), (131, 320, 264, 0),
+        (37, 512, 512, 16), (70, 192, 136, 6), (131, 320, 264, 10), (70, 192, 136, 2),
     ])
     def test_w4a8_gemm_partition_equals_plain(self, m, K, N, groups):
         """The int8-x GEMM's partition (``w4a8_gemm_tiled_ref``: 128 weight rows
-        by 256 x rows, or 128 with group scales; k32 products; group flushes;
-        the epilogue's order of multiplies) equals the plain version bit for
-        bit, in fp32 and after the bf16 rounding, with m no multiple of 64, K
-        no multiple of the 128-row stage (192, 320), groups of 64 and N no
-        multiple of the 128-row tile; at K 1024, N 512 also the JAX kernel
-        (interpret mode, ``force_kernel=True``): equal per channel, within the
-        grouped test's rtol 1e-6, atol 1e-5 with group scales (it may fuse
-        the multiply-add)."""
+        by 256 x rows, 128 with groups of a multiple of 64 in-rows, 64 with
+        groups of 32 or 96; k32 products; group flushes; the epilogue's order
+        of multiplies) equals the plain version bit for bit, in fp32 and after
+        the bf16 rounding, with m no multiple of 64, K no multiple of the
+        128-row stage (192, 320), groups of 64, 32 and 96 and N no multiple of
+        the 128-row tile; at K 1024, N 512 also the JAX kernel (interpret
+        mode, ``force_kernel=True``): equal per channel, within the grouped
+        test's rtol 1e-6, atol 1e-5 with group scales (it may fuse the
+        multiply-add)."""
         rng = np.random.default_rng(m + K + groups)
         xq = rng.integers(-127, 128, (m, K)).astype(np.int8)
         xs = rng.uniform(0.01, 0.1, (m, 1)).astype(np.float32)
@@ -389,6 +391,80 @@ class TestW4Matmul:
             np.testing.assert_allclose(plain, jwant, rtol=1e-6, atol=1e-5)
         else:
             np.testing.assert_array_equal(plain, jwant)
+
+    @pytest.mark.parametrize("int8_x", [True, False], ids=["int8_x", "bf16_x"])
+    @pytest.mark.parametrize("K,N,groups", [
+        (1024, 512, 32), (1024, 512, 64), (1024, 512, 128), (96, 12, 0), (96, 12, 3),
+        (96, 12, 6),
+    ])
+    def test_plain_matches_the_jax_group_scan(self, K, N, groups, int8_x):
+        """The shapes the JAX package's Pallas K4 does not take (groups of 32,
+        16 and 8 in-rows, K 96 with N 12) run its XLA route (the group scan);
+        the port's plain version, which the card's simple kernel and group-32
+        routes are held to, against it on the same inputs: int8 x equal per
+        channel; with group scales within the grouped test's rtol 1e-6 and
+        its atol 1e-5 per two groups (XLA may fuse each group's multiply-add:
+        one rounding of a term of size up to 100 a group, so the atol grows
+        with G; 1e-5 at the grouped test's G = 2); bf16 x within the bf16
+        branch's rtol 1e-4, atol 1e-4."""
+        rng = np.random.default_rng(K + N + groups)
+        xq = rng.integers(-127, 128, (20, K)).astype(np.int8)
+        xs = rng.uniform(0.01, 0.1, (20, 1)).astype(np.float32)
+        q = rng.integers(-8, 8, (K, N)).astype(np.int8)
+        ws = rng.uniform(0.01, 0.1, (groups, N) if groups else (N,)).astype(np.float32)
+        wp_t = w4.pack_int4(torch.from_numpy(q.T.copy()))
+        jwp, jws = jnp.asarray(jw4.pack_int4(q)), jnp.asarray(ws)
+        if int8_x:
+            want = jw4.w4_matmul(jnp.asarray(xq), jnp.asarray(xs), jwp, jws, out_dtype=jnp.float32)
+            got = w4.w4_matmul(torch.from_numpy(xq), torch.from_numpy(xs), wp_t,
+                               torch.from_numpy(ws), out_dtype=torch.float32)
+        else:
+            x = torch.from_numpy(_rand(rng, 20, K)).bfloat16()
+            want = jw4.w4_matmul(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16), None, jwp,
+                                 jws, out_dtype=jnp.float32)
+            got = w4.w4_matmul(x, None, wp_t, torch.from_numpy(ws), out_dtype=torch.float32)
+        if int8_x and not groups:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        elif int8_x:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                       atol=1e-5 * groups / 2)
+        else:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("int8_x", [True, False])
+    def test_k4_route_gives_every_shape_a_kernel(self, int8_x):
+        """Every shape the plain version takes has a route on the card: the
+        GEMV (m <= 4), the int8 GEMM or the bf16 GEMM where K is a multiple of
+        64, N of 8 and the group (K / G, or K per channel) of 32; the simple
+        kernel everywhere else. Each GEMV shape has a plan whose slices the C
+        entry takes (a multiple of 32 up to 512 dividing K, and the group
+        unless it is 32)."""
+        for m in (1, 4, 5, 731):
+            for K in (2, 6, 96, 128, 192, 320, 3584, 18944):
+                for N in (1, 12, 16, 4608):
+                    for G in [0] + [g for g in (1, 2, 3, 6, 7, 10, 37, 112, 224, 448, 592)
+                                    if K % g == 0]:
+                        gsize = K // G if G else K
+                        tensor = K % 64 == 0 and N % 8 == 0 and gsize % 32 == 0
+                        want = ("simple" if not tensor else "gemv" if m <= 4
+                                else "gemm" if int8_x else "bf16_gemm")
+                        assert w4.k4_route(m, K, N, G, int8_x) == want, (m, K, N, G)
+                        if want != "gemv":
+                            continue
+                        plan = w4.gemv_plan(m, K, N, G, 132, bf16_x=not int8_x)
+                        assert plan.slice_k % 32 == 0 and plan.slice_k <= 512
+                        assert K % plan.slice_k == 0
+                        assert plan.fold == (gsize == 32)
+                        assert plan.fold or gsize % plan.slice_k == 0
+        # the 14B projections at groups of 32 (the tensor cores), 16 and 8 (the simple kernel)
+        for K, N in ((3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584)):
+            for m, route in ((1, "gemv"), (4, "gemv"), (5, "gemm" if int8_x else "bf16_gemm"),
+                             (4902, "gemm" if int8_x else "bf16_gemm")):
+                assert w4.k4_route(m, K, N, K // 32, int8_x) == route
+                assert w4.k4_route(m, K, N, K // 16, int8_x) == "simple"
+                assert w4.k4_route(m, K, N, K // 8, int8_x) == "simple"
+        assert w4.k4_route(1, 3584, w4.KERNEL_MAX_N + 8, 0, int8_x) == "simple"
+        assert w4.k4_route(731, w4.KERNEL_MAX_K + 64, 8, 0, int8_x) == "simple"
 
     @pytest.mark.parametrize("groups", [0, 2])
     def test_bf16_x_branch(self, groups):

@@ -12,6 +12,14 @@ K 1024, N 512, as ``test_torch_quant.py`` runs it): int8 x per channel equal;
 with group scales within rtol 1e-6, atol 1e-5 (the Pallas kernel may fuse the
 group's multiply-add); bf16 x within rtol 1e-4, atol 1e-4 (its two half-K
 dots sum in another order).
+
+Groups of 32 in-rows (``fold``): a slice holds whole groups, folded into an
+fp32 slice sum in group order, and the slices add in order: the plain
+version's fp32 terms t_g (each group's sum times its scale) in another
+association. Both sums of the G terms are within (G - 1) 2^-24 sum_g |t_g| of
+the exact one, so the twin is held to the plain version within G 2^-23
+sum_g |t_g| |x_scale| (bf16 x: plus 32 2^-23 sum |x w w_scale| for the
+order inside a group's dot).
 """
 
 import jax.numpy as jnp
@@ -88,17 +96,11 @@ PLAN_SHAPES = [(3584, 4608, 0), (3584, 3584, 0), (3584, 37888, 0), (18944, 3584,
                (3584, 4608, 7), (3584, 3584, 7), (3584, 37888, 7), (18944, 3584, 37)] + SHAPES
 
 
-@pytest.mark.parametrize("n_sms", [132, 114, 7, 1])
-@pytest.mark.parametrize("shape", PLAN_SHAPES)
-def test_plan_covers_every_byte_once_in_group_aligned_balanced_runs(shape, n_sms):
-    K, N, G = shape
-    plan = w4.gemv_plan(1, K, N, G, n_sms)
-    gsize = K // G if G else K
-    assert gsize % plan.slice_k == 0 and plan.slice_k in w4.GEMV_SLICES
-    assert plan.slice_k == max(s for s in w4.GEMV_SLICES if gsize % s == 0)
+def _check_coverage(plan, N, n_sms, inside):
+    """Every (weight row, slice) once, in contiguous balanced runs; ``inside(s)``
+    holds for every slice s a worker takes."""
     assert plan.n_workers == min(n_sms * w4.GEMV_WARPS_PER_SM, plan.n_units)
     # the slices tile a packed row: bytes [s slice_k / 2, (s + 1) slice_k / 2) are slice s's
-    assert plan.n_slices * plan.slice_k == K
     covered = torch.zeros(N, plan.n_slices, dtype=torch.int32)  # per weight row and slice
     sizes, seen = [], []
     for worker in range(plan.n_workers):
@@ -108,11 +110,88 @@ def test_plan_covers_every_byte_once_in_group_aligned_balanced_runs(shape, n_sms
         for u in units:
             tile, s = divmod(u, plan.n_slices)
             covered[tile * w4.GEMV_COLS:(tile + 1) * w4.GEMV_COLS, s] += 1
-            # a slice lies inside one group
-            assert s * plan.slice_k // gsize == ((s + 1) * plan.slice_k - 1) // gsize
+            assert inside(s)
     assert seen == list(range(plan.n_units))  # contiguous runs, in order
     assert bool((covered == 1).all())
     assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+
+
+@pytest.mark.parametrize("n_sms", [132, 114, 7, 1])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_covers_every_byte_once_in_group_aligned_balanced_runs(shape, n_sms):
+    K, N, G = shape
+    plan = w4.gemv_plan(1, K, N, G, n_sms)
+    gsize = K // G if G else K
+    assert gsize % plan.slice_k == 0 and plan.slice_k in w4.GEMV_SLICES
+    assert plan.slice_k == max(s for s in w4.GEMV_SLICES if gsize % s == 0)
+    assert plan.n_slices * plan.slice_k == K and not plan.fold
+    # a slice lies inside one group
+    _check_coverage(plan, N, n_sms, lambda s: s * plan.slice_k // gsize
+                    == ((s + 1) * plan.slice_k - 1) // gsize)
+
+
+# (K, N, G) at groups of 32 in-rows: the four projections, K no multiple of 128, N no multiple
+# of the 32-row tile
+FOLD_SHAPES = [(3584, 4608, 112), (3584, 3584, 112), (3584, 37888, 112), (18944, 3584, 592),
+               (192, 136, 6), (320, 24, 10), (1024, 512, 32), (2368, 56, 74)]
+
+
+@pytest.mark.parametrize("n_sms", [132, 114, 7, 1])
+@pytest.mark.parametrize("shape", FOLD_SHAPES)
+def test_plan_at_groups_of_32_folds_whole_groups(shape, n_sms):
+    """At groups of 32 the slice is the largest of GEMV_SLICES that divides
+    K (the per-channel slice: 512 at every 14B projection), so each slice
+    holds whole groups and its workspace is the per-channel one; every byte
+    once, in contiguous balanced runs."""
+    K, N, G = shape
+    for m in (1, 4):
+        for bf16_x in (False, True):
+            plan = w4.gemv_plan(m, K, N, G, n_sms, bf16_x=bf16_x)
+            assert plan.fold and plan.slice_k == max(s for s in w4.GEMV_SLICES if K % s == 0)
+            assert plan.slice_k == w4.gemv_plan(m, K, N, 0, n_sms, bf16_x=bf16_x).slice_k
+            assert plan.n_slices * plan.slice_k == K and plan.slice_k % (K // G) == 0
+    _check_coverage(plan, N, n_sms, lambda s: True)
+
+
+def _fold_bound(x, x_scale, q, ws):
+    """G 2^-23 sum_g |t_g| |x_scale| per output (bf16 x: plus the group dots'
+    own order, 32 2^-23 sum |x w w_scale|), in float64."""
+    G, N = ws.shape
+    g = x.shape[1] // G
+    xg = x.reshape(x.shape[0], G, g).transpose(1, 0, 2).astype(np.float64)
+    qg = q.reshape(G, g, N).astype(np.float64)
+    terms = np.abs(np.matmul(xg, qg)) * ws[:, None, :]  # [G, m, N]
+    bound = G * 2.0**-23 * terms.sum(0)
+    if x_scale is None:
+        bound += g * 2.0**-23 * (np.matmul(np.abs(xg), np.abs(qg)) * ws[:, None, :]).sum(0)
+    else:
+        bound *= np.abs(x_scale)
+    return bound
+
+
+@pytest.mark.parametrize("n_sms", [132, 5])
+@pytest.mark.parametrize("shape", [(1024, 512, 32), (192, 136, 6), (320, 24, 10),
+                                   (2368, 56, 74)])
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_twin_at_groups_of_32_within_the_fold_bound(m, shape, n_sms):
+    """The fold's order (the kernel's twin) against the plain version's
+    single fold over the groups: within the bound above, int8 and bf16 x;
+    the twin repeats bit for bit and counts as no call."""
+    K, N, G = shape
+    xq, xs, xb, q, ws, wp = _inputs(m * 5 + K + G, m, K, N, G)
+    args = (torch.from_numpy(xq), torch.from_numpy(xs), wp, torch.from_numpy(ws))
+    before = dict(w4.counts)
+    got = w4.w4_gemv_tiled_ref(*args, n_sms=n_sms, out_dtype=torch.float32)
+    assert w4.counts == before
+    assert torch.equal(got, w4.w4_gemv_tiled_ref(*args, n_sms=n_sms, out_dtype=torch.float32))
+    want = w4.w4_matmul_ref(*args, out_dtype=torch.float32)
+    err = (got.double() - want.double()).abs().numpy()
+    assert (err <= _fold_bound(xq, xs, q, ws)).all()
+    got = w4.w4_gemv_tiled_ref(xb, None, wp, torch.from_numpy(ws), n_sms=n_sms,
+                               out_dtype=torch.float32)
+    want = w4.w4_matmul_ref(xb, None, wp, torch.from_numpy(ws), out_dtype=torch.float32)
+    err = (got.double() - want.double()).abs().numpy()
+    assert (err <= _fold_bound(xb.float().numpy(), None, q, ws)).all()
 
 
 def test_plan_takes_python_ints_and_gemv_shapes_only():

@@ -27,20 +27,30 @@ Arithmetic, which the plain version and the kernel share:
   grouped, each group's sum is scaled (rounded multiply) and added (rounded
   add) in group order.
 
-``w4_matmul`` launches the kernel for CUDA tensors and runs the plain version
-for CPU tensors. On the card, m <= 4 rows take a weight stream on ``mma.sync``
-split evenly over the SMs: units of 32 weight rows by one slice of in-rows,
-a contiguous share of them per warp (``gemv_plan``), slice sums in a
-workspace, and the warp that brings a tile's last slice adding the slices in
-order, or for the small projections one CTA per tile adding them in shared
-memory (``w4_gemv_tiled_ref`` is that partition and combine in plain torch).
-More rows take a GEMM on ``wgmma`` fed by a TMA ring: with int8 x the weights
-are spread from packed bytes into the register operand
-(``w4a8_gemm_tiled_ref`` is that partition in plain torch); with bf16 x they
-are widened into a bf16 tile in shared memory, each nibble through the
-mantissa of 128.0 (``widen_nibbles_twin``; the GEMV widens the same way in
-registers). A shape the kernel does not take raises: there is no threshold
-and no fallback.
+``w4_matmul`` launches a kernel for CUDA tensors and runs the plain version
+for CPU tensors. On the card, ``k4_route`` picks the kernel from the shape
+alone. Where K is a multiple of 64, N of 8 and the group (K / G, or K per
+channel) of 32, a route on the tensor cores:
+
+- m <= 4 rows (``"gemv"``): a weight stream on ``mma.sync`` split evenly over
+  the SMs: units of 32 weight rows by one slice of in-rows, a contiguous
+  share of them per warp (``gemv_plan``), slice sums in a workspace, and the
+  warp that brings a tile's last slice adding the slices in order, or for the
+  small projections one CTA per tile adding them in shared memory
+  (``w4_gemv_tiled_ref`` is that partition and combine in plain torch). With
+  groups of 32 in-rows each warp folds its slice's groups in order into an
+  fp32 slice sum, and the slices add in order after it: an order of fp32
+  additions of its own (``w4_gemv_tiled_ref``).
+- more rows, int8 x (``"gemm"``) or bf16 x (``"bf16_gemm"``): a GEMM on
+  ``wgmma`` fed by a TMA ring: with int8 x the weights are spread from packed
+  bytes into the register operand (``w4a8_gemm_tiled_ref`` is that partition
+  in plain torch); with bf16 x they are widened into a bf16 tile in shared
+  memory, each nibble through the mantissa of 128.0 (``widen_nibbles_twin``;
+  the GEMV widens the same way in registers).
+
+Any other shape (groups of 16, 8 or an odd width, K not a multiple of 64, N
+not of 8) takes ``"simple"``: one thread an output on the CUDA cores, in the
+plain version's order. There is no threshold and no fallback.
 
 Gradients. The kernel has no backward, so its wrapper refuses inputs that
 require grad while grad mode is on (``_launch.check_no_grad``).
@@ -61,18 +71,25 @@ import torch
 
 from unimedvl_tpu_torch.ops import _launch, cuda_build
 
-# launches of the kernel and calls of the plain version, for showing which ran
+# launches of a kernel (any route) and calls of the plain version, for showing which ran;
+# ``route_counts``: the launches by route (``k4_route``)
 counts = {"kernel": 0, "plain": 0}
+route_counts = {route: 0 for route in ("gemv", "gemm", "bf16_gemm", "simple")}
 
-KERNEL_K_MULTIPLE = 64  # one k-step of the kernel: 32 packed bytes of a weight row
-KERNEL_N_MULTIPLE = 8
-# the int8-x GEMM's partition: a CTA's weight rows, its x rows per channel and with group
-# scales, and the in-rows of one product (a stage holds four)
-GEMM_W_ROWS, GEMM_X_ROWS, GEMM_X_ROWS_GROUPED, GEMM_K_STEP = 128, 256, 128, 32
+# the tensor-core routes: K whole k-steps of 64 in-rows (32 packed bytes of a weight row), N
+# whole 8-row tiles, each group whole k32 products; N within the GEMMs' grid of 128-row weight
+# tiles; K small enough that an int32 sum of 16 times each product stays below 2^31
+KERNEL_K_MULTIPLE, KERNEL_N_MULTIPLE, KERNEL_GROUP_MULTIPLE = 64, 8, 32
+KERNEL_MAX_N, KERNEL_MAX_K = 65535 * 128, (1 << 17) - 64
+# the int8-x GEMM's partition: a CTA's weight rows, its x rows per channel, with groups of a
+# multiple of 64 in-rows and with other groups (each k32 product a sum of its own), and the
+# in-rows of one product (a stage holds four)
+GEMM_W_ROWS, GEMM_X_ROWS, GEMM_X_ROWS_GROUPED, GEMM_X_ROWS_PIECES, GEMM_K_STEP = \
+    128, 256, 128, 64, 32
 # the GEMV: the most x rows it takes, the weight rows of a unit, the in-rows of a unit's slice
-# (the first that divides the group, or K per channel), its workers (warps) per SM, the most
-# slices of a tile combined in one CTA, and the arrival counters kept per card (one a tile:
-# N < 65536 x 128, which the kernel's argument checks hold, makes at most 2^18 tiles)
+# (the first that divides the group, or K per channel; with groups of 32 the first that
+# divides K), its workers (warps) per SM, the most slices of a tile combined in one CTA, and
+# the arrival counters kept per card (one a tile: N <= KERNEL_MAX_N makes at most 2^18 tiles)
 GEMV_MAX_ROWS, GEMV_COLS, GEMV_SLICES = 4, 32, (512, 256, 128, 64)
 GEMV_WARPS_PER_SM, GEMV_TILE_CTA_SLICES, GEMV_MAX_TILES = 16, 8, 1 << 18
 
@@ -132,6 +149,22 @@ def _n_groups(w_scale: torch.Tensor, N: int, K: int) -> int:
     return w_scale.shape[0]
 
 
+def k4_route(m: int, K: int, N: int, G: int, int8_x: bool) -> str:
+    """The kernel that takes a call of ``m`` x rows, K in-rows, N weight rows
+    and G groups (0: per channel), from the shape alone: ``"gemv"`` (m <= 4),
+    ``"gemm"`` (int8 x) or ``"bf16_gemm"`` (bf16 x) where K is a multiple of
+    64, N of 8 and the group (K / G, or K) of 32, within KERNEL_MAX_N and
+    KERNEL_MAX_K; else ``"simple"``. The C entry chooses the same way from
+    the same shape (``k4_route`` in ``csrc/w4_matmul.cu``)."""
+    gsize = K // G if G else K
+    if (K % KERNEL_K_MULTIPLE or N % KERNEL_N_MULTIPLE or gsize % KERNEL_GROUP_MULTIPLE
+            or N > KERNEL_MAX_N or K > KERNEL_MAX_K):
+        return "simple"
+    if m <= GEMV_MAX_ROWS:
+        return "gemv"
+    return "gemm" if int8_x else "bf16_gemm"
+
+
 def w4_matmul_ref(
     x: torch.Tensor,
     x_scale: Optional[torch.Tensor],
@@ -177,19 +210,21 @@ def w4_matmul_ref(
 def w4a8_gemm_tiled_ref(x, x_scale, wp, w_scale, out_dtype=torch.bfloat16) -> torch.Tensor:
     """The int8-x GEMM's partition (m > 4) in plain torch on the CPU:
     y^T = W x^T per tile of GEMM_W_ROWS weight rows by GEMM_X_ROWS x rows
-    (GEMM_X_ROWS_GROUPED with group scales), the weights as the kernel's
-    registers hold them (signed bytes, 16 times each nibble), int32 sums over
-    products of GEMM_K_STEP in-rows in k order, shifted right by 4; with group
-    scales each group's sum is flushed at its end into an fp32 sum (rounded
-    multiply by the group's scale, rounded add); then the epilogue's order:
-    float(acc) * x_scale * w_scale per channel, fp32 sum * x_scale grouped.
-    Equal to :func:`w4_matmul_ref` bit for bit. Counts as no call of either
-    version."""
+    (GEMM_X_ROWS_GROUPED with groups of a multiple of 64 in-rows,
+    GEMM_X_ROWS_PIECES with other groups: 32, 96, ...), the weights as the
+    kernel's registers hold them (signed bytes, 16 times each nibble), int32
+    sums over products of GEMM_K_STEP in-rows in k order, shifted right by 4;
+    with group scales each group's sum is flushed at its end into an fp32 sum
+    (rounded multiply by the group's scale, rounded add); then the epilogue's
+    order: float(acc) * x_scale * w_scale per channel, fp32 sum * x_scale
+    grouped. Equal to :func:`w4_matmul_ref` bit for bit. Counts as no call of
+    either version."""
     N, K = wp.shape[0], 2 * wp.shape[1]
     m = x.numel() // K
     G = _n_groups(w_scale, N, K)
     gsize = K // G if G else K
-    rows = GEMM_X_ROWS_GROUPED if G else GEMM_X_ROWS
+    rows = (GEMM_X_ROWS if not G else GEMM_X_ROWS_GROUPED if gsize % 64 == 0
+            else GEMM_X_ROWS_PIECES)
     x2 = x.reshape(m, K).to(torch.int32)
     xs = x_scale.reshape(m).float()
     w16 = unpack_int4(wp).to(torch.int32) * 16
@@ -225,6 +260,7 @@ class GemvPlan(NamedTuple):
     n_units: int
     n_workers: int
     tile_ctas: bool  # one CTA per tile, a warp per slice, combined in shared memory
+    fold: bool  # groups of 32 in-rows: a slice holds whole groups, folded into an fp32 sum
 
     def units(self, worker: int) -> range:
         return range(self.n_units * worker // self.n_workers,
@@ -233,43 +269,57 @@ class GemvPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None, typed=True)
 def gemv_plan(m: int, K: int, N: int, G: int, n_sms: int, bf16_x: bool = False) -> GemvPlan:
-    """The partition of the GEMV (m <= GEMV_MAX_ROWS rows) over the warps of
+    """The partition of the GEMV (``k4_route``'s ``"gemv"``) over the warps of
     ``n_sms`` SMs, from Python ints alone: slices of the largest of
     GEMV_SLICES in-rows that divides the group (K / G, or K per channel), so
-    no slice straddles two groups; GEMV_WARPS_PER_SM workers per SM, or one
-    per unit where there are fewer; each worker a contiguous run of units,
-    the runs differing by at most one unit (so every SM streams the same
-    bytes to within GEMV_WARPS_PER_SM units). Where every unit has a worker
-    and a tile has at most GEMV_TILE_CTA_SLICES slices (qkv and o at K 3584),
-    each tile is one CTA (``tile_ctas``) whose warps combine in shared
-    memory: the same units and combine order, without the workspace's round
-    trips. With bf16 x only where no SM gets two such CTAs (o, not qkv): the
-    widening makes an SM with two the tail (measured on the H100; PERF.md)."""
+    no slice straddles two groups (a group of an odd multiple of 32 above 32
+    none divides: the largest multiple of 32 up to 512 that does); with
+    groups of 32 (``fold``) the largest that divides K, each slice whole
+    groups; GEMV_WARPS_PER_SM workers per SM, or one per unit where there are
+    fewer; each worker a contiguous run of units, the runs differing by at
+    most one unit (so every SM streams the same bytes to within
+    GEMV_WARPS_PER_SM units). Where every unit has a worker and a tile has at
+    most GEMV_TILE_CTA_SLICES slices (qkv and o at K 3584), each tile is one
+    CTA (``tile_ctas``) whose warps combine in shared memory: the same units
+    and combine order, without the workspace's round trips. With bf16 x only
+    where no SM gets two such CTAs (o, not qkv): the widening makes an SM
+    with two the tail (measured on the H100; PERF.md)."""
     for name, v in (("m", m), ("K", K), ("N", N), ("G", G), ("n_sms", n_sms)):
         if type(v) is not int or v < (0 if name == "G" else 1):
             raise TypeError(f"gemv_plan takes Python ints, got {name}={v!r}")
+    if (G and K % G) or k4_route(m, K, N, G, not bf16_x) != "gemv":
+        raise ValueError(f"no GEMV plan for m = {m}, K = {K}, N = {N}, G = {G}")
     gsize = K // G if G else K
-    if m > GEMV_MAX_ROWS or K % KERNEL_K_MULTIPLE or (G and K % G) or gsize % KERNEL_K_MULTIPLE:
-        raise ValueError(f"no GEMV plan for m = {m}, K = {K}, G = {G}")
-    slice_k = next(s for s in GEMV_SLICES if gsize % s == 0)
+    fold = gsize == KERNEL_GROUP_MULTIPLE
+    if fold:
+        slice_k = next(s for s in GEMV_SLICES if K % s == 0)
+    else:
+        slice_k = next((s for s in GEMV_SLICES if gsize % s == 0), None) or max(
+            s for s in range(KERNEL_GROUP_MULTIPLE, GEMV_SLICES[0] + 1, KERNEL_GROUP_MULTIPLE)
+            if gsize % s == 0)
     n_slices, n_tiles = K // slice_k, -(-N // GEMV_COLS)
     n_units = n_slices * n_tiles
     n_workers = min(n_sms * GEMV_WARPS_PER_SM, n_units)
     tile_ctas = (n_workers == n_units and n_slices <= GEMV_TILE_CTA_SLICES
                  and (not bf16_x or n_tiles <= n_sms))
-    return GemvPlan(slice_k, n_slices, n_tiles, n_units, n_workers, tile_ctas)
+    return GemvPlan(slice_k, n_slices, n_tiles, n_units, n_workers, tile_ctas, fold)
 
 
 def w4_gemv_tiled_ref(x, x_scale, wp, w_scale, n_sms: int, out_dtype=torch.bfloat16):
     """The GEMV's partition and combine in plain torch on the CPU, as
     ``gemv_plan`` lays them out for ``n_sms`` SMs: each worker's units in turn,
-    every unit's slice sums into a workspace (int32 sums of 16 times each
-    nibble for int8 x, fp32 for bf16 x), and when a tile's last slice has
-    arrived its combine: the slices added in order (shifted right by 4 for
-    int8 x), per channel ``float(acc) * x_scale * w_scale``, with group
-    scales each group's sum scaled and added in group order, then x_scale.
-    Equal to :func:`w4_matmul_ref` bit for bit for int8 x. Counts as no call
-    of either version."""
+    every unit's slice sum into a workspace, and when a tile's last slice has
+    arrived its combine. A slice sum is the int32 sum of 16 times each nibble
+    for int8 x, fp32 for bf16 x; the combine adds the slices in order
+    (shifted right by 4 for int8 x), per channel ``float(acc) * x_scale *
+    w_scale``, with group scales each group's sum scaled and added in group
+    order, then x_scale. Equal to :func:`w4_matmul_ref` bit for bit for int8
+    x. With groups of 32 (``fold``) a slice sum is its groups' sums (int32,
+    shifted right by 4, for int8 x), each scaled by its group's scale and
+    added in fp32 in group order; the combine adds the slices in fp32 in
+    order, then x_scale: the plain version's terms in another association,
+    within ``G 2^-23 sum_g |term_g| |x_scale|`` of it. Counts as no call of
+    either version."""
     N, K = wp.shape[0], 2 * wp.shape[1]
     m = x.numel() // K
     G = _n_groups(w_scale, N, K)
@@ -282,22 +332,36 @@ def w4_gemv_tiled_ref(x, x_scale, wp, w_scale, n_sms: int, out_dtype=torch.bfloa
     arrived = [0] * plan.n_tiles
     y = torch.empty(m, N, dtype=out_dtype)
     per_group = plan.n_slices // max(G, 1)
-    S = plan.slice_k
+    S, g32 = plan.slice_k, KERNEL_GROUP_MULTIPLE
+    if plan.fold:  # every unit's slice sum at once (each its groups' sums, scaled, in order)
+        sums = (x2.reshape(m, K // g32, g32).transpose(0, 1)
+                @ w.reshape(N, K // g32, g32).permute(1, 2, 0))  # [K / 32, m, N]
+        scaled = ((sums >> 4).float() if int_x else sums) * ws[:, None, :]
+        work = scaled[0::S // g32]
+        for gi in range(1, S // g32):
+            work = work + scaled[gi::S // g32]
     for worker in range(plan.n_workers):
         for u in plan.units(worker):
             tile, s = divmod(u, plan.n_slices)
             cols = slice(tile * GEMV_COLS, (tile + 1) * GEMV_COLS)
-            work[s, :, cols] = x2[:, s * S:(s + 1) * S] @ w[cols, s * S:(s + 1) * S].t()
+            if not plan.fold:
+                work[s, :, cols] = x2[:, s * S:(s + 1) * S] @ w[cols, s * S:(s + 1) * S].t()
             arrived[tile] += 1
             if arrived[tile] < plan.n_slices:
                 continue
-            acc = None
-            for gi in range(max(G, 1)):
-                part = work[gi * per_group, :, cols]
-                for s2 in range(gi * per_group + 1, (gi + 1) * per_group):
-                    part = part + work[s2, :, cols]
-                v = (part >> 4).float() if int_x else part
-                acc = v if not G else (v * ws[gi, cols] if acc is None else acc + v * ws[gi, cols])
+            if plan.fold:  # the slices in order, each scaled already
+                acc = work[0, :, cols]
+                for s2 in range(1, plan.n_slices):
+                    acc = acc + work[s2, :, cols]
+            else:
+                acc = None
+                for gi in range(max(G, 1)):
+                    part = work[gi * per_group, :, cols]
+                    for s2 in range(gi * per_group + 1, (gi + 1) * per_group):
+                        part = part + work[s2, :, cols]
+                    v = (part >> 4).float() if int_x else part
+                    acc = v if not G else (v * ws[gi, cols] if acc is None
+                                           else acc + v * ws[gi, cols])
             if int_x:
                 acc = acc * x_scale.reshape(m, 1).float()
             if not G:
@@ -336,21 +400,13 @@ def _launch_kernel(x, x_scale, wp, w_scale, out_dtype):
     dev = x.device
     if out_dtype != torch.bfloat16:
         raise TypeError(f"the w4_matmul kernel writes bfloat16, got out_dtype {out_dtype}")
-    if K % KERNEL_K_MULTIPLE or N % KERNEL_N_MULTIPLE or m < 1:
-        raise ValueError(
-            f"the w4_matmul kernel takes K a multiple of {KERNEL_K_MULTIPLE} and N a "
-            f"multiple of {KERNEL_N_MULTIPLE}, got m = {m}, K = {K}, N = {N}"
-        )
     G = _n_groups(w_scale, N, K)
-    if G and (K // G) % KERNEL_K_MULTIPLE:
-        raise ValueError(
-            f"group size {K // G} is not a multiple of the kernel's k-step {KERNEL_K_MULTIPLE}"
-        )
     int_x = x.dtype == torch.int8
     if not int_x and x.dtype != torch.bfloat16:
         raise TypeError(f"x must be int8 (with x_scale) or bfloat16 for the kernel, got {x.dtype}")
     if int_x != (x_scale is not None):
         raise ValueError("int8 x comes with x_scale, bfloat16 x without")
+    route = k4_route(m, K, N, G, int_x)
     x2 = x.reshape(m, K)
     _launch.check_contiguous_cuda("x", x2, x.dtype, (m, K), dev)
     _launch.check_contiguous_cuda("wp", wp, torch.int8, (N, K // 2), dev)
@@ -364,7 +420,7 @@ def _launch_kernel(x, x_scale, wp, w_scale, out_dtype):
     out = torch.empty(m, N, dtype=torch.bfloat16, device=dev)
     work = arrivals = None  # held until the launch is enqueued
     slice_k = n_workers = tile_ctas = 0
-    if m <= GEMV_MAX_ROWS:
+    if route == "gemv":
         plan = gemv_plan(m, K, N, G, _n_sms(dev), bf16_x=not int_x)
         if not plan.tile_ctas:
             arrivals = _arrivals(dev)
@@ -381,6 +437,7 @@ def _launch_kernel(x, x_scale, wp, w_scale, out_dtype):
         )
     cuda_build.check(rc, "w4_matmul")
     counts["kernel"] += 1
+    route_counts[route] += 1
     return out.reshape(*x.shape[:-1], N)
 
 
@@ -394,10 +451,10 @@ def w4_matmul(
     """``y = (x @ unpack(wp).T) * x_scale * w_scale`` without the unpacked
     weights ever reaching device memory; returns [..., N] in ``out_dtype``.
     Leading dims of x are flattened; x without rows gives an empty output
-    and launches nothing. CUDA tensors go through the kernel (K a
-    multiple of 64, groups of a multiple of 64 in-rows, N a multiple of 8,
-    bf16 output; anything else raises), CPU tensors through
-    :func:`w4_matmul_ref`."""
+    and launches nothing. CUDA tensors go through the kernel that
+    ``k4_route`` picks for the shape (any m, K, N and groups; bf16 output,
+    int8 or bf16 x, fp32 scales, contiguous; anything else raises), CPU
+    tensors through :func:`w4_matmul_ref`."""
     if wp.dim() != 2 or wp.dtype != torch.int8 or x.shape[-1] != 2 * wp.shape[1]:
         raise ValueError(
             f"wp must be int8 [N, K/2] with K = x.shape[-1]: got {wp.dtype} "

@@ -13,7 +13,7 @@ Each checkout is timed in a process of its own (it imports that checkout's
 package and builds its kernels there). K4 runs at the LLM's four quantized
 projections, (K, N) = (3584, 4608) qkv fused, (3584, 3584) o, (3584, 37888)
 gate_up fused and (18944, 3584) down, per output channel and with groups of
-512 in-rows. With int8 x at m = 1 (a decode step), 731 (the 378 px image's
+512 in-rows (and of 32 where the checkout's K4 takes them). With int8 x at m = 1 (a decode step), 731 (the 378 px image's
 prefill) and 4902 (the 980 px image's), beside one ``torch._int_mm`` on the
 same x and the unpacked int8 weight (rows padded to 17 below that); with bf16
 x at m = 731 and 4902, beside one ``torch.mm`` of x by the weight unpacked,
@@ -31,7 +31,7 @@ many-row path too.
 
 ``--gemv`` instead times K4's GEMV as a decode step meets it, cold: at the
 four projections, m = 1, 2, 3, 4, int8 x and bf16 x, per channel and with
-groups of 512, each case in a CUDA graph of 20 calls that rotate over copies
+groups of 512 (and of 32, as above), each case in a CUDA graph of 20 calls that rotate over copies
 of the packed weight and its scales, as many as exceed twice the card's L2
 (``cold_copies``), so that every call reads its weight from HBM as a decode
 step reads each layer's; beside it the bound and the yardstick on the same
@@ -161,6 +161,12 @@ def graph_ms(fn, run: int = RUN) -> list:
     return [round(r / run, 5) for r in run_ms(graph.replay)]
 
 
+def group_sizes(w4) -> tuple:
+    """K4's group sizes timed in a checkout: 512, and 32 where its kernels
+    take groups of 32 (``k4_route``)."""
+    return (GROUP, 32) if hasattr(w4, "k4_route") else (GROUP,)
+
+
 def k4_bound_ms(m: int, K: int, N: int, groups: int, bf16_x: bool = False) -> float:
     x_bytes = 2 * m * K if bf16_x else m * K + 4 * m
     n_bytes = x_bytes + N * K // 2 + 4 * N * max(groups, 1) + 2 * m * N
@@ -189,9 +195,9 @@ def _worker(checkout: str) -> None:
     for name, (K, N) in PROJECTIONS.items():
         wq = int8(N, K, lo=-8, hi=8)
         wp = w4.pack_int4(wq)
-        for groups in (0, K // GROUP):
+        for groups in (0, *(K // size for size in group_sizes(w4))):
             ws = torch.rand((groups, N) if groups else (N,), generator=g, device="cuda") * 0.01
-            kind = "group 512" if groups else "per channel"
+            kind = f"group {K // groups}" if groups else "per channel"
             for m in ROWS:
                 x = int8(m, K)
                 xs = torch.rand(m, 1, generator=g, device="cuda") * 0.05 + 0.001
@@ -344,8 +350,8 @@ def _gemv_worker(checkout: str) -> None:
         wqs = [wq] + [wq.clone() for _ in range(cold_copies(wq.numel()) - 1)]
         wb = (wq.float() * ws0[:, None]).to(torch.bfloat16)
         wbs = [wb] + [wb.clone() for _ in range(cold_copies(2 * wb.numel()) - 1)]
-        for groups in (0, K // GROUP):
-            kind = "group 512" if groups else "per channel"
+        for groups in (0, *(K // size for size in group_sizes(w4))):
+            kind = f"group {K // groups}" if groups else "per channel"
             ws = torch.rand((groups, N) if groups else (N,), generator=g, device="cuda") * 0.01
             copies = [(wp, ws)] + [(wp.clone(), ws.clone()) for _ in range(
                 cold_copies(wp.numel() + 4 * ws.numel()) - 1)]
@@ -371,7 +377,7 @@ def _gemv_worker(checkout: str) -> None:
             del copies
         del wqs, wbs, wb
     for xname in ("int8 x", "bf16 x"):
-        for kind in ("per channel", "group 512"):
+        for kind in ("per channel", *(f"group {size}" for size in group_sizes(w4))):
             rows = [out["gemv"][f"{name} m=1 {xname} {kind}"] for name in PROJECTIONS]
             out["layer_m1"][f"{xname} {kind}"] = {
                 "ms": round(sum(statistics.median(r["ms"]) for r in rows), 5),
